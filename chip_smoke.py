@@ -4,10 +4,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the flagship ``configs/demo_spot.json``
-(1,007 particles, 4,068 tets, implicit CG in normal-equations mode,
-``sim_count = 10``) — through ``fem_tpu_torch.entry`` and ``make_frame_fn``,
-and holds every CUDA kernel of that path against its plain PyTorch version:
+Drives the port on the flagship ``configs/demo_spot.json`` (1,007
+particles, 4,068 tets, implicit CG in normal-equations mode,
+``sim_count = 10``) through its three paths, and holds every CUDA kernel
+of those paths against its plain PyTorch version:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: every kernel from ``fem_tpu_torch/csrc/`` with nvcc for sm_90a,
@@ -17,21 +17,36 @@ and holds every CUDA kernel of that path against its plain PyTorch version:
 4. K4, the whole CG solve, against ``fused_cg_solve_plain`` with
    ``preconditioned`` 0 and 1 (velocity rtol 5e-4 / atol 1e-6, iterations
    within 1), and twice on the same inputs, bit-identical;
-5. the main path: ≥ 30 frames × 10 substeps from the deformed state, with
-   each kernel's launch counter set to 0 just before and required to equal
-   frames × 10 just after; positions finite, and the first frame equal to
-   the plain versions' frame on the CPU to 1e-5;
-6. where a frame's device time goes and the device's busy share, both from
-   one window of 30 frames under torch.profiler; each kernel's device time
-   per launch (profiler; the run fails if it sees no launch of the kernel),
-   the plain versions' times (CUDA events per call) and the least time the
-   card could take (bound), printed as one ``kernels`` JSON line.
+5. K2, the blocked prep, and K3, the blocked operator (both transposes),
+   against their plain versions (K block-relative ≤ 1e-5, partials and
+   G(K)·x within 1e-5 of their largest entry), each twice bit-identical;
+6. K5, the whole frame, against ``fused_blocked_frame_plain`` on the card,
+   ``preconditioned`` 0 and 1, with and without velocity noise: positions
+   within 1e-5, iterations within 1 per substep, two runs bit-identical;
+7. path A, the flagship frame (``sim.make_frame_fn``): 30 frames from the
+   deformed state; K5 launches once a frame and K1, K4, K2, K3 never;
+   positions finite; the first frame equals the CPU plain frame to 1e-5
+   with equal iterations; steps/s;
+8. path B, the blocked operator (``operator_mode="blocked"``): a few
+   frames; K2 launches frames × 10 times and K3 Σ(3 + 2·iterations) times;
+   the first frame equals the CPU frame to 1e-5; steps/s;
+9. path C, the substep entry (``fem_tpu_torch.entry.entry``): 10
+   substeps; K1 and K4 launch once a substep; the first substep equals the
+   CPU plain substep to 1e-5; steps/s (one substep a call);
+10. where a path-A frame's device time goes and the device's busy share,
+    from one window of 30 frames under torch.profiler, beside the same for
+    the op-composed K1 + K4 frame; each kernel's device time per launch
+    (profiler; the run fails if it sees no launch of it), its plain
+    version's time (CUDA events), the least time the card could take
+    (bound) and, for K3, one PyTorch sparse product of the assembled G(K)
+    (library yardstick), printed as one ``kernels`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
 CUDA device, or without the repository beside it, it exits non-zero at once.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,14 +54,19 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-FRAMES = 30
+FRAMES = 30  # path A, and each profiled window
+FRAMES_B = 3  # path B: its CG loop reads |r|^2 on the host every iteration
+SUBSTEPS_C = 10  # path C
 
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # f32 operations per tet of the element chain (F, det, F⁻¹, the K and rhs
-# products, logs, scaling), counted from the formulas in element_chain.cu.
+# products, logs, scaling), counted from the formulas in element_chain.cuh.
 K1_OPS_PER_TET = 430
+# f32 operations per tet of one G(K)·x apply: edge differences, three 3×3
+# products, the vertex-0 sum.
+APPLY_OPS_PER_TET = 72
 
 
 def require(cond, what):
@@ -68,9 +88,10 @@ def card_line():
 
 
 def block_rel_err(got, ref):
-    """max |got − ref| / max|ref_e|, over the 3×3 blocks e."""
-    scale = ref.abs().reshape(ref.shape[0], -1).amax(dim=1)[:, None, None]
-    return float(((got - ref).abs() / scale).max())
+    """max |got − ref| / max|ref_e|, over the 3×3 blocks e (padded blocks,
+    zero in both, count 0)."""
+    scale = ref.abs().reshape(ref.shape[0], -1).amax(dim=1).clamp(min=1e-30)
+    return float(((got - ref).abs() / scale[:, None, None]).max())
 
 
 def cuda_ms(torch, fn, reps):
@@ -114,17 +135,22 @@ def profile_kernels(torch, fn, reps):
     return out, wall_ms
 
 
-def kernel_ms(torch, fn, reps, name):
-    """Device milliseconds per launch of the kernel whose name contains
-    ``name``, from the profiler over ``reps`` calls of ``fn``, each of which
-    launches it once; raises if the profiler saw no launch of it.  (CUPTI
-    may miss a launch at the window's edge, so the mean is over those seen.)"""
+def kernel_ms(torch, fn, reps, names):
+    """Device milliseconds per call of ``fn``, each of which launches every
+    kernel of ``names`` once: the sum over ``names`` of the kernel's mean
+    time per launch, from the profiler over ``reps`` calls.  Raises if the
+    profiler saw no launch of one of them.  (CUPTI may miss a launch at the
+    window's edge, so each mean is over those seen.)"""
     per_kernel, _ = profile_kernels(torch, fn, reps)
-    hits = [v for k, v in per_kernel.items() if name in k]
-    launches = sum(c for _, c in hits)
-    require(0 < launches <= reps,
-            f"the profiler saw {launches} launches of {name} in {reps} calls")
-    return sum(t for t, _ in hits) / launches
+    total = 0.0
+    for name in names:
+        hits = [v for k, v in per_kernel.items() if name in k]
+        launches = sum(c for _, c in hits)
+        require(0 < launches <= reps,
+                f"the profiler saw {launches} launches of {name} in {reps} "
+                "calls")
+        total += sum(t for t, _ in hits) / launches
+    return total
 
 
 def nbytes(*tensors):
@@ -136,12 +162,61 @@ def cg_ops(e, n, iterations, normal):
     iterations: 72 per tet per G apply (edge differences, three 3×3
     products, the vertex-0 sum, the 12 gathered rows) plus the per-unknown
     vector work."""
-    g_apply = 72 * e
+    g_apply = APPLY_OPS_PER_TET * e
     apply_a = g_apply + 9 * n
     apply_at = g_apply + 12 * n
     op = apply_a + apply_at if normal else apply_a
     setup = 12 * e + 9 * n + (apply_at if normal else 0) + op + 9 * n
     return setup + iterations * (op + 30 * n)
+
+
+def frame_ops(e, n, slot_rows, iterations, normal):
+    """f32 operations of one whole frame whose substeps took
+    ``iterations``: per substep the chain and force rows, the rhs, the
+    applies of its CG (each a G(K)·x, its slot sums and its vector work), the
+    CG's vector work and the advection."""
+    apply = APPLY_OPS_PER_TET * e + 3 * slot_rows + 12 * n
+    total = 0
+    for it in iterations:
+        applies = 3 + 2 * it if normal else 1 + it
+        total += ((K1_OPS_PER_TET + 12) * e + 3 * slot_rows + 12 * n
+                  + applies * apply + it * 30 * n + 40 * n)
+    return total
+
+
+def bound(nbytes_, ops):
+    """(bound ms, what bounds it) from bytes moved and f32 operations."""
+    t_bytes = nbytes_ / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def graph_matrix(torch, element_indices, K, n):
+    """G(K) as a (3N × 3N) CSR matrix: per tet, +K_e on (v_j, v_j) and
+    −K_e on (v_j, v_0) and (v_0, v_j) for j = 1..3, +3·K_e on (v_0, v_0)
+    (the element-Laplacian pattern of the port's operator)."""
+    import warnings
+
+    warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
+    torch.sparse.check_sparse_tensor_invariants.disable()
+    idx = element_indices.long()
+    v0 = idx[:, 0]
+    rows, cols, vals = [], [], []
+    blocks = [(idx[:, j], idx[:, j], K) for j in (1, 2, 3)]
+    blocks += [(idx[:, j], v0, -K) for j in (1, 2, 3)]
+    blocks += [(v0, idx[:, j], -K) for j in (1, 2, 3)]
+    blocks.append((v0, v0, 3.0 * K))
+    ar = torch.arange(3, device=K.device)
+    for a, b, k in blocks:
+        rows.append((3 * a[:, None, None] + ar[None, :, None]).expand(-1, 3, 3))
+        cols.append((3 * b[:, None, None] + ar[None, None, :]).expand(-1, 3, 3))
+        vals.append(k)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows).reshape(-1), torch.cat(cols).reshape(-1)]),
+        torch.cat(vals).reshape(-1), (3 * n, 3 * n),
+    ).coalesce()
+    return coo.to_sparse_csr()
 
 
 def main():
@@ -157,12 +232,31 @@ def main():
     sys.path.insert(0, REPO)
     import fem_tpu_torch  # noqa: F401  (precision pins)
     from fem_tpu_torch import convert, entry, sim
-    from fem_tpu_torch.ops import cg_kernels, element_kernels
+    from fem_tpu_torch.ops import (
+        blocked_kernels,
+        cg_kernels,
+        element_kernels,
+        frame_kernels,
+    )
     from fem_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    counters = {
+        "element_chain": element_kernels.hessian_and_force,
+        "fused_cg": cg_kernels.fused_cg_solve,
+        "blocked_prep": blocked_kernels.blocked_prep,
+        "blocked_matvec": blocked_kernels.blocked_graph_apply,
+        "blocked_frame": frame_kernels.fused_blocked_frame,
+    }
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
 
     # -- 1. environment -------------------------------------------------------
     nvcc = subprocess.run(
@@ -187,6 +281,10 @@ def main():
     require((obj.particle_cnt, obj.element_cnt) == (1007, 4068),
             f"flagship size {obj.particle_cnt} particles, "
             f"{obj.element_cnt} tets")
+    blk = obj.blocking
+    require((blk.num_blocks, blk.eb, blk.pb) == (17, 256, 128),
+            f"flagship blocking {blk.num_blocks} x ({blk.eb}, {blk.pb})")
+    n, e = obj.particle_cnt, obj.element_cnt
     state = entry.deformed(state0)
     k1_args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
                obj.mu, obj.s_lambda)
@@ -222,131 +320,298 @@ def main():
                     and torch.equal(res, res2), "K4 runs differ")
     log("[K4] two runs bit-identical in every case")
 
-    # -- 5. the main path ----------------------------------------------------
-    frame = sim.make_frame_fn(obj, cfg)
-    warm, _ = frame(state, obstacles)  # warm-up frame, not counted
+    # -- 5. K2 and K3 against their plain versions --------------------------
+    k2_args = (blk, state.pos, obj.mu, obj.s_lambda)
+    Kb, part = blocked_kernels.blocked_prep(*k2_args)
+    Kbp, partp = blocked_kernels.blocked_prep_plain(*k2_args)
+    Kb2, part2 = blocked_kernels.blocked_prep(*k2_args)
     torch.cuda.synchronize()
-    element_kernels.hessian_and_force.launches = 0
-    cg_kernels.fused_cg_solve.launches = 0
+    k2_rel = block_rel_err(Kb, Kbp)
+    k2_part = float((part - partp).abs().max())
+    k2_abs = float(max((Kb - Kbp).abs().max(), k2_part))
+    log(f"[K2] K block-relative error {k2_rel:.3e}; force partials max abs "
+        f"error {k2_part:.3e} of max {float(partp.abs().max()):.3e}")
+    require(k2_rel <= 1e-5, f"K2 block-relative error {k2_rel}")
+    require(k2_part <= 1e-5 * float(partp.abs().max()), "K2 partials")
+    require(torch.equal(Kb, Kb2) and torch.equal(part, part2), "K2 runs differ")
+    k3_abs = 0.0
+    for tr in (False, True):
+        y = blocked_kernels.blocked_graph_apply(blk, Kb, noisy, tr)
+        yp = blocked_kernels.blocked_graph_apply_plain(blk, Kb, noisy, tr)
+        y2 = blocked_kernels.blocked_graph_apply(blk, Kb, noisy, tr)
+        torch.cuda.synchronize()
+        err = float((y - yp).abs().max())
+        k3_abs = max(k3_abs, err)
+        top = float(yp.abs().max())
+        log(f"[K3] transpose_k={int(tr)}: max abs error {err:.3e} of max "
+            f"{top:.3e}")
+        require(top > 0 and err <= 1e-5 * top, f"K3 error {err} of {top}")
+        require(torch.equal(y, y2), "K3 runs differ")
+    log("[K2/K3] two runs bit-identical")
+
+    # -- 6. K5 against its plain version on the card ------------------------
+    frame_kw = dict(dt=cfg.delta_time, damping=obj.damping,
+                    g_dir=tuple(cfg.g_dir), mu=obj.mu, s_lambda=obj.s_lambda,
+                    sim_count=cfg.sim_count)
+    k5_abs = 0.0
+    for label, vel in (("deformed", state.vel), ("deformed+noise", noisy)):
+        for pre in (False, True):
+            args = (blk, state.pos, vel, state.vel_g, obj.mass,
+                    obstacles.centers, obstacles.radii)
+            out = frame_kernels.fused_blocked_frame(
+                *args, preconditioned=pre, **frame_kw)
+            ref = frame_kernels.fused_blocked_frame_plain(
+                *args, preconditioned=pre, **frame_kw)
+            again = frame_kernels.fused_blocked_frame(
+                *args, preconditioned=pre, **frame_kw)
+            torch.cuda.synchronize()
+            err = float((out[0] - ref[0]).abs().max())
+            k5_abs = max(k5_abs, err)
+            it, itp = out[3].tolist(), ref[3].tolist()
+            log(f"[K5] {label} preconditioned={int(pre)}: iterations {it} "
+                f"(plain {itp}); max |dpos| {err:.3e}, max |dvel| "
+                f"{float((out[1] - ref[1]).abs().max()):.3e}")
+            require(err <= 1e-5, f"K5 positions off by {err}")
+            require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                    "K5 iterations differ")
+            require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                    "K5 runs differ")
+    log("[K5] two runs bit-identical in every case")
+
+    cpu_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
+    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state), "cpu")
+    cpu_obs = type(obstacles)(obstacles.centers.cpu(), obstacles.radii.cpu())
+
+    # -- 7. path A: the flagship frame --------------------------------------
+    frame = sim.make_frame_fn(obj, cfg)
+    warm, warm_aux = frame(state, obstacles)  # warm-up frame, not counted
+    torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     s, auxes = state, []
     for _ in range(FRAMES):
         s, aux = frame(s, obstacles)
         auxes.append(aux)
-    iters = torch.stack([a.solver_iterations for a in auxes]).cpu()
+    iters_a = torch.stack([a.solver_iterations for a in auxes]).cpu()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {
-        "element_chain": element_kernels.hessian_and_force.launches,
-        "fused_cg": cg_kernels.fused_cg_solve.launches,
-    }
+    launches_a = counts()
     substeps = FRAMES * cfg.sim_count
-    log(f"[main] {FRAMES} frames x {cfg.sim_count} substeps in {wall:.4f} s: "
-        f"{substeps / wall:.1f} steps/s; launches {launches}")
-    log(f"[main] CG iterations per substep, by frame: {iters.tolist()}")
-    require(all(n == substeps for n in launches.values()),
-            f"launches {launches} != {substeps}")
+    log(f"[path A] {FRAMES} frames x {cfg.sim_count} substeps in "
+        f"{wall:.4f} s: {substeps / wall:.1f} steps/s; launches {launches_a}")
+    log(f"[path A] CG iterations per substep, by frame: {iters_a.tolist()}")
+    require(launches_a == dict(element_chain=0, fused_cg=0, blocked_prep=0,
+                               blocked_matvec=0, blocked_frame=FRAMES),
+            f"path A launches {launches_a}")
     require(bool(torch.isfinite(s.pos).all()), "non-finite positions")
-
-    cpu_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
-    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state), "cpu")
-    cpu_obs = type(obstacles)(obstacles.centers.cpu(), obstacles.radii.cpu())
-    ref, ref_aux = sim.make_frame_fn(cpu_obj, cfg)(cpu_state, cpu_obs)
+    ref, ref_aux = sim.make_frame_fn(
+        cpu_obj, dataclasses.replace(cfg, frame_backend="blocked"))(
+            cpu_state, cpu_obs)
     pos_err = float((warm.pos.cpu() - ref.pos).abs().max())
-    log(f"[main] first frame vs plain versions on the CPU: max |dpos| "
-        f"{pos_err:.3e}; CPU iterations {ref_aux.solver_iterations.tolist()}")
+    log(f"[path A] first frame vs the CPU plain frame: max |dpos| "
+        f"{pos_err:.3e}; iterations {warm_aux.solver_iterations.tolist()}, "
+        f"CPU {ref_aux.solver_iterations.tolist()}")
     require(pos_err <= 1e-5, f"first frame off the CPU frame by {pos_err}")
+    require(torch.equal(warm_aux.solver_iterations.cpu(),
+                        ref_aux.solver_iterations), "path A iterations differ")
 
-    # -- 6. times and bounds -------------------------------------------------
-    def frames():
-        s = state
-        for _ in range(FRAMES):
-            s, _ = frame(s, obstacles)
+    # -- 8. path B: the blocked operator ------------------------------------
+    cfg_b = dataclasses.replace(cfg, operator_mode="blocked")
+    frame_b = sim.make_frame_fn(obj, cfg_b)
+    zero_counts()
+    t0 = time.perf_counter()
+    s, iters_b = state, []
+    for i in range(FRAMES_B):
+        s, aux = frame_b(s, obstacles)
+        iters_b.append(aux.solver_iterations.cpu())
+        if i == 0:
+            first_b = s
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches_b = counts()
+    iters_b = torch.stack(iters_b)
+    k3_expected = int((3 + 2 * iters_b).sum())
+    log(f"[path B] {FRAMES_B} frames in {wall_b:.4f} s: "
+        f"{FRAMES_B * cfg.sim_count / wall_b:.1f} steps/s; launches "
+        f"{launches_b}; CG iterations {iters_b.tolist()}")
+    require(launches_b == dict(
+        element_chain=0, fused_cg=0, blocked_prep=FRAMES_B * cfg.sim_count,
+        blocked_matvec=k3_expected, blocked_frame=0),
+        f"path B launches {launches_b}, K3 expected {k3_expected}")
+    ref_b, _ = sim.make_frame_fn(cpu_obj, cfg_b)(cpu_state, cpu_obs)
+    pos_err_b = float((first_b.pos.cpu() - ref_b.pos).abs().max())
+    log(f"[path B] first frame vs the CPU frame: max |dpos| {pos_err_b:.3e}")
+    require(pos_err_b <= 1e-5, f"path B off the CPU frame by {pos_err_b}")
+    require(bool(torch.isfinite(s.pos).all()), "path B non-finite positions")
 
-    per_window, prof_wall = profile_kernels(torch, frames, 1)
-    dev_frame_ms = sum(t for t, _ in per_window.values()) / FRAMES
-    prof_frame_ms = prof_wall / FRAMES
-    log(f"[profile] {FRAMES} frames under the profiler: device time "
-        f"{dev_frame_ms:.4f} ms/frame of {prof_frame_ms:.4f} ms/frame wall "
-        f"in the same window: device busy "
-        f"{100 * dev_frame_ms / prof_frame_ms:.1f}%")
-    top = sorted(per_window.items(), key=lambda kv: -kv[1][0])[:8]
-    for key, (total, count) in top:
-        log(f"[profile]   {total / FRAMES:9.4f} ms/frame  "
-            f"{count // FRAMES:4d} launches/frame  {key[:90]}")
+    # -- 9. path C: the substep entry ---------------------------------------
+    fn, (obj_c, state_c, obs_c) = entry.entry(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    s, iters_c = state_c, []
+    for i in range(SUBSTEPS_C):
+        s, aux = fn(obj_c, s, obs_c)
+        iters_c.append(aux.solver_iterations)
+        if i == 0:
+            first_c = s
+    iters_c = torch.stack(iters_c).cpu()
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    launches_c = counts()
+    log(f"[path C] {SUBSTEPS_C} substeps in {wall_c:.4f} s: "
+        f"{SUBSTEPS_C / wall_c:.1f} steps/s; launches {launches_c}; CG "
+        f"iterations {iters_c.tolist()}")
+    require(launches_c == dict(
+        element_chain=SUBSTEPS_C, fused_cg=SUBSTEPS_C, blocked_prep=0,
+        blocked_matvec=0, blocked_frame=0), f"path C launches {launches_c}")
+    require(bool(torch.isfinite(s.pos).all()), "path C non-finite positions")
+    cpu_fn, (cpu_obj_c, cpu_state_c, cpu_obs_c) = entry.entry("cpu")
+    ref_c, _ = cpu_fn(cpu_obj_c, cpu_state_c, cpu_obs_c)
+    pos_err_c = float((first_c.pos.cpu() - ref_c.pos).abs().max())
+    log(f"[path C] first substep vs the CPU substep: max |dpos| "
+        f"{pos_err_c:.3e}")
+    require(pos_err_c <= 1e-5, f"path C off the CPU substep by {pos_err_c}")
 
+    # -- 10. times and bounds ------------------------------------------------
+    def run_frames(frame_fn):
+        def go():
+            s = state
+            for _ in range(FRAMES):
+                s, _ = frame_fn(s, obstacles)
+        return go
+
+    # The op-composed K1 + K4 frame ("graph" is not eligible for K5).
+    frame_k14 = sim.make_frame_fn(
+        obj, dataclasses.replace(cfg, operator_mode="graph"))
+    frame_device_ms = {}
+    for label, frame_fn in (("path A (K5)", frame),
+                            ("op-composed K1 + K4", frame_k14)):
+        per_window, prof_wall = profile_kernels(torch, run_frames(frame_fn), 1)
+        dev_ms = sum(t for t, _ in per_window.values()) / FRAMES
+        frame_device_ms[label] = dev_ms
+        log(f"[profile] {label}: {FRAMES} frames under the profiler: device "
+            f"time {dev_ms:.4f} ms/frame of {prof_wall / FRAMES:.4f} ms/frame "
+            f"wall in the same window: device busy "
+            f"{100 * dev_ms * FRAMES / prof_wall:.1f}%")
+        top = sorted(per_window.items(), key=lambda kv: -kv[1][0])[:6]
+        for key, (total, count) in top:
+            log(f"[profile]   {total / FRAMES:9.4f} ms/frame  "
+                f"{count / FRAMES:6.1f} launches/frame  {key[:80]}")
+
+    # K1
     def k1():
         return element_kernels.hessian_and_force(*k1_args)
 
-    k1_ms = kernel_ms(torch, k1, 200, "hessian_and_force_kernel")
-    k1_call_ms = cuda_ms(torch, k1, 200)
+    k1_ms = kernel_ms(torch, k1, 200, ["hessian_and_force_kernel"])
     k1_plain_ms = cuda_ms(
         torch, lambda: element_kernels.hessian_and_force_plain(*k1_args), 20)
-    k1_bytes = nbytes(state.pos, obj.element_indices, obj.ref_inv, obj.volume,
-                      K, H)
-    k1_bytes_bound = k1_bytes / PEAK_BYTES_PER_S
-    k1_ops_bound = K1_OPS_PER_TET * obj.element_cnt / PEAK_F32_OPS_PER_S
-    k1_bound = max(k1_bytes_bound, k1_ops_bound)
+    k1_bound, k1_by = bound(
+        nbytes(state.pos, obj.element_indices, obj.ref_inv, obj.volume, K, H),
+        K1_OPS_PER_TET * e)
 
+    # K4
     solve = (K, H, obj.element_indices, obj.plan, state.vel, obj.mass,
              cfg.delta_time, True)
-    _, it, _ = cg_kernels.fused_cg_solve(*solve)
-    k4_iters = int(it)
-
-    def k4():
-        return cg_kernels.fused_cg_solve(*solve)
-
-    k4_ms = kernel_ms(torch, k4, 100, "fused_cg_kernel")
-    k4_call_ms = cuda_ms(torch, k4, 100)
+    k4_iters = int(cg_kernels.fused_cg_solve(*solve)[1])
+    k4_ms = kernel_ms(torch, lambda: cg_kernels.fused_cg_solve(*solve), 100,
+                      ["fused_cg_kernel"])
     k4_plain_ms = cuda_ms(
         torch, lambda: cg_kernels.fused_cg_solve_plain(*solve), 5)
-    out_v = torch.empty_like(state.vel)
-    k4_bytes = nbytes(K, H, obj.element_indices, obj.plan.ptr, obj.plan.rows,
-                      state.vel, obj.mass, out_v) + 8
-    k4_bytes_bound = k4_bytes / PEAK_BYTES_PER_S
-    k4_ops_bound = cg_ops(obj.element_cnt, obj.particle_cnt, k4_iters,
-                          True) / PEAK_F32_OPS_PER_S
-    k4_bound = max(k4_bytes_bound, k4_ops_bound)
-    log(f"[time] K1 {k1_ms:.5f} ms a launch on the device (profiler); plain "
-        f"{k1_plain_ms:.4f} ms; bound {k1_bound * 1e3:.6f} ms")
-    log(f"[time] K1 wrapper call {k1_call_ms:.5f} ms (CUDA events, launch "
-        f"and checks included)")
-    log(f"[time] K4 {k4_ms:.5f} ms a launch on the device (profiler), at "
-        f"{k4_iters} iterations; plain {k4_plain_ms:.4f} ms; bound "
-        f"{k4_bound * 1e3:.6f} ms; card {card}")
-    log(f"[time] K4 wrapper call {k4_call_ms:.5f} ms (CUDA events, launch "
-        f"and checks included)")
+    k4_bound, k4_by = bound(
+        nbytes(K, H, obj.element_indices, obj.plan.ptr, obj.plan.rows,
+               state.vel, obj.mass, state.vel) + 8,
+        cg_ops(e, n, k4_iters, True))
+
+    # K2
+    tables = (blk.block_particles, blk.plus, blk.minus, blk.block_elements,
+              blk.local_ptr, blk.local_rows)
+    k2_ms = kernel_ms(torch, lambda: blocked_kernels.blocked_prep(*k2_args),
+                      200, ["blocked_prep_kernel"])
+    k2_plain_ms = cuda_ms(
+        torch, lambda: blocked_kernels.blocked_prep_plain(*k2_args), 20)
+    k2_bound, k2_by = bound(
+        nbytes(state.pos, blk.ref_inv, blk.volume, *tables, Kb, part),
+        K1_OPS_PER_TET * e)
+
+    # K3
+    k3_args = (blk, Kb, noisy, False)
+    y = blocked_kernels.blocked_graph_apply(*k3_args)
+    k3_ms = kernel_ms(
+        torch, lambda: blocked_kernels.blocked_graph_apply(*k3_args), 200,
+        ["blocked_matvec_kernel", "slot_sum_kernel"])
+    k3_plain_ms = cuda_ms(
+        torch, lambda: blocked_kernels.blocked_graph_apply_plain(*k3_args), 20)
+    slot_rows = blk.slot_plan.rows.numel()
+    k3_bound, k3_by = bound(
+        nbytes(Kb, noisy, *tables, blk.slot_plan.ptr, blk.slot_plan.rows,
+               part, y),
+        APPLY_OPS_PER_TET * e + 3 * slot_rows)
+    gmat = graph_matrix(torch, obj.element_indices, K, n)
+    xcol = noisy.reshape(-1, 1)
+    lib_y = torch.sparse.mm(gmat, xcol).reshape(n, 3)
+    # The same function: G(K) in element order equals G(K) in block order.
+    lib_err = float((lib_y - y).abs().max())
+    log(f"[K3] torch.sparse.mm of the assembled G(K) vs K3: max abs "
+        f"difference {lib_err:.3e} of max {float(y.abs().max()):.3e}")
+    require(lib_err <= 1e-4 * float(y.abs().max()), "library G(K)·x differs")
+    k3_lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(gmat, xcol), 200)
+
+    # K5
+    k5_args = (blk, state.pos, state.vel, state.vel_g, obj.mass,
+               obstacles.centers, obstacles.radii)
+    k5_out = frame_kernels.fused_blocked_frame(
+        *k5_args, preconditioned=True, **frame_kw)
+    k5_iters = k5_out[3].tolist()
+    k5_ms = kernel_ms(
+        torch, lambda: frame_kernels.fused_blocked_frame(
+            *k5_args, preconditioned=True, **frame_kw),
+        FRAMES, ["blocked_frame_kernel"])
+    k5_plain_ms = cuda_ms(
+        torch, lambda: frame_kernels.fused_blocked_frame_plain(
+            *k5_args, preconditioned=True, **frame_kw), 3)
+    k5_bound, k5_by = bound(
+        nbytes(blk.ref_inv, blk.volume, *tables, blk.slot_plan.ptr,
+               blk.slot_plan.rows, obj.mass, obstacles.centers,
+               obstacles.radii, state.pos, state.vel, state.vel_g, *k5_out),
+        frame_ops(e, n, slot_rows, k5_iters, True))
+
+    for name, ms, plain, bnd, by, extra in (
+        ("K1", k1_ms, k1_plain_ms, k1_bound, k1_by, ""),
+        ("K4", k4_ms, k4_plain_ms, k4_bound, k4_by, f" at {k4_iters} it."),
+        ("K2", k2_ms, k2_plain_ms, k2_bound, k2_by, ""),
+        ("K3", k3_ms, k3_plain_ms, k3_bound, k3_by,
+         f"; torch.sparse.mm {k3_lib_ms:.5f} ms"),
+        ("K5", k5_ms, k5_plain_ms, k5_bound, k5_by,
+         f" a frame at iterations {k5_iters}"),
+    ):
+        log(f"[time] {name} {ms:.5f} ms a launch on the device (profiler)"
+            f"{extra}; plain {plain:.4f} ms; bound {bnd:.6f} ms ({by}); "
+            f"card {card}")
+
+    def row(name, source, replaces, launches, err, ms, plain, bnd, by, lib,
+            **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=bnd, bound_by=by, library_ms=lib, **extra)
 
     kernels = [
-        {
-            "name": "element_chain",
-            "route": "cuda",
-            "source": "fem_tpu_torch/csrc/element_chain.cu",
-            "replaces": "fem_tpu/ops/pallas_kernels.py:555",
-            "launches": launches["element_chain"],
-            "max_abs_err": k1_abs,
-            "ms": k1_ms,
-            "plain_ms": k1_plain_ms,
-            "bound_ms": k1_bound * 1e3,
-            "bound_by": ("bytes" if k1_bytes_bound >= k1_ops_bound
-                         else "operations"),
-            "library_ms": None,
-        },
-        {
-            "name": "fused_cg",
-            "route": "cuda",
-            "source": "fem_tpu_torch/csrc/fused_cg.cu",
-            "replaces": "fem_tpu/ops/pallas_blocked_cg.py:348",
-            "launches": launches["fused_cg"],
-            "max_abs_err": k4_abs,
-            "ms": k4_ms,
-            "plain_ms": k4_plain_ms,
-            "bound_ms": k4_bound * 1e3,
-            "bound_by": ("bytes" if k4_bytes_bound >= k4_ops_bound
-                         else "operations"),
-            "library_ms": None,
-            "iterations": k4_iters,
-        },
+        row("element_chain", "fem_tpu_torch/csrc/element_chain.cu",
+            "fem_tpu/ops/pallas_kernels.py:555", launches_c["element_chain"],
+            k1_abs, k1_ms, k1_plain_ms, k1_bound, k1_by, None),
+        row("fused_cg", "fem_tpu_torch/csrc/fused_cg.cu",
+            "fem_tpu/ops/pallas_blocked_cg.py:348", launches_c["fused_cg"],
+            k4_abs, k4_ms, k4_plain_ms, k4_bound, k4_by, None,
+            iterations=k4_iters),
+        row("blocked_prep", "fem_tpu_torch/csrc/blocked.cu",
+            "fem_tpu/ops/blocking.py:513", launches_b["blocked_prep"],
+            k2_abs, k2_ms, k2_plain_ms, k2_bound, k2_by, None),
+        row("blocked_matvec", "fem_tpu_torch/csrc/blocked.cu",
+            "fem_tpu/ops/blocking.py:429", launches_b["blocked_matvec"],
+            k3_abs, k3_ms, k3_plain_ms, k3_bound, k3_by, k3_lib_ms),
+        row("blocked_frame", "fem_tpu_torch/csrc/blocked_frame.cu",
+            "fem_tpu/ops/pallas_blocked_frame.py:547",
+            launches_a["blocked_frame"], k5_abs, k5_ms, k5_plain_ms,
+            k5_bound, k5_by, None, iterations=k5_iters),
     ]
     log(json.dumps({"kernels": kernels}))
     log(card)

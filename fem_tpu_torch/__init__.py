@@ -3,10 +3,12 @@
 
 A second package beside the JAX one (which stays the reference): the same
 JSON config schema and reference semantics, with every TPU kernel on the
-ported path rewritten by hand in CUDA C++ for Hopper (``csrc/``).  This slice
-covers the flagship implicit-CG substep: the element chain and the whole CG
-solve run as CUDA kernels on a GPU, and as their plain PyTorch versions on the
-CPU.  The package imports nothing of the JAX package.
+ported path rewritten by hand in CUDA C++ for Hopper (``csrc/``).  The ported
+slices cover the flagship implicit-CG path: the whole frame in one kernel
+over locality blocks (``make_frame_fn``), the blocked operator
+(``operator_mode="blocked"``) and the substep's element chain and whole CG
+solve — CUDA kernels on a GPU, their plain PyTorch versions on the CPU.  The
+package imports nothing of the JAX package.
 
 Precision: all math is float32, as in the JAX package.  Importing the package
 turns TF32 off for matmuls and cuDNN and sets

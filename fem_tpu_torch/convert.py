@@ -5,7 +5,10 @@ The JAX package's ``FemObject``/``SimState`` fields, handed over as a dict of
 numpy arrays plus the static scalars, become the port's objects here — so both
 packages can compute on exactly the same data.  The assembly plan is rebuilt
 from ``element_indices`` (the same host algorithm as the JAX package's
-``build_gather_plan``).  Only numpy crosses this boundary.
+``build_gather_plan``), and so are the locality blocks, from
+``element_indices``, ``ref_inv``, ``volume`` and ``rest_pos`` (the same
+partition as the JAX package's ``build_blocking``).  Only numpy crosses this
+boundary.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from fem_tpu_torch.models.state import FemObject, SimState
 from fem_tpu_torch.ops.assembly import make_gather_plan
+from fem_tpu_torch.ops.blocking import build_blocking
 from fem_tpu_torch.utils.device import resolve_device
 
 OBJECT_ARRAYS = ("element_indices", "ref_inv", "volume", "mass", "rest_pos", "faces")
@@ -60,8 +64,13 @@ def object_from_arrays(
         tensors[name] = torch.tensor(a, device=dev)
     idx = np.asarray(arrays["element_indices"]).astype(np.int32)
     plan = make_gather_plan(idx, int(statics["particle_cnt"]), dev)
+    blocking = build_blocking(
+        idx, arrays["ref_inv"], arrays["volume"],
+        np.asarray(arrays["rest_pos"], np.float32), device=dev,
+    )
     return FemObject(
-        **tensors, plan=plan, **{k: statics[k] for k in OBJECT_STATICS}
+        **tensors, plan=plan, blocking=blocking,
+        **{k: statics[k] for k in OBJECT_STATICS},
     )
 
 

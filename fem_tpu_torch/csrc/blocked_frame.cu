@@ -1,0 +1,500 @@
+// K5: one rendered frame — sim_count implicit-CG substeps, each the blocked
+// prep, the rhs assembly, the reference CG solve and the implicit advection —
+// in one cooperative launch.
+//
+// Replaces the TPU kernel fem_tpu/ops/pallas_blocked_frame.py:_frame_kernel
+// (reached through fused_blocked_frame), elastic Neo-Hookean branch.  The
+// TPU kernel runs on one core over VMEM-resident one-hot tables (s_dense,
+// g_dense, the pj/psum selection tensors) with 3-plane bf16 dots and
+// (8, 128)-padded planes; none of that is semantics and none is carried
+// over: this kernel indexes directly and computes in plain f32.
+//
+// Semantics, unchanged (fused_blocked_frame's contract):
+//   per substep: K_e and force columns at pos (the shared chain,
+//   element_chain.cuh); b = v + dt f / m; the reference CG — x_0 = b,
+//   normal equations A^T A x = A^T b when `normal`, else A x = b, while
+//   it < max_iter && |r|^2 > tol — with A v = v - dt^2 G(K) v / m and
+//   A^T v = v - dt^2 G(K^T)(v / m); then advection: vel_g gains 9.8 g dt,
+//   both channels decay by exp(-dt damping), the lower wall zeroes both
+//   channels and the upper wall zeroes vel but not vel_g, circles project
+//   in obstacle order (radius 0 never hits), pos += (vel + vel_g) dt.
+//
+// Design.  One thread block per locality block (17 on the flagship, grid-
+// stride when a mesh has more blocks than the grid): each CTA keeps the K
+// blocks of the locality blocks it owns in shared memory for the whole
+// solve, and phases that cross blocks are separated by grid barriers
+// (cooperative_groups::this_grid().sync(); the launch is cooperative, so
+// the grid is co-resident or the launch fails — it never hangs).  An
+// operator apply is a per-block local product (blocked_common.cuh), a grid
+// barrier, and a per-particle sum over its block slots.  A dot product is a
+// per-CTA partial in a fixed order, a barrier, and a sum of all CTAs'
+// partials in index order done by every CTA, so every CTA holds the same
+// alpha and beta and two runs are bit-identical.  The partials and the
+// per-slot buffers alternate between two copies, so a fast CTA's next write
+// never lands on what a slow CTA is still reading.  Data written by another
+// CTA in the same launch is read past L1 (__ldcg).
+//
+// Bound on the H100: operations — a flagship frame at 29 CG iterations is
+// ~47 MFLOP, 0.7 us at 67 TFLOP/s f32, and its bytes take less; what sets
+// the time is the chain of ~6 grid barriers per CG iteration and the
+// per-block work done by one SM each.  A first kernel that is right; fewer barriers and
+// more SMs per block are later work.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "blocked_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+}  // namespace
+
+// The Python side mirrors this layout (ops/frame_kernels.py: FrameArgsC).
+struct FemFrameArgs {
+  fem::BlockTables T;
+  const int* slot_ptr;   // (N+1,) slot plan
+  const int* slot_rows;  // flat block slots b*Pb+p
+  const float* pos_in;   // (N, 3)
+  const float* vel_in;
+  const float* velg_in;
+  const float* mass;     // (N,)
+  const float* centers;  // (O, 3)
+  const float* radii;    // (O,)
+  int n;
+  int n_obst;
+  int sim_count;
+  int max_iter;
+  int normal;
+  float dt;
+  float dt2;
+  float decay;
+  float g0, g1, g2;  // 9.8 g_dir
+  float mu;
+  float lam;
+  float half_lam;
+  float tol;
+  float* pos;      // (N, 3) outputs, the state through the frame
+  float* vel;
+  float* velg;
+  float* scratch;  // see frame_scratch_floats
+  int* iters;      // (S,)
+  float* res;      // (S,)
+};
+
+namespace {
+
+struct Vecs {
+  float* minv;      // (N,)
+  float* x;         // (N, 3) each below
+  float* r;
+  float* d;
+  float* q;
+  float* u;
+  float* z;
+  float* part[2];   // (B*Pb, 3) per-slot partials, two copies
+  float* dots;      // (2, grid) per-CTA dot-product partials
+};
+
+__device__ Vecs carve(const FemFrameArgs& a) {
+  Vecs v;
+  const size_t n3 = 3 * static_cast<size_t>(a.n);
+  const size_t slots = 3 * static_cast<size_t>(a.T.num_blocks) * a.T.pb;
+  v.minv = a.scratch;
+  v.x = v.minv + a.n;
+  v.r = v.x + n3;
+  v.d = v.r + n3;
+  v.q = v.d + n3;
+  v.u = v.q + n3;
+  v.z = v.u + n3;
+  v.part[0] = v.z + n3;
+  v.part[1] = v.part[0] + slots;
+  v.dots = v.part[1] + slots;
+  return v;
+}
+
+// Sum of `v` over the CTA in a fixed order; every thread gets the total.
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kWarps ? red[lane] : 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) red[32] = v;
+  }
+  __syncthreads();
+  const float total = red[32];
+  __syncthreads();
+  return total;
+}
+
+struct Frame {
+  const FemFrameArgs& a;
+  Vecs v;
+  cg::grid_group grid;
+  float* ksh;  // K blocks of the owned locality blocks
+  float* xs;   // one block's particle rows
+  float* t;    // one block's contribution rows
+  float* red;
+  float* bcast;
+  int buf;     // which half of `dots` the next dot product uses
+  int first;   // this thread's first particle, and the stride
+  int stride;
+
+  // Sum over the grid of each thread's `part`, identical in every CTA.
+  __device__ float grid_sum(float part) {
+    const float s = block_sum(part, red);
+    float* dots = v.dots + buf * gridDim.x;
+    if (threadIdx.x == 0) __stcg(dots + blockIdx.x, s);
+    grid.sync();
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+      for (int i = 0; i < static_cast<int>(gridDim.x); ++i) total += __ldcg(dots + i);
+      *bcast = total;
+    }
+    __syncthreads();
+    const float total = *bcast;
+    buf ^= 1;
+    return total;
+  }
+
+  // Per-slot partials `out` of the element-Laplacian product of every
+  // owned block's K (K^T when `transpose`) with `src`.  `src` must be
+  // complete (a grid barrier since its last write).
+  __device__ void local_products(const float* src, bool transpose, float* out) {
+    const fem::BlockTables& T = a.T;
+    for (int b = blockIdx.x, ib = 0; b < T.num_blocks; b += gridDim.x, ++ib) {
+      fem::load_block_rows(T, b, src, xs);
+      __syncthreads();
+      const int nel = T.block_elements[b];
+      for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+        fem::element_apply(T, b, e, xs, ksh + 9 * (ib * T.eb + e), transpose,
+                           t + 12 * e);
+      }
+      __syncthreads();
+      fem::block_slot_sums(T, b, t, out + 3 * b * T.pb);
+      __syncthreads();
+    }
+  }
+
+  // K blocks into shared memory and force partials into `out`, at a.pos.
+  __device__ void prep(float* out) {
+    const fem::BlockTables& T = a.T;
+    for (int b = blockIdx.x, ib = 0; b < T.num_blocks; b += gridDim.x, ++ib) {
+      fem::load_block_rows(T, b, a.pos, xs);
+      __syncthreads();
+      const int nel = T.block_elements[b];
+      for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+        fem::element_prep(T, b, e, xs, a.mu, a.lam, a.half_lam,
+                          ksh + 9 * (ib * T.eb + e), t + 12 * e);
+      }
+      __syncthreads();
+      fem::block_slot_sums(T, b, t, out + 3 * b * T.pb);
+      __syncthreads();
+    }
+  }
+
+  __device__ void slot_sum(const float* part, int p, float* w) {
+    fem::particle_slot_sum(a.slot_ptr, a.slot_rows, part, p, w);
+  }
+
+  // q = op(src) with op = A^T A (normal) or A; for the normal equations
+  // `u` holds A src.  Returns sum_p src . q over this thread's particles.
+  // Ends with the slot sums read; the caller's grid_sum is the barrier.
+  __device__ float apply_op(const float* src, float* qv) {
+    local_products(src, false, v.part[0]);
+    grid.sync();
+    float part = 0.0f;
+    if (a.normal) {
+      for (int p = first; p < a.n; p += stride) {
+        float w[3];
+        slot_sum(v.part[0], p, w);
+        const float mi = v.minv[p];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float uc = __ldcg(src + 3 * p + c) - a.dt2 * w[c] * mi;
+          v.u[3 * p + c] = uc;
+          v.z[3 * p + c] = uc * mi;
+        }
+      }
+      grid.sync();
+      local_products(v.z, true, v.part[1]);
+      grid.sync();
+      for (int p = first; p < a.n; p += stride) {
+        float w[3];
+        slot_sum(v.part[1], p, w);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float qc = v.u[3 * p + c] - a.dt2 * w[c];
+          qv[3 * p + c] = qc;
+          part += __ldcg(src + 3 * p + c) * qc;
+        }
+      }
+    } else {
+      for (int p = first; p < a.n; p += stride) {
+        float w[3];
+        slot_sum(v.part[0], p, w);
+        const float mi = v.minv[p];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float sc = __ldcg(src + 3 * p + c);
+          const float qc = sc - a.dt2 * w[c] * mi;
+          qv[3 * p + c] = qc;
+          part += sc * qc;
+        }
+      }
+    }
+    return part;
+  }
+
+  // The velocity solve of one substep; leaves x and returns (it, |r|^2).
+  __device__ void solve(int* it_out, float* delta_out) {
+    prep(v.part[0]);
+    grid.sync();
+    // b = v + dt f / m into x (x_0 = b); z = b / m for A^T b.
+    for (int p = first; p < a.n; p += stride) {
+      float f[3];
+      slot_sum(v.part[0], p, f);
+      const float mi = v.minv[p];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float bc = a.vel[3 * p + c] + a.dt * f[c] * mi;
+        v.x[3 * p + c] = bc;
+        v.z[3 * p + c] = bc * mi;
+      }
+    }
+    grid.sync();
+    if (a.normal) {
+      // r = A^T b (the rhs), kept in r until op(x_0) is subtracted.
+      local_products(v.z, true, v.part[1]);
+      grid.sync();
+      for (int p = first; p < a.n; p += stride) {
+        float w[3];
+        slot_sum(v.part[1], p, w);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v.r[3 * p + c] = v.x[3 * p + c] - a.dt2 * w[c];
+      }
+      // The grid barriers inside apply_op order these writes of r before
+      // any later read, and z's rewrite after every CTA's read of it.
+    }
+    apply_op(v.x, v.q);
+    float part = 0.0f;
+    for (int p = first; p < a.n; p += stride) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int i = 3 * p + c;
+        const float rhs = a.normal ? v.r[i] : v.x[i];
+        const float ri = rhs - v.q[i];
+        v.r[i] = ri;
+        v.d[i] = ri;
+        part += ri * ri;
+      }
+    }
+    float delta = grid_sum(part);
+    int it = 0;
+    while (it < a.max_iter && delta > a.tol) {
+      const float alpha = delta / grid_sum(apply_op(v.d, v.q));
+      part = 0.0f;
+      for (int p = first; p < a.n; p += stride) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int i = 3 * p + c;
+          v.x[i] += alpha * v.d[i];
+          const float ri = v.r[i] - alpha * v.q[i];
+          v.r[i] = ri;
+          part += ri * ri;
+        }
+      }
+      const float delta_next = grid_sum(part);
+      const float beta = delta_next / delta;
+      for (int p = first; p < a.n; p += stride) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int i = 3 * p + c;
+          v.d[i] = v.r[i] + beta * v.d[i];
+        }
+      }
+      grid.sync();
+      delta = delta_next;
+      ++it;
+    }
+    *it_out = it;
+    *delta_out = delta;
+  }
+
+  // Implicit advection of this thread's particles; vel_in is the solve's x.
+  __device__ void advect() {
+    const float g[3] = {a.g0, a.g1, a.g2};
+    for (int p = first; p < a.n; p += stride) {
+      float pos[3], vel[3], velg[3], vv[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        pos[c] = a.pos[3 * p + c];
+        velg[c] = __fmul_rn(__fadd_rn(a.velg[3 * p + c], __fmul_rn(g[c], a.dt)),
+                            a.decay);
+        vel[c] = __fmul_rn(v.x[3 * p + c], a.decay);
+        vv[c] = __fadd_rn(vel[c], velg[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (pos[c] < 0.0f && vv[c] < 0.0f) vel[c] = velg[c] = vv[c] = 0.0f;
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        // The reference does not zero vel_g at the upper wall.
+        if (pos[c] > 1.0f && vv[c] > 0.0f) vel[c] = vv[c] = 0.0f;
+      }
+      for (int o = 0; o < a.n_obst; ++o) {
+        const float radius = a.radii[o];
+        float disp[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) disp[c] = __fsub_rn(pos[c], a.centers[3 * o + c]);
+        const float dist_sq = __fadd_rn(
+            __fadd_rn(__fmul_rn(disp[0], disp[0]), __fmul_rn(disp[1], disp[1])),
+            __fmul_rn(disp[2], disp[2]));
+        const float toward = __fadd_rn(
+            __fadd_rn(__fmul_rn(vv[0], -disp[0]), __fmul_rn(vv[1], -disp[1])),
+            __fmul_rn(vv[2], -disp[2]));
+        if (dist_sq < radius * radius && toward > 0.0f && radius > 0.0f) {
+          const float denom = fmaxf(dist_sq, 1e-30f);
+          float* chans[3] = {vv, vel, velg};
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            float* u = chans[k];
+            const float dot = __fadd_rn(
+                __fadd_rn(__fmul_rn(u[0], disp[0]), __fmul_rn(u[1], disp[1])),
+                __fmul_rn(u[2], disp[2]));
+            const float s = __fdiv_rn(dot, denom);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) u[c] = __fsub_rn(u[c], __fmul_rn(s, disp[c]));
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        a.pos[3 * p + c] = __fadd_rn(pos[c], __fmul_rn(vv[c], a.dt));
+        a.vel[3 * p + c] = vel[c];
+        a.velg[3 * p + c] = velg[c];
+      }
+    }
+  }
+};
+
+// __grid_constant__: Frame keeps a reference to the parameter, which then
+// stays in the parameter space instead of a per-thread copy.
+__global__ void __launch_bounds__(kThreads, 1)
+    blocked_frame_kernel(const __grid_constant__ FemFrameArgs a) {
+  extern __shared__ float smem[];
+  __shared__ float red[33];
+  __shared__ float bcast;
+  const int bpc = (a.T.num_blocks + gridDim.x - 1) / gridDim.x;
+  Frame fr{a, carve(a), cg::this_grid(), smem, smem + 9 * bpc * a.T.eb,
+           smem + 9 * bpc * a.T.eb + 3 * a.T.pb, red, &bcast, 0,
+           static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x),
+           static_cast<int>(gridDim.x * blockDim.x)};
+  for (int p = fr.first; p < a.n; p += fr.stride) {
+    fr.v.minv[p] = 1.0f / a.mass[p];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      a.pos[3 * p + c] = a.pos_in[3 * p + c];
+      a.vel[3 * p + c] = a.vel_in[3 * p + c];
+      a.velg[3 * p + c] = a.velg_in[3 * p + c];
+    }
+  }
+  fr.grid.sync();
+  for (int s = 0; s < a.sim_count; ++s) {
+    int it;
+    float delta;
+    fr.solve(&it, &delta);
+    fr.advect();
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      a.iters[s] = it;
+      a.res[s] = delta;
+    }
+    fr.grid.sync();
+  }
+}
+
+size_t frame_smem(int grid, int num_blocks, int eb, int pb) {
+  const int bpc = (num_blocks + grid - 1) / grid;
+  return sizeof(float) *
+         (9 * static_cast<size_t>(bpc) * eb + fem::block_work_floats(eb, pb));
+}
+
+}  // namespace
+
+// Floats of scratch the launch needs for `grid` CTAs.
+extern "C" long long fem_blocked_frame_scratch_floats(int n, int num_blocks,
+                                                      int pb, int grid) {
+  return static_cast<long long>(n) + 18LL * n + 6LL * num_blocks * pb +
+         2LL * grid;
+}
+
+// Checks that a cooperative grid of `grid` CTAs (0: one per locality block,
+// at most one per SM) fits the device; writes the grid, its dynamic shared
+// memory and the most co-resident CTAs.  Returns 0, a CUDA error, or
+// -1 (no cooperative launch), -2 (shared memory too large), -3 (the grid
+// cannot be co-resident).
+extern "C" int fem_blocked_frame_plan(int num_blocks, int eb, int pb, int grid,
+                                      int* grid_out, int* smem_out,
+                                      int* max_grid_out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int coop = 0, sms = 0, optin = 0;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!coop) return -1;
+  if (grid <= 0) grid = num_blocks < sms ? num_blocks : sms;
+  if (grid <= 0) grid = 1;
+  const size_t smem = frame_smem(grid, num_blocks, eb, pb);
+  *grid_out = grid;
+  *smem_out = static_cast<int>(smem);
+  *max_grid_out = 0;
+  if (smem > static_cast<size_t>(optin)) return -2;
+  e = cudaFuncSetAttribute(blocked_frame_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, blocked_frame_kernel,
+                                                    kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *max_grid_out = per_sm * sms;
+  if (grid > per_sm * sms) return -3;
+  return 0;
+}
+
+extern "C" int fem_blocked_frame(const FemFrameArgs* args, int grid, int smem,
+                                 void* stream) {
+  FemFrameArgs a = *args;
+  void* params[] = {&a};
+  cudaError_t e = cudaFuncSetAttribute(
+      blocked_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(blocked_frame_kernel), dim3(grid), dim3(kThreads),
+      params, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear the launch error
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* fem_blocked_frame_error(int code) {
+  if (code == -1) return "the device does not support cooperative launches";
+  if (code == -2) return "the K blocks of one CTA exceed its shared memory";
+  if (code == -3) return "the grid cannot be co-resident on the device";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -6,16 +6,10 @@
 // runs k_and_h_chain on component planes (9, E_pad) that XLA gathered and
 // padded to 1,024-lane tiles beforehand.
 //
-// Per tet, with X the edge matrix (columns p_{j+1} - p_0), R = ref_inv and
-// V the rest volume:
-//   F   = X R
-//   K_e = -V [mu R + (mu - lam log max(det F, 1e-4)) F^-T R^T F^-T
-//             + lam tr(F^-1 R) F^-T] R^T
-//   H_e = -V [mu F + (lam/2 log(det F * det F) - mu) F^-T] R^T
-// with the formulas and their order unchanged from k_and_h_chain.  Note the
-// two logarithms: K clamps det F at 1e-4, the rhs squares it (finite for an
-// inverted tet).  Outputs are (E, 3, 3) row-major, the layout
-// hessian_and_force_pallas returns.
+// Per tet, K_e = -V k and H_e = -V h with k and h from the shared chain
+// fem::nh_chain (element_chain.cuh: formulas and their order unchanged from
+// k_and_h_chain) and V the rest volume.  Outputs are (E, 3, 3) row-major,
+// the layout hessian_and_force_pallas returns.
 //
 // Bound on the H100: bytes.  Per tet it reads 4 indices (16 B), 4 vertex
 // positions (48 B, from L2 after first touch), R (36 B) and V (4 B), and
@@ -27,24 +21,9 @@
 
 #include <cuda_runtime.h>
 
+#include "element_chain.cuh"
+
 namespace {
-
-__device__ __forceinline__ void mul3(const float* a, const float* b, float* o) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      o[3 * i + j] =
-          a[3 * i + 0] * b[j] + a[3 * i + 1] * b[3 + j] + a[3 * i + 2] * b[6 + j];
-    }
-  }
-}
-
-__device__ __forceinline__ void transpose3(const float* m, float* o) {
-  o[0] = m[0]; o[1] = m[3]; o[2] = m[6];
-  o[3] = m[1]; o[4] = m[4]; o[5] = m[7];
-  o[6] = m[2]; o[7] = m[5]; o[8] = m[8];
-}
 
 __global__ void __launch_bounds__(256) hessian_and_force_kernel(
     const float* __restrict__ pos, const int4* __restrict__ elem,
@@ -65,45 +44,8 @@ __global__ void __launch_bounds__(256) hessian_and_force_kernel(
   float r[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) r[i] = ref_inv[9 * e + i];
-
-  float f[9];
-  mul3(x, r, f);
-  const float det = f[0] * (f[4] * f[8] - f[5] * f[7]) -
-                    f[1] * (f[3] * f[8] - f[5] * f[6]) +
-                    f[2] * (f[3] * f[7] - f[4] * f[6]);
-  const float inv_det = 1.0f / det;
-  const float f_inv[9] = {
-      (f[4] * f[8] - f[5] * f[7]) * inv_det, (f[2] * f[7] - f[1] * f[8]) * inv_det,
-      (f[1] * f[5] - f[2] * f[4]) * inv_det, (f[5] * f[6] - f[3] * f[8]) * inv_det,
-      (f[0] * f[8] - f[2] * f[6]) * inv_det, (f[2] * f[3] - f[0] * f[5]) * inv_det,
-      (f[3] * f[7] - f[4] * f[6]) * inv_det, (f[1] * f[6] - f[0] * f[7]) * inv_det,
-      (f[0] * f[4] - f[1] * f[3]) * inv_det};
-  float f_inv_t[9], r_t[9];
-  transpose3(f_inv, f_inv_t);
-  transpose3(r, r_t);
-  // jnp.maximum propagates NaN; fmaxf would not.
-  const float log_j = logf(det != det ? det : fmaxf(det, 1e-4f));
-  float tmp[9], term2[9];
-  mul3(f_inv_t, r_t, tmp);
-  mul3(tmp, f_inv_t, term2);
-  mul3(f_inv, r, tmp);
-  const float tr = tmp[0] + tmp[4] + tmp[8];
-  const float c2 = mu - lam * log_j;
-  const float c3 = lam * tr;
-  float blk[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) blk[i] = mu * r[i] + c2 * term2[i] + c3 * f_inv_t[i];
-  float k[9];
-  mul3(blk, r_t, k);
-
-  const float log_gram = logf(det * det);
-  const float cp = half_lam * log_gram - mu;
-  float p[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) p[i] = mu * f[i] + cp * f_inv_t[i];
-  float h[9];
-  mul3(p, r_t, h);
-
+  float k[9], h[9];
+  fem::nh_chain(x, r, mu, lam, half_lam, k, h);
   const float nv = -volume[e];
 #pragma unroll
   for (int i = 0; i < 9; ++i) {

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from fem_tpu_torch.ops.assembly import GatherPlan, make_gather_plan
+from fem_tpu_torch.ops.blocking import Blocking, build_blocking
 from fem_tpu_torch.utils.config import BlockConfig, ObjectConfig
 from fem_tpu_torch.utils.device import resolve_device
 
@@ -45,6 +46,7 @@ class FemObject:
     rest_pos: torch.Tensor  # (N, d)
     faces: torch.Tensor  # (M, 3) int32 render/surface faces
     plan: GatherPlan  # per-particle assembly plan (ops/assembly.py)
+    blocking: Blocking = None  # locality blocks (ops/blocking.py)
     dim: int = 3
     particle_cnt: int = 0
     element_cnt: int = 0
@@ -165,6 +167,7 @@ def build_object(
         rest_pos=torch.as_tensor(pos, device=dev),
         faces=torch.as_tensor(np.asarray(faces).astype(np.int32), device=dev),
         plan=make_gather_plan(idx, n, dev),
+        blocking=build_blocking(idx, ref_inv, volume, pos, device=dev),
         dim=d,
         particle_cnt=n,
         element_cnt=int(idx.shape[0]),

@@ -1,0 +1,255 @@
+# coding=utf-8
+"""K2 and K3: the blocked element prep and the blocked operator.
+
+``blocked_prep`` launches ``fem_tpu_torch/csrc/blocked.cu``'s prep kernel for
+tensors on a CUDA device; it replaces the JAX package's Pallas kernel
+``ops/blocking.py:_prep_kernel`` in its implicit mode (entry
+``blocked_prep``).  ``blocked_graph_apply`` launches the same file's matvec
+and slot-sum kernels; it replaces ``ops/blocking.py:_matvec_kernel`` (entry
+``blocked_graph_apply``).  For tensors on the CPU each runs its plain
+PyTorch version (``*_plain``); on CUDA each launches its kernel or raises.
+
+Layouts: K blocks are ``(B·Eb, d, d)`` in block order (the JAX package's
+``kplane_to_kflat`` of its (B, d², Eb·d) planes); per-slot partials are
+``(B, Pb, d)`` (the JAX package's (B, d, Pb) transposed).  Padded element
+slots give K = 0 and contribute nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from fem_tpu_torch.ops import smallmat as sm
+from fem_tpu_torch.ops.assembly import element_contrib_full
+from fem_tpu_torch.ops.blocking import (
+    Blocking,
+    blocked_gather,
+    blocked_scatter_sum,
+)
+from fem_tpu_torch.ops.cg_kernels import CGResult, conjugate_gradient
+from fem_tpu_torch.ops.element import k_and_h_chain
+from fem_tpu_torch.utils import cuda_build
+
+_P = ctypes.c_void_p
+
+
+class BlockTablesC(ctypes.Structure):
+    """Mirror of ``fem::BlockTables`` (csrc/blocked_common.cuh)."""
+
+    _fields_ = [
+        ("block_particles", _P),
+        ("plus", _P),
+        ("minus", _P),
+        ("ref_inv", _P),
+        ("volume", _P),
+        ("block_elements", _P),
+        ("local_ptr", _P),
+        ("local_rows", _P),
+        ("num_blocks", ctypes.c_int),
+        ("eb", ctypes.c_int),
+        ("pb", ctypes.c_int),
+    ]
+
+
+def block_tables(blk: Blocking) -> BlockTablesC:
+    """The C view of ``blk``'s device tables (which ``blk`` keeps alive)."""
+    if blk.dim != 3:
+        raise NotImplementedError(
+            f"the blocked kernels are 3D only (got dim {blk.dim})"
+        )
+    dev = blk.volume.device
+    b, eb, pb = blk.num_blocks, blk.eb, blk.pb
+    i32, f32 = torch.int32, torch.float32
+    for name, shape, dtype in (
+        ("block_particles", (b, pb), i32), ("plus", (b, eb * 3), i32),
+        ("minus", (b, eb * 3), i32), ("ref_inv", (b * eb, 3, 3), f32),
+        ("volume", (b * eb,), f32), ("block_elements", (b,), i32),
+        ("local_ptr", (b, pb + 1), i32), ("local_rows", (b, eb * 4), i32),
+    ):
+        cuda_build.check_operand(
+            f"blocking.{name}", getattr(blk, name), shape, dtype, dev
+        )
+    return BlockTablesC(
+        blk.block_particles.data_ptr(), blk.plus.data_ptr(),
+        blk.minus.data_ptr(), blk.ref_inv.data_ptr(), blk.volume.data_ptr(),
+        blk.block_elements.data_ptr(), blk.local_ptr.data_ptr(),
+        blk.local_rows.data_ptr(), b, eb, pb,
+    )
+
+
+def block_edge_matrices(blk: Blocking, xb: torch.Tensor) -> torch.Tensor:
+    """(B·Eb, d, d) edge matrices (columns x_{v_{j+1}} − x_{v_0}) of every
+    element slot from block-local rows ``xb`` (B, Pb, d); padded slots give
+    0 (callers mask them)."""
+    b, pb, d = xb.shape
+    flat = xb.reshape(b * pb, d)
+    off = (torch.arange(b, device=xb.device) * pb)[:, None]
+    xp = flat[(blk.plus + off).reshape(-1)]
+    xm = flat[(blk.minus + off).reshape(-1)]
+    return (xp - xm).reshape(b * blk.eb, d, d).transpose(-1, -2)
+
+
+def _real_slots(blk: Blocking) -> torch.Tensor:
+    """(B·Eb, 1, 1) bool: element slots that hold a real element."""
+    e = torch.arange(blk.eb, device=blk.volume.device)
+    return (e[None, :] < blk.block_elements[:, None]).reshape(-1, 1, 1)
+
+
+def _slot_partials(blk: Blocking, columns: torch.Tensor) -> torch.Tensor:
+    """(B, Pb, d) per-slot sums of the element contributions of ``columns``
+    (B·Eb, d, d): column j to local vertex j+1, −Σ_j to vertex 0."""
+    d = columns.shape[-1]
+    rows = element_contrib_full(columns).reshape(-1, d)
+    out = columns.new_zeros((blk.num_blocks * blk.pb, d))
+    out.index_add_(0, blk.row_slot, rows)
+    return out.reshape(blk.num_blocks, blk.pb, d)
+
+
+def blocked_prep_plain(blk: Blocking, pos, mu: float, lam: float):
+    """Plain PyTorch version of :func:`blocked_prep`."""
+    x = block_edge_matrices(blk, blocked_gather(pos, blk))
+    f = sm.matmul(x, blk.ref_inv)
+    k, h = k_and_h_chain(f, blk.ref_inv, mu, lam)
+    real = _real_slots(blk)
+    nv = -blk.volume[:, None, None]
+    k = torch.where(real, nv * k, 0.0)
+    h = torch.where(real, nv * h, 0.0)
+    return k, _slot_partials(blk, h)
+
+
+def blocked_graph_apply_plain(blk: Blocking, K, x, transpose_k: bool = False):
+    """Plain PyTorch version of :func:`blocked_graph_apply`."""
+    s = block_edge_matrices(blk, blocked_gather(x, blk))
+    t = sm.matmul(sm.mT(K) if transpose_k else K, s)
+    t = torch.where(_real_slots(blk), t, 0.0)
+    return blocked_scatter_sum(_slot_partials(blk, t), blk)
+
+
+def _library():
+    lib = cuda_build.load("blocked")
+    if lib.fem_blocked_prep.argtypes is None:
+        tables = ctypes.POINTER(BlockTablesC)
+        lib.fem_blocked_prep.argtypes = [
+            tables, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P,
+            _P, _P,
+        ]
+        lib.fem_blocked_prep.restype = ctypes.c_int
+        lib.fem_blocked_matvec.argtypes = [
+            tables, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P,
+        ]
+        lib.fem_blocked_matvec.restype = ctypes.c_int
+        lib.fem_blocked_error.argtypes = [ctypes.c_int]
+        lib.fem_blocked_error.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rc(lib, rc, what):
+    if rc != 0:
+        msg = lib.fem_blocked_error(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")
+
+
+def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float):
+    """(K (B·Eb, d, d), force partials (B, Pb, d)) of the implicit substep
+    at ``pos``: K_e = −V·k and the slot sums of the −V·h force columns.
+
+    CUDA tensors: one launch of the blocked prep kernel (3D Neo-Hookean,
+    non-robust).  CPU tensors: :func:`blocked_prep_plain`."""
+    if pos.device.type == "cpu":
+        return blocked_prep_plain(blk, pos, mu, lam)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    tables = block_tables(blk)
+    n = pos.shape[0]
+    cuda_build.check_operand("pos", pos, (n, 3), torch.float32, blk.volume.device)
+    dev = pos.device
+    k = torch.empty((blk.num_blocks * blk.eb, 3, 3), dtype=torch.float32, device=dev)
+    partials = torch.empty((blk.num_blocks, blk.pb, 3), dtype=torch.float32,
+                           device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fem_blocked_prep(
+            ctypes.byref(tables), pos.data_ptr(), mu, lam, lam / 2.0,
+            k.data_ptr(), partials.data_ptr(), stream,
+        )
+    _check_rc(lib, rc, "blocked prep")
+    blocked_prep.launches += 1
+    return k, partials
+
+
+blocked_prep.launches = 0
+
+
+def blocked_graph_apply(blk: Blocking, K: torch.Tensor, x: torch.Tensor,
+                        transpose_k: bool = False) -> torch.Tensor:
+    """G(K)·x (G(Kᵀ)·x when ``transpose_k``), (N, d): per block the
+    element-Laplacian product of its K blocks, then each particle's sum over
+    its block slots.
+
+    CUDA tensors: one launch of the blocked matvec (two kernels: per-block
+    partials, per-particle slot sums).  CPU tensors:
+    :func:`blocked_graph_apply_plain`."""
+    if x.device.type == "cpu":
+        return blocked_graph_apply_plain(blk, K, x, transpose_k)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    tables = block_tables(blk)
+    n = x.shape[0]
+    dev = x.device
+    plan = blk.slot_plan
+    cuda_build.check_operand("x", x, (n, 3), torch.float32, blk.volume.device)
+    cuda_build.check_operand("K", K, (blk.num_blocks * blk.eb, 3, 3),
+                             torch.float32, dev)
+    cuda_build.check_operand("slot_plan.ptr", plan.ptr, (n + 1,), torch.int32, dev)
+    cuda_build.check_operand("slot_plan.rows", plan.rows, tuple(plan.rows.shape),
+                             torch.int32, dev)
+    partials = torch.empty((blk.num_blocks * blk.pb, 3), dtype=torch.float32,
+                           device=dev)
+    y = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fem_blocked_matvec(
+            ctypes.byref(tables), K.data_ptr(), x.data_ptr(),
+            int(bool(transpose_k)), plan.ptr.data_ptr(), plan.rows.data_ptr(),
+            n, partials.data_ptr(), y.data_ptr(), stream,
+        )
+    _check_rc(lib, rc, "blocked matvec")
+    blocked_graph_apply.launches += 1
+    return y
+
+
+blocked_graph_apply.launches = 0
+
+
+def blocked_velocity_solve(
+    blk: Blocking, pos, vel, mass, dt: float, mu: float, lam: float,
+    normal: bool, *, prep=blocked_prep, apply=blocked_graph_apply,
+    max_iter: int = 500, tol: float = 1e-5,
+) -> CGResult:
+    """One implicit velocity solve over the blocks (the JAX package's
+    blocked branch, solvers/implicit.py:1080-1101): the prep, the slot-sum
+    assembly, b = v + dt·f/m, then the reference CG (x₀ = b; normal
+    equations when ``normal``) over A·v = v − dt²·G(K)·v/m and
+    Aᵀ·v = v − dt²·G(Kᵀ)·(v/m).  ``prep`` and ``apply`` default to the
+    kernels' wrappers; the plain frame passes their plain versions."""
+    K, partials = prep(blk, pos, mu, lam)
+    f = blocked_scatter_sum(partials, blk)
+    minv = (1.0 / mass)[:, None]
+    dt2 = dt * dt
+    b = vel + dt * f * minv
+
+    def apply_a(v):
+        return v - dt2 * apply(blk, K, v, False) * minv
+
+    def apply_at(v):
+        return v - dt2 * apply(blk, K, v * minv, True)
+
+    if normal:
+        return conjugate_gradient(
+            lambda v: apply_at(apply_a(v)), apply_at(b), b, max_iter, tol
+        )
+    return conjugate_gradient(apply_a, b, b, max_iter, tol)

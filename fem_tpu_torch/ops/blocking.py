@@ -1,0 +1,227 @@
+# coding=utf-8
+"""M7: locality blocking of the element mesh.
+
+The port of the JAX package's ``ops/blocking.py`` partition
+(``_morton_order``, ``build_blocking``, ``_element_slot``,
+``blocked_gather``, ``blocked_scatter_sum``).  Elements are sorted by the
+Morton code of their rest centroids and packed greedily into blocks of at
+most ``eb`` elements touching at most ``pb`` distinct particles; which
+elements and particles land in which block, and in which order, is identical
+to the JAX package's partition.
+
+Each block is one CUDA thread block's unit of work in the blocked kernels
+(``ops/blocked_kernels.py``, ``ops/frame_kernels.py``): it gathers its
+particles into shared memory, works on its elements there, and leaves one
+partial per particle slot.  Two plans, built here once on the host, sum
+those without float atomics and in a fixed order:
+
+* the **local plan** (``local_ptr``/``local_rows``): per block and local
+  particle slot, the block's contribution rows ``e·(d+1)+l`` (local vertex
+  ``l`` of the block's ``e``-th element) that land on it;
+* the **slot plan** (``slot_plan``): per mesh particle, the flat block slots
+  ``b·Pb+p`` that hold it — halo particles sit in several blocks — as a
+  padded plan (plain versions) and in CSR form (kernels).
+
+What the JAX package adds for the TPU is left out: the one-hot tables
+``s_dense``/``g_dense``, the VMEM gate and the padding of the block count to
+a multiple of 4 (Pallas grid pairing), and the two-tier split of the slot
+plan.  Padded element slots (past a block's real elements) replicate mesh
+element 0 at volume 0, as in the JAX package; padded particle slots hold id
+0 and stay out of the slot plan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from fem_tpu_torch.ops.assembly import GatherPlan, gather_assemble, plan_to_csr
+from fem_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Blocking:
+    """Element-block partition and block-ordered element arrays (row
+    ``b·Eb+e`` is block ``b``'s ``e``-th element slot)."""
+
+    block_particles: torch.Tensor  # (B, Pb) int32 global particle ids, 0-padded
+    plus: torch.Tensor  # (B, Eb·d) int32 local slot of vertex j+1, row e·d+j
+    minus: torch.Tensor  # (B, Eb·d) int32 local slot of vertex 0, row e·d+j
+    element_indices: torch.Tensor  # (B·Eb, d+1) int32, padded with element 0
+    ref_inv: torch.Tensor  # (B·Eb, d, d)
+    volume: torch.Tensor  # (B·Eb,) 0 on padded slots
+    element_perm: torch.Tensor  # (B·Eb,) int32 mesh element of each slot
+    element_slot: torch.Tensor  # (E,) int32 slot of each mesh element
+    block_elements: torch.Tensor  # (B,) int32 real elements of each block
+    local_ptr: torch.Tensor  # (B, Pb+1) int32 offsets into local_rows[b]
+    local_rows: torch.Tensor  # (B, Eb·(d+1)) int32 contribution rows by slot
+    row_slot: torch.Tensor  # (B·Eb·(d+1),) int64 flat slot b·Pb+p of each row
+    slot_plan: GatherPlan  # mesh particle → flat block slots
+    num_blocks: int = 0
+    eb: int = 0
+    pb: int = 0
+
+    @property
+    def dim(self) -> int:
+        return self.element_indices.shape[1] - 1
+
+
+def _morton_order(centroids: np.ndarray) -> np.ndarray:
+    """Sort key: interleaved 10-bit Morton code of element centroids
+    (consecutive elements are spatially adjacent)."""
+    lo, hi = centroids.min(0), centroids.max(0)
+    q = ((centroids - lo) / np.maximum(hi - lo, 1e-30) * 1023).astype(
+        np.uint64
+    )
+
+    def spread(x):
+        x = (x | (x << 32)) & 0x1F00000000FFFF
+        x = (x | (x << 16)) & 0x1F0000FF0000FF
+        x = (x | (x << 8)) & 0x100F00F00F00F00F
+        x = (x | (x << 4)) & 0x10C30C30C30C30C3
+        x = (x | (x << 2)) & 0x1249249249249249
+        return x
+
+    code = spread(q[:, 0])
+    for k in range(1, centroids.shape[1]):
+        code = code | (spread(q[:, k]) << k)
+    return np.argsort(code, kind="stable")
+
+
+def _element_slot(flat: np.ndarray, vol_flat: np.ndarray) -> np.ndarray:
+    """Mesh element id → block slot of its real (volume > 0) occurrence."""
+    real = np.asarray(vol_flat) > 0.0
+    slots = np.full(int(np.asarray(flat).max()) + 1, -1, np.int64)
+    slots[np.asarray(flat)[real]] = np.nonzero(real)[0]
+    if (slots < 0).any():
+        raise ValueError("every mesh element needs a real block slot")
+    return slots.astype(np.int32)
+
+
+def _pack(idx: np.ndarray, order: np.ndarray, eb: int, pb: int):
+    """Greedy packing of elements in ``order`` into (elements, sorted
+    particles) blocks of at most ``eb`` elements and ``pb`` particles."""
+    blocks = []
+    cur: list = []
+    cur_parts: set = set()
+    for ei in order:
+        new = cur_parts | set(idx[ei].tolist())
+        if len(cur) + 1 > eb or len(new) > pb:
+            blocks.append((cur, sorted(cur_parts)))
+            cur, cur_parts = [ei], set(idx[ei].tolist())
+        else:
+            cur.append(ei)
+            cur_parts = new
+    if cur:
+        blocks.append((cur, sorted(cur_parts)))
+    return blocks
+
+
+def build_blocking(
+    element_indices: np.ndarray,
+    ref_inv: np.ndarray,
+    volume: np.ndarray,
+    rest_pos: np.ndarray,
+    eb: int = 256,
+    pb: int = 128,
+    device="cuda",
+) -> Blocking:
+    """Host-side partitioner (numpy, once at load) and its plans, as tensors
+    on ``device``."""
+    dev = resolve_device(device)
+    idx = np.asarray(element_indices, np.int64)
+    ref_inv = np.asarray(ref_inv, np.float32)
+    volume = np.asarray(volume, np.float32)
+    e_cnt, dp1 = idx.shape
+    d = dp1 - 1
+    n = np.asarray(rest_pos).shape[0]
+    blocks = _pack(idx, _morton_order(np.asarray(rest_pos)[idx].mean(1)), eb, pb)
+    b_cnt = len(blocks)
+    r = eb * d
+    blk_parts = np.zeros((b_cnt, pb), np.int32)
+    plus = np.zeros((b_cnt, r), np.int32)
+    minus = np.zeros((b_cnt, r), np.int32)
+    # local_vert[b, k, l]: local slot of element k's vertex l.
+    local_vert = np.zeros((b_cnt, eb, dp1), np.int64)
+    blk_elems = np.zeros((b_cnt, eb), np.int64)
+    vol_b = np.zeros((b_cnt, eb), np.float32)
+    nparts = np.zeros((b_cnt,), np.int64)
+    nelems = np.zeros((b_cnt,), np.int64)
+    for b, (els, parts) in enumerate(blocks):
+        lmap = {p: i for i, p in enumerate(parts)}
+        blk_parts[b, : len(parts)] = parts
+        nparts[b] = len(parts)
+        nelems[b] = len(els)
+        for k, ei in enumerate(els):
+            blk_elems[b, k] = ei
+            vol_b[b, k] = volume[ei]
+            local_vert[b, k] = [lmap[v] for v in idx[ei].tolist()]
+    plus[:] = local_vert[:, :, 1:].reshape(b_cnt, r)
+    minus[:] = np.repeat(local_vert[:, :, 0], d, axis=1)
+
+    # Local plan: contribution rows of each block sorted by local slot, in
+    # ascending row order within a slot; padded element slots contribute
+    # nothing and are left out.
+    rows_per_block = eb * dp1
+    local_ptr = np.zeros((b_cnt, pb + 1), np.int32)
+    local_rows = np.zeros((b_cnt, rows_per_block), np.int32)
+    for b in range(b_cnt):
+        slots = local_vert[b, : nelems[b]].reshape(-1)
+        order = np.argsort(slots, kind="stable")
+        local_rows[b, : order.size] = order
+        local_ptr[b, 1:] = np.cumsum(np.bincount(slots, minlength=pb))
+    row_slot = (
+        local_vert + (np.arange(b_cnt) * pb)[:, None, None]
+    ).reshape(-1)
+
+    # Slot plan over real particle slots only (padded slots hold particle 0
+    # and carry nothing).
+    real = (np.arange(pb)[None, :] < nparts[:, None]).reshape(-1)
+    slot_rows = np.nonzero(real)[0]
+    slot_parts = blk_parts.reshape(-1)[real]
+    order = np.argsort(slot_parts, kind="stable")
+    counts = np.bincount(slot_parts, minlength=n)
+    maxdeg = max(int(counts.max()), 1)
+    sentinel = b_cnt * pb
+    plan = np.full((n, maxdeg), sentinel, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    ranks = np.arange(order.size) - starts[slot_parts[order]]
+    plan[slot_parts[order], ranks] = slot_rows[order]
+    ptr, rows = plan_to_csr(plan, sentinel)
+
+    flat = blk_elems.reshape(-1)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return Blocking(
+        block_particles=t(blk_parts),
+        plus=t(plus),
+        minus=t(minus),
+        element_indices=t(idx[flat].astype(np.int32)),
+        ref_inv=t(ref_inv[flat]),
+        volume=t(vol_b.reshape(-1)),
+        element_perm=t(flat.astype(np.int32)),
+        element_slot=t(_element_slot(flat, vol_b.reshape(-1))),
+        block_elements=t(nelems.astype(np.int32)),
+        local_ptr=t(local_ptr),
+        local_rows=t(local_rows),
+        row_slot=t(row_slot),
+        slot_plan=GatherPlan(
+            idx=t(plan.astype(np.int32)), ptr=t(ptr), rows=t(rows)
+        ),
+        num_blocks=b_cnt,
+        eb=eb,
+        pb=pb,
+    )
+
+
+def blocked_gather(x: torch.Tensor, blocking: Blocking) -> torch.Tensor:
+    """(N, d) → (B, Pb, d) block-local copies (halo particles duplicated)."""
+    return x[blocking.block_particles]
+
+
+def blocked_scatter_sum(partials: torch.Tensor, blocking: Blocking) -> torch.Tensor:
+    """(B, Pb, d) per-slot partials → (N, d): each particle sums its slots in
+    ascending slot order (halo contributions add; padded slots are never
+    read).  Deterministic: a gather and a sum, no atomics."""
+    return gather_assemble(partials, blocking.slot_plan.idx)

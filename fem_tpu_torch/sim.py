@@ -2,11 +2,19 @@
 """Simulation stepping: the reference implicit-CG substep and frame.
 
 The port of the JAX package's ``sim.py`` for the semi-implicit conjugate-
-gradient path.  A substep is the element chain and the whole CG solve
-(``solvers/implicit.py``), then implicit advection (``solvers/advect.py``).
-A frame runs ``sim_count`` substeps back to back and returns the per-substep
-solver metrics as device tensors of shape ``(sim_count,)``: nothing inside a
-frame waits for the device, so the host only enqueues work.
+gradient path.  A substep is the velocity solve (``solvers/implicit.py``),
+then implicit advection (``solvers/advect.py``).  A frame advances
+``sim_count`` substeps and returns the per-substep solver metrics as device
+tensors of shape ``(sim_count,)``.  ``make_frame_fn`` picks how, as the JAX
+package's does:
+
+* the whole-frame kernel K5 (``ops/frame_kernels.py``), one launch a frame
+  over the locality blocks, for ``frame_backend="blocked"`` and, on a CUDA
+  object, for ``"auto"`` when the config is eligible
+  (:func:`supports_blocked_frame`);
+* otherwise the op-composed frame: ``sim_count`` substeps back to back, in
+  which nothing waits for the device unless the blocked operator's CG loop
+  reads ‖r‖² (``operator_mode="blocked"``).
 
 Every configuration the slice does not cover raises ``NotImplementedError``
 naming its ROADMAP item.
@@ -14,16 +22,19 @@ naming its ROADMAP item.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from fem_tpu_torch.models.state import FemObject, Obstacles, SimState
-from fem_tpu_torch.solvers.advect import advect_implicit_step
+from fem_tpu_torch.ops.frame_kernels import fused_blocked_frame
+from fem_tpu_torch.solvers.advect import (
+    advect_implicit_step,
+    damping_decay,
+    gravity_vector,
+)
 from fem_tpu_torch.solvers.implicit import implicit_velocity_solve
-from fem_tpu_torch.utils.config import SimConfig
+from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, SimConfig
 
 
 class StepAux(NamedTuple):
@@ -50,7 +61,9 @@ def check_supported_config(cfg: SimConfig) -> None:
         (cfg.wall_friction != 0.0, "wall_friction", "M13"),
         (cfg.adaptive_dt, "adaptive_dt", "M15"),
         (cfg.contact != "none", f"contact={cfg.contact!r}", "M17"),
-        (cfg.cg_fast_math, "cg_fast_math", "K5"),
+        (cfg.cg_fast_math,
+         "cg_fast_math (the TPU kernels' 2-plane bf16 split-dots on the MXU; "
+         "the port computes in plain f32 and has no counterpart)", "K5"),
     )
     for bad, what, item in unsupported:
         if bad:
@@ -58,18 +71,6 @@ def check_supported_config(cfg: SimConfig) -> None:
                 f"{what} is not ported yet (ROADMAP {item}); this slice "
                 "runs the reference implicit-CG path"
             )
-
-
-def damping_decay(dt: float, damping: float) -> float:
-    """exp(−dt·damping) evaluated in float32, as the JAX package does."""
-    return float(np.exp(np.float32(-dt * damping)))
-
-
-@functools.lru_cache(maxsize=16)
-def gravity_vector(g_dir: Tuple[float, ...], device: torch.device) -> torch.Tensor:
-    """9.8·g_dir as a (d,) f32 tensor on ``device``, made once per
-    (g_dir, device) so that a substep copies nothing from the host."""
-    return 9.8 * torch.tensor(g_dir, dtype=torch.float32, device=device)
 
 
 def substep(
@@ -83,11 +84,12 @@ def substep(
     preconditioned: int,
     robust_inversion: bool = False,
     cg_precond: str = "reference",
+    operator_mode: str = "auto",
 ) -> Tuple[SimState, StepAux]:
     """One semi-implicit substep: velocity solve, then advection."""
     state, aux = implicit_velocity_solve(
         obj, state, dt, implicit_method, preconditioned, robust_inversion,
-        cg_precond,
+        cg_precond, operator_mode,
     )
     state = advect_implicit_step(
         state, obstacles, dt, damping_decay(dt, obj.damping),
@@ -104,14 +106,96 @@ def substep_kwargs(cfg: SimConfig) -> dict:
         preconditioned=cfg.preconditioned,
         robust_inversion=cfg.robust_inversion,
         cg_precond=cfg.cg_precond,
+        operator_mode=cfg.operator_mode,
     )
+
+
+def _circles_only(cfg: SimConfig) -> bool:
+    """The whole-frame kernel implements the reference advection only:
+    circle obstacles (frictionless spheres fold into the circle arrays) and
+    frictionless walls."""
+    return cfg.wall_friction == 0.0 and all(
+        o.type == "sphere" and o.friction == 0.0 for o in cfg.obstacles
+    )
+
+
+def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
+    """Eligibility for the whole-frame kernel K5: the JAX package's config
+    conditions (sim.py:275-308), with its VMEM gate replaced by what the
+    port's kernel covers — 3D, Neo-Hookean, not ``robust_inversion``, and
+    no inelastic statics (the port's objects carry none)."""
+    return (
+        obj.dim == 3
+        and not cfg.adaptive_dt
+        and _circles_only(cfg)
+        and cfg.integrator == "semi_implicit"
+        and not cfg.use_explicit_method
+        and not cfg.auto_diff
+        and cfg.implicit_method == CONJUGATE_GRADIENT_METHOD
+        and cfg.hessian == "reference"
+        and cfg.operator_mode in ("auto", "fused")
+        and cfg.element_backend in ("auto", "pallas")
+        and cfg.solver_backend == "auto"
+        and cfg.cg_precond in ("reference", "none")
+        and not cfg.robust_inversion
+        and obj.material == "neo_hookean"
+        and obj.blocking is not None
+    )
+
+
+def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
+    """Frame function backed by the whole-frame kernel: one launch per
+    rendered frame (``ops/frame_kernels.py``; its plain version on the
+    CPU)."""
+    kwargs = dict(
+        dt=cfg.delta_time, damping=obj.damping, g_dir=tuple(cfg.g_dir),
+        mu=obj.mu, s_lambda=obj.s_lambda,
+        preconditioned=cfg.preconditioned == 1 and cfg.cg_precond == "reference",
+        sim_count=cfg.sim_count,
+    )
+
+    def frame(state: SimState, obstacles: Obstacles):
+        pos, vel, vel_g, iters, res = fused_blocked_frame(
+            obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+            obstacles.centers, obstacles.radii, **kwargs,
+        )
+        return state.replace(pos=pos, vel=vel, vel_g=vel_g), StepAux(iters, res)
+
+    return frame
 
 
 def make_frame_fn(obj: FemObject, cfg: SimConfig):
     """Function advancing one rendered frame (``sim_count`` substeps):
     ``frame(state, obstacles) -> (state, StepAux)`` with StepAux fields of
-    shape ``(sim_count,)`` left on the device."""
+    shape ``(sim_count,)`` left on the device.
+
+    ``frame_backend``: ``"blocked"`` runs the whole-frame kernel (its plain
+    version on the CPU) and raises ``ValueError`` when the config is not
+    eligible; ``"auto"`` runs it on a CUDA object when eligible, and the
+    op-composed frame otherwise; ``"fused"`` and ``"blocked_explicit"`` are
+    not ported yet."""
+    if cfg.frame_backend == "fused":
+        raise NotImplementedError(
+            "frame_backend='fused' (the unblocked whole-frame kernel, K11b) "
+            "is not ported yet"
+        )
+    if cfg.frame_backend == "blocked_explicit":
+        raise NotImplementedError(
+            "frame_backend='blocked_explicit' (the explicit whole-frame "
+            "kernel, K8) is not ported yet (ROADMAP M9)"
+        )
+    if cfg.frame_backend == "blocked" and not supports_blocked_frame(obj, cfg):
+        raise ValueError(
+            "frame_backend='blocked' requested but this config/mesh is not "
+            "eligible (see sim.supports_blocked_frame)"
+        )
     check_supported_config(cfg)
+    if cfg.frame_backend == "blocked" or (
+        cfg.frame_backend == "auto"
+        and obj.device.type == "cuda"
+        and supports_blocked_frame(obj, cfg)
+    ):
+        return make_blocked_frame_fn(obj, cfg)
     kwargs = substep_kwargs(cfg)
 
     def frame(state: SimState, obstacles: Obstacles):

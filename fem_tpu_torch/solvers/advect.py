@@ -17,9 +17,25 @@ Everything stays on the state's device; nothing is read back to the host.
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from fem_tpu_torch.models.state import Obstacles, SimState
+
+
+def damping_decay(dt: float, damping: float) -> float:
+    """exp(−dt·damping) evaluated in float32, as the JAX package does."""
+    return float(np.exp(np.float32(-dt * damping)))
+
+
+@functools.lru_cache(maxsize=16)
+def gravity_vector(g_dir: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """9.8·g_dir as a (d,) f32 tensor on ``device``, made once per
+    (g_dir, device) so that a substep copies nothing from the host."""
+    return 9.8 * torch.tensor(g_dir, dtype=torch.float32, device=device)
 
 
 def advect_implicit_step(
@@ -31,7 +47,7 @@ def advect_implicit_step(
 ) -> SimState:
     """One implicit-path advection.  ``gravity`` is the (d,) acceleration
     9.8·g_dir on the state's device and ``decay`` the f32 value of
-    exp(−dt·damping) (see :func:`fem_tpu_torch.sim.damping_decay`)."""
+    exp(−dt·damping) (see :func:`damping_decay`)."""
     vel_g = state.vel_g + gravity[None, :] * dt
     vel = state.vel * decay
     vel_g = vel_g * decay

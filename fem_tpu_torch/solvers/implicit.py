@@ -14,10 +14,15 @@ is applied in O(E).  The CG keeps the reference's semantics: x₀ = b
 500 iterations, and normal equations AᵀAx = Aᵀb when ``preconditioned == 1``
 (implicit.py:289-299).
 
-One substep runs two kernels: the element chain (``ops/element_kernels``,
-K_e and the rhs force columns) and the whole solve (``ops/cg_kernels``, rhs
-assembly and the CG loop).  On CUDA tensors both are the hand-written CUDA
-kernels; on CPU tensors both are their plain PyTorch versions.
+By default one substep runs two kernels: the element chain
+(``ops/element_kernels``, K_e and the rhs force columns) and the whole solve
+(``ops/cg_kernels``, rhs assembly and the CG loop).  With
+``operator_mode="blocked"`` it runs over the locality blocks instead
+(``ops/blocked_kernels``): the blocked prep once, the per-slot force
+partials summed per particle, and the reference CG loop on the host over
+the blocked operator, which reads ‖r‖² on the host once an iteration.  On
+CUDA tensors the kernels are the hand-written CUDA ones; on CPU tensors
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from fem_tpu_torch.models.state import FemObject, SimState
+from fem_tpu_torch.ops.blocked_kernels import blocked_velocity_solve
 from fem_tpu_torch.ops.cg_kernels import (
     conjugate_gradient,
     fused_cg_solve,
@@ -92,10 +98,13 @@ def implicit_velocity_solve(
     preconditioned: int,
     robust: bool = False,
     cg_precond: str = "reference",
+    operator_mode: str = "auto",
 ) -> Tuple[SimState, ImplicitAux]:
     """Assemble (matrix-free) and solve for the new velocity; returns the
     updated state (vel ← x, implicit.py:222-223) and the solver metrics, all
-    left on the object's device."""
+    left on the object's device.  ``operator_mode="blocked"`` takes the
+    blocked operator (the JAX package's blocked branch with
+    ``element_backend="pallas"``); every other mode the whole-solve kernel."""
     if method == JACOBI_METHOD:
         raise NotImplementedError(
             "the Jacobi solver (implicit_method=0) is not ported yet "
@@ -107,13 +116,39 @@ def implicit_velocity_solve(
         raise NotImplementedError(
             f"cg_precond={cg_precond!r} is not ported yet (ROADMAP M13)"
         )
+    normal = preconditioned == 1 and cg_precond == "reference"
+    if operator_mode == "blocked":
+        return _blocked_solve(obj, state, dt, normal, robust)
     K, cols = hessian_and_force(
         state.pos, obj.element_indices, obj.ref_inv, obj.volume,
         obj.mu, obj.s_lambda, robust, obj.material,
     )
     vel, iters, residual = fused_cg_solve(
         K, cols, obj.element_indices, obj.plan, state.vel, obj.mass, dt,
-        preconditioned == 1 and cg_precond == "reference",
+        normal,
     )
     return state.replace(vel=vel), ImplicitAux(iters, residual)
+
+
+def _blocked_solve(
+    obj: FemObject, state: SimState, dt: float, normal: bool, robust: bool
+) -> Tuple[SimState, ImplicitAux]:
+    """The blocked branch (JAX implicit.py:1080-1101): K2, the slot-sum
+    assembly, b = v + dt·f/m, then the reference CG over A and Aᵀ built from
+    K3."""
+    if robust:
+        raise NotImplementedError(
+            "robust_inversion is not ported yet (ROADMAP M11)"
+        )
+    if obj.material != "neo_hookean":
+        raise NotImplementedError(
+            f"material {obj.material!r}: only neo_hookean is ported (ROADMAP M11)"
+        )
+    if obj.blocking is None:
+        raise ValueError("operator_mode='blocked' requires obj.blocking")
+    res = blocked_velocity_solve(
+        obj.blocking, state.pos, state.vel, obj.mass, dt, obj.mu,
+        obj.s_lambda, normal,
+    )
+    return state.replace(vel=res.x), ImplicitAux(res.iterations, res.residual)
 

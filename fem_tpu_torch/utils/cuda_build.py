@@ -8,8 +8,9 @@ own shared library::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/fem_tpu_torch/<name>-<hash>.so
 
-The file name carries a hash of the source and the flags, so an edited kernel
-is rebuilt and a built one is reused.  nvcc writes to a temporary name that is
+The file name carries a hash of the source, of every header of ``csrc/`` it
+includes (``#include "<name>.cuh"``, followed recursively) and of the flags,
+so an edited kernel or header is rebuilt and a built one is reused.  nvcc writes to a temporary name that is
 renamed into place once complete, so concurrent processes never load a
 half-written library.  Nothing here falls back: without nvcc the build raises.
 """
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable
@@ -26,7 +28,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fem_tpu_torch")
-SOURCES = ("element_chain", "fused_cg")
+SOURCES = ("element_chain", "fused_cg", "blocked", "blocked_frame")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,9 +53,28 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str):
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly or
+    through another header, each once, in the order first reached."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            todo.extend(m.decode() for m in _INCLUDE.findall(fh.read()))
+    return files
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    for f in source_files(name):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -7,13 +7,17 @@ inside the fixture, never at import).  Run on a GPU machine with
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest configures JAX, which these tests do
-not use).  Tolerances are those of chip_smoke.py: K1 block-relative 1e-5;
-K4 velocity rtol 5e-4 / atol 1e-6 and iterations within 1.  Iteration
+not use).  Tolerances are those of chip_smoke.py: K1 and K2 block-relative
+1e-5, K2's force partials and K3's product 1e-5 of their largest entry; K4
+velocity rtol 5e-4 / atol 1e-6 and iterations within 1; K5 positions 1e-5
+and iterations within 1.  Iteration
 counts are compared only where a solve takes a few tens of iterations at
 most: over ~140 iterations f32 round-off moves the count by more than one
 between two summation orders, so there the velocity is held to the f64
 solution instead (the same check on the plain version runs on the CPU in
 tests/test_torch_cg_kernels.py)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,7 +26,13 @@ import torch
 from fem_tpu_torch import convert, sim
 from fem_tpu_torch.models import mesh as pmesh
 from fem_tpu_torch.models.state import Obstacles, build_object
-from fem_tpu_torch.ops import cg_kernels, element_kernels
+from fem_tpu_torch.ops import (
+    blocked_kernels,
+    blocking,
+    cg_kernels,
+    element_kernels,
+    frame_kernels,
+)
 from fem_tpu_torch.utils.config import BlockConfig, ObjectConfig, parse_config
 
 TOL = 1e-5
@@ -149,6 +159,28 @@ def test_frame_on_cuda_matches_cpu_frame(body):
     np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(), atol=1e-5)
 
 
+def test_op_composed_frame_on_cuda_matches_cpu_frame(body):
+    """The op-composed frame (K1 + K4 a substep): ``operator_mode="graph"``
+    is not eligible for the whole-frame kernel."""
+    obj, state = body
+    cfg = _frame_cfg(operator_mode="graph")
+    assert not sim.supports_blocked_frame(obj, cfg)
+    k1 = element_kernels.hessian_and_force.launches
+    k4 = cg_kernels.fused_cg_solve.launches
+    k5 = frame_kernels.fused_blocked_frame.launches
+    s, aux = sim.make_frame_fn(obj, cfg)(state, _obstacles("cuda"))
+    assert element_kernels.hessian_and_force.launches - k1 == cfg.sim_count
+    assert cg_kernels.fused_cg_solve.launches - k4 == cfg.sim_count
+    assert frame_kernels.fused_blocked_frame.launches == k5
+    cpu_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
+    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state), "cpu")
+    ref, ref_aux = sim.make_frame_fn(cpu_obj, cfg)(cpu_state, _obstacles("cpu"))
+    ref_it = ref_aux.solver_iterations.numpy()
+    assert ref_it.max() <= 20, ref_it
+    assert np.all(np.abs(aux.solver_iterations.cpu().numpy() - ref_it) <= 1)
+    np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(), atol=1e-5)
+
+
 def test_fused_cg_kernel_long_solve_matches_float64(stiff_body):
     """A long normal-equations solve: the kernel stops on the tolerance and
     lands within 1e-4 (of the largest entry) of the plain solve in f64 on the
@@ -172,3 +204,180 @@ def test_fused_cg_kernel_long_solve_matches_float64(stiff_body):
     assert int(ref_it) < 500 and float(ref_res) <= TOL
     err = float((v.cpu().double() - ref).abs().max())
     assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+def _reblocked(obj, eb=32, pb=24):
+    """``obj`` with small locality blocks, so that the 5×5×5 cube spans
+    several blocks with padded element slots."""
+    args = [t.cpu().numpy() for t in (obj.element_indices, obj.ref_inv,
+                                      obj.volume, obj.rest_pos)]
+    blk = blocking.build_blocking(*args, eb=eb, pb=pb, device="cuda")
+    assert blk.num_blocks > 4
+    return dataclasses.replace(obj, blocking=blk)
+
+
+def _frame_cfg(**over):
+    data = dict(
+        dim=3, delta_time=5e-4, sim_count=10, auto_diff=False,
+        use_explicit_method=False, implicit_method=1, preconditioned=1,
+        g_dir=[0, -1, 0],
+    )
+    data.update(over)
+    return parse_config(data)
+
+
+def _obstacles(device):
+    blocks = (BlockConfig(block_center=(0.5, 0.2, 0.5), block_radius=0.1),
+              BlockConfig(block_center=(0.4, 0.1, 0.4), block_radius=0.0))
+    return Obstacles.from_configs(blocks, 3, device=device)
+
+
+def test_blocked_prep_kernel_matches_plain_and_repeats(body):
+    obj, state = body
+    obj = _reblocked(obj)
+    args = (obj.blocking, state.pos, obj.mu, obj.s_lambda)
+    before = blocked_kernels.blocked_prep.launches
+    k, part = blocked_kernels.blocked_prep(*args)
+    assert blocked_kernels.blocked_prep.launches == before + 1
+    kp, partp = blocked_kernels.blocked_prep_plain(*args)
+    scale = kp.abs().reshape(kp.shape[0], -1).amax(1).clamp(min=1e-30)
+    assert float(((k - kp).abs() / scale[:, None, None]).max()) <= 1e-5
+    assert float((part - partp).abs().max()) <= 1e-5 * float(partp.abs().max())
+    k2, part2 = blocked_kernels.blocked_prep(*args)
+    assert torch.equal(k, k2) and torch.equal(part, part2)
+
+
+@pytest.mark.parametrize("transpose_k", [False, True])
+def test_blocked_matvec_kernel_matches_plain_and_repeats(body, transpose_k):
+    obj, state = body
+    obj = _reblocked(obj)
+    k, _ = blocked_kernels.blocked_prep(
+        obj.blocking, state.pos, obj.mu, obj.s_lambda)
+    x = state.vel  # random per particle: G(K)·x is far from 0
+    before = blocked_kernels.blocked_graph_apply.launches
+    y = blocked_kernels.blocked_graph_apply(obj.blocking, k, x, transpose_k)
+    assert blocked_kernels.blocked_graph_apply.launches == before + 1
+    yp = blocked_kernels.blocked_graph_apply_plain(obj.blocking, k, x,
+                                                   transpose_k)
+    assert float(yp.abs().max()) > 0
+    assert float((y - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    y2 = blocked_kernels.blocked_graph_apply(obj.blocking, k, x, transpose_k)
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("grid", [0, 3])
+@pytest.mark.parametrize("preconditioned", [False, True])
+def test_frame_kernel_matches_plain_and_repeats(body, preconditioned, grid):
+    """grid 3: fewer CTAs than locality blocks, each walking several."""
+    obj, state = body
+    obj = _reblocked(obj)
+    obs = _obstacles("cuda")
+    args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+            obs.centers, obs.radii)
+    kw = dict(dt=5e-4, damping=obj.damping, g_dir=(0.0, -1.0, 0.0),
+              mu=obj.mu, s_lambda=obj.s_lambda,
+              preconditioned=preconditioned, sim_count=10)
+    before = frame_kernels.fused_blocked_frame.launches
+    out = frame_kernels.fused_blocked_frame(*args, grid=grid, **kw)
+    assert frame_kernels.fused_blocked_frame.launches == before + 1
+    ref = frame_kernels.fused_blocked_frame_plain(*args, **kw)
+    it, ref_it = out[3].cpu().numpy(), ref[3].cpu().numpy()
+    assert ref_it.max() <= 20 and it.max() > 1, ref_it
+    assert np.all(np.abs(it - ref_it) <= 1), (it, ref_it)
+    assert float((out[0] - ref[0]).abs().max()) <= 1e-5
+    again = frame_kernels.fused_blocked_frame(*args, grid=grid, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_frame_kernel_long_solve_matches_float64(stiff_body):
+    """About 140 normal-equations iterations a solve: the kernel's
+    velocity lands within 1e-4 (of the largest entry) of the plain frame in
+    f64 on the CPU.  Iteration counts are left out (module docstring)."""
+    obj, state = stiff_body
+    obj = _reblocked(obj)
+    kw = dict(dt=5e-4, damping=obj.damping, g_dir=(0.0, -1.0, 0.0),
+              mu=obj.mu, s_lambda=obj.s_lambda, preconditioned=True,
+              sim_count=1)
+    obs = _obstacles("cuda")
+    out = frame_kernels.fused_blocked_frame(
+        obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+        obs.centers, obs.radii, **kw)
+    assert 100 < int(out[3][0]) < 500 and float(out[4][0]) <= TOL
+    cpu_blk = blocking.build_blocking(
+        *[t.cpu().numpy() for t in (obj.element_indices, obj.ref_inv,
+                                    obj.volume, obj.rest_pos)],
+        eb=obj.blocking.eb, pb=obj.blocking.pb, device="cpu")
+    cpu_obs = _obstacles("cpu")
+    f64 = [t.cpu().double() for t in (state.pos, state.vel, state.vel_g,
+                                      obj.mass)]
+    ref = frame_kernels.fused_blocked_frame_plain(
+        cpu_blk, *f64, cpu_obs.centers, cpu_obs.radii, **kw)
+    assert int(ref[3][0]) < 500 and float(ref[4][0]) <= TOL
+    err = float((out[1].cpu().double() - ref[1]).abs().max())
+    assert err <= 1e-4 * float(ref[1].abs().max()), err
+
+
+def test_frame_kernel_raises_when_the_grid_cannot_be_co_resident(body):
+    obj, state = body
+    obs = _obstacles("cuda")
+    args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+            obs.centers, obs.radii)
+    kw = dict(dt=5e-4, damping=obj.damping, g_dir=(0.0, -1.0, 0.0),
+              mu=obj.mu, s_lambda=obj.s_lambda, preconditioned=True,
+              sim_count=1)
+    too_many = 1000 * torch.cuda.get_device_properties(0).multi_processor_count
+    before = frame_kernels.fused_blocked_frame.launches
+    with pytest.raises(RuntimeError, match="co-resident"):
+        frame_kernels.fused_blocked_frame(*args, grid=too_many, **kw)
+    assert frame_kernels.fused_blocked_frame.launches == before
+    # The card still runs the kernel afterwards.
+    out = frame_kernels.fused_blocked_frame(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0]).all()
+
+
+def test_blocked_frame_on_cuda_matches_cpu_frame(body):
+    """Path A: make_frame_fn on a CUDA object runs K5 once a frame and
+    nothing else of the kernels; the frame equals the CPU plain frame."""
+    obj, state = body
+    obj = _reblocked(obj)
+    cfg = _frame_cfg()
+    counters = (element_kernels.hessian_and_force, cg_kernels.fused_cg_solve,
+                blocked_kernels.blocked_prep,
+                blocked_kernels.blocked_graph_apply)
+    before = [c.launches for c in counters]
+    k5 = frame_kernels.fused_blocked_frame.launches
+    s, aux = sim.make_frame_fn(obj, cfg)(state, _obstacles("cuda"))
+    assert frame_kernels.fused_blocked_frame.launches == k5 + 1
+    assert [c.launches for c in counters] == before
+    cpu_obj = dataclasses.replace(
+        convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu"),
+        blocking=blocking.build_blocking(
+            *[t.cpu().numpy() for t in (obj.element_indices, obj.ref_inv,
+                                        obj.volume, obj.rest_pos)],
+            eb=32, pb=24, device="cpu"))
+    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state), "cpu")
+    ref, ref_aux = sim.make_frame_fn(cpu_obj, cfg)(cpu_state,
+                                                   _obstacles("cpu"))
+    ref_it = ref_aux.solver_iterations.numpy()
+    assert ref_it.max() <= 20, ref_it
+    assert np.all(np.abs(aux.solver_iterations.cpu().numpy() - ref_it) <= 1)
+    np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(), atol=1e-5)
+
+
+def test_blocked_operator_frame_launch_counts(body):
+    """Path B: operator_mode="blocked" runs K2 once a substep and K3
+    3 + 2·iterations times a normal-equations solve."""
+    obj, state = body
+    obj = _reblocked(obj)
+    cfg = _frame_cfg(operator_mode="blocked")
+    k2 = blocked_kernels.blocked_prep.launches
+    k3 = blocked_kernels.blocked_graph_apply.launches
+    k5 = frame_kernels.fused_blocked_frame.launches
+    s, aux = sim.make_frame_fn(obj, cfg)(state, _obstacles("cuda"))
+    iters = aux.solver_iterations.cpu().numpy()
+    assert blocked_kernels.blocked_prep.launches - k2 == cfg.sim_count
+    assert blocked_kernels.blocked_graph_apply.launches - k3 == int(
+        np.sum(3 + 2 * iters))
+    assert frame_kernels.fused_blocked_frame.launches == k5
+    assert torch.isfinite(s.pos).all()
