@@ -4,11 +4,14 @@
 A second package beside the JAX one (which stays the reference): the same
 JSON config schema and reference semantics, with every TPU kernel on the
 ported path rewritten by hand in CUDA C++ for Hopper (``csrc/``).  The ported
-slices cover the flagship implicit-CG path: the whole frame in one kernel
+slices cover the flagship implicit-CG path — the whole frame in one kernel
 over locality blocks (``make_frame_fn``), the blocked operator
 (``operator_mode="blocked"``) and the substep's element chain and whole CG
-solve — CUDA kernels on a GPU, their plain PyTorch versions on the CPU.  The
-package imports nothing of the JAX package.
+solve — and the explicit and autodiff path: the whole explicit frame in one
+kernel, and the substep's gradient through the blocked prep, the blocked
+assembly or the per-tet gradient columns.  CUDA kernels run on a GPU,
+their plain PyTorch versions on the CPU.  The package imports nothing of
+the JAX package.
 
 Precision: all math is float32, as in the JAX package.  Importing the package
 turns TF32 off for matmuls and cuDNN and sets

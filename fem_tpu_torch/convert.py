@@ -13,6 +13,7 @@ boundary.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -94,3 +95,19 @@ def state_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> SimState:
 
 def state_to_arrays(state: SimState) -> Dict[str, np.ndarray]:
     return {n: getattr(state, n).cpu().numpy() for n in STATE_ARRAYS}
+
+
+def to_dtype(x, dtype: torch.dtype):
+    """A copy of a dataclass of tensors — ``FemObject``, ``SimState``,
+    ``Obstacles``, ``Blocking`` — whose floating tensors, nested ones
+    included, are of ``dtype`` (for example float64, to check semantics
+    against a float64 reference on the plain path; the CUDA kernels take
+    float32 only)."""
+    changes = {}
+    for field in dataclasses.fields(x):
+        v = getattr(x, field.name)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            changes[field.name] = v.to(dtype)
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            changes[field.name] = to_dtype(v, dtype)
+    return dataclasses.replace(x, **changes)

@@ -1,25 +1,33 @@
-// K2 and K3: the blocked element prep and the blocked operator apply, over
-// the locality blocks of fem_tpu_torch/ops/blocking.py.
+// K2, K7b, K3 and K7a: the blocked element prep (implicit and explicit
+// modes), the blocked operator apply and the blocked assembly, over the
+// locality blocks of fem_tpu_torch/ops/blocking.py.
 //
 // K2 replaces fem_tpu/ops/blocking.py:_prep_kernel in its implicit mode
 // (reached through blocked_prep): per block, the tets' edge matrices, the
 // shared element chain, the K blocks and the per-slot force partials.
+// K7b is the same kernel's explicit mode (reached through
+// blocked_grad_prep): per block, the edge matrices, the explicit gradient
+// chain (+V scaling, unclamped log) and the per-slot gradient partials.
 // K3 replaces fem_tpu/ops/blocking.py:_matvec_kernel (reached through
 // blocked_graph_apply): per block, S_b^T (K_b o S_b x_b), then the sum of
 // each particle's block slots — G(K) x, or G(K^T) x when `transpose`.
+// K7a replaces fem_tpu/ops/blocking.py:_scatter_kernel (reached through
+// blocked_assemble): per block, S_b^T t of given block-ordered columns,
+// then the same per-particle slot sums.
 //
 // One thread block of 256 threads per locality block (17 on the flagship):
 // it gathers its particles' rows into shared memory, runs one thread per
 // tet, and sums the contribution rows per local slot through the block's
-// local plan (blocked_common.cuh).  K3's second kernel gives each particle
-// one thread that sums its block slots through the slot plan.  No float
+// local plan (blocked_common.cuh).  The per-particle kernel gives each
+// particle one thread that sums its block slots through the slot plan.
+// Padded element slots are skipped: they contribute nothing.  No float
 // atomics, so two runs are bit-identical.
 //
 // Bound on the H100: bytes, and far below them in practice — K2 moves about
-// 0.56 MB and K3 about 0.41 MB on the flagship, a tenth of a microsecond at
-// 3.35 TB/s, while each launch fills only 17 of 132 SMs for a few
-// microseconds of dependent shared-memory work.  A first kernel that is
-// right; blocks split over more SMs is later work.
+// 0.56 MB, K7b 0.45 MB, K3 0.41 MB and K7a 0.3 MB on the flagship, a tenth
+// of a microsecond at 3.35 TB/s, while each launch fills only 17 of 132 SMs
+// for a few microseconds of dependent shared-memory work.  A first kernel
+// that is right; blocks split over more SMs is later work.
 
 #include <cuda_runtime.h>
 
@@ -47,6 +55,44 @@ __global__ void __launch_bounds__(kThreads) blocked_prep_kernel(
 #pragma unroll
       for (int i = 0; i < 9; ++i) k[i] = 0.0f;
     }
+  }
+  __syncthreads();
+  fem::block_slot_sums(T, b, t, partials + 3 * b * T.pb);
+}
+
+__global__ void __launch_bounds__(kThreads) blocked_grad_prep_kernel(
+    fem::BlockTables T, const float* __restrict__ pos, float mu, float lam,
+    float* __restrict__ partials) {
+  extern __shared__ float smem[];
+  float* xs = smem;
+  float* t = smem + 3 * T.pb;
+  const int b = blockIdx.x;
+  fem::load_block_rows(T, b, pos, xs);
+  __syncthreads();
+  const int nel = T.block_elements[b];
+  for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+    fem::element_grad(T, b, e, xs, mu, lam, t + 12 * e);
+  }
+  __syncthreads();
+  fem::block_slot_sums(T, b, t, partials + 3 * b * T.pb);
+}
+
+// Per-block partials of given block-ordered columns (B*Eb, 3, 3): the
+// contribution rows of each real tet straight from `cols`, then the local
+// slot sums.
+__global__ void __launch_bounds__(kThreads) blocked_assemble_kernel(
+    fem::BlockTables T, const float* __restrict__ cols,
+    float* __restrict__ partials) {
+  extern __shared__ float smem[];
+  float* t = smem;
+  const int b = blockIdx.x;
+  const int nel = T.block_elements[b];
+  for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+    float h[9];
+    const float* c = cols + 9 * (static_cast<size_t>(b) * T.eb + e);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) h[i] = c[i];
+    fem::column_rows(1.0f, h, t + 12 * e);
   }
   __syncthreads();
   fem::block_slot_sums(T, b, t, partials + 3 * b * T.pb);
@@ -123,6 +169,47 @@ extern "C" int fem_blocked_matvec(const fem::BlockTables* tables,
     blocked_matvec_kernel<<<T.num_blocks, kThreads, smem, s>>>(
         T, static_cast<const float*>(k), static_cast<const float*>(x),
         transpose, static_cast<float*>(partials));
+  }
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || num_particles <= 0) return rc;
+  slot_sum_kernel<<<(num_particles + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const int*>(slot_ptr), static_cast<const int*>(slot_rows),
+      static_cast<const float*>(partials), num_particles,
+      static_cast<float*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Per-slot explicit gradient partials (B*Pb, 3) at pos.
+extern "C" int fem_blocked_grad_prep(const fem::BlockTables* tables,
+                                     const void* pos, float mu, float lam,
+                                     void* partials, void* stream) {
+  const fem::BlockTables T = *tables;
+  const size_t smem = sizeof(float) * fem::block_work_floats(T.eb, T.pb);
+  int rc = prepare(blocked_grad_prep_kernel, smem);
+  if (rc != 0) return rc;
+  if (T.num_blocks > 0) {
+    blocked_grad_prep_kernel<<<T.num_blocks, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+        T, static_cast<const float*>(pos), mu, lam,
+        static_cast<float*>(partials));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y (N, 3): the assembly of block-ordered columns (B*Eb, 3, 3); partials
+// (B*Pb, 3) is scratch.
+extern "C" int fem_blocked_assemble(const fem::BlockTables* tables,
+                                    const void* cols, const void* slot_ptr,
+                                    const void* slot_rows, int num_particles,
+                                    void* partials, void* y, void* stream) {
+  const fem::BlockTables T = *tables;
+  const size_t smem = sizeof(float) * 12 * static_cast<size_t>(T.eb);
+  int rc = prepare(blocked_assemble_kernel, smem);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T.num_blocks > 0) {
+    blocked_assemble_kernel<<<T.num_blocks, kThreads, smem, s>>>(
+        T, static_cast<const float*>(cols), static_cast<float*>(partials));
   }
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || num_particles <= 0) return rc;

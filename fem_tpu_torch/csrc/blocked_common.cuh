@@ -1,8 +1,10 @@
 // Per-block pieces of the blocked kernels: one thread block works on one
 // locality block (fem_tpu_torch/ops/blocking.py) at a time.  The blocked
-// prep K2 and the blocked matvec K3 (blocked.cu) and the whole-frame kernel
-// K5 (blocked_frame.cu) are built from these functions, so K5's prep is K2's
-// per-block body and its operator applies are K3's.
+// prep K2, its explicit mode K7b, the blocked matvec K3 and the blocked
+// assembly K7a (blocked.cu) and the whole-frame kernels K5
+// (blocked_frame.cu) and K8 (explicit_frame.cu) are built from these
+// functions, so K5's prep is K2's per-block body, its operator applies are
+// K3's, and K8's gradient is K7b's.
 //
 // A block gathers its <= Pb particles' rows into shared memory (`xs`), works
 // on its <= Eb tets there, and writes one contribution row per (tet, local
@@ -63,10 +65,22 @@ __device__ __forceinline__ void block_edges(const BlockTables& T, int b, int e,
   }
 }
 
+// Contribution rows t (12) of one tet's columns s*h (row-major 3x3): column
+// j to local vertex j+1, minus their sum to vertex 0.
+__device__ __forceinline__ void column_rows(float s, const float* h, float* t) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float c0 = s * h[3 * i], c1 = s * h[3 * i + 1], c2 = s * h[3 * i + 2];
+    t[3 + i] = c0;
+    t[6 + i] = c1;
+    t[9 + i] = c2;
+    t[i] = -((c0 + c1) + c2);
+  }
+}
+
 // Prep of real tet e of block b: K_e = -V k into k_out (9), and its force
-// contribution rows into t (12): column j of H_e = -V h to local vertex
-// j+1, minus their sum to vertex 0 — the same arithmetic as K1 followed by
-// K4's force assembly.
+// contribution rows into t (12) from H_e = -V h — the same arithmetic as K1
+// followed by K4's force assembly.
 __device__ __forceinline__ void element_prep(const BlockTables& T, int b,
                                              int e, const float* xs, float mu,
                                              float lam, float half_lam,
@@ -80,14 +94,22 @@ __device__ __forceinline__ void element_prep(const BlockTables& T, int b,
   const float nv = -T.volume[slot];
 #pragma unroll
   for (int i = 0; i < 9; ++i) k_out[i] = nv * k[i];
+  column_rows(nv, h, t);
+}
+
+// Explicit gradient of real tet e of block b: the contribution rows t (12)
+// of G_e = +V g (nh_grad_cols) — the same arithmetic as K6 followed by the
+// blocked assembly K7a.
+__device__ __forceinline__ void element_grad(const BlockTables& T, int b,
+                                             int e, const float* xs, float mu,
+                                             float lam, float* t) {
+  float x[9], r[9], g[9];
+  block_edges(T, b, e, xs, x);
+  const int slot = b * T.eb + e;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float c0 = nv * h[3 * i], c1 = nv * h[3 * i + 1], c2 = nv * h[3 * i + 2];
-    t[3 + i] = c0;
-    t[6 + i] = c1;
-    t[9 + i] = c2;
-    t[i] = -((c0 + c1) + c2);
-  }
+  for (int i = 0; i < 9; ++i) r[i] = T.ref_inv[9 * slot + i];
+  nh_grad_cols(x, r, mu, lam, g);
+  column_rows(T.volume[slot], g, t);
 }
 
 // Operator rows of real tet e of block b: t_j = K_e (x_{v_{j+1}} - x_{v_0})

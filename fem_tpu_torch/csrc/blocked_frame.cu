@@ -44,6 +44,7 @@
 #include <cuda_runtime.h>
 
 #include "blocked_common.cuh"
+#include "cooperative.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -447,54 +448,22 @@ extern "C" long long fem_blocked_frame_scratch_floats(int n, int num_blocks,
 extern "C" int fem_blocked_frame_plan(int num_blocks, int eb, int pb, int grid,
                                       int* grid_out, int* smem_out,
                                       int* max_grid_out) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int coop = 0, sms = 0, optin = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (!coop) return -1;
-  if (grid <= 0) grid = num_blocks < sms ? num_blocks : sms;
-  if (grid <= 0) grid = 1;
-  const size_t smem = frame_smem(grid, num_blocks, eb, pb);
-  *grid_out = grid;
-  *smem_out = static_cast<int>(smem);
   *max_grid_out = 0;
-  if (smem > static_cast<size_t>(optin)) return -2;
-  e = cudaFuncSetAttribute(blocked_frame_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, blocked_frame_kernel,
-                                                    kThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  *max_grid_out = per_sm * sms;
-  if (grid > per_sm * sms) return -3;
-  return 0;
+  const int rc = fem::cooperative_grid(num_blocks, grid, grid_out);
+  if (rc != 0) return rc;
+  const size_t smem = frame_smem(*grid_out, num_blocks, eb, pb);
+  *smem_out = static_cast<int>(smem);
+  return fem::cooperative_fit(blocked_frame_kernel, kThreads, *grid_out, smem,
+                              max_grid_out);
 }
 
 extern "C" int fem_blocked_frame(const FemFrameArgs* args, int grid, int smem,
                                  void* stream) {
   FemFrameArgs a = *args;
-  void* params[] = {&a};
-  cudaError_t e = cudaFuncSetAttribute(
-      blocked_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(blocked_frame_kernel), dim3(grid), dim3(kThreads),
-      params, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // clear the launch error
-    return static_cast<int>(e);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return fem::cooperative_launch(blocked_frame_kernel, &a, grid, kThreads, smem,
+                                 stream);
 }
 
 extern "C" const char* fem_blocked_frame_error(int code) {
-  if (code == -1) return "the device does not support cooperative launches";
-  if (code == -2) return "the K blocks of one CTA exceed its shared memory";
-  if (code == -3) return "the grid cannot be co-resident on the device";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return fem::cooperative_error(code);
 }

@@ -1,0 +1,205 @@
+// K8: one rendered frame of the explicit (and autodiff) path — sim_count
+// substeps, each the energy gradient over the locality blocks and the
+// kinematic step — in one cooperative launch.
+//
+// Replaces the TPU kernel fem_tpu/ops/pallas_blocked_frame.py:
+// _explicit_frame_kernel (reached through fused_explicit_frame), elastic
+// Neo-Hookean branch.  The TPU kernel runs on one core over VMEM-resident
+// one-hot tables (s_dense, g_dense, the pj selections) with 3-plane bf16
+// dots and (8, 128)-padded planes; none of that is semantics and none is
+// carried over: this kernel indexes the block tables directly and computes
+// in plain f32.  Like the TPU kernel it runs the analytic gradient chain for
+// autodiff configs too: autograd of the energy computes the same formula up
+// to the order of its sums.
+//
+// Semantics, unchanged (fused_explicit_frame's contract):
+//   per substep: grad = sum over tets of the +V g columns (the shared chain
+//   fem::nh_grad_cols, element_chain.cuh: unclamped log), column j to local
+//   vertex j+1 and minus their sum to vertex 0; then per particle
+//   vel += (9.8 g_dir - grad m^-1) dt, vel *= exp(-dt damping), a component
+//   pushing through a unit-box wall (tested on the old position, lower wall
+//   then upper) is zeroed, circles project in obstacle order on the old
+//   position (radius 0 never hits), pos += vel dt.
+//
+// Design.  K5's skeleton (blocked_frame.cu): one thread block per locality
+// block (17 on the flagship; grid-stride when a mesh has more blocks than
+// the grid), a cooperative launch so that the grid is co-resident or the
+// launch fails, and data written by another CTA read past L1 (__ldcg).
+// Each substep has two phases separated by grid barriers:
+//   1. gradient partials: each CTA loads its blocks' positions into shared
+//      memory, runs one thread per real tet (padded slots are skipped, so
+//      the unclamped log of their X = 0 never runs), and writes the
+//      per-slot partials through the block's local plan;
+//   2. assembly and kinematics: each thread owns particles, sums their slot
+//      partials through the slot plan in a fixed order and advances them.
+// Phase 1 of substep s+1 reads positions that phase 2 of substep s wrote in
+// other CTAs, and phase 2 reads partials of phase 1 in other CTAs: a
+// barrier sits between each pair, 2 sim_count - 1 a frame.  No float
+// atomics, so two runs are bit-identical.  The kinematic step uses
+// round-to-nearest intrinsics in the plain version's order (no fused
+// multiply-adds), so it rounds as the plain version does.
+//
+// Bound on the H100: operations — a flagship frame is 10 x (~200 f32
+// operations a tet x 4,068 tets + the slot sums + the kinematics), about
+// 11 MFLOP, 0.16 us at 67 TFLOP/s f32; its bytes take less.  What sets the
+// time is the chain of grid barriers and the per-block work done by one SM
+// each.  A first kernel that is right; more SMs per block is later work.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "blocked_common.cuh"
+#include "cooperative.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+
+}  // namespace
+
+// The Python side mirrors this layout (ops/frame_kernels.py:
+// ExplicitFrameArgsC).
+struct FemExplicitFrameArgs {
+  fem::BlockTables T;
+  const int* slot_ptr;   // (N+1,) slot plan
+  const int* slot_rows;  // flat block slots b*Pb+p
+  const float* pos_in;   // (N, 3)
+  const float* vel_in;
+  const float* mass;     // (N,)
+  const float* centers;  // (O, 3)
+  const float* radii;    // (O,)
+  int n;
+  int n_obst;
+  int sim_count;
+  float dt;
+  float decay;
+  float g0, g1, g2;  // 9.8 g_dir
+  float mu;
+  float lam;
+  float* pos;       // (N, 3) outputs, the state through the frame
+  float* vel;
+  float* partials;  // (B*Pb, 3) scratch
+};
+
+namespace {
+
+// Phase 1: the per-slot gradient partials of every owned block at `src`.
+__device__ void gradient_partials(const FemExplicitFrameArgs& a,
+                                  const float* src, float* xs, float* t) {
+  const fem::BlockTables& T = a.T;
+  for (int b = blockIdx.x; b < T.num_blocks; b += gridDim.x) {
+    fem::load_block_rows(T, b, src, xs);
+    __syncthreads();
+    const int nel = T.block_elements[b];
+    for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+      fem::element_grad(T, b, e, xs, a.mu, a.lam, t + 12 * e);
+    }
+    __syncthreads();
+    fem::block_slot_sums(T, b, t, a.partials + 3 * b * T.pb);
+    __syncthreads();
+  }
+}
+
+// Phase 2: the kinematic step of particle p from state (pos_src, vel_src).
+__device__ void kinematic(const FemExplicitFrameArgs& a, int p,
+                          const float* pos_src, const float* vel_src) {
+  const float g[3] = {a.g0, a.g1, a.g2};
+  float grad[3];
+  fem::particle_slot_sum(a.slot_ptr, a.slot_rows, a.partials, p, grad);
+  const float minv = __fdiv_rn(1.0f, a.mass[p]);
+  float pos[3], vel[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    pos[c] = pos_src[3 * p + c];
+    const float acc = __fsub_rn(g[c], __fmul_rn(grad[c], minv));
+    vel[c] = __fmul_rn(__fadd_rn(vel_src[3 * p + c], __fmul_rn(acc, a.dt)),
+                       a.decay);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if ((pos[c] < 0.0f && vel[c] < 0.0f) || (pos[c] > 1.0f && vel[c] > 0.0f)) {
+      vel[c] = 0.0f;
+    }
+  }
+  for (int o = 0; o < a.n_obst; ++o) {
+    const float radius = a.radii[o];
+    float disp[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) disp[c] = __fsub_rn(pos[c], a.centers[3 * o + c]);
+    const float dist_sq = __fadd_rn(
+        __fadd_rn(__fmul_rn(disp[0], disp[0]), __fmul_rn(disp[1], disp[1])),
+        __fmul_rn(disp[2], disp[2]));
+    const float toward = __fadd_rn(
+        __fadd_rn(__fmul_rn(vel[0], -disp[0]), __fmul_rn(vel[1], -disp[1])),
+        __fmul_rn(vel[2], -disp[2]));
+    if (dist_sq < __fmul_rn(radius, radius) && toward > 0.0f && radius > 0.0f) {
+      const float dot = __fadd_rn(
+          __fadd_rn(__fmul_rn(vel[0], disp[0]), __fmul_rn(vel[1], disp[1])),
+          __fmul_rn(vel[2], disp[2]));
+      const float coeff = __fdiv_rn(dot, fmaxf(dist_sq, 1e-30f));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) vel[c] = __fsub_rn(vel[c], __fmul_rn(coeff, disp[c]));
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    a.pos[3 * p + c] = __fadd_rn(pos[c], __fmul_rn(vel[c], a.dt));
+    a.vel[3 * p + c] = vel[c];
+  }
+}
+
+// __grid_constant__: the parameter stays in the parameter space instead of
+// a per-thread copy.
+__global__ void __launch_bounds__(kThreads, 1)
+    explicit_frame_kernel(const __grid_constant__ FemExplicitFrameArgs a) {
+  extern __shared__ float smem[];
+  float* xs = smem;
+  float* t = smem + 3 * a.T.pb;
+  cg::grid_group grid = cg::this_grid();
+  const int first = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  const int stride = static_cast<int>(gridDim.x * blockDim.x);
+  for (int s = 0; s < a.sim_count; ++s) {
+    // Substep 0 reads the inputs; later ones the state in the outputs, which
+    // only the owning thread rewrites in phase 2 (other CTAs' rows are read
+    // past L1 in phase 1).
+    const float* pos_src = s == 0 ? a.pos_in : a.pos;
+    const float* vel_src = s == 0 ? a.vel_in : a.vel;
+    gradient_partials(a, pos_src, xs, t);
+    grid.sync();
+    for (int p = first; p < a.n; p += stride) kinematic(a, p, pos_src, vel_src);
+    if (s + 1 < a.sim_count) grid.sync();
+  }
+}
+
+}  // namespace
+
+// Checks that a cooperative grid of `grid` CTAs (0: one per locality block,
+// at most one per SM) fits the device; writes the grid, its dynamic shared
+// memory and the most co-resident CTAs.  Returns 0, a CUDA error, or
+// -1 (no cooperative launch), -2 (shared memory too large), -3 (the grid
+// cannot be co-resident).
+extern "C" int fem_explicit_frame_plan(int num_blocks, int eb, int pb, int grid,
+                                       int* grid_out, int* smem_out,
+                                       int* max_grid_out) {
+  *max_grid_out = 0;
+  const int rc = fem::cooperative_grid(num_blocks, grid, grid_out);
+  if (rc != 0) return rc;
+  const size_t smem = sizeof(float) * fem::block_work_floats(eb, pb);
+  *smem_out = static_cast<int>(smem);
+  return fem::cooperative_fit(explicit_frame_kernel, kThreads, *grid_out, smem,
+                              max_grid_out);
+}
+
+extern "C" int fem_explicit_frame(const FemExplicitFrameArgs* args, int grid,
+                                  int smem, void* stream) {
+  FemExplicitFrameArgs a = *args;
+  if (a.sim_count <= 0 || a.n <= 0) return 0;
+  return fem::cooperative_launch(explicit_frame_kernel, &a, grid, kThreads,
+                                 smem, stream);
+}
+
+extern "C" const char* fem_explicit_frame_error(int code) {
+  return fem::cooperative_error(code);
+}

@@ -1,10 +1,14 @@
 # coding=utf-8
-"""The flagship model and its deformed example state.
+"""The flagship models and their example states.
 
 The counterpart of the repository's ``__graft_entry__._flagship`` and
 ``entry``: ``configs/demo_spot.json`` — one 3D Neo-Hookean tet body (1,007
 particles, 4,068 tets) under the reference implicit CG in normal-equations
-mode, ``sim_count = 10`` — built on ``device`` (CUDA by default).
+mode, ``sim_count = 10`` — built on ``device`` (CUDA by default).  The
+explicit flagship is the same body under the explicit method at
+``delta_time = 1e-4``, the mesh's explicit stability limit (the JAX
+package's ``bench.py`` explicit row).  ``load_config`` builds any shipped
+single-body config the same way.
 """
 
 from __future__ import annotations
@@ -26,23 +30,49 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_CONFIG = os.path.join(REPO, "configs", "demo_spot.json")
 
 
-def flagship(device="cuda"):
-    """(cfg, obj, state, obstacles) of the flagship config on ``device``."""
+def load_config(path: str, device="cuda"):
+    """(cfg, obj, state, obstacles) of a single-body config file on
+    ``device``; a mesh path in it is read relative to the repository."""
     dev = resolve_device(device)
-    cfg = read_config(FLAGSHIP_CONFIG)
+    cfg = read_config(path)
     check_supported_config(cfg)
-    ocfg = cfg.objects[0]
-    obj_path = os.path.join(REPO, ocfg.obj)
-    if not os.path.exists(obj_path):
-        subprocess.run(
-            [sys.executable, os.path.join(REPO, "assets", "make_assets.py")],
-            check=True,
+    if len(cfg.objects) != 1:
+        raise NotImplementedError(
+            f"{len(cfg.objects)} bodies: only single-body configs are ported "
+            "yet (ROADMAP M12)"
         )
-    ocfg = dataclasses.replace(ocfg, obj=obj_path)
+    ocfg = cfg.objects[0]
+    if ocfg.obj is not None:
+        obj_path = os.path.join(REPO, ocfg.obj)
+        if not os.path.exists(obj_path):
+            subprocess.run(
+                [sys.executable, os.path.join(REPO, "assets", "make_assets.py")],
+                check=True,
+            )
+        ocfg = dataclasses.replace(ocfg, obj=obj_path)
     vertices, faces, elements, _aux = load_object_mesh(ocfg)
     obj, state = build_object(ocfg, vertices, faces, elements, device=dev)
     obstacles = Obstacles.from_configs(cfg.blocks, cfg.dim, device=dev)
     return cfg, obj, state, obstacles
+
+
+def flagship(device="cuda"):
+    """(cfg, obj, state, obstacles) of the flagship config on ``device``."""
+    return load_config(FLAGSHIP_CONFIG, device)
+
+
+def explicit_flagship(device="cuda"):
+    """(cfg, obj, state, obstacles) of the explicit flagship on ``device``:
+    the flagship body under ``use_explicit_method`` at ``delta_time = 1e-4``,
+    lowered until its lowest particle sits 0.01 above the floor and falling
+    at v_y = −1, so that it reaches the floor within the first frames."""
+    cfg, obj, state, obstacles = flagship(device)
+    cfg = dataclasses.replace(cfg, use_explicit_method=True, delta_time=1e-4)
+    pos = state.pos.clone()
+    pos[:, 1] += 0.01 - pos[:, 1].min()
+    vel = torch.zeros_like(state.vel)
+    vel[:, 1] = -1.0
+    return cfg, obj, state.replace(pos=pos, vel=vel), obstacles
 
 
 def deformed(state: SimState) -> SimState:

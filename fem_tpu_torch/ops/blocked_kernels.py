@@ -1,18 +1,24 @@
 # coding=utf-8
-"""K2 and K3: the blocked element prep and the blocked operator.
+"""K2, K7b, K3 and K7a: the blocked element prep, the blocked operator and
+the blocked assembly.
 
-``blocked_prep`` launches ``fem_tpu_torch/csrc/blocked.cu``'s prep kernel for
-tensors on a CUDA device; it replaces the JAX package's Pallas kernel
+``blocked_prep`` and ``blocked_grad_prep`` launch
+``fem_tpu_torch/csrc/blocked.cu``'s prep kernels for tensors on a CUDA
+device; they replace the JAX package's Pallas kernel
 ``ops/blocking.py:_prep_kernel`` in its implicit mode (entry
-``blocked_prep``).  ``blocked_graph_apply`` launches the same file's matvec
-and slot-sum kernels; it replaces ``ops/blocking.py:_matvec_kernel`` (entry
-``blocked_graph_apply``).  For tensors on the CPU each runs its plain
-PyTorch version (``*_plain``); on CUDA each launches its kernel or raises.
+``blocked_prep``, K2) and its explicit mode (entry ``blocked_grad_prep``,
+K7b).  ``blocked_graph_apply`` launches the same file's matvec and slot-sum
+kernels; it replaces ``ops/blocking.py:_matvec_kernel`` (entry
+``blocked_graph_apply``, K3).  ``blocked_assemble`` launches its assembly
+and slot-sum kernels; it replaces ``ops/blocking.py:_scatter_kernel``
+(entry ``blocked_assemble``, K7a).  For tensors on the CPU each runs its
+plain PyTorch version (``*_plain``); on CUDA each launches its kernel or
+raises.
 
-Layouts: K blocks are ``(B·Eb, d, d)`` in block order (the JAX package's
-``kplane_to_kflat`` of its (B, d², Eb·d) planes); per-slot partials are
-``(B, Pb, d)`` (the JAX package's (B, d, Pb) transposed).  Padded element
-slots give K = 0 and contribute nothing.
+Layouts: K blocks and element columns are ``(B·Eb, d, d)`` in block order
+(the JAX package's ``kplane_to_kflat`` of its (B, d², Eb·d) planes);
+per-slot partials are ``(B, Pb, d)`` (the JAX package's (B, d, Pb)
+transposed).  Padded element slots give K = 0 and contribute nothing.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from fem_tpu_torch.ops.blocking import (
     blocked_scatter_sum,
 )
 from fem_tpu_torch.ops.cg_kernels import CGResult, conjugate_gradient
-from fem_tpu_torch.ops.element import k_and_h_chain
+from fem_tpu_torch.ops.element import grad_cols_chain, k_and_h_chain
 from fem_tpu_torch.utils import cuda_build
 
 _P = ctypes.c_void_p
@@ -119,6 +125,21 @@ def blocked_prep_plain(blk: Blocking, pos, mu: float, lam: float):
     return k, _slot_partials(blk, h)
 
 
+def blocked_grad_prep_plain(blk: Blocking, pos, mu: float, lam: float):
+    """Plain PyTorch version of :func:`blocked_grad_prep`.  Padded slots
+    (X = 0, NaN through the unclamped log) are dropped by the mask."""
+    x = block_edge_matrices(blk, blocked_gather(pos, blk))
+    g = grad_cols_chain(sm.matmul(x, blk.ref_inv), blk.ref_inv, mu, lam)
+    g = torch.where(_real_slots(blk), blk.volume[:, None, None] * g, 0.0)
+    return _slot_partials(blk, g)
+
+
+def blocked_assemble_plain(blk: Blocking, cols):
+    """Plain PyTorch version of :func:`blocked_assemble`."""
+    cols = torch.where(_real_slots(blk), cols, 0.0)
+    return blocked_scatter_sum(_slot_partials(blk, cols), blk)
+
+
 def blocked_graph_apply_plain(blk: Blocking, K, x, transpose_k: bool = False):
     """Plain PyTorch version of :func:`blocked_graph_apply`."""
     s = block_edge_matrices(blk, blocked_gather(x, blk))
@@ -140,6 +161,14 @@ def _library():
             tables, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, _P,
         ]
         lib.fem_blocked_matvec.restype = ctypes.c_int
+        lib.fem_blocked_grad_prep.argtypes = [
+            tables, _P, ctypes.c_float, ctypes.c_float, _P, _P,
+        ]
+        lib.fem_blocked_grad_prep.restype = ctypes.c_int
+        lib.fem_blocked_assemble.argtypes = [
+            tables, _P, _P, _P, ctypes.c_int, _P, _P, _P,
+        ]
+        lib.fem_blocked_assemble.restype = ctypes.c_int
         lib.fem_blocked_error.argtypes = [ctypes.c_int]
         lib.fem_blocked_error.restype = ctypes.c_char_p
     return lib
@@ -183,6 +212,85 @@ def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float):
 blocked_prep.launches = 0
 
 
+def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
+                      lam: float) -> torch.Tensor:
+    """Per-slot partials (B, Pb, d) of the explicit energy gradient at
+    ``pos``: the slot sums of the +V·P(F)·R⁻ᵀ columns (unclamped log); feed
+    them to ``blocked_scatter_sum``.
+
+    CUDA tensors: one launch of the blocked prep kernel in its explicit mode
+    (3D Neo-Hookean).  CPU tensors: :func:`blocked_grad_prep_plain`."""
+    if pos.device.type == "cpu":
+        return blocked_grad_prep_plain(blk, pos, mu, lam)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    tables = block_tables(blk)
+    n = pos.shape[0]
+    cuda_build.check_operand("pos", pos, (n, 3), torch.float32, blk.volume.device)
+    partials = torch.empty((blk.num_blocks, blk.pb, 3), dtype=torch.float32,
+                           device=pos.device)
+    lib = _library()
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        rc = lib.fem_blocked_grad_prep(
+            ctypes.byref(tables), pos.data_ptr(), mu, lam,
+            partials.data_ptr(), stream,
+        )
+    _check_rc(lib, rc, "blocked gradient prep")
+    blocked_grad_prep.launches += 1
+    return partials
+
+
+blocked_grad_prep.launches = 0
+
+
+def check_slot_plan(blk: Blocking, n: int, dev) -> None:
+    """Raise unless ``blk``'s CSR slot plan is what the kernels take for
+    ``n`` particles on ``dev``."""
+    plan = blk.slot_plan
+    cuda_build.check_operand("slot_plan.ptr", plan.ptr, (n + 1,), torch.int32, dev)
+    cuda_build.check_operand("slot_plan.rows", plan.rows, tuple(plan.rows.shape),
+                             torch.int32, dev)
+
+
+def blocked_assemble(blk: Blocking, cols: torch.Tensor) -> torch.Tensor:
+    """(N, d) assembly of block-ordered element columns ``cols`` (B·Eb, d, d):
+    column j of each real slot to its local vertex j+1, −Σ_j to vertex 0,
+    summed per block and then per particle over its block slots (padded
+    slots contribute nothing).
+
+    CUDA tensors: one launch of the blocked assembly (two kernels: per-block
+    partials, per-particle slot sums).  CPU tensors:
+    :func:`blocked_assemble_plain`."""
+    if cols.device.type == "cpu":
+        return blocked_assemble_plain(blk, cols)
+    if cols.device.type != "cuda":
+        raise ValueError(f"unsupported device {cols.device}")
+    tables = block_tables(blk)
+    dev = cols.device
+    n = blk.slot_plan.ptr.shape[0] - 1
+    cuda_build.check_operand("cols", cols, (blk.num_blocks * blk.eb, 3, 3),
+                             torch.float32, blk.volume.device)
+    check_slot_plan(blk, n, dev)
+    partials = torch.empty((blk.num_blocks * blk.pb, 3), dtype=torch.float32,
+                           device=dev)
+    y = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fem_blocked_assemble(
+            ctypes.byref(tables), cols.data_ptr(), blk.slot_plan.ptr.data_ptr(),
+            blk.slot_plan.rows.data_ptr(), n, partials.data_ptr(),
+            y.data_ptr(), stream,
+        )
+    _check_rc(lib, rc, "blocked assembly")
+    blocked_assemble.launches += 1
+    return y
+
+
+blocked_assemble.launches = 0
+
+
 def blocked_graph_apply(blk: Blocking, K: torch.Tensor, x: torch.Tensor,
                         transpose_k: bool = False) -> torch.Tensor:
     """G(K)·x (G(Kᵀ)·x when ``transpose_k``), (N, d): per block the
@@ -203,9 +311,7 @@ def blocked_graph_apply(blk: Blocking, K: torch.Tensor, x: torch.Tensor,
     cuda_build.check_operand("x", x, (n, 3), torch.float32, blk.volume.device)
     cuda_build.check_operand("K", K, (blk.num_blocks * blk.eb, 3, 3),
                              torch.float32, dev)
-    cuda_build.check_operand("slot_plan.ptr", plan.ptr, (n + 1,), torch.int32, dev)
-    cuda_build.check_operand("slot_plan.rows", plan.rows, tuple(plan.rows.shape),
-                             torch.int32, dev)
+    check_slot_plan(blk, n, dev)
     partials = torch.empty((blk.num_blocks * blk.pb, 3), dtype=torch.float32,
                            device=dev)
     y = torch.empty((n, 3), dtype=torch.float32, device=dev)

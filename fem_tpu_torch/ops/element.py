@@ -1,16 +1,22 @@
 # coding=utf-8
-"""Batched Neo-Hookean element math for the implicit path (plain PyTorch).
+"""Batched Neo-Hookean element math (plain PyTorch).
 
 The port of the JAX package's ``ops/element.py`` subset the reference
-implicit-CG substep needs.  Each element contributes one d×d block ``K_e`` in
-a graph-Laplacian pattern (the reference's decoupled Hessian,
+substeps need.  On the implicit path each element contributes one d×d block
+``K_e`` in a graph-Laplacian pattern (the reference's decoupled Hessian,
 solver/implicit.py:131-147) and one set of rhs force columns
-(solver/implicit.py:87-88).
+(solver/implicit.py:87-88); on the explicit path one set of energy-gradient
+columns (solver/explicit.py:23-49), and on the autodiff path the energy
+itself (solver/explicit_auto_diff.py:24-30).
 
 The formulas follow the Pallas element chain ``k_and_h_chain`` of the JAX
 package term for term — the chain the CUDA element kernel ports — including
 its two logarithms: ``K`` uses the clamped ``log(max(det F, 1e-4))`` and the
 rhs uses ``log(det F · det F)``, which stays finite for inverted elements.
+The explicit chain ``grad_cols_chain`` follows the Pallas chain of the same
+name and uses the unclamped ``log(det F)``: an inverted element gives NaN,
+as in the reference.  The two agree only where det F > 0, and only to
+rounding, so neither stands in for the other.
 """
 
 from __future__ import annotations
@@ -76,3 +82,68 @@ def implicit_force_columns(
     f = deformation_gradients(pos, element_indices, ref_inv)
     _, h = k_and_h_chain(f, ref_inv, mu, s_lambda)
     return -volume[:, None, None] * h
+
+
+def grad_cols_chain(f: torch.Tensor, r: torch.Tensor, mu: float, lam: float):
+    """Unscaled explicit gradient columns from deformation gradients ``f``
+    and rest-edge inverses ``r``, both ``(E, d, d)``; callers apply ``+V``.
+
+    P = μF + (λ·log det F − μ)·F⁻ᵀ,  h = P·R⁻ᵀ, with the log unclamped.
+    """
+    det_f = sm.det(f)
+    f_inv_t = sm.mT(sm.inv(f, det_f))
+    log_j = torch.log(det_f)[..., None, None]
+    p = mu * f + (lam * log_j - mu) * f_inv_t
+    return sm.matmul(p, sm.mT(r))
+
+
+def explicit_grad_columns(
+    pos: torch.Tensor,
+    element_indices: torch.Tensor,
+    ref_inv: torch.Tensor,
+    volume: torch.Tensor,
+    mu: float,
+    s_lambda: float,
+) -> torch.Tensor:
+    """Energy-gradient columns of the explicit path, ``(E, d, d)``: column j
+    goes to local vertex j+1 and −Σ_j to vertex 0.  They are +∂U/∂x
+    contributions (the reference subtracts the gradient in its kinematic
+    step, solver/kinematic.py:19)."""
+    f = deformation_gradients(pos, element_indices, ref_inv)
+    return volume[:, None, None] * grad_cols_chain(f, ref_inv, mu, s_lambda)
+
+
+def energy_density(f: torch.Tensor, mu: float, s_lambda: float) -> torch.Tensor:
+    """Neo-Hookean φ(F) = μ/2·(tr FᵀF − d) − μ·logJ + λ/2·logJ², logJ =
+    log det F unclamped (solver/explicit_auto_diff.py:24-28)."""
+    d = f.shape[-1]
+    log_j = torch.log(sm.det(f))
+    i_c = (f * f).sum(dim=(-2, -1))
+    return mu / 2.0 * (i_c - d) - mu * log_j + s_lambda / 2.0 * log_j * log_j
+
+
+def element_energies(
+    pos: torch.Tensor,
+    element_indices: torch.Tensor,
+    ref_inv: torch.Tensor,
+    volume: torch.Tensor,
+    mu: float,
+    s_lambda: float,
+) -> torch.Tensor:
+    """Per-element V·φ, ``(E,)``."""
+    f = deformation_gradients(pos, element_indices, ref_inv)
+    return volume * energy_density(f, mu, s_lambda)
+
+
+def total_energy(
+    pos: torch.Tensor,
+    element_indices: torch.Tensor,
+    ref_inv: torch.Tensor,
+    volume: torch.Tensor,
+    mu: float,
+    s_lambda: float,
+) -> torch.Tensor:
+    """U = Σ_e V_e·φ(F_e), the autodiff loss (a 0-d tensor)."""
+    return element_energies(
+        pos, element_indices, ref_inv, volume, mu, s_lambda
+    ).sum()

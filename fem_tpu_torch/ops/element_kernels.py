@@ -1,12 +1,15 @@
 # coding=utf-8
-"""K1, the element chain: per-tet system blocks K_e and rhs force columns.
+"""K1 and K6, the element chains over the mesh's tets.
 
-``hessian_and_force`` launches the hand-written CUDA kernel
-``fem_tpu_torch/csrc/element_chain.cu`` for tensors on a CUDA device; it
-replaces the JAX package's Pallas kernel ``ops/pallas_kernels.py:
-_hessian_and_force_kernel`` (entry ``hessian_and_force_pallas``).  For
-tensors on the CPU it runs ``hessian_and_force_plain``, the same function in
-plain PyTorch.  On CUDA it launches the kernel or raises; it never falls back.
+``hessian_and_force`` (K1: per-tet system blocks K_e and rhs force columns)
+and ``explicit_grad_columns`` (K6: per-tet explicit energy-gradient
+columns) launch the hand-written CUDA kernels of
+``fem_tpu_torch/csrc/element_chain.cu`` for tensors on a CUDA device; they
+replace the JAX package's Pallas kernels ``ops/pallas_kernels.py:
+_hessian_and_force_kernel`` (entry ``hessian_and_force_pallas``) and
+``_grad_cols_kernel`` (entry ``explicit_grad_columns_pallas``).  For
+tensors on the CPU each runs its plain PyTorch version (``*_plain``).  On
+CUDA each launches its kernel or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -16,6 +19,10 @@ import ctypes
 import torch
 
 from fem_tpu_torch.ops.element import deformation_gradients, k_and_h_chain
+# The plain version of K6 is the element module's +V·P(F)·R⁻ᵀ columns.
+from fem_tpu_torch.ops.element import (  # noqa: F401
+    explicit_grad_columns as explicit_grad_columns_plain,
+)
 from fem_tpu_torch.utils import cuda_build
 
 _P = ctypes.c_void_p
@@ -38,9 +45,38 @@ def _library():
             ctypes.c_float, _P, _P, _P,
         ]
         lib.fem_hessian_and_force.restype = ctypes.c_int
+        lib.fem_explicit_grad_columns.argtypes = [
+            _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            _P, _P,
+        ]
+        lib.fem_explicit_grad_columns.restype = ctypes.c_int
         lib.fem_element_chain_error.argtypes = [ctypes.c_int]
         lib.fem_element_chain_error.restype = ctypes.c_char_p
     return lib
+
+
+def _check_tets(pos, element_indices, ref_inv, volume):
+    """(E, device) of a CUDA launch over the tets, after checking what the
+    kernels take: 3D, f32 and int32, contiguous, int4-aligned indices."""
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    n, d = pos.shape
+    if d != 3:
+        raise NotImplementedError(
+            f"the element-chain kernels are 3D only (got dim {d}); 2D runs "
+            "on the CPU path"
+        )
+    e = element_indices.shape[0]
+    dev = pos.device
+    cuda_build.check_operand("pos", pos, (n, 3), torch.float32, dev)
+    cuda_build.check_operand(
+        "element_indices", element_indices, (e, 4), torch.int32, dev
+    )
+    cuda_build.check_operand("ref_inv", ref_inv, (e, 3, 3), torch.float32, dev)
+    cuda_build.check_operand("volume", volume, (e,), torch.float32, dev)
+    if element_indices.data_ptr() % 16:
+        raise ValueError("element_indices must be 16-byte aligned (int4 loads)")
+    return e, dev
 
 
 def hessian_and_force(
@@ -69,24 +105,7 @@ def hessian_and_force(
         return hessian_and_force_plain(
             pos, element_indices, ref_inv, volume, mu, lam
         )
-    if pos.device.type != "cuda":
-        raise ValueError(f"unsupported device {pos.device}")
-    n, d = pos.shape
-    if d != 3:
-        raise NotImplementedError(
-            f"the element-chain kernel is 3D only (got dim {d}); 2D runs on "
-            "the CPU path"
-        )
-    e = element_indices.shape[0]
-    dev = pos.device
-    cuda_build.check_operand("pos", pos, (n, 3), torch.float32, dev)
-    cuda_build.check_operand(
-        "element_indices", element_indices, (e, 4), torch.int32, dev
-    )
-    cuda_build.check_operand("ref_inv", ref_inv, (e, 3, 3), torch.float32, dev)
-    cuda_build.check_operand("volume", volume, (e,), torch.float32, dev)
-    if element_indices.data_ptr() % 16:
-        raise ValueError("element_indices must be 16-byte aligned (int4 loads)")
+    e, dev = _check_tets(pos, element_indices, ref_inv, volume)
     k = torch.empty((e, 3, 3), dtype=torch.float32, device=dev)
     h = torch.empty((e, 3, 3), dtype=torch.float32, device=dev)
     lib = _library()
@@ -105,3 +124,39 @@ def hessian_and_force(
 
 
 hessian_and_force.launches = 0
+
+
+def explicit_grad_columns(
+    pos: torch.Tensor,
+    element_indices: torch.Tensor,
+    ref_inv: torch.Tensor,
+    volume: torch.Tensor,
+    mu: float,
+    lam: float,
+) -> torch.Tensor:
+    """Explicit energy-gradient columns (E, d, d): column j of tet e goes to
+    its vertex j+1, −Σ_j to vertex 0.
+
+    CUDA tensors: one launch of the gradient-columns kernel (3D
+    Neo-Hookean).  CPU tensors: :func:`explicit_grad_columns_plain`."""
+    if pos.device.type == "cpu":
+        return explicit_grad_columns_plain(
+            pos, element_indices, ref_inv, volume, mu, lam
+        )
+    e, dev = _check_tets(pos, element_indices, ref_inv, volume)
+    g = torch.empty((e, 3, 3), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fem_explicit_grad_columns(
+            pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
+            volume.data_ptr(), e, mu, lam, g.data_ptr(), stream,
+        )
+    if rc != 0:
+        msg = lib.fem_element_chain_error(rc).decode()
+        raise RuntimeError(f"gradient-columns kernel launch failed: {msg}")
+    explicit_grad_columns.launches += 1
+    return g
+
+
+explicit_grad_columns.launches = 0

@@ -1,15 +1,20 @@
 # coding=utf-8
-"""K5, the whole frame: ``sim_count`` implicit-CG substeps in one launch.
+"""K5 and K8, the whole frame: ``sim_count`` substeps in one launch.
 
-``fused_blocked_frame`` launches ``fem_tpu_torch/csrc/blocked_frame.cu``
-cooperatively for tensors on a CUDA device; it replaces the JAX package's
-Pallas kernel ``ops/pallas_blocked_frame.py:_frame_kernel`` (entry
-``fused_blocked_frame``), elastic Neo-Hookean branch.  For tensors on the
-CPU it runs ``fused_blocked_frame_plain``: per substep the plain blocked
-prep, the slot-sum assembly, the reference CG over the plain blocked
-operator, and the plain advection.  On CUDA it launches the kernel or
-raises — also when the grid cannot be co-resident, since a grid barrier in a
-grid that is not would hang.
+``fused_blocked_frame`` (K5: implicit-CG substeps) and
+``fused_explicit_frame`` (K8: explicit substeps, also for autodiff configs)
+launch ``fem_tpu_torch/csrc/blocked_frame.cu`` and
+``fem_tpu_torch/csrc/explicit_frame.cu`` cooperatively for tensors on a
+CUDA device; they replace the JAX package's Pallas kernels
+``ops/pallas_blocked_frame.py:_frame_kernel`` (entry ``fused_blocked_frame``)
+and ``_explicit_frame_kernel`` (entry ``fused_explicit_frame``), elastic
+Neo-Hookean branches.  For tensors on the CPU each runs its plain version:
+``fused_blocked_frame_plain`` runs per substep the plain blocked prep, the
+slot-sum assembly, the reference CG over the plain blocked operator and the
+plain advection; ``fused_explicit_frame_plain`` per substep the plain
+blocked gradient prep, the slot sum and the plain kinematic step.  On CUDA
+each launches its kernel or raises — also when the grid cannot be
+co-resident, since a grid barrier in a grid that is not would hang.
 """
 
 from __future__ import annotations
@@ -24,15 +29,18 @@ from fem_tpu_torch.models.state import Obstacles, SimState
 from fem_tpu_torch.ops.blocked_kernels import (
     BlockTablesC,
     block_tables,
+    blocked_grad_prep_plain,
+    check_slot_plan,
     blocked_graph_apply_plain,
     blocked_prep_plain,
     blocked_velocity_solve,
 )
-from fem_tpu_torch.ops.blocking import Blocking
+from fem_tpu_torch.ops.blocking import Blocking, blocked_scatter_sum
 from fem_tpu_torch.solvers.advect import (
     advect_implicit_step,
     damping_decay,
     gravity_vector,
+    kinematic_step,
 )
 from fem_tpu_torch.utils import cuda_build
 
@@ -101,26 +109,32 @@ def _library():
     return lib
 
 
-@functools.lru_cache(maxsize=16)
-def frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-               grid: int):
-    """(grid, dynamic shared bytes) of the cooperative launch: ``grid`` CTAs,
-    or with 0 one per locality block and at most one per SM.  Raises when
-    the grid cannot be co-resident or its K blocks do not fit."""
-    lib = _library()
+def _plan(lib, plan_fn, error_fn, what, device_index, num_blocks, eb, pb,
+          grid):
     g, smem, most = _I(0), _I(0), _I(0)
     with torch.cuda.device(device_index):
-        rc = lib.fem_blocked_frame_plan(
+        rc = plan_fn(
             num_blocks, eb, pb, grid, ctypes.byref(g), ctypes.byref(smem),
             ctypes.byref(most),
         )
     if rc != 0:
-        msg = lib.fem_blocked_frame_error(rc).decode()
+        msg = error_fn(rc).decode()
         raise RuntimeError(
-            f"whole-frame kernel: {msg} (grid {g.value} CTAs, at most "
+            f"{what}: {msg} (grid {g.value} CTAs, at most "
             f"{most.value} co-resident, {smem.value} B of shared memory each)"
         )
     return g.value, smem.value
+
+
+@functools.lru_cache(maxsize=16)
+def frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
+               grid: int):
+    """(grid, dynamic shared bytes) of K5's cooperative launch: ``grid``
+    CTAs, or with 0 one per locality block and at most one per SM.  Raises
+    when the grid cannot be co-resident or its K blocks do not fit."""
+    lib = _library()
+    return _plan(lib, lib.fem_blocked_frame_plan, lib.fem_blocked_frame_error,
+                 "whole-frame kernel", device_index, num_blocks, eb, pb, grid)
 
 
 def fused_blocked_frame(
@@ -174,7 +188,7 @@ def fused_blocked_frame(
         ("radii", radii, (o,)),
     ):
         cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
-    cuda_build.check_operand("slot_plan.ptr", plan.ptr, (n + 1,), torch.int32, dev)
+    check_slot_plan(blk, n, dev)
     g, smem = frame_plan(dev.index or 0, blk.num_blocks, blk.eb, blk.pb,
                          int(grid))
     lib = _library()
@@ -206,3 +220,136 @@ def fused_blocked_frame(
 
 
 fused_blocked_frame.launches = 0
+
+
+class ExplicitFrameArgsC(ctypes.Structure):
+    """Mirror of ``FemExplicitFrameArgs`` (csrc/explicit_frame.cu)."""
+
+    _fields_ = [
+        ("T", BlockTablesC),
+        ("slot_ptr", _P), ("slot_rows", _P),
+        ("pos_in", _P), ("vel_in", _P),
+        ("mass", _P), ("centers", _P), ("radii", _P),
+        ("n", _I), ("n_obst", _I), ("sim_count", _I),
+        ("dt", _F), ("decay", _F),
+        ("g0", _F), ("g1", _F), ("g2", _F),
+        ("mu", _F), ("lam", _F),
+        ("pos", _P), ("vel", _P), ("partials", _P),
+    ]
+
+
+def fused_explicit_frame_plain(
+    blk: Blocking, pos, vel, mass, centers, radii, *, dt, damping, g_dir,
+    mu, s_lambda, sim_count,
+):
+    """Plain PyTorch version of :func:`fused_explicit_frame`: it multiplies
+    the gradient by m⁻¹, as the kernel does."""
+    state = SimState(pos=pos, vel=vel, vel_g=torch.zeros_like(vel),
+                     force=torch.zeros_like(pos))
+    obstacles = Obstacles(centers=centers, radii=radii)
+    decay = damping_decay(dt, damping, pos.dtype)
+    gravity = gravity_vector(tuple(g_dir), pos.device, pos.dtype)
+    inv_mass = 1.0 / mass
+    for _ in range(sim_count):
+        grad = blocked_scatter_sum(
+            blocked_grad_prep_plain(blk, state.pos, mu, s_lambda), blk)
+        state = kinematic_step(state, grad, mass, obstacles, dt, decay,
+                               gravity, inv_mass=inv_mass)
+    return state.pos, state.vel
+
+
+def _explicit_library():
+    lib = cuda_build.load("explicit_frame")
+    if lib.fem_explicit_frame.argtypes is None:
+        out = ctypes.POINTER(_I)
+        lib.fem_explicit_frame_plan.argtypes = [_I, _I, _I, _I, out, out, out]
+        lib.fem_explicit_frame_plan.restype = _I
+        lib.fem_explicit_frame.argtypes = [
+            ctypes.POINTER(ExplicitFrameArgsC), _I, _I, _P,
+        ]
+        lib.fem_explicit_frame.restype = _I
+        lib.fem_explicit_frame_error.argtypes = [_I]
+        lib.fem_explicit_frame_error.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=16)
+def explicit_frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
+                        grid: int):
+    """(grid, dynamic shared bytes) of K8's cooperative launch, as
+    :func:`frame_plan`."""
+    lib = _explicit_library()
+    return _plan(lib, lib.fem_explicit_frame_plan,
+                 lib.fem_explicit_frame_error, "explicit whole-frame kernel",
+                 device_index, num_blocks, eb, pb, grid)
+
+
+def fused_explicit_frame(
+    blk: Blocking,
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    mass: torch.Tensor,
+    centers: torch.Tensor,
+    radii: torch.Tensor,
+    *,
+    dt: float,
+    damping: float,
+    g_dir: Tuple[float, ...],
+    mu: float,
+    s_lambda: float,
+    sim_count: int,
+    grid: int = 0,
+):
+    """One rendered frame of ``sim_count`` explicit substeps: returns
+    (pos', vel') (N, d) — the contract of the JAX package's
+    ``fused_explicit_frame``, elastic Neo-Hookean.
+
+    CUDA tensors: one cooperative launch of the explicit whole-frame kernel
+    (3D Neo-Hookean), with no host synchronisation; ``grid`` as in
+    :func:`fused_blocked_frame`.  CPU tensors:
+    :func:`fused_explicit_frame_plain`."""
+    if pos.device.type == "cpu":
+        return fused_explicit_frame_plain(
+            blk, pos, vel, mass, centers, radii, dt=dt, damping=damping,
+            g_dir=g_dir, mu=mu, s_lambda=s_lambda, sim_count=sim_count,
+        )
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    if sim_count < 1:
+        raise ValueError(f"sim_count must be at least 1 (got {sim_count})")
+    tables = block_tables(blk)
+    dev = pos.device
+    n = pos.shape[0]
+    o = radii.shape[0]
+    plan = blk.slot_plan
+    f32 = torch.float32
+    for name, t, shape in (
+        ("pos", pos, (n, 3)), ("vel", vel, (n, 3)), ("mass", mass, (n,)),
+        ("centers", centers, (o, 3)), ("radii", radii, (o,)),
+    ):
+        cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
+    check_slot_plan(blk, n, dev)
+    g, smem = explicit_frame_plan(dev.index or 0, blk.num_blocks, blk.eb,
+                                  blk.pb, int(grid))
+    lib = _explicit_library()
+    partials = torch.empty((blk.num_blocks * blk.pb, 3), dtype=f32, device=dev)
+    out = [torch.empty((n, 3), dtype=f32, device=dev) for _ in range(2)]
+    grav = gravity_vector(tuple(g_dir), torch.device("cpu")).tolist()
+    args = ExplicitFrameArgsC(
+        tables, plan.ptr.data_ptr(), plan.rows.data_ptr(), pos.data_ptr(),
+        vel.data_ptr(), mass.data_ptr(), centers.data_ptr(),
+        radii.data_ptr(), n, o, int(sim_count), dt,
+        damping_decay(dt, damping), *grav, mu, s_lambda, out[0].data_ptr(),
+        out[1].data_ptr(), partials.data_ptr(),
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fem_explicit_frame(ctypes.byref(args), g, smem, stream)
+    if rc != 0:
+        msg = lib.fem_explicit_frame_error(rc).decode()
+        raise RuntimeError(f"explicit whole-frame kernel launch failed: {msg}")
+    fused_explicit_frame.launches += 1
+    return out[0], out[1]
+
+
+fused_explicit_frame.launches = 0

@@ -1,22 +1,34 @@
 # coding=utf-8
-"""Simulation stepping: the reference implicit-CG substep and frame.
+"""Simulation stepping: the substep and the frame.
 
-The port of the JAX package's ``sim.py`` for the semi-implicit conjugate-
-gradient path.  A substep is the velocity solve (``solvers/implicit.py``),
-then implicit advection (``solvers/advect.py``).  A frame advances
-``sim_count`` substeps and returns the per-substep solver metrics as device
-tensors of shape ``(sim_count,)``.  ``make_frame_fn`` picks how, as the JAX
-package's does:
+The port of the JAX package's ``sim.py`` for the semi-implicit
+conjugate-gradient path and the explicit and autodiff paths.  A substep
+is, as in the reference's main loop (main.py:101-112; ``auto_diff`` wins
+over everything):
+
+* explicit or autodiff: the assembled energy gradient
+  (``solvers/explicit.py``), then the kinematic step
+  (``solvers/advect.kinematic_step``);
+* otherwise: the velocity solve (``solvers/implicit.py``), then implicit
+  advection (``solvers/advect.advect_implicit_step``).
+
+A frame advances ``sim_count`` substeps and returns the per-substep solver
+metrics as device tensors of shape ``(sim_count,)`` (zeros on the explicit
+paths).  ``make_frame_fn`` picks how, as the JAX package's does:
 
 * the whole-frame kernel K5 (``ops/frame_kernels.py``), one launch a frame
   over the locality blocks, for ``frame_backend="blocked"`` and, on a CUDA
   object, for ``"auto"`` when the config is eligible
   (:func:`supports_blocked_frame`);
+* the explicit whole-frame kernel K8, likewise, for
+  ``frame_backend="blocked_explicit"`` and, on a CUDA object, for ``"auto"``
+  when an explicit or autodiff config is eligible
+  (:func:`supports_explicit_blocked_frame`);
 * otherwise the op-composed frame: ``sim_count`` substeps back to back, in
   which nothing waits for the device unless the blocked operator's CG loop
   reads ‖r‖² (``operator_mode="blocked"``).
 
-Every configuration the slice does not cover raises ``NotImplementedError``
+Every configuration the port does not cover raises ``NotImplementedError``
 naming its ROADMAP item.
 """
 
@@ -27,11 +39,19 @@ from typing import NamedTuple, Tuple
 import torch
 
 from fem_tpu_torch.models.state import FemObject, Obstacles, SimState
-from fem_tpu_torch.ops.frame_kernels import fused_blocked_frame
+from fem_tpu_torch.ops.frame_kernels import (
+    fused_blocked_frame,
+    fused_explicit_frame,
+)
 from fem_tpu_torch.solvers.advect import (
     advect_implicit_step,
     damping_decay,
     gravity_vector,
+    kinematic_step,
+)
+from fem_tpu_torch.solvers.explicit import (
+    analytic_energy_gradient,
+    autodiff_energy_gradient,
 )
 from fem_tpu_torch.solvers.implicit import implicit_velocity_solve
 from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, SimConfig
@@ -44,32 +64,39 @@ class StepAux(NamedTuple):
     solver_residual: torch.Tensor
 
 
+def _explicit(cfg: SimConfig) -> bool:
+    return bool(cfg.auto_diff or cfg.use_explicit_method)
+
+
 def check_supported_config(cfg: SimConfig) -> None:
-    """Raise for configurations this slice of the port does not cover."""
-    unsupported = (
-        (cfg.auto_diff or cfg.use_explicit_method,
-         "explicit and autodiff integration", "M9"),
-        (cfg.implicit_method == 0, "the Jacobi solver", "M10"),
-        (cfg.integrator != "semi_implicit", f"integrator={cfg.integrator!r}",
-         "M16"),
-        (cfg.robust_inversion, "robust_inversion", "M11"),
-        (cfg.cg_precond not in ("reference", "none"),
-         f"cg_precond={cfg.cg_precond!r}", "M13"),
-        (cfg.hessian != "reference", f"hessian={cfg.hessian!r}", "M13"),
-        (cfg.solver_backend == "dense", "solver_backend='dense'", "M13"),
+    """Raise for configurations the port does not cover.  The solver
+    options apply to the implicit path only: an explicit or autodiff
+    substep never reads them, as in the JAX package."""
+    unsupported = [
         (bool(cfg.obstacles), "typed (SDF) obstacles", "M13"),
         (cfg.wall_friction != 0.0, "wall_friction", "M13"),
         (cfg.adaptive_dt, "adaptive_dt", "M15"),
         (cfg.contact != "none", f"contact={cfg.contact!r}", "M17"),
-        (cfg.cg_fast_math,
-         "cg_fast_math (the TPU kernels' 2-plane bf16 split-dots on the MXU; "
-         "the port computes in plain f32 and has no counterpart)", "K5"),
-    )
+    ]
+    if not _explicit(cfg):
+        unsupported += [
+            (cfg.implicit_method == 0, "the Jacobi solver", "M10"),
+            (cfg.integrator != "semi_implicit",
+             f"integrator={cfg.integrator!r}", "M16"),
+            (cfg.robust_inversion, "robust_inversion", "M11"),
+            (cfg.cg_precond not in ("reference", "none"),
+             f"cg_precond={cfg.cg_precond!r}", "M13"),
+            (cfg.hessian != "reference", f"hessian={cfg.hessian!r}", "M13"),
+            (cfg.solver_backend == "dense", "solver_backend='dense'", "M13"),
+            (cfg.cg_fast_math,
+             "cg_fast_math (the TPU kernels' 2-plane bf16 split-dots on the "
+             "MXU; the port computes in plain f32 and has no counterpart)",
+             "K5"),
+        ]
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item}); this slice "
-                "runs the reference implicit-CG path"
+                f"{what} is not ported yet (ROADMAP {item})"
             )
 
 
@@ -85,8 +112,28 @@ def substep(
     robust_inversion: bool = False,
     cg_precond: str = "reference",
     operator_mode: str = "auto",
+    use_explicit_method: bool = False,
+    auto_diff: bool = False,
+    element_backend: str = "auto",
 ) -> Tuple[SimState, StepAux]:
-    """One semi-implicit substep: velocity solve, then advection."""
+    """One substep.  Explicit or autodiff: the energy gradient, then the
+    kinematic step, with zero solver metrics.  Otherwise semi-implicit: the
+    velocity solve, then advection."""
+    if auto_diff or use_explicit_method:
+        if auto_diff:
+            grad = autodiff_energy_gradient(obj, state.pos)
+        else:
+            grad = analytic_energy_gradient(obj, state.pos, element_backend)
+        dtype = state.pos.dtype
+        state = kinematic_step(
+            state, grad, obj.mass, obstacles, dt,
+            damping_decay(dt, obj.damping, dtype),
+            gravity_vector(tuple(g_dir), obj.device, dtype),
+        )
+        return state, StepAux(
+            torch.zeros((), dtype=torch.int32, device=obj.device),
+            torch.zeros((), dtype=torch.float32, device=obj.device),
+        )
     state, aux = implicit_velocity_solve(
         obj, state, dt, implicit_method, preconditioned, robust_inversion,
         cg_precond, operator_mode,
@@ -107,6 +154,9 @@ def substep_kwargs(cfg: SimConfig) -> dict:
         robust_inversion=cfg.robust_inversion,
         cg_precond=cfg.cg_precond,
         operator_mode=cfg.operator_mode,
+        use_explicit_method=cfg.use_explicit_method,
+        auto_diff=cfg.auto_diff,
+        element_backend=cfg.element_backend,
     )
 
 
@@ -164,38 +214,86 @@ def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
     return frame
 
 
+def supports_explicit_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
+    """Eligibility for the explicit whole-frame kernel K8: the JAX package's
+    config conditions (sim.py:311-332), with its VMEM gate replaced by what
+    the port's kernel covers — 3D, Neo-Hookean, and no inelastic statics
+    (the port's objects carry none)."""
+    return (
+        obj.dim == 3
+        and not cfg.adaptive_dt
+        and _circles_only(cfg)
+        and _explicit(cfg)
+        and cfg.element_backend in ("auto", "pallas")
+        and obj.material == "neo_hookean"
+        and obj.blocking is not None
+    )
+
+
+def make_explicit_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
+    """Explicit or autodiff frame backed by the explicit whole-frame kernel:
+    one launch per rendered frame (its plain version on the CPU).  It runs
+    the analytic gradient chain for autodiff configs too, as the JAX
+    package's does: the same formula up to the order of its sums.  The
+    zero solver metrics and the zero ``force`` are made once and returned
+    every frame."""
+    kwargs = dict(
+        dt=cfg.delta_time, damping=obj.damping, g_dir=tuple(cfg.g_dir),
+        mu=obj.mu, s_lambda=obj.s_lambda, sim_count=cfg.sim_count,
+    )
+    aux = StepAux(
+        torch.zeros((cfg.sim_count,), dtype=torch.int32, device=obj.device),
+        torch.zeros((cfg.sim_count,), dtype=torch.float32, device=obj.device),
+    )
+    force = torch.zeros_like(obj.rest_pos)
+
+    def frame(state: SimState, obstacles: Obstacles):
+        pos, vel = fused_explicit_frame(
+            obj.blocking, state.pos, state.vel, obj.mass, obstacles.centers,
+            obstacles.radii, **kwargs,
+        )
+        return state.replace(pos=pos, vel=vel, force=force), aux
+
+    return frame
+
+
 def make_frame_fn(obj: FemObject, cfg: SimConfig):
     """Function advancing one rendered frame (``sim_count`` substeps):
     ``frame(state, obstacles) -> (state, StepAux)`` with StepAux fields of
     shape ``(sim_count,)`` left on the device.
 
-    ``frame_backend``: ``"blocked"`` runs the whole-frame kernel (its plain
-    version on the CPU) and raises ``ValueError`` when the config is not
-    eligible; ``"auto"`` runs it on a CUDA object when eligible, and the
-    op-composed frame otherwise; ``"fused"`` and ``"blocked_explicit"`` are
-    not ported yet."""
+    ``frame_backend``: ``"blocked"`` runs the whole-frame kernel K5 and
+    ``"blocked_explicit"`` the explicit whole-frame kernel K8 (each its
+    plain version on the CPU), and each raises ``ValueError`` when the
+    config is not eligible; ``"auto"`` runs the eligible one of the two on a
+    CUDA object, and the op-composed frame otherwise; ``"fused"`` is not
+    ported yet."""
     if cfg.frame_backend == "fused":
         raise NotImplementedError(
             "frame_backend='fused' (the unblocked whole-frame kernel, K11b) "
             "is not ported yet"
-        )
-    if cfg.frame_backend == "blocked_explicit":
-        raise NotImplementedError(
-            "frame_backend='blocked_explicit' (the explicit whole-frame "
-            "kernel, K8) is not ported yet (ROADMAP M9)"
         )
     if cfg.frame_backend == "blocked" and not supports_blocked_frame(obj, cfg):
         raise ValueError(
             "frame_backend='blocked' requested but this config/mesh is not "
             "eligible (see sim.supports_blocked_frame)"
         )
+    if (cfg.frame_backend == "blocked_explicit"
+            and not supports_explicit_blocked_frame(obj, cfg)):
+        raise ValueError(
+            "frame_backend='blocked_explicit' requested but this config/mesh "
+            "is not eligible (see sim.supports_explicit_blocked_frame)"
+        )
     check_supported_config(cfg)
+    auto_cuda = cfg.frame_backend == "auto" and obj.device.type == "cuda"
     if cfg.frame_backend == "blocked" or (
-        cfg.frame_backend == "auto"
-        and obj.device.type == "cuda"
-        and supports_blocked_frame(obj, cfg)
+        auto_cuda and supports_blocked_frame(obj, cfg)
     ):
         return make_blocked_frame_fn(obj, cfg)
+    if cfg.frame_backend == "blocked_explicit" or (
+        auto_cuda and supports_explicit_blocked_frame(obj, cfg)
+    ):
+        return make_explicit_blocked_frame_fn(obj, cfg)
     kwargs = substep_kwargs(cfg)
 
     def frame(state: SimState, obstacles: Obstacles):

@@ -1,0 +1,111 @@
+# coding=utf-8
+"""Explicit integration: the analytic energy gradient, or autograd of the
+energy.
+
+The port of the JAX package's ``solvers/explicit.py`` (reference
+solver/explicit.py:8-49 and solver/explicit_auto_diff.py with the tape at
+main.py:107), without element sharding and inelastic layers.  Both return
+the assembled +∂U/∂x, (N, d), which the kinematic step subtracts.
+
+Which kernels run, as in the JAX package's dispatch
+(its ``solvers/explicit.py:22-143``):
+
+* analytic, with locality blocks and ``element_backend`` "pallas" ("auto"
+  on a CUDA object): the blocked prep in its explicit mode (K7b), then the
+  per-particle slot sum;
+* analytic, with blocks and "xla" ("auto" on the CPU): plain columns on the
+  block-ordered elements, then the blocked assembly (K7a);
+* analytic, without blocks: the gradient-columns kernel (K6; plain columns
+  for "xla"), then the gather assembly;
+* autodiff with blocks: ``torch.autograd.grad`` of Σ V·φ(X·R⁻¹) with respect
+  to the block-ordered edge matrices X — ∂U/∂X are columns in the same
+  scatter pattern — then the blocked assembly (K7a);
+* autodiff without blocks: ``torch.autograd.grad`` of the total energy with
+  respect to the positions.
+
+On CPU tensors every kernel runs its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fem_tpu_torch.models.state import FemObject
+from fem_tpu_torch.ops import smallmat as sm
+from fem_tpu_torch.ops.assembly import (
+    element_contrib_full,
+    gather_assemble,
+    gather_edge_diffs,
+)
+from fem_tpu_torch.ops.blocked_kernels import blocked_assemble, blocked_grad_prep
+from fem_tpu_torch.ops.blocking import blocked_scatter_sum
+from fem_tpu_torch.ops.element import energy_density, total_energy
+from fem_tpu_torch.ops.element_kernels import (
+    explicit_grad_columns,
+    explicit_grad_columns_plain,
+)
+
+
+def _check_material(obj: FemObject) -> None:
+    if obj.material != "neo_hookean":
+        raise NotImplementedError(
+            f"material {obj.material!r}: only neo_hookean is ported (ROADMAP M11)"
+        )
+
+
+def _resolve_backend(element_backend: str, device: torch.device) -> str:
+    """"auto" is "pallas" (the kernels) on a CUDA object and "xla" (plain
+    columns) on the CPU, as the JAX package resolves it on its TPU."""
+    if element_backend == "auto":
+        return "pallas" if device.type == "cuda" else "xla"
+    if element_backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown element_backend {element_backend!r}")
+    return element_backend
+
+
+def analytic_energy_gradient(
+    obj: FemObject, pos: torch.Tensor, element_backend: str = "auto"
+) -> torch.Tensor:
+    """Assembled ∂U/∂x (N, d) from the reference's analytic per-element
+    formula (solver/explicit.py:23-49)."""
+    _check_material(obj)
+    backend = _resolve_backend(element_backend, pos.device)
+    blk = obj.blocking
+    if blk is not None:
+        if backend == "pallas":
+            partials = blocked_grad_prep(blk, pos, obj.mu, obj.s_lambda)
+            return blocked_scatter_sum(partials, blk)
+        cols = explicit_grad_columns_plain(
+            pos, blk.element_indices, blk.ref_inv, blk.volume, obj.mu,
+            obj.s_lambda,
+        )
+        return blocked_assemble(blk, cols)
+    columns = (
+        explicit_grad_columns if backend == "pallas"
+        else explicit_grad_columns_plain
+    )
+    cols = columns(pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+                   obj.s_lambda)
+    return gather_assemble(element_contrib_full(cols), obj.plan.idx)
+
+
+def autodiff_energy_gradient(obj: FemObject, pos: torch.Tensor) -> torch.Tensor:
+    """∂U/∂x (N, d) by reverse-mode autograd — the contract of the
+    reference's ``particles.pos.grad`` after its tape (main.py:107-110).
+    Padded element slots hold mesh element 0 at volume 0, so their
+    gradient is 0·φ'(F), finite, and the assembly drops them."""
+    _check_material(obj)
+    blk = obj.blocking
+    with torch.enable_grad():
+        if blk is not None:
+            x = gather_edge_diffs(pos.detach(), blk.element_indices)
+            x.requires_grad_(True)
+            f = sm.matmul(x, blk.ref_inv)
+            u = torch.sum(blk.volume * energy_density(f, obj.mu, obj.s_lambda))
+            (g_cols,) = torch.autograd.grad(u, x)
+            return blocked_assemble(blk, g_cols)
+        p = pos.detach().requires_grad_(True)
+        u = total_energy(p, obj.element_indices, obj.ref_inv, obj.volume,
+                         obj.mu, obj.s_lambda)
+        (grad,) = torch.autograd.grad(u, p)
+        return grad

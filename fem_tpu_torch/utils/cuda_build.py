@@ -28,7 +28,9 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fem_tpu_torch")
-SOURCES = ("element_chain", "fused_cg", "blocked", "blocked_frame")
+SOURCES = (
+    "element_chain", "fused_cg", "blocked", "blocked_frame", "explicit_frame",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

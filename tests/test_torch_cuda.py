@@ -10,7 +10,8 @@ inside the fixture, never at import).  Run on a GPU machine with
 not use).  Tolerances are those of chip_smoke.py: K1 and K2 block-relative
 1e-5, K2's force partials and K3's product 1e-5 of their largest entry; K4
 velocity rtol 5e-4 / atol 1e-6 and iterations within 1; K5 positions 1e-5
-and iterations within 1.  Iteration
+and iterations within 1; K6 block-relative 1e-5, K7b's partials and K7a's
+sums 1e-5 of their largest entry, K8 positions 1e-5.  Iteration
 counts are compared only where a solve takes a few tens of iterations at
 most: over ~140 iterations f32 round-off moves the count by more than one
 between two summation orders, so there the velocity is held to the f64
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from fem_tpu_torch import convert, sim
+from fem_tpu_torch.solvers import explicit
 from fem_tpu_torch.models import mesh as pmesh
 from fem_tpu_torch.models.state import Obstacles, build_object
 from fem_tpu_torch.ops import (
@@ -381,3 +383,159 @@ def test_blocked_operator_frame_launch_counts(body):
         np.sum(3 + 2 * iters))
     assert frame_kernels.fused_blocked_frame.launches == k5
     assert torch.isfinite(s.pos).all()
+
+
+def _explicit_kw(obj, sim_count=10):
+    return dict(dt=5e-4, damping=obj.damping, g_dir=(0.0, -1.0, 0.0),
+                mu=obj.mu, s_lambda=obj.s_lambda, sim_count=sim_count)
+
+
+def test_grad_columns_kernel_matches_plain_and_repeats(body):
+    obj, state = body
+    args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
+            obj.mu, obj.s_lambda)
+    before = element_kernels.explicit_grad_columns.launches
+    g = element_kernels.explicit_grad_columns(*args)
+    assert element_kernels.explicit_grad_columns.launches == before + 1
+    gp = element_kernels.explicit_grad_columns_plain(*args)
+    scale = gp.abs().reshape(gp.shape[0], -1).amax(1).clamp(min=1e-30)
+    assert float(((g - gp).abs() / scale[:, None, None]).max()) <= TOL
+    assert torch.equal(g, element_kernels.explicit_grad_columns(*args))
+
+
+def test_blocked_grad_prep_kernel_matches_plain_and_repeats(body):
+    obj, state = body
+    obj = _reblocked(obj)
+    args = (obj.blocking, state.pos, obj.mu, obj.s_lambda)
+    before = blocked_kernels.blocked_grad_prep.launches
+    part = blocked_kernels.blocked_grad_prep(*args)
+    assert blocked_kernels.blocked_grad_prep.launches == before + 1
+    partp = blocked_kernels.blocked_grad_prep_plain(*args)
+    assert torch.isfinite(part).all()
+    assert float((part - partp).abs().max()) <= TOL * float(partp.abs().max())
+    assert torch.equal(part, blocked_kernels.blocked_grad_prep(*args))
+
+
+def test_blocked_assemble_kernel_matches_plain_and_repeats(body):
+    obj, state = body
+    obj = _reblocked(obj)
+    blk = obj.blocking
+    gen = torch.Generator().manual_seed(0)
+    cols = torch.randn((blk.num_blocks * blk.eb, 3, 3), generator=gen).cuda()
+    before = blocked_kernels.blocked_assemble.launches
+    y = blocked_kernels.blocked_assemble(blk, cols)
+    assert blocked_kernels.blocked_assemble.launches == before + 1
+    yp = blocked_kernels.blocked_assemble_plain(blk, cols)
+    assert float((y - yp).abs().max()) <= TOL * float(yp.abs().max())
+    assert torch.equal(y, blocked_kernels.blocked_assemble(blk, cols))
+
+
+@pytest.mark.parametrize("grid", [0, 3])
+def test_explicit_frame_kernel_matches_plain_and_repeats(body, grid):
+    """grid 3: fewer CTAs than locality blocks, each walking several."""
+    obj, state = body
+    obj = _reblocked(obj)
+    obs = _obstacles("cuda")
+    args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
+            obs.radii)
+    before = frame_kernels.fused_explicit_frame.launches
+    out = frame_kernels.fused_explicit_frame(*args, grid=grid,
+                                             **_explicit_kw(obj))
+    assert frame_kernels.fused_explicit_frame.launches == before + 1
+    ref = frame_kernels.fused_explicit_frame_plain(*args, **_explicit_kw(obj))
+    assert torch.isfinite(out[0]).all()
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    assert float((out[0] - state.pos).abs().max()) > 1e-4
+    again = frame_kernels.fused_explicit_frame(*args, grid=grid,
+                                               **_explicit_kw(obj))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_explicit_frame_kernel_raises_when_the_grid_cannot_be_co_resident(body):
+    obj, state = body
+    obs = _obstacles("cuda")
+    args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
+            obs.radii)
+    too_many = 1000 * torch.cuda.get_device_properties(0).multi_processor_count
+    before = frame_kernels.fused_explicit_frame.launches
+    with pytest.raises(RuntimeError, match="co-resident"):
+        frame_kernels.fused_explicit_frame(*args, grid=too_many,
+                                           **_explicit_kw(obj, 1))
+    assert frame_kernels.fused_explicit_frame.launches == before
+    out = frame_kernels.fused_explicit_frame(*args, **_explicit_kw(obj, 1))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0]).all()
+
+
+@pytest.mark.parametrize("mode", ["explicit", "autodiff"])
+def test_explicit_frame_on_cuda_matches_cpu_frame(body, mode):
+    """Path D: make_frame_fn on a CUDA object runs K8 once a frame and no
+    other kernel; the frame equals the CPU frame (K8's plain version)."""
+    obj, state = body
+    obj = _reblocked(obj)
+    cfg = _frame_cfg(use_explicit_method=True,
+                     auto_diff=mode == "autodiff")
+    counters = (element_kernels.hessian_and_force,
+                element_kernels.explicit_grad_columns,
+                cg_kernels.fused_cg_solve, blocked_kernels.blocked_prep,
+                blocked_kernels.blocked_grad_prep,
+                blocked_kernels.blocked_assemble,
+                blocked_kernels.blocked_graph_apply,
+                frame_kernels.fused_blocked_frame)
+    before = [c.launches for c in counters]
+    k8 = frame_kernels.fused_explicit_frame.launches
+    s, _ = sim.make_frame_fn(obj, cfg)(state, _obstacles("cuda"))
+    assert frame_kernels.fused_explicit_frame.launches == k8 + 1
+    assert [c.launches for c in counters] == before
+    cpu_obj = dataclasses.replace(
+        convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu"),
+        blocking=blocking.build_blocking(
+            *[t.cpu().numpy() for t in (obj.element_indices, obj.ref_inv,
+                                        obj.volume, obj.rest_pos)],
+            eb=32, pb=24, device="cpu"))
+    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state), "cpu")
+    ref, _ = sim.make_frame_fn(
+        cpu_obj, dataclasses.replace(cfg, frame_backend="blocked_explicit"))(
+            cpu_state, _obstacles("cpu"))
+    np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(), atol=TOL)
+
+
+@pytest.mark.parametrize("case", ["pallas", "xla", "autodiff", "unblocked"])
+def test_explicit_substep_launch_counts(body, case):
+    """Paths E, F and G: one substep launches K7b (E), K7a (F: "xla" and
+    autodiff) or K6 (G: no blocking) exactly once, and equals the CPU
+    substep."""
+    obj, state = body
+    obj = _reblocked(obj)
+    over = dict(use_explicit_method=True, element_backend="auto")
+    if case == "xla":
+        over["element_backend"] = "xla"
+    if case == "autodiff":
+        over["auto_diff"] = True
+    if case == "unblocked":
+        obj = dataclasses.replace(obj, blocking=None)
+    kwargs = sim.substep_kwargs(_frame_cfg(**over))
+    expected = dict(pallas=blocked_kernels.blocked_grad_prep,
+                    xla=blocked_kernels.blocked_assemble,
+                    autodiff=blocked_kernels.blocked_assemble,
+                    unblocked=element_kernels.explicit_grad_columns)[case]
+    counters = (element_kernels.explicit_grad_columns,
+                blocked_kernels.blocked_grad_prep,
+                blocked_kernels.blocked_assemble)
+    before = {c: c.launches for c in counters}
+    s, _ = sim.substep(obj, state, _obstacles("cuda"), **kwargs)
+    for c in counters:
+        assert c.launches - before[c] == (1 if c is expected else 0), c
+    cpu_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
+    cpu_obj = dataclasses.replace(
+        cpu_obj, blocking=None if obj.blocking is None else
+        blocking.build_blocking(
+            *[t.cpu().numpy() for t in (obj.element_indices, obj.ref_inv,
+                                        obj.volume, obj.rest_pos)],
+            eb=32, pb=24, device="cpu"))
+    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state), "cpu")
+    ref, _ = sim.substep(cpu_obj, cpu_state, _obstacles("cpu"), **kwargs)
+    np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(), atol=TOL)
+    if case == "unblocked":
+        g = explicit.analytic_energy_gradient(obj, state.pos)
+        assert torch.isfinite(g).all()

@@ -161,10 +161,29 @@ def test_blocked_frame_rejects_ineligible_configs(over):
 
 
 @pytest.mark.parametrize("backend", ["fused", "blocked_explicit"])
-def test_unported_frame_backends_raise(backend):
-    pcfg, _, obj, _, _, _, _, _ = _scene(seed=4)
-    with pytest.raises(NotImplementedError, match="K11b|K8"):
-        sim.make_frame_fn(obj, dataclasses.replace(pcfg, frame_backend=backend))
+def test_unported_frame_backends_raise(backend, monkeypatch):
+    """``"fused"`` (K11b) is not ported and raises; ``"blocked_explicit"``
+    (K8) is, and on an explicit config runs K8's plain version once a
+    frame."""
+    pcfg, _, obj, state, obs, _, _, _ = _scene(seed=4)
+    cfg = dataclasses.replace(pcfg, frame_backend=backend)
+    if backend == "fused":
+        with pytest.raises(NotImplementedError, match="K11b"):
+            sim.make_frame_fn(obj, cfg)
+        return
+    calls = []
+    real = sim.fused_explicit_frame
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(sim, "fused_explicit_frame", spy)
+    cfg = dataclasses.replace(cfg, use_explicit_method=True)
+    out, aux = sim.make_frame_fn(obj, cfg)(state, obs)
+    assert len(calls) == 1
+    assert torch.isfinite(out.pos).all() and not torch.equal(out.pos, state.pos)
+    assert aux.solver_iterations.shape == (cfg.sim_count,)
 
 
 def test_cg_fast_math_has_no_counterpart():

@@ -112,8 +112,15 @@ def test_unported_features_raise():
         g_dir=(0.0, -1.0, 0.0),
     )
     check_supported_config(base)
+    # Explicit and autodiff configs run; the implicit solver's options do
+    # not apply to them (the reference's headline configs/default.json
+    # pairs auto_diff with implicit_method=0).
     for change in (
         dict(use_explicit_method=True), dict(auto_diff=True),
+        dict(auto_diff=True, implicit_method=0, robust_inversion=True),
+    ):
+        check_supported_config(dataclasses.replace(base, **change))
+    for change in (
         dict(implicit_method=0), dict(integrator="newton"),
         dict(robust_inversion=True), dict(cg_precond="block_jacobi"),
         dict(adaptive_dt=True), dict(hessian="exact_jvp"),
