@@ -3,8 +3,8 @@
 // locality blocks of fem_tpu_torch/ops/blocking.py.
 //
 // K2 replaces fem_tpu/ops/blocking.py:_prep_kernel in its implicit mode
-// (reached through blocked_prep): per block, the tets' edge matrices, the
-// shared element chain, the K blocks and the per-slot force partials.
+// (reached through blocked_prep): per block, the elements' edge matrices,
+// the shared element chain, the K blocks and the per-slot force partials.
 // K7b is the same kernel's explicit mode (reached through
 // blocked_grad_prep): per block, the edge matrices, the explicit gradient
 // chain (+V scaling, unclamped log) and the per-slot gradient partials.
@@ -15,19 +15,22 @@
 // blocked_assemble): per block, S_b^T t of given block-ordered columns,
 // then the same per-particle slot sums.
 //
-// One thread block of 256 threads per locality block (17 on the flagship):
-// it gathers its particles' rows into shared memory, runs one thread per
-// tet, and sums the contribution rows per local slot through the block's
-// local plan (blocked_common.cuh).  The per-particle kernel gives each
-// particle one thread that sums its block slots through the slot plan.
-// Padded element slots are skipped: they contribute nothing.  No float
-// atomics, so two runs are bit-identical.
+// Every kernel is templated on the dimension D in {2, 3} (the Pallas
+// kernels take `dim`); the C entries launch the instance of tables->dim.
+// One thread block of 256 threads per locality block (17 on the 3D
+// flagship, 1 on the 2D default scene): it gathers its particles' rows into
+// shared memory, runs one thread per element, and sums the contribution
+// rows per local slot through the block's local plan (blocked_common.cuh).
+// The per-particle kernel gives each particle one thread that sums its
+// block slots through the slot plan.  Padded element slots are skipped:
+// they contribute nothing.  No float atomics, so two runs are bit-identical.
 //
 // Bound on the H100: bytes, and far below them in practice — K2 moves about
-// 0.56 MB, K7b 0.45 MB, K3 0.41 MB and K7a 0.3 MB on the flagship, a tenth
-// of a microsecond at 3.35 TB/s, while each launch fills only 17 of 132 SMs
-// for a few microseconds of dependent shared-memory work.  A first kernel
-// that is right; blocks split over more SMs is later work.
+// 0.56 MB, K7b 0.45 MB, K3 0.41 MB and K7a 0.3 MB on the 3D flagship, a
+// tenth of a microsecond at 3.35 TB/s, while each launch fills only 17 of
+// 132 SMs (one in 2D at the default scene) for a few microseconds of
+// dependent shared-memory work.  A first kernel that is right; blocks split
+// over more SMs is later work.
 
 #include <cuda_runtime.h>
 
@@ -37,91 +40,104 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) blocked_prep_kernel(
     fem::BlockTables T, const float* __restrict__ pos, float mu, float lam,
     float half_lam, float* __restrict__ k_out, float* __restrict__ partials) {
+  constexpr int DD = D * D;
+  constexpr int R = fem::rows_floats(D);
   extern __shared__ float smem[];
   float* xs = smem;
-  float* t = smem + 3 * T.pb;
+  float* t = smem + D * T.pb;
   const int b = blockIdx.x;
-  fem::load_block_rows(T, b, pos, xs);
+  fem::load_block_rows<D>(T, b, pos, xs);
   __syncthreads();
   const int nel = T.block_elements[b];
   for (int e = threadIdx.x; e < T.eb; e += blockDim.x) {
-    float* k = k_out + 9 * (static_cast<size_t>(b) * T.eb + e);
+    float* k = k_out + DD * (static_cast<size_t>(b) * T.eb + e);
     if (e < nel) {
-      fem::element_prep(T, b, e, xs, mu, lam, half_lam, k, t + 12 * e);
+      fem::element_prep<D>(T, b, e, xs, mu, lam, half_lam, k, t + R * e);
     } else {
 #pragma unroll
-      for (int i = 0; i < 9; ++i) k[i] = 0.0f;
+      for (int i = 0; i < DD; ++i) k[i] = 0.0f;
     }
   }
   __syncthreads();
-  fem::block_slot_sums(T, b, t, partials + 3 * b * T.pb);
+  fem::block_slot_sums<D>(T, b, t, partials + D * b * T.pb);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) blocked_grad_prep_kernel(
     fem::BlockTables T, const float* __restrict__ pos, float mu, float lam,
     float* __restrict__ partials) {
+  constexpr int R = fem::rows_floats(D);
   extern __shared__ float smem[];
   float* xs = smem;
-  float* t = smem + 3 * T.pb;
+  float* t = smem + D * T.pb;
   const int b = blockIdx.x;
-  fem::load_block_rows(T, b, pos, xs);
+  fem::load_block_rows<D>(T, b, pos, xs);
   __syncthreads();
   const int nel = T.block_elements[b];
   for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-    fem::element_grad(T, b, e, xs, mu, lam, t + 12 * e);
+    fem::element_grad<D>(T, b, e, xs, mu, lam, t + R * e);
   }
   __syncthreads();
-  fem::block_slot_sums(T, b, t, partials + 3 * b * T.pb);
+  fem::block_slot_sums<D>(T, b, t, partials + D * b * T.pb);
 }
 
-// Per-block partials of given block-ordered columns (B*Eb, 3, 3): the
-// contribution rows of each real tet straight from `cols`, then the local
-// slot sums.
+// Per-block partials of given block-ordered columns (B*Eb, D, D): the
+// contribution rows of each real element straight from `cols`, then the
+// local slot sums.
+template <int D>
 __global__ void __launch_bounds__(kThreads) blocked_assemble_kernel(
     fem::BlockTables T, const float* __restrict__ cols,
     float* __restrict__ partials) {
+  constexpr int DD = D * D;
+  constexpr int R = fem::rows_floats(D);
   extern __shared__ float smem[];
   float* t = smem;
   const int b = blockIdx.x;
   const int nel = T.block_elements[b];
   for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-    float h[9];
-    const float* c = cols + 9 * (static_cast<size_t>(b) * T.eb + e);
+    float h[DD];
+    const float* c = cols + DD * (static_cast<size_t>(b) * T.eb + e);
 #pragma unroll
-    for (int i = 0; i < 9; ++i) h[i] = c[i];
-    fem::column_rows(1.0f, h, t + 12 * e);
+    for (int i = 0; i < DD; ++i) h[i] = c[i];
+    fem::column_rows<D>(1.0f, h, t + R * e);
   }
   __syncthreads();
-  fem::block_slot_sums(T, b, t, partials + 3 * b * T.pb);
+  fem::block_slot_sums<D>(T, b, t, partials + D * b * T.pb);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) blocked_matvec_kernel(
     fem::BlockTables T, const float* __restrict__ k_in,
     const float* __restrict__ x, int transpose,
     float* __restrict__ partials) {
+  constexpr int DD = D * D;
+  constexpr int R = fem::rows_floats(D);
   extern __shared__ float smem[];
   float* xs = smem;
-  float* t = smem + 3 * T.pb;
+  float* t = smem + D * T.pb;
   const int b = blockIdx.x;
-  fem::load_block_rows(T, b, x, xs);
+  fem::load_block_rows<D>(T, b, x, xs);
   __syncthreads();
   const int nel = T.block_elements[b];
   for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-    fem::element_apply(T, b, e, xs, k_in + 9 * (static_cast<size_t>(b) * T.eb + e),
-                       transpose != 0, t + 12 * e);
+    fem::element_apply<D>(T, b, e, xs,
+                          k_in + DD * (static_cast<size_t>(b) * T.eb + e),
+                          transpose != 0, t + R * e);
   }
   __syncthreads();
-  fem::block_slot_sums(T, b, t, partials + 3 * b * T.pb);
+  fem::block_slot_sums<D>(T, b, t, partials + D * b * T.pb);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads) slot_sum_kernel(
     const int* __restrict__ ptr, const int* __restrict__ rows,
     const float* __restrict__ partials, int n, float* __restrict__ y) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < n) fem::particle_slot_sum(ptr, rows, partials, p, y + 3 * p);
+  if (p < n) fem::particle_slot_sum<D>(ptr, rows, partials, p, y + D * p);
 }
 
 template <typename Kernel>
@@ -134,90 +150,146 @@ int prepare(Kernel kernel, size_t smem) {
   return 0;
 }
 
-}  // namespace
+size_t work_smem(const fem::BlockTables& T) {
+  return sizeof(float) * fem::block_work_floats(T.eb, T.pb, T.dim);
+}
 
-// k_out (B*Eb, 3, 3) and partials (B*Pb, 3).
-extern "C" int fem_blocked_prep(const fem::BlockTables* tables, const void* pos,
-                                float mu, float lam, float half_lam,
-                                void* k_out, void* partials, void* stream) {
-  const fem::BlockTables T = *tables;
-  const size_t smem = sizeof(float) * fem::block_work_floats(T.eb, T.pb);
-  int rc = prepare(blocked_prep_kernel, smem);
+template <int D>
+int prep_launch(const fem::BlockTables& T, const void* pos, float mu,
+                float lam, float half_lam, void* k_out, void* partials,
+                cudaStream_t s) {
+  const size_t smem = work_smem(T);
+  const int rc = prepare(blocked_prep_kernel<D>, smem);
   if (rc != 0) return rc;
   if (T.num_blocks > 0) {
-    blocked_prep_kernel<<<T.num_blocks, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+    blocked_prep_kernel<D><<<T.num_blocks, kThreads, smem, s>>>(
         T, static_cast<const float*>(pos), mu, lam, half_lam,
         static_cast<float*>(k_out), static_cast<float*>(partials));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// y (N, 3) = G(K) x, or G(K^T) x when `transpose`; partials (B*Pb, 3) is
-// scratch.
-extern "C" int fem_blocked_matvec(const fem::BlockTables* tables,
-                                  const void* k, const void* x, int transpose,
-                                  const void* slot_ptr, const void* slot_rows,
-                                  int num_particles, void* partials, void* y,
-                                  void* stream) {
-  const fem::BlockTables T = *tables;
-  const size_t smem = sizeof(float) * fem::block_work_floats(T.eb, T.pb);
-  int rc = prepare(blocked_matvec_kernel, smem);
+template <int D>
+int slot_sum_launch(const void* slot_ptr, const void* slot_rows,
+                    int num_particles, const void* partials, void* y,
+                    cudaStream_t s) {
+  if (num_particles <= 0) return 0;
+  slot_sum_kernel<D><<<(num_particles + kThreads - 1) / kThreads, kThreads, 0,
+                       s>>>(static_cast<const int*>(slot_ptr),
+                            static_cast<const int*>(slot_rows),
+                            static_cast<const float*>(partials), num_particles,
+                            static_cast<float*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int matvec_launch(const fem::BlockTables& T, const void* k, const void* x,
+                  int transpose, const void* slot_ptr, const void* slot_rows,
+                  int num_particles, void* partials, void* y, cudaStream_t s) {
+  const size_t smem = work_smem(T);
+  int rc = prepare(blocked_matvec_kernel<D>, smem);
   if (rc != 0) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T.num_blocks > 0) {
-    blocked_matvec_kernel<<<T.num_blocks, kThreads, smem, s>>>(
+    blocked_matvec_kernel<D><<<T.num_blocks, kThreads, smem, s>>>(
         T, static_cast<const float*>(k), static_cast<const float*>(x),
         transpose, static_cast<float*>(partials));
   }
   rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0 || num_particles <= 0) return rc;
-  slot_sum_kernel<<<(num_particles + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const int*>(slot_ptr), static_cast<const int*>(slot_rows),
-      static_cast<const float*>(partials), num_particles,
-      static_cast<float*>(y));
-  return static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  return slot_sum_launch<D>(slot_ptr, slot_rows, num_particles, partials, y,
+                            s);
 }
 
-// Per-slot explicit gradient partials (B*Pb, 3) at pos.
-extern "C" int fem_blocked_grad_prep(const fem::BlockTables* tables,
-                                     const void* pos, float mu, float lam,
-                                     void* partials, void* stream) {
-  const fem::BlockTables T = *tables;
-  const size_t smem = sizeof(float) * fem::block_work_floats(T.eb, T.pb);
-  int rc = prepare(blocked_grad_prep_kernel, smem);
+template <int D>
+int grad_prep_launch(const fem::BlockTables& T, const void* pos, float mu,
+                     float lam, void* partials, cudaStream_t s) {
+  const size_t smem = work_smem(T);
+  const int rc = prepare(blocked_grad_prep_kernel<D>, smem);
   if (rc != 0) return rc;
   if (T.num_blocks > 0) {
-    blocked_grad_prep_kernel<<<T.num_blocks, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+    blocked_grad_prep_kernel<D><<<T.num_blocks, kThreads, smem, s>>>(
         T, static_cast<const float*>(pos), mu, lam,
         static_cast<float*>(partials));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// y (N, 3): the assembly of block-ordered columns (B*Eb, 3, 3); partials
-// (B*Pb, 3) is scratch.
+template <int D>
+int assemble_launch(const fem::BlockTables& T, const void* cols,
+                    const void* slot_ptr, const void* slot_rows,
+                    int num_particles, void* partials, void* y,
+                    cudaStream_t s) {
+  const size_t smem =
+      sizeof(float) * fem::rows_floats(D) * static_cast<size_t>(T.eb);
+  int rc = prepare(blocked_assemble_kernel<D>, smem);
+  if (rc != 0) return rc;
+  if (T.num_blocks > 0) {
+    blocked_assemble_kernel<D><<<T.num_blocks, kThreads, smem, s>>>(
+        T, static_cast<const float*>(cols), static_cast<float*>(partials));
+  }
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  return slot_sum_launch<D>(slot_ptr, slot_rows, num_particles, partials, y,
+                            s);
+}
+
+bool bad_dim(const fem::BlockTables& T) { return T.dim != 2 && T.dim != 3; }
+
+}  // namespace
+
+// k_out (B*Eb, D, D) and partials (B*Pb, D).
+extern "C" int fem_blocked_prep(const fem::BlockTables* tables, const void* pos,
+                                float mu, float lam, float half_lam,
+                                void* k_out, void* partials, void* stream) {
+  const fem::BlockTables& T = *tables;
+  if (bad_dim(T)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return T.dim == 3
+             ? prep_launch<3>(T, pos, mu, lam, half_lam, k_out, partials, s)
+             : prep_launch<2>(T, pos, mu, lam, half_lam, k_out, partials, s);
+}
+
+// y (N, D) = G(K) x, or G(K^T) x when `transpose`; partials (B*Pb, D) is
+// scratch.
+extern "C" int fem_blocked_matvec(const fem::BlockTables* tables,
+                                  const void* k, const void* x, int transpose,
+                                  const void* slot_ptr, const void* slot_rows,
+                                  int num_particles, void* partials, void* y,
+                                  void* stream) {
+  const fem::BlockTables& T = *tables;
+  if (bad_dim(T)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return T.dim == 3
+             ? matvec_launch<3>(T, k, x, transpose, slot_ptr, slot_rows,
+                                num_particles, partials, y, s)
+             : matvec_launch<2>(T, k, x, transpose, slot_ptr, slot_rows,
+                                num_particles, partials, y, s);
+}
+
+// Per-slot explicit gradient partials (B*Pb, D) at pos.
+extern "C" int fem_blocked_grad_prep(const fem::BlockTables* tables,
+                                     const void* pos, float mu, float lam,
+                                     void* partials, void* stream) {
+  const fem::BlockTables& T = *tables;
+  if (bad_dim(T)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return T.dim == 3 ? grad_prep_launch<3>(T, pos, mu, lam, partials, s)
+                    : grad_prep_launch<2>(T, pos, mu, lam, partials, s);
+}
+
+// y (N, D): the assembly of block-ordered columns (B*Eb, D, D); partials
+// (B*Pb, D) is scratch.
 extern "C" int fem_blocked_assemble(const fem::BlockTables* tables,
                                     const void* cols, const void* slot_ptr,
                                     const void* slot_rows, int num_particles,
                                     void* partials, void* y, void* stream) {
-  const fem::BlockTables T = *tables;
-  const size_t smem = sizeof(float) * 12 * static_cast<size_t>(T.eb);
-  int rc = prepare(blocked_assemble_kernel, smem);
-  if (rc != 0) return rc;
+  const fem::BlockTables& T = *tables;
+  if (bad_dim(T)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T.num_blocks > 0) {
-    blocked_assemble_kernel<<<T.num_blocks, kThreads, smem, s>>>(
-        T, static_cast<const float*>(cols), static_cast<float*>(partials));
-  }
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0 || num_particles <= 0) return rc;
-  slot_sum_kernel<<<(num_particles + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const int*>(slot_ptr), static_cast<const int*>(slot_rows),
-      static_cast<const float*>(partials), num_particles,
-      static_cast<float*>(y));
-  return static_cast<int>(cudaGetLastError());
+  return T.dim == 3 ? assemble_launch<3>(T, cols, slot_ptr, slot_rows,
+                                         num_particles, partials, y, s)
+                    : assemble_launch<2>(T, cols, slot_ptr, slot_rows,
+                                         num_particles, partials, y, s);
 }
 
 extern "C" const char* fem_blocked_error(int code) {

@@ -19,10 +19,15 @@
 //   channels and the upper wall zeroes vel but not vel_g, circles project
 //   in obstacle order (radius 0 never hits), pos += (vel + vel_g) dt.
 //
-// Design.  One thread block per locality block (17 on the flagship, grid-
-// stride when a mesh has more blocks than the grid): each CTA keeps the K
-// blocks of the locality blocks it owns in shared memory for the whole
-// solve, and phases that cross blocks are separated by grid barriers
+// The kernel is templated on the dimension D in {2, 3}, as the Pallas
+// kernel takes `dim`: the same phases over (N, D) rows, (D+1)-vertex
+// elements and D x D blocks; fem_blocked_frame launches the instance of
+// args->T.dim.
+//
+// Design.  One thread block per locality block (17 on the 3D flagship, 1
+// on the 2D default scene; grid-stride when a mesh has more blocks than the
+// grid): each CTA keeps the K blocks of the locality blocks it owns in
+// shared memory for the whole solve, and phases that cross blocks are separated by grid barriers
 // (cooperative_groups::this_grid().sync(); the launch is cooperative, so
 // the grid is co-resident or the launch fails — it never hangs).  An
 // operator apply is a per-block local product (blocked_common.cuh), a grid
@@ -37,8 +42,11 @@
 // Bound on the H100: operations — a flagship frame at 29 CG iterations is
 // ~47 MFLOP, 0.7 us at 67 TFLOP/s f32, and its bytes take less; what sets
 // the time is the chain of ~6 grid barriers per CG iteration and the
-// per-block work done by one SM each.  A first kernel that is right; fewer barriers and
-// more SMs per block are later work.
+// per-block work done by one SM each.  A first kernel that is right; fewer
+// barriers and more SMs per block are later work.  With one locality block
+// (the shipped 2D scenes) the grid is one CTA: the grid barriers still run,
+// and cost what a CTA-wide barrier plus the cooperative sync's device-memory
+// flag round trip costs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -57,14 +65,14 @@ constexpr int kWarps = kThreads / 32;
 
 // The Python side mirrors this layout (ops/frame_kernels.py: FrameArgsC).
 struct FemFrameArgs {
-  fem::BlockTables T;
+  fem::BlockTables T;    // T.dim is D
   const int* slot_ptr;   // (N+1,) slot plan
   const int* slot_rows;  // flat block slots b*Pb+p
-  const float* pos_in;   // (N, 3)
+  const float* pos_in;   // (N, D)
   const float* vel_in;
   const float* velg_in;
   const float* mass;     // (N,)
-  const float* centers;  // (O, 3)
+  const float* centers;  // (O, D)
   const float* radii;    // (O,)
   int n;
   int n_obst;
@@ -74,15 +82,15 @@ struct FemFrameArgs {
   float dt;
   float dt2;
   float decay;
-  float g0, g1, g2;  // 9.8 g_dir
+  float g0, g1, g2;  // 9.8 g_dir (g2 unused in 2D)
   float mu;
   float lam;
   float half_lam;
   float tol;
-  float* pos;      // (N, 3) outputs, the state through the frame
+  float* pos;      // (N, D) outputs, the state through the frame
   float* vel;
   float* velg;
-  float* scratch;  // see frame_scratch_floats
+  float* scratch;  // see fem_blocked_frame_scratch_floats
   int* iters;      // (S,)
   float* res;      // (S,)
 };
@@ -91,28 +99,29 @@ namespace {
 
 struct Vecs {
   float* minv;      // (N,)
-  float* x;         // (N, 3) each below
+  float* x;         // (N, D) each below
   float* r;
   float* d;
   float* q;
   float* u;
   float* z;
-  float* part[2];   // (B*Pb, 3) per-slot partials, two copies
+  float* part[2];   // (B*Pb, D) per-slot partials, two copies
   float* dots;      // (2, grid) per-CTA dot-product partials
 };
 
+template <int D>
 __device__ Vecs carve(const FemFrameArgs& a) {
   Vecs v;
-  const size_t n3 = 3 * static_cast<size_t>(a.n);
-  const size_t slots = 3 * static_cast<size_t>(a.T.num_blocks) * a.T.pb;
+  const size_t nd = D * static_cast<size_t>(a.n);
+  const size_t slots = D * static_cast<size_t>(a.T.num_blocks) * a.T.pb;
   v.minv = a.scratch;
   v.x = v.minv + a.n;
-  v.r = v.x + n3;
-  v.d = v.r + n3;
-  v.q = v.d + n3;
-  v.u = v.q + n3;
-  v.z = v.u + n3;
-  v.part[0] = v.z + n3;
+  v.r = v.x + nd;
+  v.d = v.r + nd;
+  v.q = v.d + nd;
+  v.u = v.q + nd;
+  v.z = v.u + nd;
+  v.part[0] = v.z + nd;
   v.part[1] = v.part[0] + slots;
   v.dots = v.part[1] + slots;
   return v;
@@ -138,7 +147,11 @@ __device__ float block_sum(float v, float* red) {
   return total;
 }
 
+template <int D>
 struct Frame {
+  static constexpr int DD = D * D;
+  static constexpr int R = fem::rows_floats(D);
+
   const FemFrameArgs& a;
   Vecs v;
   cg::grid_group grid;
@@ -174,15 +187,15 @@ struct Frame {
   __device__ void local_products(const float* src, bool transpose, float* out) {
     const fem::BlockTables& T = a.T;
     for (int b = blockIdx.x, ib = 0; b < T.num_blocks; b += gridDim.x, ++ib) {
-      fem::load_block_rows(T, b, src, xs);
+      fem::load_block_rows<D>(T, b, src, xs);
       __syncthreads();
       const int nel = T.block_elements[b];
       for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-        fem::element_apply(T, b, e, xs, ksh + 9 * (ib * T.eb + e), transpose,
-                           t + 12 * e);
+        fem::element_apply<D>(T, b, e, xs, ksh + DD * (ib * T.eb + e),
+                              transpose, t + R * e);
       }
       __syncthreads();
-      fem::block_slot_sums(T, b, t, out + 3 * b * T.pb);
+      fem::block_slot_sums<D>(T, b, t, out + D * b * T.pb);
       __syncthreads();
     }
   }
@@ -191,21 +204,21 @@ struct Frame {
   __device__ void prep(float* out) {
     const fem::BlockTables& T = a.T;
     for (int b = blockIdx.x, ib = 0; b < T.num_blocks; b += gridDim.x, ++ib) {
-      fem::load_block_rows(T, b, a.pos, xs);
+      fem::load_block_rows<D>(T, b, a.pos, xs);
       __syncthreads();
       const int nel = T.block_elements[b];
       for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-        fem::element_prep(T, b, e, xs, a.mu, a.lam, a.half_lam,
-                          ksh + 9 * (ib * T.eb + e), t + 12 * e);
+        fem::element_prep<D>(T, b, e, xs, a.mu, a.lam, a.half_lam,
+                             ksh + DD * (ib * T.eb + e), t + R * e);
       }
       __syncthreads();
-      fem::block_slot_sums(T, b, t, out + 3 * b * T.pb);
+      fem::block_slot_sums<D>(T, b, t, out + D * b * T.pb);
       __syncthreads();
     }
   }
 
   __device__ void slot_sum(const float* part, int p, float* w) {
-    fem::particle_slot_sum(a.slot_ptr, a.slot_rows, part, p, w);
+    fem::particle_slot_sum<D>(a.slot_ptr, a.slot_rows, part, p, w);
   }
 
   // q = op(src) with op = A^T A (normal) or A; for the normal equations
@@ -217,39 +230,39 @@ struct Frame {
     float part = 0.0f;
     if (a.normal) {
       for (int p = first; p < a.n; p += stride) {
-        float w[3];
+        float w[D];
         slot_sum(v.part[0], p, w);
         const float mi = v.minv[p];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float uc = __ldcg(src + 3 * p + c) - a.dt2 * w[c] * mi;
-          v.u[3 * p + c] = uc;
-          v.z[3 * p + c] = uc * mi;
+        for (int c = 0; c < D; ++c) {
+          const float uc = __ldcg(src + D * p + c) - a.dt2 * w[c] * mi;
+          v.u[D * p + c] = uc;
+          v.z[D * p + c] = uc * mi;
         }
       }
       grid.sync();
       local_products(v.z, true, v.part[1]);
       grid.sync();
       for (int p = first; p < a.n; p += stride) {
-        float w[3];
+        float w[D];
         slot_sum(v.part[1], p, w);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float qc = v.u[3 * p + c] - a.dt2 * w[c];
-          qv[3 * p + c] = qc;
-          part += __ldcg(src + 3 * p + c) * qc;
+        for (int c = 0; c < D; ++c) {
+          const float qc = v.u[D * p + c] - a.dt2 * w[c];
+          qv[D * p + c] = qc;
+          part += __ldcg(src + D * p + c) * qc;
         }
       }
     } else {
       for (int p = first; p < a.n; p += stride) {
-        float w[3];
+        float w[D];
         slot_sum(v.part[0], p, w);
         const float mi = v.minv[p];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float sc = __ldcg(src + 3 * p + c);
+        for (int c = 0; c < D; ++c) {
+          const float sc = __ldcg(src + D * p + c);
           const float qc = sc - a.dt2 * w[c] * mi;
-          qv[3 * p + c] = qc;
+          qv[D * p + c] = qc;
           part += sc * qc;
         }
       }
@@ -263,14 +276,14 @@ struct Frame {
     grid.sync();
     // b = v + dt f / m into x (x_0 = b); z = b / m for A^T b.
     for (int p = first; p < a.n; p += stride) {
-      float f[3];
+      float f[D];
       slot_sum(v.part[0], p, f);
       const float mi = v.minv[p];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float bc = a.vel[3 * p + c] + a.dt * f[c] * mi;
-        v.x[3 * p + c] = bc;
-        v.z[3 * p + c] = bc * mi;
+      for (int c = 0; c < D; ++c) {
+        const float bc = a.vel[D * p + c] + a.dt * f[c] * mi;
+        v.x[D * p + c] = bc;
+        v.z[D * p + c] = bc * mi;
       }
     }
     grid.sync();
@@ -279,10 +292,10 @@ struct Frame {
       local_products(v.z, true, v.part[1]);
       grid.sync();
       for (int p = first; p < a.n; p += stride) {
-        float w[3];
+        float w[D];
         slot_sum(v.part[1], p, w);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) v.r[3 * p + c] = v.x[3 * p + c] - a.dt2 * w[c];
+        for (int c = 0; c < D; ++c) v.r[D * p + c] = v.x[D * p + c] - a.dt2 * w[c];
       }
       // The grid barriers inside apply_op order these writes of r before
       // any later read, and z's rewrite after every CTA's read of it.
@@ -291,8 +304,8 @@ struct Frame {
     float part = 0.0f;
     for (int p = first; p < a.n; p += stride) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const int i = 3 * p + c;
+      for (int c = 0; c < D; ++c) {
+        const int i = D * p + c;
         const float rhs = a.normal ? v.r[i] : v.x[i];
         const float ri = rhs - v.q[i];
         v.r[i] = ri;
@@ -307,8 +320,8 @@ struct Frame {
       part = 0.0f;
       for (int p = first; p < a.n; p += stride) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const int i = 3 * p + c;
+        for (int c = 0; c < D; ++c) {
+          const int i = D * p + c;
           v.x[i] += alpha * v.d[i];
           const float ri = v.r[i] - alpha * v.q[i];
           v.r[i] = ri;
@@ -319,8 +332,8 @@ struct Frame {
       const float beta = delta_next / delta;
       for (int p = first; p < a.n; p += stride) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const int i = 3 * p + c;
+        for (int c = 0; c < D; ++c) {
+          const int i = D * p + c;
           v.d[i] = v.r[i] + beta * v.d[i];
         }
       }
@@ -332,59 +345,63 @@ struct Frame {
     *delta_out = delta;
   }
 
+  // Sum_c u[c] w[c] in the plain version's order, round-to-nearest.
+  static __device__ float dot_rn(const float* u, const float* w) {
+    float s = __fmul_rn(u[0], w[0]);
+#pragma unroll
+    for (int c = 1; c < D; ++c) s = __fadd_rn(s, __fmul_rn(u[c], w[c]));
+    return s;
+  }
+
   // Implicit advection of this thread's particles; vel_in is the solve's x.
   __device__ void advect() {
     const float g[3] = {a.g0, a.g1, a.g2};
     for (int p = first; p < a.n; p += stride) {
-      float pos[3], vel[3], velg[3], vv[3];
+      float pos[D], vel[D], velg[D], vv[D];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        pos[c] = a.pos[3 * p + c];
-        velg[c] = __fmul_rn(__fadd_rn(a.velg[3 * p + c], __fmul_rn(g[c], a.dt)),
+      for (int c = 0; c < D; ++c) {
+        pos[c] = a.pos[D * p + c];
+        velg[c] = __fmul_rn(__fadd_rn(a.velg[D * p + c], __fmul_rn(g[c], a.dt)),
                             a.decay);
-        vel[c] = __fmul_rn(v.x[3 * p + c], a.decay);
+        vel[c] = __fmul_rn(v.x[D * p + c], a.decay);
         vv[c] = __fadd_rn(vel[c], velg[c]);
       }
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
+      for (int c = 0; c < D; ++c) {
         if (pos[c] < 0.0f && vv[c] < 0.0f) vel[c] = velg[c] = vv[c] = 0.0f;
       }
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
+      for (int c = 0; c < D; ++c) {
         // The reference does not zero vel_g at the upper wall.
         if (pos[c] > 1.0f && vv[c] > 0.0f) vel[c] = vv[c] = 0.0f;
       }
       for (int o = 0; o < a.n_obst; ++o) {
         const float radius = a.radii[o];
-        float disp[3];
+        float disp[D], away[D];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) disp[c] = __fsub_rn(pos[c], a.centers[3 * o + c]);
-        const float dist_sq = __fadd_rn(
-            __fadd_rn(__fmul_rn(disp[0], disp[0]), __fmul_rn(disp[1], disp[1])),
-            __fmul_rn(disp[2], disp[2]));
-        const float toward = __fadd_rn(
-            __fadd_rn(__fmul_rn(vv[0], -disp[0]), __fmul_rn(vv[1], -disp[1])),
-            __fmul_rn(vv[2], -disp[2]));
+        for (int c = 0; c < D; ++c) {
+          disp[c] = __fsub_rn(pos[c], a.centers[D * o + c]);
+          away[c] = -disp[c];
+        }
+        const float dist_sq = dot_rn(disp, disp);
+        const float toward = dot_rn(vv, away);
         if (dist_sq < radius * radius && toward > 0.0f && radius > 0.0f) {
           const float denom = fmaxf(dist_sq, 1e-30f);
           float* chans[3] = {vv, vel, velg};
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
             float* u = chans[k];
-            const float dot = __fadd_rn(
-                __fadd_rn(__fmul_rn(u[0], disp[0]), __fmul_rn(u[1], disp[1])),
-                __fmul_rn(u[2], disp[2]));
-            const float s = __fdiv_rn(dot, denom);
+            const float s = __fdiv_rn(dot_rn(u, disp), denom);
 #pragma unroll
-            for (int c = 0; c < 3; ++c) u[c] = __fsub_rn(u[c], __fmul_rn(s, disp[c]));
+            for (int c = 0; c < D; ++c) u[c] = __fsub_rn(u[c], __fmul_rn(s, disp[c]));
           }
         }
       }
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        a.pos[3 * p + c] = __fadd_rn(pos[c], __fmul_rn(vv[c], a.dt));
-        a.vel[3 * p + c] = vel[c];
-        a.velg[3 * p + c] = velg[c];
+      for (int c = 0; c < D; ++c) {
+        a.pos[D * p + c] = __fadd_rn(pos[c], __fmul_rn(vv[c], a.dt));
+        a.vel[D * p + c] = vel[c];
+        a.velg[D * p + c] = velg[c];
       }
     }
   }
@@ -392,23 +409,25 @@ struct Frame {
 
 // __grid_constant__: Frame keeps a reference to the parameter, which then
 // stays in the parameter space instead of a per-thread copy.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     blocked_frame_kernel(const __grid_constant__ FemFrameArgs a) {
   extern __shared__ float smem[];
   __shared__ float red[33];
   __shared__ float bcast;
   const int bpc = (a.T.num_blocks + gridDim.x - 1) / gridDim.x;
-  Frame fr{a, carve(a), cg::this_grid(), smem, smem + 9 * bpc * a.T.eb,
-           smem + 9 * bpc * a.T.eb + 3 * a.T.pb, red, &bcast, 0,
-           static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x),
-           static_cast<int>(gridDim.x * blockDim.x)};
+  float* xs = smem + D * D * bpc * a.T.eb;
+  Frame<D> fr{a, carve<D>(a), cg::this_grid(), smem, xs, xs + D * a.T.pb,
+              red, &bcast, 0,
+              static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x),
+              static_cast<int>(gridDim.x * blockDim.x)};
   for (int p = fr.first; p < a.n; p += fr.stride) {
     fr.v.minv[p] = 1.0f / a.mass[p];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      a.pos[3 * p + c] = a.pos_in[3 * p + c];
-      a.vel[3 * p + c] = a.vel_in[3 * p + c];
-      a.velg[3 * p + c] = a.velg_in[3 * p + c];
+    for (int c = 0; c < D; ++c) {
+      a.pos[D * p + c] = a.pos_in[D * p + c];
+      a.vel[D * p + c] = a.vel_in[D * p + c];
+      a.velg[D * p + c] = a.velg_in[D * p + c];
     }
   }
   fr.grid.sync();
@@ -425,43 +444,57 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-size_t frame_smem(int grid, int num_blocks, int eb, int pb) {
+size_t frame_smem(int grid, int num_blocks, int eb, int pb, int dim) {
   const int bpc = (num_blocks + grid - 1) / grid;
   return sizeof(float) *
-         (9 * static_cast<size_t>(bpc) * eb + fem::block_work_floats(eb, pb));
+         (static_cast<size_t>(dim) * dim * bpc * eb +
+          fem::block_work_floats(eb, pb, dim));
 }
 
 }  // namespace
 
-// Floats of scratch the launch needs for `grid` CTAs.
+// Floats of scratch the launch needs for `grid` CTAs in dimension `dim`.
 extern "C" long long fem_blocked_frame_scratch_floats(int n, int num_blocks,
-                                                      int pb, int grid) {
-  return static_cast<long long>(n) + 18LL * n + 6LL * num_blocks * pb +
-         2LL * grid;
+                                                      int pb, int grid,
+                                                      int dim) {
+  return static_cast<long long>(n) + 6LL * dim * n +
+         2LL * dim * num_blocks * pb + 2LL * grid;
 }
 
 // Checks that a cooperative grid of `grid` CTAs (0: one per locality block,
-// at most one per SM) fits the device; writes the grid, its dynamic shared
-// memory and the most co-resident CTAs.  Returns 0, a CUDA error, or
-// -1 (no cooperative launch), -2 (shared memory too large), -3 (the grid
-// cannot be co-resident).
+// at most one per SM) of the `dim` instance fits the device; writes the
+// grid, its dynamic shared memory and the most co-resident CTAs.  Returns
+// 0, a CUDA error, or -1 (no cooperative launch), -2 (shared memory too
+// large), -3 (the grid cannot be co-resident).
 extern "C" int fem_blocked_frame_plan(int num_blocks, int eb, int pb, int grid,
-                                      int* grid_out, int* smem_out,
+                                      int dim, int* grid_out, int* smem_out,
                                       int* max_grid_out) {
   *max_grid_out = 0;
+  if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = fem::cooperative_grid(num_blocks, grid, grid_out);
   if (rc != 0) return rc;
-  const size_t smem = frame_smem(*grid_out, num_blocks, eb, pb);
+  const size_t smem = frame_smem(*grid_out, num_blocks, eb, pb, dim);
   *smem_out = static_cast<int>(smem);
-  return fem::cooperative_fit(blocked_frame_kernel, kThreads, *grid_out, smem,
-                              max_grid_out);
+  if (dim == 3) {
+    return fem::cooperative_fit(blocked_frame_kernel<3>, kThreads, *grid_out,
+                                smem, max_grid_out);
+  }
+  return fem::cooperative_fit(blocked_frame_kernel<2>, kThreads, *grid_out,
+                              smem, max_grid_out);
 }
 
 extern "C" int fem_blocked_frame(const FemFrameArgs* args, int grid, int smem,
                                  void* stream) {
   FemFrameArgs a = *args;
-  return fem::cooperative_launch(blocked_frame_kernel, &a, grid, kThreads, smem,
-                                 stream);
+  if (a.T.dim == 3) {
+    return fem::cooperative_launch(blocked_frame_kernel<3>, &a, grid, kThreads,
+                                   smem, stream);
+  }
+  if (a.T.dim == 2) {
+    return fem::cooperative_launch(blocked_frame_kernel<2>, &a, grid, kThreads,
+                                   smem, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* fem_blocked_frame_error(int code) {

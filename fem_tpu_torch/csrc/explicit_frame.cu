@@ -21,10 +21,17 @@
 //   then upper) is zeroed, circles project in obstacle order on the old
 //   position (radius 0 never hits), pos += vel dt.
 //
+// The kernel is templated on the dimension D in {2, 3}, as the Pallas
+// kernel takes `dim`; fem_explicit_frame launches the instance of
+// args->T.dim.  The 2D default scene (configs/default.json) is the first
+// shipped scene whose circles are hit on the card: two circles of radius
+// 0.21 that the body squeezes between, projected in obstacle order.
+//
 // Design.  K5's skeleton (blocked_frame.cu): one thread block per locality
-// block (17 on the flagship; grid-stride when a mesh has more blocks than
-// the grid), a cooperative launch so that the grid is co-resident or the
-// launch fails, and data written by another CTA read past L1 (__ldcg).
+// block (17 on the 3D flagship, 1 on the 2D default scene; grid-stride when
+// a mesh has more blocks than the grid), a cooperative launch so that the
+// grid is co-resident or the launch fails, and data written by another CTA
+// read past L1 (__ldcg).
 // Each substep has two phases separated by grid barriers:
 //   1. gradient partials: each CTA loads its blocks' positions into shared
 //      memory, runs one thread per real tet (padded slots are skipped, so
@@ -62,101 +69,110 @@ constexpr int kThreads = 256;
 // The Python side mirrors this layout (ops/frame_kernels.py:
 // ExplicitFrameArgsC).
 struct FemExplicitFrameArgs {
-  fem::BlockTables T;
+  fem::BlockTables T;    // T.dim is D
   const int* slot_ptr;   // (N+1,) slot plan
   const int* slot_rows;  // flat block slots b*Pb+p
-  const float* pos_in;   // (N, 3)
+  const float* pos_in;   // (N, D)
   const float* vel_in;
   const float* mass;     // (N,)
-  const float* centers;  // (O, 3)
+  const float* centers;  // (O, D)
   const float* radii;    // (O,)
   int n;
   int n_obst;
   int sim_count;
   float dt;
   float decay;
-  float g0, g1, g2;  // 9.8 g_dir
+  float g0, g1, g2;  // 9.8 g_dir (g2 unused in 2D)
   float mu;
   float lam;
-  float* pos;       // (N, 3) outputs, the state through the frame
+  float* pos;       // (N, D) outputs, the state through the frame
   float* vel;
-  float* partials;  // (B*Pb, 3) scratch
+  float* partials;  // (B*Pb, D) scratch
 };
 
 namespace {
 
 // Phase 1: the per-slot gradient partials of every owned block at `src`.
+template <int D>
 __device__ void gradient_partials(const FemExplicitFrameArgs& a,
                                   const float* src, float* xs, float* t) {
   const fem::BlockTables& T = a.T;
   for (int b = blockIdx.x; b < T.num_blocks; b += gridDim.x) {
-    fem::load_block_rows(T, b, src, xs);
+    fem::load_block_rows<D>(T, b, src, xs);
     __syncthreads();
     const int nel = T.block_elements[b];
     for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-      fem::element_grad(T, b, e, xs, a.mu, a.lam, t + 12 * e);
+      fem::element_grad<D>(T, b, e, xs, a.mu, a.lam,
+                           t + fem::rows_floats(D) * e);
     }
     __syncthreads();
-    fem::block_slot_sums(T, b, t, a.partials + 3 * b * T.pb);
+    fem::block_slot_sums<D>(T, b, t, a.partials + D * b * T.pb);
     __syncthreads();
   }
 }
 
+// Sum_c u[c] w[c] in the plain version's order, round-to-nearest.
+template <int D>
+__device__ __forceinline__ float dot_rn(const float* u, const float* w) {
+  float s = __fmul_rn(u[0], w[0]);
+#pragma unroll
+  for (int c = 1; c < D; ++c) s = __fadd_rn(s, __fmul_rn(u[c], w[c]));
+  return s;
+}
+
 // Phase 2: the kinematic step of particle p from state (pos_src, vel_src).
+template <int D>
 __device__ void kinematic(const FemExplicitFrameArgs& a, int p,
                           const float* pos_src, const float* vel_src) {
   const float g[3] = {a.g0, a.g1, a.g2};
-  float grad[3];
-  fem::particle_slot_sum(a.slot_ptr, a.slot_rows, a.partials, p, grad);
+  float grad[D];
+  fem::particle_slot_sum<D>(a.slot_ptr, a.slot_rows, a.partials, p, grad);
   const float minv = __fdiv_rn(1.0f, a.mass[p]);
-  float pos[3], vel[3];
+  float pos[D], vel[D];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    pos[c] = pos_src[3 * p + c];
+  for (int c = 0; c < D; ++c) {
+    pos[c] = pos_src[D * p + c];
     const float acc = __fsub_rn(g[c], __fmul_rn(grad[c], minv));
-    vel[c] = __fmul_rn(__fadd_rn(vel_src[3 * p + c], __fmul_rn(acc, a.dt)),
+    vel[c] = __fmul_rn(__fadd_rn(vel_src[D * p + c], __fmul_rn(acc, a.dt)),
                        a.decay);
   }
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
+  for (int c = 0; c < D; ++c) {
     if ((pos[c] < 0.0f && vel[c] < 0.0f) || (pos[c] > 1.0f && vel[c] > 0.0f)) {
       vel[c] = 0.0f;
     }
   }
   for (int o = 0; o < a.n_obst; ++o) {
     const float radius = a.radii[o];
-    float disp[3];
+    float disp[D], away[D];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) disp[c] = __fsub_rn(pos[c], a.centers[3 * o + c]);
-    const float dist_sq = __fadd_rn(
-        __fadd_rn(__fmul_rn(disp[0], disp[0]), __fmul_rn(disp[1], disp[1])),
-        __fmul_rn(disp[2], disp[2]));
-    const float toward = __fadd_rn(
-        __fadd_rn(__fmul_rn(vel[0], -disp[0]), __fmul_rn(vel[1], -disp[1])),
-        __fmul_rn(vel[2], -disp[2]));
+    for (int c = 0; c < D; ++c) {
+      disp[c] = __fsub_rn(pos[c], a.centers[D * o + c]);
+      away[c] = -disp[c];
+    }
+    const float dist_sq = dot_rn<D>(disp, disp);
+    const float toward = dot_rn<D>(vel, away);
     if (dist_sq < __fmul_rn(radius, radius) && toward > 0.0f && radius > 0.0f) {
-      const float dot = __fadd_rn(
-          __fadd_rn(__fmul_rn(vel[0], disp[0]), __fmul_rn(vel[1], disp[1])),
-          __fmul_rn(vel[2], disp[2]));
-      const float coeff = __fdiv_rn(dot, fmaxf(dist_sq, 1e-30f));
+      const float coeff = __fdiv_rn(dot_rn<D>(vel, disp), fmaxf(dist_sq, 1e-30f));
 #pragma unroll
-      for (int c = 0; c < 3; ++c) vel[c] = __fsub_rn(vel[c], __fmul_rn(coeff, disp[c]));
+      for (int c = 0; c < D; ++c) vel[c] = __fsub_rn(vel[c], __fmul_rn(coeff, disp[c]));
     }
   }
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    a.pos[3 * p + c] = __fadd_rn(pos[c], __fmul_rn(vel[c], a.dt));
-    a.vel[3 * p + c] = vel[c];
+  for (int c = 0; c < D; ++c) {
+    a.pos[D * p + c] = __fadd_rn(pos[c], __fmul_rn(vel[c], a.dt));
+    a.vel[D * p + c] = vel[c];
   }
 }
 
 // __grid_constant__: the parameter stays in the parameter space instead of
 // a per-thread copy.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     explicit_frame_kernel(const __grid_constant__ FemExplicitFrameArgs a) {
   extern __shared__ float smem[];
   float* xs = smem;
-  float* t = smem + 3 * a.T.pb;
+  float* t = smem + D * a.T.pb;
   cg::grid_group grid = cg::this_grid();
   const int first = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
   const int stride = static_cast<int>(gridDim.x * blockDim.x);
@@ -166,9 +182,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // past L1 in phase 1).
     const float* pos_src = s == 0 ? a.pos_in : a.pos;
     const float* vel_src = s == 0 ? a.vel_in : a.vel;
-    gradient_partials(a, pos_src, xs, t);
+    gradient_partials<D>(a, pos_src, xs, t);
     grid.sync();
-    for (int p = first; p < a.n; p += stride) kinematic(a, p, pos_src, vel_src);
+    for (int p = first; p < a.n; p += stride) kinematic<D>(a, p, pos_src, vel_src);
     if (s + 1 < a.sim_count) grid.sync();
   }
 }
@@ -176,28 +192,40 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace
 
 // Checks that a cooperative grid of `grid` CTAs (0: one per locality block,
-// at most one per SM) fits the device; writes the grid, its dynamic shared
-// memory and the most co-resident CTAs.  Returns 0, a CUDA error, or
-// -1 (no cooperative launch), -2 (shared memory too large), -3 (the grid
-// cannot be co-resident).
+// at most one per SM) of the `dim` instance fits the device; writes the
+// grid, its dynamic shared memory and the most co-resident CTAs.  Returns
+// 0, a CUDA error, or -1 (no cooperative launch), -2 (shared memory too
+// large), -3 (the grid cannot be co-resident).
 extern "C" int fem_explicit_frame_plan(int num_blocks, int eb, int pb, int grid,
-                                       int* grid_out, int* smem_out,
+                                       int dim, int* grid_out, int* smem_out,
                                        int* max_grid_out) {
   *max_grid_out = 0;
+  if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = fem::cooperative_grid(num_blocks, grid, grid_out);
   if (rc != 0) return rc;
-  const size_t smem = sizeof(float) * fem::block_work_floats(eb, pb);
+  const size_t smem = sizeof(float) * fem::block_work_floats(eb, pb, dim);
   *smem_out = static_cast<int>(smem);
-  return fem::cooperative_fit(explicit_frame_kernel, kThreads, *grid_out, smem,
-                              max_grid_out);
+  if (dim == 3) {
+    return fem::cooperative_fit(explicit_frame_kernel<3>, kThreads, *grid_out,
+                                smem, max_grid_out);
+  }
+  return fem::cooperative_fit(explicit_frame_kernel<2>, kThreads, *grid_out,
+                              smem, max_grid_out);
 }
 
 extern "C" int fem_explicit_frame(const FemExplicitFrameArgs* args, int grid,
                                   int smem, void* stream) {
   FemExplicitFrameArgs a = *args;
   if (a.sim_count <= 0 || a.n <= 0) return 0;
-  return fem::cooperative_launch(explicit_frame_kernel, &a, grid, kThreads,
-                                 smem, stream);
+  if (a.T.dim == 3) {
+    return fem::cooperative_launch(explicit_frame_kernel<3>, &a, grid,
+                                   kThreads, smem, stream);
+  }
+  if (a.T.dim == 2) {
+    return fem::cooperative_launch(explicit_frame_kernel<2>, &a, grid,
+                                   kThreads, smem, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* fem_explicit_frame_error(int code) {

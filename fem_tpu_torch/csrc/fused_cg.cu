@@ -12,8 +12,10 @@
 //   apply_at(v)= v - dt^2 G(K^T) (v / m)
 //   normal equations (A^T A x = A^T b) when `preconditioned`, else A x = b;
 //   x_0 = b (not the A^T A rhs); iterate while it < max_iter && |r|^2 > tol.
-// G(K) x sums, per tet, t_j = K_e (x_{v_{j+1}} - x_{v_0}) into vertex j+1 and
-// -sum_j t_j into vertex 0.
+// G(K) x sums, per element, t_j = K_e (x_{v_{j+1}} - x_{v_0}) into vertex
+// j+1 and -sum_j t_j into vertex 0.  The kernel is templated on the
+// dimension D in {2, 3} (the Pallas kernel takes `dim`); fem_fused_cg
+// launches the instance of its `dim`.
 //
 // Bound on the H100: latency, not bytes or operations.  Every CG iteration
 // is a chain of dependent phases (apply, reduce, update), each a few
@@ -24,29 +26,31 @@
 // flagship, thousands of times the bytes bound).  Design for this first
 // version: ONE thread block of 1,024 threads runs the whole solve, so phases
 // are separated by __syncthreads() and nothing returns to the host between
-// iterations.  An apply runs in two phases: per tet, t_j into a scratch
-// (E, 4, 3) buffer;
-// then per particle, a sum over its CSR plan rows in a fixed order.  Dot
-// products reduce in a fixed order (warp shuffles, then one warp), and there
-// are no float atomics, so two runs give bit-identical results.  Vectors and
-// scratch live in device memory (L2-resident at the flagship's size); keeping
-// them in shared memory and spreading the solve over more SMs is later work.
+// iterations.  An apply runs in two phases: per element, t_j into a scratch
+// (E, D+1, D) buffer; then per particle, a sum over its CSR plan rows in a
+// fixed order.  Dot products reduce in a fixed order (warp shuffles, then
+// one warp), and there are no float atomics, so two runs give bit-identical
+// results.  Vectors and scratch live in device memory (L2-resident at the
+// flagship's size); keeping them in shared memory and spreading the solve
+// over more SMs is later work.
 
 #include <cuda_runtime.h>
+
+#include "element_chain.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
 
 struct Solve {
-  const float* k;      // (E, 3, 3)
-  const int4* elem;    // (E, 4)
+  const float* k;      // (E, D, D)
+  const int* elem;     // (E, D+1)
   const int* ptr;      // (N + 1,)
-  const int* rows;     // (4E,)
+  const int* rows;     // ((D+1) E,)
   const float* minv;   // (N,)
-  float* t;            // (4E, 3) per-tet vertex contributions
-  float* w;            // (N, 3) G(K) product
-  float* z;            // (N, 3) v / m for apply_at
+  float* t;            // ((D+1) E, D) per-element vertex contributions
+  float* w;            // (N, D) G(K) product
+  float* z;            // (N, D) v / m for apply_at
   int num_elements;
   int num_particles;
   float dt2;
@@ -74,129 +78,142 @@ __device__ float block_sum(float v, float* red) {
 }
 
 // Per particle, the sum of its contribution rows of s.t into dst.
+template <int D>
 __device__ void gather_rows(const Solve& s, float* __restrict__ dst) {
   for (int p = threadIdx.x; p < s.num_particles; p += kThreads) {
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+    float a[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) a[c] = 0.0f;
     const int end = s.ptr[p + 1];
     for (int q = s.ptr[p]; q < end; ++q) {
-      const float* row = s.t + 3 * s.rows[q];
-      a0 += row[0];
-      a1 += row[1];
-      a2 += row[2];
+      const float* row = s.t + D * s.rows[q];
+#pragma unroll
+      for (int c = 0; c < D; ++c) a[c] += row[c];
     }
-    dst[3 * p] = a0;
-    dst[3 * p + 1] = a1;
-    dst[3 * p + 2] = a2;
+#pragma unroll
+    for (int c = 0; c < D; ++c) dst[D * p + c] = a[c];
   }
   __syncthreads();
 }
 
 // s.w = G(K) src, or G(K^T) src when `transpose`.
+template <int D>
 __device__ void g_apply(const Solve& s, const float* __restrict__ src,
                         bool transpose) {
   __syncthreads();  // src was written by other threads
   for (int e = threadIdx.x; e < s.num_elements; e += kThreads) {
-    const int4 v = s.elem[e];
-    const int vid[3] = {v.y, v.z, v.w};
-    const float x0[3] = {src[3 * v.x], src[3 * v.x + 1], src[3 * v.x + 2]};
-    const float* k = s.k + 9 * e;
-    float kk[9];
+    int v[D + 1];
+    fem::load_element<D>(s.elem, e, v);
+    float x0[D];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int c = 0; c < D; ++c) x0[c] = src[D * v[0] + c];
+    const float* k = s.k + D * D * e;
+    float kk[D * D];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        kk[3 * i + c] = transpose ? k[3 * c + i] : k[3 * i + c];
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        kk[D * i + c] = transpose ? k[D * c + i] : k[D * i + c];
       }
     }
-    float sum[3] = {0.0f, 0.0f, 0.0f};
-    float* out = s.t + 12 * e;
+    float sum[D];
+    float* out = s.t + (D + 1) * D * e;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float d0 = src[3 * vid[j]] - x0[0];
-      const float d1 = src[3 * vid[j] + 1] - x0[1];
-      const float d2 = src[3 * vid[j] + 2] - x0[2];
+    for (int j = 0; j < D; ++j) {
+      float d[D];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float ti = kk[3 * i] * d0 + kk[3 * i + 1] * d1 + kk[3 * i + 2] * d2;
-        out[3 * (j + 1) + i] = ti;
+      for (int c = 0; c < D; ++c) d[c] = src[D * v[j + 1] + c] - x0[c];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        float ti = kk[D * i] * d[0];
+#pragma unroll
+        for (int c = 1; c < D; ++c) ti = ti + kk[D * i + c] * d[c];
+        out[D * (j + 1) + i] = ti;
         sum[i] = j == 0 ? ti : sum[i] + ti;
       }
     }
 #pragma unroll
-    for (int i = 0; i < 3; ++i) out[i] = -sum[i];
+    for (int i = 0; i < D; ++i) out[i] = -sum[i];
   }
   __syncthreads();
-  gather_rows(s, s.w);
+  gather_rows<D>(s, s.w);
 }
 
 // dst = A src  (apply_a)
+template <int D>
 __device__ void apply_a(const Solve& s, const float* src, float* dst) {
-  g_apply(s, src, false);
-  for (int i = threadIdx.x; i < 3 * s.num_particles; i += kThreads) {
-    dst[i] = src[i] - s.dt2 * s.w[i] * s.minv[i / 3];
+  g_apply<D>(s, src, false);
+  for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
+    dst[i] = src[i] - s.dt2 * s.w[i] * s.minv[i / D];
   }
 }
 
 // dst = A^T src  (apply_at)
+template <int D>
 __device__ void apply_at(const Solve& s, const float* src, float* dst) {
-  for (int i = threadIdx.x; i < 3 * s.num_particles; i += kThreads) {
-    s.z[i] = src[i] * s.minv[i / 3];
+  for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
+    s.z[i] = src[i] * s.minv[i / D];
   }
-  g_apply(s, s.z, true);
-  for (int i = threadIdx.x; i < 3 * s.num_particles; i += kThreads) {
+  g_apply<D>(s, s.z, true);
+  for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
     dst[i] = src[i] - s.dt2 * s.w[i];
   }
 }
 
 // dst = op src, op = A^T A (normal equations) or A; `u` is scratch.
+template <int D>
 __device__ void apply_op(const Solve& s, bool normal, const float* src,
                          float* u, float* dst) {
   if (normal) {
-    apply_a(s, src, u);
-    apply_at(s, u, dst);
+    apply_a<D>(s, src, u);
+    apply_at<D>(s, u, dst);
   } else {
-    apply_a(s, src, dst);
+    apply_a<D>(s, src, dst);
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fused_cg_kernel(
     Solve s, const float* __restrict__ cols, const float* __restrict__ vel,
     const float* __restrict__ mass, float* minv, float dt, int normal,
     int max_iter, float tol, float* x, float* r, float* d, float* q,
     float* u, int* it_out, float* res_out) {
   __shared__ float red[33];
-  const int n3 = 3 * s.num_particles;
+  const int nd = D * s.num_particles;
   for (int p = threadIdx.x; p < s.num_particles; p += kThreads) {
     minv[p] = 1.0f / mass[p];
   }
-  // Force contributions: column j of the tet's rhs block to vertex j+1,
+  // Force contributions: column j of the element's rhs block to vertex j+1,
   // minus their sum to vertex 0 (element_contrib_full).
   for (int e = threadIdx.x; e < s.num_elements; e += kThreads) {
-    const float* c = cols + 9 * e;
-    float* out = s.t + 12 * e;
+    const float* c = cols + D * D * e;
+    float* out = s.t + (D + 1) * D * e;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float c0 = c[3 * i], c1 = c[3 * i + 1], c2 = c[3 * i + 2];
-      out[3 + i] = c0;
-      out[6 + i] = c1;
-      out[9 + i] = c2;
-      out[i] = -((c0 + c1) + c2);
+    for (int i = 0; i < D; ++i) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        const float cj = c[D * i + j];
+        out[D * (j + 1) + i] = cj;
+        sum = j == 0 ? cj : sum + cj;
+      }
+      out[i] = -sum;
     }
   }
   __syncthreads();
-  gather_rows(s, s.w);
-  for (int i = threadIdx.x; i < n3; i += kThreads) {
-    x[i] = vel[i] + dt * s.w[i] * minv[i / 3];  // x_0 = b
+  gather_rows<D>(s, s.w);
+  for (int i = threadIdx.x; i < nd; i += kThreads) {
+    x[i] = vel[i] + dt * s.w[i] * minv[i / D];  // x_0 = b
   }
   // r = rhs - op(x_0), with rhs = A^T b or b.
   if (normal) {
-    apply_at(s, x, r);
+    apply_at<D>(s, x, r);
   } else {
-    for (int i = threadIdx.x; i < n3; i += kThreads) r[i] = x[i];
+    for (int i = threadIdx.x; i < nd; i += kThreads) r[i] = x[i];
   }
-  apply_op(s, normal, x, u, q);
+  apply_op<D>(s, normal, x, u, q);
   float part = 0.0f;
-  for (int i = threadIdx.x; i < n3; i += kThreads) {
+  for (int i = threadIdx.x; i < nd; i += kThreads) {
     const float ri = r[i] - q[i];
     r[i] = ri;
     d[i] = ri;
@@ -205,12 +222,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cg_kernel(
   float delta = block_sum(part, red);
   int it = 0;
   while (it < max_iter && delta > tol) {
-    apply_op(s, normal, d, u, q);
+    apply_op<D>(s, normal, d, u, q);
     part = 0.0f;
-    for (int i = threadIdx.x; i < n3; i += kThreads) part += d[i] * q[i];
+    for (int i = threadIdx.x; i < nd; i += kThreads) part += d[i] * q[i];
     const float alpha = delta / block_sum(part, red);
     part = 0.0f;
-    for (int i = threadIdx.x; i < n3; i += kThreads) {
+    for (int i = threadIdx.x; i < nd; i += kThreads) {
       x[i] += alpha * d[i];
       const float ri = r[i] - alpha * q[i];
       r[i] = ri;
@@ -218,7 +235,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cg_kernel(
     }
     const float delta_next = block_sum(part, red);
     const float beta = delta_next / delta;
-    for (int i = threadIdx.x; i < n3; i += kThreads) d[i] = r[i] + beta * d[i];
+    for (int i = threadIdx.x; i < nd; i += kThreads) d[i] = r[i] + beta * d[i];
     delta = delta_next;
     ++it;
   }
@@ -230,38 +247,61 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cg_kernel(
 
 }  // namespace
 
-// scratch holds, in order: minv (N), r, d, q, u, w, z (3N each), t (12E).
-extern "C" int fem_fused_cg(const void* k, const void* cols, const void* elem,
-                            const void* ptr, const void* rows, const void* vel,
+// Floats of scratch a solve needs: minv (N), r, d, q, u, w, z (D N each),
+// t ((D+1) D E).
+extern "C" long long fem_fused_cg_scratch_floats(int dim, int num_elements,
+                                                 int num_particles) {
+  return static_cast<long long>(num_particles) +
+         6LL * dim * num_particles +
+         static_cast<long long>(dim + 1) * dim * num_elements;
+}
+
+// `dim` is 2 or 3 (anything else: cudaErrorInvalidValue, nothing launched).
+extern "C" int fem_fused_cg(int dim, const void* k, const void* cols,
+                            const void* elem, const void* ptr,
+                            const void* rows, const void* vel,
                             const void* mass, int num_elements,
                             int num_particles, float dt, float dt2, int normal,
                             int max_iter, float tol, void* x_out,
                             void* scratch, void* it_out, void* res_out,
                             void* stream) {
+  if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   float* base = static_cast<float*>(scratch);
   const int n = num_particles;
+  const size_t nd = static_cast<size_t>(dim) * n;
   Solve s;
   s.k = static_cast<const float*>(k);
-  s.elem = static_cast<const int4*>(elem);
+  s.elem = static_cast<const int*>(elem);
   s.ptr = static_cast<const int*>(ptr);
   s.rows = static_cast<const int*>(rows);
   float* minv = base;
   float* r = minv + n;
-  float* d = r + 3 * n;
-  float* q = d + 3 * n;
-  float* u = q + 3 * n;
-  s.w = u + 3 * n;
-  s.z = s.w + 3 * n;
-  s.t = s.z + 3 * n;
+  float* d = r + nd;
+  float* q = d + nd;
+  float* u = q + nd;
+  s.w = u + nd;
+  s.z = s.w + nd;
+  s.t = s.z + nd;
   s.minv = minv;
   s.num_elements = num_elements;
   s.num_particles = n;
   s.dt2 = dt2;
-  fused_cg_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const float*>(cols), static_cast<const float*>(vel),
-      static_cast<const float*>(mass), minv, dt, normal, max_iter, tol,
-      static_cast<float*>(x_out), r, d, q, u, static_cast<int*>(it_out),
-      static_cast<float*>(res_out));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(cols);
+  const float* v = static_cast<const float*>(vel);
+  const float* m = static_cast<const float*>(mass);
+  float* x = static_cast<float*>(x_out);
+  int* it = static_cast<int*>(it_out);
+  float* res = static_cast<float*>(res_out);
+  if (dim == 3) {
+    fused_cg_kernel<3><<<1, kThreads, 0, st>>>(s, c, v, m, minv, dt, normal,
+                                               max_iter, tol, x, r, d, q, u,
+                                               it, res);
+  } else {
+    fused_cg_kernel<2><<<1, kThreads, 0, st>>>(s, c, v, m, minv, dt, normal,
+                                               max_iter, tol, x, r, d, q, u,
+                                               it, res);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,9 +11,10 @@ K7b).  ``blocked_graph_apply`` launches the same file's matvec and slot-sum
 kernels; it replaces ``ops/blocking.py:_matvec_kernel`` (entry
 ``blocked_graph_apply``, K3).  ``blocked_assemble`` launches its assembly
 and slot-sum kernels; it replaces ``ops/blocking.py:_scatter_kernel``
-(entry ``blocked_assemble``, K7a).  For tensors on the CPU each runs its
-plain PyTorch version (``*_plain``); on CUDA each launches its kernel or
-raises.
+(entry ``blocked_assemble``, K7a).  Each launches the instance of the
+blocking's dimension (2 or 3; one kernel template, two instances).  For
+tensors on the CPU each runs its plain PyTorch version (``*_plain``); on
+CUDA each launches its kernel or raises.
 
 Layouts: K blocks and element columns are ``(B·Eb, d, d)`` in block order
 (the JAX package's ``kplane_to_kflat`` of its (B, d², Eb·d) planes);
@@ -56,23 +57,25 @@ class BlockTablesC(ctypes.Structure):
         ("num_blocks", ctypes.c_int),
         ("eb", ctypes.c_int),
         ("pb", ctypes.c_int),
+        ("dim", ctypes.c_int),
     ]
 
 
 def block_tables(blk: Blocking) -> BlockTablesC:
-    """The C view of ``blk``'s device tables (which ``blk`` keeps alive)."""
-    if blk.dim != 3:
-        raise NotImplementedError(
-            f"the blocked kernels are 3D only (got dim {blk.dim})"
-        )
+    """The C view of ``blk``'s device tables (which ``blk`` keeps alive),
+    with its dimension d (2 or 3)."""
+    d = blk.dim
+    if d not in (2, 3):
+        raise ValueError(f"the blocked kernels take dim 2 or 3, not {d}")
     dev = blk.volume.device
     b, eb, pb = blk.num_blocks, blk.eb, blk.pb
     i32, f32 = torch.int32, torch.float32
     for name, shape, dtype in (
-        ("block_particles", (b, pb), i32), ("plus", (b, eb * 3), i32),
-        ("minus", (b, eb * 3), i32), ("ref_inv", (b * eb, 3, 3), f32),
+        ("block_particles", (b, pb), i32), ("plus", (b, eb * d), i32),
+        ("minus", (b, eb * d), i32), ("ref_inv", (b * eb, d, d), f32),
         ("volume", (b * eb,), f32), ("block_elements", (b,), i32),
-        ("local_ptr", (b, pb + 1), i32), ("local_rows", (b, eb * 4), i32),
+        ("local_ptr", (b, pb + 1), i32),
+        ("local_rows", (b, eb * (d + 1)), i32),
     ):
         cuda_build.check_operand(
             f"blocking.{name}", getattr(blk, name), shape, dtype, dev
@@ -81,7 +84,7 @@ def block_tables(blk: Blocking) -> BlockTablesC:
         blk.block_particles.data_ptr(), blk.plus.data_ptr(),
         blk.minus.data_ptr(), blk.ref_inv.data_ptr(), blk.volume.data_ptr(),
         blk.block_elements.data_ptr(), blk.local_ptr.data_ptr(),
-        blk.local_rows.data_ptr(), b, eb, pb,
+        blk.local_rows.data_ptr(), b, eb, pb, d,
     )
 
 
@@ -184,18 +187,19 @@ def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float):
     """(K (B·Eb, d, d), force partials (B, Pb, d)) of the implicit substep
     at ``pos``: K_e = −V·k and the slot sums of the −V·h force columns.
 
-    CUDA tensors: one launch of the blocked prep kernel (3D Neo-Hookean,
-    non-robust).  CPU tensors: :func:`blocked_prep_plain`."""
+    CUDA tensors: one launch of the blocked prep kernel (Neo-Hookean,
+    non-robust, 2D or 3D).  CPU tensors: :func:`blocked_prep_plain`."""
     if pos.device.type == "cpu":
         return blocked_prep_plain(blk, pos, mu, lam)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     tables = block_tables(blk)
-    n = pos.shape[0]
-    cuda_build.check_operand("pos", pos, (n, 3), torch.float32, blk.volume.device)
+    n, d = pos.shape[0], tables.dim
+    cuda_build.check_operand("pos", pos, (n, d), torch.float32, blk.volume.device)
     dev = pos.device
-    k = torch.empty((blk.num_blocks * blk.eb, 3, 3), dtype=torch.float32, device=dev)
-    partials = torch.empty((blk.num_blocks, blk.pb, 3), dtype=torch.float32,
+    k = torch.empty((blk.num_blocks * blk.eb, d, d), dtype=torch.float32,
+                    device=dev)
+    partials = torch.empty((blk.num_blocks, blk.pb, d), dtype=torch.float32,
                            device=dev)
     lib = _library()
     with torch.cuda.device(dev):
@@ -219,15 +223,15 @@ def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
     them to ``blocked_scatter_sum``.
 
     CUDA tensors: one launch of the blocked prep kernel in its explicit mode
-    (3D Neo-Hookean).  CPU tensors: :func:`blocked_grad_prep_plain`."""
+    (Neo-Hookean, 2D or 3D).  CPU tensors: :func:`blocked_grad_prep_plain`."""
     if pos.device.type == "cpu":
         return blocked_grad_prep_plain(blk, pos, mu, lam)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     tables = block_tables(blk)
-    n = pos.shape[0]
-    cuda_build.check_operand("pos", pos, (n, 3), torch.float32, blk.volume.device)
-    partials = torch.empty((blk.num_blocks, blk.pb, 3), dtype=torch.float32,
+    n, d = pos.shape[0], tables.dim
+    cuda_build.check_operand("pos", pos, (n, d), torch.float32, blk.volume.device)
+    partials = torch.empty((blk.num_blocks, blk.pb, d), dtype=torch.float32,
                            device=pos.device)
     lib = _library()
     with torch.cuda.device(pos.device):
@@ -268,13 +272,13 @@ def blocked_assemble(blk: Blocking, cols: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {cols.device}")
     tables = block_tables(blk)
     dev = cols.device
-    n = blk.slot_plan.ptr.shape[0] - 1
-    cuda_build.check_operand("cols", cols, (blk.num_blocks * blk.eb, 3, 3),
+    n, d = blk.slot_plan.ptr.shape[0] - 1, tables.dim
+    cuda_build.check_operand("cols", cols, (blk.num_blocks * blk.eb, d, d),
                              torch.float32, blk.volume.device)
     check_slot_plan(blk, n, dev)
-    partials = torch.empty((blk.num_blocks * blk.pb, 3), dtype=torch.float32,
+    partials = torch.empty((blk.num_blocks * blk.pb, d), dtype=torch.float32,
                            device=dev)
-    y = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    y = torch.empty((n, d), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -305,16 +309,16 @@ def blocked_graph_apply(blk: Blocking, K: torch.Tensor, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     tables = block_tables(blk)
-    n = x.shape[0]
+    n, d = x.shape[0], tables.dim
     dev = x.device
     plan = blk.slot_plan
-    cuda_build.check_operand("x", x, (n, 3), torch.float32, blk.volume.device)
-    cuda_build.check_operand("K", K, (blk.num_blocks * blk.eb, 3, 3),
+    cuda_build.check_operand("x", x, (n, d), torch.float32, blk.volume.device)
+    cuda_build.check_operand("K", K, (blk.num_blocks * blk.eb, d, d),
                              torch.float32, dev)
     check_slot_plan(blk, n, dev)
-    partials = torch.empty((blk.num_blocks * blk.pb, 3), dtype=torch.float32,
+    partials = torch.empty((blk.num_blocks * blk.pb, d), dtype=torch.float32,
                            device=dev)
-    y = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    y = torch.empty((n, d), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -4,7 +4,8 @@
 ``fused_cg_solve`` launches the hand-written CUDA kernel
 ``fem_tpu_torch/csrc/fused_cg.cu`` for tensors on a CUDA device; it replaces
 the JAX package's Pallas kernel ``ops/pallas_blocked_cg.py:_fused_cg_kernel``
-(entry ``fused_blocked_cg_solve``).  For tensors on the CPU it runs
+(entry ``fused_blocked_cg_solve``), in the dimension of the velocities (2
+or 3; one kernel template, two instances).  For tensors on the CPU it runs
 ``fused_cg_solve_plain``, a Python loop over the same operator.  On CUDA it
 launches the kernel or raises; it never falls back.
 
@@ -122,8 +123,11 @@ def fused_cg_solve_plain(
 def _library():
     lib = cuda_build.load("fused_cg")
     if lib.fem_fused_cg.argtypes is None:
+        lib.fem_fused_cg_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.fem_fused_cg_scratch_floats.restype = ctypes.c_longlong
         lib.fem_fused_cg.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+            ctypes.c_int,
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, _P, _P, _P, _P, _P,
         ]
@@ -147,7 +151,7 @@ def fused_cg_solve(
 ):
     """Returns (vel_next (N, d), iterations int32 scalar, ‖r‖² f32 scalar),
     all on the input's device.  CUDA tensors: one launch of the whole-solve
-    kernel (3D only), with no host synchronisation.  CPU tensors:
+    kernel (2D or 3D), with no host synchronisation.  CPU tensors:
     :func:`fused_cg_solve_plain`."""
     if vel.device.type == "cpu":
         return fused_cg_solve_plain(
@@ -157,33 +161,32 @@ def fused_cg_solve(
     if vel.device.type != "cuda":
         raise ValueError(f"unsupported device {vel.device}")
     n, d = vel.shape
-    if d != 3:
-        raise NotImplementedError(
-            f"the whole-solve kernel is 3D only (got dim {d}); 2D runs on "
-            "the CPU path"
-        )
+    if d not in (2, 3):
+        raise ValueError(f"the whole-solve kernel takes dim 2 or 3, not {d}")
     e = element_indices.shape[0]
     dev = vel.device
-    cuda_build.check_operand("K", K, (e, 3, 3), torch.float32, dev)
-    cuda_build.check_operand("cols", cols, (e, 3, 3), torch.float32, dev)
+    cuda_build.check_operand("K", K, (e, d, d), torch.float32, dev)
+    cuda_build.check_operand("cols", cols, (e, d, d), torch.float32, dev)
     cuda_build.check_operand(
-        "element_indices", element_indices, (e, 4), torch.int32, dev
+        "element_indices", element_indices, (e, d + 1), torch.int32, dev
     )
     cuda_build.check_operand("plan.ptr", plan.ptr, (n + 1,), torch.int32, dev)
-    cuda_build.check_operand("plan.rows", plan.rows, (4 * e,), torch.int32, dev)
-    cuda_build.check_operand("vel", vel, (n, 3), torch.float32, dev)
+    cuda_build.check_operand("plan.rows", plan.rows, ((d + 1) * e,),
+                             torch.int32, dev)
+    cuda_build.check_operand("vel", vel, (n, d), torch.float32, dev)
     cuda_build.check_operand("mass", mass, (n,), torch.float32, dev)
-    if element_indices.data_ptr() % 16:
+    if d == 3 and element_indices.data_ptr() % 16:
         raise ValueError("element_indices must be 16-byte aligned (int4 loads)")
-    x = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty(n + 18 * n + 12 * e, dtype=torch.float32, device=dev)
+    lib = _library()
+    x = torch.empty((n, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.fem_fused_cg_scratch_floats(d, e, n),
+                          dtype=torch.float32, device=dev)
     it = torch.empty((), dtype=torch.int32, device=dev)
     res = torch.empty((), dtype=torch.float32, device=dev)
-    lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_fused_cg(
-            K.data_ptr(), cols.data_ptr(), element_indices.data_ptr(),
+            d, K.data_ptr(), cols.data_ptr(), element_indices.data_ptr(),
             plan.ptr.data_ptr(), plan.rows.data_ptr(), vel.data_ptr(),
             mass.data_ptr(), e, n, dt, dt * dt, int(bool(preconditioned)),
             max_iter, tol, x.data_ptr(), scratch.data_ptr(), it.data_ptr(),

@@ -1,14 +1,16 @@
 # coding=utf-8
-"""K1 and K6, the element chains over the mesh's tets.
+"""K1 and K6, the element chains over the mesh's elements (tets in 3D,
+triangles in 2D).
 
-``hessian_and_force`` (K1: per-tet system blocks K_e and rhs force columns)
-and ``explicit_grad_columns`` (K6: per-tet explicit energy-gradient
-columns) launch the hand-written CUDA kernels of
+``hessian_and_force`` (K1: per-element system blocks K_e and rhs force
+columns) and ``explicit_grad_columns`` (K6: per-element explicit
+energy-gradient columns) launch the hand-written CUDA kernels of
 ``fem_tpu_torch/csrc/element_chain.cu`` for tensors on a CUDA device; they
 replace the JAX package's Pallas kernels ``ops/pallas_kernels.py:
 _hessian_and_force_kernel`` (entry ``hessian_and_force_pallas``) and
-``_grad_cols_kernel`` (entry ``explicit_grad_columns_pallas``).  For
-tensors on the CPU each runs its plain PyTorch version (``*_plain``).  On
+``_grad_cols_kernel`` (entry ``explicit_grad_columns_pallas``), in the
+dimension of the positions (2 or 3; one kernel template, two instances).
+For tensors on the CPU each runs its plain PyTorch version (``*_plain``).  On
 CUDA each launches its kernel or raises; it never falls back.
 """
 
@@ -41,13 +43,13 @@ def _library():
     lib = cuda_build.load("element_chain")
     if lib.fem_hessian_and_force.argtypes is None:
         lib.fem_hessian_and_force.argtypes = [
-            _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, _P, _P, _P,
+            ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float, _P, _P, _P,
         ]
         lib.fem_hessian_and_force.restype = ctypes.c_int
         lib.fem_explicit_grad_columns.argtypes = [
-            _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            _P, _P,
+            ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, _P, _P,
         ]
         lib.fem_explicit_grad_columns.restype = ctypes.c_int
         lib.fem_element_chain_error.argtypes = [ctypes.c_int]
@@ -55,28 +57,26 @@ def _library():
     return lib
 
 
-def _check_tets(pos, element_indices, ref_inv, volume):
-    """(E, device) of a CUDA launch over the tets, after checking what the
-    kernels take: 3D, f32 and int32, contiguous, int4-aligned indices."""
+def _check_elements(pos, element_indices, ref_inv, volume):
+    """(E, d, device) of a CUDA launch over the elements, after checking
+    what the kernels take: d 2 or 3, f32 and int32, contiguous, and in 3D
+    int4-aligned indices."""
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     n, d = pos.shape
-    if d != 3:
-        raise NotImplementedError(
-            f"the element-chain kernels are 3D only (got dim {d}); 2D runs "
-            "on the CPU path"
-        )
+    if d not in (2, 3):
+        raise ValueError(f"the element-chain kernels take dim 2 or 3, not {d}")
     e = element_indices.shape[0]
     dev = pos.device
-    cuda_build.check_operand("pos", pos, (n, 3), torch.float32, dev)
+    cuda_build.check_operand("pos", pos, (n, d), torch.float32, dev)
     cuda_build.check_operand(
-        "element_indices", element_indices, (e, 4), torch.int32, dev
+        "element_indices", element_indices, (e, d + 1), torch.int32, dev
     )
-    cuda_build.check_operand("ref_inv", ref_inv, (e, 3, 3), torch.float32, dev)
+    cuda_build.check_operand("ref_inv", ref_inv, (e, d, d), torch.float32, dev)
     cuda_build.check_operand("volume", volume, (e,), torch.float32, dev)
-    if element_indices.data_ptr() % 16:
+    if d == 3 and element_indices.data_ptr() % 16:
         raise ValueError("element_indices must be 16-byte aligned (int4 loads)")
-    return e, dev
+    return e, d, dev
 
 
 def hessian_and_force(
@@ -91,8 +91,8 @@ def hessian_and_force(
 ):
     """(K (E, d, d), rhs force columns (E, d, d)) of the implicit substep.
 
-    CUDA tensors: one launch of the element-chain kernel (3D Neo-Hookean,
-    non-robust only).  CPU tensors: :func:`hessian_and_force_plain`."""
+    CUDA tensors: one launch of the element-chain kernel (Neo-Hookean,
+    non-robust, 2D or 3D).  CPU tensors: :func:`hessian_and_force_plain`."""
     if material != "neo_hookean":
         raise NotImplementedError(
             f"material {material!r}: only neo_hookean is ported (ROADMAP M11)"
@@ -105,14 +105,14 @@ def hessian_and_force(
         return hessian_and_force_plain(
             pos, element_indices, ref_inv, volume, mu, lam
         )
-    e, dev = _check_tets(pos, element_indices, ref_inv, volume)
-    k = torch.empty((e, 3, 3), dtype=torch.float32, device=dev)
-    h = torch.empty((e, 3, 3), dtype=torch.float32, device=dev)
+    e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
+    k = torch.empty((e, d, d), dtype=torch.float32, device=dev)
+    h = torch.empty((e, d, d), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_hessian_and_force(
-            pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
+            d, pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
             volume.data_ptr(), e, mu, lam, lam / 2.0, k.data_ptr(),
             h.data_ptr(), stream,
         )
@@ -134,22 +134,22 @@ def explicit_grad_columns(
     mu: float,
     lam: float,
 ) -> torch.Tensor:
-    """Explicit energy-gradient columns (E, d, d): column j of tet e goes to
-    its vertex j+1, −Σ_j to vertex 0.
+    """Explicit energy-gradient columns (E, d, d): column j of element e
+    goes to its vertex j+1, −Σ_j to vertex 0.
 
-    CUDA tensors: one launch of the gradient-columns kernel (3D
-    Neo-Hookean).  CPU tensors: :func:`explicit_grad_columns_plain`."""
+    CUDA tensors: one launch of the gradient-columns kernel (Neo-Hookean,
+    2D or 3D).  CPU tensors: :func:`explicit_grad_columns_plain`."""
     if pos.device.type == "cpu":
         return explicit_grad_columns_plain(
             pos, element_indices, ref_inv, volume, mu, lam
         )
-    e, dev = _check_tets(pos, element_indices, ref_inv, volume)
-    g = torch.empty((e, 3, 3), dtype=torch.float32, device=dev)
+    e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
+    g = torch.empty((e, d, d), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_explicit_grad_columns(
-            pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
+            d, pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
             volume.data_ptr(), e, mu, lam, g.data_ptr(), stream,
         )
     if rc != 0:

@@ -8,13 +8,15 @@ launch ``fem_tpu_torch/csrc/blocked_frame.cu`` and
 CUDA device; they replace the JAX package's Pallas kernels
 ``ops/pallas_blocked_frame.py:_frame_kernel`` (entry ``fused_blocked_frame``)
 and ``_explicit_frame_kernel`` (entry ``fused_explicit_frame``), elastic
-Neo-Hookean branches.  For tensors on the CPU each runs its plain version:
-``fused_blocked_frame_plain`` runs per substep the plain blocked prep, the
-slot-sum assembly, the reference CG over the plain blocked operator and the
-plain advection; ``fused_explicit_frame_plain`` per substep the plain
-blocked gradient prep, the slot sum and the plain kinematic step.  On CUDA
-each launches its kernel or raises — also when the grid cannot be
-co-resident, since a grid barrier in a grid that is not would hang.
+Neo-Hookean branches, in the blocking's dimension (2 or 3; one kernel
+template, two instances each).  For tensors on the CPU each runs its plain
+version: ``fused_blocked_frame_plain`` runs per substep the plain blocked
+prep, the slot-sum assembly, the reference CG over the plain blocked
+operator and the plain advection; ``fused_explicit_frame_plain`` per
+substep the plain blocked gradient prep, the slot sum and the plain
+kinematic step.  On CUDA each launches its kernel or raises — also when the
+grid cannot be co-resident, since a grid barrier in a grid that is not
+would hang.
 """
 
 from __future__ import annotations
@@ -67,6 +69,15 @@ class FrameArgsC(ctypes.Structure):
     ]
 
 
+def _gravity3(g_dir, d):
+    """9.8·g_dir as the kernels' three gravity floats (the third is 0 and
+    unused in 2D), after checking that ``g_dir`` has ``d`` components."""
+    if len(g_dir) != d:
+        raise ValueError(f"g_dir has {len(g_dir)} components, expected {d}")
+    grav = gravity_vector(tuple(g_dir), torch.device("cpu")).tolist()
+    return grav + [0.0] * (3 - d)
+
+
 def fused_blocked_frame_plain(
     blk: Blocking, pos, vel, vel_g, mass, centers, radii, *, dt, damping,
     g_dir, mu, s_lambda, preconditioned, sim_count, max_iter=500, tol=1e-5,
@@ -95,10 +106,12 @@ def fused_blocked_frame_plain(
 def _library():
     lib = cuda_build.load("blocked_frame")
     if lib.fem_blocked_frame.argtypes is None:
-        lib.fem_blocked_frame_scratch_floats.argtypes = [_I, _I, _I, _I]
+        lib.fem_blocked_frame_scratch_floats.argtypes = [_I, _I, _I, _I, _I]
         lib.fem_blocked_frame_scratch_floats.restype = ctypes.c_longlong
         out = ctypes.POINTER(_I)
-        lib.fem_blocked_frame_plan.argtypes = [_I, _I, _I, _I, out, out, out]
+        lib.fem_blocked_frame_plan.argtypes = [
+            _I, _I, _I, _I, _I, out, out, out,
+        ]
         lib.fem_blocked_frame_plan.restype = _I
         lib.fem_blocked_frame.argtypes = [
             ctypes.POINTER(FrameArgsC), _I, _I, _P,
@@ -110,12 +123,12 @@ def _library():
 
 
 def _plan(lib, plan_fn, error_fn, what, device_index, num_blocks, eb, pb,
-          grid):
+          grid, dim):
     g, smem, most = _I(0), _I(0), _I(0)
     with torch.cuda.device(device_index):
         rc = plan_fn(
-            num_blocks, eb, pb, grid, ctypes.byref(g), ctypes.byref(smem),
-            ctypes.byref(most),
+            num_blocks, eb, pb, grid, dim, ctypes.byref(g),
+            ctypes.byref(smem), ctypes.byref(most),
         )
     if rc != 0:
         msg = error_fn(rc).decode()
@@ -128,13 +141,15 @@ def _plan(lib, plan_fn, error_fn, what, device_index, num_blocks, eb, pb,
 
 @functools.lru_cache(maxsize=16)
 def frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-               grid: int):
-    """(grid, dynamic shared bytes) of K5's cooperative launch: ``grid``
-    CTAs, or with 0 one per locality block and at most one per SM.  Raises
-    when the grid cannot be co-resident or its K blocks do not fit."""
+               grid: int, dim: int):
+    """(grid, dynamic shared bytes) of K5's cooperative launch in dimension
+    ``dim``: ``grid`` CTAs, or with 0 one per locality block and at most one
+    per SM.  Raises when the grid cannot be co-resident or its K blocks do
+    not fit."""
     lib = _library()
     return _plan(lib, lib.fem_blocked_frame_plan, lib.fem_blocked_frame_error,
-                 "whole-frame kernel", device_index, num_blocks, eb, pb, grid)
+                 "whole-frame kernel", device_index, num_blocks, eb, pb, grid,
+                 dim)
 
 
 def fused_blocked_frame(
@@ -161,12 +176,11 @@ def fused_blocked_frame(
     (pos', vel', vel_g' (N, d), iterations (S,) int32, ‖r‖² (S,) f32) — the
     contract of the JAX package's ``fused_blocked_frame``.
 
-    CUDA tensors: one cooperative launch of the whole-frame kernel (3D
-    Neo-Hookean, non-robust), with no host synchronisation; ``grid`` sets
-    its CTAs (0: one per locality block, at most one per SM; the tests set
-    it to walk blocks grid-stride and to ask for a grid that cannot be
-    co-resident).  CPU tensors:
-    :func:`fused_blocked_frame_plain`."""
+    CUDA tensors: one cooperative launch of the whole-frame kernel
+    (Neo-Hookean, non-robust, 2D or 3D), with no host synchronisation;
+    ``grid`` sets its CTAs (0: one per locality block, at most one per SM;
+    the tests set it to walk blocks grid-stride and to ask for a grid that
+    cannot be co-resident).  CPU tensors: :func:`fused_blocked_frame_plain`."""
     if pos.device.type == "cpu":
         return fused_blocked_frame_plain(
             blk, pos, vel, vel_g, mass, centers, radii, dt=dt,
@@ -178,28 +192,28 @@ def fused_blocked_frame(
         raise ValueError(f"unsupported device {pos.device}")
     tables = block_tables(blk)
     dev = pos.device
-    n = pos.shape[0]
+    n, d = pos.shape[0], tables.dim
     o = radii.shape[0]
     plan = blk.slot_plan
     f32 = torch.float32
     for name, t, shape in (
-        ("pos", pos, (n, 3)), ("vel", vel, (n, 3)), ("vel_g", vel_g, (n, 3)),
-        ("mass", mass, (n,)), ("centers", centers, (o, 3)),
+        ("pos", pos, (n, d)), ("vel", vel, (n, d)), ("vel_g", vel_g, (n, d)),
+        ("mass", mass, (n,)), ("centers", centers, (o, d)),
         ("radii", radii, (o,)),
     ):
         cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
     check_slot_plan(blk, n, dev)
     g, smem = frame_plan(dev.index or 0, blk.num_blocks, blk.eb, blk.pb,
-                         int(grid))
+                         int(grid), d)
     lib = _library()
     scratch = torch.empty(
-        lib.fem_blocked_frame_scratch_floats(n, blk.num_blocks, blk.pb, g),
+        lib.fem_blocked_frame_scratch_floats(n, blk.num_blocks, blk.pb, g, d),
         dtype=f32, device=dev,
     )
-    out = [torch.empty((n, 3), dtype=f32, device=dev) for _ in range(3)]
+    out = [torch.empty((n, d), dtype=f32, device=dev) for _ in range(3)]
     iters = torch.empty((sim_count,), dtype=torch.int32, device=dev)
     res = torch.empty((sim_count,), dtype=f32, device=dev)
-    grav = gravity_vector(tuple(g_dir), torch.device("cpu")).tolist()
+    grav = _gravity3(g_dir, d)
     args = FrameArgsC(
         tables, plan.ptr.data_ptr(), plan.rows.data_ptr(), pos.data_ptr(),
         vel.data_ptr(), vel_g.data_ptr(), mass.data_ptr(), centers.data_ptr(),
@@ -262,7 +276,9 @@ def _explicit_library():
     lib = cuda_build.load("explicit_frame")
     if lib.fem_explicit_frame.argtypes is None:
         out = ctypes.POINTER(_I)
-        lib.fem_explicit_frame_plan.argtypes = [_I, _I, _I, _I, out, out, out]
+        lib.fem_explicit_frame_plan.argtypes = [
+            _I, _I, _I, _I, _I, out, out, out,
+        ]
         lib.fem_explicit_frame_plan.restype = _I
         lib.fem_explicit_frame.argtypes = [
             ctypes.POINTER(ExplicitFrameArgsC), _I, _I, _P,
@@ -275,13 +291,13 @@ def _explicit_library():
 
 @functools.lru_cache(maxsize=16)
 def explicit_frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-                        grid: int):
+                        grid: int, dim: int):
     """(grid, dynamic shared bytes) of K8's cooperative launch, as
     :func:`frame_plan`."""
     lib = _explicit_library()
     return _plan(lib, lib.fem_explicit_frame_plan,
                  lib.fem_explicit_frame_error, "explicit whole-frame kernel",
-                 device_index, num_blocks, eb, pb, grid)
+                 device_index, num_blocks, eb, pb, grid, dim)
 
 
 def fused_explicit_frame(
@@ -305,7 +321,7 @@ def fused_explicit_frame(
     ``fused_explicit_frame``, elastic Neo-Hookean.
 
     CUDA tensors: one cooperative launch of the explicit whole-frame kernel
-    (3D Neo-Hookean), with no host synchronisation; ``grid`` as in
+    (Neo-Hookean, 2D or 3D), with no host synchronisation; ``grid`` as in
     :func:`fused_blocked_frame`.  CPU tensors:
     :func:`fused_explicit_frame_plain`."""
     if pos.device.type == "cpu":
@@ -319,22 +335,22 @@ def fused_explicit_frame(
         raise ValueError(f"sim_count must be at least 1 (got {sim_count})")
     tables = block_tables(blk)
     dev = pos.device
-    n = pos.shape[0]
+    n, d = pos.shape[0], tables.dim
     o = radii.shape[0]
     plan = blk.slot_plan
     f32 = torch.float32
     for name, t, shape in (
-        ("pos", pos, (n, 3)), ("vel", vel, (n, 3)), ("mass", mass, (n,)),
-        ("centers", centers, (o, 3)), ("radii", radii, (o,)),
+        ("pos", pos, (n, d)), ("vel", vel, (n, d)), ("mass", mass, (n,)),
+        ("centers", centers, (o, d)), ("radii", radii, (o,)),
     ):
         cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
     check_slot_plan(blk, n, dev)
     g, smem = explicit_frame_plan(dev.index or 0, blk.num_blocks, blk.eb,
-                                  blk.pb, int(grid))
+                                  blk.pb, int(grid), d)
     lib = _explicit_library()
-    partials = torch.empty((blk.num_blocks * blk.pb, 3), dtype=f32, device=dev)
-    out = [torch.empty((n, 3), dtype=f32, device=dev) for _ in range(2)]
-    grav = gravity_vector(tuple(g_dir), torch.device("cpu")).tolist()
+    partials = torch.empty((blk.num_blocks * blk.pb, d), dtype=f32, device=dev)
+    out = [torch.empty((n, d), dtype=f32, device=dev) for _ in range(2)]
+    grav = _gravity3(g_dir, d)
     args = ExplicitFrameArgsC(
         tables, plan.ptr.data_ptr(), plan.rows.data_ptr(), pos.data_ptr(),
         vel.data_ptr(), mass.data_ptr(), centers.data_ptr(),

@@ -172,10 +172,10 @@ def _circles_only(cfg: SimConfig) -> bool:
 def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
     """Eligibility for the whole-frame kernel K5: the JAX package's config
     conditions (sim.py:275-308), with its VMEM gate replaced by what the
-    port's kernel covers — 3D, Neo-Hookean, not ``robust_inversion``, and
-    no inelastic statics (the port's objects carry none)."""
+    port's kernel covers — 2D or 3D, Neo-Hookean, not ``robust_inversion``,
+    and no inelastic statics (the port's objects carry none)."""
     return (
-        obj.dim == 3
+        obj.dim in (2, 3)
         and not cfg.adaptive_dt
         and _circles_only(cfg)
         and cfg.integrator == "semi_implicit"
@@ -217,10 +217,10 @@ def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
 def supports_explicit_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
     """Eligibility for the explicit whole-frame kernel K8: the JAX package's
     config conditions (sim.py:311-332), with its VMEM gate replaced by what
-    the port's kernel covers — 3D, Neo-Hookean, and no inelastic statics
-    (the port's objects carry none)."""
+    the port's kernel covers — 2D or 3D, Neo-Hookean, and no inelastic
+    statics (the port's objects carry none)."""
     return (
-        obj.dim == 3
+        obj.dim in (2, 3)
         and not cfg.adaptive_dt
         and _circles_only(cfg)
         and _explicit(cfg)

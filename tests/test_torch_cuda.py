@@ -16,7 +16,15 @@ counts are compared only where a solve takes a few tens of iterations at
 most: over ~140 iterations f32 round-off moves the count by more than one
 between two summation orders, so there the velocity is held to the f64
 solution instead (the same check on the plain version runs on the CPU in
-tests/test_torch_cg_kernels.py)."""
+tests/test_torch_cg_kernels.py).
+
+The 2D (triangle) instances take the same tolerances at the default
+scene's size (``configs/default.json``'s square, one locality block).  On
+the 40-subdivision grid (16 blocks) K1's and K6's near-rest triangles cancel
+in f32 at ~1e-5 block-relative in either evaluation, so there the kernels
+are held to the plain version in f64 at 1e-4, and K4's and K5's solves are
+long (20-100 iterations): velocities against f64, positions to 1e-5,
+residuals under the tolerance, counts left out."""
 
 import dataclasses
 
@@ -539,3 +547,287 @@ def test_explicit_substep_launch_counts(body, case):
     if case == "unblocked":
         g = explicit.analytic_energy_gradient(obj, state.pos)
         assert torch.isfinite(g).all()
+
+
+# -- 2D: every kernel's triangle instance ---------------------------------
+
+def _body_2d(sub, seed=1):
+    """The 2D square of configs/default.json's material with ``sub``
+    subdivisions, resting just across the floor, its positions moved by a
+    tenth of an element's size and its velocities random (numpy seed)."""
+    cfg = ObjectConfig(subdivisions=sub, side_length=0.2, center=(0.4, -0.005),
+                       E=4e4, nu=0.2, rho=500.0, damping=14.5)
+    v, f, t = pmesh.construct_2d_mesh(cfg)
+    obj, state = build_object(cfg, v, f, t, device="cuda")
+    rng = np.random.default_rng(seed)
+    h = 0.2 / sub
+    shape = tuple(state.pos.shape)
+    pos = state.pos + torch.as_tensor(
+        rng.uniform(-0.1 * h, 0.1 * h, shape).astype(np.float32),
+        device="cuda")
+    vel = torch.as_tensor(rng.uniform(-0.3, 0.3, shape).astype(np.float32),
+                          device="cuda")
+    vel[:, 1] -= 0.5
+    return obj, state.replace(pos=pos, vel=vel)
+
+
+def _obstacles_2d(device):
+    """A circle over the body's top edge, the default scene's left circle
+    and a radius-0 circle (never hits)."""
+    blocks = (BlockConfig(block_center=(0.5, 0.2), block_radius=0.08),
+              BlockConfig(block_center=(0.2, 0.5), block_radius=0.21),
+              BlockConfig(block_center=(0.45, 0.1), block_radius=0.0))
+    return Obstacles.from_configs(blocks, 2, device=device)
+
+
+@pytest.fixture(scope="module")
+def body_2d():
+    """10 subdivisions, the default scene's size: one locality block."""
+    _require_cuda()
+    obj, state = _body_2d(10)
+    assert obj.blocking.num_blocks == 1
+    return obj, state
+
+
+@pytest.fixture(scope="module")
+def grid_2d():
+    """40 subdivisions: 1,681 particles, 3,200 triangles, 16 blocks."""
+    _require_cuda()
+    obj, state = _body_2d(40)
+    assert (obj.particle_cnt, obj.element_cnt) == (1681, 3200)
+    assert obj.blocking.num_blocks == 16
+    return obj, state
+
+
+def _block_rel_err(got, ref):
+    scale = ref.abs().reshape(ref.shape[0], -1).amax(1).clamp(min=1e-30)
+    return float(((got - ref).abs() / scale[:, None, None]).max())
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("size", ["default size", "40 subdivisions"])
+@pytest.mark.parametrize("kernel", ["hessian_and_force",
+                                    "explicit_grad_columns"])
+def test_element_kernels_2d_match_plain_and_repeat(body_2d, grid_2d, kernel,
+                                                   size):
+    """K1 and K6 on triangles, bit-identical twice.  At the default scene's
+    size within 1e-5 (block-relative) of the plain version.  The 40-
+    subdivision grid's near-rest triangles cancel F against F⁻ᵀ and log det
+    F against 0, so there both f32 evaluations stray ~1e-5 from the exact
+    chain: each is held to the plain version in f64, at 1e-4."""
+    obj, state = body_2d if size == "default size" else grid_2d
+    args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
+            obj.mu, obj.s_lambda)
+    fn = getattr(element_kernels, kernel)
+    plain = getattr(element_kernels, kernel + "_plain")
+    before = fn.launches
+    got = _as_tuple(fn(*args))
+    assert fn.launches == before + 1
+    if size == "default size":
+        ref, tol = _as_tuple(plain(*args)), TOL
+    else:
+        f64 = [t.double() for t in args[:4] if t.is_floating_point()]
+        ref = _as_tuple(plain(f64[0], obj.element_indices, f64[1], f64[2],
+                              obj.mu, obj.s_lambda))
+        tol = 1e-4
+    again = _as_tuple(fn(*args))
+    for g, r, a in zip(got, ref, again):
+        assert g.shape == (obj.element_cnt, 2, 2)
+        assert torch.isfinite(g).all()
+        assert _block_rel_err(g.double(), r.double()) <= tol
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("size", ["default size", "40 subdivisions"])
+@pytest.mark.parametrize("preconditioned", [False, True])
+def test_fused_cg_kernel_2d_matches_plain_and_repeats(body_2d, grid_2d,
+                                                      preconditioned, size):
+    """K4 on triangles, bit-identical twice.  At the default scene's size
+    (short solves) iterations within 1 of the plain version and velocity
+    rtol 5e-4 / atol 1e-6.  The 40-subdivision grid takes ~20-100
+    iterations, where two f32 orders part by more than one: its velocity
+    is held to the plain solve in f64 (1e-4 of the largest entry), as the
+    3D long-solve test does."""
+    obj, state = body_2d if size == "default size" else grid_2d
+    k, h = element_kernels.hessian_and_force(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda,
+    )
+    args = (k, h, obj.element_indices, obj.plan, state.vel, obj.mass, 5e-4,
+            preconditioned)
+    before = cg_kernels.fused_cg_solve.launches
+    v, it, res = cg_kernels.fused_cg_solve(*args)
+    assert cg_kernels.fused_cg_solve.launches == before + 1
+    assert int(it) > 1 and float(res) <= TOL
+    if size == "default size":
+        vp, itp, _ = cg_kernels.fused_cg_solve_plain(*args)
+        assert int(itp) <= 20
+        assert abs(int(it) - int(itp)) <= 1
+        torch.testing.assert_close(v, vp, rtol=5e-4, atol=1e-6)
+    else:
+        f64 = [t.double() for t in (k, h, state.vel, obj.mass)]
+        ref, ref_it, _ = cg_kernels.fused_cg_solve_plain(
+            f64[0], f64[1], obj.element_indices, obj.plan, f64[2], f64[3],
+            5e-4, preconditioned)
+        assert int(ref_it) < 500
+        err = float((v.double() - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), err
+    v2, it2, res2 = cg_kernels.fused_cg_solve(*args)
+    assert torch.equal(v, v2) and torch.equal(it, it2) and torch.equal(res, res2)
+
+
+def test_blocked_kernels_2d_match_plain_and_repeat(grid_2d):
+    """K2, K3 (both transposes), K7b and K7a over the 16 blocks."""
+    obj, state = grid_2d
+    blk = obj.blocking
+    args = (blk, state.pos, obj.mu, obj.s_lambda)
+    k, part = blocked_kernels.blocked_prep(*args)
+    kp, partp = blocked_kernels.blocked_prep_plain(*args)
+    assert k.shape == (blk.num_blocks * blk.eb, 2, 2)
+    assert _block_rel_err(k, kp) <= TOL
+    assert float((part - partp).abs().max()) <= TOL * float(partp.abs().max())
+    assert all(torch.equal(a, b) for a, b in
+               zip((k, part), blocked_kernels.blocked_prep(*args)))
+    for tr in (False, True):
+        y = blocked_kernels.blocked_graph_apply(blk, k, state.vel, tr)
+        yp = blocked_kernels.blocked_graph_apply_plain(blk, k, state.vel, tr)
+        assert float(yp.abs().max()) > 0
+        assert float((y - yp).abs().max()) <= TOL * float(yp.abs().max())
+        assert torch.equal(
+            y, blocked_kernels.blocked_graph_apply(blk, k, state.vel, tr))
+    g = blocked_kernels.blocked_grad_prep(*args)
+    gp = blocked_kernels.blocked_grad_prep_plain(*args)
+    assert torch.isfinite(g).all()
+    assert float((g - gp).abs().max()) <= TOL * float(gp.abs().max())
+    assert torch.equal(g, blocked_kernels.blocked_grad_prep(*args))
+    gen = torch.Generator().manual_seed(0)
+    cols = torch.randn((blk.num_blocks * blk.eb, 2, 2), generator=gen).cuda()
+    s = blocked_kernels.blocked_assemble(blk, cols)
+    sp = blocked_kernels.blocked_assemble_plain(blk, cols)
+    assert float((s - sp).abs().max()) <= TOL * float(sp.abs().max())
+    assert torch.equal(s, blocked_kernels.blocked_assemble(blk, cols))
+
+
+def _frame_kw_2d(obj, dt, preconditioned=None, sim_count=10):
+    kw = dict(dt=dt, damping=obj.damping, g_dir=(0.0, -1.0), mu=obj.mu,
+              s_lambda=obj.s_lambda, sim_count=sim_count)
+    if preconditioned is not None:
+        kw["preconditioned"] = preconditioned
+    return kw
+
+
+@pytest.mark.parametrize("case", ["one block", "16 blocks", "16 blocks, 3 CTAs"])
+@pytest.mark.parametrize("preconditioned", [False, True])
+def test_frame_kernel_2d_matches_plain_and_repeats(body_2d, grid_2d, case,
+                                                   preconditioned):
+    """K5 on triangles: one CTA for the one-block scene, 16 CTAs, and 3
+    CTAs walking the 16 blocks grid-stride; positions within 1e-5 of the
+    plain frame.  Iterations within 1 on the one-block scene, whose solves
+    are short; the 40-subdivision grid's take ~20-100 iterations, where
+    only the residual is held (module docstring)."""
+    obj, state = body_2d if case == "one block" else grid_2d
+    grid = 3 if "3 CTAs" in case else 0
+    obs = _obstacles_2d("cuda")
+    args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+            obs.centers, obs.radii)
+    kw = _frame_kw_2d(obj, 5e-4, preconditioned)
+    before = frame_kernels.fused_blocked_frame.launches
+    out = frame_kernels.fused_blocked_frame(*args, grid=grid, **kw)
+    assert frame_kernels.fused_blocked_frame.launches == before + 1
+    ref = frame_kernels.fused_blocked_frame_plain(*args, **kw)
+    it, ref_it = out[3].cpu().numpy(), ref[3].cpu().numpy()
+    assert it.max() > 1 and it.max() < 500 and float(out[4].max()) <= TOL
+    if case == "one block":
+        assert ref_it.max() <= 20, ref_it
+        assert np.all(np.abs(it - ref_it) <= 1), (it, ref_it)
+    assert out[0].shape == state.pos.shape
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    again = frame_kernels.fused_blocked_frame(*args, grid=grid, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("case", ["one block", "16 blocks", "16 blocks, 3 CTAs"])
+def test_explicit_frame_kernel_2d_matches_plain_and_repeats(body_2d, grid_2d,
+                                                            case):
+    """K8 on triangles, as the K5 test; dt 1e-4 on the 40-subdivision grid
+    (its explicit stability limit), 5e-4 on the default scene's size."""
+    obj, state = body_2d if case == "one block" else grid_2d
+    grid = 3 if "3 CTAs" in case else 0
+    dt = 5e-4 if case == "one block" else 1e-4
+    obs = _obstacles_2d("cuda")
+    args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
+            obs.radii)
+    before = frame_kernels.fused_explicit_frame.launches
+    out = frame_kernels.fused_explicit_frame(*args, grid=grid,
+                                             **_frame_kw_2d(obj, dt))
+    assert frame_kernels.fused_explicit_frame.launches == before + 1
+    ref = frame_kernels.fused_explicit_frame_plain(*args,
+                                                   **_frame_kw_2d(obj, dt))
+    assert torch.isfinite(out[0]).all()
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    assert float((out[0] - state.pos).abs().max()) > 1e-4
+    again = frame_kernels.fused_explicit_frame(*args, grid=grid,
+                                               **_frame_kw_2d(obj, dt))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("mode", ["explicit", "autodiff", "implicit"])
+def test_2d_frame_on_cuda_matches_cpu_frame(body_2d, mode):
+    """make_frame_fn on a 2D CUDA object runs K8 (explicit, autodiff) or K5
+    (implicit CG) once a frame and no other kernel; the frame equals the
+    CPU frame of the same kernel's plain version."""
+    obj, state = body_2d
+    over = dict(dim=2, g_dir=[0, -1])
+    if mode == "implicit":
+        key = frame_kernels.fused_blocked_frame
+    else:
+        over.update(use_explicit_method=True, auto_diff=mode == "autodiff")
+        key = frame_kernels.fused_explicit_frame
+    cfg = _frame_cfg(**over)
+    counters = (element_kernels.hessian_and_force,
+                element_kernels.explicit_grad_columns,
+                cg_kernels.fused_cg_solve, blocked_kernels.blocked_prep,
+                blocked_kernels.blocked_grad_prep,
+                blocked_kernels.blocked_assemble,
+                blocked_kernels.blocked_graph_apply,
+                frame_kernels.fused_blocked_frame,
+                frame_kernels.fused_explicit_frame)
+    before = {c: c.launches for c in counters}
+    s, _ = sim.make_frame_fn(obj, cfg)(state, _obstacles_2d("cuda"))
+    for c in counters:
+        assert c.launches - before[c] == (1 if c is key else 0), c
+    cpu_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
+    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state), "cpu")
+    backend = "blocked" if mode == "implicit" else "blocked_explicit"
+    ref, _ = sim.make_frame_fn(
+        cpu_obj, dataclasses.replace(cfg, frame_backend=backend))(
+            cpu_state, _obstacles_2d("cpu"))
+    np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(), atol=TOL)
+
+
+def test_two_bodies_scene_runs_two_explicit_frames():
+    """configs/demo_two_bodies.json through scene.load_scene: one
+    make_frame_fn per body, K8 once per body a frame, each equal to its
+    CPU frame."""
+    import os
+
+    from fem_tpu_torch import scene
+    from fem_tpu_torch.utils.config import read_config
+
+    _require_cuda()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = read_config(os.path.join(repo, "configs", "demo_two_bodies.json"))
+    bodies, obs = scene.load_scene(cfg, device="cuda")
+    cpu_bodies, cpu_obs = scene.load_scene(cfg, device="cpu")
+    assert len(bodies) == 2
+    before = frame_kernels.fused_explicit_frame.launches
+    for body, cpu_body in zip(bodies, cpu_bodies):
+        s, _ = sim.make_frame_fn(body.obj, cfg)(body.state, obs)
+        ref, _ = sim.make_frame_fn(cpu_body.obj, dataclasses.replace(
+            cfg, frame_backend="blocked_explicit"))(cpu_body.state, cpu_obs)
+        np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(),
+                                   atol=TOL)
+    assert frame_kernels.fused_explicit_frame.launches == before + 2

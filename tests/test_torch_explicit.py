@@ -228,15 +228,17 @@ def test_explicit_substeps_match_jax(scene, mode, blocked):
 
 @pytest.mark.parametrize("auto_diff", [False, True])
 def test_explicit_2d_frame_matches_jax(auto_diff):
-    """2D runs through the plain versions on the CPU: one op-composed frame
-    of 10 substeps with floor contact and two circles."""
+    """2D on the CPU ("auto" on a CPU object): one op-composed frame of 10
+    substeps with floor contact and two circles, through the plain
+    versions.  The config is eligible for K8, which "auto" runs on a CUDA
+    object (tests/test_torch_2d.py holds K8's plain 2D frame)."""
     pcfg, jcfg, obj, state, obs, jobj, jstate, jobs = _bodies(2, seed=4)
     over = dict(use_explicit_method=True, auto_diff=auto_diff,
                 element_backend="auto", operator_mode="auto")
     pcfg = dataclasses.replace(pcfg, **over)
     jcfg = dataclasses.replace(jcfg, **over)
     assert obj.blocking is not None
-    assert not sim.supports_explicit_blocked_frame(obj, pcfg)
+    assert sim.supports_explicit_blocked_frame(obj, pcfg)
     state, aux = sim.make_frame_fn(obj, pcfg)(state, obs)
     jstate, _ = jsim.make_frame_fn(jobj, jcfg)(jstate, jobs)
     np.testing.assert_allclose(state.pos.numpy(), np.asarray(jstate.pos),

@@ -142,12 +142,20 @@ def test_explicit_frame_rejects_ineligible_configs(over):
 
 
 def test_explicit_frame_is_3d_only():
-    pcfg, _, obj, _, _, _, _, _ = _bodies(2, seed=0)
+    """Named when K8 took 3D only.  It now takes 2D too, as the JAX
+    package's does (its sim.py:316): a 2D explicit config is eligible, and
+    on the CPU "blocked_explicit" runs K8's plain frame, which tracks the
+    op-composed frame (it multiplies by m⁻¹ where the substep divides)."""
+    pcfg, _, obj, state, obs, _, _, _ = _bodies(2, seed=0)
     cfg = dataclasses.replace(pcfg, use_explicit_method=True,
                               frame_backend="blocked_explicit")
-    assert not sim.supports_explicit_blocked_frame(obj, cfg)
-    with pytest.raises(ValueError):
-        sim.make_frame_fn(obj, cfg)
+    assert obj.dim == 2 and sim.supports_explicit_blocked_frame(obj, cfg)
+    a, _ = sim.make_frame_fn(obj, cfg)(state, obs)
+    b, _ = sim.make_frame_fn(
+        obj, dataclasses.replace(cfg, frame_backend="auto"))(state, obs)
+    np.testing.assert_allclose(a.pos.numpy(), b.pos.numpy(), rtol=0,
+                               atol=TOL)
+    assert float((a.pos - state.pos).abs().max()) > 1e-4
 
 
 @pytest.mark.parametrize("name", ["demo_3d.json", "demo_cube_autodiff.json"])

@@ -193,8 +193,17 @@ def test_cg_fast_math_has_no_counterpart():
 
 
 def test_blocked_frame_is_3d_only():
-    pcfg, _, obj, _, _, _, _, _ = _bodies(2, seed=0)
+    """Named when K5 took 3D only.  It now takes 2D too, as the JAX
+    package's does (its sim.py:283): a 2D config is eligible, and on the
+    CPU "blocked" runs K5's plain frame, which is bit-identical to the
+    op-composed frame over the blocked operator."""
+    pcfg, _, obj, state, obs, _, _, _ = _bodies(2, seed=0)
     cfg = dataclasses.replace(pcfg, frame_backend="blocked")
-    assert not sim.supports_blocked_frame(obj, cfg)
-    with pytest.raises(ValueError):
-        sim.make_frame_fn(obj, cfg)
+    assert obj.dim == 2 and sim.supports_blocked_frame(obj, cfg)
+    a, aux_a = sim.make_frame_fn(obj, cfg)(state, obs)
+    op_cfg = dataclasses.replace(pcfg, operator_mode="blocked")
+    b, aux_b = sim.make_frame_fn(obj, op_cfg)(state, obs)
+    for name in ("pos", "vel", "vel_g"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert torch.equal(aux_a.solver_iterations, aux_b.solver_iterations)
+    assert int(aux_a.solver_iterations.max()) > 1
