@@ -80,14 +80,40 @@ kernel of those paths against its plain PyTorch version:
     3,200 triangles, 16 blocks): 10 frames explicit at dt 1e-4 (K8) and 10
     implicit at dt 5e-4 (K5) from the start state, first frames equal to
     the CPU's;
-21. where each frame's device time goes and the device's busy share, from
+21. inelastic materials, on ``configs/demo_plastic.json`` (two 2D bodies
+    of 121 particles: body 0 plastic, body 1 with a Maxwell branch) and on
+    the flagship with inelastic overrides: K7b edges, the layered chains
+    of K1, K6, K2 and K7b (dynamic R⁻¹·F_i⁻¹, the stable Neo-Hookean
+    branch) and the inelastic instances of K5 and K8 against their plain
+    versions (positions and both internal inverses within 1e-5), each
+    twice bit-identical, K5 and K8 also over 3 CTAs walking the 16 blocks
+    of the 40-subdivision grid;
+22. path M, ``demo_plastic.json`` as shipped through ``scene.load_scene``
+    and one ``make_frame_fn`` per body: 200 frames (one virtual second),
+    K8 twice a frame and no other kernel, the first frames equal to the
+    CPU's, body 0 yielded (max |F_p⁻¹ − I| > 1e-3) and body 1's F_v⁻¹
+    moved, the arc held to the goldens of tests/test_torch_inelastic.py;
+23. path N, its implicit variant (normal-equations CG) from a state
+    squashed into the floor: 10 frames, K5 twice a frame;
+24. path O, the flagship with ``plastic_yield = 0.01`` from the deformed
+    example state: 30 frames, K5 once a frame (17 blocks);
+25. path P, the explicit flagship with ``plastic_yield = 0.01,
+    viscous_mu = 2e4, viscous_tau = 0.01``: 30 frames, K8 once a frame;
+26. path Q, the op-composed layered substeps (``sim.substep``) with paths
+    C's, B's, E's, F's and G's settings on both bodies of path M (squashed)
+    and on path P's body (deformed): K1 + K4, K2 + K3, K7b, K7a, K6 per
+    layer, K7b edges once a substep (the blocked update), each first
+    substep equal to the CPU's to 1e-5;
+27. where each frame's device time goes and the device's busy share, from
     one profiled window per path (A, the op-composed K1 + K4 frame, D, H,
-    I, K and both of L); each kernel's device time per launch in 3D and in
-    2D (profiler; the run fails if it sees no launch of it), its plain
-    version's time (CUDA events), the least time the card could take
-    (bound) and, for K3 and K7a, one PyTorch sparse product (library
-    yardstick), printed as one ``kernels`` JSON line with a row per kernel
-    and dimension.
+    I, K, both of L, M, N, O and P, and path Q's explicit layered substep in
+    2D and 3D); each kernel's device time per launch
+    in 3D and in 2D (profiler; the run fails if it sees no launch of it),
+    its plain version's time (CUDA events), the least time the card could
+    take (bound) and, for K3, K7a and K7b edges, one PyTorch sparse product
+    (library yardstick), printed as one ``kernels`` JSON line with a row
+    per kernel and dimension, the inelastic instances of K5 and K8 rows of
+    their own.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -108,6 +134,8 @@ SUBSTEPS_C = 10  # path C, and path G's gradients
 SHIPPED_FRAMES = 3  # each shipped explicit config
 GOLDEN_FRAMES = 200  # each 2D golden arc: one virtual second
 FRAMES_L = 10  # path L, each mode
+FRAMES_N = 10  # path N, from the squashed state
+SUBSTEPS_Q = 10  # path Q, each setting
 
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
@@ -120,9 +148,23 @@ PEAK_F32_OPS_PER_S = 67e12
 # log, P, P·R⁻ᵀ, the +V scaling) and its contribution rows and local slot
 # sums; per particle, the explicit kinematic step and the implicit
 # advection (one circle).
+#
+# The inelastic extension, per element: a layer's R⁻¹·F_i⁻¹ (reff), the
+# stable Neo-Hookean gradient chain (snh_grad: F, cof, det, P, P·R⁻ᵀ) and
+# implicit chain (snh_chain: also cof:D, Dcof, DP, DP·R⁻ᵀ), the update's
+# shared part (update_guard: F, det, the guarded adjugate inverse) and its
+# part per internal state (update_state: F·F_i⁻¹, FᵀF, the Jacobi
+# eigensolve — 6 sweeps of 3 rotations in 3D, ~52 operations each; one
+# rotation in 2D — the logs, the return or relaxation, the exps, the
+# rescale and F⁻¹·F_new); K7b edges' edge differences (edges) and a
+# padded slot's rest edge matrix (rest_inv).
 OPS = {
-    3: dict(chain=430, apply=72, grad=200, rows=24, kinematic=40, advect=40),
-    2: dict(chain=136, apply=24, grad=60, rows=8, kinematic=27, advect=27),
+    3: dict(chain=430, apply=72, grad=200, rows=24, kinematic=40, advect=40,
+            reff=45, snh_grad=206, snh_chain=377, update_guard=109,
+            update_state=1220, edges=9, rest_inv=40),
+    2: dict(chain=136, apply=24, grad=60, rows=8, kinematic=27, advect=27,
+            reff=12, snh_grad=44, snh_chain=86, update_guard=24,
+            update_state=133, edges=4, rest_inv=8),
 }
 
 # tests/test_golden.py:19-57: the 2D golden trajectories (recorded by the
@@ -139,6 +181,18 @@ GOLDEN_2D = {
     "implicit_cg": dict(
         mean=0.55748934, std=0.09069931, p0=(0.4851717, 0.4765905),
         p24=(0.4952799, 0.6177244), p48=(0.5053155, 0.7599441)),
+}
+# tests/test_torch_inelastic.py: demo_plastic.json's 200-frame goldens, per
+# body (recorded by the JAX package on the CPU; mean and std within 5e-3,
+# particles 0, 60 and 120 within 1e-2, max |F_i⁻¹ − I| within 10 %).
+# Copied: that file imports the JAX package.
+GOLDEN_PLASTIC = {
+    0: dict(mean=0.26474188, std=0.19676138, p0=(0.30657175, 0.00289933),
+            p60=(0.44921011, 0.07068006), p120=(0.54656106, 0.17222811),
+            max_fi=0.57151222),
+    1: dict(mean=0.42356669, std=0.33236686, p0=(0.64952904, -0.00009840),
+            p60=(0.75001907, 0.09686103), p120=(0.84958166, 0.19520803),
+            max_fi=0.02481234),
 }
 OVERRIDES_2D = {
     "explicit_analytic": dict(auto_diff=False, use_explicit_method=True),
@@ -167,6 +221,12 @@ KERNELS = (
     ("blocked_grad_prep", "fem_tpu_torch/csrc/blocked.cu",
      "fem_tpu/ops/blocking.py:513"),
     ("explicit_frame", "fem_tpu_torch/csrc/explicit_frame.cu",
+     "fem_tpu/ops/pallas_blocked_frame.py:936"),
+    ("blocked_edges", "fem_tpu_torch/csrc/blocked.cu",
+     "fem_tpu/ops/blocking.py:513"),
+    ("blocked_frame_inelastic", "fem_tpu_torch/csrc/blocked_frame.cu",
+     "fem_tpu/ops/pallas_blocked_frame.py:547"),
+    ("explicit_frame_inelastic", "fem_tpu_torch/csrc/explicit_frame.cu",
      "fem_tpu/ops/pallas_blocked_frame.py:936"),
 )
 
@@ -927,6 +987,560 @@ def run_2d(torch, dev, zero_counts, counts, only):
                 l=(lobj, lbody.state, lobs), l_kw=lkw)
 
 
+def incidence_t(torch, blk, n):
+    """The transpose of :func:`incidence_matrix` ((d·B·Eb) × N, CSR): row
+    d·s + j of real slot s takes +1 at its vertex j+1 and −1 at its vertex
+    0, so its product with the positions is the slot's edge column j."""
+    import warnings
+
+    warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
+    d = blk.dim
+    slots = torch.nonzero(blk.volume > 0).reshape(-1)
+    idx = blk.element_indices[slots].long()
+    rows = (d * slots[:, None] + torch.arange(d, device=slots.device)).reshape(-1)
+    cols = torch.cat([idx[:, 1:].reshape(-1),
+                      idx[:, :1].expand(-1, d).reshape(-1)])
+    vals = torch.cat([torch.ones(rows.numel(), device=slots.device),
+                      -torch.ones(rows.numel(), device=slots.device)])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([rows, rows]), cols]), vals,
+        (d * blk.volume.numel(), n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def state_err(a, b):
+    """Max |a − b| over positions and the internal inverses (a on the card,
+    b on the CPU)."""
+    err = 0.0
+    for name in ("pos", "plastic_inv", "viscous_inv"):
+        x, y = getattr(a, name), getattr(b, name)
+        require((x is None) == (y is None), f"{name} present on one side")
+        if x is not None:
+            err = max(err, float((x.cpu() - y).abs().max()))
+    return err
+
+
+def fi_moved(state):
+    """max |F_i⁻¹ − I| of each internal inverse of ``state``."""
+    import torch
+
+    out = {}
+    for name in ("plastic_inv", "viscous_inv"):
+        fi = getattr(state, name)
+        if fi is not None:
+            eye = torch.eye(fi.shape[-1], device=fi.device)
+            out[name] = float((fi - eye).abs().max())
+    return out
+
+
+def squashed_plastic(torch, state, seed):
+    """A body of demo_plastic.json pressed into the floor: 0.7 down,
+    squashed 30 % in y and stretched 20 % in x about its centroid, with
+    seeded velocities — its first frames yield."""
+    dev = state.pos.device
+    c = state.pos.mean(dim=0, keepdim=True)
+    pos = (c + (state.pos - c) * torch.tensor([[1.2, 0.7]], device=dev)
+           - torch.tensor([[0.0, 0.7]], device=dev))
+    gen = torch.Generator().manual_seed(seed)
+    vel = (0.6 * torch.rand(state.vel.shape, generator=gen) - 0.3).to(dev)
+    return state.replace(pos=pos, vel=vel)
+
+
+def inelastic_kwargs(obj, state):
+    return dict(plastic_inv=state.plastic_inv, plastic_yield=obj.plastic_yield,
+                viscous_inv=state.viscous_inv, viscous_mu=obj.viscous_mu,
+                viscous_tau=obj.viscous_tau)
+
+
+def golden_plastic_check(torch, body, state):
+    """Hold a 200-frame arc of demo_plastic.json's ``body`` to its goldens
+    (tests/test_torch_inelastic.py's tolerances)."""
+    p = state.pos.cpu().double()
+    fi = (state.plastic_inv if body == 0 else state.viscous_inv).cpu().double()
+    g = GOLDEN_PLASTIC[body]
+    mean, std = float(p.mean()), float(p.std(correction=0))
+    worst = max(float((p[i] - torch.tensor(g[k], dtype=torch.float64))
+                      .abs().max())
+                for k, i in (("p0", 0), ("p60", 60), ("p120", 120)))
+    max_fi = float((fi - torch.eye(2, dtype=torch.float64)).abs().max())
+    log(f"[golden demo_plastic body {body}] mean {mean:.7f} (golden "
+        f"{g['mean']}), std {std:.7f} (golden {g['std']}), particles "
+        f"0/60/120 within {worst:.3e}, max |F_i^-1 - I| {max_fi:.5f} "
+        f"(golden {g['max_fi']})")
+    require(bool(torch.isfinite(p).all()), f"golden body {body} non-finite")
+    require(abs(mean - g["mean"]) < 5e-3 and abs(std - g["std"]) < 5e-3,
+            f"golden body {body} mean/std")
+    require(worst <= 1e-2, f"golden body {body} particles off by {worst}")
+    require(abs(max_fi - g["max_fi"]) <= 0.1 * g["max_fi"],
+            f"golden body {body} max |F_i^-1 - I| {max_fi}")
+
+
+def run_inelastic(torch, dev, zero_counts, counts, only):
+    """Sections 21-26: the inelastic kernels and paths M-Q.  Returns the
+    launch counts and errors of the kernels line's new rows by dimension,
+    the profiled windows and the inputs their timing reuses."""
+    from fem_tpu_torch import convert, entry, scene, sim
+    from fem_tpu_torch.ops import (
+        blocked_kernels as bk,
+        element_kernels as ek,
+        frame_kernels as fk,
+        inelastic,
+    )
+    from fem_tpu_torch.solvers import explicit
+    from fem_tpu_torch.utils.config import read_config
+
+    def cpu_state(s):
+        return convert.state_from_arrays(convert.state_to_arrays(s), "cpu")
+
+    def cpu_obj(o):
+        return convert.object_from_arrays(*convert.object_to_arrays(o), "cpu")
+
+    def twice(fn, args, kwargs):
+        a, b = fn(*args, **kwargs), fn(*args, **kwargs)
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"{fn.__name__} runs differ")
+        return a
+
+    pcfg = read_config(os.path.join(REPO, "configs", "demo_plastic.json"))
+    bodies, pobs = scene.load_scene(pcfg, device=dev)
+    cbodies, cpobs = scene.load_scene(pcfg, device="cpu")
+    require(len(bodies) == 2 and all(
+        (b.obj.particle_cnt, b.obj.element_cnt, b.obj.blocking.num_blocks)
+        == (121, 200, 1) for b in bodies), "demo_plastic.json's bodies")
+    require(bodies[0].obj.plastic_yield == 0.04 and
+            bodies[1].obj.viscous_mu == 3e4, "demo_plastic.json's materials")
+    ncfg = dataclasses.replace(pcfg, **OVERRIDES_2D["implicit_cg"])
+    squashed = [squashed_plastic(torch, b.state, i)
+                for i, b in enumerate(bodies)]
+    ocfg, oobj, ostate0, oobs = entry.flagship(dev, plastic_yield=0.01)
+    ostate = entry.deformed(ostate0)
+    ecfg, eobj, estate, eobs = entry.explicit_flagship(
+        dev, plastic_yield=0.01, viscous_mu=2e4, viscous_tau=0.01)
+    edeformed = entry.deformed(estate)
+    require(oobj.blocking.num_blocks == eobj.blocking.num_blocks == 17,
+            "the inelastic flagship's blocks")
+    errors = {2: {}, 3: {}}
+    launches = {2: {}, 3: {}}
+
+    # -- 21. the inelastic kernels against their plain versions ------------
+    def frame_kw(obj, cfg, implicit):
+        kw = dict(dt=cfg.delta_time, damping=obj.damping,
+                  g_dir=tuple(cfg.g_dir), mu=obj.mu, s_lambda=obj.s_lambda,
+                  sim_count=cfg.sim_count)
+        if implicit:
+            kw["preconditioned"] = True
+        return kw
+
+    def check_frame(label, implicit, obj, state, obs, kw, grid=0):
+        d = obj.dim
+        if implicit:
+            args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+                    obs.centers, obs.radii)
+            fn, plain = fk.fused_blocked_frame, fk.fused_blocked_frame_plain
+        else:
+            args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
+                    obs.radii)
+            fn, plain = fk.fused_explicit_frame, fk.fused_explicit_frame_plain
+        ikw = inelastic_kwargs(obj, state)
+        out = twice(fn, args, dict(kw, grid=grid, **ikw))
+        ref = plain(*args, **kw, **ikw)
+        err = float((out[0] - ref[0]).abs().max())
+        serr = max(float((a - b).abs().max())
+                   for a, b in zip(out[-len(ikw_states(ikw)):],
+                                   ref[-len(ikw_states(ikw)):]))
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(out[-len(ikw_states(ikw)):], ikw_states(ikw)))
+        name = "blocked_frame_inelastic" if implicit else \
+            "explicit_frame_inelastic"
+        errors[d][name] = max(errors[d].get(name, 0.0), err, serr)
+        extra = ""
+        if implicit:
+            it, itp = out[3].tolist(), ref[3].tolist()
+            extra = f"; iterations {it} (plain {itp})"
+            if max(itp) <= 20:
+                require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                        f"{label} iterations differ")
+        log(f"[{d}D {'K5' if implicit else 'K8'} inelastic] {label} "
+            f"({obj.blocking.num_blocks} blocks, grid {grid or 'auto'}): max "
+            f"|dpos| {err:.3e}, max |dF_i^-1| {serr:.3e}, state moved "
+            f"{moved:.3e}{extra}")
+        require(bool(torch.isfinite(out[0]).all()), f"{label} non-finite")
+        require(err <= 1e-5 and serr <= 1e-5, f"{label} off the plain frame")
+        require(moved > 1e-5, f"{label}: the internal state never moved")
+
+    def ikw_states(ikw):
+        return [v for k, v in ikw.items() if k.endswith("_inv") and v is not None]
+
+    # The 40-subdivision grid (16 blocks; side 0.8, so that an element's
+    # edge, 0.02, is long beside the positions' rounding that its F⁻¹
+    # divides by) with both branches, stretched 10 % and with perturbed
+    # internal inverses: a wrong element order or a missing barrier shows.
+    gcfg = dataclasses.replace(pcfg, objects=(dataclasses.replace(
+        pcfg.objects[0], subdivisions=40, side_length=0.8,
+        center=(0.5, 0.45), viscous_mu=1e4, viscous_tau=0.03,
+        plastic_yield=0.02),))
+    (gbody,), gobs = scene.load_scene(gcfg, device=dev)
+    lin_obj = gbody.obj
+    require(lin_obj.blocking.num_blocks == 16, "the 40-subdivision grid")
+    gen = torch.Generator().manual_seed(3)
+    c = gbody.state.pos.mean(dim=0, keepdim=True)
+    lin_state = gbody.state.replace(
+        pos=c + (gbody.state.pos - c) * torch.tensor([[1.1, 0.9]], device=dev),
+        vel=(0.6 * torch.rand(gbody.state.vel.shape, generator=gen)
+             - 0.3).to(dev),
+        plastic_inv=(torch.eye(2) + 0.03 * torch.randn(
+            (lin_obj.element_cnt, 2, 2), generator=gen)).to(dev),
+        viscous_inv=(torch.eye(2) + 0.03 * torch.randn(
+            (lin_obj.element_cnt, 2, 2), generator=gen)).to(dev))
+    lobs = gobs
+    for implicit in (False, True):
+        for i, b in enumerate(bodies):
+            check_frame(f"demo_plastic body {i} squashed", implicit, b.obj,
+                        squashed[i], pobs, frame_kw(b.obj, pcfg, implicit))
+        lkw = frame_kw(lin_obj, pcfg, implicit)
+        lkw["dt"] = 2e-4
+        for grid in (0, 3):
+            check_frame("40 subdivisions, both branches", implicit, lin_obj,
+                        lin_state, lobs, lkw, grid)
+    check_frame("path O deformed", True, oobj, ostate, oobs,
+                frame_kw(oobj, ocfg, True))
+    check_frame("path P deformed", False, eobj, edeformed, eobs,
+                frame_kw(eobj, ecfg, False))
+
+    for d, obj, state in ((2, bodies[0].obj, squashed[0]),
+                          (3, oobj, ostate), (2, lin_obj, lin_state)):
+        (x,) = twice(bk.blocked_edges, (obj.blocking, state.pos), {})
+        xp = bk.blocked_edges_plain(obj.blocking, state.pos)
+        err, top = float((x - xp).abs().max()), float(xp.abs().max())
+        errors[d]["blocked_edges"] = max(errors[d].get("blocked_edges", 0.0),
+                                         err)
+        log(f"[{d}D K7b edges] {obj.blocking.num_blocks} blocks: max abs "
+            f"error {err:.3e} of max {top:.3e}")
+        require(err <= 1e-5 * top, f"{d}D K7b edges error {err} of {top}")
+
+    # The layered chains: each layer's dynamic R and material.
+    for d, obj, state in ((2, bodies[1].obj, squashed[1]),
+                          (3, eobj, edeformed)):
+        worst = 0.0
+        for fi, mu, lam, material in inelastic.material_layers(obj, state):
+            r = inelastic.layer_ref_inv_local(obj.ref_inv, fi)
+            rb = inelastic.layer_ref_inv_blocked(obj.blocking, fi)
+            args = (state.pos, obj.element_indices, r, obj.volume, mu, lam)
+            K, H = twice(ek.hessian_and_force, args, dict(material=material))
+            Kp, Hp = ek.hessian_and_force_plain(*args, material)
+            G = twice(ek.explicit_grad_columns, args + (material,), {})[0]
+            Gp = ek.explicit_grad_columns_plain(*args, material)
+            bargs = (obj.blocking, state.pos, mu, lam, rb, material)
+            Kb, part = twice(bk.blocked_prep, bargs, {})
+            Kbp, partp = bk.blocked_prep_plain(*bargs)
+            gpart = twice(bk.blocked_grad_prep, bargs, {})[0]
+            gpartp = bk.blocked_grad_prep_plain(*bargs)
+            rel = max(block_rel_err(K, Kp), block_rel_err(H, Hp),
+                      block_rel_err(G, Gp), block_rel_err(Kb, Kbp))
+            perr = max(
+                float((part - partp).abs().max()) / float(partp.abs().max()),
+                float((gpart - gpartp).abs().max())
+                / float(gpartp.abs().max()))
+            worst = max(worst, rel, perr)
+            log(f"[{d}D layer {material}, dynamic R] K1/K6/K2 block-relative "
+                f"error {rel:.3e}; K2/K7b partials relative error {perr:.3e}")
+            require(rel <= 1e-5 and perr <= 1e-5,
+                    f"{d}D layer {material} off its plain versions")
+    log("[inelastic kernels] two runs bit-identical in every case")
+
+    # -- 22. path M: demo_plastic.json as shipped ---------------------------
+    frames_m = [sim.make_frame_fn(b.obj, pcfg) for b in bodies]
+    worst = 0.0
+    for f, b, cb in zip(frames_m, bodies, cbodies):
+        warm, _ = f(b.state, pobs)
+        ref, _ = sim.make_frame_fn(cb.obj, dataclasses.replace(
+            pcfg, frame_backend="blocked_explicit"))(cb.state, cpobs)
+        worst = max(worst, state_err(warm, ref))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    states = [b.state for b in bodies]
+    lowest = []
+    for _ in range(GOLDEN_FRAMES):
+        states = [f(s, pobs)[0] for f, s in zip(frames_m, states)]
+        lowest.append(torch.stack([s.pos[:, 1].min() for s in states]))
+    lowest = torch.stack(lowest).cpu()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    moved = [fi_moved(s) for s in states]
+    log(f"[path M] demo_plastic.json: {GOLDEN_FRAMES} frames x "
+        f"{pcfg.sim_count} substeps of both bodies in {wall:.4f} s: "
+        f"{GOLDEN_FRAMES * pcfg.sim_count / wall:.1f} steps/s (a step "
+        f"advances both bodies); launches {got}; first frames vs the CPU: "
+        f"max |dstate| {worst:.3e}; lowest y of each body at frames "
+        f"0/130/180/199 {[lowest[i].tolist() for i in (0, 130, 180, 199) if i < len(lowest)]}; max "
+        f"|F_i^-1 - I| {moved}")
+    require(got == only(explicit_frame=2 * GOLDEN_FRAMES),
+            f"path M launches {got}")
+    require(worst <= 1e-5, f"path M off the CPU frames by {worst}")
+    require(moved[0]["plastic_inv"] > 1e-3, "path M: body 0 never yielded")
+    require(moved[1]["viscous_inv"] > 1e-4, "path M: body 1's F_v never moved")
+    for i, s in enumerate(states):
+        golden_plastic_check(torch, i, s)
+    launches[2]["explicit_frame_inelastic"] = got["explicit_frame"]
+
+    def frame_path(label, cfg, key, backend, pairs, frames):
+        """``frames`` frames of each (object, state, obstacles, CPU object,
+        CPU state, CPU obstacles) of ``pairs`` through make_frame_fn,
+        launching ``key`` once a frame per body and nothing else; the first
+        frames equal to the CPU's ``backend`` frames."""
+        fns = [sim.make_frame_fn(p[0], cfg) for p in pairs]
+        worst, its = 0.0, []
+        for f, (o, s, obs, co, cs, cobs) in zip(fns, pairs):
+            warm, waux = f(s, obs)
+            ref, raux = sim.make_frame_fn(co, dataclasses.replace(
+                cfg, frame_backend=backend))(cs, cobs)
+            worst = max(worst, state_err(warm, ref))
+            it, itp = waux.solver_iterations.tolist(), \
+                raux.solver_iterations.tolist()
+            its.append((it, itp))
+            if max(itp) <= 20:
+                require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                        f"path {label} iterations differ")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        states = [p[1] for p in pairs]
+        for _ in range(frames):
+            states = [f(s, p[2])[0] for f, s, p in zip(fns, states, pairs)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        log(f"[path {label}] {frames} frames x {cfg.sim_count} substeps (dt "
+            f"{cfg.delta_time}) of {len(pairs)} bodies in {wall:.4f} s: "
+            f"{frames * cfg.sim_count / wall:.1f} steps/s; launches {got}; "
+            f"first frames vs the CPU: max |dstate| {worst:.3e}, iterations "
+            f"(card, CPU) {its}; max |F_i^-1 - I| "
+            f"{[fi_moved(s) for s in states]}")
+        require(got == only(**{key: frames * len(pairs)}),
+                f"path {label} launches {got}")
+        require(all(bool(torch.isfinite(s.pos).all()) for s in states),
+                f"path {label} non-finite")
+        require(worst <= 1e-5, f"path {label} off the CPU frames by {worst}")
+        return got[key], fns, states
+
+    # -- 23. path N: the implicit variant, squashed into the floor ----------
+    pairs_n = [(b.obj, squashed[i], pobs, cb.obj, cpu_state(squashed[i]),
+                cpobs) for i, (b, cb) in enumerate(zip(bodies, cbodies))]
+    launches[2]["blocked_frame_inelastic"], frames_n, _ = frame_path(
+        "N (demo_plastic.json, implicit_cg, squashed)", ncfg, "blocked_frame",
+        "blocked", pairs_n, FRAMES_N)
+
+    # -- 24./25. paths O and P: the inelastic flagship ------------------------
+    co = cpu_obj(oobj)
+    ceo = cpu_obj(eobj)
+    cobs = type(oobs)(oobs.centers.cpu(), oobs.radii.cpu())
+    launches[3]["blocked_frame_inelastic"], frames_o, _ = frame_path(
+        "O (flagship, plastic_yield 0.01, K5)", ocfg, "blocked_frame",
+        "blocked", [(oobj, ostate, oobs, co, cpu_state(ostate), cobs)], FRAMES)
+    launches[3]["explicit_frame_inelastic"], frames_p, _ = frame_path(
+        "P (explicit flagship, plastic + Maxwell, K8)", ecfg,
+        "explicit_frame", "blocked_explicit",
+        [(eobj, estate, eobs, ceo, cpu_state(estate), cobs)], FRAMES)
+
+    # -- 26. path Q: the op-composed layered substeps ------------------------
+    icfg3 = dataclasses.replace(ecfg, use_explicit_method=False,
+                                delta_time=ocfg.delta_time)
+    scenes_q = [
+        (2, f"demo_plastic body {i}", b.obj, squashed[i], pobs, cb.obj,
+         cpobs, ncfg, pcfg)
+        for i, (b, cb) in enumerate(zip(bodies, cbodies))
+    ] + [(3, "path P body deformed", eobj, edeformed, eobs, ceo, cobs, icfg3,
+          ecfg)]
+    for d, label, obj, state, obs, cobj, cobs_, icfg, xcfg in scenes_q:
+        n_layers = len(inelastic.material_layers(obj, state))
+        edges_total = 0
+        cst = cpu_state(state)
+        for setting, c, unblocked in (
+            ("C (K1 + K4)", icfg, False),
+            ("B (K2 + K3: operator_mode=blocked)",
+             dataclasses.replace(icfg, operator_mode="blocked"), False),
+            ("E (K7b: element_backend=auto)", xcfg, False),
+            ("F (auto_diff)", dataclasses.replace(xcfg, auto_diff=True), False),
+            ("F (element_backend=xla)",
+             dataclasses.replace(xcfg, element_backend="xla"), False),
+            ("G (K6: no blocks)", xcfg, True),
+        ):
+            o = dataclasses.replace(obj, blocking=None) if unblocked else obj
+            co_ = dataclasses.replace(cobj, blocking=None) if unblocked \
+                else cobj
+            kw = sim.substep_kwargs(c)
+            zero_counts()
+            s, first, iters = state, None, []
+            for i in range(SUBSTEPS_Q):
+                s, aux = sim.substep(o, s, obs, **kw)
+                iters.append(aux.solver_iterations)
+                if i == 0:
+                    first = s
+            iters = [int(v) for v in torch.stack(iters).cpu()]
+            torch.cuda.synchronize()
+            got = counts()
+            n = SUBSTEPS_Q
+            edges = 0 if unblocked else n
+            if setting.startswith("C"):
+                want = only(element_chain=n_layers * n, fused_cg=n,
+                            blocked_edges=edges)
+            elif setting.startswith("B"):
+                want = only(blocked_prep=n_layers * n, blocked_edges=edges,
+                            blocked_matvec=sum(3 + 2 * it for it in iters))
+            elif "xla" in setting:
+                want = only(blocked_assemble=n, blocked_edges=edges)
+            elif unblocked:
+                want = only(grad_columns=n_layers * n)
+            else:
+                want = only(blocked_grad_prep=n_layers * n,
+                            blocked_edges=edges)
+            ref, _ = sim.substep(co_, cst, cobs_, **kw)
+            err = state_err(first, ref)
+            log(f"[path Q {d}D {label}: {setting}] {n} substeps, {n_layers} "
+                f"layers; launches {got}; CG iterations {iters}; first "
+                f"substep vs the CPU: max |dstate| {err:.3e}; max "
+                f"|F_i^-1 - I| {fi_moved(s)}")
+            require(got == want, f"path Q {label} {setting} launches {got}")
+            require(bool(torch.isfinite(s.pos).all()),
+                    f"path Q {label} {setting} non-finite")
+            require(err <= 1e-5, f"path Q {label} {setting} off the CPU by "
+                    f"{err}")
+            edges_total += got["blocked_edges"]
+        launches[d]["blocked_edges"] = launches[d].get("blocked_edges", 0) \
+            + edges_total
+
+    windows = [
+        ("path M (K8 2D inelastic, two bodies)", frames_m,
+         [b.state for b in bodies], pobs, FRAMES),
+        ("path N (K5 2D inelastic, two bodies)", frames_n, squashed, pobs,
+         FRAMES_N),
+        ("path O (K5 3D plastic)", frames_o, [ostate], oobs, FRAMES),
+        ("path P (K8 3D plastic + Maxwell)", frames_p, [estate], eobs, FRAMES),
+    ]
+    # Path Q's explicit layered substep (setting E), one substep a "frame":
+    # K7b per layer, the kinematic step, K7b edges and the plain update.
+    for label, obj, start, obs, cfg in (
+            ("2D demo_plastic body 1", bodies[1].obj, squashed[1], pobs, pcfg),
+            ("3D path P body", eobj, edeformed, eobs, ecfg)):
+        kw = sim.substep_kwargs(cfg)
+        windows.append((
+            f"path Q {label} (one explicit layered substep a frame)",
+            [lambda s, o, obj=obj, kw=kw: sim.substep(obj, s, o, **kw)],
+            [start], obs, SUBSTEPS_Q))
+    timing = {
+        2: dict(edges=(bodies[0].obj, squashed[0]),
+                k5=(bodies[0].obj, squashed[0], pobs, frame_kw(
+                    bodies[0].obj, ncfg, True)),
+                k8=(bodies[0].obj, bodies[0].state, pobs, frame_kw(
+                    bodies[0].obj, pcfg, False))),
+        3: dict(edges=(oobj, ostate),
+                k5=(oobj, ostate, oobs, frame_kw(oobj, ocfg, True)),
+                k8=(eobj, estate, eobs, frame_kw(eobj, ecfg, False))),
+    }
+    return dict(errors=errors, launches=launches, windows=windows,
+                timing=timing)
+
+
+def time_inelastic_kernels(torch, d, timing):
+    """K7b edges' and the inelastic K5's and K8's device ms a launch
+    (profiler), their plain versions' ms, their bounds and, for K7b edges,
+    one PyTorch sparse product's ms: {row name: dict of the kernels line's
+    time keys}."""
+    from fem_tpu_torch.ops import blocked_kernels as bk, frame_kernels as fk
+
+    ops = OPS[d]
+    out = {}
+
+    def put(name, kernel, plain, plain_reps, reps, key, moved, work,
+            library=None, **extra):
+        bnd, by = bound(moved, work)
+        out[name] = dict(ms=kernel_ms(torch, kernel, reps, [key]),
+                         plain_ms=cuda_ms(torch, plain, plain_reps),
+                         bound_ms=bnd, bound_by=by, library_ms=library,
+                         **extra)
+
+    obj, state = timing["edges"]
+    blk = obj.blocking
+    n = obj.particle_cnt
+    x = bk.blocked_edges(blk, state.pos)
+    smat = incidence_t(torch, blk, n)
+    real = (blk.volume > 0).reshape(-1)
+    lib_x = torch.sparse.mm(smat, state.pos).reshape(-1, d, d).transpose(1, 2)
+    err = float((lib_x[real] - x[real]).abs().max())
+    log(f"[K7b edges] torch.sparse.mm vs the kernel ({d}D): max abs "
+        f"difference {err:.3e} on the real slots")
+    require(err <= 1e-6, f"library K7b edges differs ({d}D)")
+    lib = cuda_ms(torch, lambda: torch.sparse.mm(smat, state.pos), 200)
+    e_real = int(real.sum())
+    e_pad = blk.volume.numel() - e_real
+    put("blocked_edges", lambda: bk.blocked_edges(blk, state.pos),
+        lambda: bk.blocked_edges_plain(blk, state.pos), 20, 200,
+        "blocked_edges_kernel",
+        nbytes(state.pos, blk.block_particles, blk.plus, blk.minus,
+               blk.block_elements, x) + 4 * d * d * e_pad,
+        ops["edges"] * e_real + ops["rest_inv"] * e_pad, library=lib)
+
+    def inelastic_extra(obj, state, sim_count, implicit):
+        n_states = sum(fi is not None for fi in (state.plastic_inv,
+                                                  state.viscous_inv))
+        per = (ops["reff"] * n_states + ops["update_guard"]
+               + ops["update_state"] * n_states)
+        if state.viscous_inv is not None:
+            per += ops["snh_chain" if implicit else "snh_grad"]
+        state_bytes = 2 * n_states * 4 * d * d * obj.element_cnt \
+            + obj.blocking.element_perm.numel() * 4
+        return sim_count * per * obj.element_cnt, state_bytes
+
+    obj, state, obs, kw = timing["k5"]
+    blk = obj.blocking
+    ikw = inelastic_kwargs(obj, state)
+    args = (blk, state.pos, state.vel, state.vel_g, obj.mass, obs.centers,
+            obs.radii)
+    k5_out = fk.fused_blocked_frame(*args, **kw, **ikw)
+    iters = k5_out[3].tolist()
+    more_ops, more_bytes = inelastic_extra(obj, state, kw["sim_count"], True)
+    tables = (blk.block_particles, blk.plus, blk.minus, blk.block_elements,
+              blk.local_ptr, blk.local_rows)
+    plan = (blk.slot_plan.ptr, blk.slot_plan.rows)
+    slot_rows = blk.slot_plan.rows.numel()
+    put("blocked_frame_inelastic", lambda: fk.fused_blocked_frame(
+            *args, **kw, **ikw),
+        lambda: fk.fused_blocked_frame_plain(*args, **kw, **ikw), 2, FRAMES_N,
+        "blocked_frame_kernel",
+        nbytes(blk.ref_inv, blk.volume, *tables, *plan, obj.mass,
+               obs.centers, obs.radii, state.pos, state.vel, state.vel_g,
+               *k5_out[:5]) + more_bytes,
+        frame_ops(obj.element_cnt, obj.particle_cnt, slot_rows, iters, True,
+                  d) + more_ops, iterations=iters)
+
+    obj, state, obs, kw = timing["k8"]
+    blk = obj.blocking
+    ikw = inelastic_kwargs(obj, state)
+    args = (blk, state.pos, state.vel, obj.mass, obs.centers, obs.radii)
+    k8_out = fk.fused_explicit_frame(*args, **kw, **ikw)
+    more_ops, more_bytes = inelastic_extra(obj, state, kw["sim_count"], False)
+    tables = (blk.block_particles, blk.plus, blk.minus, blk.block_elements,
+              blk.local_ptr, blk.local_rows)
+    plan = (blk.slot_plan.ptr, blk.slot_plan.rows)
+    slot_rows = blk.slot_plan.rows.numel()
+    put("explicit_frame_inelastic", lambda: fk.fused_explicit_frame(
+            *args, **kw, **ikw),
+        lambda: fk.fused_explicit_frame_plain(*args, **kw, **ikw), 2, FRAMES,
+        "explicit_frame_kernel",
+        nbytes(blk.ref_inv, blk.volume, *tables, *plan, obj.mass,
+               obs.centers, obs.radii, state.pos, state.vel, *k8_out[:2])
+        + more_bytes,
+        explicit_frame_ops(obj.element_cnt, obj.particle_cnt, slot_rows,
+                           kw["sim_count"], d) + more_ops,
+        states=[k for k in ("plastic_inv", "viscous_inv")
+                if getattr(state, k) is not None])
+    return out
+
+
 def main():
     import torch
 
@@ -949,6 +1563,7 @@ def main():
     from fem_tpu_torch.solvers import explicit
     from fem_tpu_torch.utils import cuda_build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -962,6 +1577,7 @@ def main():
         "blocked_assemble": blocked_kernels.blocked_assemble,
         "blocked_grad_prep": blocked_kernels.blocked_grad_prep,
         "explicit_frame": frame_kernels.fused_explicit_frame,
+        "blocked_edges": blocked_kernels.blocked_edges,
     }
 
     def zero_counts():
@@ -1385,7 +2001,12 @@ def main():
     # -- 15.-20. 2D: the kernels and paths H-L ------------------------------
     two = run_2d(torch, dev, zero_counts, counts, only)
 
-    # -- 21. times and bounds -----------------------------------------------
+    # -- 21.-26. inelastic materials: the kernels and paths M-Q -------------
+    t_in = time.perf_counter()
+    ine = run_inelastic(torch, dev, zero_counts, counts, only)
+    log(f"[inelastic] sections 21-26 in {time.perf_counter() - t_in:.1f} s")
+
+    # -- 27. times and bounds -----------------------------------------------
     def run_frames(frame_fn, start, obs, frames=FRAMES):
         def go():
             s = start
@@ -1401,7 +2022,7 @@ def main():
                        run_frames(frame_k14, state, obstacles)),
                       ("path D (K8)", run_frames(frame_d, estate, obstacles))):
         profile_window(torch, label, go, FRAMES)
-    for label, frame_fns, start, obs, frames in two["windows"]:
+    for label, frame_fns, start, obs, frames in two["windows"] + ine["windows"]:
         def go(frame_fns=frame_fns, start=start, obs=obs, frames=frames):
             states = list(start)
             for _ in range(frames):
@@ -1432,8 +2053,15 @@ def main():
             f"blocks): {ms:.5f} ms a frame on the device (profiler); card "
             f"{card}")
 
+    for d, times, launches, errors in ((3, times3, launches3, errors3),
+                                       (2, times2, two["launches"],
+                                        two["errors"])):
+        times.update(time_inelastic_kernels(torch, d, ine["timing"][d]))
+        launches.update(ine["launches"][d])
+        errors.update(ine["errors"][d])
     kernels = (kernel_rows(3, times3, launches3, errors3, card)
                + kernel_rows(2, times2, two["launches"], two["errors"], card))
+    log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -27,16 +27,17 @@ from fem_tpu_torch.utils.device import resolve_device
 OBJECT_ARRAYS = ("element_indices", "ref_inv", "volume", "mass", "rest_pos", "faces")
 OBJECT_STATICS = (
     "dim", "particle_cnt", "element_cnt", "mesh_cnt", "mu", "s_lambda",
-    "damping", "rho", "material",
+    "damping", "rho", "material", "plastic_yield", "viscous_mu",
+    "viscous_tau",
 )
 # Static fields of the JAX package's FemObject that select features this
 # slice does not port; each must hold its default value.
 UNPORTED_STATICS = {
     "damping_beta": (0.0, "Rayleigh damping_beta", "M13"),
-    "plastic_yield": (0.0, "inelastic plastic_yield", "M14"),
-    "viscous_mu": (0.0, "inelastic viscous_mu", "M14"),
 }
 STATE_ARRAYS = ("pos", "vel", "vel_g", "force")
+# The inelastic internal inverses: optional (absent or None when off).
+INTERNAL_ARRAYS = ("plastic_inv", "viscous_inv")
 
 _INT_ARRAYS = ("element_indices", "faces")
 
@@ -45,8 +46,9 @@ def object_from_arrays(
     arrays: Dict[str, np.ndarray], statics: Dict[str, object], device="cuda"
 ) -> FemObject:
     """A :class:`FemObject` from ``arrays`` (the names of ``OBJECT_ARRAYS``)
-    and ``statics`` (the names of ``OBJECT_STATICS``, plus optionally the
-    keys of ``UNPORTED_STATICS`` at their defaults)."""
+    and ``statics`` (the names of ``OBJECT_STATICS`` — the three inelastic
+    ones optional, at their defaults when absent — plus optionally the keys
+    of ``UNPORTED_STATICS`` at their defaults)."""
     dev = resolve_device(device)
     for key, (default, what, item) in UNPORTED_STATICS.items():
         if statics.get(key, default) != default:
@@ -71,7 +73,7 @@ def object_from_arrays(
     )
     return FemObject(
         **tensors, plan=plan, blocking=blocking,
-        **{k: statics[k] for k in OBJECT_STATICS},
+        **{k: statics[k] for k in OBJECT_STATICS if k in statics},
     )
 
 
@@ -84,17 +86,28 @@ def object_to_arrays(obj: FemObject):
 
 
 def state_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> SimState:
+    """A :class:`SimState` from the arrays of ``STATE_ARRAYS`` and those of
+    ``INTERNAL_ARRAYS`` that ``arrays`` holds and are not None."""
     dev = resolve_device(device)
+    names = STATE_ARRAYS + tuple(
+        n for n in INTERNAL_ARRAYS if arrays.get(n) is not None
+    )
     return SimState(
         **{
             n: torch.tensor(np.asarray(arrays[n], np.float32), device=dev)
-            for n in STATE_ARRAYS
+            for n in names
         }
     )
 
 
 def state_to_arrays(state: SimState) -> Dict[str, np.ndarray]:
-    return {n: getattr(state, n).cpu().numpy() for n in STATE_ARRAYS}
+    """The inverse of :func:`state_from_arrays`: internal inverses that are
+    None are left out."""
+    out = {n: getattr(state, n).cpu().numpy() for n in STATE_ARRAYS}
+    for n in INTERNAL_ARRAYS:
+        if getattr(state, n) is not None:
+            out[n] = getattr(state, n).cpu().numpy()
+    return out
 
 
 def to_dtype(x, dtype: torch.dtype):

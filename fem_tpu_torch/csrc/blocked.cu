@@ -14,6 +14,19 @@
 // K7a replaces fem_tpu/ops/blocking.py:_scatter_kernel (reached through
 // blocked_assemble): per block, S_b^T t of given block-ordered columns,
 // then the same per-particle slot sums.
+// K7b edges is _prep_kernel's edges mode (reached through
+// blocked_edge_planes): per block, the edge matrix of every element slot in
+// block order, for the inelastic update (ops/inelastic.py).  Padded slots
+// carry the rest edge matrix (the inverse of their R^-1, as the Pallas
+// kernel's _pad_x_rows computes it), so F = I downstream.  Its bound is
+// bytes: it reads the block's rows and tables and writes D*D floats a slot.
+//
+// The two preps take one material layer of the inelastic extension: the
+// layer's dynamic rest-edge inverses R^-1 F_i^-1 (B*Eb, D, D) arrive as
+// the tables' ref_inv pointer, the pointer the static layer passes too, and
+// its material (Neo-Hookean, or the Maxwell branch's stable Neo-Hookean) is
+// a template parameter chosen at launch.  The static Neo-Hookean instance
+// is the code it always was.
 //
 // Every kernel is templated on the dimension D in {2, 3} (the Pallas
 // kernels take `dim`); the C entries launch the instance of tables->dim.
@@ -40,7 +53,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int D>
+template <int D, int M>
 __global__ void __launch_bounds__(kThreads) blocked_prep_kernel(
     fem::BlockTables T, const float* __restrict__ pos, float mu, float lam,
     float half_lam, float* __restrict__ k_out, float* __restrict__ partials) {
@@ -56,7 +69,7 @@ __global__ void __launch_bounds__(kThreads) blocked_prep_kernel(
   for (int e = threadIdx.x; e < T.eb; e += blockDim.x) {
     float* k = k_out + DD * (static_cast<size_t>(b) * T.eb + e);
     if (e < nel) {
-      fem::element_prep<D>(T, b, e, xs, mu, lam, half_lam, k, t + R * e);
+      fem::element_prep<D, M>(T, b, e, xs, mu, lam, half_lam, k, t + R * e);
     } else {
 #pragma unroll
       for (int i = 0; i < DD; ++i) k[i] = 0.0f;
@@ -66,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) blocked_prep_kernel(
   fem::block_slot_sums<D>(T, b, t, partials + D * b * T.pb);
 }
 
-template <int D>
+template <int D, int M>
 __global__ void __launch_bounds__(kThreads) blocked_grad_prep_kernel(
     fem::BlockTables T, const float* __restrict__ pos, float mu, float lam,
     float* __restrict__ partials) {
@@ -79,10 +92,38 @@ __global__ void __launch_bounds__(kThreads) blocked_grad_prep_kernel(
   __syncthreads();
   const int nel = T.block_elements[b];
   for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-    fem::element_grad<D>(T, b, e, xs, mu, lam, t + R * e);
+    fem::element_grad<D, M>(T, b, e, xs, mu, lam, t + R * e);
   }
   __syncthreads();
   fem::block_slot_sums<D>(T, b, t, partials + D * b * T.pb);
+}
+
+// Edge matrices x (B*Eb, D, D) of every element slot of block b; padded
+// slots get the inverse of their R^-1.
+template <int D>
+__global__ void __launch_bounds__(kThreads) blocked_edges_kernel(
+    fem::BlockTables T, const float* __restrict__ pos, float* __restrict__ x) {
+  constexpr int DD = D * D;
+  extern __shared__ float smem[];
+  float* xs = smem;
+  const int b = blockIdx.x;
+  fem::load_block_rows<D>(T, b, pos, xs);
+  __syncthreads();
+  const int nel = T.block_elements[b];
+  for (int e = threadIdx.x; e < T.eb; e += blockDim.x) {
+    const size_t slot = static_cast<size_t>(b) * T.eb + e;
+    float m[DD];
+    if (e < nel) {
+      fem::block_edges<D>(T, b, e, xs, m);
+    } else {
+      float r[DD];
+#pragma unroll
+      for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
+      fem::det_inv<D>(r, m);
+    }
+#pragma unroll
+    for (int i = 0; i < DD; ++i) x[DD * slot + i] = m[i];
+  }
 }
 
 // Per-block partials of given block-ordered columns (B*Eb, D, D): the
@@ -154,15 +195,15 @@ size_t work_smem(const fem::BlockTables& T) {
   return sizeof(float) * fem::block_work_floats(T.eb, T.pb, T.dim);
 }
 
-template <int D>
+template <int D, int M>
 int prep_launch(const fem::BlockTables& T, const void* pos, float mu,
                 float lam, float half_lam, void* k_out, void* partials,
                 cudaStream_t s) {
   const size_t smem = work_smem(T);
-  const int rc = prepare(blocked_prep_kernel<D>, smem);
+  const int rc = prepare(blocked_prep_kernel<D, M>, smem);
   if (rc != 0) return rc;
   if (T.num_blocks > 0) {
-    blocked_prep_kernel<D><<<T.num_blocks, kThreads, smem, s>>>(
+    blocked_prep_kernel<D, M><<<T.num_blocks, kThreads, smem, s>>>(
         T, static_cast<const float*>(pos), mu, lam, half_lam,
         static_cast<float*>(k_out), static_cast<float*>(partials));
   }
@@ -200,16 +241,29 @@ int matvec_launch(const fem::BlockTables& T, const void* k, const void* x,
                             s);
 }
 
-template <int D>
+template <int D, int M>
 int grad_prep_launch(const fem::BlockTables& T, const void* pos, float mu,
                      float lam, void* partials, cudaStream_t s) {
   const size_t smem = work_smem(T);
-  const int rc = prepare(blocked_grad_prep_kernel<D>, smem);
+  const int rc = prepare(blocked_grad_prep_kernel<D, M>, smem);
   if (rc != 0) return rc;
   if (T.num_blocks > 0) {
-    blocked_grad_prep_kernel<D><<<T.num_blocks, kThreads, smem, s>>>(
+    blocked_grad_prep_kernel<D, M><<<T.num_blocks, kThreads, smem, s>>>(
         T, static_cast<const float*>(pos), mu, lam,
         static_cast<float*>(partials));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int edges_launch(const fem::BlockTables& T, const void* pos, void* x,
+                 cudaStream_t s) {
+  const size_t smem = sizeof(float) * D * static_cast<size_t>(T.pb);
+  const int rc = prepare(blocked_edges_kernel<D>, smem);
+  if (rc != 0) return rc;
+  if (T.num_blocks > 0) {
+    blocked_edges_kernel<D><<<T.num_blocks, kThreads, smem, s>>>(
+        T, static_cast<const float*>(pos), static_cast<float*>(x));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -235,18 +289,29 @@ int assemble_launch(const fem::BlockTables& T, const void* cols,
 
 bool bad_dim(const fem::BlockTables& T) { return T.dim != 2 && T.dim != 3; }
 
+bool bad_material(int m) {
+  return m != fem::kNeoHookean && m != fem::kStableNeoHookean;
+}
+
 }  // namespace
 
-// k_out (B*Eb, D, D) and partials (B*Pb, D).
+// k_out (B*Eb, D, D) and partials (B*Pb, D); `material` a fem::Material.
 extern "C" int fem_blocked_prep(const fem::BlockTables* tables, const void* pos,
                                 float mu, float lam, float half_lam,
-                                void* k_out, void* partials, void* stream) {
+                                int material, void* k_out, void* partials,
+                                void* stream) {
   const fem::BlockTables& T = *tables;
-  if (bad_dim(T)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_dim(T) || bad_material(material)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return T.dim == 3
-             ? prep_launch<3>(T, pos, mu, lam, half_lam, k_out, partials, s)
-             : prep_launch<2>(T, pos, mu, lam, half_lam, k_out, partials, s);
+  const bool snh = material == fem::kStableNeoHookean;
+  auto launch = T.dim == 3
+      ? (snh ? prep_launch<3, fem::kStableNeoHookean>
+             : prep_launch<3, fem::kNeoHookean>)
+      : (snh ? prep_launch<2, fem::kStableNeoHookean>
+             : prep_launch<2, fem::kNeoHookean>);
+  return launch(T, pos, mu, lam, half_lam, k_out, partials, s);
 }
 
 // y (N, D) = G(K) x, or G(K^T) x when `transpose`; partials (B*Pb, D) is
@@ -266,15 +331,34 @@ extern "C" int fem_blocked_matvec(const fem::BlockTables* tables,
                                 num_particles, partials, y, s);
 }
 
-// Per-slot explicit gradient partials (B*Pb, D) at pos.
+// Per-slot explicit gradient partials (B*Pb, D) at pos; `material` a
+// fem::Material.
 extern "C" int fem_blocked_grad_prep(const fem::BlockTables* tables,
                                      const void* pos, float mu, float lam,
-                                     void* partials, void* stream) {
+                                     int material, void* partials,
+                                     void* stream) {
+  const fem::BlockTables& T = *tables;
+  if (bad_dim(T) || bad_material(material)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool snh = material == fem::kStableNeoHookean;
+  auto launch = T.dim == 3
+      ? (snh ? grad_prep_launch<3, fem::kStableNeoHookean>
+             : grad_prep_launch<3, fem::kNeoHookean>)
+      : (snh ? grad_prep_launch<2, fem::kStableNeoHookean>
+             : grad_prep_launch<2, fem::kNeoHookean>);
+  return launch(T, pos, mu, lam, partials, s);
+}
+
+// Edge matrices x (B*Eb, D, D) of every element slot at pos.
+extern "C" int fem_blocked_edges(const fem::BlockTables* tables,
+                                 const void* pos, void* x, void* stream) {
   const fem::BlockTables& T = *tables;
   if (bad_dim(T)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return T.dim == 3 ? grad_prep_launch<3>(T, pos, mu, lam, partials, s)
-                    : grad_prep_launch<2>(T, pos, mu, lam, partials, s);
+  return T.dim == 3 ? edges_launch<3>(T, pos, x, s)
+                    : edges_launch<2>(T, pos, x, s);
 }
 
 // y (N, D): the assembly of block-ordered columns (B*Eb, D, D); partials

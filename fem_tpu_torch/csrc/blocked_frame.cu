@@ -3,7 +3,8 @@
 // in one cooperative launch.
 //
 // Replaces the TPU kernel fem_tpu/ops/pallas_blocked_frame.py:_frame_kernel
-// (reached through fused_blocked_frame), elastic Neo-Hookean branch.  The
+// (reached through fused_blocked_frame), Neo-Hookean, with its plastic and
+// Maxwell branches.  The
 // TPU kernel runs on one core over VMEM-resident one-hot tables (s_dense,
 // g_dense, the pj/psum selection tensors) with 3-plane bf16 dots and
 // (8, 128)-padded planes; none of that is semantics and none is carried
@@ -23,6 +24,18 @@
 // kernel takes `dim`: the same phases over (N, D) rows, (D+1)-vertex
 // elements and D x D blocks; fem_blocked_frame launches the instance of
 // args->T.dim.
+//
+// Inelastic materials (the INELASTIC instance, chosen at launch;
+// inelastic.cuh): the prep runs the base chain on each element's
+// R^-1 F_p^-1 and adds the Maxwell branch's stable Neo-Hookean k and h
+// (lam = 0, mu_v, on R^-1 F_v^-1) before the -V scaling
+// (pallas_blocked_frame.py:139-197); after each substep's advection and the
+// grid barrier that ends it, each CTA updates its own blocks' elements from
+// the end-of-substep positions (:296-373).  The barrier the elastic kernel
+// already has there orders the update after every CTA's advection, and the
+// next prep reads only the CTA's own blocks' state, so the barrier count is
+// unchanged.  The state stays in the output arrays, mesh element order,
+// through element_perm.
 //
 // Design.  One thread block per locality block (17 on the 3D flagship, 1
 // on the 2D default scene; grid-stride when a mesh has more blocks than the
@@ -53,6 +66,7 @@
 
 #include "blocked_common.cuh"
 #include "cooperative.cuh"
+#include "inelastic.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -93,6 +107,7 @@ struct FemFrameArgs {
   float* scratch;  // see fem_blocked_frame_scratch_floats
   int* iters;      // (S,)
   float* res;      // (S,)
+  fem::InelasticArgs in;
 };
 
 namespace {
@@ -147,7 +162,7 @@ __device__ float block_sum(float v, float* red) {
   return total;
 }
 
-template <int D>
+template <int D, bool INELASTIC>
 struct Frame {
   static constexpr int DD = D * D;
   static constexpr int R = fem::rows_floats(D);
@@ -200,6 +215,32 @@ struct Frame {
     }
   }
 
+  // The prep of real element e of block b with the material layers: the
+  // base chain on R^-1 F_p^-1 plus the Maxwell branch's, then -V.
+  __device__ void element_prep_layers(int b, int e, float* k_out, float* tr) {
+    const fem::BlockTables& T = a.T;
+    const int slot = b * T.eb + e;
+    float x[DD], r[DD], r_base[DD], r_branch[DD], k[DD], h[DD];
+    fem::block_edges<D>(T, b, e, xs, x);
+#pragma unroll
+    for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
+    fem::layer_refs<D>(a.in, slot, r, r_base, r_branch);
+    fem::nh_chain<D>(x, r_base, a.mu, a.lam, a.half_lam, k, h);
+    if (a.in.viscous != nullptr) {
+      float k2[DD], h2[DD];
+      fem::snh_chain<D>(x, r_branch, a.in.viscous_mu, 0.0f, k2, h2);
+#pragma unroll
+      for (int i = 0; i < DD; ++i) {
+        k[i] = k[i] + k2[i];
+        h[i] = h[i] + h2[i];
+      }
+    }
+    const float nv = -T.volume[slot];
+#pragma unroll
+    for (int i = 0; i < DD; ++i) k_out[i] = nv * k[i];
+    fem::column_rows<D>(nv, h, tr);
+  }
+
   // K blocks into shared memory and force partials into `out`, at a.pos.
   __device__ void prep(float* out) {
     const fem::BlockTables& T = a.T;
@@ -208,8 +249,12 @@ struct Frame {
       __syncthreads();
       const int nel = T.block_elements[b];
       for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-        fem::element_prep<D>(T, b, e, xs, a.mu, a.lam, a.half_lam,
-                             ksh + DD * (ib * T.eb + e), t + R * e);
+        if constexpr (INELASTIC) {
+          element_prep_layers(b, e, ksh + DD * (ib * T.eb + e), t + R * e);
+        } else {
+          fem::element_prep<D>(T, b, e, xs, a.mu, a.lam, a.half_lam,
+                               ksh + DD * (ib * T.eb + e), t + R * e);
+        }
       }
       __syncthreads();
       fem::block_slot_sums<D>(T, b, t, out + D * b * T.pb);
@@ -353,6 +398,36 @@ struct Frame {
     return s;
   }
 
+  // The internal update of every owned block's real elements from the
+  // end-of-substep positions (a grid barrier since the advection).
+  __device__ void internal_update() {
+    const fem::BlockTables& T = a.T;
+    for (int b = blockIdx.x; b < T.num_blocks; b += gridDim.x) {
+      fem::load_block_rows<D>(T, b, a.pos, xs);
+      __syncthreads();
+      const int nel = T.block_elements[b];
+      for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+        const int slot = b * T.eb + e;
+        float x[DD];
+        fem::block_edges<D>(T, b, e, xs, x);
+        fem::update_slot<D>(a.in, slot, x, T.ref_inv + DD * slot);
+      }
+      __syncthreads();
+    }
+  }
+
+  // The state of every owned block's real elements from the inputs into
+  // the outputs; the same thread later reads and updates it.
+  __device__ void copy_state() {
+    const fem::BlockTables& T = a.T;
+    for (int b = blockIdx.x; b < T.num_blocks; b += gridDim.x) {
+      const int nel = T.block_elements[b];
+      for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+        fem::copy_state<D>(a.in, b * T.eb + e);
+      }
+    }
+  }
+
   // Implicit advection of this thread's particles; vel_in is the solve's x.
   __device__ void advect() {
     const float g[3] = {a.g0, a.g1, a.g2};
@@ -409,7 +484,7 @@ struct Frame {
 
 // __grid_constant__: Frame keeps a reference to the parameter, which then
 // stays in the parameter space instead of a per-thread copy.
-template <int D>
+template <int D, bool INELASTIC>
 __global__ void __launch_bounds__(kThreads, 1)
     blocked_frame_kernel(const __grid_constant__ FemFrameArgs a) {
   extern __shared__ float smem[];
@@ -417,7 +492,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ float bcast;
   const int bpc = (a.T.num_blocks + gridDim.x - 1) / gridDim.x;
   float* xs = smem + D * D * bpc * a.T.eb;
-  Frame<D> fr{a, carve<D>(a), cg::this_grid(), smem, xs, xs + D * a.T.pb,
+  Frame<D, INELASTIC> fr{a, carve<D>(a), cg::this_grid(), smem, xs,
+              xs + D * a.T.pb,
               red, &bcast, 0,
               static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x),
               static_cast<int>(gridDim.x * blockDim.x)};
@@ -430,6 +506,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.velg[D * p + c] = a.velg_in[D * p + c];
     }
   }
+  if constexpr (INELASTIC) fr.copy_state();
   fr.grid.sync();
   for (int s = 0; s < a.sim_count; ++s) {
     int it;
@@ -441,7 +518,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.res[s] = delta;
     }
     fr.grid.sync();
+    if constexpr (INELASTIC) fr.internal_update();
   }
+}
+
+template <int D>
+int plan_instance(bool inelastic, int grid, size_t smem, int* max_grid_out) {
+  return inelastic
+      ? fem::cooperative_fit(blocked_frame_kernel<D, true>, kThreads, grid,
+                             smem, max_grid_out)
+      : fem::cooperative_fit(blocked_frame_kernel<D, false>, kThreads, grid,
+                             smem, max_grid_out);
+}
+
+template <int D>
+int launch_instance(FemFrameArgs* a, int grid, int smem, void* stream) {
+  const bool inelastic = a->in.plastic != nullptr || a->in.viscous != nullptr;
+  return inelastic
+      ? fem::cooperative_launch(blocked_frame_kernel<D, true>, a, grid,
+                                kThreads, smem, stream)
+      : fem::cooperative_launch(blocked_frame_kernel<D, false>, a, grid,
+                                kThreads, smem, stream);
 }
 
 size_t frame_smem(int grid, int num_blocks, int eb, int pb, int dim) {
@@ -467,33 +564,26 @@ extern "C" long long fem_blocked_frame_scratch_floats(int n, int num_blocks,
 // 0, a CUDA error, or -1 (no cooperative launch), -2 (shared memory too
 // large), -3 (the grid cannot be co-resident).
 extern "C" int fem_blocked_frame_plan(int num_blocks, int eb, int pb, int grid,
-                                      int dim, int* grid_out, int* smem_out,
-                                      int* max_grid_out) {
+                                      int dim, int inelastic, int* grid_out,
+                                      int* smem_out, int* max_grid_out) {
   *max_grid_out = 0;
   if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = fem::cooperative_grid(num_blocks, grid, grid_out);
   if (rc != 0) return rc;
   const size_t smem = frame_smem(*grid_out, num_blocks, eb, pb, dim);
   *smem_out = static_cast<int>(smem);
-  if (dim == 3) {
-    return fem::cooperative_fit(blocked_frame_kernel<3>, kThreads, *grid_out,
-                                smem, max_grid_out);
-  }
-  return fem::cooperative_fit(blocked_frame_kernel<2>, kThreads, *grid_out,
-                              smem, max_grid_out);
+  return dim == 3
+      ? plan_instance<3>(inelastic != 0, *grid_out, smem, max_grid_out)
+      : plan_instance<2>(inelastic != 0, *grid_out, smem, max_grid_out);
 }
 
+// The inelastic instance runs when args->in has a state (plastic or
+// viscous not null).
 extern "C" int fem_blocked_frame(const FemFrameArgs* args, int grid, int smem,
                                  void* stream) {
   FemFrameArgs a = *args;
-  if (a.T.dim == 3) {
-    return fem::cooperative_launch(blocked_frame_kernel<3>, &a, grid, kThreads,
-                                   smem, stream);
-  }
-  if (a.T.dim == 2) {
-    return fem::cooperative_launch(blocked_frame_kernel<2>, &a, grid, kThreads,
-                                   smem, stream);
-  }
+  if (a.T.dim == 3) return launch_instance<3>(&a, grid, smem, stream);
+  if (a.T.dim == 2) return launch_instance<2>(&a, grid, smem, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -16,7 +16,11 @@
 // explicit_grad_columns_pallas), the same planar layout as K1's.
 //
 // Both are templated on the dimension D in {2, 3}, as the Pallas kernels
-// take `dim`; each C entry takes `dim` and launches that instance.  Outputs
+// take `dim`, and on the material M (Neo-Hookean, or the stable
+// Neo-Hookean of the inelastic extension's Maxwell branch, as the Pallas
+// chains take `material`); each C entry takes `dim` and `material` and
+// launches that instance.  A material layer's dynamic rest-edge inverse
+// R^-1 F_i^-1 is simply the ref_inv the launch is given.  Outputs
 // are (E, D, D) row-major, the layout the JAX entries return; V is the rest
 // volume (area in 2D).
 //
@@ -53,7 +57,7 @@ __device__ __forceinline__ void element_edges(const float* __restrict__ pos,
   }
 }
 
-template <int D>
+template <int D, int M>
 __global__ void __launch_bounds__(256) hessian_and_force_kernel(
     const float* __restrict__ pos, const int* __restrict__ elem,
     const float* __restrict__ ref_inv, const float* __restrict__ volume,
@@ -68,7 +72,7 @@ __global__ void __launch_bounds__(256) hessian_and_force_kernel(
 #pragma unroll
   for (int i = 0; i < DD; ++i) r[i] = ref_inv[DD * e + i];
   float k[DD], h[DD];
-  fem::nh_chain<D>(x, r, mu, lam, half_lam, k, h);
+  fem::material_chain<D, M>(x, r, mu, lam, half_lam, k, h);
   const float nv = -volume[e];
 #pragma unroll
   for (int i = 0; i < DD; ++i) {
@@ -77,7 +81,7 @@ __global__ void __launch_bounds__(256) hessian_and_force_kernel(
   }
 }
 
-template <int D>
+template <int D, int M>
 __global__ void __launch_bounds__(256) explicit_grad_columns_kernel(
     const float* __restrict__ pos, const int* __restrict__ elem,
     const float* __restrict__ ref_inv, const float* __restrict__ volume,
@@ -89,72 +93,84 @@ __global__ void __launch_bounds__(256) explicit_grad_columns_kernel(
   element_edges<D>(pos, elem, e, x);
 #pragma unroll
   for (int i = 0; i < DD; ++i) r[i] = ref_inv[DD * e + i];
-  fem::nh_grad_cols<D>(x, r, mu, lam, g);
+  fem::material_grad_cols<D, M>(x, r, mu, lam, g);
   const float v = volume[e];
 #pragma unroll
   for (int i = 0; i < DD; ++i) g_out[DD * e + i] = v * g[i];
 }
 
-template <int D>
+template <int D, int M>
 void launch_hessian_and_force(int blocks, cudaStream_t s, const void* pos,
                               const void* elem, const void* ref_inv,
                               const void* volume, int num_elements, float mu,
                               float lam, float half_lam, void* k_out,
                               void* h_out) {
-  hessian_and_force_kernel<D><<<blocks, 256, 0, s>>>(
+  hessian_and_force_kernel<D, M><<<blocks, 256, 0, s>>>(
       static_cast<const float*>(pos), static_cast<const int*>(elem),
       static_cast<const float*>(ref_inv), static_cast<const float*>(volume),
       num_elements, mu, lam, half_lam, static_cast<float*>(k_out),
       static_cast<float*>(h_out));
 }
 
-template <int D>
+template <int D, int M>
 void launch_grad_columns(int blocks, cudaStream_t s, const void* pos,
                          const void* elem, const void* ref_inv,
                          const void* volume, int num_elements, float mu,
                          float lam, void* g_out) {
-  explicit_grad_columns_kernel<D><<<blocks, 256, 0, s>>>(
+  explicit_grad_columns_kernel<D, M><<<blocks, 256, 0, s>>>(
       static_cast<const float*>(pos), static_cast<const int*>(elem),
       static_cast<const float*>(ref_inv), static_cast<const float*>(volume),
       num_elements, mu, lam, static_cast<float*>(g_out));
 }
 
+bool bad_args(int dim, int material) {
+  return (dim != 2 && dim != 3) ||
+         (material != fem::kNeoHookean && material != fem::kStableNeoHookean);
+}
+
 }  // namespace
 
-// `dim` is 2 or 3 (anything else: cudaErrorInvalidValue, nothing launched).
-extern "C" int fem_hessian_and_force(int dim, const void* pos,
+// `dim` is 2 or 3 and `material` a fem::Material (anything else:
+// cudaErrorInvalidValue, nothing launched).
+extern "C" int fem_hessian_and_force(int dim, int material, const void* pos,
                                      const void* elem, const void* ref_inv,
                                      const void* volume, int num_elements,
                                      float mu, float lam, float half_lam,
                                      void* k_out, void* h_out, void* stream) {
-  if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dim, material)) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (num_elements + 255) / 256;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks > 0 && dim == 3) {
-    launch_hessian_and_force<3>(blocks, s, pos, elem, ref_inv, volume,
-                                num_elements, mu, lam, half_lam, k_out, h_out);
-  } else if (blocks > 0) {
-    launch_hessian_and_force<2>(blocks, s, pos, elem, ref_inv, volume,
-                                num_elements, mu, lam, half_lam, k_out, h_out);
+  if (blocks > 0) {
+    const bool snh = material == fem::kStableNeoHookean;
+    auto launch = dim == 3
+        ? (snh ? launch_hessian_and_force<3, fem::kStableNeoHookean>
+               : launch_hessian_and_force<3, fem::kNeoHookean>)
+        : (snh ? launch_hessian_and_force<2, fem::kStableNeoHookean>
+               : launch_hessian_and_force<2, fem::kNeoHookean>);
+    launch(blocks, s, pos, elem, ref_inv, volume, num_elements, mu, lam,
+           half_lam, k_out, h_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fem_explicit_grad_columns(int dim, const void* pos,
-                                         const void* elem,
+extern "C" int fem_explicit_grad_columns(int dim, int material,
+                                         const void* pos, const void* elem,
                                          const void* ref_inv,
                                          const void* volume, int num_elements,
                                          float mu, float lam, void* g_out,
                                          void* stream) {
-  if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dim, material)) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (num_elements + 255) / 256;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks > 0 && dim == 3) {
-    launch_grad_columns<3>(blocks, s, pos, elem, ref_inv, volume,
-                           num_elements, mu, lam, g_out);
-  } else if (blocks > 0) {
-    launch_grad_columns<2>(blocks, s, pos, elem, ref_inv, volume,
-                           num_elements, mu, lam, g_out);
+  if (blocks > 0) {
+    const bool snh = material == fem::kStableNeoHookean;
+    auto launch = dim == 3
+        ? (snh ? launch_grad_columns<3, fem::kStableNeoHookean>
+               : launch_grad_columns<3, fem::kNeoHookean>)
+        : (snh ? launch_grad_columns<2, fem::kStableNeoHookean>
+               : launch_grad_columns<2, fem::kNeoHookean>);
+    launch(blocks, s, pos, elem, ref_inv, volume, num_elements, mu, lam,
+           g_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

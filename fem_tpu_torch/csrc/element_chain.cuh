@@ -21,6 +21,16 @@
 // reference; callers multiply by +V.  Every product sums k = 0 .. D-1 left
 // to right and the inverse is the adjugate times 1/det in both dimensions:
 // the plain versions' order, which the kernels are held to.
+//
+// snh_chain and snh_grad_cols are the stable Neo-Hookean counterparts, the
+// material of the inelastic extension's Maxwell branch (inelastic.cuh;
+// the JAX package's _material_p_dp_chain): with lam' = lam + mu,
+//   P = mu F + (lam'(J - 1) - mu) cof F
+//   DP[D] = mu D + lam'(cof F : D) cof F + (lam'(J - 1) - mu) Dcof(F)[D]
+//   k = DP[R] R^T   (R as the direction, as the Neo-Hookean K has it)
+//   h = g = P R^T
+// polynomial, so finite for every F.  The kernels choose the material at
+// launch (the Material template parameter), never per element.
 
 #pragma once
 
@@ -83,6 +93,108 @@ __device__ __forceinline__ float det_inv(const float* f, float* f_inv) {
   }
 }
 
+// The kernels' material selector; the Python side mirrors it
+// (ops/element.py: MATERIAL_IDS).
+enum Material { kNeoHookean = 0, kStableNeoHookean = 1 };
+
+template <int D>
+__device__ __forceinline__ float det(const float* f) {
+  if constexpr (D == 2) {
+    return f[0] * f[3] - f[1] * f[2];
+  } else {
+    return f[0] * (f[4] * f[8] - f[5] * f[7]) -
+           f[1] * (f[3] * f[8] - f[5] * f[6]) +
+           f[2] * (f[3] * f[7] - f[4] * f[6]);
+  }
+}
+
+// The symmetrized bilinear 3x3 cofactor form: cof2(m, m) = 2 cof(m) and
+// cof2(m, d) = Dcof(m)[d] (row-major, entry i*3 + j).
+__device__ __forceinline__ void cof2(const float* a, const float* b,
+                                     float* o) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int p = i == 0 ? 1 : 0, q = i == 2 ? 1 : 2;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int r = j == 0 ? 1 : 0, s = j == 2 ? 1 : 2;
+      const float v = a[3 * p + r] * b[3 * q + s] + b[3 * p + r] * a[3 * q + s] -
+                      a[3 * p + s] * b[3 * q + r] - b[3 * p + s] * a[3 * q + r];
+      o[3 * i + j] = (i + j) % 2 == 0 ? v : -v;
+    }
+  }
+}
+
+// cof m into o.
+template <int D>
+__device__ __forceinline__ void cof(const float* m, float* o) {
+  if constexpr (D == 2) {
+    o[0] = m[3];
+    o[1] = -m[2];
+    o[2] = -m[1];
+    o[3] = m[0];
+  } else {
+    cof2(m, m, o);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) o[i] = 0.5f * o[i];
+  }
+}
+
+// Stable Neo-Hookean P(F) into p and, when d_dir is not null, DP(F)[d_dir]
+// into dp.
+template <int D>
+__device__ __forceinline__ void snh_p_dp(const float* f, const float* d_dir,
+                                         float mu, float lam, float* p,
+                                         float* dp) {
+  constexpr int DD = D * D;
+  const float lam_p = lam + mu;
+  float g[DD];
+  cof<D>(f, g);
+  const float s = lam_p * (det<D>(f) - 1.0f) - mu;
+#pragma unroll
+  for (int i = 0; i < DD; ++i) p[i] = mu * f[i] + s * g[i];
+  if (d_dir == nullptr) return;
+  float dj = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DD; ++i) dj = dj + g[i] * d_dir[i];
+  float dg[DD];
+  if constexpr (D == 2) {
+    cof<D>(d_dir, dg);
+  } else {
+    cof2(f, d_dir, dg);
+  }
+#pragma unroll
+  for (int i = 0; i < DD; ++i) {
+    dp[i] = mu * d_dir[i] + lam_p * dj * g[i] + s * dg[i];
+  }
+}
+
+// Stable Neo-Hookean k and h of one element from its edge matrix x and R.
+template <int D>
+__device__ __forceinline__ void snh_chain(const float* x, const float* r,
+                                          float mu, float lam, float* k,
+                                          float* h) {
+  constexpr int DD = D * D;
+  float f[DD], p[DD], dp[DD], r_t[DD];
+  mul<D>(x, r, f);
+  snh_p_dp<D>(f, r, mu, lam, p, dp);
+  transpose<D>(r, r_t);
+  mul<D>(dp, r_t, k);
+  mul<D>(p, r_t, h);
+}
+
+// Stable Neo-Hookean gradient columns g of one element.
+template <int D>
+__device__ __forceinline__ void snh_grad_cols(const float* x, const float* r,
+                                              float mu, float lam, float* g) {
+  constexpr int DD = D * D;
+  float f[DD], p[DD], r_t[DD];
+  mul<D>(x, r, f);
+  snh_p_dp<D>(f, nullptr, mu, lam, p, nullptr);
+  transpose<D>(r, r_t);
+  mul<D>(p, r_t, g);
+}
+
 // k and h (row-major D x D) of one element from its edge matrix x and R = r.
 template <int D>
 __device__ __forceinline__ void nh_chain(const float* x, const float* r,
@@ -135,6 +247,31 @@ __device__ __forceinline__ void nh_grad_cols(const float* x, const float* r,
 #pragma unroll
   for (int i = 0; i < DD; ++i) p[i] = mu * f[i] + cp * f_inv_t[i];
   mul<D>(p, r_t, g);
+}
+
+// k and h of material M (the half-lambda argument serves Neo-Hookean only).
+template <int D, int M>
+__device__ __forceinline__ void material_chain(const float* x, const float* r,
+                                               float mu, float lam,
+                                               float half_lam, float* k,
+                                               float* h) {
+  if constexpr (M == kStableNeoHookean) {
+    snh_chain<D>(x, r, mu, lam, k, h);
+  } else {
+    nh_chain<D>(x, r, mu, lam, half_lam, k, h);
+  }
+}
+
+// Gradient columns of material M.
+template <int D, int M>
+__device__ __forceinline__ void material_grad_cols(const float* x,
+                                                   const float* r, float mu,
+                                                   float lam, float* g) {
+  if constexpr (M == kStableNeoHookean) {
+    snh_grad_cols<D>(x, r, mu, lam, g);
+  } else {
+    nh_grad_cols<D>(x, r, mu, lam, g);
+  }
 }
 
 // The D+1 vertex ids of element e from the (E, D+1) int32 table: one

@@ -3,8 +3,8 @@
 // kinematic step — in one cooperative launch.
 //
 // Replaces the TPU kernel fem_tpu/ops/pallas_blocked_frame.py:
-// _explicit_frame_kernel (reached through fused_explicit_frame), elastic
-// Neo-Hookean branch.  The TPU kernel runs on one core over VMEM-resident
+// _explicit_frame_kernel (reached through fused_explicit_frame),
+// Neo-Hookean, with its plastic and Maxwell branches.  The TPU kernel runs on one core over VMEM-resident
 // one-hot tables (s_dense, g_dense, the pj selections) with 3-plane bf16
 // dots and (8, 128)-padded planes; none of that is semantics and none is
 // carried over: this kernel indexes the block tables directly and computes
@@ -42,7 +42,20 @@
 // Phase 1 of substep s+1 reads positions that phase 2 of substep s wrote in
 // other CTAs, and phase 2 reads partials of phase 1 in other CTAs: a
 // barrier sits between each pair, 2 sim_count - 1 a frame.  No float
-// atomics, so two runs are bit-identical.  The kinematic step uses
+// atomics, so two runs are bit-identical.
+//
+// Inelastic materials (the INELASTIC instance; inelastic.cuh): phase 1
+// runs the base chain on each element's R^-1 F_p^-1 and adds the Maxwell
+// branch's stable Neo-Hookean g (lam = 0, mu_v, on R^-1 F_v^-1) before the
+// +V scaling, as the TPU kernel does (pallas_blocked_frame.py:646-688); a
+// third phase per substep updates the state from the end-of-substep
+// positions (:702-765).  Those positions come from other CTAs' phase 2, so
+// a grid barrier precedes it — also after the last substep: 2 sim_count
+// barriers a frame.  Each CTA reads and writes only its own blocks' state,
+// so the next substep's phase 1 needs no barrier for it.  The state stays
+// in the output arrays, in mesh element order, reached through
+// element_perm; the frame's first step copies the inputs there.  The
+// elastic instance is the code it was: the branches are chosen at launch.  The kinematic step uses
 // round-to-nearest intrinsics in the plain version's order (no fused
 // multiply-adds), so it rounds as the plain version does.
 //
@@ -57,6 +70,7 @@
 
 #include "blocked_common.cuh"
 #include "cooperative.cuh"
+#include "inelastic.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -88,12 +102,36 @@ struct FemExplicitFrameArgs {
   float* pos;       // (N, D) outputs, the state through the frame
   float* vel;
   float* partials;  // (B*Pb, D) scratch
+  fem::InelasticArgs in;
 };
 
 namespace {
 
-// Phase 1: the per-slot gradient partials of every owned block at `src`.
+// The contribution rows t of real element e of block b with the material
+// layers: the base chain on R^-1 F_p^-1, plus the Maxwell branch's.
 template <int D>
+__device__ __forceinline__ void element_grad_layers(
+    const FemExplicitFrameArgs& a, int b, int e, const float* xs, float* t) {
+  constexpr int DD = D * D;
+  const fem::BlockTables& T = a.T;
+  const int slot = b * T.eb + e;
+  float x[DD], r[DD], r_base[DD], r_branch[DD], g[DD];
+  fem::block_edges<D>(T, b, e, xs, x);
+#pragma unroll
+  for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
+  fem::layer_refs<D>(a.in, slot, r, r_base, r_branch);
+  fem::nh_grad_cols<D>(x, r_base, a.mu, a.lam, g);
+  if (a.in.viscous != nullptr) {
+    float g2[DD];
+    fem::snh_grad_cols<D>(x, r_branch, a.in.viscous_mu, 0.0f, g2);
+#pragma unroll
+    for (int i = 0; i < DD; ++i) g[i] = g[i] + g2[i];
+  }
+  fem::column_rows<D>(T.volume[slot], g, t);
+}
+
+// Phase 1: the per-slot gradient partials of every owned block at `src`.
+template <int D, bool INELASTIC>
 __device__ void gradient_partials(const FemExplicitFrameArgs& a,
                                   const float* src, float* xs, float* t) {
   const fem::BlockTables& T = a.T;
@@ -102,8 +140,12 @@ __device__ void gradient_partials(const FemExplicitFrameArgs& a,
     __syncthreads();
     const int nel = T.block_elements[b];
     for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-      fem::element_grad<D>(T, b, e, xs, a.mu, a.lam,
-                           t + fem::rows_floats(D) * e);
+      if constexpr (INELASTIC) {
+        element_grad_layers<D>(a, b, e, xs, t + fem::rows_floats(D) * e);
+      } else {
+        fem::element_grad<D>(T, b, e, xs, a.mu, a.lam,
+                             t + fem::rows_floats(D) * e);
+      }
     }
     __syncthreads();
     fem::block_slot_sums<D>(T, b, t, a.partials + D * b * T.pb);
@@ -118,6 +160,39 @@ __device__ __forceinline__ float dot_rn(const float* u, const float* w) {
 #pragma unroll
   for (int c = 1; c < D; ++c) s = __fadd_rn(s, __fmul_rn(u[c], w[c]));
   return s;
+}
+
+// Phase 3 (INELASTIC): the internal update of every owned block's real
+// elements from the end-of-substep positions a.pos.
+template <int D>
+__device__ void internal_update(const FemExplicitFrameArgs& a, float* xs) {
+  constexpr int DD = D * D;
+  const fem::BlockTables& T = a.T;
+  for (int b = blockIdx.x; b < T.num_blocks; b += gridDim.x) {
+    fem::load_block_rows<D>(T, b, a.pos, xs);
+    __syncthreads();
+    const int nel = T.block_elements[b];
+    for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+      const int slot = b * T.eb + e;
+      float x[DD];
+      fem::block_edges<D>(T, b, e, xs, x);
+      fem::update_slot<D>(a.in, slot, x, T.ref_inv + DD * slot);
+    }
+    __syncthreads();
+  }
+}
+
+// The frame's first step (INELASTIC): the state of every owned block's
+// real elements from the inputs into the outputs.
+template <int D>
+__device__ void copy_state(const FemExplicitFrameArgs& a) {
+  const fem::BlockTables& T = a.T;
+  for (int b = blockIdx.x; b < T.num_blocks; b += gridDim.x) {
+    const int nel = T.block_elements[b];
+    for (int e = threadIdx.x; e < nel; e += blockDim.x) {
+      fem::copy_state<D>(a.in, b * T.eb + e);
+    }
+  }
 }
 
 // Phase 2: the kinematic step of particle p from state (pos_src, vel_src).
@@ -167,7 +242,7 @@ __device__ void kinematic(const FemExplicitFrameArgs& a, int p,
 
 // __grid_constant__: the parameter stays in the parameter space instead of
 // a per-thread copy.
-template <int D>
+template <int D, bool INELASTIC>
 __global__ void __launch_bounds__(kThreads, 1)
     explicit_frame_kernel(const __grid_constant__ FemExplicitFrameArgs a) {
   extern __shared__ float smem[];
@@ -176,55 +251,76 @@ __global__ void __launch_bounds__(kThreads, 1)
   cg::grid_group grid = cg::this_grid();
   const int first = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
   const int stride = static_cast<int>(gridDim.x * blockDim.x);
+  // The same thread copies, reads and updates an element's state.
+  if constexpr (INELASTIC) copy_state<D>(a);
   for (int s = 0; s < a.sim_count; ++s) {
     // Substep 0 reads the inputs; later ones the state in the outputs, which
     // only the owning thread rewrites in phase 2 (other CTAs' rows are read
     // past L1 in phase 1).
     const float* pos_src = s == 0 ? a.pos_in : a.pos;
     const float* vel_src = s == 0 ? a.vel_in : a.vel;
-    gradient_partials<D>(a, pos_src, xs, t);
+    gradient_partials<D, INELASTIC>(a, pos_src, xs, t);
     grid.sync();
     for (int p = first; p < a.n; p += stride) kinematic<D>(a, p, pos_src, vel_src);
-    if (s + 1 < a.sim_count) grid.sync();
+    if constexpr (INELASTIC) {
+      grid.sync();
+      internal_update<D>(a, xs);
+    } else {
+      if (s + 1 < a.sim_count) grid.sync();
+    }
   }
+}
+
+template <int D>
+int plan_instance(bool inelastic, int grid, size_t smem, int* max_grid_out) {
+  return inelastic
+      ? fem::cooperative_fit(explicit_frame_kernel<D, true>, kThreads, grid,
+                             smem, max_grid_out)
+      : fem::cooperative_fit(explicit_frame_kernel<D, false>, kThreads, grid,
+                             smem, max_grid_out);
+}
+
+template <int D>
+int launch_instance(FemExplicitFrameArgs* a, int grid, int smem,
+                    void* stream) {
+  const bool inelastic = a->in.plastic != nullptr || a->in.viscous != nullptr;
+  return inelastic
+      ? fem::cooperative_launch(explicit_frame_kernel<D, true>, a, grid,
+                                kThreads, smem, stream)
+      : fem::cooperative_launch(explicit_frame_kernel<D, false>, a, grid,
+                                kThreads, smem, stream);
 }
 
 }  // namespace
 
 // Checks that a cooperative grid of `grid` CTAs (0: one per locality block,
-// at most one per SM) of the `dim` instance fits the device; writes the
-// grid, its dynamic shared memory and the most co-resident CTAs.  Returns
-// 0, a CUDA error, or -1 (no cooperative launch), -2 (shared memory too
-// large), -3 (the grid cannot be co-resident).
+// at most one per SM) of the `dim` instance, elastic or inelastic, fits the
+// device; writes the grid, its dynamic shared memory and the most
+// co-resident CTAs.  Returns 0, a CUDA error, or -1 (no cooperative
+// launch), -2 (shared memory too large), -3 (the grid cannot be
+// co-resident).
 extern "C" int fem_explicit_frame_plan(int num_blocks, int eb, int pb, int grid,
-                                       int dim, int* grid_out, int* smem_out,
-                                       int* max_grid_out) {
+                                       int dim, int inelastic, int* grid_out,
+                                       int* smem_out, int* max_grid_out) {
   *max_grid_out = 0;
   if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = fem::cooperative_grid(num_blocks, grid, grid_out);
   if (rc != 0) return rc;
   const size_t smem = sizeof(float) * fem::block_work_floats(eb, pb, dim);
   *smem_out = static_cast<int>(smem);
-  if (dim == 3) {
-    return fem::cooperative_fit(explicit_frame_kernel<3>, kThreads, *grid_out,
-                                smem, max_grid_out);
-  }
-  return fem::cooperative_fit(explicit_frame_kernel<2>, kThreads, *grid_out,
-                              smem, max_grid_out);
+  return dim == 3
+      ? plan_instance<3>(inelastic != 0, *grid_out, smem, max_grid_out)
+      : plan_instance<2>(inelastic != 0, *grid_out, smem, max_grid_out);
 }
 
+// The inelastic instance runs when args->in has a state (plastic or
+// viscous not null).
 extern "C" int fem_explicit_frame(const FemExplicitFrameArgs* args, int grid,
                                   int smem, void* stream) {
   FemExplicitFrameArgs a = *args;
   if (a.sim_count <= 0 || a.n <= 0) return 0;
-  if (a.T.dim == 3) {
-    return fem::cooperative_launch(explicit_frame_kernel<3>, &a, grid,
-                                   kThreads, smem, stream);
-  }
-  if (a.T.dim == 2) {
-    return fem::cooperative_launch(explicit_frame_kernel<2>, &a, grid,
-                                   kThreads, smem, stream);
-  }
+  if (a.T.dim == 3) return launch_instance<3>(&a, grid, smem, stream);
+  if (a.T.dim == 2) return launch_instance<2>(&a, grid, smem, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

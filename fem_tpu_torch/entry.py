@@ -8,7 +8,11 @@ mode, ``sim_count = 10`` — built on ``device`` (CUDA by default).  The
 explicit flagship is the same body under the explicit method at
 ``delta_time = 1e-4``, the mesh's explicit stability limit (the JAX
 package's ``bench.py`` explicit row).  ``load_config`` builds any shipped
-single-body config the same way.
+single-body config the same way.  All three take keyword overrides of the
+body's object config, for example the inelastic materials the JAX package's
+flagship A/B runs (``plastic_yield=0.01``; with ``viscous_mu=2e4,
+viscous_tau=0.01`` on the explicit flagship, as its
+tests/test_blocked_frame.py does).
 """
 
 from __future__ import annotations
@@ -30,9 +34,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_CONFIG = os.path.join(REPO, "configs", "demo_spot.json")
 
 
-def load_config(path: str, device="cuda"):
+def load_config(path: str, device="cuda", **object_overrides):
     """(cfg, obj, state, obstacles) of a single-body config file on
-    ``device``; a mesh path in it is read relative to the repository."""
+    ``device``, with ``object_overrides`` of the body's config; a mesh path
+    in it is read relative to the repository."""
     dev = resolve_device(device)
     cfg = read_config(path)
     check_supported_config(cfg)
@@ -41,7 +46,8 @@ def load_config(path: str, device="cuda"):
             f"{len(cfg.objects)} bodies: only single-body configs are ported "
             "yet (ROADMAP M12)"
         )
-    ocfg = cfg.objects[0]
+    ocfg = dataclasses.replace(cfg.objects[0], **object_overrides)
+    cfg = dataclasses.replace(cfg, objects=(ocfg,))
     if ocfg.obj is not None:
         obj_path = os.path.join(REPO, ocfg.obj)
         if not os.path.exists(obj_path):
@@ -56,17 +62,17 @@ def load_config(path: str, device="cuda"):
     return cfg, obj, state, obstacles
 
 
-def flagship(device="cuda"):
+def flagship(device="cuda", **object_overrides):
     """(cfg, obj, state, obstacles) of the flagship config on ``device``."""
-    return load_config(FLAGSHIP_CONFIG, device)
+    return load_config(FLAGSHIP_CONFIG, device, **object_overrides)
 
 
-def explicit_flagship(device="cuda"):
+def explicit_flagship(device="cuda", **object_overrides):
     """(cfg, obj, state, obstacles) of the explicit flagship on ``device``:
     the flagship body under ``use_explicit_method`` at ``delta_time = 1e-4``,
     lowered until its lowest particle sits 0.01 above the floor and falling
     at v_y = −1, so that it reaches the floor within the first frames."""
-    cfg, obj, state, obstacles = flagship(device)
+    cfg, obj, state, obstacles = flagship(device, **object_overrides)
     cfg = dataclasses.replace(cfg, use_explicit_method=True, delta_time=1e-4)
     pos = state.pos.clone()
     pos[:, 1] += 0.01 - pos[:, 1].min()

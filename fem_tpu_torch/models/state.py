@@ -2,8 +2,9 @@
 """State containers: dataclasses of tensors plus static scalars.
 
 The port of the JAX package's ``models/state.py`` restricted to the reference
-fields of the implicit-CG path.  :class:`SimState` is the per-particle dynamic
-state, :class:`FemObject` the static mesh and material data, and
+fields and the inelastic extension.  :class:`SimState` is the dynamic state
+(per particle, plus the per-element internal inverses of an inelastic
+material), :class:`FemObject` the static mesh and material data, and
 :class:`Obstacles` the circle obstacle set.  Every tensor of one object lives
 on one device, chosen by ``build_object``'s ``device`` argument.
 """
@@ -11,7 +12,7 @@ on one device, chosen by ``build_object``'s ``device`` argument.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +31,12 @@ class SimState:
     vel: torch.Tensor  # (N, d)
     vel_g: torch.Tensor  # (N, d) implicit-path gravity velocity (implicit.py:409)
     force: torch.Tensor  # (N, d) energy gradient accumulator (explicit.py:46)
+    # Internal inverses of the inelastic extension (ops/inelastic.py), (E, d,
+    # d) in mesh element order, identity at rest; None when off:
+    # plastic_inv = F_p⁻¹ (plastic_yield > 0), viscous_inv = F_v⁻¹ (the
+    # Maxwell branch, viscous_mu > 0).
+    plastic_inv: Optional[torch.Tensor] = None
+    viscous_inv: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "SimState":
         return dataclasses.replace(self, **changes)
@@ -56,6 +63,9 @@ class FemObject:
     damping: float = 0.0
     rho: float = 0.0
     material: str = "neo_hookean"
+    plastic_yield: float = 0.0  # von-Mises yield strain; 0 = off
+    viscous_mu: float = 0.0  # Maxwell branch shear modulus; 0 = off
+    viscous_tau: float = 0.1  # Maxwell branch relaxation time
 
     @property
     def device(self) -> torch.device:
@@ -97,11 +107,6 @@ def check_supported_object(cfg: ObjectConfig) -> None:
         raise NotImplementedError(
             f"material {cfg.material!r}: only neo_hookean is ported yet "
             "(ROADMAP M11)"
-        )
-    if cfg.plastic_yield > 0.0 or cfg.viscous_mu > 0.0:
-        raise NotImplementedError(
-            "inelastic materials (plastic_yield / viscous_mu) are not ported "
-            "yet (ROADMAP M14)"
         )
     if cfg.pin_boxes or cfg.load_boxes:
         raise NotImplementedError(
@@ -177,16 +182,27 @@ def build_object(
         damping=cfg.damping,
         rho=cfg.rho,
         material=cfg.material,
+        plastic_yield=cfg.plastic_yield,
+        viscous_mu=cfg.viscous_mu,
+        viscous_tau=cfg.viscous_tau,
     )
-    return obj, initial_state(pos, dev)
+    return obj, initial_state(pos, dev, obj)
 
 
-def initial_state(pos: np.ndarray, device) -> SimState:
-    """Rest state: positions given, every velocity channel zero."""
+def initial_state(pos: np.ndarray, device, obj: FemObject = None) -> SimState:
+    """Rest state: positions given, every velocity channel zero, and the
+    internal inverses ``obj`` enables at the identity (JAX state.py:347-348)."""
     p = torch.tensor(np.asarray(pos, np.float32), device=device)
-    return SimState(
+    state = SimState(
         pos=p,
         vel=torch.zeros_like(p),
         vel_g=torch.zeros_like(p),
         force=torch.zeros_like(p),
+    )
+    if obj is None:
+        return state
+    eye = torch.eye(obj.dim, device=device).expand(obj.element_cnt, -1, -1)
+    return state.replace(
+        plastic_inv=eye.clone() if obj.plastic_yield > 0.0 else None,
+        viscous_inv=eye.clone() if obj.viscous_mu > 0.0 else None,
     )

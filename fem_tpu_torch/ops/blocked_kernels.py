@@ -16,6 +16,18 @@ blocking's dimension (2 or 3; one kernel template, two instances).  For
 tensors on the CPU each runs its plain PyTorch version (``*_plain``); on
 CUDA each launches its kernel or raises.
 
+``blocked_edges`` launches the same file's edges kernel; it replaces the
+edges mode of ``ops/blocking.py:_prep_kernel`` (entry
+``blocked_edge_planes``, K7b edges): the edge matrix of every element slot
+in block order, for the inelastic update (``ops/inelastic.py``).
+
+The preps take a material layer (ops/inelastic.py): an optional dynamic
+rest-edge inverse per slot (``ref_inv``, (B·Eb, d, d); the blocking's own
+when None) and the material, Neo-Hookean or stable Neo-Hookean (the Maxwell
+branch).  The dynamic inverse is the same table pointer the kernel reads
+anyway, and the material a template parameter chosen at launch, so the
+static Neo-Hookean launch runs the arithmetic it always ran.
+
 Layouts: K blocks and element columns are ``(B·Eb, d, d)`` in block order
 (the JAX package's ``kplane_to_kflat`` of its (B, d², Eb·d) planes);
 per-slot partials are ``(B, Pb, d)`` (the JAX package's (B, d, Pb)
@@ -36,7 +48,12 @@ from fem_tpu_torch.ops.blocking import (
     blocked_scatter_sum,
 )
 from fem_tpu_torch.ops.cg_kernels import CGResult, conjugate_gradient
-from fem_tpu_torch.ops.element import grad_cols_chain, k_and_h_chain
+from fem_tpu_torch.ops.element import (
+    MATERIAL_IDS,
+    check_material,
+    grad_cols_chain,
+    k_and_h_chain,
+)
 from fem_tpu_torch.utils import cuda_build
 
 _P = ctypes.c_void_p
@@ -61,9 +78,11 @@ class BlockTablesC(ctypes.Structure):
     ]
 
 
-def block_tables(blk: Blocking) -> BlockTablesC:
+def block_tables(blk: Blocking, ref_inv=None) -> BlockTablesC:
     """The C view of ``blk``'s device tables (which ``blk`` keeps alive),
-    with its dimension d (2 or 3)."""
+    with its dimension d (2 or 3); ``ref_inv`` (B·Eb, d, d), when given,
+    stands in for the blocking's rest-edge inverses (the caller keeps it
+    alive)."""
     d = blk.dim
     if d not in (2, 3):
         raise ValueError(f"the blocked kernels take dim 2 or 3, not {d}")
@@ -80,9 +99,13 @@ def block_tables(blk: Blocking) -> BlockTablesC:
         cuda_build.check_operand(
             f"blocking.{name}", getattr(blk, name), shape, dtype, dev
         )
+    if ref_inv is None:
+        ref_inv = blk.ref_inv
+    else:
+        cuda_build.check_operand("ref_inv", ref_inv, (b * eb, d, d), f32, dev)
     return BlockTablesC(
         blk.block_particles.data_ptr(), blk.plus.data_ptr(),
-        blk.minus.data_ptr(), blk.ref_inv.data_ptr(), blk.volume.data_ptr(),
+        blk.minus.data_ptr(), ref_inv.data_ptr(), blk.volume.data_ptr(),
         blk.block_elements.data_ptr(), blk.local_ptr.data_ptr(),
         blk.local_rows.data_ptr(), b, eb, pb, d,
     )
@@ -116,11 +139,17 @@ def _slot_partials(blk: Blocking, columns: torch.Tensor) -> torch.Tensor:
     return out.reshape(blk.num_blocks, blk.pb, d)
 
 
-def blocked_prep_plain(blk: Blocking, pos, mu: float, lam: float):
-    """Plain PyTorch version of :func:`blocked_prep`."""
+def blocked_prep_layers_plain(blk: Blocking, pos, layers):
+    """(K (B·Eb, d, d), force partials (B, Pb, d)) of material ``layers``
+    — (rest-edge inverse (B·Eb, d, d), μ, λ, material) tuples — with each
+    element's k and h summed over the layers before the −V scaling, as the
+    whole-frame kernel K5 sums them."""
     x = block_edge_matrices(blk, blocked_gather(pos, blk))
-    f = sm.matmul(x, blk.ref_inv)
-    k, h = k_and_h_chain(f, blk.ref_inv, mu, lam)
+    k = h = None
+    for r, mu, lam, material in layers:
+        k_l, h_l = k_and_h_chain(sm.matmul(x, r), r, mu, lam, material)
+        k = k_l if k is None else k + k_l
+        h = h_l if h is None else h + h_l
     real = _real_slots(blk)
     nv = -blk.volume[:, None, None]
     k = torch.where(real, nv * k, 0.0)
@@ -128,13 +157,43 @@ def blocked_prep_plain(blk: Blocking, pos, mu: float, lam: float):
     return k, _slot_partials(blk, h)
 
 
-def blocked_grad_prep_plain(blk: Blocking, pos, mu: float, lam: float):
-    """Plain PyTorch version of :func:`blocked_grad_prep`.  Padded slots
-    (X = 0, NaN through the unclamped log) are dropped by the mask."""
+def blocked_grad_columns_layers_plain(blk: Blocking, pos, layers):
+    """Block-ordered explicit gradient columns (B·Eb, d, d) of material
+    ``layers`` (as :func:`blocked_prep_layers_plain`), summed over the
+    layers before the +V scaling, as K8 sums them.  Padded slots (X = 0,
+    NaN through the unclamped log) are dropped by the mask."""
     x = block_edge_matrices(blk, blocked_gather(pos, blk))
-    g = grad_cols_chain(sm.matmul(x, blk.ref_inv), blk.ref_inv, mu, lam)
-    g = torch.where(_real_slots(blk), blk.volume[:, None, None] * g, 0.0)
-    return _slot_partials(blk, g)
+    g = None
+    for r, mu, lam, material in layers:
+        g_l = grad_cols_chain(sm.matmul(x, r), r, mu, lam, material)
+        g = g_l if g is None else g + g_l
+    return torch.where(_real_slots(blk), blk.volume[:, None, None] * g, 0.0)
+
+
+def blocked_grad_prep_layers_plain(blk: Blocking, pos, layers):
+    """Per-slot partials (B, Pb, d) of :func:`blocked_grad_columns_layers_plain`."""
+    return _slot_partials(blk, blocked_grad_columns_layers_plain(blk, pos,
+                                                                 layers))
+
+
+def blocked_prep_plain(blk: Blocking, pos, mu: float, lam: float,
+                       ref_inv=None, material: str = "neo_hookean"):
+    """Plain PyTorch version of :func:`blocked_prep`."""
+    r = blk.ref_inv if ref_inv is None else ref_inv
+    return blocked_prep_layers_plain(blk, pos, [(r, mu, lam, material)])
+
+
+def blocked_grad_prep_plain(blk: Blocking, pos, mu: float, lam: float,
+                            ref_inv=None, material: str = "neo_hookean"):
+    """Plain PyTorch version of :func:`blocked_grad_prep`."""
+    r = blk.ref_inv if ref_inv is None else ref_inv
+    return blocked_grad_prep_layers_plain(blk, pos, [(r, mu, lam, material)])
+
+
+def blocked_edges_plain(blk: Blocking, pos) -> torch.Tensor:
+    """Plain PyTorch version of :func:`blocked_edges`."""
+    x = block_edge_matrices(blk, blocked_gather(pos, blk))
+    return torch.where(_real_slots(blk), x, sm.inv(blk.ref_inv))
 
 
 def blocked_assemble_plain(blk: Blocking, cols):
@@ -156,8 +215,8 @@ def _library():
     if lib.fem_blocked_prep.argtypes is None:
         tables = ctypes.POINTER(BlockTablesC)
         lib.fem_blocked_prep.argtypes = [
-            tables, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float, _P,
-            _P, _P,
+            tables, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, _P, _P, _P,
         ]
         lib.fem_blocked_prep.restype = ctypes.c_int
         lib.fem_blocked_matvec.argtypes = [
@@ -165,9 +224,11 @@ def _library():
         ]
         lib.fem_blocked_matvec.restype = ctypes.c_int
         lib.fem_blocked_grad_prep.argtypes = [
-            tables, _P, ctypes.c_float, ctypes.c_float, _P, _P,
+            tables, _P, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P, _P,
         ]
         lib.fem_blocked_grad_prep.restype = ctypes.c_int
+        lib.fem_blocked_edges.argtypes = [tables, _P, _P, _P]
+        lib.fem_blocked_edges.restype = ctypes.c_int
         lib.fem_blocked_assemble.argtypes = [
             tables, _P, _P, _P, ctypes.c_int, _P, _P, _P,
         ]
@@ -183,17 +244,22 @@ def _check_rc(lib, rc, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg}")
 
 
-def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float):
+def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float,
+                 ref_inv=None, material: str = "neo_hookean"):
     """(K (B·Eb, d, d), force partials (B, Pb, d)) of the implicit substep
-    at ``pos``: K_e = −V·k and the slot sums of the −V·h force columns.
+    at ``pos``: K_e = −V·k and the slot sums of the −V·h force columns, of
+    one material layer (``ref_inv``: a dynamic rest-edge inverse per slot,
+    the blocking's own when None).
 
-    CUDA tensors: one launch of the blocked prep kernel (Neo-Hookean,
-    non-robust, 2D or 3D).  CPU tensors: :func:`blocked_prep_plain`."""
+    CUDA tensors: one launch of the blocked prep kernel (Neo-Hookean or
+    stable Neo-Hookean, non-robust, 2D or 3D).  CPU tensors:
+    :func:`blocked_prep_plain`."""
+    check_material(material)
     if pos.device.type == "cpu":
-        return blocked_prep_plain(blk, pos, mu, lam)
+        return blocked_prep_plain(blk, pos, mu, lam, ref_inv, material)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    tables = block_tables(blk)
+    tables = block_tables(blk, ref_inv)
     n, d = pos.shape[0], tables.dim
     cuda_build.check_operand("pos", pos, (n, d), torch.float32, blk.volume.device)
     dev = pos.device
@@ -206,7 +272,7 @@ def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_blocked_prep(
             ctypes.byref(tables), pos.data_ptr(), mu, lam, lam / 2.0,
-            k.data_ptr(), partials.data_ptr(), stream,
+            MATERIAL_IDS[material], k.data_ptr(), partials.data_ptr(), stream,
         )
     _check_rc(lib, rc, "blocked prep")
     blocked_prep.launches += 1
@@ -217,18 +283,22 @@ blocked_prep.launches = 0
 
 
 def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
-                      lam: float) -> torch.Tensor:
+                      lam: float, ref_inv=None,
+                      material: str = "neo_hookean") -> torch.Tensor:
     """Per-slot partials (B, Pb, d) of the explicit energy gradient at
-    ``pos``: the slot sums of the +V·P(F)·R⁻ᵀ columns (unclamped log); feed
-    them to ``blocked_scatter_sum``.
+    ``pos``: the slot sums of the +V·P(F)·R⁻ᵀ columns (unclamped log), of
+    one material layer (``ref_inv`` as in :func:`blocked_prep`); feed them
+    to ``blocked_scatter_sum``.
 
     CUDA tensors: one launch of the blocked prep kernel in its explicit mode
-    (Neo-Hookean, 2D or 3D).  CPU tensors: :func:`blocked_grad_prep_plain`."""
+    (Neo-Hookean or stable Neo-Hookean, 2D or 3D).  CPU tensors:
+    :func:`blocked_grad_prep_plain`."""
+    check_material(material)
     if pos.device.type == "cpu":
-        return blocked_grad_prep_plain(blk, pos, mu, lam)
+        return blocked_grad_prep_plain(blk, pos, mu, lam, ref_inv, material)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    tables = block_tables(blk)
+    tables = block_tables(blk, ref_inv)
     n, d = pos.shape[0], tables.dim
     cuda_build.check_operand("pos", pos, (n, d), torch.float32, blk.volume.device)
     partials = torch.empty((blk.num_blocks, blk.pb, d), dtype=torch.float32,
@@ -238,7 +308,7 @@ def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         rc = lib.fem_blocked_grad_prep(
             ctypes.byref(tables), pos.data_ptr(), mu, lam,
-            partials.data_ptr(), stream,
+            MATERIAL_IDS[material], partials.data_ptr(), stream,
         )
     _check_rc(lib, rc, "blocked gradient prep")
     blocked_grad_prep.launches += 1
@@ -246,6 +316,35 @@ def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
 
 
 blocked_grad_prep.launches = 0
+
+
+def blocked_edges(blk: Blocking, pos: torch.Tensor) -> torch.Tensor:
+    """Edge matrices (B·Eb, d, d) of every element slot at ``pos``, in
+    block order (x[s, i, j] = p_{j+1}[i] − p_0[i]); padded slots carry the
+    rest edge matrix (the inverse of their R⁻¹), so F = I downstream.
+
+    CUDA tensors: one launch of the blocked prep kernel's edges mode (2D or
+    3D).  CPU tensors: :func:`blocked_edges_plain`."""
+    if pos.device.type == "cpu":
+        return blocked_edges_plain(blk, pos)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    tables = block_tables(blk)
+    n, d = pos.shape[0], tables.dim
+    cuda_build.check_operand("pos", pos, (n, d), torch.float32, blk.volume.device)
+    x = torch.empty((blk.num_blocks * blk.eb, d, d), dtype=torch.float32,
+                    device=pos.device)
+    lib = _library()
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+        rc = lib.fem_blocked_edges(ctypes.byref(tables), pos.data_ptr(),
+                                   x.data_ptr(), stream)
+    _check_rc(lib, rc, "blocked edges")
+    blocked_edges.launches += 1
+    return x
+
+
+blocked_edges.launches = 0
 
 
 def check_slot_plan(blk: Blocking, n: int, dev) -> None:
@@ -336,17 +435,17 @@ blocked_graph_apply.launches = 0
 
 
 def blocked_velocity_solve(
-    blk: Blocking, pos, vel, mass, dt: float, mu: float, lam: float,
-    normal: bool, *, prep=blocked_prep, apply=blocked_graph_apply,
-    max_iter: int = 500, tol: float = 1e-5,
+    blk: Blocking, prepped, vel, mass, dt: float, normal: bool, *,
+    apply=blocked_graph_apply, max_iter: int = 500, tol: float = 1e-5,
 ) -> CGResult:
     """One implicit velocity solve over the blocks (the JAX package's
-    blocked branch, solvers/implicit.py:1080-1101): the prep, the slot-sum
-    assembly, b = v + dt·f/m, then the reference CG (x₀ = b; normal
-    equations when ``normal``) over A·v = v − dt²·G(K)·v/m and
-    Aᵀ·v = v − dt²·G(Kᵀ)·(v/m).  ``prep`` and ``apply`` default to the
-    kernels' wrappers; the plain frame passes their plain versions."""
-    K, partials = prep(blk, pos, mu, lam)
+    blocked branch, solvers/implicit.py:1080-1101) from the prep's
+    ``prepped`` = (K, force partials): the slot-sum assembly,
+    b = v + dt·f/m, then the reference CG (x₀ = b; normal equations when
+    ``normal``) over A·v = v − dt²·G(K)·v/m and Aᵀ·v = v − dt²·G(Kᵀ)·(v/m).
+    ``apply`` defaults to the kernel's wrapper; the plain frame passes its
+    plain version."""
+    K, partials = prepped
     f = blocked_scatter_sum(partials, blk)
     minv = (1.0 / mass)[:, None]
     dt2 = dt * dt

@@ -11,7 +11,11 @@ _hessian_and_force_kernel`` (entry ``hessian_and_force_pallas``) and
 ``_grad_cols_kernel`` (entry ``explicit_grad_columns_pallas``), in the
 dimension of the positions (2 or 3; one kernel template, two instances).
 For tensors on the CPU each runs its plain PyTorch version (``*_plain``).  On
-CUDA each launches its kernel or raises; it never falls back.
+CUDA each launches its kernel or raises; it never falls back.  Both take the
+material of one layer (ops/inelastic.py): Neo-Hookean, or stable
+Neo-Hookean for the Maxwell branch, a template parameter of the kernel
+chosen at launch; the rest-edge inverses are per element already, so a
+layer's dynamic R⁻¹·F_i⁻¹ passes as ``ref_inv``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,12 @@ import ctypes
 
 import torch
 
-from fem_tpu_torch.ops.element import deformation_gradients, k_and_h_chain
+from fem_tpu_torch.ops.element import (
+    MATERIAL_IDS,
+    check_material,
+    deformation_gradients,
+    k_and_h_chain,
+)
 # The plain version of K6 is the element module's +V·P(F)·R⁻ᵀ columns.
 from fem_tpu_torch.ops.element import (  # noqa: F401
     explicit_grad_columns as explicit_grad_columns_plain,
@@ -30,11 +39,12 @@ from fem_tpu_torch.utils import cuda_build
 _P = ctypes.c_void_p
 
 
-def hessian_and_force_plain(pos, element_indices, ref_inv, volume, mu, lam):
+def hessian_and_force_plain(pos, element_indices, ref_inv, volume, mu, lam,
+                            material="neo_hookean"):
     """(K (E, d, d), rhs force columns (E, d, d)) in plain PyTorch: one F
     chain shared by both outputs, as in the kernel."""
     f = deformation_gradients(pos, element_indices, ref_inv)
-    k, h = k_and_h_chain(f, ref_inv, mu, lam)
+    k, h = k_and_h_chain(f, ref_inv, mu, lam, material)
     nv = -volume[:, None, None]
     return nv * k, nv * h
 
@@ -43,13 +53,13 @@ def _library():
     lib = cuda_build.load("element_chain")
     if lib.fem_hessian_and_force.argtypes is None:
         lib.fem_hessian_and_force.argtypes = [
-            ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_float, _P, _P, _P,
+            ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P, _P,
         ]
         lib.fem_hessian_and_force.restype = ctypes.c_int
         lib.fem_explicit_grad_columns.argtypes = [
-            ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, _P, _P,
+            ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, _P, _P,
         ]
         lib.fem_explicit_grad_columns.restype = ctypes.c_int
         lib.fem_element_chain_error.argtypes = [ctypes.c_int]
@@ -91,19 +101,17 @@ def hessian_and_force(
 ):
     """(K (E, d, d), rhs force columns (E, d, d)) of the implicit substep.
 
-    CUDA tensors: one launch of the element-chain kernel (Neo-Hookean,
-    non-robust, 2D or 3D).  CPU tensors: :func:`hessian_and_force_plain`."""
-    if material != "neo_hookean":
-        raise NotImplementedError(
-            f"material {material!r}: only neo_hookean is ported (ROADMAP M11)"
-        )
+    CUDA tensors: one launch of the element-chain kernel (Neo-Hookean or
+    stable Neo-Hookean, non-robust, 2D or 3D).  CPU tensors:
+    :func:`hessian_and_force_plain`."""
+    check_material(material)
     if robust:
         raise NotImplementedError(
             "robust_inversion is not ported yet (ROADMAP M11)"
         )
     if pos.device.type == "cpu":
         return hessian_and_force_plain(
-            pos, element_indices, ref_inv, volume, mu, lam
+            pos, element_indices, ref_inv, volume, mu, lam, material
         )
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
     k = torch.empty((e, d, d), dtype=torch.float32, device=dev)
@@ -112,9 +120,9 @@ def hessian_and_force(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_hessian_and_force(
-            d, pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
-            volume.data_ptr(), e, mu, lam, lam / 2.0, k.data_ptr(),
-            h.data_ptr(), stream,
+            d, MATERIAL_IDS[material], pos.data_ptr(),
+            element_indices.data_ptr(), ref_inv.data_ptr(), volume.data_ptr(),
+            e, mu, lam, lam / 2.0, k.data_ptr(), h.data_ptr(), stream,
         )
     if rc != 0:
         msg = lib.fem_element_chain_error(rc).decode()
@@ -133,15 +141,18 @@ def explicit_grad_columns(
     volume: torch.Tensor,
     mu: float,
     lam: float,
+    material: str = "neo_hookean",
 ) -> torch.Tensor:
     """Explicit energy-gradient columns (E, d, d): column j of element e
     goes to its vertex j+1, −Σ_j to vertex 0.
 
-    CUDA tensors: one launch of the gradient-columns kernel (Neo-Hookean,
-    2D or 3D).  CPU tensors: :func:`explicit_grad_columns_plain`."""
+    CUDA tensors: one launch of the gradient-columns kernel (Neo-Hookean or
+    stable Neo-Hookean, 2D or 3D).  CPU tensors:
+    :func:`explicit_grad_columns_plain`."""
+    check_material(material)
     if pos.device.type == "cpu":
         return explicit_grad_columns_plain(
-            pos, element_indices, ref_inv, volume, mu, lam
+            pos, element_indices, ref_inv, volume, mu, lam, material
         )
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
     g = torch.empty((e, d, d), dtype=torch.float32, device=dev)
@@ -149,8 +160,9 @@ def explicit_grad_columns(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_explicit_grad_columns(
-            d, pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
-            volume.data_ptr(), e, mu, lam, g.data_ptr(), stream,
+            d, MATERIAL_IDS[material], pos.data_ptr(),
+            element_indices.data_ptr(), ref_inv.data_ptr(), volume.data_ptr(),
+            e, mu, lam, g.data_ptr(), stream,
         )
     if rc != 0:
         msg = lib.fem_element_chain_error(rc).decode()

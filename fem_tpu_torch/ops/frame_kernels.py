@@ -7,9 +7,10 @@ launch ``fem_tpu_torch/csrc/blocked_frame.cu`` and
 ``fem_tpu_torch/csrc/explicit_frame.cu`` cooperatively for tensors on a
 CUDA device; they replace the JAX package's Pallas kernels
 ``ops/pallas_blocked_frame.py:_frame_kernel`` (entry ``fused_blocked_frame``)
-and ``_explicit_frame_kernel`` (entry ``fused_explicit_frame``), elastic
-Neo-Hookean branches, in the blocking's dimension (2 or 3; one kernel
-template, two instances each).  For tensors on the CPU each runs its plain
+and ``_explicit_frame_kernel`` (entry ``fused_explicit_frame``), Neo-Hookean,
+with their plastic and Maxwell branches, in the blocking's dimension (2 or
+3; one kernel template, an elastic and an inelastic instance of each
+dimension).  For tensors on the CPU each runs its plain
 version: ``fused_blocked_frame_plain`` runs per substep the plain blocked
 prep, the slot-sum assembly, the reference CG over the plain blocked
 operator and the plain advection; ``fused_explicit_frame_plain`` per
@@ -17,6 +18,16 @@ substep the plain blocked gradient prep, the slot sum and the plain
 kinematic step.  On CUDA each launches its kernel or raises — also when the
 grid cannot be co-resident, since a grid barrier in a grid that is not
 would hang.
+
+Inelastic materials (ops/inelastic.py): ``plastic_inv`` (F_p⁻¹, when
+``plastic_yield`` > 0) and ``viscous_inv`` (F_v⁻¹, when ``viscous_mu`` > 0)
+enter and leave in mesh element order, (E, d, d); each frame returns them
+after the ones it returns for an elastic material.  The kernels keep them
+per element slot through ``Blocking.element_perm``, run the base chain on
+R⁻¹·F_p⁻¹ and add the stable Neo-Hookean branch (λ = 0, μ_v) on R⁻¹·F_v⁻¹,
+and update both after each substep's advection (csrc/inelastic.cuh).  The
+plain frames do the same through ``ops/inelastic.advance_blocked`` with the
+plain edge matrices.
 """
 
 from __future__ import annotations
@@ -31,13 +42,20 @@ from fem_tpu_torch.models.state import Obstacles, SimState
 from fem_tpu_torch.ops.blocked_kernels import (
     BlockTablesC,
     block_tables,
-    blocked_grad_prep_plain,
-    check_slot_plan,
+    blocked_edges_plain,
+    blocked_grad_prep_layers_plain,
     blocked_graph_apply_plain,
-    blocked_prep_plain,
+    blocked_prep_layers_plain,
     blocked_velocity_solve,
+    check_slot_plan,
 )
 from fem_tpu_torch.ops.blocking import Blocking, blocked_scatter_sum
+from fem_tpu_torch.ops.inelastic import (
+    BRANCH_MATERIAL,
+    advance_blocked,
+    layer_ref_inv_blocked,
+    relax_decay,
+)
 from fem_tpu_torch.solvers.advect import (
     advect_implicit_step,
     damping_decay,
@@ -49,6 +67,15 @@ from fem_tpu_torch.utils import cuda_build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+# The inelastic tail both frames' argument structs share
+# (csrc/inelastic.cuh: InelasticArgs).
+_INELASTIC_FIELDS = [
+    ("element_perm", _P), ("plastic_in", _P), ("viscous_in", _P),
+    ("plastic", _P), ("viscous", _P),
+    ("plastic_yield", _F), ("viscous_mu", _F), ("relax", _F),
+]
 
 
 class FrameArgsC(ctypes.Structure):
@@ -66,7 +93,7 @@ class FrameArgsC(ctypes.Structure):
         ("mu", _F), ("lam", _F), ("half_lam", _F), ("tol", _F),
         ("pos", _P), ("vel", _P), ("velg", _P), ("scratch", _P),
         ("iters", _P), ("res", _P),
-    ]
+    ] + _INELASTIC_FIELDS
 
 
 def _gravity3(g_dir, d):
@@ -78,11 +105,56 @@ def _gravity3(g_dir, d):
     return grav + [0.0] * (3 - d)
 
 
+class _Internal:
+    """The inelastic state of one frame call: which branches are on, their
+    constants, and the plain versions' layers and update."""
+
+    def __init__(self, blk, mu, s_lambda, plastic_inv, plastic_yield,
+                 viscous_inv, viscous_mu, viscous_tau, dt):
+        self.plastic = plastic_yield > 0.0
+        self.viscous = viscous_mu > 0.0
+        for on, fi, name in ((self.plastic, plastic_inv, "plastic_inv"),
+                             (self.viscous, viscous_inv, "viscous_inv")):
+            if on != (fi is not None):
+                raise ValueError(
+                    f"{name} must be given exactly when its branch is on")
+        self.blk, self.mu, self.lam = blk, mu, s_lambda
+        self.plastic_yield, self.viscous_mu = plastic_yield, viscous_mu
+        self.relax = relax_decay(dt, viscous_tau) if self.viscous else 0.0
+        self.state = (plastic_inv, viscous_inv)
+
+    @property
+    def on(self):
+        return self.plastic or self.viscous
+
+    def layers(self):
+        plastic, viscous = self.state
+        out = [(layer_ref_inv_blocked(self.blk, plastic), self.mu, self.lam,
+                "neo_hookean")]
+        if viscous is not None:
+            out.append((layer_ref_inv_blocked(self.blk, viscous),
+                        self.viscous_mu, 0.0, BRANCH_MATERIAL))
+        return out
+
+    def advance(self, pos):
+        if self.on:
+            self.state = advance_blocked(
+                self.blk, pos, *self.state, self.plastic_yield, self.relax,
+                edges=blocked_edges_plain)
+
+    def outputs(self):
+        return tuple(fi for fi in self.state if fi is not None)
+
+
 def fused_blocked_frame_plain(
     blk: Blocking, pos, vel, vel_g, mass, centers, radii, *, dt, damping,
     g_dir, mu, s_lambda, preconditioned, sim_count, max_iter=500, tol=1e-5,
+    plastic_inv=None, plastic_yield=0.0, viscous_inv=None, viscous_mu=0.0,
+    viscous_tau=0.1,
 ):
     """Plain PyTorch version of :func:`fused_blocked_frame`."""
+    internal = _Internal(blk, mu, s_lambda, plastic_inv, plastic_yield,
+                         viscous_inv, viscous_mu, viscous_tau, dt)
     state = SimState(pos=pos, vel=vel, vel_g=vel_g, force=torch.zeros_like(pos))
     obstacles = Obstacles(centers=centers, radii=radii)
     decay = damping_decay(dt, damping)
@@ -90,17 +162,42 @@ def fused_blocked_frame_plain(
     iters, res = [], []
     for _ in range(sim_count):
         sol = blocked_velocity_solve(
-            blk, state.pos, state.vel, mass, dt, mu, s_lambda,
-            bool(preconditioned), prep=blocked_prep_plain,
+            blk, blocked_prep_layers_plain(blk, state.pos, internal.layers()),
+            state.vel, mass, dt, bool(preconditioned),
             apply=blocked_graph_apply_plain, max_iter=max_iter, tol=tol,
         )
         state = advect_implicit_step(
             state.replace(vel=sol.x), obstacles, dt, decay, gravity
         )
+        internal.advance(state.pos)
         iters.append(sol.iterations)
         res.append(sol.residual)
     return (state.pos, state.vel, state.vel_g, torch.stack(iters),
-            torch.stack(res))
+            torch.stack(res)) + internal.outputs()
+
+
+def _inelastic_args(blk, internal, n_elem, d):
+    """(C field values of the inelastic tail, output tensors) of a launch;
+    null pointers and no outputs for an elastic material."""
+    if not internal.on:
+        return [None, None, None, None, None, 0.0, 0.0, 0.0], ()
+    dev = blk.volume.device
+    ins, outs = [], []
+    for on, fi, name in zip((internal.plastic, internal.viscous),
+                            internal.state, ("plastic_inv", "viscous_inv")):
+        if not on:
+            ins.append(None)
+            outs.append(None)
+            continue
+        cuda_build.check_operand(name, fi, (n_elem, d, d), torch.float32, dev)
+        ins.append(fi.data_ptr())
+        outs.append(torch.empty_like(fi))
+    cuda_build.check_operand("blocking.element_perm", blk.element_perm,
+                             (blk.num_blocks * blk.eb,), torch.int32, dev)
+    fields = [blk.element_perm.data_ptr(), *ins,
+              *(None if o is None else o.data_ptr() for o in outs),
+              internal.plastic_yield, internal.viscous_mu, internal.relax]
+    return fields, tuple(o for o in outs if o is not None)
 
 
 def _library():
@@ -110,7 +207,7 @@ def _library():
         lib.fem_blocked_frame_scratch_floats.restype = ctypes.c_longlong
         out = ctypes.POINTER(_I)
         lib.fem_blocked_frame_plan.argtypes = [
-            _I, _I, _I, _I, _I, out, out, out,
+            _I, _I, _I, _I, _I, _I, out, out, out,
         ]
         lib.fem_blocked_frame_plan.restype = _I
         lib.fem_blocked_frame.argtypes = [
@@ -123,11 +220,11 @@ def _library():
 
 
 def _plan(lib, plan_fn, error_fn, what, device_index, num_blocks, eb, pb,
-          grid, dim):
+          grid, dim, inelastic):
     g, smem, most = _I(0), _I(0), _I(0)
     with torch.cuda.device(device_index):
         rc = plan_fn(
-            num_blocks, eb, pb, grid, dim, ctypes.byref(g),
+            num_blocks, eb, pb, grid, dim, int(inelastic), ctypes.byref(g),
             ctypes.byref(smem), ctypes.byref(most),
         )
     if rc != 0:
@@ -141,15 +238,15 @@ def _plan(lib, plan_fn, error_fn, what, device_index, num_blocks, eb, pb,
 
 @functools.lru_cache(maxsize=16)
 def frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-               grid: int, dim: int):
+               grid: int, dim: int, inelastic: bool = False):
     """(grid, dynamic shared bytes) of K5's cooperative launch in dimension
-    ``dim``: ``grid`` CTAs, or with 0 one per locality block and at most one
-    per SM.  Raises when the grid cannot be co-resident or its K blocks do
-    not fit."""
+    ``dim`` (its elastic or its inelastic instance): ``grid`` CTAs, or with
+    0 one per locality block and at most one per SM.  Raises when the grid
+    cannot be co-resident or its K blocks do not fit."""
     lib = _library()
     return _plan(lib, lib.fem_blocked_frame_plan, lib.fem_blocked_frame_error,
                  "whole-frame kernel", device_index, num_blocks, eb, pb, grid,
-                 dim)
+                 dim, inelastic)
 
 
 def fused_blocked_frame(
@@ -171,25 +268,36 @@ def fused_blocked_frame(
     max_iter: int = 500,
     tol: float = 1e-5,
     grid: int = 0,
+    plastic_inv=None,
+    plastic_yield: float = 0.0,
+    viscous_inv=None,
+    viscous_mu: float = 0.0,
+    viscous_tau: float = 0.1,
 ):
     """One rendered frame of ``sim_count`` implicit-CG substeps: returns
-    (pos', vel', vel_g' (N, d), iterations (S,) int32, ‖r‖² (S,) f32) — the
-    contract of the JAX package's ``fused_blocked_frame``.
+    (pos', vel', vel_g' (N, d), iterations (S,) int32, ‖r‖² (S,) f32), then
+    plastic_inv' and viscous_inv' (E, d, d) for the branches that are on —
+    the contract of the JAX package's ``fused_blocked_frame``.
 
     CUDA tensors: one cooperative launch of the whole-frame kernel
-    (Neo-Hookean, non-robust, 2D or 3D), with no host synchronisation;
-    ``grid`` sets its CTAs (0: one per locality block, at most one per SM;
-    the tests set it to walk blocks grid-stride and to ask for a grid that
-    cannot be co-resident).  CPU tensors: :func:`fused_blocked_frame_plain`."""
+    (Neo-Hookean with its plastic and Maxwell branches, non-robust, 2D or
+    3D), with no host synchronisation; ``grid`` sets its CTAs (0: one per
+    locality block, at most one per SM; the tests set it to walk blocks
+    grid-stride and to ask for a grid that cannot be co-resident).  CPU
+    tensors: :func:`fused_blocked_frame_plain`."""
+    inelastic = dict(plastic_inv=plastic_inv, plastic_yield=plastic_yield,
+                     viscous_inv=viscous_inv, viscous_mu=viscous_mu,
+                     viscous_tau=viscous_tau)
     if pos.device.type == "cpu":
         return fused_blocked_frame_plain(
             blk, pos, vel, vel_g, mass, centers, radii, dt=dt,
             damping=damping, g_dir=g_dir, mu=mu, s_lambda=s_lambda,
             preconditioned=preconditioned, sim_count=sim_count,
-            max_iter=max_iter, tol=tol,
+            max_iter=max_iter, tol=tol, **inelastic,
         )
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
+    internal = _Internal(blk, mu, s_lambda, dt=dt, **inelastic)
     tables = block_tables(blk)
     dev = pos.device
     n, d = pos.shape[0], tables.dim
@@ -204,7 +312,7 @@ def fused_blocked_frame(
         cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
     check_slot_plan(blk, n, dev)
     g, smem = frame_plan(dev.index or 0, blk.num_blocks, blk.eb, blk.pb,
-                         int(grid), d)
+                         int(grid), d, internal.on)
     lib = _library()
     scratch = torch.empty(
         lib.fem_blocked_frame_scratch_floats(n, blk.num_blocks, blk.pb, g, d),
@@ -214,6 +322,8 @@ def fused_blocked_frame(
     iters = torch.empty((sim_count,), dtype=torch.int32, device=dev)
     res = torch.empty((sim_count,), dtype=f32, device=dev)
     grav = _gravity3(g_dir, d)
+    tail, state_out = _inelastic_args(blk, internal, blk.element_slot.shape[0],
+                                      d)
     args = FrameArgsC(
         tables, plan.ptr.data_ptr(), plan.rows.data_ptr(), pos.data_ptr(),
         vel.data_ptr(), vel_g.data_ptr(), mass.data_ptr(), centers.data_ptr(),
@@ -221,7 +331,7 @@ def fused_blocked_frame(
         int(bool(preconditioned)), dt, dt * dt, damping_decay(dt, damping),
         *grav, mu, s_lambda, s_lambda / 2.0, tol, out[0].data_ptr(),
         out[1].data_ptr(), out[2].data_ptr(), scratch.data_ptr(),
-        iters.data_ptr(), res.data_ptr(),
+        iters.data_ptr(), res.data_ptr(), *tail,
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -230,7 +340,7 @@ def fused_blocked_frame(
         msg = lib.fem_blocked_frame_error(rc).decode()
         raise RuntimeError(f"whole-frame kernel launch failed: {msg}")
     fused_blocked_frame.launches += 1
-    return out[0], out[1], out[2], iters, res
+    return (out[0], out[1], out[2], iters, res) + state_out
 
 
 fused_blocked_frame.launches = 0
@@ -249,15 +359,18 @@ class ExplicitFrameArgsC(ctypes.Structure):
         ("g0", _F), ("g1", _F), ("g2", _F),
         ("mu", _F), ("lam", _F),
         ("pos", _P), ("vel", _P), ("partials", _P),
-    ]
+    ] + _INELASTIC_FIELDS
 
 
 def fused_explicit_frame_plain(
     blk: Blocking, pos, vel, mass, centers, radii, *, dt, damping, g_dir,
-    mu, s_lambda, sim_count,
+    mu, s_lambda, sim_count, plastic_inv=None, plastic_yield=0.0,
+    viscous_inv=None, viscous_mu=0.0, viscous_tau=0.1,
 ):
     """Plain PyTorch version of :func:`fused_explicit_frame`: it multiplies
     the gradient by m⁻¹, as the kernel does."""
+    internal = _Internal(blk, mu, s_lambda, plastic_inv, plastic_yield,
+                         viscous_inv, viscous_mu, viscous_tau, dt)
     state = SimState(pos=pos, vel=vel, vel_g=torch.zeros_like(vel),
                      force=torch.zeros_like(pos))
     obstacles = Obstacles(centers=centers, radii=radii)
@@ -266,10 +379,12 @@ def fused_explicit_frame_plain(
     inv_mass = 1.0 / mass
     for _ in range(sim_count):
         grad = blocked_scatter_sum(
-            blocked_grad_prep_plain(blk, state.pos, mu, s_lambda), blk)
+            blocked_grad_prep_layers_plain(blk, state.pos, internal.layers()),
+            blk)
         state = kinematic_step(state, grad, mass, obstacles, dt, decay,
                                gravity, inv_mass=inv_mass)
-    return state.pos, state.vel
+        internal.advance(state.pos)
+    return (state.pos, state.vel) + internal.outputs()
 
 
 def _explicit_library():
@@ -277,7 +392,7 @@ def _explicit_library():
     if lib.fem_explicit_frame.argtypes is None:
         out = ctypes.POINTER(_I)
         lib.fem_explicit_frame_plan.argtypes = [
-            _I, _I, _I, _I, _I, out, out, out,
+            _I, _I, _I, _I, _I, _I, out, out, out,
         ]
         lib.fem_explicit_frame_plan.restype = _I
         lib.fem_explicit_frame.argtypes = [
@@ -291,13 +406,13 @@ def _explicit_library():
 
 @functools.lru_cache(maxsize=16)
 def explicit_frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-                        grid: int, dim: int):
+                        grid: int, dim: int, inelastic: bool = False):
     """(grid, dynamic shared bytes) of K8's cooperative launch, as
     :func:`frame_plan`."""
     lib = _explicit_library()
     return _plan(lib, lib.fem_explicit_frame_plan,
                  lib.fem_explicit_frame_error, "explicit whole-frame kernel",
-                 device_index, num_blocks, eb, pb, grid, dim)
+                 device_index, num_blocks, eb, pb, grid, dim, inelastic)
 
 
 def fused_explicit_frame(
@@ -315,20 +430,31 @@ def fused_explicit_frame(
     s_lambda: float,
     sim_count: int,
     grid: int = 0,
+    plastic_inv=None,
+    plastic_yield: float = 0.0,
+    viscous_inv=None,
+    viscous_mu: float = 0.0,
+    viscous_tau: float = 0.1,
 ):
     """One rendered frame of ``sim_count`` explicit substeps: returns
-    (pos', vel') (N, d) — the contract of the JAX package's
-    ``fused_explicit_frame``, elastic Neo-Hookean.
+    (pos', vel') (N, d), then plastic_inv' and viscous_inv' (E, d, d) for
+    the branches that are on — the contract of the JAX package's
+    ``fused_explicit_frame``, Neo-Hookean.
 
     CUDA tensors: one cooperative launch of the explicit whole-frame kernel
-    (Neo-Hookean, 2D or 3D), with no host synchronisation; ``grid`` as in
-    :func:`fused_blocked_frame`.  CPU tensors:
-    :func:`fused_explicit_frame_plain`."""
+    (Neo-Hookean with its plastic and Maxwell branches, 2D or 3D), with no
+    host synchronisation; ``grid`` as in :func:`fused_blocked_frame`.  CPU
+    tensors: :func:`fused_explicit_frame_plain`."""
+    inelastic = dict(plastic_inv=plastic_inv, plastic_yield=plastic_yield,
+                     viscous_inv=viscous_inv, viscous_mu=viscous_mu,
+                     viscous_tau=viscous_tau)
     if pos.device.type == "cpu":
         return fused_explicit_frame_plain(
             blk, pos, vel, mass, centers, radii, dt=dt, damping=damping,
             g_dir=g_dir, mu=mu, s_lambda=s_lambda, sim_count=sim_count,
+            **inelastic,
         )
+    internal = _Internal(blk, mu, s_lambda, dt=dt, **inelastic)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     if sim_count < 1:
@@ -346,17 +472,19 @@ def fused_explicit_frame(
         cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
     check_slot_plan(blk, n, dev)
     g, smem = explicit_frame_plan(dev.index or 0, blk.num_blocks, blk.eb,
-                                  blk.pb, int(grid), d)
+                                  blk.pb, int(grid), d, internal.on)
     lib = _explicit_library()
     partials = torch.empty((blk.num_blocks * blk.pb, d), dtype=f32, device=dev)
     out = [torch.empty((n, d), dtype=f32, device=dev) for _ in range(2)]
     grav = _gravity3(g_dir, d)
+    tail, state_out = _inelastic_args(blk, internal, blk.element_slot.shape[0],
+                                      d)
     args = ExplicitFrameArgsC(
         tables, plan.ptr.data_ptr(), plan.rows.data_ptr(), pos.data_ptr(),
         vel.data_ptr(), mass.data_ptr(), centers.data_ptr(),
         radii.data_ptr(), n, o, int(sim_count), dt,
         damping_decay(dt, damping), *grav, mu, s_lambda, out[0].data_ptr(),
-        out[1].data_ptr(), partials.data_ptr(),
+        out[1].data_ptr(), partials.data_ptr(), *tail,
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -365,7 +493,7 @@ def fused_explicit_frame(
         msg = lib.fem_explicit_frame_error(rc).decode()
         raise RuntimeError(f"explicit whole-frame kernel launch failed: {msg}")
     fused_explicit_frame.launches += 1
-    return out[0], out[1]
+    return (out[0], out[1]) + state_out
 
 
 fused_explicit_frame.launches = 0

@@ -86,3 +86,70 @@ def trace(m: torch.Tensor) -> torch.Tensor:
     for i in range(1, d):
         out = out + m[..., i, i]
     return out
+
+
+def gram(f: torch.Tensor) -> torch.Tensor:
+    """FᵀF of (..., d, d), each entry Σ_k f[k, i]·f[k, j] in k order."""
+    return matmul(mT(f), f)
+
+
+def sym_eigh_core(a: dict, d: int, sweeps: int = 6):
+    """Cyclic-Jacobi eigendecomposition on component planes (the JAX
+    package's ``sym_eigh_core``, its ops/smallmat.py:204-251, step for
+    step): ``a`` maps (i, j), i ≤ j, to the symmetric matrix's components
+    (tensors of any one shape).  Returns the rotated dict (eigenvalues at
+    (i, i)) and the rotation dict v[(i, j)] with A = V·diag(w)·Vᵀ.  2D is
+    one exact rotation; 3D ``sweeps`` sweeps over (0, 1), (0, 2), (1, 2).
+    The guards stay as they are: a_pq = 0 is the identity rotation, τ = 0
+    with a_pq ≠ 0 a 45° one (a ±1 sign, not sign(τ))."""
+    pairs = [(0, 1)] if d == 2 else [(0, 1), (0, 2), (1, 2)]
+    a = dict(a)
+    one = torch.ones_like(a[(0, 0)])
+    zero = torch.zeros_like(one)
+    v = {(i, j): (one if i == j else zero) for i in range(d) for j in range(d)}
+
+    def sym(i, j):
+        return (i, j) if i <= j else (j, i)
+
+    for _ in range(1 if d == 2 else sweeps):
+        for p, q in pairs:
+            app, aqq, apq = a[(p, p)], a[(q, q)], a[(p, q)]
+            off = torch.abs(apq) > 0.0
+            tau = (aqq - app) / (2.0 * torch.where(off, apq, one))
+            sgn = torch.where(tau >= 0.0, one, -one)
+            t = torch.where(
+                off, sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau)), zero
+            )
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            a[(p, p)] = c * c * app - 2.0 * s * c * apq + s * s * aqq
+            a[(q, q)] = s * s * app + 2.0 * s * c * apq + c * c * aqq
+            a[(p, q)] = zero
+            for r in range(d):
+                if r == p or r == q:
+                    continue
+                apr, aqr = a[sym(p, r)], a[sym(q, r)]
+                a[sym(p, r)] = c * apr - s * aqr
+                a[sym(q, r)] = s * apr + c * aqr
+            for i in range(d):
+                vip, viq = v[(i, p)], v[(i, q)]
+                v[(i, p)] = c * vip - s * viq
+                v[(i, q)] = s * vip + c * viq
+    return a, v
+
+
+def sym_eigh(m: torch.Tensor, sweeps: int = 6):
+    """Eigendecomposition of symmetric (..., d, d), d ∈ {2, 3}, by
+    :func:`sym_eigh_core`: ``(w (..., d), V (..., d, d))`` with
+    m ≈ V·diag(w)·Vᵀ, eigenvalues not sorted."""
+    d = m.shape[-1]
+    if d not in (2, 3):
+        raise ValueError(f"unsupported matrix dim {d}")
+    a = {(i, j): m[..., i, j] for i in range(d) for j in range(i, d)}
+    a, v = sym_eigh_core(a, d, sweeps)
+    w = torch.stack([a[(i, i)] for i in range(d)], dim=-1)
+    vm = torch.stack(
+        [torch.stack([v[(i, j)] for j in range(d)], dim=-1) for i in range(d)],
+        dim=-2,
+    )
+    return w, vm

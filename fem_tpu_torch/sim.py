@@ -12,6 +12,12 @@ over everything):
 * otherwise: the velocity solve (``solvers/implicit.py``), then implicit
   advection (``solvers/advect.advect_implicit_step``).
 
+An inelastic material (``plastic_yield`` or ``viscous_mu``,
+ops/inelastic.py) runs every path on its material layers, and the substep
+ends with ``advance_internal``, the update of the internal inverses from
+the end-of-substep positions; an inelastic autodiff config runs the
+analytic layered gradient, as the JAX package's does (its sim.py:116-123).
+
 A frame advances ``sim_count`` substeps and returns the per-substep solver
 metrics as device tensors of shape ``(sim_count,)`` (zeros on the explicit
 paths).  ``make_frame_fn`` picks how, as the JAX package's does:
@@ -42,6 +48,11 @@ from fem_tpu_torch.models.state import FemObject, Obstacles, SimState
 from fem_tpu_torch.ops.frame_kernels import (
     fused_blocked_frame,
     fused_explicit_frame,
+)
+from fem_tpu_torch.ops.inelastic import (
+    advance_internal,
+    is_inelastic,
+    material_layers,
 )
 from fem_tpu_torch.solvers.advect import (
     advect_implicit_step,
@@ -118,9 +129,15 @@ def substep(
 ) -> Tuple[SimState, StepAux]:
     """One substep.  Explicit or autodiff: the energy gradient, then the
     kinematic step, with zero solver metrics.  Otherwise semi-implicit: the
-    velocity solve, then advection."""
+    velocity solve, then advection.  An inelastic material then updates its
+    internal inverses."""
+    inelastic = is_inelastic(obj)
+    layers = material_layers(obj, state) if inelastic else None
     if auto_diff or use_explicit_method:
-        if auto_diff:
+        if inelastic:
+            grad = analytic_energy_gradient(obj, state.pos, element_backend,
+                                            layers)
+        elif auto_diff:
             grad = autodiff_energy_gradient(obj, state.pos)
         else:
             grad = analytic_energy_gradient(obj, state.pos, element_backend)
@@ -130,18 +147,22 @@ def substep(
             damping_decay(dt, obj.damping, dtype),
             gravity_vector(tuple(g_dir), obj.device, dtype),
         )
+        if inelastic:
+            state = advance_internal(obj, state, dt)
         return state, StepAux(
             torch.zeros((), dtype=torch.int32, device=obj.device),
             torch.zeros((), dtype=torch.float32, device=obj.device),
         )
     state, aux = implicit_velocity_solve(
         obj, state, dt, implicit_method, preconditioned, robust_inversion,
-        cg_precond, operator_mode,
+        cg_precond, operator_mode, layers,
     )
     state = advect_implicit_step(
         state, obstacles, dt, damping_decay(dt, obj.damping),
         gravity_vector(tuple(g_dir), obj.device),
     )
+    if inelastic:
+        state = advance_internal(obj, state, dt)
     return state, StepAux(aux.iterations, aux.residual)
 
 
@@ -172,8 +193,8 @@ def _circles_only(cfg: SimConfig) -> bool:
 def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
     """Eligibility for the whole-frame kernel K5: the JAX package's config
     conditions (sim.py:275-308), with its VMEM gate replaced by what the
-    port's kernel covers — 2D or 3D, Neo-Hookean, not ``robust_inversion``,
-    and no inelastic statics (the port's objects carry none)."""
+    port's kernel covers — 2D or 3D, Neo-Hookean (with its plastic and
+    Maxwell branches), not ``robust_inversion``."""
     return (
         obj.dim in (2, 3)
         and not cfg.adaptive_dt
@@ -193,6 +214,27 @@ def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
     )
 
 
+def _internal_kwargs(obj: FemObject, state: SimState) -> dict:
+    """The whole-frame kernels' inelastic arguments (JAX sim.py:341-352)."""
+    return dict(
+        plastic_inv=state.plastic_inv if obj.plastic_yield > 0.0 else None,
+        plastic_yield=obj.plastic_yield,
+        viscous_inv=state.viscous_inv if obj.viscous_mu > 0.0 else None,
+        viscous_mu=obj.viscous_mu, viscous_tau=obj.viscous_tau,
+    )
+
+
+def _with_internal(obj: FemObject, state: SimState, extra) -> SimState:
+    """``state`` with the internal inverses a frame returned after its
+    other outputs (plastic first, then viscous)."""
+    extra = list(extra)
+    if obj.plastic_yield > 0.0:
+        state = state.replace(plastic_inv=extra.pop(0))
+    if obj.viscous_mu > 0.0:
+        state = state.replace(viscous_inv=extra.pop(0))
+    return state
+
+
 def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
     """Frame function backed by the whole-frame kernel: one launch per
     rendered frame (``ops/frame_kernels.py``; its plain version on the
@@ -205,11 +247,13 @@ def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
     )
 
     def frame(state: SimState, obstacles: Obstacles):
-        pos, vel, vel_g, iters, res = fused_blocked_frame(
+        pos, vel, vel_g, iters, res, *extra = fused_blocked_frame(
             obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
             obstacles.centers, obstacles.radii, **kwargs,
+            **_internal_kwargs(obj, state),
         )
-        return state.replace(pos=pos, vel=vel, vel_g=vel_g), StepAux(iters, res)
+        state = state.replace(pos=pos, vel=vel, vel_g=vel_g)
+        return _with_internal(obj, state, extra), StepAux(iters, res)
 
     return frame
 
@@ -217,8 +261,8 @@ def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
 def supports_explicit_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
     """Eligibility for the explicit whole-frame kernel K8: the JAX package's
     config conditions (sim.py:311-332), with its VMEM gate replaced by what
-    the port's kernel covers — 2D or 3D, Neo-Hookean, and no inelastic
-    statics (the port's objects carry none)."""
+    the port's kernel covers — 2D or 3D, Neo-Hookean (with its plastic and
+    Maxwell branches)."""
     return (
         obj.dim in (2, 3)
         and not cfg.adaptive_dt
@@ -248,11 +292,12 @@ def make_explicit_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
     force = torch.zeros_like(obj.rest_pos)
 
     def frame(state: SimState, obstacles: Obstacles):
-        pos, vel = fused_explicit_frame(
+        pos, vel, *extra = fused_explicit_frame(
             obj.blocking, state.pos, state.vel, obj.mass, obstacles.centers,
-            obstacles.radii, **kwargs,
+            obstacles.radii, **kwargs, **_internal_kwargs(obj, state),
         )
-        return state.replace(pos=pos, vel=vel, force=force), aux
+        state = state.replace(pos=pos, vel=vel, force=force)
+        return _with_internal(obj, state, extra), aux
 
     return frame
 

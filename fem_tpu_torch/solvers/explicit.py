@@ -4,8 +4,10 @@ energy.
 
 The port of the JAX package's ``solvers/explicit.py`` (reference
 solver/explicit.py:8-49 and solver/explicit_auto_diff.py with the tape at
-main.py:107), without element sharding and inelastic layers.  Both return
-the assembled +∂U/∂x, (N, d), which the kinematic step subtracts.
+main.py:107), without element sharding.  Both return the assembled +∂U/∂x,
+(N, d), which the kinematic step subtracts.  The analytic gradient sums
+over material layers (ops/inelastic.py): each layer runs the kernel below
+on its own effective rest-edge inverses and material.
 
 Which kernels run, as in the JAX package's dispatch
 (its ``solvers/explicit.py:22-143``):
@@ -44,6 +46,12 @@ from fem_tpu_torch.ops.element_kernels import (
     explicit_grad_columns,
     explicit_grad_columns_plain,
 )
+from fem_tpu_torch.ops.inelastic import (
+    layer_ref_inv_blocked,
+    layer_ref_inv_local,
+    normalize_layers,
+    sum_layers,
+)
 
 
 def _check_material(obj: FemObject) -> None:
@@ -64,28 +72,39 @@ def _resolve_backend(element_backend: str, device: torch.device) -> str:
 
 
 def analytic_energy_gradient(
-    obj: FemObject, pos: torch.Tensor, element_backend: str = "auto"
+    obj: FemObject, pos: torch.Tensor, element_backend: str = "auto",
+    layers=None,
 ) -> torch.Tensor:
     """Assembled ∂U/∂x (N, d) from the reference's analytic per-element
-    formula (solver/explicit.py:23-49)."""
+    formula (solver/explicit.py:23-49), summed over material ``layers``
+    (``ops/inelastic.material_layers``; None: the one elastic layer)."""
     _check_material(obj)
     backend = _resolve_backend(element_backend, pos.device)
+    lys = normalize_layers(obj, layers)
     blk = obj.blocking
     if blk is not None:
         if backend == "pallas":
-            partials = blocked_grad_prep(blk, pos, obj.mu, obj.s_lambda)
+            partials = sum_layers(
+                blocked_grad_prep(
+                    blk, pos, mu, lam,
+                    None if fi is None else layer_ref_inv_blocked(blk, fi),
+                    material)
+                for fi, mu, lam, material in lys)
             return blocked_scatter_sum(partials, blk)
-        cols = explicit_grad_columns_plain(
-            pos, blk.element_indices, blk.ref_inv, blk.volume, obj.mu,
-            obj.s_lambda,
-        )
+        cols = sum_layers(
+            explicit_grad_columns_plain(
+                pos, blk.element_indices, layer_ref_inv_blocked(blk, fi),
+                blk.volume, mu, lam, material)
+            for fi, mu, lam, material in lys)
         return blocked_assemble(blk, cols)
     columns = (
         explicit_grad_columns if backend == "pallas"
         else explicit_grad_columns_plain
     )
-    cols = columns(pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
-                   obj.s_lambda)
+    cols = sum_layers(
+        columns(pos, obj.element_indices, layer_ref_inv_local(obj.ref_inv, fi),
+                obj.volume, mu, lam, material)
+        for fi, mu, lam, material in lys)
     return gather_assemble(element_contrib_full(cols), obj.plan.idx)
 
 

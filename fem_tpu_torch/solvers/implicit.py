@@ -23,6 +23,11 @@ partials summed per particle, and the reference CG loop on the host over
 the blocked operator, which reads ‖r‖² on the host once an iteration.  On
 CUDA tensors the kernels are the hand-written CUDA ones; on CPU tensors
 their plain PyTorch versions.
+
+An inelastic material passes its material layers (ops/inelastic.py): the
+element chain (or the blocked prep) runs once per layer on that layer's
+effective rest-edge inverses and material, and the solve runs once over the
+summed K blocks and force columns (partials).
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from fem_tpu_torch.models.state import FemObject, SimState
-from fem_tpu_torch.ops.blocked_kernels import blocked_velocity_solve
+from fem_tpu_torch.ops.blocked_kernels import (
+    blocked_prep,
+    blocked_velocity_solve,
+)
 from fem_tpu_torch.ops.cg_kernels import (
     conjugate_gradient,
     fused_cg_solve,
@@ -40,6 +48,12 @@ from fem_tpu_torch.ops.cg_kernels import (
     system_applies,
 )
 from fem_tpu_torch.ops.element_kernels import hessian_and_force
+from fem_tpu_torch.ops.inelastic import (
+    layer_ref_inv_blocked,
+    layer_ref_inv_local,
+    normalize_layers,
+    sum_layers,
+)
 from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, JACOBI_METHOD
 
 __all__ = [
@@ -99,12 +113,14 @@ def implicit_velocity_solve(
     robust: bool = False,
     cg_precond: str = "reference",
     operator_mode: str = "auto",
+    layers=None,
 ) -> Tuple[SimState, ImplicitAux]:
     """Assemble (matrix-free) and solve for the new velocity; returns the
     updated state (vel ← x, implicit.py:222-223) and the solver metrics, all
     left on the object's device.  ``operator_mode="blocked"`` takes the
     blocked operator (the JAX package's blocked branch with
-    ``element_backend="pallas"``); every other mode the whole-solve kernel."""
+    ``element_backend="pallas"``); every other mode the whole-solve kernel.
+    ``layers``: the material layers (None: the one elastic layer)."""
     if method == JACOBI_METHOD:
         raise NotImplementedError(
             "the Jacobi solver (implicit_method=0) is not ported yet "
@@ -117,11 +133,16 @@ def implicit_velocity_solve(
             f"cg_precond={cg_precond!r} is not ported yet (ROADMAP M13)"
         )
     normal = preconditioned == 1 and cg_precond == "reference"
+    lys = normalize_layers(obj, layers)
     if operator_mode == "blocked":
-        return _blocked_solve(obj, state, dt, normal, robust)
-    K, cols = hessian_and_force(
-        state.pos, obj.element_indices, obj.ref_inv, obj.volume,
-        obj.mu, obj.s_lambda, robust, obj.material,
+        return _blocked_solve(obj, state, dt, normal, robust, lys)
+    K, cols = sum_layers(
+        hessian_and_force(
+            state.pos, obj.element_indices,
+            layer_ref_inv_local(obj.ref_inv, fi), obj.volume, mu, lam, robust,
+            material,
+        )
+        for fi, mu, lam, material in lys
     )
     vel, iters, residual = fused_cg_solve(
         K, cols, obj.element_indices, obj.plan, state.vel, obj.mass, dt,
@@ -131,11 +152,12 @@ def implicit_velocity_solve(
 
 
 def _blocked_solve(
-    obj: FemObject, state: SimState, dt: float, normal: bool, robust: bool
+    obj: FemObject, state: SimState, dt: float, normal: bool, robust: bool,
+    layers,
 ) -> Tuple[SimState, ImplicitAux]:
-    """The blocked branch (JAX implicit.py:1080-1101): K2, the slot-sum
-    assembly, b = v + dt·f/m, then the reference CG over A and Aᵀ built from
-    K3."""
+    """The blocked branch (JAX implicit.py:1080-1101): K2 per material
+    layer, the slot-sum assembly of the summed partials, b = v + dt·f/m,
+    then the reference CG over A and Aᵀ built from K3 on the summed K."""
     if robust:
         raise NotImplementedError(
             "robust_inversion is not ported yet (ROADMAP M11)"
@@ -146,9 +168,13 @@ def _blocked_solve(
         )
     if obj.blocking is None:
         raise ValueError("operator_mode='blocked' requires obj.blocking")
-    res = blocked_velocity_solve(
-        obj.blocking, state.pos, state.vel, obj.mass, dt, obj.mu,
-        obj.s_lambda, normal,
+    blk = obj.blocking
+    prepped = sum_layers(
+        blocked_prep(
+            blk, state.pos, mu, lam,
+            None if fi is None else layer_ref_inv_blocked(blk, fi), material)
+        for fi, mu, lam, material in layers
     )
+    res = blocked_velocity_solve(blk, prepped, state.vel, obj.mass, dt, normal)
     return state.replace(vel=res.x), ImplicitAux(res.iterations, res.residual)
 

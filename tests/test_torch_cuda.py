@@ -831,3 +831,280 @@ def test_two_bodies_scene_runs_two_explicit_frames():
         np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(),
                                    atol=TOL)
     assert frame_kernels.fused_explicit_frame.launches == before + 2
+
+
+# -- Inelastic materials: the layered chains, K7b edges, K5 and K8 ---------
+
+INELASTIC_MATS = {
+    "plastic": dict(plastic_yield=0.02),
+    "viscous": dict(viscous_mu=1e4, viscous_tau=0.03),
+    "both": dict(plastic_yield=0.02, viscous_mu=1e4, viscous_tau=0.03),
+}
+
+
+def _inelastic_body(dim, mat, sub, side, seed=3):
+    """A grid body with material ``mat``, stretched 10 % along x and
+    squashed 10 % along y about its centroid (so that it yields at once),
+    random velocities and internal inverses I + 0.03·noise (so that a state
+    applied to the wrong element shows), from a numpy seed."""
+    if dim == 2:
+        cfg = ObjectConfig(subdivisions=sub, side_length=side,
+                           center=(0.5, 0.45), E=4e4, nu=0.2, rho=500.0,
+                           damping=8.0, **mat)
+        v, f, t = pmesh.construct_2d_mesh(cfg)
+    else:
+        cfg = ObjectConfig(subdivisions=sub, side_length=side,
+                           center=(0.4, 0.3, 0.4), E=4e4, nu=0.2, rho=500.0,
+                           damping=8.0, **mat)
+        v, f, t = pmesh.construct_3d_grid_mesh(cfg)
+    obj, state = build_object(cfg, v, f, t, device="cuda")
+    rng = np.random.default_rng(seed)
+    pos = state.pos.cpu().numpy()
+    c = pos.mean(axis=0, keepdims=True)
+    scale = np.ones(dim)
+    scale[0], scale[1] = 1.1, 0.9
+    pos = c + (pos - c) * scale
+    vel = rng.uniform(-0.3, 0.3, pos.shape)
+    changes = dict(pos=torch.as_tensor(pos.astype(np.float32), device="cuda"),
+                   vel=torch.as_tensor(vel.astype(np.float32), device="cuda"))
+    for name in ("plastic_inv", "viscous_inv"):
+        if getattr(state, name) is not None:
+            fi = np.eye(dim) + 0.03 * rng.standard_normal(
+                (obj.element_cnt, dim, dim))
+            changes[name] = torch.as_tensor(fi.astype(np.float32),
+                                            device="cuda")
+    return obj, state.replace(**changes)
+
+
+@pytest.fixture(scope="module")
+def inelastic_bodies():
+    """Both branches on: the 2D one-block scene's size (10 subdivisions),
+    the 2D 40-subdivision grid (16 blocks; side 0.8, so that an element's
+    edge, 0.02, is long beside the positions' rounding its F⁻¹ divides by)
+    and the 3D grid at 5 subdivisions (3 blocks)."""
+    _require_cuda()
+    mat = INELASTIC_MATS["both"]
+    out = {"2D one block": _inelastic_body(2, mat, 10, 0.2),
+           "2D 16 blocks": _inelastic_body(2, mat, 40, 0.8),
+           "3D": _inelastic_body(3, mat, 5, 0.2)}
+    assert out["2D one block"][0].blocking.num_blocks == 1
+    assert out["2D 16 blocks"][0].blocking.num_blocks == 16
+    assert out["3D"][0].blocking.num_blocks >= 3
+    return out
+
+
+def _layers(obj, state):
+    """(ref_inv (E, d, d), block-ordered ref_inv (B·Eb, d, d), μ, λ,
+    material) of the base layer on R⁻¹·F_p⁻¹ and the Maxwell layer."""
+    from fem_tpu_torch.ops import inelastic
+
+    out = []
+    for fi, mu, lam, material in inelastic.material_layers(obj, state):
+        out.append((inelastic.layer_ref_inv_local(obj.ref_inv, fi),
+                    inelastic.layer_ref_inv_blocked(obj.blocking, fi), mu,
+                    lam, material))
+    return out
+
+
+@pytest.mark.parametrize("case", ["2D one block", "3D"])
+def test_layer_chain_kernels_match_plain_and_repeat(inelastic_bodies, case):
+    """K1, K6, K2 and K7b on each material layer — the base Neo-Hookean on
+    the dynamic R⁻¹·F_p⁻¹ and the stable Neo-Hookean branch on R⁻¹·F_v⁻¹:
+    within 1e-5 of the plain version (block-relative, or of the partials'
+    largest entry), bit-identical twice."""
+    obj, state = inelastic_bodies[case]
+    blk = obj.blocking
+    for r, rb, mu, lam, material in _layers(obj, state):
+        args = (state.pos, obj.element_indices, r, obj.volume, mu, lam)
+        k, h = element_kernels.hessian_and_force(*args, material=material)
+        kp, hp = element_kernels.hessian_and_force_plain(*args, material)
+        assert _block_rel_err(k, kp) <= TOL and _block_rel_err(h, hp) <= TOL
+        again = element_kernels.hessian_and_force(*args, material=material)
+        assert torch.equal(k, again[0]) and torch.equal(h, again[1])
+        g = element_kernels.explicit_grad_columns(*args, material)
+        gp = element_kernels.explicit_grad_columns_plain(*args, material)
+        assert _block_rel_err(g, gp) <= TOL
+        assert torch.equal(g, element_kernels.explicit_grad_columns(
+            *args, material))
+        bargs = (blk, state.pos, mu, lam, rb, material)
+        kb, part = blocked_kernels.blocked_prep(*bargs)
+        kbp, partp = blocked_kernels.blocked_prep_plain(*bargs)
+        assert _block_rel_err(kb, kbp) <= TOL
+        assert float((part - partp).abs().max()) <= TOL * float(
+            partp.abs().max())
+        assert all(torch.equal(a, b) for a, b in
+                   zip((kb, part), blocked_kernels.blocked_prep(*bargs)))
+        gb = blocked_kernels.blocked_grad_prep(*bargs)
+        gbp = blocked_kernels.blocked_grad_prep_plain(*bargs)
+        assert float((gb - gbp).abs().max()) <= TOL * float(gbp.abs().max())
+        assert torch.equal(gb, blocked_kernels.blocked_grad_prep(*bargs))
+
+
+@pytest.mark.parametrize("case", ["2D one block", "2D 16 blocks", "3D"])
+def test_blocked_edges_kernel_matches_plain_and_repeats(inelastic_bodies,
+                                                        case):
+    obj, state = inelastic_bodies[case]
+    blk = obj.blocking
+    before = blocked_kernels.blocked_edges.launches
+    x = blocked_kernels.blocked_edges(blk, state.pos)
+    assert blocked_kernels.blocked_edges.launches == before + 1
+    xp = blocked_kernels.blocked_edges_plain(blk, state.pos)
+    assert x.shape == (blk.num_blocks * blk.eb, obj.dim, obj.dim)
+    assert float((x - xp).abs().max()) <= TOL * float(xp.abs().max())
+    assert torch.equal(x, blocked_kernels.blocked_edges(blk, state.pos))
+
+
+def _inelastic_frame(kernel, obj, state, grid=0, plain=False):
+    from fem_tpu_torch.ops.frame_kernels import (
+        fused_blocked_frame_plain,
+        fused_explicit_frame_plain,
+    )
+
+    dt = 2e-4 if obj.element_cnt > 1000 else 5e-4
+    kw = dict(dt=dt, damping=obj.damping,
+              g_dir=(0.0, -1.0) if obj.dim == 2 else (0.0, -1.0, 0.0),
+              mu=obj.mu, s_lambda=obj.s_lambda, sim_count=10,
+              plastic_inv=state.plastic_inv, plastic_yield=obj.plastic_yield,
+              viscous_inv=state.viscous_inv, viscous_mu=obj.viscous_mu,
+              viscous_tau=obj.viscous_tau)
+    obs = Obstacles.from_configs((), obj.dim, device="cuda")
+    if kernel == "K5":
+        fn = fused_blocked_frame_plain if plain else frame_kernels.fused_blocked_frame
+        args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+                obs.centers, obs.radii)
+        kw["preconditioned"] = True
+    else:
+        fn = (fused_explicit_frame_plain if plain
+              else frame_kernels.fused_explicit_frame)
+        args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
+                obs.radii)
+    if not plain:
+        kw["grid"] = grid
+    return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("case", ["2D one block", "2D 16 blocks",
+                                  "2D 16 blocks, 3 CTAs", "3D"])
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+def test_inelastic_frame_kernels_match_plain_and_repeat(inelastic_bodies,
+                                                        kernel, case):
+    """K5 and K8 with both branches (each branch alone: the next test):
+    positions and both internal inverses within 1e-5 of the plain frame
+    after a frame of 10 substeps, two runs bit-identical; 3 CTAs walking the
+    16 blocks grid-stride check the grid barrier before the update."""
+    obj, state = inelastic_bodies[case.split(",")[0]]
+    grid = 3 if "3 CTAs" in case else 0
+    counter = (frame_kernels.fused_blocked_frame if kernel == "K5"
+               else frame_kernels.fused_explicit_frame)
+    before = counter.launches
+    out = _inelastic_frame(kernel, obj, state, grid)
+    assert counter.launches == before + 1
+    ref = _inelastic_frame(kernel, obj, state, plain=True)
+    assert len(out) == len(ref)
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    for got, want, start in zip(out[-2:], ref[-2:], (state.plastic_inv,
+                                                     state.viscous_inv)):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= TOL
+        assert float((got - start).abs().max()) > 1e-4
+    again = _inelastic_frame(kernel, obj, state, grid)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("mat", ["plastic", "viscous"])
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+def test_inelastic_frame_kernels_one_branch(kernel, mat, dim):
+    """One branch alone (the other's state None): positions and the
+    branch's internal inverse within 1e-5 of the plain frame, over 2 CTAs
+    walking the blocks of the 2D 16-subdivision grid (3) or of the 3D grid
+    at 5 subdivisions."""
+    _require_cuda()
+    if dim == 2:
+        obj, state = _inelastic_body(2, INELASTIC_MATS[mat], 16, 0.4)
+    else:
+        obj, state = _inelastic_body(3, INELASTIC_MATS[mat], 5, 0.2)
+    assert obj.blocking.num_blocks >= 3
+    out = _inelastic_frame(kernel, obj, state, grid=2)
+    ref = _inelastic_frame(kernel, obj, state, plain=True)
+    assert len(out) == len(ref) == (6 if kernel == "K5" else 3)
+    for got, want in ((out[0], ref[0]), (out[-1], ref[-1])):
+        assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("method", ["explicit", "implicit", "blocked",
+                                    "unblocked"])
+def test_layered_substep_launch_counts(inelastic_bodies, method):
+    """The op-composed layered substep on the card: each chain kernel once
+    per layer (two layers), K7b edges once (the blocked update; none
+    without blocks), and equal to the CPU substep within 1e-5."""
+    obj, state = inelastic_bodies["2D one block"]
+    over = dict(dim=2, g_dir=[0, -1], frame_backend="auto")
+    if method in ("explicit", "unblocked"):
+        over["use_explicit_method"] = True
+    if method == "blocked":
+        over["operator_mode"] = "blocked"
+    if method == "unblocked":
+        obj = dataclasses.replace(obj, blocking=None)
+    cfg = _frame_cfg(**over)
+    counters = {
+        "K1": element_kernels.hessian_and_force,
+        "K4": cg_kernels.fused_cg_solve,
+        "K2": blocked_kernels.blocked_prep,
+        "K3": blocked_kernels.blocked_graph_apply,
+        "K6": element_kernels.explicit_grad_columns,
+        "K7b": blocked_kernels.blocked_grad_prep,
+        "K7b edges": blocked_kernels.blocked_edges,
+    }
+    before = {k: c.launches for k, c in counters.items()}
+    obs = Obstacles.from_configs((), 2, device="cuda")
+    s, aux = sim.substep(obj, state, obs, **sim.substep_kwargs(cfg))
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want["K7b edges"] = 0 if method == "unblocked" else 1
+    if method == "explicit":
+        want["K7b"] = 2
+    elif method == "unblocked":
+        want["K6"] = 2
+    elif method == "implicit":
+        want.update(K1=2, K4=1)
+    else:
+        want.update(K2=2, K3=3 + 2 * int(aux.solver_iterations))
+    assert got == want
+    cpu_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
+    if method == "unblocked":
+        cpu_obj = dataclasses.replace(cpu_obj, blocking=None)
+    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state), "cpu")
+    ref, _ = sim.substep(cpu_obj, cpu_state, Obstacles.from_configs(
+        (), 2, device="cpu"), **sim.substep_kwargs(cfg))
+    for name in ("pos", "plastic_inv", "viscous_inv"):
+        np.testing.assert_allclose(getattr(s, name).cpu().numpy(),
+                                   getattr(ref, name).numpy(), rtol=0,
+                                   atol=TOL, err_msg=name)
+
+
+def test_demo_plastic_runs_each_body_through_k8():
+    """configs/demo_plastic.json through scene.load_scene: K8 once per body
+    a frame, each frame equal to its CPU frame (positions and the body's
+    internal inverse)."""
+    import os
+
+    from fem_tpu_torch import scene
+    from fem_tpu_torch.utils.config import read_config
+
+    _require_cuda()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = read_config(os.path.join(repo, "configs", "demo_plastic.json"))
+    bodies, obs = scene.load_scene(cfg, device="cuda")
+    cpu_bodies, cpu_obs = scene.load_scene(cfg, device="cpu")
+    before = frame_kernels.fused_explicit_frame.launches
+    for body, cpu_body in zip(bodies, cpu_bodies):
+        s, _ = sim.make_frame_fn(body.obj, cfg)(body.state, obs)
+        ref, _ = sim.make_frame_fn(cpu_body.obj, dataclasses.replace(
+            cfg, frame_backend="blocked_explicit"))(cpu_body.state, cpu_obs)
+        for name in ("pos", "plastic_inv", "viscous_inv"):
+            if getattr(ref, name) is not None:
+                np.testing.assert_allclose(
+                    getattr(s, name).cpu().numpy(),
+                    getattr(ref, name).numpy(), atol=TOL, err_msg=name)
+    assert frame_kernels.fused_explicit_frame.launches == before + 2

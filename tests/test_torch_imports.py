@@ -127,9 +127,13 @@ def test_unported_features_raise():
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP M"):
             check_supported_config(dataclasses.replace(base, **change))
+    # Inelastic materials (plastic_yield, viscous_mu) run since ROADMAP
+    # M14; stable Neo-Hookean runs only as their Maxwell branch layer.
     for change in (
-        dict(material="stvk"), dict(plastic_yield=0.1), dict(viscous_mu=1.0),
+        dict(material="stvk"), dict(material="stable_neo_hookean"),
+        dict(load_boxes=(((0, 0, 0), (1, 1, 1), (0, -1, 0)),)),
         dict(pin_boxes=(((0, 0, 0), (1, 1, 1)),)), dict(damping_beta=0.01),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP M"):
             check_supported_object(ObjectConfig(**change))
+    check_supported_object(ObjectConfig(plastic_yield=0.1, viscous_mu=1.0))
