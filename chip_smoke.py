@@ -7,12 +7,15 @@
 Drives the port on the flagship ``configs/demo_spot.json`` (1,007
 particles, 4,068 tets, 17 locality blocks, ``sim_count = 10``) through its
 paths — the implicit CG in normal-equations mode (A-C) and the explicit
-and autodiff method at ``delta_time = 1e-4`` (D-G) — and holds every CUDA
-kernel of those paths against its plain PyTorch version:
+and autodiff method at ``delta_time = 1e-4`` (D-G) — on the 2D scenes
+(H-L), the inelastic materials (M-Q) and every base material and
+``robust_inversion`` (R-V), and holds every CUDA kernel of those paths
+against its plain PyTorch version:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: every kernel from ``fem_tpu_torch/csrc/`` with nvcc for sm_90a,
-   all sources compiled in parallel;
+   one library per source and material instance, all compiled in
+   parallel;
 3. K1, the element chain, against ``hessian_and_force_plain`` on the
    flagship's deformed state (block-relative error ≤ 1e-5);
 4. K4, the whole CG solve, against ``fused_cg_solve_plain`` with
@@ -104,16 +107,50 @@ kernel of those paths against its plain PyTorch version:
     and on path P's body (deformed): K1 + K4, K2 + K3, K7b, K7a, K6 per
     layer, K7b edges once a substep (the blocked update), each first
     substep equal to the CPU's to 1e-5;
-27. where each frame's device time goes and the device's busy share, from
+27. materials: every material instance of K1, K2, K5, K6, K7b and K8
+    (stvk, linear, corotated, stable Neo-Hookean, Mooney-Rivlin, fiber) and
+    the robust Neo-Hookean instance of K1, K2 and K5, in 2D (the default
+    scene squeezed) and 3D (the flagship deformed), K5 and K8 also with
+    the inelastic branches, against their plain versions (1e-5, iterations
+    within 1 in short solves), each twice bit-identical;
+28. path R, ``configs/demo_passage_corotated.json`` as shipped through
+    ``scene.load_scene`` and ``make_frame_fn``: 200 frames, K8's 2D
+    corotated instance once a frame and nothing else, the first frame equal
+    to the CPU's, the end state held to the JAX package's 200-frame values
+    (tests/test_torch_golden_corotated.py);
+29. path S, ``default.json`` with each material as shipped (K8) and with
+    the ``implicit_cg`` overrides (K5), 30 frames each, and
+    ``demo_plastic.json``'s body 0 with each material from its squashed
+    state (K8 and K5 inelastic; corotated 10 frames, the others 1);
+30. path T, the flagship with each material from the deformed state:
+    3 frames through K5 and through K8 (corotated 30 each, timed); with
+    ``plastic_yield = 0.01`` each material through K5 (stvk 30 frames) and
+    K8, 1 frame;
+31. path U, ``robust_inversion``: the flagship (K5 3D robust, 30 frames)
+    and ``default.json``'s ``implicit_cg`` variant (K5 2D robust), a state
+    with one tet inverted and nearly flat (the robust K5 finite, equal to
+    its plain frame on the card and to the CPU's), and the op-composed
+    robust substeps with C's and B's settings (K1 + K4, K2 + K3);
+32. path V, the op-composed material substeps with C's, B's, E's, F's and
+    G's settings on ``default.json`` with corotated and the flagship with
+    ``fiber:1,0,0``, 10 substeps each, and a 2-substep sweep of every other
+    material with C's, B's, E's and G's settings (every instance of K1, K2,
+    K7b and K6 runs on a path); each first substep equal to the CPU's;
+    every instance of the line's material rows launched on paths R-V;
+33. the 3D canary of tests/test_golden.py (``assets/cube.stl`` meshed by
+    the port, spacing 0.5): 100 frames through K5, held to its goldens;
+34. where each frame's device time goes and the device's busy share, from
     one profiled window per path (A, the op-composed K1 + K4 frame, D, H,
-    I, K, both of L, M, N, O and P, and path Q's explicit layered substep in
-    2D and 3D); each kernel's device time per launch
-    in 3D and in 2D (profiler; the run fails if it sees no launch of it),
-    its plain version's time (CUDA events), the least time the card could
-    take (bound) and, for K3, K7a and K7b edges, one PyTorch sparse product
-    (library yardstick), printed as one ``kernels`` JSON line with a row
-    per kernel and dimension, the inelastic instances of K5 and K8 rows of
-    their own.
+    I, K, both of L, M, N, O and P, path Q's explicit layered substep in
+    2D and 3D, R, T's corotated K5 and K8, U's K5); each kernel's device
+    time per launch in 3D and in 2D (profiler; the run fails if it sees no
+    launch of it), its plain version's time (CUDA events), the least time
+    the card could take (bound) and, for K3, K7a and K7b edges, one PyTorch
+    sparse product (library yardstick), printed as one ``kernels`` JSON
+    line with a row per kernel and dimension, the inelastic instances of K5
+    and K8 rows of their own, and a row per material and robust instance
+    (with ``material`` and ``robust`` keys).  The build's lines give each
+    library's seconds and the registers and spills of every instance.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -297,21 +334,27 @@ def profile_kernels(torch, fn, reps):
     return out, wall_ms
 
 
-def kernel_ms(torch, fn, reps, names):
+def kernel_ms(torch, fn, reps, names, windows=3):
     """Device milliseconds per call of ``fn``, each of which launches every
     kernel of ``names`` once: the sum over ``names`` of the kernel's mean
     time per launch, from the profiler over ``reps`` calls.  Raises if the
-    profiler saw no launch of one of them.  (CUPTI may miss a launch at the
-    window's edge, so each mean is over those seen.)"""
-    per_kernel, _ = profile_kernels(torch, fn, reps)
+    profiler saw no launch of one of them in ``windows`` windows.  (CUPTI
+    may miss a launch at the window's edge, so each mean is over those
+    seen; it has also returned a window with none of a kernel's launches,
+    once in ~130 windows, so a window that saw none is taken again.)"""
+    for _ in range(windows):
+        per_kernel, _ = profile_kernels(torch, fn, reps)
+        hits = {name: [v for k, v in per_kernel.items() if name in k]
+                for name in names}
+        if all(hits.values()):
+            break
     total = 0.0
     for name in names:
-        hits = [v for k, v in per_kernel.items() if name in k]
-        launches = sum(c for _, c in hits)
+        launches = sum(c for _, c in hits[name])
         require(0 < launches <= reps,
                 f"the profiler saw {launches} launches of {name} in {reps} "
-                "calls")
-        total += sum(t for t, _ in hits) / launches
+                f"calls, in each of {windows} windows")
+        total += sum(t for t, _ in hits[name]) / launches
     return total
 
 
@@ -332,27 +375,31 @@ def cg_ops(e, n, iterations, normal, d):
     return setup + iterations * (op + 10 * d * n)
 
 
-def frame_ops(e, n, slot_rows, iterations, normal, d):
+def frame_ops(e, n, slot_rows, iterations, normal, d, chain=None):
     """f32 operations of one whole frame whose substeps took
-    ``iterations``: per substep the chain and force rows, the rhs, the
-    applies of its CG (each a G(K)·x, its slot sums and its vector work), the
-    CG's vector work and the advection."""
+    ``iterations``: per substep the chain (``chain`` a element; default the
+    Neo-Hookean one) and force rows, the rhs, the applies of its CG (each a
+    G(K)·x, its slot sums and its vector work), the CG's vector work and the
+    advection."""
     ops = OPS[d]
+    chain = ops["chain"] if chain is None else chain
     apply = ops["apply"] * e + d * slot_rows + 4 * d * n
     total = 0
     for it in iterations:
         applies = 3 + 2 * it if normal else 1 + it
-        total += ((ops["chain"] + (d + 1) * d) * e + d * slot_rows
+        total += ((chain + (d + 1) * d) * e + d * slot_rows
                   + 4 * d * n + applies * apply + it * 10 * d * n
                   + ops["advect"] * n)
     return total
 
 
-def explicit_frame_ops(e, n, slot_rows, sim_count, d):
+def explicit_frame_ops(e, n, slot_rows, sim_count, d, grad=None):
     """f32 operations of one explicit frame: per substep the gradient chain
-    and rows of every element, the slot sums and the kinematic step."""
+    (``grad`` a element; default the Neo-Hookean one) and rows of every
+    element, the slot sums and the kinematic step."""
     ops = OPS[d]
-    return sim_count * ((ops["grad"] + ops["rows"]) * e + d * slot_rows
+    grad = ops["grad"] if grad is None else grad
+    return sim_count * ((grad + ops["rows"]) * e + d * slot_rows
                         + ops["kinematic"] * n)
 
 
@@ -1016,7 +1063,8 @@ def state_err(a, b):
         x, y = getattr(a, name), getattr(b, name)
         require((x is None) == (y is None), f"{name} present on one side")
         if x is not None:
-            err = max(err, float((x.cpu() - y).abs().max()))
+            e = float((x.cpu() - y).abs().max())
+            err = max(err, e if e == e else float("inf"))  # NaN counts as inf
     return err
 
 
@@ -1541,6 +1589,659 @@ def time_inelastic_kernels(torch, d, timing):
     return out
 
 
+# -- Materials (sections 27-33) ----------------------------------------------
+
+FRAMES_T = 3  # path T, each material through K5 and through K8
+SUBSTEPS_SWEEP = 2  # path V's sweep of every material, each setting
+
+# Every base material but Neo-Hookean, as the JAX package spells them (the
+# 2D body's E 4e4, ν 0.2 allow Mooney-Rivlin at β 0.3, the flagship's ν 0.4
+# its default β 0.5).
+MATERIALS = {
+    2: ("stvk", "linear", "corotated", "stable_neo_hookean",
+        "mooney_rivlin:0.3", "fiber:1,0"),
+    3: ("stvk", "linear", "corotated", "stable_neo_hookean", "mooney_rivlin",
+        "fiber:1,0,0"),
+}
+# f32 operations of each material's P and DP a element (material_p_dp in
+# element_chain.cuh), counted from the formulas: corotated's 12 Higham
+# iterations are ~60 operations each in 3D, ~16 in 2D.  The implicit chain
+# adds the edges, F, DP·Rᵀ, P·Rᵀ and the scaling (3D 162, 2D 48), the
+# gradient chain the edges, F, P·Rᵀ and the scaling (108, 32); robust
+# Neo-Hookean adds ~6 to OPS[d]["chain"].
+MATERIAL_OPS = {
+    3: {"stvk": (117, 168), "linear": (36, 24), "corotated": (805, 75),
+        "stable_neo_hookean": (125, 144), "mooney_rivlin": (200, 410),
+        "fiber": (174, 209)},
+    2: {"stvk": (38, 52), "linear": (18, 12), "corotated": (223, 30),
+        "stable_neo_hookean": (20, 33), "mooney_rivlin": (64, 134),
+        "fiber": (43, 66)},
+}
+# tests/test_torch_golden_corotated.py: configs/demo_passage_corotated.json's
+# 200-frame values (recorded by the JAX package on the CPU; mean and std
+# within 5e-3, particles 0, 60 and 120 within 1e-2).  Copied: that file
+# imports the JAX package.
+GOLDEN_COROTATED = dict(mean=0.52271651, std=0.06694287,
+                        p0=(0.59543681, 0.45029497),
+                        p60=(0.49884495, 0.54849130),
+                        p120=(0.39236563, 0.64084446))
+# tests/test_golden.py:93-104: the 3D canary (assets/cube.stl, spacing 0.5,
+# 100 frames; mean and std within 5e-3, particles 0 and 5 within 1e-2).
+GOLDEN_3D = dict(mean=0.27050927, std=0.16186684,
+                 p0=(0.2029982, -0.0001941, 0.1924001),
+                 p5=(0.4930525, -0.0001596, 0.5102745))
+# The kernels with material instances: counter name → whether it has a
+# robust one, whether its instances are also inelastic ones (the frames).
+MATERIAL_KERNELS = {
+    "element_chain": (True, False), "blocked_prep": (True, False),
+    "blocked_frame": (True, True), "grad_columns": (False, False),
+    "blocked_grad_prep": (False, False), "explicit_frame": (False, True),
+}
+
+
+def material_frame_call(kernel, obj, state, obs, dt, g, material, robust,
+                        inelastic):
+    """(kernel wrapper, plain version, args, kwargs) of one frame of K5 or K8
+    of ``material`` (``robust``: K5's robust instance; ``inelastic``: with
+    ``state``'s internal inverses) from ``state``."""
+    from fem_tpu_torch.ops import frame_kernels as fk
+
+    kw = dict(dt=dt, damping=obj.damping, g_dir=g, mu=obj.mu,
+              s_lambda=obj.s_lambda, sim_count=10, material=material)
+    if inelastic:
+        kw.update(inelastic_kwargs(obj, state))
+    if kernel == "K5":
+        kw.update(preconditioned=True, robust=robust)
+        args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+                obs.centers, obs.radii)
+        return fk.fused_blocked_frame, fk.fused_blocked_frame_plain, args, kw
+    args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
+            obs.radii)
+    return fk.fused_explicit_frame, fk.fused_explicit_frame_plain, args, kw
+
+
+def chain_ops(d, material, robust=False):
+    """(implicit chain, explicit gradient chain) f32 operations a element
+    of ``material``."""
+    base = material.partition(":")[0]
+    if base == "neo_hookean":
+        return OPS[d]["chain"] + (6 if robust else 0), OPS[d]["grad"]
+    p, dp = MATERIAL_OPS[d][base]
+    if d == 3:
+        return 162 + p + dp, 108 + p
+    return 48 + p + dp, 32 + p
+
+
+def instance_name(material, robust):
+    return "neo_hookean (robust)" if robust else material
+
+
+def run_materials(torch, dev, zero_counts, counts, only, instances):
+    """Sections 27-33: every material and robust instance against its plain
+    version, and paths R-V and the 3D canary.  Returns the launch counts and
+    errors of the kernels line's instance rows, the profiled windows and
+    the inputs their timing reuses."""
+    from fem_tpu_torch import convert, entry, scene, sim
+    from fem_tpu_torch.models import mesh as pmesh
+    from fem_tpu_torch.models.state import Obstacles, build_object
+    from fem_tpu_torch.ops import blocked_kernels as bk, element_kernels as ek
+    from fem_tpu_torch.ops.element import (
+        deformation_gradients,
+        kernel_material_id,
+    )
+    from fem_tpu_torch.utils.config import ObjectConfig, SimConfig, read_config
+
+    def cpu_state(s):
+        return convert.state_from_arrays(convert.state_to_arrays(s), "cpu")
+
+    def cpu_obj(o):
+        return convert.object_from_arrays(*convert.object_to_arrays(o), "cpu")
+
+    def cpu_obs(o):
+        return type(o)(o.centers.cpu(), o.radii.cpu())
+
+    def twice(fn, args, kwargs):
+        a, b = fn(*args, **kwargs), fn(*args, **kwargs)
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"{fn.__name__} runs differ")
+        return a
+
+    errors = {}  # (counter, d, material id[, inelastic]) -> max abs error
+    launches = {}  # the same keys -> launches on paths R-V
+    labels = {}  # the same keys -> (material, robust)
+
+    def note(key, err, material, robust):
+        errors[key] = max(errors.get(key, 0.0), err)
+        labels[key] = (material, robust)
+
+    def tally():
+        """Adds the instance launches since the last zero_counts() to
+        ``launches``."""
+        for key, n in instances().items():
+            launches[key] = launches.get(key, 0) + n
+
+    def cases(d):
+        return [(m, False) for m in MATERIALS[d]] + [("neo_hookean", True)]
+
+    default_path = os.path.join(REPO, "configs", "default.json")
+    cfg2 = read_config(default_path)
+    icfg2 = dataclasses.replace(cfg2, **OVERRIDES_2D["implicit_cg"])
+    (body2,), obs2 = scene.load_scene(cfg2, device=dev)
+    state2 = squeezed_2d(torch, body2.state, torch.Generator().manual_seed(5))
+    pcfg = read_config(os.path.join(REPO, "configs", "demo_plastic.json"))
+    ncfg = dataclasses.replace(pcfg, **OVERRIDES_2D["implicit_cg"])
+    pbodies, pobs = scene.load_scene(pcfg, device=dev)
+    pstate = squashed_plastic(torch, pbodies[0].state, 0)
+    cfg3, obj3, state3_0, obs3 = entry.flagship(dev)
+    state3 = entry.deformed(state3_0)
+    ecfg3, eobj3, estate3, _ = entry.explicit_flagship(dev)
+    _, oobj3, ostate3_0, _ = entry.flagship(dev, plastic_yield=0.01)
+    ostate3 = entry.deformed(ostate3_0)
+    # The inputs of the instances' checks and times: 2D the default scene
+    # squeezed (inelastic: demo_plastic.json's body 0 squashed), 3D the
+    # flagship deformed (inelastic: with plastic_yield 0.01); K8 at the
+    # explicit time steps (2D 5e-4, 3D 1e-4).
+    scenes = {
+        2: dict(obj=body2.obj, state=state2, obs=obs2, dt=cfg2.delta_time,
+                xdt=cfg2.delta_time, g=tuple(cfg2.g_dir), iobj=pbodies[0].obj,
+                istate=pstate, iobs=pobs),
+        3: dict(obj=obj3, state=state3, obs=obs3, dt=cfg3.delta_time,
+                xdt=ecfg3.delta_time, g=tuple(cfg3.g_dir), iobj=oobj3,
+                istate=ostate3, iobs=obs3),
+    }
+
+    # -- 27. every material and robust instance against its plain version --
+    t0 = time.perf_counter()
+    for d in (2, 3):
+        sc = scenes[d]
+        obj, state, blk = sc["obj"], sc["state"], sc["obj"].blocking
+        for material, robust in cases(d):
+            mid = kernel_material_id(material, robust)
+            args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
+                    obj.mu, obj.s_lambda)
+            K, H = twice(ek.hessian_and_force, args,
+                         dict(robust=robust, material=material))
+            Kp, Hp = ek.hessian_and_force_plain(*args, material, robust)
+            rel = max(block_rel_err(K, Kp), block_rel_err(H, Hp))
+            note(("element_chain", d, mid), float(max(
+                (K - Kp).abs().max(), (H - Hp).abs().max())), material, robust)
+            bargs = (blk, state.pos, obj.mu, obj.s_lambda, None, material,
+                     robust)
+            Kb, part = twice(bk.blocked_prep, bargs, {})
+            Kbp, partp = bk.blocked_prep_plain(*bargs)
+            rel = max(rel, block_rel_err(Kb, Kbp))
+            perr = float((part - partp).abs().max()) / float(
+                partp.abs().max())
+            note(("blocked_prep", d, mid), float(max(
+                (Kb - Kbp).abs().max(), (part - partp).abs().max())),
+                material, robust)
+            if not robust:
+                (G,) = twice(ek.explicit_grad_columns, args + (material,), {})
+                Gp = ek.explicit_grad_columns_plain(*args, material)
+                rel = max(rel, block_rel_err(G, Gp))
+                note(("grad_columns", d, mid), float((G - Gp).abs().max()),
+                     material, robust)
+                (gpart,) = twice(bk.blocked_grad_prep, bargs[:-1], {})
+                gpartp = bk.blocked_grad_prep_plain(*bargs[:-1])
+                perr = max(perr, float((gpart - gpartp).abs().max())
+                           / float(gpartp.abs().max()))
+                note(("blocked_grad_prep", d, mid),
+                     float((gpart - gpartp).abs().max()), material, robust)
+            log(f"[{d}D {instance_name(material, robust)}] K1/K2"
+                f"{'' if robust else '/K6'} block-relative error {rel:.3e}; "
+                f"K2{'' if robust else '/K7b'} partials relative error "
+                f"{perr:.3e}")
+            require(rel <= 1e-5 and perr <= 1e-5,
+                    f"{d}D {material} chains off their plain versions")
+            for kernel in ("K5", "K8"):
+                for inelastic in (False, True):
+                    if (kernel == "K8" and robust) or (inelastic and robust):
+                        continue
+                    o, s, obs = ((sc["iobj"], sc["istate"], sc["iobs"])
+                                 if inelastic else (obj, state, sc["obs"]))
+                    fn, plain, fargs, kw = material_frame_call(
+                        kernel, o, s, obs, sc["dt" if kernel == "K5"
+                                              else "xdt"], sc["g"], material,
+                        robust, inelastic)
+                    out = twice(fn, fargs, kw)
+                    ref = plain(*fargs, **kw)
+                    err = float((out[0] - ref[0]).abs().max())
+                    if inelastic:
+                        n_st = len([k for k in ("plastic_inv", "viscous_inv")
+                                    if getattr(s, k) is not None])
+                        err = max([err] + [float((a - b).abs().max())
+                                           for a, b in zip(out[-n_st:],
+                                                           ref[-n_st:])])
+                    name = ("blocked_frame" if kernel == "K5"
+                            else "explicit_frame")
+                    note((name, d, mid, inelastic), err, material, robust)
+                    extra = ""
+                    if kernel == "K5":
+                        it, itp = out[3].tolist(), ref[3].tolist()
+                        extra = f"; iterations {it} (plain {itp})"
+                        if max(itp) <= 20:
+                            require(all(abs(a - b) <= 1
+                                        for a, b in zip(it, itp)),
+                                    f"{d}D {kernel} {material} iterations")
+                    log(f"[{d}D {kernel} {instance_name(material, robust)}"
+                        f"{' inelastic' if inelastic else ''}] max |d state| "
+                        f"{err:.3e}{extra}")
+                    require(bool(torch.isfinite(out[0]).all()),
+                            f"{d}D {kernel} {material} non-finite")
+                    require(err <= 1e-5, f"{d}D {kernel} {material} off its "
+                            f"plain frame by {err}")
+    log(f"[materials] every instance two runs bit-identical; section 27 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def frames_path(label, pairs, cfg, frames, want, backend):
+        """``frames`` frames of each (object, state, obstacles, CPU object,
+        CPU state, CPU obstacles) of ``pairs`` through make_frame_fn; the
+        launch counts ``want`` (counter -> count) and nothing else; each
+        first frame within 1e-5 of the CPU's ``backend`` frame.  Returns
+        (frame functions, end states, wall seconds)."""
+        fns = [sim.make_frame_fn(p[0], cfg) for p in pairs]
+        worst, its = 0.0, []
+        for f, (o, s, obs, co, cs, cobs) in zip(fns, pairs):
+            warm, waux = f(s, obs)
+            ref, raux = sim.make_frame_fn(co, dataclasses.replace(
+                cfg, frame_backend=backend))(cs, cobs)
+            worst = max(worst, state_err(warm, ref))
+            it, itp = waux.solver_iterations.tolist(), \
+                raux.solver_iterations.tolist()
+            its.append((it, itp))
+            if max(itp) <= 20:
+                require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                        f"path {label} iterations differ")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        states = [p[1] for p in pairs]
+        for _ in range(frames):
+            states = [f(s, p[2])[0] for f, s, p in zip(fns, states, pairs)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        tally()
+        log(f"[path {label}] {frames} frames x {cfg.sim_count} substeps (dt "
+            f"{cfg.delta_time}) in {wall:.4f} s: "
+            f"{frames * cfg.sim_count / wall:.1f} steps/s; launches {got}; "
+            f"first frames vs the CPU: max |dstate| {worst:.3e}, iterations "
+            f"(card, CPU) {its}")
+        require(got == only(**want), f"path {label} launches {got}")
+        require(all(bool(torch.isfinite(s.pos).all()) for s in states),
+                f"path {label} non-finite")
+        require(worst <= 1e-5, f"path {label} off the CPU frames by {worst}")
+        return fns, states, wall
+
+    windows = []
+
+    # -- 28. path R: demo_passage_corotated.json as shipped ------------------
+    rcfg = read_config(os.path.join(REPO, "configs",
+                                    "demo_passage_corotated.json"))
+    (rbody,), robs = scene.load_scene(rcfg, device=dev)
+    (crbody,), crobs = scene.load_scene(rcfg, device="cpu")
+    require(rbody.obj.material == "corotated" and rcfg.auto_diff
+            and (rbody.obj.particle_cnt, rbody.obj.element_cnt) == (121, 200),
+            "demo_passage_corotated.json")
+    require(sim.supports_explicit_blocked_frame(rbody.obj, rcfg),
+            "demo_passage_corotated.json is not eligible for K8")
+    fns_r, states_r, _ = frames_path(
+        "R (demo_passage_corotated.json)",
+        [(rbody.obj, rbody.state, robs, crbody.obj, crbody.state, crobs)],
+        rcfg, GOLDEN_FRAMES, dict(explicit_frame=GOLDEN_FRAMES),
+        "blocked_explicit")
+    rkey = ("explicit_frame", 2, kernel_material_id("corotated"), False)
+    require(instances() == {rkey: GOLDEN_FRAMES},
+            f"path R instances {instances()}")
+    p = states_r[0].pos.cpu().double()
+    g = GOLDEN_COROTATED
+    mean, std = float(p.mean()), float(p.std(correction=0))
+    worst = max(float((p[i] - torch.tensor(g[k], dtype=torch.float64))
+                      .abs().max())
+                for k, i in (("p0", 0), ("p60", 60), ("p120", 120)))
+    log(f"[golden demo_passage_corotated] mean {mean:.7f} (golden "
+        f"{g['mean']}), std {std:.7f} (golden {g['std']}), particles "
+        f"0/60/120 within {worst:.3e}, lowest y "
+        f"{float(p[:, 1].min()):.5f}")
+    require(abs(mean - g["mean"]) < 5e-3 and abs(std - g["std"]) < 5e-3,
+            "path R golden mean/std")
+    require(worst <= 1e-2, f"path R golden particles off by {worst}")
+    windows.append(("path R (K8 2D corotated)", fns_r, [rbody.state], robs,
+                    FRAMES))
+
+    # -- 29. path S: default.json with each material, K8 and K5 --------------
+    for material in MATERIALS[2]:
+        _, o, s, obs = entry.load_config(default_path, dev, material=material)
+        _, co, cs, cobs = entry.load_config(default_path, "cpu",
+                                            material=material)
+        for label, c, name, backend in (
+                ("K8, as shipped", cfg2, "explicit_frame", "blocked_explicit"),
+                ("K5, implicit_cg", icfg2, "blocked_frame", "blocked")):
+            frames_path(f"S (default.json, {material}, {label})",
+                        [(o, s, obs, co, cs, cobs)], c, FRAMES,
+                        {name: FRAMES}, backend)
+            mid = kernel_material_id(material)
+            require(instances() == {(name, 2, mid, False): FRAMES},
+                    f"path S {material} instances {instances()}")
+    # demo_plastic.json's body 0 (plastic) from its squashed state with each
+    # material, K8 and K5 (10 frames for corotated, 1 for the others).
+    cpbodies, cpobs = scene.load_scene(pcfg, device="cpu")
+    cpb = cpbodies[0]
+    for material in MATERIALS[2]:
+        o = dataclasses.replace(pbodies[0].obj, material=material)
+        co = dataclasses.replace(cpb.obj, material=material)
+        frames = FRAMES_N if material == "corotated" else 1
+        for label, c, name, backend in (
+                ("K8", pcfg, "explicit_frame", "blocked_explicit"),
+                ("K5, implicit_cg", ncfg, "blocked_frame", "blocked")):
+            frames_path(f"S (demo_plastic.json body 0, {material}, {label})",
+                        [(o, pstate, pobs, co, cpu_state(pstate), cpobs)], c,
+                        frames, {name: frames}, backend)
+
+    # -- 30. path T: the flagship with each material, K5 and K8 --------------
+    cobs3 = cpu_obs(obs3)
+    t_fns = {}
+    for material in MATERIALS[3]:
+        frames = FRAMES if material == "corotated" else FRAMES_T
+        c, o, s0, obs = entry.flagship(dev, material=material)
+        s = entry.deformed(s0)
+        co = cpu_obj(o)
+        fns, _, _ = frames_path(
+            f"T (flagship, {material}, K5)",
+            [(o, s, obs, co, cpu_state(s), cobs3)], c, frames,
+            dict(blocked_frame=frames), "blocked")
+        ec, eo, es0, _ = entry.explicit_flagship(dev, material=material)
+        es = entry.deformed(es0)
+        efns, _, _ = frames_path(
+            f"T (explicit flagship, {material}, K8)",
+            [(eo, es, obs, co, cpu_state(es), cobs3)], ec, frames,
+            dict(explicit_frame=frames), "blocked_explicit")
+        if material == "corotated":
+            t_fns = dict(k5=(fns, [s], obs), k8=(efns, [es], obs))
+    for material in MATERIALS[3]:
+        frames = FRAMES if material == "stvk" else 1
+        c, o, s0, obs = entry.flagship(dev, plastic_yield=0.01,
+                                       material=material)
+        s = entry.deformed(s0)
+        frames_path(f"T (flagship, plastic_yield 0.01, {material}, K5)",
+                    [(o, s, obs, cpu_obj(o), cpu_state(s), cobs3)], c, frames,
+                    dict(blocked_frame=frames), "blocked")
+        ec, eo, es0, _ = entry.explicit_flagship(dev, plastic_yield=0.01,
+                                                 material=material)
+        es = entry.deformed(es0)
+        frames_path(f"T (explicit flagship, plastic_yield 0.01, {material}, "
+                    "K8)", [(eo, es, obs, cpu_obj(eo), cpu_state(es), cobs3)],
+                    ec, 1, dict(explicit_frame=1), "blocked_explicit")
+    windows += [("path T (K5 3D corotated)", *t_fns["k5"], FRAMES),
+                ("path T (K8 3D corotated)", *t_fns["k8"], FRAMES)]
+
+    # -- 31. path U: robust_inversion ---------------------------------------
+    ucfg = dataclasses.replace(cfg3, robust_inversion=True)
+    cobj3 = cpu_obj(obj3)
+    fns_u, _, _ = frames_path(
+        "U (flagship, robust_inversion, K5)",
+        [(obj3, state3, obs3, cobj3, cpu_state(state3), cobs3)], ucfg, FRAMES,
+        dict(blocked_frame=FRAMES), "blocked")
+    windows.append(("path U (K5 3D robust)", fns_u, [state3], obs3, FRAMES))
+    ucfg2 = dataclasses.replace(icfg2, robust_inversion=True)
+    frames_path("U (default.json, implicit_cg, robust_inversion, K5)",
+                [(body2.obj, body2.state, obs2, cpu_obj(body2.obj),
+                  cpu_state(body2.state), cpu_obs(obs2))], ucfg2, FRAMES,
+                dict(blocked_frame=FRAMES), "blocked")
+    # The inverted-tet state (entry.inverted_cube: one tet inverted and
+    # nearly flat, det F ≈ −1.7e-5, where the robust clamp of the rhs log
+    # acts): the robust K5 stays finite and equals its plain frame on the
+    # card and the CPU's frame, and the non-robust K5 differs.
+    icfg3, iobj3, inv_state, iobs3 = entry.inverted_cube(dev)
+    _, ciobj3, ciinv_state, ciobs3 = entry.inverted_cube("cpu")
+    det_min = float(torch.linalg.det(deformation_gradients(
+        inv_state.pos, iobj3.element_indices, iobj3.ref_inv)).min())
+    frames_path(
+        f"U (inverted cube, det F {det_min:.3e}, robust K5)",
+        [(iobj3, inv_state, iobs3, ciobj3, ciinv_state, ciobs3)], icfg3,
+        1, dict(blocked_frame=1), "blocked")
+    fn, plain, fargs, kw = material_frame_call(
+        "K5", iobj3, inv_state, iobs3, icfg3.delta_time, tuple(icfg3.g_dir),
+        "neo_hookean", True, False)
+    kw["sim_count"] = icfg3.sim_count
+    out, ref = fn(*fargs, **kw), plain(*fargs, **kw)
+    err = float((out[0] - ref[0]).abs().max())
+    nonrobust = fn(*fargs, **dict(kw, robust=False))
+    log(f"[path U inverted cube] robust K5 vs its plain frame on the card: "
+        f"max |dpos| {err:.3e}, finite {bool(torch.isfinite(out[0]).all())}; "
+        f"the non-robust K5 differs by "
+        f"{float((nonrobust[0] - out[0]).abs().max()):.3e}")
+    require(bool(torch.isfinite(out[0]).all()) and err <= 1e-5,
+            "path U inverted cube: robust K5 off its plain frame")
+    require(not torch.equal(nonrobust[0], out[0]),
+            "path U inverted cube: the robust clamp did not act")
+    note(("blocked_frame", 3, kernel_material_id("neo_hookean", True), False),
+         err, "neo_hookean", True)
+
+    def substeps(label, obj, state, obs, cobj, cstate, cobs, c, n, want):
+        """``n`` op-composed substeps with ``c``'s settings; the launch
+        counts ``want(iterations)`` and nothing else, the first substep
+        within 1e-5 of the CPU's."""
+        kw = sim.substep_kwargs(c)
+        zero_counts()
+        s, first, iters = state, None, []
+        for i in range(n):
+            s, aux = sim.substep(obj, s, obs, **kw)
+            iters.append(aux.solver_iterations)
+            if i == 0:
+                first = s
+        iters = [int(x) for x in torch.stack(iters).cpu()]
+        torch.cuda.synchronize()
+        got = counts()
+        tally()
+        ref, _ = sim.substep(cobj, cstate, cobs, **kw)
+        err = state_err(first, ref)
+        log(f"[path {label}] {n} substeps; launches {got}; CG iterations "
+            f"{iters}; first substep vs the CPU: max |dstate| {err:.3e}")
+        require(got == only(**want(iters)), f"path {label} launches {got}")
+        require(bool(torch.isfinite(s.pos).all()), f"path {label} non-finite")
+        require(err <= 1e-5, f"path {label} off the CPU substep by {err}")
+
+    def settings(icfg, xcfg, full):
+        """(label, config, unblocked, launches(n, iterations)) of paths C,
+        B, E, F and G's settings (``full``), or of C, B, E and G."""
+        out = [
+            ("C (K1 + K4)", icfg, False,
+             lambda n, it: dict(element_chain=n, fused_cg=n)),
+            ("B (K2 + K3)", dataclasses.replace(icfg, operator_mode="blocked"),
+             False, lambda n, it: dict(blocked_prep=n, blocked_matvec=sum(
+                 3 + 2 * i for i in it))),
+            ("E (K7b)", xcfg, False, lambda n, it: dict(blocked_grad_prep=n)),
+        ]
+        if full:
+            out += [
+                ("F (K7a: auto_diff)", dataclasses.replace(xcfg, auto_diff=True),
+                 False, lambda n, it: dict(blocked_assemble=n)),
+                ("F (K7a: element_backend=xla)",
+                 dataclasses.replace(xcfg, element_backend="xla"), False,
+                 lambda n, it: dict(blocked_assemble=n)),
+            ]
+        out.append(("G (K6: no blocks)", xcfg, True,
+                    lambda n, it: dict(grad_columns=n)))
+        return out
+
+    xcfg2 = dataclasses.replace(cfg2, **OVERRIDES_2D["explicit_analytic"])
+    # Path U's op-composed robust substeps (C's and B's settings).
+    for d, obj, state, obs, icfg in (
+            (2, body2.obj, state2, obs2, ucfg2), (3, obj3, state3, obs3, ucfg)):
+        co, cs, cob = cpu_obj(obj), cpu_state(state), cpu_obs(obs)
+        for label, c, _, want in settings(icfg, xcfg2, False)[:2]:
+            substeps(f"U {d}D robust {label}", obj, state, obs, co, cs, cob, c,
+                     SUBSTEPS_C, lambda it, want=want: want(SUBSTEPS_C, it))
+
+    # -- 32. path V: the op-composed material substeps -----------------------
+    full_v = {2: "corotated", 3: "fiber:1,0,0"}  # all five settings
+    for d, material, obj, state, obs, icfg, xcfg, full, n in [
+            (2, full_v[2], body2.obj, state2, obs2, icfg2, xcfg2, True,
+             SUBSTEPS_C),
+            (3, full_v[3], obj3, state3, obs3, cfg3, ecfg3, True,
+             SUBSTEPS_C)] + [
+            (d, m, sc_obj, sc_state, sc_obs, ic, xc, False, SUBSTEPS_SWEEP)
+            for d, sc_obj, sc_state, sc_obs, ic, xc in (
+                (2, body2.obj, state2, obs2, icfg2, xcfg2),
+                (3, obj3, state3, obs3, cfg3, ecfg3))
+            for m in MATERIALS[d] if m != full_v[d]]:
+        o = dataclasses.replace(obj, material=material)
+        co, cs, cob = cpu_obj(o), cpu_state(state), cpu_obs(obs)
+        for label, c, unblocked, want in settings(icfg, xcfg, full):
+            oo = dataclasses.replace(o, blocking=None) if unblocked else o
+            cco = dataclasses.replace(co, blocking=None) if unblocked else co
+            substeps(f"V {d}D {material} {label}", oo, state, obs, cco, cs,
+                     cob, c, n, lambda it, want=want, n=n: want(n, it))
+
+    # -- 33. the 3D canary of tests/test_golden.py through K5 ---------------
+    v, f = pmesh.load_surface_mesh(os.path.join(REPO, "assets", "cube.stl"))
+    nodes, tets = pmesh.delaunay_tetrahedralize(v, f, 0.5)
+    surface, _ = pmesh.extract_surface(nodes, tets)
+    ocfg = ObjectConfig(center=(0.2, 0.05, 0.2), rho=1000.0, E=4e4, nu=0.3,
+                        damping=10.0)
+    kcfg = SimConfig(dim=3, delta_time=5e-4, sim_count=10, auto_diff=False,
+                     use_explicit_method=False, implicit_method=1,
+                     preconditioned=1, g_dir=(0.0, -1.0, 0.0),
+                     objects=(ocfg,), blocks=())
+    kobj, kstate = build_object(ocfg, (0.3 * nodes).astype("float32"),
+                                surface.astype("int32"), tets.astype("int32"),
+                                device=dev)
+    kobs = Obstacles.from_configs((), 3, device=dev)
+    frame = sim.make_frame_fn(kobj, kcfg)
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        kstate, _ = frame(kstate, kobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    p = kstate.pos.cpu().double()
+    g = GOLDEN_3D
+    mean, std = float(p.mean()), float(p.std(correction=0))
+    worst = max(float((p[i] - torch.tensor(g[k], dtype=torch.float64))
+                      .abs().max()) for k, i in (("p0", 0), ("p5", 5)))
+    log(f"[3D canary] assets/cube.stl, {kobj.particle_cnt} particles, "
+        f"{kobj.element_cnt} tets, {kobj.blocking.num_blocks} blocks: 100 "
+        f"frames in {wall:.3f} s, launches {got}; mean {mean:.7f} (golden "
+        f"{g['mean']}), std {std:.7f} (golden {g['std']}), particles 0/5 "
+        f"within {worst:.3e}")
+    require(got == only(blocked_frame=100), f"3D canary launches {got}")
+    require(abs(mean - g["mean"]) < 5e-3 and abs(std - g["std"]) < 5e-3,
+            "3D canary mean/std")
+    require(worst <= 1e-2, f"3D canary particles off by {worst}")
+
+    return dict(errors=errors, launches=launches, labels=labels,
+                windows=windows, timing=scenes)
+
+
+def time_material_kernels(torch, d, timing, keys):
+    """Device ms a launch (profiler), plain ms (CUDA events) and the bound of
+    each material instance ``keys`` of dimension ``d``: {key: dict of the
+    kernels line's time keys}."""
+    from fem_tpu_torch.ops import blocked_kernels as bk, element_kernels as ek
+    from fem_tpu_torch.ops.element import MATERIAL_IDS, ROBUST_NEO_HOOKEAN_ID
+
+    by_id = {v: k for k, v in MATERIAL_IDS.items()}
+    by_id[ROBUST_NEO_HOOKEAN_ID] = "neo_hookean"
+    spelled = {m.partition(":")[0]: m for m in MATERIALS[d]}
+    spelled["neo_hookean"] = "neo_hookean"
+    sc = timing[d]
+    obj, state, blk = sc["obj"], sc["state"], sc["obj"].blocking
+    n, e = obj.particle_cnt, obj.element_cnt
+    tables = (blk.block_particles, blk.plus, blk.minus, blk.block_elements,
+              blk.local_ptr, blk.local_rows)
+    plan = (blk.slot_plan.ptr, blk.slot_plan.rows)
+    slot_rows = blk.slot_plan.rows.numel()
+    out = {}
+    for key in keys:
+        counter, kd, mid = key[:3]
+        if kd != d:
+            continue
+        robust = mid == ROBUST_NEO_HOOKEAN_ID
+        material = spelled[by_id[mid]]
+        chain, grad = chain_ops(d, material, robust)
+        args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
+                obj.mu, obj.s_lambda)
+        bargs = (blk, state.pos, obj.mu, obj.s_lambda, None, material)
+        if counter == "element_chain":
+            K, H = ek.hessian_and_force(*args, robust, material)
+            call = (lambda: ek.hessian_and_force(*args, robust, material),
+                    lambda: ek.hessian_and_force_plain(*args, material,
+                                                       robust),
+                    20, 100, "hessian_and_force_kernel",
+                    nbytes(*args[:4], K, H), chain * e)
+        elif counter == "grad_columns":
+            G = ek.explicit_grad_columns(*args, material)
+            call = (lambda: ek.explicit_grad_columns(*args, material),
+                    lambda: ek.explicit_grad_columns_plain(*args, material),
+                    20, 100, "explicit_grad_columns_kernel",
+                    nbytes(*args[:4], G), grad * e)
+        elif counter == "blocked_prep":
+            Kb, part = bk.blocked_prep(*bargs, robust)
+            call = (lambda: bk.blocked_prep(*bargs, robust),
+                    lambda: bk.blocked_prep_plain(*bargs, robust), 10, 100,
+                    "blocked_prep_kernel",
+                    nbytes(state.pos, blk.ref_inv, blk.volume, *tables, Kb,
+                           part), chain * e)
+        elif counter == "blocked_grad_prep":
+            gp = bk.blocked_grad_prep(*bargs)
+            call = (lambda: bk.blocked_grad_prep(*bargs),
+                    lambda: bk.blocked_grad_prep_plain(*bargs), 10, 100,
+                    "blocked_grad_prep_kernel",
+                    nbytes(state.pos, blk.ref_inv, blk.volume, *tables, gp),
+                    (grad + OPS[d]["rows"]) * e)
+        else:
+            inelastic = key[3]
+            kernel = "K5" if counter == "blocked_frame" else "K8"
+            o, s, obs = ((sc["iobj"], sc["istate"], sc["iobs"]) if inelastic
+                         else (obj, state, sc["obs"]))
+            fn, plain, fargs, kw = material_frame_call(
+                kernel, o, s, obs, sc["dt" if kernel == "K5" else "xdt"],
+                sc["g"], material, robust, inelastic)
+            res = fn(*fargs, **kw)
+            ob = o.blocking
+            ot = (ob.block_particles, ob.plus, ob.minus, ob.block_elements,
+                  ob.local_ptr, ob.local_rows)
+            op = (ob.slot_plan.ptr, ob.slot_plan.rows)
+            moved = nbytes(ob.ref_inv, ob.volume, *ot, *op, o.mass,
+                           obs.centers, obs.radii, *fargs[1:4 if kernel == "K8"
+                                                         else 4], *res[:2])
+            if inelastic:
+                n_st = sum(x is not None for x in (s.plastic_inv,
+                                                   s.viscous_inv))
+                moved += 2 * n_st * 4 * d * d * o.element_cnt \
+                    + ob.element_perm.numel() * 4
+            if kernel == "K5":
+                iters = res[3].tolist()
+                ops = frame_ops(o.element_cnt, o.particle_cnt,
+                                ob.slot_plan.rows.numel(), iters, True, d,
+                                chain=chain)
+            else:
+                ops = explicit_frame_ops(o.element_cnt, o.particle_cnt,
+                                         ob.slot_plan.rows.numel(),
+                                         kw["sim_count"], d, grad=grad)
+            if inelastic:
+                n_st = sum(x is not None for x in (s.plastic_inv,
+                                                   s.viscous_inv))
+                ops += kw["sim_count"] * o.element_cnt * (
+                    OPS[d]["reff"] * n_st + OPS[d]["update_guard"]
+                    + OPS[d]["update_state"] * n_st)
+            call = (lambda fn=fn, fargs=fargs, kw=kw: fn(*fargs, **kw),
+                    lambda plain=plain, fargs=fargs, kw=kw: plain(*fargs,
+                                                                  **kw),
+                    1, 10, f"{'blocked' if kernel == 'K5' else 'explicit'}"
+                    "_frame_kernel", moved, ops)
+        kernel, plain_fn, plain_reps, reps, kname, moved, ops = call
+        bnd, by = bound(moved, ops)
+        out[key] = dict(ms=kernel_ms(torch, kernel, reps, [kname]),
+                        plain_ms=cuda_ms(torch, plain_fn, plain_reps),
+                        bound_ms=bnd, bound_by=by, library_ms=None)
+    return out
+
+
 def main():
     import torch
 
@@ -1583,9 +2284,17 @@ def main():
     def zero_counts():
         for fn in counters.values():
             fn.launches = 0
+            if hasattr(fn, "instance_launches"):
+                fn.instance_launches = {}
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
+
+    def instances():
+        """{(counter, dimension, material id[, inelastic]): launches} since
+        the last zero_counts()."""
+        return {(k,) + key: n for k, fn in counters.items()
+                for key, n in getattr(fn, "instance_launches", {}).items()}
 
     def only(**launched):
         """The launch counts of a run that launched ``launched`` and no
@@ -1605,6 +2314,10 @@ def main():
     t0 = time.perf_counter()
     paths = cuda_build.build()
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f} s")
+    for name, (wall, cpu) in sorted(cuda_build.BUILD_SECONDS.items(),
+                                    key=lambda kv: -kv[1][0]):
+        log(f"[build] {name}: done {wall:.1f} s after the build's start, "
+            f"{cpu:.1f} s of nvcc CPU time")
     for name, text in cuda_build.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -2006,7 +2719,22 @@ def main():
     ine = run_inelastic(torch, dev, zero_counts, counts, only)
     log(f"[inelastic] sections 21-26 in {time.perf_counter() - t_in:.1f} s")
 
-    # -- 27. times and bounds -----------------------------------------------
+    # -- 27.-33. materials: the instances and paths R-V -----------------------
+    t_mat = time.perf_counter()
+    mat = run_materials(torch, dev, zero_counts, counts, only, instances)
+    log(f"[materials] sections 27-33 in {time.perf_counter() - t_mat:.1f} s")
+    expected = [(name, d, mid) + ((inel,) if frames else ())
+                for d in (2, 3)
+                for name, (has_robust, frames) in MATERIAL_KERNELS.items()
+                for mid in range(1, 8) if mid != 7 or has_robust
+                for inel in ((False, True) if frames and mid != 7
+                             else (False,))]
+    for key in expected:
+        require(mat["launches"].get(key, 0) > 0,
+                f"instance {key} never launched on paths R-V")
+        require(key in mat["errors"], f"instance {key} never checked")
+
+    # -- 34. times and bounds -----------------------------------------------
     def run_frames(frame_fn, start, obs, frames=FRAMES):
         def go():
             s = start
@@ -2022,7 +2750,9 @@ def main():
                        run_frames(frame_k14, state, obstacles)),
                       ("path D (K8)", run_frames(frame_d, estate, obstacles))):
         profile_window(torch, label, go, FRAMES)
-    for label, frame_fns, start, obs, frames in two["windows"] + ine["windows"]:
+    for label, frame_fns, start, obs, frames in (two["windows"]
+                                                 + ine["windows"]
+                                                 + mat["windows"]):
         def go(frame_fns=frame_fns, start=start, obs=obs, frames=frames):
             states = list(start)
             for _ in range(frames):
@@ -2061,6 +2791,23 @@ def main():
         errors.update(ine["errors"][d])
     kernels = (kernel_rows(3, times3, launches3, errors3, card)
                + kernel_rows(2, times2, two["launches"], two["errors"], card))
+    sources = {name: (source, replaces) for name, source, replaces in KERNELS}
+    for d in (3, 2):
+        mtimes = time_material_kernels(torch, d, mat["timing"],
+                                       [k for k in expected if k[1] == d])
+        for key, t in mtimes.items():
+            name = key[0] + ("_inelastic" if len(key) > 3 and key[3] else "")
+            material, robust = mat["labels"][key]
+            log(f"[time] {d}D {name} {instance_name(material, robust)} "
+                f"{t['ms']:.5f} ms a launch on the device (profiler); plain "
+                f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.6f} ms "
+                f"({t['bound_by']}); launches {mat['launches'][key]}; card "
+                f"{card}")
+            kernels.append(dict(
+                name=name, route="cuda", source=sources[name][0],
+                replaces=sources[name][1], dim=d, material=material,
+                robust=robust, launches=mat["launches"][key],
+                max_abs_err=mat["errors"][key], **t))
     log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -22,6 +22,7 @@ import torch
 from fem_tpu_torch.models.state import FemObject, SimState
 from fem_tpu_torch.ops.assembly import make_gather_plan
 from fem_tpu_torch.ops.blocking import build_blocking
+from fem_tpu_torch.ops.element import check_material
 from fem_tpu_torch.utils.device import resolve_device
 
 OBJECT_ARRAYS = ("element_indices", "ref_inv", "volume", "mass", "rest_pos", "faces")
@@ -55,11 +56,7 @@ def object_from_arrays(
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP {item})"
             )
-    if statics["material"] != "neo_hookean":
-        raise NotImplementedError(
-            f"material {statics['material']!r}: only neo_hookean is ported "
-            "(ROADMAP M11)"
-        )
+    check_material(statics["material"])
     tensors = {}
     for name in OBJECT_ARRAYS:
         a = np.asarray(arrays[name])

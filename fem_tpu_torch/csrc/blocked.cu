@@ -21,12 +21,13 @@
 // kernel's _pad_x_rows computes it), so F = I downstream.  Its bound is
 // bytes: it reads the block's rows and tables and writes D*D floats a slot.
 //
-// The two preps take one material layer of the inelastic extension: the
-// layer's dynamic rest-edge inverses R^-1 F_i^-1 (B*Eb, D, D) arrive as
-// the tables' ref_inv pointer, the pointer the static layer passes too, and
-// its material (Neo-Hookean, or the Maxwell branch's stable Neo-Hookean) is
-// a template parameter chosen at launch.  The static Neo-Hookean instance
-// is the code it always was.
+// The two preps take one material layer: its material (fem::Material, the
+// seven base materials and for K2 robust Neo-Hookean) is a template
+// parameter chosen at launch, its numbers (fem::MaterialParams) a kernel
+// argument, and an inelastic layer's dynamic rest-edge inverses R^-1 F_i^-1
+// (B*Eb, D, D) arrive as the tables' ref_inv pointer, the pointer the
+// static layer passes too.  A library built with -DFEM_MATERIAL holds one
+// material's preps beside the material-independent kernels.
 //
 // Every kernel is templated on the dimension D in {2, 3} (the Pallas
 // kernels take `dim`); the C entries launch the instance of tables->dim.
@@ -55,8 +56,9 @@ constexpr int kThreads = 256;
 
 template <int D, int M>
 __global__ void __launch_bounds__(kThreads) blocked_prep_kernel(
-    fem::BlockTables T, const float* __restrict__ pos, float mu, float lam,
-    float half_lam, float* __restrict__ k_out, float* __restrict__ partials) {
+    fem::BlockTables T, const float* __restrict__ pos,
+    const fem::MaterialParams m, float* __restrict__ k_out,
+    float* __restrict__ partials) {
   constexpr int DD = D * D;
   constexpr int R = fem::rows_floats(D);
   extern __shared__ float smem[];
@@ -69,7 +71,7 @@ __global__ void __launch_bounds__(kThreads) blocked_prep_kernel(
   for (int e = threadIdx.x; e < T.eb; e += blockDim.x) {
     float* k = k_out + DD * (static_cast<size_t>(b) * T.eb + e);
     if (e < nel) {
-      fem::element_prep<D, M>(T, b, e, xs, mu, lam, half_lam, k, t + R * e);
+      fem::element_prep<D, M>(T, b, e, xs, m, k, t + R * e);
     } else {
 #pragma unroll
       for (int i = 0; i < DD; ++i) k[i] = 0.0f;
@@ -81,8 +83,8 @@ __global__ void __launch_bounds__(kThreads) blocked_prep_kernel(
 
 template <int D, int M>
 __global__ void __launch_bounds__(kThreads) blocked_grad_prep_kernel(
-    fem::BlockTables T, const float* __restrict__ pos, float mu, float lam,
-    float* __restrict__ partials) {
+    fem::BlockTables T, const float* __restrict__ pos,
+    const fem::MaterialParams m, float* __restrict__ partials) {
   constexpr int R = fem::rows_floats(D);
   extern __shared__ float smem[];
   float* xs = smem;
@@ -92,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) blocked_grad_prep_kernel(
   __syncthreads();
   const int nel = T.block_elements[b];
   for (int e = threadIdx.x; e < nel; e += blockDim.x) {
-    fem::element_grad<D, M>(T, b, e, xs, mu, lam, t + R * e);
+    fem::element_grad<D, M>(T, b, e, xs, m, t + R * e);
   }
   __syncthreads();
   fem::block_slot_sums<D>(T, b, t, partials + D * b * T.pb);
@@ -196,16 +198,16 @@ size_t work_smem(const fem::BlockTables& T) {
 }
 
 template <int D, int M>
-int prep_launch(const fem::BlockTables& T, const void* pos, float mu,
-                float lam, float half_lam, void* k_out, void* partials,
+int prep_launch(const fem::BlockTables& T, const void* pos,
+                const fem::MaterialParams& m, void* k_out, void* partials,
                 cudaStream_t s) {
   const size_t smem = work_smem(T);
   const int rc = prepare(blocked_prep_kernel<D, M>, smem);
   if (rc != 0) return rc;
   if (T.num_blocks > 0) {
     blocked_prep_kernel<D, M><<<T.num_blocks, kThreads, smem, s>>>(
-        T, static_cast<const float*>(pos), mu, lam, half_lam,
-        static_cast<float*>(k_out), static_cast<float*>(partials));
+        T, static_cast<const float*>(pos), m, static_cast<float*>(k_out),
+        static_cast<float*>(partials));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -242,15 +244,15 @@ int matvec_launch(const fem::BlockTables& T, const void* k, const void* x,
 }
 
 template <int D, int M>
-int grad_prep_launch(const fem::BlockTables& T, const void* pos, float mu,
-                     float lam, void* partials, cudaStream_t s) {
+int grad_prep_launch(const fem::BlockTables& T, const void* pos,
+                     const fem::MaterialParams& m, void* partials,
+                     cudaStream_t s) {
   const size_t smem = work_smem(T);
   const int rc = prepare(blocked_grad_prep_kernel<D, M>, smem);
   if (rc != 0) return rc;
   if (T.num_blocks > 0) {
     blocked_grad_prep_kernel<D, M><<<T.num_blocks, kThreads, smem, s>>>(
-        T, static_cast<const float*>(pos), mu, lam,
-        static_cast<float*>(partials));
+        T, static_cast<const float*>(pos), m, static_cast<float*>(partials));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -289,29 +291,22 @@ int assemble_launch(const fem::BlockTables& T, const void* cols,
 
 bool bad_dim(const fem::BlockTables& T) { return T.dim != 2 && T.dim != 3; }
 
-bool bad_material(int m) {
-  return m != fem::kNeoHookean && m != fem::kStableNeoHookean;
-}
-
 }  // namespace
 
-// k_out (B*Eb, D, D) and partials (B*Pb, D); `material` a fem::Material.
+// k_out (B*Eb, D, D) and partials (B*Pb, D); `material` a fem::Material of
+// this library (robust Neo-Hookean included), `params` its numbers.
 extern "C" int fem_blocked_prep(const fem::BlockTables* tables, const void* pos,
-                                float mu, float lam, float half_lam,
+                                const fem::MaterialParams* params,
                                 int material, void* k_out, void* partials,
                                 void* stream) {
   const fem::BlockTables& T = *tables;
-  if (bad_dim(T) || bad_material(material)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_dim(T)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool snh = material == fem::kStableNeoHookean;
-  auto launch = T.dim == 3
-      ? (snh ? prep_launch<3, fem::kStableNeoHookean>
-             : prep_launch<3, fem::kNeoHookean>)
-      : (snh ? prep_launch<2, fem::kStableNeoHookean>
-             : prep_launch<2, fem::kNeoHookean>);
-  return launch(T, pos, mu, lam, half_lam, k_out, partials, s);
+  return fem::dispatch_material<true>(material, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    return T.dim == 3 ? prep_launch<3, M>(T, pos, *params, k_out, partials, s)
+                      : prep_launch<2, M>(T, pos, *params, k_out, partials, s);
+  });
 }
 
 // y (N, D) = G(K) x, or G(K^T) x when `transpose`; partials (B*Pb, D) is
@@ -332,23 +327,20 @@ extern "C" int fem_blocked_matvec(const fem::BlockTables* tables,
 }
 
 // Per-slot explicit gradient partials (B*Pb, D) at pos; `material` a
-// fem::Material.
+// fem::Material of this library (no robust instance), `params` its numbers.
 extern "C" int fem_blocked_grad_prep(const fem::BlockTables* tables,
-                                     const void* pos, float mu, float lam,
+                                     const void* pos,
+                                     const fem::MaterialParams* params,
                                      int material, void* partials,
                                      void* stream) {
   const fem::BlockTables& T = *tables;
-  if (bad_dim(T) || bad_material(material)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bad_dim(T)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool snh = material == fem::kStableNeoHookean;
-  auto launch = T.dim == 3
-      ? (snh ? grad_prep_launch<3, fem::kStableNeoHookean>
-             : grad_prep_launch<3, fem::kNeoHookean>)
-      : (snh ? grad_prep_launch<2, fem::kStableNeoHookean>
-             : grad_prep_launch<2, fem::kNeoHookean>);
-  return launch(T, pos, mu, lam, partials, s);
+  return fem::dispatch_material<false>(material, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    return T.dim == 3 ? grad_prep_launch<3, M>(T, pos, *params, partials, s)
+                      : grad_prep_launch<2, M>(T, pos, *params, partials, s);
+  });
 }
 
 // Edge matrices x (B*Eb, D, D) of every element slot at pos.

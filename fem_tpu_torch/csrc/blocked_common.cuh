@@ -93,10 +93,10 @@ __device__ __forceinline__ void column_rows(float s, const float* h, float* t) {
 // Prep of real element e of block b: K_e = -V k into k_out (D*D), and its
 // force contribution rows into t ((D+1)*D) from H_e = -V h — the same
 // arithmetic as K1 followed by K4's force assembly; material M.
-template <int D, int M = kNeoHookean>
+template <int D, int M>
 __device__ __forceinline__ void element_prep(const BlockTables& T, int b,
-                                             int e, const float* xs, float mu,
-                                             float lam, float half_lam,
+                                             int e, const float* xs,
+                                             const MaterialParams& m,
                                              float* k_out, float* t) {
   constexpr int DD = D * D;
   float x[DD], r[DD], k[DD], h[DD];
@@ -104,7 +104,7 @@ __device__ __forceinline__ void element_prep(const BlockTables& T, int b,
   const int slot = b * T.eb + e;
 #pragma unroll
   for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
-  material_chain<D, M>(x, r, mu, lam, half_lam, k, h);
+  material_chain<D, M>(x, r, m, k, h);
   const float nv = -T.volume[slot];
 #pragma unroll
   for (int i = 0; i < DD; ++i) k_out[i] = nv * k[i];
@@ -112,19 +112,20 @@ __device__ __forceinline__ void element_prep(const BlockTables& T, int b,
 }
 
 // Explicit gradient of real element e of block b: the contribution rows t
-// ((D+1)*D) of G_e = +V g (nh_grad_cols, or material M's) — the same
+// ((D+1)*D) of G_e = +V g (material M's gradient columns) — the same
 // arithmetic as K6 followed by the blocked assembly K7a.
-template <int D, int M = kNeoHookean>
+template <int D, int M>
 __device__ __forceinline__ void element_grad(const BlockTables& T, int b,
-                                             int e, const float* xs, float mu,
-                                             float lam, float* t) {
+                                             int e, const float* xs,
+                                             const MaterialParams& m,
+                                             float* t) {
   constexpr int DD = D * D;
   float x[DD], r[DD], g[DD];
   block_edges<D>(T, b, e, xs, x);
   const int slot = b * T.eb + e;
 #pragma unroll
   for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
-  material_grad_cols<D, M>(x, r, mu, lam, g);
+  material_grad_cols<D, M>(x, r, m, g);
   column_rows<D>(T.volume[slot], g, t);
 }
 

@@ -3,7 +3,8 @@
 // in one cooperative launch.
 //
 // Replaces the TPU kernel fem_tpu/ops/pallas_blocked_frame.py:_frame_kernel
-// (reached through fused_blocked_frame), Neo-Hookean, with its plastic and
+// (reached through fused_blocked_frame), every material and robust
+// Neo-Hookean (the shared chain fem::material_chain), with the plastic and
 // Maxwell branches.  The
 // TPU kernel runs on one core over VMEM-resident one-hot tables (s_dense,
 // g_dense, the pj/psum selection tensors) with 3-plane bf16 dots and
@@ -22,11 +23,15 @@
 //
 // The kernel is templated on the dimension D in {2, 3}, as the Pallas
 // kernel takes `dim`: the same phases over (N, D) rows, (D+1)-vertex
-// elements and D x D blocks; fem_blocked_frame launches the instance of
-// args->T.dim.
+// elements and D x D blocks; and on the material M (fem::Material), as it
+// takes `material` and `robust`: a compile-time instance, so the
+// Neo-Hookean instance carries no other material's code or registers.
+// fem_blocked_frame launches the instance of (args->T.dim, args->material);
+// a library built with -DFEM_MATERIAL holds one material's four instances
+// (utils/cuda_build.py builds the materials' libraries in parallel).
 //
 // Inelastic materials (the INELASTIC instance, chosen at launch;
-// inelastic.cuh): the prep runs the base chain on each element's
+// inelastic.cuh): the prep runs the base material's chain on each element's
 // R^-1 F_p^-1 and adds the Maxwell branch's stable Neo-Hookean k and h
 // (lam = 0, mu_v, on R^-1 F_v^-1) before the -V scaling
 // (pallas_blocked_frame.py:139-197); after each substep's advection and the
@@ -93,13 +98,12 @@ struct FemFrameArgs {
   int sim_count;
   int max_iter;
   int normal;
+  int material;    // fem::Material: the instance the launch runs
   float dt;
   float dt2;
   float decay;
   float g0, g1, g2;  // 9.8 g_dir (g2 unused in 2D)
-  float mu;
-  float lam;
-  float half_lam;
+  fem::MaterialParams mat;  // the material's numbers
   float tol;
   float* pos;      // (N, D) outputs, the state through the frame
   float* vel;
@@ -162,7 +166,7 @@ __device__ float block_sum(float v, float* red) {
   return total;
 }
 
-template <int D, bool INELASTIC>
+template <int D, int M, bool INELASTIC>
 struct Frame {
   static constexpr int DD = D * D;
   static constexpr int R = fem::rows_floats(D);
@@ -225,10 +229,11 @@ struct Frame {
 #pragma unroll
     for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
     fem::layer_refs<D>(a.in, slot, r, r_base, r_branch);
-    fem::nh_chain<D>(x, r_base, a.mu, a.lam, a.half_lam, k, h);
+    fem::material_chain<D, M>(x, r_base, a.mat, k, h);
     if (a.in.viscous != nullptr) {
       float k2[DD], h2[DD];
-      fem::snh_chain<D>(x, r_branch, a.in.viscous_mu, 0.0f, k2, h2);
+      fem::material_chain<D, fem::kStableNeoHookean>(
+          x, r_branch, fem::branch_params(a.in.viscous_mu), k2, h2);
 #pragma unroll
       for (int i = 0; i < DD; ++i) {
         k[i] = k[i] + k2[i];
@@ -252,8 +257,8 @@ struct Frame {
         if constexpr (INELASTIC) {
           element_prep_layers(b, e, ksh + DD * (ib * T.eb + e), t + R * e);
         } else {
-          fem::element_prep<D>(T, b, e, xs, a.mu, a.lam, a.half_lam,
-                               ksh + DD * (ib * T.eb + e), t + R * e);
+          fem::element_prep<D, M>(T, b, e, xs, a.mat,
+                                  ksh + DD * (ib * T.eb + e), t + R * e);
         }
       }
       __syncthreads();
@@ -484,7 +489,7 @@ struct Frame {
 
 // __grid_constant__: Frame keeps a reference to the parameter, which then
 // stays in the parameter space instead of a per-thread copy.
-template <int D, bool INELASTIC>
+template <int D, int M, bool INELASTIC>
 __global__ void __launch_bounds__(kThreads, 1)
     blocked_frame_kernel(const __grid_constant__ FemFrameArgs a) {
   extern __shared__ float smem[];
@@ -492,7 +497,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ float bcast;
   const int bpc = (a.T.num_blocks + gridDim.x - 1) / gridDim.x;
   float* xs = smem + D * D * bpc * a.T.eb;
-  Frame<D, INELASTIC> fr{a, carve<D>(a), cg::this_grid(), smem, xs,
+  Frame<D, M, INELASTIC> fr{a, carve<D>(a), cg::this_grid(), smem, xs,
               xs + D * a.T.pb,
               red, &bcast, 0,
               static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x),
@@ -523,22 +528,29 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int D>
-int plan_instance(bool inelastic, int grid, size_t smem, int* max_grid_out) {
-  return inelastic
-      ? fem::cooperative_fit(blocked_frame_kernel<D, true>, kThreads, grid,
-                             smem, max_grid_out)
-      : fem::cooperative_fit(blocked_frame_kernel<D, false>, kThreads, grid,
-                             smem, max_grid_out);
+int plan_instance(int material, bool inelastic, int grid, size_t smem,
+                  int* max_grid_out) {
+  return fem::dispatch_material<true>(material, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    return inelastic
+        ? fem::cooperative_fit(blocked_frame_kernel<D, M, true>, kThreads,
+                               grid, smem, max_grid_out)
+        : fem::cooperative_fit(blocked_frame_kernel<D, M, false>, kThreads,
+                               grid, smem, max_grid_out);
+  });
 }
 
 template <int D>
 int launch_instance(FemFrameArgs* a, int grid, int smem, void* stream) {
   const bool inelastic = a->in.plastic != nullptr || a->in.viscous != nullptr;
-  return inelastic
-      ? fem::cooperative_launch(blocked_frame_kernel<D, true>, a, grid,
-                                kThreads, smem, stream)
-      : fem::cooperative_launch(blocked_frame_kernel<D, false>, a, grid,
-                                kThreads, smem, stream);
+  return fem::dispatch_material<true>(a->material, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    return inelastic
+        ? fem::cooperative_launch(blocked_frame_kernel<D, M, true>, a, grid,
+                                  kThreads, smem, stream)
+        : fem::cooperative_launch(blocked_frame_kernel<D, M, false>, a, grid,
+                                  kThreads, smem, stream);
+  });
 }
 
 size_t frame_smem(int grid, int num_blocks, int eb, int pb, int dim) {
@@ -559,26 +571,29 @@ extern "C" long long fem_blocked_frame_scratch_floats(int n, int num_blocks,
 }
 
 // Checks that a cooperative grid of `grid` CTAs (0: one per locality block,
-// at most one per SM) of the `dim` instance fits the device; writes the
-// grid, its dynamic shared memory and the most co-resident CTAs.  Returns
-// 0, a CUDA error, or -1 (no cooperative launch), -2 (shared memory too
-// large), -3 (the grid cannot be co-resident).
+// at most one per SM) of the (`dim`, `material`, `inelastic`) instance fits
+// the device; writes the grid, its dynamic shared memory and the most
+// co-resident CTAs.  Returns 0, a CUDA error, or -1 (no cooperative
+// launch), -2 (shared memory too large), -3 (the grid cannot be
+// co-resident).
 extern "C" int fem_blocked_frame_plan(int num_blocks, int eb, int pb, int grid,
-                                      int dim, int inelastic, int* grid_out,
-                                      int* smem_out, int* max_grid_out) {
+                                      int dim, int material, int inelastic,
+                                      int* grid_out, int* smem_out,
+                                      int* max_grid_out) {
   *max_grid_out = 0;
   if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = fem::cooperative_grid(num_blocks, grid, grid_out);
   if (rc != 0) return rc;
   const size_t smem = frame_smem(*grid_out, num_blocks, eb, pb, dim);
   *smem_out = static_cast<int>(smem);
-  return dim == 3
-      ? plan_instance<3>(inelastic != 0, *grid_out, smem, max_grid_out)
-      : plan_instance<2>(inelastic != 0, *grid_out, smem, max_grid_out);
+  return dim == 3 ? plan_instance<3>(material, inelastic != 0, *grid_out,
+                                    smem, max_grid_out)
+                  : plan_instance<2>(material, inelastic != 0, *grid_out,
+                                    smem, max_grid_out);
 }
 
-// The inelastic instance runs when args->in has a state (plastic or
-// viscous not null).
+// Launches the instance of args->material; the inelastic one when args->in
+// has a state (plastic or viscous not null).
 extern "C" int fem_blocked_frame(const FemFrameArgs* args, int grid, int smem,
                                  void* stream) {
   FemFrameArgs a = *args;

@@ -3,8 +3,9 @@
 // kinematic step — in one cooperative launch.
 //
 // Replaces the TPU kernel fem_tpu/ops/pallas_blocked_frame.py:
-// _explicit_frame_kernel (reached through fused_explicit_frame),
-// Neo-Hookean, with its plastic and Maxwell branches.  The TPU kernel runs on one core over VMEM-resident
+// _explicit_frame_kernel (reached through fused_explicit_frame), every
+// material (the shared chain fem::material_grad_cols), with the plastic and
+// Maxwell branches.  The TPU kernel runs on one core over VMEM-resident
 // one-hot tables (s_dense, g_dense, the pj selections) with 3-plane bf16
 // dots and (8, 128)-padded planes; none of that is semantics and none is
 // carried over: this kernel indexes the block tables directly and computes
@@ -14,7 +15,8 @@
 //
 // Semantics, unchanged (fused_explicit_frame's contract):
 //   per substep: grad = sum over tets of the +V g columns (the shared chain
-//   fem::nh_grad_cols, element_chain.cuh: unclamped log), column j to local
+//   fem::material_grad_cols, element_chain.cuh: for Neo-Hookean the
+//   unclamped log), column j to local
 //   vertex j+1 and minus their sum to vertex 0; then per particle
 //   vel += (9.8 g_dir - grad m^-1) dt, vel *= exp(-dt damping), a component
 //   pushing through a unit-box wall (tested on the old position, lower wall
@@ -22,8 +24,11 @@
 //   position (radius 0 never hits), pos += vel dt.
 //
 // The kernel is templated on the dimension D in {2, 3}, as the Pallas
-// kernel takes `dim`; fem_explicit_frame launches the instance of
-// args->T.dim.  The 2D default scene (configs/default.json) is the first
+// kernel takes `dim`, and on the material M (fem::Material), as it takes
+// `material`: a compile-time instance, so the Neo-Hookean instance carries
+// no other material's code.  fem_explicit_frame launches the instance of
+// (args->T.dim, args->material); a library built with -DFEM_MATERIAL holds
+// one material's four instances.  The 2D default scene (configs/default.json) is the first
 // shipped scene whose circles are hit on the card: two circles of radius
 // 0.21 that the body squeezes between, projected in obstacle order.
 //
@@ -94,11 +99,11 @@ struct FemExplicitFrameArgs {
   int n;
   int n_obst;
   int sim_count;
+  int material;     // fem::Material: the instance the launch runs
   float dt;
   float decay;
   float g0, g1, g2;  // 9.8 g_dir (g2 unused in 2D)
-  float mu;
-  float lam;
+  fem::MaterialParams mat;  // the material's numbers
   float* pos;       // (N, D) outputs, the state through the frame
   float* vel;
   float* partials;  // (B*Pb, D) scratch
@@ -108,8 +113,9 @@ struct FemExplicitFrameArgs {
 namespace {
 
 // The contribution rows t of real element e of block b with the material
-// layers: the base chain on R^-1 F_p^-1, plus the Maxwell branch's.
-template <int D>
+// layers: the base material's chain on R^-1 F_p^-1, plus the Maxwell
+// branch's.
+template <int D, int M>
 __device__ __forceinline__ void element_grad_layers(
     const FemExplicitFrameArgs& a, int b, int e, const float* xs, float* t) {
   constexpr int DD = D * D;
@@ -120,10 +126,11 @@ __device__ __forceinline__ void element_grad_layers(
 #pragma unroll
   for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
   fem::layer_refs<D>(a.in, slot, r, r_base, r_branch);
-  fem::nh_grad_cols<D>(x, r_base, a.mu, a.lam, g);
+  fem::material_grad_cols<D, M>(x, r_base, a.mat, g);
   if (a.in.viscous != nullptr) {
     float g2[DD];
-    fem::snh_grad_cols<D>(x, r_branch, a.in.viscous_mu, 0.0f, g2);
+    fem::material_grad_cols<D, fem::kStableNeoHookean>(
+        x, r_branch, fem::branch_params(a.in.viscous_mu), g2);
 #pragma unroll
     for (int i = 0; i < DD; ++i) g[i] = g[i] + g2[i];
   }
@@ -131,7 +138,7 @@ __device__ __forceinline__ void element_grad_layers(
 }
 
 // Phase 1: the per-slot gradient partials of every owned block at `src`.
-template <int D, bool INELASTIC>
+template <int D, int M, bool INELASTIC>
 __device__ void gradient_partials(const FemExplicitFrameArgs& a,
                                   const float* src, float* xs, float* t) {
   const fem::BlockTables& T = a.T;
@@ -141,10 +148,10 @@ __device__ void gradient_partials(const FemExplicitFrameArgs& a,
     const int nel = T.block_elements[b];
     for (int e = threadIdx.x; e < nel; e += blockDim.x) {
       if constexpr (INELASTIC) {
-        element_grad_layers<D>(a, b, e, xs, t + fem::rows_floats(D) * e);
+        element_grad_layers<D, M>(a, b, e, xs, t + fem::rows_floats(D) * e);
       } else {
-        fem::element_grad<D>(T, b, e, xs, a.mu, a.lam,
-                             t + fem::rows_floats(D) * e);
+        fem::element_grad<D, M>(T, b, e, xs, a.mat,
+                                t + fem::rows_floats(D) * e);
       }
     }
     __syncthreads();
@@ -242,7 +249,7 @@ __device__ void kinematic(const FemExplicitFrameArgs& a, int p,
 
 // __grid_constant__: the parameter stays in the parameter space instead of
 // a per-thread copy.
-template <int D, bool INELASTIC>
+template <int D, int M, bool INELASTIC>
 __global__ void __launch_bounds__(kThreads, 1)
     explicit_frame_kernel(const __grid_constant__ FemExplicitFrameArgs a) {
   extern __shared__ float smem[];
@@ -259,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // past L1 in phase 1).
     const float* pos_src = s == 0 ? a.pos_in : a.pos;
     const float* vel_src = s == 0 ? a.vel_in : a.vel;
-    gradient_partials<D, INELASTIC>(a, pos_src, xs, t);
+    gradient_partials<D, M, INELASTIC>(a, pos_src, xs, t);
     grid.sync();
     for (int p = first; p < a.n; p += stride) kinematic<D>(a, p, pos_src, vel_src);
     if constexpr (INELASTIC) {
@@ -272,49 +279,58 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int D>
-int plan_instance(bool inelastic, int grid, size_t smem, int* max_grid_out) {
-  return inelastic
-      ? fem::cooperative_fit(explicit_frame_kernel<D, true>, kThreads, grid,
-                             smem, max_grid_out)
-      : fem::cooperative_fit(explicit_frame_kernel<D, false>, kThreads, grid,
-                             smem, max_grid_out);
+int plan_instance(int material, bool inelastic, int grid, size_t smem,
+                  int* max_grid_out) {
+  return fem::dispatch_material<false>(material, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    return inelastic
+        ? fem::cooperative_fit(explicit_frame_kernel<D, M, true>, kThreads,
+                               grid, smem, max_grid_out)
+        : fem::cooperative_fit(explicit_frame_kernel<D, M, false>, kThreads,
+                               grid, smem, max_grid_out);
+  });
 }
 
 template <int D>
 int launch_instance(FemExplicitFrameArgs* a, int grid, int smem,
                     void* stream) {
   const bool inelastic = a->in.plastic != nullptr || a->in.viscous != nullptr;
-  return inelastic
-      ? fem::cooperative_launch(explicit_frame_kernel<D, true>, a, grid,
-                                kThreads, smem, stream)
-      : fem::cooperative_launch(explicit_frame_kernel<D, false>, a, grid,
-                                kThreads, smem, stream);
+  return fem::dispatch_material<false>(a->material, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    return inelastic
+        ? fem::cooperative_launch(explicit_frame_kernel<D, M, true>, a, grid,
+                                  kThreads, smem, stream)
+        : fem::cooperative_launch(explicit_frame_kernel<D, M, false>, a, grid,
+                                  kThreads, smem, stream);
+  });
 }
 
 }  // namespace
 
 // Checks that a cooperative grid of `grid` CTAs (0: one per locality block,
-// at most one per SM) of the `dim` instance, elastic or inelastic, fits the
-// device; writes the grid, its dynamic shared memory and the most
-// co-resident CTAs.  Returns 0, a CUDA error, or -1 (no cooperative
-// launch), -2 (shared memory too large), -3 (the grid cannot be
+// at most one per SM) of the (`dim`, `material`) instance, elastic or
+// inelastic, fits the device; writes the grid, its dynamic shared memory
+// and the most co-resident CTAs.  Returns 0, a CUDA error, or -1 (no
+// cooperative launch), -2 (shared memory too large), -3 (the grid cannot be
 // co-resident).
 extern "C" int fem_explicit_frame_plan(int num_blocks, int eb, int pb, int grid,
-                                       int dim, int inelastic, int* grid_out,
-                                       int* smem_out, int* max_grid_out) {
+                                       int dim, int material, int inelastic,
+                                       int* grid_out, int* smem_out,
+                                       int* max_grid_out) {
   *max_grid_out = 0;
   if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = fem::cooperative_grid(num_blocks, grid, grid_out);
   if (rc != 0) return rc;
   const size_t smem = sizeof(float) * fem::block_work_floats(eb, pb, dim);
   *smem_out = static_cast<int>(smem);
-  return dim == 3
-      ? plan_instance<3>(inelastic != 0, *grid_out, smem, max_grid_out)
-      : plan_instance<2>(inelastic != 0, *grid_out, smem, max_grid_out);
+  return dim == 3 ? plan_instance<3>(material, inelastic != 0, *grid_out,
+                                    smem, max_grid_out)
+                  : plan_instance<2>(material, inelastic != 0, *grid_out,
+                                    smem, max_grid_out);
 }
 
-// The inelastic instance runs when args->in has a state (plastic or
-// viscous not null).
+// Launches the instance of args->material; the inelastic one when args->in
+// has a state (plastic or viscous not null).
 extern "C" int fem_explicit_frame(const FemExplicitFrameArgs* args, int grid,
                                   int smem, void* stream) {
   FemExplicitFrameArgs a = *args;

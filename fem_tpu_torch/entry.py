@@ -12,7 +12,8 @@ single-body config the same way.  All three take keyword overrides of the
 body's object config, for example the inelastic materials the JAX package's
 flagship A/B runs (``plastic_yield=0.01``; with ``viscous_mu=2e4,
 viscous_tau=0.01`` on the explicit flagship, as its
-tests/test_blocked_frame.py does).
+tests/test_blocked_frame.py does).  ``inverted_cube`` is the example state
+of ``robust_inversion``: a small cube with one inverted, nearly flat tet.
 """
 
 from __future__ import annotations
@@ -22,12 +23,18 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
-from fem_tpu_torch.models.mesh import load_object_mesh
+from fem_tpu_torch.models.mesh import delaunay_tetrahedralize, load_object_mesh
 from fem_tpu_torch.models.state import Obstacles, SimState, build_object
 from fem_tpu_torch.sim import check_supported_config, substep, substep_kwargs
-from fem_tpu_torch.utils.config import read_config
+from fem_tpu_torch.utils.config import (
+    BlockConfig,
+    ObjectConfig,
+    SimConfig,
+    read_config,
+)
 from fem_tpu_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,6 +98,44 @@ def deformed(state: SimState) -> SimState:
         pos=c + (state.pos - c) * squash,
         vel=torch.full_like(state.vel, -0.05),
     )
+
+
+def inverted_cube(device="cuda", flatten=3e-6):
+    """(cfg, obj, state, obstacles) of the JAX package's robust-frame scene
+    (its tests/test_blocked_frame.py: the unit cube meshed at spacing 0.45,
+    scaled by 0.35, one sphere obstacle, the implicit CG in normal-equations
+    mode, ``sim_count = 4``, ``robust_inversion``) with one tet whose base
+    lies in a plane y = const and whose apex is pushed ``flatten`` past that
+    plane: inverted and nearly flat (det F ≈ −1.7e-5 at 3e-6), so that
+    det F² < 1e-8 and the robust clamp of the rhs log acts."""
+    dev = resolve_device(device)
+    corners = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                        [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], np.float64)
+    faces = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5],
+                      [0, 5, 4], [2, 3, 7], [2, 7, 6], [0, 4, 7], [0, 7, 3],
+                      [1, 2, 6], [1, 6, 5]], np.int32)
+    nodes, tets = delaunay_tetrahedralize(corners, faces, 0.45)
+    ocfg = ObjectConfig(center=(0.3, 0.45, 0.3), rho=1000.0, E=4e4, nu=0.3,
+                        damping=10.0)
+    obj, state = build_object(ocfg, (nodes * 0.35).astype(np.float32), faces,
+                              tets.astype(np.int32), device=dev)
+    pos = state.pos.cpu().numpy()
+    idx = obj.element_indices.cpu().numpy()
+    e, k = next((e, k) for e in range(idx.shape[0]) for k in range(4)
+                if len({float(pos[v, 1]) for j, v in enumerate(idx[e])
+                        if j != k}) == 1
+                and pos[idx[e][k], 1] != pos[idx[e][(k + 1) % 4], 1])
+    y = pos[idx[e][(k + 1) % 4], 1]
+    pos[idx[e][k], 1] = y - np.sign(pos[idx[e][k], 1] - y) * flatten
+    cfg = SimConfig(dim=3, delta_time=5e-4, sim_count=4,
+                    use_explicit_method=False, auto_diff=False,
+                    implicit_method=1, preconditioned=1,
+                    g_dir=(0.0, -1.0, 0.0), robust_inversion=True,
+                    objects=(ocfg,), blocks=(BlockConfig(
+                        block_center=(0.45, 0.25, 0.45), block_radius=0.18),))
+    obstacles = Obstacles.from_configs(cfg.blocks, 3, device=dev)
+    return cfg, obj, state.replace(pos=torch.as_tensor(pos, device=dev)), \
+        obstacles
 
 
 def entry(device="cuda"):

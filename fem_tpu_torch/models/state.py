@@ -2,7 +2,7 @@
 """State containers: dataclasses of tensors plus static scalars.
 
 The port of the JAX package's ``models/state.py`` restricted to the reference
-fields and the inelastic extension.  :class:`SimState` is the dynamic state
+fields, the materials and the inelastic extension.  :class:`SimState` is the dynamic state
 (per particle, plus the per-element internal inverses of an inelastic
 material), :class:`FemObject` the static mesh and material data, and
 :class:`Obstacles` the circle obstacle set.  Every tensor of one object lives
@@ -19,6 +19,7 @@ import torch
 
 from fem_tpu_torch.ops.assembly import GatherPlan, make_gather_plan
 from fem_tpu_torch.ops.blocking import Blocking, build_blocking
+from fem_tpu_torch.ops.element import check_material
 from fem_tpu_torch.utils.config import BlockConfig, ObjectConfig
 from fem_tpu_torch.utils.device import resolve_device
 
@@ -102,12 +103,9 @@ class Obstacles:
 
 
 def check_supported_object(cfg: ObjectConfig) -> None:
-    """Raise for object features this slice of the port does not cover."""
-    if cfg.material != "neo_hookean":
-        raise NotImplementedError(
-            f"material {cfg.material!r}: only neo_hookean is ported yet "
-            "(ROADMAP M11)"
-        )
+    """Raise for object features this slice of the port does not cover
+    (every material runs; an unknown one raises ``ValueError``)."""
+    check_material(cfg.material)
     if cfg.pin_boxes or cfg.load_boxes:
         raise NotImplementedError(
             "pins and loads (pin_boxes / load_boxes) are not ported yet "

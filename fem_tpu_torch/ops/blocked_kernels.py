@@ -23,10 +23,13 @@ in block order, for the inelastic update (``ops/inelastic.py``).
 
 The preps take a material layer (ops/inelastic.py): an optional dynamic
 rest-edge inverse per slot (``ref_inv``, (B·Eb, d, d); the blocking's own
-when None) and the material, Neo-Hookean or stable Neo-Hookean (the Maxwell
-branch).  The dynamic inverse is the same table pointer the kernel reads
-anyway, and the material a template parameter chosen at launch, so the
-static Neo-Hookean launch runs the arithmetic it always ran.
+when None) and the material, any of ``ops/element.py``'s (and for K2
+``robust``).  The dynamic inverse is the same table pointer the kernel
+reads anyway, the material a template parameter chosen at launch
+(``kernel_material_id``, one library per material), and its numbers a
+kernel argument, so the static Neo-Hookean launch runs the arithmetic it
+always ran.  The preps count their launches in total and by (dimension,
+material instance), as ``ops/element_kernels`` does.
 
 Layouts: K blocks and element columns are ``(B·Eb, d, d)`` in block order
 (the JAX package's ``kplane_to_kflat`` of its (B, d², Eb·d) planes);
@@ -50,9 +53,14 @@ from fem_tpu_torch.ops.blocking import (
 from fem_tpu_torch.ops.cg_kernels import CGResult, conjugate_gradient
 from fem_tpu_torch.ops.element import (
     MATERIAL_IDS,
-    check_material,
     grad_cols_chain,
     k_and_h_chain,
+    kernel_material_id,
+)
+from fem_tpu_torch.ops.element_kernels import (
+    MaterialParamsC,
+    count_launch,
+    material_params,
 )
 from fem_tpu_torch.utils import cuda_build
 
@@ -139,15 +147,16 @@ def _slot_partials(blk: Blocking, columns: torch.Tensor) -> torch.Tensor:
     return out.reshape(blk.num_blocks, blk.pb, d)
 
 
-def blocked_prep_layers_plain(blk: Blocking, pos, layers):
+def blocked_prep_layers_plain(blk: Blocking, pos, layers, robust=False):
     """(K (B·Eb, d, d), force partials (B, Pb, d)) of material ``layers``
     — (rest-edge inverse (B·Eb, d, d), μ, λ, material) tuples — with each
     element's k and h summed over the layers before the −V scaling, as the
-    whole-frame kernel K5 sums them."""
+    whole-frame kernel K5 sums them; ``robust`` as in ``k_and_h_chain``."""
     x = block_edge_matrices(blk, blocked_gather(pos, blk))
     k = h = None
     for r, mu, lam, material in layers:
-        k_l, h_l = k_and_h_chain(sm.matmul(x, r), r, mu, lam, material)
+        k_l, h_l = k_and_h_chain(sm.matmul(x, r), r, mu, lam, material,
+                                 robust)
         k = k_l if k is None else k + k_l
         h = h_l if h is None else h + h_l
     real = _real_slots(blk)
@@ -177,10 +186,12 @@ def blocked_grad_prep_layers_plain(blk: Blocking, pos, layers):
 
 
 def blocked_prep_plain(blk: Blocking, pos, mu: float, lam: float,
-                       ref_inv=None, material: str = "neo_hookean"):
+                       ref_inv=None, material: str = "neo_hookean",
+                       robust: bool = False):
     """Plain PyTorch version of :func:`blocked_prep`."""
     r = blk.ref_inv if ref_inv is None else ref_inv
-    return blocked_prep_layers_plain(blk, pos, [(r, mu, lam, material)])
+    return blocked_prep_layers_plain(blk, pos, [(r, mu, lam, material)],
+                                     robust)
 
 
 def blocked_grad_prep_plain(blk: Blocking, pos, mu: float, lam: float,
@@ -210,13 +221,16 @@ def blocked_graph_apply_plain(blk: Blocking, K, x, transpose_k: bool = False):
     return blocked_scatter_sum(_slot_partials(blk, t), blk)
 
 
-def _library():
-    lib = cuda_build.load("blocked")
+def _library(material_id: int = MATERIAL_IDS["neo_hookean"]):
+    """The blocked kernels' library of one material's preps; the
+    material-independent kernels (K3, K7a, K7b edges) are in each, and
+    their wrappers take the Neo-Hookean one."""
+    lib = cuda_build.load("blocked", material_id)
     if lib.fem_blocked_prep.argtypes is None:
         tables = ctypes.POINTER(BlockTablesC)
+        params = ctypes.POINTER(MaterialParamsC)
         lib.fem_blocked_prep.argtypes = [
-            tables, _P, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, _P, _P, _P,
+            tables, _P, params, ctypes.c_int, _P, _P, _P,
         ]
         lib.fem_blocked_prep.restype = ctypes.c_int
         lib.fem_blocked_matvec.argtypes = [
@@ -224,7 +238,7 @@ def _library():
         ]
         lib.fem_blocked_matvec.restype = ctypes.c_int
         lib.fem_blocked_grad_prep.argtypes = [
-            tables, _P, ctypes.c_float, ctypes.c_float, ctypes.c_int, _P, _P,
+            tables, _P, params, ctypes.c_int, _P, _P,
         ]
         lib.fem_blocked_grad_prep.restype = ctypes.c_int
         lib.fem_blocked_edges.argtypes = [tables, _P, _P, _P]
@@ -245,18 +259,19 @@ def _check_rc(lib, rc, what):
 
 
 def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float,
-                 ref_inv=None, material: str = "neo_hookean"):
+                 ref_inv=None, material: str = "neo_hookean",
+                 robust: bool = False):
     """(K (B·Eb, d, d), force partials (B, Pb, d)) of the implicit substep
     at ``pos``: K_e = −V·k and the slot sums of the −V·h force columns, of
     one material layer (``ref_inv``: a dynamic rest-edge inverse per slot,
     the blocking's own when None).
 
-    CUDA tensors: one launch of the blocked prep kernel (Neo-Hookean or
-    stable Neo-Hookean, non-robust, 2D or 3D).  CPU tensors:
-    :func:`blocked_prep_plain`."""
-    check_material(material)
+    CUDA tensors: one launch of the blocked prep kernel's instance of
+    ``material`` (robust Neo-Hookean when ``robust``), 2D or 3D.  CPU
+    tensors: :func:`blocked_prep_plain`."""
+    mid = kernel_material_id(material, robust)
     if pos.device.type == "cpu":
-        return blocked_prep_plain(blk, pos, mu, lam, ref_inv, material)
+        return blocked_prep_plain(blk, pos, mu, lam, ref_inv, material, robust)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     tables = block_tables(blk, ref_inv)
@@ -267,19 +282,21 @@ def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float,
                     device=dev)
     partials = torch.empty((blk.num_blocks, blk.pb, d), dtype=torch.float32,
                            device=dev)
-    lib = _library()
+    params = material_params(material, mu, lam, d)
+    lib = _library(mid)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_blocked_prep(
-            ctypes.byref(tables), pos.data_ptr(), mu, lam, lam / 2.0,
-            MATERIAL_IDS[material], k.data_ptr(), partials.data_ptr(), stream,
+            ctypes.byref(tables), pos.data_ptr(), ctypes.byref(params), mid,
+            k.data_ptr(), partials.data_ptr(), stream,
         )
     _check_rc(lib, rc, "blocked prep")
-    blocked_prep.launches += 1
+    count_launch(blocked_prep, d, mid)
     return k, partials
 
 
 blocked_prep.launches = 0
+blocked_prep.instance_launches = {}
 
 
 def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
@@ -290,10 +307,10 @@ def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
     one material layer (``ref_inv`` as in :func:`blocked_prep`); feed them
     to ``blocked_scatter_sum``.
 
-    CUDA tensors: one launch of the blocked prep kernel in its explicit mode
-    (Neo-Hookean or stable Neo-Hookean, 2D or 3D).  CPU tensors:
+    CUDA tensors: one launch of the blocked prep kernel in its explicit mode,
+    the instance of ``material``, 2D or 3D.  CPU tensors:
     :func:`blocked_grad_prep_plain`."""
-    check_material(material)
+    mid = kernel_material_id(material)
     if pos.device.type == "cpu":
         return blocked_grad_prep_plain(blk, pos, mu, lam, ref_inv, material)
     if pos.device.type != "cuda":
@@ -303,19 +320,21 @@ def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
     cuda_build.check_operand("pos", pos, (n, d), torch.float32, blk.volume.device)
     partials = torch.empty((blk.num_blocks, blk.pb, d), dtype=torch.float32,
                            device=pos.device)
-    lib = _library()
+    params = material_params(material, mu, lam, d)
+    lib = _library(mid)
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream(pos.device).cuda_stream
         rc = lib.fem_blocked_grad_prep(
-            ctypes.byref(tables), pos.data_ptr(), mu, lam,
-            MATERIAL_IDS[material], partials.data_ptr(), stream,
+            ctypes.byref(tables), pos.data_ptr(), ctypes.byref(params), mid,
+            partials.data_ptr(), stream,
         )
     _check_rc(lib, rc, "blocked gradient prep")
-    blocked_grad_prep.launches += 1
+    count_launch(blocked_grad_prep, d, mid)
     return partials
 
 
 blocked_grad_prep.launches = 0
+blocked_grad_prep.instance_launches = {}
 
 
 def blocked_edges(blk: Blocking, pos: torch.Tensor) -> torch.Tensor:

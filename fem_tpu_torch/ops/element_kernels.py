@@ -9,13 +9,17 @@ energy-gradient columns) launch the hand-written CUDA kernels of
 replace the JAX package's Pallas kernels ``ops/pallas_kernels.py:
 _hessian_and_force_kernel`` (entry ``hessian_and_force_pallas``) and
 ``_grad_cols_kernel`` (entry ``explicit_grad_columns_pallas``), in the
-dimension of the positions (2 or 3; one kernel template, two instances).
-For tensors on the CPU each runs its plain PyTorch version (``*_plain``).  On
-CUDA each launches its kernel or raises; it never falls back.  Both take the
-material of one layer (ops/inelastic.py): Neo-Hookean, or stable
-Neo-Hookean for the Maxwell branch, a template parameter of the kernel
-chosen at launch; the rest-edge inverses are per element already, so a
-layer's dynamic R⁻¹·F_i⁻¹ passes as ``ref_inv``.
+dimension of the positions (2 or 3).  For tensors on the CPU each runs its
+plain PyTorch version (``*_plain``).  On CUDA each launches its kernel or
+raises; it never falls back.  Both take every material of
+``ops/element.py`` (and K1 ``robust``): the material is a template parameter
+of the kernel chosen at launch (``kernel_material_id``), its numbers a
+kernel argument (:class:`MaterialParamsC`), and each material's instances
+live in a library of their own (``utils/cuda_build.load``).  The
+rest-edge inverses are per element already, so an inelastic layer's
+dynamic R⁻¹·F_i⁻¹ passes as ``ref_inv``.  Each wrapper counts its launches
+in total (``launches``) and by (dimension, material instance)
+(``instance_launches``).
 """
 
 from __future__ import annotations
@@ -25,10 +29,10 @@ import ctypes
 import torch
 
 from fem_tpu_torch.ops.element import (
-    MATERIAL_IDS,
-    check_material,
     deformation_gradients,
     k_and_h_chain,
+    kernel_material_id,
+    material_constants,
 )
 # The plain version of K6 is the element module's +V·P(F)·R⁻ᵀ columns.
 from fem_tpu_torch.ops.element import (  # noqa: F401
@@ -39,34 +43,56 @@ from fem_tpu_torch.utils import cuda_build
 _P = ctypes.c_void_p
 
 
+class MaterialParamsC(ctypes.Structure):
+    """Mirror of ``fem::MaterialParams`` (csrc/element_chain.cuh)."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "mu", "lam", "half_lam", "lam_p", "two_mu", "c1x2", "c2x2",
+        "lam_log", "k_log", "a0", "a1", "a2", "two_k")]
+
+
+def material_params(material: str, mu: float, lam: float,
+                    d: int) -> MaterialParamsC:
+    """The kernel argument of ``material``'s numbers: computed in float64
+    (``ops/element.material_constants``), rounded once to f32 here."""
+    return MaterialParamsC(**material_constants(material, mu, lam, d))
+
+
+def count_launch(fn, *instance) -> None:
+    """One launch of ``fn``'s kernel: its total count, and its count by
+    instance — (dimension, material id), and for the whole frames whether
+    the inelastic branches are on — in ``fn.instance_launches``."""
+    fn.launches += 1
+    fn.instance_launches[instance] = fn.instance_launches.get(instance, 0) + 1
+
+
 def hessian_and_force_plain(pos, element_indices, ref_inv, volume, mu, lam,
-                            material="neo_hookean"):
+                            material="neo_hookean", robust=False):
     """(K (E, d, d), rhs force columns (E, d, d)) in plain PyTorch: one F
     chain shared by both outputs, as in the kernel."""
     f = deformation_gradients(pos, element_indices, ref_inv)
-    k, h = k_and_h_chain(f, ref_inv, mu, lam, material)
+    k, h = k_and_h_chain(f, ref_inv, mu, lam, material, robust)
     nv = -volume[:, None, None]
     return nv * k, nv * h
 
 
-def _library():
-    lib = cuda_build.load("element_chain")
+def _library(material_id: int):
+    lib = cuda_build.load("element_chain", material_id)
     if lib.fem_hessian_and_force.argtypes is None:
+        params = ctypes.POINTER(MaterialParamsC)
         lib.fem_hessian_and_force.argtypes = [
-            ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P, _P,
+            ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, params,
+            _P, _P, _P,
         ]
         lib.fem_hessian_and_force.restype = ctypes.c_int
         lib.fem_explicit_grad_columns.argtypes = [
-            ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, _P, _P,
+            ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, params,
+            _P, _P,
         ]
         lib.fem_explicit_grad_columns.restype = ctypes.c_int
         lib.fem_element_chain_error.argtypes = [ctypes.c_int]
         lib.fem_element_chain_error.restype = ctypes.c_char_p
     return lib
-
-
 def _check_elements(pos, element_indices, ref_inv, volume):
     """(E, d, device) of a CUDA launch over the elements, after checking
     what the kernels take: d 2 or 3, f32 and int32, contiguous, and in 3D
@@ -101,37 +127,36 @@ def hessian_and_force(
 ):
     """(K (E, d, d), rhs force columns (E, d, d)) of the implicit substep.
 
-    CUDA tensors: one launch of the element-chain kernel (Neo-Hookean or
-    stable Neo-Hookean, non-robust, 2D or 3D).  CPU tensors:
+    CUDA tensors: one launch of the element-chain kernel's instance of
+    ``material`` (robust Neo-Hookean when ``robust``; ``robust`` leaves every
+    other material's chain as it is), 2D or 3D.  CPU tensors:
     :func:`hessian_and_force_plain`."""
-    check_material(material)
-    if robust:
-        raise NotImplementedError(
-            "robust_inversion is not ported yet (ROADMAP M11)"
-        )
+    mid = kernel_material_id(material, robust)
     if pos.device.type == "cpu":
         return hessian_and_force_plain(
-            pos, element_indices, ref_inv, volume, mu, lam, material
+            pos, element_indices, ref_inv, volume, mu, lam, material, robust
         )
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
+    params = material_params(material, mu, lam, d)
     k = torch.empty((e, d, d), dtype=torch.float32, device=dev)
     h = torch.empty((e, d, d), dtype=torch.float32, device=dev)
-    lib = _library()
+    lib = _library(mid)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_hessian_and_force(
-            d, MATERIAL_IDS[material], pos.data_ptr(),
-            element_indices.data_ptr(), ref_inv.data_ptr(), volume.data_ptr(),
-            e, mu, lam, lam / 2.0, k.data_ptr(), h.data_ptr(), stream,
+            d, mid, pos.data_ptr(), element_indices.data_ptr(),
+            ref_inv.data_ptr(), volume.data_ptr(), e, ctypes.byref(params),
+            k.data_ptr(), h.data_ptr(), stream,
         )
     if rc != 0:
         msg = lib.fem_element_chain_error(rc).decode()
         raise RuntimeError(f"element-chain kernel launch failed: {msg}")
-    hessian_and_force.launches += 1
+    count_launch(hessian_and_force, d, mid)
     return k, h
 
 
 hessian_and_force.launches = 0
+hessian_and_force.instance_launches = {}
 
 
 def explicit_grad_columns(
@@ -146,29 +171,30 @@ def explicit_grad_columns(
     """Explicit energy-gradient columns (E, d, d): column j of element e
     goes to its vertex j+1, −Σ_j to vertex 0.
 
-    CUDA tensors: one launch of the gradient-columns kernel (Neo-Hookean or
-    stable Neo-Hookean, 2D or 3D).  CPU tensors:
-    :func:`explicit_grad_columns_plain`."""
-    check_material(material)
+    CUDA tensors: one launch of the gradient-columns kernel's instance of
+    ``material``, 2D or 3D.  CPU tensors: :func:`explicit_grad_columns_plain`."""
+    mid = kernel_material_id(material)
     if pos.device.type == "cpu":
         return explicit_grad_columns_plain(
             pos, element_indices, ref_inv, volume, mu, lam, material
         )
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
+    params = material_params(material, mu, lam, d)
     g = torch.empty((e, d, d), dtype=torch.float32, device=dev)
-    lib = _library()
+    lib = _library(mid)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fem_explicit_grad_columns(
-            d, MATERIAL_IDS[material], pos.data_ptr(),
-            element_indices.data_ptr(), ref_inv.data_ptr(), volume.data_ptr(),
-            e, mu, lam, g.data_ptr(), stream,
+            d, mid, pos.data_ptr(), element_indices.data_ptr(),
+            ref_inv.data_ptr(), volume.data_ptr(), e, ctypes.byref(params),
+            g.data_ptr(), stream,
         )
     if rc != 0:
         msg = lib.fem_element_chain_error(rc).decode()
         raise RuntimeError(f"gradient-columns kernel launch failed: {msg}")
-    explicit_grad_columns.launches += 1
+    count_launch(explicit_grad_columns, d, mid)
     return g
 
 
 explicit_grad_columns.launches = 0
+explicit_grad_columns.instance_launches = {}

@@ -7,11 +7,12 @@ launch ``fem_tpu_torch/csrc/blocked_frame.cu`` and
 ``fem_tpu_torch/csrc/explicit_frame.cu`` cooperatively for tensors on a
 CUDA device; they replace the JAX package's Pallas kernels
 ``ops/pallas_blocked_frame.py:_frame_kernel`` (entry ``fused_blocked_frame``)
-and ``_explicit_frame_kernel`` (entry ``fused_explicit_frame``), Neo-Hookean,
-with their plastic and Maxwell branches, in the blocking's dimension (2 or
-3; one kernel template, an elastic and an inelastic instance of each
-dimension).  For tensors on the CPU each runs its plain
-version: ``fused_blocked_frame_plain`` runs per substep the plain blocked
+and ``_explicit_frame_kernel`` (entry ``fused_explicit_frame``), for every
+material of ``ops/element.py`` (K5 also ``robust``), with their plastic and
+Maxwell branches, in the blocking's dimension (2 or 3; one kernel template
+per kernel, an instance per dimension, material and elastic or inelastic,
+each material's instances in a library of their own).  For tensors on the
+CPU each runs its plain version: ``fused_blocked_frame_plain`` runs per substep the plain blocked
 prep, the slot-sum assembly, the reference CG over the plain blocked
 operator and the plain advection; ``fused_explicit_frame_plain`` per
 substep the plain blocked gradient prep, the slot sum and the plain
@@ -50,6 +51,12 @@ from fem_tpu_torch.ops.blocked_kernels import (
     check_slot_plan,
 )
 from fem_tpu_torch.ops.blocking import Blocking, blocked_scatter_sum
+from fem_tpu_torch.ops.element import kernel_material_id
+from fem_tpu_torch.ops.element_kernels import (
+    MaterialParamsC,
+    count_launch,
+    material_params,
+)
 from fem_tpu_torch.ops.inelastic import (
     BRANCH_MATERIAL,
     advance_blocked,
@@ -87,10 +94,10 @@ class FrameArgsC(ctypes.Structure):
         ("pos_in", _P), ("vel_in", _P), ("velg_in", _P),
         ("mass", _P), ("centers", _P), ("radii", _P),
         ("n", _I), ("n_obst", _I), ("sim_count", _I), ("max_iter", _I),
-        ("normal", _I),
+        ("normal", _I), ("material", _I),
         ("dt", _F), ("dt2", _F), ("decay", _F),
         ("g0", _F), ("g1", _F), ("g2", _F),
-        ("mu", _F), ("lam", _F), ("half_lam", _F), ("tol", _F),
+        ("mat", MaterialParamsC), ("tol", _F),
         ("pos", _P), ("vel", _P), ("velg", _P), ("scratch", _P),
         ("iters", _P), ("res", _P),
     ] + _INELASTIC_FIELDS
@@ -106,11 +113,12 @@ def _gravity3(g_dir, d):
 
 
 class _Internal:
-    """The inelastic state of one frame call: which branches are on, their
-    constants, and the plain versions' layers and update."""
+    """The material and inelastic state of one frame call: which branches
+    are on, their constants, and the plain versions' layers and update."""
 
     def __init__(self, blk, mu, s_lambda, plastic_inv, plastic_yield,
-                 viscous_inv, viscous_mu, viscous_tau, dt):
+                 viscous_inv, viscous_mu, viscous_tau, dt,
+                 material="neo_hookean"):
         self.plastic = plastic_yield > 0.0
         self.viscous = viscous_mu > 0.0
         for on, fi, name in ((self.plastic, plastic_inv, "plastic_inv"),
@@ -119,6 +127,7 @@ class _Internal:
                 raise ValueError(
                     f"{name} must be given exactly when its branch is on")
         self.blk, self.mu, self.lam = blk, mu, s_lambda
+        self.material = material
         self.plastic_yield, self.viscous_mu = plastic_yield, viscous_mu
         self.relax = relax_decay(dt, viscous_tau) if self.viscous else 0.0
         self.state = (plastic_inv, viscous_inv)
@@ -130,7 +139,7 @@ class _Internal:
     def layers(self):
         plastic, viscous = self.state
         out = [(layer_ref_inv_blocked(self.blk, plastic), self.mu, self.lam,
-                "neo_hookean")]
+                self.material)]
         if viscous is not None:
             out.append((layer_ref_inv_blocked(self.blk, viscous),
                         self.viscous_mu, 0.0, BRANCH_MATERIAL))
@@ -149,20 +158,21 @@ class _Internal:
 def fused_blocked_frame_plain(
     blk: Blocking, pos, vel, vel_g, mass, centers, radii, *, dt, damping,
     g_dir, mu, s_lambda, preconditioned, sim_count, max_iter=500, tol=1e-5,
-    plastic_inv=None, plastic_yield=0.0, viscous_inv=None, viscous_mu=0.0,
-    viscous_tau=0.1,
+    robust=False, material="neo_hookean", plastic_inv=None,
+    plastic_yield=0.0, viscous_inv=None, viscous_mu=0.0, viscous_tau=0.1,
 ):
     """Plain PyTorch version of :func:`fused_blocked_frame`."""
     internal = _Internal(blk, mu, s_lambda, plastic_inv, plastic_yield,
-                         viscous_inv, viscous_mu, viscous_tau, dt)
+                         viscous_inv, viscous_mu, viscous_tau, dt, material)
     state = SimState(pos=pos, vel=vel, vel_g=vel_g, force=torch.zeros_like(pos))
     obstacles = Obstacles(centers=centers, radii=radii)
-    decay = damping_decay(dt, damping)
+    decay = damping_decay(dt, damping, pos.dtype)
     gravity = gravity_vector(tuple(g_dir), pos.device)
     iters, res = [], []
     for _ in range(sim_count):
         sol = blocked_velocity_solve(
-            blk, blocked_prep_layers_plain(blk, state.pos, internal.layers()),
+            blk, blocked_prep_layers_plain(blk, state.pos, internal.layers(),
+                                           robust),
             state.vel, mass, dt, bool(preconditioned),
             apply=blocked_graph_apply_plain, max_iter=max_iter, tol=tol,
         )
@@ -200,14 +210,14 @@ def _inelastic_args(blk, internal, n_elem, d):
     return fields, tuple(o for o in outs if o is not None)
 
 
-def _library():
-    lib = cuda_build.load("blocked_frame")
+def _library(material_id: int):
+    lib = cuda_build.load("blocked_frame", material_id)
     if lib.fem_blocked_frame.argtypes is None:
         lib.fem_blocked_frame_scratch_floats.argtypes = [_I, _I, _I, _I, _I]
         lib.fem_blocked_frame_scratch_floats.restype = ctypes.c_longlong
         out = ctypes.POINTER(_I)
         lib.fem_blocked_frame_plan.argtypes = [
-            _I, _I, _I, _I, _I, _I, out, out, out,
+            _I, _I, _I, _I, _I, _I, _I, out, out, out,
         ]
         lib.fem_blocked_frame_plan.restype = _I
         lib.fem_blocked_frame.argtypes = [
@@ -220,12 +230,12 @@ def _library():
 
 
 def _plan(lib, plan_fn, error_fn, what, device_index, num_blocks, eb, pb,
-          grid, dim, inelastic):
+          grid, dim, material_id, inelastic):
     g, smem, most = _I(0), _I(0), _I(0)
     with torch.cuda.device(device_index):
         rc = plan_fn(
-            num_blocks, eb, pb, grid, dim, int(inelastic), ctypes.byref(g),
-            ctypes.byref(smem), ctypes.byref(most),
+            num_blocks, eb, pb, grid, dim, material_id, int(inelastic),
+            ctypes.byref(g), ctypes.byref(smem), ctypes.byref(most),
         )
     if rc != 0:
         msg = error_fn(rc).decode()
@@ -236,17 +246,18 @@ def _plan(lib, plan_fn, error_fn, what, device_index, num_blocks, eb, pb,
     return g.value, smem.value
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=64)
 def frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-               grid: int, dim: int, inelastic: bool = False):
-    """(grid, dynamic shared bytes) of K5's cooperative launch in dimension
-    ``dim`` (its elastic or its inelastic instance): ``grid`` CTAs, or with
-    0 one per locality block and at most one per SM.  Raises when the grid
-    cannot be co-resident or its K blocks do not fit."""
-    lib = _library()
+               grid: int, dim: int, material_id: int = 0,
+               inelastic: bool = False):
+    """(grid, dynamic shared bytes) of K5's cooperative launch of the
+    instance (``dim``, ``material_id``, elastic or inelastic): ``grid``
+    CTAs, or with 0 one per locality block and at most one per SM.  Raises
+    when the grid cannot be co-resident or its K blocks do not fit."""
+    lib = _library(material_id)
     return _plan(lib, lib.fem_blocked_frame_plan, lib.fem_blocked_frame_error,
                  "whole-frame kernel", device_index, num_blocks, eb, pb, grid,
-                 dim, inelastic)
+                 dim, material_id, inelastic)
 
 
 def fused_blocked_frame(
@@ -268,6 +279,8 @@ def fused_blocked_frame(
     max_iter: int = 500,
     tol: float = 1e-5,
     grid: int = 0,
+    robust: bool = False,
+    material: str = "neo_hookean",
     plastic_inv=None,
     plastic_yield: float = 0.0,
     viscous_inv=None,
@@ -279,25 +292,30 @@ def fused_blocked_frame(
     plastic_inv' and viscous_inv' (E, d, d) for the branches that are on —
     the contract of the JAX package's ``fused_blocked_frame``.
 
-    CUDA tensors: one cooperative launch of the whole-frame kernel
-    (Neo-Hookean with its plastic and Maxwell branches, non-robust, 2D or
-    3D), with no host synchronisation; ``grid`` sets its CTAs (0: one per
-    locality block, at most one per SM; the tests set it to walk blocks
-    grid-stride and to ask for a grid that cannot be co-resident).  CPU
-    tensors: :func:`fused_blocked_frame_plain`."""
+    CUDA tensors: one cooperative launch of the whole-frame kernel's
+    instance of ``material`` (robust Neo-Hookean when ``robust``; ``robust``
+    leaves every other material's chain as it is), with its plastic and
+    Maxwell branches when they are on, 2D or 3D, with no host
+    synchronisation; ``grid`` sets its CTAs (0: one per locality block, at
+    most one per SM; the tests set it to walk blocks grid-stride and to ask
+    for a grid that cannot be co-resident).  CPU tensors:
+    :func:`fused_blocked_frame_plain`."""
     inelastic = dict(plastic_inv=plastic_inv, plastic_yield=plastic_yield,
                      viscous_inv=viscous_inv, viscous_mu=viscous_mu,
                      viscous_tau=viscous_tau)
+    mid = kernel_material_id(material, robust)
     if pos.device.type == "cpu":
         return fused_blocked_frame_plain(
             blk, pos, vel, vel_g, mass, centers, radii, dt=dt,
             damping=damping, g_dir=g_dir, mu=mu, s_lambda=s_lambda,
             preconditioned=preconditioned, sim_count=sim_count,
-            max_iter=max_iter, tol=tol, **inelastic,
+            max_iter=max_iter, tol=tol, robust=robust, material=material,
+            **inelastic,
         )
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    internal = _Internal(blk, mu, s_lambda, dt=dt, **inelastic)
+    internal = _Internal(blk, mu, s_lambda, dt=dt, material=material,
+                         **inelastic)
     tables = block_tables(blk)
     dev = pos.device
     n, d = pos.shape[0], tables.dim
@@ -312,8 +330,8 @@ def fused_blocked_frame(
         cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
     check_slot_plan(blk, n, dev)
     g, smem = frame_plan(dev.index or 0, blk.num_blocks, blk.eb, blk.pb,
-                         int(grid), d, internal.on)
-    lib = _library()
+                         int(grid), d, mid, internal.on)
+    lib = _library(mid)
     scratch = torch.empty(
         lib.fem_blocked_frame_scratch_floats(n, blk.num_blocks, blk.pb, g, d),
         dtype=f32, device=dev,
@@ -328,8 +346,10 @@ def fused_blocked_frame(
         tables, plan.ptr.data_ptr(), plan.rows.data_ptr(), pos.data_ptr(),
         vel.data_ptr(), vel_g.data_ptr(), mass.data_ptr(), centers.data_ptr(),
         radii.data_ptr(), n, o, int(sim_count), int(max_iter),
-        int(bool(preconditioned)), dt, dt * dt, damping_decay(dt, damping),
-        *grav, mu, s_lambda, s_lambda / 2.0, tol, out[0].data_ptr(),
+        int(bool(preconditioned)), mid, dt, dt * dt,
+        damping_decay(dt, damping), *grav, material_params(material, mu,
+                                                           s_lambda, d),
+        tol, out[0].data_ptr(),
         out[1].data_ptr(), out[2].data_ptr(), scratch.data_ptr(),
         iters.data_ptr(), res.data_ptr(), *tail,
     )
@@ -339,11 +359,12 @@ def fused_blocked_frame(
     if rc != 0:
         msg = lib.fem_blocked_frame_error(rc).decode()
         raise RuntimeError(f"whole-frame kernel launch failed: {msg}")
-    fused_blocked_frame.launches += 1
+    count_launch(fused_blocked_frame, d, mid, internal.on)
     return (out[0], out[1], out[2], iters, res) + state_out
 
 
 fused_blocked_frame.launches = 0
+fused_blocked_frame.instance_launches = {}
 
 
 class ExplicitFrameArgsC(ctypes.Structure):
@@ -354,23 +375,23 @@ class ExplicitFrameArgsC(ctypes.Structure):
         ("slot_ptr", _P), ("slot_rows", _P),
         ("pos_in", _P), ("vel_in", _P),
         ("mass", _P), ("centers", _P), ("radii", _P),
-        ("n", _I), ("n_obst", _I), ("sim_count", _I),
+        ("n", _I), ("n_obst", _I), ("sim_count", _I), ("material", _I),
         ("dt", _F), ("decay", _F),
         ("g0", _F), ("g1", _F), ("g2", _F),
-        ("mu", _F), ("lam", _F),
+        ("mat", MaterialParamsC),
         ("pos", _P), ("vel", _P), ("partials", _P),
     ] + _INELASTIC_FIELDS
 
 
 def fused_explicit_frame_plain(
     blk: Blocking, pos, vel, mass, centers, radii, *, dt, damping, g_dir,
-    mu, s_lambda, sim_count, plastic_inv=None, plastic_yield=0.0,
-    viscous_inv=None, viscous_mu=0.0, viscous_tau=0.1,
+    mu, s_lambda, sim_count, material="neo_hookean", plastic_inv=None,
+    plastic_yield=0.0, viscous_inv=None, viscous_mu=0.0, viscous_tau=0.1,
 ):
     """Plain PyTorch version of :func:`fused_explicit_frame`: it multiplies
     the gradient by m⁻¹, as the kernel does."""
     internal = _Internal(blk, mu, s_lambda, plastic_inv, plastic_yield,
-                         viscous_inv, viscous_mu, viscous_tau, dt)
+                         viscous_inv, viscous_mu, viscous_tau, dt, material)
     state = SimState(pos=pos, vel=vel, vel_g=torch.zeros_like(vel),
                      force=torch.zeros_like(pos))
     obstacles = Obstacles(centers=centers, radii=radii)
@@ -387,12 +408,12 @@ def fused_explicit_frame_plain(
     return (state.pos, state.vel) + internal.outputs()
 
 
-def _explicit_library():
-    lib = cuda_build.load("explicit_frame")
+def _explicit_library(material_id: int):
+    lib = cuda_build.load("explicit_frame", material_id)
     if lib.fem_explicit_frame.argtypes is None:
         out = ctypes.POINTER(_I)
         lib.fem_explicit_frame_plan.argtypes = [
-            _I, _I, _I, _I, _I, _I, out, out, out,
+            _I, _I, _I, _I, _I, _I, _I, out, out, out,
         ]
         lib.fem_explicit_frame_plan.restype = _I
         lib.fem_explicit_frame.argtypes = [
@@ -404,15 +425,17 @@ def _explicit_library():
     return lib
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=64)
 def explicit_frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-                        grid: int, dim: int, inelastic: bool = False):
+                        grid: int, dim: int, material_id: int = 0,
+                        inelastic: bool = False):
     """(grid, dynamic shared bytes) of K8's cooperative launch, as
     :func:`frame_plan`."""
-    lib = _explicit_library()
+    lib = _explicit_library(material_id)
     return _plan(lib, lib.fem_explicit_frame_plan,
                  lib.fem_explicit_frame_error, "explicit whole-frame kernel",
-                 device_index, num_blocks, eb, pb, grid, dim, inelastic)
+                 device_index, num_blocks, eb, pb, grid, dim, material_id,
+                 inelastic)
 
 
 def fused_explicit_frame(
@@ -430,6 +453,7 @@ def fused_explicit_frame(
     s_lambda: float,
     sim_count: int,
     grid: int = 0,
+    material: str = "neo_hookean",
     plastic_inv=None,
     plastic_yield: float = 0.0,
     viscous_inv=None,
@@ -439,22 +463,25 @@ def fused_explicit_frame(
     """One rendered frame of ``sim_count`` explicit substeps: returns
     (pos', vel') (N, d), then plastic_inv' and viscous_inv' (E, d, d) for
     the branches that are on — the contract of the JAX package's
-    ``fused_explicit_frame``, Neo-Hookean.
+    ``fused_explicit_frame``.
 
-    CUDA tensors: one cooperative launch of the explicit whole-frame kernel
-    (Neo-Hookean with its plastic and Maxwell branches, 2D or 3D), with no
-    host synchronisation; ``grid`` as in :func:`fused_blocked_frame`.  CPU
-    tensors: :func:`fused_explicit_frame_plain`."""
+    CUDA tensors: one cooperative launch of the explicit whole-frame
+    kernel's instance of ``material``, with its plastic and Maxwell branches
+    when they are on, 2D or 3D, with no host synchronisation; ``grid`` as
+    in :func:`fused_blocked_frame`.  CPU tensors:
+    :func:`fused_explicit_frame_plain`."""
     inelastic = dict(plastic_inv=plastic_inv, plastic_yield=plastic_yield,
                      viscous_inv=viscous_inv, viscous_mu=viscous_mu,
                      viscous_tau=viscous_tau)
+    mid = kernel_material_id(material)
     if pos.device.type == "cpu":
         return fused_explicit_frame_plain(
             blk, pos, vel, mass, centers, radii, dt=dt, damping=damping,
             g_dir=g_dir, mu=mu, s_lambda=s_lambda, sim_count=sim_count,
-            **inelastic,
+            material=material, **inelastic,
         )
-    internal = _Internal(blk, mu, s_lambda, dt=dt, **inelastic)
+    internal = _Internal(blk, mu, s_lambda, dt=dt, material=material,
+                         **inelastic)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     if sim_count < 1:
@@ -472,8 +499,8 @@ def fused_explicit_frame(
         cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
     check_slot_plan(blk, n, dev)
     g, smem = explicit_frame_plan(dev.index or 0, blk.num_blocks, blk.eb,
-                                  blk.pb, int(grid), d, internal.on)
-    lib = _explicit_library()
+                                  blk.pb, int(grid), d, mid, internal.on)
+    lib = _explicit_library(mid)
     partials = torch.empty((blk.num_blocks * blk.pb, d), dtype=f32, device=dev)
     out = [torch.empty((n, d), dtype=f32, device=dev) for _ in range(2)]
     grav = _gravity3(g_dir, d)
@@ -482,8 +509,9 @@ def fused_explicit_frame(
     args = ExplicitFrameArgsC(
         tables, plan.ptr.data_ptr(), plan.rows.data_ptr(), pos.data_ptr(),
         vel.data_ptr(), mass.data_ptr(), centers.data_ptr(),
-        radii.data_ptr(), n, o, int(sim_count), dt,
-        damping_decay(dt, damping), *grav, mu, s_lambda, out[0].data_ptr(),
+        radii.data_ptr(), n, o, int(sim_count), mid, dt,
+        damping_decay(dt, damping), *grav,
+        material_params(material, mu, s_lambda, d), out[0].data_ptr(),
         out[1].data_ptr(), partials.data_ptr(), *tail,
     )
     with torch.cuda.device(dev):
@@ -492,8 +520,9 @@ def fused_explicit_frame(
     if rc != 0:
         msg = lib.fem_explicit_frame_error(rc).decode()
         raise RuntimeError(f"explicit whole-frame kernel launch failed: {msg}")
-    fused_explicit_frame.launches += 1
+    count_launch(fused_explicit_frame, d, mid, internal.on)
     return (out[0], out[1]) + state_out
 
 
 fused_explicit_frame.launches = 0
+fused_explicit_frame.instance_launches = {}

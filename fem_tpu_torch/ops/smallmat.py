@@ -1,14 +1,13 @@
 # coding=utf-8
 """Batched closed-form small-matrix primitives (dim ∈ {2, 3}) on tensors.
 
-The port of the JAX package's ``ops/smallmat.py`` subset the implicit path
-needs.  Every formula follows the component order of the element kernel it
-stands beside (``fem_tpu_torch/csrc/element_chain.cu``, itself the port of the
-Pallas ``k_and_h_chain``): products sum k = 0, 1, 2 left to right and the
-inverse multiplies the adjugate by ``1/det`` — so the plain version and the
-CUDA kernel round alike.  All functions take tensors whose last two axes are
-the matrix axes and batch over any leading axes.
-"""
+The port of the JAX package's ``ops/smallmat.py``, its Jacobi eigensolve
+(``sym_eigh``) included. Every formula follows the component order of the
+element kernel it stands beside (``fem_tpu_torch/csrc/element_chain.cu``,
+itself the port of the Pallas ``k_and_h_chain``): products sum k = 0, 1, 2
+left to right and the inverse multiplies the adjugate by ``1/det`` — so the
+plain version and the CUDA kernel round alike. All functions take tensors
+whose last two axes are the matrix axes and batch over any leading axes."""
 
 from __future__ import annotations
 
@@ -78,6 +77,64 @@ def inv(m: torch.Tensor, det_m: torch.Tensor | None = None) -> torch.Tensor:
     if det_m is None:
         det_m = det(m)
     return adjugate(m) * (1.0 / det_m)[..., None, None]
+
+
+def safe_inv(m: torch.Tensor, det_eps: float = 1e-6) -> torch.Tensor:
+    """Inverse with the determinant clamped away from zero, sign kept
+    (|det| ≥ ``det_eps``): the ``robust_inversion`` extension's F⁻¹ (the JAX
+    package's ``safe_inv``)."""
+    dt = det(m)
+    dt_safe = torch.where(dt < 0, -1.0, 1.0).to(m.dtype) * torch.clamp(
+        dt.abs(), min=det_eps)
+    return inv(m, dt_safe)
+
+
+def _cof2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The symmetrized bilinear 3×3 cofactor form: cof2(m, m) = 2·cof(m),
+    cof2(m, d) = Dcof(m)[d] (the JAX package's ``_planar_cof2``)."""
+    idx = [0, 1, 2]
+    rows = []
+    for i in range(3):
+        p, q = [r for r in idx if r != i]
+        row = []
+        for j in range(3):
+            r, s = [c for c in idx if c != j]
+            sign = 1.0 if (i + j) % 2 == 0 else -1.0
+            row.append(sign * (
+                a[..., p, r] * b[..., q, s] + b[..., p, r] * a[..., q, s]
+                - a[..., p, s] * b[..., q, r] - b[..., p, s] * a[..., q, r]
+            ))
+        rows.append(torch.stack(row, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def cofactor(m: torch.Tensor) -> torch.Tensor:
+    """cof(M) = adj(M)ᵀ = ∂det M/∂M, polynomial in the entries (finite for
+    every M, singular and inverted ones included)."""
+    if m.shape[-1] == 2:
+        return torch.stack([torch.stack([m[..., 1, 1], -m[..., 1, 0]], -1),
+                            torch.stack([-m[..., 0, 1], m[..., 0, 0]], -1)],
+                           dim=-2)
+    return 0.5 * _cof2(m, m)
+
+
+def d_cofactor(m: torch.Tensor, d_dir: torch.Tensor) -> torch.Tensor:
+    """The directional derivative Dcof(M)[D]: cof(D) in 2D (cof is linear),
+    the product rule of each 2×2 minor in 3D."""
+    return cofactor(d_dir) if m.shape[-1] == 2 else _cof2(m, d_dir)
+
+
+def polar_rotation(m: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """Rotation factor R of the polar decomposition M = R·S by Higham's
+    iteration R ← ½(R + R⁻ᵀ), exactly ``iters`` times (no convergence exit;
+    the JAX package's ``polar_rotation`` and its planar twin
+    ``_planar_polar``), the inverse as the adjugate times 1/det.  Smooth at
+    the rest pose, so autograd runs through it; for det M < 0 the limit is
+    the orthogonal, not special-orthogonal, factor."""
+    r = m
+    for _ in range(iters):
+        r = 0.5 * (r + mT(inv(r)))
+    return r
 
 
 def trace(m: torch.Tensor) -> torch.Tensor:

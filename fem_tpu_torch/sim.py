@@ -94,7 +94,6 @@ def check_supported_config(cfg: SimConfig) -> None:
             (cfg.implicit_method == 0, "the Jacobi solver", "M10"),
             (cfg.integrator != "semi_implicit",
              f"integrator={cfg.integrator!r}", "M16"),
-            (cfg.robust_inversion, "robust_inversion", "M11"),
             (cfg.cg_precond not in ("reference", "none"),
              f"cg_precond={cfg.cg_precond!r}", "M13"),
             (cfg.hessian != "reference", f"hessian={cfg.hessian!r}", "M13"),
@@ -157,8 +156,10 @@ def substep(
         obj, state, dt, implicit_method, preconditioned, robust_inversion,
         cg_precond, operator_mode, layers,
     )
+    # The decay follows the state's dtype; gravity stays f32, as in the JAX
+    # package's advect_implicit_step.
     state = advect_implicit_step(
-        state, obstacles, dt, damping_decay(dt, obj.damping),
+        state, obstacles, dt, damping_decay(dt, obj.damping, state.pos.dtype),
         gravity_vector(tuple(g_dir), obj.device),
     )
     if inelastic:
@@ -193,8 +194,8 @@ def _circles_only(cfg: SimConfig) -> bool:
 def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
     """Eligibility for the whole-frame kernel K5: the JAX package's config
     conditions (sim.py:275-308), with its VMEM gate replaced by what the
-    port's kernel covers — 2D or 3D, Neo-Hookean (with its plastic and
-    Maxwell branches), not ``robust_inversion``."""
+    port's kernel covers: 2D or 3D, every material with or without its
+    plastic and Maxwell branches, ``robust_inversion`` included."""
     return (
         obj.dim in (2, 3)
         and not cfg.adaptive_dt
@@ -208,8 +209,6 @@ def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
         and cfg.element_backend in ("auto", "pallas")
         and cfg.solver_backend == "auto"
         and cfg.cg_precond in ("reference", "none")
-        and not cfg.robust_inversion
-        and obj.material == "neo_hookean"
         and obj.blocking is not None
     )
 
@@ -243,7 +242,8 @@ def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
         dt=cfg.delta_time, damping=obj.damping, g_dir=tuple(cfg.g_dir),
         mu=obj.mu, s_lambda=obj.s_lambda,
         preconditioned=cfg.preconditioned == 1 and cfg.cg_precond == "reference",
-        sim_count=cfg.sim_count,
+        sim_count=cfg.sim_count, robust=cfg.robust_inversion,
+        material=obj.material,
     )
 
     def frame(state: SimState, obstacles: Obstacles):
@@ -261,15 +261,14 @@ def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
 def supports_explicit_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
     """Eligibility for the explicit whole-frame kernel K8: the JAX package's
     config conditions (sim.py:311-332), with its VMEM gate replaced by what
-    the port's kernel covers — 2D or 3D, Neo-Hookean (with its plastic and
-    Maxwell branches)."""
+    the port's kernel covers: 2D or 3D, every material with or without its
+    plastic and Maxwell branches."""
     return (
         obj.dim in (2, 3)
         and not cfg.adaptive_dt
         and _circles_only(cfg)
         and _explicit(cfg)
         and cfg.element_backend in ("auto", "pallas")
-        and obj.material == "neo_hookean"
         and obj.blocking is not None
     )
 
@@ -284,6 +283,7 @@ def make_explicit_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
     kwargs = dict(
         dt=cfg.delta_time, damping=obj.damping, g_dir=tuple(cfg.g_dir),
         mu=obj.mu, s_lambda=obj.s_lambda, sim_count=cfg.sim_count,
+        material=obj.material,
     )
     aux = StepAux(
         torch.zeros((cfg.sim_count,), dtype=torch.int32, device=obj.device),

@@ -5,9 +5,10 @@ energy.
 The port of the JAX package's ``solvers/explicit.py`` (reference
 solver/explicit.py:8-49 and solver/explicit_auto_diff.py with the tape at
 main.py:107), without element sharding.  Both return the assembled +∂U/∂x,
-(N, d), which the kinematic step subtracts.  The analytic gradient sums
-over material layers (ops/inelastic.py): each layer runs the kernel below
-on its own effective rest-edge inverses and material.
+(N, d), which the kinematic step subtracts, for every material of
+``ops/element.py``.  The analytic gradient sums over material layers
+(ops/inelastic.py): each layer runs the kernel below on its own effective
+rest-edge inverses and material.
 
 Which kernels run, as in the JAX package's dispatch
 (its ``solvers/explicit.py:22-143``):
@@ -54,13 +55,6 @@ from fem_tpu_torch.ops.inelastic import (
 )
 
 
-def _check_material(obj: FemObject) -> None:
-    if obj.material != "neo_hookean":
-        raise NotImplementedError(
-            f"material {obj.material!r}: only neo_hookean is ported (ROADMAP M11)"
-        )
-
-
 def _resolve_backend(element_backend: str, device: torch.device) -> str:
     """"auto" is "pallas" (the kernels) on a CUDA object and "xla" (plain
     columns) on the CPU, as the JAX package resolves it on its TPU."""
@@ -78,7 +72,6 @@ def analytic_energy_gradient(
     """Assembled ∂U/∂x (N, d) from the reference's analytic per-element
     formula (solver/explicit.py:23-49), summed over material ``layers``
     (``ops/inelastic.material_layers``; None: the one elastic layer)."""
-    _check_material(obj)
     backend = _resolve_backend(element_backend, pos.device)
     lys = normalize_layers(obj, layers)
     blk = obj.blocking
@@ -112,19 +105,21 @@ def autodiff_energy_gradient(obj: FemObject, pos: torch.Tensor) -> torch.Tensor:
     """∂U/∂x (N, d) by reverse-mode autograd — the contract of the
     reference's ``particles.pos.grad`` after its tape (main.py:107-110).
     Padded element slots hold mesh element 0 at volume 0, so their
-    gradient is 0·φ'(F), finite, and the assembly drops them."""
-    _check_material(obj)
+    gradient is 0·φ'(F), finite, and the assembly drops them.  The
+    material is the object's: for ``corotated`` autograd runs through the
+    12 Higham iterations of ``polar_rotation``, as ``jax.grad`` does."""
     blk = obj.blocking
     with torch.enable_grad():
         if blk is not None:
             x = gather_edge_diffs(pos.detach(), blk.element_indices)
             x.requires_grad_(True)
             f = sm.matmul(x, blk.ref_inv)
-            u = torch.sum(blk.volume * energy_density(f, obj.mu, obj.s_lambda))
+            u = torch.sum(blk.volume * energy_density(
+                f, obj.mu, obj.s_lambda, obj.material))
             (g_cols,) = torch.autograd.grad(u, x)
             return blocked_assemble(blk, g_cols)
         p = pos.detach().requires_grad_(True)
         u = total_energy(p, obj.element_indices, obj.ref_inv, obj.volume,
-                         obj.mu, obj.s_lambda)
+                         obj.mu, obj.s_lambda, obj.material)
         (grad,) = torch.autograd.grad(u, p)
         return grad

@@ -24,10 +24,12 @@ the blocked operator, which reads ‖r‖² on the host once an iteration.  On
 CUDA tensors the kernels are the hand-written CUDA ones; on CPU tensors
 their plain PyTorch versions.
 
-An inelastic material passes its material layers (ops/inelastic.py): the
-element chain (or the blocked prep) runs once per layer on that layer's
-effective rest-edge inverses and material, and the solve runs once over the
-summed K blocks and force columns (partials).
+Every material of ``ops/element.py`` runs, and ``robust`` (the
+``robust_inversion`` extension) on both branches.  An inelastic material
+passes its material layers (ops/inelastic.py): the element chain (or the
+blocked prep) runs once per layer on that layer's effective rest-edge
+inverses and material, and the solve runs once over the summed K blocks and
+force columns (partials).
 """
 
 from __future__ import annotations
@@ -47,7 +49,13 @@ from fem_tpu_torch.ops.cg_kernels import (
     graph_apply,
     system_applies,
 )
-from fem_tpu_torch.ops.element_kernels import hessian_and_force
+from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
+from fem_tpu_torch.ops.element import implicit_force_columns
+from fem_tpu_torch.ops.element_kernels import (
+    explicit_grad_columns,
+    explicit_grad_columns_plain,
+    hessian_and_force,
+)
 from fem_tpu_torch.ops.inelastic import (
     layer_ref_inv_blocked,
     layer_ref_inv_local,
@@ -60,6 +68,7 @@ __all__ = [
     "ImplicitAux",
     "conjugate_gradient",
     "graph_block_apply",
+    "implicit_rhs",
     "implicit_velocity_solve",
     "make_system_apply",
     "make_system_apply_t",
@@ -97,6 +106,45 @@ def make_system_apply_t(
     return system_applies(
         K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt
     )[1]
+
+
+def _one_layer_force_columns(pos, element_indices, ref_inv, volume, mu, lam,
+                             material, robust):
+    """Implicit rhs force columns of one material layer in plain PyTorch:
+    the Neo-Hookean rhs chain (λ/2·log det F² form) for ``neo_hookean``,
+    −V·P(F)·R⁻ᵀ for every other material (the JAX package's
+    ``_one_layer_force_columns``)."""
+    if material == "neo_hookean":
+        return implicit_force_columns(pos, element_indices, ref_inv, volume,
+                                      mu, lam, robust)
+    return -explicit_grad_columns_plain(pos, element_indices, ref_inv, volume,
+                                        mu, lam, material)
+
+
+def implicit_rhs(obj: FemObject, state: SimState, dt: float,
+                 robust: bool = False, element_backend: str = "auto",
+                 layers=None) -> torch.Tensor:
+    """b = v + dt·M⁻¹·f_elastic (N, d), f summed over material ``layers``
+    (the JAX package's ``implicit_rhs``, its solvers/implicit.py:444-485).
+    ``element_backend`` "pallas" ("auto" on a CUDA object) sends a non-NH
+    layer's columns to the gradient-columns kernel K6, negated, and a
+    non-robust Neo-Hookean layer's to K1's rhs half (the JAX package runs
+    K9b there, the rhs half of K1 as a kernel of its own, which the port
+    keeps queued as a K1 entry); everything else runs the plain columns."""
+    if element_backend == "auto":
+        element_backend = "pallas" if state.pos.device.type == "cuda" else "xla"
+    cols = []
+    for fi, mu, lam, material in normalize_layers(obj, layers):
+        r_eff = layer_ref_inv_local(obj.ref_inv, fi)
+        args = (state.pos, obj.element_indices, r_eff, obj.volume, mu, lam)
+        if element_backend == "pallas" and material != "neo_hookean":
+            cols.append(-explicit_grad_columns(*args, material))
+        elif element_backend == "pallas" and not robust:
+            cols.append(hessian_and_force(*args)[1])
+        else:
+            cols.append(_one_layer_force_columns(*args, material, robust))
+    f = gather_assemble(element_contrib_full(sum_layers(cols)), obj.plan.idx)
+    return state.vel + dt * f / obj.mass[:, None]
 
 
 class ImplicitAux(NamedTuple):
@@ -158,21 +206,14 @@ def _blocked_solve(
     """The blocked branch (JAX implicit.py:1080-1101): K2 per material
     layer, the slot-sum assembly of the summed partials, b = v + dt·f/m,
     then the reference CG over A and Aᵀ built from K3 on the summed K."""
-    if robust:
-        raise NotImplementedError(
-            "robust_inversion is not ported yet (ROADMAP M11)"
-        )
-    if obj.material != "neo_hookean":
-        raise NotImplementedError(
-            f"material {obj.material!r}: only neo_hookean is ported (ROADMAP M11)"
-        )
     if obj.blocking is None:
         raise ValueError("operator_mode='blocked' requires obj.blocking")
     blk = obj.blocking
     prepped = sum_layers(
         blocked_prep(
             blk, state.pos, mu, lam,
-            None if fi is None else layer_ref_inv_blocked(blk, fi), material)
+            None if fi is None else layer_ref_inv_blocked(blk, fi), material,
+            robust)
         for fi, mu, lam, material in layers
     )
     res = blocked_velocity_solve(blk, prepped, state.vel, obj.mass, dt, normal)

@@ -2,17 +2,24 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each source ``fem_tpu_torch/csrc/<name>.cu`` exports plain C launch functions
-(pointers and the stream as ``void*``) and is compiled on first use into its
-own shared library::
+(pointers and the stream as ``void*``) and is compiled on first use into
+shared libraries::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/fem_tpu_torch/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v [-DFEM_MATERIAL=<m>] \\
+         -o build/fem_tpu_torch/<name>[-m<m>]-<hash>.so
 
-The file name carries a hash of the source, of every header of ``csrc/`` it
-includes (``#include "<name>.cuh"``, followed recursively) and of the flags,
-so an edited kernel or header is rebuilt and a built one is reused.  nvcc writes to a temporary name that is
-renamed into place once complete, so concurrent processes never load a
-half-written library.  Nothing here falls back: without nvcc the build raises.
+The material-dependent sources (``MATERIAL_SOURCES``) are built once per
+material instance m (``fem::Material``, csrc/element_chain.cuh): each such
+library holds that material's template instances only, so that the many
+instances of the whole-frame kernels compile in parallel processes rather
+than in one.  A library is keyed by (name, material).  Its file name
+carries a hash of the source, of every header of ``csrc/`` it includes
+(``#include "<name>.cuh"``, followed recursively) and of the flags, the
+material's define included, so an edited kernel or header is rebuilt and a
+built one is reused.  nvcc writes to a temporary name that is renamed into
+place once complete, so concurrent processes never load a half-written
+library.  Nothing here falls back: without nvcc the build raises.
 """
 
 from __future__ import annotations
@@ -23,22 +30,39 @@ import os
 import re
 import shutil
 import subprocess
-from typing import Dict, Iterable
+import threading
+import time
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fem_tpu_torch")
-SOURCES = (
-    "element_chain", "fused_cg", "blocked", "blocked_frame", "explicit_frame",
-)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# fem::Material ids: the seven base materials and robust Neo-Hookean
+# (ops/element.py: MATERIAL_IDS, ROBUST_NEO_HOOKEAN_ID).
+_MATERIALS = tuple(range(8))
+_ROBUST = 7
+# Sources built per material; the explicit ones have no robust instance.
+MATERIAL_SOURCES = {
+    "element_chain": _MATERIALS,
+    "blocked": _MATERIALS,
+    "blocked_frame": _MATERIALS,
+    "explicit_frame": tuple(m for m in _MATERIALS if m != _ROBUST),
+}
+Key = Tuple[str, Optional[int]]
+# Every library of the port, as (source name, material or None).
+LIBRARIES: Tuple[Key, ...] = (("fused_cg", None),) + tuple(
+    (name, m) for name, ms in MATERIAL_SOURCES.items() for m in ms)
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
-# ptxas register / shared-memory report of each library built by this process.
+_LOADED: Dict[Key, ctypes.CDLL] = {}
+# ptxas register / shared-memory report, and the seconds from the build's
+# start to the library's completion and nvcc's CPU seconds, of each library
+# built by this process, by label ``name`` or ``name-m<m>``.
 BUILD_LOGS: Dict[str, str] = {}
+BUILD_SECONDS: Dict[str, Tuple[float, float]] = {}
 
 
 def find_nvcc() -> str:
@@ -72,54 +96,94 @@ def source_files(name: str):
     return files
 
 
-def library_path(name: str) -> str:
+def label(key: Key) -> str:
+    name, material = key
+    return name if material is None else f"{name}-m{material}"
+
+
+def _flags(key: Key):
+    _, material = key
+    return NVCC_FLAGS + (() if material is None
+                         else (f"-DFEM_MATERIAL={material}",))
+
+
+def library_path(key: Key) -> str:
+    name, _ = key
     h = hashlib.sha256()
     for f in source_files(name):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(f.encode() + b"\0" + fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    h.update(" ".join(_flags(key)).encode())
+    return os.path.join(BUILD_DIR, f"{label(key)}-{h.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every missing library of ``names``, one nvcc process per
-    source, all started together.  Returns name → library path."""
-    paths = {n: library_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+def _check_key(key: Key) -> None:
+    name, material = key
+    allowed = MATERIAL_SOURCES.get(name)
+    if (allowed is None and material is not None) or (
+            allowed is not None and material not in allowed):
+        raise ValueError(f"no library {label(key)} "
+                         f"(material-dependent sources: {MATERIAL_SOURCES})")
+
+
+def build(keys: Iterable[Key] = LIBRARIES) -> Dict[Key, str]:
+    """Compile every missing library of ``keys``, one nvcc process per
+    library, all started together.  Returns key → library path."""
+    keys = list(keys)
+    for key in keys:
+        _check_key(key)
+    paths = {k: library_path(k) for k in keys}
+    todo = {k: p for k, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name, out in todo.items():
+    t0 = time.perf_counter()
+    jobs = []
+    for key, out in todo.items():
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            ),
-            tmp,
-        )
+        log_path = f"{tmp}.log"
+        cmd = [nvcc, *_flags(key), "-o", tmp,
+               os.path.join(CSRC, f"{key[0]}.cu")]
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        jobs.append((key, proc, tmp, log_path))
+
+    def reap(key, proc):
+        # wait4 gives the CPU seconds of nvcc and the tools it ran.
+        _, status, usage = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        BUILD_SECONDS[label(key)] = (time.perf_counter() - t0,
+                                     usage.ru_utime + usage.ru_stime)
+
+    threads = [threading.Thread(target=reap, args=(k, p)) for k, p, _, _ in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     failed = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOGS[name] = log
+    for key, proc, tmp, log_path in jobs:
+        with open(log_path) as fh:
+            log = fh.read()
+        os.remove(log_path)
+        BUILD_LOGS[label(key)] = log
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failed.append(f"{label(key)} (nvcc exit {proc.returncode}):\n{log}")
             continue
-        os.replace(tmp, todo[name])
+        os.replace(tmp, todo[key])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    lib = _LOADED.get(name)
+def load(name: str, material: Optional[int] = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (of one material's
+    instances for a material-dependent source), built if needed."""
+    key = (name, material)
+    lib = _LOADED.get(key)
     if lib is None:
-        lib = ctypes.CDLL(build([name])[name])
-        _LOADED[name] = lib
+        lib = ctypes.CDLL(build([key])[key])
+        _LOADED[key] = lib
     return lib
 
 

@@ -1108,3 +1108,175 @@ def test_demo_plastic_runs_each_body_through_k8():
                     getattr(s, name).cpu().numpy(),
                     getattr(ref, name).numpy(), atol=TOL, err_msg=name)
     assert frame_kernels.fused_explicit_frame.launches == before + 2
+
+
+# -- Materials: every base material and robust Neo-Hookean ------------------
+
+# The six non-Neo-Hookean base materials (Mooney-Rivlin at β = 0.3, which
+# E = 4e4, ν = 0.2 allows) and robust Neo-Hookean, as (material, robust).
+MATERIAL_CASES = {
+    2: [(m, False) for m in ("stvk", "linear", "corotated",
+                             "stable_neo_hookean", "mooney_rivlin:0.3",
+                             "fiber:1,0.5:2")] + [("neo_hookean", True)],
+    3: [(m, False) for m in ("stvk", "linear", "corotated",
+                             "stable_neo_hookean", "mooney_rivlin:0.3",
+                             "fiber:1,0.5,0.25")] + [("neo_hookean", True)],
+}
+MATERIAL_CASE_IDS = [f"{d}D-{m}{'-robust' if r else ''}"
+                for d in (2, 3) for m, r in MATERIAL_CASES[d]]
+
+
+@pytest.fixture(scope="module")
+def material_bodies():
+    """The 2D scene's size (10 subdivisions, one block) and the 3D grid at
+    5 subdivisions (3 blocks), stretched and moving, elastic."""
+    _require_cuda()
+    return {2: _inelastic_body(2, {}, 10, 0.2), 3: _inelastic_body(3, {}, 5, 0.2)}
+
+
+def _material_case(material_bodies, case):
+    dim = int(case[0])
+    material, robust = MATERIAL_CASES[dim][MATERIAL_CASE_IDS.index(case)
+                                           - (0 if dim == 2 else 7)]
+    return material_bodies[dim] + (material, robust)
+
+
+@pytest.mark.parametrize("case", MATERIAL_CASE_IDS)
+def test_material_chain_kernels_match_plain_and_repeat(material_bodies, case):
+    """K1, K2 (robust too), K6 and K7b of each material instance: within
+    1e-5 of the plain version (block-relative, or of the partials' largest
+    entry), bit-identical twice, counted by instance."""
+    obj, state, material, robust = _material_case(material_bodies, case)
+    blk = obj.blocking
+    args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+            obj.s_lambda)
+    mid = element_kernels.kernel_material_id(material, robust)
+    by = dict(element_kernels.hessian_and_force.instance_launches)
+    k, h = element_kernels.hessian_and_force(*args, robust, material)
+    counts = element_kernels.hessian_and_force.instance_launches
+    assert counts[(obj.dim, mid)] == by.get((obj.dim, mid), 0) + 1
+    kp, hp = element_kernels.hessian_and_force_plain(*args, material, robust)
+    assert _block_rel_err(k, kp) <= TOL and _block_rel_err(h, hp) <= TOL
+    again = element_kernels.hessian_and_force(*args, robust, material)
+    assert torch.equal(k, again[0]) and torch.equal(h, again[1])
+    bargs = (blk, state.pos, obj.mu, obj.s_lambda, None, material)
+    kb, part = blocked_kernels.blocked_prep(*bargs, robust)
+    kbp, partp = blocked_kernels.blocked_prep_plain(*bargs, robust)
+    assert _block_rel_err(kb, kbp) <= TOL
+    assert float((part - partp).abs().max()) <= TOL * float(partp.abs().max())
+    assert all(torch.equal(a, b) for a, b in
+               zip((kb, part), blocked_kernels.blocked_prep(*bargs, robust)))
+    if robust:
+        return
+    g = element_kernels.explicit_grad_columns(*args, material)
+    gp = element_kernels.explicit_grad_columns_plain(*args, material)
+    assert _block_rel_err(g, gp) <= TOL
+    assert torch.equal(g, element_kernels.explicit_grad_columns(*args,
+                                                                material))
+    gb = blocked_kernels.blocked_grad_prep(*bargs)
+    gbp = blocked_kernels.blocked_grad_prep_plain(*bargs)
+    assert float((gb - gbp).abs().max()) <= TOL * float(gbp.abs().max())
+    assert torch.equal(gb, blocked_kernels.blocked_grad_prep(*bargs))
+
+
+def _material_frame(kernel, obj, state, material, robust, plain=False,
+                    grid=0):
+    from fem_tpu_torch.ops.frame_kernels import (
+        fused_blocked_frame_plain,
+        fused_explicit_frame_plain,
+    )
+
+    kw = dict(dt=5e-4, damping=obj.damping,
+              g_dir=(0.0, -1.0) if obj.dim == 2 else (0.0, -1.0, 0.0),
+              mu=obj.mu, s_lambda=obj.s_lambda, sim_count=10,
+              material=material, plastic_inv=state.plastic_inv,
+              plastic_yield=obj.plastic_yield, viscous_inv=state.viscous_inv,
+              viscous_mu=obj.viscous_mu, viscous_tau=obj.viscous_tau)
+    obs = Obstacles.from_configs((), obj.dim, device="cuda")
+    if kernel == "K5":
+        fn = (fused_blocked_frame_plain if plain
+              else frame_kernels.fused_blocked_frame)
+        args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+                obs.centers, obs.radii)
+        kw.update(preconditioned=True, robust=robust)
+    else:
+        fn = (fused_explicit_frame_plain if plain
+              else frame_kernels.fused_explicit_frame)
+        args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
+                obs.radii)
+    if not plain:
+        kw["grid"] = grid
+    return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("case", MATERIAL_CASE_IDS)
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+def test_material_frame_kernels_match_plain_and_repeat(material_bodies,
+                                                       kernel, case):
+    """K5 (robust too) and K8 of each material instance: positions within
+    1e-5 of the plain frame after a frame of 10 substeps, CG iterations
+    within 1 (short solves), two runs bit-identical; the 3D grid over 2
+    CTAs walking its blocks."""
+    obj, state, material, robust = _material_case(material_bodies, case)
+    if kernel == "K8" and robust:
+        pytest.skip("the explicit chain has no robust variant (no instance)")
+    grid = 2 if obj.dim == 3 else 0
+    out = _material_frame(kernel, obj, state, material, robust, grid=grid)
+    ref = _material_frame(kernel, obj, state, material, robust, plain=True)
+    assert torch.isfinite(out[0]).all()
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    if kernel == "K5":
+        it, itp = out[3].tolist(), ref[3].tolist()
+        assert max(itp) > 0
+        if max(itp) <= 20:
+            assert all(abs(a - b) <= 1 for a, b in zip(it, itp)), (it, itp)
+    again = _material_frame(kernel, obj, state, material, robust, grid=grid)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("kernel,dim,material", [
+    ("K5", 3, "stvk"), ("K8", 2, "corotated"), ("K5", 2, "fiber:1,0.5:2"),
+    ("K8", 3, "mooney_rivlin:0.3")])
+def test_material_frame_kernels_with_inelastic_branches(kernel, dim,
+                                                        material):
+    """A base material under both inelastic branches: positions and both
+    internal inverses within 1e-5 of the plain frame."""
+    _require_cuda()
+    obj, state = _inelastic_body(dim, dict(material=material,
+                                           **INELASTIC_MATS["both"]),
+                                 10 if dim == 2 else 5, 0.2)
+    out = _material_frame(kernel, obj, state, material, False)
+    ref = _material_frame(kernel, obj, state, material, False, plain=True)
+    for got, want in zip(out[:1] + out[-2:], ref[:1] + ref[-2:]):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= TOL
+
+
+def test_robust_frame_kernel_on_an_inverted_tet():
+    """``entry.inverted_cube`` (one tet inverted and nearly flat, det F ≈
+    −1.7e-5, where the robust clamp of the rhs log acts): the robust K5
+    stays finite, equals its plain frame within 1e-5 and twice
+    bit-identical, and differs from the non-robust K5.  Bit-identical
+    compares the bits: the first substep's CG ends on a NaN ‖r‖² (its last
+    residual update overflows f32 in the normal equations at the flat tet),
+    in the plain version too, and the positions stay finite."""
+    from fem_tpu_torch import entry
+    from fem_tpu_torch.ops.frame_kernels import fused_blocked_frame_plain
+
+    _require_cuda()
+    cfg, obj, state, obs = entry.inverted_cube("cuda")
+    args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+            obs.centers, obs.radii)
+    kw = dict(dt=cfg.delta_time, damping=obj.damping, g_dir=cfg.g_dir,
+              mu=obj.mu, s_lambda=obj.s_lambda, preconditioned=True,
+              sim_count=cfg.sim_count, robust=True)
+    out = frame_kernels.fused_blocked_frame(*args, **kw)
+    again = frame_kernels.fused_blocked_frame(*args, **kw)
+    ref = fused_blocked_frame_plain(*args, **kw)
+    assert torch.isfinite(out[0]).all()
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(out, again))
+    assert torch.isnan(ref[4][0]) and torch.isnan(out[4][0])
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    nonrobust = frame_kernels.fused_blocked_frame(*args, **dict(kw, robust=False))
+    assert not torch.equal(nonrobust[0], out[0])

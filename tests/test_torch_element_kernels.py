@@ -145,9 +145,14 @@ def test_split_functions_agree_with_the_fused_chain():
 
 
 def test_wrapper_rejects_unported_options():
+    """Every material and ``robust`` run since ROADMAP M11; a material the
+    JAX package does not know raises, as its ``energy_density`` does."""
     obj, state = _grid_object(3)
     args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume, 1.0, 1.0)
-    with pytest.raises(NotImplementedError, match="M11"):
-        hessian_and_force(*args, robust=True)
-    with pytest.raises(NotImplementedError, match="M11"):
-        hessian_and_force(*args, material="stvk")
+    for material in ("rubber", "stvk:2", "neo_hookean:0.5"):
+        with pytest.raises(ValueError, match="unknown material"):
+            hessian_and_force(*args, material=material)
+    with pytest.raises(ValueError, match="mooney_rivlin beta"):
+        hessian_and_force(*args, material="mooney_rivlin:1.5")
+    k, h = hessian_and_force(*args, robust=True, material="stvk")
+    assert torch.isfinite(k).all() and torch.isfinite(h).all()

@@ -149,7 +149,7 @@ def test_make_frame_fn_picks_the_whole_frame_kernel(monkeypatch):
     dict(implicit_method=0),
     dict(operator_mode="graph"),
     dict(operator_mode="blocked"),
-    dict(robust_inversion=True),
+    dict(cg_precond="block_jacobi"),
     dict(use_explicit_method=True),
 ])
 def test_blocked_frame_rejects_ineligible_configs(over):

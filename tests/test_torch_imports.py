@@ -120,20 +120,26 @@ def test_unported_features_raise():
         dict(auto_diff=True, implicit_method=0, robust_inversion=True),
     ):
         check_supported_config(dataclasses.replace(base, **change))
+    # robust_inversion runs since ROADMAP M11.
+    check_supported_config(dataclasses.replace(base, robust_inversion=True))
     for change in (
         dict(implicit_method=0), dict(integrator="newton"),
-        dict(robust_inversion=True), dict(cg_precond="block_jacobi"),
+        dict(cg_precond="block_jacobi"),
         dict(adaptive_dt=True), dict(hessian="exact_jvp"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP M"):
             check_supported_config(dataclasses.replace(base, **change))
-    # Inelastic materials (plastic_yield, viscous_mu) run since ROADMAP
-    # M14; stable Neo-Hookean runs only as their Maxwell branch layer.
     for change in (
-        dict(material="stvk"), dict(material="stable_neo_hookean"),
         dict(load_boxes=(((0, 0, 0), (1, 1, 1), (0, -1, 0)),)),
         dict(pin_boxes=(((0, 0, 0), (1, 1, 1)),)), dict(damping_beta=0.01),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP M"):
             check_supported_object(ObjectConfig(**change))
+    # Inelastic materials (plastic_yield, viscous_mu) run since ROADMAP
+    # M14, every base material since M11; an unknown one raises.
     check_supported_object(ObjectConfig(plastic_yield=0.1, viscous_mu=1.0))
+    for material in ("stvk", "linear", "corotated", "stable_neo_hookean",
+                     "mooney_rivlin:0.3", "fiber:1,0,0:2"):
+        check_supported_object(ObjectConfig(material=material))
+    with pytest.raises(ValueError, match="unknown material"):
+        check_supported_object(ObjectConfig(material="rubber"))

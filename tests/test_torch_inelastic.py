@@ -2,7 +2,9 @@
 """The port's inelastic materials (``fem_tpu_torch/ops/inelastic.py``, the
 stable Neo-Hookean branch chains, the layered op-composed substep) against
 the JAX package on the same arrays, and ``configs/demo_plastic.json``
-through the port against the JAX package's run of it.
+through the port against the JAX package's run of it (the layered
+op-composed substeps of every method are in
+tests/test_torch_inelastic_substep.py).
 
 Inputs are made from a seed with numpy.  Tolerances: the Jacobi eigensolve
 and the return map 1e-5 (the same f32 steps in the same order, rounded by
@@ -23,7 +25,6 @@ import torch
 from fem_tpu import scene as jscene
 from fem_tpu import sim as jsim
 from fem_tpu.models import mesh as jmesh
-from fem_tpu.models.state import Obstacles as JaxObstacles
 from fem_tpu.models.state import build_object as jax_build_object
 from fem_tpu.ops import blocking as jblocking
 from fem_tpu.ops import element as jelement
@@ -34,7 +35,6 @@ from fem_tpu.utils import config as jconfig
 from fem_tpu_torch import convert, scene, sim
 from fem_tpu_torch.ops import blocking, element, inelastic
 from fem_tpu_torch.ops import smallmat as sm
-from fem_tpu_torch.models.state import Obstacles
 from fem_tpu_torch.utils import config as pconfig
 
 torch.set_num_threads(1)
@@ -270,48 +270,6 @@ def test_advance_internal_freezes_inverted_elements():
         assert torch.equal(out.plastic_inv[0], state.plastic_inv[0])
         assert torch.equal(out.viscous_inv[0], state.viscous_inv[0])
         assert torch.isfinite(out.plastic_inv).all()
-
-
-SUBSTEPS = {
-    "explicit": dict(use_explicit_method=True),
-    "autodiff": dict(use_explicit_method=True, auto_diff=True),
-    "explicit_xla": dict(use_explicit_method=True, element_backend="xla"),
-    "implicit": dict(preconditioned=0),
-    "implicit_normal": dict(preconditioned=1),
-    "implicit_blocked": dict(preconditioned=1, operator_mode="blocked"),
-}
-
-
-@pytest.mark.parametrize("dim,method,unblocked", [
-    (dim, method, unblocked)
-    for dim in (2, 3) for method in sorted(SUBSTEPS)
-    for unblocked in (False, True)
-    # operator_mode="blocked" needs locality blocks.
-    if not (unblocked and method == "implicit_blocked")
-])
-def test_layered_substep_matches_jax(dim, method, unblocked):
-    """Three op-composed substeps with both branches on, against
-    ``fem_tpu.sim``'s substep; with locality blocks (the blocked update,
-    K7b edges) and without (the row update, the element-order chains)."""
-    obj, state, jobj, jstate = inelastic_pair(dim, MATS["both"], seed=7,
-                                              squash=0.1)
-    if unblocked:
-        obj = dataclasses.replace(obj, blocking=None)
-        jobj = jobj.replace(blocking=None)
-    pcfg, jcfg = sim_configs(dim, **SUBSTEPS[method])
-    kw = sim.substep_kwargs(pcfg)
-    jstep = jsim.make_substep_fn(jobj, jcfg)
-    obs = Obstacles.from_configs((), dim, device="cpu")
-    jobs = JaxObstacles.from_configs((), dim)
-    start = state
-    for i in range(3):
-        state, aux = sim.substep(obj, state, obs, **kw)
-        jstate, jaux = jstep(jstate, jobs)
-        assert_state_close(state, jstate, what=f"substep {i}")
-        assert abs(int(aux.solver_iterations)
-                   - int(jaux.solver_iterations)) <= 1
-    assert float((state.plastic_inv - start.plastic_inv).abs().max()) > 1e-4
-    assert float((state.viscous_inv - start.viscous_inv).abs().max()) > 1e-4
 
 
 def test_convert_round_trips_inelastic_state():
