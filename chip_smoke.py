@@ -8,8 +8,10 @@ Drives the port on the flagship ``configs/demo_spot.json`` (1,007
 particles, 4,068 tets, 17 locality blocks, ``sim_count = 10``) through its
 paths — the implicit CG in normal-equations mode (A-C) and the explicit
 and autodiff method at ``delta_time = 1e-4`` (D-G) — on the 2D scenes
-(H-L), the inelastic materials (M-Q) and every base material and
-``robust_inversion`` (R-V), and holds every CUDA kernel of those paths
+(H-L), the inelastic materials (M-Q), every base material and
+``robust_inversion`` (R-V) and the implicit extensions — pins, loads,
+Rayleigh β, SDF obstacles, block-Jacobi and the exact Hessian (W-Z′) and
+the fused advection (AD) — and holds every CUDA kernel of those paths
 against its plain PyTorch version:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -139,10 +141,42 @@ against its plain PyTorch version:
     every instance of the line's material rows launched on paths R-V;
 33. the 3D canary of tests/test_golden.py (``assets/cube.stl`` meshed by
     the port, spacing 0.5): 100 frames through K5, held to its goldens;
-34. where each frame's device time goes and the device's busy share, from
+34. K9a and K9b (the halves of K1's Neo-Hookean chain) against their
+    plain versions on the flagship deformed and on ``default.json``
+    squeezed (block-relative ≤ 1e-5), K10a and K10b (the fused advection)
+    on the same bodies with three circles and random velocities (1e-6
+    absolute), each twice bit-identical;
+35. path W, ``configs/demo_hanging.json`` as shipped (2D, a pin box, plain
+    CG): 200 frames through ``make_frame_fn``, the op-composed frame, K2
+    ten times a frame and K3 Σ(1 + iterations) (plain CG: one apply for the
+    first residual and one an iteration), the pinned vertices at their
+    start exactly, the first frame equal to the CPU's to 1e-5 with equal
+    iterations, the arc on the JAX package's 200-frame values; its
+    ``exact_jvp`` variant, K9b 2D once a substep;
+36. path X, ``configs/demo_ramp.json`` as shipped (β 2e-3 in K3's
+    coefficient, a half-space and a box through the SDF pass): 31 frames,
+    the same checks against the JAX package's values after them, and the
+    CG iterations of the three frames after them (frames 31-33 counted
+    from 0) printed (ROADMAP F7); its explicit variant,
+    K9a 2D and K7b once a substep;
+37. path Y, the flagship under ``hessian="exact_jvp"``: the first substep
+    equal to the CPU's to 1e-5 with equal iterations, then 3 frames with
+    K9b once a substep and no other kernel;
+38. path Z, the flagship under ``cg_precond="block_jacobi"`` with a pin box
+    over its top 1 %: 3 frames, K2 + K3, pinned vertices exact, the first
+    frame equal to the CPU's to 1e-5;
+39. path Z′, the explicit flagship with ``damping_beta`` 2e-3 and a load
+    box: 3 frames, K7b and K9a once a substep, the first frame equal to the
+    CPU's to 1e-5;
+40. path AD, the advection steps with ``backend="pallas"`` (which the
+    frames never take, as in the JAX package): 10 implicit substeps (K1 +
+    K4, then K10b) and 10 explicit ones (K7b, then K10a) on the flagship
+    and on ``default.json``, each first substep equal to the CPU's plain
+    substep to 1e-5;
+41. where each frame's device time goes and the device's busy share, from
     one profiled window per path (A, the op-composed K1 + K4 frame, D, H,
     I, K, both of L, M, N, O and P, path Q's explicit layered substep in
-    2D and 3D, R, T's corotated K5 and K8, U's K5); each kernel's device
+    2D and 3D, R, T's corotated K5 and K8, U's K5, W, X, Y, Z, Z′); each kernel's device
     time per launch in 3D and in 2D (profiler; the run fails if it sees no
     launch of it), its plain version's time (CUDA events), the least time
     the card could take (bound) and, for K3, K7a and K7b edges, one PyTorch
@@ -265,6 +299,14 @@ KERNELS = (
      "fem_tpu/ops/pallas_blocked_frame.py:547"),
     ("explicit_frame_inelastic", "fem_tpu_torch/csrc/explicit_frame.cu",
      "fem_tpu/ops/pallas_blocked_frame.py:936"),
+    ("hessian_blocks", "fem_tpu_torch/csrc/element_chain.cu",
+     "fem_tpu/ops/pallas_kernels.py:387"),
+    ("implicit_force", "fem_tpu_torch/csrc/element_chain.cu",
+     "fem_tpu/ops/pallas_kernels.py:445"),
+    ("kinematic", "fem_tpu_torch/csrc/advect.cu",
+     "fem_tpu/ops/pallas_advect.py:125"),
+    ("advect_implicit", "fem_tpu_torch/csrc/advect.cu",
+     "fem_tpu/ops/pallas_advect.py:151"),
 )
 
 
@@ -2242,6 +2284,441 @@ def time_material_kernels(torch, d, timing, keys):
     return out
 
 
+# -- Implicit extensions (sections 34-41) -------------------------------------
+
+FRAMES_W = 200  # path W: demo_hanging.json's golden arc
+FRAMES_X = 31  # path X: demo_ramp.json, up to the onset of ROADMAP F7
+FRAMES_EXT = 3  # paths Y, Z and Z', and the 2D variants of W and X
+SUBSTEPS_AD = 10  # path AD, each advection kernel
+BETA_Z = 2e-3  # path Z': the JAX package's explicit flagship is finite at it
+# Recorded from the JAX package on the CPU (fem_tpu.sim.make_frame_fn):
+# demo_hanging.json after 200 frames and demo_ramp.json after 31
+# (tests/test_torch_pins.py and tests/test_torch_obstacles.py hold them to
+# live runs).  Copied: those files import the JAX package.
+GOLDEN_HANGING = dict(mean=0.54870546, std=0.07990864,
+                      p0=(0.40102217, 0.49494788),
+                      p60=(0.50076079, 0.59617370),
+                      p120=(0.60000002, 0.69999999))
+GOLDEN_RAMP_31 = dict(mean=0.58076754, std=0.23927735,
+                      p0=(0.24999997, 0.71153498),
+                      p60=(0.34999999, 0.81153518),
+                      p120=(0.45000017, 0.91153520))
+# f32 operations a K9a/K9b element (counted from nh_prelude, nh_k and nh_h
+# in element_chain.cuh: F, det, the adjugate inverse, then the K half's two
+# products, F⁻¹R, the block and K·Rᵀ, or the rhs half's P and P·Rᵀ; the −V
+# scaling) and a K10 particle (kinematic: the step and walls; a circle of
+# K10a: disp, |disp|², the tests, the projection; of K10b: three
+# projections).
+EXT_OPS = {
+    3: dict(k9a=335, k9b=181, circle_a=25, circle_b=46),
+    2: dict(k9a=93, k9b=50, circle_a=16, circle_b=28),
+}
+
+
+def golden_arc_check(torch, name, pos, golden, tol_mean=5e-3, tol_p=1e-2):
+    """Hold positions to a recorded JAX run's mean, std and particles 0,
+    60 and 120 (tests/test_golden.py's tolerances)."""
+    p = pos.cpu().double()
+    mean, std = float(p.mean()), float(p.std(correction=0))
+    worst = max(float((p[i] - torch.tensor(golden[k]).double()).abs().max())
+                for k, i in (("p0", 0), ("p60", 60), ("p120", 120)))
+    log(f"[{name}] mean {mean:.7f} (JAX {golden['mean']}), std {std:.7f} "
+        f"(JAX {golden['std']}), particles 0/60/120 within {worst:.3e}")
+    require(bool(torch.isfinite(p).all()), f"{name} non-finite")
+    require(abs(mean - golden["mean"]) < tol_mean
+            and abs(std - golden["std"]) < tol_mean, f"{name} mean/std")
+    require(worst <= tol_p, f"{name} particles off by {worst}")
+
+
+def three_circles(torch, pos):
+    """Three circles over a body (two overlapping its centre, one of
+    radius 0): (centers (3, d), radii (3,))."""
+    c = pos.mean(dim=0)
+    ext = float((pos.max(dim=0).values - pos.min(dim=0).values).max())
+    d = pos.shape[1]
+    off = torch.tensor([[0.1, 0.05, 0.0], [-0.15, 0.0, 0.1],
+                        [0.0, -0.2, 0.05]], device=pos.device)[:, :d]
+    centers = (c[None, :] + ext * off).contiguous()
+    radii = torch.tensor([0.35 * ext, 0.25 * ext, 0.0], device=pos.device)
+    return centers, radii
+
+
+def run_extensions(torch, dev, zero_counts, counts, only):
+    """Sections 34-40: K9a, K9b, K10a and K10b against their plain versions
+    and paths W-Z', AD.  Returns the launch counts and errors of the
+    kernels line's rows of the four kernels by dimension, the inputs their
+    timing reuses and the profiled windows of section 41."""
+    from fem_tpu_torch import convert, entry, sim
+    from fem_tpu_torch.ops import advect_kernels as ak
+    from fem_tpu_torch.ops import element_kernels as ek
+    from fem_tpu_torch.solvers import advect, explicit, implicit
+
+    launches = {2: {}, 3: {}}
+    errors = {2: {}, 3: {}}
+    timing = {2: {}, 3: {}}
+    windows = []
+
+    def cpu_state(s):
+        return convert.state_from_arrays(convert.state_to_arrays(s), "cpu")
+
+    def max_dpos(a, b):
+        return float((a.pos.cpu() - b.pos).abs().max())
+
+    def check_not_whole_frame(label, o, c):
+        require(not sim.supports_blocked_frame(o, c)
+                and not sim.supports_explicit_blocked_frame(o, c),
+                f"path {label} routed to a whole-frame kernel")
+
+    def run_frames(label, frame, start, obs, frames):
+        """``frames`` frames from ``start``, counted from zero: (first
+        frame's state and aux, end state, iterations (frames, sim_count),
+        launches, wall s)."""
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        s, its = start, []
+        for i in range(frames):
+            s, aux = frame(s, obs)
+            its.append(aux.solver_iterations)
+            if i == 0:
+                first = (s, aux)
+        its = torch.stack(its).cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        log(f"[path {label}] {frames} frames in {wall:.4f} s: "
+            f"{its.numel() / wall:.1f} steps/s; launches {got}")
+        return first, s, its, got, wall
+
+    # -- 34. K9a, K9b, K10a and K10b against their plain versions ----------
+    cfg, obj, state0, obs = entry.flagship(dev)
+    state = entry.deformed(state0)
+    dpath = os.path.join(REPO, "configs", "default.json")
+    dcfg, dobj, dstate0, dobs = entry.load_config(dpath, dev)
+    dstate = squeezed_2d(torch, dstate0, torch.Generator().manual_seed(7))
+    for d, (o, s, c) in ((3, (obj, state, cfg)), (2, (dobj, dstate, dcfg))):
+        args = (s.pos, o.element_indices, o.ref_inv, o.volume, o.mu,
+                o.s_lambda)
+        for name, fn, plain in (
+            ("hessian_blocks", ek.hessian_blocks, ek.hessian_blocks_plain),
+            ("implicit_force", ek.implicit_force_columns,
+             ek.implicit_force_columns_plain),
+        ):
+            got, again = fn(*args), fn(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            rel = block_rel_err(got, ref)
+            errors[d][name] = float((got - ref).abs().max())
+            log(f"[{name} {d}D] block-relative error {rel:.3e}, max abs "
+                f"error {errors[d][name]:.3e}")
+            require(rel <= 1e-5, f"{name} {d}D block-relative error {rel}")
+            require(torch.equal(got, again), f"{name} {d}D runs differ")
+            timing[d][name] = args
+        gen = torch.Generator().manual_seed(11 + d)
+        vel = s.vel + 0.3 * torch.randn(s.vel.shape, generator=gen).to(dev)
+        vel_g = 0.3 * torch.randn(s.vel.shape, generator=gen).to(dev)
+        grad = explicit.analytic_energy_gradient(o, s.pos)
+        centers, radii = three_circles(torch, s.pos)
+        kw = dict(dt=c.delta_time,
+                  decay=advect.damping_decay(c.delta_time, o.damping),
+                  gravity=advect.gravity_vector(tuple(c.g_dir), o.device))
+        for name, fn, plain, a in (
+            ("kinematic", ak.kinematic, ak.kinematic_plain,
+             (s.pos, vel, grad, 1.0 / o.mass, centers, radii)),
+            ("advect_implicit", ak.advect_implicit, ak.advect_implicit_plain,
+             (s.pos, vel, vel_g, centers, radii)),
+        ):
+            got, again = fn(*a, **kw), fn(*a, **kw)
+            ref = plain(*a, **kw)
+            torch.cuda.synchronize()
+            errors[d][name] = max(float((x - y).abs().max())
+                                  for x, y in zip(got, ref))
+            moved = float((got[1] - a[1]).abs().max())
+            log(f"[{name} {d}D] N {o.particle_cnt}, 3 circles: max abs "
+                f"error {errors[d][name]:.3e} (velocities moved up to "
+                f"{moved:.3e})")
+            require(errors[d][name] <= 1e-6, f"{name} {d}D error")
+            require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"{name} {d}D runs differ")
+            timing[d][name] = (a, kw)
+    log("[K9a/K9b/K10a/K10b] two runs bit-identical in every case")
+
+    # -- 35. path W: demo_hanging.json as shipped ---------------------------
+    wpath = os.path.join(REPO, "configs", "demo_hanging.json")
+    wcfg, wobj, wstate, wobs = entry.load_config(wpath, dev)
+    ccfg, cobj, cstate, cobs = entry.load_config(wpath, "cpu")
+    require(wobj.free_mask is not None and wcfg.cg_precond == "none",
+            "demo_hanging.json: no pins or not plain CG")
+    check_not_whole_frame("W", wobj, wcfg)
+    held = wobj.free_mask[:, 0] == 0
+    frame_w = sim.make_frame_fn(wobj, wcfg)
+    (first, first_aux), s, its, got, _ = run_frames("W", frame_w, wstate,
+                                                     wobs, FRAMES_W)
+    k3 = int((1 + its).sum())
+    log(f"[path W] K2 {FRAMES_W} x {wcfg.sim_count}; K3 Σ(1 + iterations) "
+        f"= {k3} (plain CG: one apply for r0, one an iteration; the "
+        f"projection adds none); CG iterations a substep in "
+        f"{sorted(set(its.reshape(-1).tolist()))}")
+    require(got == only(blocked_prep=FRAMES_W * wcfg.sim_count,
+                        blocked_matvec=k3), f"path W launches {got}")
+    require(torch.equal(s.pos[held], wstate.pos[held]),
+            "path W pinned vertices moved")
+    ref, ref_aux = sim.make_frame_fn(cobj, ccfg)(cstate, cobs)
+    err = max_dpos(first, ref)
+    log(f"[path W] {int(held.sum())} pinned vertices held exactly; first "
+        f"frame vs the CPU: max |dpos| {err:.3e}, iterations "
+        f"{first_aux.solver_iterations.tolist()} (CPU "
+        f"{ref_aux.solver_iterations.tolist()})")
+    require(err <= 1e-5, f"path W off the CPU frame by {err}")
+    require(torch.equal(first_aux.solver_iterations.cpu(),
+                        ref_aux.solver_iterations), "path W iterations")
+    golden_arc_check(torch, f"path W, {FRAMES_W} frames", s.pos,
+                     GOLDEN_HANGING)
+    windows.append(("path W (K2 + K3 2D, pins)", [frame_w], [wstate], wobs,
+                    FRAMES))
+    # Its exact-Hessian variant: K9b 2D once a substep and nothing else.
+    wycfg = dataclasses.replace(wcfg, hessian="exact_jvp")
+    check_not_whole_frame("W (exact_jvp)", wobj, wycfg)
+    (first, first_aux), s, its, got, _ = run_frames(
+        "W (exact_jvp)", sim.make_frame_fn(wobj, wycfg), wstate, wobs,
+        FRAMES_EXT)
+    require(got == only(implicit_force=FRAMES_EXT * wcfg.sim_count),
+            f"path W (exact_jvp) launches {got}")
+    launches[2]["implicit_force"] = got["implicit_force"]
+    ref, ref_aux = sim.make_frame_fn(cobj, wycfg)(cstate, cobs)
+    err = max_dpos(first, ref)
+    log(f"[path W (exact_jvp)] first frame vs the CPU: max |dpos| "
+        f"{err:.3e}; iterations {its.tolist()}")
+    require(err <= 1e-5 and torch.equal(first_aux.solver_iterations.cpu(),
+                                        ref_aux.solver_iterations),
+            f"path W (exact_jvp) off the CPU frame by {err}")
+
+    # -- 36. path X: demo_ramp.json as shipped ------------------------------
+    xpath = os.path.join(REPO, "configs", "demo_ramp.json")
+    xcfg, xobj, xstate, xobs = entry.load_config(xpath, dev)
+    ccfg, cobj, cstate, cobs = entry.load_config(xpath, "cpu")
+    require(xobj.damping_beta == 2e-3 and xobs.half_p is not None
+            and xobs.box_lo is not None, "demo_ramp.json: no β or obstacles")
+    check_not_whole_frame("X", xobj, xcfg)
+    frame_x = sim.make_frame_fn(xobj, xcfg)
+    (first, first_aux), s, its, got, _ = run_frames("X", frame_x, xstate,
+                                                     xobs, FRAMES_X)
+    k3 = int((1 + its).sum())
+    log(f"[path X] β {xobj.damping_beta}: K3's G(K)·x enters A at "
+        f"c = dt·(dt + β) = {implicit.system_coeff(xcfg.delta_time, xobj.damping_beta):.6e} "
+        f"(dt² = {xcfg.delta_time ** 2:.6e}); the half-space and the box "
+        f"through the SDF pass of the plain advection; K3 Σ(1 + "
+        f"iterations) = {k3}")
+    require(got == only(blocked_prep=FRAMES_X * xcfg.sim_count,
+                        blocked_matvec=k3), f"path X launches {got}")
+    ref, ref_aux = sim.make_frame_fn(cobj, ccfg)(cstate, cobs)
+    err = max_dpos(first, ref)
+    log(f"[path X] first frame vs the CPU: max |dpos| {err:.3e}")
+    require(err <= 1e-5 and torch.equal(first_aux.solver_iterations.cpu(),
+                                        ref_aux.solver_iterations),
+            f"path X off the CPU frame by {err}")
+    golden_arc_check(torch, f"path X, {FRAMES_X} frames", s.pos,
+                     GOLDEN_RAMP_31)
+    later = []
+    for _ in range(3):
+        s, aux = frame_x(s, xobs)
+        later.append(aux.solver_iterations.tolist())
+    log(f"[path X] CG iterations a substep, frames 31-33 (counted from 0): "
+        f"{later}")
+    windows.append(("path X (K2 + K3 2D, β, SDF)", [frame_x], [xstate], xobs,
+                    FRAMES))
+    # Its explicit variant: β through rayleigh_damping_grad, K9a 2D.
+    xecfg = dataclasses.replace(xcfg, use_explicit_method=True)
+    check_not_whole_frame("X (explicit)", xobj, xecfg)
+    (first, _), s, _, got, _ = run_frames(
+        "X (explicit)", sim.make_frame_fn(xobj, xecfg), xstate, xobs,
+        FRAMES_EXT)
+    n_sub = FRAMES_EXT * xcfg.sim_count
+    require(got == only(hessian_blocks=n_sub, blocked_grad_prep=n_sub),
+            f"path X (explicit) launches {got}")
+    launches[2]["hessian_blocks"] = got["hessian_blocks"]
+    ref, _ = sim.make_frame_fn(cobj, xecfg)(cstate, cobs)
+    err = max_dpos(first, ref)
+    log(f"[path X (explicit)] first frame vs the CPU: max |dpos| {err:.3e}")
+    require(err <= 1e-5, f"path X (explicit) off the CPU frame by {err}")
+
+    cpu_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
+    cpu_cstate = cpu_state(state)
+    cpu_obs = type(obs)(obs.centers.cpu(), obs.radii.cpu())
+
+    # -- 37. path Y: the flagship under hessian="exact_jvp" -----------------
+    ycfg = dataclasses.replace(cfg, hessian="exact_jvp")
+    check_not_whole_frame("Y", obj, ycfg)
+    kw = sim.substep_kwargs(ycfg)
+    one, one_aux = sim.substep(obj, state, obs, **kw)
+    ref, ref_aux = sim.substep(cpu_obj, cpu_cstate, cpu_obs, **kw)
+    err = max_dpos(one, ref)
+    log(f"[path Y] first substep vs the CPU: max |dpos| {err:.3e}; "
+        f"iterations {int(one_aux.solver_iterations)} (CPU "
+        f"{int(ref_aux.solver_iterations)})")
+    require(err <= 1e-5, f"path Y off the CPU substep by {err}")
+    require(int(one_aux.solver_iterations) == int(ref_aux.solver_iterations),
+            "path Y iterations")
+    frame_y = sim.make_frame_fn(obj, ycfg)
+    _, s, its, got, _ = run_frames("Y", frame_y, state, obs, FRAMES_EXT)
+    log(f"[path Y] CG iterations (normal equations over the exact "
+        f"operator) {its.tolist()}")
+    require(got == only(implicit_force=FRAMES_EXT * cfg.sim_count),
+            f"path Y launches {got}")
+    require(bool(torch.isfinite(s.pos).all()), "path Y non-finite")
+    launches[3]["implicit_force"] = got["implicit_force"]
+    windows.append(("path Y (K9b 3D, exact_jvp)", [frame_y], [state], obs,
+                    FRAMES_EXT))
+
+    # -- 38. path Z: block-Jacobi PCG with a pin box over the top 1 % -------
+    rest = state0.pos
+    top = float(rest[:, 1].max() - 0.01 * (rest[:, 1].max()
+                                            - rest[:, 1].min()))
+    pins = (((-1e3, top, -1e3), (1e3, 1e3, 1e3)),)
+    zcfg, zobj, zstate0, zobs = entry.flagship(dev, pin_boxes=pins)
+    zcfg = dataclasses.replace(zcfg, cg_precond="block_jacobi")
+    zstate = entry.deformed(zstate0)
+    check_not_whole_frame("Z", zobj, zcfg)
+    zheld = zobj.free_mask[:, 0] == 0
+    frame_z = sim.make_frame_fn(zobj, zcfg)
+    (first, first_aux), s, its, got, _ = run_frames("Z", frame_z, zstate,
+                                                     zobs, FRAMES_EXT)
+    k3 = int((1 + its).sum())
+    log(f"[path Z] {int(zheld.sum())} pinned vertices; PCG iterations "
+        f"{its.tolist()}; K3 Σ(1 + iterations) = {k3}")
+    require(got == only(blocked_prep=FRAMES_EXT * zcfg.sim_count,
+                        blocked_matvec=k3), f"path Z launches {got}")
+    require(int(zheld.sum()) > 0 and torch.equal(s.pos[zheld],
+                                                 zstate.pos[zheld]),
+            "path Z pinned vertices moved")
+    _, czobj, czstate0, czobs = entry.flagship("cpu", pin_boxes=pins)
+    ref, ref_aux = sim.make_frame_fn(czobj, zcfg)(entry.deformed(czstate0),
+                                                   czobs)
+    err = max_dpos(first, ref)
+    log(f"[path Z] first frame vs the CPU: max |dpos| {err:.3e}; iterations "
+        f"{first_aux.solver_iterations.tolist()} (CPU "
+        f"{ref_aux.solver_iterations.tolist()})")
+    require(err <= 1e-5, f"path Z off the CPU frame by {err}")
+    require(all(abs(a - b) <= 1 for a, b in zip(
+        first_aux.solver_iterations.tolist(),
+        ref_aux.solver_iterations.tolist())), "path Z iterations")
+    windows.append(("path Z (K2 + K3 3D, block-Jacobi, pins)", [frame_z],
+                    [zstate], zobs, FRAMES_EXT))
+
+    # -- 39. path Z': the explicit flagship with β and a load box -----------
+    load = (((-1e3, -1e3, -1e3), (1e3, 1e3, 2.0), (0.0, 0.0, 2.0)),)
+    over = dict(damping_beta=BETA_Z, load_boxes=load)
+    ecfg, eobj, estate, eobs = entry.explicit_flagship(dev, **over)
+    check_not_whole_frame("Z'", eobj, ecfg)
+    frame_e = sim.make_frame_fn(eobj, ecfg)
+    (first, _), s, _, got, _ = run_frames("Z'", frame_e, estate, eobs,
+                                          FRAMES_EXT)
+    n_sub = FRAMES_EXT * ecfg.sim_count
+    require(got == only(blocked_grad_prep=n_sub, hessian_blocks=n_sub),
+            f"path Z' launches {got}")
+    require(bool(torch.isfinite(s.pos).all()), "path Z' non-finite")
+    launches[3]["hessian_blocks"] = got["hessian_blocks"]
+    _, ceobj, cestate, ceobs = entry.explicit_flagship("cpu", **over)
+    ref, _ = sim.make_frame_fn(ceobj, ecfg)(cestate, ceobs)
+    err = max_dpos(first, ref)
+    log(f"[path Z'] β {BETA_Z}, load {float(eobj.static_load.sum(0)[2])} "
+        f"N over {int((eobj.static_load != 0).any(1).sum())} vertices; "
+        f"first frame vs the CPU: max |dpos| {err:.3e}")
+    require(err <= 1e-5, f"path Z' off the CPU frame by {err}")
+    windows.append(("path Z' (K7b + K9a 3D, β, load)", [frame_e], [estate],
+                    eobs, FRAMES_EXT))
+
+    # -- 40. path AD: the advection steps with backend="pallas" ------------
+    for d, (o, s, c, ob) in ((3, (obj, state, cfg, obs)),
+                             (2, (dobj, dstate, dcfg, dobs))):
+        decay = advect.damping_decay(c.delta_time, o.damping)
+        gravity = advect.gravity_vector(tuple(c.g_dir), o.device)
+        cpu_o = convert.object_from_arrays(*convert.object_to_arrays(o),
+                                           "cpu")
+        cpu_ob = type(ob)(ob.centers.cpu(), ob.radii.cpu())
+        for name, method in (("advect_implicit", "implicit"),
+                             ("kinematic", "explicit")):
+            zero_counts()
+            st, first = s, None
+            for i in range(SUBSTEPS_AD):
+                if method == "implicit":
+                    st, _ = implicit.implicit_velocity_solve(
+                        o, st, c.delta_time, 1, c.preconditioned)
+                    st = advect.advect_implicit_step(
+                        st, ob, c.delta_time, decay, gravity,
+                        backend="pallas")
+                else:
+                    grad = explicit.analytic_energy_gradient(o, st.pos)
+                    st = advect.kinematic_step(
+                        st, grad, o.mass, ob, c.delta_time, decay, gravity,
+                        backend="pallas")
+                if i == 0:
+                    first = st
+            torch.cuda.synchronize()
+            got = counts()
+            pre = c.preconditioned == 1
+            want = (dict(element_chain=SUBSTEPS_AD, fused_cg=SUBSTEPS_AD)
+                    if method == "implicit"
+                    else dict(blocked_grad_prep=SUBSTEPS_AD))
+            require(got == only(**{name: SUBSTEPS_AD}, **want),
+                    f"path AD {name} {d}D launches {got}")
+            launches[d][name] = got[name]
+            skw = sim.substep_kwargs(dataclasses.replace(
+                c, use_explicit_method=method == "explicit", auto_diff=False,
+                implicit_method=1, preconditioned=int(pre)))
+            ref, _ = sim.substep(cpu_o, cpu_state(s), cpu_ob, **skw)
+            err = max_dpos(first, ref)
+            log(f"[path AD] {d}D {SUBSTEPS_AD} {method} substeps through "
+                f"{name} (backend='pallas'); launches {got}; first substep "
+                f"vs the CPU's XLA advection: max |dpos| {err:.3e}")
+            require(err <= 1e-5, f"path AD {name} {d}D off the CPU by {err}")
+            require(bool(torch.isfinite(st.pos).all()),
+                    f"path AD {name} {d}D non-finite")
+    return dict(launches=launches, errors=errors, timing=timing,
+                windows=windows)
+
+
+def time_extension_kernels(torch, d, timing):
+    """K9a's, K9b's, K10a's and K10b's device ms a launch (profiler), their
+    plain versions' ms (CUDA events) and their bounds: {row name: dict of
+    the kernels line's time keys}.  No single PyTorch call computes any of
+    them (``library_ms`` null)."""
+    from fem_tpu_torch.ops import advect_kernels as ak
+    from fem_tpu_torch.ops import element_kernels as ek
+
+    ops = EXT_OPS[d]
+    out = {}
+    for name, fn, plain, kernel, work in (
+        ("hessian_blocks", ek.hessian_blocks, ek.hessian_blocks_plain,
+         "hessian_blocks_kernel", ops["k9a"]),
+        ("implicit_force", ek.implicit_force_columns,
+         ek.implicit_force_columns_plain, "implicit_force_kernel",
+         ops["k9b"]),
+    ):
+        args = timing[name]
+        y = fn(*args)
+        bnd, by = bound(nbytes(*args[:4], y), work * args[1].shape[0])
+        out[name] = dict(ms=kernel_ms(torch, lambda: fn(*args), 200, [kernel]),
+                         plain_ms=cuda_ms(torch, lambda: plain(*args), 20),
+                         bound_ms=bnd, bound_by=by, library_ms=None)
+    for name, fn, plain, kernel, step, circle in (
+        ("kinematic", ak.kinematic, ak.kinematic_plain, "kinematic_kernel",
+         OPS[d]["kinematic"], ops["circle_a"]),
+        ("advect_implicit", ak.advect_implicit, ak.advect_implicit_plain,
+         "advect_implicit_kernel", OPS[d]["advect"], ops["circle_b"]),
+    ):
+        args, kw = timing[name]
+        y = fn(*args, **kw)
+        n, b = args[0].shape[0], args[-1].shape[0]
+        bnd, by = bound(nbytes(*args, kw["gravity"], *y),
+                        n * (step + b * circle))
+        out[name] = dict(
+            ms=kernel_ms(torch, lambda: fn(*args, **kw), 200, [kernel]),
+            plain_ms=cuda_ms(torch, lambda: plain(*args, **kw), 20),
+            bound_ms=bnd, bound_by=by, library_ms=None, circles=b)
+    return out
+
+
 def main():
     import torch
 
@@ -2256,6 +2733,7 @@ def main():
     import fem_tpu_torch  # noqa: F401  (precision pins)
     from fem_tpu_torch import convert, entry, sim
     from fem_tpu_torch.ops import (
+        advect_kernels,
         blocked_kernels,
         cg_kernels,
         element_kernels,
@@ -2279,6 +2757,10 @@ def main():
         "blocked_grad_prep": blocked_kernels.blocked_grad_prep,
         "explicit_frame": frame_kernels.fused_explicit_frame,
         "blocked_edges": blocked_kernels.blocked_edges,
+        "hessian_blocks": element_kernels.hessian_blocks,
+        "implicit_force": element_kernels.implicit_force_columns,
+        "kinematic": advect_kernels.kinematic,
+        "advect_implicit": advect_kernels.advect_implicit,
     }
 
     def zero_counts():
@@ -2734,7 +3216,12 @@ def main():
                 f"instance {key} never launched on paths R-V")
         require(key in mat["errors"], f"instance {key} never checked")
 
-    # -- 34. times and bounds -----------------------------------------------
+    # -- 34.-40. implicit extensions: the kernels and paths W-Z', AD --------
+    t_ext = time.perf_counter()
+    ext = run_extensions(torch, dev, zero_counts, counts, only)
+    log(f"[extensions] sections 34-40 in {time.perf_counter() - t_ext:.1f} s")
+
+    # -- 41. times and bounds -----------------------------------------------
     def run_frames(frame_fn, start, obs, frames=FRAMES):
         def go():
             s = start
@@ -2752,7 +3239,8 @@ def main():
         profile_window(torch, label, go, FRAMES)
     for label, frame_fns, start, obs, frames in (two["windows"]
                                                  + ine["windows"]
-                                                 + mat["windows"]):
+                                                 + mat["windows"]
+                                                 + ext["windows"]):
         def go(frame_fns=frame_fns, start=start, obs=obs, frames=frames):
             states = list(start)
             for _ in range(frames):
@@ -2787,8 +3275,11 @@ def main():
                                        (2, times2, two["launches"],
                                         two["errors"])):
         times.update(time_inelastic_kernels(torch, d, ine["timing"][d]))
+        times.update(time_extension_kernels(torch, d, ext["timing"][d]))
         launches.update(ine["launches"][d])
+        launches.update(ext["launches"][d])
         errors.update(ine["errors"][d])
+        errors.update(ext["errors"][d])
     kernels = (kernel_rows(3, times3, launches3, errors3, card)
                + kernel_rows(2, times2, two["launches"], two["errors"], card))
     sources = {name: (source, replaces) for name, source, replaces in KERNELS}

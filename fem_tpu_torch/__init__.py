@@ -9,7 +9,10 @@ over locality blocks (``make_frame_fn``), the blocked operator
 (``operator_mode="blocked"``) and the substep's element chain and whole CG
 solve — and the explicit and autodiff path: the whole explicit frame in one
 kernel, and the substep's gradient through the blocked prep, the blocked
-assembly or the per-tet gradient columns.  CUDA kernels run on a GPU,
+assembly or the per-tet gradient columns — for every material, inelastic
+and robust, and with the implicit extensions (pins, loads, Rayleigh β,
+typed SDF obstacles, block-Jacobi PCG, the exact Hessian) on the
+op-composed frame.  CUDA kernels run on a GPU,
 their plain PyTorch versions on the CPU.  The package imports nothing of
 the JAX package.
 

@@ -7,8 +7,10 @@ packages can compute on exactly the same data.  The assembly plan is rebuilt
 from ``element_indices`` (the same host algorithm as the JAX package's
 ``build_gather_plan``), and so are the locality blocks, from
 ``element_indices``, ``ref_inv``, ``volume`` and ``rest_pos`` (the same
-partition as the JAX package's ``build_blocking``).  Only numpy crosses this
-boundary.
+partition as the JAX package's ``build_blocking``).  The pins' and loads'
+arrays (``free_mask``, ``pin_vel``, ``static_load``) are optional, None
+when off, and so are the typed obstacles' arrays of :class:`Obstacles`.
+Only numpy crosses this boundary.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from fem_tpu_torch.models.state import FemObject, SimState
+from fem_tpu_torch.models.state import FemObject, Obstacles, SimState
 from fem_tpu_torch.ops.assembly import make_gather_plan
 from fem_tpu_torch.ops.blocking import build_blocking
 from fem_tpu_torch.ops.element import check_material
@@ -29,16 +31,20 @@ OBJECT_ARRAYS = ("element_indices", "ref_inv", "volume", "mass", "rest_pos", "fa
 OBJECT_STATICS = (
     "dim", "particle_cnt", "element_cnt", "mesh_cnt", "mu", "s_lambda",
     "damping", "rho", "material", "plastic_yield", "viscous_mu",
-    "viscous_tau",
+    "viscous_tau", "damping_beta",
 )
-# Static fields of the JAX package's FemObject that select features this
-# slice does not port; each must hold its default value.
-UNPORTED_STATICS = {
-    "damping_beta": (0.0, "Rayleigh damping_beta", "M13"),
-}
+# The pins' and loads' arrays: optional (absent or None when off).
+OPTIONAL_OBJECT_ARRAYS = ("free_mask", "pin_vel", "static_load")
 STATE_ARRAYS = ("pos", "vel", "vel_g", "force")
 # The inelastic internal inverses: optional (absent or None when off).
 INTERNAL_ARRAYS = ("plastic_inv", "viscous_inv")
+# Obstacles: the circles, the typed obstacles' arrays (optional) and their
+# friction tuples.
+OBSTACLE_ARRAYS = ("centers", "radii")
+OPTIONAL_OBSTACLE_ARRAYS = ("half_p", "half_n", "box_lo", "box_hi",
+                            "sdf_grid", "sdf_origin", "sdf_spacing", "sph_c",
+                            "sph_r")
+OBSTACLE_FRICTIONS = ("half_f", "box_f", "sdf_f", "sph_f")
 
 _INT_ARRAYS = ("element_indices", "faces")
 
@@ -46,16 +52,11 @@ _INT_ARRAYS = ("element_indices", "faces")
 def object_from_arrays(
     arrays: Dict[str, np.ndarray], statics: Dict[str, object], device="cuda"
 ) -> FemObject:
-    """A :class:`FemObject` from ``arrays`` (the names of ``OBJECT_ARRAYS``)
-    and ``statics`` (the names of ``OBJECT_STATICS`` — the three inelastic
-    ones optional, at their defaults when absent — plus optionally the keys
-    of ``UNPORTED_STATICS`` at their defaults)."""
+    """A :class:`FemObject` from ``arrays`` (the names of ``OBJECT_ARRAYS``
+    and, when on, of ``OPTIONAL_OBJECT_ARRAYS``) and ``statics`` (the names
+    of ``OBJECT_STATICS``; the inelastic ones and ``damping_beta`` optional,
+    at their defaults when absent)."""
     dev = resolve_device(device)
-    for key, (default, what, item) in UNPORTED_STATICS.items():
-        if statics.get(key, default) != default:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})"
-            )
     check_material(statics["material"])
     tensors = {}
     for name in OBJECT_ARRAYS:
@@ -68,18 +69,54 @@ def object_from_arrays(
         idx, arrays["ref_inv"], arrays["volume"],
         np.asarray(arrays["rest_pos"], np.float32), device=dev,
     )
+    for name in OPTIONAL_OBJECT_ARRAYS:
+        if arrays.get(name) is not None:
+            tensors[name] = torch.tensor(
+                np.asarray(arrays[name], np.float32), device=dev)
     return FemObject(
         **tensors, plan=plan, blocking=blocking,
         **{k: statics[k] for k in OBJECT_STATICS if k in statics},
     )
 
 
+def _present(x, names):
+    """{name: numpy array} of the tensors of ``x`` among ``names`` that are
+    not None."""
+    return {n: getattr(x, n).cpu().numpy() for n in names
+            if getattr(x, n) is not None}
+
+
 def object_to_arrays(obj: FemObject):
     """(arrays, statics) of ``obj`` — the inverse of
     :func:`object_from_arrays`."""
-    arrays = {n: getattr(obj, n).cpu().numpy() for n in OBJECT_ARRAYS}
+    arrays = _present(obj, OBJECT_ARRAYS + OPTIONAL_OBJECT_ARRAYS)
     statics = {n: getattr(obj, n) for n in OBJECT_STATICS}
     return arrays, statics
+
+
+def obstacles_from_arrays(arrays: Dict[str, np.ndarray], frictions=None,
+                          device="cuda") -> Obstacles:
+    """:class:`Obstacles` from ``arrays`` (``centers``, ``radii`` and those
+    of ``OPTIONAL_OBSTACLE_ARRAYS`` that are present and not None) and
+    ``frictions`` (the tuples of ``OBSTACLE_FRICTIONS``; empty when
+    absent)."""
+    dev = resolve_device(device)
+    names = OBSTACLE_ARRAYS + tuple(
+        n for n in OPTIONAL_OBSTACLE_ARRAYS if arrays.get(n) is not None)
+    frictions = frictions or {}
+    return Obstacles(
+        **{n: torch.tensor(np.asarray(arrays[n], np.float32), device=dev)
+           for n in names},
+        **{n: tuple(float(f) for f in frictions.get(n, ()))
+           for n in OBSTACLE_FRICTIONS},
+    )
+
+
+def obstacles_to_arrays(obstacles: Obstacles):
+    """(arrays, frictions) of ``obstacles``: the inverse of
+    :func:`obstacles_from_arrays`."""
+    return (_present(obstacles, OBSTACLE_ARRAYS + OPTIONAL_OBSTACLE_ARRAYS),
+            {n: getattr(obstacles, n) for n in OBSTACLE_FRICTIONS})
 
 
 def state_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> SimState:
@@ -100,11 +137,7 @@ def state_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> SimState:
 def state_to_arrays(state: SimState) -> Dict[str, np.ndarray]:
     """The inverse of :func:`state_from_arrays`: internal inverses that are
     None are left out."""
-    out = {n: getattr(state, n).cpu().numpy() for n in STATE_ARRAYS}
-    for n in INTERNAL_ARRAYS:
-        if getattr(state, n) is not None:
-            out[n] = getattr(state, n).cpu().numpy()
-    return out
+    return _present(state, STATE_ARRAYS + INTERNAL_ARRAYS)
 
 
 def to_dtype(x, dtype: torch.dtype):

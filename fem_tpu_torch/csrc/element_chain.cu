@@ -16,7 +16,19 @@
 // _grad_cols_kernel (reached through explicit_grad_columns_pallas), the
 // same planar layout as K1's.
 //
-// Both are templated on the dimension D in {2, 3}, as the Pallas kernels
+// K9a and K9b: the two halves of K1's Neo-Hookean chain as kernels of their
+// own, for the callers that need one half: K9a the blocks K_e = -V k
+// (replaces fem_tpu/ops/pallas_kernels.py:_hessian_kernel, reached through
+// hessian_blocks_pallas; the port's rayleigh_damping_grad), K9b the rhs
+// columns H_e = -V h with the log of det F^2 (replaces
+// pallas_kernels.py:_implicit_force_kernel, reached through
+// implicit_force_columns_pallas; the port's implicit_rhs).  Neo-Hookean and
+// non-robust only, as the Pallas kernels are: fem::nh_prelude, then nh_k or
+// nh_h of element_chain.cuh, the functions K1's nh_chain runs.  A K9 launch
+// reads what K1 reads and writes half of it (36 B a tet) for about 300
+// (K9a) or 150 (K9b) f32 operations a tet: bytes-bound like K1.
+//
+// All are templated on the dimension D in {2, 3}, as the Pallas kernels
 // take `dim`, and on the material M (fem::Material: the seven base
 // materials, and for K1 robust Neo-Hookean, as the Pallas chains take
 // `material` and `robust`); each C entry takes `dim` and `material` and
@@ -103,6 +115,81 @@ __global__ void __launch_bounds__(256) explicit_grad_columns_kernel(
   for (int i = 0; i < DD; ++i) g_out[DD * e + i] = v * g[i];
 }
 
+// The body of K9a (K_HALF) and K9b: one thread an element.
+template <int D, bool K_HALF>
+__device__ __forceinline__ void nh_half(
+    const float* __restrict__ pos, const int* __restrict__ elem,
+    const float* __restrict__ ref_inv, const float* __restrict__ volume,
+    int num_elements, const fem::MaterialParams& m, float* __restrict__ out) {
+  constexpr int DD = D * D;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= num_elements) return;
+  float x[DD], r[DD], f[DD], f_inv[DD], o[DD];
+  element_edges<D>(pos, elem, e, x);
+#pragma unroll
+  for (int i = 0; i < DD; ++i) r[i] = ref_inv[DD * e + i];
+  const float det = fem::nh_prelude<D, false>(x, r, f, f_inv);
+  if constexpr (K_HALF) {
+    fem::nh_k<D>(f_inv, det, r, m.mu, m.lam, o);
+  } else {
+    fem::nh_h<D, false>(f, f_inv, det, r, m.mu, m.half_lam, o);
+  }
+  const float nv = -volume[e];
+#pragma unroll
+  for (int i = 0; i < DD; ++i) out[DD * e + i] = nv * o[i];
+}
+
+// hessian_blocks_kernel (K9a) and implicit_force_kernel (K9b): the names
+// the profiler reports.
+template <int D>
+__global__ void __launch_bounds__(256) hessian_blocks_kernel(
+    const float* __restrict__ pos, const int* __restrict__ elem,
+    const float* __restrict__ ref_inv, const float* __restrict__ volume,
+    int num_elements, const fem::MaterialParams m, float* __restrict__ out) {
+  nh_half<D, true>(pos, elem, ref_inv, volume, num_elements, m, out);
+}
+
+template <int D>
+__global__ void __launch_bounds__(256) implicit_force_kernel(
+    const float* __restrict__ pos, const int* __restrict__ elem,
+    const float* __restrict__ ref_inv, const float* __restrict__ volume,
+    int num_elements, const fem::MaterialParams m, float* __restrict__ out) {
+  nh_half<D, false>(pos, elem, ref_inv, volume, num_elements, m, out);
+}
+
+// One launch of K9a (K_HALF) or K9b over the elements.
+template <bool K_HALF>
+int launch_nh_half(int dim, const void* pos, const void* elem,
+                   const void* ref_inv, const void* volume, int num_elements,
+                   const fem::MaterialParams* params, void* out,
+                   void* stream) {
+  if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (num_elements + 255) / 256;
+  if (blocks > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* p = static_cast<const float*>(pos);
+    const int* el = static_cast<const int*>(elem);
+    const float* r = static_cast<const float*>(ref_inv);
+    const float* v = static_cast<const float*>(volume);
+    float* o = static_cast<float*>(out);
+    const fem::MaterialParams m = *params;
+    if (dim == 3) {
+      if constexpr (K_HALF) {
+        hessian_blocks_kernel<3><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
+      } else {
+        implicit_force_kernel<3><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
+      }
+    } else {
+      if constexpr (K_HALF) {
+        hessian_blocks_kernel<2><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
+      } else {
+        implicit_force_kernel<2><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
+      }
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // `dim` is 2 or 3 and `material` a fem::Material of this library (anything
@@ -167,6 +254,28 @@ extern "C" int fem_explicit_grad_columns(int dim, int material,
     }
     return static_cast<int>(cudaGetLastError());
   });
+}
+
+// K9a: the Neo-Hookean blocks K_e of every element (`dim` 2 or 3; anything
+// else: cudaErrorInvalidValue, nothing launched); `params` the Neo-Hookean
+// numbers (mu, lam).
+extern "C" int fem_hessian_blocks(int dim, const void* pos, const void* elem,
+                                  const void* ref_inv, const void* volume,
+                                  int num_elements,
+                                  const fem::MaterialParams* params,
+                                  void* k_out, void* stream) {
+  return launch_nh_half<true>(dim, pos, elem, ref_inv, volume, num_elements,
+                              params, k_out, stream);
+}
+
+// K9b: the Neo-Hookean rhs force columns of every element (mu, half_lam).
+extern "C" int fem_implicit_force(int dim, const void* pos, const void* elem,
+                                  const void* ref_inv, const void* volume,
+                                  int num_elements,
+                                  const fem::MaterialParams* params,
+                                  void* h_out, void* stream) {
+  return launch_nh_half<false>(dim, pos, elem, ref_inv, volume, num_elements,
+                               params, h_out, stream);
 }
 
 extern "C" const char* fem_element_chain_error(int code) {

@@ -450,27 +450,31 @@ __device__ __forceinline__ void material_p_dp(const float* f,
   }
 }
 
-// k and h (row-major D x D) of one Neo-Hookean element from its edge matrix
-// x and R = r; ROBUST clamps det F inside F^-1 and det F^2 in the rhs log.
+// The start of the Neo-Hookean chain of one element: F = x R, det F and
+// F^-1 (ROBUST: |det F| clamped at 1e-6, sign kept, inside F^-1).
 template <int D, bool ROBUST>
-__device__ __forceinline__ void nh_chain(const float* x, const float* r,
-                                         float mu, float lam, float half_lam,
-                                         float* k, float* h) {
-  constexpr int DD = D * D;
-  float f[DD];
+__device__ __forceinline__ float nh_prelude(const float* x, const float* r,
+                                            float* f, float* f_inv) {
   mul<D>(x, r, f);
-  float f_inv[DD];
-  float det;
   if constexpr (ROBUST) {
     // F^-1 = adj(F) / (sign(det) max(|det|, 1e-6)); NaN kept, as
     // jnp.maximum keeps it.
-    det = fem::det<D>(f);
+    const float det = fem::det<D>(f);
     const float mag = fabsf(det);
     const float clamped = mag != mag ? mag : fmaxf(mag, 1e-6f);
     adj_scaled<D>(f, 1.0f / (det < 0.0f ? -clamped : clamped), f_inv);
+    return det;
   } else {
-    det = det_inv<D>(f, f_inv);
+    return det_inv<D>(f, f_inv);
   }
+}
+
+// The K half of the Neo-Hookean chain (unscaled k) from F^-1, det F and R.
+template <int D>
+__device__ __forceinline__ void nh_k(const float* f_inv, float det,
+                                     const float* r, float mu, float lam,
+                                     float* k) {
+  constexpr int DD = D * D;
   float f_inv_t[DD], r_t[DD];
   transpose<D>(f_inv, f_inv_t);
   transpose<D>(r, r_t);
@@ -487,7 +491,18 @@ __device__ __forceinline__ void nh_chain(const float* x, const float* r,
 #pragma unroll
   for (int i = 0; i < DD; ++i) blk[i] = mu * r[i] + c2 * term2[i] + c3 * f_inv_t[i];
   mul<D>(blk, r_t, k);
+}
 
+// The rhs half of the Neo-Hookean chain (unscaled h) from F, F^-1, det F
+// and R: the log of det F^2 (ROBUST: det F^2 clamped at 1e-8).
+template <int D, bool ROBUST>
+__device__ __forceinline__ void nh_h(const float* f, const float* f_inv,
+                                     float det, const float* r, float mu,
+                                     float half_lam, float* h) {
+  constexpr int DD = D * D;
+  float f_inv_t[DD], r_t[DD];
+  transpose<D>(f_inv, f_inv_t);
+  transpose<D>(r, r_t);
   float gram = det * det;
   if constexpr (ROBUST) gram = gram != gram ? gram : fmaxf(gram, 1e-8f);
   const float log_gram = logf(gram);
@@ -496,6 +511,21 @@ __device__ __forceinline__ void nh_chain(const float* x, const float* r,
 #pragma unroll
   for (int i = 0; i < DD; ++i) p[i] = mu * f[i] + cp * f_inv_t[i];
   mul<D>(p, r_t, h);
+}
+
+// k and h (row-major D x D) of one Neo-Hookean element from its edge matrix
+// x and R = r; ROBUST clamps det F inside F^-1 and det F^2 in the rhs log.
+// The element-chain kernel K1 runs it whole; its entries K9a and K9b run
+// the prelude and one half each.
+template <int D, bool ROBUST>
+__device__ __forceinline__ void nh_chain(const float* x, const float* r,
+                                         float mu, float lam, float half_lam,
+                                         float* k, float* h) {
+  constexpr int DD = D * D;
+  float f[DD], f_inv[DD];
+  const float det = nh_prelude<D, ROBUST>(x, r, f, f_inv);
+  nh_k<D>(f_inv, det, r, mu, lam, k);
+  nh_h<D, ROBUST>(f, f_inv, det, r, mu, half_lam, h);
 }
 
 // Explicit Neo-Hookean gradient columns g (row-major D x D, unscaled) of

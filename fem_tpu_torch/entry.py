@@ -65,7 +65,8 @@ def load_config(path: str, device="cuda", **object_overrides):
         ocfg = dataclasses.replace(ocfg, obj=obj_path)
     vertices, faces, elements, _aux = load_object_mesh(ocfg)
     obj, state = build_object(ocfg, vertices, faces, elements, device=dev)
-    obstacles = Obstacles.from_configs(cfg.blocks, cfg.dim, device=dev)
+    obstacles = Obstacles.from_configs(cfg.blocks, cfg.dim, cfg.obstacles,
+                                       device=dev)
     return cfg, obj, state, obstacles
 
 

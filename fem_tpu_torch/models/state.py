@@ -1,12 +1,14 @@
 # coding=utf-8
 """State containers: dataclasses of tensors plus static scalars.
 
-The port of the JAX package's ``models/state.py`` restricted to the reference
-fields, the materials and the inelastic extension.  :class:`SimState` is the dynamic state
-(per particle, plus the per-element internal inverses of an inelastic
-material), :class:`FemObject` the static mesh and material data, and
-:class:`Obstacles` the circle obstacle set.  Every tensor of one object lives
-on one device, chosen by ``build_object``'s ``device`` argument.
+The port of the JAX package's ``models/state.py``: the reference fields, the
+materials, the inelastic extension, pins and loads, Rayleigh damping and
+the typed obstacles.  :class:`SimState` is the dynamic state (per particle,
+plus the per-element internal inverses of an inelastic material),
+:class:`FemObject` the static mesh and material data, and
+:class:`Obstacles` the circles plus the typed SDF obstacles
+(``obstacles.py``).  Every tensor of one object lives on one device, chosen
+by ``build_object``'s ``device`` argument.
 """
 
 from __future__ import annotations
@@ -67,6 +69,19 @@ class FemObject:
     plastic_yield: float = 0.0  # von-Mises yield strain; 0 = off
     viscous_mu: float = 0.0  # Maxwell branch shear modulus; 0 = off
     viscous_tau: float = 0.1  # Maxwell branch relaxation time
+    # Pins (ObjectConfig.pin_boxes): (N, 1) 1.0 on free vertices, 0.0 on
+    # pinned ones; None without pins.  The implicit solve projects pinned
+    # vertices out (P·A·P + I − P) and both advection steps hold them.
+    free_mask: Optional[torch.Tensor] = None
+    # (N, d) prescribed velocity of moving pins (3-entry pin_boxes), zero
+    # elsewhere; None when no pin moves.
+    pin_vel: Optional[torch.Tensor] = None
+    # (N, d) static load (ObjectConfig.load_boxes), the mass-weighted share
+    # of each box's total force; None without loads.
+    static_load: Optional[torch.Tensor] = None
+    # Stiffness-proportional Rayleigh damping β (ObjectConfig.damping_beta):
+    # the damping force β·G(K)·v; 0 = off.
+    damping_beta: float = 0.0
 
     @property
     def device(self) -> torch.device:
@@ -76,45 +91,105 @@ class FemObject:
 @dataclasses.dataclass
 class Obstacles:
     """Circular obstacle set (reference: circle_blocks.py:6-25).  Zero-radius
-    blocks are skipped by the collision predicate (kinematic.py:34-35)."""
+    blocks are skipped by the collision predicate (kinematic.py:34-35).
+
+    The typed SDF obstacles (SimConfig.obstacles, ``obstacles.py``; all None
+    without them): half-spaces, solid boxes, frictional spheres and mesh
+    SDF grids, with a Coulomb coefficient each.  A frictionless ``sphere``
+    folds into ``centers``/``radii``."""
 
     centers: torch.Tensor  # (B, d)
     radii: torch.Tensor  # (B,)
+    half_p: Optional[torch.Tensor] = None  # (H, d) half-space anchor points
+    half_n: Optional[torch.Tensor] = None  # (H, d) outward unit normals
+    box_lo: Optional[torch.Tensor] = None  # (Bx, d) solid-box corners
+    box_hi: Optional[torch.Tensor] = None  # (Bx, d)
+    sdf_grid: Optional[torch.Tensor] = None  # (M, nx, ny, nz) mesh SDF grids
+    sdf_origin: Optional[torch.Tensor] = None  # (M, 3)
+    sdf_spacing: Optional[torch.Tensor] = None  # (M,)
+    sph_c: Optional[torch.Tensor] = None  # (S, d) frictional spheres
+    sph_r: Optional[torch.Tensor] = None  # (S,)
+    # Coulomb coefficients μ per obstacle of each class (config constants).
+    half_f: Tuple[float, ...] = ()
+    box_f: Tuple[float, ...] = ()
+    sdf_f: Tuple[float, ...] = ()
+    sph_f: Tuple[float, ...] = ()
 
     @staticmethod
     def from_configs(
         blocks: Tuple[BlockConfig, ...], dim: int, obstacle_cfgs=(),
         device="cuda",
     ) -> "Obstacles":
-        if obstacle_cfgs:
-            raise NotImplementedError(
-                "typed obstacles (SimConfig.obstacles: halfspaces, boxes, "
-                "spheres, mesh SDFs) are not ported yet (ROADMAP M13)"
-            )
         dev = resolve_device(device)
         centers = [b.block_center for b in blocks]
         radii = [b.block_radius for b in blocks]
+        fields = {}
+        if obstacle_cfgs:
+            from fem_tpu_torch.obstacles import build_extension_arrays
+
+            fields, spheres = build_extension_arrays(obstacle_cfgs, dim, dev)
+            for c, r in spheres:
+                centers.append(c)
+                radii.append(r)
         if not centers:
             centers, radii = [np.zeros((dim,), np.float32)], [0.0]
         return Obstacles(
             centers=torch.as_tensor(np.array(centers, np.float32), device=dev),
             radii=torch.as_tensor(np.array(radii, np.float32), device=dev),
+            **fields,
         )
 
 
 def check_supported_object(cfg: ObjectConfig) -> None:
-    """Raise for object features this slice of the port does not cover
-    (every material runs; an unknown one raises ``ValueError``)."""
+    """Raise for object features the port does not cover (every material,
+    pins, loads and β run; an unknown material raises ``ValueError``)."""
     check_material(cfg.material)
-    if cfg.pin_boxes or cfg.load_boxes:
-        raise NotImplementedError(
-            "pins and loads (pin_boxes / load_boxes) are not ported yet "
-            "(ROADMAP M13)"
-        )
-    if cfg.damping_beta != 0.0:
-        raise NotImplementedError(
-            "Rayleigh damping_beta is not ported yet (ROADMAP M13)"
-        )
+
+
+def _box_selection(pos: np.ndarray, lo, hi) -> np.ndarray:
+    """(N,) bool: the vertices inside the closed box [lo, hi]."""
+    lo_a = np.asarray(lo, np.float32)
+    hi_a = np.asarray(hi, np.float32)
+    return np.all((pos >= lo_a) & (pos <= hi_a), axis=1)
+
+
+def pin_arrays(cfg: ObjectConfig, pos: np.ndarray):
+    """(free_mask (N, 1), pin_vel (N, d) or None) of ``cfg.pin_boxes``, or
+    (None, None) without pins (the JAX package's build_object): a vertex in
+    any box is pinned; a 3-entry box also prescribes its velocity."""
+    if not cfg.pin_boxes:
+        return None, None
+    n, d = pos.shape
+    pinned = np.zeros((n,), bool)
+    pin_vel = np.zeros((n, d), np.float32)
+    moving = False
+    for box in cfg.pin_boxes:
+        sel = _box_selection(pos, box[0], box[1])
+        pinned |= sel
+        if len(box) > 2:
+            pin_vel[sel] = np.asarray(box[2], np.float32)
+            moving = True
+    free = (~pinned).astype(np.float32)[:, None]
+    return free, (pin_vel if moving else None)
+
+
+def load_array(cfg: ObjectConfig, pos: np.ndarray, mass: np.ndarray):
+    """(N, d) static load of ``cfg.load_boxes``, or None without loads:
+    each box's total force spread over its vertices by mass (the JAX
+    package's build_object); a box that selects no vertex raises."""
+    if not cfg.load_boxes:
+        return None
+    load = np.zeros(pos.shape, np.float32)
+    for lo, hi, f_total in cfg.load_boxes:
+        sel = _box_selection(pos, lo, hi)
+        if not sel.any():
+            raise ValueError(
+                f"load_boxes: box ({lo}, {hi}) selects no vertices"
+            )
+        w = mass * sel
+        w = w / w.sum()
+        load += w[:, None] * np.asarray(f_total, np.float32)[None, :]
+    return load
 
 
 def init_element_data(
@@ -162,6 +237,12 @@ def build_object(
     ref_inv, volume, mass = init_element_data(pos, element_indices, cfg.rho)
     n = pos.shape[0]
     idx = np.asarray(element_indices).astype(np.int32)
+    free_mask, pin_vel = pin_arrays(cfg, pos)
+    static_load = load_array(cfg, pos, mass)
+
+    def tensor(a):
+        return None if a is None else torch.as_tensor(a, device=dev)
+
     obj = FemObject(
         element_indices=torch.as_tensor(idx, device=dev),
         ref_inv=torch.as_tensor(ref_inv, device=dev),
@@ -183,6 +264,10 @@ def build_object(
         plastic_yield=cfg.plastic_yield,
         viscous_mu=cfg.viscous_mu,
         viscous_tau=cfg.viscous_tau,
+        free_mask=tensor(free_mask),
+        pin_vel=tensor(pin_vel),
+        static_load=tensor(static_load),
+        damping_beta=cfg.damping_beta,
     )
     return obj, initial_state(pos, dev, obj)
 

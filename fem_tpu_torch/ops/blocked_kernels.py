@@ -50,7 +50,11 @@ from fem_tpu_torch.ops.blocking import (
     blocked_gather,
     blocked_scatter_sum,
 )
-from fem_tpu_torch.ops.cg_kernels import CGResult, conjugate_gradient
+from fem_tpu_torch.ops.cg_kernels import (
+    CGResult,
+    cg_solve_dispatch,
+    system_coeff,
+)
 from fem_tpu_torch.ops.element import (
     MATERIAL_IDS,
     grad_cols_chain,
@@ -455,29 +459,31 @@ blocked_graph_apply.launches = 0
 
 def blocked_velocity_solve(
     blk: Blocking, prepped, vel, mass, dt: float, normal: bool, *,
-    apply=blocked_graph_apply, max_iter: int = 500, tol: float = 1e-5,
+    apply=blocked_graph_apply, beta: float = 0.0,
+    cg_precond: str = "reference", diag_fn=None, free=None, pin_vel=None,
+    max_iter: int = 500, tol: float = 1e-5,
 ) -> CGResult:
     """One implicit velocity solve over the blocks (the JAX package's
     blocked branch, solvers/implicit.py:1080-1101) from the prep's
     ``prepped`` = (K, force partials): the slot-sum assembly,
-    b = v + dt·f/m, then the reference CG (x₀ = b; normal equations when
-    ``normal``) over A·v = v − dt²·G(K)·v/m and Aᵀ·v = v − dt²·G(Kᵀ)·(v/m).
-    ``apply`` defaults to the kernel's wrapper; the plain frame passes its
-    plain version."""
+    b = v + dt·f/m, then ``cg_solve_dispatch`` over A·v = v − c·G(K)·v/m and
+    Aᵀ·v = v − c·G(Kᵀ)·(v/m), c = dt·(dt + ``beta``): the reference CG
+    (x₀ = b; normal equations when ``normal``), or with ``cg_precond``
+    ``"block_jacobi"`` the PCG on the blocks ``diag_fn()``, and the pin
+    projection by ``free``/``pin_vel``.  ``apply`` defaults to the kernel's
+    wrapper; the plain frame passes its plain version."""
     K, partials = prepped
     f = blocked_scatter_sum(partials, blk)
     minv = (1.0 / mass)[:, None]
-    dt2 = dt * dt
+    c = system_coeff(dt, beta)
     b = vel + dt * f * minv
 
     def apply_a(v):
-        return v - dt2 * apply(blk, K, v, False) * minv
+        return v - c * apply(blk, K, v, False) * minv
 
     def apply_at(v):
-        return v - dt2 * apply(blk, K, v * minv, True)
+        return v - c * apply(blk, K, v * minv, True)
 
-    if normal:
-        return conjugate_gradient(
-            lambda v: apply_at(apply_a(v)), apply_at(b), b, max_iter, tol
-        )
-    return conjugate_gradient(apply_a, b, b, max_iter, tol)
+    return cg_solve_dispatch(
+        apply_a, lambda: apply_at, b, int(bool(normal)), cg_precond, diag_fn,
+        mass, free, pin_vel, max_iter, tol)

@@ -16,6 +16,15 @@ Semantics (the reference CG, solver/implicit.py:289-341):
 * normal equations AᵀA·x = Aᵀb when ``preconditioned``, else A·x = b;
 * x₀ = b — not the normal-equations rhs — and the loop runs while
   ``it < max_iter`` and ``‖r‖² > tol`` (absolute tolerance, strict ``>``).
+
+The module also holds the port's one CG loop for the op-composed solves,
+:func:`conjugate_gradient`, and what routes a solve to it
+(:func:`cg_solve_dispatch`): the reference CG (plain or normal equations),
+the block-Jacobi PCG (:func:`preconditioned_conjugate_gradient`, the one
+preconditioned loop) and the pin projection around either; and the
+operator's pieces: Rayleigh β in the system coefficient
+(:func:`system_coeff`) and the per-particle diagonal blocks of A
+(:func:`diagonal_blocks_from`).
 """
 
 from __future__ import annotations
@@ -53,20 +62,29 @@ def graph_apply(
     return gather_assemble(element_contrib_full(sm.matmul(K, s)), plan_idx)
 
 
+def system_coeff(dt: float, beta: float = 0.0) -> float:
+    """Coefficient c of M⁻¹·G(K) in A = I − c·M⁻¹·G(K): dt² (reference
+    implicit.py:183-194), or dt·(dt + β) with stiffness-proportional Rayleigh
+    damping β, whose backward-Euler force β·G(K)·v' folds into the same
+    operator (the JAX package's ``system_coeff``)."""
+    return dt * (dt + beta)
+
+
 def system_applies(
     K: torch.Tensor, element_indices: torch.Tensor, plan_idx: torch.Tensor,
-    minv: torch.Tensor, dt: float,
+    minv: torch.Tensor, dt: float, beta: float = 0.0,
 ):
-    """(apply_a, apply_at) of A = I − dt²·M⁻¹·G(K), ``minv`` = 1/m (N,)."""
-    dt2 = dt * dt
+    """(apply_a, apply_at) of A = I − c·M⁻¹·G(K), ``minv`` = 1/m (N,), c =
+    :func:`system_coeff` (dt² without β)."""
+    c = system_coeff(dt, beta)
     minv = minv[:, None]
     k_t = sm.mT(K)
 
     def apply_a(v):
-        return v - dt2 * graph_apply(K, v, element_indices, plan_idx) * minv
+        return v - c * graph_apply(K, v, element_indices, plan_idx) * minv
 
     def apply_at(v):
-        return v - dt2 * graph_apply(k_t, v * minv, element_indices, plan_idx)
+        return v - c * graph_apply(k_t, v * minv, element_indices, plan_idx)
 
     return apply_a, apply_at
 
@@ -98,6 +116,162 @@ def conjugate_gradient(
     return CGResult(
         x, torch.tensor(it, dtype=torch.int32, device=x.device), delta
     )
+
+
+def preconditioned_conjugate_gradient(
+    operator: Callable[[torch.Tensor], torch.Tensor],
+    diag: torch.Tensor,
+    mass: torch.Tensor,
+    rhs: torch.Tensor,
+    x0: torch.Tensor,
+    max_iter: int = 500,
+    tol: float = 1e-5,
+) -> CGResult:
+    """Block-Jacobi PCG, the ``cg_precond="block_jacobi"`` extension (the
+    JAX package's ``preconditioned_conjugate_gradient``).
+
+    The Krylov process runs on the mass-symmetrized operator
+    Ã = M^{1/2}·A·M^{-1/2} (A is nonsymmetric through its M⁻¹ row scaling),
+    whose diagonal blocks are A's ``diag`` (N, d, d).  The preconditioner
+    is the inverse of each symmetrized block where the block passes a
+    Gershgorin test (its smallest Gershgorin bound at least 0.05 of its
+    mean absolute diagonal) and of that mean times I where it does not, so
+    that near-singular blocks fall back to plain CG locally.  Termination
+    is the reference's absolute rᵀr > ``tol`` on the original residual
+    b − A·x; x₀ = ``x0``.  The block products are written as elementwise
+    sums, so no matmul (and no TF32) is involved."""
+    sq = torch.sqrt(mass)[:, None]
+    dsym = 0.5 * (diag + sm.mT(diag))
+    main = torch.diagonal(dsym, dim1=-2, dim2=-1)
+    absdiag = torch.abs(main)
+    offdiag = torch.sum(torch.abs(dsym), dim=-1) - absdiag
+    gersh_min = torch.min(main - offdiag, dim=-1).values
+    scale = torch.mean(absdiag, dim=-1) + 1e-30
+    ok = (gersh_min >= 0.05 * scale)[:, None, None]
+    eye = torch.eye(diag.shape[-1], dtype=diag.dtype, device=diag.device)
+    minv = sm.inv(torch.where(ok, dsym, scale[:, None, None] * eye[None]))
+
+    def op(y):
+        return sq * operator(y / sq)
+
+    def apply_m(r):
+        return torch.sum(minv * r[:, None, :], dim=-1)
+
+    def rr_orig(r):
+        q = r / sq
+        return torch.sum(q * q)
+
+    y = sq * x0
+    r = sq * rhs - op(y)
+    d = apply_m(r)
+    delta = torch.sum(r * d)
+    rr = rr_orig(r)
+    it = 0
+    while it < max_iter and bool(rr > tol):
+        q = op(d)
+        alpha = delta / torch.sum(d * q)
+        y = y + alpha * d
+        r = r - alpha * q
+        z = apply_m(r)
+        delta_next = torch.sum(r * z)
+        beta = delta_next / delta
+        d = z + beta * d
+        delta = delta_next
+        rr = rr_orig(r)
+        it += 1
+    return CGResult(
+        y / sq, torch.tensor(it, dtype=torch.int32, device=y.device), rr
+    )
+
+
+def cg_solve_dispatch(
+    apply_a: Callable[[torch.Tensor], torch.Tensor],
+    apply_at_fn: Callable[[], Callable[[torch.Tensor], torch.Tensor]],
+    b: torch.Tensor,
+    preconditioned: int,
+    cg_precond: str,
+    diag_fn: Callable[[], torch.Tensor] | None,
+    mass: torch.Tensor | None = None,
+    free: torch.Tensor | None = None,
+    pin_vel: torch.Tensor | None = None,
+    max_iter: int = 500,
+    tol: float = 1e-5,
+) -> CGResult:
+    """One CG solve of A·x = b routed by ``cg_precond`` (the JAX package's
+    ``_cg_solve_dispatch``): ``"reference"`` normal equations AᵀA·x = Aᵀb
+    when ``preconditioned`` is 1, else plain CG; ``"none"`` plain CG;
+    ``"block_jacobi"`` :func:`preconditioned_conjugate_gradient` on the
+    blocks of ``diag_fn()``.  x₀ = b in every mode.  ``apply_at_fn`` and
+    ``diag_fn`` are thunks, so Aᵀ and the blocks are built only when the
+    mode needs them.
+
+    ``free`` (N, 1), the pins' mask, solves the projected system
+    Â = P·A·P + (I − P), b̂ = P·b with P = diag(free) instead: identity rows
+    on pinned vertices, whose solution is 0 there; Âᵀ and Â's diagonal
+    blocks project alike.  With ``pin_vel`` (N, d) the projection is
+    inhomogeneous: b̂ = P·(b − A·x_h) + x_h with x_h = (I − P)·pin_vel, so
+    pinned vertices solve to their prescribed velocity and the free ones
+    see the constraint's reaction."""
+    if free is not None:
+        base_a, base_at_fn, base_diag = apply_a, apply_at_fn, diag_fn
+        held = 1.0 - free
+
+        def apply_a(x):
+            return free * base_a(free * x) + held * x
+
+        def apply_at_fn():
+            at = base_at_fn()
+            return lambda y: free * at(free * y) + held * y
+
+        if base_diag is not None:
+
+            def diag_fn():
+                diag = base_diag()
+                eye = torch.eye(diag.shape[-1], dtype=diag.dtype,
+                                device=diag.device)[None]
+                f3 = free[..., None]
+                return f3 * diag + (1.0 - f3) * eye
+
+        if pin_vel is not None:
+            x_h = held * pin_vel
+            b = free * (b - base_a(x_h)) + x_h
+        else:
+            b = free * b
+    if cg_precond == "block_jacobi":
+        if diag_fn is None:
+            raise ValueError(
+                "cg_precond='block_jacobi' requires explicit diagonal "
+                "blocks; unavailable for hessian='exact_jvp' (use "
+                "cg_precond='none' there)"
+            )
+        return preconditioned_conjugate_gradient(
+            apply_a, diag_fn(), mass, b, b, max_iter, tol)
+    if cg_precond not in ("reference", "none"):
+        raise ValueError(f"unknown cg_precond {cg_precond!r}")
+    if cg_precond == "reference" and preconditioned == 1:
+        apply_at = apply_at_fn()
+        return conjugate_gradient(lambda v: apply_at(apply_a(v)),
+                                  apply_at(b), b, max_iter, tol)
+    return conjugate_gradient(apply_a, b, b, max_iter, tol)
+
+
+def diagonal_blocks_from(
+    element_indices: torch.Tensor, K: torch.Tensor, mass: torch.Tensor,
+    dt: float, plan_idx: torch.Tensor, beta: float = 0.0,
+) -> torch.Tensor:
+    """Per-particle diagonal d×d blocks (N, d, d) of A = I − c·M⁻¹·G(K)
+    (the JAX package's ``diagonal_blocks_from``): vertex 0 of element e
+    receives d·K_e, vertices 1..d receive K_e each, assembled through the
+    gather plan ``plan_idx`` of ``element_indices`` (deterministic: a gather
+    and a sum, no atomics); c = :func:`system_coeff`."""
+    e, dp1 = element_indices.shape
+    d = dp1 - 1
+    w = torch.ones((1, dp1, 1), dtype=K.dtype, device=K.device)
+    w[0, 0, 0] = float(d)
+    contrib = w * K.reshape(e, 1, d * d)
+    diag_k = gather_assemble(contrib, plan_idx).reshape(-1, d, d)
+    eye = torch.eye(d, dtype=K.dtype, device=K.device)[None]
+    return eye - system_coeff(dt, beta) * diag_k / mass[:, None, None]
 
 
 def fused_cg_solve_plain(

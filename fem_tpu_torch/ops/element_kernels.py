@@ -1,6 +1,6 @@
 # coding=utf-8
-"""K1 and K6, the element chains over the mesh's elements (tets in 3D,
-triangles in 2D).
+"""K1, K6, K9a and K9b, the element chains over the mesh's elements (tets in
+3D, triangles in 2D).
 
 ``hessian_and_force`` (K1: per-element system blocks K_e and rhs force
 columns) and ``explicit_grad_columns`` (K6: per-element explicit
@@ -20,6 +20,15 @@ rest-edge inverses are per element already, so an inelastic layer's
 dynamic R⁻¹·F_i⁻¹ passes as ``ref_inv``.  Each wrapper counts its launches
 in total (``launches``) and by (dimension, material instance)
 (``instance_launches``).
+
+``hessian_blocks`` (K9a: the blocks K_e alone) and ``implicit_force_columns``
+(K9b: the rhs force columns alone) launch the two halves of K1's
+Neo-Hookean chain, entries of the same CUDA source; they replace
+``ops/pallas_kernels.py:_hessian_kernel`` (entry ``hessian_blocks_pallas``)
+and ``_implicit_force_kernel`` (entry ``implicit_force_columns_pallas``).
+Like those, they take the non-robust Neo-Hookean material only.  Their
+plain versions are ``ops/element``'s ``hessian_blocks`` and
+``implicit_force_columns`` with ``robust=False``.
 """
 
 from __future__ import annotations
@@ -28,7 +37,9 @@ import ctypes
 
 import torch
 
+from fem_tpu_torch.ops import element
 from fem_tpu_torch.ops.element import (
+    MATERIAL_IDS,
     deformation_gradients,
     k_and_h_chain,
     kernel_material_id,
@@ -90,9 +101,15 @@ def _library(material_id: int):
             _P, _P,
         ]
         lib.fem_explicit_grad_columns.restype = ctypes.c_int
+        for fn in (lib.fem_hessian_blocks, lib.fem_implicit_force):
+            fn.argtypes = [ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
+                           params, _P, _P]
+            fn.restype = ctypes.c_int
         lib.fem_element_chain_error.argtypes = [ctypes.c_int]
         lib.fem_element_chain_error.restype = ctypes.c_char_p
     return lib
+
+
 def _check_elements(pos, element_indices, ref_inv, volume):
     """(E, d, device) of a CUDA launch over the elements, after checking
     what the kernels take: d 2 or 3, f32 and int32, contiguous, and in 3D
@@ -198,3 +215,77 @@ def explicit_grad_columns(
 
 explicit_grad_columns.launches = 0
 explicit_grad_columns.instance_launches = {}
+
+
+def hessian_blocks_plain(pos, element_indices, ref_inv, volume, mu, lam):
+    """Plain PyTorch version of :func:`hessian_blocks`."""
+    return element.hessian_blocks(pos, element_indices, ref_inv, volume, mu,
+                                  lam, False)
+
+
+def implicit_force_columns_plain(pos, element_indices, ref_inv, volume, mu,
+                                 lam):
+    """Plain PyTorch version of :func:`implicit_force_columns`."""
+    return element.implicit_force_columns(pos, element_indices, ref_inv,
+                                          volume, mu, lam, False)
+
+
+def _nh_half(fn, entry, what, pos, element_indices, ref_inv, volume, mu,
+             lam):
+    """One launch of the Neo-Hookean half ``entry`` (K9a or K9b) of the
+    element-chain library; ``fn`` the wrapper that counts it."""
+    e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
+    mid = MATERIAL_IDS["neo_hookean"]
+    params = material_params("neo_hookean", mu, lam, d)
+    out = torch.empty((e, d, d), dtype=torch.float32, device=dev)
+    lib = _library(mid)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(
+            d, pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
+            volume.data_ptr(), e, ctypes.byref(params), out.data_ptr(),
+            stream,
+        )
+    if rc != 0:
+        msg = lib.fem_element_chain_error(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")
+    count_launch(fn, d, mid)
+    return out
+
+
+def hessian_blocks(pos: torch.Tensor, element_indices: torch.Tensor,
+                   ref_inv: torch.Tensor, volume: torch.Tensor, mu: float,
+                   lam: float) -> torch.Tensor:
+    """The Neo-Hookean implicit system blocks K_e (E, d, d), non-robust.
+
+    CUDA tensors: one launch of K9a, 2D or 3D.  CPU tensors:
+    :func:`hessian_blocks_plain`."""
+    if pos.device.type == "cpu":
+        return hessian_blocks_plain(pos, element_indices, ref_inv, volume,
+                                    mu, lam)
+    return _nh_half(hessian_blocks, "fem_hessian_blocks", "K9a blocks", pos,
+                    element_indices, ref_inv, volume, mu, lam)
+
+
+hessian_blocks.launches = 0
+hessian_blocks.instance_launches = {}
+
+
+def implicit_force_columns(pos: torch.Tensor, element_indices: torch.Tensor,
+                           ref_inv: torch.Tensor, volume: torch.Tensor,
+                           mu: float, lam: float) -> torch.Tensor:
+    """The Neo-Hookean implicit rhs force columns (E, d, d), non-robust
+    (the λ/2·log det F² form).
+
+    CUDA tensors: one launch of K9b, 2D or 3D.  CPU tensors:
+    :func:`implicit_force_columns_plain`."""
+    if pos.device.type == "cpu":
+        return implicit_force_columns_plain(pos, element_indices, ref_inv,
+                                            volume, mu, lam)
+    return _nh_half(implicit_force_columns, "fem_implicit_force",
+                    "K9b force-columns", pos, element_indices, ref_inv,
+                    volume, mu, lam)
+
+
+implicit_force_columns.launches = 0
+implicit_force_columns.instance_launches = {}

@@ -7,10 +7,18 @@ is, as in the reference's main loop (main.py:101-112; ``auto_diff`` wins
 over everything):
 
 * explicit or autodiff: the assembled energy gradient
-  (``solvers/explicit.py``), then the kinematic step
-  (``solvers/advect.kinematic_step``);
-* otherwise: the velocity solve (``solvers/implicit.py``), then implicit
-  advection (``solvers/advect.advect_implicit_step``).
+  (``solvers/explicit.py``) less the external force, then the kinematic
+  step (``solvers/advect.kinematic_step``);
+* otherwise: the velocity solve (``solvers/implicit.py``), with the
+  external force folded into the velocity it starts from
+  (b = v + dt·M⁻¹(f_el + f_ext)), then implicit advection
+  (``solvers/advect.advect_implicit_step``).
+
+The external force is the object's static load (``load_boxes``) and, on the
+explicit paths, Rayleigh damping β·G(K)·v
+(``implicit.rayleigh_damping_grad``); on the implicit path β sits in the
+system coefficient.  Pins and wall friction go into both advection steps,
+which run their plain (``"xla"``) backend, as the JAX package's frames do.
 
 An inelastic material (``plastic_yield`` or ``viscous_mu``,
 ops/inelastic.py) runs every path on its material layers, and the substep
@@ -25,7 +33,9 @@ paths).  ``make_frame_fn`` picks how, as the JAX package's does:
 * the whole-frame kernel K5 (``ops/frame_kernels.py``), one launch a frame
   over the locality blocks, for ``frame_backend="blocked"`` and, on a CUDA
   object, for ``"auto"`` when the config is eligible
-  (:func:`supports_blocked_frame`);
+  (:func:`supports_blocked_frame`: no pins, loads, β, typed obstacles, wall
+  friction, exact Hessian or block-Jacobi, which the kernels do not
+  implement);
 * the explicit whole-frame kernel K8, likewise, for
   ``frame_backend="blocked_explicit"`` and, on a CUDA object, for ``"auto"``
   when an explicit or autodiff config is eligible
@@ -64,7 +74,10 @@ from fem_tpu_torch.solvers.explicit import (
     analytic_energy_gradient,
     autodiff_energy_gradient,
 )
-from fem_tpu_torch.solvers.implicit import implicit_velocity_solve
+from fem_tpu_torch.solvers.implicit import (
+    implicit_velocity_solve,
+    rayleigh_damping_grad,
+)
 from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, SimConfig
 
 
@@ -84,8 +97,6 @@ def check_supported_config(cfg: SimConfig) -> None:
     options apply to the implicit path only: an explicit or autodiff
     substep never reads them, as in the JAX package."""
     unsupported = [
-        (bool(cfg.obstacles), "typed (SDF) obstacles", "M13"),
-        (cfg.wall_friction != 0.0, "wall_friction", "M13"),
         (cfg.adaptive_dt, "adaptive_dt", "M15"),
         (cfg.contact != "none", f"contact={cfg.contact!r}", "M17"),
     ]
@@ -94,10 +105,9 @@ def check_supported_config(cfg: SimConfig) -> None:
             (cfg.implicit_method == 0, "the Jacobi solver", "M10"),
             (cfg.integrator != "semi_implicit",
              f"integrator={cfg.integrator!r}", "M16"),
-            (cfg.cg_precond not in ("reference", "none"),
-             f"cg_precond={cfg.cg_precond!r}", "M13"),
-            (cfg.hessian != "reference", f"hessian={cfg.hessian!r}", "M13"),
-            (cfg.solver_backend == "dense", "solver_backend='dense'", "M13"),
+            (cfg.cg_precond.startswith("two_level"),
+             f"cg_precond={cfg.cg_precond!r}", "M16"),
+            (cfg.solver_backend == "dense", "solver_backend='dense'", "M10"),
             (cfg.cg_fast_math,
              "cg_fast_math (the TPU kernels' 2-plane bf16 split-dots on the "
              "MXU; the port computes in plain f32 and has no counterpart)",
@@ -125,14 +135,22 @@ def substep(
     use_explicit_method: bool = False,
     auto_diff: bool = False,
     element_backend: str = "auto",
+    hessian: str = "reference",
+    wall_friction: float = 0.0,
 ) -> Tuple[SimState, StepAux]:
-    """One substep.  Explicit or autodiff: the energy gradient, then the
-    kinematic step, with zero solver metrics.  Otherwise semi-implicit: the
-    velocity solve, then advection.  An inelastic material then updates its
-    internal inverses."""
+    """One substep.  Explicit or autodiff: the energy gradient less the
+    external force, then the kinematic step, with zero solver metrics.
+    Otherwise semi-implicit: the velocity solve from v + dt·M⁻¹·f_ext, then
+    advection.  An inelastic material then updates its internal inverses."""
     inelastic = is_inelastic(obj)
     layers = material_layers(obj, state) if inelastic else None
+    external = obj.static_load
+    advect_kw = dict(free_mask=obj.free_mask, pin_vel=obj.pin_vel,
+                     wall_friction=wall_friction)
     if auto_diff or use_explicit_method:
+        if obj.damping_beta != 0.0:
+            damp = rayleigh_damping_grad(obj, state.pos, state.vel, layers)
+            external = -damp if external is None else external - damp
         if inelastic:
             grad = analytic_energy_gradient(obj, state.pos, element_backend,
                                             layers)
@@ -140,11 +158,13 @@ def substep(
             grad = autodiff_energy_gradient(obj, state.pos)
         else:
             grad = analytic_energy_gradient(obj, state.pos, element_backend)
+        if external is not None:
+            grad = grad - external
         dtype = state.pos.dtype
         state = kinematic_step(
             state, grad, obj.mass, obstacles, dt,
             damping_decay(dt, obj.damping, dtype),
-            gravity_vector(tuple(g_dir), obj.device, dtype),
+            gravity_vector(tuple(g_dir), obj.device, dtype), **advect_kw,
         )
         if inelastic:
             state = advance_internal(obj, state, dt)
@@ -152,15 +172,21 @@ def substep(
             torch.zeros((), dtype=torch.int32, device=obj.device),
             torch.zeros((), dtype=torch.float32, device=obj.device),
         )
+    if external is not None:
+        # b = v + dt·M⁻¹·f_el is linear in v: solving from
+        # v' = v + dt·M⁻¹·f_ext gives b = v + dt·M⁻¹·(f_el + f_ext) on every
+        # branch unchanged.
+        state = state.replace(
+            vel=state.vel + dt * external / obj.mass[:, None])
     state, aux = implicit_velocity_solve(
         obj, state, dt, implicit_method, preconditioned, robust_inversion,
-        cg_precond, operator_mode, layers,
+        cg_precond, operator_mode, layers, hessian, element_backend,
     )
     # The decay follows the state's dtype; gravity stays f32, as in the JAX
     # package's advect_implicit_step.
     state = advect_implicit_step(
         state, obstacles, dt, damping_decay(dt, obj.damping, state.pos.dtype),
-        gravity_vector(tuple(g_dir), obj.device),
+        gravity_vector(tuple(g_dir), obj.device), **advect_kw,
     )
     if inelastic:
         state = advance_internal(obj, state, dt)
@@ -179,6 +205,8 @@ def substep_kwargs(cfg: SimConfig) -> dict:
         use_explicit_method=cfg.use_explicit_method,
         auto_diff=cfg.auto_diff,
         element_backend=cfg.element_backend,
+        hessian=cfg.hessian,
+        wall_friction=cfg.wall_friction,
     )
 
 
@@ -189,6 +217,13 @@ def _circles_only(cfg: SimConfig) -> bool:
     return cfg.wall_friction == 0.0 and all(
         o.type == "sphere" and o.friction == 0.0 for o in cfg.obstacles
     )
+
+
+def _plain_object(obj: FemObject) -> bool:
+    """No pins, loads or Rayleigh β: what the whole-frame kernels leave
+    out, as the JAX package's do."""
+    return (obj.free_mask is None and obj.static_load is None
+            and obj.damping_beta == 0.0)
 
 
 def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
@@ -209,6 +244,7 @@ def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
         and cfg.element_backend in ("auto", "pallas")
         and cfg.solver_backend == "auto"
         and cfg.cg_precond in ("reference", "none")
+        and _plain_object(obj)
         and obj.blocking is not None
     )
 
@@ -269,6 +305,7 @@ def supports_explicit_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
         and _circles_only(cfg)
         and _explicit(cfg)
         and cfg.element_backend in ("auto", "pallas")
+        and _plain_object(obj)
         and obj.blocking is not None
     )
 

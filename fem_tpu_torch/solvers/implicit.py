@@ -1,31 +1,45 @@
 # coding=utf-8
 """Implicit (backward-Euler-style) velocity solve, matrix-free.
 
-The port of the JAX package's ``solvers/implicit.py`` reference-CG subset.
-Each element contributes a single block K_e in a graph-Laplacian pattern (the
+The port of the JAX package's ``solvers/implicit.py`` CG paths.  Each
+element contributes a single block K_e in a graph-Laplacian pattern (the
 reference's decoupled Hessian, solver/implicit.py:141-144), so the operator
 
     (K·x)|_e :  s_j = x_{v_{j+1}} − x_{v_0};  t_j = K_e s_j
                 v_{j+1} += t_j,   v_0 −= Σ_j t_j
-    A·x = x − dt² · (K·x) / m
+    A·x = x − c · (K·x) / m,     c = dt·(dt + β)
 
-is applied in O(E).  The CG keeps the reference's semantics: x₀ = b
+is applied in O(E) (β, the Rayleigh ``damping_beta``, is 0 in the
+reference, and c = dt²).  The CG keeps the reference's semantics: x₀ = b
 (implicit.py:314), absolute tolerance ‖r‖² > 1e-5 (implicit.py:341), at most
 500 iterations, and normal equations AᵀAx = Aᵀb when ``preconditioned == 1``
 (implicit.py:289-299).
 
-By default one substep runs two kernels: the element chain
-(``ops/element_kernels``, K_e and the rhs force columns) and the whole solve
-(``ops/cg_kernels``, rhs assembly and the CG loop).  With
-``operator_mode="blocked"`` it runs over the locality blocks instead
-(``ops/blocked_kernels``): the blocked prep once, the per-slot force
-partials summed per particle, and the reference CG loop on the host over
-the blocked operator, which reads ‖r‖² on the host once an iteration.  On
-CUDA tensors the kernels are the hand-written CUDA ones; on CPU tensors
-their plain PyTorch versions.
+Which kernels one substep runs, in the JAX package's order (its
+implicit.py:995-1155):
+
+* ``hessian="exact_jvp"``: the true Newton operator, A·x from the forward
+  derivative (``torch.func.jvp``) of the plain assembled elastic force and
+  Aᵀ·y from its reverse derivative (``torch.func.vjp``), plain PyTorch as
+  XLA is in the JAX package; the rhs through ``implicit_rhs`` (K9b for a
+  Neo-Hookean layer on a CUDA object); plain or normal-equations CG only;
+* pins (``free_mask``), Rayleigh β or ``cg_precond="block_jacobi"``: no
+  whole-solve kernel; on an object with locality blocks (``operator_mode``
+  "auto", "fused" or "blocked") the blocked branch — the blocked prep K2
+  per material layer, the slot-sum assembly and the CG dispatch over the
+  blocked operator K3 — and otherwise the graph branch — K1 per layer and
+  the dispatch over the plain graph operator;
+* otherwise ``operator_mode="blocked"`` takes the blocked branch and every
+  other mode the element chain K1 and the whole solve K4.
+
+The CG dispatch (``ops/cg_kernels.cg_solve_dispatch``) runs the reference
+CG or the block-Jacobi PCG, with the pin projection P·A·P + (I − P) around
+either; both loops read ‖r‖² on the host once an iteration.  On CUDA
+tensors the kernels are the hand-written CUDA ones; on CPU tensors their
+plain PyTorch versions.
 
 Every material of ``ops/element.py`` runs, and ``robust`` (the
-``robust_inversion`` extension) on both branches.  An inelastic material
+``robust_inversion`` extension) on every branch.  An inelastic material
 passes its material layers (ops/inelastic.py): the element chain (or the
 blocked prep) runs once per layer on that layer's effective rest-edge
 inverses and material, and the solve runs once over the summed K blocks and
@@ -39,22 +53,23 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from fem_tpu_torch.models.state import FemObject, SimState
+from fem_tpu_torch.ops import element
+from fem_tpu_torch.ops import element_kernels as ek
+from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
 from fem_tpu_torch.ops.blocked_kernels import (
     blocked_prep,
     blocked_velocity_solve,
 )
 from fem_tpu_torch.ops.cg_kernels import (
+    CGResult,
+    cg_solve_dispatch,
     conjugate_gradient,
+    diagonal_blocks_from,
     fused_cg_solve,
     graph_apply,
+    preconditioned_conjugate_gradient,
     system_applies,
-)
-from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
-from fem_tpu_torch.ops.element import implicit_force_columns
-from fem_tpu_torch.ops.element_kernels import (
-    explicit_grad_columns,
-    explicit_grad_columns_plain,
-    hessian_and_force,
+    system_coeff,
 )
 from fem_tpu_torch.ops.inelastic import (
     layer_ref_inv_blocked,
@@ -65,13 +80,20 @@ from fem_tpu_torch.ops.inelastic import (
 from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, JACOBI_METHOD
 
 __all__ = [
+    "CGResult",
     "ImplicitAux",
+    "cg_solve_dispatch",
     "conjugate_gradient",
+    "diagonal_blocks",
+    "diagonal_blocks_from",
     "graph_block_apply",
     "implicit_rhs",
     "implicit_velocity_solve",
+    "make_exact_hvp_apply",
     "make_system_apply",
     "make_system_apply_t",
+    "preconditioned_conjugate_gradient",
+    "rayleigh_damping_grad",
     "system_coeff",
 ]
 
@@ -83,29 +105,33 @@ def graph_block_apply(
     return graph_apply(K, x, obj.element_indices, obj.plan.idx)
 
 
-def system_coeff(dt: float) -> float:
-    """Coefficient on M⁻¹·G(K) in the implicit system: dt² (reference
-    implicit.py:183-194; Rayleigh β is not ported, ROADMAP M13)."""
-    return dt * dt
-
-
 def make_system_apply(
-    obj: FemObject, K: torch.Tensor, dt: float
+    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """A·x = x − dt²·M⁻¹·(K·x)."""
+    """A·x = x − dt·(dt+β)·M⁻¹·(K·x)."""
     return system_applies(
-        K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt
+        K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt, beta
     )[0]
 
 
 def make_system_apply_t(
-    obj: FemObject, K: torch.Tensor, dt: float
+    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Aᵀ·y = y − dt²·G(K)ᵀ·M⁻¹·y: the same scatter pattern with each block
-    transposed (replaces the reference's explicit Aᵀ, implicit.py:289-292)."""
+    """Aᵀ·y = y − dt·(dt+β)·G(K)ᵀ·M⁻¹·y: the same scatter pattern with each
+    block transposed (replaces the reference's explicit Aᵀ,
+    implicit.py:289-292)."""
     return system_applies(
-        K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt
+        K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt, beta
     )[1]
+
+
+def diagonal_blocks(
+    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0
+) -> torch.Tensor:
+    """Per-particle diagonal d×d blocks (N, d, d) of A from the mesh-order
+    K blocks (block-Jacobi PCG; the JAX package's ``diagonal_blocks``)."""
+    return diagonal_blocks_from(obj.element_indices, K, obj.mass, dt,
+                                obj.plan.idx, beta)
 
 
 def _one_layer_force_columns(pos, element_indices, ref_inv, volume, mu, lam,
@@ -115,10 +141,83 @@ def _one_layer_force_columns(pos, element_indices, ref_inv, volume, mu, lam,
     −V·P(F)·R⁻ᵀ for every other material (the JAX package's
     ``_one_layer_force_columns``)."""
     if material == "neo_hookean":
-        return implicit_force_columns(pos, element_indices, ref_inv, volume,
-                                      mu, lam, robust)
-    return -explicit_grad_columns_plain(pos, element_indices, ref_inv, volume,
-                                        mu, lam, material)
+        return element.implicit_force_columns(
+            pos, element_indices, ref_inv, volume, mu, lam, robust)
+    return -ek.explicit_grad_columns_plain(pos, element_indices, ref_inv,
+                                           volume, mu, lam, material)
+
+
+def _assembled_force(obj: FemObject, robust: bool, layers):
+    """p ↦ the assembled elastic force (N, d) at positions p, summed over
+    material ``layers``, in plain PyTorch with no in-place operation (so
+    that ``torch.func`` differentiates it)."""
+    lys = normalize_layers(obj, layers)
+
+    def force(p):
+        cols = sum_layers(
+            _one_layer_force_columns(
+                p, obj.element_indices, layer_ref_inv_local(obj.ref_inv, fi),
+                obj.volume, mu, lam, material, robust)
+            for fi, mu, lam, material in lys)
+        return gather_assemble(element_contrib_full(cols), obj.plan.idx)
+
+    return force
+
+
+def make_exact_hvp_apply(
+    obj: FemObject, pos: torch.Tensor, dt: float, robust: bool = False,
+    beta: float = 0.0, layers=None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The true Newton operator A·x = x − dt·(dt+β)·M⁻¹·(∂f/∂x)·x at
+    ``pos``, the Hessian-vector product taken by ``torch.func.jvp`` of the
+    plain assembled force (the JAX package's ``make_exact_hvp_apply``,
+    ``jax.jvp``): every vertex pair of an element couples, where the
+    reference's block Hessian drops the cross terms.  O(E) an apply."""
+    c = system_coeff(dt, beta)
+    force = _assembled_force(obj, robust, layers)
+    m = obj.mass[:, None]
+
+    def apply_a(x):
+        _, df_x = torch.func.jvp(force, (pos,), (x,))
+        return x - c * df_x / m
+
+    return apply_a
+
+
+def _exact_apply_t(obj: FemObject, pos: torch.Tensor, dt: float,
+                   robust: bool, beta: float, layers):
+    """Aᵀ·y = y − c·Jᵀ·M⁻¹·y of the exact operator, Jᵀ from
+    ``torch.func.vjp`` of the same force (the JAX package's implicit.py:
+    1012-1018)."""
+    c = system_coeff(dt, beta)
+    _, vjp_fn = torch.func.vjp(_assembled_force(obj, robust, layers), pos)
+    m = obj.mass[:, None]
+
+    def apply_at(y):
+        (jt,) = vjp_fn(y / m)
+        return y - c * jt
+
+    return apply_at
+
+
+def rayleigh_damping_grad(obj: FemObject, pos: torch.Tensor,
+                          vel: torch.Tensor, layers=None) -> torch.Tensor:
+    """The explicit paths' Rayleigh term in the gradient's sign: −β·G(K)·v
+    with K the decoupled blocks summed over material ``layers`` (the JAX
+    package's ``rayleigh_damping_grad``; β = ``obj.damping_beta``).  A
+    Neo-Hookean layer's blocks come from K9a
+    (``element_kernels.hessian_blocks``: the kernel on a CUDA object),
+    every other material's from the plain ``hessian_blocks``."""
+    K = sum_layers(
+        ek.hessian_blocks(pos, obj.element_indices,
+                          layer_ref_inv_local(obj.ref_inv, fi), obj.volume,
+                          mu, lam)
+        if material == "neo_hookean" else
+        element.hessian_blocks(pos, obj.element_indices,
+                               layer_ref_inv_local(obj.ref_inv, fi),
+                               obj.volume, mu, lam, False, material)
+        for fi, mu, lam, material in normalize_layers(obj, layers))
+    return -obj.damping_beta * graph_block_apply(obj, K, vel)
 
 
 def implicit_rhs(obj: FemObject, state: SimState, dt: float,
@@ -126,11 +225,11 @@ def implicit_rhs(obj: FemObject, state: SimState, dt: float,
                  layers=None) -> torch.Tensor:
     """b = v + dt·M⁻¹·f_elastic (N, d), f summed over material ``layers``
     (the JAX package's ``implicit_rhs``, its solvers/implicit.py:444-485).
-    ``element_backend`` "pallas" ("auto" on a CUDA object) sends a non-NH
-    layer's columns to the gradient-columns kernel K6, negated, and a
-    non-robust Neo-Hookean layer's to K1's rhs half (the JAX package runs
-    K9b there, the rhs half of K1 as a kernel of its own, which the port
-    keeps queued as a K1 entry); everything else runs the plain columns."""
+    ``element_backend`` "pallas" ("auto" on a CUDA object) sends a
+    non-robust Neo-Hookean layer's columns to K9b
+    (``element_kernels.implicit_force_columns``) and a non-NH layer's to
+    the gradient-columns kernel K6, negated; everything else runs the plain
+    columns."""
     if element_backend == "auto":
         element_backend = "pallas" if state.pos.device.type == "cuda" else "xla"
     cols = []
@@ -138,9 +237,9 @@ def implicit_rhs(obj: FemObject, state: SimState, dt: float,
         r_eff = layer_ref_inv_local(obj.ref_inv, fi)
         args = (state.pos, obj.element_indices, r_eff, obj.volume, mu, lam)
         if element_backend == "pallas" and material != "neo_hookean":
-            cols.append(-explicit_grad_columns(*args, material))
+            cols.append(-ek.explicit_grad_columns(*args, material))
         elif element_backend == "pallas" and not robust:
-            cols.append(hessian_and_force(*args)[1])
+            cols.append(ek.implicit_force_columns(*args))
         else:
             cols.append(_one_layer_force_columns(*args, material, robust))
     f = gather_assemble(element_contrib_full(sum_layers(cols)), obj.plan.idx)
@@ -162,13 +261,14 @@ def implicit_velocity_solve(
     cg_precond: str = "reference",
     operator_mode: str = "auto",
     layers=None,
+    hessian: str = "reference",
+    element_backend: str = "auto",
 ) -> Tuple[SimState, ImplicitAux]:
     """Assemble (matrix-free) and solve for the new velocity; returns the
     updated state (vel ← x, implicit.py:222-223) and the solver metrics, all
-    left on the object's device.  ``operator_mode="blocked"`` takes the
-    blocked operator (the JAX package's blocked branch with
-    ``element_backend="pallas"``); every other mode the whole-solve kernel.
-    ``layers``: the material layers (None: the one elastic layer)."""
+    left on the object's device.  The branches as the module says;
+    ``layers``: the material layers (None: the one elastic layer);
+    ``element_backend`` applies to the exact-Hessian rhs."""
     if method == JACOBI_METHOD:
         raise NotImplementedError(
             "the Jacobi solver (implicit_method=0) is not ported yet "
@@ -176,22 +276,37 @@ def implicit_velocity_solve(
         )
     if method != CONJUGATE_GRADIENT_METHOD:
         raise ValueError(f"unknown implicit method {method}")
-    if cg_precond not in ("reference", "none"):
+    if cg_precond.startswith("two_level"):
         raise NotImplementedError(
-            f"cg_precond={cg_precond!r} is not ported yet (ROADMAP M13)"
+            f"cg_precond={cg_precond!r} is not ported yet (ROADMAP M16)"
         )
-    normal = preconditioned == 1 and cg_precond == "reference"
+    if cg_precond not in ("reference", "none", "block_jacobi"):
+        raise ValueError(f"unknown cg_precond {cg_precond!r}")
+    if hessian == "exact_jvp":
+        return _exact_solve(obj, state, dt, preconditioned, cg_precond,
+                            robust, element_backend, layers)
+    if hessian != "reference":
+        raise ValueError(f"unknown hessian {hessian!r}")
     lys = normalize_layers(obj, layers)
-    if operator_mode == "blocked":
-        return _blocked_solve(obj, state, dt, normal, robust, lys)
+    extended = (obj.free_mask is not None or obj.damping_beta != 0.0
+                or cg_precond == "block_jacobi")
+    if operator_mode == "blocked" or (
+            extended and obj.blocking is not None
+            and operator_mode in ("auto", "fused")):
+        return _blocked_solve(obj, state, dt, preconditioned, cg_precond,
+                              robust, lys)
     K, cols = sum_layers(
-        hessian_and_force(
+        ek.hessian_and_force(
             state.pos, obj.element_indices,
             layer_ref_inv_local(obj.ref_inv, fi), obj.volume, mu, lam, robust,
             material,
         )
         for fi, mu, lam, material in lys
     )
+    if extended:
+        return _graph_solve(obj, state, dt, preconditioned, cg_precond, K,
+                            cols)
+    normal = preconditioned == 1 and cg_precond == "reference"
     vel, iters, residual = fused_cg_solve(
         K, cols, obj.element_indices, obj.plan, state.vel, obj.mass, dt,
         normal,
@@ -199,16 +314,39 @@ def implicit_velocity_solve(
     return state.replace(vel=vel), ImplicitAux(iters, residual)
 
 
-def _blocked_solve(
-    obj: FemObject, state: SimState, dt: float, normal: bool, robust: bool,
-    layers,
-) -> Tuple[SimState, ImplicitAux]:
-    """The blocked branch (JAX implicit.py:1080-1101): K2 per material
-    layer, the slot-sum assembly of the summed partials, b = v + dt·f/m,
-    then the reference CG over A and Aᵀ built from K3 on the summed K."""
+def _solved(state: SimState, res: CGResult) -> Tuple[SimState, ImplicitAux]:
+    return state.replace(vel=res.x), ImplicitAux(res.iterations, res.residual)
+
+
+def _graph_solve(obj, state, dt, preconditioned, cg_precond, K, cols):
+    """The graph branch (JAX implicit.py:1103-1155 with its CG dispatch at
+    :1141-1155): b from K1's force columns, then the dispatch over the
+    plain graph operator with β, the pin projection and the block-Jacobi
+    blocks of K."""
+    beta = obj.damping_beta
+    f = gather_assemble(element_contrib_full(cols), obj.plan.idx)
+    b = state.vel + dt * f / obj.mass[:, None]
+    apply_a, apply_at = system_applies(K, obj.element_indices, obj.plan.idx,
+                                       1.0 / obj.mass, dt, beta)
+    return _solved(state, cg_solve_dispatch(
+        apply_a, lambda: apply_at, b, preconditioned, cg_precond,
+        lambda: diagonal_blocks(obj, K, dt, beta), obj.mass, obj.free_mask,
+        obj.pin_vel))
+
+
+def _blocked_solve(obj, state, dt, preconditioned, cg_precond, robust,
+                   layers) -> Tuple[SimState, ImplicitAux]:
+    """The blocked branch (JAX implicit.py:1080-1101 and :1128-1139): K2
+    per material layer, the slot-sum assembly of the summed partials,
+    b = v + dt·f/m, then the CG dispatch over A and Aᵀ built from K3 on the
+    summed K, with β, the pin projection and the block-Jacobi blocks.  The
+    port's K2 emits K in the flat block order (B·Eb, d, d) that the JAX
+    package gets from ``kplane_to_kflat``; the diagonal blocks take it to
+    mesh order through ``Blocking.element_slot`` and assemble it there."""
     if obj.blocking is None:
         raise ValueError("operator_mode='blocked' requires obj.blocking")
     blk = obj.blocking
+    beta = obj.damping_beta
     prepped = sum_layers(
         blocked_prep(
             blk, state.pos, mu, lam,
@@ -216,6 +354,26 @@ def _blocked_solve(
             robust)
         for fi, mu, lam, material in layers
     )
-    res = blocked_velocity_solve(blk, prepped, state.vel, obj.mass, dt, normal)
-    return state.replace(vel=res.x), ImplicitAux(res.iterations, res.residual)
+    K = prepped[0]
+    normal = preconditioned == 1 and cg_precond == "reference"
+    return _solved(state, blocked_velocity_solve(
+        blk, prepped, state.vel, obj.mass, dt, normal, beta=beta,
+        cg_precond=cg_precond,
+        diag_fn=lambda: diagonal_blocks(obj, K[blk.element_slot.long()], dt,
+                                        beta),
+        free=obj.free_mask, pin_vel=obj.pin_vel))
 
+
+def _exact_solve(obj, state, dt, preconditioned, cg_precond, robust,
+                 element_backend, layers) -> Tuple[SimState, ImplicitAux]:
+    """``hessian="exact_jvp"`` (JAX implicit.py:995-1023): the exact
+    operator, the rhs through ``implicit_rhs`` and the CG dispatch without
+    diagonal blocks (block-Jacobi raises there)."""
+    beta = obj.damping_beta
+    apply_a = make_exact_hvp_apply(obj, state.pos, dt, robust, beta, layers)
+    b = implicit_rhs(obj, state, dt, robust, element_backend, layers)
+    return _solved(state, cg_solve_dispatch(
+        apply_a,
+        lambda: _exact_apply_t(obj, state.pos, dt, robust, beta, layers),
+        b, preconditioned, cg_precond, None, obj.mass, obj.free_mask,
+        obj.pin_vel))

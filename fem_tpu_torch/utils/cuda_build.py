@@ -54,7 +54,7 @@ MATERIAL_SOURCES = {
 }
 Key = Tuple[str, Optional[int]]
 # Every library of the port, as (source name, material or None).
-LIBRARIES: Tuple[Key, ...] = (("fused_cg", None),) + tuple(
+LIBRARIES: Tuple[Key, ...] = (("fused_cg", None), ("advect", None)) + tuple(
     (name, m) for name, ms in MATERIAL_SOURCES.items() for m in ms)
 
 _LOADED: Dict[Key, ctypes.CDLL] = {}

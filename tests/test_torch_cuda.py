@@ -1280,3 +1280,155 @@ def test_robust_frame_kernel_on_an_inverted_tet():
     assert float((out[0] - ref[0]).abs().max()) <= TOL
     nonrobust = frame_kernels.fused_blocked_frame(*args, **dict(kw, robust=False))
     assert not torch.equal(nonrobust[0], out[0])
+
+
+# -- K9a/K9b, K10a/K10b and the implicit extensions --------------------------
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_k9_kernels_match_plain_and_repeat(body, body_2d, dim):
+    """K9a and K9b (the halves of K1's Neo-Hookean chain) against their
+    plain versions, block-relative 1e-5, twice bit-identical, one launch
+    each."""
+    obj, state = body if dim == 3 else body_2d
+    args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
+            obj.mu, obj.s_lambda)
+    for kernel, plain in (
+        (element_kernels.hessian_blocks, element_kernels.hessian_blocks_plain),
+        (element_kernels.implicit_force_columns,
+         element_kernels.implicit_force_columns_plain),
+    ):
+        before = kernel.launches
+        got, again = kernel(*args), kernel(*args)
+        assert kernel.launches == before + 2
+        assert _block_rel_err(got, plain(*args)) <= TOL
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("kernel", ["K10a", "K10b"])
+def test_k10_kernels_match_plain_and_repeat(kernel, dim):
+    """K10a and K10b against their plain versions on particles past every
+    wall and inside three circles (one of radius 0): 1e-6 absolute, twice
+    bit-identical."""
+    _require_cuda()
+    from fem_tpu_torch.ops import advect_kernels
+    from fem_tpu_torch.solvers.advect import damping_decay, gravity_vector
+
+    rng = np.random.default_rng(dim)
+    n = 1007
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+
+    pos = rng.uniform(-0.1, 1.1, (n, dim))
+    centers = rng.uniform(0.3, 0.7, (3, dim))
+    pos[:300] = centers[rng.integers(0, 2, 300)] + rng.uniform(
+        -0.12, 0.12, (300, dim))
+    vel, vel_g, grad = (rng.normal(scale=s, size=(n, dim))
+                        for s in (0.5, 0.5, 10.0))
+    kw = dict(dt=5e-4, decay=damping_decay(5e-4, 10.0),
+              gravity=gravity_vector((0.0, -1.0, 0.0)[:dim],
+                                     torch.device("cuda")))
+    common = (t(centers), t([0.2, 0.15, 0.0]))
+    if kernel == "K10a":
+        fn, plain = advect_kernels.kinematic, advect_kernels.kinematic_plain
+        args = (t(pos), t(vel), t(grad), t(rng.uniform(0.5, 2.0, n))) + common
+    else:
+        fn = advect_kernels.advect_implicit
+        plain = advect_kernels.advect_implicit_plain
+        args = (t(pos), t(vel), t(vel_g)) + common
+    before = fn.launches
+    got, again = fn(*args, **kw), fn(*args, **kw)
+    assert fn.launches == before + 2
+    ref = plain(*args, **kw)
+    for a, b, c in zip(got, ref, again):
+        assert float((a - b).abs().max()) <= 1e-6
+        assert torch.equal(a, c)
+
+
+def _extension_counters():
+    from fem_tpu_torch.ops import advect_kernels
+
+    return (element_kernels.hessian_and_force,
+            element_kernels.hessian_blocks,
+            element_kernels.implicit_force_columns,
+            element_kernels.explicit_grad_columns,
+            cg_kernels.fused_cg_solve, blocked_kernels.blocked_prep,
+            blocked_kernels.blocked_grad_prep,
+            blocked_kernels.blocked_assemble,
+            blocked_kernels.blocked_graph_apply,
+            frame_kernels.fused_blocked_frame,
+            frame_kernels.fused_explicit_frame,
+            advect_kernels.kinematic, advect_kernels.advect_implicit)
+
+
+@pytest.mark.parametrize("case", ["hanging", "ramp", "exact_jvp",
+                                  "block_jacobi+pins", "explicit beta+load"])
+def test_extension_paths_on_cuda_match_cpu(case):
+    """The slice's paths on a CUDA object: one frame (one substep for the
+    exact Hessian) through ``make_frame_fn``, the op-composed frame, with
+    the kernels each path takes — K2 + K3 (hanging, ramp, block-Jacobi),
+    K9b and nothing else (exact_jvp), K7b + K9a (explicit with β) — equal
+    to the CPU's to 1e-5 with equal iterations."""
+    _require_cuda()
+    from fem_tpu_torch import entry
+
+    ops = {}
+    if case in ("hanging", "ramp"):
+        path = f"configs/demo_{case}.json"
+        cfg, obj, state, obs = entry.load_config(path, "cuda")
+        ccfg, cobj, cstate, cobs = entry.load_config(path, "cpu")
+        ops = {blocked_kernels.blocked_prep: cfg.sim_count}
+    else:
+        over = {}
+        if case == "block_jacobi+pins":
+            over = dict(pin_boxes=(((0.0, 0.295, 0.0), (1.0, 1.0, 1.0)),))
+        elif case == "explicit beta+load":
+            over = dict(damping_beta=2e-4, load_boxes=(
+                ((0.0, 0.0, 0.0), (1.0, 0.2, 1.0), (0.0, -5.0, 0.0)),))
+        _, state = _body(4e5)
+        cfgo = ObjectConfig(subdivisions=5, side_length=0.2,
+                            center=(0.4, 0.1, 0.4), E=4e5, rho=1000.0,
+                            damping=10.0, **over)
+        v, f, t = pmesh.construct_3d_grid_mesh(cfgo)
+        obj, _ = build_object(cfgo, v, f, t, device="cuda")
+        cfg = _frame_cfg(dim=3, g_dir=[0, -1, 0])
+        if case == "exact_jvp":
+            cfg = dataclasses.replace(cfg, hessian="exact_jvp", sim_count=1)
+            ops = {element_kernels.implicit_force_columns: 1}
+        elif case == "block_jacobi+pins":
+            cfg = dataclasses.replace(cfg, cg_precond="block_jacobi")
+            ops = {blocked_kernels.blocked_prep: cfg.sim_count}
+        else:
+            cfg = dataclasses.replace(cfg, use_explicit_method=True,
+                                      delta_time=1e-4)
+            ops = {blocked_kernels.blocked_grad_prep: cfg.sim_count,
+                   element_kernels.hessian_blocks: cfg.sim_count}
+        obs = Obstacles.from_configs(cfg.blocks, 3, device="cuda")
+        cobj = convert.object_from_arrays(*convert.object_to_arrays(obj),
+                                          "cpu")
+        cstate = convert.state_from_arrays(convert.state_to_arrays(state),
+                                           "cpu")
+        cobs = Obstacles.from_configs(cfg.blocks, 3, device="cpu")
+        ccfg = cfg
+    assert not sim.supports_blocked_frame(obj, cfg)
+    assert not sim.supports_explicit_blocked_frame(obj, cfg)
+    counters = _extension_counters()
+    before = {c: c.launches for c in counters}
+    s, aux = sim.make_frame_fn(obj, cfg)(state, obs)
+    torch.cuda.synchronize()
+    for c in counters:
+        if c is blocked_kernels.blocked_graph_apply and ops.get(
+                blocked_kernels.blocked_prep):
+            assert c.launches - before[c] == int(
+                (1 + aux.solver_iterations.cpu()).sum()), c
+        else:
+            assert c.launches - before[c] == ops.get(c, 0), c
+    ref, ref_aux = sim.make_frame_fn(cobj, ccfg)(cstate, cobs)
+    np.testing.assert_allclose(s.pos.cpu().numpy(), ref.pos.numpy(),
+                               atol=TOL)
+    assert aux.solver_iterations.tolist() == ref_aux.solver_iterations.tolist()
+    if obj.free_mask is not None:
+        held = obj.free_mask[:, 0] == 0
+        assert torch.equal(s.pos[held], state.pos[held])

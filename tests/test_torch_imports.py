@@ -120,21 +120,30 @@ def test_unported_features_raise():
         dict(auto_diff=True, implicit_method=0, robust_inversion=True),
     ):
         check_supported_config(dataclasses.replace(base, **change))
-    # robust_inversion runs since ROADMAP M11.
-    check_supported_config(dataclasses.replace(base, robust_inversion=True))
+    # robust_inversion runs since ROADMAP M11; typed obstacles, wall
+    # friction, block-Jacobi PCG and the exact Hessian since M13.
+    from fem_tpu_torch.utils.config import ObstacleConfig
+
+    for change in (
+        dict(robust_inversion=True), dict(cg_precond="block_jacobi"),
+        dict(hessian="exact_jvp"), dict(wall_friction=0.3),
+        dict(obstacles=(ObstacleConfig(type="halfspace", point=(0, 0, 0),
+                                       normal=(0, 1, 0)),)),
+    ):
+        check_supported_config(dataclasses.replace(base, **change))
     for change in (
         dict(implicit_method=0), dict(integrator="newton"),
-        dict(cg_precond="block_jacobi"),
-        dict(adaptive_dt=True), dict(hessian="exact_jvp"),
+        dict(cg_precond="two_level"), dict(solver_backend="dense"),
+        dict(adaptive_dt=True), dict(contact="penalty"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP M"):
             check_supported_config(dataclasses.replace(base, **change))
+    # Pins, loads and Rayleigh β run since M13.
     for change in (
         dict(load_boxes=(((0, 0, 0), (1, 1, 1), (0, -1, 0)),)),
         dict(pin_boxes=(((0, 0, 0), (1, 1, 1)),)), dict(damping_beta=0.01),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP M"):
-            check_supported_object(ObjectConfig(**change))
+        check_supported_object(ObjectConfig(**change))
     # Inelastic materials (plastic_yield, viscous_mu) run since ROADMAP
     # M14, every base material since M11; an unknown one raises.
     check_supported_object(ObjectConfig(plastic_yield=0.1, viscous_mu=1.0))

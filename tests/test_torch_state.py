@@ -117,9 +117,6 @@ def test_convert_round_trips_jax_arrays():
     )
     arrays = {n: np.asarray(getattr(jobj, n)) for n in convert.OBJECT_ARRAYS}
     statics = {n: getattr(jobj, n) for n in convert.OBJECT_STATICS}
-    statics.update(
-        {n: getattr(jobj, n) for n in convert.UNPORTED_STATICS}
-    )
     obj = convert.object_from_arrays(arrays, statics, device="cpu")
     back, back_statics = convert.object_to_arrays(obj)
     for n in convert.OBJECT_ARRAYS:
@@ -129,8 +126,19 @@ def test_convert_round_trips_jax_arrays():
     state = convert.state_from_arrays(state_arrays, device="cpu")
     for n, a in convert.state_to_arrays(state).items():
         np.testing.assert_array_equal(a, state_arrays[n])
-    # Inelastic statics carry across since ROADMAP M14; Rayleigh damping
-    # still raises.
+    # Inelastic statics carry across since ROADMAP M14; Rayleigh damping,
+    # pins and loads since M13.
     statics["damping_beta"] = 0.05
-    with pytest.raises(NotImplementedError, match="M13"):
-        convert.object_from_arrays(arrays, statics, device="cpu")
+    n = arrays["rest_pos"].shape[0]
+    rng = np.random.default_rng(0)
+    arrays.update(
+        free_mask=(rng.uniform(size=(n, 1)) > 0.2).astype(np.float32),
+        pin_vel=rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+        static_load=rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+    )
+    obj = convert.object_from_arrays(arrays, statics, device="cpu")
+    assert obj.damping_beta == 0.05
+    back, back_statics = convert.object_to_arrays(obj)
+    for name, a in arrays.items():
+        np.testing.assert_array_equal(back[name], a, err_msg=name)
+    assert back_statics["damping_beta"] == 0.05
