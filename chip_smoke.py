@@ -9,10 +9,11 @@ particles, 4,068 tets, 17 locality blocks, ``sim_count = 10``) through its
 paths — the implicit CG in normal-equations mode (A-C) and the explicit
 and autodiff method at ``delta_time = 1e-4`` (D-G) — on the 2D scenes
 (H-L), the inelastic materials (M-Q), every base material and
-``robust_inversion`` (R-V) and the implicit extensions — pins, loads,
+``robust_inversion`` (R-V), the implicit extensions — pins, loads,
 Rayleigh β, SDF obstacles, block-Jacobi and the exact Hessian (W-Z′) and
-the fused advection (AD) — and holds every CUDA kernel of those paths
-against its plain PyTorch version:
+the fused advection (AD) — and the unblocked whole frame, the ``"mxu"``
+operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), and holds
+every CUDA kernel of those paths against its plain PyTorch version:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: every kernel from ``fem_tpu_torch/csrc/`` with nvcc for sm_90a,
@@ -185,6 +186,36 @@ against its plain PyTorch version:
     and K8 rows of their own, and a row per material and robust instance
     (with ``material`` and ``robust`` keys).  The build's lines give each
     library's seconds and the registers and spills of every instance.
+42. K11a, the edge-matrix CG (``experiments/edge_cg.py``), against its
+    plain version (the dense S products) on the flagship deformed (S of
+    12,204 × 1,007, 49 MB) and ``default.json`` squeezed, ``preconditioned``
+    0 and 1: equal iterations, velocity rtol 5e-4 / atol 1e-6, twice
+    bit-identical; path AG, 10 implicit substeps with K11a as the solve
+    (K1 + K11a once a substep), the first equal to the K1 + K4 substep to
+    1e-5, in 3D and 2D;
+43. K11b, the unblocked whole frame (``experiments/fused_frame.py``),
+    against its plain version on the card (positions 1e-5, iterations
+    within 1, twice bit-identical); path AE, ``demo_spot.json`` with
+    ``frame_backend="fused"``: 30 frames from the deformed state, K11b
+    once a frame and nothing else, the first frame equal to the CPU plain
+    fused frame to 1e-5 with equal iterations and within 1e-5 of K5's
+    (iterations within 1), steps/s, device ms a frame and busy share
+    beside K5's; the same for ``default.json``'s ``implicit_cg`` variant
+    from its squeezed state;
+44. path AF, ``operator_mode="mxu"`` on the flagship: 3 frames, K1 once a
+    substep and nothing else (the S products are ``torch.matmul``), the
+    first frame equal to the CPU's to 1e-5;
+45. P1, the paired-block probe, on the flagship blocking (17 blocks, padded
+    to 18 and 20): pair 1, 2 and 4 against the plain version and K3's
+    per-block partials (1e-5 of the largest entry), twice bit-identical;
+    the probe's entry point with ``--config configs/demo_spot.json``;
+46. P2, the int8 table probe, at its defaults: the three variants against
+    the plain version (int8 × int8 exactly, bf16 within 1e-4 of the
+    largest entry), twice bit-identical; the probe's entry point;
+47. their times: each kernel's device ms (profiler), plain ms (CUDA
+    events), bound and ``library_ms`` (P1: ``torch.sparse.mm``, as K3; P2:
+    one ``torch.matmul`` in bf16 or ``torch._int_mm`` over the stacked
+    rotations; none for K11a and K11b), rows of the kernels line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -2719,6 +2750,453 @@ def time_extension_kernels(torch, d, timing):
     return out
 
 
+# -- The last four kernels (sections 42-47) ----------------------------------
+
+FRAMES_AF = 3  # path AF: the mxu frame's CG reads |r|^2 on the host
+SUBSTEPS_AG = 10  # path AG: the edge-matrix CG substep
+P1_ITERS = 50  # P1's probe run, applies timed per pair
+P2_OUTER = 5  # P2's probe run, launches timed per variant
+# NVIDIA H100 SXM data sheet (dense, at the 700 W limit): tensor rates.
+PEAK_BF16_OPS_PER_S = 989e12
+PEAK_INT8_OPS_PER_S = 1979e12
+LAST_SOURCES = {
+    "edge_cg": ("fem_tpu_torch/csrc/edge_cg.cu",
+                "fem_tpu/experiments/pallas_cg.py:181"),
+    "fused_frame": ("fem_tpu_torch/csrc/fused_frame.cu",
+                    "fem_tpu/experiments/pallas_frame.py:395"),
+    "paired_matvec": ("fem_tpu_torch/csrc/probe_pairblock.cu",
+                      "tools/probe_pairblock.py:62"),
+    "chained_dot": ("fem_tpu_torch/csrc/probe_int8.cu",
+                    "tools/probe_int8.py:78"),
+}
+
+
+def frames_go(frame, start, obs, frames):
+    """A callable that runs ``frames`` frames of ``frame`` from ``start``."""
+    def go():
+        s = start
+        for _ in range(frames):
+            s, _ = frame(s, obs)
+    return go
+
+
+def rhs_of(torch, obj, state, H, dt):
+    """b = v + dt·f/m from the rhs force columns H (plain PyTorch)."""
+    from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
+
+    f = gather_assemble(element_contrib_full(H), obj.plan.idx)
+    return (state.vel + dt * f / obj.mass[:, None]).contiguous()
+
+
+def run_last_kernels(torch, dev, zero_counts, counts, only, card):
+    """Sections 42-47: K11a, K11b, P1 and P2 against their plain versions,
+    their paths (AE the fused frame, AF the mxu operator, AG the edge-matrix
+    CG substep, the probes' own entry points), their times and the kernels
+    line's rows.  Returns (rows, phase seconds)."""
+    from fem_tpu_torch import convert, entry, sim
+    from fem_tpu_torch.experiments import edge_cg
+    from fem_tpu_torch.experiments import fused_frame as ff
+    from fem_tpu_torch.ops import blocked_kernels as bk
+    from fem_tpu_torch.ops import element_kernels as ek
+    from fem_tpu_torch.probes import int8 as p2
+    from fem_tpu_torch.probes import pairblock as p1
+    from fem_tpu_torch.solvers.advect import (
+        advect_implicit_step, damping_decay, gravity_vector)
+    from fem_tpu_torch.solvers.implicit import build_edge_matrix
+
+    t_start = time.perf_counter()
+    rows = []
+
+    def cpu_copy(obj, state, obs):
+        return (convert.object_from_arrays(*convert.object_to_arrays(obj),
+                                           "cpu"),
+                convert.state_from_arrays(convert.state_to_arrays(state),
+                                          "cpu"),
+                type(obs)(obs.centers.cpu(), obs.radii.cpu()))
+
+    def row(name, d, launches, err, ms, plain_ms, moved, ops, peak=None,
+            library=None, **extra):
+        t_bytes = moved / PEAK_BYTES_PER_S
+        t_ops = ops / (PEAK_F32_OPS_PER_S if peak is None else peak)
+        bnd = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        source, replaces = LAST_SOURCES[name]
+        log(f"[time] {name}{'' if d is None else f' {d}D'} {ms:.5f} ms a "
+            f"launch on the device "
+            f"(profiler){'' if library is None else f'; library {library:.5f} ms'}"
+            f"; plain {plain_ms:.4f} ms; bound {bnd:.6f} ms ({by}); "
+            f"launches {launches}; {extra}; card {card}")
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, dim=d,
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bnd, bound_by=by, library_ms=library, **extra))
+
+    # -- 42. K11a against its plain version, and path AG --------------------
+    cfg, obj, state0, obs = entry.flagship(dev)
+    state = entry.deformed(state0)
+    dpath = os.path.join(REPO, "configs", "default.json")
+    dcfg, dobj, dstate0, dobs = entry.load_config(
+        dpath, dev, sim_overrides=OVERRIDES_2D["implicit_cg"])
+    dstate = squeezed_2d(torch, dstate0, torch.Generator().manual_seed(7))
+    k11a = {}
+    for d, o, s, c in ((3, obj, state, cfg), (2, dobj, dstate, dcfg)):
+        s_mat = torch.as_tensor(build_edge_matrix(
+            o.element_indices.cpu().numpy(), o.particle_cnt), device=dev)
+        K, H = ek.hessian_and_force(s.pos, o.element_indices, o.ref_inv,
+                                    o.volume, o.mu, o.s_lambda)
+        b = rhs_of(torch, o, s, H, c.delta_time)
+        worst = 0.0
+        for pre in (False, True):
+            kw = dict(dim=d, dt2=c.delta_time * c.delta_time,
+                      preconditioned=pre)
+            x, it = edge_cg.cg_solve_edge(s_mat, K, b, o.mass, **kw)
+            xp, itp = edge_cg.cg_solve_edge_plain(s_mat, K, b, o.mass, **kw)
+            x2, it2 = edge_cg.cg_solve_edge(s_mat, K, b, o.mass, **kw)
+            torch.cuda.synchronize()
+            err = float((x - xp).abs().max())
+            worst = max(worst, err)
+            log(f"[K11a {d}D] S {tuple(s_mat.shape)} "
+                f"({s_mat.numel() * 4 / 1e6:.1f} MB) preconditioned="
+                f"{int(pre)}: iterations {int(it)} (plain {int(itp)}), max "
+                f"abs error {err:.3e}")
+            require(int(it) == int(itp), f"K11a {d}D iterations differ")
+            torch.testing.assert_close(x, xp, rtol=5e-4, atol=1e-6)
+            require(torch.equal(x, x2) and torch.equal(it, it2),
+                    f"K11a {d}D runs differ")
+        k11a[d] = dict(err=worst, args=(s_mat, K, b, o.mass),
+                       kw=dict(dim=d, dt2=c.delta_time * c.delta_time,
+                               preconditioned=True), it=int(it))
+    log("[K11a] two runs bit-identical in every case")
+    # Path AG: the implicit substep with K11a as its solve (the JAX
+    # package's cg_solve_pallas has no caller but its tests): K1, the rhs,
+    # K11a, the plain advection, on the flagship deformed and on
+    # default.json squeezed; its first substep equals the K1 + K4 substep
+    # (sim.substep: the same semantics) to 1e-5.
+    for d, o, s_start, c, ob in ((3, obj, state, cfg, obs),
+                                 (2, dobj, dstate, dcfg, dobs)):
+        s_mat = k11a[d]["args"][0]
+        decay = damping_decay(c.delta_time, o.damping)
+        grav = gravity_vector(tuple(c.g_dir), dev)
+
+        def edge_substep(s, o=o, c=c, ob=ob, s_mat=s_mat, decay=decay,
+                         grav=grav, d=d):
+            K, H = ek.hessian_and_force(s.pos, o.element_indices, o.ref_inv,
+                                        o.volume, o.mu, o.s_lambda)
+            x, it = edge_cg.cg_solve_edge(
+                s_mat, K, rhs_of(torch, o, s, H, c.delta_time), o.mass,
+                dim=d, dt2=c.delta_time ** 2, preconditioned=True)
+            return advect_implicit_step(s.replace(vel=x), ob, c.delta_time,
+                                        decay, grav), it
+
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        s, its = s_start, []
+        for i in range(SUBSTEPS_AG):
+            s, it = edge_substep(s)
+            its.append(it)
+            if i == 0:
+                first_ag = s
+        its = torch.stack(its).cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        log(f"[path AG {d}D] {SUBSTEPS_AG} substeps in {wall:.4f} s: "
+            f"{SUBSTEPS_AG / wall:.1f} steps/s; launches {got}; CG "
+            f"iterations {its.tolist()}")
+        require(got == only(element_chain=SUBSTEPS_AG, edge_cg=SUBSTEPS_AG),
+                f"path AG {d}D launches {got}")
+        k11a[d]["launches"] = got["edge_cg"]
+        ref_c, _ = sim.substep(o, s_start, ob, **sim.substep_kwargs(c))
+        err = float((first_ag.pos - ref_c.pos).abs().max())
+        log(f"[path AG {d}D] first substep vs the K1 + K4 substep: max "
+            f"|dpos| {err:.3e}")
+        require(err <= 1e-5, f"path AG {d}D off the K1 + K4 substep by {err}")
+
+    # -- 43. K11b against its plain version, and path AE --------------------
+    k11b = {}
+    for d, c, o, s, ob in ((3, cfg, obj, state, obs),
+                           (2, dcfg, dobj, dstate, dobs)):
+        args = (s.pos, s.vel, s.vel_g, o.ref_inv, o.volume, o.element_indices,
+                o.plan, o.mass, ob.centers, ob.radii)
+        worst = 0.0
+        for pre in (False, True):
+            kw = dict(dt=c.delta_time, damping=o.damping, g_dir=tuple(c.g_dir),
+                      mu=o.mu, s_lambda=o.s_lambda, preconditioned=pre,
+                      sim_count=c.sim_count)
+            out = ff.fused_frame(*args, **kw)
+            ref = ff.fused_frame_plain(*args, **kw)
+            again = ff.fused_frame(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((out[0] - ref[0]).abs().max())
+            worst = max(worst, err)
+            it, itp = out[3].tolist(), ref[3].tolist()
+            log(f"[K11b {d}D] preconditioned={int(pre)}: iterations {it} "
+                f"(plain {itp}); max |dpos| {err:.3e}, max |dvel_g| "
+                f"{float((out[2] - ref[2]).abs().max()):.3e}")
+            require(err <= 1e-5, f"K11b {d}D positions off by {err}")
+            require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                    f"K11b {d}D iterations differ")
+            require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                    f"K11b {d}D runs differ")
+        k11b[d] = dict(err=worst, args=args, kw=kw)
+    log("[K11b] two runs bit-identical in every case")
+    # Path AE: configs/demo_spot.json with frame_backend="fused", 30
+    # frames from the deformed state; then default.json's implicit_cg
+    # variant from its squeezed state.
+    for d, label, path, over, start_fn in (
+        (3, "AE", entry.FLAGSHIP_CONFIG, {}, entry.deformed),
+        (2, "AE 2D", dpath, OVERRIDES_2D["implicit_cg"],
+         lambda s0: squeezed_2d(torch, s0, torch.Generator().manual_seed(7))),
+    ):
+        c, o, s0, ob = entry.load_config(
+            path, dev, sim_overrides=dict(over, frame_backend="fused"))
+        start = start_fn(s0)
+        require(ff.supports_fused_frame(o, c), f"path {label} not eligible")
+        frame = sim.make_frame_fn(o, c)
+        warm, warm_aux = frame(start, ob)  # warm-up frame, not counted
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        s, its = start, []
+        for _ in range(FRAMES):
+            s, aux = frame(s, ob)
+            its.append(aux.solver_iterations)
+        its = torch.stack(its).cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        log(f"[path {label}] {FRAMES} frames x {c.sim_count} substeps in "
+            f"{wall:.4f} s: {FRAMES * c.sim_count / wall:.1f} steps/s; "
+            f"launches {got}; CG iterations a frame "
+            f"{its.sum(dim=1).tolist()}")
+        require(got == only(fused_frame=FRAMES), f"path {label} launches {got}")
+        require(bool(torch.isfinite(s.pos).all()),
+                f"path {label} non-finite positions")
+        k11b[d]["launches"] = got["fused_frame"]
+        k11b[d]["steps_per_s"] = FRAMES * c.sim_count / wall
+        co, cs, cob = cpu_copy(o, start, ob)
+        ref, ref_aux = sim.make_frame_fn(co, c)(cs, cob)
+        err = float((warm.pos.cpu() - ref.pos).abs().max())
+        log(f"[path {label}] first frame vs the CPU plain fused frame: max "
+            f"|dpos| {err:.3e}; iterations "
+            f"{warm_aux.solver_iterations.tolist()}, CPU "
+            f"{ref_aux.solver_iterations.tolist()}")
+        require(err <= 1e-5, f"path {label} off the CPU frame by {err}")
+        require(torch.equal(warm_aux.solver_iterations.cpu(),
+                            ref_aux.solver_iterations),
+                f"path {label} iterations differ from the CPU's")
+        k5_frame = sim.make_frame_fn(o, dataclasses.replace(
+            c, frame_backend="auto"))
+        k5, k5_aux = k5_frame(start, ob)
+        err = float((warm.pos - k5.pos).abs().max())
+        diff = (warm_aux.solver_iterations - k5_aux.solver_iterations).abs()
+        log(f"[path {label}] first frame vs path "
+            f"{'A' if d == 3 else 'I'}'s K5 frame: max |dpos| {err:.3e}; "
+            f"K5 iterations {k5_aux.solver_iterations.tolist()}")
+        require(err <= 1e-5, f"path {label} off the K5 frame by {err}")
+        require(int(diff.max()) <= 1, f"path {label} iterations vs K5")
+        k11b[d]["device_ms"] = profile_window(
+            torch, f"path {label} (K11b {d}D)",
+            frames_go(frame, start, ob, FRAMES), FRAMES)
+        k5_dev = profile_window(
+            torch, f"path {label}'s K5 frame, for comparison",
+            frames_go(k5_frame, start, ob, FRAMES), FRAMES)
+        log(f"[path {label}] K11b / K5 device ms a frame: "
+            f"{k11b[d]['device_ms']:.4f} / {k5_dev:.4f} = "
+            f"{k11b[d]['device_ms'] / k5_dev:.2f}; card {card}")
+
+    # -- 44. path AF: operator_mode="mxu" on the flagship -------------------
+    c, o, s0, ob = entry.flagship(dev, sim_overrides=dict(operator_mode="mxu"))
+    require(o.edge_matrix is not None and edge_cg.supports_edge_cg(o),
+            "path AF: no edge matrix")
+    require(not sim.supports_blocked_frame(o, c), "path AF routed to K5")
+    start = entry.deformed(s0)
+    frame = sim.make_frame_fn(o, c)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    s, its = start, []
+    for i in range(FRAMES_AF):
+        s, aux = frame(s, ob)
+        its.append(aux.solver_iterations)
+        if i == 0:
+            first_af = s
+    its = torch.stack(its).cpu()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    log(f"[path AF] {FRAMES_AF} frames in {wall:.4f} s: "
+        f"{FRAMES_AF * c.sim_count / wall:.1f} steps/s; launches {got}; CG "
+        f"iterations {its.tolist()}")
+    require(got == only(element_chain=FRAMES_AF * c.sim_count),
+            f"path AF launches {got}")
+    require(bool(torch.isfinite(s.pos).all()), "path AF non-finite")
+    co, cs, cob = cpu_copy(o, start, ob)
+    require(co.edge_matrix is not None, "path AF: S not carried to the CPU")
+    ref, _ = sim.make_frame_fn(co, c)(cs, cob)
+    err = float((first_af.pos.cpu() - ref.pos).abs().max())
+    log(f"[path AF] first frame vs the CPU: max |dpos| {err:.3e}")
+    require(err <= 1e-5, f"path AF off the CPU frame by {err}")
+    profile_window(torch, "path AF (K1 + the S products 3D, mxu)",
+                   frames_go(frame, start, ob, FRAMES_AF), FRAMES_AF)
+
+    # -- 45. P1 against its plain version and K3, and its probe run ---------
+    blk = obj.blocking
+    noisy = state.vel + 0.3 * torch.randn(
+        state.vel.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    Kb, _ = bk.blocked_prep(blk, state.pos, obj.mu, obj.s_lambda)
+    kp = p1.make_kplane(blk, Kb)
+    part = torch.empty((blk.num_blocks * blk.pb, 3), device=dev)
+    y = bk.blocked_graph_apply(blk, Kb, noisy, partials=part)
+    k3 = part.reshape(blk.num_blocks, blk.pb, 3).transpose(1, 2)
+    p1_in = {}
+    p1_err = 0.0
+    for pair in p1.PAIRS:
+        bp, kpp, xb = p1.padded_inputs(blk, kp, noisy, pair)
+        out = p1.paired_matvec(bp, kpp, xb, 3, pair)
+        ref = p1.paired_matvec_plain(bp, kpp, xb, 3, pair)
+        again = p1.paired_matvec(bp, kpp, xb, 3, pair)
+        torch.cuda.synchronize()
+        top = float(ref.abs().max())
+        err = float((out - ref).abs().max())
+        err_k3 = float((out[: blk.num_blocks] - k3).abs().max())
+        p1_err = max(p1_err, err)
+        log(f"[P1] pair {pair}, {bp.num_blocks} blocks: max abs error "
+            f"{err:.3e} (plain), {err_k3:.3e} (K3's partials) of max "
+            f"{top:.3e}")
+        require(err <= 1e-5 * top and err_k3 <= 1e-5 * top,
+                f"P1 pair {pair} error")
+        require(torch.equal(out, again), f"P1 pair {pair} runs differ")
+        require(not out[blk.num_blocks:].any(), "P1 padded blocks not zero")
+        p1_in[pair] = (bp, kpp, xb)
+    log("[P1] two runs bit-identical for every pair")
+    zero_counts()
+    rc = p1.main(["--config", entry.FLAGSHIP_CONFIG, "--iters",
+                  str(P1_ITERS)])
+    torch.cuda.synchronize()
+    got = counts()
+    log(f"[P1 probe] launches {got}")
+    require(rc == 0, "P1's probe run failed")
+    p1_launches = 1 + len(p1.PAIRS) * (P1_ITERS + 2)
+    require(got == only(hessian_blocks=1, paired_matvec=p1_launches),
+            f"P1's probe run launches {got}")
+
+    # -- 46. P2 against its plain version, and its probe run ----------------
+    p2_in = {}
+    for name in p2.VARIANTS:
+        a, w = p2.probe_inputs(6, 1024, 2048, name, dev)
+        out = p2.chained_dot(a, w, 200, name)
+        ref = p2.chained_dot_plain(a, w, 200, name)
+        again = p2.chained_dot(a, w, 200, name)
+        torch.cuda.synchronize()
+        top = float(ref.abs().max())
+        err = float((out.double() - ref.double()).abs().max())
+        log(f"[P2] {name}: max abs error {err:.3e} of max {top:.3e}")
+        if name == "int8xint8":
+            require(torch.equal(out, ref), "P2 int8xint8 not exact")
+        else:
+            require(err <= 1e-4 * top, f"P2 {name} error {err}")
+        require(torch.equal(out, again), f"P2 {name} runs differ")
+        p2_in[name] = (a, w, err)
+    log("[P2] two runs bit-identical for every variant")
+    zero_counts()
+    rc = p2.main(["--outer", str(P2_OUTER)])
+    got = counts()
+    log(f"[P2 probe] launches {got}")
+    require(rc == 0, "P2's probe run failed")
+    require(got == only(chained_dot=len(p2.VARIANTS) * (P2_OUTER + 1)),
+            f"P2's probe run launches {got}")
+
+    # -- 47. times and bounds -----------------------------------------------
+    for d in (3, 2):
+        s_mat, K, b, mass = k11a[d]["args"]
+        kw = k11a[d]["kw"]
+        ep = edge_cg.edge_plan(s_mat, d)
+        x, _ = edge_cg.cg_solve_edge(*k11a[d]["args"], **kw)
+        e, n = K.shape[0], b.shape[0]
+        row("edge_cg", d, k11a[d]["launches"],
+            k11a[d]["err"],
+            kernel_ms(torch, lambda: edge_cg.cg_solve_edge(
+                *k11a[d]["args"], **kw), 100, ["edge_cg_kernel"]),
+            cuda_ms(torch, lambda: edge_cg.cg_solve_edge_plain(
+                *k11a[d]["args"], **kw), 3),
+            nbytes(K, b, mass, ep.element_indices, ep.plan.ptr,
+                   ep.plan.rows, x) + 4,
+            cg_ops(e, n, k11a[d]["it"], True, d), iterations=k11a[d]["it"],
+            library_note="no single PyTorch call runs a CG solve")
+        args, kw = k11b[d]["args"], k11b[d]["kw"]
+        out = ff.fused_frame(*args, **kw)
+        o = obj if d == 3 else dobj
+        iters = out[3].tolist()
+        row("fused_frame", d, k11b[d]["launches"], k11b[d]["err"],
+            kernel_ms(torch, lambda: ff.fused_frame(*args, **kw), FRAMES,
+                      ["fused_frame_kernel"]),
+            cuda_ms(torch, lambda: ff.fused_frame_plain(*args, **kw), 2),
+            nbytes(*args[:6], args[7], o.plan.ptr, o.plan.rows, *args[8:],
+                   *out),
+            frame_ops(o.element_cnt, o.particle_cnt, o.plan.rows.numel(),
+                      iters, True, d),
+            iterations=iters, steps_per_s=k11b[d]["steps_per_s"],
+            device_ms_a_frame=k11b[d]["device_ms"],
+            library_note="no single PyTorch call runs a frame")
+    tables = (blk.plus, blk.minus, blk.block_elements, blk.local_ptr,
+              blk.local_rows)
+    gmat = graph_matrix(torch, obj.element_indices,
+                        Kb[blk.element_slot.long()], obj.particle_cnt)
+    xcol = noisy.reshape(-1, 1)
+    lib_err = float((torch.sparse.mm(gmat, xcol).reshape(-1, 3) - y).abs()
+                    .max())
+    require(lib_err <= 1e-4 * float(y.abs().max()), "P1 library differs")
+    lib = cuda_ms(torch, lambda: torch.sparse.mm(gmat, xcol), 200)
+    base_us = None
+    for pair in p1.PAIRS:
+        bp, kpp, xb = p1_in[pair]
+        out = p1.paired_matvec(bp, kpp, xb, 3, pair)
+        ms = kernel_ms(torch, lambda: p1.paired_matvec(bp, kpp, xb, 3, pair),
+                       200, ["paired_matvec_kernel"])
+        base_us = ms * 1e3 if pair == 1 else base_us
+        row("paired_matvec", 3, P1_ITERS + 2 + (pair == 1), p1_err, ms,
+            cuda_ms(torch, lambda: p1.paired_matvec_plain(bp, kpp, xb, 3,
+                                                          pair), 20),
+            nbytes(kpp, xb, *tables, out),
+            OPS[3]["apply"] * obj.element_cnt, library=lib, pair=pair,
+            blocks=bp.num_blocks, us_per_apply=ms * 1e3,
+            ratio_to_pair_1=ms * 1e3 / base_us)
+    per_dot = {}
+    for name in p2.VARIANTS:
+        a, w, err = p2_in[name]
+        reps = 200
+        out = p2.chained_dot(a, w, reps, name)
+        ms = kernel_ms(torch, lambda: p2.chained_dot(a, w, reps, name), 20,
+                       ["chained_dot_kernel"])
+        per_dot[name] = ms * 1e3 / reps
+        a_stack = p2.stacked(a, reps)
+        w_lib = w if name != "int8xbf16" else w.to(torch.bfloat16)
+        lib_out = p2.library_call(a_stack, w_lib, name)
+        lib_sum = lib_out[: reps * a.shape[0]].reshape(
+            reps, a.shape[0], -1).double().sum(dim=0)
+        # int8: exact; bf16: the library rounds each product row to bf16.
+        tol = 0.0 if name == "int8xint8" else 1e-2
+        require(float((lib_sum - out.double()).abs().max())
+                <= tol * float(out.double().abs().max()),
+                f"P2 {name} library differs")
+        macs = a.shape[0] * a.shape[1] * w.shape[1] * reps
+        row("chained_dot", None, P2_OUTER + 1, err, ms,
+            cuda_ms(torch, lambda: p2.chained_dot_plain(a, w, reps, name), 3),
+            nbytes(a, w, out), 2 * macs,
+            peak=(PEAK_INT8_OPS_PER_S if name == "int8xint8"
+                  else PEAK_BF16_OPS_PER_S),
+            library=cuda_ms(torch, lambda: p2.library_call(a_stack, w_lib,
+                                                           name), 50),
+            variant=name, reps=reps, us_per_dot=per_dot[name])
+    log(f"[P2] int8xint8 speedup over bf16: "
+        f"{per_dot['bf16xbf16'] / per_dot['int8xint8']:.2f}x; int8xbf16 "
+        f"over bf16: {per_dot['bf16xbf16'] / per_dot['int8xbf16']:.2f}x; "
+        f"card {card}")
+    return rows, time.perf_counter() - t_start
+
+
 def main():
     import torch
 
@@ -2739,6 +3217,8 @@ def main():
         element_kernels,
         frame_kernels,
     )
+    from fem_tpu_torch.experiments import edge_cg, fused_frame
+    from fem_tpu_torch.probes import int8, pairblock
     from fem_tpu_torch.solvers import explicit
     from fem_tpu_torch.utils import cuda_build
 
@@ -2761,6 +3241,10 @@ def main():
         "implicit_force": element_kernels.implicit_force_columns,
         "kinematic": advect_kernels.kinematic,
         "advect_implicit": advect_kernels.advect_implicit,
+        "edge_cg": edge_cg.cg_solve_edge,
+        "fused_frame": fused_frame.fused_frame,
+        "paired_matvec": pairblock.paired_matvec,
+        "chained_dot": int8.chained_dot,
     }
 
     def zero_counts():
@@ -3299,6 +3783,11 @@ def main():
                 replaces=sources[name][1], dim=d, material=material,
                 robust=robust, launches=mat["launches"][key],
                 max_abs_err=mat["errors"][key], **t))
+    # -- 42.-47. the last four kernels: K11a, K11b, P1, P2 ------------------
+    last_rows, last_s = run_last_kernels(torch, dev, zero_counts, counts,
+                                         only, card)
+    kernels.extend(last_rows)
+    log(f"[last kernels] sections 42-47 in {last_s:.1f} s")
     log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

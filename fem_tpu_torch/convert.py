@@ -8,8 +8,9 @@ from ``element_indices`` (the same host algorithm as the JAX package's
 ``build_gather_plan``), and so are the locality blocks, from
 ``element_indices``, ``ref_inv``, ``volume`` and ``rest_pos`` (the same
 partition as the JAX package's ``build_blocking``).  The pins' and loads'
-arrays (``free_mask``, ``pin_vel``, ``static_load``) are optional, None
-when off, and so are the typed obstacles' arrays of :class:`Obstacles`.
+arrays (``free_mask``, ``pin_vel``, ``static_load``) and the edge matrix of
+``operator_mode="mxu"`` (``edge_matrix``) are optional, None when off, and
+so are the typed obstacles' arrays of :class:`Obstacles`.
 Only numpy crosses this boundary.
 """
 
@@ -33,8 +34,10 @@ OBJECT_STATICS = (
     "damping", "rho", "material", "plastic_yield", "viscous_mu",
     "viscous_tau", "damping_beta",
 )
-# The pins' and loads' arrays: optional (absent or None when off).
-OPTIONAL_OBJECT_ARRAYS = ("free_mask", "pin_vel", "static_load")
+# The pins' and loads' arrays and the dense edge matrix of
+# operator_mode="mxu": optional (absent or None when off).
+OPTIONAL_OBJECT_ARRAYS = ("free_mask", "pin_vel", "static_load",
+                          "edge_matrix")
 STATE_ARRAYS = ("pos", "vel", "vel_g", "force")
 # The inelastic internal inverses: optional (absent or None when off).
 INTERNAL_ARRAYS = ("plastic_inv", "viscous_inv")

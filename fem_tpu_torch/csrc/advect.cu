@@ -25,7 +25,8 @@
 // g is 9.8 g_dir and decay exp(-dt damping), both f32 from the host.  The
 // arithmetic is written with round-to-nearest intrinsics in the plain
 // version's order (ops/advect_kernels.py), so that no multiply-add is
-// contracted and the kernel tracks it to rounding of the sums.
+// contracted and the kernel tracks it to rounding of the sums.  K10b's
+// particle step is advect_common.cuh's, shared with K11b (fused_frame.cu).
 //
 // Bound on the H100: bytes.  K10a reads pos, vel, grad (3 x 12 B in 3D)
 // and m^-1 (4 B) and writes pos', vel' (24 B) a particle, for ~40 f32
@@ -37,17 +38,13 @@
 
 #include <cuda_runtime.h>
 
+#include "advect_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-template <int D>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  float s = __fmul_rn(a[0], b[0]);
-#pragma unroll
-  for (int i = 1; i < D; ++i) s = __fadd_rn(s, __fmul_rn(a[i], b[i]));
-  return s;
-}
+using fem::dot_rn;
 
 // The walls: lower wall zeroes a component moving down below 0, then the
 // upper wall one moving up above 1 (tested on the already-zeroed v).
@@ -87,11 +84,12 @@ __global__ void __launch_bounds__(kThreads) kinematic_kernel(
       disp[i] = __fsub_rn(x[i], centers[D * b + i]);
       neg[i] = -disp[i];
     }
-    const float dist_sq = dot<D>(disp, disp);
-    const bool hit = dist_sq < __fmul_rn(r, r) && dot<D>(v, neg) > 0.0f &&
-                     r > 0.0f;
+    const float dist_sq = dot_rn<D>(disp, disp);
+    const bool hit = dist_sq < __fmul_rn(r, r) &&
+                     dot_rn<D>(v, neg) > 0.0f && r > 0.0f;
     if (hit) {
-      const float coeff = __fdiv_rn(dot<D>(v, disp), fmaxf(dist_sq, 1e-30f));
+      const float coeff =
+          __fdiv_rn(dot_rn<D>(v, disp), fmaxf(dist_sq, 1e-30f));
 #pragma unroll
       for (int i = 0; i < D; ++i) v[i] = __fsub_rn(v[i], __fmul_rn(coeff, disp[i]));
     }
@@ -113,57 +111,10 @@ __global__ void __launch_bounds__(kThreads) advect_implicit_kernel(
     float* __restrict__ vel_g_out) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  float x[D], u[D], w[D], v[D];  // u = vel, w = vel_g, v = u + w
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    x[i] = pos[D * p + i];
-    u[i] = __fmul_rn(vel[D * p + i], decay);
-    w[i] = __fmul_rn(__fadd_rn(vel_g[D * p + i], __fmul_rn(gravity[i], dt)),
-                     decay);
-    v[i] = __fadd_rn(u[i], w[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    if (x[i] < 0.0f && v[i] < 0.0f) {
-      u[i] = 0.0f;
-      w[i] = 0.0f;
-      v[i] = 0.0f;
-    }
-    if (x[i] > 1.0f && v[i] > 0.0f) {  // vel_g kept (implicit.py:422)
-      u[i] = 0.0f;
-      v[i] = 0.0f;
-    }
-  }
-  for (int b = 0; b < num_circles; ++b) {
-    const float r = radii[b];
-    float disp[D], neg[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      disp[i] = __fsub_rn(x[i], centers[D * b + i]);
-      neg[i] = -disp[i];
-    }
-    const float dist_sq = dot<D>(disp, disp);
-    const bool hit = dist_sq < __fmul_rn(r, r) && dot<D>(v, neg) > 0.0f &&
-                     r > 0.0f;
-    if (hit) {
-      const float inv_d = __frcp_rn(fmaxf(dist_sq, 1e-30f));
-      const float cv = __fmul_rn(dot<D>(v, disp), inv_d);
-      const float cu = __fmul_rn(dot<D>(u, disp), inv_d);
-      const float cw = __fmul_rn(dot<D>(w, disp), inv_d);
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        v[i] = __fsub_rn(v[i], __fmul_rn(cv, disp[i]));
-        u[i] = __fsub_rn(u[i], __fmul_rn(cu, disp[i]));
-        w[i] = __fsub_rn(w[i], __fmul_rn(cw, disp[i]));
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    pos_out[D * p + i] = __fadd_rn(x[i], __fmul_rn(v[i], dt));
-    vel_out[D * p + i] = u[i];
-    vel_g_out[D * p + i] = w[i];
-  }
+  fem::advect_implicit_particle<D>(pos + D * p, vel + D * p, vel_g + D * p,
+                                   centers, radii, num_circles, gravity, dt,
+                                   decay, pos_out + D * p, vel_out + D * p,
+                                   vel_g_out + D * p);
 }
 
 }  // namespace

@@ -32,145 +32,18 @@
 // one warp), and there are no float atomics, so two runs give bit-identical
 // results.  Vectors and scratch live in device memory (L2-resident at the
 // flagship's size); keeping them in shared memory and spreading the solve
-// over more SMs is later work.
+// over more SMs is later work.  The operator and the CG loop are
+// whole_cg.cuh's, shared with K11a (edge_cg.cu) and K11b (fused_frame.cu);
+// this file adds the rhs assembly.
 
 #include <cuda_runtime.h>
 
-#include "element_chain.cuh"
+#include "whole_cg.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-
-struct Solve {
-  const float* k;      // (E, D, D)
-  const int* elem;     // (E, D+1)
-  const int* ptr;      // (N + 1,)
-  const int* rows;     // ((D+1) E,)
-  const float* minv;   // (N,)
-  float* t;            // ((D+1) E, D) per-element vertex contributions
-  float* w;            // (N, D) G(K) product
-  float* z;            // (N, D) v / m for apply_at
-  int num_elements;
-  int num_particles;
-  float dt2;
-};
-
-// Sum of `v` over the block, the same order every call.  All threads return
-// the total.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = red[lane];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[32] = v;
-  }
-  __syncthreads();
-  const float total = red[32];
-  __syncthreads();  // red may be reused by the next call
-  return total;
-}
-
-// Per particle, the sum of its contribution rows of s.t into dst.
-template <int D>
-__device__ void gather_rows(const Solve& s, float* __restrict__ dst) {
-  for (int p = threadIdx.x; p < s.num_particles; p += kThreads) {
-    float a[D];
-#pragma unroll
-    for (int c = 0; c < D; ++c) a[c] = 0.0f;
-    const int end = s.ptr[p + 1];
-    for (int q = s.ptr[p]; q < end; ++q) {
-      const float* row = s.t + D * s.rows[q];
-#pragma unroll
-      for (int c = 0; c < D; ++c) a[c] += row[c];
-    }
-#pragma unroll
-    for (int c = 0; c < D; ++c) dst[D * p + c] = a[c];
-  }
-  __syncthreads();
-}
-
-// s.w = G(K) src, or G(K^T) src when `transpose`.
-template <int D>
-__device__ void g_apply(const Solve& s, const float* __restrict__ src,
-                        bool transpose) {
-  __syncthreads();  // src was written by other threads
-  for (int e = threadIdx.x; e < s.num_elements; e += kThreads) {
-    int v[D + 1];
-    fem::load_element<D>(s.elem, e, v);
-    float x0[D];
-#pragma unroll
-    for (int c = 0; c < D; ++c) x0[c] = src[D * v[0] + c];
-    const float* k = s.k + D * D * e;
-    float kk[D * D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int c = 0; c < D; ++c) {
-        kk[D * i + c] = transpose ? k[D * c + i] : k[D * i + c];
-      }
-    }
-    float sum[D];
-    float* out = s.t + (D + 1) * D * e;
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      float d[D];
-#pragma unroll
-      for (int c = 0; c < D; ++c) d[c] = src[D * v[j + 1] + c] - x0[c];
-#pragma unroll
-      for (int i = 0; i < D; ++i) {
-        float ti = kk[D * i] * d[0];
-#pragma unroll
-        for (int c = 1; c < D; ++c) ti = ti + kk[D * i + c] * d[c];
-        out[D * (j + 1) + i] = ti;
-        sum[i] = j == 0 ? ti : sum[i] + ti;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) out[i] = -sum[i];
-  }
-  __syncthreads();
-  gather_rows<D>(s, s.w);
-}
-
-// dst = A src  (apply_a)
-template <int D>
-__device__ void apply_a(const Solve& s, const float* src, float* dst) {
-  g_apply<D>(s, src, false);
-  for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
-    dst[i] = src[i] - s.dt2 * s.w[i] * s.minv[i / D];
-  }
-}
-
-// dst = A^T src  (apply_at)
-template <int D>
-__device__ void apply_at(const Solve& s, const float* src, float* dst) {
-  for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
-    s.z[i] = src[i] * s.minv[i / D];
-  }
-  g_apply<D>(s, s.z, true);
-  for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
-    dst[i] = src[i] - s.dt2 * s.w[i];
-  }
-}
-
-// dst = op src, op = A^T A (normal equations) or A; `u` is scratch.
-template <int D>
-__device__ void apply_op(const Solve& s, bool normal, const float* src,
-                         float* u, float* dst) {
-  if (normal) {
-    apply_a<D>(s, src, u);
-    apply_at<D>(s, u, dst);
-  } else {
-    apply_a<D>(s, src, dst);
-  }
-}
+using fem::whole_cg::kThreads;
+using fem::whole_cg::Solve;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fused_cg_kernel(
@@ -201,48 +74,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cg_kernel(
     }
   }
   __syncthreads();
-  gather_rows<D>(s, s.w);
+  fem::whole_cg::gather_rows<D>(s, s.w);
   for (int i = threadIdx.x; i < nd; i += kThreads) {
     x[i] = vel[i] + dt * s.w[i] * minv[i / D];  // x_0 = b
   }
-  // r = rhs - op(x_0), with rhs = A^T b or b.
-  if (normal) {
-    apply_at<D>(s, x, r);
-  } else {
-    for (int i = threadIdx.x; i < nd; i += kThreads) r[i] = x[i];
-  }
-  apply_op<D>(s, normal, x, u, q);
-  float part = 0.0f;
-  for (int i = threadIdx.x; i < nd; i += kThreads) {
-    const float ri = r[i] - q[i];
-    r[i] = ri;
-    d[i] = ri;
-    part += ri * ri;
-  }
-  float delta = block_sum(part, red);
-  int it = 0;
-  while (it < max_iter && delta > tol) {
-    apply_op<D>(s, normal, d, u, q);
-    part = 0.0f;
-    for (int i = threadIdx.x; i < nd; i += kThreads) part += d[i] * q[i];
-    const float alpha = delta / block_sum(part, red);
-    part = 0.0f;
-    for (int i = threadIdx.x; i < nd; i += kThreads) {
-      x[i] += alpha * d[i];
-      const float ri = r[i] - alpha * q[i];
-      r[i] = ri;
-      part += ri * ri;
-    }
-    const float delta_next = block_sum(part, red);
-    const float beta = delta_next / delta;
-    for (int i = threadIdx.x; i < nd; i += kThreads) d[i] = r[i] + beta * d[i];
-    delta = delta_next;
-    ++it;
-  }
-  if (threadIdx.x == 0) {
-    *it_out = it;
-    *res_out = delta;
-  }
+  fem::whole_cg::reference_cg<D>(s, normal != 0, max_iter, tol, x, r, d, q,
+                                 u, red, it_out, res_out);
 }
 
 }  // namespace

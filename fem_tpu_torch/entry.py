@@ -41,12 +41,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_CONFIG = os.path.join(REPO, "configs", "demo_spot.json")
 
 
-def load_config(path: str, device="cuda", **object_overrides):
+def load_config(path: str, device="cuda", sim_overrides=None,
+                **object_overrides):
     """(cfg, obj, state, obstacles) of a single-body config file on
-    ``device``, with ``object_overrides`` of the body's config; a mesh path
-    in it is read relative to the repository."""
+    ``device``, with ``sim_overrides`` (a dict) of its simulation config and
+    ``object_overrides`` of the body's config; a mesh path in it is read
+    relative to the repository.  The body is built for the config's
+    ``operator_mode`` (``"mxu"`` attaches the edge matrix)."""
     dev = resolve_device(device)
-    cfg = read_config(path)
+    cfg = dataclasses.replace(read_config(path), **(sim_overrides or {}))
     check_supported_config(cfg)
     if len(cfg.objects) != 1:
         raise NotImplementedError(
@@ -64,15 +67,17 @@ def load_config(path: str, device="cuda", **object_overrides):
             )
         ocfg = dataclasses.replace(ocfg, obj=obj_path)
     vertices, faces, elements, _aux = load_object_mesh(ocfg)
-    obj, state = build_object(ocfg, vertices, faces, elements, device=dev)
+    obj, state = build_object(ocfg, vertices, faces, elements, device=dev,
+                              operator_mode=cfg.operator_mode)
     obstacles = Obstacles.from_configs(cfg.blocks, cfg.dim, cfg.obstacles,
                                        device=dev)
     return cfg, obj, state, obstacles
 
 
-def flagship(device="cuda", **object_overrides):
+def flagship(device="cuda", sim_overrides=None, **object_overrides):
     """(cfg, obj, state, obstacles) of the flagship config on ``device``."""
-    return load_config(FLAGSHIP_CONFIG, device, **object_overrides)
+    return load_config(FLAGSHIP_CONFIG, device, sim_overrides,
+                       **object_overrides)
 
 
 def explicit_flagship(device="cuda", **object_overrides):

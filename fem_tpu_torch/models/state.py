@@ -57,6 +57,10 @@ class FemObject:
     faces: torch.Tensor  # (M, 3) int32 render/surface faces
     plan: GatherPlan  # per-particle assembly plan (ops/assembly.py)
     blocking: Blocking = None  # locality blocks (ops/blocking.py)
+    # Dense ±1 edge matrix S (E·d, N) of operator_mode="mxu"
+    # (solvers/implicit.build_edge_matrix); None unless that mode was
+    # forced at build time and E·d·N ≤ 16,000,000.
+    edge_matrix: Optional[torch.Tensor] = None
     dim: int = 3
     particle_cnt: int = 0
     element_cnt: int = 0
@@ -226,10 +230,18 @@ def build_object(
     faces: np.ndarray,
     element_indices: np.ndarray,
     device="cuda",
+    operator_mode: str = "auto",
 ) -> Tuple[FemObject, SimState]:
     """:class:`FemObject` + initial :class:`SimState` from mesh arrays
     (reference Object.__init__ + particles_init, object.py:44-93, 337-343:
-    ``pos = vertices + center``), on ``device``."""
+    ``pos = vertices + center``), on ``device``.
+
+    ``operator_mode`` mirrors ``SimConfig.operator_mode``, as in the JAX
+    package: the dense edge matrix S (O(E·d·N) memory) is built only when
+    ``"mxu"`` is forced and E·d·N ≤ 16,000,000; ``"auto"`` prefers the
+    blocked operator and leaves it out."""
+    from fem_tpu_torch.solvers.implicit import build_edge_matrix
+
     check_supported_object(cfg)
     dev = resolve_device(device)
     d = vertices.shape[1]
@@ -243,6 +255,8 @@ def build_object(
     def tensor(a):
         return None if a is None else torch.as_tensor(a, device=dev)
 
+    want_mxu = operator_mode == "mxu" and idx.shape[0] * d * n <= 16_000_000
+
     obj = FemObject(
         element_indices=torch.as_tensor(idx, device=dev),
         ref_inv=torch.as_tensor(ref_inv, device=dev),
@@ -252,6 +266,7 @@ def build_object(
         faces=torch.as_tensor(np.asarray(faces).astype(np.int32), device=dev),
         plan=make_gather_plan(idx, n, dev),
         blocking=build_blocking(idx, ref_inv, volume, pos, device=dev),
+        edge_matrix=tensor(build_edge_matrix(idx, n) if want_mxu else None),
         dim=d,
         particle_cnt=n,
         element_cnt=int(idx.shape[0]),

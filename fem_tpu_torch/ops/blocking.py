@@ -215,6 +215,58 @@ def build_blocking(
     )
 
 
+def pad_blocking(blocking: Blocking, multiple: int) -> Blocking:
+    """The blocking with its block count padded to a multiple of
+    ``multiple`` (the JAX package's ``pad_blocking``; the paired-block
+    probe ``probes/pairblock.py`` needs it, as the flagship's 17 blocks
+    pair with none).
+
+    Padded blocks are empty: ``plus == minus == 0`` makes every S row of
+    theirs zero, ``volume == 0`` zeroes their elements' contributions, their
+    element slots replicate element slot 0 (finite geometry, the convention
+    of :class:`Blocking` itself) and ``block_particles == 0``.  Beyond the
+    JAX package's fields: a padded block has no real elements
+    (``block_elements`` 0) and an empty local plan, its rows' flat slots
+    are its slot 0, ``element_slot`` is unchanged (real slots do not move)
+    and the slot plan's sentinel moves to the new slot count."""
+    b = blocking.num_blocks
+    target = ((b + multiple - 1) // multiple) * multiple
+    pad = target - b
+    if pad == 0:
+        return blocking
+    eb, pb = blocking.eb, blocking.pb
+
+    def pad0(x, rows):
+        return torch.cat([x, x.new_zeros((rows,) + tuple(x.shape[1:]))])
+
+    def tile0(x, rows):
+        return torch.cat([x, x[:1].expand((rows,) + tuple(x.shape[1:]))])
+
+    rows_per_block = blocking.local_rows.shape[1]
+    new_slots = (torch.arange(b, target, device=blocking.row_slot.device,
+                              dtype=blocking.row_slot.dtype) * pb)
+    plan = blocking.slot_plan
+    idx = torch.where(plan.idx == b * pb, target * pb, plan.idx)
+    return dataclasses.replace(
+        blocking,
+        block_particles=pad0(blocking.block_particles, pad),
+        plus=pad0(blocking.plus, pad),
+        minus=pad0(blocking.minus, pad),
+        element_indices=tile0(blocking.element_indices, pad * eb),
+        ref_inv=tile0(blocking.ref_inv, pad * eb),
+        volume=pad0(blocking.volume, pad * eb),
+        element_perm=tile0(blocking.element_perm, pad * eb),
+        block_elements=pad0(blocking.block_elements, pad),
+        local_ptr=pad0(blocking.local_ptr, pad),
+        local_rows=pad0(blocking.local_rows, pad),
+        row_slot=torch.cat([blocking.row_slot,
+                            new_slots.repeat_interleave(rows_per_block)]),
+        slot_plan=GatherPlan(idx=idx.to(plan.idx.dtype), ptr=plan.ptr,
+                             rows=plan.rows),
+        num_blocks=target,
+    )
+
+
 def blocked_gather(x: torch.Tensor, blocking: Blocking) -> torch.Tensor:
     """(N, d) → (B, Pb, d) block-local copies (halo particles duplicated)."""
     return x[blocking.block_particles]

@@ -42,7 +42,8 @@ def load_scene(
         vertices, faces, elements, aux = load_object_mesh(
             ocfg, interior_spacing
         )
-        obj, state = build_object(ocfg, vertices, faces, elements, device=dev)
+        obj, state = build_object(ocfg, vertices, faces, elements, device=dev,
+                                  operator_mode=cfg.operator_mode)
         print(f"Vertex count: {obj.particle_cnt}")
         print(f"Mesh count: {obj.mesh_cnt}")
         print(f"Element count: {obj.element_cnt}")

@@ -40,6 +40,9 @@ paths).  ``make_frame_fn`` picks how, as the JAX package's does:
   ``frame_backend="blocked_explicit"`` and, on a CUDA object, for ``"auto"``
   when an explicit or autodiff config is eligible
   (:func:`supports_explicit_blocked_frame`);
+* the unblocked whole-frame kernel K11b (``experiments/fused_frame.py``),
+  one launch a frame over the mesh as it is, for ``frame_backend="fused"``
+  only (:func:`supports_fused_frame`), never for ``"auto"``;
 * otherwise the op-composed frame: ``sim_count`` substeps back to back, in
   which nothing waits for the device unless the blocked operator's CG loop
   reads ‖r‖² (``operator_mode="blocked"``).
@@ -54,6 +57,10 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from fem_tpu_torch.experiments.fused_frame import (
+    make_fused_frame_fn,
+    supports_fused_frame,
+)
 from fem_tpu_torch.models.state import FemObject, Obstacles, SimState
 from fem_tpu_torch.ops.frame_kernels import (
     fused_blocked_frame,
@@ -344,17 +351,20 @@ def make_frame_fn(obj: FemObject, cfg: SimConfig):
     ``frame(state, obstacles) -> (state, StepAux)`` with StepAux fields of
     shape ``(sim_count,)`` left on the device.
 
-    ``frame_backend``: ``"blocked"`` runs the whole-frame kernel K5 and
+    ``frame_backend``: ``"fused"`` runs the unblocked whole-frame kernel
+    K11b (``experiments/fused_frame.py``), decided first, as in the JAX
+    package; ``"blocked"`` runs the whole-frame kernel K5 and
     ``"blocked_explicit"`` the explicit whole-frame kernel K8 (each its
-    plain version on the CPU), and each raises ``ValueError`` when the
-    config is not eligible; ``"auto"`` runs the eligible one of the two on a
-    CUDA object, and the op-composed frame otherwise; ``"fused"`` is not
-    ported yet."""
+    plain version on the CPU), and each of the three raises ``ValueError``
+    when the config is not eligible; ``"auto"`` runs the eligible one of K5
+    and K8 on a CUDA object, and the op-composed frame otherwise."""
     if cfg.frame_backend == "fused":
-        raise NotImplementedError(
-            "frame_backend='fused' (the unblocked whole-frame kernel, K11b) "
-            "is not ported yet"
-        )
+        if not supports_fused_frame(obj, cfg):
+            raise ValueError(
+                "frame_backend='fused' requested but this config/mesh is not "
+                "eligible (see experiments/fused_frame.supports_fused_frame)"
+            )
+        return make_fused_frame_fn(obj, cfg)
     if cfg.frame_backend == "blocked" and not supports_blocked_frame(obj, cfg):
         raise ValueError(
             "frame_backend='blocked' requested but this config/mesh is not "

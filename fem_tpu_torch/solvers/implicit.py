@@ -29,6 +29,12 @@ implicit.py:995-1155):
   per material layer, the slot-sum assembly and the CG dispatch over the
   blocked operator K3 — and otherwise the graph branch — K1 per layer and
   the dispatch over the plain graph operator;
+* ``operator_mode="mxu"`` on an object that carries the dense edge matrix
+  S (``build_object(..., operator_mode="mxu")``; under ``"auto"`` only
+  when the object has no locality blocks, which win first): K1 per layer,
+  then the dispatch over the edge-matrix operator G(K)·x = Sᵀ(K∘(S·x)),
+  whose two products with S are ``torch.matmul`` (TF32 off), as the JAX
+  package leaves them to XLA;
 * otherwise ``operator_mode="blocked"`` takes the blocked branch and every
   other mode the element chain K1 and the whole solve K4.
 
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from fem_tpu_torch.models.state import FemObject, SimState
@@ -82,6 +89,7 @@ from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, JACOBI_METHOD
 __all__ = [
     "CGResult",
     "ImplicitAux",
+    "build_edge_matrix",
     "cg_solve_dispatch",
     "conjugate_gradient",
     "diagonal_blocks",
@@ -90,6 +98,7 @@ __all__ = [
     "implicit_rhs",
     "implicit_velocity_solve",
     "make_exact_hvp_apply",
+    "make_mxu_system_apply",
     "make_system_apply",
     "make_system_apply_t",
     "preconditioned_conjugate_gradient",
@@ -123,6 +132,53 @@ def make_system_apply_t(
     return system_applies(
         K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt, beta
     )[1]
+
+
+def build_edge_matrix(element_indices, num_particles: int) -> np.ndarray:
+    """Dense ±1 edge-difference operator S of shape (E·d, N), float32
+    numpy: ``(S x)[e·d+j] = x[v_{j+1}] − x[v_0]``, so the element-Laplacian
+    product is two matrix products, ``G(K)·x = Sᵀ·(K ∘ (S x))`` (the JAX
+    package's ``build_edge_matrix``).  O(E·d·N) memory: ``build_object``
+    builds it only when ``operator_mode="mxu"`` is forced and E·d·N ≤
+    16,000,000.  Host-side, once at load."""
+    idx = np.asarray(element_indices)
+    e, dp1 = idx.shape
+    d = dp1 - 1
+    s = np.zeros((e * d, num_particles), np.float32)
+    rows = np.arange(e * d)
+    s[rows, idx[:, 1:].reshape(-1)] += 1.0
+    s[rows, np.repeat(idx[:, 0], d)] -= 1.0
+    return s
+
+
+def make_mxu_system_apply(
+    obj: FemObject, K: torch.Tensor, s_mat: torch.Tensor, dt: float,
+    beta: float = 0.0,
+):
+    """(apply_a, apply_at) of A = I − c·M⁻¹·G(K) through the edge matrix
+    ``s_mat`` (:func:`build_edge_matrix`): G(K)·x = Sᵀ·(K ∘ (S x)), the two
+    products ``torch.matmul`` in full f32 and the d×d blocks one einsum (the
+    JAX package's ``make_mxu_system_apply``); c = :func:`system_coeff`."""
+    e, d = K.shape[0], obj.dim
+    c = system_coeff(dt, beta)
+    s_t = s_mat.T
+    m = obj.mass[:, None]
+
+    def g_apply(k_blocks, x):
+        s = torch.matmul(s_mat, x)  # row (e, j) = edge difference j
+        t = torch.einsum("eik,ejk->eji", k_blocks,
+                         s.reshape(e, d, d)).reshape(e * d, d)
+        return torch.matmul(s_t, t)
+
+    k_t = K.transpose(-1, -2)
+
+    def apply_a(x):
+        return x - c * g_apply(K, x) / m
+
+    def apply_at(y):
+        return y - c * g_apply(k_t, y / m)
+
+    return apply_a, apply_at
 
 
 def diagonal_blocks(
@@ -303,6 +359,11 @@ def implicit_velocity_solve(
         )
         for fi, mu, lam, material in lys
     )
+    if obj.edge_matrix is not None and (
+            operator_mode == "mxu"
+            or (operator_mode == "auto" and obj.blocking is None)):
+        return _graph_solve(obj, state, dt, preconditioned, cg_precond, K,
+                            cols, mxu=True)
     if extended:
         return _graph_solve(obj, state, dt, preconditioned, cg_precond, K,
                             cols)
@@ -318,16 +379,23 @@ def _solved(state: SimState, res: CGResult) -> Tuple[SimState, ImplicitAux]:
     return state.replace(vel=res.x), ImplicitAux(res.iterations, res.residual)
 
 
-def _graph_solve(obj, state, dt, preconditioned, cg_precond, K, cols):
+def _graph_solve(obj, state, dt, preconditioned, cg_precond, K, cols,
+                 mxu=False):
     """The graph branch (JAX implicit.py:1103-1155 with its CG dispatch at
     :1141-1155): b from K1's force columns, then the dispatch over the
-    plain graph operator with β, the pin projection and the block-Jacobi
-    blocks of K."""
+    plain graph operator — or with ``mxu`` the edge-matrix operator
+    (:func:`make_mxu_system_apply`, JAX :1186-1196) — with β, the pin
+    projection and the block-Jacobi blocks of K."""
     beta = obj.damping_beta
     f = gather_assemble(element_contrib_full(cols), obj.plan.idx)
     b = state.vel + dt * f / obj.mass[:, None]
-    apply_a, apply_at = system_applies(K, obj.element_indices, obj.plan.idx,
-                                       1.0 / obj.mass, dt, beta)
+    if mxu:
+        apply_a, apply_at = make_mxu_system_apply(obj, K, obj.edge_matrix, dt,
+                                                  beta)
+    else:
+        apply_a, apply_at = system_applies(K, obj.element_indices,
+                                           obj.plan.idx, 1.0 / obj.mass, dt,
+                                           beta)
     return _solved(state, cg_solve_dispatch(
         apply_a, lambda: apply_at, b, preconditioned, cg_precond,
         lambda: diagonal_blocks(obj, K, dt, beta), obj.mass, obj.free_mask,

@@ -1432,3 +1432,126 @@ def test_extension_paths_on_cuda_match_cpu(case):
     if obj.free_mask is not None:
         held = obj.free_mask[:, 0] == 0
         assert torch.equal(s.pos[held], state.pos[held])
+
+
+# -- K11a, K11b, P1 and P2 ---------------------------------------------------
+
+
+def _circles(pos):
+    """Two circles over a body (one of radius 0, which never hits)."""
+    c = pos.mean(dim=0)
+    d = pos.shape[1]
+    centers = torch.stack([c + 0.02, c]).contiguous()
+    assert centers.shape == (2, d)
+    return centers, torch.tensor([0.08, 0.0], device=pos.device)
+
+
+@pytest.mark.parametrize("preconditioned", [False, True])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_edge_cg_kernel_matches_plain_and_repeats(body, body_2d, dim,
+                                                  preconditioned):
+    """K11a against its plain version (the dense S products): iterations
+    within 1, velocity rtol 5e-4 / atol 1e-6 (K4's), twice bit-identical,
+    one launch a call."""
+    from fem_tpu_torch.experiments import edge_cg
+    from fem_tpu_torch.solvers.implicit import build_edge_matrix
+
+    obj, state = body if dim == 3 else body_2d
+    s_mat = torch.as_tensor(build_edge_matrix(
+        obj.element_indices.cpu().numpy(), obj.particle_cnt), device="cuda")
+    k, _ = element_kernels.hessian_and_force(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda)
+    kw = dict(dim=dim, dt2=5e-4 * 5e-4, preconditioned=preconditioned)
+    before = edge_cg.cg_solve_edge.launches
+    x, it = edge_cg.cg_solve_edge(s_mat, k, state.vel, obj.mass, **kw)
+    x2, it2 = edge_cg.cg_solve_edge(s_mat, k, state.vel, obj.mass, **kw)
+    assert edge_cg.cg_solve_edge.launches == before + 2
+    xp, itp = edge_cg.cg_solve_edge_plain(s_mat, k, state.vel, obj.mass, **kw)
+    assert it.dtype == torch.int32 and int(it) > 1
+    assert abs(int(it) - int(itp)) <= 1
+    torch.testing.assert_close(x, xp, rtol=5e-4, atol=1e-6)
+    assert torch.equal(x, x2) and torch.equal(it, it2)
+
+
+@pytest.mark.parametrize("preconditioned", [False, True])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fused_frame_kernel_matches_plain_and_repeats(body, body_2d, dim,
+                                                      preconditioned):
+    """K11b against its plain version on the card: positions within 1e-5,
+    iterations within 1 per substep, twice bit-identical, one launch a
+    frame."""
+    from fem_tpu_torch.experiments import fused_frame as ff
+
+    obj, state = body if dim == 3 else body_2d
+    centers, radii = _circles(state.pos)
+    g = [0.0, -1.0, 0.0][:dim]
+    args = (state.pos, state.vel, torch.zeros_like(state.vel), obj.ref_inv,
+            obj.volume, obj.element_indices, obj.plan, obj.mass, centers,
+            radii)
+    kw = dict(dt=5e-4, damping=10.0, g_dir=g, mu=obj.mu,
+              s_lambda=obj.s_lambda, preconditioned=preconditioned,
+              sim_count=4)
+    before = ff.fused_frame.launches
+    out = ff.fused_frame(*args, **kw)
+    again = ff.fused_frame(*args, **kw)
+    assert ff.fused_frame.launches == before + 2
+    ref = ff.fused_frame_plain(*args, **kw)
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    assert float((out[2] - ref[2]).abs().max()) <= TOL
+    its, itp = out[3].tolist(), ref[3].tolist()
+    assert max(its) > 0
+    assert all(abs(a - b) <= 1 for a, b in zip(its, itp))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("pair", [1, 2, 4])
+def test_paired_matvec_kernel_matches_plain_and_k3(body, pair):
+    """P1 against its plain version and against K3's per-block partials on
+    the blocks they share (1e-5 of the largest entry), twice
+    bit-identical; the padded blocks' products are zero."""
+    from fem_tpu_torch.probes import pairblock as pbk
+
+    obj, state = body
+    blk = obj.blocking
+    d = obj.dim
+    K, _ = blocked_kernels.blocked_prep(blk, state.pos, obj.mu, obj.s_lambda)
+    kp = pbk.make_kplane(blk, K)
+    blk_p, kp_p, xbt_p = pbk.padded_inputs(blk, kp, state.vel, pair)
+    before = pbk.paired_matvec.launches
+    out = pbk.paired_matvec(blk_p, kp_p, xbt_p, d, pair)
+    again = pbk.paired_matvec(blk_p, kp_p, xbt_p, d, pair)
+    assert pbk.paired_matvec.launches == before + 2
+    ref = pbk.paired_matvec_plain(blk_p, kp_p, xbt_p, d, pair)
+    top = float(ref.abs().max())
+    assert top > 0 and float((out - ref).abs().max()) <= TOL * top
+    assert torch.equal(out, again)
+    assert not out[blk.num_blocks:].any()
+    part = torch.empty((blk.num_blocks * blk.pb, d), device="cuda")
+    blocked_kernels.blocked_graph_apply(blk, K, state.vel, partials=part)
+    k3 = part.reshape(blk.num_blocks, blk.pb, d).transpose(1, 2)
+    assert float((out[: blk.num_blocks] - k3).abs().max()) <= TOL * top
+
+
+@pytest.mark.parametrize("variant", ["bf16xbf16", "int8xint8", "int8xbf16"])
+def test_chained_dot_kernel_matches_plain(variant):
+    """P2 against its plain version at (6, 1024) × (1024, 256), 20 reps:
+    int8 × int8 exactly; the bf16 variants, whose products are exact in f32
+    but whose ~20,000-term sums run in another order (and in the tensor
+    cores' accumulator), within 1e-4 of the largest entry."""
+    _require_cuda()
+    from fem_tpu_torch.probes import int8 as p2
+
+    a, w = p2.probe_inputs(6, 1024, 256, variant, "cuda")
+    before = p2.chained_dot.launches
+    out = p2.chained_dot(a, w, 20, variant)
+    again = p2.chained_dot(a, w, 20, variant)
+    assert p2.chained_dot.launches == before + 2
+    ref = p2.chained_dot_plain(a, w, 20, variant)
+    assert out.dtype == ref.dtype
+    if variant == "int8xint8":
+        assert torch.equal(out, ref)
+    else:
+        top = float(ref.abs().max())
+        assert float((out - ref).abs().max()) <= 1e-4 * top
+    assert torch.equal(out, again)

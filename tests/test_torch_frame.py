@@ -162,14 +162,30 @@ def test_blocked_frame_rejects_ineligible_configs(over):
 
 @pytest.mark.parametrize("backend", ["fused", "blocked_explicit"])
 def test_unported_frame_backends_raise(backend, monkeypatch):
-    """``"fused"`` (K11b) is not ported and raises; ``"blocked_explicit"``
-    (K8) is, and on an explicit config runs K8's plain version once a
-    frame."""
+    """Both backends are ported: ``"fused"`` (K11b) runs the unblocked
+    whole frame's plain version once a frame, and ``"blocked_explicit"``
+    (K8) on an explicit config K8's plain version once a frame."""
     pcfg, _, obj, state, obs, _, _, _ = _scene(seed=4)
     cfg = dataclasses.replace(pcfg, frame_backend=backend)
     if backend == "fused":
-        with pytest.raises(NotImplementedError, match="K11b"):
-            sim.make_frame_fn(obj, cfg)
+        from fem_tpu_torch.experiments import fused_frame as ff
+
+        calls = []
+        real = ff.fused_frame
+
+        def spy_fused(*args, **kwargs):
+            calls.append(1)
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(ff, "fused_frame", spy_fused)
+        frame = sim.make_frame_fn(obj, cfg)
+        s = state
+        for i in range(2):
+            s, aux = frame(s, obs)
+            assert len(calls) == i + 1
+        assert torch.isfinite(s.pos).all() and not torch.equal(s.pos,
+                                                               state.pos)
+        assert aux.solver_iterations.shape == (cfg.sim_count,)
         return
     calls = []
     real = sim.fused_explicit_frame

@@ -30,7 +30,10 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "fem_tpu_torch.ops.cg_kernels" in mods
+    for name in ("ops.cg_kernels", "experiments.edge_cg",
+                 "experiments.fused_frame", "probes.pairblock",
+                 "probes.int8"):
+        assert f"fem_tpu_torch.{name}" in mods, name
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}:\n"
