@@ -418,15 +418,13 @@ blocked_assemble.launches = 0
 
 
 def blocked_graph_apply(blk: Blocking, K: torch.Tensor, x: torch.Tensor,
-                        transpose_k: bool = False,
-                        partials: torch.Tensor | None = None) -> torch.Tensor:
+                        transpose_k: bool = False) -> torch.Tensor:
     """G(K)·x (G(Kᵀ)·x when ``transpose_k``), (N, d): per block the
     element-Laplacian product of its K blocks, then each particle's sum over
     its block slots.
 
     CUDA tensors: one launch of the blocked matvec (two kernels: per-block
-    partials, per-particle slot sums); ``partials`` (B·Pb, d), when given,
-    receives the per-block partials (else they are scratch).  CPU tensors:
+    partials, per-particle slot sums).  CPU tensors:
     :func:`blocked_graph_apply_plain`."""
     if x.device.type == "cpu":
         return blocked_graph_apply_plain(blk, K, x, transpose_k)
@@ -440,11 +438,8 @@ def blocked_graph_apply(blk: Blocking, K: torch.Tensor, x: torch.Tensor,
     cuda_build.check_operand("K", K, (blk.num_blocks * blk.eb, d, d),
                              torch.float32, dev)
     check_slot_plan(blk, n, dev)
-    if partials is None:
-        partials = torch.empty((blk.num_blocks * blk.pb, d),
-                               dtype=torch.float32, device=dev)
-    cuda_build.check_operand("partials", partials,
-                             (blk.num_blocks * blk.pb, d), torch.float32, dev)
+    partials = torch.empty((blk.num_blocks * blk.pb, d), dtype=torch.float32,
+                           device=dev)
     y = torch.empty((n, d), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):

@@ -33,6 +33,7 @@ import sys
 import numpy as np
 import torch
 
+from fem_tpu_torch.ops.element_kernels import count_launch
 from fem_tpu_torch.utils import cuda_build
 
 _P = ctypes.c_void_p
@@ -126,11 +127,12 @@ def chained_dot(a: torch.Tensor, w: torch.Tensor, reps: int,
         msg = lib.fem_chained_dot_error(rc).decode()
         raise RuntimeError(f"chained-dot kernel launch failed ({variant}, "
                            f"{rows}x{n}x{cols}): {msg}")
-    chained_dot.launches += 1
+    count_launch(chained_dot, variant)
     return out
 
 
 chained_dot.launches = 0
+chained_dot.instance_launches = {}  # {(variant,): launches}
 
 
 def stacked(a: torch.Tensor, reps: int) -> torch.Tensor:

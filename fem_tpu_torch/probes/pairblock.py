@@ -41,6 +41,7 @@ import torch
 
 from fem_tpu_torch.ops.blocked_kernels import block_tables
 from fem_tpu_torch.ops.blocking import Blocking, pad_blocking
+from fem_tpu_torch.ops.element_kernels import count_launch
 from fem_tpu_torch.utils import cuda_build
 
 _P = ctypes.c_void_p
@@ -126,11 +127,12 @@ def paired_matvec(blk: Blocking, kplane: torch.Tensor, xbt: torch.Tensor,
     if rc != 0:
         msg = lib.fem_paired_matvec_error(rc).decode()
         raise RuntimeError(f"paired-block matvec kernel launch failed: {msg}")
-    paired_matvec.launches += 1
+    count_launch(paired_matvec, pair)
     return out
 
 
 paired_matvec.launches = 0
+paired_matvec.instance_launches = {}  # {(pair,): launches}
 
 
 def padded_inputs(blk: Blocking, kplane, pos, pair: int):
