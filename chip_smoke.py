@@ -13,7 +13,10 @@ and autodiff method at ``delta_time = 1e-4`` (D-G) — on the 2D scenes
 Rayleigh β, SDF obstacles, block-Jacobi and the exact Hessian (W-Z′) and
 the fused advection (AD) — and the unblocked whole frame, the ``"mxu"``
 operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), and holds
-every CUDA kernel of those paths against its plain PyTorch version:
+every CUDA kernel of those paths against its plain PyTorch version.  K5
+runs as its cluster variant on every path (each mesh there fits one
+thread-block cluster; ``counts()`` fails the run otherwise), and section 48
+holds both of its variants:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: every kernel from ``fem_tpu_torch/csrc/`` with nvcc for sm_90a,
@@ -27,7 +30,8 @@ every CUDA kernel of those paths against its plain PyTorch version:
 5. K2, the blocked prep, and K3, the blocked operator (both transposes),
    against their plain versions (K block-relative ≤ 1e-5, partials and
    G(K)·x within 1e-5 of their largest entry), each twice bit-identical;
-6. K5, the whole frame, against ``fused_blocked_frame_plain`` on the card,
+6. K5, the whole frame (its automatic plan: one cluster of 16 CTAs on the
+   flagship), against ``fused_blocked_frame_plain`` on the card,
    ``preconditioned`` 0 and 1, with and without velocity noise: positions
    within 1e-5, iterations within 1 per substep, two runs bit-identical;
 7. K6, the gradient columns (block-relative ≤ 1e-5), K7b, the blocked
@@ -184,8 +188,9 @@ every CUDA kernel of those paths against its plain PyTorch version:
     sparse product (library yardstick), printed as one ``kernels`` JSON
     line with a row per kernel and dimension, the inelastic instances of K5
     and K8 rows of their own, and a row per material and robust instance
-    (with ``material`` and ``robust`` keys).  The build's lines give each
-    library's seconds and the registers and spills of every instance.
+    (with ``material`` and ``robust`` keys); K5's rows name the variant,
+    its CTAs, threads a CTA and barriers a frame.  The build's lines give
+    each library's seconds and the registers and spills of every instance.
 42. K11a, the edge-matrix CG (``experiments/edge_cg.py``), against its
     plain version (the dense S products) on the flagship deformed (S of
     12,204 × 1,007, 49 MB) and ``default.json`` squeezed, ``preconditioned``
@@ -215,7 +220,14 @@ every CUDA kernel of those paths against its plain PyTorch version:
 47. their times: each kernel's device ms (profiler), plain ms (CUDA
     events), bound and ``library_ms`` (P1: ``torch.sparse.mm``, as K3; P2:
     one ``torch.matmul`` in bf16 or ``torch._int_mm`` over the stacked
-    rotations; none for K11a and K11b), rows of the kernels line.
+    rotations; none for K11a and K11b), rows of the kernels line;
+48. K5's variants: the automatic plan, the grid variant (one CTA a block)
+    and clusters of 1, 3 and 16 CTAs, on the flagship, ``default.json``
+    squeezed and the 40-subdivision grid squeezed, each against
+    ``fused_blocked_frame_plain`` (positions within 1e-5, iterations within
+    1 in short solves, twice bit-identical; a cluster whose state exceeds a
+    CTA's shared memory raises), with its device ms and barriers a frame,
+    printed as one ``k5_variants`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -506,6 +518,28 @@ def bound(nbytes_, ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def k5_kernel_name():
+    """The profiler's name of K5's last launch: the cluster or the grid
+    variant's kernel."""
+    from fem_tpu_torch.ops import frame_kernels as fk
+
+    plan = fk.fused_blocked_frame.last_plan
+    return ("cluster_frame_kernel" if plan.variant == "cluster"
+            else "blocked_frame_kernel")
+
+
+def k5_plan_keys(iterations, normal=True):
+    """The kernels line's keys of K5's last launch: its variant, CTAs,
+    threads a CTA and barriers in a frame whose substeps took
+    ``iterations``."""
+    from fem_tpu_torch.ops import frame_kernels as fk
+
+    plan = fk.fused_blocked_frame.last_plan
+    return dict(variant=plan.variant, ctas=plan.size, threads=plan.threads,
+                barriers_per_frame=fk.frame_barriers(plan.variant, normal,
+                                                     iterations))
+
+
 def graph_matrix(torch, element_indices, K, n):
     """G(K) as a (dN × dN) CSR matrix: per element, +K_e on (v_j, v_j) and
     −K_e on (v_j, v_0) and (v_0, v_j) for j = 1..d, +d·K_e on (v_0, v_0)
@@ -633,16 +667,18 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
                obstacles.centers, obstacles.radii)
     k5_out = fk.fused_blocked_frame(*k5_args, preconditioned=True, **frame_kw)
     k5_iters = k5_out[3].tolist()
+    k5_keys = k5_plan_keys(k5_iters)
     put("blocked_frame",
         lambda: fk.fused_blocked_frame(*k5_args, preconditioned=True,
                                        **frame_kw),
         lambda: fk.fused_blocked_frame_plain(*k5_args, preconditioned=True,
                                              **frame_kw),
-        3, FRAMES, ["blocked_frame_kernel"],
+        3, FRAMES, [k5_kernel_name()],
         nbytes(blk.ref_inv, blk.volume, *tables, *plan, obj.mass,
                obstacles.centers, obstacles.radii, state.pos, state.vel,
                state.vel_g, *k5_out),
-        frame_ops(e, n, slot_rows, k5_iters, True, d), iterations=k5_iters)
+        frame_ops(e, n, slot_rows, k5_iters, True, d), iterations=k5_iters,
+        **k5_keys)
 
     G = ek.explicit_grad_columns(*k1_args)
     put("grad_columns", lambda: ek.explicit_grad_columns(*k1_args),
@@ -1623,6 +1659,8 @@ def time_inelastic_kernels(torch, d, timing):
             obs.radii)
     k5_out = fk.fused_blocked_frame(*args, **kw, **ikw)
     iters = k5_out[3].tolist()
+    k5_keys = k5_plan_keys(iters)
+    k5_name = k5_kernel_name()
     more_ops, more_bytes = inelastic_extra(obj, state, kw["sim_count"], True)
     tables = (blk.block_particles, blk.plus, blk.minus, blk.block_elements,
               blk.local_ptr, blk.local_rows)
@@ -1631,12 +1669,12 @@ def time_inelastic_kernels(torch, d, timing):
     put("blocked_frame_inelastic", lambda: fk.fused_blocked_frame(
             *args, **kw, **ikw),
         lambda: fk.fused_blocked_frame_plain(*args, **kw, **ikw), 2, FRAMES_N,
-        "blocked_frame_kernel",
+        k5_name,
         nbytes(blk.ref_inv, blk.volume, *tables, *plan, obj.mass,
                obs.centers, obs.radii, state.pos, state.vel, state.vel_g,
                *k5_out[:5]) + more_bytes,
         frame_ops(obj.element_cnt, obj.particle_cnt, slot_rows, iters, True,
-                  d) + more_ops, iterations=iters)
+                  d) + more_ops, iterations=iters, **k5_keys)
 
     obj, state, obs, kw = timing["k8"]
     blk = obj.blocking
@@ -2287,8 +2325,10 @@ def time_material_kernels(torch, d, timing, keys):
                                                    s.viscous_inv))
                 moved += 2 * n_st * 4 * d * d * o.element_cnt \
                     + ob.element_perm.numel() * 4
+            plan_keys = {}
             if kernel == "K5":
                 iters = res[3].tolist()
+                plan_keys = k5_plan_keys(iters)
                 ops = frame_ops(o.element_cnt, o.particle_cnt,
                                 ob.slot_plan.rows.numel(), iters, True, d,
                                 chain=chain)
@@ -2305,13 +2345,15 @@ def time_material_kernels(torch, d, timing, keys):
             call = (lambda fn=fn, fargs=fargs, kw=kw: fn(*fargs, **kw),
                     lambda plain=plain, fargs=fargs, kw=kw: plain(*fargs,
                                                                   **kw),
-                    1, 10, f"{'blocked' if kernel == 'K5' else 'explicit'}"
-                    "_frame_kernel", moved, ops)
+                    1, 10, k5_kernel_name() if kernel == "K5"
+                    else "explicit_frame_kernel", moved, ops)
+        plan_keys = plan_keys if counter == "blocked_frame" else {}
         kernel, plain_fn, plain_reps, reps, kname, moved, ops = call
         bnd, by = bound(moved, ops)
         out[key] = dict(ms=kernel_ms(torch, kernel, reps, [kname]),
                         plain_ms=cuda_ms(torch, plain_fn, plain_reps),
-                        bound_ms=bnd, bound_by=by, library_ms=None)
+                        bound_ms=bnd, bound_by=by, library_ms=None,
+                        **plan_keys)
     return out
 
 
@@ -3234,6 +3276,68 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
     return rows, time.perf_counter() - t_start
 
 
+# -- K5's variants (section 48) ---------------------------------------------
+
+K5_CLUSTERS = (1, 3, 16)  # forced cluster sizes of section 48
+
+
+def run_k5_variants(torch, card, cases):
+    """Section 48: K5 in each variant — the automatic plan, the grid variant
+    (one CTA a block) and clusters of K5_CLUSTERS CTAs — against
+    ``fused_blocked_frame_plain`` on the card for each of ``cases`` (label,
+    body, state, obstacles, frame kwargs): positions within 1e-5, iterations
+    within 1 per substep where the plain solves stay at 20 or fewer, two
+    runs bit-identical, a cluster too large for a CTA's shared memory
+    raising; each variant's device ms a frame (profiler) and barriers a
+    frame.  Returns the rows of the ``k5_variants`` line."""
+    from fem_tpu_torch.ops import frame_kernels as fk
+
+    rows = []
+    for label, obj, state, obs, kw in cases:
+        blk = obj.blocking
+        args = (blk, state.pos, state.vel, state.vel_g, obj.mass, obs.centers,
+                obs.radii)
+        ref = fk.fused_blocked_frame_plain(*args, preconditioned=True, **kw)
+        itp = ref[3].tolist()
+        limits = fk.device_limits(0, obj.dim)
+        variants = [("auto", {}), ("grid", dict(grid=blk.num_blocks))] + [
+            (f"cluster {c}", dict(cluster=c)) for c in K5_CLUSTERS]
+        for name, launch in variants:
+            def go(launch=launch):
+                return fk.fused_blocked_frame(*args, preconditioned=True,
+                                              **kw, **launch)
+            if "cluster" in launch and fk.cluster_smem(
+                    blk.num_blocks, blk.eb, blk.pb, obj.particle_cnt,
+                    obj.dim, launch["cluster"]) > limits.smem_optin:
+                try:
+                    go()
+                except RuntimeError as exc:
+                    log(f"[K5 variants] {label}, {name}: raised as it must "
+                        f"(its state exceeds a CTA's shared memory): {exc}")
+                    continue
+                require(False, f"K5 {label}, {name} did not raise")
+            out, again = go(), go()
+            torch.cuda.synchronize()
+            plan = fk.fused_blocked_frame.last_plan
+            it = out[3].tolist()
+            err = float((out[0] - ref[0]).abs().max())
+            require(err <= 1e-5, f"K5 {label}, {name}: positions off by {err}")
+            if max(itp) <= 20:
+                require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                        f"K5 {label}, {name}: iterations {it}, plain {itp}")
+            require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(out, again)),
+                    f"K5 {label}, {name}: runs differ")
+            ms = kernel_ms(torch, go, 20, [k5_kernel_name()])
+            keys = k5_plan_keys(it)
+            log(f"[K5 variants] {label}, {name}: {keys}; {ms:.5f} ms a frame "
+                f"(profiler); iterations {it} (plain {itp}); max |dpos| "
+                f"{err:.3e}; twice bit-identical; card {card}")
+            rows.append(dict(scene=label, launch=name, ms=ms,
+                             max_abs_err=err, iterations=sum(it), **keys))
+    return rows
+
+
 def main():
     import torch
 
@@ -3289,8 +3393,17 @@ def main():
             fn.launches = 0
             if hasattr(fn, "instance_launches"):
                 fn.instance_launches = {}
+        frame_kernels.fused_blocked_frame.variant_launches = {}
 
     def counts():
+        """The launch counts since the last zero_counts(); K5's launches on a
+        path are all of the cluster variant (each mesh of the paths fits one
+        cluster), logged by (variant, CTAs)."""
+        k5 = frame_kernels.fused_blocked_frame.variant_launches
+        if k5:
+            log(f"[K5 variant] launches by (variant, CTAs): {k5}")
+            require(all(v == "cluster" for v, _ in k5),
+                    f"K5 ran the grid variant on a path: {k5}")
         return {k: fn.launches for k, fn in counters.items()}
 
     def instances():
@@ -3778,10 +3891,15 @@ def main():
     lblk = lobj.blocking
     largs = (lblk, lstate.pos, lstate.vel)
     lcirc = (lobj.mass, lobs.centers, lobs.radii)
-    for name, kernel, key in (
-        ("blocked_frame", lambda: frame_kernels.fused_blocked_frame(
+    def k5_l():
+        return frame_kernels.fused_blocked_frame(
             *largs, lstate.vel_g, *lcirc, preconditioned=True,
-            **two["l_kw"]["implicit"]), "blocked_frame_kernel"),
+            **two["l_kw"]["implicit"])
+
+    l_keys = k5_plan_keys(k5_l()[3].tolist())
+    times2["blocked_frame"]["plan_40_subdivisions"] = l_keys
+    for name, kernel, key in (
+        ("blocked_frame", k5_l, k5_kernel_name()),
         ("explicit_frame", lambda: frame_kernels.fused_explicit_frame(
             *largs, *lcirc, **two["l_kw"]["explicit"]),
          "explicit_frame_kernel"),
@@ -3789,8 +3907,8 @@ def main():
         ms = kernel_ms(torch, kernel, FRAMES_L, [key])
         times2[name]["ms_40_subdivisions"] = ms
         log(f"[time] 2D {name} at 40 subdivisions ({lblk.num_blocks} "
-            f"blocks): {ms:.5f} ms a frame on the device (profiler); card "
-            f"{card}")
+            f"blocks): {ms:.5f} ms a frame on the device (profiler); "
+            f"{l_keys if name == 'blocked_frame' else ''} card {card}")
 
     for d, times, launches, errors in ((3, times3, launches3, errors3),
                                        (2, times2, two["launches"],
@@ -3825,6 +3943,18 @@ def main():
                                          only, card)
     kernels.extend(last_rows)
     log(f"[last kernels] sections 42-47 in {last_s:.1f} s")
+
+    # -- 48. K5's variants against the plain frame ---------------------------
+    t_var = time.perf_counter()
+    gen_l = torch.Generator().manual_seed(4)
+    variant_rows = run_k5_variants(torch, card, (
+        ("flagship", obj, state, obstacles, frame_kw),
+        ("default.json", two["obj"], two["state"], two["obstacles"],
+         two["frame_kw"]),
+        ("40 subdivisions", lobj, squeezed_2d(torch, lstate, gen_l), lobs,
+         two["l_kw"]["implicit"])))
+    log(json.dumps({"k5_variants": variant_rows}))
+    log(f"[K5 variants] section 48 in {time.perf_counter() - t_var:.1f} s")
     log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -4,8 +4,9 @@
 ``fused_blocked_frame`` (K5: implicit-CG substeps) and
 ``fused_explicit_frame`` (K8: explicit substeps, also for autodiff configs)
 launch ``fem_tpu_torch/csrc/blocked_frame.cu`` and
-``fem_tpu_torch/csrc/explicit_frame.cu`` cooperatively for tensors on a
-CUDA device; they replace the JAX package's Pallas kernels
+``fem_tpu_torch/csrc/explicit_frame.cu`` for tensors on a CUDA device (K5
+as one thread-block cluster, or as a cooperative grid when the frame's
+state does not fit one cluster: :func:`frame_plan`; K8 cooperatively); they replace the JAX package's Pallas kernels
 ``ops/pallas_blocked_frame.py:_frame_kernel`` (entry ``fused_blocked_frame``)
 and ``_explicit_frame_kernel`` (entry ``fused_explicit_frame``), for every
 material of ``ops/element.py`` (K5 also ``robust``), with their plastic and
@@ -19,6 +20,18 @@ substep the plain blocked gradient prep, the slot sum and the plain
 kinematic step.  On CUDA each launches its kernel or raises — also when the
 grid cannot be co-resident, since a grid barrier in a grid that is not
 would hang.
+
+K5's two variants.  :func:`frame_plan` chooses, from the sizes alone and
+the device's limits (:class:`FrameLimits`), the **cluster** variant when
+the frame's state fits the shared memory of one cluster of at most
+``max_cluster`` CTAs (the H100's 16), and the **grid** variant otherwise;
+``cluster=`` or ``grid=`` on :func:`fused_blocked_frame` forces one (tests
+and ``chip_smoke.py``; the config schema has neither).  A plan the device
+cannot run raises: a cluster that cannot be scheduled never retries as the
+grid kernel or the plain version.  :func:`cluster_assignment` gives each
+cluster rank its blocks (b ≡ rank mod C) and its local particles (those
+its blocks touch, each particle owned by exactly one rank), once per
+blocking and cluster size, on the host.
 
 Inelastic materials (ops/inelastic.py): ``plastic_inv`` (F_p⁻¹, when
 ``plastic_yield`` > 0) and ``viscous_inv`` (F_v⁻¹, when ``viscous_mu`` > 0)
@@ -35,8 +48,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from fem_tpu_torch.models.state import Obstacles, SimState
@@ -100,7 +114,11 @@ class FrameArgsC(ctypes.Structure):
         ("mat", MaterialParamsC), ("tol", _F),
         ("pos", _P), ("vel", _P), ("velg", _P), ("scratch", _P),
         ("iters", _P), ("res", _P),
-    ] + _INELASTIC_FIELDS
+    ] + _INELASTIC_FIELDS + [
+        ("cl_local_ptr", _P), ("cl_local_ids", _P), ("cl_owned", _P),
+        ("cl_block_local", _P), ("cl_slot_ptr", _P), ("cl_slot_code", _P),
+        ("cl_cap", _I),
+    ]
 
 
 def _gravity3(g_dir, d):
@@ -226,6 +244,16 @@ def _library(material_id: int):
         lib.fem_blocked_frame.restype = _I
         lib.fem_blocked_frame_error.argtypes = [_I]
         lib.fem_blocked_frame_error.restype = ctypes.c_char_p
+        lib.fem_blocked_frame_limits.argtypes = [_I, _I, _I, out, out, out]
+        lib.fem_blocked_frame_limits.restype = _I
+        lib.fem_blocked_frame_cluster_smem.argtypes = [_I] * 7
+        lib.fem_blocked_frame_cluster_smem.restype = ctypes.c_longlong
+        lib.fem_blocked_frame_cluster_fit.argtypes = [_I] * 6 + [out]
+        lib.fem_blocked_frame_cluster_fit.restype = _I
+        lib.fem_blocked_frame_cluster.argtypes = [
+            ctypes.POINTER(FrameArgsC), _I, _I, _I, _P,
+        ]
+        lib.fem_blocked_frame_cluster.restype = _I
     return lib
 
 
@@ -246,18 +274,284 @@ def _plan(lib, plan_fn, error_fn, what, device_index, num_blocks, eb, pb,
     return g.value, smem.value
 
 
+class FrameLimits(NamedTuple):
+    """What K5's plan needs of a device: the most CTAs one cluster of the
+    kernel can have, the most dynamic shared memory a CTA of it can take
+    (bytes: the opt-in limit less its 144 B of static shared memory) and
+    the SMs."""
+
+    max_cluster: int
+    smem_optin: int
+    sms: int
+
+
+# An H100 SXM (sm_90): clusters of up to 16 CTAs with the non-portable size
+# allowed, 227 KB (232,448 B) of shared memory a CTA less K5's static 144 B,
+# 132 SMs.  The wrapper reads the device's own (device_limits); this is for
+# planning without a card.
+H100_LIMITS = FrameLimits(max_cluster=16, smem_optin=232304, sms=132)
+
+
+class FramePlan(NamedTuple):
+    """K5's launch: ``variant`` "cluster" (one cluster of ``size`` CTAs) or
+    "grid" (a cooperative grid of ``size`` CTAs), with ``smem`` bytes of
+    dynamic shared memory and ``threads`` threads a CTA."""
+
+    variant: str
+    size: int
+    smem: int
+    threads: int = 256
+
+
+# Threads of a CTA's group (csrc/blocked_frame.cu: kThreads); a cluster CTA
+# has one group per block it owns, at most two.
+GROUP_THREADS = 256
+MAX_GROUPS = 2
+
+
+_F32 = 4
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grid_smem(num_blocks: int, eb: int, pb: int, dim: int, grid: int) -> int:
+    """Bytes of dynamic shared memory of the grid variant's CTA: its
+    blocks' K and one block's working set (csrc/blocked_frame.cu:
+    frame_smem)."""
+    bpc = _ceil_div(num_blocks, grid)
+    return _F32 * (dim * dim * bpc * eb + dim * pb + (dim + 1) * dim * eb)
+
+
+def cluster_capacity(num_blocks: int, pb: int, n: int, cluster: int,
+                     n_free: int = 0) -> int:
+    """Rows of each local vector of a cluster rank: the particles its
+    ⌈B/C⌉ blocks can touch, plus the particles in no block (``n_free``),
+    at most ``n``."""
+    return min(n, _ceil_div(num_blocks, cluster) * pb + n_free)
+
+
+def cluster_groups(num_blocks: int, cluster: int) -> int:
+    """Thread groups of a cluster CTA: one per block it owns, at most
+    ``MAX_GROUPS`` (the groups then take the blocks in rounds)."""
+    return min(_ceil_div(num_blocks, cluster), MAX_GROUPS)
+
+
+def cluster_smem(num_blocks: int, eb: int, pb: int, n: int, dim: int,
+                 cluster: int, n_free: int = 0) -> int:
+    """Bytes of dynamic shared memory of the cluster variant's CTA: its
+    blocks' K, one block's working set per thread group, three copies of
+    its slot partials, seven local vectors of d floats and 1/m, then its
+    blocks' tables (plus, minus, the local plan, the slots' local
+    indices), the local particles' ids and slot lists
+    (csrc/blocked_frame.cu: cluster_smem_words)."""
+    bpc = _ceil_div(num_blocks, cluster)
+    cap = cluster_capacity(num_blocks, pb, n, cluster, n_free)
+    groups = cluster_groups(num_blocks, cluster)
+    return _F32 * (dim * dim * bpc * eb
+                   + groups * (dim * pb + (dim + 1) * dim * eb)
+                   + 3 * bpc * pb * dim + cap * (7 * dim + 1)
+                   + bpc * ((3 * dim + 1) * eb + 2 * pb + 1)
+                   + 2 * cap + 1 + num_blocks * pb)
+
+
+def _cluster_plan(num_blocks, eb, pb, n, dim, cluster, n_free):
+    return FramePlan("cluster", cluster,
+                     cluster_smem(num_blocks, eb, pb, n, dim, cluster, n_free),
+                     GROUP_THREADS * cluster_groups(num_blocks, cluster))
+
+
+def frame_plan(num_blocks: int, eb: int, pb: int, n: int, dim: int,
+               limits: FrameLimits, grid: int = 0, cluster: int = 0,
+               n_free: int = 0) -> FramePlan:
+    """K5's variant, its CTAs and their shared memory, from the sizes and
+    the device's ``limits`` alone.
+
+    Forced: ``grid`` > 0 gives the grid variant of that many CTAs,
+    ``cluster`` > 0 the cluster variant of that many (checked on the device
+    at launch).  Otherwise the cluster variant with one CTA per block, at
+    most ``max_cluster`` (17 blocks: 16 CTAs, one of them with two blocks
+    and two thread groups), when a CTA's state fits ``smem_optin``; else
+    the grid variant, one CTA per block and at most one per SM.  (A CTA's
+    phases take the longer the more blocks and particles it holds, so the
+    most CTAs are the fastest; ``tools/torch_k5_sweep.py`` times the
+    flagship at 6 to 16.)"""
+    if grid < 0 or cluster < 0:
+        raise ValueError(f"grid {grid} and cluster {cluster} must be >= 0")
+    if grid and cluster:
+        raise ValueError("give grid or cluster, not both")
+    if num_blocks < 1 or dim not in (2, 3):
+        raise ValueError(f"no frame of {num_blocks} blocks in {dim}D")
+    if grid:
+        return FramePlan("grid", grid, grid_smem(num_blocks, eb, pb, dim,
+                                                 grid))
+    if cluster:
+        return _cluster_plan(num_blocks, eb, pb, n, dim, cluster, n_free)
+    plan = _cluster_plan(num_blocks, eb, pb, n, dim,
+                         min(num_blocks, limits.max_cluster), n_free)
+    if plan.smem <= limits.smem_optin:
+        return plan
+    size = min(num_blocks, limits.sms)
+    return FramePlan("grid", size, grid_smem(num_blocks, eb, pb, dim, size))
+
+
+def frame_barriers(variant: str, normal: bool, iterations) -> int:
+    """Barriers of one K5 frame whose substeps took ``iterations``: per
+    substep and per CG iteration, as counted in csrc/blocked_frame.cu, plus
+    one a frame (the grid variant's after the copy-in, the cluster
+    variant's before exit)."""
+    per_step, per_it = {("grid", True): (8, 6), ("grid", False): (5, 4),
+                        ("cluster", True): (4, 4),
+                        ("cluster", False): (3, 3)}[(variant, bool(normal))]
+    return sum(per_step + per_it * int(it) for it in iterations) + 1
+
+
+class ClusterAssignment(NamedTuple):
+    """Blocks and particles of a cluster of ``C`` CTAs (numpy int32).
+
+    Rank r owns blocks b ≡ r (mod C).  Its local particles are
+    ``local_ids[local_ptr[r]:local_ptr[r+1]]``: first the ``owned[r]`` it
+    owns (ascending), then the others its blocks touch (ascending).  A
+    particle is owned by the rank of the block of its first slot; one in no
+    block by rank (its index among those, mod C).  ``block_local[b·Pb+p]``
+    is the local index, in block b's rank, of slot p's particle (0 for a
+    padded slot).  Local particle i (flat over the ranks) has its block
+    slots, ascending, in ``slot_code[slot_ptr[i]:slot_ptr[i+1]]``, each as
+    rank·65536 + (b // C)·Pb + p: where its partial sits in the rank that
+    owns block b."""
+
+    local_ptr: np.ndarray
+    local_ids: np.ndarray
+    owned: np.ndarray
+    block_local: np.ndarray
+    slot_ptr: np.ndarray
+    slot_code: np.ndarray
+
+
+def cluster_assignment(block_particles, slot_ptr, slot_rows, n: int,
+                       cluster: int) -> ClusterAssignment:
+    """The assignment of a blocking's blocks and particles to ``cluster``
+    ranks (host, numpy): ``block_particles`` (B, Pb) and the CSR slot plan
+    (``slot_ptr`` (N+1,), ``slot_rows``, flat slots b·Pb+p) of
+    :class:`~fem_tpu_torch.ops.blocking.Blocking`."""
+    bp = np.asarray(block_particles, np.int64)
+    ptr = np.asarray(slot_ptr, np.int64)
+    rows = np.asarray(slot_rows, np.int64)
+    b_cnt, pb = bp.shape
+    real = np.zeros(b_cnt * pb, bool)
+    real[rows] = True
+    real = real.reshape(b_cnt, pb)
+    counts = np.diff(ptr)
+    owner = np.empty(n, np.int64)
+    has = counts > 0
+    owner[has] = (rows[ptr[:-1][has]] // pb) % cluster
+    free = np.nonzero(~has)[0]
+    owner[free] = np.arange(free.size) % cluster
+    local_ptr, local_ids, owned = [0], [], []
+    block_local = np.zeros((b_cnt, pb), np.int32)
+    lookup = np.full(n, -1, np.int64)
+    for r in range(cluster):
+        blocks = np.arange(r, b_cnt, cluster)
+        mine = np.nonzero(owner == r)[0]
+        touched = np.unique(bp[blocks][real[blocks]])
+        local = np.concatenate([mine, np.setdiff1d(touched, mine)])
+        lookup[local] = np.arange(local.size)
+        for b in blocks:
+            block_local[b] = np.where(real[b], lookup[bp[b]], 0)
+        lookup[local] = -1
+        local_ids.append(local)
+        owned.append(mine.size)
+        local_ptr.append(local_ptr[-1] + local.size)
+    if _ceil_div(b_cnt, cluster) * pb > 65536 or cluster > 32767:
+        raise ValueError("a rank's slots exceed the 16-bit slot index")
+    ids = np.concatenate(local_ids)
+    counts_l = counts[ids]
+    slot_ptr = np.concatenate([[0], np.cumsum(counts_l)])
+    # Entry k of local particle i is slot plan entry ptr[ids[i]] + k.
+    within = np.arange(slot_ptr[-1]) - np.repeat(slot_ptr[:-1], counts_l)
+    slots = rows[np.repeat(ptr[ids], counts_l) + within]
+    blocks = slots // pb
+    code = (blocks % cluster) * 65536 + (blocks // cluster) * pb + slots % pb
+    return ClusterAssignment(
+        local_ptr=np.asarray(local_ptr, np.int32),
+        local_ids=ids.astype(np.int32),
+        owned=np.asarray(owned, np.int32),
+        block_local=block_local.reshape(-1),
+        slot_ptr=slot_ptr.astype(np.int32),
+        slot_code=code.astype(np.int32))
+
+
 @functools.lru_cache(maxsize=64)
-def frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-               grid: int, dim: int, material_id: int = 0,
-               inelastic: bool = False):
-    """(grid, dynamic shared bytes) of K5's cooperative launch of the
-    instance (``dim``, ``material_id``, elastic or inelastic): ``grid``
-    CTAs, or with 0 one per locality block and at most one per SM.  Raises
-    when the grid cannot be co-resident or its K blocks do not fit."""
+def device_limits(device_index: int, dim: int, material_id: int = 0,
+                  inelastic: bool = False) -> FrameLimits:
+    """The :class:`FrameLimits` of CUDA device ``device_index`` for K5's
+    cluster instance (``dim``, ``material_id``, elastic or inelastic)."""
     lib = _library(material_id)
-    return _plan(lib, lib.fem_blocked_frame_plan, lib.fem_blocked_frame_error,
-                 "whole-frame kernel", device_index, num_blocks, eb, pb, grid,
-                 dim, material_id, inelastic)
+    mc, optin, sms = _I(0), _I(0), _I(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_blocked_frame_limits(dim, material_id, int(inelastic),
+                                          ctypes.byref(mc),
+                                          ctypes.byref(optin),
+                                          ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError("whole-frame kernel: reading the device's limits "
+                           f"failed: {lib.fem_blocked_frame_error(rc).decode()}")
+    return FrameLimits(mc.value, optin.value, sms.value)
+
+
+# id(blocking) → (blocking, its particles in no block, {C: its assignment's
+# device tensors}); the blocking is held so that its id is not reused.
+_CLUSTER_CACHE: dict = {}
+
+
+def _cluster_entry(blk: Blocking, n: int):
+    hit = _CLUSTER_CACHE.get(id(blk))
+    if hit is None or hit[0] is not blk:
+        counts = torch.diff(blk.slot_plan.ptr.cpu())[:n]
+        hit = (blk, int((counts == 0).sum()), {})
+        if len(_CLUSTER_CACHE) >= 32:
+            _CLUSTER_CACHE.pop(next(iter(_CLUSTER_CACHE)))
+        _CLUSTER_CACHE[id(blk)] = hit
+    return hit
+
+
+def cluster_tables(blk: Blocking, n: int, cluster: int):
+    """The fields of :func:`cluster_assignment` for ``blk`` as int32
+    tensors on its device,
+    computed on the host once per blocking and cluster size."""
+    _, _, by_size = _cluster_entry(blk, n)
+    if cluster not in by_size:
+        asg = cluster_assignment(blk.block_particles.cpu().numpy(),
+                                 blk.slot_plan.ptr.cpu().numpy(),
+                                 blk.slot_plan.rows.cpu().numpy(), n, cluster)
+        by_size[cluster] = tuple(torch.as_tensor(a, device=blk.volume.device)
+                                 for a in asg)
+    return by_size[cluster]
+
+
+def _check_cluster(lib, plan: FramePlan, blk: Blocking, n: int, d: int,
+                   n_free: int, mid: int, inelastic: bool, device_index: int):
+    """Raise unless the device can run ``plan`` (cluster variant)."""
+    cap = cluster_capacity(blk.num_blocks, blk.pb, n, plan.size, n_free)
+    want = lib.fem_blocked_frame_cluster_smem(blk.num_blocks, blk.eb, blk.pb,
+                                              cap, plan.size, d, plan.threads)
+    if want != plan.smem:
+        raise RuntimeError(f"whole-frame kernel: the plan's {plan.smem} B of "
+                           f"shared memory differ from the kernel's {want}")
+    most = _I(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_blocked_frame_cluster_fit(plan.size, plan.threads,
+                                               plan.smem, d, mid,
+                                               int(inelastic),
+                                               ctypes.byref(most))
+    if rc != 0:
+        raise RuntimeError(
+            f"whole-frame kernel: {lib.fem_blocked_frame_error(rc).decode()} "
+            f"(one cluster of {plan.size} CTAs of {plan.threads} threads, "
+            f"{plan.smem} B of shared memory each; {most.value} such "
+            f"clusters fit at once)")
+    return cap
 
 
 def fused_blocked_frame(
@@ -279,6 +573,7 @@ def fused_blocked_frame(
     max_iter: int = 500,
     tol: float = 1e-5,
     grid: int = 0,
+    cluster: int = 0,
     robust: bool = False,
     material: str = "neo_hookean",
     plastic_inv=None,
@@ -292,13 +587,17 @@ def fused_blocked_frame(
     plastic_inv' and viscous_inv' (E, d, d) for the branches that are on —
     the contract of the JAX package's ``fused_blocked_frame``.
 
-    CUDA tensors: one cooperative launch of the whole-frame kernel's
-    instance of ``material`` (robust Neo-Hookean when ``robust``; ``robust``
-    leaves every other material's chain as it is), with its plastic and
-    Maxwell branches when they are on, 2D or 3D, with no host
-    synchronisation; ``grid`` sets its CTAs (0: one per locality block, at
-    most one per SM; the tests set it to walk blocks grid-stride and to ask
-    for a grid that cannot be co-resident).  CPU tensors:
+    CUDA tensors: one launch of the whole-frame kernel's instance of
+    ``material`` (robust Neo-Hookean when ``robust``; ``robust`` leaves
+    every other material's chain as it is), with its plastic and Maxwell
+    branches when they are on, 2D or 3D, with no host synchronisation
+    after the first call on a blocking (which plans the cluster on the
+    host).  The variant is :func:`frame_plan`'s; ``cluster`` forces the
+    cluster variant with that many CTAs, ``grid`` the cooperative grid
+    variant with that many (tests and ``chip_smoke.py`` set them to walk
+    blocks several a CTA and to ask for what cannot be scheduled, which
+    raises).  The launch's plan is left in ``fused_blocked_frame.last_plan``
+    and counted by (variant, size) in ``variant_launches``.  CPU tensors:
     :func:`fused_blocked_frame_plain`."""
     inelastic = dict(plastic_inv=plastic_inv, plastic_yield=plastic_yield,
                      viscous_inv=viscous_inv, viscous_mu=viscous_mu,
@@ -329,13 +628,30 @@ def fused_blocked_frame(
     ):
         cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
     check_slot_plan(blk, n, dev)
-    g, smem = frame_plan(dev.index or 0, blk.num_blocks, blk.eb, blk.pb,
-                         int(grid), d, mid, internal.on)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     lib = _library(mid)
-    scratch = torch.empty(
-        lib.fem_blocked_frame_scratch_floats(n, blk.num_blocks, blk.pb, g, d),
-        dtype=f32, device=dev,
-    )
+    _, n_free, _ = _cluster_entry(blk, n)
+    fplan = frame_plan(blk.num_blocks, blk.eb, blk.pb, n, d,
+                       device_limits(index, d, mid, internal.on), int(grid),
+                       int(cluster), n_free)
+    if fplan.variant == "cluster":
+        cap = _check_cluster(lib, fplan, blk, n, d, n_free, mid,
+                             internal.on, index)
+        cl = cluster_tables(blk, n, fplan.size)
+        cl_fields = [t.data_ptr() for t in cl] + [cap]
+        scratch = None
+    else:
+        g, smem = _plan(lib, lib.fem_blocked_frame_plan,
+                        lib.fem_blocked_frame_error, "whole-frame kernel",
+                        index, blk.num_blocks, blk.eb, blk.pb, fplan.size, d,
+                        mid, internal.on)
+        fplan = FramePlan("grid", g, smem)
+        cl_fields = [None] * len(ClusterAssignment._fields) + [0]
+        scratch = torch.empty(
+            lib.fem_blocked_frame_scratch_floats(n, blk.num_blocks, blk.pb, g,
+                                                 d),
+            dtype=f32, device=dev,
+        )
     out = [torch.empty((n, d), dtype=f32, device=dev) for _ in range(3)]
     iters = torch.empty((sim_count,), dtype=torch.int32, device=dev)
     res = torch.empty((sim_count,), dtype=f32, device=dev)
@@ -350,21 +666,35 @@ def fused_blocked_frame(
         damping_decay(dt, damping), *grav, material_params(material, mu,
                                                            s_lambda, d),
         tol, out[0].data_ptr(),
-        out[1].data_ptr(), out[2].data_ptr(), scratch.data_ptr(),
-        iters.data_ptr(), res.data_ptr(), *tail,
+        out[1].data_ptr(), out[2].data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        iters.data_ptr(), res.data_ptr(), *tail, *cl_fields,
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_blocked_frame(ctypes.byref(args), g, smem, stream)
+        if fplan.variant == "cluster":
+            rc = lib.fem_blocked_frame_cluster(ctypes.byref(args), fplan.size,
+                                               fplan.threads, fplan.smem,
+                                               stream)
+        else:
+            rc = lib.fem_blocked_frame(ctypes.byref(args), fplan.size,
+                                       fplan.smem, stream)
     if rc != 0:
         msg = lib.fem_blocked_frame_error(rc).decode()
-        raise RuntimeError(f"whole-frame kernel launch failed: {msg}")
+        raise RuntimeError(f"whole-frame kernel launch failed ({fplan.variant} "
+                           f"variant, {fplan.size} CTAs): {msg}")
     count_launch(fused_blocked_frame, d, mid, internal.on)
+    fused_blocked_frame.last_plan = fplan
+    key = (fplan.variant, fplan.size)
+    fused_blocked_frame.variant_launches[key] = (
+        fused_blocked_frame.variant_launches.get(key, 0) + 1)
     return (out[0], out[1], out[2], iters, res) + state_out
 
 
 fused_blocked_frame.launches = 0
 fused_blocked_frame.instance_launches = {}
+fused_blocked_frame.variant_launches = {}
+fused_blocked_frame.last_plan = None
 
 
 class ExplicitFrameArgsC(ctypes.Structure):
@@ -429,8 +759,10 @@ def _explicit_library(material_id: int):
 def explicit_frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
                         grid: int, dim: int, material_id: int = 0,
                         inelastic: bool = False):
-    """(grid, dynamic shared bytes) of K8's cooperative launch, as
-    :func:`frame_plan`."""
+    """(grid, dynamic shared bytes) of K8's cooperative launch of the
+    instance (``dim``, ``material_id``, elastic or inelastic): ``grid``
+    CTAs, or with 0 one per locality block and at most one per SM.  Raises
+    when the grid cannot be co-resident or its working set does not fit."""
     lib = _explicit_library(material_id)
     return _plan(lib, lib.fem_explicit_frame_plan,
                  lib.fem_explicit_frame_error, "explicit whole-frame kernel",

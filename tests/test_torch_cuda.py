@@ -216,6 +216,50 @@ def test_fused_cg_kernel_long_solve_matches_float64(stiff_body):
     assert err <= 1e-4 * float(ref.abs().max()), err
 
 
+# K5's launch variants: the automatic plan, the grid variant with one CTA a
+# block and with 3 CTAs walking the blocks, and clusters of 1, 3 and 16 CTAs
+# (ranks past the blocks own none).
+K5_VARIANTS = ["auto", "grid", "grid 3 CTAs", "cluster 1", "cluster 3",
+               "cluster 16"]
+
+
+def _k5_launch(variant, blk):
+    """fused_blocked_frame's launch options of ``variant`` on ``blk``."""
+    if variant == "auto":
+        return {}
+    if variant == "grid":
+        return dict(grid=blk.num_blocks)
+    if variant == "grid 3 CTAs":
+        return dict(grid=3)
+    return dict(cluster=int(variant.split()[1]))
+
+
+def _k5_fits(variant, blk, n):
+    """Whether ``variant``'s cluster fits a CTA's shared memory (a forced
+    cluster that does not must raise)."""
+    launch = _k5_launch(variant, blk)
+    if "cluster" not in launch:
+        return True
+    limits = frame_kernels.device_limits(0, blk.dim)
+    return frame_kernels.cluster_smem(blk.num_blocks, blk.eb, blk.pb, n,
+                                      blk.dim, launch["cluster"]) \
+        <= limits.smem_optin
+
+
+def _check_plan(variant, blk):
+    """The last launch ran the variant asked for (auto: the cluster on the
+    blockings of these tests)."""
+    plan = frame_kernels.fused_blocked_frame.last_plan
+    launch = _k5_launch(variant, blk)
+    if "cluster" in launch:
+        assert (plan.variant, plan.size) == ("cluster", launch["cluster"])
+    elif "grid" in launch:
+        assert (plan.variant, plan.size) == ("grid", launch["grid"])
+    else:
+        assert plan.variant == "cluster"
+        assert plan.size == min(blk.num_blocks, 16)
+
+
 def _reblocked(obj, eb=32, pb=24):
     """``obj`` with small locality blocks, so that the 5×5×5 cube spans
     several blocks with padded element slots."""
@@ -275,12 +319,16 @@ def test_blocked_matvec_kernel_matches_plain_and_repeats(body, transpose_k):
     assert torch.equal(y, y2)
 
 
-@pytest.mark.parametrize("grid", [0, 3])
+@pytest.mark.parametrize("variant", K5_VARIANTS)
 @pytest.mark.parametrize("preconditioned", [False, True])
-def test_frame_kernel_matches_plain_and_repeats(body, preconditioned, grid):
-    """grid 3: fewer CTAs than locality blocks, each walking several."""
+def test_frame_kernel_matches_plain_and_repeats(body, preconditioned,
+                                                variant):
+    """Each variant (module K5_VARIANTS) on the cube in ~30 small blocks:
+    the grid variant and the clusters of 1 and 3 CTAs walk several blocks
+    a CTA."""
     obj, state = body
     obj = _reblocked(obj)
+    launch = _k5_launch(variant, obj.blocking)
     obs = _obstacles("cuda")
     args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
             obs.centers, obs.radii)
@@ -288,21 +336,24 @@ def test_frame_kernel_matches_plain_and_repeats(body, preconditioned, grid):
               mu=obj.mu, s_lambda=obj.s_lambda,
               preconditioned=preconditioned, sim_count=10)
     before = frame_kernels.fused_blocked_frame.launches
-    out = frame_kernels.fused_blocked_frame(*args, grid=grid, **kw)
+    out = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     assert frame_kernels.fused_blocked_frame.launches == before + 1
+    _check_plan(variant, obj.blocking)
     ref = frame_kernels.fused_blocked_frame_plain(*args, **kw)
     it, ref_it = out[3].cpu().numpy(), ref[3].cpu().numpy()
     assert ref_it.max() <= 20 and it.max() > 1, ref_it
     assert np.all(np.abs(it - ref_it) <= 1), (it, ref_it)
     assert float((out[0] - ref[0]).abs().max()) <= 1e-5
-    again = frame_kernels.fused_blocked_frame(*args, grid=grid, **kw)
+    again = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
-def test_frame_kernel_long_solve_matches_float64(stiff_body):
+@pytest.mark.parametrize("variant", K5_VARIANTS)
+def test_frame_kernel_long_solve_matches_float64(stiff_body, variant):
     """About 140 normal-equations iterations a solve: the kernel's
     velocity lands within 1e-4 (of the largest entry) of the plain frame in
-    f64 on the CPU.  Iteration counts are left out (module docstring)."""
+    f64 on the CPU, in each variant.  Iteration counts are left out (module
+    docstring)."""
     obj, state = stiff_body
     obj = _reblocked(obj)
     kw = dict(dt=5e-4, damping=obj.damping, g_dir=(0.0, -1.0, 0.0),
@@ -311,7 +362,8 @@ def test_frame_kernel_long_solve_matches_float64(stiff_body):
     obs = _obstacles("cuda")
     out = frame_kernels.fused_blocked_frame(
         obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
-        obs.centers, obs.radii, **kw)
+        obs.centers, obs.radii, **_k5_launch(variant, obj.blocking), **kw)
+    _check_plan(variant, obj.blocking)
     assert 100 < int(out[3][0]) < 500 and float(out[4][0]) <= TOL
     cpu_blk = blocking.build_blocking(
         *[t.cpu().numpy() for t in (obj.element_indices, obj.ref_inv,
@@ -342,6 +394,32 @@ def test_frame_kernel_raises_when_the_grid_cannot_be_co_resident(body):
     assert frame_kernels.fused_blocked_frame.launches == before
     # The card still runs the kernel afterwards.
     out = frame_kernels.fused_blocked_frame(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0]).all()
+
+
+@pytest.mark.parametrize("cluster", [17, 32])
+def test_frame_kernel_raises_when_the_cluster_cannot_be_scheduled(body,
+                                                                  cluster):
+    """A cluster above the device's 16 CTAs raises before any launch; it is
+    never retried as the grid variant or the plain version."""
+    obj, state = body
+    obj = _reblocked(obj)
+    assert obj.blocking.num_blocks >= cluster
+    obs = _obstacles("cuda")
+    args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
+            obs.centers, obs.radii)
+    kw = dict(dt=5e-4, damping=obj.damping, g_dir=(0.0, -1.0, 0.0),
+              mu=obj.mu, s_lambda=obj.s_lambda, preconditioned=True,
+              sim_count=1)
+    assert frame_kernels.device_limits(0, 3).max_cluster < cluster
+    before = frame_kernels.fused_blocked_frame.launches
+    variants = dict(frame_kernels.fused_blocked_frame.variant_launches)
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        frame_kernels.fused_blocked_frame(*args, cluster=cluster, **kw)
+    assert frame_kernels.fused_blocked_frame.launches == before
+    assert frame_kernels.fused_blocked_frame.variant_launches == variants
+    out = frame_kernels.fused_blocked_frame(*args, cluster=16, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(out[0]).all()
 
@@ -719,24 +797,33 @@ def _frame_kw_2d(obj, dt, preconditioned=None, sim_count=10):
     return kw
 
 
-@pytest.mark.parametrize("case", ["one block", "16 blocks", "16 blocks, 3 CTAs"])
+@pytest.mark.parametrize("variant", K5_VARIANTS)
+@pytest.mark.parametrize("case", ["one block", "16 blocks"])
 @pytest.mark.parametrize("preconditioned", [False, True])
 def test_frame_kernel_2d_matches_plain_and_repeats(body_2d, grid_2d, case,
-                                                   preconditioned):
-    """K5 on triangles: one CTA for the one-block scene, 16 CTAs, and 3
-    CTAs walking the 16 blocks grid-stride; positions within 1e-5 of the
-    plain frame.  Iterations within 1 on the one-block scene, whose solves
-    are short; the 40-subdivision grid's take ~20-100 iterations, where
-    only the residual is held (module docstring)."""
+                                                   preconditioned, variant):
+    """K5 on triangles in each variant (module K5_VARIANTS): the one-block
+    scene and the 16-block grid (3 CTAs walk its blocks); positions within
+    1e-5 of the plain frame.  Iterations within 1 on the one-block scene,
+    whose solves are short; the 40-subdivision grid's take ~20-100
+    iterations, where only the residual is held (module docstring).  One
+    CTA cannot hold the grid's 1,681 particles and 16 blocks: that cluster
+    raises."""
     obj, state = body_2d if case == "one block" else grid_2d
-    grid = 3 if "3 CTAs" in case else 0
+    launch = _k5_launch(variant, obj.blocking)
     obs = _obstacles_2d("cuda")
     args = (obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
             obs.centers, obs.radii)
     kw = _frame_kw_2d(obj, 5e-4, preconditioned)
     before = frame_kernels.fused_blocked_frame.launches
-    out = frame_kernels.fused_blocked_frame(*args, grid=grid, **kw)
+    if not _k5_fits(variant, obj.blocking, obj.particle_cnt):
+        with pytest.raises(RuntimeError, match="shared memory"):
+            frame_kernels.fused_blocked_frame(*args, **launch, **kw)
+        assert frame_kernels.fused_blocked_frame.launches == before
+        return
+    out = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     assert frame_kernels.fused_blocked_frame.launches == before + 1
+    _check_plan(variant, obj.blocking)
     ref = frame_kernels.fused_blocked_frame_plain(*args, **kw)
     it, ref_it = out[3].cpu().numpy(), ref[3].cpu().numpy()
     assert it.max() > 1 and it.max() < 500 and float(out[4].max()) <= TOL
@@ -745,7 +832,7 @@ def test_frame_kernel_2d_matches_plain_and_repeats(body_2d, grid_2d, case,
         assert np.all(np.abs(it - ref_it) <= 1), (it, ref_it)
     assert out[0].shape == state.pos.shape
     assert float((out[0] - ref[0]).abs().max()) <= TOL
-    again = frame_kernels.fused_blocked_frame(*args, grid=grid, **kw)
+    again = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
@@ -954,7 +1041,7 @@ def test_blocked_edges_kernel_matches_plain_and_repeats(inelastic_bodies,
     assert torch.equal(x, blocked_kernels.blocked_edges(blk, state.pos))
 
 
-def _inelastic_frame(kernel, obj, state, grid=0, plain=False):
+def _inelastic_frame(kernel, obj, state, grid=0, plain=False, launch=None):
     from fem_tpu_torch.ops.frame_kernels import (
         fused_blocked_frame_plain,
         fused_explicit_frame_plain,
@@ -979,26 +1066,39 @@ def _inelastic_frame(kernel, obj, state, grid=0, plain=False):
         args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
                 obs.radii)
     if not plain:
-        kw["grid"] = grid
+        kw.update(launch if launch is not None else dict(grid=grid))
     return fn(*args, **kw)
 
 
-@pytest.mark.parametrize("case", ["2D one block", "2D 16 blocks",
-                                  "2D 16 blocks, 3 CTAs", "3D"])
-@pytest.mark.parametrize("kernel", ["K5", "K8"])
+@pytest.mark.parametrize("case", ["2D one block", "2D 16 blocks", "3D"])
+@pytest.mark.parametrize("kernel,variant", [
+    ("K5", v) for v in K5_VARIANTS] + [("K8", "grid"), ("K8", "grid 3 CTAs")])
 def test_inelastic_frame_kernels_match_plain_and_repeat(inelastic_bodies,
-                                                        kernel, case):
-    """K5 and K8 with both branches (each branch alone: the next test):
-    positions and both internal inverses within 1e-5 of the plain frame
-    after a frame of 10 substeps, two runs bit-identical; 3 CTAs walking the
-    16 blocks grid-stride check the grid barrier before the update."""
-    obj, state = inelastic_bodies[case.split(",")[0]]
-    grid = 3 if "3 CTAs" in case else 0
+                                                        kernel, variant,
+                                                        case):
+    """K5 in each variant (module K5_VARIANTS) and K8 with both branches
+    (each branch alone: the next test): positions and both internal
+    inverses within 1e-5 of the plain frame after a frame of 10 substeps,
+    two runs bit-identical; CTAs walking several blocks check the update's
+    order after the advection (a grid barrier, or the CTA's own copy of the
+    positions).  One CTA cannot hold the 16-block grid: that cluster
+    raises."""
+    obj, state = inelastic_bodies[case]
+    launch = (_k5_launch(variant, obj.blocking) if kernel == "K5"
+              else dict(grid=3 if "3 CTAs" in variant else 0))
     counter = (frame_kernels.fused_blocked_frame if kernel == "K5"
                else frame_kernels.fused_explicit_frame)
     before = counter.launches
-    out = _inelastic_frame(kernel, obj, state, grid)
+    if kernel == "K5" and not _k5_fits(variant, obj.blocking,
+                                       obj.particle_cnt):
+        with pytest.raises(RuntimeError, match="shared memory"):
+            _inelastic_frame(kernel, obj, state, launch=launch)
+        assert counter.launches == before
+        return
+    out = _inelastic_frame(kernel, obj, state, launch=launch)
     assert counter.launches == before + 1
+    if kernel == "K5":
+        _check_plan(variant, obj.blocking)
     ref = _inelastic_frame(kernel, obj, state, plain=True)
     assert len(out) == len(ref)
     assert float((out[0] - ref[0]).abs().max()) <= TOL
@@ -1007,7 +1107,7 @@ def test_inelastic_frame_kernels_match_plain_and_repeat(inelastic_bodies,
         assert torch.isfinite(got).all()
         assert float((got - want).abs().max()) <= TOL
         assert float((got - start).abs().max()) > 1e-4
-    again = _inelastic_frame(kernel, obj, state, grid)
+    again = _inelastic_frame(kernel, obj, state, launch=launch)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
@@ -1252,10 +1352,11 @@ def test_material_frame_kernels_with_inelastic_branches(kernel, dim,
         assert float((got - want).abs().max()) <= TOL
 
 
-def test_robust_frame_kernel_on_an_inverted_tet():
+@pytest.mark.parametrize("variant", K5_VARIANTS)
+def test_robust_frame_kernel_on_an_inverted_tet(variant):
     """``entry.inverted_cube`` (one tet inverted and nearly flat, det F ≈
-    −1.7e-5, where the robust clamp of the rhs log acts): the robust K5
-    stays finite, equals its plain frame within 1e-5 and twice
+    −1.7e-5, where the robust clamp of the rhs log acts): the robust K5, in
+    each variant, stays finite, equals its plain frame within 1e-5 and twice
     bit-identical, and differs from the non-robust K5.  Bit-identical
     compares the bits: the first substep's CG ends on a NaN ‖r‖² (its last
     residual update overflows f32 in the normal equations at the flat tet),
@@ -1270,15 +1371,18 @@ def test_robust_frame_kernel_on_an_inverted_tet():
     kw = dict(dt=cfg.delta_time, damping=obj.damping, g_dir=cfg.g_dir,
               mu=obj.mu, s_lambda=obj.s_lambda, preconditioned=True,
               sim_count=cfg.sim_count, robust=True)
-    out = frame_kernels.fused_blocked_frame(*args, **kw)
-    again = frame_kernels.fused_blocked_frame(*args, **kw)
+    launch = _k5_launch(variant, obj.blocking)
+    out = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
+    _check_plan(variant, obj.blocking)
+    again = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     ref = fused_blocked_frame_plain(*args, **kw)
     assert torch.isfinite(out[0]).all()
     assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
                for x, y in zip(out, again))
     assert torch.isnan(ref[4][0]) and torch.isnan(out[4][0])
     assert float((out[0] - ref[0]).abs().max()) <= TOL
-    nonrobust = frame_kernels.fused_blocked_frame(*args, **dict(kw, robust=False))
+    nonrobust = frame_kernels.fused_blocked_frame(
+        *args, **launch, **dict(kw, robust=False))
     assert not torch.equal(nonrobust[0], out[0])
 
 
