@@ -189,8 +189,10 @@ holds both of its variants:
     line with a row per kernel and dimension, the inelastic instances of K5
     and K8 rows of their own, and a row per material and robust instance
     (with ``material`` and ``robust`` keys); K5's rows name the variant,
-    its CTAs, threads a CTA and barriers a frame.  The build's lines give
-    each library's seconds and the registers and spills of every instance.
+    its CTAs, threads a CTA and the barriers the kernel counted in a frame
+    (the run fails unless they are those ``frame_barriers`` places there).
+    The build's lines give each library's seconds and the registers and
+    spills of every instance.
 42. K11a, the edge-matrix CG (``experiments/edge_cg.py``), against its
     plain version (the dense S products) on the flagship deformed (S of
     12,204 × 1,007, 49 MB) and ``default.json`` squeezed, ``preconditioned``
@@ -225,9 +227,11 @@ holds both of its variants:
     and clusters of 1, 3 and 16 CTAs, on the flagship, ``default.json``
     squeezed and the 40-subdivision grid squeezed, each against
     ``fused_blocked_frame_plain`` (positions within 1e-5, iterations within
-    1 in short solves, twice bit-identical; a cluster whose state exceeds a
-    CTA's shared memory raises), with its device ms and barriers a frame,
-    printed as one ``k5_variants`` JSON line.
+    1 in short solves, velocities within √tol, where a CG stopped at
+    ‖r‖² ≤ tol leaves them, ``vel_g`` within 1e-5, twice bit-identical; a cluster whose state exceeds a CTA's shared
+    memory raises), with its device ms and the barriers the kernel counted
+    in a frame (equal to ``frame_barriers``'), printed as one
+    ``k5_variants`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -392,31 +396,46 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+# Windows in a row that the profiler may return with no device activity at
+# all before the run fails.  On the H100 it has returned such windows, up
+# to three in a row, for calls that did launch (their wrappers' counts say
+# so); each is logged and taken again after a pause.
+EMPTY_WINDOWS = 10
+
+
 def profile_kernels(torch, fn, reps):
     """({kernel name: (device ms in total, launches)}, wall ms) over ``reps``
     calls of ``fn`` under torch.profiler (CUPTI, device activity only, so
     that host-side tracing slows the enqueue as little as it can), after one
-    warm-up call; the wall time is that of the same profiled window."""
+    warm-up call; the wall time is that of the same profiled window.  A
+    window with no device activity is taken again (EMPTY_WINDOWS)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for attempt in range(EMPTY_WINDOWS):
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    out = {}
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        total = getattr(e, "self_device_time_total", None)
-        if total is None:
-            total = e.self_cuda_time_total
-        if total > 0:
-            out[e.key] = (total / 1e3, e.count)
-    return out, wall_ms
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out = {}
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            total = getattr(e, "self_device_time_total", None)
+            if total is None:
+                total = e.self_cuda_time_total
+            if total > 0:
+                out[e.key] = (total / 1e3, e.count)
+        if out:
+            return out, wall_ms
+        log(f"[profiler] a window of {reps} calls recorded no device "
+            f"activity (window {attempt + 1}); taken again")
+        time.sleep(0.05 * (attempt + 1))
+    require(False, f"the profiler recorded no device activity in "
+            f"{EMPTY_WINDOWS} windows in a row")
 
 
 def kernel_ms(torch, fn, reps, names, windows=3):
@@ -431,6 +450,10 @@ def kernel_ms(torch, fn, reps, names, windows=3):
         per_kernel, _ = profile_kernels(torch, fn, reps)
         hits = {name: [v for k, v in per_kernel.items() if name in k]
                 for name in names}
+        if not all(hits.values()):
+            log(f"[profiler] a window of {reps} calls saw none of "
+                f"{[n for n in names if not hits[n]]}; it saw "
+                f"{sorted(k[:80] for k in per_kernel)}")
         if all(hits.values()):
             break
     total = 0.0
@@ -529,15 +552,20 @@ def k5_kernel_name():
 
 
 def k5_plan_keys(iterations, normal=True):
-    """The kernels line's keys of K5's last launch: its variant, CTAs,
-    threads a CTA and barriers in a frame whose substeps took
-    ``iterations``."""
+    """The kernels line's keys of K5's last launch, whose substeps took
+    ``iterations``: its variant, CTAs, threads a CTA and the barriers the
+    kernel counted in that frame, which must be those that
+    ``frame_kernels.frame_barriers`` places there."""
     from fem_tpu_torch.ops import frame_kernels as fk
 
     plan = fk.fused_blocked_frame.last_plan
+    met = int(fk.fused_blocked_frame.last_barriers.item())
+    want = fk.frame_barriers(plan.variant, normal, iterations)
+    require(met == want, f"K5 ({plan.variant}, {plan.size} CTAs) met {met} "
+            f"barriers in a frame of iterations {list(iterations)}, where "
+            f"frame_barriers places {want}")
     return dict(variant=plan.variant, ctas=plan.size, threads=plan.threads,
-                barriers_per_frame=fk.frame_barriers(plan.variant, normal,
-                                                     iterations))
+                barriers_per_frame=met)
 
 
 def graph_matrix(torch, element_indices, K, n):
@@ -3286,10 +3314,11 @@ def run_k5_variants(torch, card, cases):
     (one CTA a block) and clusters of K5_CLUSTERS CTAs — against
     ``fused_blocked_frame_plain`` on the card for each of ``cases`` (label,
     body, state, obstacles, frame kwargs): positions within 1e-5, iterations
-    within 1 per substep where the plain solves stay at 20 or fewer, two
-    runs bit-identical, a cluster too large for a CTA's shared memory
-    raising; each variant's device ms a frame (profiler) and barriers a
-    frame.  Returns the rows of the ``k5_variants`` line."""
+    within 1 per substep where the plain solves stay at 20 or fewer,
+    velocities and ``vel_g`` as the module docstring says, two runs
+    bit-identical, a cluster too large for a CTA's shared memory raising;
+    each variant's device ms a frame (profiler) and the barriers its kernel
+    counted in a frame.  Returns the rows of the ``k5_variants`` line."""
     from fem_tpu_torch.ops import frame_kernels as fk
 
     rows = []
@@ -3322,6 +3351,11 @@ def run_k5_variants(torch, card, cases):
             it = out[3].tolist()
             err = float((out[0] - ref[0]).abs().max())
             require(err <= 1e-5, f"K5 {label}, {name}: positions off by {err}")
+            verr = [float((out[k] - ref[k]).abs().max()) for k in (1, 2)]
+            # A CG stopped at |r|^2 <= tol fixes vel to about sqrt(tol).
+            require(verr[0] <= kw.get("tol", 1e-5) ** 0.5
+                    and verr[1] <= 1e-5, f"K5 {label}, {name}: |dvel| "
+                    f"{verr[0]}, |dvel_g| {verr[1]}")
             if max(itp) <= 20:
                 require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
                         f"K5 {label}, {name}: iterations {it}, plain {itp}")
@@ -3332,7 +3366,8 @@ def run_k5_variants(torch, card, cases):
             keys = k5_plan_keys(it)
             log(f"[K5 variants] {label}, {name}: {keys}; {ms:.5f} ms a frame "
                 f"(profiler); iterations {it} (plain {itp}); max |dpos| "
-                f"{err:.3e}; twice bit-identical; card {card}")
+                f"{err:.3e}, |dvel| {verr[0]:.3e}, |dvel_g| {verr[1]:.3e}; "
+                f"twice bit-identical; card {card}")
             rows.append(dict(scene=label, launch=name, ms=ms,
                              max_abs_err=err, iterations=sum(it), **keys))
     return rows

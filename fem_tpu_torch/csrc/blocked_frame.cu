@@ -74,8 +74,10 @@
 // barriers (prep, A^T b with G(K) x_0, the A^T half of op(x_0), |r_0|^2)
 // and 4 an iteration (two applies, two dots), against the grid variant's 8
 // and 6; plain mode 3 and 3 against 5 and 4; one more before exit, so that
-// no CTA leaves while another may read its shared memory.  A cluster of one CTA (one locality block) syncs with
-// __syncthreads() and reads its own partials.
+// no CTA leaves while another may read its shared memory.  Both variants
+// count the phase barriers they meet and report them (args.barriers).  A
+// cluster of one CTA (one locality block) syncs with __syncthreads() and
+// reads its own partials.
 //
 // The grid variant (blocked_frame_kernel), for meshes whose state does not
 // fit one cluster (e.g. 270 blocks): one CTA per locality block, grid-stride
@@ -163,6 +165,8 @@ struct FemFrameArgs {
   const int* cl_slot_code;    // its block slots in ascending order, as
                               // rank * 65536 + slot index in that rank
   int cl_cap;                 // rows of each local vector in shared memory
+  int* barriers;  // (1,) or null: the phase barriers the launch met, written
+                  // by thread 0 of CTA 0 (frame_kernels.frame_barriers)
 };
 
 namespace {
@@ -334,13 +338,20 @@ struct Frame {
   int buf;     // which half of `dots` the next dot product uses
   int first;   // this thread's first particle, and the stride
   int stride;
+  int barriers;  // grid barriers met so far
+
+  // The barrier between phases, counted.
+  __device__ void sync() {
+    ++barriers;
+    grid.sync();
+  }
 
   // Sum over the grid of each thread's `part`, identical in every CTA.
   __device__ float grid_sum(float part) {
     const float s = block_sum(part, red);
     float* dots = v.dots + buf * gridDim.x;
     if (threadIdx.x == 0) __stcg(dots + blockIdx.x, s);
-    grid.sync();
+    sync();
     if (threadIdx.x == 0) {
       float total = 0.0f;
       for (int i = 0; i < static_cast<int>(gridDim.x); ++i) total += __ldcg(dots + i);
@@ -397,7 +408,7 @@ struct Frame {
   // Ends with the slot sums read; the caller's grid_sum is the barrier.
   __device__ float apply_op(const float* src, float* qv) {
     local_products(src, false, v.part[0]);
-    grid.sync();
+    sync();
     float part = 0.0f;
     if (a.normal) {
       for (int p = first; p < a.n; p += stride) {
@@ -411,9 +422,9 @@ struct Frame {
           v.z[D * p + c] = uc * mi;
         }
       }
-      grid.sync();
+      sync();
       local_products(v.z, true, v.part[1]);
-      grid.sync();
+      sync();
       for (int p = first; p < a.n; p += stride) {
         float w[D];
         slot_sum(v.part[1], p, w);
@@ -444,7 +455,7 @@ struct Frame {
   // The velocity solve of one substep; leaves x and returns (it, |r|^2).
   __device__ void solve(int* it_out, float* delta_out) {
     prep(v.part[0]);
-    grid.sync();
+    sync();
     // b = v + dt f / m into x (x_0 = b); z = b / m for A^T b.
     for (int p = first; p < a.n; p += stride) {
       float f[D];
@@ -457,11 +468,11 @@ struct Frame {
         v.z[D * p + c] = bc * mi;
       }
     }
-    grid.sync();
+    sync();
     if (a.normal) {
       // r = A^T b (the rhs), kept in r until op(x_0) is subtracted.
       local_products(v.z, true, v.part[1]);
-      grid.sync();
+      sync();
       for (int p = first; p < a.n; p += stride) {
         float w[D];
         slot_sum(v.part[1], p, w);
@@ -508,7 +519,7 @@ struct Frame {
           v.d[i] = v.r[i] + beta * v.d[i];
         }
       }
-      grid.sync();
+      sync();
       delta = delta_next;
       ++it;
     }
@@ -569,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               xs + D * a.T.pb,
               red, &bcast, 0,
               static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x),
-              static_cast<int>(gridDim.x * blockDim.x)};
+              static_cast<int>(gridDim.x * blockDim.x), 0};
   for (int p = fr.first; p < a.n; p += fr.stride) {
     fr.v.minv[p] = 1.0f / a.mass[p];
 #pragma unroll
@@ -580,7 +591,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if constexpr (INELASTIC) fr.copy_state();
-  fr.grid.sync();
+  fr.sync();
   for (int s = 0; s < a.sim_count; ++s) {
     int it;
     float delta;
@@ -590,8 +601,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       a.iters[s] = it;
       a.res[s] = delta;
     }
-    fr.grid.sync();
+    fr.sync();
     if constexpr (INELASTIC) fr.internal_update();
+  }
+  if (a.barriers != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.barriers = fr.barriers;
   }
 }
 
@@ -655,10 +669,12 @@ struct ClusterFrame {
   float* dots;       // this CTA's dot partials, two copies
   int pbuf;          // the partial copy the next product writes
   int dbuf;          // the dot copy the next sum writes
+  int barriers;      // phase barriers met so far
 
-  // The barrier between phases: the hardware cluster barrier, or the CTA
-  // barrier when the cluster is one CTA.
+  // The barrier between phases, counted: the hardware cluster barrier, or
+  // the CTA barrier when the cluster is one CTA.
   __device__ void sync() {
+    ++barriers;
     if (nr == 1) {
       __syncthreads();
     } else {
@@ -1104,6 +1120,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   fr.dots = dots;
   fr.pbuf = 0;
   fr.dbuf = 0;
+  fr.barriers = 0;
   fr.stage_tables(first);
   for (int l = threadIdx.x; l < fr.nl; l += blockDim.x) {
     const int g = a.cl_local_ids[first + l];
@@ -1138,6 +1155,9 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     }
   }
   fr.sync();  // no CTA leaves while another may still read its partials
+  if (a.barriers != nullptr && fr.me == 0 && threadIdx.x == 0) {
+    *a.barriers = fr.barriers;
+  }
 }
 
 // f(kernel) for the cluster variant's instance of (D, material, inelastic).

@@ -14,7 +14,9 @@
 namespace fem {
 
 // Lets `kernel` take clusters above the portable 8 CTAs (Hopper: 16) and
-// `smem` bytes of dynamic shared memory.
+// `smem` bytes of dynamic shared memory.  The attributes stay set on the
+// device; the callers below set the most `smem` the device allows, so that
+// no later call lowers it under a larger plan.
 template <typename Kernel>
 cudaError_t cluster_prepare(Kernel kernel, size_t smem) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -100,7 +102,7 @@ int cluster_fit(Kernel kernel, int threads, int cluster, size_t smem,
   const int rc = dynamic_smem_limit(kernel, &optin);
   if (rc != 0) return rc;
   if (smem > static_cast<size_t>(optin)) return -2;
-  cudaError_t e = cluster_prepare(kernel, smem);
+  cudaError_t e = cluster_prepare(kernel, static_cast<size_t>(optin));
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
@@ -131,17 +133,17 @@ int cluster_fit(Kernel kernel, int threads, int cluster, size_t smem,
 }
 
 // One launch of `kernel(*args)` as a single cluster of `cluster` CTAs;
-// returns 0 or the CUDA error, which it clears.
+// returns 0 or the CUDA error, which it clears.  cluster_fit has accepted
+// the plan on this device before, and so prepared the kernel.
 template <typename Kernel, typename Args>
 int cluster_launch(Kernel kernel, Args* args, int cluster, int threads,
                    int smem, void* stream) {
-  cudaError_t e = cluster_prepare(kernel, static_cast<size_t>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
       cluster, threads, static_cast<size_t>(smem), stream, &attr);
   void* params[] = {args};
-  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), params);
+  cudaError_t e = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(kernel), params);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear the launch error
     return static_cast<int>(e);

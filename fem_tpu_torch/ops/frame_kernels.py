@@ -117,7 +117,7 @@ class FrameArgsC(ctypes.Structure):
     ] + _INELASTIC_FIELDS + [
         ("cl_local_ptr", _P), ("cl_local_ids", _P), ("cl_owned", _P),
         ("cl_block_local", _P), ("cl_slot_ptr", _P), ("cl_slot_code", _P),
-        ("cl_cap", _I),
+        ("cl_cap", _I), ("barriers", _P),
     ]
 
 
@@ -398,9 +398,11 @@ def frame_plan(num_blocks: int, eb: int, pb: int, n: int, dim: int,
 
 def frame_barriers(variant: str, normal: bool, iterations) -> int:
     """Barriers of one K5 frame whose substeps took ``iterations``: per
-    substep and per CG iteration, as counted in csrc/blocked_frame.cu, plus
-    one a frame (the grid variant's after the copy-in, the cluster
-    variant's before exit)."""
+    substep and per CG iteration, as csrc/blocked_frame.cu places them,
+    plus one a frame (the grid variant's after the copy-in, the cluster
+    variant's before exit).  The kernel counts the barriers it meets
+    (``fused_blocked_frame.last_barriers``); the CUDA tests and
+    ``chip_smoke.py`` hold that count to this one."""
     per_step, per_it = {("grid", True): (8, 6), ("grid", False): (5, 4),
                         ("cluster", True): (4, 4),
                         ("cluster", False): (3, 3)}[(variant, bool(normal))]
@@ -530,12 +532,31 @@ def cluster_tables(blk: Blocking, n: int, cluster: int):
     return by_size[cluster]
 
 
-def _check_cluster(lib, plan: FramePlan, blk: Blocking, n: int, d: int,
-                   n_free: int, mid: int, inelastic: bool, device_index: int):
-    """Raise unless the device can run ``plan`` (cluster variant)."""
-    cap = cluster_capacity(blk.num_blocks, blk.pb, n, plan.size, n_free)
-    want = lib.fem_blocked_frame_cluster_smem(blk.num_blocks, blk.eb, blk.pb,
-                                              cap, plan.size, d, plan.threads)
+# Device → the (1,) int32 tensor K5's launches there write their barrier
+# count to.
+_BARRIERS: dict = {}
+
+
+def _barrier_count(dev: torch.device) -> torch.Tensor:
+    buf = _BARRIERS.get(dev)
+    if buf is None:
+        buf = _BARRIERS[dev] = torch.zeros((1,), dtype=torch.int32,
+                                           device=dev)
+    return buf
+
+
+@functools.lru_cache(maxsize=256)
+def _check_cluster(device_index: int, plan: FramePlan, num_blocks: int,
+                   eb: int, pb: int, n: int, d: int, n_free: int, mid: int,
+                   inelastic: bool) -> int:
+    """Raise unless the device can run ``plan`` (cluster variant); else
+    return the rows of its local vectors.  Once per plan and instance on a
+    device: a plan that fits is remembered, one that does not raises
+    again (the kernel's attributes, set here, stay set on the device)."""
+    lib = _library(mid)
+    cap = cluster_capacity(num_blocks, pb, n, plan.size, n_free)
+    want = lib.fem_blocked_frame_cluster_smem(num_blocks, eb, pb, cap,
+                                              plan.size, d, plan.threads)
     if want != plan.smem:
         raise RuntimeError(f"whole-frame kernel: the plan's {plan.smem} B of "
                            f"shared memory differ from the kernel's {want}")
@@ -597,7 +618,10 @@ def fused_blocked_frame(
     variant with that many (tests and ``chip_smoke.py`` set them to walk
     blocks several a CTA and to ask for what cannot be scheduled, which
     raises).  The launch's plan is left in ``fused_blocked_frame.last_plan``
-    and counted by (variant, size) in ``variant_launches``.  CPU tensors:
+    and counted by (variant, size) in ``variant_launches``; the barriers
+    its kernel met in ``fused_blocked_frame.last_barriers``, a (1,) int32
+    tensor on the device that the next launch there overwrites
+    (:func:`frame_barriers` says what it must hold).  CPU tensors:
     :func:`fused_blocked_frame_plain`."""
     inelastic = dict(plastic_inv=plastic_inv, plastic_yield=plastic_yield,
                      viscous_inv=viscous_inv, viscous_mu=viscous_mu,
@@ -635,8 +659,8 @@ def fused_blocked_frame(
                        device_limits(index, d, mid, internal.on), int(grid),
                        int(cluster), n_free)
     if fplan.variant == "cluster":
-        cap = _check_cluster(lib, fplan, blk, n, d, n_free, mid,
-                             internal.on, index)
+        cap = _check_cluster(index, fplan, blk.num_blocks, blk.eb, blk.pb,
+                             n, d, n_free, mid, internal.on)
         cl = cluster_tables(blk, n, fplan.size)
         cl_fields = [t.data_ptr() for t in cl] + [cap]
         scratch = None
@@ -653,6 +677,7 @@ def fused_blocked_frame(
             dtype=f32, device=dev,
         )
     out = [torch.empty((n, d), dtype=f32, device=dev) for _ in range(3)]
+    barriers = _barrier_count(dev)
     iters = torch.empty((sim_count,), dtype=torch.int32, device=dev)
     res = torch.empty((sim_count,), dtype=f32, device=dev)
     grav = _gravity3(g_dir, d)
@@ -669,6 +694,7 @@ def fused_blocked_frame(
         out[1].data_ptr(), out[2].data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         iters.data_ptr(), res.data_ptr(), *tail, *cl_fields,
+        barriers.data_ptr(),
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -685,6 +711,7 @@ def fused_blocked_frame(
                            f"variant, {fplan.size} CTAs): {msg}")
     count_launch(fused_blocked_frame, d, mid, internal.on)
     fused_blocked_frame.last_plan = fplan
+    fused_blocked_frame.last_barriers = barriers
     key = (fplan.variant, fplan.size)
     fused_blocked_frame.variant_launches[key] = (
         fused_blocked_frame.variant_launches.get(key, 0) + 1)
@@ -695,6 +722,7 @@ fused_blocked_frame.launches = 0
 fused_blocked_frame.instance_launches = {}
 fused_blocked_frame.variant_launches = {}
 fused_blocked_frame.last_plan = None
+fused_blocked_frame.last_barriers = None
 
 
 class ExplicitFrameArgsC(ctypes.Structure):

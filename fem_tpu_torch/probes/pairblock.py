@@ -36,6 +36,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -144,31 +145,41 @@ def padded_inputs(blk: Blocking, kplane, pos, pair: int):
     return blk_p, kp, blocked_gather_planar(pos, blk_p)
 
 
+# Windows the profiler may return without the probe kernel's launches
+# before the probe fails: on the H100 it has returned windows with no
+# device activity at all, up to three in a row, for calls that launched.
+_WINDOWS = 10
+
+
 def _time_us(fn, iters: int):
     """(device µs a launch of the probe kernel, from the profiler; wall µs
     a call, from CUDA events around ``iters`` back-to-back calls, which the
-    host's wrapper bounds when it outlasts the kernel)."""
+    host's wrapper bounds when it outlasts the kernel).  A window that saw
+    no launch of it is taken again, after a pause, up to _WINDOWS."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(iters):
-            fn()
-        stop.record()
-        stop.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        if "paired_matvec_kernel" in e.key:
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-            count += e.count
-    if count == 0:
-        raise RuntimeError("the profiler saw no launch of the probe kernel")
-    return total / count, start.elapsed_time(stop) / iters * 1e3
+    for attempt in range(_WINDOWS):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(iters):
+                fn()
+            stop.record()
+            stop.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if "paired_matvec_kernel" in e.key:
+                total += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+                count += e.count
+        if count:
+            return total / count, start.elapsed_time(stop) / iters * 1e3
+        time.sleep(0.05 * (attempt + 1))
+    raise RuntimeError(f"the profiler saw no launch of the probe kernel in "
+                       f"{_WINDOWS} windows")
 
 
 def main(argv=None) -> int:

@@ -9,8 +9,9 @@ inside the fixture, never at import).  Run on a GPU machine with
 (``--noconftest``: the suite's conftest configures JAX, which these tests do
 not use).  Tolerances are those of chip_smoke.py: K1 and K2 block-relative
 1e-5, K2's force partials and K3's product 1e-5 of their largest entry; K4
-velocity rtol 5e-4 / atol 1e-6 and iterations within 1; K5 positions 1e-5
-and iterations within 1; K6 block-relative 1e-5, K7b's partials and K7a's
+velocity rtol 5e-4 / atol 1e-6 and iterations within 1; K5 positions 1e-5,
+iterations within 1, velocities √1e-5 (what its CG's stopping rule fixes)
+and vel_g 1e-5; K6 block-relative 1e-5, K7b's partials and K7a's
 sums 1e-5 of their largest entry, K8 positions 1e-5.  Iteration
 counts are compared only where a solve takes a few tens of iterations at
 most: over ~140 iterations f32 round-off moves the count by more than one
@@ -260,6 +261,26 @@ def _check_plan(variant, blk):
         assert plan.size == min(blk.num_blocks, 16)
 
 
+def _check_barriers(out, normal):
+    """The last launch counted the barriers that frame_barriers places in
+    a frame of its variant and iterations."""
+    plan = frame_kernels.fused_blocked_frame.last_plan
+    met = int(frame_kernels.fused_blocked_frame.last_barriers.item())
+    assert met == frame_kernels.frame_barriers(
+        plan.variant, normal, out[3].tolist()), (plan, met, out[3].tolist())
+
+
+def _check_velocities(out, ref):
+    """vel and vel_g of a K5 frame against its plain frame's.  A CG stopped
+    at ‖r‖² ≤ TOL fixes the velocity only to about √TOL (A's eigenvalues
+    are near 1), and the kernel's and the plain frame's f32 roundings stop
+    it at different points (both variants ~1e-4 apart from it after 10
+    substeps): vel within √TOL.  vel_g, which no solve touches, within
+    TOL.  A wrong row written back would be off by a whole velocity."""
+    assert float((out[1] - ref[1]).abs().max()) <= TOL ** 0.5
+    assert float((out[2] - ref[2]).abs().max()) <= TOL
+
+
 def _reblocked(obj, eb=32, pb=24):
     """``obj`` with small locality blocks, so that the 5×5×5 cube spans
     several blocks with padded element slots."""
@@ -344,6 +365,8 @@ def test_frame_kernel_matches_plain_and_repeats(body, preconditioned,
     assert ref_it.max() <= 20 and it.max() > 1, ref_it
     assert np.all(np.abs(it - ref_it) <= 1), (it, ref_it)
     assert float((out[0] - ref[0]).abs().max()) <= 1e-5
+    _check_velocities(out, ref)
+    _check_barriers(out, preconditioned)
     again = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
@@ -364,6 +387,7 @@ def test_frame_kernel_long_solve_matches_float64(stiff_body, variant):
         obj.blocking, state.pos, state.vel, state.vel_g, obj.mass,
         obs.centers, obs.radii, **_k5_launch(variant, obj.blocking), **kw)
     _check_plan(variant, obj.blocking)
+    _check_barriers(out, True)
     assert 100 < int(out[3][0]) < 500 and float(out[4][0]) <= TOL
     cpu_blk = blocking.build_blocking(
         *[t.cpu().numpy() for t in (obj.element_indices, obj.ref_inv,
@@ -832,6 +856,8 @@ def test_frame_kernel_2d_matches_plain_and_repeats(body_2d, grid_2d, case,
         assert np.all(np.abs(it - ref_it) <= 1), (it, ref_it)
     assert out[0].shape == state.pos.shape
     assert float((out[0] - ref[0]).abs().max()) <= TOL
+    _check_velocities(out, ref)
+    _check_barriers(out, preconditioned)
     again = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
@@ -1099,6 +1125,7 @@ def test_inelastic_frame_kernels_match_plain_and_repeat(inelastic_bodies,
     assert counter.launches == before + 1
     if kernel == "K5":
         _check_plan(variant, obj.blocking)
+        _check_barriers(out, True)
     ref = _inelastic_frame(kernel, obj, state, plain=True)
     assert len(out) == len(ref)
     assert float((out[0] - ref[0]).abs().max()) <= TOL
@@ -1374,6 +1401,7 @@ def test_robust_frame_kernel_on_an_inverted_tet(variant):
     launch = _k5_launch(variant, obj.blocking)
     out = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     _check_plan(variant, obj.blocking)
+    _check_barriers(out, True)
     again = frame_kernels.fused_blocked_frame(*args, **launch, **kw)
     ref = fused_blocked_frame_plain(*args, **kw)
     assert torch.isfinite(out[0]).all()

@@ -148,7 +148,8 @@ def test_shared_memory_sizes():
 def test_barrier_counts(normal, per_step, per_it):
     """A frame of substeps with 2, 3 and 0 iterations: the cluster variant's
     count against the grid variant's 8 + 6·it (5 + 4·it plain), each with
-    one barrier a frame more."""
+    one barrier a frame more.  (The CUDA tests hold the count each kernel
+    makes of its own barriers to this one.)"""
     its = [2, 3, 0]
     grid_step, grid_it = (8, 6) if normal else (5, 4)
     assert fk.frame_barriers("cluster", normal, its) == (

@@ -13,7 +13,9 @@ iterations, in each variant: the cluster variant (the automatic plan) and
 the cooperative grid variant (one CTA per block).  A least-squares line
 through (iterations, ms) splits the frame into a fixed part per substep
 (prep, rhs, the first residual, advection, their barriers) and a part per
-CG iteration.  Then, on the flagship at the default tolerance, the frame
+CG iteration; the barriers the kernel counted in each frame split the
+same way, where the checkout's K5 counts them.  Then, on the flagship at
+the default tolerance, the frame
 at forced cluster sizes (CLUSTERS; 17 blocks over fewer CTAs take two or
 more blocks each).  Times are CUDA events around 30 launches after a
 warm-up.  Prints one JSON line per scene and variant and per cluster size,
@@ -105,7 +107,7 @@ def main(argv=None):
         variants = ([("cluster", {}), ("grid", dict(grid=blk.num_blocks))]
                     if has_cluster else [("grid", {})])
         for variant, launch in variants:
-            rows = []
+            rows, barriers = [], []
             for n in ITERS:
                 out, ms = frame_ms(torch, frame, fargs,
                                    dict(kw, max_iter=n, tol=0.0, **launch))
@@ -113,6 +115,9 @@ def main(argv=None):
                 if its != [n] * kw["sim_count"]:
                     raise RuntimeError(f"{label}: iterations {its}, not {n}")
                 rows.append((n, ms))
+                met = getattr(frame, "last_barriers", None)
+                if met is not None:
+                    barriers.append((n, int(met.item())))
             m = len(rows)
             mx = sum(i for i, _ in rows) / m
             my = sum(t for _, t in rows) / m
@@ -127,6 +132,7 @@ def main(argv=None):
                 "points_iterations_ms": rows,
                 "fixed_ms_per_substep": (my - slope * mx) / s,
                 "per_iteration_ms": slope / s,
+                "points_iterations_barriers": barriers or None,
             }), flush=True)
     label, fargs, kw = flagship
     for cluster in CLUSTERS if has_cluster else ():
