@@ -202,13 +202,19 @@ holds both of its variants:
     1e-5, in 3D and 2D;
 43. K11b, the unblocked whole frame (``experiments/fused_frame.py``),
     against its plain version on the card (positions 1e-5, iterations
-    within 1, twice bit-identical); path AE, ``demo_spot.json`` with
+    within 1, twice bit-identical); its variants — the plan's, the single
+    CTA and clusters of 1, 3 and 16 CTAs — on the flagship and
+    ``default.json`` against the plain frame, each twice bit-identical
+    with the barriers its kernel counted equal to ``frame_barriers``, a
+    cluster too large for a CTA's shared memory refused before the launch
+    (one ``k11b_variants`` JSON line); path AE, ``demo_spot.json`` with
     ``frame_backend="fused"``: 30 frames from the deformed state, K11b
-    once a frame and nothing else, the first frame equal to the CPU plain
+    once a frame and nothing else, all of the cluster variant (16 CTAs)
+    with the formula's barriers, the first frame equal to the CPU plain
     fused frame to 1e-5 with equal iterations and within 1e-5 of K5's
     (iterations within 1), steps/s, device ms a frame and busy share
     beside K5's; the same for ``default.json``'s ``implicit_cg`` variant
-    from its squeezed state;
+    from its squeezed state (a cluster of one CTA);
 44. path AF, ``operator_mode="mxu"`` on the flagship: 3 frames, K1 once a
     substep and nothing else (the S products are ``torch.matmul``), the
     first frame equal to the CPU's to 1e-5;
@@ -218,7 +224,10 @@ holds both of its variants:
     the probe's entry point with ``--config configs/demo_spot.json``;
 46. P2, the int8 table probe, at its defaults: the three variants against
     the plain version (int8 × int8 exactly, bf16 within 1e-4 of the
-    largest entry), twice bit-identical; the probe's entry point;
+    largest entry), twice bit-identical, the MACs the kernel issued on the
+    tensor cores (its own count) equal to its plan's and at least
+    reps × rows × n × cols, so that no rep was folded; the probe's entry
+    point;
 47. their times: each kernel's device ms (profiler), plain ms (CUDA
     events), bound and ``library_ms`` (P1: ``torch.sparse.mm``, as K3; P2:
     one ``torch.matmul`` in bf16 or ``torch._int_mm`` over the stacked
@@ -2826,6 +2835,7 @@ FRAMES_AF = 3  # path AF: the mxu frame's CG reads |r|^2 on the host
 SUBSTEPS_AG = 10  # path AG: the edge-matrix CG substep
 P1_ITERS = 50  # P1's probe run, applies timed per pair
 P2_OUTER = 5  # P2's probe run, launches timed per variant
+K11B_CLUSTERS = (1, 3, 16)  # forced cluster sizes of section 43
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): tensor rates.
 PEAK_BF16_OPS_PER_S = 989e12
 PEAK_INT8_OPS_PER_S = 1979e12
@@ -3029,6 +3039,56 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
                     f"K11b {d}D runs differ")
         k11b[d] = dict(err=worst, args=args, kw=kw)
     log("[K11b] two runs bit-identical in every case")
+    # K11b's variants — the plan's, the single CTA, clusters of
+    # K11B_CLUSTERS CTAs — against the plain frame (normal equations) on the
+    # flagship and default.json: the tolerances above, twice bit-identical,
+    # the barriers the kernel counted equal to frame_barriers; a cluster
+    # whose CTA's state exceeds its shared memory (the flagship at 1 and 3
+    # CTAs) is refused before any launch.
+    k11b_variants = []
+    for d in (3, 2):
+        args, kw = k11b[d]["args"], k11b[d]["kw"]
+        ref = ff.fused_frame_plain(*args, **kw)
+        itp, top_v = ref[3].tolist(), float(ref[1].abs().max())
+        for name, opts in (("auto", {}), ("single", dict(single=True))) + \
+                tuple((f"cluster {c}", dict(cluster=c))
+                      for c in K11B_CLUSTERS):
+            try:
+                out = ff.fused_frame(*args, **kw, **opts)
+            except ValueError as exc:
+                require(name not in ("auto", "single", "cluster 16"),
+                        f"K11b {d}D {name} refused: {exc}")
+                log(f"[K11b variants] {d}D {name}: refused as it must (its "
+                    f"state exceeds a CTA's shared memory): {exc}")
+                continue
+            plan = ff.fused_frame.last_plan
+            barriers = int(ff.fused_frame.last_barriers.item())
+            again = ff.fused_frame(*args, **kw, **opts)
+            torch.cuda.synchronize()
+            it = out[3].tolist()
+            err = [float((out[k] - ref[k]).abs().max()) for k in range(3)]
+            want = ff.frame_barriers(plan.variant, True, it)
+            require(err[0] <= 1e-5 and err[1] <= 1e-4 * top_v
+                    and err[2] <= 1e-5, f"K11b {d}D {name} off by {err}")
+            require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                    f"K11b {d}D {name} iterations {it}, plain {itp}")
+            require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                    f"K11b {d}D {name} runs differ")
+            require(barriers == want, f"K11b {d}D {name}: {barriers} "
+                    f"barriers counted, frame_barriers says {want}")
+            ms = kernel_ms(torch, lambda: ff.fused_frame(*args, **kw, **opts),
+                           10, ["fused_frame_kernel"])
+            log(f"[K11b variants] {d}D {name}: {plan.variant} of "
+                f"{plan.size} CTAs, {plan.smem} B of shared memory a CTA; "
+                f"{ms:.5f} ms a frame (profiler); {barriers} barriers (= "
+                f"frame_barriers); iterations {it} (plain {itp}); max "
+                f"|dpos| {err[0]:.3e}, |dvel| {err[1]:.3e}, |dvel_g| "
+                f"{err[2]:.3e}; twice bit-identical; card {card}")
+            k11b_variants.append(dict(
+                dim=d, launch=name, variant=plan.variant, ctas=plan.size,
+                smem=plan.smem, ms=ms, barriers_per_frame=barriers,
+                iterations=sum(it), max_abs_err=err[0]))
+    log(json.dumps({"k11b_variants": k11b_variants}))
     # Path AE: configs/demo_spot.json with frame_backend="fused", 30
     # frames from the deformed state; then default.json's implicit_cg
     # variant from its squeezed state.
@@ -3059,6 +3119,19 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
             f"launches {got}; CG iterations a frame "
             f"{its.sum(dim=1).tolist()}")
         require(got == only(fused_frame=FRAMES), f"path {label} launches {got}")
+        ae_plan = ff.fused_frame.last_plan
+        ae_barriers = int(ff.fused_frame.last_barriers.item())
+        want = ff.frame_barriers(ae_plan.variant, c.preconditioned == 1,
+                                 its[-1].tolist())
+        log(f"[path {label}] K11b launches by (variant, CTAs) "
+            f"{ff.fused_frame.variant_launches}; the last frame's "
+            f"{ae_barriers} barriers (frame_barriers: {want})")
+        require(ff.fused_frame.variant_launches == {
+            ("cluster", ae_plan.size): FRAMES},
+            f"path {label} ran K11b's {ff.fused_frame.variant_launches}")
+        require(ae_barriers == want, f"path {label}: {ae_barriers} barriers "
+                f"counted, frame_barriers says {want}")
+        k11b[d]["plan"] = ae_plan
         require(bool(torch.isfinite(s.pos).all()),
                 f"path {label} non-finite positions")
         k11b[d]["launches"] = got["fused_frame"]
@@ -3171,13 +3244,16 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
     got = counts()
     log(f"[P1 probe] launches {got}")
     require(rc == 0, "P1's probe run failed")
-    # Per pair: a warm-up, the timed applies and a checked one; pair 1
-    # also the baseline.
+    # Per pair: for each profiler window the probe took (one, or more
+    # where the profiler returned a window without the kernel's launches)
+    # a warm-up and the timed applies; then a checked one; pair 1 also the
+    # baseline.
     p1_counts = {pair: p1.paired_matvec.instance_launches.get((pair,), 0)
                  for pair in p1.PAIRS}
-    log(f"[P1 probe] launches by pair {p1_counts}")
-    require(p1_counts == {pair: P1_ITERS + 2 + (pair == 1)
-                          for pair in p1.PAIRS},
+    log(f"[P1 probe] launches by pair {p1_counts}; profiler windows by "
+        f"pair {p1.main.windows}")
+    require(p1_counts == {pair: p1.main.windows[pair] * (P1_ITERS + 1) + 1
+                          + (pair == 1) for pair in p1.PAIRS},
             f"P1's probe run launches by pair {p1_counts}")
     require(got == only(hessian_blocks=1,
                         paired_matvec=sum(p1_counts.values())),
@@ -3199,7 +3275,16 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
         else:
             require(err <= 1e-4 * top, f"P2 {name} error {err}")
         require(torch.equal(out, again), f"P2 {name} runs differ")
-        p2_in[name] = (a, w, err)
+        plan = p2.chained_dot.last_plan
+        macs = int(p2.chained_dot.last_macs.item())
+        real = 200 * 6 * 1024 * 2048
+        log(f"[P2] {name}: {plan}; the kernel issued {macs} MACs on the "
+            f"tensor cores (reps x rows x n x cols = {real}: "
+            f"{real / macs:.4f} of them real)")
+        require(macs == plan.macs and macs >= real,
+                f"P2 {name} issued {macs} MACs, fewer than the {real} of "
+                f"its {200} reps or not its plan's {plan.macs}")
+        p2_in[name] = (a, w, err, plan, macs)  # macs: the kernel's count
     log("[P2] two runs bit-identical for every variant")
     zero_counts()
     rc = p2.main(["--outer", str(P2_OUTER)])
@@ -3236,6 +3321,10 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
         out = ff.fused_frame(*args, **kw)
         o = obj if d == 3 else dobj
         iters = out[3].tolist()
+        fplan = ff.fused_frame.last_plan
+        barriers = int(ff.fused_frame.last_barriers.item())
+        require(barriers == ff.frame_barriers(fplan.variant, True, iters),
+                f"K11b {d}D timed frame: {barriers} barriers")
         row("fused_frame", d, k11b[d]["launches"], k11b[d]["err"],
             kernel_ms(torch, lambda: ff.fused_frame(*args, **kw), FRAMES,
                       ["fused_frame_kernel"]),
@@ -3246,6 +3335,10 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
                       iters, True, d),
             iterations=iters, steps_per_s=k11b[d]["steps_per_s"],
             device_ms_a_frame=k11b[d]["device_ms"],
+            variant=fplan.variant, ctas=fplan.size,
+            barriers_per_frame=barriers,
+            path_variant=k11b[d]["plan"].variant,
+            path_ctas=k11b[d]["plan"].size,
             library_note="no single PyTorch call runs a frame")
     tables = (blk.plus, blk.minus, blk.block_elements, blk.local_ptr,
               blk.local_rows)
@@ -3272,7 +3365,7 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
             ratio_to_pair_1=ms * 1e3 / base_us)
     per_dot = {}
     for name in p2.VARIANTS:
-        a, w, err = p2_in[name]
+        a, w, err, plan, issued = p2_in[name]
         reps = 200
         out = p2.chained_dot(a, w, reps, name)
         ms = kernel_ms(torch, lambda: p2.chained_dot(a, w, reps, name), 20,
@@ -3296,7 +3389,10 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
                   else PEAK_BF16_OPS_PER_S),
             library=cuda_ms(torch, lambda: p2.library_call(a_stack, w_lib,
                                                            name), 50),
-            variant=name, reps=reps, us_per_dot=per_dot[name])
+            variant=name, reps=reps, us_per_dot=per_dot[name],
+            width=plan.width, cluster=plan.cluster, groups=plan.groups,
+            ctas=plan.slices * plan.cluster * plan.groups,
+            issued_macs=issued)
     log(f"[P2] int8xint8 speedup over bf16: "
         f"{per_dot['bf16xbf16'] / per_dot['int8xint8']:.2f}x; int8xbf16 "
         f"over bf16: {per_dot['bf16xbf16'] / per_dot['int8xbf16']:.2f}x; "
@@ -3429,6 +3525,7 @@ def main():
             if hasattr(fn, "instance_launches"):
                 fn.instance_launches = {}
         frame_kernels.fused_blocked_frame.variant_launches = {}
+        fused_frame.fused_frame.variant_launches = {}
 
     def counts():
         """The launch counts since the last zero_counts(); K5's launches on a

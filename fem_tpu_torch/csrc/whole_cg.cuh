@@ -31,6 +31,20 @@ namespace fem::whole_cg {
 
 constexpr int kThreads = 1024;
 
+// The block barrier.
+struct CtaSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// The block barrier, counted in *n (a per-thread count).
+struct CountSync {
+  int* n;
+  __device__ __forceinline__ void operator()() const {
+    ++*n;
+    __syncthreads();
+  }
+};
+
 struct Solve {
   const float* k;      // (E, D, D)
   const int* elem;     // (E, D+1)
@@ -47,28 +61,30 @@ struct Solve {
 
 // Sum of `v` over the block, the same order every call.  All threads return
 // the total.
-__device__ inline float block_sum(float v, float* red) {
+template <typename Sync = CtaSync>
+__device__ inline float block_sum(float v, float* red, Sync sync = {}) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   if (lane == 0) red[warp] = v;
-  __syncthreads();
+  sync();
   if (warp == 0) {
     v = red[lane];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if (lane == 0) red[32] = v;
   }
-  __syncthreads();
+  sync();
   const float total = red[32];
-  __syncthreads();  // red may be reused by the next call
+  sync();  // red may be reused by the next call
   return total;
 }
 
 // Per particle, the sum of its contribution rows of s.t into dst.
-template <int D>
-__device__ void gather_rows(const Solve& s, float* __restrict__ dst) {
+template <int D, typename Sync = CtaSync>
+__device__ void gather_rows(const Solve& s, float* __restrict__ dst,
+                            Sync sync = {}) {
   for (int p = threadIdx.x; p < s.num_particles; p += kThreads) {
     float a[D];
 #pragma unroll
@@ -82,14 +98,14 @@ __device__ void gather_rows(const Solve& s, float* __restrict__ dst) {
 #pragma unroll
     for (int c = 0; c < D; ++c) dst[D * p + c] = a[c];
   }
-  __syncthreads();
+  sync();
 }
 
 // s.w = G(K) src, or G(K^T) src when `transpose`.
-template <int D>
+template <int D, typename Sync = CtaSync>
 __device__ void g_apply(const Solve& s, const float* __restrict__ src,
-                        bool transpose) {
-  __syncthreads();  // src was written by other threads
+                        bool transpose, Sync sync = {}) {
+  sync();  // src was written by other threads
   for (int e = threadIdx.x; e < s.num_elements; e += kThreads) {
     int v[D + 1];
     fem::load_element<D>(s.elem, e, v);
@@ -124,40 +140,42 @@ __device__ void g_apply(const Solve& s, const float* __restrict__ src,
 #pragma unroll
     for (int i = 0; i < D; ++i) out[i] = -sum[i];
   }
-  __syncthreads();
-  gather_rows<D>(s, s.w);
+  sync();
+  gather_rows<D>(s, s.w, sync);
 }
 
 // dst = A src  (apply_a)
-template <int D>
-__device__ void apply_a(const Solve& s, const float* src, float* dst) {
-  g_apply<D>(s, src, false);
+template <int D, typename Sync = CtaSync>
+__device__ void apply_a(const Solve& s, const float* src, float* dst,
+                        Sync sync = {}) {
+  g_apply<D>(s, src, false, sync);
   for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
     dst[i] = src[i] - s.dt2 * s.w[i] * s.minv[i / D];
   }
 }
 
 // dst = A^T src  (apply_at)
-template <int D>
-__device__ void apply_at(const Solve& s, const float* src, float* dst) {
+template <int D, typename Sync = CtaSync>
+__device__ void apply_at(const Solve& s, const float* src, float* dst,
+                         Sync sync = {}) {
   for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
     s.z[i] = src[i] * s.minv[i / D];
   }
-  g_apply<D>(s, s.z, true);
+  g_apply<D>(s, s.z, true, sync);
   for (int i = threadIdx.x; i < D * s.num_particles; i += kThreads) {
     dst[i] = src[i] - s.dt2 * s.w[i];
   }
 }
 
 // dst = op src, op = A^T A (normal equations) or A; `u` is scratch.
-template <int D>
+template <int D, typename Sync = CtaSync>
 __device__ void apply_op(const Solve& s, bool normal, const float* src,
-                         float* u, float* dst) {
+                         float* u, float* dst, Sync sync = {}) {
   if (normal) {
-    apply_a<D>(s, src, u);
-    apply_at<D>(s, u, dst);
+    apply_a<D>(s, src, u, sync);
+    apply_at<D>(s, u, dst, sync);
   } else {
-    apply_a<D>(s, src, dst);
+    apply_a<D>(s, src, dst, sync);
   }
 }
 
@@ -166,18 +184,18 @@ __device__ void apply_op(const Solve& s, bool normal, const float* src,
 // with rhs = A^T b or b, then the loop.  r, d, q and u are (N, D) scratch;
 // `red` 33 floats of shared memory.  Thread 0 writes the iterations to
 // *it_out and the final |r|^2 to *res_out.
-template <int D>
+template <int D, typename Sync = CtaSync>
 __device__ void reference_cg(const Solve& s, bool normal, int max_iter,
                              float tol, float* x, float* r, float* d,
                              float* q, float* u, float* red, int* it_out,
-                             float* res_out) {
+                             float* res_out, Sync sync = {}) {
   const int nd = D * s.num_particles;
   if (normal) {
-    apply_at<D>(s, x, r);
+    apply_at<D>(s, x, r, sync);
   } else {
     for (int i = threadIdx.x; i < nd; i += kThreads) r[i] = x[i];
   }
-  apply_op<D>(s, normal, x, u, q);
+  apply_op<D>(s, normal, x, u, q, sync);
   float part = 0.0f;
   for (int i = threadIdx.x; i < nd; i += kThreads) {
     const float ri = r[i] - q[i];
@@ -185,13 +203,13 @@ __device__ void reference_cg(const Solve& s, bool normal, int max_iter,
     d[i] = ri;
     part += ri * ri;
   }
-  float delta = block_sum(part, red);
+  float delta = block_sum(part, red, sync);
   int it = 0;
   while (it < max_iter && delta > tol) {
-    apply_op<D>(s, normal, d, u, q);
+    apply_op<D>(s, normal, d, u, q, sync);
     part = 0.0f;
     for (int i = threadIdx.x; i < nd; i += kThreads) part += d[i] * q[i];
-    const float alpha = delta / block_sum(part, red);
+    const float alpha = delta / block_sum(part, red, sync);
     part = 0.0f;
     for (int i = threadIdx.x; i < nd; i += kThreads) {
       x[i] += alpha * d[i];
@@ -199,7 +217,7 @@ __device__ void reference_cg(const Solve& s, bool normal, int max_iter,
       r[i] = ri;
       part += ri * ri;
     }
-    const float delta_next = block_sum(part, red);
+    const float delta_next = block_sum(part, red, sync);
     const float beta = delta_next / delta;
     for (int i = threadIdx.x; i < nd; i += kThreads) d[i] = r[i] + beta * d[i];
     delta = delta_next;

@@ -4,8 +4,10 @@ small value side with a ±1 table, as bf16×bf16→f32, int8×int8→int32 and
 int8×bf16→f32.
 
 ``chained_dot`` launches the hand-written CUDA kernel
-``fem_tpu_torch/csrc/probe_int8.cu`` (warp-level ``mma.sync``) for tensors
-on a CUDA device; it replaces the Pallas kernel built in the JAX package's
+``fem_tpu_torch/csrc/probe_int8.cu`` (warpgroup ``wgmma`` on the reps
+stacked along M, ``w`` staged by TMA, K split over a thread-block cluster;
+:func:`chained_dot_plan` says how) for tensors on a CUDA device; it
+replaces the Pallas kernel built in the JAX package's
 ``tools/probe_int8.py`` (``main``).  For tensors on the CPU it runs
 ``chained_dot_plain``: the same sum of products in float32 (the bf16
 variants, whose products are exact in f32) or float64 (int8, whose sums are
@@ -28,7 +30,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +48,139 @@ DTYPES = {
     "int8xint8": (torch.int8, torch.int8, torch.int32),
     "int8xbf16": (torch.bfloat16, torch.int8, torch.float32),
 }
+
+
+# The kernel's tiling (csrc/probe_int8.cu): a wgmma tile of 64 rows, w in
+# chunks of 64 rows, slices of 256 or 64 columns of w (the wgmma's N),
+# clusters of at most 16 CTAs splitting K (the plan starts at 4), and
+# groups of tiles over clusters, as many as the device runs in one wave.
+TILE_M = 64
+CHUNK = 64
+WIDTHS = (256, 64)
+MAX_CLUSTER = 16
+PLAN_CLUSTER = 4
+
+
+def h100_clusters(width: int, cluster: int, smem: int) -> int:
+    """Clusters of ``cluster`` CTAs the H100 runs at once, for planning
+    without a card (one CTA an SM, 120 of its 132 SMs taken as usable by
+    clusters); the wrapper asks the device."""
+    return 120 // cluster
+# The H100's shared memory a CTA (232,448 B) less the kernel's static 4 B,
+# rounded down to 16.
+H100_SMEM = 232432
+
+
+class DotPlan(NamedTuple):
+    """P2's launch (csrc/probe_int8.cu): ``per_tile`` stacked rows a tile
+    (whole reps, H = rows·⌊64/rows⌋), ``tiles`` tiles in all, ``width``
+    columns of w a slice (the wgmma's N), ``slices`` slices, ``cluster``
+    CTAs a cluster (rank q takes w's 64-row chunks [q·NC/C, (q+1)·NC/C)),
+    ``groups`` clusters a slice (group g takes the tiles [g·T/G,
+    (g+1)·T/G)), ``smem`` bytes of dynamic shared memory a CTA and the
+    ``macs`` the launch issues on the tensor cores (tiles·64·n·cols)."""
+
+    per_tile: int
+    tiles: int
+    width: int
+    slices: int
+    cluster: int
+    groups: int
+    smem: int
+    macs: int
+
+
+def dot_smem(variant: str, rows: int, n: int, width: int, cluster: int) -> int:
+    """Bytes of dynamic shared memory of a CTA (csrc/probe_int8.cu:
+    layout): its chunks of w as the wgmma reads them, the int8 chunks as TMA
+    brings them (int8 variants), its columns of a's rows and a zero row (32
+    bytes of padding each), or the two warpgroups' staged accumulators if
+    larger; the mbarrier, the partial sums and 1,024 bytes of alignment
+    slack."""
+    kc = -(-(n // CHUNK) // cluster) * CHUNK
+    wide = 1 if variant == "int8xint8" else 2
+    size_a = DTYPES[variant][0].itemsize
+    mma = kc * width * wide + (0 if variant == "bf16xbf16" else kc * width) + (
+        rows + 1) * (kc * size_a + 32)
+    main = -(-max(mma, 2 * TILE_M * (width + 8) * 4) // 16) * 16
+    return 1024 + main + 16 + rows * width * 4
+
+
+def chained_dot_plan(rows: int, n: int, cols: int, reps: int, variant: str,
+                     active=h100_clusters,
+                     cluster: int = 0, width: int = 0,
+                     smem_limit: int = H100_SMEM) -> DotPlan:
+    """The kernel's tiling of Σ_{r<reps} roll(a, r)·w: stacked row
+    G = r·rows + i is a[(i − r) mod rows]; a tile takes H = rows·⌊64/rows⌋
+    of them, so accumulator row j always holds output row j mod rows and
+    every tile of a CTA accumulates into the same registers.  Each
+    ``width``-column slice of w takes ``groups`` clusters of ``cluster``
+    CTAs; a cluster splits K, the groups split the tiles.  By default the
+    widest slice dividing cols, the smallest cluster from 4 (or n/64) up
+    whose CTA fits ``smem_limit``, and as many groups, up to the tiles, as
+    keep every cluster in one wave: ``active(width, cluster, smem)`` such
+    clusters at once (the device's count; at the defaults on the H100 8
+    slices of 256 columns, groups of 4 CTAs).  Shapes the kernel does
+    not take raise ``ValueError``: rows 1..64, n and cols multiples of 64,
+    reps ≥ 0, and a forced width or cluster whose CTA does not fit."""
+    if variant not in DTYPES:
+        raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
+    if not (1 <= rows <= TILE_M and n > 0 and n % CHUNK == 0 and cols > 0
+            and cols % 64 == 0 and reps >= 0):
+        raise ValueError(
+            f"the chained-dot kernel takes rows 1..{TILE_M}, n and cols "
+            f"multiples of 64 and reps >= 0, not rows {rows}, n {n}, cols "
+            f"{cols}, reps {reps}")
+    per_tile = rows * (TILE_M // rows)
+    tiles = -(-reps * rows // per_tile)
+    chunks = n // CHUNK
+    most = min(MAX_CLUSTER, chunks)
+    if width and (width not in WIDTHS or cols % width):
+        raise ValueError(f"width {width} is not one of {WIDTHS} dividing "
+                         f"cols {cols}")
+    if cluster and not 1 <= cluster <= most:
+        raise ValueError(f"cluster {cluster} outside 1..{most}")
+    choices = [(wd, c) for wd in ([width] if width else
+                                  [w for w in WIDTHS if cols % w == 0])
+               for c in ([cluster] if cluster else
+                         range(min(PLAN_CLUSTER, chunks), most + 1))]
+    fit = [(wd, c) for wd, c in choices
+           if dot_smem(variant, rows, n, wd, c) <= smem_limit]
+    if not fit:
+        raise ValueError(f"no CTA of the chained-dot kernel fits "
+                         f"{smem_limit} B of shared memory at n {n}")
+    wd, c = fit[0]
+    slices = cols // wd
+    smem = dot_smem(variant, rows, n, wd, c)
+    groups = max(1, min(tiles, active(wd, c, smem) // slices))
+    return DotPlan(per_tile, tiles, wd, slices, c, groups, smem,
+                   tiles * TILE_M * n * cols)
+
+
+def tile_source_rows(rows: int, reps: int, per_tile: int, tile: int):
+    """Row of ``a`` that each of the 64 accumulator rows of ``tile`` reads
+    (the kernel's row map), −1 for a zero row: rows j ≥ H and stacked rows
+    past the last rep."""
+    src = np.full(TILE_M, -1, np.int64)
+    j = np.arange(min(per_tile, TILE_M))
+    g = tile * per_tile + j
+    real = g < reps * rows
+    src[j[real]] = (j[real] % rows - g[real] // rows) % rows
+    return src
+
+
+def rank_rows(plan: DotPlan, n: int, rank: int) -> range:
+    """The rows of w (the K range) of cluster rank ``rank``: its 64-row
+    chunks [q·NC/C, (q+1)·NC/C)."""
+    chunks = n // CHUNK
+    return range(rank * chunks // plan.cluster * CHUNK,
+                 (rank + 1) * chunks // plan.cluster * CHUNK)
+
+
+def group_tiles(plan: DotPlan, group: int) -> range:
+    """The tiles of tile group ``group``: [g·T/G, (g+1)·T/G)."""
+    return range(group * plan.tiles // plan.groups,
+                 (group + 1) * plan.tiles // plan.groups)
 
 
 def probe_inputs(rows: int, n: int, cols: int, variant: str, device="cpu",
@@ -93,20 +230,61 @@ def _library():
     if lib.fem_chained_dot.argtypes is None:
         lib.fem_chained_dot.argtypes = [
             ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, _P, _P,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+            _P,
         ]
         lib.fem_chained_dot.restype = ctypes.c_int
+        lib.fem_chained_dot_smem.argtypes = [ctypes.c_int] * 5
+        lib.fem_chained_dot_smem.restype = ctypes.c_int
+        lib.fem_chained_dot_active_clusters.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.fem_chained_dot_active_clusters.restype = ctypes.c_int
         lib.fem_chained_dot_error.argtypes = [ctypes.c_int]
         lib.fem_chained_dot_error.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=64)
+def _active_clusters(device_index: int, variant: str, width: int,
+                     cluster: int, smem: int) -> int:
+    """How many clusters of ``cluster`` CTAs of ``smem`` bytes at slice
+    width ``width`` the device runs at once (once per shape)."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_chained_dot_active_clusters(
+            VARIANTS.index(variant), width, cluster, smem, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError("chained-dot kernel: the occupancy query failed: "
+                           f"{lib.fem_chained_dot_error(rc).decode()}")
+    return out.value
+
+
+@functools.lru_cache(maxsize=64)
+def _check_smem(variant: str, rows: int, n: int, width: int,
+                cluster: int) -> None:
+    """Raise unless the plan's shared memory is the kernel's (once per
+    shape)."""
+    want = _library().fem_chained_dot_smem(VARIANTS.index(variant), rows, n,
+                                           width, cluster)
+    mine = dot_smem(variant, rows, n, width, cluster)
+    if want != mine:
+        raise RuntimeError(f"chained-dot kernel: the plan's {mine} B of "
+                           f"shared memory differ from the kernel's {want}")
+
+
+
+
 def chained_dot(a: torch.Tensor, w: torch.Tensor, reps: int,
                 variant: str) -> torch.Tensor:
     """Σ_{r < reps} roll(a, r, rows) @ w.  CUDA tensors: one launch of the
-    probe kernel's ``variant``; n must divide by 256 (bf16 MMA) or 512
-    (int8 MMA), cols by 8, and rows be 1..16.  CPU tensors:
-    :func:`chained_dot_plain`."""
+    probe kernel's ``variant``, tiled as :func:`chained_dot_plan` says;
+    rows must be 1..64, n and cols multiples of 64, and a CTA's staging
+    (:func:`dot_smem`) fit the device's shared memory — else
+    ``ValueError`` or, from the kernel, ``RuntimeError``.  The plan is left
+    in ``chained_dot.last_plan``, the MACs the kernel issued in
+    ``chained_dot.last_macs`` (a (1,) int64 tensor on the device).  CPU
+    tensors: :func:`chained_dot_plain`."""
     if a.device.type == "cpu":
         return chained_dot_plain(a, w, reps, variant)
     if a.device.type != "cuda":
@@ -116,23 +294,43 @@ def chained_dot(a: torch.Tensor, w: torch.Tensor, reps: int,
     cols = w.shape[1]
     for name, t in (("a", a), ("w", w)):
         cuda_build.check_operand(name, t, tuple(t.shape), t.dtype, a.device)
-    out = torch.empty((rows, cols), dtype=DTYPES[variant][2], device=a.device)
+    index = a.device.index if a.device.index is not None else (
+        torch.cuda.current_device())
+    plan = chained_dot_plan(
+        rows, n, cols, int(reps), variant,
+        functools.partial(_active_clusters, index, variant))
+    _check_smem(variant, rows, n, plan.width, plan.cluster)
+    out_t = DTYPES[variant][2]
+    out = torch.empty((rows, cols), dtype=out_t, device=a.device)
+    scratch = torch.empty(
+        (plan.slices * plan.groups * rows * plan.width
+         if plan.groups > 1 else 1,), dtype=out_t, device=a.device)
+    # The MAC counter, then the groups' int32 tickets (zeroed by the launch).
+    macs = torch.empty((1 + -(-plan.slices * plan.cluster // 2),),
+                       dtype=torch.int64, device=a.device)
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.fem_chained_dot(VARIANTS.index(variant), a.data_ptr(),
                                  w.data_ptr(), rows, n, cols, int(reps),
-                                 out.data_ptr(), stream)
+                                 plan.width, plan.cluster, plan.groups,
+                                 out.data_ptr(), scratch.data_ptr(),
+                                 macs.data_ptr(), stream)
     if rc != 0:
         msg = lib.fem_chained_dot_error(rc).decode()
         raise RuntimeError(f"chained-dot kernel launch failed ({variant}, "
-                           f"{rows}x{n}x{cols}): {msg}")
+                           f"{rows}x{n}x{cols}, {plan.cluster} CTAs a "
+                           f"slice, {plan.smem} B of shared memory): {msg}")
     count_launch(chained_dot, variant)
+    chained_dot.last_plan = plan
+    chained_dot.last_macs = macs[:1]
     return out
 
 
 chained_dot.launches = 0
 chained_dot.instance_launches = {}  # {(variant,): launches}
+chained_dot.last_plan = None
+chained_dot.last_macs = None
 
 
 def stacked(a: torch.Tensor, reps: int) -> torch.Tensor:

@@ -154,8 +154,9 @@ _WINDOWS = 10
 def _time_us(fn, iters: int):
     """(device µs a launch of the probe kernel, from the profiler; wall µs
     a call, from CUDA events around ``iters`` back-to-back calls, which the
-    host's wrapper bounds when it outlasts the kernel).  A window that saw
-    no launch of it is taken again, after a pause, up to _WINDOWS."""
+    host's wrapper bounds when it outlasts the kernel; the windows taken,
+    each a warm-up call and ``iters`` calls).  A window that saw no launch
+    of it is taken again, after a pause, up to _WINDOWS."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(_WINDOWS):
@@ -176,7 +177,8 @@ def _time_us(fn, iters: int):
                                  getattr(e, "self_cuda_time_total", 0.0))
                 count += e.count
         if count:
-            return total / count, start.elapsed_time(stop) / iters * 1e3
+            return (total / count, start.elapsed_time(stop) / iters * 1e3,
+                    attempt + 1)
         time.sleep(0.05 * (attempt + 1))
     raise RuntimeError(f"the profiler saw no launch of the probe kernel in "
                        f"{_WINDOWS} windows")
@@ -225,7 +227,7 @@ def main(argv=None) -> int:
     base = paired_matvec(blk, kp, blocked_gather_planar(state.pos, blk), d, 1)
     for pair in PAIRS:
         blk_p, kp_p, xbt_p = padded_inputs(blk, kp, state.pos, pair)
-        us, wall = _time_us(
+        us, wall, main.windows[pair] = _time_us(
             lambda: paired_matvec(blk_p, kp_p, xbt_p, d, pair), args.iters)
         out = paired_matvec(blk_p, kp_p, xbt_p, d, pair)
         diff = float((out[: base.shape[0]] - base).abs().max())
@@ -235,6 +237,11 @@ def main(argv=None) -> int:
               f"{diff:.2e}, {blk_p.num_blocks} blocks; {wall:.1f} us a "
               f"call back to back, the host wrapper included)", flush=True)
     return 0
+
+
+# {pair: profiler windows the last run took} (each window launches the
+# kernel iters + 1 times).
+main.windows = {}
 
 
 if __name__ == "__main__":

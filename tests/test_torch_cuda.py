@@ -1697,3 +1697,84 @@ def test_chained_dot_kernel_matches_plain(variant):
         top = float(ref.abs().max())
         assert float((out - ref).abs().max()) <= 1e-4 * top
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("preconditioned", [False, True])
+@pytest.mark.parametrize("variant", ["auto", "single", "cluster 1",
+                                     "cluster 3", "cluster 16"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fused_frame_variants_match_plain_and_count_barriers(
+        body, body_2d, dim, variant, preconditioned):
+    """K11b in each variant — the plan's (the cluster variant), the single
+    CTA, clusters of 1, 3 and 16 CTAs forced — against its plain version at
+    the tolerances of test_fused_frame_kernel_matches_plain_and_repeats,
+    twice bit-identical, the barriers its kernel counted equal to
+    ``frame_barriers``; a cluster of 17 is refused before any launch."""
+    from fem_tpu_torch.experiments import fused_frame as ff
+
+    obj, state = body if dim == 3 else body_2d
+    centers, radii = _circles(state.pos)
+    args = (state.pos, state.vel, torch.zeros_like(state.vel), obj.ref_inv,
+            obj.volume, obj.element_indices, obj.plan, obj.mass, centers,
+            radii)
+    kw = dict(dt=5e-4, damping=10.0, g_dir=[0.0, -1.0, 0.0][:dim], mu=obj.mu,
+              s_lambda=obj.s_lambda, preconditioned=preconditioned,
+              sim_count=4)
+    if variant == "auto":
+        opts = {}
+    elif variant == "single":
+        opts = dict(single=True)
+    else:
+        opts = dict(cluster=int(variant.split()[1]))
+    out = ff.fused_frame(*args, **kw, **opts)
+    plan = ff.fused_frame.last_plan
+    barriers = int(ff.fused_frame.last_barriers.item())
+    again = ff.fused_frame(*args, **kw, **opts)
+    ref = ff.fused_frame_plain(*args, **kw)
+    assert plan.variant == ("single" if variant == "single" else "cluster")
+    if "cluster" in opts:
+        assert plan.size == opts["cluster"]
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    assert (float((out[1] - ref[1]).abs().max())
+            <= 1e-4 * float(ref[1].abs().max()))
+    assert float((out[2] - ref[2]).abs().max()) <= TOL
+    its, itp = out[3].tolist(), ref[3].tolist()
+    assert max(its) > 0
+    assert all(abs(a - b) <= 1 for a, b in zip(its, itp))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert barriers == ff.frame_barriers(plan.variant, preconditioned, its)
+    with pytest.raises(ValueError, match="does not fit"):
+        ff.fused_frame(*args, **kw, cluster=17)
+
+
+P2_SHAPES = [(6, 1024, 2048, 200), (7, 128, 64, 3), (64, 256, 128, 5),
+             (1, 64, 192, 11), (33, 192, 64, 4), (5, 320, 768, 9),
+             (6, 128, 64, 0), (5, 3072, 512, 13)]
+
+
+@pytest.mark.parametrize("variant", ["bf16xbf16", "int8xint8", "int8xbf16"])
+@pytest.mark.parametrize("shape", P2_SHAPES, ids=str)
+def test_chained_dot_tilings_match_plain(shape, variant):
+    """P2 at the probe's defaults and at edge shapes — rows not dividing 64,
+    reps not filling a tile, 64-column slices (cols not a multiple of 256),
+    n of one 64-row chunk or of several a cluster rank, no reps, clusters of
+    1 to 8 CTAs: int8 × int8 exact, bf16 within 1e-4 of the largest entry,
+    twice bit-identical, and the MACs the kernel counted equal to the plan's
+    tiles·64·n·cols, at least reps·rows·n·cols (no rep folded)."""
+    _require_cuda()
+    from fem_tpu_torch.probes import int8 as p2
+
+    rows, n, cols, reps = shape
+    a, w = p2.probe_inputs(rows, n, cols, variant, "cuda")
+    ref = p2.chained_dot_plain(a, w, reps, variant)
+    out = p2.chained_dot(a, w, reps, variant)
+    plan = p2.chained_dot.last_plan
+    macs = int(p2.chained_dot.last_macs.item())
+    again = p2.chained_dot(a, w, reps, variant)
+    if variant == "int8xint8":
+        assert torch.equal(out, ref)
+    else:
+        top = float(ref.abs().max()) if reps else 0.0
+        assert float((out - ref).abs().max()) <= 1e-4 * top
+    assert torch.equal(out, again)
+    assert macs == plan.macs >= reps * rows * n * cols
