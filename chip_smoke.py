@@ -15,8 +15,8 @@ the fused advection (AD) — and the unblocked whole frame, the ``"mxu"``
 operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), and holds
 every CUDA kernel of those paths against its plain PyTorch version.  K5
 runs as its cluster variant on every path (each mesh there fits one
-thread-block cluster; ``counts()`` fails the run otherwise), and section 48
-holds both of its variants:
+thread-block cluster; ``counts()`` fails the run otherwise), as do K8 and
+K4, and sections 48-50 hold every variant of the three:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: every kernel from ``fem_tpu_torch/csrc/`` with nvcc for sm_90a,
@@ -50,8 +50,9 @@ holds both of its variants:
     frames; K2 launches frames × 10 times and K3 Σ(3 + 2·iterations)
     times; the first frame equals the CPU frame to 1e-5; steps/s;
 11. path C, the substep entry (``fem_tpu_torch.entry.entry``): 10
-    substeps; K1 and K4 launch once a substep; the first substep equals the
-    CPU plain substep to 1e-5; steps/s (one substep a call);
+    substeps after a warm-up substep; K1 and K4 launch once a substep; the
+    first substep equals the CPU plain substep to 1e-5; steps/s (one
+    substep a call);
 12. path D, the explicit flagship frame (``sim.make_frame_fn`` on
     ``entry.explicit_flagship``: the body 0.01 above the floor, falling at
     1 m/s): 30 frames; K8 launches once a frame and no other kernel;
@@ -185,12 +186,16 @@ holds both of its variants:
     time per launch in 3D and in 2D (profiler; the run fails if it sees no
     launch of it), its plain version's time (CUDA events), the least time
     the card could take (bound) and, for K3, K7a and K7b edges, one PyTorch
-    sparse product (library yardstick), printed as one ``kernels`` JSON
+    sparse product (library yardstick, its device time from the profiler
+    as the kernels' is), printed as one ``kernels`` JSON
     line with a row per kernel and dimension, the inelastic instances of K5
     and K8 rows of their own, and a row per material and robust instance
     (with ``material`` and ``robust`` keys); K5's rows name the variant,
     its CTAs, threads a CTA and the barriers the kernel counted in a frame
-    (the run fails unless they are those ``frame_barriers`` places there).
+    (the run fails unless they are those ``frame_barriers`` places there),
+    and K8's and K4's rows likewise (``explicit_frame_barriers``,
+    ``fused_cg_barriers``; K4's a solve).  Every path's K5, K8 and K4 ran
+    their cluster variants (``counts()`` fails the run otherwise).
     The build's lines give each library's seconds and the registers and
     spills of every instance.
 42. K11a, the edge-matrix CG (``experiments/edge_cg.py``), against its
@@ -231,7 +236,8 @@ holds both of its variants:
 47. their times: each kernel's device ms (profiler), plain ms (CUDA
     events), bound and ``library_ms`` (P1: ``torch.sparse.mm``, as K3; P2:
     one ``torch.matmul`` in bf16 or ``torch._int_mm`` over the stacked
-    rotations; none for K11a and K11b), rows of the kernels line;
+    rotations; none for K11a and K11b; the library call's device time from
+    the profiler), rows of the kernels line;
 48. K5's variants: the automatic plan, the grid variant (one CTA a block)
     and clusters of 1, 3 and 16 CTAs, on the flagship, ``default.json``
     squeezed and the 40-subdivision grid squeezed, each against
@@ -240,7 +246,26 @@ holds both of its variants:
     ‖r‖² ≤ tol leaves them, ``vel_g`` within 1e-5, twice bit-identical; a cluster whose state exceeds a CTA's shared
     memory raises), with its device ms and the barriers the kernel counted
     in a frame (equal to ``frame_barriers``'), printed as one
-    ``k5_variants`` JSON line.
+    ``k5_variants`` JSON line;
+49. K8's variants: the automatic plan (the cluster variant), the grid
+    variant (one CTA a block) and clusters of 1, 3 and 16 CTAs, on the
+    explicit flagship, ``default.json`` squeezed, the 40-subdivision grid
+    squeezed and both ``demo_plastic.json`` bodies (each with its internal
+    state), each against ``fused_explicit_frame_plain`` (positions and
+    internal inverses within 1e-5), twice bit-identical and bit-identical
+    to the grid variant, a cluster the plan refuses (more CTAs than blocks,
+    or a CTA beyond the shared memory) raising before the launch, with its
+    device ms and the barriers the kernel counted in a frame (equal to
+    ``explicit_frame_barriers``'), printed as one ``k8_variants`` JSON
+    line;
+50. K4's variants: the automatic plan (the cluster variant), the single
+    CTA and clusters of 1, 3 and 16 CTAs, on the flagship deformed and
+    ``default.json`` squeezed, ``preconditioned`` 0 and 1, each against
+    ``fused_cg_solve_plain`` (velocities rtol 5e-4 / atol 1e-6, equal
+    iterations), twice bit-identical, with its device ms and the barriers
+    the kernel counted in a solve (equal to ``fused_cg_barriers``'),
+    a cluster whose CTA exceeds the shared memory refused before the
+    launch, printed as one ``k4_variants`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -475,6 +500,17 @@ def kernel_ms(torch, fn, reps, names, windows=3):
     return total
 
 
+def library_device_ms(torch, fn, reps):
+    """Device milliseconds per call of ``fn``, one PyTorch library call
+    (the kernels line's ``library_ms``), which may launch several kernels of
+    its own: the device time of every kernel the profiler saw over ``reps``
+    calls, divided by ``reps`` — timed by the profiler as the port's kernels
+    are (kernel_ms), so that a kernel and its yardstick are both device
+    time and no launch overhead enters either."""
+    per_kernel, _ = profile_kernels(torch, fn, reps)
+    return sum(t for t, _ in per_kernel.values()) / reps
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -577,6 +613,58 @@ def k5_plan_keys(iterations, normal=True):
                 barriers_per_frame=met)
 
 
+def k8_kernel_name():
+    """The profiler's name of K8's last launch: the cluster or the grid
+    variant's kernel."""
+    from fem_tpu_torch.ops import frame_kernels as fk
+
+    plan = fk.fused_explicit_frame.last_plan
+    return ("cluster_explicit_frame_kernel" if plan.variant == "cluster"
+            else "explicit_frame_kernel")
+
+
+def k8_plan_keys(inelastic, sim_count):
+    """The kernels line's keys of K8's last launch: its variant, CTAs,
+    threads a CTA and the barriers the kernel counted in that frame, which
+    must be those that ``frame_kernels.explicit_frame_barriers`` places."""
+    from fem_tpu_torch.ops import frame_kernels as fk
+
+    plan = fk.fused_explicit_frame.last_plan
+    met = int(fk.fused_explicit_frame.last_barriers.item())
+    want = fk.explicit_frame_barriers(plan.variant, inelastic, sim_count)
+    require(met == want, f"K8 ({plan.variant}, {plan.size} CTAs) met {met} "
+            f"barriers in a frame of {sim_count} substeps, where "
+            f"explicit_frame_barriers places {want}")
+    return dict(variant=plan.variant, ctas=plan.size, threads=plan.threads,
+                barriers_per_frame=met)
+
+
+def k4_kernel_name():
+    """The profiler's name of K4's last launch."""
+    from fem_tpu_torch.ops import cg_kernels as cg
+
+    return ("cluster_fused_cg_kernel"
+            if cg.fused_cg_solve.last_plan.variant == "cluster"
+            else "fused_cg_kernel")
+
+
+def k4_plan_keys(normal, iterations):
+    """The kernels line's keys of K4's last launch: its variant, CTAs and
+    the barriers the kernel counted in that solve, which must be those that
+    ``cg_kernels.fused_cg_barriers`` places."""
+    from fem_tpu_torch.ops import cg_kernels as cg
+
+    plan = cg.fused_cg_solve.last_plan
+    met = int(cg.fused_cg_solve.last_barriers.item())
+    want = cg.fused_cg_barriers(plan.variant, normal, iterations)
+    require(met == want, f"K4 ({plan.variant}, {plan.size} CTAs) met {met} "
+            f"barriers in a solve of {iterations} iterations, where "
+            f"fused_cg_barriers places {want}")
+    return dict(variant=plan.variant, ctas=plan.size,
+                threads=256 if plan.variant == "cluster" else 1024,
+                barriers_per_solve=met)
+
+
 def graph_matrix(torch, element_indices, K, n):
     """G(K) as a (dN × dN) CSR matrix: per element, +K_e on (v_j, v_j) and
     −K_e on (v_j, v_0) and (v_0, v_j) for j = 1..d, +d·K_e on (v_0, v_0)
@@ -660,7 +748,7 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
         log(f"[{what}] torch.sparse.mm vs the kernel ({d}D): max abs "
             f"difference {err:.3e} of max {top:.3e}")
         require(err <= 1e-4 * top, f"library {what} differs ({d}D)")
-        return cuda_ms(torch, lib_fn, 200)
+        return library_device_ms(torch, lib_fn, 200)
 
     k1_args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
                obj.mu, obj.s_lambda)
@@ -673,11 +761,12 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
     solve = (K, H, obj.element_indices, obj.plan, state.vel, obj.mass,
              frame_kw["dt"], True)
     it = int(cg.fused_cg_solve(*solve)[1])
+    k4_keys = k4_plan_keys(True, it)
     put("fused_cg", lambda: cg.fused_cg_solve(*solve),
-        lambda: cg.fused_cg_solve_plain(*solve), 5, 100, ["fused_cg_kernel"],
+        lambda: cg.fused_cg_solve_plain(*solve), 5, 100, [k4_kernel_name()],
         nbytes(K, H, obj.element_indices, obj.plan.ptr, obj.plan.rows,
                state.vel, obj.mass, state.vel) + 8,
-        cg_ops(e, n, it, True, d), iterations=it)
+        cg_ops(e, n, it, True, d), iterations=it, **k4_keys)
 
     k2_args = (blk, state.pos, obj.mu, obj.s_lambda)
     Kb, part = bk.blocked_prep(*k2_args)
@@ -748,13 +837,14 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
     k8_args = (blk, state.pos, state.vel, obj.mass, obstacles.centers,
                obstacles.radii)
     k8_out = fk.fused_explicit_frame(*k8_args, **ekw)
+    k8_keys = k8_plan_keys(False, ekw["sim_count"])
     put("explicit_frame", lambda: fk.fused_explicit_frame(*k8_args, **ekw),
         lambda: fk.fused_explicit_frame_plain(*k8_args, **ekw), 5, FRAMES,
-        ["explicit_frame_kernel"],
+        [k8_kernel_name()],
         nbytes(blk.ref_inv, blk.volume, *tables, *plan, obj.mass,
                obstacles.centers, obstacles.radii, state.pos, state.vel,
                *k8_out),
-        explicit_frame_ops(e, n, slot_rows, ekw["sim_count"], d))
+        explicit_frame_ops(e, n, slot_rows, ekw["sim_count"], d), **k8_keys)
     return out
 
 
@@ -1668,7 +1758,8 @@ def time_inelastic_kernels(torch, d, timing):
     log(f"[K7b edges] torch.sparse.mm vs the kernel ({d}D): max abs "
         f"difference {err:.3e} on the real slots")
     require(err <= 1e-6, f"library K7b edges differs ({d}D)")
-    lib = cuda_ms(torch, lambda: torch.sparse.mm(smat, state.pos), 200)
+    lib = library_device_ms(torch, lambda: torch.sparse.mm(smat, state.pos),
+                            200)
     e_real = int(real.sum())
     e_pad = blk.volume.numel() - e_real
     put("blocked_edges", lambda: bk.blocked_edges(blk, state.pos),
@@ -1718,6 +1809,8 @@ def time_inelastic_kernels(torch, d, timing):
     ikw = inelastic_kwargs(obj, state)
     args = (blk, state.pos, state.vel, obj.mass, obs.centers, obs.radii)
     k8_out = fk.fused_explicit_frame(*args, **kw, **ikw)
+    k8_keys = k8_plan_keys(True, kw["sim_count"])
+    k8_name = k8_kernel_name()
     more_ops, more_bytes = inelastic_extra(obj, state, kw["sim_count"], False)
     tables = (blk.block_particles, blk.plus, blk.minus, blk.block_elements,
               blk.local_ptr, blk.local_rows)
@@ -1726,14 +1819,14 @@ def time_inelastic_kernels(torch, d, timing):
     put("explicit_frame_inelastic", lambda: fk.fused_explicit_frame(
             *args, **kw, **ikw),
         lambda: fk.fused_explicit_frame_plain(*args, **kw, **ikw), 2, FRAMES,
-        "explicit_frame_kernel",
+        k8_name,
         nbytes(blk.ref_inv, blk.volume, *tables, *plan, obj.mass,
                obs.centers, obs.radii, state.pos, state.vel, *k8_out[:2])
         + more_bytes,
         explicit_frame_ops(obj.element_cnt, obj.particle_cnt, slot_rows,
                            kw["sim_count"], d) + more_ops,
         states=[k for k in ("plastic_inv", "viscous_inv")
-                if getattr(state, k) is not None])
+                if getattr(state, k) is not None], **k8_keys)
     return out
 
 
@@ -2370,6 +2463,7 @@ def time_material_kernels(torch, d, timing, keys):
                                 ob.slot_plan.rows.numel(), iters, True, d,
                                 chain=chain)
             else:
+                plan_keys = k8_plan_keys(inelastic, kw["sim_count"])
                 ops = explicit_frame_ops(o.element_cnt, o.particle_cnt,
                                          ob.slot_plan.rows.numel(),
                                          kw["sim_count"], d, grad=grad)
@@ -2383,8 +2477,9 @@ def time_material_kernels(torch, d, timing, keys):
                     lambda plain=plain, fargs=fargs, kw=kw: plain(*fargs,
                                                                   **kw),
                     1, 10, k5_kernel_name() if kernel == "K5"
-                    else "explicit_frame_kernel", moved, ops)
-        plan_keys = plan_keys if counter == "blocked_frame" else {}
+                    else k8_kernel_name(), moved, ops)
+        plan_keys = (plan_keys if counter in ("blocked_frame",
+                                              "explicit_frame") else {})
         kernel, plain_fn, plain_reps, reps, kname, moved, ops = call
         bnd, by = bound(moved, ops)
         out[key] = dict(ms=kernel_ms(torch, kernel, reps, [kname]),
@@ -3348,7 +3443,7 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
     lib_err = float((torch.sparse.mm(gmat, xcol).reshape(-1, 3) - y).abs()
                     .max())
     require(lib_err <= 1e-4 * float(y.abs().max()), "P1 library differs")
-    lib = cuda_ms(torch, lambda: torch.sparse.mm(gmat, xcol), 200)
+    lib = library_device_ms(torch, lambda: torch.sparse.mm(gmat, xcol), 200)
     base_us = None
     for pair in p1.PAIRS:
         bp, kpp, xb = p1_in[pair]
@@ -3387,8 +3482,8 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
             nbytes(a, w, out), 2 * macs,
             peak=(PEAK_INT8_OPS_PER_S if name == "int8xint8"
                   else PEAK_BF16_OPS_PER_S),
-            library=cuda_ms(torch, lambda: p2.library_call(a_stack, w_lib,
-                                                           name), 50),
+            library=library_device_ms(
+                torch, lambda: p2.library_call(a_stack, w_lib, name), 50),
             variant=name, reps=reps, us_per_dot=per_dot[name],
             width=plan.width, cluster=plan.cluster, groups=plan.groups,
             ctas=plan.slices * plan.cluster * plan.groups,
@@ -3469,6 +3564,135 @@ def run_k5_variants(torch, card, cases):
     return rows
 
 
+# -- K8's and K4's variants (sections 49 and 50) ----------------------------
+
+K8_CLUSTERS = (1, 3, 16)  # forced cluster sizes of section 49
+K4_CLUSTERS = (1, 3, 16)  # and of section 50
+
+
+def run_k8_variants(torch, card, cases):
+    """Section 49: K8 in each variant — the automatic plan, the grid variant
+    (one CTA a block) and clusters of K8_CLUSTERS CTAs — against
+    ``fused_explicit_frame_plain`` on the card for each of ``cases`` (label,
+    body, state, obstacles, frame kwargs with the internal state when the
+    body is inelastic): positions and the internal inverses within 1e-5,
+    two runs bit-identical, every variant bit-identical to the grid
+    variant, a cluster the plan refuses (more CTAs than blocks, or a CTA
+    beyond the shared memory) raising before any launch; each variant's
+    device ms a frame (profiler) and the barriers its kernel counted in a
+    frame.  Returns the rows of the ``k8_variants`` line."""
+    from fem_tpu_torch.ops import frame_kernels as fk
+
+    rows = []
+    for label, obj, state, obs, kw in cases:
+        blk = obj.blocking
+        args = (blk, state.pos, state.vel, obj.mass, obs.centers, obs.radii)
+        inelastic = kw.get("plastic_inv") is not None or \
+            kw.get("viscous_inv") is not None
+        ref = fk.fused_explicit_frame_plain(*args, **kw)
+        grid_out = fk.fused_explicit_frame(*args, **kw, grid=blk.num_blocks)
+        variants = [("auto", {}), ("grid", dict(grid=blk.num_blocks))] + [
+            (f"cluster {c}", dict(cluster=c)) for c in K8_CLUSTERS]
+        for name, launch in variants:
+            def go(launch=launch):
+                return fk.fused_explicit_frame(*args, **kw, **launch)
+            before = fk.fused_explicit_frame.launches
+            try:
+                out = go()
+            except ValueError as exc:
+                require(fk.fused_explicit_frame.launches == before,
+                        f"K8 {label}, {name}: launched, then raised")
+                require("cluster" in launch, f"K8 {label}, {name}: {exc}")
+                log(f"[K8 variants] {label}, {name}: refused before the "
+                    f"launch, as it must be: {exc}")
+                continue
+            again = go()
+            torch.cuda.synchronize()
+            keys = k8_plan_keys(inelastic, kw["sim_count"])
+            if name == "auto":
+                require(keys["variant"] == "cluster",
+                        f"K8 {label}: the plan chose {keys}")
+            err = float((out[0] - ref[0]).abs().max())
+            serr = max([float((a - b).abs().max())
+                        for a, b in zip(out[2:], ref[2:])] or [0.0])
+            verr = float((out[1] - ref[1]).abs().max())
+            require(err <= 1e-5 and serr <= 1e-5,
+                    f"K8 {label}, {name}: positions off by {err}, the "
+                    f"internal state by {serr}")
+            require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                    f"K8 {label}, {name}: runs differ")
+            require(all(torch.equal(a, b) for a, b in zip(out, grid_out)),
+                    f"K8 {label}, {name}: differs from the grid variant")
+            ms = kernel_ms(torch, go, 20, [k8_kernel_name()])
+            log(f"[K8 variants] {label}, {name}: {keys}; {ms:.5f} ms a frame "
+                f"(profiler); max |dpos| {err:.3e}, |dvel| {verr:.3e}, "
+                f"|dF_i^-1| {serr:.3e}; twice bit-identical and equal to the "
+                f"grid variant; card {card}")
+            rows.append(dict(scene=label, launch=name, ms=ms,
+                             max_abs_err=max(err, serr), **keys))
+    return rows
+
+
+def run_k4_variants(torch, card, cases):
+    """Section 50: K4 in each variant — the automatic plan, the single CTA
+    and clusters of K4_CLUSTERS CTAs — against ``fused_cg_solve_plain`` on
+    the card for each of ``cases`` (label, body, state, dt), both
+    ``preconditioned`` values: velocities rtol 5e-4 / atol 1e-6, equal
+    iterations (the plain solves stay short), two runs bit-identical, the
+    barriers the kernel counted; each variant's device ms a solve
+    (profiler).  Returns the rows of the ``k4_variants`` line."""
+    from fem_tpu_torch.ops import cg_kernels as cg, element_kernels as ek
+
+    rows = []
+    for label, obj, state, dt in cases:
+        K, H = ek.hessian_and_force(state.pos, obj.element_indices,
+                                    obj.ref_inv, obj.volume, obj.mu,
+                                    obj.s_lambda)
+        for pre in (True, False):
+            solve = (K, H, obj.element_indices, obj.plan, state.vel, obj.mass,
+                     dt, pre)
+            vp, itp, _ = cg.fused_cg_solve_plain(*solve)
+            require(int(itp) <= 20, f"K4 {label}: a long plain solve ({itp})")
+            variants = [("auto", {}), ("single", dict(single=True))] + [
+                (f"cluster {c}", dict(cluster=c)) for c in K4_CLUSTERS]
+            for name, launch in variants:
+                def go(launch=launch):
+                    return cg.fused_cg_solve(*solve, **launch)
+                before = cg.fused_cg_solve.launches
+                try:
+                    v, it, res = go()
+                except ValueError as exc:
+                    require(cg.fused_cg_solve.launches == before
+                            and "cluster" in launch,
+                            f"K4 {label}, {name}: {exc}")
+                    log(f"[K4 variants] {label}, {name}: refused before the "
+                        f"launch, as it must be: {exc}")
+                    continue
+                v2, it2, res2 = go()
+                torch.cuda.synchronize()
+                keys = k4_plan_keys(pre, int(it))
+                if name == "auto":
+                    require(keys["variant"] == "cluster",
+                            f"K4 {label}: the plan chose {keys}")
+                err = float((v - vp).abs().max())
+                torch.testing.assert_close(v, vp, rtol=5e-4, atol=1e-6)
+                require(int(it) == int(itp),
+                        f"K4 {label}, {name}: {int(it)} iterations, plain "
+                        f"{int(itp)}")
+                require(torch.equal(v, v2) and torch.equal(it, it2)
+                        and torch.equal(res, res2),
+                        f"K4 {label}, {name}: runs differ")
+                ms = kernel_ms(torch, go, 20, [k4_kernel_name()])
+                log(f"[K4 variants] {label}, preconditioned={int(pre)}, "
+                    f"{name}: {keys}; {ms:.5f} ms a solve (profiler); "
+                    f"iterations {int(it)} (plain {int(itp)}); max |dvel| "
+                    f"{err:.3e}; twice bit-identical; card {card}")
+                rows.append(dict(scene=label, preconditioned=pre,
+                                 launch=name, ms=ms, iterations=int(it),
+                                 max_abs_err=err, **keys))
+    return rows
+
+
 def main():
     import torch
 
@@ -3525,17 +3749,23 @@ def main():
             if hasattr(fn, "instance_launches"):
                 fn.instance_launches = {}
         frame_kernels.fused_blocked_frame.variant_launches = {}
+        frame_kernels.fused_explicit_frame.variant_launches = {}
+        cg_kernels.fused_cg_solve.variant_launches = {}
         fused_frame.fused_frame.variant_launches = {}
 
     def counts():
-        """The launch counts since the last zero_counts(); K5's launches on a
-        path are all of the cluster variant (each mesh of the paths fits one
-        cluster), logged by (variant, CTAs)."""
-        k5 = frame_kernels.fused_blocked_frame.variant_launches
-        if k5:
-            log(f"[K5 variant] launches by (variant, CTAs): {k5}")
-            require(all(v == "cluster" for v, _ in k5),
-                    f"K5 ran the grid variant on a path: {k5}")
+        """The launch counts since the last zero_counts(); K5's, K8's and
+        K4's launches on a path are all of their cluster variants (each mesh
+        of the paths fits one cluster), logged by (variant, CTAs)."""
+        for name, fn, other in (
+                ("K5", frame_kernels.fused_blocked_frame, "grid"),
+                ("K8", frame_kernels.fused_explicit_frame, "grid"),
+                ("K4", cg_kernels.fused_cg_solve, "single")):
+            by = fn.variant_launches
+            if by:
+                log(f"[{name} variant] launches by (variant, CTAs): {by}")
+                require(all(v == "cluster" for v, _ in by),
+                        f"{name} ran the {other} variant on a path: {by}")
         return {k: fn.launches for k, fn in counters.items()}
 
     def instances():
@@ -3805,6 +4035,10 @@ def main():
 
     # -- 11. path C: the substep entry --------------------------------------
     fn, (obj_c, state_c, obs_c) = entry.entry(dev)
+    # A warm-up substep, not counted: K4 plans its cluster on the host at
+    # its first call on a mesh.
+    fn(obj_c, state_c, obs_c)
+    torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
     s, iters_c = state_c, []
@@ -4030,17 +4264,22 @@ def main():
 
     l_keys = k5_plan_keys(k5_l()[3].tolist())
     times2["blocked_frame"]["plan_40_subdivisions"] = l_keys
-    for name, kernel, key in (
-        ("blocked_frame", k5_l, k5_kernel_name()),
-        ("explicit_frame", lambda: frame_kernels.fused_explicit_frame(
-            *largs, *lcirc, **two["l_kw"]["explicit"]),
-         "explicit_frame_kernel"),
+    def k8_l():
+        return frame_kernels.fused_explicit_frame(
+            *largs, *lcirc, **two["l_kw"]["explicit"])
+
+    k8_l()
+    l8_keys = k8_plan_keys(False, two["l_kw"]["explicit"]["sim_count"])
+    times2["explicit_frame"]["plan_40_subdivisions"] = l8_keys
+    for name, kernel, key, keys in (
+        ("blocked_frame", k5_l, k5_kernel_name(), l_keys),
+        ("explicit_frame", k8_l, k8_kernel_name(), l8_keys),
     ):
         ms = kernel_ms(torch, kernel, FRAMES_L, [key])
         times2[name]["ms_40_subdivisions"] = ms
         log(f"[time] 2D {name} at 40 subdivisions ({lblk.num_blocks} "
             f"blocks): {ms:.5f} ms a frame on the device (profiler); "
-            f"{l_keys if name == 'blocked_frame' else ''} card {card}")
+            f"{keys} card {card}")
 
     for d, times, launches, errors in ((3, times3, launches3, errors3),
                                        (2, times2, two["launches"],
@@ -4087,6 +4326,40 @@ def main():
          two["l_kw"]["implicit"])))
     log(json.dumps({"k5_variants": variant_rows}))
     log(f"[K5 variants] section 48 in {time.perf_counter() - t_var:.1f} s")
+
+    # -- 49. K8's variants against the plain frame ---------------------------
+    from fem_tpu_torch import scene
+    from fem_tpu_torch.utils.config import read_config
+
+    t_var = time.perf_counter()
+    pcfg = read_config(os.path.join(REPO, "configs", "demo_plastic.json"))
+    pbodies, pobs = scene.load_scene(pcfg, device=dev)
+    plastic_cases = []
+    for i, pbody in enumerate(pbodies):
+        po, ps = pbody.obj, pbody.state
+        pkw = dict(dt=pcfg.delta_time, damping=po.damping,
+                   g_dir=tuple(pcfg.g_dir), mu=po.mu, s_lambda=po.s_lambda,
+                   sim_count=pcfg.sim_count, material=po.material,
+                   **sim._internal_kwargs(po, ps))
+        plastic_cases.append((f"demo_plastic.json body {i}", po,
+                              squeezed_2d(torch, ps, gen_l), pobs, pkw))
+    k8_rows = run_k8_variants(torch, card, (
+        ("flagship", eobj, estate, eobs, ekw),
+        ("default.json", two["obj"], two["state"], two["obstacles"],
+         two["frame_kw"]),
+        ("40 subdivisions", lobj, squeezed_2d(torch, lstate, gen_l), lobs,
+         two["l_kw"]["explicit"]),
+        *plastic_cases))
+    log(json.dumps({"k8_variants": k8_rows}))
+    log(f"[K8 variants] section 49 in {time.perf_counter() - t_var:.1f} s")
+
+    # -- 50. K4's variants against the plain solve ---------------------------
+    t_var = time.perf_counter()
+    k4_rows = run_k4_variants(torch, card, (
+        ("flagship", obj, state, cfg.delta_time),
+        ("default.json", two["obj"], two["state"], two["frame_kw"]["dt"])))
+    log(json.dumps({"k4_variants": k4_rows}))
+    log(f"[K4 variants] section 50 in {time.perf_counter() - t_var:.1f} s")
     log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -213,29 +213,31 @@ def cluster_assignment(element_indices, ptr, rows, n: int,
 
 
 def cluster_smem(elements: int, cap: int, entries: int, pushes: int,
-                 dim: int) -> int:
+                 dim: int, vectors: int = 7) -> int:
     """Bytes of dynamic shared memory of a cluster CTA holding ``elements``
     elements and ``cap`` local particles, whose owned particles have
     ``entries`` plan rows and ``pushes`` other holders: two copies of the
     receive slots (rows padded to 4 floats in 3D), two receive buffers of
-    per-particle sums (padded rows), the elements' K, seven local vectors
-    of d floats and 1/m, the ranks' dot partials (two copies of 16), the
+    per-particle sums (padded rows), the elements' K, ``vectors`` local
+    vectors of d floats (K11b's seven: pos, vel, vel_g, x, r, d, q; K4's
+    five) and 1/m, the ranks' dot partials (two copies of 16), the
     elements' local vertex ids and row destinations, the local particles'
     ids, the owned particles' spans of slots and push codes, and the push
-    codes (csrc/fused_frame.cu: cluster_smem_words)."""
+    codes (csrc/cluster_cg.cuh: smem_words)."""
     rs = _ROW_STRIDE[dim]
     return _F32 * (_PARTS * rs * entries + 2 * rs * cap
-                   + dim * dim * elements + cap * (7 * dim + 1)
+                   + dim * dim * elements + cap * (vectors * dim + 1)
                    + 2 * MAX_RANKS + 2 * (dim + 1) * elements + cap
                    + 2 * (cap + 1) + pushes)
 
 
 def fused_frame_plan(element_indices, ptr, rows, n: int, dim: int,
                      limits: FrameLimits, cluster: int = 0,
-                     single: bool = False) -> FusedPlan:
+                     single: bool = False, vectors: int = 7) -> FusedPlan:
     """K11b's variant, its CTAs and their shared memory, from the mesh (the
     host arrays of :func:`cluster_assignment`) and the device's
-    ``limits``.
+    ``limits``; with ``vectors`` 5 K4's (ops/cg_kernels.fused_cg_solve),
+    whose CTA holds two local vectors fewer (:func:`cluster_smem`).
 
     Forced: ``single`` gives the single variant, ``cluster`` > 0 the
     cluster variant of that many CTAs, refused (``ValueError``) when its CTA
@@ -262,7 +264,8 @@ def fused_frame_plan(element_indices, ptr, rows, n: int, dim: int,
 
     def plan(c):
         asg = cluster_assignment(element_indices, ptr, rows, n, c)
-        return FusedPlan("cluster", c, cluster_smem(*asg.sizes(), dim))
+        return FusedPlan("cluster", c, cluster_smem(*asg.sizes(), dim,
+                                                    vectors))
 
     if cluster:
         forced = plan(cluster)
@@ -424,25 +427,31 @@ def _check_cluster(device_index: int, plan: FusedPlan, sizes, dim: int):
             f"shared memory each; {most.value} such clusters fit at once)")
 
 
-# (id(element_indices), id(plan)) → (the two, {(limits, cluster, single):
-# (plan, its assignment's sizes and device tensors)}); the tensors are
-# held so that their ids are not reused.
+# (id(element_indices), id(plan)) → (the two, their version counters,
+# {(limits, cluster, single, vectors): (plan, its assignment's sizes and
+# device tensors)}); the tensors are held so that their ids are not reused,
+# and a change in place (a new version) plans again.
 _PLANS: dict = {}
 
 
-def _planned(element_indices, plan, n, dim, limits, cluster, single):
+def _planned(element_indices, plan, n, dim, limits, cluster, single,
+             vectors=7):
     key = (id(element_indices), id(plan))
+    versions = (element_indices._version, plan.ptr._version,
+                plan.rows._version)
     hit = _PLANS.get(key)
-    if hit is None or hit[0] is not element_indices or hit[1] is not plan:
-        if len(_PLANS) >= 32:
+    if (hit is None or hit[0] is not element_indices or hit[1] is not plan
+            or hit[2] != versions):
+        if key not in _PLANS and len(_PLANS) >= 32:
             _PLANS.pop(next(iter(_PLANS)))
-        hit = _PLANS[key] = (element_indices, plan, {})
-    by_launch = hit[2]
-    opts = (limits, cluster, single)
+        hit = _PLANS[key] = (element_indices, plan, versions, {})
+    by_launch = hit[3]
+    opts = (limits, cluster, single, vectors)
     if opts not in by_launch:
         host = (element_indices.cpu().numpy(), plan.ptr.cpu().numpy(),
                 plan.rows.cpu().numpy())
-        fplan = fused_frame_plan(*host, n, dim, limits, cluster, single)
+        fplan = fused_frame_plan(*host, n, dim, limits, cluster, single,
+                                 vectors)
         tables = None
         if fplan.variant == "cluster":
             asg = cluster_assignment(*host, n, fplan.size)

@@ -5,7 +5,13 @@
 ``fem_tpu_torch/csrc/fused_cg.cu`` for tensors on a CUDA device; it replaces
 the JAX package's Pallas kernel ``ops/pallas_blocked_cg.py:_fused_cg_kernel``
 (entry ``fused_blocked_cg_solve``), in the dimension of the velocities (2
-or 3; one kernel template, two instances).  For tensors on the CPU it runs
+or 3; one kernel template, two instances).  Its two variants, chosen by
+K11b's plan (``experiments/fused_frame.fused_frame_plan``) before the
+launch: the **cluster** variant (one thread-block cluster, each CTA a
+contiguous range of elements with the solve's state in shared memory:
+every mesh whose state fits one cluster) or else the **single** variant
+(one CTA of 1,024 threads, the state in device memory: any mesh);
+``cluster=`` or ``single=True`` force one.  For tensors on the CPU it runs
 ``fused_cg_solve_plain``, a Python loop over the same operator.  On CUDA it
 launches the kernel or raises; it never falls back.
 
@@ -30,6 +36,7 @@ operator's pieces: Rayleigh β in the system coefficient
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -44,6 +51,8 @@ from fem_tpu_torch.ops.assembly import (
 from fem_tpu_torch.utils import cuda_build
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
 
 
 class CGResult(NamedTuple):
@@ -294,21 +303,109 @@ def fused_cg_solve_plain(
     return res.x, res.iterations, res.residual
 
 
+class FusedCgArgsC(ctypes.Structure):
+    """Mirror of ``FemFusedCgArgs`` (csrc/fused_cg.cu): the cluster
+    variant's arguments, its plan's fields flat (``fem::cluster_cg::Plan``,
+    the fields of ``experiments/fused_frame.FusedAssignment`` and the four
+    sizes)."""
+
+    _fields_ = [
+        ("k", _P), ("cols", _P), ("vel", _P), ("mass", _P),
+        ("normal", _I), ("max_iter", _I), ("dt", _F), ("dt2", _F),
+        ("tol", _F), ("x", _P), ("it", _P), ("res", _P),
+        ("cl_elem_ptr", _P), ("cl_local_ptr", _P), ("cl_local_ids", _P),
+        ("cl_owned_ptr", _P), ("cl_elem_local", _P), ("cl_row_dest", _P),
+        ("cl_recv_ptr", _P), ("cl_push_ptr", _P), ("cl_push_codes", _P),
+        ("cl_cap", _I), ("cl_elements", _I), ("cl_entries", _I),
+        ("cl_pushes", _I), ("barriers", _P),
+    ]
+
+
+# Local vectors of a cluster CTA of K4 (csrc/fused_cg.cu: kVectors): vel,
+# x, r, d, q.
+CLUSTER_VECTORS = 5
+
+
+def fused_cg_barriers(variant: str, normal: bool, iterations: int) -> int:
+    """Barriers of one K4 solve of ``iterations`` iterations, as
+    csrc/fused_cg.cu places them.  The cluster variant: one after the
+    copy-in, then csrc/cluster_cg.cuh's solve — normal equations 6 and 5 an
+    iteration, plain 4 and 3 — so 7 + 5·it or 5 + 3·it.  The single
+    variant: its every ``__syncthreads`` (whole_cg.cuh: an apply 3, a dot
+    3; the rhs assembly 2) — 14 + 12·it or 8 + 9·it.  The kernel counts the
+    barriers it meets (``fused_cg_solve.last_barriers``); the CUDA tests
+    and ``chip_smoke.py`` hold that count to this one."""
+    per_solve, per_it = {("cluster", True): (7, 5), ("cluster", False): (5, 3),
+                         ("single", True): (14, 12),
+                         ("single", False): (8, 9)}[(variant, bool(normal))]
+    return per_solve + per_it * int(iterations)
+
+
 def _library():
     lib = cuda_build.load("fused_cg")
     if lib.fem_fused_cg.argtypes is None:
-        lib.fem_fused_cg_scratch_floats.argtypes = [ctypes.c_int] * 3
+        out = ctypes.POINTER(_I)
+        lib.fem_fused_cg_scratch_floats.argtypes = [_I] * 3
         lib.fem_fused_cg_scratch_floats.restype = ctypes.c_longlong
         lib.fem_fused_cg.argtypes = [
-            ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, _P, _P, _P, _P, _P,
+            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _F,
+            _P, _P, _P, _P, _P, _P,
         ]
-        lib.fem_fused_cg.restype = ctypes.c_int
-        lib.fem_fused_cg_error.argtypes = [ctypes.c_int]
+        lib.fem_fused_cg.restype = _I
+        lib.fem_fused_cg_limits.argtypes = [_I, out, out, out]
+        lib.fem_fused_cg_limits.restype = _I
+        lib.fem_fused_cg_cluster_smem.argtypes = [_I] * 5
+        lib.fem_fused_cg_cluster_smem.restype = ctypes.c_longlong
+        lib.fem_fused_cg_cluster_fit.argtypes = [_I, _I, _I, out]
+        lib.fem_fused_cg_cluster_fit.restype = _I
+        lib.fem_fused_cg_cluster.argtypes = [
+            ctypes.POINTER(FusedCgArgsC), _I, _I, _I, _P]
+        lib.fem_fused_cg_cluster.restype = _I
+        lib.fem_fused_cg_error.argtypes = [_I]
         lib.fem_fused_cg_error.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=16)
+def device_limits(device_index: int, dim: int):
+    """The ``FrameLimits`` of CUDA device ``device_index`` for K4's cluster
+    instance of ``dim``."""
+    from fem_tpu_torch.ops.frame_kernels import FrameLimits
+
+    lib = _library()
+    mc, optin, sms = _I(0), _I(0), _I(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_fused_cg_limits(dim, ctypes.byref(mc),
+                                     ctypes.byref(optin), ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError("whole-solve CG kernel: reading the device's "
+                           f"limits failed: {lib.fem_fused_cg_error(rc).decode()}")
+    return FrameLimits(mc.value, optin.value, sms.value)
+
+
+@functools.lru_cache(maxsize=64)
+def _check_cluster(device_index: int, size: int, smem: int, sizes, dim: int):
+    """Raise unless the device can run K4's cluster of ``size`` CTAs with
+    ``smem`` bytes each for a rank of ``sizes`` (elements, local particles,
+    receive slots, push codes).  Once per plan on a device."""
+    lib = _library()
+    want = lib.fem_fused_cg_cluster_smem(*sizes, dim)
+    if want != smem:
+        raise RuntimeError(f"whole-solve CG kernel: the plan's {smem} B of "
+                           f"shared memory differ from the kernel's {want}")
+    most = _I(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_fused_cg_cluster_fit(size, smem, dim, ctypes.byref(most))
+    if rc != 0:
+        raise RuntimeError(
+            f"whole-solve CG kernel: {lib.fem_fused_cg_error(rc).decode()} "
+            f"(one cluster of {size} CTAs, {smem} B of shared memory each; "
+            f"{most.value} such clusters fit at once)")
+
+
+# Device → the (1,) int32 tensor K4's launches there write their barrier
+# count to.
+_BARRIERS: dict = {}
 
 
 def fused_cg_solve(
@@ -322,10 +419,22 @@ def fused_cg_solve(
     preconditioned: bool,
     max_iter: int = 500,
     tol: float = 1e-5,
+    cluster: int = 0,
+    single: bool = False,
 ):
     """Returns (vel_next (N, d), iterations int32 scalar, ‖r‖² f32 scalar),
     all on the input's device.  CUDA tensors: one launch of the whole-solve
-    kernel (2D or 3D), with no host synchronisation.  CPU tensors:
+    kernel (2D or 3D), with no host synchronisation after the first call on
+    a mesh (which plans on the host; the plan and its assignment are kept
+    on ``element_indices`` and ``plan``, by identity and version counter).
+    The variant is K11b's plan's (``fused_frame_plan`` with K4's five local
+    vectors); ``cluster`` forces the cluster variant with that many CTAs,
+    ``single`` the single variant (tests and ``chip_smoke.py``; a plan the
+    device cannot run raises).  The launch's variant and CTAs are left in
+    ``fused_cg_solve.last_plan`` and counted in ``variant_launches``; the
+    barriers its kernel met in ``fused_cg_solve.last_barriers``, a (1,)
+    int32 tensor on the device that the next launch there overwrites
+    (:func:`fused_cg_barriers` says what it must hold).  CPU tensors:
     :func:`fused_cg_solve_plain`."""
     if vel.device.type == "cpu":
         return fused_cg_solve_plain(
@@ -334,6 +443,8 @@ def fused_cg_solve(
         )
     if vel.device.type != "cuda":
         raise ValueError(f"unsupported device {vel.device}")
+    from fem_tpu_torch.experiments import fused_frame as ff
+
     n, d = vel.shape
     if d not in (2, 3):
         raise ValueError(f"the whole-solve kernel takes dim 2 or 3, not {d}")
@@ -352,25 +463,57 @@ def fused_cg_solve(
     if d == 3 and element_indices.data_ptr() % 16:
         raise ValueError("element_indices must be 16-byte aligned (int4 loads)")
     lib = _library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    fplan, tables = ff._planned(element_indices, plan, n, d,
+                                device_limits(index, d), int(cluster),
+                                bool(single), CLUSTER_VECTORS)
+    barriers = _BARRIERS.get(dev)
+    if barriers is None:
+        barriers = _BARRIERS[dev] = torch.zeros((1,), dtype=torch.int32,
+                                                device=dev)
     x = torch.empty((n, d), dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.fem_fused_cg_scratch_floats(d, e, n),
-                          dtype=torch.float32, device=dev)
     it = torch.empty((), dtype=torch.int32, device=dev)
     res = torch.empty((), dtype=torch.float32, device=dev)
+    normal = int(bool(preconditioned))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_fused_cg(
-            d, K.data_ptr(), cols.data_ptr(), element_indices.data_ptr(),
-            plan.ptr.data_ptr(), plan.rows.data_ptr(), vel.data_ptr(),
-            mass.data_ptr(), e, n, dt, dt * dt, int(bool(preconditioned)),
-            max_iter, tol, x.data_ptr(), scratch.data_ptr(), it.data_ptr(),
-            res.data_ptr(), stream,
-        )
+        if fplan.variant == "cluster":
+            sizes, cl = tables
+            _check_cluster(index, fplan.size, fplan.smem, sizes, d)
+            elements, cap, entries, pushes = sizes
+            args = FusedCgArgsC(
+                K.data_ptr(), cols.data_ptr(), vel.data_ptr(),
+                mass.data_ptr(), normal, int(max_iter), dt, dt * dt, tol,
+                x.data_ptr(), it.data_ptr(), res.data_ptr(),
+                *(t.data_ptr() for t in cl), cap, elements, entries, pushes,
+                barriers.data_ptr())
+            rc = lib.fem_fused_cg_cluster(ctypes.byref(args), d, fplan.size,
+                                          fplan.smem, stream)
+        else:
+            scratch = torch.empty(lib.fem_fused_cg_scratch_floats(d, e, n),
+                                  dtype=torch.float32, device=dev)
+            rc = lib.fem_fused_cg(
+                d, K.data_ptr(), cols.data_ptr(), element_indices.data_ptr(),
+                plan.ptr.data_ptr(), plan.rows.data_ptr(), vel.data_ptr(),
+                mass.data_ptr(), e, n, dt, dt * dt, normal, max_iter, tol,
+                x.data_ptr(), scratch.data_ptr(), it.data_ptr(),
+                res.data_ptr(), barriers.data_ptr(), stream,
+            )
     if rc != 0:
         msg = lib.fem_fused_cg_error(rc).decode()
-        raise RuntimeError(f"whole-solve CG kernel launch failed: {msg}")
+        raise RuntimeError(f"whole-solve CG kernel launch failed "
+                           f"({fplan.variant} variant, {fplan.size} CTAs): "
+                           f"{msg}")
     fused_cg_solve.launches += 1
+    fused_cg_solve.last_plan = fplan
+    fused_cg_solve.last_barriers = barriers
+    key = (fplan.variant, fplan.size)
+    fused_cg_solve.variant_launches[key] = (
+        fused_cg_solve.variant_launches.get(key, 0) + 1)
     return x, it, res
 
 
 fused_cg_solve.launches = 0
+fused_cg_solve.variant_launches = {}
+fused_cg_solve.last_plan = None
+fused_cg_solve.last_barriers = None

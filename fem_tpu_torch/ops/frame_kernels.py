@@ -4,9 +4,10 @@
 ``fused_blocked_frame`` (K5: implicit-CG substeps) and
 ``fused_explicit_frame`` (K8: explicit substeps, also for autodiff configs)
 launch ``fem_tpu_torch/csrc/blocked_frame.cu`` and
-``fem_tpu_torch/csrc/explicit_frame.cu`` for tensors on a CUDA device (K5
+``fem_tpu_torch/csrc/explicit_frame.cu`` for tensors on a CUDA device (each
 as one thread-block cluster, or as a cooperative grid when the frame's
-state does not fit one cluster: :func:`frame_plan`; K8 cooperatively); they replace the JAX package's Pallas kernels
+state does not fit one cluster: :func:`frame_plan`,
+:func:`explicit_frame_plan`); they replace the JAX package's Pallas kernels
 ``ops/pallas_blocked_frame.py:_frame_kernel`` (entry ``fused_blocked_frame``)
 and ``_explicit_frame_kernel`` (entry ``fused_explicit_frame``), for every
 material of ``ops/element.py`` (K5 also ``robust``), with their plastic and
@@ -32,6 +33,20 @@ grid kernel or the plain version.  :func:`cluster_assignment` gives each
 cluster rank its blocks (b ≡ rank mod C) and its local particles (those
 its blocks touch, each particle owned by exactly one rank), once per
 blocking and cluster size, on the host.
+
+K8's two variants likewise (:func:`explicit_frame_plan`: the cluster
+variant whenever a CTA's state fits, the grid variant otherwise;
+``cluster=`` or ``grid=`` force one), on the same ownership; its
+assignment (:func:`explicit_assignment`) adds where each block slot's sum
+goes (a receive slot of the CTA that owns the slot's particle) and which
+other CTAs hold each owned particle (its new position is stored into
+them).  What K8 needs that is fixed per blocking, mass and frame constants
+— the plan, its device checks and tables, the checked operands, the
+material's parameters, gravity, the decay and a prebuilt argument struct —
+is bound once (:class:`ExplicitFrameBinding`, found again by
+:func:`explicit_frame_binding` while the tensors and their version
+counters are unchanged); a frame patches its inputs, allocates fresh
+outputs and launches.
 
 Inelastic materials (ops/inelastic.py): ``plastic_inv`` (F_p⁻¹, when
 ``plastic_yield`` > 0) and ``viscous_inv`` (F_v⁻¹, when ``viscous_mu`` > 0)
@@ -738,7 +753,13 @@ class ExplicitFrameArgsC(ctypes.Structure):
         ("g0", _F), ("g1", _F), ("g2", _F),
         ("mat", MaterialParamsC),
         ("pos", _P), ("vel", _P), ("partials", _P),
-    ] + _INELASTIC_FIELDS
+    ] + _INELASTIC_FIELDS + [
+        ("cl_local_ptr", _P), ("cl_local_ids", _P), ("cl_owned_ptr", _P),
+        ("cl_block_local", _P), ("cl_slot_dest", _P), ("cl_recv_ptr", _P),
+        ("cl_push_ptr", _P), ("cl_push_codes", _P),
+        ("cl_cap", _I), ("cl_entries", _I), ("cl_pushes", _I),
+        ("barriers", _P),
+    ]
 
 
 def fused_explicit_frame_plain(
@@ -780,22 +801,455 @@ def _explicit_library(material_id: int):
         lib.fem_explicit_frame.restype = _I
         lib.fem_explicit_frame_error.argtypes = [_I]
         lib.fem_explicit_frame_error.restype = ctypes.c_char_p
+        lib.fem_explicit_frame_limits.argtypes = [_I, _I, _I, out, out, out]
+        lib.fem_explicit_frame_limits.restype = _I
+        lib.fem_explicit_frame_cluster_smem.argtypes = [_I] * 10
+        lib.fem_explicit_frame_cluster_smem.restype = ctypes.c_longlong
+        lib.fem_explicit_frame_cluster_fit.argtypes = [_I] * 6 + [out]
+        lib.fem_explicit_frame_cluster_fit.restype = _I
+        lib.fem_explicit_frame_cluster.argtypes = [
+            ctypes.POINTER(ExplicitFrameArgsC), _I, _I, _I, _P,
+        ]
+        lib.fem_explicit_frame_cluster.restype = _I
     return lib
 
 
+class ExplicitAssignment(NamedTuple):
+    """K8's cluster of ``C`` CTAs (numpy int32), on K5's ownership
+    (:func:`cluster_assignment`: rank r owns blocks b ≡ r (mod C); a
+    particle is owned by the rank of the block of its first slot).
+
+    Rank r's local particles are ``local_ids[local_ptr[r]:local_ptr[r+1]]``,
+    its owned ones first; owned particle i, flat over the ranks (rank r's
+    are [owned_ptr[r], owned_ptr[r+1])), receives its block slots' sums, in
+    the slot plan's order, in its rank's receive slots
+    [recv_ptr[i], recv_ptr[i+1]) − recv_ptr[owned_ptr[r]].
+    ``block_local[b·Pb+p]`` is the local index, in block b's rank, of slot
+    p's particle (0 for a padded slot) and ``slot_dest[b·Pb+p]`` where the
+    slot's sum goes: owner rank·65536 + receive slot there (−1 for a padded
+    slot).  The other ranks that hold owned particle i, ascending, are
+    ``push_codes[push_ptr[i]:push_ptr[i+1]]``, each as rank·65536 + its
+    local index there."""
+
+    local_ptr: np.ndarray
+    local_ids: np.ndarray
+    owned_ptr: np.ndarray
+    block_local: np.ndarray
+    slot_dest: np.ndarray
+    recv_ptr: np.ndarray
+    push_ptr: np.ndarray
+    push_codes: np.ndarray
+
+    def sizes(self):
+        """(most local particles, most receive slots, most push codes) of a
+        rank's: what a CTA's shared memory must hold."""
+        return (int(np.diff(self.local_ptr).max()),
+                int(np.diff(self.recv_ptr[self.owned_ptr]).max()),
+                int(np.diff(self.push_ptr[self.owned_ptr]).max()))
+
+
+def explicit_assignment(block_particles, slot_ptr, slot_rows, n: int,
+                        cluster: int) -> ExplicitAssignment:
+    """K8's assignment of a blocking's blocks and particles to ``cluster``
+    ranks (host, numpy), from the arrays of :func:`cluster_assignment`."""
+    base = cluster_assignment(block_particles, slot_ptr, slot_rows, n,
+                              cluster)
+    b_cnt, pb = np.asarray(block_particles).shape
+    ptr = np.asarray(slot_ptr, np.int64)
+    rows = np.asarray(slot_rows, np.int64)
+    local_ptr = base.local_ptr.astype(np.int64)
+    ids = base.local_ids.astype(np.int64)
+    owned_ptr = np.concatenate([[0], np.cumsum(base.owned)])
+    # The owned particles, flat: rank r's first owned[r] local ones.
+    sel = np.concatenate([np.arange(local_ptr[r], local_ptr[r] + base.owned[r])
+                          for r in range(cluster)]).astype(np.int64)
+    own = ids[sel]
+    counts = np.diff(ptr)[own]
+    recv_ptr = np.concatenate([[0], np.cumsum(counts)])
+    rank = np.repeat(np.repeat(np.arange(cluster), base.owned), counts)
+    slot = np.arange(recv_ptr[-1]) - recv_ptr[owned_ptr[rank]]
+    if slot.size and int(slot.max()) >= 65536:
+        raise ValueError("a rank's receive slots exceed the 16-bit index")
+    within = np.arange(recv_ptr[-1]) - np.repeat(recv_ptr[:-1], counts)
+    slots = rows[np.repeat(ptr[own], counts) + within]
+    slot_dest = np.full(b_cnt * pb, -1, np.int64)
+    slot_dest[slots] = rank * 65536 + slot
+    lookup = np.full((cluster, n), -1, np.int64)
+    for r in range(cluster):
+        lookup[r, ids[local_ptr[r]:local_ptr[r + 1]]] = np.arange(
+            local_ptr[r + 1] - local_ptr[r])
+    held = lookup[:, own] >= 0
+    held[np.repeat(np.arange(cluster), base.owned), np.arange(own.size)] = False
+    hr, hi = np.nonzero(held.T)  # (owned index, rank), by owned index
+    push_ptr = np.concatenate([[0], np.cumsum(held.sum(axis=0))])
+    push_codes = hi * 65536 + lookup[hi, own[hr]]
+    i32 = functools.partial(np.asarray, dtype=np.int32)
+    return ExplicitAssignment(
+        local_ptr=base.local_ptr, local_ids=base.local_ids,
+        owned_ptr=i32(owned_ptr), block_local=base.block_local,
+        slot_dest=i32(slot_dest), recv_ptr=i32(recv_ptr),
+        push_ptr=i32(push_ptr), push_codes=i32(push_codes))
+
+
+_ROW_STRIDE = {2: 2, 3: 4}
+
+
+def explicit_cluster_smem(num_blocks: int, eb: int, pb: int, dim: int,
+                          cluster: int, cap: int, entries: int, pushes: int,
+                          states: int = 0) -> int:
+    """Bytes of dynamic shared memory of K8's cluster CTA: its receive
+    slots and local positions (rows padded to 4 floats in 3D), one block's
+    working set per thread group, its blocks' rest-edge inverses and
+    volumes and (``states`` of 0-2) their elements' internal state, the
+    owned particles' velocities and 1/m, then its blocks' tables (plus,
+    minus, the local plan, the slots' local indices and destinations), the
+    local particles' ids, the owned particles' spans of receive slots and
+    push codes, and the push codes (csrc/explicit_frame.cu:
+    cluster_smem_words)."""
+    bpc = _ceil_div(num_blocks, cluster)
+    groups = cluster_groups(num_blocks, cluster)
+    rs = _ROW_STRIDE[dim]
+    return _F32 * (rs * entries + rs * cap
+                   + groups * (dim * pb + (dim + 1) * dim * eb)
+                   + bpc * eb * (dim * dim + 1)
+                   + states * bpc * eb * dim * dim + cap * (dim + 1)
+                   + bpc * ((3 * dim + 1) * eb + 3 * pb + 1)
+                   + cap + 2 * (cap + 1) + pushes)
+
+
+def explicit_frame_plan(block_particles, slot_ptr, slot_rows, n: int,
+                        eb: int, dim: int, limits: FrameLimits,
+                        states: int = 0, grid: int = 0,
+                        cluster: int = 0) -> FramePlan:
+    """K8's variant, its CTAs, threads and shared memory, from the
+    blocking's host arrays (those of :func:`cluster_assignment`), its
+    element slots a block ``eb``, the internal states an element carries
+    (``states``: plastic and/or viscous) and the device's ``limits``.
+
+    Forced: ``grid`` > 0 gives the grid variant of that many CTAs (its
+    co-residency is checked on the device before the launch), ``cluster``
+    > 0 the cluster variant of that many, refused (``ValueError``) when it
+    exceeds ``max_cluster`` or its CTA ``smem_optin`` (and checked on the
+    device once more before the launch).  Otherwise the cluster variant
+    with one CTA per block, at most ``max_cluster`` (the flagship's 17
+    blocks: 16 CTAs, one of them with two blocks and two thread groups),
+    when a CTA's state fits ``smem_optin``; else the grid variant, one CTA
+    per block and at most one per SM."""
+    if grid < 0 or cluster < 0:
+        raise ValueError(f"grid {grid} and cluster {cluster} must be >= 0")
+    if grid and cluster:
+        raise ValueError("give grid or cluster, not both")
+    b_cnt, pb = np.asarray(block_particles).shape
+    if b_cnt < 1 or dim not in (2, 3):
+        raise ValueError(f"no frame of {b_cnt} blocks in {dim}D")
+    grid_bytes = _F32 * (dim * pb + (dim + 1) * dim * eb)
+    if grid:
+        return FramePlan("grid", grid, grid_bytes)
+
+    def plan(c):
+        asg = explicit_assignment(block_particles, slot_ptr, slot_rows, n, c)
+        return FramePlan("cluster", c, explicit_cluster_smem(
+            b_cnt, eb, pb, dim, c, *asg.sizes(), states),
+            GROUP_THREADS * cluster_groups(b_cnt, c))
+
+    if cluster:
+        if cluster > b_cnt:
+            raise ValueError(f"a cluster of {cluster} CTAs over {b_cnt} "
+                             "blocks leaves a CTA without a block")
+        forced = plan(cluster)
+        if cluster > limits.max_cluster or forced.smem > limits.smem_optin:
+            raise ValueError(
+                f"a cluster of {cluster} CTAs does not fit the device: "
+                f"{forced.smem} B of shared memory a CTA (at most "
+                f"{limits.smem_optin}), at most {limits.max_cluster} CTAs")
+        return forced
+    auto = plan(min(b_cnt, limits.max_cluster))
+    if auto.smem <= limits.smem_optin:
+        return auto
+    return FramePlan("grid", min(b_cnt, limits.sms), grid_bytes)
+
+
+def explicit_frame_barriers(variant: str, inelastic: bool,
+                            sim_count: int) -> int:
+    """Barriers of one K8 frame of ``sim_count`` substeps, as
+    csrc/explicit_frame.cu places them.  The grid variant: a grid barrier
+    after each substep's partials and one after its kinematic step but the
+    last (elastic; inelastic one after every kinematic step, before the
+    state update) — 2 S − 1 or 2 S.  The cluster variant: one after the
+    copy-in, one after each substep's gradient (the slot sums stored into
+    their owners) and one after each kinematic step (the positions stored
+    into their holders) but the last of an elastic frame — 2 S or 2 S + 1.
+    The kernel counts the barriers it meets
+    (``fused_explicit_frame.last_barriers``); the CUDA tests and
+    ``chip_smoke.py`` hold that count to this one."""
+    s = int(sim_count)
+    if variant == "grid":
+        return 2 * s - (0 if inelastic else 1)
+    if variant == "cluster":
+        return 2 * s + (1 if inelastic else 0)
+    raise ValueError(f"unknown variant {variant!r}")
+
+
 @functools.lru_cache(maxsize=64)
-def explicit_frame_plan(device_index: int, num_blocks: int, eb: int, pb: int,
-                        grid: int, dim: int, material_id: int = 0,
-                        inelastic: bool = False):
-    """(grid, dynamic shared bytes) of K8's cooperative launch of the
-    instance (``dim``, ``material_id``, elastic or inelastic): ``grid``
-    CTAs, or with 0 one per locality block and at most one per SM.  Raises
-    when the grid cannot be co-resident or its working set does not fit."""
+def explicit_device_limits(device_index: int, dim: int, material_id: int = 0,
+                           inelastic: bool = False) -> FrameLimits:
+    """The :class:`FrameLimits` of CUDA device ``device_index`` for K8's
+    cluster instance (``dim``, ``material_id``, elastic or inelastic)."""
     lib = _explicit_library(material_id)
-    return _plan(lib, lib.fem_explicit_frame_plan,
-                 lib.fem_explicit_frame_error, "explicit whole-frame kernel",
-                 device_index, num_blocks, eb, pb, grid, dim, material_id,
-                 inelastic)
+    mc, optin, sms = _I(0), _I(0), _I(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_explicit_frame_limits(dim, material_id, int(inelastic),
+                                           ctypes.byref(mc),
+                                           ctypes.byref(optin),
+                                           ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(
+            "explicit whole-frame kernel: reading the device's limits failed: "
+            f"{lib.fem_explicit_frame_error(rc).decode()}")
+    return FrameLimits(mc.value, optin.value, sms.value)
+
+
+@functools.lru_cache(maxsize=256)
+def _check_explicit(device_index: int, plan: FramePlan, num_blocks: int,
+                    eb: int, pb: int, d: int, sizes, states: int, mid: int,
+                    inelastic: bool) -> FramePlan:
+    """Raise unless the device can run ``plan``; else return it (the grid
+    variant's with the grid the device takes).  Once per plan and instance
+    on a device: a plan that fits is remembered, one that does not raises
+    again (the kernel's attributes, set here, stay set on the device)."""
+    lib = _explicit_library(mid)
+    if plan.variant == "grid":
+        g, smem = _plan(lib, lib.fem_explicit_frame_plan,
+                        lib.fem_explicit_frame_error,
+                        "explicit whole-frame kernel", device_index,
+                        num_blocks, eb, pb, plan.size, d, mid, inelastic)
+        return FramePlan("grid", g, smem)
+    groups = plan.threads // GROUP_THREADS
+    want = lib.fem_explicit_frame_cluster_smem(num_blocks, eb, pb, *sizes,
+                                               plan.size, d, groups, states)
+    if want != plan.smem:
+        raise RuntimeError(f"explicit whole-frame kernel: the plan's "
+                           f"{plan.smem} B of shared memory differ from the "
+                           f"kernel's {want}")
+    most = _I(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_explicit_frame_cluster_fit(plan.size, plan.threads,
+                                                plan.smem, d, mid,
+                                                int(inelastic),
+                                                ctypes.byref(most))
+    if rc != 0:
+        raise RuntimeError(
+            "explicit whole-frame kernel: "
+            f"{lib.fem_explicit_frame_error(rc).decode()} (one cluster of "
+            f"{plan.size} CTAs of {plan.threads} threads, {plan.smem} B of "
+            f"shared memory each; {most.value} such clusters fit at once)")
+    return plan
+
+
+def _blocking_versions(blk: Blocking, mass) -> tuple:
+    """The version counters of every tensor of ``blk`` and ``mass`` that K8
+    reads: an in-place change to one of them invalidates a binding."""
+    return (blk.block_particles._version, blk.plus._version,
+            blk.minus._version, blk.ref_inv._version, blk.volume._version,
+            blk.element_perm._version, blk.block_elements._version,
+            blk.local_ptr._version, blk.local_rows._version,
+            blk.slot_plan.ptr._version, blk.slot_plan.rows._version,
+            mass._version)
+
+
+class ExplicitFrameBinding:
+    """K8's launch for one (blocking, mass, frame constants), built once:
+    on a CUDA device the plan (:func:`explicit_frame_plan`), its device
+    checks and assignment tables, the library, the checked operands, the
+    material's parameters, gravity, the decay, the grid variant's partials
+    and a prebuilt :class:`ExplicitFrameArgsC`; each call then checks and
+    patches only the frame's inputs (pos, vel, the obstacles, the internal
+    state), allocates fresh outputs and launches.  On the CPU a call runs
+    :func:`fused_explicit_frame_plain`.  ``matches`` tells whether the
+    binding still holds for a blocking and a mass: the same tensors,
+    unchanged since (their version counters); ``ExplicitFrameBinding.builds``
+    counts the bindings built."""
+
+    builds = 0
+
+    def __init__(self, blk: Blocking, mass: torch.Tensor, *, dt, damping,
+                 g_dir, mu, s_lambda, sim_count, material="neo_hookean",
+                 plastic_yield=0.0, viscous_mu=0.0, viscous_tau=0.1, grid=0,
+                 cluster=0):
+        ExplicitFrameBinding.builds += 1
+        self.blk, self.mass = blk, mass
+        self.versions = _blocking_versions(blk, mass)
+        self.plastic, self.viscous = plastic_yield > 0.0, viscous_mu > 0.0
+        self.kw = dict(dt=dt, damping=damping, g_dir=g_dir, mu=mu,
+                       s_lambda=s_lambda, sim_count=sim_count,
+                       material=material, plastic_yield=plastic_yield,
+                       viscous_mu=viscous_mu, viscous_tau=viscous_tau)
+        self.dev = mass.device
+        if self.dev.type == "cpu":
+            return
+        if self.dev.type != "cuda":
+            raise ValueError(f"unsupported device {self.dev}")
+        if sim_count < 1:
+            raise ValueError(f"sim_count must be at least 1 (got {sim_count})")
+        on = self.plastic or self.viscous
+        mid = kernel_material_id(material)
+        tables = block_tables(blk)
+        dev = self.dev
+        n, d = mass.shape[0], tables.dim
+        self.n, self.d = n, d
+        cuda_build.check_operand("mass", mass, (n,), torch.float32,
+                                 blk.volume.device)
+        check_slot_plan(blk, n, dev)
+        index = dev.index if dev.index is not None else (
+            torch.cuda.current_device())
+        self.index = index
+        states = int(self.plastic) + int(self.viscous)
+        if on:
+            cuda_build.check_operand(
+                "blocking.element_perm", blk.element_perm,
+                (blk.num_blocks * blk.eb,), torch.int32, dev)
+        host = (blk.block_particles.cpu().numpy(),
+                blk.slot_plan.ptr.cpu().numpy(),
+                blk.slot_plan.rows.cpu().numpy())
+        limits = (explicit_device_limits(index, d, mid, on)
+                  if not grid else FrameLimits(0, 0, 0))
+        plan = explicit_frame_plan(*host, n, blk.eb, d, limits, states,
+                                   int(grid), int(cluster))
+        lib = _explicit_library(mid)
+        self.lib = lib
+        self.e = blk.element_slot.shape[0]
+        if plan.variant == "cluster":
+            asg = explicit_assignment(*host, n, plan.size)
+            sizes = asg.sizes()
+            self.tables = tuple(torch.as_tensor(t, device=dev) for t in asg)
+            cl_fields = [t.data_ptr() for t in self.tables] + list(sizes)
+            self.partials = None
+        else:
+            sizes = (0, 0, 0)
+            self.tables = ()
+            cl_fields = [None] * len(ExplicitAssignment._fields) + [0, 0, 0]
+            self.partials = torch.empty((blk.num_blocks * blk.pb, d),
+                                        dtype=torch.float32, device=dev)
+        self.plan = _check_explicit(index, plan, blk.num_blocks, blk.eb,
+                                    blk.pb, d, sizes, states, mid, on)
+        self.barriers = _barrier_count(dev)
+        self.instance = (d, mid, on)
+        relax = relax_decay(dt, viscous_tau) if self.viscous else 0.0
+        self.args = ExplicitFrameArgsC(
+            tables, blk.slot_plan.ptr.data_ptr(), blk.slot_plan.rows.data_ptr(),
+            None, None, mass.data_ptr(), None, None, n, 0, int(sim_count),
+            mid, dt, damping_decay(dt, damping), *_gravity3(g_dir, d),
+            material_params(material, mu, s_lambda, d), None, None,
+            None if self.partials is None else self.partials.data_ptr(),
+            blk.element_perm.data_ptr() if on else None, None, None, None,
+            None, plastic_yield if self.plastic else 0.0,
+            viscous_mu if self.viscous else 0.0, relax, *cl_fields,
+            self.barriers.data_ptr())
+        self.args_ref = ctypes.byref(self.args)
+        if self.plan.variant == "cluster":
+            launch = lib.fem_explicit_frame_cluster
+            size, threads, smem = self.plan.size, self.plan.threads, \
+                self.plan.smem
+            self._launch = lambda stream: launch(self.args_ref, size, threads,
+                                                 smem, stream)
+        else:
+            launch = lib.fem_explicit_frame
+            size, smem = self.plan.size, self.plan.smem
+            self._launch = lambda stream: launch(self.args_ref, size, smem,
+                                                 stream)
+
+    def matches(self, blk: Blocking, mass: torch.Tensor) -> bool:
+        return (blk is self.blk and mass is self.mass
+                and _blocking_versions(blk, mass) == self.versions)
+
+    def __call__(self, pos, vel, centers, radii, plastic_inv=None,
+                 viscous_inv=None):
+        """(pos', vel') (N, d), then plastic_inv' and viscous_inv' (E, d, d)
+        for the branches that are on: :func:`fused_explicit_frame`."""
+        if self.dev.type == "cpu":
+            return fused_explicit_frame_plain(
+                self.blk, pos, vel, self.mass, centers, radii,
+                plastic_inv=plastic_inv, viscous_inv=viscous_inv, **self.kw)
+        for on, fi, name in ((self.plastic, plastic_inv, "plastic_inv"),
+                             (self.viscous, viscous_inv, "viscous_inv")):
+            if on != (fi is not None):
+                raise ValueError(
+                    f"{name} must be given exactly when its branch is on")
+        n, d, dev, f32 = self.n, self.d, self.dev, torch.float32
+        o = radii.shape[0]
+        check = cuda_build.check_operand
+        check("pos", pos, (n, d), f32, dev)
+        check("vel", vel, (n, d), f32, dev)
+        check("centers", centers, (o, d), f32, dev)
+        check("radii", radii, (o,), f32, dev)
+        a = self.args
+        out = (torch.empty((n, d), dtype=f32, device=dev),
+               torch.empty((n, d), dtype=f32, device=dev))
+        a.pos_in, a.vel_in = pos.data_ptr(), vel.data_ptr()
+        a.centers, a.radii, a.n_obst = centers.data_ptr(), radii.data_ptr(), o
+        a.pos, a.vel = out[0].data_ptr(), out[1].data_ptr()
+        state = ()
+        if self.plastic or self.viscous:
+            ins = []
+            for on, fi, name in ((self.plastic, plastic_inv, "plastic_inv"),
+                                 (self.viscous, viscous_inv, "viscous_inv")):
+                if on:
+                    check(name, fi, (self.e, d, d), f32, dev)
+                    fo = torch.empty_like(fi)
+                    state += (fo,)
+                    ins.append((fi.data_ptr(), fo.data_ptr()))
+                else:
+                    ins.append((None, None))
+            a.plastic_in, a.plastic = ins[0]
+            a.viscous_in, a.viscous = ins[1]
+        if torch.cuda.current_device() == self.index:
+            rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
+        else:
+            with torch.cuda.device(dev):
+                rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            msg = self.lib.fem_explicit_frame_error(rc).decode()
+            raise RuntimeError(
+                f"explicit whole-frame kernel launch failed "
+                f"({self.plan.variant} variant, {self.plan.size} CTAs): {msg}")
+        fn = fused_explicit_frame
+        count_launch(fn, *self.instance)
+        fn.last_plan = self.plan
+        fn.last_barriers = self.barriers
+        key = (self.plan.variant, self.plan.size)
+        fn.variant_launches[key] = fn.variant_launches.get(key, 0) + 1
+        return out + state
+
+
+# (id(blocking), id(mass), the frame constants) → the ExplicitFrameBinding
+# built for them, which holds the blocking and the mass so that their ids
+# are not reused while it is kept.
+_BINDINGS: dict = {}
+
+
+def explicit_frame_binding(blk: Blocking, mass: torch.Tensor, *, dt, damping,
+                           g_dir, mu, s_lambda, sim_count,
+                           material="neo_hookean", plastic_yield=0.0,
+                           viscous_mu=0.0, viscous_tau=0.1, grid=0,
+                           cluster=0) -> ExplicitFrameBinding:
+    """The :class:`ExplicitFrameBinding` of ``blk``, ``mass`` and the frame
+    constants (the keyword arguments of :func:`fused_explicit_frame` but
+    the internal state), built once and built again when the blocking or
+    the mass is replaced or changed in place."""
+    g_dir = tuple(g_dir)
+    key = (id(blk), id(mass), dt, damping, g_dir, mu, s_lambda, sim_count,
+           material, plastic_yield, viscous_mu, viscous_tau, grid, cluster)
+    hit = _BINDINGS.get(key)
+    if hit is None or not hit.matches(blk, mass):
+        hit = ExplicitFrameBinding(
+            blk, mass, dt=dt, damping=damping, g_dir=g_dir, mu=mu,
+            s_lambda=s_lambda, sim_count=sim_count, material=material,
+            plastic_yield=plastic_yield, viscous_mu=viscous_mu,
+            viscous_tau=viscous_tau, grid=grid, cluster=cluster)
+        if key not in _BINDINGS and len(_BINDINGS) >= 32:
+            _BINDINGS.pop(next(iter(_BINDINGS)))
+        _BINDINGS[key] = hit
+    return hit
 
 
 def fused_explicit_frame(
@@ -813,6 +1267,7 @@ def fused_explicit_frame(
     s_lambda: float,
     sim_count: int,
     grid: int = 0,
+    cluster: int = 0,
     material: str = "neo_hookean",
     plastic_inv=None,
     plastic_yield: float = 0.0,
@@ -823,66 +1278,43 @@ def fused_explicit_frame(
     """One rendered frame of ``sim_count`` explicit substeps: returns
     (pos', vel') (N, d), then plastic_inv' and viscous_inv' (E, d, d) for
     the branches that are on — the contract of the JAX package's
-    ``fused_explicit_frame``.
+    ``fused_explicit_frame``.  Every output is a fresh tensor.
 
-    CUDA tensors: one cooperative launch of the explicit whole-frame
-    kernel's instance of ``material``, with its plastic and Maxwell branches
-    when they are on, 2D or 3D, with no host synchronisation; ``grid`` as
-    in :func:`fused_blocked_frame`.  CPU tensors:
+    CUDA tensors: one launch of the explicit whole-frame kernel's instance
+    of ``material``, with its plastic and Maxwell branches when they are
+    on, 2D or 3D, with no host synchronisation after the first call on a
+    blocking (which plans on the host).  The variant is
+    :func:`explicit_frame_plan`'s; ``cluster`` forces the cluster variant
+    with that many CTAs, ``grid`` the cooperative grid variant with that
+    many (tests and ``chip_smoke.py``; a plan the device cannot run
+    raises).  What is fixed per (blocking, mass, constants) is bound once
+    (:func:`explicit_frame_binding`).  The launch's plan is left in
+    ``fused_explicit_frame.last_plan`` and counted by (variant, size) in
+    ``variant_launches``; the barriers its kernel met in
+    ``fused_explicit_frame.last_barriers``, a (1,) int32 tensor on the
+    device that the next whole-frame launch there overwrites
+    (:func:`explicit_frame_barriers` says what it must hold).  CPU tensors:
     :func:`fused_explicit_frame_plain`."""
-    inelastic = dict(plastic_inv=plastic_inv, plastic_yield=plastic_yield,
-                     viscous_inv=viscous_inv, viscous_mu=viscous_mu,
-                     viscous_tau=viscous_tau)
-    mid = kernel_material_id(material)
     if pos.device.type == "cpu":
         return fused_explicit_frame_plain(
             blk, pos, vel, mass, centers, radii, dt=dt, damping=damping,
             g_dir=g_dir, mu=mu, s_lambda=s_lambda, sim_count=sim_count,
-            material=material, **inelastic,
+            material=material, plastic_inv=plastic_inv,
+            plastic_yield=plastic_yield, viscous_inv=viscous_inv,
+            viscous_mu=viscous_mu, viscous_tau=viscous_tau,
         )
-    internal = _Internal(blk, mu, s_lambda, dt=dt, material=material,
-                         **inelastic)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    if sim_count < 1:
-        raise ValueError(f"sim_count must be at least 1 (got {sim_count})")
-    tables = block_tables(blk)
-    dev = pos.device
-    n, d = pos.shape[0], tables.dim
-    o = radii.shape[0]
-    plan = blk.slot_plan
-    f32 = torch.float32
-    for name, t, shape in (
-        ("pos", pos, (n, d)), ("vel", vel, (n, d)), ("mass", mass, (n,)),
-        ("centers", centers, (o, d)), ("radii", radii, (o,)),
-    ):
-        cuda_build.check_operand(name, t, shape, f32, blk.volume.device)
-    check_slot_plan(blk, n, dev)
-    g, smem = explicit_frame_plan(dev.index or 0, blk.num_blocks, blk.eb,
-                                  blk.pb, int(grid), d, mid, internal.on)
-    lib = _explicit_library(mid)
-    partials = torch.empty((blk.num_blocks * blk.pb, d), dtype=f32, device=dev)
-    out = [torch.empty((n, d), dtype=f32, device=dev) for _ in range(2)]
-    grav = _gravity3(g_dir, d)
-    tail, state_out = _inelastic_args(blk, internal, blk.element_slot.shape[0],
-                                      d)
-    args = ExplicitFrameArgsC(
-        tables, plan.ptr.data_ptr(), plan.rows.data_ptr(), pos.data_ptr(),
-        vel.data_ptr(), mass.data_ptr(), centers.data_ptr(),
-        radii.data_ptr(), n, o, int(sim_count), mid, dt,
-        damping_decay(dt, damping), *grav,
-        material_params(material, mu, s_lambda, d), out[0].data_ptr(),
-        out[1].data_ptr(), partials.data_ptr(), *tail,
-    )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_explicit_frame(ctypes.byref(args), g, smem, stream)
-    if rc != 0:
-        msg = lib.fem_explicit_frame_error(rc).decode()
-        raise RuntimeError(f"explicit whole-frame kernel launch failed: {msg}")
-    count_launch(fused_explicit_frame, d, mid, internal.on)
-    return (out[0], out[1]) + state_out
+    binding = explicit_frame_binding(
+        blk, mass, dt=dt, damping=damping, g_dir=g_dir, mu=mu,
+        s_lambda=s_lambda, sim_count=sim_count, material=material,
+        plastic_yield=plastic_yield, viscous_mu=viscous_mu,
+        viscous_tau=viscous_tau, grid=grid, cluster=cluster)
+    return binding(pos, vel, centers, radii, plastic_inv, viscous_inv)
 
 
 fused_explicit_frame.launches = 0
 fused_explicit_frame.instance_launches = {}
+fused_explicit_frame.variant_launches = {}
+fused_explicit_frame.last_plan = None
+fused_explicit_frame.last_barriers = None

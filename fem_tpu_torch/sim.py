@@ -63,6 +63,7 @@ from fem_tpu_torch.experiments.fused_frame import (
 )
 from fem_tpu_torch.models.state import FemObject, Obstacles, SimState
 from fem_tpu_torch.ops.frame_kernels import (
+    explicit_frame_binding,
     fused_blocked_frame,
     fused_explicit_frame,
 )
@@ -321,14 +322,25 @@ def make_explicit_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
     """Explicit or autodiff frame backed by the explicit whole-frame kernel:
     one launch per rendered frame (its plain version on the CPU).  It runs
     the analytic gradient chain for autodiff configs too, as the JAX
-    package's does: the same formula up to the order of its sums.  The
-    zero solver metrics and the zero ``force`` are made once and returned
-    every frame."""
+    package's does: the same formula up to the order of its sums.
+
+    What is fixed per (object, config) is bound once, here: the frame's
+    keyword arguments, and on a CUDA object K8's plan, its checked operands
+    and its prebuilt launch (``frame_kernels.explicit_frame_binding``,
+    which the frame's call finds again by the blocking's and the mass's
+    identity and version counters, so a replaced or changed mass or
+    blocking binds anew).  Each frame then passes only its state and
+    obstacles; its outputs are fresh tensors.  The zero solver metrics and
+    the zero ``force`` are made once and returned every frame."""
     kwargs = dict(
         dt=cfg.delta_time, damping=obj.damping, g_dir=tuple(cfg.g_dir),
         mu=obj.mu, s_lambda=obj.s_lambda, sim_count=cfg.sim_count,
-        material=obj.material,
+        material=obj.material, plastic_yield=obj.plastic_yield,
+        viscous_mu=obj.viscous_mu, viscous_tau=obj.viscous_tau,
     )
+    plastic, viscous = obj.plastic_yield > 0.0, obj.viscous_mu > 0.0
+    if obj.device.type == "cuda":
+        explicit_frame_binding(obj.blocking, obj.mass, **kwargs)
     aux = StepAux(
         torch.zeros((cfg.sim_count,), dtype=torch.int32, device=obj.device),
         torch.zeros((cfg.sim_count,), dtype=torch.float32, device=obj.device),
@@ -338,7 +350,9 @@ def make_explicit_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
     def frame(state: SimState, obstacles: Obstacles):
         pos, vel, *extra = fused_explicit_frame(
             obj.blocking, state.pos, state.vel, obj.mass, obstacles.centers,
-            obstacles.radii, **kwargs, **_internal_kwargs(obj, state),
+            obstacles.radii, **kwargs,
+            plastic_inv=state.plastic_inv if plastic else None,
+            viscous_inv=state.viscous_inv if viscous else None,
         )
         state = state.replace(pos=pos, vel=vel, force=force)
         return _with_internal(obj, state, extra), aux

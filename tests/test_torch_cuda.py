@@ -1778,3 +1778,228 @@ def test_chained_dot_tilings_match_plain(shape, variant):
         assert float((out - ref).abs().max()) <= 1e-4 * top
     assert torch.equal(out, again)
     assert macs == plan.macs >= reps * rows * n * cols
+
+
+# K8's launch variants: the automatic plan (the cluster variant on every
+# blocking here), the grid variant with one CTA a block and with 3 CTAs
+# walking the blocks, and clusters of 1, 3 and 16 CTAs.
+K8_VARIANTS = ["auto", "grid", "grid 3 CTAs", "cluster 1", "cluster 3",
+               "cluster 16"]
+
+
+def _k8_expect(variant, obj):
+    """(launch options, the plan that must run or None when the plan must
+    refuse the variant) of ``variant`` on ``obj``: a cluster with more CTAs
+    than blocks, or whose CTA exceeds the device's shared memory, is
+    refused before any launch."""
+    blk = obj.blocking
+    launch = _k5_launch(variant, blk)
+    on = obj.plastic_yield > 0.0 or obj.viscous_mu > 0.0
+    host = (blk.block_particles.cpu().numpy(),
+            blk.slot_plan.ptr.cpu().numpy(), blk.slot_plan.rows.cpu().numpy())
+    limits = frame_kernels.explicit_device_limits(0, obj.dim, 0, on)
+    try:
+        plan = frame_kernels.explicit_frame_plan(
+            *host, obj.particle_cnt, blk.eb, obj.dim, limits,
+            int(obj.plastic_yield > 0.0) + int(obj.viscous_mu > 0.0),
+            **launch)
+    except ValueError:
+        return launch, None
+    return launch, plan
+
+
+def _k8_case(case, body, body_2d, grid_2d, inelastic_bodies):
+    """(obj, state, obstacles, frame kwargs) of a K8 variants case."""
+    if case.startswith("inelastic"):
+        obj, state = inelastic_bodies[case.split(" ", 1)[1]]
+        dt = 2e-4 if obj.element_cnt > 1000 else 5e-4
+        kw = dict(dt=dt, damping=obj.damping,
+                  g_dir=(0.0, -1.0) if obj.dim == 2 else (0.0, -1.0, 0.0),
+                  mu=obj.mu, s_lambda=obj.s_lambda, sim_count=10,
+                  plastic_inv=state.plastic_inv,
+                  plastic_yield=obj.plastic_yield,
+                  viscous_inv=state.viscous_inv, viscous_mu=obj.viscous_mu,
+                  viscous_tau=obj.viscous_tau)
+        return obj, state, Obstacles.from_configs((), obj.dim, device="cuda"),\
+            kw
+    if case == "3D":
+        obj, state = body
+        return _reblocked(obj), state, _obstacles("cuda"), _explicit_kw(obj)
+    obj, state = body_2d if case == "2D one block" else grid_2d
+    dt = 5e-4 if case == "2D one block" else 1e-4
+    return obj, state, _obstacles_2d("cuda"), _frame_kw_2d(obj, dt)
+
+
+@pytest.mark.parametrize("variant", K8_VARIANTS)
+@pytest.mark.parametrize("case", ["3D", "2D one block", "2D 16 blocks",
+                                  "inelastic 3D", "inelastic 2D 16 blocks"])
+def test_explicit_frame_variants_match_plain_and_count_barriers(
+        body, body_2d, grid_2d, inelastic_bodies, case, variant):
+    """K8 in each variant (K8_VARIANTS), elastic and with both inelastic
+    branches, 2D and 3D: positions (and both internal inverses) within 1e-5
+    of the plain frame, two runs bit-identical, the barriers its kernel
+    counted equal to ``explicit_frame_barriers``, and every variant
+    bit-identical to the grid variant (the same arithmetic in the same
+    order); a variant the plan refuses raises before any launch."""
+    obj, state, obs, kw = _k8_case(case, body, body_2d, grid_2d,
+                                   inelastic_bodies)
+    args = (obj.blocking, state.pos, state.vel, obj.mass, obs.centers,
+            obs.radii)
+    launch, want = _k8_expect(variant, obj)
+    before = frame_kernels.fused_explicit_frame.launches
+    if want is None:
+        with pytest.raises(ValueError):
+            frame_kernels.fused_explicit_frame(*args, **kw, **launch)
+        assert frame_kernels.fused_explicit_frame.launches == before
+        return
+    out = frame_kernels.fused_explicit_frame(*args, **kw, **launch)
+    assert frame_kernels.fused_explicit_frame.launches == before + 1
+    plan = frame_kernels.fused_explicit_frame.last_plan
+    barriers = int(frame_kernels.fused_explicit_frame.last_barriers.item())
+    if variant == "auto":
+        assert (plan.variant, plan.size) == (
+            "cluster", min(obj.blocking.num_blocks, 16))
+    else:
+        assert (plan.variant, plan.size) == (want.variant, want.size)
+    inelastic = "plastic_inv" in kw
+    assert barriers == frame_kernels.explicit_frame_barriers(
+        plan.variant, inelastic, kw["sim_count"])
+    ref = frame_kernels.fused_explicit_frame_plain(*args, **kw)
+    assert len(out) == len(ref) == (4 if inelastic else 2)
+    assert torch.isfinite(out[0]).all()
+    assert float((out[0] - ref[0]).abs().max()) <= TOL
+    assert float((out[0] - state.pos).abs().max()) > 1e-4
+    for got, want_state in zip(out[2:], ref[2:]):
+        assert float((got - want_state).abs().max()) <= TOL
+    again = frame_kernels.fused_explicit_frame(*args, **kw, **launch)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    grid = frame_kernels.fused_explicit_frame(
+        *args, **kw, grid=obj.blocking.num_blocks)
+    assert all(torch.equal(a, b) for a, b in zip(out, grid))
+
+
+@pytest.mark.parametrize("mode", ["explicit", "autodiff"])
+def test_explicit_frame_function_runs_the_cluster_variant(body, mode):
+    """make_frame_fn's K8 frame (explicit and autodiff configs) runs the
+    plan's cluster variant, binds once, counts its barriers and returns
+    fresh tensors each frame."""
+    obj, state = body
+    obj = _reblocked(obj)
+    cfg = _frame_cfg(use_explicit_method=True, auto_diff=mode == "autodiff")
+    builds = frame_kernels.ExplicitFrameBinding.builds
+    frame = sim.make_frame_fn(obj, cfg)
+    assert frame_kernels.ExplicitFrameBinding.builds <= builds + 1
+    obs = _obstacles("cuda")
+    s1, _ = frame(state, obs)
+    keep = s1.pos.clone()
+    s2, _ = frame(s1, obs)
+    torch.cuda.synchronize()
+    assert frame_kernels.ExplicitFrameBinding.builds <= builds + 1
+    plan = frame_kernels.fused_explicit_frame.last_plan
+    assert plan.variant == "cluster"
+    assert int(frame_kernels.fused_explicit_frame.last_barriers.item()) == \
+        frame_kernels.explicit_frame_barriers("cluster", False, cfg.sim_count)
+    assert torch.equal(s1.pos, keep)
+    assert s2.pos.data_ptr() != s1.pos.data_ptr()
+
+
+K4_VARIANTS = ["auto", "single", "cluster 1", "cluster 3", "cluster 16"]
+
+
+def _k4_launch(variant):
+    if variant == "auto":
+        return {}
+    if variant == "single":
+        return dict(single=True)
+    return dict(cluster=int(variant.split()[1]))
+
+
+def _k4_fits(obj, opts):
+    """Whether K4's forced cluster fits a CTA's shared memory on the
+    device (one that does not is refused before any launch)."""
+    from fem_tpu_torch.experiments import fused_frame as ff
+
+    if "cluster" not in opts:
+        return True
+    asg = ff.cluster_assignment(
+        obj.element_indices.cpu().numpy(), obj.plan.ptr.cpu().numpy(),
+        obj.plan.rows.cpu().numpy(), obj.particle_cnt, opts["cluster"])
+    limits = cg_kernels.device_limits(0, obj.dim)
+    return (opts["cluster"] <= limits.max_cluster and ff.cluster_smem(
+        *asg.sizes(), obj.dim, cg_kernels.CLUSTER_VECTORS)
+        <= limits.smem_optin)
+
+
+@pytest.mark.parametrize("preconditioned", [False, True])
+@pytest.mark.parametrize("variant", K4_VARIANTS)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fused_cg_variants_match_plain_and_count_barriers(
+        body, body_2d, dim, variant, preconditioned):
+    """K4 in each variant — the plan's (the cluster variant), the single
+    CTA, clusters of 1, 3 and 16 CTAs forced — against its plain version:
+    equal iterations (short solves), velocity rtol 5e-4 / atol 1e-6, twice
+    bit-identical, the barriers its kernel counted equal to
+    ``fused_cg_barriers``; a cluster of 17 is refused before any
+    launch."""
+    obj, state = body if dim == 3 else body_2d
+    k, h = element_kernels.hessian_and_force(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda)
+    args = (k, h, obj.element_indices, obj.plan, state.vel, obj.mass, 5e-4,
+            preconditioned)
+    opts = _k4_launch(variant)
+    before = cg_kernels.fused_cg_solve.launches
+    if not _k4_fits(obj, opts):
+        with pytest.raises(ValueError, match="does not fit"):
+            cg_kernels.fused_cg_solve(*args, **opts)
+        assert cg_kernels.fused_cg_solve.launches == before
+        return
+    v, it, res = cg_kernels.fused_cg_solve(*args, **opts)
+    assert cg_kernels.fused_cg_solve.launches == before + 1
+    plan = cg_kernels.fused_cg_solve.last_plan
+    barriers = int(cg_kernels.fused_cg_solve.last_barriers.item())
+    assert plan.variant == ("single" if variant == "single" else "cluster")
+    if "cluster" in opts:
+        assert plan.size == opts["cluster"]
+    vp, itp, resp = cg_kernels.fused_cg_solve_plain(*args)
+    assert 1 < int(itp) <= 20
+    assert int(it) == int(itp)
+    assert float(res) <= TOL
+    torch.testing.assert_close(v, vp, rtol=5e-4, atol=1e-6)
+    assert barriers == cg_kernels.fused_cg_barriers(plan.variant,
+                                                    preconditioned, int(it))
+    v2, it2, res2 = cg_kernels.fused_cg_solve(*args, **opts)
+    assert torch.equal(v, v2) and torch.equal(it, it2) and torch.equal(res,
+                                                                      res2)
+    with pytest.raises(ValueError, match="does not fit"):
+        cg_kernels.fused_cg_solve(*args, cluster=17)
+
+
+@pytest.mark.parametrize("variant", ["auto", "single", "cluster 3"])
+def test_fused_cg_variants_long_solve_match_float64(stiff_body, variant):
+    """test_fused_cg_kernel_long_solve_matches_float64 for each variant of
+    K4: a long normal-equations solve (~140 iterations) stops on the
+    tolerance within 1e-4 (of the largest entry) of the plain solve in f64,
+    with the barriers the formula places."""
+    obj, state = stiff_body
+    k, h = element_kernels.hessian_and_force(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda,
+    )
+    v, it, res = cg_kernels.fused_cg_solve(
+        k, h, obj.element_indices, obj.plan, state.vel, obj.mass, 5e-4, True,
+        **_k4_launch(variant))
+    plan = cg_kernels.fused_cg_solve.last_plan
+    assert int(cg_kernels.fused_cg_solve.last_barriers.item()) == \
+        cg_kernels.fused_cg_barriers(plan.variant, True, int(it))
+    assert 100 < int(it) < 500 and float(res) <= TOL
+    cpu_plan = convert.object_from_arrays(
+        *convert.object_to_arrays(obj), "cpu").plan
+    f64 = [t.cpu().double() for t in (k, h, state.vel, obj.mass)]
+    ref, ref_it, ref_res = cg_kernels.fused_cg_solve_plain(
+        f64[0], f64[1], obj.element_indices.cpu(), cpu_plan, f64[2], f64[3],
+        5e-4, True,
+    )
+    assert int(ref_it) < 500 and float(ref_res) <= TOL
+    err = float((v.cpu().double() - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()), err

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 # coding=utf-8
-"""Times P2, K11b, K5's frame, K4 and K11a of one checkout on one GPU, and
-hashes K4's and K11a's outputs, so that two checkouts can be compared on
-the same card.
+"""Times P2, K11b, K5's frame, K4, K11a and K8 of one checkout on one GPU,
+hashes K4's, K11a's and K11b's outputs, and measures the host time of the
+explicit frames' wrapper, so that two checkouts can be compared on the
+same card.
 
     python3 tools/torch_kernel_ab.py [--repo PATH] [--label NAME]
 
@@ -11,25 +12,112 @@ helpers) from another checkout, for instance the parent commit unpacked
 with ``git archive``; by default this one.  On the flagship
 (``configs/demo_spot.json``, deformed state) and ``configs/default.json``'s
 ``implicit_cg`` variant (squeezed state), both with normal equations:
-K11b's frame (``fused_frame``, the checkout's own plan) and K5's frame
-(``fused_blocked_frame``), K4's solve (``fused_cg_solve``) and K11a's
-(``cg_solve_edge``) at the scene's K and b, and P2's three variants at the
+K11b's frame (``fused_frame``, the checkout's own plan; its outputs'
+sha256) and K5's frame (``fused_blocked_frame``), K4's solve
+(``fused_cg_solve``, the checkout's own plan, and its single variant where
+the checkout has one) and K11a's (``cg_solve_edge``) at the scene's K and
+b, with their outputs' sha256; K8's frame (``fused_explicit_frame``, the
+checkout's own plan) on the explicit flagship, ``default.json``, its
+40-subdivision grid and ``demo_plastic.json``'s plastic body, and on the
+flagship with both inelastic branches; and P2's three variants at the
 probe's defaults (rows 6, n 1,024, cols 2,048, 200 reps).  Device ms a
 launch from the profiler (``chip_smoke.kernel_ms``, 20 launches a
-window); K4's and K11a's outputs (velocity and iterations) as a sha256 of
-their bytes.  Prints one JSON line per measurement, each with the label,
-and the card's name and power limit.  Run two checkouts in turns (A, B, B,
-A) in one call to compare them.
+window).  Then the explicit paths D (the explicit flagship), H
+(``default.json`` as shipped) and M (``demo_plastic.json``, both bodies)
+through ``sim.make_frame_fn``: wall ms a frame over 200 frames ending in a
+sync, the host's enqueue µs a frame (the same frames' calls, before that
+sync) and device ms a frame (one profiled window of the same frames), and
+host µs a frame as wall minus device.  Prints one JSON line per
+measurement, each with the label, and the card's name and power limit.
+Run two checkouts in turns (A, B, B, A) in one call to compare them.
 """
 
+
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def time_explicit(torch, cs, dev, emit, digest):
+    """K8's frames and the explicit paths' host time (module docstring)."""
+    from fem_tpu_torch import entry, scene, sim
+    from fem_tpu_torch.ops import frame_kernels as fk
+    from fem_tpu_torch.utils.config import read_config
+
+    ecfg, eobj, estate, eobs = entry.explicit_flagship(dev)
+
+    def kw_of(cfg, o):
+        return dict(dt=cfg.delta_time, damping=o.damping,
+                    g_dir=tuple(cfg.g_dir), mu=o.mu, s_lambda=o.s_lambda,
+                    sim_count=cfg.sim_count, material=o.material)
+
+    dcfg = read_config(os.path.join(REPO, "configs", "default.json"))
+    (dbody,), dobs = scene.load_scene(dcfg, device=dev)
+    lcfg = dataclasses.replace(dcfg, objects=(dataclasses.replace(
+        dcfg.objects[0], subdivisions=40),))
+    (lbody,), lobs = scene.load_scene(lcfg, device=dev)
+    pcfg = read_config(os.path.join(REPO, "configs", "demo_plastic.json"))
+    pbodies, pobs = scene.load_scene(pcfg, device=dev)
+    eye = torch.eye(3, device=dev).repeat(eobj.element_cnt, 1, 1)
+    p0 = pbodies[0]
+    cases = (
+        ("flagship", eobj, estate, eobs, kw_of(ecfg, eobj)),
+        ("default.json", dbody.obj, dbody.state, dobs,
+         kw_of(dcfg, dbody.obj)),
+        ("40 subdivisions", lbody.obj, lbody.state, lobs,
+         dict(kw_of(dcfg, lbody.obj), dt=1e-4)),
+        ("demo_plastic.json body 0", p0.obj, p0.state, pobs,
+         dict(kw_of(pcfg, p0.obj), plastic_inv=p0.state.plastic_inv,
+              plastic_yield=p0.obj.plastic_yield)),
+        ("flagship, both branches", eobj, estate, eobs,
+         dict(kw_of(ecfg, eobj), plastic_inv=eye, plastic_yield=0.01,
+              viscous_inv=eye, viscous_mu=200.0)),
+    )
+    for label, o, st, ob, kw in cases:
+        args = (o.blocking, st.pos, st.vel, o.mass, ob.centers, ob.radii)
+        out = fk.fused_explicit_frame(*args, **kw)
+        ms = cs.kernel_ms(torch, lambda: fk.fused_explicit_frame(*args, **kw),
+                          20, ["explicit_frame_kernel"])
+        barriers = getattr(fk.fused_explicit_frame, "last_barriers", None)
+        emit(kernel="K8", scene=label, ms=ms,
+             plan=str(getattr(fk.fused_explicit_frame, "last_plan", None)),
+             barriers=None if barriers is None else int(barriers.item()),
+             sha256=digest(*out))
+    frames = 200
+    paths = (("D", ecfg, [(sim.make_frame_fn(eobj, ecfg), estate)], eobs),
+             ("H", dcfg, [(sim.make_frame_fn(dbody.obj, dcfg), dbody.state)],
+              dobs),
+             ("M", pcfg, [(sim.make_frame_fn(b.obj, pcfg), b.state)
+                          for b in pbodies], pobs))
+    for label, cfg, bodies, ob in paths:
+        def go():
+            states = [s for _, s in bodies]
+            for _ in range(frames):
+                states = [f(s, ob)[0] for (f, _), s in zip(bodies, states)]
+            return states
+
+        go()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        go()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        per_kernel, _ = cs.profile_kernels(torch, go, 1)
+        device_ms = sum(t for t, _ in per_kernel.values()) / frames
+        wall_ms = (t2 - t0) * 1e3 / frames
+        # A step advances every body of the scene.
+        emit(path=label, frames=frames, bodies=len(bodies), wall_ms=wall_ms,
+             enqueue_us=(t1 - t0) * 1e6 / frames, device_ms=device_ms,
+             host_us=(wall_ms - device_ms) * 1e3, busy=device_ms / wall_ms,
+             steps_per_s=frames * cfg.sim_count / (t2 - t0))
 
 
 def main(argv=None) -> int:
@@ -45,6 +133,16 @@ def main(argv=None) -> int:
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    import inspect
+
+    from fem_tpu_torch.utils import cuda_build
+
+    # Every library the run loads, built at once (one nvcc each, together).
+    cuda_build.build([(name, None) for name in ("fused_cg", "fused_frame",
+                                                "edge_cg", "probe_int8")]
+                     + [(name, 0) for name in ("element_chain",
+                                               "blocked_frame",
+                                               "explicit_frame")])
     from fem_tpu_torch import entry
     from fem_tpu_torch.experiments import edge_cg, fused_frame as ff
     from fem_tpu_torch.ops import cg_kernels, element_kernels as ek
@@ -87,7 +185,9 @@ def main(argv=None) -> int:
                           ["fused_frame_kernel"])
         emit(kernel="K11b", scene=label, ms=ms,
              iterations=int(out[3].sum()),
-             plan=str(getattr(ff.fused_frame, "last_plan", None)))
+             plan=str(getattr(ff.fused_frame, "last_plan", None)),
+             barriers=int(ff.fused_frame.last_barriers.item()),
+             sha256=digest(*out))
         blk = o.blocking
         bargs = (blk, s.pos, s.vel, s.vel_g, o.mass, ob.centers, ob.radii)
         fk.fused_blocked_frame(*bargs, **kw)
@@ -98,11 +198,16 @@ def main(argv=None) -> int:
                                     o.volume, o.mu, o.s_lambda)
         solve = (K, H, o.element_indices, o.plan, s.vel, o.mass,
                  c.delta_time, True)
-        v, it, _ = cg_kernels.fused_cg_solve(*solve)
-        ms = cs.kernel_ms(torch, lambda: cg_kernels.fused_cg_solve(*solve),
-                          20, ["fused_cg_kernel"])
-        emit(kernel="K4", scene=label, ms=ms, iterations=int(it),
-             sha256=digest(v, it))
+        k4_variants = [("plan", {})]
+        if "single" in inspect.signature(cg_kernels.fused_cg_solve).parameters:
+            k4_variants.append(("single", dict(single=True)))
+        for name, opts in k4_variants:
+            v, it, _ = cg_kernels.fused_cg_solve(*solve, **opts)
+            plan = getattr(cg_kernels.fused_cg_solve, "last_plan", None)
+            ms = cs.kernel_ms(torch, lambda: cg_kernels.fused_cg_solve(
+                *solve, **opts), 20, ["fused_cg_kernel"])
+            emit(kernel="K4", scene=label, launch=name, ms=ms,
+                 iterations=int(it), plan=str(plan), sha256=digest(v, it))
         s_mat = torch.as_tensor(build_edge_matrix(
             o.element_indices.cpu().numpy(), o.particle_cnt), device=dev)
         b = cs.rhs_of(torch, o, s, H, c.delta_time)
@@ -118,6 +223,7 @@ def main(argv=None) -> int:
                           ["chained_dot_kernel"])
         emit(kernel="P2", variant=name, ms=ms,
              plan=str(getattr(p2.chained_dot, "last_plan", None)))
+    time_explicit(torch, cs, dev, emit, digest)
     return 0
 
 
