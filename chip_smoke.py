@@ -15,8 +15,8 @@ the fused advection (AD) — and the unblocked whole frame, the ``"mxu"``
 operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), and holds
 every CUDA kernel of those paths against its plain PyTorch version.  K5
 runs as its cluster variant on every path (each mesh there fits one
-thread-block cluster; ``counts()`` fails the run otherwise), as do K8 and
-K4, and sections 48-50 hold every variant of the three:
+thread-block cluster; ``counts()`` fails the run otherwise), as do K8, K4,
+K3 and K11a, and sections 42 and 48-51 hold every variant of the five:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: every kernel from ``fem_tpu_torch/csrc/`` with nvcc for sm_90a,
@@ -27,9 +27,11 @@ K4, and sections 48-50 hold every variant of the three:
 4. K4, the whole CG solve, against ``fused_cg_solve_plain`` with
    ``preconditioned`` 0 and 1 (velocity rtol 5e-4 / atol 1e-6, iterations
    within 1), and twice on the same inputs, bit-identical;
-5. K2, the blocked prep, and K3, the blocked operator (both transposes),
-   against their plain versions (K block-relative ≤ 1e-5, partials and
-   G(K)·x within 1e-5 of their largest entry), each twice bit-identical;
+5. K2, the blocked prep, and K3, the blocked operator (both transposes;
+   its automatic plan, one cluster of 16 CTAs, and its two-kernel
+   variant), against their plain versions (K block-relative ≤ 1e-5,
+   partials and G(K)·x within 1e-5 of their largest entry), each twice
+   bit-identical, K3's two variants bit-identical to each other;
 6. K5, the whole frame (its automatic plan: one cluster of 16 CTAs on the
    flagship), against ``fused_blocked_frame_plain`` on the card,
    ``preconditioned`` 0 and 1, with and without velocity noise: positions
@@ -193,18 +195,26 @@ K4, and sections 48-50 hold every variant of the three:
     (with ``material`` and ``robust`` keys); K5's rows name the variant,
     its CTAs, threads a CTA and the barriers the kernel counted in a frame
     (the run fails unless they are those ``frame_barriers`` places there),
-    and K8's and K4's rows likewise (``explicit_frame_barriers``,
-    ``fused_cg_barriers``; K4's a solve).  Every path's K5, K8 and K4 ran
-    their cluster variants (``counts()`` fails the run otherwise).
+    and K8's, K4's, K3's and K11a's rows likewise
+    (``explicit_frame_barriers``, ``fused_cg_barriers``, ``matvec_barriers``
+    and ``edge_cg_barriers``; K4's and K11a's a solve, K3's an apply).
+    Every path's K5, K8, K4, K3 and K11a ran their cluster variants
+    (``counts()`` fails the run otherwise).
     The build's lines give each library's seconds and the registers and
     spills of every instance.
 42. K11a, the edge-matrix CG (``experiments/edge_cg.py``), against its
     plain version (the dense S products) on the flagship deformed (S of
     12,204 × 1,007, 49 MB) and ``default.json`` squeezed, ``preconditioned``
     0 and 1: equal iterations, velocity rtol 5e-4 / atol 1e-6, twice
-    bit-identical; path AG, 10 implicit substeps with K11a as the solve
-    (K1 + K11a once a substep), the first equal to the K1 + K4 substep to
-    1e-5, in 3D and 2D;
+    bit-identical; its variants — the plan's (one cluster: 16 CTAs on the
+    flagship, 1 on ``default.json``), the single CTA and clusters of 1, 3
+    and 16 CTAs — each with equal iterations, x within 1e-5 of its largest
+    entry, twice bit-identical, the barriers its kernel counted equal to
+    ``edge_cg_barriers``, a cluster too large for a CTA's shared memory
+    refused before the launch (one ``k11a_variants`` JSON line); path AG,
+    10 implicit substeps with K11a as the solve (K1 + K11a once a substep,
+    its cluster variant), the first equal to the K1 + K4 substep to 1e-5,
+    in 3D and 2D;
 43. K11b, the unblocked whole frame (``experiments/fused_frame.py``),
     against its plain version on the card (positions 1e-5, iterations
     within 1, twice bit-identical); its variants — the plan's, the single
@@ -265,7 +275,16 @@ K4, and sections 48-50 hold every variant of the three:
     iterations), twice bit-identical, with its device ms and the barriers
     the kernel counted in a solve (equal to ``fused_cg_barriers``'),
     a cluster whose CTA exceeds the shared memory refused before the
-    launch, printed as one ``k4_variants`` JSON line.
+    launch, printed as one ``k4_variants`` JSON line;
+51. K3's variants: the automatic plan (the cluster variant), the
+    two-kernel variant and clusters of 1, 3 and 16 CTAs, on the flagship
+    (17 blocks), ``default.json`` (1) and the 40-subdivision grid (16),
+    both transposes, each within 1e-5 of the plain version's largest
+    entry, twice bit-identical and bit-identical to the two-kernel
+    variant, a cluster of more CTAs than blocks refused before the launch,
+    with its device ms an apply and the barriers the cluster kernel
+    counted (equal to ``matvec_barriers``'), printed as one
+    ``k3_variants`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -665,6 +684,62 @@ def k4_plan_keys(normal, iterations):
                 barriers_per_solve=met)
 
 
+def k3_kernel_names():
+    """The profiler's names of K3's last launch: the cluster variant's one
+    kernel, or the two-kernel variant's pair."""
+    from fem_tpu_torch.ops import blocked_kernels as bk
+
+    if bk.blocked_graph_apply.last_plan.variant == "cluster":
+        return ["cluster_blocked_matvec_kernel"]
+    return ["blocked_matvec_kernel", "slot_sum_kernel"]
+
+
+def k3_plan_keys():
+    """The kernels line's keys of K3's last launch: its variant, CTAs,
+    threads a CTA and, for the cluster variant, the barriers its kernel
+    counted in that apply, which must be those that
+    ``blocked_kernels.matvec_barriers`` places (the two-kernel variant has
+    no barrier inside a kernel to count: None)."""
+    from fem_tpu_torch.ops import blocked_kernels as bk
+
+    plan = bk.blocked_graph_apply.last_plan
+    met = None
+    if plan.variant == "cluster":
+        met = int(bk.blocked_graph_apply.last_barriers.item())
+        want = bk.matvec_barriers(plan.variant, plan.size)
+        require(met == want, f"K3 ({plan.variant}, {plan.size} CTAs) met "
+                f"{met} barriers in an apply, where matvec_barriers places "
+                f"{want}")
+    return dict(variant=plan.variant, ctas=plan.size, threads=plan.threads,
+                barriers_per_apply=met)
+
+
+def k11a_kernel_name():
+    """The profiler's name of K11a's last launch."""
+    from fem_tpu_torch.experiments import edge_cg
+
+    return ("cluster_edge_cg_kernel"
+            if edge_cg.cg_solve_edge.last_plan.variant == "cluster"
+            else "edge_cg_kernel")
+
+
+def k11a_plan_keys(normal, iterations):
+    """The kernels line's keys of K11a's last launch: its variant, CTAs and
+    the barriers the kernel counted in that solve, which must be those that
+    ``edge_cg.edge_cg_barriers`` places."""
+    from fem_tpu_torch.experiments import edge_cg
+
+    plan = edge_cg.cg_solve_edge.last_plan
+    met = int(edge_cg.cg_solve_edge.last_barriers.item())
+    want = edge_cg.edge_cg_barriers(plan.variant, normal, iterations)
+    require(met == want, f"K11a ({plan.variant}, {plan.size} CTAs) met {met} "
+            f"barriers in a solve of {iterations} iterations, where "
+            f"edge_cg_barriers places {want}")
+    return dict(variant=plan.variant, ctas=plan.size,
+                threads=256 if plan.variant == "cluster" else 1024,
+                barriers_per_solve=met)
+
+
 def graph_matrix(torch, element_indices, K, n):
     """G(K) as a (dN × dN) CSR matrix: per element, +K_e on (v_j, v_j) and
     −K_e on (v_j, v_0) and (v_0, v_j) for j = 1..d, +d·K_e on (v_0, v_0)
@@ -778,16 +853,16 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
 
     k3_args = (blk, Kb, x, False)
     y = bk.blocked_graph_apply(*k3_args)
+    k3_keys, k3_names = k3_plan_keys(), k3_kernel_names()
     gmat = graph_matrix(torch, obj.element_indices, K, n)
     xcol = x.reshape(-1, 1)
     # The same function: G(K) in element order equals G(K) in block order.
     lib = library_ms("K3", lambda: torch.sparse.mm(gmat, xcol).reshape(n, d),
                      y)
     put("blocked_matvec", lambda: bk.blocked_graph_apply(*k3_args),
-        lambda: bk.blocked_graph_apply_plain(*k3_args), 20, 200,
-        ["blocked_matvec_kernel", "slot_sum_kernel"],
-        nbytes(Kb, x, *tables, *plan, part, y),
-        ops["apply"] * e + d * slot_rows, library=lib)
+        lambda: bk.blocked_graph_apply_plain(*k3_args), 20, 200, k3_names,
+        nbytes(Kb, x, *tables, *plan, y),
+        ops["apply"] * e + d * slot_rows, library=lib, **k3_keys)
 
     k5_args = (blk, state.pos, state.vel, state.vel_g, obj.mass,
                obstacles.centers, obstacles.radii)
@@ -3043,6 +3118,10 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
                        kw=dict(dim=d, dt2=c.delta_time * c.delta_time,
                                preconditioned=True), it=int(it))
     log("[K11a] two runs bit-identical in every case")
+    k11a_rows = run_k11a_variants(torch, card, (
+        ("flagship", k11a[3]["args"], 3, cfg.delta_time),
+        ("default.json", k11a[2]["args"], 2, dcfg.delta_time)))
+    log(json.dumps({"k11a_variants": k11a_rows}))
     # Path AG: the implicit substep with K11a as its solve (the JAX
     # package's cg_solve_pallas has no caller but its tests): K1, the rhs,
     # K11a, the plain advection, on the flagship deformed and on
@@ -3400,18 +3479,20 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
         s_mat, K, b, mass = k11a[d]["args"]
         kw = k11a[d]["kw"]
         ep = edge_cg.edge_plan(s_mat, d)
-        x, _ = edge_cg.cg_solve_edge(*k11a[d]["args"], **kw)
+        x, it = edge_cg.cg_solve_edge(*k11a[d]["args"], **kw)
+        k11a_keys = k11a_plan_keys(True, int(it))
         e, n = K.shape[0], b.shape[0]
         row("edge_cg", d, k11a[d]["launches"],
             k11a[d]["err"],
             kernel_ms(torch, lambda: edge_cg.cg_solve_edge(
-                *k11a[d]["args"], **kw), 100, ["edge_cg_kernel"]),
+                *k11a[d]["args"], **kw), 100, [k11a_kernel_name()]),
             cuda_ms(torch, lambda: edge_cg.cg_solve_edge_plain(
                 *k11a[d]["args"], **kw), 3),
             nbytes(K, b, mass, ep.element_indices, ep.plan.ptr,
                    ep.plan.rows, x) + 4,
             cg_ops(e, n, k11a[d]["it"], True, d), iterations=k11a[d]["it"],
-            library_note="no single PyTorch call runs a CG solve")
+            library_note="no single PyTorch call runs a CG solve",
+            **k11a_keys)
         args, kw = k11b[d]["args"], k11b[d]["kw"]
         out = ff.fused_frame(*args, **kw)
         o = obj if d == 3 else dobj
@@ -3693,6 +3774,122 @@ def run_k4_variants(torch, card, cases):
     return rows
 
 
+K11A_CLUSTERS = (1, 3, 16)  # forced cluster sizes of section 42
+K3_CLUSTERS = (1, 3, 16)  # and of section 51
+
+
+def run_k11a_variants(torch, card, cases):
+    """Section 42's variants: K11a in each — the automatic plan, the single
+    CTA and clusters of K11A_CLUSTERS CTAs — against
+    ``cg_solve_edge_plain`` on the card for each of ``cases`` (label, (S,
+    K, b, mass), dim, dt), both ``preconditioned`` values: equal
+    iterations, x within 1e-5 of its largest entry, two runs bit-identical,
+    the barriers the kernel counted; a cluster whose CTA exceeds the shared
+    memory refused before the launch; each variant's device ms a solve
+    (profiler).  Returns the rows of the ``k11a_variants`` line."""
+    from fem_tpu_torch.experiments import edge_cg
+
+    rows = []
+    for label, args, d, dt in cases:
+        for pre in (True, False):
+            kw = dict(dim=d, dt2=dt * dt, preconditioned=pre)
+            xp, itp = edge_cg.cg_solve_edge_plain(*args, **kw)
+            top = float(xp.abs().max())
+            require(int(itp) <= 20, f"K11a {label}: a long plain solve")
+            variants = [("auto", {}), ("single", dict(single=True))] + [
+                (f"cluster {c}", dict(cluster=c)) for c in K11A_CLUSTERS]
+            for name, launch in variants:
+                def go(launch=launch):
+                    return edge_cg.cg_solve_edge(*args, **kw, **launch)
+                before = edge_cg.cg_solve_edge.launches
+                try:
+                    x, it = go()
+                except ValueError as exc:
+                    require(edge_cg.cg_solve_edge.launches == before
+                            and "cluster" in launch,
+                            f"K11a {label}, {name}: {exc}")
+                    log(f"[K11a variants] {label}, {name}: refused before "
+                        f"the launch, as it must be: {exc}")
+                    continue
+                x2, it2 = go()
+                torch.cuda.synchronize()
+                keys = k11a_plan_keys(pre, int(it))
+                if name == "auto":
+                    require(keys["variant"] == "cluster",
+                            f"K11a {label}: the plan chose {keys}")
+                err = float((x - xp).abs().max())
+                require(int(it) == int(itp) and err <= 1e-5 * top,
+                        f"K11a {label}, {name}: {int(it)} iterations (plain "
+                        f"{int(itp)}), max |dx| {err} of {top}")
+                require(torch.equal(x, x2) and torch.equal(it, it2),
+                        f"K11a {label}, {name}: runs differ")
+                ms = kernel_ms(torch, go, 20, [k11a_kernel_name()])
+                log(f"[K11a variants] {label}, preconditioned={int(pre)}, "
+                    f"{name}: {keys}; {ms:.5f} ms a solve (profiler); "
+                    f"iterations {int(it)} (plain {int(itp)}); max |dx| "
+                    f"{err:.3e} of {top:.3e}; twice bit-identical; card "
+                    f"{card}")
+                rows.append(dict(scene=label, preconditioned=pre,
+                                 launch=name, ms=ms, iterations=int(it),
+                                 max_abs_err=err, **keys))
+    return rows
+
+
+def run_k3_variants(torch, card, cases):
+    """Section 51: K3 in each variant — the automatic plan, the two-kernel
+    variant and clusters of K3_CLUSTERS CTAs — for each of ``cases``
+    (label, blocking, K, x), both transposes: within 1e-5 of the plain
+    version's largest entry, two runs bit-identical and bit-identical to
+    the two-kernel variant, the barriers the cluster kernel counted; a
+    cluster of more CTAs than blocks refused before the launch; each
+    variant's device ms an apply (profiler).  Returns the rows of the
+    ``k3_variants`` line."""
+    from fem_tpu_torch.ops import blocked_kernels as bk
+
+    rows = []
+    for label, blk, K, x in cases:
+        for tr in (False, True):
+            yp = bk.blocked_graph_apply_plain(blk, K, x, tr)
+            top = float(yp.abs().max())
+            grid = bk.blocked_graph_apply(blk, K, x, tr, grid=True)
+            variants = [("auto", {}), ("grid", dict(grid=True))] + [
+                (f"cluster {c}", dict(cluster=c)) for c in K3_CLUSTERS]
+            for name, launch in variants:
+                def go(launch=launch):
+                    return bk.blocked_graph_apply(blk, K, x, tr, **launch)
+                before = bk.blocked_graph_apply.launches
+                try:
+                    y = go()
+                except ValueError as exc:
+                    require(bk.blocked_graph_apply.launches == before
+                            and "cluster" in launch,
+                            f"K3 {label}, {name}: {exc}")
+                    log(f"[K3 variants] {label}, {name}: refused before the "
+                        f"launch, as it must be: {exc}")
+                    continue
+                y2 = go()
+                torch.cuda.synchronize()
+                keys = k3_plan_keys()
+                if name == "auto":
+                    require(keys["variant"] == "cluster",
+                            f"K3 {label}: the plan chose {keys}")
+                err = float((y - yp).abs().max())
+                require(top > 0 and err <= 1e-5 * top,
+                        f"K3 {label}, {name}: max |dy| {err} of {top}")
+                require(torch.equal(y, y2), f"K3 {label}, {name}: runs differ")
+                require(torch.equal(y, grid),
+                        f"K3 {label}, {name}: differs from the two-kernel "
+                        f"variant")
+                ms = kernel_ms(torch, go, 50, k3_kernel_names())
+                log(f"[K3 variants] {label}, transpose_k={int(tr)}, {name}: "
+                    f"{keys}; {ms:.5f} ms an apply (profiler); max |dy| "
+                    f"{err:.3e} of {top:.3e}; twice bit-identical and equal "
+                    f"to the two-kernel variant; card {card}")
+                rows.append(dict(scene=label, transpose_k=tr, launch=name,
+                                 ms=ms, max_abs_err=err, **keys))
+    return rows
+
+
 def main():
     import torch
 
@@ -3752,15 +3949,20 @@ def main():
         frame_kernels.fused_explicit_frame.variant_launches = {}
         cg_kernels.fused_cg_solve.variant_launches = {}
         fused_frame.fused_frame.variant_launches = {}
+        blocked_kernels.blocked_graph_apply.variant_launches = {}
+        edge_cg.cg_solve_edge.variant_launches = {}
 
     def counts():
-        """The launch counts since the last zero_counts(); K5's, K8's and
-        K4's launches on a path are all of their cluster variants (each mesh
-        of the paths fits one cluster), logged by (variant, CTAs)."""
+        """The launch counts since the last zero_counts(); K5's, K8's, K4's,
+        K3's and K11a's launches on a path are all of their cluster variants
+        (each mesh of the paths fits one cluster), logged by (variant,
+        CTAs)."""
         for name, fn, other in (
                 ("K5", frame_kernels.fused_blocked_frame, "grid"),
                 ("K8", frame_kernels.fused_explicit_frame, "grid"),
-                ("K4", cg_kernels.fused_cg_solve, "single")):
+                ("K4", cg_kernels.fused_cg_solve, "single"),
+                ("K3", blocked_kernels.blocked_graph_apply, "grid"),
+                ("K11a", edge_cg.cg_solve_edge, "single")):
             by = fn.variant_launches
             if by:
                 log(f"[{name} variant] launches by (variant, CTAs): {by}")
@@ -3862,17 +4064,29 @@ def main():
     k3_abs = 0.0
     for tr in (False, True):
         y = blocked_kernels.blocked_graph_apply(blk, Kb, noisy, tr)
+        keys = k3_plan_keys()
+        require((keys["variant"], keys["ctas"]) == ("cluster", 16),
+                f"K3's plan on the flagship: {keys}")
         yp = blocked_kernels.blocked_graph_apply_plain(blk, Kb, noisy, tr)
         y2 = blocked_kernels.blocked_graph_apply(blk, Kb, noisy, tr)
+        yg = blocked_kernels.blocked_graph_apply(blk, Kb, noisy, tr,
+                                                 grid=True)
+        yg2 = blocked_kernels.blocked_graph_apply(blk, Kb, noisy, tr,
+                                                  grid=True)
         torch.cuda.synchronize()
         err = float((y - yp).abs().max())
-        k3_abs = max(k3_abs, err)
+        gerr = float((yg - yp).abs().max())
+        k3_abs = max(k3_abs, err, gerr)
         top = float(yp.abs().max())
-        log(f"[K3] transpose_k={int(tr)}: max abs error {err:.3e} of max "
-            f"{top:.3e}")
-        require(top > 0 and err <= 1e-5 * top, f"K3 error {err} of {top}")
-        require(torch.equal(y, y2), "K3 runs differ")
-    log("[K2/K3] two runs bit-identical")
+        log(f"[K3] transpose_k={int(tr)}: cluster variant {keys}: max abs "
+            f"error {err:.3e} of max {top:.3e}; two-kernel variant "
+            f"{gerr:.3e}")
+        require(top > 0 and err <= 1e-5 * top and gerr <= 1e-5 * top,
+                f"K3 error {err} (two kernels {gerr}) of {top}")
+        require(torch.equal(y, y2) and torch.equal(yg, yg2), "K3 runs differ")
+        require(torch.equal(y, yg), "K3's cluster variant differs from its "
+                "two-kernel variant")
+    log("[K2/K3] two runs bit-identical; K3's variants bit-identical")
 
     # -- 6. K5 against its plain version on the card ------------------------
     frame_kw = dict(dt=cfg.delta_time, damping=obj.damping,
@@ -4360,6 +4574,21 @@ def main():
         ("default.json", two["obj"], two["state"], two["frame_kw"]["dt"])))
     log(json.dumps({"k4_variants": k4_rows}))
     log(f"[K4 variants] section 50 in {time.perf_counter() - t_var:.1f} s")
+
+    # -- 51. K3's variants against the plain apply ---------------------------
+    t_var = time.perf_counter()
+    k3_cases = []
+    for label, o, st in (("flagship", obj, state),
+                         ("default.json", two["obj"], two["state"]),
+                         ("40 subdivisions", lobj, lstate)):
+        kb, _ = blocked_kernels.blocked_prep(o.blocking, st.pos, o.mu,
+                                             o.s_lambda)
+        xv = st.vel + 0.3 * torch.randn(
+            st.vel.shape, generator=torch.Generator().manual_seed(9)).to(dev)
+        k3_cases.append((label, o.blocking, kb, xv))
+    k3_rows = run_k3_variants(torch, card, k3_cases)
+    log(json.dumps({"k3_variants": k3_rows}))
+    log(f"[K3 variants] section 51 in {time.perf_counter() - t_var:.1f} s")
     log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

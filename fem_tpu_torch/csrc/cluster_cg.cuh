@@ -1,7 +1,8 @@
 // The unblocked operator and the reference CG over one thread-block
 // cluster, shared by the cluster variants of the unblocked whole frame K11b
-// (fused_frame.cu) and of the whole solve K4 (fused_cg.cu), so that their
-// operator and their loop cannot drift apart.
+// (fused_frame.cu), of the whole solve K4 (fused_cg.cu) and of the
+// edge-matrix CG K11a (edge_cg.cu), so that their operator and their loop
+// cannot drift apart.
 //
 // Semantics (the reference CG, as whole_cg.cuh):
 //   apply_a(v)  = v - dt^2 G(K) v / m
@@ -39,7 +40,9 @@
 // normal-equations mode, 6 barriers (the element pass and its sums; A^T b
 // with the first product of A x_0 and their sums; the A^T half of op(x_0)
 // and its sums with |r_0|^2) and 5 an iteration (two applies, the second's
-// sums with d.q, and r.r); in plain mode 4 and 3.  A cluster of one CTA
+// sums with d.q, and r.r); in plain mode 4 and 3.  A solve from a given b
+// (ClusterSolve::solve_from_b: the edge-matrix CG K11a, edge_cg.cu) has no
+// element pass, so 2 barriers fewer.  A cluster of one CTA
 // syncs with __syncthreads().  The per-particle sums are those of
 // whole_cg.cuh (the plan's order); the dot products sum per CTA, then over
 // the CTAs in rank order, so a solve differs from whole_cg.cuh's only in
@@ -395,16 +398,11 @@ struct ClusterSolve {
   }
 
   // The velocity solve: prep(out) writes the rank's elements' K into k and
-  // sends their force rows into the receive slots `out` (the element pass);
-  // then b = vel + dt f / m, x_0 = b and the CG.  Leaves x and returns (it,
-  // |r|^2).  An operator apply: the products, a barrier, the owners' sums
-  // pushed to the holders, a barrier, then every CTA reads the sums of its
-  // local particles.  Where a dot product follows an apply, the owners
-  // finish their particles' step at once and push the CTA's partial with
-  // the sums, so that one barrier serves both.
+  // sends their force rows into the receive slots `out` (the element pass,
+  // two barriers with its sums); then b = vel + dt f / m, x_0 = b and the
+  // CG (solve_from_b).  Leaves x and returns (it, |r|^2).
   template <typename Prep>
   __device__ void solve(Prep&& prep, int* it_out, float* delta_out) {
-    const float dt2 = a.dt2;
     float* p = next_part();
     prep(p);
     sync();
@@ -418,6 +416,22 @@ struct ClusterSolve {
         x[D * l + c] = vel[D * l + c] + a.dt * wb0[RS * l + c] * mi;
       }
     }
+    solve_from_b(it_out, delta_out);
+  }
+
+  // The CG from x_0 = b, which every CTA holds in x for its local
+  // particles (the CTA barrier that opens products() publishes it to the
+  // CTA's threads): r = rhs - op(x_0) with rhs = A^T b or b, then the loop.
+  // Leaves x and returns (it, |r|^2).  In normal-equations mode it meets 4
+  // barriers and 5 an iteration, in plain mode 2 and 3.  An operator
+  // apply: the products, a barrier, the owners' sums pushed to the
+  // holders, a barrier, then every CTA reads the sums of its local
+  // particles.  Where a dot product follows an apply, the owners finish
+  // their particles' step at once and push the CTA's partial with the
+  // sums, so that one barrier serves both.
+  __device__ void solve_from_b(int* it_out, float* delta_out) {
+    const float dt2 = a.dt2;
+    float* p;
     float part = 0.0f;
     if (a.normal) {
       // r = A^T b (the rhs), then q = op(x_0) = A^T A b: the products of

@@ -114,6 +114,7 @@
 
 #include "blocked_common.cuh"
 #include "cluster.cuh"
+#include "cluster_slots.cuh"
 #include "cooperative.cuh"
 #include "inelastic.cuh"
 
@@ -613,8 +614,8 @@ struct ClusterExplicit {
   }
 
   // Phase 1: every owned block's gradient rows, each slot's sum through
-  // the block's local plan (fem::block_slot_sums' arithmetic) stored into
-  // its receive slot in the CTA that owns its particle.
+  // the block's local plan stored into its receive slot in the CTA that
+  // owns its particle (cluster_slots.cuh: store_slot_sum, shared with K3).
   __device__ void gradient() {
     blocks_pass(
         [&](const fem::BlockTables& Tb, int b, int ib, int e) {
@@ -639,44 +640,20 @@ struct ClusterExplicit {
           for (int p = gtid; p < Tb.pb; p += kThreads) {
             const int to = dest[p];
             if (to < 0) continue;
-            float acc[D];
-#pragma unroll
-            for (int c = 0; c < D; ++c) acc[c] = 0.0f;
-            const int end = ptr[p + 1];
-            for (int q = ptr[p]; q < end; ++q) {
-              const float* row = t + D * rows[q];
-#pragma unroll
-              for (int c = 0; c < D; ++c) acc[c] += row[c];
-            }
-            Row v;
-            v.x = acc[0];
-            v.y = acc[1];
-            if constexpr (D == 3) {
-              v.z = acc[2];
-              v.w = 0.0f;
-            }
-            *reinterpret_cast<Row*>(at(recv + RS * (to & 0xffff), to >> 16)) =
-                v;
+            fem::store_slot_sum<D>(ptr, rows, t, p,
+                                   at(recv + RS * (to & 0xffff), to >> 16));
           }
         });
   }
 
   // Phase 2: every owned particle's gradient, the sum of its receive slots
-  // in the slot plan's order (fem::particle_slot_sum's arithmetic), and its
+  // in the slot plan's order (cluster_slots.cuh: receive_sum), and its
   // kinematic step; with `push` its new position is stored into every other
   // CTA that holds it.
   __device__ void advance(bool push) {
     for (int l = threadIdx.x; l < no; l += blockDim.x) {
       float grad[D];
-#pragma unroll
-      for (int c = 0; c < D; ++c) grad[c] = 0.0f;
-      const int end = sptr[l + 1];
-      for (int k = sptr[l]; k < end; ++k) {
-        const Row v = *reinterpret_cast<const Row*>(recv + RS * k);
-        grad[0] += v.x;
-        grad[1] += v.y;
-        if constexpr (D == 3) grad[2] += v.z;
-      }
+      fem::receive_sum<D>(recv, sptr[l], sptr[l + 1], grad);
       float p[D], u[D];
 #pragma unroll
       for (int c = 0; c < D; ++c) {

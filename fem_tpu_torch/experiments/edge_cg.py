@@ -5,10 +5,16 @@
 ``fem_tpu_torch/csrc/edge_cg.cu`` for tensors on a CUDA device; it replaces
 the JAX package's Pallas kernel ``experiments/pallas_cg.py:_cg_kernel``
 (entry ``cg_solve_pallas``), in the dimension of the velocities (2 or 3).
-For tensors on the CPU it runs ``cg_solve_edge_plain``, the JAX kernel's
-formulation: the operator as products with the dense S (``torch.matmul``,
-TF32 off) and the port's reference CG loop.  On CUDA it launches the kernel
-or raises; it never falls back.
+Its two variants are K4's: the **cluster** variant (one thread-block
+cluster on ``csrc/cluster_cg.cuh``, the solve's state in shared memory:
+every mesh whose state fits one cluster) or else the **single** variant
+(one CTA of 1,024 threads on ``csrc/whole_cg.cuh``, the state in device
+memory: any mesh), chosen before the launch by K11b's planner
+(``fused_frame.fused_frame_plan``); ``cluster=`` or ``single=True`` force
+one.  For tensors on the CPU it runs ``cg_solve_edge_plain``, the JAX
+kernel's formulation: the operator as products with the dense S
+(``torch.matmul``, TF32 off) and the port's reference CG loop.  On CUDA it
+launches the kernel or raises; it never falls back.
 
 Semantics (the JAX kernel's): with S the dense ±1 edge matrix (E·d, N) of
 ``solvers/implicit.build_edge_matrix`` and 1/m in f32,
@@ -30,16 +36,43 @@ tensor.  The kernel then applies G(K) by direct gathers, as K4 does.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from fem_tpu_torch.experiments import fused_frame as ff
 from fem_tpu_torch.ops.assembly import GatherPlan, make_gather_plan
 from fem_tpu_torch.ops.cg_kernels import conjugate_gradient
+from fem_tpu_torch.ops.frame_kernels import FrameLimits
 from fem_tpu_torch.utils import cuda_build
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# Local vectors of a cluster CTA of K11a (csrc/edge_cg.cu: kVectors): x,
+# which starts as b (x₀ = b), r, d, q — one fewer than K4's, which keeps
+# the velocities beside x.
+CLUSTER_VECTORS = 4
+
+
+class EdgeCgArgsC(ctypes.Structure):
+    """Mirror of ``FemEdgeCgArgs`` (csrc/edge_cg.cu): the cluster variant's
+    arguments, its plan's fields flat (``fem::cluster_cg::Plan``, the
+    fields of ``fused_frame.FusedAssignment`` and the four sizes)."""
+
+    _fields_ = [
+        ("k", _P), ("b", _P), ("mass", _P), ("normal", _I),
+        ("max_iter", _I), ("dt2", _F), ("tol", _F), ("x", _P), ("it", _P),
+        ("res", _P),
+        ("cl_elem_ptr", _P), ("cl_local_ptr", _P), ("cl_local_ids", _P),
+        ("cl_owned_ptr", _P), ("cl_elem_local", _P), ("cl_row_dest", _P),
+        ("cl_recv_ptr", _P), ("cl_push_ptr", _P), ("cl_push_codes", _P),
+        ("cl_cap", _I), ("cl_elements", _I), ("cl_entries", _I),
+        ("cl_pushes", _I), ("barriers", _P),
+    ]
 
 
 class EdgePlan(NamedTuple):
@@ -91,10 +124,11 @@ def supports_edge_cg(obj) -> bool:
     """Whether ``obj`` carries the edge matrix K11a consumes (the JAX
     package's ``supports_pallas_cg`` keeps this test).  Its TPU-backend
     test and its VMEM gate (S within 12 MB) are Mosaic's limits and have no
-    counterpart: the kernel never holds S, its scratch is O(E + N) floats
-    of device memory, and its one CTA walks elements and particles in
-    grid-stride loops, so every mesh whose S ``build_object`` attaches
-    (E·d·N ≤ 16,000,000) fits the card."""
+    counterpart: the kernel never holds S, and a mesh whose state does not
+    fit one cluster's shared memory runs the single variant, whose scratch
+    is O(E + N) floats of device memory and whose one CTA walks elements
+    and particles in grid-stride loops, so every mesh whose S
+    ``build_object`` attaches (E·d·N ≤ 16,000,000) fits the card."""
     return obj.edge_matrix is not None
 
 
@@ -130,20 +164,85 @@ def cg_solve_edge_plain(
     return res.x, res.iterations
 
 
+def edge_cg_barriers(variant: str, normal: bool, iterations: int) -> int:
+    """Barriers of one K11a solve of ``iterations`` iterations, as
+    csrc/edge_cg.cu places them.  The cluster variant: one after the
+    copy-in, then csrc/cluster_cg.cuh's solve from x₀ = b — normal
+    equations 4 and 5 an iteration, plain 2 and 3 — so 5 + 5·it or
+    3 + 3·it (K4's less its element pass and its sums).  The single
+    variant: its every ``__syncthreads`` (one after the copy-in; whole_cg.cuh:
+    an apply 3, a dot 3) — 13 + 12·it or 7 + 9·it.  The kernel counts the
+    barriers it meets (``cg_solve_edge.last_barriers``); the CUDA tests and
+    ``chip_smoke.py`` hold that count to this one."""
+    per_solve, per_it = {("cluster", True): (5, 5), ("cluster", False): (3, 3),
+                         ("single", True): (13, 12),
+                         ("single", False): (7, 9)}[(variant, bool(normal))]
+    return per_solve + per_it * int(iterations)
+
+
 def _library():
     lib = cuda_build.load("edge_cg")
     if lib.fem_edge_cg.argtypes is None:
-        lib.fem_edge_cg_scratch_floats.argtypes = [ctypes.c_int] * 3
+        out = ctypes.POINTER(_I)
+        lib.fem_edge_cg_scratch_floats.argtypes = [_I] * 3
         lib.fem_edge_cg_scratch_floats.restype = ctypes.c_longlong
         lib.fem_edge_cg.argtypes = [
-            ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P,
-            _P, _P, _P, _P,
+            _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _F, _P, _P, _P,
+            _P, _P, _P,
         ]
-        lib.fem_edge_cg.restype = ctypes.c_int
-        lib.fem_edge_cg_error.argtypes = [ctypes.c_int]
+        lib.fem_edge_cg.restype = _I
+        lib.fem_edge_cg_limits.argtypes = [_I, out, out, out]
+        lib.fem_edge_cg_limits.restype = _I
+        lib.fem_edge_cg_cluster_smem.argtypes = [_I] * 5
+        lib.fem_edge_cg_cluster_smem.restype = ctypes.c_longlong
+        lib.fem_edge_cg_cluster_fit.argtypes = [_I, _I, _I, out]
+        lib.fem_edge_cg_cluster_fit.restype = _I
+        lib.fem_edge_cg_cluster.argtypes = [
+            ctypes.POINTER(EdgeCgArgsC), _I, _I, _I, _P]
+        lib.fem_edge_cg_cluster.restype = _I
+        lib.fem_edge_cg_error.argtypes = [_I]
         lib.fem_edge_cg_error.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=16)
+def device_limits(device_index: int, dim: int) -> FrameLimits:
+    """The ``FrameLimits`` of CUDA device ``device_index`` for K11a's
+    cluster instance of ``dim``."""
+    lib = _library()
+    mc, optin, sms = _I(0), _I(0), _I(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_edge_cg_limits(dim, ctypes.byref(mc), ctypes.byref(optin),
+                                    ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError("edge-matrix CG kernel: reading the device's "
+                           f"limits failed: {lib.fem_edge_cg_error(rc).decode()}")
+    return FrameLimits(mc.value, optin.value, sms.value)
+
+
+@functools.lru_cache(maxsize=64)
+def _check_cluster(device_index: int, size: int, smem: int, sizes, dim: int):
+    """Raise unless the device can run K11a's cluster of ``size`` CTAs with
+    ``smem`` bytes each for a rank of ``sizes`` (elements, local particles,
+    receive slots, push codes).  Once per plan on a device."""
+    lib = _library()
+    want = lib.fem_edge_cg_cluster_smem(*sizes, dim)
+    if want != smem:
+        raise RuntimeError(f"edge-matrix CG kernel: the plan's {smem} B of "
+                           f"shared memory differ from the kernel's {want}")
+    most = _I(0)
+    with torch.cuda.device(device_index):
+        rc = lib.fem_edge_cg_cluster_fit(size, smem, dim, ctypes.byref(most))
+    if rc != 0:
+        raise RuntimeError(
+            f"edge-matrix CG kernel: {lib.fem_edge_cg_error(rc).decode()} "
+            f"(one cluster of {size} CTAs, {smem} B of shared memory each; "
+            f"{most.value} such clusters fit at once)")
+
+
+# Device → the (1,) int32 tensor K11a's launches there write their barrier
+# count to.
+_BARRIERS: dict = {}
 
 
 def cg_solve_edge(
@@ -157,12 +256,24 @@ def cg_solve_edge(
     preconditioned: bool,
     max_iter: int = 500,
     tol: float = 1e-5,
+    cluster: int = 0,
+    single: bool = False,
 ):
     """Returns (x (N, d), iterations int32 scalar), on the input's device —
     the contract of the JAX package's ``cg_solve_pallas``.  S is checked
     (and its plan built) on every device.  CUDA tensors: one launch of the
-    whole-solve kernel, with no host synchronisation once the plan exists.
-    CPU tensors: :func:`cg_solve_edge_plain`."""
+    whole-solve kernel, with no host synchronisation once the plan exists
+    (the first call on an S plans on the host; the plan and its assignment
+    are kept with S's :class:`EdgePlan`).  The variant is K11b's planner's
+    (``fused_frame_plan`` with K11a's four local vectors); ``cluster``
+    forces the cluster variant with that many CTAs, ``single`` the single
+    variant (tests and ``chip_smoke.py``; a plan the device cannot run
+    raises).  The launch's variant and CTAs are left in
+    ``cg_solve_edge.last_plan`` and counted in ``variant_launches``; the
+    barriers its kernel met in ``cg_solve_edge.last_barriers``, a (1,)
+    int32 tensor on the device that the next launch there overwrites
+    (:func:`edge_cg_barriers` says what it must hold).  CPU tensors:
+    :func:`cg_solve_edge_plain`."""
     if dim not in (2, 3):
         raise ValueError(f"the edge-matrix CG takes dim 2 or 3, not {dim}")
     ep = edge_plan(s_mat, dim)
@@ -185,24 +296,56 @@ def cg_solve_edge(
     if dim == 3 and idx.data_ptr() % 16:
         raise ValueError("element ids must be 16-byte aligned (int4 loads)")
     lib = _library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    fplan, tables = ff._planned(idx, ep.plan, n, dim,
+                                device_limits(index, dim), int(cluster),
+                                bool(single), CLUSTER_VECTORS)
+    barriers = _BARRIERS.get(dev)
+    if barriers is None:
+        barriers = _BARRIERS[dev] = torch.zeros((1,), dtype=torch.int32,
+                                                device=dev)
     x = torch.empty((n, dim), dtype=f32, device=dev)
-    scratch = torch.empty(lib.fem_edge_cg_scratch_floats(dim, e, n),
-                          dtype=f32, device=dev)
     it = torch.empty((), dtype=torch.int32, device=dev)
     res = torch.empty((), dtype=f32, device=dev)
+    normal = int(bool(preconditioned))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_edge_cg(
-            dim, k_blocks.data_ptr(), idx.data_ptr(), ep.plan.ptr.data_ptr(),
-            ep.plan.rows.data_ptr(), b.data_ptr(), mass.data_ptr(), e, n,
-            dt2, int(bool(preconditioned)), max_iter, tol, x.data_ptr(),
-            scratch.data_ptr(), it.data_ptr(), res.data_ptr(), stream,
-        )
+        if fplan.variant == "cluster":
+            sizes, cl = tables
+            _check_cluster(index, fplan.size, fplan.smem, sizes, dim)
+            elements, cap, entries, pushes = sizes
+            args = EdgeCgArgsC(
+                k_blocks.data_ptr(), b.data_ptr(), mass.data_ptr(), normal,
+                int(max_iter), dt2, tol, x.data_ptr(), it.data_ptr(),
+                res.data_ptr(), *(t.data_ptr() for t in cl), cap, elements,
+                entries, pushes, barriers.data_ptr())
+            rc = lib.fem_edge_cg_cluster(ctypes.byref(args), dim, fplan.size,
+                                         fplan.smem, stream)
+        else:
+            scratch = torch.empty(lib.fem_edge_cg_scratch_floats(dim, e, n),
+                                  dtype=f32, device=dev)
+            rc = lib.fem_edge_cg(
+                dim, k_blocks.data_ptr(), idx.data_ptr(),
+                ep.plan.ptr.data_ptr(), ep.plan.rows.data_ptr(), b.data_ptr(),
+                mass.data_ptr(), e, n, dt2, normal, max_iter, tol,
+                x.data_ptr(), scratch.data_ptr(), it.data_ptr(),
+                res.data_ptr(), barriers.data_ptr(), stream,
+            )
     if rc != 0:
         msg = lib.fem_edge_cg_error(rc).decode()
-        raise RuntimeError(f"edge-matrix CG kernel launch failed: {msg}")
+        raise RuntimeError(f"edge-matrix CG kernel launch failed "
+                           f"({fplan.variant} variant, {fplan.size} CTAs): "
+                           f"{msg}")
     cg_solve_edge.launches += 1
+    cg_solve_edge.last_plan = fplan
+    cg_solve_edge.last_barriers = barriers
+    key = (fplan.variant, fplan.size)
+    cg_solve_edge.variant_launches[key] = (
+        cg_solve_edge.variant_launches.get(key, 0) + 1)
     return x, it
 
 
 cg_solve_edge.launches = 0
+cg_solve_edge.variant_launches = {}
+cg_solve_edge.last_plan = None
+cg_solve_edge.last_barriers = None

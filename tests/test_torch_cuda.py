@@ -2003,3 +2003,168 @@ def test_fused_cg_variants_long_solve_match_float64(stiff_body, variant):
     assert int(ref_it) < 500 and float(ref_res) <= TOL
     err = float((v.cpu().double() - ref).abs().max())
     assert err <= 1e-4 * float(ref.abs().max()), err
+
+
+K11A_VARIANTS = ["auto", "single", "cluster 1", "cluster 3", "cluster 16"]
+
+
+def _edge_case(dim, body, body_2d):
+    """(S, K, b, mass, kwargs) of a K11a case: the cube or default.json's
+    square, K from K1 at the moving state, b its velocities."""
+    from fem_tpu_torch.solvers.implicit import build_edge_matrix
+
+    obj, state = body if dim == 3 else body_2d
+    s_mat = torch.as_tensor(build_edge_matrix(
+        obj.element_indices.cpu().numpy(), obj.particle_cnt), device="cuda")
+    k, _ = element_kernels.hessian_and_force(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda)
+    return s_mat, k, state.vel, obj.mass, obj
+
+
+def _k11a_fits(obj, opts):
+    """Whether K11a's forced cluster fits the device (one that does not is
+    refused before any launch)."""
+    from fem_tpu_torch.experiments import edge_cg
+    from fem_tpu_torch.experiments import fused_frame as ff
+
+    if "cluster" not in opts:
+        return True
+    asg = ff.cluster_assignment(
+        obj.element_indices.cpu().numpy(), obj.plan.ptr.cpu().numpy(),
+        obj.plan.rows.cpu().numpy(), obj.particle_cnt, opts["cluster"])
+    limits = edge_cg.device_limits(0, obj.dim)
+    return (opts["cluster"] <= limits.max_cluster and ff.cluster_smem(
+        *asg.sizes(), obj.dim, edge_cg.CLUSTER_VECTORS) <= limits.smem_optin)
+
+
+@pytest.mark.parametrize("preconditioned", [False, True])
+@pytest.mark.parametrize("variant", K11A_VARIANTS)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_edge_cg_variants_match_plain_and_count_barriers(
+        body, body_2d, dim, variant, preconditioned):
+    """K11a in each variant — the plan's (the cluster variant), the single
+    CTA, clusters of 1, 3 and 16 CTAs forced — against its plain version
+    (the dense S products): equal iterations, x within 1e-5 of its largest
+    entry, twice bit-identical, the barriers its kernel counted equal to
+    ``edge_cg_barriers``, and within 1e-5 of the single variant (the two
+    differ only in the rounding of their dot products); a cluster of 17 is
+    refused before any launch."""
+    from fem_tpu_torch.experiments import edge_cg
+
+    s_mat, k, b, mass, obj = _edge_case(dim, body, body_2d)
+    kw = dict(dim=dim, dt2=5e-4 * 5e-4, preconditioned=preconditioned)
+    opts = _k4_launch(variant)
+    before = edge_cg.cg_solve_edge.launches
+    if not _k11a_fits(obj, opts):
+        with pytest.raises(ValueError, match="does not fit"):
+            edge_cg.cg_solve_edge(s_mat, k, b, mass, **kw, **opts)
+        assert edge_cg.cg_solve_edge.launches == before
+        return
+    x, it = edge_cg.cg_solve_edge(s_mat, k, b, mass, **kw, **opts)
+    assert edge_cg.cg_solve_edge.launches == before + 1
+    plan = edge_cg.cg_solve_edge.last_plan
+    barriers = int(edge_cg.cg_solve_edge.last_barriers.item())
+    assert plan.variant == ("single" if variant == "single" else "cluster")
+    if "cluster" in opts:
+        assert plan.size == opts["cluster"]
+    assert barriers == edge_cg.edge_cg_barriers(plan.variant, preconditioned,
+                                                int(it))
+    x2, it2 = edge_cg.cg_solve_edge(s_mat, k, b, mass, **kw, **opts)
+    assert torch.equal(x, x2) and torch.equal(it, it2)
+    xp, itp = edge_cg.cg_solve_edge_plain(s_mat, k, b, mass, **kw)
+    assert 1 < int(itp) <= 20 and int(it) == int(itp)
+    top = float(xp.abs().max())
+    assert float((x - xp).abs().max()) <= TOL * top
+    xs, its = edge_cg.cg_solve_edge(s_mat, k, b, mass, **kw, single=True)
+    assert int(its) == int(it)
+    assert float((x - xs).abs().max()) <= TOL * top
+    with pytest.raises(ValueError, match="does not fit"):
+        edge_cg.cg_solve_edge(s_mat, k, b, mass, **kw, cluster=17)
+
+
+K3_VARIANTS = ["auto", "grid", "cluster 1", "cluster 3", "cluster 16"]
+
+
+def _k3_case(case, body, body_2d, grid_2d):
+    if case == "3D 3 blocks":
+        return body
+    if case == "3D 35 blocks":
+        obj, state = body
+        return _reblocked(obj), state
+    return body_2d if case == "2D one block" else grid_2d
+
+
+@pytest.mark.parametrize("transpose_k", [False, True])
+@pytest.mark.parametrize("variant", K3_VARIANTS)
+@pytest.mark.parametrize("case", ["3D 3 blocks", "3D 35 blocks",
+                                  "2D one block", "2D 16 blocks"])
+def test_blocked_matvec_variants_are_bit_identical(
+        body, body_2d, grid_2d, case, variant, transpose_k):
+    """K3 in each variant — the plan's, the two-kernel grid variant,
+    clusters of 1, 3 and 16 CTAs forced — bit-identical to the two-kernel
+    variant and to itself (the same two sums in the same order), within
+    1e-5 of the plain version's largest entry, one launch a call, the
+    barriers the cluster kernel counted equal to ``matvec_barriers``; the
+    plan's variant is the cluster one unless the blocks outnumber 16 CTAs of
+    two thread groups; a cluster of more CTAs than blocks, or of 17, is
+    refused before any launch."""
+    obj, state = _k3_case(case, body, body_2d, grid_2d)
+    blk = obj.blocking
+    k, _ = blocked_kernels.blocked_prep(blk, state.pos, obj.mu, obj.s_lambda)
+    x = state.vel
+    opts = ({} if variant == "auto" else dict(grid=True)
+            if variant == "grid" else dict(cluster=int(variant.split()[1])))
+    before = blocked_kernels.blocked_graph_apply.launches
+    if opts.get("cluster", 0) > blk.num_blocks:
+        with pytest.raises(ValueError, match="without a block"):
+            blocked_kernels.blocked_graph_apply(blk, k, x, transpose_k,
+                                                **opts)
+        assert blocked_kernels.blocked_graph_apply.launches == before
+        return
+    y = blocked_kernels.blocked_graph_apply(blk, k, x, transpose_k, **opts)
+    assert blocked_kernels.blocked_graph_apply.launches == before + 1
+    plan = blocked_kernels.blocked_graph_apply.last_plan
+    if variant == "auto":
+        want = "grid" if blk.num_blocks > 32 else "cluster"
+        assert (plan.variant, plan.size) == (
+            want, min(blk.num_blocks, 16) if want == "cluster"
+            else blk.num_blocks)
+    elif "cluster" in opts:
+        assert (plan.variant, plan.size) == ("cluster", opts["cluster"])
+    else:
+        assert plan.variant == "grid"
+    if plan.variant == "cluster":
+        got = int(blocked_kernels.blocked_graph_apply.last_barriers.item())
+        assert got == blocked_kernels.matvec_barriers("cluster", plan.size)
+    else:
+        assert blocked_kernels.blocked_graph_apply.last_barriers is None
+    y2 = blocked_kernels.blocked_graph_apply(blk, k, x, transpose_k, **opts)
+    grid = blocked_kernels.blocked_graph_apply(blk, k, x, transpose_k,
+                                               grid=True)
+    assert torch.equal(y, y2) and torch.equal(y, grid)
+    yp = blocked_kernels.blocked_graph_apply_plain(blk, k, x, transpose_k)
+    top = float(yp.abs().max())
+    assert top > 0 and float((y - yp).abs().max()) <= TOL * top
+    with pytest.raises(ValueError):
+        blocked_kernels.blocked_graph_apply(blk, k, x, transpose_k,
+                                            cluster=17)
+
+
+def test_blocked_matvec_binds_once_a_blocking(body):
+    """blocked_graph_apply binds a blocking once (the plan, its tables and
+    the launch arguments), binds again after a table is changed in place,
+    and returns a fresh y each call."""
+    obj, state = body
+    blk = dataclasses.replace(obj.blocking,
+                              local_rows=obj.blocking.local_rows.clone())
+    k, _ = blocked_kernels.blocked_prep(blk, state.pos, obj.mu, obj.s_lambda)
+    builds = blocked_kernels.MatvecBinding.builds
+    y1 = blocked_kernels.blocked_graph_apply(blk, k, state.vel)
+    y2 = blocked_kernels.blocked_graph_apply(blk, k, state.vel)
+    assert blocked_kernels.MatvecBinding.builds == builds + 1
+    assert y1.data_ptr() != y2.data_ptr() and torch.equal(y1, y2)
+    blk.local_rows.add_(0)
+    y3 = blocked_kernels.blocked_graph_apply(blk, k, state.vel)
+    assert blocked_kernels.MatvecBinding.builds == builds + 2
+    assert torch.equal(y1, y3)

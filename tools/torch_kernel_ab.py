@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 # coding=utf-8
-"""Times P2, K11b, K5's frame, K4, K11a and K8 of one checkout on one GPU,
-hashes K4's, K11a's and K11b's outputs, and measures the host time of the
-explicit frames' wrapper, so that two checkouts can be compared on the
-same card.
+"""Times P2, K11b, K5's frame, K4, K11a, K3 and K8 of one checkout on one
+GPU, hashes K4's, K11a's, K3's, K8's and K11b's outputs, and measures the
+host time of K3's and of the explicit frames' wrappers, so that two
+checkouts can be compared on the same card.
 
     python3 tools/torch_kernel_ab.py [--repo PATH] [--label NAME]
 
@@ -15,8 +15,13 @@ with ``git archive``; by default this one.  On the flagship
 K11b's frame (``fused_frame``, the checkout's own plan; its outputs'
 sha256) and K5's frame (``fused_blocked_frame``), K4's solve
 (``fused_cg_solve``, the checkout's own plan, and its single variant where
-the checkout has one) and K11a's (``cg_solve_edge``) at the scene's K and
-b, with their outputs' sha256; K8's frame (``fused_explicit_frame``, the
+the checkout has one) and K11a's (``cg_solve_edge``, the checkout's own
+plan, and its single variant where the checkout has one) at the scene's K
+and b, with their outputs' sha256; K3's apply (``blocked_graph_apply``,
+both transposes, the checkout's own plan and its two-kernel variant where
+the checkout has one) at K2's K and the scene's velocities, with its
+output's sha256 and the host's enqueue µs an apply (1,000 applies before a
+sync); K8's frame (``fused_explicit_frame``, the
 checkout's own plan) on the explicit flagship, ``default.json``, its
 40-subdivision grid and ``demo_plastic.json``'s plastic body, and on the
 flagship with both inelastic branches; and P2's three variants at the
@@ -140,11 +145,12 @@ def main(argv=None) -> int:
     # Every library the run loads, built at once (one nvcc each, together).
     cuda_build.build([(name, None) for name in ("fused_cg", "fused_frame",
                                                 "edge_cg", "probe_int8")]
-                     + [(name, 0) for name in ("element_chain",
+                     + [(name, 0) for name in ("element_chain", "blocked",
                                                "blocked_frame",
                                                "explicit_frame")])
     from fem_tpu_torch import entry
     from fem_tpu_torch.experiments import edge_cg, fused_frame as ff
+    from fem_tpu_torch.ops import blocked_kernels as bk
     from fem_tpu_torch.ops import cg_kernels, element_kernels as ek
     from fem_tpu_torch.ops import frame_kernels as fk
     from fem_tpu_torch.probes import int8 as p2
@@ -212,11 +218,42 @@ def main(argv=None) -> int:
             o.element_indices.cpu().numpy(), o.particle_cnt), device=dev)
         b = cs.rhs_of(torch, o, s, H, c.delta_time)
         ekw = dict(dim=o.dim, dt2=c.delta_time ** 2, preconditioned=True)
-        x, it = edge_cg.cg_solve_edge(s_mat, K, b, o.mass, **ekw)
-        ms = cs.kernel_ms(torch, lambda: edge_cg.cg_solve_edge(
-            s_mat, K, b, o.mass, **ekw), 20, ["edge_cg_kernel"])
-        emit(kernel="K11a", scene=label, ms=ms, iterations=int(it),
-             sha256=digest(x, it))
+        k11a_variants = [("plan", {})]
+        if "single" in inspect.signature(edge_cg.cg_solve_edge).parameters:
+            k11a_variants.append(("single", dict(single=True)))
+        for name, opts in k11a_variants:
+            x, it = edge_cg.cg_solve_edge(s_mat, K, b, o.mass, **ekw, **opts)
+            plan = getattr(edge_cg.cg_solve_edge, "last_plan", None)
+            # "edge_cg_kernel" names both variants' kernels.
+            ms = cs.kernel_ms(torch, lambda: edge_cg.cg_solve_edge(
+                s_mat, K, b, o.mass, **ekw, **opts), 20, ["edge_cg_kernel"])
+            emit(kernel="K11a", scene=label, launch=name, ms=ms,
+                 iterations=int(it), plan=str(plan), sha256=digest(x, it))
+        kb, _ = bk.blocked_prep(blk, s.pos, o.mu, o.s_lambda)
+        k3_variants = [("plan", {})]
+        if "grid" in inspect.signature(bk.blocked_graph_apply).parameters:
+            k3_variants.append(("grid", dict(grid=True)))
+        for name, opts in k3_variants:
+            for tr in (False, True):
+                def apply(tr=tr, opts=opts):
+                    return bk.blocked_graph_apply(blk, kb, s.vel, tr, **opts)
+
+                y = apply()
+                plan = getattr(bk.blocked_graph_apply, "last_plan", None)
+                names = (["cluster_blocked_matvec_kernel"]
+                         if plan is not None and plan.variant == "cluster"
+                         else ["blocked_matvec_kernel", "slot_sum_kernel"])
+                ms = cs.kernel_ms(torch, apply, 50, names)
+                reps = 1000
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    apply()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                emit(kernel="K3", scene=label, launch=name, transpose_k=tr,
+                     ms=ms, plan=str(plan),
+                     enqueue_us=(t1 - t0) * 1e6 / reps, sha256=digest(y))
     for name in p2.VARIANTS:
         a, w = p2.probe_inputs(6, 1024, 2048, name, dev)
         ms = cs.kernel_ms(torch, lambda: p2.chained_dot(a, w, 200, name), 20,
