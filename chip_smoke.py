@@ -16,7 +16,8 @@ operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), and holds
 every CUDA kernel of those paths against its plain PyTorch version.  K5
 runs as its cluster variant on every path (each mesh there fits one
 thread-block cluster; ``counts()`` fails the run otherwise), as do K8, K4,
-K3 and K11a, and sections 42 and 48-51 hold every variant of the five:
+K3, K2, K7b, K7a and K11a, and sections 42 and 48-52 hold every variant of
+the eight:
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build: every kernel from ``fem_tpu_torch/csrc/`` with nvcc for sm_90a,
@@ -27,19 +28,24 @@ K3 and K11a, and sections 42 and 48-51 hold every variant of the five:
 4. K4, the whole CG solve, against ``fused_cg_solve_plain`` with
    ``preconditioned`` 0 and 1 (velocity rtol 5e-4 / atol 1e-6, iterations
    within 1), and twice on the same inputs, bit-identical;
-5. K2, the blocked prep, and K3, the blocked operator (both transposes;
-   its automatic plan, one cluster of 16 CTAs, and its two-kernel
-   variant), against their plain versions (K block-relative ≤ 1e-5,
-   partials and G(K)·x within 1e-5 of their largest entry), each twice
-   bit-identical, K3's two variants bit-identical to each other;
+5. K2, the blocked prep (its partials form), and K3, the blocked operator
+   (both transposes; its automatic plan, one cluster of 16 CTAs, and its
+   two-kernel variant), against their plain versions (K block-relative ≤
+   1e-5, partials and G(K)·x within 1e-5 of their largest entry), each
+   twice bit-identical, K3's two variants bit-identical to each other;
 6. K5, the whole frame (its automatic plan: one cluster of 16 CTAs on the
    flagship), against ``fused_blocked_frame_plain`` on the card,
    ``preconditioned`` 0 and 1, with and without velocity noise: positions
    within 1e-5, iterations within 1 per substep, two runs bit-identical;
 7. K6, the gradient columns (block-relative ≤ 1e-5), K7b, the blocked
-   prep's explicit mode, and K7a, the blocked assembly (each within 1e-5
-   of its largest entry), against their plain versions on the deformed
-   state, each twice bit-identical;
+   prep's explicit mode (its partials form), and K7a, the blocked assembly
+   (each within 1e-5 of its largest entry), against their plain versions
+   on the deformed state, each twice bit-identical; then K2, K7b and K7a
+   as one launch each that ends in the per-particle sum (their automatic
+   plans, one cluster of 16 CTAs): twice bit-identical and bit-identical to
+   their grid variants, K2's K equal to the partials form's, its force and
+   K7b's gradient within 1e-5 of the largest entry of the parent form (the
+   partials through ``blocked_scatter_sum``); the same in 2D in section 15;
 8. K8, the explicit whole frame, against ``fused_explicit_frame_plain`` on
    the card from the deformed state and from path D's start state, with
    and without velocity noise: positions within 1e-5, two runs
@@ -61,8 +67,9 @@ K3 and K11a, and sections 42 and 48-51 hold every variant of the five:
     positions finite and at the floor; the first frame equals the CPU
     plain frame to 1e-5; steps/s; then one ``auto_diff`` frame, K8 once;
 13. paths E, F and G, the explicit substep (``sim.substep``) from the
-    deformed state: K7b once a substep (E, ``element_backend="auto"``),
-    K7a once a substep (F, ``auto_diff`` and ``"xla"``), K6 once a call of
+    deformed state: K7b once a substep (E, ``element_backend="auto"``; its
+    one launch ends in the gradient), K7a once a substep (F, ``auto_diff``
+    and ``"xla"``; one launch), K6 once a call of
     ``analytic_energy_gradient`` on the unblocked body (G); each first
     substep or gradient equals the CPU's to 1e-5;
 14. the shipped explicit configs ``demo_3d.json`` and
@@ -189,17 +196,21 @@ K3 and K11a, and sections 42 and 48-51 hold every variant of the five:
     launch of it), its plain version's time (CUDA events), the least time
     the card could take (bound) and, for K3, K7a and K7b edges, one PyTorch
     sparse product (library yardstick, its device time from the profiler
-    as the kernels' is), printed as one ``kernels`` JSON
+    as the kernels' is); K2's and K7b's rows time the one launch that ends
+    in the sum, with the grid variant's time and the parent form's (the
+    partials launch and PyTorch's slot sum, every kernel of it), K7a's
+    likewise, K7b edges' at two CTAs a block; printed as one ``kernels`` JSON
     line with a row per kernel and dimension, the inelastic instances of K5
     and K8 rows of their own, and a row per material and robust instance
     (with ``material`` and ``robust`` keys); K5's rows name the variant,
     its CTAs, threads a CTA and the barriers the kernel counted in a frame
     (the run fails unless they are those ``frame_barriers`` places there),
-    and K8's, K4's, K3's and K11a's rows likewise
-    (``explicit_frame_barriers``, ``fused_cg_barriers``, ``matvec_barriers``
-    and ``edge_cg_barriers``; K4's and K11a's a solve, K3's an apply).
-    Every path's K5, K8, K4, K3 and K11a ran their cluster variants
-    (``counts()`` fails the run otherwise).
+    and K8's, K4's, K3's, K2's, K7b's, K7a's and K11a's rows likewise
+    (``explicit_frame_barriers``, ``fused_cg_barriers``, ``blocked_barriers``
+    and ``edge_cg_barriers``; K4's and K11a's a solve, K3's an apply, K2's,
+    K7b's and K7a's a launch).  Every path's K5, K8, K4, K3, K2, K7b, K7a
+    and K11a ran their cluster variants (``counts()`` fails the run
+    otherwise).
     The build's lines give each library's seconds and the registers and
     spills of every instance.
 42. K11a, the edge-matrix CG (``experiments/edge_cg.py``), against its
@@ -283,8 +294,18 @@ K3 and K11a, and sections 42 and 48-51 hold every variant of the five:
     entry, twice bit-identical and bit-identical to the two-kernel
     variant, a cluster of more CTAs than blocks refused before the launch,
     with its device ms an apply and the barriers the cluster kernel
-    counted (equal to ``matvec_barriers``'), printed as one
-    ``k3_variants`` JSON line.
+    counted (equal to ``blocked_barriers``'), printed as one
+    ``k3_variants`` JSON line;
+52. K2's, K7b's and K7a's variants, each one launch that ends in the
+    per-particle sum: the automatic plan (the cluster variant), the grid
+    variant (one CTA a block, then the slot sums) and clusters of 1, 3 and
+    16 CTAs, on the flagship, ``default.json`` and the
+    40-subdivision grid, each within 1e-5 of the plain version's largest
+    entry (K2's K 1e-5 block-relative), twice bit-identical and
+    bit-identical to the grid variant, a cluster of more CTAs than blocks
+    refused before the launch, with its device ms a launch and the barriers
+    the cluster kernel counted (equal to ``blocked_barriers``'); K7b edges,
+    twice bit-identical; printed as one ``prep_variants`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -307,6 +328,7 @@ GOLDEN_FRAMES = 200  # each 2D golden arc: one virtual second
 FRAMES_L = 10  # path L, each mode
 FRAMES_N = 10  # path N, from the squashed state
 SUBSTEPS_Q = 10  # path Q, each setting
+EDGE_CTAS = 2  # CTAs a block of K7b edges (csrc/blocked.cu: kEdgeParts)
 
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
@@ -698,7 +720,7 @@ def k3_plan_keys():
     """The kernels line's keys of K3's last launch: its variant, CTAs,
     threads a CTA and, for the cluster variant, the barriers its kernel
     counted in that apply, which must be those that
-    ``blocked_kernels.matvec_barriers`` places (the two-kernel variant has
+    ``blocked_kernels.blocked_barriers`` places (the two-kernel variant has
     no barrier inside a kernel to count: None)."""
     from fem_tpu_torch.ops import blocked_kernels as bk
 
@@ -706,12 +728,106 @@ def k3_plan_keys():
     met = None
     if plan.variant == "cluster":
         met = int(bk.blocked_graph_apply.last_barriers.item())
-        want = bk.matvec_barriers(plan.variant, plan.size)
+        want = bk.blocked_barriers(plan.variant, plan.size)
         require(met == want, f"K3 ({plan.variant}, {plan.size} CTAs) met "
-                f"{met} barriers in an apply, where matvec_barriers places "
+                f"{met} barriers in an apply, where blocked_barriers places "
                 f"{want}")
     return dict(variant=plan.variant, ctas=plan.size, threads=plan.threads,
                 barriers_per_apply=met)
+
+
+# The profiler's names of K2's, K7b's and K7a's kernels, by counter and
+# variant: the cluster variant's one kernel, the grid variant's pair.
+SOURCE_KERNELS = {
+    "blocked_prep": ("cluster_blocked_prep_kernel", "blocked_prep_kernel"),
+    "blocked_grad_prep": ("cluster_blocked_grad_kernel",
+                          "blocked_grad_prep_kernel"),
+    "blocked_assemble": ("cluster_blocked_assemble_kernel",
+                         "blocked_assemble_kernel"),
+}
+
+
+def source_kernel_names(counter):
+    """The profiler's names of the last launch of the counter's source (K2
+    "blocked_prep", K7b "blocked_grad_prep", K7a "blocked_assemble")."""
+    from fem_tpu_torch.ops import blocked_kernels as bk
+
+    cluster, grid = SOURCE_KERNELS[counter]
+    if getattr(bk, counter).last_plan.variant == "cluster":
+        return [cluster]
+    return [grid, "slot_sum_kernel"]
+
+
+def source_plan_keys(counter):
+    """The kernels line's keys of the last launch of K2, K7b or K7a: its
+    variant, CTAs, threads a CTA and, for the cluster variant, the barriers
+    its kernel counted, which must be those that
+    ``blocked_kernels.blocked_barriers`` places (None for the grid
+    variant)."""
+    from fem_tpu_torch.ops import blocked_kernels as bk
+
+    fn = getattr(bk, counter)
+    plan = fn.last_plan
+    met = None
+    if plan.variant == "cluster":
+        met = int(fn.last_barriers.item())
+        want = bk.blocked_barriers(plan.variant, plan.size)
+        require(met == want, f"{counter} ({plan.variant}, {plan.size} CTAs) "
+                f"met {met} barriers in a launch, where blocked_barriers "
+                f"places {want}")
+    return dict(variant=plan.variant, ctas=plan.size, threads=plan.threads,
+                barriers_per_launch=met)
+
+
+def check_force_forms(torch, label, blk, pos, mu, lam, Kb, part, gpart,
+                      bcols):
+    """K2, K7b and K7a as one launch each that ends in the per-particle sum
+    (their automatic plans, the cluster variant) on ``blk``: twice
+    bit-identical and bit-identical to the grid variant; K2's K equal to
+    the partials form's ``Kb``, its f and K7b's g within 1e-5 of the largest
+    entry of the parent form (the partials ``part``/``gpart`` through
+    ``blocked_scatter_sum``); K7a's assembly of ``bcols``.  Returns
+    {counter: max abs difference from the parent form}."""
+    from fem_tpu_torch.ops import blocked_kernels as bk
+    from fem_tpu_torch.ops.blocking import blocked_scatter_sum
+
+    args = (blk, pos, mu, lam)
+    errs = {}
+    for counter, call, ref in (
+            ("blocked_prep", lambda **o: bk.blocked_prep_force(*args, **o),
+             blocked_scatter_sum(part, blk)),
+            ("blocked_grad_prep",
+             lambda **o: bk.blocked_grad_force(*args, **o),
+             blocked_scatter_sum(gpart, blk)),
+            ("blocked_assemble", lambda **o: bk.blocked_assemble(
+                blk, bcols, **o), bk.blocked_assemble_plain(blk, bcols))):
+        out = call()
+        out = out if isinstance(out, tuple) else (out,)
+        keys = source_plan_keys(counter)
+        require(keys["variant"] == "cluster",
+                f"{label} {counter}: the plan chose {keys}")
+        again = call()
+        grid = call(grid=True)
+        again = again if isinstance(again, tuple) else (again,)
+        grid = grid if isinstance(grid, tuple) else (grid,)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                f"{label} {counter}: two runs differ")
+        require(all(torch.equal(a, b) for a, b in zip(out, grid)),
+                f"{label} {counter}: the cluster variant differs from the "
+                f"grid variant")
+        if counter == "blocked_prep":
+            require(torch.equal(out[0], Kb),
+                    f"{label} K2: K differs from the partials form's")
+        err = float((out[-1] - ref).abs().max())
+        top = float(ref.abs().max())
+        log(f"[{label} {counter}] one launch {keys}: the sums' max abs "
+            f"difference from the parent form {err:.3e} of max {top:.3e}; "
+            f"twice bit-identical and equal to the grid variant")
+        require(top > 0 and err <= 1e-5 * top,
+                f"{label} {counter}: {err} from the parent form of {top}")
+        errs[counter] = err
+    return errs
 
 
 def k11a_kernel_name():
@@ -799,6 +915,7 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
         element_kernels as ek,
         frame_kernels as fk,
     )
+    from fem_tpu_torch.ops.blocking import blocked_scatter_sum
 
     ops = OPS[d]
     blk = obj.blocking
@@ -845,11 +962,16 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
 
     k2_args = (blk, state.pos, obj.mu, obj.s_lambda)
     Kb, part = bk.blocked_prep(*k2_args)
-    put("blocked_prep", lambda: bk.blocked_prep(*k2_args),
-        lambda: bk.blocked_prep_plain(*k2_args), 20, 200,
-        ["blocked_prep_kernel"],
-        nbytes(state.pos, blk.ref_inv, blk.volume, *tables, Kb, part),
-        ops["chain"] * e)
+    Kb, f2 = bk.blocked_prep_force(*k2_args)
+    put("blocked_prep", lambda: bk.blocked_prep_force(*k2_args),
+        lambda: bk.blocked_prep_force_plain(*k2_args), 20, 200,
+        source_kernel_names("blocked_prep"),
+        nbytes(state.pos, blk.ref_inv, blk.volume, *tables, *plan, Kb, f2),
+        ops["chain"] * e + d * slot_rows,
+        **source_times(torch, "blocked_prep",
+                       lambda **o: bk.blocked_prep_force(*k2_args, **o),
+                       lambda: blocked_scatter_sum(
+                           bk.blocked_prep(*k2_args)[1], blk)))
 
     k3_args = (blk, Kb, x, False)
     y = bk.blocked_graph_apply(*k3_args)
@@ -897,17 +1019,23 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
     lib = library_ms("K7a", lambda: torch.sparse.mm(smat, ccol), ysum)
     put("blocked_assemble", lambda: bk.blocked_assemble(blk, bcols),
         lambda: bk.blocked_assemble_plain(blk, bcols), 20, 200,
-        ["blocked_assemble_kernel", "slot_sum_kernel"],
+        source_kernel_names("blocked_assemble"),
         nbytes(bcols, blk.block_elements, blk.local_ptr, blk.local_rows,
                *plan, ysum),
-        ops["rows"] * e + d * slot_rows, library=lib)
+        ops["rows"] * e + d * slot_rows, library=lib,
+        **source_times(torch, "blocked_assemble",
+                       lambda **o: bk.blocked_assemble(blk, bcols, **o)))
 
-    gpart = bk.blocked_grad_prep(*k2_args)
-    put("blocked_grad_prep", lambda: bk.blocked_grad_prep(*k2_args),
-        lambda: bk.blocked_grad_prep_plain(*k2_args), 20, 200,
-        ["blocked_grad_prep_kernel"],
-        nbytes(state.pos, blk.ref_inv, blk.volume, *tables, gpart),
-        (ops["grad"] + ops["rows"]) * e)
+    g = bk.blocked_grad_force(*k2_args)
+    put("blocked_grad_prep", lambda: bk.blocked_grad_force(*k2_args),
+        lambda: bk.blocked_grad_force_plain(*k2_args), 20, 200,
+        source_kernel_names("blocked_grad_prep"),
+        nbytes(state.pos, blk.ref_inv, blk.volume, *tables, *plan, g),
+        (ops["grad"] + ops["rows"]) * e + d * slot_rows,
+        **source_times(torch, "blocked_grad_prep",
+                       lambda **o: bk.blocked_grad_force(*k2_args, **o),
+                       lambda: blocked_scatter_sum(
+                           bk.blocked_grad_prep(*k2_args), blk)))
 
     k8_args = (blk, state.pos, state.vel, obj.mass, obstacles.centers,
                obstacles.radii)
@@ -920,6 +1048,23 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
                obstacles.centers, obstacles.radii, state.pos, state.vel,
                *k8_out),
         explicit_frame_ops(e, n, slot_rows, ekw["sim_count"], d), **k8_keys)
+    return out
+
+
+def source_times(torch, counter, call, parent_form=None):
+    """The kernels line's extra times of K2, K7b or K7a (counter), each
+    device ms a call (profiler): its plan's launch with its keys
+    (``source_plan_keys``), the grid variant (``grid_ms``) and, for K2
+    and K7b, the parent's form — the partials form and PyTorch's slot sum,
+    every kernel of it (``parent_form_ms``)."""
+    call()
+    out = source_plan_keys(counter)
+    call(grid=True)
+    out["grid_ms"] = kernel_ms(torch, lambda: call(grid=True), 200,
+                               source_kernel_names(counter))
+    if parent_form is not None:
+        out["parent_form_ms"] = library_device_ms(torch, parent_form, 200)
+    call()
     return out
 
 
@@ -1069,6 +1214,10 @@ def check_kernels_2d(torch, obj, state, obstacles, frame_kw, lscene):
     log(f"[2D K7a] assembled gradient max abs error {err:.3e} of max "
         f"{top:.3e}")
     require(top > 0 and err <= 1e-5 * top, f"2D K7a error {err} of {top}")
+    for name, err in check_force_forms(torch, "2D", blk, state.pos, obj.mu,
+                                       obj.s_lambda, Kb, part, gpart,
+                                       bcols).items():
+        errs[name] = max(errs[name], err)
 
     lobj, lstate, lobs, lkw = lscene
     errs["blocked_frame"] = errs["explicit_frame"] = 0.0
@@ -1842,7 +1991,10 @@ def time_inelastic_kernels(torch, d, timing):
         "blocked_edges_kernel",
         nbytes(state.pos, blk.block_particles, blk.plus, blk.minus,
                blk.block_elements, x) + 4 * d * d * e_pad,
-        ops["edges"] * e_real + ops["rest_inv"] * e_pad, library=lib)
+        ops["edges"] * e_real + ops["rest_inv"] * e_pad, library=lib,
+        variant=f"{EDGE_CTAS} CTAs a block", ctas=blk.num_blocks * EDGE_CTAS,
+        threads=(-(-blk.eb // EDGE_CTAS) + 31) // 32 * 32,
+        barriers_per_launch=0)
 
     def inelastic_extra(obj, state, sim_count, implicit):
         n_states = sum(fi is not None for fi in (state.plastic_inv,
@@ -3890,6 +4042,103 @@ def run_k3_variants(torch, card, cases):
     return rows
 
 
+PREP_CLUSTERS = (1, 3, 16)  # forced cluster sizes of section 52
+
+
+def run_prep_variants(torch, card, cases):
+    """Section 52: K2, K7b and K7a in each variant — the automatic plan
+    (the cluster variant), the grid variant and clusters of PREP_CLUSTERS
+    CTAs — for each of ``cases`` (label, object, state): within
+    1e-5 of the plain version's largest entry (K2's K 1e-5
+    block-relative), twice bit-identical and bit-identical to the grid
+    variant, the barriers the cluster kernel counted equal to
+    ``blocked_barriers``', a cluster of more CTAs than blocks refused before
+    the launch, each variant's device ms a launch (profiler); then K7b
+    edges, twice bit-identical and within 1e-5 of the plain version.
+    Returns the rows of the ``prep_variants`` line."""
+    from fem_tpu_torch.ops import blocked_kernels as bk
+    from fem_tpu_torch.ops import element_kernels as ek
+
+    def tup(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    rows = []
+    for label, o, st in cases:
+        blk = o.blocking
+        args = (blk, st.pos, o.mu, o.s_lambda)
+        cols = ek.explicit_grad_columns_plain(
+            st.pos, blk.element_indices, blk.ref_inv, blk.volume, o.mu,
+            o.s_lambda)
+        for counter, call, plain in (
+                ("blocked_prep",
+                 lambda **kw: bk.blocked_prep_force(*args, **kw),
+                 bk.blocked_prep_force_plain(*args)),
+                ("blocked_grad_prep",
+                 lambda **kw: bk.blocked_grad_force(*args, **kw),
+                 bk.blocked_grad_force_plain(*args)),
+                ("blocked_assemble",
+                 lambda **kw: bk.blocked_assemble(blk, cols, **kw),
+                 bk.blocked_assemble_plain(blk, cols))):
+            fn = getattr(bk, counter)
+            plain = tup(plain)
+            grid = tup(call(grid=True))
+            top = float(plain[-1].abs().max())
+            variants = [("auto", {}), ("grid", dict(grid=True))] + [
+                (f"cluster {c}", dict(cluster=c)) for c in PREP_CLUSTERS]
+            for name, opts in variants:
+                before = fn.launches
+                try:
+                    out = tup(call(**opts))
+                except ValueError as exc:
+                    require(fn.launches == before and "cluster" in opts,
+                            f"{counter} {label}, {name}: {exc}")
+                    log(f"[prep variants] {label}, {counter}, {name}: "
+                        f"refused before the launch, as it must be: {exc}")
+                    continue
+                again = tup(call(**opts))
+                torch.cuda.synchronize()
+                keys = source_plan_keys(counter)
+                if name == "auto":
+                    require(keys["variant"] == "cluster",
+                            f"{counter} {label}: the plan chose {keys}")
+                err = float((out[-1] - plain[-1]).abs().max())
+                require(top > 0 and err <= 1e-5 * top,
+                        f"{counter} {label}, {name}: max |d| {err} of {top}")
+                if counter == "blocked_prep":
+                    rel = block_rel_err(out[0], plain[0])
+                    require(rel <= 1e-5, f"K2 {label}, {name}: K "
+                            f"block-relative error {rel}")
+                require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                        f"{counter} {label}, {name}: runs differ")
+                require(all(torch.equal(a, b) for a, b in zip(out, grid)),
+                        f"{counter} {label}, {name}: differs from the grid "
+                        f"variant")
+                ms = kernel_ms(torch, lambda: call(**opts), 50,
+                               source_kernel_names(counter))
+                log(f"[prep variants] {label}, {counter}, {name}: "
+                    f"{keys}; {ms:.5f} ms a launch (profiler); max |d| {err:.3e} of {top:.3e}; twice bit-identical "
+                    f"and equal to the grid variant; card {card}")
+                rows.append(dict(scene=label, kernel=counter, launch=name,
+                                 ms=ms, max_abs_err=err, **keys))
+        xp = bk.blocked_edges_plain(blk, st.pos)
+        top = float(xp.abs().max())
+        x = bk.blocked_edges(blk, st.pos)
+        again = bk.blocked_edges(blk, st.pos)
+        err = float((x - xp).abs().max())
+        require(err <= 1e-5 * top, f"K7b edges {label}: {err} of {top}")
+        require(torch.equal(x, again), f"K7b edges {label}: runs differ")
+        ms = kernel_ms(torch, lambda: bk.blocked_edges(blk, st.pos), 50,
+                       ["blocked_edges_kernel"])
+        log(f"[prep variants] {label}, K7b edges over {EDGE_CTAS} CTAs a "
+            f"block: {ms:.5f} ms a launch (profiler); max |d| {err:.3e} of "
+            f"{top:.3e}; card {card}")
+        rows.append(dict(scene=label, kernel="blocked_edges",
+                         launch=f"{EDGE_CTAS} CTAs a block",
+                         ctas=blk.num_blocks * EDGE_CTAS, ms=ms,
+                         max_abs_err=err))
+    return rows
+
+
 def main():
     import torch
 
@@ -3950,18 +4199,24 @@ def main():
         cg_kernels.fused_cg_solve.variant_launches = {}
         fused_frame.fused_frame.variant_launches = {}
         blocked_kernels.blocked_graph_apply.variant_launches = {}
+        blocked_kernels.blocked_prep.variant_launches = {}
+        blocked_kernels.blocked_grad_prep.variant_launches = {}
+        blocked_kernels.blocked_assemble.variant_launches = {}
         edge_cg.cg_solve_edge.variant_launches = {}
 
     def counts():
         """The launch counts since the last zero_counts(); K5's, K8's, K4's,
-        K3's and K11a's launches on a path are all of their cluster variants
-        (each mesh of the paths fits one cluster), logged by (variant,
-        CTAs)."""
+        K3's, K2's, K7b's, K7a's and K11a's launches on a path are all of
+        their cluster variants (each mesh of the paths fits one cluster),
+        logged by (variant, CTAs)."""
         for name, fn, other in (
                 ("K5", frame_kernels.fused_blocked_frame, "grid"),
                 ("K8", frame_kernels.fused_explicit_frame, "grid"),
                 ("K4", cg_kernels.fused_cg_solve, "single"),
                 ("K3", blocked_kernels.blocked_graph_apply, "grid"),
+                ("K2", blocked_kernels.blocked_prep, "grid"),
+                ("K7b", blocked_kernels.blocked_grad_prep, "grid"),
+                ("K7a", blocked_kernels.blocked_assemble, "grid"),
                 ("K11a", edge_cg.cg_solve_edge, "single")):
             by = fn.variant_launches
             if by:
@@ -4155,6 +4410,10 @@ def main():
     require(top > 0 and k7a_abs <= 1e-5 * top, f"K7a error {k7a_abs} of {top}")
     require(torch.equal(ysum, ysum2), "K7a runs differ")
     log("[K6/K7b/K7a] two runs bit-identical")
+    force_errs = check_force_forms(torch, "3D", blk, state.pos, obj.mu,
+                                   obj.s_lambda, Kb, part, gpart, bcols)
+    k2_abs = max(k2_abs, force_errs["blocked_prep"])
+    k7b_abs = max(k7b_abs, force_errs["blocked_grad_prep"])
 
     # -- 8. K8 against its plain version on the card ------------------------
     ecfg, _, estate0, _ = entry.explicit_flagship(dev)
@@ -4589,6 +4848,17 @@ def main():
     k3_rows = run_k3_variants(torch, card, k3_cases)
     log(json.dumps({"k3_variants": k3_rows}))
     log(f"[K3 variants] section 51 in {time.perf_counter() - t_var:.1f} s")
+
+    # -- 52. K2's, K7b's, K7a's and K7b edges' variants ----------------------
+    t_var = time.perf_counter()
+    # The 40-subdivision grid squeezed: at its rest state the force and
+    # gradient are rounding noise.
+    prep_rows = run_prep_variants(torch, card, (
+        ("flagship", obj, state), ("default.json", two["obj"], two["state"]),
+        ("40 subdivisions", lobj, squeezed_2d(
+            torch, lstate, torch.Generator().manual_seed(10)))))
+    log(json.dumps({"prep_variants": prep_rows}))
+    log(f"[prep variants] section 52 in {time.perf_counter() - t_var:.1f} s")
     log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

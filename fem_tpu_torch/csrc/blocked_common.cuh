@@ -90,43 +90,70 @@ __device__ __forceinline__ void column_rows(float s, const float* h, float* t) {
   }
 }
 
-// Prep of real element e of block b: K_e = -V k into k_out (D*D), and its
-// force contribution rows into t ((D+1)*D) from H_e = -V h — the same
-// arithmetic as K1 followed by K4's force assembly; material M.
+// Prep of one real element from its edge matrix x, its rest-edge inverse
+// r_src (D*D) and its volume: K_e = -V k into k_out (D*D), and its force
+// contribution rows into t ((D+1)*D) from H_e = -V h — the same arithmetic
+// as K1 followed by K4's force assembly; material M.
 template <int D, int M>
-__device__ __forceinline__ void element_prep(const BlockTables& T, int b,
-                                             int e, const float* xs,
-                                             const MaterialParams& m,
-                                             float* k_out, float* t) {
+__device__ __forceinline__ void element_prep_from(const float* x,
+                                                  const float* r_src,
+                                                  float volume,
+                                                  const MaterialParams& m,
+                                                  float* k_out, float* t) {
   constexpr int DD = D * D;
-  float x[DD], r[DD], k[DD], h[DD];
-  block_edges<D>(T, b, e, xs, x);
-  const int slot = b * T.eb + e;
+  float r[DD], k[DD], h[DD];
 #pragma unroll
-  for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
+  for (int i = 0; i < DD; ++i) r[i] = r_src[i];
   material_chain<D, M>(x, r, m, k, h);
-  const float nv = -T.volume[slot];
+  const float nv = -volume;
 #pragma unroll
   for (int i = 0; i < DD; ++i) k_out[i] = nv * k[i];
   column_rows<D>(nv, h, t);
 }
 
-// Explicit gradient of real element e of block b: the contribution rows t
+// Prep of real element e of block b (element_prep_from on the block's
+// tables).
+template <int D, int M>
+__device__ __forceinline__ void element_prep(const BlockTables& T, int b,
+                                             int e, const float* xs,
+                                             const MaterialParams& m,
+                                             float* k_out, float* t) {
+  float x[D * D];
+  block_edges<D>(T, b, e, xs, x);
+  const int slot = b * T.eb + e;
+  element_prep_from<D, M>(x, T.ref_inv + D * D * slot, T.volume[slot], m,
+                          k_out, t);
+}
+
+// Explicit gradient of one real element from its edge matrix x, its
+// rest-edge inverse r_src (D*D) and its volume: the contribution rows t
 // ((D+1)*D) of G_e = +V g (material M's gradient columns) — the same
 // arithmetic as K6 followed by the blocked assembly K7a.
+template <int D, int M>
+__device__ __forceinline__ void element_grad_from(const float* x,
+                                                  const float* r_src,
+                                                  float volume,
+                                                  const MaterialParams& m,
+                                                  float* t) {
+  constexpr int DD = D * D;
+  float r[DD], g[DD];
+#pragma unroll
+  for (int i = 0; i < DD; ++i) r[i] = r_src[i];
+  material_grad_cols<D, M>(x, r, m, g);
+  column_rows<D>(volume, g, t);
+}
+
+// Explicit gradient of real element e of block b (element_grad_from on the
+// block's tables).
 template <int D, int M>
 __device__ __forceinline__ void element_grad(const BlockTables& T, int b,
                                              int e, const float* xs,
                                              const MaterialParams& m,
                                              float* t) {
-  constexpr int DD = D * D;
-  float x[DD], r[DD], g[DD];
+  float x[D * D];
   block_edges<D>(T, b, e, xs, x);
   const int slot = b * T.eb + e;
-#pragma unroll
-  for (int i = 0; i < DD; ++i) r[i] = T.ref_inv[DD * slot + i];
-  material_grad_cols<D, M>(x, r, m, g);
-  column_rows<D>(T.volume[slot], g, t);
+  element_grad_from<D, M>(x, T.ref_inv + D * D * slot, T.volume[slot], m, t);
 }
 
 // Operator rows of real element e of block b: t_j = K_e (x_{v_{j+1}} -

@@ -2,32 +2,42 @@
 """K2, K7b, K3 and K7a: the blocked element prep, the blocked operator and
 the blocked assembly.
 
-``blocked_prep`` and ``blocked_grad_prep`` launch
-``fem_tpu_torch/csrc/blocked.cu``'s prep kernels for tensors on a CUDA
-device; they replace the JAX package's Pallas kernel
-``ops/blocking.py:_prep_kernel`` in its implicit mode (entry
-``blocked_prep``, K2) and its explicit mode (entry ``blocked_grad_prep``,
-K7b).  ``blocked_graph_apply`` launches the same file's operator apply; it
-replaces ``ops/blocking.py:_matvec_kernel`` (entry ``blocked_graph_apply``,
-K3), in one of two variants that :func:`matvec_plan` chooses before the
-launch: the **cluster** variant (one thread-block cluster on K8's
+``fem_tpu_torch/csrc/blocked.cu`` holds one cluster kernel template with
+four row sources — what a block's element computes before the slot sums —
+and each launch of it ends in the per-particle sum:
+
+* ``blocked_prep_force`` (K2, source "prep"): K_e = −V·k and the assembled
+  −V·h force of one material layer, what the implicit substep consumes;
+  it replaces ``ops/blocking.py:_prep_kernel`` in its implicit mode
+  (entry ``blocked_prep``) with the JAX package's scatter after it;
+* ``blocked_grad_force`` (K7b, "grad"): the assembled explicit gradient;
+  ``_prep_kernel``'s explicit mode (entry ``blocked_grad_prep``) and the
+  scatter;
+* ``blocked_graph_apply`` (K3, "apply"): G(K)·x; ``_matvec_kernel``
+  (entry ``blocked_graph_apply``);
+* ``blocked_assemble`` (K7a, "columns"): the assembly of block-ordered
+  columns; ``_scatter_kernel`` (entry ``blocked_assemble``).
+
+Each runs in one of two variants that :func:`blocked_plan` chooses before
+the launch: the **cluster** variant (one thread-block cluster on K8's
 ownership, block slot sums stored into their particles' owners through
 distributed shared memory: every blocking whose receive slots fit one
 cluster) or the **grid** variant (two kernels: per-block partials through
 device memory, then per-particle slot sums); ``cluster=`` or ``grid=True``
-force one.  Both give bit-identical outputs.  What is fixed per blocking
-(the tables, the plan, its assignment, the partials) is bound once
-(:func:`matvec_binding`).  ``blocked_assemble`` launches its assembly
-and slot-sum kernels; it replaces ``ops/blocking.py:_scatter_kernel``
-(entry ``blocked_assemble``, K7a).  Each launches the instance of the
-blocking's dimension (2 or 3; one kernel template, two instances).  For
-tensors on the CPU each runs its plain PyTorch version (``*_plain``); on
-CUDA each launches its kernel or raises.
+force one.  Both variants give bit-identical outputs.  What is fixed per blocking, source and
+material (the tables, the plan, its assignment, the partials) is bound
+once (:func:`blocked_binding`).  Each launches the instance of the
+blocking's dimension (2 or 3).  For tensors on the CPU each runs its plain
+PyTorch version (``*_plain``); on CUDA each launches its kernel or raises.
 
-``blocked_edges`` launches the same file's edges kernel; it replaces the
-edges mode of ``ops/blocking.py:_prep_kernel`` (entry
-``blocked_edge_planes``, K7b edges): the edge matrix of every element slot
-in block order, for the inelastic update (``ops/inelastic.py``).
+``blocked_prep`` and ``blocked_grad_prep`` are the preps' partials forms
+(K and per-slot partials, one CTA a block: the grid variant's first
+kernel), which the tests and ``chip_smoke.py`` hold to their plain
+versions.  ``blocked_edges`` launches the edges kernel, two CTAs a
+block; it replaces the edges mode of ``ops/blocking.py:_prep_kernel``
+(entry ``blocked_edge_planes``, K7b edges): the edge matrix of every
+element slot in block order, for the inelastic update
+(``ops/inelastic.py``).
 
 The preps take a material layer (ops/inelastic.py): an optional dynamic
 rest-edge inverse per slot (``ref_inv``, (B·Eb, d, d); the blocking's own
@@ -35,9 +45,10 @@ when None) and the material, any of ``ops/element.py``'s (and for K2
 ``robust``).  The dynamic inverse is the same table pointer the kernel
 reads anyway, the material a template parameter chosen at launch
 (``kernel_material_id``, one library per material), and its numbers a
-kernel argument, so the static Neo-Hookean launch runs the arithmetic it
-always ran.  The preps count their launches in total and by (dimension,
-material instance), as ``ops/element_kernels`` does.
+kernel argument.  Both forms of a prep count their launches on the
+partials form's function (``blocked_prep``, ``blocked_grad_prep``), in
+total and by (dimension, material instance), as ``ops/element_kernels``
+does; the one-launch forms also by (variant, CTAs).
 
 Layouts: K blocks and element columns are ``(B·Eb, d, d)`` in block order
 (the JAX package's ``kplane_to_kflat`` of its (B, d², Eb·d) planes);
@@ -237,6 +248,24 @@ def blocked_graph_apply_plain(blk: Blocking, K, x, transpose_k: bool = False):
     return blocked_scatter_sum(_slot_partials(blk, t), blk)
 
 
+def blocked_prep_force_plain(blk: Blocking, pos, mu: float, lam: float,
+                             ref_inv=None, material: str = "neo_hookean",
+                             robust: bool = False):
+    """Plain PyTorch version of :func:`blocked_prep_force`: K and the
+    slot-sum assembly of :func:`blocked_prep_plain`'s force partials."""
+    K, partials = blocked_prep_plain(blk, pos, mu, lam, ref_inv, material,
+                                     robust)
+    return K, blocked_scatter_sum(partials, blk)
+
+
+def blocked_grad_force_plain(blk: Blocking, pos, mu: float, lam: float,
+                             ref_inv=None, material: str = "neo_hookean"):
+    """Plain PyTorch version of :func:`blocked_grad_force`: the slot-sum
+    assembly of :func:`blocked_grad_prep_plain`'s partials."""
+    return blocked_scatter_sum(
+        blocked_grad_prep_plain(blk, pos, mu, lam, ref_inv, material), blk)
+
+
 def _library(material_id: int = MATERIAL_IDS["neo_hookean"]):
     """The blocked kernels' library of one material's preps; the
     material-independent kernels (K3, K7a, K7b edges) are in each, and
@@ -245,33 +274,25 @@ def _library(material_id: int = MATERIAL_IDS["neo_hookean"]):
     if lib.fem_blocked_prep.argtypes is None:
         tables = ctypes.POINTER(BlockTablesC)
         params = ctypes.POINTER(MaterialParamsC)
-        lib.fem_blocked_prep.argtypes = [
-            tables, _P, params, ctypes.c_int, _P, _P, _P,
-        ]
-        lib.fem_blocked_prep.restype = ctypes.c_int
+        args = ctypes.POINTER(BlockedArgsC)
         out = ctypes.POINTER(_I)
-        lib.fem_blocked_matvec.argtypes = [ctypes.POINTER(MatvecArgsC), _P]
-        lib.fem_blocked_matvec.restype = _I
-        lib.fem_blocked_matvec_limits.argtypes = [_I, out, out, out]
-        lib.fem_blocked_matvec_limits.restype = _I
-        lib.fem_blocked_matvec_cluster_smem.argtypes = [_I] * 5
-        lib.fem_blocked_matvec_cluster_smem.restype = ctypes.c_longlong
-        lib.fem_blocked_matvec_cluster_fit.argtypes = [_I] * 4 + [out]
-        lib.fem_blocked_matvec_cluster_fit.restype = _I
-        lib.fem_blocked_matvec_cluster.argtypes = [
-            ctypes.POINTER(MatvecArgsC), _I, _I, _I, _P]
-        lib.fem_blocked_matvec_cluster.restype = _I
-        lib.fem_blocked_grad_prep.argtypes = [
-            tables, _P, params, ctypes.c_int, _P, _P,
-        ]
-        lib.fem_blocked_grad_prep.restype = ctypes.c_int
+        lib.fem_blocked_prep.argtypes = [tables, _P, params, _I, _P, _P, _P]
+        lib.fem_blocked_prep.restype = _I
+        lib.fem_blocked_grad_prep.argtypes = [tables, _P, params, _I, _P, _P]
+        lib.fem_blocked_grad_prep.restype = _I
+        lib.fem_blocked_grid.argtypes = [args, _I, _I, _P]
+        lib.fem_blocked_grid.restype = _I
+        lib.fem_blocked_cluster_limits.argtypes = [_I] * 3 + [out] * 3
+        lib.fem_blocked_cluster_limits.restype = _I
+        lib.fem_blocked_cluster_smem.argtypes = [_I] * 6
+        lib.fem_blocked_cluster_smem.restype = ctypes.c_longlong
+        lib.fem_blocked_cluster_fit.argtypes = [_I] * 6 + [out]
+        lib.fem_blocked_cluster_fit.restype = _I
+        lib.fem_blocked_cluster.argtypes = [args] + [_I] * 5 + [_P]
+        lib.fem_blocked_cluster.restype = _I
         lib.fem_blocked_edges.argtypes = [tables, _P, _P, _P]
-        lib.fem_blocked_edges.restype = ctypes.c_int
-        lib.fem_blocked_assemble.argtypes = [
-            tables, _P, _P, _P, ctypes.c_int, _P, _P, _P,
-        ]
-        lib.fem_blocked_assemble.restype = ctypes.c_int
-        lib.fem_blocked_error.argtypes = [ctypes.c_int]
+        lib.fem_blocked_edges.restype = _I
+        lib.fem_blocked_error.argtypes = [_I]
         lib.fem_blocked_error.restype = ctypes.c_char_p
     return lib
 
@@ -288,11 +309,13 @@ def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float,
     """(K (B·Eb, d, d), force partials (B, Pb, d)) of the implicit substep
     at ``pos``: K_e = −V·k and the slot sums of the −V·h force columns, of
     one material layer (``ref_inv``: a dynamic rest-edge inverse per slot,
-    the blocking's own when None).
+    the blocking's own when None) — the partials form, which the tests and
+    ``chip_smoke.py`` hold to the plain version; the substep takes
+    :func:`blocked_prep_force`.
 
     CUDA tensors: one launch of the blocked prep kernel's instance of
-    ``material`` (robust Neo-Hookean when ``robust``), 2D or 3D.  CPU
-    tensors: :func:`blocked_prep_plain`."""
+    ``material`` (robust Neo-Hookean when ``robust``), 2D or 3D, one CTA a
+    block.  CPU tensors: :func:`blocked_prep_plain`."""
     mid = kernel_material_id(material, robust)
     if pos.device.type == "cpu":
         return blocked_prep_plain(blk, pos, mu, lam, ref_inv, material, robust)
@@ -319,20 +342,16 @@ def blocked_prep(blk: Blocking, pos: torch.Tensor, mu: float, lam: float,
     return k, partials
 
 
-blocked_prep.launches = 0
-blocked_prep.instance_launches = {}
-
-
 def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
                       lam: float, ref_inv=None,
                       material: str = "neo_hookean") -> torch.Tensor:
     """Per-slot partials (B, Pb, d) of the explicit energy gradient at
     ``pos``: the slot sums of the +V·P(F)·R⁻ᵀ columns (unclamped log), of
-    one material layer (``ref_inv`` as in :func:`blocked_prep`); feed them
-    to ``blocked_scatter_sum``.
+    one material layer (``ref_inv`` as in :func:`blocked_prep`) — the
+    partials form; the substep takes :func:`blocked_grad_force`.
 
     CUDA tensors: one launch of the blocked prep kernel in its explicit mode,
-    the instance of ``material``, 2D or 3D.  CPU tensors:
+    the instance of ``material``, 2D or 3D, one CTA a block.  CPU tensors:
     :func:`blocked_grad_prep_plain`."""
     mid = kernel_material_id(material)
     if pos.device.type == "cpu":
@@ -357,17 +376,14 @@ def blocked_grad_prep(blk: Blocking, pos: torch.Tensor, mu: float,
     return partials
 
 
-blocked_grad_prep.launches = 0
-blocked_grad_prep.instance_launches = {}
-
-
 def blocked_edges(blk: Blocking, pos: torch.Tensor) -> torch.Tensor:
     """Edge matrices (B·Eb, d, d) of every element slot at ``pos``, in
     block order (x[s, i, j] = p_{j+1}[i] − p_0[i]); padded slots carry the
     rest edge matrix (the inverse of their R⁻¹), so F = I downstream.
 
     CUDA tensors: one launch of the blocked prep kernel's edges mode (2D or
-    3D).  CPU tensors: :func:`blocked_edges_plain`."""
+    3D), two CTAs a block of ⌈Eb/2⌉ threads each (csrc/blocked.cu:
+    kEdgeParts).  CPU tensors: :func:`blocked_edges_plain`."""
     if pos.device.type == "cpu":
         return blocked_edges_plain(blk, pos)
     if pos.device.type != "cuda":
@@ -399,60 +415,27 @@ def check_slot_plan(blk: Blocking, n: int, dev) -> None:
                              torch.int32, dev)
 
 
-def blocked_assemble(blk: Blocking, cols: torch.Tensor) -> torch.Tensor:
-    """(N, d) assembly of block-ordered element columns ``cols`` (B·Eb, d, d):
-    column j of each real slot to its local vertex j+1, −Σ_j to vertex 0,
-    summed per block and then per particle over its block slots (padded
-    slots contribute nothing).
-
-    CUDA tensors: one launch of the blocked assembly (two kernels: per-block
-    partials, per-particle slot sums).  CPU tensors:
-    :func:`blocked_assemble_plain`."""
-    if cols.device.type == "cpu":
-        return blocked_assemble_plain(blk, cols)
-    if cols.device.type != "cuda":
-        raise ValueError(f"unsupported device {cols.device}")
-    tables = block_tables(blk)
-    dev = cols.device
-    n, d = blk.slot_plan.ptr.shape[0] - 1, tables.dim
-    cuda_build.check_operand("cols", cols, (blk.num_blocks * blk.eb, d, d),
-                             torch.float32, blk.volume.device)
-    check_slot_plan(blk, n, dev)
-    partials = torch.empty((blk.num_blocks * blk.pb, d), dtype=torch.float32,
-                           device=dev)
-    y = torch.empty((n, d), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_blocked_assemble(
-            ctypes.byref(tables), cols.data_ptr(), blk.slot_plan.ptr.data_ptr(),
-            blk.slot_plan.rows.data_ptr(), n, partials.data_ptr(),
-            y.data_ptr(), stream,
-        )
-    _check_rc(lib, rc, "blocked assembly")
-    blocked_assemble.launches += 1
-    return y
+# The cluster kernel's row sources (csrc/blocked.cu: BlockedSource): apply
+# (K3), prep (K2), grad (K7b), columns (K7a).
+SOURCES = {"apply": 0, "prep": 1, "grad": 2, "columns": 3}
 
 
-blocked_assemble.launches = 0
-
-
-class MatvecArgsC(ctypes.Structure):
-    """Mirror of ``FemMatvecArgs`` (csrc/blocked.cu): K3's arguments, both
-    variants."""
+class BlockedArgsC(ctypes.Structure):
+    """Mirror of ``FemBlockedArgs`` (csrc/blocked.cu): the arguments of
+    every source, both variants."""
 
     _fields_ = [
         ("T", BlockTablesC), ("k", _P), ("x", _P), ("transpose", _I),
         ("n", _I), ("slot_ptr", _P), ("slot_rows", _P), ("partials", _P),
         ("y", _P), ("cl_owned_ptr", _P), ("cl_owned_ids", _P),
         ("cl_recv_ptr", _P), ("cl_slot_dest", _P), ("cl_entries", _I),
-        ("barriers", _P),
+        ("barriers", _P), ("k_out", _P), ("m", MaterialParamsC),
     ]
 
 
-class MatvecPlan(NamedTuple):
-    """K3's launch: ``variant`` "cluster" (one cluster of ``size`` CTAs of
-    ``threads`` threads, ``smem`` bytes of dynamic shared memory each) or
+class BlockedPlan(NamedTuple):
+    """A blocked launch: ``variant`` "cluster" (one cluster of ``size`` CTAs
+    of ``threads`` threads, ``smem`` bytes of dynamic shared memory each) or
     "grid" (the two kernels: ``size`` = B CTAs of 256 threads for the
     per-block partials, each with ``smem`` bytes of working set, then one
     thread a particle)."""
@@ -468,23 +451,50 @@ _ROW_STRIDE = {2: 2, 3: 4}
 _F32 = 4
 
 
-def matvec_cluster_smem(eb: int, pb: int, dim: int, groups: int,
-                        entries: int) -> int:
-    """Bytes of dynamic shared memory of K3's cluster CTA: its ``entries``
-    receive slots (rows padded to 4 floats in 3D), then per thread group
-    one block's working set (its particles' rows and its elements'
-    contribution rows) and the block's staged tables (plus, minus, the
-    local plan's rows and offsets, the slots' destinations)
-    (csrc/blocked.cu: matvec_cluster_words)."""
-    return _F32 * (_ROW_STRIDE[dim] * entries
-                   + groups * (dim * pb + (dim + 1) * dim * eb
-                               + (3 * dim + 1) * eb + 2 * pb + 1))
+def _pad4(words: int) -> int:
+    return (words + 3) & ~3
 
 
-def matvec_plan(block_particles, slot_ptr, slot_rows, n: int, eb: int,
-                dim: int, limits, cluster: int = 0,
-                grid: bool = False) -> MatvecPlan:
-    """K3's variant, its CTAs, threads and shared memory, from the
+def cluster_group_words(source: str, eb: int, pb: int, dim: int) -> int:
+    """4-byte words of one thread group's share of the cluster CTA of
+    ``source`` (csrc/blocked.cu: group_layout): apply packs its block's
+    rows and contribution rows and the block's plus, minus, local plan rows
+    and offsets and slot destinations; the other sources put each segment
+    on a 16-byte boundary (for the TMA bulk copies), with the layer's R⁻¹
+    and the volumes (prep, grad) or the block's columns (columns), and no
+    gathered rows, plus or minus for columns."""
+    gather = source != "columns"
+    chain = source in ("prep", "grad")
+    words = []
+    if gather:
+        words.append(dim * pb)
+    words.append((dim + 1) * dim * eb)
+    if chain or source == "columns":
+        words.append(dim * dim * eb)
+    if chain:
+        words.append(eb)
+    if gather:
+        words += [dim * eb, dim * eb]
+    words += [(dim + 1) * eb, pb + 1, pb]
+    return sum(words) if source == "apply" else sum(map(_pad4, words))
+
+
+def cluster_smem(source: str, eb: int, pb: int, dim: int, groups: int,
+                 entries: int) -> int:
+    """Bytes of dynamic shared memory of the cluster CTA of ``source``: its
+    ``entries`` receive slots (rows padded to 4 floats in 3D), then one
+    share per thread group (csrc/blocked.cu: cluster_words)."""
+    recv = _ROW_STRIDE[dim] * entries
+    if source != "apply":
+        recv = _pad4(recv)
+    return _F32 * (recv + groups * cluster_group_words(source, eb, pb, dim))
+
+
+def blocked_plan(block_particles, slot_ptr, slot_rows, n: int, eb: int,
+                dim: int, limits, cluster: int = 0, grid: bool = False,
+                source: str = "apply") -> BlockedPlan:
+    """The variant, CTAs, threads and shared memory of a blocked launch of
+    ``source`` (K3 "apply", K2 "prep", K7b "grad", K7a "columns"), from the
     blocking's host arrays (those of ``frame_kernels.cluster_assignment``),
     its element slots a block ``eb`` and the device's ``limits``
     (``frame_kernels.FrameLimits``).
@@ -507,6 +517,8 @@ def matvec_plan(block_particles, slot_ptr, slot_rows, n: int, eb: int,
         explicit_assignment,
     )
 
+    if source not in SOURCES:
+        raise ValueError(f"unknown source {source!r}")
     if cluster < 0:
         raise ValueError(f"cluster {cluster} must be >= 0")
     if cluster and grid:
@@ -514,16 +526,18 @@ def matvec_plan(block_particles, slot_ptr, slot_rows, n: int, eb: int,
     b_cnt, pb = np.asarray(block_particles).shape
     if b_cnt < 1 or dim not in (2, 3):
         raise ValueError(f"no operator of {b_cnt} blocks in {dim}D")
-    two_kernels = MatvecPlan("grid", b_cnt,
-                             _F32 * (dim * pb + (dim + 1) * dim * eb))
+    rows = (dim + 1) * dim * eb
+    two_kernels = BlockedPlan("grid", b_cnt, _F32 * (
+        rows if source == "columns" else dim * pb + rows))
     if grid:
         return two_kernels
 
     def plan(c):
         asg = explicit_assignment(block_particles, slot_ptr, slot_rows, n, c)
         groups = cluster_groups(b_cnt, c)
-        return MatvecPlan("cluster", c, matvec_cluster_smem(
-            eb, pb, dim, groups, asg.sizes()[1]), GROUP_THREADS * groups)
+        return BlockedPlan("cluster", c, cluster_smem(
+            source, eb, pb, dim, groups, asg.sizes()[1]),
+            GROUP_THREADS * groups)
 
     if cluster:
         if cluster > b_cnt:
@@ -542,15 +556,17 @@ def matvec_plan(block_particles, slot_ptr, slot_rows, n: int, eb: int,
     return auto if auto.smem <= limits.smem_optin else two_kernels
 
 
-def matvec_barriers(variant: str, ctas: int) -> int:
-    """Barriers of one K3 apply of ``ctas`` CTAs, as csrc/blocked.cu places
-    them.  The cluster variant: one cluster barrier before the first store
-    into another CTA (none in a cluster of one) and one after the slot sums
-    are stored into their owners — 2, or 1 for one CTA.  The two-kernel
-    variant meets none inside a kernel: its launch boundary orders the
-    partials before the slot sums — 0.  The cluster kernel counts the
-    barriers it meets (``blocked_graph_apply.last_barriers``); the CUDA
-    tests and ``chip_smoke.py`` hold that count to this one."""
+def blocked_barriers(variant: str, ctas: int) -> int:
+    """Barriers of one blocked launch of ``ctas`` CTAs (every source), as
+    csrc/blocked.cu places them.  The cluster variant: one cluster barrier
+    before the first store into another CTA (none in a cluster of one) and
+    one after the slot sums are stored into their owners — 2, or 1 for one
+    CTA.  The two-kernel variant meets none inside a kernel: its launch
+    boundary orders the partials before the slot sums — 0.  The cluster
+    kernel counts the barriers it meets (``last_barriers`` of
+    ``blocked_graph_apply``, ``blocked_prep``, ``blocked_grad_prep`` and
+    ``blocked_assemble``); the CUDA tests and ``chip_smoke.py`` hold that
+    count to this one."""
     if variant == "grid":
         return 0
     if variant == "cluster":
@@ -558,90 +574,99 @@ def matvec_barriers(variant: str, ctas: int) -> int:
     raise ValueError(f"unknown variant {variant!r}")
 
 
-@functools.lru_cache(maxsize=16)
-def matvec_device_limits(device_index: int, dim: int):
+@functools.lru_cache(maxsize=64)
+def blocked_device_limits(device_index: int, dim: int, source: str = "apply",
+                          material_id: int = 0):
     """The ``frame_kernels.FrameLimits`` of CUDA device ``device_index``
-    for K3's cluster instance of ``dim``."""
+    for the cluster kernel of ``source`` in ``dim`` (of ``material_id``
+    for prep and grad)."""
     from fem_tpu_torch.ops.frame_kernels import FrameLimits
 
-    lib = _library()
+    lib = _library(material_id)
     mc, optin, sms = _I(0), _I(0), _I(0)
     with torch.cuda.device(device_index):
-        rc = lib.fem_blocked_matvec_limits(dim, ctypes.byref(mc),
-                                           ctypes.byref(optin),
-                                           ctypes.byref(sms))
-    _check_rc(lib, rc, "blocked matvec (reading the device's limits)")
+        rc = lib.fem_blocked_cluster_limits(
+            SOURCES[source], dim, material_id, ctypes.byref(mc),
+            ctypes.byref(optin), ctypes.byref(sms))
+    _check_rc(lib, rc, f"blocked {source} (reading the device's limits)")
     return FrameLimits(mc.value, optin.value, sms.value)
 
 
 @functools.lru_cache(maxsize=64)
-def _check_matvec_cluster(device_index: int, plan: MatvecPlan, eb: int,
-                          pb: int, dim: int, entries: int) -> None:
-    """Raise unless the device can run K3's cluster ``plan`` for CTAs of
-    ``entries`` receive slots.  Once per plan on a device."""
+def _check_cluster(device_index: int, plan: BlockedPlan, eb: int, pb: int,
+                   dim: int, entries: int, source: str,
+                   material_id: int) -> None:
+    """Raise unless the device can run the cluster ``plan`` of ``source``
+    for CTAs of ``entries`` receive slots.  Once per plan on a device."""
     from fem_tpu_torch.ops.frame_kernels import GROUP_THREADS
 
-    lib = _library()
+    lib = _library(material_id)
+    sid = SOURCES[source]
     groups = plan.threads // GROUP_THREADS
-    want = lib.fem_blocked_matvec_cluster_smem(eb, pb, dim, groups, entries)
+    want = lib.fem_blocked_cluster_smem(sid, eb, pb, dim, groups, entries)
     if want != plan.smem:
-        raise RuntimeError(f"blocked matvec: the plan's {plan.smem} B of "
+        raise RuntimeError(f"blocked {source}: the plan's {plan.smem} B of "
                            f"shared memory differ from the kernel's {want}")
     most = _I(0)
     with torch.cuda.device(device_index):
-        rc = lib.fem_blocked_matvec_cluster_fit(plan.size, plan.threads,
-                                                plan.smem, dim,
-                                                ctypes.byref(most))
+        rc = lib.fem_blocked_cluster_fit(sid, material_id, plan.size,
+                                         plan.threads, plan.smem, dim,
+                                         ctypes.byref(most))
     if rc != 0:
         raise RuntimeError(
-            f"blocked matvec: {lib.fem_blocked_error(rc).decode()} (one "
+            f"blocked {source}: {lib.fem_blocked_error(rc).decode()} (one "
             f"cluster of {plan.size} CTAs of {plan.threads} threads, "
             f"{plan.smem} B of shared memory each; {most.value} such "
             f"clusters fit at once)")
 
 
-def _matvec_versions(blk: Blocking) -> tuple:
-    """The version counters of every tensor of ``blk`` that K3 reads: an
-    in-place change to one of them invalidates a binding."""
+def _blocking_versions(blk: Blocking) -> tuple:
+    """The version counters of every tensor of ``blk`` that the plan reads:
+    an in-place change to one of them invalidates a binding."""
     return (blk.block_particles._version, blk.plus._version,
             blk.minus._version, blk.block_elements._version,
             blk.local_ptr._version, blk.local_rows._version,
             blk.slot_plan.ptr._version, blk.slot_plan.rows._version)
 
 
-# Device → the (1,) int32 tensor K3's cluster launches there write their
+# Device → the (1,) int32 tensor the cluster launches there write their
 # barrier count to.
 _BARRIERS: dict = {}
 
 
-class MatvecBinding:
-    """K3's launch for one blocking, built once: on a CUDA device the
-    checked block tables and slot plan, the plan (:func:`matvec_plan`), its
-    device check and assignment tables (the cluster variant) or the
-    partials (the two-kernel variant), the library and a prebuilt
-    :class:`MatvecArgsC`; each call then checks and patches only K, x and
-    the transpose, allocates y and launches.  On the CPU a call runs
-    :func:`blocked_graph_apply_plain`.  ``matches`` tells whether the
-    binding still holds for a blocking: the same one, its tensors unchanged
-    since (their version counters); ``MatvecBinding.builds`` counts the
-    bindings built."""
+class BlockedBinding:
+    """A blocked launch of one source for one blocking, built once: on a
+    CUDA device the checked block tables and slot plan, the plan
+    (:func:`blocked_plan`), its device check and assignment tables (the
+    cluster variant) or the partials (the two-kernel variant), the library
+    and a prebuilt :class:`BlockedArgsC`; each call then checks and patches
+    only its operands, allocates its outputs and launches.  ``source`` is
+    "apply" (K3, :meth:`__call__`), "prep" (K2, :meth:`prep`), "grad" (K7b,
+    :meth:`grad`) or "columns" (K7a, :meth:`columns`), of material
+    ``material_id`` for prep and grad.  On the CPU :meth:`__call__` runs :func:`blocked_graph_apply_plain`.
+    ``matches`` tells whether the binding still holds for a blocking: the
+    same one, its tensors unchanged since (their version counters);
+    ``BlockedBinding.builds`` counts the bindings built."""
 
     builds = 0
 
-    def __init__(self, blk: Blocking, cluster: int = 0, grid: bool = False):
+    def __init__(self, blk: Blocking, cluster: int = 0, grid: bool = False,
+                 source: str = "apply", material_id: int = 0):
         from fem_tpu_torch.ops.frame_kernels import (
             FrameLimits,
             explicit_assignment,
         )
 
-        MatvecBinding.builds += 1
+        BlockedBinding.builds += 1
         self.blk = blk
-        self.versions = _matvec_versions(blk)
+        self.source = source
+        self.versions = _blocking_versions(blk)
         dev = self.dev = blk.volume.device
         if dev.type == "cpu":
             return
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
+        self.sid, self.mid = SOURCES[source], int(material_id)
         self.tables = block_tables(blk)
         n = self.n = blk.slot_plan.ptr.shape[0] - 1
         d = self.d = self.tables.dim
@@ -652,10 +677,10 @@ class MatvecBinding:
                 blk.slot_plan.ptr.cpu().numpy(),
                 blk.slot_plan.rows.cpu().numpy())
         limits = (FrameLimits(0, 0, 0) if grid
-                  else matvec_device_limits(self.index, d))
-        self.plan = matvec_plan(*host, n, blk.eb, d, limits, int(cluster),
-                                bool(grid))
-        self.lib = lib = _library()
+                  else blocked_device_limits(self.index, d, source, self.mid))
+        self.plan = blocked_plan(*host, n, blk.eb, d, limits, int(cluster),
+                                bool(grid), source)
+        self.lib = lib = _library(self.mid)
         self.k_shape = (blk.num_blocks * blk.eb, d, d)
         if self.plan.variant == "cluster":
             asg = explicit_assignment(*host, n, self.plan.size)
@@ -664,8 +689,8 @@ class MatvecBinding:
                 asg.local_ids[asg.local_ptr[r]:asg.local_ptr[r] + owned[r]]
                 for r in range(self.plan.size)])
             entries = asg.sizes()[1]
-            _check_matvec_cluster(self.index, self.plan, blk.eb, blk.pb, d,
-                                  entries)
+            _check_cluster(self.index, self.plan, blk.eb, blk.pb, d, entries,
+                           source, self.mid)
             self.cl = tuple(torch.as_tensor(t, dtype=torch.int32, device=dev)
                             for t in (asg.owned_ptr, owned_ids, asg.recv_ptr,
                                       asg.slot_dest))
@@ -682,25 +707,55 @@ class MatvecBinding:
             self.partials = torch.empty((blk.num_blocks * blk.pb, d),
                                         dtype=torch.float32, device=dev)
             self.barriers = None
-        self.args = MatvecArgsC(
+        self.args = BlockedArgsC(
             self.tables, None, None, 0, n, blk.slot_plan.ptr.data_ptr(),
             blk.slot_plan.rows.data_ptr(),
             None if self.partials is None else self.partials.data_ptr(),
             None, *cl_fields,
-            None if self.barriers is None else self.barriers.data_ptr())
+            None if self.barriers is None else self.barriers.data_ptr(),
+            None, MaterialParamsC())
         ref = ctypes.byref(self.args)
+        sid, mid = self.sid, self.mid
         if self.plan.variant == "cluster":
-            launch = lib.fem_blocked_matvec_cluster
+            launch = lib.fem_blocked_cluster
             size, threads, smem = (self.plan.size, self.plan.threads,
                                    self.plan.smem)
-            self._launch = lambda stream: launch(ref, size, threads, smem,
-                                                 stream)
+            self._launch = lambda stream: launch(ref, sid, mid, size, threads,
+                                                 smem, stream)
         else:
-            launch = lib.fem_blocked_matvec
-            self._launch = lambda stream: launch(ref, stream)
+            launch = lib.fem_blocked_grid
+            self._launch = lambda stream: launch(ref, sid, mid, stream)
 
     def matches(self, blk: Blocking) -> bool:
-        return blk is self.blk and _matvec_versions(blk) == self.versions
+        return blk is self.blk and _blocking_versions(blk) == self.versions
+
+    def _run(self, fn, *instance) -> None:
+        """Launch on the device's current stream and count the launch on
+        ``fn`` (by instance when given), its plan and barriers."""
+        dev = self.dev
+        if torch.cuda.current_device() == self.index:
+            rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
+        else:
+            with torch.cuda.device(dev):
+                rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"blocked {self.source} kernel launch failed "
+                f"({self.plan.variant} variant, {self.plan.size} CTAs): "
+                f"{self.lib.fem_blocked_error(rc).decode()}")
+        if instance:
+            count_launch(fn, *instance)
+        else:
+            fn.launches += 1
+        fn.last_plan = self.plan
+        fn.last_barriers = self.barriers
+        key = (self.plan.variant, self.plan.size)
+        fn.variant_launches[key] = fn.variant_launches.get(key, 0) + 1
+
+    def _check_source(self, source: str) -> None:
+        if source != self.source:
+            raise ValueError(f"a binding of {self.source!r} launched as "
+                             f"{source!r}")
 
     def __call__(self, K: torch.Tensor, x: torch.Tensor,
                  transpose_k: bool) -> torch.Tensor:
@@ -709,48 +764,93 @@ class MatvecBinding:
         dev = self.dev
         if dev.type == "cpu":
             return blocked_graph_apply_plain(self.blk, K, x, transpose_k)
+        self._check_source("apply")
         cuda_build.check_operand("x", x, (self.n, self.d), torch.float32, dev)
         cuda_build.check_operand("K", K, self.k_shape, torch.float32, dev)
         y = torch.empty((self.n, self.d), dtype=torch.float32, device=dev)
         a = self.args
         a.k, a.x, a.y = K.data_ptr(), x.data_ptr(), y.data_ptr()
         a.transpose = int(bool(transpose_k))
-        if torch.cuda.current_device() == self.index:
-            rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
-        else:
-            with torch.cuda.device(dev):
-                rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"blocked matvec kernel launch failed ({self.plan.variant} "
-                f"variant, {self.plan.size} CTAs): "
-                f"{self.lib.fem_blocked_error(rc).decode()}")
-        fn = blocked_graph_apply
-        fn.launches += 1
-        fn.last_plan = self.plan
-        fn.last_barriers = self.barriers
-        key = (self.plan.variant, self.plan.size)
-        fn.variant_launches[key] = fn.variant_launches.get(key, 0) + 1
+        self._run(blocked_graph_apply)
+        return y
+
+    def _layer(self, pos, ref_inv, params) -> None:
+        """Patch a prep's or gradient's operands: positions, the layer's
+        rest-edge inverses (the blocking's own when None), its numbers."""
+        dev = self.dev
+        cuda_build.check_operand("pos", pos, (self.n, self.d), torch.float32,
+                                 dev)
+        r = self.blk.ref_inv if ref_inv is None else ref_inv
+        cuda_build.check_operand("ref_inv", r, self.k_shape, torch.float32,
+                                 dev)
+        a = self.args
+        a.x, a.T.ref_inv, a.m = pos.data_ptr(), r.data_ptr(), params
+
+    def prep(self, pos: torch.Tensor, ref_inv, params):
+        """(K (B·Eb, d, d), the assembled −V·h force (N, d)) of one layer:
+        one launch."""
+        self._check_source("prep")
+        self._layer(pos, ref_inv, params)
+        k = torch.empty(self.k_shape, dtype=torch.float32, device=self.dev)
+        f = torch.empty((self.n, self.d), dtype=torch.float32,
+                        device=self.dev)
+        self.args.k_out, self.args.y = k.data_ptr(), f.data_ptr()
+        self._run(blocked_prep, self.d, self.mid)
+        return k, f
+
+    def grad(self, pos: torch.Tensor, ref_inv, params) -> torch.Tensor:
+        """The assembled explicit gradient (N, d) of one layer: one
+        launch."""
+        self._check_source("grad")
+        self._layer(pos, ref_inv, params)
+        g = torch.empty((self.n, self.d), dtype=torch.float32,
+                        device=self.dev)
+        self.args.y = g.data_ptr()
+        self._run(blocked_grad_prep, self.d, self.mid)
+        return g
+
+    def columns(self, cols: torch.Tensor) -> torch.Tensor:
+        """The assembly (N, d) of block-ordered columns: one launch."""
+        self._check_source("columns")
+        cuda_build.check_operand("cols", cols, self.k_shape, torch.float32,
+                                 self.dev)
+        y = torch.empty((self.n, self.d), dtype=torch.float32,
+                        device=self.dev)
+        self.args.x, self.args.y = cols.data_ptr(), y.data_ptr()
+        self._run(blocked_assemble)
         return y
 
 
-# (id(blocking), cluster, grid) → the MatvecBinding built for them, which
-# holds the blocking so that its id is not reused while it is kept.
+# (id(blocking), cluster, grid, source, material) → the
+# BlockedBinding built for them, which holds the blocking so that its id is
+# not reused while it is kept.
 _BINDINGS: dict = {}
 
 
-def matvec_binding(blk: Blocking, cluster: int = 0,
-                   grid: bool = False) -> MatvecBinding:
-    """The :class:`MatvecBinding` of ``blk`` and the forced variant, built once and built again when the blocking is
+def blocked_binding(blk: Blocking, cluster: int = 0, grid: bool = False,
+                   source: str = "apply",
+                   material_id: int = 0) -> BlockedBinding:
+    """The :class:`BlockedBinding` of ``blk``, the source, its material and
+    the forced variant, built once and built again when the blocking is
     replaced or changed in place."""
-    key = (id(blk), int(cluster), bool(grid))
+    key = (id(blk), int(cluster), bool(grid), source, int(material_id))
     hit = _BINDINGS.get(key)
     if hit is None or not hit.matches(blk):
-        hit = MatvecBinding(blk, cluster, grid)
-        if key not in _BINDINGS and len(_BINDINGS) >= 32:
+        hit = BlockedBinding(blk, cluster, grid, source, material_id)
+        if key not in _BINDINGS and len(_BINDINGS) >= 64:
             _BINDINGS.pop(next(iter(_BINDINGS)))
         _BINDINGS[key] = hit
     return hit
+
+
+def _cuda(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernel (CUDA) rather than the plain version
+    (CPU); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
 
 
 def blocked_graph_apply(blk: Blocking, K: torch.Tensor, x: torch.Tensor,
@@ -761,27 +861,91 @@ def blocked_graph_apply(blk: Blocking, K: torch.Tensor, x: torch.Tensor,
     its block slots.
 
     CUDA tensors: one launch of the blocked operator, in the variant of
-    :func:`matvec_plan` (``cluster`` forces the cluster variant with that
+    :func:`blocked_plan` (``cluster`` forces the cluster variant with that
     many CTAs, ``grid`` the two-kernel variant; tests and
-    ``chip_smoke.py``; a plan the device cannot run raises), with what is
-    fixed per blocking bound once (:func:`matvec_binding`).  The launch's
-    plan is left in ``blocked_graph_apply.last_plan`` and counted by
-    (variant, CTAs) in ``variant_launches``; the barriers the cluster
-    kernel met in ``blocked_graph_apply.last_barriers``, a (1,) int32
-    tensor on the device that the next cluster launch there overwrites
-    (None after the two-kernel variant; :func:`matvec_barriers` says what
-    it must hold).  CPU tensors: :func:`blocked_graph_apply_plain`."""
-    if x.device.type == "cpu":
+    ``chip_smoke.py``; a plan the device cannot run raises), with what is fixed per blocking bound once
+    (:func:`blocked_binding`).  The launch's plan is left in
+    ``blocked_graph_apply.last_plan`` and counted by (variant, CTAs) in
+    ``variant_launches``; the barriers the cluster kernel met in
+    ``blocked_graph_apply.last_barriers``, a (1,) int32 tensor on the device
+    that the next cluster launch there overwrites (None after the
+    two-kernel variant; :func:`blocked_barriers` says what it must hold).
+    CPU tensors: :func:`blocked_graph_apply_plain`."""
+    if not _cuda(x):
         return blocked_graph_apply_plain(blk, K, x, transpose_k)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return matvec_binding(blk, cluster, grid)(K, x, transpose_k)
+    return blocked_binding(blk, cluster, grid, "apply", 0)(
+        K, x, transpose_k)
 
 
-blocked_graph_apply.launches = 0
-blocked_graph_apply.variant_launches = {}
-blocked_graph_apply.last_plan = None
-blocked_graph_apply.last_barriers = None
+def blocked_prep_force(blk: Blocking, pos: torch.Tensor, mu: float,
+                       lam: float, ref_inv=None,
+                       material: str = "neo_hookean", robust: bool = False,
+                       cluster: int = 0, grid: bool = False):
+    """(K (B·Eb, d, d), f (N, d)) of the implicit substep at ``pos``, of one
+    material layer (``ref_inv`` as in :func:`blocked_prep`): K_e = −V·k and
+    the assembled −V·h force — what the substep consumes.
+
+    CUDA tensors: one launch of K2 (the instance of ``material``, robust
+    Neo-Hookean when ``robust``) that ends in the per-particle sum, in the
+    variant of :func:`blocked_plan` (``cluster`` and ``grid`` as in
+    :func:`blocked_graph_apply`), bound once a blocking and material
+    (:func:`blocked_binding`); counted on ``blocked_prep`` (its
+    ``launches``, ``instance_launches``, ``variant_launches``,
+    ``last_plan`` and ``last_barriers``).  CPU tensors:
+    :func:`blocked_prep_force_plain`."""
+    mid = kernel_material_id(material, robust)
+    if not _cuda(pos):
+        return blocked_prep_force_plain(blk, pos, mu, lam, ref_inv, material,
+                                        robust)
+    return blocked_binding(blk, cluster, grid, "prep", mid).prep(
+        pos, ref_inv, material_params(material, mu, lam, blk.dim))
+
+
+def blocked_grad_force(blk: Blocking, pos: torch.Tensor, mu: float,
+                       lam: float, ref_inv=None,
+                       material: str = "neo_hookean", cluster: int = 0,
+                       grid: bool = False) -> torch.Tensor:
+    """The assembled explicit energy gradient g (N, d) at ``pos``, of one
+    material layer (``ref_inv`` as in :func:`blocked_prep`).
+
+    CUDA tensors: one launch of K7b (the instance of ``material``) that
+    ends in the per-particle sum, in the variant of :func:`blocked_plan`
+    (``cluster`` and ``grid`` as in :func:`blocked_graph_apply`); counted on ``blocked_grad_prep`` as
+    :func:`blocked_prep_force` is on ``blocked_prep``.  CPU tensors:
+    :func:`blocked_grad_force_plain`."""
+    mid = kernel_material_id(material)
+    if not _cuda(pos):
+        return blocked_grad_force_plain(blk, pos, mu, lam, ref_inv, material)
+    return blocked_binding(blk, cluster, grid, "grad", mid).grad(
+        pos, ref_inv, material_params(material, mu, lam, blk.dim))
+
+
+def blocked_assemble(blk: Blocking, cols: torch.Tensor, cluster: int = 0,
+                     grid: bool = False) -> torch.Tensor:
+    """(N, d) assembly of block-ordered element columns ``cols`` (B·Eb, d, d):
+    column j of each real slot to its local vertex j+1, −Σ_j to vertex 0,
+    summed per block and then per particle over its block slots (padded
+    slots contribute nothing).
+
+    CUDA tensors: one launch of K7a in the variant of :func:`blocked_plan`
+    (the cluster variant one kernel, the grid variant the per-block
+    partials and the per-particle slot sums; ``cluster`` and ``grid`` as
+    in :func:`blocked_graph_apply`), counted, with its plan and
+    barriers, on ``blocked_assemble``.  CPU tensors:
+    :func:`blocked_assemble_plain`."""
+    if not _cuda(cols):
+        return blocked_assemble_plain(blk, cols)
+    return blocked_binding(blk, cluster, grid, "columns", 0).columns(cols)
+
+
+for _fn in (blocked_graph_apply, blocked_prep, blocked_grad_prep,
+            blocked_assemble):
+    _fn.launches = 0
+    _fn.variant_launches = {}
+    _fn.last_plan = None
+    _fn.last_barriers = None
+blocked_prep.instance_launches = {}
+blocked_grad_prep.instance_launches = {}
 
 
 def blocked_velocity_solve(
@@ -792,15 +956,13 @@ def blocked_velocity_solve(
 ) -> CGResult:
     """One implicit velocity solve over the blocks (the JAX package's
     blocked branch, solvers/implicit.py:1080-1101) from the prep's
-    ``prepped`` = (K, force partials): the slot-sum assembly,
-    b = v + dt·f/m, then ``cg_solve_dispatch`` over A·v = v − c·G(K)·v/m and
+    ``prepped`` = (K, the assembled force f): b = v + dt·f/m, then ``cg_solve_dispatch`` over A·v = v − c·G(K)·v/m and
     Aᵀ·v = v − c·G(Kᵀ)·(v/m), c = dt·(dt + ``beta``): the reference CG
     (x₀ = b; normal equations when ``normal``), or with ``cg_precond``
     ``"block_jacobi"`` the PCG on the blocks ``diag_fn()``, and the pin
     projection by ``free``/``pin_vel``.  ``apply`` defaults to the kernel's
     wrapper; the plain frame passes its plain version."""
-    K, partials = prepped
-    f = blocked_scatter_sum(partials, blk)
+    K, f = prepped
     minv = (1.0 / mass)[:, None]
     c = system_coeff(dt, beta)
     b = vel + dt * f * minv

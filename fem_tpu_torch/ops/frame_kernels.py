@@ -203,9 +203,10 @@ def fused_blocked_frame_plain(
     gravity = gravity_vector(tuple(g_dir), pos.device)
     iters, res = [], []
     for _ in range(sim_count):
+        K, partials = blocked_prep_layers_plain(blk, state.pos,
+                                                internal.layers(), robust)
         sol = blocked_velocity_solve(
-            blk, blocked_prep_layers_plain(blk, state.pos, internal.layers(),
-                                           robust),
+            blk, (K, blocked_scatter_sum(partials, blk)),
             state.vel, mass, dt, bool(preconditioned),
             apply=blocked_graph_apply_plain, max_iter=max_iter, tol=tol,
         )

@@ -14,8 +14,8 @@ Which kernels run, as in the JAX package's dispatch
 (its ``solvers/explicit.py:22-143``):
 
 * analytic, with locality blocks and ``element_backend`` "pallas" ("auto"
-  on a CUDA object): the blocked prep in its explicit mode (K7b), then the
-  per-particle slot sum;
+  on a CUDA object): the blocked prep in its explicit mode (K7b), one
+  launch that ends in the per-particle slot sum, per layer;
 * analytic, with blocks and "xla" ("auto" on the CPU): plain columns on the
   block-ordered elements, then the blocked assembly (K7a);
 * analytic, without blocks: the gradient-columns kernel (K6; plain columns
@@ -40,8 +40,10 @@ from fem_tpu_torch.ops.assembly import (
     gather_assemble,
     gather_edge_diffs,
 )
-from fem_tpu_torch.ops.blocked_kernels import blocked_assemble, blocked_grad_prep
-from fem_tpu_torch.ops.blocking import blocked_scatter_sum
+from fem_tpu_torch.ops.blocked_kernels import (
+    blocked_assemble,
+    blocked_grad_force,
+)
 from fem_tpu_torch.ops.element import energy_density, total_energy
 from fem_tpu_torch.ops.element_kernels import (
     explicit_grad_columns,
@@ -77,13 +79,14 @@ def analytic_energy_gradient(
     blk = obj.blocking
     if blk is not None:
         if backend == "pallas":
-            partials = sum_layers(
-                blocked_grad_prep(
+            # K7b per layer, each launch ending in its layer's assembled
+            # gradient, summed in layer order.
+            return sum_layers(
+                blocked_grad_force(
                     blk, pos, mu, lam,
                     None if fi is None else layer_ref_inv_blocked(blk, fi),
                     material)
                 for fi, mu, lam, material in lys)
-            return blocked_scatter_sum(partials, blk)
         cols = sum_layers(
             explicit_grad_columns_plain(
                 pos, blk.element_indices, layer_ref_inv_blocked(blk, fi),

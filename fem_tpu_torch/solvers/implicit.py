@@ -26,8 +26,8 @@ implicit.py:995-1155):
 * pins (``free_mask``), Rayleigh β or ``cg_precond="block_jacobi"``: no
   whole-solve kernel; on an object with locality blocks (``operator_mode``
   "auto", "fused" or "blocked") the blocked branch — the blocked prep K2
-  per material layer, the slot-sum assembly and the CG dispatch over the
-  blocked operator K3 — and otherwise the graph branch — K1 per layer and
+  per material layer, each launch ending in the assembled force, and the
+  CG dispatch over the blocked operator K3 — and otherwise the graph branch — K1 per layer and
   the dispatch over the plain graph operator;
 * ``operator_mode="mxu"`` on an object that carries the dense edge matrix
   S (``build_object(..., operator_mode="mxu")``; under ``"auto"`` only
@@ -64,7 +64,7 @@ from fem_tpu_torch.ops import element
 from fem_tpu_torch.ops import element_kernels as ek
 from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
 from fem_tpu_torch.ops.blocked_kernels import (
-    blocked_prep,
+    blocked_prep_force,
     blocked_velocity_solve,
 )
 from fem_tpu_torch.ops.cg_kernels import (
@@ -405,8 +405,10 @@ def _graph_solve(obj, state, dt, preconditioned, cg_precond, K, cols,
 def _blocked_solve(obj, state, dt, preconditioned, cg_precond, robust,
                    layers) -> Tuple[SimState, ImplicitAux]:
     """The blocked branch (JAX implicit.py:1080-1101 and :1128-1139): K2
-    per material layer, the slot-sum assembly of the summed partials,
-    b = v + dt·f/m, then the CG dispatch over A and Aᵀ built from K3 on the
+    per material layer, each launch ending in its layer's assembled force
+    (``blocked_prep_force``; the layers' K and f summed in layer order,
+    where the JAX package sums the layers' partials and then assembles: the
+    same terms, another f32 association), b = v + dt·f/m, then the CG dispatch over A and Aᵀ built from K3 on the
     summed K, with β, the pin projection and the block-Jacobi blocks.  The
     port's K2 emits K in the flat block order (B·Eb, d, d) that the JAX
     package gets from ``kplane_to_kflat``; the diagonal blocks take it to
@@ -416,7 +418,7 @@ def _blocked_solve(obj, state, dt, preconditioned, cg_precond, robust,
     blk = obj.blocking
     beta = obj.damping_beta
     prepped = sum_layers(
-        blocked_prep(
+        blocked_prep_force(
             blk, state.pos, mu, lam,
             None if fi is None else layer_ref_inv_blocked(blk, fi), material,
             robust)

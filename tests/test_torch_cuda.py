@@ -2105,7 +2105,7 @@ def test_blocked_matvec_variants_are_bit_identical(
     clusters of 1, 3 and 16 CTAs forced — bit-identical to the two-kernel
     variant and to itself (the same two sums in the same order), within
     1e-5 of the plain version's largest entry, one launch a call, the
-    barriers the cluster kernel counted equal to ``matvec_barriers``; the
+    barriers the cluster kernel counted equal to ``blocked_barriers``; the
     plan's variant is the cluster one unless the blocks outnumber 16 CTAs of
     two thread groups; a cluster of more CTAs than blocks, or of 17, is
     refused before any launch."""
@@ -2136,7 +2136,7 @@ def test_blocked_matvec_variants_are_bit_identical(
         assert plan.variant == "grid"
     if plan.variant == "cluster":
         got = int(blocked_kernels.blocked_graph_apply.last_barriers.item())
-        assert got == blocked_kernels.matvec_barriers("cluster", plan.size)
+        assert got == blocked_kernels.blocked_barriers("cluster", plan.size)
     else:
         assert blocked_kernels.blocked_graph_apply.last_barriers is None
     y2 = blocked_kernels.blocked_graph_apply(blk, k, x, transpose_k, **opts)
@@ -2159,12 +2159,200 @@ def test_blocked_matvec_binds_once_a_blocking(body):
     blk = dataclasses.replace(obj.blocking,
                               local_rows=obj.blocking.local_rows.clone())
     k, _ = blocked_kernels.blocked_prep(blk, state.pos, obj.mu, obj.s_lambda)
-    builds = blocked_kernels.MatvecBinding.builds
+    builds = blocked_kernels.BlockedBinding.builds
     y1 = blocked_kernels.blocked_graph_apply(blk, k, state.vel)
     y2 = blocked_kernels.blocked_graph_apply(blk, k, state.vel)
-    assert blocked_kernels.MatvecBinding.builds == builds + 1
+    assert blocked_kernels.BlockedBinding.builds == builds + 1
     assert y1.data_ptr() != y2.data_ptr() and torch.equal(y1, y2)
     blk.local_rows.add_(0)
     y3 = blocked_kernels.blocked_graph_apply(blk, k, state.vel)
-    assert blocked_kernels.MatvecBinding.builds == builds + 2
+    assert blocked_kernels.BlockedBinding.builds == builds + 2
     assert torch.equal(y1, y3)
+
+
+# -- K2, K7b and K7a as one launch each that ends in the per-particle sum ----
+
+SOURCE_VARIANTS = ["auto", "grid", "cluster 1", "cluster 3", "cluster 16"]
+
+
+def _source_call(source, obj, state, opts, layer=None):
+    """One launch of ``source`` (prep: K2's (K, f); grad: K7b's g; columns:
+    K7a's assembly of the gradient's block-ordered columns) and its
+    counter; ``layer`` = (block-ordered R⁻¹, μ, λ, material) or the
+    object's own."""
+    blk = obj.blocking
+    rb, mu, lam, material = layer or (None, obj.mu, obj.s_lambda,
+                                      "neo_hookean")
+    if source == "prep":
+        return (lambda **o: blocked_kernels.blocked_prep_force(
+            blk, state.pos, mu, lam, rb, material, **opts, **o),
+            blocked_kernels.blocked_prep)
+    if source == "grad":
+        return (lambda **o: blocked_kernels.blocked_grad_force(
+            blk, state.pos, mu, lam, rb, material, **opts, **o),
+            blocked_kernels.blocked_grad_prep)
+    cols = element_kernels.explicit_grad_columns_plain(
+        state.pos, blk.element_indices, blk.ref_inv, blk.volume, mu, lam)
+    return (lambda **o: blocked_kernels.blocked_assemble(blk, cols, **opts,
+                                                         **o),
+            blocked_kernels.blocked_assemble)
+
+
+def _source_plain(source, obj, state):
+    blk = obj.blocking
+    args = (blk, state.pos, obj.mu, obj.s_lambda)
+    if source == "prep":
+        return blocked_kernels.blocked_prep_force_plain(*args)
+    if source == "grad":
+        return (blocked_kernels.blocked_grad_force_plain(*args),)
+    cols = element_kernels.explicit_grad_columns_plain(
+        state.pos, blk.element_indices, blk.ref_inv, blk.volume, obj.mu,
+        obj.s_lambda)
+    return (blocked_kernels.blocked_assemble_plain(blk, cols),)
+
+
+@pytest.mark.parametrize("variant", SOURCE_VARIANTS)
+@pytest.mark.parametrize("case", ["3D 3 blocks", "3D 35 blocks",
+                                  "2D one block", "2D 16 blocks"])
+@pytest.mark.parametrize("source", ["prep", "grad", "columns"])
+def test_blocked_source_variants_are_bit_identical(
+        body, body_2d, grid_2d, source, case, variant):
+    """K2 (K and the assembled force), K7b (the assembled gradient) and K7a
+    (the assembly) in each variant — the plan's, the grid variant (one CTA
+    a block, then the slot sums), clusters of 1, 3 and 16 CTAs forced:
+    bit-identical to the grid variant and to themselves, within 1e-5 of the
+    plain version's largest entry (K block-relative), one launch a call,
+    the barriers the cluster kernel counted equal to ``blocked_barriers``;
+    the plan's variant is the cluster one unless the blocks outnumber 16
+    CTAs of two thread groups; a cluster of more CTAs than blocks, or of
+    17, is refused before any launch."""
+    obj, state = _k3_case(case, body, body_2d, grid_2d)
+    blk = obj.blocking
+    opts = ({} if variant == "auto" else dict(grid=True)
+            if variant == "grid" else dict(cluster=int(variant.split()[1])))
+    call, fn = _source_call(source, obj, state, opts)
+    before = fn.launches
+    if opts.get("cluster", 0) > blk.num_blocks:
+        with pytest.raises(ValueError, match="without a block"):
+            call()
+        assert fn.launches == before
+        return
+    out = _as_tuple(call())
+    assert fn.launches == before + 1
+    plan = fn.last_plan
+    if variant == "auto":
+        want = "grid" if blk.num_blocks > 32 else "cluster"
+        assert (plan.variant, plan.size) == (
+            want, min(blk.num_blocks, 16) if want == "cluster"
+            else blk.num_blocks)
+    elif "cluster" in opts:
+        assert (plan.variant, plan.size) == ("cluster", opts["cluster"])
+    else:
+        assert plan.variant == "grid" and fn.last_barriers is None
+    if plan.variant == "cluster":
+        got = int(fn.last_barriers.item())
+        assert got == blocked_kernels.blocked_barriers("cluster", plan.size)
+    again = _as_tuple(call())
+    grid, _ = _source_call(source, obj, state, {})
+    ref = _as_tuple(grid(grid=True) if "grid" not in opts else call())
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    plain = _source_plain(source, obj, state)
+    if source == "prep":
+        assert _block_rel_err(out[0], plain[0]) <= TOL
+    top = float(plain[-1].abs().max())
+    assert top > 0 and float((out[-1] - plain[-1]).abs().max()) <= TOL * top
+    with pytest.raises(ValueError):
+        call(cluster=17) if "cluster" not in opts else _source_call(
+            source, obj, state, dict(cluster=17))[0]()
+
+
+@pytest.mark.parametrize("case", MATERIAL_CASE_IDS)
+def test_material_sources_match_their_partials_form(material_bodies, case):
+    """K2's and K7b's cluster launch of each material instance (the robust
+    one for K2): K equal to the partials form's, the assembled force and
+    gradient bit-identical to the grid variant and within 1e-5 of the
+    partials form's slot sum, counted by instance."""
+    obj, state, material, robust = _material_case(material_bodies, case)
+    blk = obj.blocking
+    bargs = (blk, state.pos, obj.mu, obj.s_lambda, None, material)
+    mid = element_kernels.kernel_material_id(material, robust)
+    by = dict(blocked_kernels.blocked_prep.instance_launches)
+    k, f = blocked_kernels.blocked_prep_force(*bargs, robust)
+    assert blocked_kernels.blocked_prep.instance_launches[(obj.dim, mid)] == (
+        by.get((obj.dim, mid), 0) + 1)
+    assert blocked_kernels.blocked_prep.last_plan.variant == "cluster"
+    kg, fg = blocked_kernels.blocked_prep_force(*bargs, robust, grid=True)
+    assert torch.equal(k, kg) and torch.equal(f, fg)
+    kb, part = blocked_kernels.blocked_prep(*bargs, robust)
+    assert torch.equal(k, kb)
+    fp = blocking.blocked_scatter_sum(part, blk)
+    assert float((f - fp).abs().max()) <= TOL * float(fp.abs().max())
+    if robust:
+        return
+    g = blocked_kernels.blocked_grad_force(*bargs)
+    assert torch.equal(g, blocked_kernels.blocked_grad_force(*bargs,
+                                                             grid=True))
+    gp = blocking.blocked_scatter_sum(
+        blocked_kernels.blocked_grad_prep(*bargs), blk)
+    assert float((g - gp).abs().max()) <= TOL * float(gp.abs().max())
+
+
+@pytest.mark.parametrize("case", ["2D one block", "3D"])
+def test_layer_sources_match_their_partials_form(inelastic_bodies, case):
+    """K2 and K7b on each material layer (the dynamic R⁻¹·F_p⁻¹ and the
+    stable Neo-Hookean branch): one cluster launch each, bit-identical to
+    the grid variant, K equal to the partials form's and f, g within 1e-5
+    of its slot sum."""
+    obj, state = inelastic_bodies[case]
+    blk = obj.blocking
+    for _, rb, mu, lam, material in _layers(obj, state):
+        for source in ("prep", "grad"):
+            call, fn = _source_call(source, obj, state, {},
+                                    (rb, mu, lam, material))
+            out = _as_tuple(call())
+            assert fn.last_plan.variant == "cluster"
+            assert all(torch.equal(a, b) for a, b in
+                       zip(out, _as_tuple(call(grid=True))))
+            bargs = (blk, state.pos, mu, lam, rb, material)
+            if source == "prep":
+                kb, part = blocked_kernels.blocked_prep(*bargs)
+                assert torch.equal(out[0], kb)
+            else:
+                part = blocked_kernels.blocked_grad_prep(*bargs)
+            ref = blocking.blocked_scatter_sum(part, blk)
+            assert float((out[-1] - ref).abs().max()) <= TOL * float(
+                ref.abs().max())
+
+
+@pytest.mark.parametrize("case", ["2D one block", "2D 16 blocks", "3D"])
+def test_blocked_edges_split_is_bit_identical(inelastic_bodies, case):
+    """K7b edges, two CTAs a block: one launch a call, bit-identical to
+    itself and within 1e-5 of the plain version."""
+    obj, state = inelastic_bodies[case]
+    blk = obj.blocking
+    before = blocked_kernels.blocked_edges.launches
+    x = blocked_kernels.blocked_edges(blk, state.pos)
+    assert blocked_kernels.blocked_edges.launches == before + 1
+    assert torch.equal(x, blocked_kernels.blocked_edges(blk, state.pos))
+    xp = blocked_kernels.blocked_edges_plain(blk, state.pos)
+    assert float((x - xp).abs().max()) <= TOL * float(xp.abs().max())
+
+
+def test_explicit_and_implicit_substeps_take_one_launch_a_layer(body):
+    """The op-composed blocked substeps take the force forms: K2 (one
+    launch a substep, the cluster variant) and K7b likewise, and no other
+    blocked prep."""
+    obj, state = body
+    for cfg, fn in ((_frame_cfg(operator_mode="blocked"),
+                     blocked_kernels.blocked_prep),
+                    (_frame_cfg(use_explicit_method=True, delta_time=1e-4),
+                     blocked_kernels.blocked_grad_prep)):
+        fn.variant_launches = {}
+        before = fn.launches
+        sim.substep(obj, state, _obstacles("cuda"),
+                    **sim.substep_kwargs(cfg))
+        assert fn.launches == before + 1
+        assert set(fn.variant_launches) == {("cluster", obj.blocking.num_blocks
+                                             if obj.blocking.num_blocks <= 16
+                                             else 16)}

@@ -8,11 +8,11 @@ the elements and the per-particle plan it recovers from S (``edge_plan``):
 the cluster variant of 16 CTAs on the flagship's S and of 1 CTA on
 ``default.json``'s, the single variant under tighter limits, forced and
 refused variants, and the barrier formula ``edge_cg_barriers``.  K3
-(``ops/blocked_kernels.py``): ``matvec_plan`` picks the cluster variant of
+(``ops/blocked_kernels.py``): ``blocked_plan`` picks the cluster variant of
 16 CTAs (two thread groups) on the flagship's 17 blocks, 1 on
 ``default.json``'s one block and 16 on the 40-subdivision grid's 16, the
 two-kernel variant for many blocks or tight limits, forced and refused
-variants, ``matvec_barriers``; a numpy emulation of the cluster variant's
+variants, ``blocked_barriers``; a numpy emulation of the cluster variant's
 two sums — each block slot's rows through the block's local plan, stored
 into its particle owner's receive slot (``explicit_assignment``), then
 each owner's receive slots in order — equals the plain version's terms
@@ -20,7 +20,7 @@ summed in the two-kernel variant's order bit for bit, and
 ``blocked_graph_apply_plain`` itself bit for bit wherever its torch.sum
 adds a particle's slots in order (at most four; to f32 rounding
 elsewhere), on the flagship, the 40-subdivision grid and a cube of many
-blocks, in both transpose modes; and the binding (``matvec_binding``) is
+blocks, in both transpose modes; and the binding (``blocked_binding``) is
 built once a blocking and again when it is replaced or changed in place.
 
 The JAX package has no counterpart of a plan (its Pallas kernels run on one
@@ -204,9 +204,9 @@ def test_matvec_barrier_formula(variant, ctas, want):
     """K3's cluster variant: one cluster barrier before any store into
     another CTA (none in a cluster of one) and one after the slot sums; the
     two-kernel variant none inside a kernel."""
-    assert bk.matvec_barriers(variant, ctas) == want
+    assert bk.blocked_barriers(variant, ctas) == want
     with pytest.raises(ValueError):
-        bk.matvec_barriers("single", ctas)
+        bk.blocked_barriers("single", ctas)
 
 
 @pytest.mark.parametrize("scene_name,size,threads", [
@@ -222,15 +222,15 @@ def test_matvec_plan_picks_the_cluster_variant(flagship, default_2d, grid_2d,
     blk = obj.blocking
     host = _blk_host(blk)
     n, d = obj.particle_cnt, obj.dim
-    plan = bk.matvec_plan(*host, n, blk.eb, d, H100)
+    plan = bk.blocked_plan(*host, n, blk.eb, d, H100)
     asg = fk.explicit_assignment(*host, n, size)
     groups = threads // 256
-    assert plan == bk.MatvecPlan("cluster", size, bk.matvec_cluster_smem(
-        blk.eb, blk.pb, d, groups, asg.sizes()[1]), threads)
+    assert plan == bk.BlockedPlan("cluster", size, bk.cluster_smem(
+        "apply", blk.eb, blk.pb, d, groups, asg.sizes()[1]), threads)
     # A group's share: its block's rows and contribution rows, and the
     # block's plus, minus, local plan rows and offsets and destinations.
     eb, pb = blk.eb, blk.pb
-    assert bk.matvec_cluster_smem(eb, pb, d, groups, 0) == 4 * groups * (
+    assert bk.cluster_smem("apply", eb, pb, d, groups, 0) == 4 * groups * (
         d * pb + (d + 1) * d * eb + 2 * d * eb + (d + 1) * eb + pb + 1 + pb)
 
 
@@ -244,29 +244,29 @@ def test_matvec_forced_and_refused_variants(flagship, cube):
     blk = obj.blocking
     host = _blk_host(blk)
     n = obj.particle_cnt
-    grid = bk.matvec_plan(*host, n, blk.eb, 3, H100, grid=True)
-    assert grid == bk.MatvecPlan("grid", 17, 4 * (3 * 128 + 12 * 256))
-    assert bk.matvec_plan(*host, n, blk.eb, 3, H100).smem == (
-        bk.matvec_cluster_smem(blk.eb, blk.pb, 3, 2, fk.explicit_assignment(
-            *host, n, 16).sizes()[1]))
-    assert bk.matvec_plan(*host, n, blk.eb, 3, H100, cluster=3).size == 3
+    grid = bk.blocked_plan(*host, n, blk.eb, 3, H100, grid=True)
+    assert grid == bk.BlockedPlan("grid", 17, 4 * (3 * 128 + 12 * 256))
+    assert bk.blocked_plan(*host, n, blk.eb, 3, H100).smem == (
+        bk.cluster_smem("apply", blk.eb, blk.pb, 3, 2,
+                        fk.explicit_assignment(*host, n, 16).sizes()[1]))
+    assert bk.blocked_plan(*host, n, blk.eb, 3, H100, cluster=3).size == 3
     for c in (17, 32):
         with pytest.raises(ValueError):
-            bk.matvec_plan(*host, n, blk.eb, 3, H100, cluster=c)
+            bk.blocked_plan(*host, n, blk.eb, 3, H100, cluster=c)
     with pytest.raises(ValueError, match="not both"):
-        bk.matvec_plan(*host, n, blk.eb, 3, H100, cluster=3, grid=True)
+        bk.blocked_plan(*host, n, blk.eb, 3, H100, cluster=3, grid=True)
     tight = fk.FrameLimits(max_cluster=16, smem_optin=20_000, sms=132)
-    assert bk.matvec_plan(*host, n, blk.eb, 3, tight) == grid
+    assert bk.blocked_plan(*host, n, blk.eb, 3, tight) == grid
     with pytest.raises(ValueError, match="does not fit"):
-        bk.matvec_plan(*host, n, blk.eb, 3, tight, cluster=16)
+        bk.blocked_plan(*host, n, blk.eb, 3, tight, cluster=16)
     cblk, cn = cube
     chost = _blk_host(cblk)
     assert cblk.num_blocks > 32
-    assert bk.matvec_plan(*chost, cn, cblk.eb, 3, H100).variant == "grid"
-    forced = bk.matvec_plan(*chost, cn, cblk.eb, 3, H100, cluster=16)
+    assert bk.blocked_plan(*chost, cn, cblk.eb, 3, H100).variant == "grid"
+    forced = bk.blocked_plan(*chost, cn, cblk.eb, 3, H100, cluster=16)
     assert forced.variant == "cluster" and forced.threads == 512
     small = fk.FrameLimits(max_cluster=4, smem_optin=232_304, sms=132)
-    assert bk.matvec_plan(*host, n, blk.eb, 3, small) == grid
+    assert bk.blocked_plan(*host, n, blk.eb, 3, small) == grid
 
 
 def _cluster_sums(blk, rows, n, cluster):
@@ -377,17 +377,17 @@ def test_matvec_binding_is_built_once_and_again_when_changed(default_2d):
     obj, state = default_2d
     blk = dataclasses.replace(obj.blocking,
                               local_rows=obj.blocking.local_rows.clone())
-    builds = bk.MatvecBinding.builds
-    first = bk.matvec_binding(blk)
-    assert bk.matvec_binding(blk) is first
-    assert bk.MatvecBinding.builds == builds + 1
+    builds = bk.BlockedBinding.builds
+    first = bk.blocked_binding(blk)
+    assert bk.blocked_binding(blk) is first
+    assert bk.BlockedBinding.builds == builds + 1
     blk.local_rows.add_(0)  # in place: a new version, the same values
-    second = bk.matvec_binding(blk)
+    second = bk.blocked_binding(blk)
     assert second is not first and not first.matches(blk)
     blk2 = dataclasses.replace(blk)
-    assert bk.matvec_binding(blk2) is not second
-    assert bk.matvec_binding(blk, cluster=1) is not second
-    assert bk.MatvecBinding.builds == builds + 4
+    assert bk.blocked_binding(blk2) is not second
+    assert bk.blocked_binding(blk, cluster=1) is not second
+    assert bk.BlockedBinding.builds == builds + 4
     K, _ = bk.blocked_prep_plain(blk, state.pos, obj.mu, obj.s_lambda)
     before = bk.blocked_graph_apply.launches
     for tr in (False, True):

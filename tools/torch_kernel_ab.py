@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 # coding=utf-8
-"""Times P2, K11b, K5's frame, K4, K11a, K3 and K8 of one checkout on one
-GPU, hashes K4's, K11a's, K3's, K8's and K11b's outputs, and measures the
-host time of K3's and of the explicit frames' wrappers, so that two
-checkouts can be compared on the same card.
+"""Times P2, K11b, K5's frame, K4, K11a, K3, K2, K7b, K7a, K7b edges and
+K8 of one checkout on one GPU, hashes their outputs, and measures the
+host time of K3's, K2's, K7b's, K7a's and of the explicit frames'
+wrappers, so that two checkouts can be compared on the same card.
 
     python3 tools/torch_kernel_ab.py [--repo PATH] [--label NAME]
 
@@ -18,10 +18,16 @@ sha256) and K5's frame (``fused_blocked_frame``), K4's solve
 the checkout has one) and K11a's (``cg_solve_edge``, the checkout's own
 plan, and its single variant where the checkout has one) at the scene's K
 and b, with their outputs' sha256; K3's apply (``blocked_graph_apply``,
-both transposes, the checkout's own plan and its two-kernel variant where
+both transposes, the checkout's own plan and its two-kernel variant, where
 the checkout has one) at K2's K and the scene's velocities, with its
 output's sha256 and the host's enqueue µs an apply (1,000 applies before a
-sync); K8's frame (``fused_explicit_frame``, the
+sync); K2 and K7b as the substep takes them — a checkout with
+``blocked_prep_force`` its one launch (its plan and the grid variant),
+every checkout also the partials form followed by PyTorch's slot sum
+("parent form") — K7a's assembly of the gradient's block-ordered columns
+(each variant) and K7b edges, each with the device ms of a call (every kernel it launches, profiler),
+the enqueue µs a call (1,000 calls before a sync) and its outputs'
+sha256; K5's frame with its outputs' sha256; K8's frame (``fused_explicit_frame``, the
 checkout's own plan) on the explicit flagship, ``default.json``, its
 40-subdivision grid and ``demo_plastic.json``'s plastic body, and on the
 flagship with both inelastic branches; and P2's three variants at the
@@ -32,7 +38,12 @@ window).  Then the explicit paths D (the explicit flagship), H
 through ``sim.make_frame_fn``: wall ms a frame over 200 frames ending in a
 sync, the host's enqueue µs a frame (the same frames' calls, before that
 sync) and device ms a frame (one profiled window of the same frames), and
-host µs a frame as wall minus device.  Prints one JSON line per
+host µs a frame as wall minus device.  Then the op-composed substeps that
+run K2, K7b and K7a — B (``operator_mode="blocked"``), E (explicit,
+``element_backend="auto"``), F (``auto_diff`` and ``"xla"``) — on the
+flagship deformed and ``default.json`` squeezed, 10 substeps: device ms
+and kernel launches a substep (one profiled window, every kernel) and
+wall ms a substep ending in a sync.  Prints one JSON line per
 measurement, each with the label, and the card's name and power limit.
 Run two checkouts in turns (A, B, B, A) in one call to compare them.
 """
@@ -125,6 +136,101 @@ def time_explicit(torch, cs, dev, emit, digest):
              steps_per_s=frames * cfg.sim_count / (t2 - t0))
 
 
+def time_prep(torch, cs, label, o, s, emit, digest):
+    """K2, K7b, K7a and K7b edges on one scene (module docstring)."""
+    from fem_tpu_torch.ops import blocked_kernels as bk
+    from fem_tpu_torch.ops import element_kernels as ek
+    from fem_tpu_torch.ops.blocking import blocked_scatter_sum
+
+    blk = o.blocking
+    args = (blk, s.pos, o.mu, o.s_lambda)
+    cols = ek.explicit_grad_columns_plain(
+        s.pos, blk.element_indices, blk.ref_inv, blk.volume, o.mu,
+        o.s_lambda)
+
+    def prep_parent_form():
+        k, part = bk.blocked_prep(*args)
+        return k, blocked_scatter_sum(part, blk)
+
+    def grad_parent_form():
+        return blocked_scatter_sum(bk.blocked_grad_prep(*args), blk)
+
+    counters = {"K2": bk.blocked_prep, "K7b": bk.blocked_grad_prep,
+                "K7a": bk.blocked_assemble, "K7b edges": bk.blocked_edges}
+    cases = [("K2", "parent form", prep_parent_form),
+             ("K7b", "parent form", grad_parent_form),
+             ("K7a", "plan", lambda: bk.blocked_assemble(blk, cols)),
+             ("K7b edges", "plan", lambda: bk.blocked_edges(blk, s.pos))]
+    if hasattr(bk, "blocked_prep_force"):
+        for name, opts in (("plan", {}), ("grid", dict(grid=True))):
+            cases += [
+                ("K2", name, lambda opts=opts: bk.blocked_prep_force(
+                    *args, **opts)),
+                ("K7b", name, lambda opts=opts: bk.blocked_grad_force(
+                    *args, **opts))]
+            if name != "plan":
+                cases.append(("K7a", name, lambda opts=opts: (
+                    bk.blocked_assemble(blk, cols, **opts))))
+    for kernel, name, fn in cases:
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        plan = getattr(counters[kernel], "last_plan", None)
+        ms = cs.library_device_ms(torch, fn, 50)
+        reps = 1000
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        emit(kernel=kernel, scene=label, launch=name, ms=ms,
+             plan=str(plan), enqueue_us=(t1 - t0) * 1e6 / reps,
+             sha256=digest(*out))
+
+
+def time_op_paths(torch, cs, dev, emit):
+    """The op-composed substeps that run K2, K7b or K7a (module docstring):
+    device ms, kernel launches and wall ms a substep."""
+    from fem_tpu_torch import entry, sim
+
+    cfg, obj, s0, obs = entry.flagship(dev)
+    dcfg, dobj, ds0, dobs = entry.load_config(
+        os.path.join(REPO, "configs", "default.json"), dev,
+        sim_overrides=cs.OVERRIDES_2D["implicit_cg"])
+    ds = cs.squeezed_2d(torch, ds0, torch.Generator().manual_seed(7))
+    settings = (("B (K2 + K3)", dict(operator_mode="blocked")),
+                ("E (K7b)", dict(use_explicit_method=True, delta_time=1e-4,
+                                 element_backend="auto")),
+                ("F (auto_diff, K7a)", dict(use_explicit_method=True,
+                                            delta_time=1e-4, auto_diff=True)),
+                ("F (xla, K7a)", dict(use_explicit_method=True,
+                                      delta_time=1e-4,
+                                      element_backend="xla")))
+    substeps = 10
+    for dim, c, o, st, ob in ((3, cfg, obj, entry.deformed(s0), obs),
+                              (2, dcfg, dobj, ds, dobs)):
+        for label, over in settings:
+            kw = sim.substep_kwargs(dataclasses.replace(c, **over))
+
+            def go():
+                s = st
+                for _ in range(substeps):
+                    s, _ = sim.substep(o, s, ob, **kw)
+                return s
+
+            go()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / substeps
+            per_kernel, _ = cs.profile_kernels(torch, go, 1)
+            emit(path=label, dim=dim, substeps=substeps,
+                 device_ms=sum(t for t, _ in per_kernel.values()) / substeps,
+                 launches=sum(n for _, n in per_kernel.values()) / substeps,
+                 wall_ms=wall, steps_per_s=1e3 / wall)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--repo", default=REPO)
@@ -196,10 +302,10 @@ def main(argv=None) -> int:
              sha256=digest(*out))
         blk = o.blocking
         bargs = (blk, s.pos, s.vel, s.vel_g, o.mass, ob.centers, ob.radii)
-        fk.fused_blocked_frame(*bargs, **kw)
+        out5 = fk.fused_blocked_frame(*bargs, **kw)
         ms = cs.kernel_ms(torch, lambda: fk.fused_blocked_frame(*bargs, **kw),
                           20, [cs.k5_kernel_name()])
-        emit(kernel="K5", scene=label, ms=ms)
+        emit(kernel="K5", scene=label, ms=ms, sha256=digest(*out5))
         K, H = ek.hessian_and_force(s.pos, o.element_indices, o.ref_inv,
                                     o.volume, o.mu, o.s_lambda)
         solve = (K, H, o.element_indices, o.plan, s.vel, o.mass,
@@ -231,7 +337,8 @@ def main(argv=None) -> int:
                  iterations=int(it), plan=str(plan), sha256=digest(x, it))
         kb, _ = bk.blocked_prep(blk, s.pos, o.mu, o.s_lambda)
         k3_variants = [("plan", {})]
-        if "grid" in inspect.signature(bk.blocked_graph_apply).parameters:
+        params = inspect.signature(bk.blocked_graph_apply).parameters
+        if "grid" in params:
             k3_variants.append(("grid", dict(grid=True)))
         for name, opts in k3_variants:
             for tr in (False, True):
@@ -254,6 +361,7 @@ def main(argv=None) -> int:
                 emit(kernel="K3", scene=label, launch=name, transpose_k=tr,
                      ms=ms, plan=str(plan),
                      enqueue_us=(t1 - t0) * 1e6 / reps, sha256=digest(y))
+        time_prep(torch, cs, label, o, s, emit, digest)
     for name in p2.VARIANTS:
         a, w = p2.probe_inputs(6, 1024, 2048, name, dev)
         ms = cs.kernel_ms(torch, lambda: p2.chained_dot(a, w, 200, name), 20,
@@ -261,6 +369,7 @@ def main(argv=None) -> int:
         emit(kernel="P2", variant=name, ms=ms,
              plan=str(getattr(p2.chained_dot, "last_plan", None)))
     time_explicit(torch, cs, dev, emit, digest)
+    time_op_paths(torch, cs, dev, emit)
     return 0
 
 
