@@ -24,7 +24,11 @@ the eight:
    one library per source and material instance, all compiled in
    parallel;
 3. K1, the element chain, against ``hessian_and_force_plain`` on the
-   flagship's deformed state (block-relative error ≤ 1e-5);
+   flagship's deformed state (block-relative error ≤ 1e-5), twice
+   bit-identical, with its plan (``element_kernels.element_plan``: tets a
+   CTA, CTAs); then K1 and K9b at 1, 33 and 4,069 elements cut from
+   the flagship (ragged last tiles), each against its plain version and
+   twice bit-identical;
 4. K4, the whole CG solve, against ``fused_cg_solve_plain`` with
    ``preconditioned`` 0 and 1 (velocity rtol 5e-4 / atol 1e-6, iterations
    within 1), and twice on the same inputs, bit-identical;
@@ -79,8 +83,10 @@ the eight:
     particles, 200 triangles, one locality block, ``auto_diff``,
     ``sim_count = 10``): K1-K8's triangle instances against their plain
     versions on a state moved into the right circle and squashed, with
-    random velocities (the tolerances of 3-8), each twice bit-identical;
-    K5 and K8 also over the 16 blocks of the same scene at 40 subdivisions;
+    random velocities (the tolerances of 3-8), each twice bit-identical,
+    and K1 and K9b at 1, 33 and 4,069 triangles cut from the scene as in
+    section 3; K5 and K8 also over the 16 blocks of the same scene at 40
+    subdivisions;
 16. path H, ``default.json`` as shipped through ``sim.make_frame_fn``
     (``scene.load_scene``): K8 once a frame over 30 frames, the first frame
     equal to the CPU plain frame to 1e-5; the same with ``auto_diff`` off;
@@ -129,7 +135,8 @@ the eight:
     the robust Neo-Hookean instance of K1, K2 and K5, in 2D (the default
     scene squeezed) and 3D (the flagship deformed), K5 and K8 also with
     the inelastic branches, against their plain versions (1e-5, iterations
-    within 1 in short solves), each twice bit-identical;
+    within 1 in short solves), each twice bit-identical (K1's plan
+    printed with each instance);
 28. path R, ``configs/demo_passage_corotated.json`` as shipped through
     ``scene.load_scene`` and ``make_frame_fn``: 200 frames, K8's 2D
     corotated instance once a frame and nothing else, the first frame equal
@@ -160,7 +167,7 @@ the eight:
     plain versions on the flagship deformed and on ``default.json``
     squeezed (block-relative ≤ 1e-5), K10a and K10b (the fused advection)
     on the same bodies with three circles and random velocities (1e-6
-    absolute), each twice bit-identical;
+    absolute), each twice bit-identical (K9b's plan printed);
 35. path W, ``configs/demo_hanging.json`` as shipped (2D, a pin box, plain
     CG): 200 frames through ``make_frame_fn``, the op-composed frame, K2
     ten times a frame and K3 Σ(1 + iterations) (plain CG: one apply for the
@@ -432,6 +439,15 @@ KERNELS = (
 )
 
 
+# The profiler's names of K1's and K9b's tiled kernels
+# (csrc/element_chain.cu).
+K1_KERNEL = "tiled_hessian_and_force_kernel"
+K9B_KERNEL = "tiled_implicit_force_kernel"
+# Element counts of K1's and K9b's ragged-tile checks (sections 3 and 15):
+# one element, one past a tile of 32, one past the flagship.
+RAGGED = (1, 33, 4069)
+
+
 def require(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -455,6 +471,55 @@ def block_rel_err(got, ref):
     zero in both, count 0)."""
     scale = ref.abs().reshape(ref.shape[0], -1).amax(dim=1).clamp(min=1e-30)
     return float(((got - ref).abs() / scale[:, None, None]).max())
+
+
+def element_plan_keys(fn):
+    """The kernels line's plan keys of K1's or K9b's last launch
+    (``fn.last_plan``, element_kernels.element_plan)."""
+    p = fn.last_plan
+    return dict(tile=p.tile, ctas=p.ctas)
+
+
+def plan_text(fn):
+    p = fn.last_plan
+    return (f"{p.tile} elements a CTA, one thread each, {p.ctas} CTAs, "
+            f"{p.last} in the last")
+
+
+def check_ragged(torch, label, obj, state):
+    """K1 (Neo-Hookean) and K9b at RAGGED element counts cut from ``obj``'s
+    (cyclically past its count) against their plain versions on the card:
+    block-relative ≤ 1e-5, twice bit-identical.  Returns the max abs
+    error of each, by counter name."""
+    from fem_tpu_torch.ops import element_kernels as ek
+
+    errs = {"element_chain": 0.0, "implicit_force": 0.0}
+    for n in RAGGED:
+        idx = torch.arange(n, device=state.pos.device) % obj.element_cnt
+        args = (state.pos, obj.element_indices[idx].contiguous(),
+                obj.ref_inv[idx].contiguous(), obj.volume[idx].contiguous(),
+                obj.mu, obj.s_lambda)
+        for name, fn, plain in (
+                ("element_chain", ek.hessian_and_force,
+                 ek.hessian_and_force_plain),
+                ("implicit_force", ek.implicit_force_columns,
+                 ek.implicit_force_columns_plain)):
+            got, again = fn(*args), fn(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            again = again if isinstance(again, tuple) else (again,)
+            ref = plain(*args)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            torch.cuda.synchronize()
+            rel = max(block_rel_err(g, r) for g, r in zip(got, ref))
+            errs[name] = max(errs[name], max(
+                float((g - r).abs().max()) for g, r in zip(got, ref)))
+            log(f"[{label} {name}] {n} elements: block-relative error "
+                f"{rel:.3e}; plan {plan_text(fn)}")
+            require(rel <= 1e-5, f"{label} {name} at {n} elements: "
+                    f"block-relative error {rel}")
+            require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                    f"{label} {name} at {n} elements: runs differ")
+    return errs
 
 
 def cuda_ms(torch, fn, reps):
@@ -947,8 +1012,8 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
     K, H = ek.hessian_and_force(*k1_args)
     put("element_chain", lambda: ek.hessian_and_force(*k1_args),
         lambda: ek.hessian_and_force_plain(*k1_args), 20, 200,
-        ["hessian_and_force_kernel"], nbytes(*k1_args[:4], K, H),
-        ops["chain"] * e)
+        [K1_KERNEL], nbytes(*k1_args[:4], K, H),
+        ops["chain"] * e, **element_plan_keys(ek.hessian_and_force))
 
     solve = (K, H, obj.element_indices, obj.plan, state.vel, obj.mass,
              frame_kw["dt"], True)
@@ -1149,8 +1214,12 @@ def check_kernels_2d(torch, obj, state, obstacles, frame_kw, lscene):
     errs["element_chain"] = float(max((K - Kp).abs().max(),
                                       (H - Hp).abs().max()))
     log(f"[2D K1] block-relative error {rel:.3e}, max abs error "
-        f"{errs['element_chain']:.3e}")
+        f"{errs['element_chain']:.3e}; plan {plan_text(ek.hessian_and_force)}")
     require(rel <= 1e-5, f"2D K1 block-relative error {rel}")
+    ragged = check_ragged(torch, "2D", obj, state)
+    errs["element_chain"] = max(errs["element_chain"],
+                                ragged["element_chain"])
+    errs["implicit_force_ragged"] = ragged["implicit_force"]
 
     errs["fused_cg"] = 0.0
     for pre in (False, True):
@@ -2231,6 +2300,7 @@ def run_materials(torch, dev, zero_counts, counts, only, instances):
                     obj.mu, obj.s_lambda)
             K, H = twice(ek.hessian_and_force, args,
                          dict(robust=robust, material=material))
+            k1_plan = plan_text(ek.hessian_and_force)
             Kp, Hp = ek.hessian_and_force_plain(*args, material, robust)
             rel = max(block_rel_err(K, Kp), block_rel_err(H, Hp))
             note(("element_chain", d, mid), float(max(
@@ -2260,7 +2330,7 @@ def run_materials(torch, dev, zero_counts, counts, only, instances):
             log(f"[{d}D {instance_name(material, robust)}] K1/K2"
                 f"{'' if robust else '/K6'} block-relative error {rel:.3e}; "
                 f"K2{'' if robust else '/K7b'} partials relative error "
-                f"{perr:.3e}")
+                f"{perr:.3e}; K1 plan {k1_plan}")
             require(rel <= 1e-5 and perr <= 1e-5,
                     f"{d}D {material} chains off their plain versions")
             for kernel in ("K5", "K8"):
@@ -2639,8 +2709,9 @@ def time_material_kernels(torch, d, timing, keys):
             call = (lambda: ek.hessian_and_force(*args, robust, material),
                     lambda: ek.hessian_and_force_plain(*args, material,
                                                        robust),
-                    20, 100, "hessian_and_force_kernel",
+                    20, 100, K1_KERNEL,
                     nbytes(*args[:4], K, H), chain * e)
+            plan_keys = element_plan_keys(ek.hessian_and_force)
         elif counter == "grad_columns":
             G = ek.explicit_grad_columns(*args, material)
             call = (lambda: ek.explicit_grad_columns(*args, material),
@@ -2706,7 +2777,8 @@ def time_material_kernels(torch, d, timing, keys):
                     1, 10, k5_kernel_name() if kernel == "K5"
                     else k8_kernel_name(), moved, ops)
         plan_keys = (plan_keys if counter in ("blocked_frame",
-                                              "explicit_frame") else {})
+                                              "explicit_frame",
+                                              "element_chain") else {})
         kernel, plain_fn, plain_reps, reps, kname, moved, ops = call
         bnd, by = bound(moved, ops)
         out[key] = dict(ms=kernel_ms(torch, kernel, reps, [kname]),
@@ -2845,6 +2917,8 @@ def run_extensions(torch, dev, zero_counts, counts, only):
                 f"error {errors[d][name]:.3e}")
             require(rel <= 1e-5, f"{name} {d}D block-relative error {rel}")
             require(torch.equal(got, again), f"{name} {d}D runs differ")
+            if name == "implicit_force":
+                log(f"[{name} {d}D] plan {plan_text(fn)}")
             timing[d][name] = args
         gen = torch.Generator().manual_seed(11 + d)
         vel = s.vel + 0.3 * torch.randn(s.vel.shape, generator=gen).to(dev)
@@ -3124,8 +3198,7 @@ def time_extension_kernels(torch, d, timing):
         ("hessian_blocks", ek.hessian_blocks, ek.hessian_blocks_plain,
          "hessian_blocks_kernel", ops["k9a"]),
         ("implicit_force", ek.implicit_force_columns,
-         ek.implicit_force_columns_plain, "implicit_force_kernel",
-         ops["k9b"]),
+         ek.implicit_force_columns_plain, K9B_KERNEL, ops["k9b"]),
     ):
         args = timing[name]
         y = fn(*args)
@@ -3133,6 +3206,8 @@ def time_extension_kernels(torch, d, timing):
         out[name] = dict(ms=kernel_ms(torch, lambda: fn(*args), 200, [kernel]),
                          plain_ms=cuda_ms(torch, lambda: plain(*args), 20),
                          bound_ms=bnd, bound_by=by, library_ms=None)
+        if name == "implicit_force":
+            out[name].update(element_plan_keys(fn))
     for name, fn, plain, kernel, step, circle in (
         ("kinematic", ak.kinematic, ak.kinematic_plain, "kinematic_kernel",
          OPS[d]["kinematic"], ops["circle_a"]),
@@ -4275,8 +4350,14 @@ def main():
     torch.cuda.synchronize()
     k1_rel = max(block_rel_err(K, Kp), block_rel_err(H, Hp))
     k1_abs = float(max((K - Kp).abs().max(), (H - Hp).abs().max()))
-    log(f"[K1] block-relative error {k1_rel:.3e}, max abs error {k1_abs:.3e}")
+    log(f"[K1] block-relative error {k1_rel:.3e}, max abs error {k1_abs:.3e}"
+        f"; plan {plan_text(element_kernels.hessian_and_force)}")
     require(k1_rel <= 1e-5, f"K1 block-relative error {k1_rel}")
+    K_again, H_again = element_kernels.hessian_and_force(*k1_args)
+    require(torch.equal(K, K_again) and torch.equal(H, H_again),
+            "K1 runs differ")
+    ragged = {3: check_ragged(torch, "3D", obj, state)}
+    k1_abs = max(k1_abs, ragged[3]["element_chain"])
 
     # -- 4. K4 against its plain version, and determinism -------------------
     gen = torch.Generator().manual_seed(0)
@@ -4763,6 +4844,12 @@ def main():
         launches.update(ext["launches"][d])
         errors.update(ine["errors"][d])
         errors.update(ext["errors"][d])
+        # K9b's error over its flagship / default.json run and section 3's
+        # and 15's ragged cuts.
+        errors["implicit_force"] = max(
+            errors["implicit_force"],
+            ragged[3]["implicit_force"] if d == 3
+            else errors.pop("implicit_force_ragged"))
     kernels = (kernel_rows(3, times3, launches3, errors3, card)
                + kernel_rows(2, times2, two["launches"], two["errors"], card))
     sources = {name: (source, replaces) for name, source, replaces in KERNELS}

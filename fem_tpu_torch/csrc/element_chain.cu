@@ -49,6 +49,16 @@
 // directly (Hopper gathers, so the TPU's planar padding and the separate XLA
 // gather pass are gone) and the whole chain in registers — nothing
 // intermediate touches device memory.
+//
+// K1 and K9b run in CTAs of kTile = 32 elements (a tile), K6 and K9a in
+// CTAs of 256.  A thread's chain is long and serial (about 400 dependent
+// operations a Neo-Hookean tet, 600 corotated), so what hides its latency
+// is the number of SMs running chains: the flagship's 4,068 tets fill 128
+// CTAs of 32 on 128 of the 132 SMs, where CTAs of 256 put them on 16.  On
+// the H100 tiles of 32 were the fastest of 32-256 at every size swept
+// (200-4,068 elements, 2D and 3D), and neither d threads an element (one
+// row of k and h each) nor staging the tile's rows through shared memory
+// by 16-byte vectors gained (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 
@@ -73,8 +83,12 @@ __device__ __forceinline__ void element_edges(const float* __restrict__ pos,
   }
 }
 
+// Elements a CTA of K1 and K9b (ops/element_kernels.ELEMENT_TILE).
+constexpr int kTile = 32;
+
+// tiled_hessian_and_force_kernel (K1): the name the profiler reports.
 template <int D, int M>
-__global__ void __launch_bounds__(256) hessian_and_force_kernel(
+__global__ void __launch_bounds__(kTile) tiled_hessian_and_force_kernel(
     const float* __restrict__ pos, const int* __restrict__ elem,
     const float* __restrict__ ref_inv, const float* __restrict__ volume,
     int num_elements, const fem::MaterialParams m, float* __restrict__ k_out,
@@ -139,8 +153,8 @@ __device__ __forceinline__ void nh_half(
   for (int i = 0; i < DD; ++i) out[DD * e + i] = nv * o[i];
 }
 
-// hessian_blocks_kernel (K9a) and implicit_force_kernel (K9b): the names
-// the profiler reports.
+// hessian_blocks_kernel (K9a) and tiled_implicit_force_kernel (K9b): the
+// names the profiler reports.
 template <int D>
 __global__ void __launch_bounds__(256) hessian_blocks_kernel(
     const float* __restrict__ pos, const int* __restrict__ elem,
@@ -150,21 +164,23 @@ __global__ void __launch_bounds__(256) hessian_blocks_kernel(
 }
 
 template <int D>
-__global__ void __launch_bounds__(256) implicit_force_kernel(
+__global__ void __launch_bounds__(kTile) tiled_implicit_force_kernel(
     const float* __restrict__ pos, const int* __restrict__ elem,
     const float* __restrict__ ref_inv, const float* __restrict__ volume,
     int num_elements, const fem::MaterialParams m, float* __restrict__ out) {
   nh_half<D, false>(pos, elem, ref_inv, volume, num_elements, m, out);
 }
 
-// One launch of K9a (K_HALF) or K9b over the elements.
+// One launch of K9a (K_HALF, CTAs of 256) or K9b (CTAs of kTile) over the
+// elements.
 template <bool K_HALF>
 int launch_nh_half(int dim, const void* pos, const void* elem,
                    const void* ref_inv, const void* volume, int num_elements,
                    const fem::MaterialParams* params, void* out,
                    void* stream) {
   if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (num_elements + 255) / 256;
+  constexpr int threads = K_HALF ? 256 : kTile;
+  const int blocks = (num_elements + threads - 1) / threads;
   if (blocks > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* p = static_cast<const float*>(pos);
@@ -177,13 +193,13 @@ int launch_nh_half(int dim, const void* pos, const void* elem,
       if constexpr (K_HALF) {
         hessian_blocks_kernel<3><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
       } else {
-        implicit_force_kernel<3><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
+        tiled_implicit_force_kernel<3><<<blocks, kTile, 0, s>>>(p, el, r, v, num_elements, m, o);
       }
     } else {
       if constexpr (K_HALF) {
         hessian_blocks_kernel<2><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
       } else {
-        implicit_force_kernel<2><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
+        tiled_implicit_force_kernel<2><<<blocks, kTile, 0, s>>>(p, el, r, v, num_elements, m, o);
       }
     }
   }
@@ -192,15 +208,16 @@ int launch_nh_half(int dim, const void* pos, const void* elem,
 
 }  // namespace
 
-// `dim` is 2 or 3 and `material` a fem::Material of this library (anything
-// else: cudaErrorInvalidValue, nothing launched); `params` its numbers.
+// K1 in CTAs of kTile elements: `dim` is 2 or 3 and `material` a
+// fem::Material of this library (anything else: cudaErrorInvalidValue,
+// nothing launched); `params` its numbers.
 extern "C" int fem_hessian_and_force(int dim, int material, const void* pos,
                                      const void* elem, const void* ref_inv,
                                      const void* volume, int num_elements,
                                      const fem::MaterialParams* params,
                                      void* k_out, void* h_out, void* stream) {
   if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (num_elements + 255) / 256;
+  const int blocks = (num_elements + kTile - 1) / kTile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const fem::MaterialParams m = *params;
   return fem::dispatch_material<true>(material, [&](auto mc) {
@@ -213,10 +230,10 @@ extern "C" int fem_hessian_and_force(int dim, int material, const void* pos,
       float* k = static_cast<float*>(k_out);
       float* h = static_cast<float*>(h_out);
       if (dim == 3) {
-        hessian_and_force_kernel<3, M><<<blocks, 256, 0, s>>>(
+        tiled_hessian_and_force_kernel<3, M><<<blocks, kTile, 0, s>>>(
             p, el, r, v, num_elements, m, k, h);
       } else {
-        hessian_and_force_kernel<2, M><<<blocks, 256, 0, s>>>(
+        tiled_hessian_and_force_kernel<2, M><<<blocks, kTile, 0, s>>>(
             p, el, r, v, num_elements, m, k, h);
       }
     }
@@ -268,7 +285,8 @@ extern "C" int fem_hessian_blocks(int dim, const void* pos, const void* elem,
                               params, k_out, stream);
 }
 
-// K9b: the Neo-Hookean rhs force columns of every element (mu, half_lam).
+// K9b: the Neo-Hookean rhs force columns of every element (mu, half_lam),
+// in CTAs of kTile elements.
 extern "C" int fem_implicit_force(int dim, const void* pos, const void* elem,
                                   const void* ref_inv, const void* volume,
                                   int num_elements,

@@ -21,6 +21,12 @@ dynamic R⁻¹·F_i⁻¹ passes as ``ref_inv``.  Each wrapper counts its launche
 in total (``launches``) and by (dimension, material instance)
 (``instance_launches``).
 
+K1 and K9b run one thread an element in CTAs of ``ELEMENT_TILE`` (32)
+elements, a tile: :func:`element_plan` gives the CTAs and the ragged last
+tile of a launch.  What a launch of K1, K9a or K9b keeps fixed for a
+(material, μ, λ, d) — the material's numbers as the kernel argument and
+the library's entry — is bound once (:func:`element_binding`).
+
 ``hessian_blocks`` (K9a: the blocks K_e alone) and ``implicit_force_columns``
 (K9b: the rhs force columns alone) launch the two halves of K1's
 Neo-Hookean chain, entries of the same CUDA source; they replace
@@ -34,6 +40,8 @@ plain versions are ``ops/element``'s ``hessian_blocks`` and
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -132,6 +140,96 @@ def _check_elements(pos, element_indices, ref_inv, volume):
     return e, d, dev
 
 
+# Elements a CTA of K1 and K9b: csrc/element_chain.cu's kTile.  The
+# fastest of 32-256 elements a CTA in 2D and 3D at every size swept on the
+# H100 (200-4,068 elements; PERF.md §6).
+ELEMENT_TILE = 32
+
+
+class ElementPlan(NamedTuple):
+    """A launch of K1 or K9b over E elements."""
+
+    tile: int  # elements a CTA, one thread each
+    ctas: int  # ⌈E / tile⌉
+    last: int  # elements of the last, ragged tile (0 when E = 0)
+
+
+@functools.lru_cache(maxsize=256)
+def element_plan(num_elements: int, dim: int, material_id: int,
+                 outputs: int = 2) -> ElementPlan:
+    """The launch of K1 (``outputs`` 2: K and H) or K9b (1: H, the
+    Neo-Hookean instance only) of ``material_id`` over ``num_elements``
+    elements in ``dim`` dimensions; a launch the kernels do not take raises
+    ``ValueError``.  Pure: no device is asked."""
+    if dim not in (2, 3):
+        raise ValueError(f"the element-chain kernels take dim 2 or 3, not "
+                         f"{dim}")
+    if num_elements < 0:
+        raise ValueError(f"{num_elements} elements")
+    if outputs not in (1, 2) or (
+            outputs == 1 and material_id != MATERIAL_IDS["neo_hookean"]):
+        raise ValueError(f"no element-chain kernel with {outputs} outputs "
+                         f"for material {material_id}")
+    ctas = -(-num_elements // ELEMENT_TILE)
+    last = num_elements - (ctas - 1) * ELEMENT_TILE if ctas else 0
+    return ElementPlan(ELEMENT_TILE, ctas, last)
+
+
+class ElementBinding:
+    """What every launch of K1, K9a or K9b keeps fixed for one (material,
+    ``robust``, μ, λ, d): the material's numbers as the kernel argument
+    (:class:`MaterialParamsC`, computed once) and the library of its
+    instance with its entries' argument types (loaded at the first
+    launch).  Built by :func:`element_binding`."""
+
+    def __init__(self, material: str, robust: bool, mu: float, lam: float,
+                 d: int):
+        self.mid = kernel_material_id(material, robust)
+        self.d = d
+        self.params = material_params(material, mu, lam, d)
+        self.ref = ctypes.byref(self.params)
+        self._lib = None
+
+    @property
+    def lib(self):
+        if self._lib is None:
+            self._lib = _library(self.mid)
+        return self._lib
+
+    def launch(self, fn, what: str, dev: torch.device, entry: str,
+               *args) -> None:
+        """``entry(*args, stream)`` on ``dev``'s current stream; raises on a
+        launch error, else counts the launch on ``fn``."""
+        call = getattr(self.lib, entry)
+        if torch.cuda.current_device() == dev.index:
+            rc = call(*args, torch.cuda.current_stream(dev).cuda_stream)
+        else:
+            with torch.cuda.device(dev):
+                rc = call(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            msg = self.lib.fem_element_chain_error(rc).decode()
+            raise RuntimeError(f"{what} kernel launch failed: {msg}")
+        count_launch(fn, self.d, self.mid)
+
+
+# (material, robust, μ, λ, d) → its ElementBinding.
+_BINDINGS: dict = {}
+
+
+def element_binding(material: str, robust: bool, mu: float, lam: float,
+                    d: int) -> ElementBinding:
+    """The :class:`ElementBinding` of (material, ``robust``, μ, λ, d),
+    built once."""
+    key = (material, bool(robust), float(mu), float(lam), int(d))
+    hit = _BINDINGS.get(key)
+    if hit is None:
+        hit = ElementBinding(material, robust, mu, lam, d)
+        if len(_BINDINGS) >= 64:
+            _BINDINGS.pop(next(iter(_BINDINGS)))
+        _BINDINGS[key] = hit
+    return hit
+
+
 def hessian_and_force(
     pos: torch.Tensor,
     element_indices: torch.Tensor,
@@ -146,34 +244,31 @@ def hessian_and_force(
 
     CUDA tensors: one launch of the element-chain kernel's instance of
     ``material`` (robust Neo-Hookean when ``robust``; ``robust`` leaves every
-    other material's chain as it is), 2D or 3D.  CPU tensors:
+    other material's chain as it is), 2D or 3D, in tiles of
+    ``ELEMENT_TILE`` elements, the plan left in
+    ``hessian_and_force.last_plan``.  CPU tensors:
     :func:`hessian_and_force_plain`."""
-    mid = kernel_material_id(material, robust)
     if pos.device.type == "cpu":
+        kernel_material_id(material, robust)
         return hessian_and_force_plain(
             pos, element_indices, ref_inv, volume, mu, lam, material, robust
         )
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
-    params = material_params(material, mu, lam, d)
+    b = element_binding(material, robust, mu, lam, d)
+    plan = element_plan(e, d, b.mid)
     k = torch.empty((e, d, d), dtype=torch.float32, device=dev)
     h = torch.empty((e, d, d), dtype=torch.float32, device=dev)
-    lib = _library(mid)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_hessian_and_force(
-            d, mid, pos.data_ptr(), element_indices.data_ptr(),
-            ref_inv.data_ptr(), volume.data_ptr(), e, ctypes.byref(params),
-            k.data_ptr(), h.data_ptr(), stream,
-        )
-    if rc != 0:
-        msg = lib.fem_element_chain_error(rc).decode()
-        raise RuntimeError(f"element-chain kernel launch failed: {msg}")
-    count_launch(hessian_and_force, d, mid)
+    b.launch(hessian_and_force, "element-chain", dev, "fem_hessian_and_force",
+             d, b.mid, pos.data_ptr(), element_indices.data_ptr(),
+             ref_inv.data_ptr(), volume.data_ptr(), e, b.ref, k.data_ptr(),
+             h.data_ptr())
+    hessian_and_force.last_plan = plan
     return k, h
 
 
 hessian_and_force.launches = 0
 hessian_and_force.instance_launches = {}
+hessian_and_force.last_plan = None
 
 
 def explicit_grad_columns(
@@ -230,29 +325,6 @@ def implicit_force_columns_plain(pos, element_indices, ref_inv, volume, mu,
                                           volume, mu, lam, False)
 
 
-def _nh_half(fn, entry, what, pos, element_indices, ref_inv, volume, mu,
-             lam):
-    """One launch of the Neo-Hookean half ``entry`` (K9a or K9b) of the
-    element-chain library; ``fn`` the wrapper that counts it."""
-    e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
-    mid = MATERIAL_IDS["neo_hookean"]
-    params = material_params("neo_hookean", mu, lam, d)
-    out = torch.empty((e, d, d), dtype=torch.float32, device=dev)
-    lib = _library(mid)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
-            d, pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
-            volume.data_ptr(), e, ctypes.byref(params), out.data_ptr(),
-            stream,
-        )
-    if rc != 0:
-        msg = lib.fem_element_chain_error(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg}")
-    count_launch(fn, d, mid)
-    return out
-
-
 def hessian_blocks(pos: torch.Tensor, element_indices: torch.Tensor,
                    ref_inv: torch.Tensor, volume: torch.Tensor, mu: float,
                    lam: float) -> torch.Tensor:
@@ -263,8 +335,13 @@ def hessian_blocks(pos: torch.Tensor, element_indices: torch.Tensor,
     if pos.device.type == "cpu":
         return hessian_blocks_plain(pos, element_indices, ref_inv, volume,
                                     mu, lam)
-    return _nh_half(hessian_blocks, "fem_hessian_blocks", "K9a blocks", pos,
-                    element_indices, ref_inv, volume, mu, lam)
+    e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
+    b = element_binding("neo_hookean", False, mu, lam, d)
+    out = torch.empty((e, d, d), dtype=torch.float32, device=dev)
+    b.launch(hessian_blocks, "K9a blocks", dev, "fem_hessian_blocks", d,
+             pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
+             volume.data_ptr(), e, b.ref, out.data_ptr())
+    return out
 
 
 hessian_blocks.launches = 0
@@ -277,15 +354,25 @@ def implicit_force_columns(pos: torch.Tensor, element_indices: torch.Tensor,
     """The Neo-Hookean implicit rhs force columns (E, d, d), non-robust
     (the λ/2·log det F² form).
 
-    CUDA tensors: one launch of K9b, 2D or 3D.  CPU tensors:
+    CUDA tensors: one launch of K9b, 2D or 3D, in tiles of
+    ``ELEMENT_TILE`` elements as K1's, the plan left in
+    ``implicit_force_columns.last_plan``.  CPU tensors:
     :func:`implicit_force_columns_plain`."""
     if pos.device.type == "cpu":
         return implicit_force_columns_plain(pos, element_indices, ref_inv,
                                             volume, mu, lam)
-    return _nh_half(implicit_force_columns, "fem_implicit_force",
-                    "K9b force-columns", pos, element_indices, ref_inv,
-                    volume, mu, lam)
+    e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
+    b = element_binding("neo_hookean", False, mu, lam, d)
+    plan = element_plan(e, d, b.mid, outputs=1)
+    out = torch.empty((e, d, d), dtype=torch.float32, device=dev)
+    b.launch(implicit_force_columns, "K9b force-columns", dev,
+             "fem_implicit_force", d, pos.data_ptr(),
+             element_indices.data_ptr(), ref_inv.data_ptr(),
+             volume.data_ptr(), e, b.ref, out.data_ptr())
+    implicit_force_columns.last_plan = plan
+    return out
 
 
 implicit_force_columns.launches = 0
 implicit_force_columns.instance_launches = {}
+implicit_force_columns.last_plan = None

@@ -91,7 +91,56 @@ def stiff_body():
     return _body(4e6)
 
 
-def test_element_chain_kernel_matches_plain(body):
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship (configs/demo_spot.json: 4,068 tets), deformed."""
+    _require_cuda()
+    from fem_tpu_torch import entry
+
+    _, obj, state, _ = entry.flagship("cuda")
+    assert obj.element_cnt == 4068
+    return obj, entry.deformed(state)
+
+
+# Element counts of the ragged-tile checks: one element, one past a tile of
+# 32, and one past the flagship.
+RAGGED = (1, 33, 4069)
+
+
+def _cut(obj, state, n):
+    """K1's inputs over ``n`` elements cut from ``obj``'s, cyclically past
+    its count (fresh, aligned tensors)."""
+    idx = torch.arange(n, device=state.pos.device) % obj.element_cnt
+    return (state.pos, obj.element_indices[idx].contiguous(),
+            obj.ref_inv[idx].contiguous(), obj.volume[idx].contiguous(),
+            obj.mu, obj.s_lambda)
+
+
+def _check_tiled(kernel, plain, args, extra=(), kwargs=None, mid=0):
+    """``kernel`` (K1 or K9b) on ``args`` (K1's six): within TOL
+    block-relative of ``plain``, twice bit-identical, one launch a call,
+    its instance counted, the plan's CTAs covering the elements."""
+    kwargs = kwargs or {}
+    n, dim = args[1].shape[0], args[0].shape[1]
+    ref = _as_tuple(plain(*args, *extra))
+    before = kernel.launches
+    by = kernel.instance_launches.get((dim, mid), 0)
+    got = _as_tuple(kernel(*args, **kwargs))
+    again = _as_tuple(kernel(*args, **kwargs))
+    assert kernel.launches == before + 2
+    assert kernel.instance_launches[(dim, mid)] == by + 2
+    plan = kernel.last_plan
+    assert plan.ctas == -(-n // plan.tile)
+    assert (plan.ctas - 1) * plan.tile + plan.last == n
+    for g, a, r in zip(got, again, ref):
+        assert g.shape == (n, dim, dim)
+        assert _block_rel_err(g, r) <= TOL, n
+        assert torch.equal(g, a), n
+
+
+def test_element_chain_kernel_matches_plain(body, flagship, body_2d):
+    """K1 (Neo-Hookean) on the grid cube, then at 1, 33 and 4,069 elements
+    cut from the flagship and from default.json's square (ragged tiles)."""
     obj, state = body
     args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
             obj.mu, obj.s_lambda)
@@ -102,6 +151,11 @@ def test_element_chain_kernel_matches_plain(body):
     for got, ref in ((k, kp), (h, hp)):
         scale = ref.abs().reshape(ref.shape[0], -1).amax(1)[:, None, None]
         assert float(((got - ref).abs() / scale).max()) <= 1e-5
+    for o, s in (flagship, body_2d):
+        for n in RAGGED:
+            _check_tiled(element_kernels.hessian_and_force,
+                         element_kernels.hessian_and_force_plain,
+                         _cut(o, s, n))
 
 
 @pytest.mark.parametrize("preconditioned", [False, True])
@@ -1269,11 +1323,22 @@ def _material_case(material_bodies, case):
 
 
 @pytest.mark.parametrize("case", MATERIAL_CASE_IDS)
-def test_material_chain_kernels_match_plain_and_repeat(material_bodies, case):
+def test_material_chain_kernels_match_plain_and_repeat(material_bodies,
+                                                       flagship, body_2d,
+                                                       case):
     """K1, K2 (robust too), K6 and K7b of each material instance: within
     1e-5 of the plain version (block-relative, or of the partials' largest
-    entry), bit-identical twice, counted by instance."""
+    entry), bit-identical twice, counted by instance; K1 also at 1, 33 and
+    4,069 elements cut from the flagship (3D) or default.json's square
+    (2D): ragged tiles."""
     obj, state, material, robust = _material_case(material_bodies, case)
+    mid = element_kernels.kernel_material_id(material, robust)
+    o, s = flagship if obj.dim == 3 else body_2d
+    for n in RAGGED:
+        _check_tiled(element_kernels.hessian_and_force,
+                     element_kernels.hessian_and_force_plain, _cut(o, s, n),
+                     (material, robust), dict(robust=robust,
+                                              material=material), mid)
     blk = obj.blocking
     args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
             obj.s_lambda)
@@ -1418,10 +1483,16 @@ def test_robust_frame_kernel_on_an_inverted_tet(variant):
 
 
 @pytest.mark.parametrize("dim", [2, 3])
-def test_k9_kernels_match_plain_and_repeat(body, body_2d, dim):
+def test_k9_kernels_match_plain_and_repeat(body, body_2d, flagship, dim):
     """K9a and K9b (the halves of K1's Neo-Hookean chain) against their
     plain versions, block-relative 1e-5, twice bit-identical, one launch
-    each."""
+    each; K9b also at 1, 33 and 4,069 elements cut from the flagship (3D)
+    or default.json's square (2D): ragged tiles."""
+    o, s = flagship if dim == 3 else body_2d
+    for n in RAGGED:
+        _check_tiled(element_kernels.implicit_force_columns,
+                     element_kernels.implicit_force_columns_plain,
+                     _cut(o, s, n))
     obj, state = body if dim == 3 else body_2d
     args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
             obj.mu, obj.s_lambda)

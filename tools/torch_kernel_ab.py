@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 # coding=utf-8
-"""Times P2, K11b, K5's frame, K4, K11a, K3, K2, K7b, K7a, K7b edges and
-K8 of one checkout on one GPU, hashes their outputs, and measures the
-host time of K3's, K2's, K7b's, K7a's and of the explicit frames'
-wrappers, so that two checkouts can be compared on the same card.
+"""Times P2, K11b, K5's frame, K4, K11a, K3, K2, K7b, K7a, K7b edges, K8,
+K1, K9b, K9a and K6 of one checkout on one GPU, hashes their outputs, and
+measures the host time of K3's, K2's, K7b's, K7a's, K1's and K9b's and of
+the explicit frames' wrappers, so that two checkouts can be compared on
+the same card.
 
     python3 tools/torch_kernel_ab.py [--repo PATH] [--label NAME]
 
@@ -27,7 +28,13 @@ every checkout also the partials form followed by PyTorch's slot sum
 ("parent form") — K7a's assembly of the gradient's block-ordered columns
 (each variant) and K7b edges, each with the device ms of a call (every kernel it launches, profiler),
 the enqueue µs a call (1,000 calls before a sync) and its outputs'
-sha256; K5's frame with its outputs' sha256; K8's frame (``fused_explicit_frame``, the
+sha256; K1 (Neo-Hookean; in 3D also each material instance and robust
+Neo-Hookean), K9b, K9a and K6 at the scene's state, each with its device
+ms a launch, its outputs' sha256 and its plan, K1's and K9b's with the
+enqueue µs a call (1,000 calls before a sync), and K1 and K9b at
+200-4,068 elements cut from the flagship and from the 40-subdivision
+grid, each on the checkout's own CTAs;
+K5's frame with its outputs' sha256; K8's frame (``fused_explicit_frame``, the
 checkout's own plan) on the explicit flagship, ``default.json``, its
 40-subdivision grid and ``demo_plastic.json``'s plastic body, and on the
 flagship with both inelastic branches; and P2's three variants at the
@@ -38,7 +45,11 @@ window).  Then the explicit paths D (the explicit flagship), H
 through ``sim.make_frame_fn``: wall ms a frame over 200 frames ending in a
 sync, the host's enqueue µs a frame (the same frames' calls, before that
 sync) and device ms a frame (one profiled window of the same frames), and
-host µs a frame as wall minus device.  Then the op-composed substeps that
+host µs a frame as wall minus device.  Then path C (``entry.entry``: K1
+and K4 a substep), timed as ``chip_smoke.py`` times it — steps/s over 10
+substeps ending in a sync and a fetch of the CG iterations, after a
+warm-up substep — five times, and over 100 substeps twice.  Then the
+op-composed substeps that
 run K2, K7b and K7a — B (``operator_mode="blocked"``), E (explicit,
 ``element_backend="auto"``), F (``auto_diff`` and ``"xla"``) — on the
 flagship deformed and ``default.json`` squeezed, 10 substeps: device ms
@@ -134,6 +145,106 @@ def time_explicit(torch, cs, dev, emit, digest):
              enqueue_us=(t1 - t0) * 1e6 / frames, device_ms=device_ms,
              host_us=(wall_ms - device_ms) * 1e3, busy=device_ms / wall_ms,
              steps_per_s=frames * cfg.sim_count / (t2 - t0))
+
+
+def time_elements(torch, cs, label, o, s, emit, digest):
+    """K1, K9b, K9a and K6 on one scene (module docstring): device ms a
+    launch, outputs' sha256, the plan, and K1's and K9b's enqueue µs a
+    call; in 3D each of K1's material instances."""
+    from fem_tpu_torch.ops import element_kernels as ek
+
+    d = s.pos.shape[1]
+    args = (s.pos, o.element_indices, o.ref_inv, o.volume, o.mu, o.s_lambda)
+    k1 = ek.hessian_and_force
+    cases = [("K1", "neo_hookean", {}, k1, "hessian_and_force_kernel"),
+             ("K9b", "neo_hookean", {}, ek.implicit_force_columns,
+              "implicit_force_kernel"),
+             ("K9a", "neo_hookean", {}, ek.hessian_blocks,
+              "hessian_blocks_kernel"),
+             ("K6", "neo_hookean", {}, ek.explicit_grad_columns,
+              "explicit_grad_columns_kernel")]
+    if d == 3:
+        cases += [("K1", m, dict(material=m), k1, "hessian_and_force_kernel")
+                  for m in cs.MATERIALS[3]]
+        cases.append(("K1", "neo_hookean robust", dict(robust=True), k1,
+                      "hessian_and_force_kernel"))
+    for kernel, material, opts, fn, name in cases:
+        def call(fn=fn, opts=opts):
+            return fn(*args, **opts)
+
+        out = call()
+        out = out if isinstance(out, tuple) else (out,)
+        plan = getattr(fn, "last_plan", None)
+        ms = cs.kernel_ms(torch, call, 50, [name])
+        row = dict(kernel=kernel, scene=label, material=material, ms=ms,
+                   plan=str(plan), sha256=digest(*out))
+        if not opts and kernel in ("K1", "K9b") and material == "neo_hookean":
+            reps = 1000
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            row["enqueue_us"] = (t1 - t0) * 1e6 / reps
+        emit(**row)
+
+
+def time_element_sizes(torch, cs, dev, emit):
+    """K1 (Neo-Hookean) and K9b at element counts cut from the flagship (3D)
+    and from ``default.json``'s square at 40 subdivisions (2D, 3,200
+    triangles), on the checkout's own CTAs: device ms a launch."""
+    from fem_tpu_torch import entry, scene
+    from fem_tpu_torch.ops import element_kernels as ek
+    from fem_tpu_torch.utils.config import read_config
+
+    _, obj3, s3, _ = entry.flagship(dev)
+    dcfg = read_config(os.path.join(REPO, "configs", "default.json"))
+    lcfg = dataclasses.replace(dcfg, objects=(dataclasses.replace(
+        dcfg.objects[0], subdivisions=40),))
+    (lbody,), _ = scene.load_scene(lcfg, device=dev)
+    for d, o, s, sizes in ((3, obj3, entry.deformed(s3),
+                            (200, 512, 1024, 2048, 4068)),
+                           (2, lbody.obj, lbody.state,
+                            (200, 512, 1024, 2048, 3200))):
+        for n in sizes:
+            idx = torch.arange(n, device=dev) % o.element_cnt
+            args = (s.pos, o.element_indices[idx].contiguous(),
+                    o.ref_inv[idx].contiguous(), o.volume[idx].contiguous(),
+                    o.mu, o.s_lambda)
+            for kernel, fn, name in (
+                    ("K1", ek.hessian_and_force, "hessian_and_force_kernel"),
+                    ("K9b", ek.implicit_force_columns,
+                     "implicit_force_kernel")):
+                def call(fn=fn):
+                    return fn(*args)
+
+                call()
+                emit(kernel=kernel, sizes=True, dim=d, elements=n,
+                     plan=str(getattr(fn, "last_plan", None)),
+                     ms=cs.kernel_ms(torch, call, 50, [name]))
+
+
+def time_path_c(torch, cs, dev, emit):
+    """Path C's steps/s (module docstring), each run on its own line."""
+    from fem_tpu_torch import entry
+
+    fn, (obj, state, obs) = entry.entry(dev)
+    fn(obj, state, obs)
+    torch.cuda.synchronize()
+    for substeps, runs in ((cs.SUBSTEPS_C, 5), (100, 2)):
+        for run in range(runs):
+            t0 = time.perf_counter()
+            s, iters = state, []
+            for _ in range(substeps):
+                s, aux = fn(obj, s, obs)
+                iters.append(aux.solver_iterations)
+            iters = torch.stack(iters).cpu()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            emit(path="C", substeps=substeps, run=run,
+                 steps_per_s=substeps / wall,
+                 iterations=int(iters.sum()))
 
 
 def time_prep(torch, cs, label, o, s, emit, digest):
@@ -251,9 +362,9 @@ def main(argv=None) -> int:
     # Every library the run loads, built at once (one nvcc each, together).
     cuda_build.build([(name, None) for name in ("fused_cg", "fused_frame",
                                                 "edge_cg", "probe_int8")]
-                     + [(name, 0) for name in ("element_chain", "blocked",
-                                               "blocked_frame",
-                                               "explicit_frame")])
+                     + [(name, 0) for name in ("blocked", "blocked_frame",
+                                               "explicit_frame")]
+                     + [("element_chain", m) for m in range(8)])
     from fem_tpu_torch import entry
     from fem_tpu_torch.experiments import edge_cg, fused_frame as ff
     from fem_tpu_torch.ops import blocked_kernels as bk
@@ -362,13 +473,16 @@ def main(argv=None) -> int:
                      ms=ms, plan=str(plan),
                      enqueue_us=(t1 - t0) * 1e6 / reps, sha256=digest(y))
         time_prep(torch, cs, label, o, s, emit, digest)
+        time_elements(torch, cs, label, o, s, emit, digest)
     for name in p2.VARIANTS:
         a, w = p2.probe_inputs(6, 1024, 2048, name, dev)
         ms = cs.kernel_ms(torch, lambda: p2.chained_dot(a, w, 200, name), 20,
                           ["chained_dot_kernel"])
         emit(kernel="P2", variant=name, ms=ms,
              plan=str(getattr(p2.chained_dot, "last_plan", None)))
+    time_element_sizes(torch, cs, dev, emit)
     time_explicit(torch, cs, dev, emit, digest)
+    time_path_c(torch, cs, dev, emit)
     time_op_paths(torch, cs, dev, emit)
     return 0
 
