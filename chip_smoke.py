@@ -26,9 +26,9 @@ the eight:
 3. K1, the element chain, against ``hessian_and_force_plain`` on the
    flagship's deformed state (block-relative error ≤ 1e-5), twice
    bit-identical, with its plan (``element_kernels.element_plan``: tets a
-   CTA, CTAs); then K1 and K9b at 1, 33 and 4,069 elements cut from
-   the flagship (ragged last tiles), each against its plain version and
-   twice bit-identical;
+   CTA, CTAs); then K1, K9b, K9a and every K6 instance at 1, 33 and
+   4,069 elements cut from the flagship (ragged last tiles), each against
+   its plain version and twice bit-identical;
 4. K4, the whole CG solve, against ``fused_cg_solve_plain`` with
    ``preconditioned`` 0 and 1 (velocity rtol 5e-4 / atol 1e-6, iterations
    within 1), and twice on the same inputs, bit-identical;
@@ -84,9 +84,9 @@ the eight:
     ``sim_count = 10``): K1-K8's triangle instances against their plain
     versions on a state moved into the right circle and squashed, with
     random velocities (the tolerances of 3-8), each twice bit-identical,
-    and K1 and K9b at 1, 33 and 4,069 triangles cut from the scene as in
-    section 3; K5 and K8 also over the 16 blocks of the same scene at 40
-    subdivisions;
+    and K1, K9b, K9a and every K6 instance at 1, 33 and 4,069 triangles
+    cut from the scene as in section 3; K5 and K8 also over the 16 blocks
+    of the same scene at 40 subdivisions;
 16. path H, ``default.json`` as shipped through ``sim.make_frame_fn``
     (``scene.load_scene``): K8 once a frame over 30 frames, the first frame
     equal to the CPU plain frame to 1e-5; the same with ``auto_diff`` off;
@@ -167,7 +167,7 @@ the eight:
     plain versions on the flagship deformed and on ``default.json``
     squeezed (block-relative ≤ 1e-5), K10a and K10b (the fused advection)
     on the same bodies with three circles and random velocities (1e-6
-    absolute), each twice bit-identical (K9b's plan printed);
+    absolute), each twice bit-identical (K9a's and K9b's plans printed);
 35. path W, ``configs/demo_hanging.json`` as shipped (2D, a pin box, plain
     CG): 200 frames through ``make_frame_fn``, the op-composed frame, K2
     ten times a frame and K3 Σ(1 + iterations) (plain CG: one apply for the
@@ -439,12 +439,14 @@ KERNELS = (
 )
 
 
-# The profiler's names of K1's and K9b's tiled kernels
+# The profiler's names of K1's, K6's, K9a's and K9b's tiled kernels
 # (csrc/element_chain.cu).
 K1_KERNEL = "tiled_hessian_and_force_kernel"
+K6_KERNEL = "tiled_explicit_grad_columns_kernel"
+K9A_KERNEL = "tiled_hessian_blocks_kernel"
 K9B_KERNEL = "tiled_implicit_force_kernel"
-# Element counts of K1's and K9b's ragged-tile checks (sections 3 and 15):
-# one element, one past a tile of 32, one past the flagship.
+# Element counts of the element kernels' ragged-tile checks (sections 3
+# and 15): one element, one past a tile of 32, one past the flagship.
 RAGGED = (1, 33, 4069)
 
 
@@ -474,7 +476,7 @@ def block_rel_err(got, ref):
 
 
 def element_plan_keys(fn):
-    """The kernels line's plan keys of K1's or K9b's last launch
+    """The kernels line's plan keys of K1's, K6's, K9a's or K9b's last launch
     (``fn.last_plan``, element_kernels.element_plan)."""
     p = fn.last_plan
     return dict(tile=p.tile, ctas=p.ctas)
@@ -487,38 +489,52 @@ def plan_text(fn):
 
 
 def check_ragged(torch, label, obj, state):
-    """K1 (Neo-Hookean) and K9b at RAGGED element counts cut from ``obj``'s
-    (cyclically past its count) against their plain versions on the card:
-    block-relative ≤ 1e-5, twice bit-identical.  Returns the max abs
-    error of each, by counter name."""
+    """K1 (Neo-Hookean), K9b, K9a and every K6 instance (Neo-Hookean and
+    MATERIALS[d]) at RAGGED element counts cut from ``obj``'s (cyclically
+    past its count) against their plain versions on the card:
+    block-relative ≤ 1e-5, twice bit-identical.  Returns the max abs error
+    of each: by counter name for the Neo-Hookean rows, by (counter, d,
+    material id) for K6's material rows."""
     from fem_tpu_torch.ops import element_kernels as ek
+    from fem_tpu_torch.ops.element import kernel_material_id
 
-    errs = {"element_chain": 0.0, "implicit_force": 0.0}
+    d = state.pos.shape[1]
+    cases = [("element_chain", ek.hessian_and_force,
+              ek.hessian_and_force_plain, ()),
+             ("implicit_force", ek.implicit_force_columns,
+              ek.implicit_force_columns_plain, ()),
+             ("hessian_blocks", ek.hessian_blocks, ek.hessian_blocks_plain,
+              ())]
+    cases += [("grad_columns", ek.explicit_grad_columns,
+               ek.explicit_grad_columns_plain, (m,))
+              for m in ("neo_hookean",) + MATERIALS[d]]
+    errs = {}
     for n in RAGGED:
         idx = torch.arange(n, device=state.pos.device) % obj.element_cnt
         args = (state.pos, obj.element_indices[idx].contiguous(),
                 obj.ref_inv[idx].contiguous(), obj.volume[idx].contiguous(),
                 obj.mu, obj.s_lambda)
-        for name, fn, plain in (
-                ("element_chain", ek.hessian_and_force,
-                 ek.hessian_and_force_plain),
-                ("implicit_force", ek.implicit_force_columns,
-                 ek.implicit_force_columns_plain)):
-            got, again = fn(*args), fn(*args)
+        for name, fn, plain, extra in cases:
+            got, again = fn(*args, *extra), fn(*args, *extra)
             got = got if isinstance(got, tuple) else (got,)
             again = again if isinstance(again, tuple) else (again,)
-            ref = plain(*args)
+            ref = plain(*args, *extra)
             ref = ref if isinstance(ref, tuple) else (ref,)
             torch.cuda.synchronize()
             rel = max(block_rel_err(g, r) for g, r in zip(got, ref))
-            errs[name] = max(errs[name], max(
+            mid = kernel_material_id(*extra) if extra else 0
+            key = (name, d, mid) if mid else name
+            errs[key] = max(errs.get(key, 0.0), max(
                 float((g - r).abs().max()) for g, r in zip(got, ref)))
-            log(f"[{label} {name}] {n} elements: block-relative error "
+            what = f"{name}{f' {extra[0]}' if extra else ''}"
+            log(f"[{label} {what}] {n} elements: block-relative error "
                 f"{rel:.3e}; plan {plan_text(fn)}")
-            require(rel <= 1e-5, f"{label} {name} at {n} elements: "
+            require(all(bool(torch.isfinite(g).all()) for g in got),
+                    f"{label} {what} at {n} elements: non-finite")
+            require(rel <= 1e-5, f"{label} {what} at {n} elements: "
                     f"block-relative error {rel}")
             require(all(torch.equal(g, a) for g, a in zip(got, again)),
-                    f"{label} {name} at {n} elements: runs differ")
+                    f"{label} {what} at {n} elements: runs differ")
     return errs
 
 
@@ -1071,8 +1087,8 @@ def time_kernels(torch, d, obj, state, x, obstacles, frame_kw, ekw):
     G = ek.explicit_grad_columns(*k1_args)
     put("grad_columns", lambda: ek.explicit_grad_columns(*k1_args),
         lambda: ek.explicit_grad_columns_plain(*k1_args), 20, 200,
-        ["explicit_grad_columns_kernel"], nbytes(*k1_args[:4], G),
-        ops["grad"] * e)
+        [K6_KERNEL], nbytes(*k1_args[:4], G),
+        ops["grad"] * e, **element_plan_keys(ek.explicit_grad_columns))
 
     # Block-ordered columns: the explicit gradient's, on the blocked slots.
     bcols = ek.explicit_grad_columns_plain(
@@ -1216,10 +1232,7 @@ def check_kernels_2d(torch, obj, state, obstacles, frame_kw, lscene):
     log(f"[2D K1] block-relative error {rel:.3e}, max abs error "
         f"{errs['element_chain']:.3e}; plan {plan_text(ek.hessian_and_force)}")
     require(rel <= 1e-5, f"2D K1 block-relative error {rel}")
-    ragged = check_ragged(torch, "2D", obj, state)
-    errs["element_chain"] = max(errs["element_chain"],
-                                ragged["element_chain"])
-    errs["implicit_force_ragged"] = ragged["implicit_force"]
+    errs["ragged"] = check_ragged(torch, "2D", obj, state)
 
     errs["fused_cg"] = 0.0
     for pre in (False, True):
@@ -1261,7 +1274,8 @@ def check_kernels_2d(torch, obj, state, obstacles, frame_kw, lscene):
     rel = block_rel_err(G, Gp)
     errs["grad_columns"] = float((G - Gp).abs().max())
     log(f"[2D K6] block-relative error {rel:.3e}, max abs error "
-        f"{errs['grad_columns']:.3e}")
+        f"{errs['grad_columns']:.3e}; plan "
+        f"{plan_text(ek.explicit_grad_columns)}")
     require(bool(torch.isfinite(G).all()) and rel <= 1e-5,
             f"2D K6 block-relative error {rel}")
 
@@ -2716,8 +2730,8 @@ def time_material_kernels(torch, d, timing, keys):
             G = ek.explicit_grad_columns(*args, material)
             call = (lambda: ek.explicit_grad_columns(*args, material),
                     lambda: ek.explicit_grad_columns_plain(*args, material),
-                    20, 100, "explicit_grad_columns_kernel",
-                    nbytes(*args[:4], G), grad * e)
+                    20, 100, K6_KERNEL, nbytes(*args[:4], G), grad * e)
+            plan_keys = element_plan_keys(ek.explicit_grad_columns)
         elif counter == "blocked_prep":
             Kb, part = bk.blocked_prep(*bargs, robust)
             call = (lambda: bk.blocked_prep(*bargs, robust),
@@ -2778,7 +2792,8 @@ def time_material_kernels(torch, d, timing, keys):
                     else k8_kernel_name(), moved, ops)
         plan_keys = (plan_keys if counter in ("blocked_frame",
                                               "explicit_frame",
-                                              "element_chain") else {})
+                                              "element_chain",
+                                              "grad_columns") else {})
         kernel, plain_fn, plain_reps, reps, kname, moved, ops = call
         bnd, by = bound(moved, ops)
         out[key] = dict(ms=kernel_ms(torch, kernel, reps, [kname]),
@@ -2917,8 +2932,7 @@ def run_extensions(torch, dev, zero_counts, counts, only):
                 f"error {errors[d][name]:.3e}")
             require(rel <= 1e-5, f"{name} {d}D block-relative error {rel}")
             require(torch.equal(got, again), f"{name} {d}D runs differ")
-            if name == "implicit_force":
-                log(f"[{name} {d}D] plan {plan_text(fn)}")
+            log(f"[{name} {d}D] plan {plan_text(fn)}")
             timing[d][name] = args
         gen = torch.Generator().manual_seed(11 + d)
         vel = s.vel + 0.3 * torch.randn(s.vel.shape, generator=gen).to(dev)
@@ -3196,7 +3210,7 @@ def time_extension_kernels(torch, d, timing):
     out = {}
     for name, fn, plain, kernel, work in (
         ("hessian_blocks", ek.hessian_blocks, ek.hessian_blocks_plain,
-         "hessian_blocks_kernel", ops["k9a"]),
+         K9A_KERNEL, ops["k9a"]),
         ("implicit_force", ek.implicit_force_columns,
          ek.implicit_force_columns_plain, K9B_KERNEL, ops["k9b"]),
     ):
@@ -3205,9 +3219,8 @@ def time_extension_kernels(torch, d, timing):
         bnd, by = bound(nbytes(*args[:4], y), work * args[1].shape[0])
         out[name] = dict(ms=kernel_ms(torch, lambda: fn(*args), 200, [kernel]),
                          plain_ms=cuda_ms(torch, lambda: plain(*args), 20),
-                         bound_ms=bnd, bound_by=by, library_ms=None)
-        if name == "implicit_force":
-            out[name].update(element_plan_keys(fn))
+                         bound_ms=bnd, bound_by=by, library_ms=None,
+                         **element_plan_keys(fn))
     for name, fn, plain, kernel, step, circle in (
         ("kinematic", ak.kinematic, ak.kinematic_plain, "kinematic_kernel",
          OPS[d]["kinematic"], ops["circle_a"]),
@@ -4357,7 +4370,6 @@ def main():
     require(torch.equal(K, K_again) and torch.equal(H, H_again),
             "K1 runs differ")
     ragged = {3: check_ragged(torch, "3D", obj, state)}
-    k1_abs = max(k1_abs, ragged[3]["element_chain"])
 
     # -- 4. K4 against its plain version, and determinism -------------------
     gen = torch.Generator().manual_seed(0)
@@ -4462,7 +4474,8 @@ def main():
     torch.cuda.synchronize()
     k6_rel = block_rel_err(G, Gp)
     k6_abs = float((G - Gp).abs().max())
-    log(f"[K6] block-relative error {k6_rel:.3e}, max abs error {k6_abs:.3e}")
+    log(f"[K6] block-relative error {k6_rel:.3e}, max abs error {k6_abs:.3e}"
+        f"; plan {plan_text(element_kernels.explicit_grad_columns)}")
     require(bool(torch.isfinite(G).all()), "K6 non-finite columns")
     require(k6_rel <= 1e-5, f"K6 block-relative error {k6_rel}")
     require(torch.equal(G, G2), "K6 runs differ")
@@ -4835,6 +4848,7 @@ def main():
             f"blocks): {ms:.5f} ms a frame on the device (profiler); "
             f"{keys} card {card}")
 
+    ragged[2] = two["errors"].pop("ragged")
     for d, times, launches, errors in ((3, times3, launches3, errors3),
                                        (2, times2, two["launches"],
                                         two["errors"])):
@@ -4844,12 +4858,10 @@ def main():
         launches.update(ext["launches"][d])
         errors.update(ine["errors"][d])
         errors.update(ext["errors"][d])
-        # K9b's error over its flagship / default.json run and section 3's
-        # and 15's ragged cuts.
-        errors["implicit_force"] = max(
-            errors["implicit_force"],
-            ragged[3]["implicit_force"] if d == 3
-            else errors.pop("implicit_force_ragged"))
+        # Each row's error also over section 3's and 15's ragged cuts.
+        for key, err in ragged[d].items():
+            into = mat["errors"] if isinstance(key, tuple) else errors
+            into[key] = max(into[key], err)
     kernels = (kernel_rows(3, times3, launches3, errors3, card)
                + kernel_rows(2, times2, two["launches"], two["errors"], card))
     sources = {name: (source, replaces) for name, source, replaces in KERNELS}

@@ -50,15 +50,16 @@
 // gather pass are gone) and the whole chain in registers — nothing
 // intermediate touches device memory.
 //
-// K1 and K9b run in CTAs of kTile = 32 elements (a tile), K6 and K9a in
-// CTAs of 256.  A thread's chain is long and serial (about 400 dependent
-// operations a Neo-Hookean tet, 600 corotated), so what hides its latency
-// is the number of SMs running chains: the flagship's 4,068 tets fill 128
-// CTAs of 32 on 128 of the 132 SMs, where CTAs of 256 put them on 16.  On
-// the H100 tiles of 32 were the fastest of 32-256 at every size swept
-// (200-4,068 elements, 2D and 3D), and neither d threads an element (one
-// row of k and h each) nor staging the tile's rows through shared memory
-// by 16-byte vectors gained (PERF.md, section 6).
+// All four run in CTAs of kTile = 32 elements (a tile), one thread an
+// element.  A thread's chain is long and serial (about 400 dependent
+// operations a Neo-Hookean tet for K1, 300 for K9a, 200 for K6, 600
+// corotated), so what hides its latency is the number of SMs running
+// chains: the flagship's 4,068 tets fill 128 CTAs of 32 on 128 of the 132
+// SMs, where CTAs of 256 put them on 16.  On the H100 tiles of 32 were the
+// fastest of 32-256 at every size swept (200-4,068 elements, 2D and 3D),
+// and neither d threads an element (one row of k and h each) nor staging
+// the tile's rows through shared memory by 16-byte vectors gained
+// (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 
@@ -83,7 +84,7 @@ __device__ __forceinline__ void element_edges(const float* __restrict__ pos,
   }
 }
 
-// Elements a CTA of K1 and K9b (ops/element_kernels.ELEMENT_TILE).
+// Elements a CTA of K1, K6, K9a and K9b (ops/element_kernels.ELEMENT_TILE).
 constexpr int kTile = 32;
 
 // tiled_hessian_and_force_kernel (K1): the name the profiler reports.
@@ -111,8 +112,9 @@ __global__ void __launch_bounds__(kTile) tiled_hessian_and_force_kernel(
   }
 }
 
+// tiled_explicit_grad_columns_kernel (K6): the name the profiler reports.
 template <int D, int M>
-__global__ void __launch_bounds__(256) explicit_grad_columns_kernel(
+__global__ void __launch_bounds__(kTile) tiled_explicit_grad_columns_kernel(
     const float* __restrict__ pos, const int* __restrict__ elem,
     const float* __restrict__ ref_inv, const float* __restrict__ volume,
     int num_elements, const fem::MaterialParams m, float* __restrict__ g_out) {
@@ -153,10 +155,10 @@ __device__ __forceinline__ void nh_half(
   for (int i = 0; i < DD; ++i) out[DD * e + i] = nv * o[i];
 }
 
-// hessian_blocks_kernel (K9a) and tiled_implicit_force_kernel (K9b): the
-// names the profiler reports.
+// tiled_hessian_blocks_kernel (K9a) and tiled_implicit_force_kernel (K9b):
+// the names the profiler reports.
 template <int D>
-__global__ void __launch_bounds__(256) hessian_blocks_kernel(
+__global__ void __launch_bounds__(kTile) tiled_hessian_blocks_kernel(
     const float* __restrict__ pos, const int* __restrict__ elem,
     const float* __restrict__ ref_inv, const float* __restrict__ volume,
     int num_elements, const fem::MaterialParams m, float* __restrict__ out) {
@@ -171,16 +173,14 @@ __global__ void __launch_bounds__(kTile) tiled_implicit_force_kernel(
   nh_half<D, false>(pos, elem, ref_inv, volume, num_elements, m, out);
 }
 
-// One launch of K9a (K_HALF, CTAs of 256) or K9b (CTAs of kTile) over the
-// elements.
+// One launch of K9a (K_HALF) or K9b over the elements, in CTAs of kTile.
 template <bool K_HALF>
 int launch_nh_half(int dim, const void* pos, const void* elem,
                    const void* ref_inv, const void* volume, int num_elements,
                    const fem::MaterialParams* params, void* out,
                    void* stream) {
   if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int threads = K_HALF ? 256 : kTile;
-  const int blocks = (num_elements + threads - 1) / threads;
+  const int blocks = (num_elements + kTile - 1) / kTile;
   if (blocks > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* p = static_cast<const float*>(pos);
@@ -191,13 +191,13 @@ int launch_nh_half(int dim, const void* pos, const void* elem,
     const fem::MaterialParams m = *params;
     if (dim == 3) {
       if constexpr (K_HALF) {
-        hessian_blocks_kernel<3><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
+        tiled_hessian_blocks_kernel<3><<<blocks, kTile, 0, s>>>(p, el, r, v, num_elements, m, o);
       } else {
         tiled_implicit_force_kernel<3><<<blocks, kTile, 0, s>>>(p, el, r, v, num_elements, m, o);
       }
     } else {
       if constexpr (K_HALF) {
-        hessian_blocks_kernel<2><<<blocks, 256, 0, s>>>(p, el, r, v, num_elements, m, o);
+        tiled_hessian_blocks_kernel<2><<<blocks, kTile, 0, s>>>(p, el, r, v, num_elements, m, o);
       } else {
         tiled_implicit_force_kernel<2><<<blocks, kTile, 0, s>>>(p, el, r, v, num_elements, m, o);
       }
@@ -241,8 +241,8 @@ extern "C" int fem_hessian_and_force(int dim, int material, const void* pos,
   });
 }
 
-// The same for the gradient columns (no robust instance: the explicit
-// chain has no robust variant).
+// K6, the same for the gradient columns, in CTAs of kTile elements (no
+// robust instance: the explicit chain has no robust variant).
 extern "C" int fem_explicit_grad_columns(int dim, int material,
                                          const void* pos, const void* elem,
                                          const void* ref_inv,
@@ -250,7 +250,7 @@ extern "C" int fem_explicit_grad_columns(int dim, int material,
                                          const fem::MaterialParams* params,
                                          void* g_out, void* stream) {
   if (dim != 2 && dim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (num_elements + 255) / 256;
+  const int blocks = (num_elements + kTile - 1) / kTile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const fem::MaterialParams m = *params;
   return fem::dispatch_material<false>(material, [&](auto mc) {
@@ -262,10 +262,10 @@ extern "C" int fem_explicit_grad_columns(int dim, int material,
       const float* v = static_cast<const float*>(volume);
       float* g = static_cast<float*>(g_out);
       if (dim == 3) {
-        explicit_grad_columns_kernel<3, M><<<blocks, 256, 0, s>>>(
+        tiled_explicit_grad_columns_kernel<3, M><<<blocks, kTile, 0, s>>>(
             p, el, r, v, num_elements, m, g);
       } else {
-        explicit_grad_columns_kernel<2, M><<<blocks, 256, 0, s>>>(
+        tiled_explicit_grad_columns_kernel<2, M><<<blocks, kTile, 0, s>>>(
             p, el, r, v, num_elements, m, g);
       }
     }
@@ -274,8 +274,8 @@ extern "C" int fem_explicit_grad_columns(int dim, int material,
 }
 
 // K9a: the Neo-Hookean blocks K_e of every element (`dim` 2 or 3; anything
-// else: cudaErrorInvalidValue, nothing launched); `params` the Neo-Hookean
-// numbers (mu, lam).
+// else: cudaErrorInvalidValue, nothing launched), in CTAs of kTile
+// elements; `params` the Neo-Hookean numbers (mu, lam).
 extern "C" int fem_hessian_blocks(int dim, const void* pos, const void* elem,
                                   const void* ref_inv, const void* volume,
                                   int num_elements,

@@ -21,11 +21,12 @@ dynamic R⁻¹·F_i⁻¹ passes as ``ref_inv``.  Each wrapper counts its launche
 in total (``launches``) and by (dimension, material instance)
 (``instance_launches``).
 
-K1 and K9b run one thread an element in CTAs of ``ELEMENT_TILE`` (32)
-elements, a tile: :func:`element_plan` gives the CTAs and the ragged last
-tile of a launch.  What a launch of K1, K9a or K9b keeps fixed for a
-(material, μ, λ, d) — the material's numbers as the kernel argument and
-the library's entry — is bound once (:func:`element_binding`).
+All four element kernels (K1, K6, K9a, K9b) run one thread an element in
+CTAs of ``ELEMENT_TILE`` (32) elements, a tile: :func:`element_plan` gives
+the CTAs and the ragged last tile of a launch, and each wrapper leaves its
+launch's plan in ``last_plan``.  What a launch keeps fixed for a
+(material, ``robust``, μ, λ, d) — the material's numbers as the kernel
+argument and the library's entry — is bound once (:func:`element_binding`).
 
 ``hessian_blocks`` (K9a: the blocks K_e alone) and ``implicit_force_columns``
 (K9b: the rhs force columns alone) launch the two halves of K1's
@@ -48,6 +49,7 @@ import torch
 from fem_tpu_torch.ops import element
 from fem_tpu_torch.ops.element import (
     MATERIAL_IDS,
+    ROBUST_NEO_HOOKEAN_ID,
     deformation_gradients,
     k_and_h_chain,
     kernel_material_id,
@@ -140,14 +142,25 @@ def _check_elements(pos, element_indices, ref_inv, volume):
     return e, d, dev
 
 
-# Elements a CTA of K1 and K9b: csrc/element_chain.cu's kTile.  The
-# fastest of 32-256 elements a CTA in 2D and 3D at every size swept on the
-# H100 (200-4,068 elements; PERF.md §6).
+# Elements a CTA of K1, K6, K9a and K9b: csrc/element_chain.cu's kTile.
+# The fastest of 32-256 elements a CTA in 2D and 3D at every size swept on
+# the H100 (200-4,068 elements; PERF.md §6).
 ELEMENT_TILE = 32
+
+# The material instances each element kernel takes: K1 every material and
+# robust Neo-Hookean, K6 the base materials (its chain has no robust
+# variant), K9a and K9b the non-robust Neo-Hookean alone.
+_NEO_HOOKEAN = frozenset({MATERIAL_IDS["neo_hookean"]})
+KERNEL_MATERIALS = {
+    "K1": frozenset(MATERIAL_IDS.values()) | {ROBUST_NEO_HOOKEAN_ID},
+    "K6": frozenset(MATERIAL_IDS.values()),
+    "K9a": _NEO_HOOKEAN,
+    "K9b": _NEO_HOOKEAN,
+}
 
 
 class ElementPlan(NamedTuple):
-    """A launch of K1 or K9b over E elements."""
+    """A launch of K1, K6, K9a or K9b over E elements."""
 
     tile: int  # elements a CTA, one thread each
     ctas: int  # ⌈E / tile⌉
@@ -156,27 +169,26 @@ class ElementPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def element_plan(num_elements: int, dim: int, material_id: int,
-                 outputs: int = 2) -> ElementPlan:
-    """The launch of K1 (``outputs`` 2: K and H) or K9b (1: H, the
-    Neo-Hookean instance only) of ``material_id`` over ``num_elements``
-    elements in ``dim`` dimensions; a launch the kernels do not take raises
+                 kernel: str) -> ElementPlan:
+    """The launch of ``kernel`` (K1, K6, K9a or K9b) in its instance
+    ``material_id`` over ``num_elements`` elements in ``dim`` dimensions; a
+    launch the kernels do not take (``KERNEL_MATERIALS``) raises
     ``ValueError``.  Pure: no device is asked."""
     if dim not in (2, 3):
         raise ValueError(f"the element-chain kernels take dim 2 or 3, not "
                          f"{dim}")
     if num_elements < 0:
         raise ValueError(f"{num_elements} elements")
-    if outputs not in (1, 2) or (
-            outputs == 1 and material_id != MATERIAL_IDS["neo_hookean"]):
-        raise ValueError(f"no element-chain kernel with {outputs} outputs "
-                         f"for material {material_id}")
+    if material_id not in KERNEL_MATERIALS.get(kernel, ()):
+        raise ValueError(f"no element-chain kernel {kernel!r} for material "
+                         f"instance {material_id}")
     ctas = -(-num_elements // ELEMENT_TILE)
     last = num_elements - (ctas - 1) * ELEMENT_TILE if ctas else 0
     return ElementPlan(ELEMENT_TILE, ctas, last)
 
 
 class ElementBinding:
-    """What every launch of K1, K9a or K9b keeps fixed for one (material,
+    """What every launch of K1, K6, K9a or K9b keeps fixed for one (material,
     ``robust``, μ, λ, d): the material's numbers as the kernel argument
     (:class:`MaterialParamsC`, computed once) and the library of its
     instance with its entries' argument types (loaded at the first
@@ -255,7 +267,7 @@ def hessian_and_force(
         )
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
     b = element_binding(material, robust, mu, lam, d)
-    plan = element_plan(e, d, b.mid)
+    plan = element_plan(e, d, b.mid, "K1")
     k = torch.empty((e, d, d), dtype=torch.float32, device=dev)
     h = torch.empty((e, d, d), dtype=torch.float32, device=dev)
     b.launch(hessian_and_force, "element-chain", dev, "fem_hessian_and_force",
@@ -283,33 +295,30 @@ def explicit_grad_columns(
     """Explicit energy-gradient columns (E, d, d): column j of element e
     goes to its vertex j+1, −Σ_j to vertex 0.
 
-    CUDA tensors: one launch of the gradient-columns kernel's instance of
-    ``material``, 2D or 3D.  CPU tensors: :func:`explicit_grad_columns_plain`."""
-    mid = kernel_material_id(material)
+    CUDA tensors: one launch of K6's instance of ``material``, 2D or 3D,
+    in tiles of ``ELEMENT_TILE`` elements, the plan left in
+    ``explicit_grad_columns.last_plan``.  CPU tensors:
+    :func:`explicit_grad_columns_plain`."""
     if pos.device.type == "cpu":
+        kernel_material_id(material)
         return explicit_grad_columns_plain(
             pos, element_indices, ref_inv, volume, mu, lam, material
         )
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
-    params = material_params(material, mu, lam, d)
+    b = element_binding(material, False, mu, lam, d)
+    plan = element_plan(e, d, b.mid, "K6")
     g = torch.empty((e, d, d), dtype=torch.float32, device=dev)
-    lib = _library(mid)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_explicit_grad_columns(
-            d, mid, pos.data_ptr(), element_indices.data_ptr(),
-            ref_inv.data_ptr(), volume.data_ptr(), e, ctypes.byref(params),
-            g.data_ptr(), stream,
-        )
-    if rc != 0:
-        msg = lib.fem_element_chain_error(rc).decode()
-        raise RuntimeError(f"gradient-columns kernel launch failed: {msg}")
-    count_launch(explicit_grad_columns, d, mid)
+    b.launch(explicit_grad_columns, "gradient-columns", dev,
+             "fem_explicit_grad_columns", d, b.mid, pos.data_ptr(),
+             element_indices.data_ptr(), ref_inv.data_ptr(),
+             volume.data_ptr(), e, b.ref, g.data_ptr())
+    explicit_grad_columns.last_plan = plan
     return g
 
 
 explicit_grad_columns.launches = 0
 explicit_grad_columns.instance_launches = {}
+explicit_grad_columns.last_plan = None
 
 
 def hessian_blocks_plain(pos, element_indices, ref_inv, volume, mu, lam):
@@ -330,22 +339,27 @@ def hessian_blocks(pos: torch.Tensor, element_indices: torch.Tensor,
                    lam: float) -> torch.Tensor:
     """The Neo-Hookean implicit system blocks K_e (E, d, d), non-robust.
 
-    CUDA tensors: one launch of K9a, 2D or 3D.  CPU tensors:
+    CUDA tensors: one launch of K9a, 2D or 3D, in tiles of
+    ``ELEMENT_TILE`` elements as K1's, the plan left in
+    ``hessian_blocks.last_plan``.  CPU tensors:
     :func:`hessian_blocks_plain`."""
     if pos.device.type == "cpu":
         return hessian_blocks_plain(pos, element_indices, ref_inv, volume,
                                     mu, lam)
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
     b = element_binding("neo_hookean", False, mu, lam, d)
+    plan = element_plan(e, d, b.mid, "K9a")
     out = torch.empty((e, d, d), dtype=torch.float32, device=dev)
     b.launch(hessian_blocks, "K9a blocks", dev, "fem_hessian_blocks", d,
              pos.data_ptr(), element_indices.data_ptr(), ref_inv.data_ptr(),
              volume.data_ptr(), e, b.ref, out.data_ptr())
+    hessian_blocks.last_plan = plan
     return out
 
 
 hessian_blocks.launches = 0
 hessian_blocks.instance_launches = {}
+hessian_blocks.last_plan = None
 
 
 def implicit_force_columns(pos: torch.Tensor, element_indices: torch.Tensor,
@@ -363,7 +377,7 @@ def implicit_force_columns(pos: torch.Tensor, element_indices: torch.Tensor,
                                             volume, mu, lam)
     e, d, dev = _check_elements(pos, element_indices, ref_inv, volume)
     b = element_binding("neo_hookean", False, mu, lam, d)
-    plan = element_plan(e, d, b.mid, outputs=1)
+    plan = element_plan(e, d, b.mid, "K9b")
     out = torch.empty((e, d, d), dtype=torch.float32, device=dev)
     b.launch(implicit_force_columns, "K9b force-columns", dev,
              "fem_implicit_force", d, pos.data_ptr(),

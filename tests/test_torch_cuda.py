@@ -117,7 +117,7 @@ def _cut(obj, state, n):
 
 
 def _check_tiled(kernel, plain, args, extra=(), kwargs=None, mid=0):
-    """``kernel`` (K1 or K9b) on ``args`` (K1's six): within TOL
+    """``kernel`` (K1, K6, K9a or K9b) on ``args`` (K1's six): within TOL
     block-relative of ``plain``, twice bit-identical, one launch a call,
     its instance counted, the plan's CTAs covering the elements."""
     kwargs = kwargs or {}
@@ -554,7 +554,15 @@ def _explicit_kw(obj, sim_count=10):
                 mu=obj.mu, s_lambda=obj.s_lambda, sim_count=sim_count)
 
 
-def test_grad_columns_kernel_matches_plain_and_repeats(body):
+def test_grad_columns_kernel_matches_plain_and_repeats(body, flagship,
+                                                      body_2d):
+    """K6 (Neo-Hookean) on the grid cube, then at 1, 33 and 4,069 elements
+    cut from the flagship and from default.json's square (ragged tiles)."""
+    for o, s in (flagship, body_2d):
+        for n in RAGGED:
+            _check_tiled(element_kernels.explicit_grad_columns,
+                         element_kernels.explicit_grad_columns_plain,
+                         _cut(o, s, n))
     obj, state = body
     args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
             obj.mu, obj.s_lambda)
@@ -1328,9 +1336,9 @@ def test_material_chain_kernels_match_plain_and_repeat(material_bodies,
                                                        case):
     """K1, K2 (robust too), K6 and K7b of each material instance: within
     1e-5 of the plain version (block-relative, or of the partials' largest
-    entry), bit-identical twice, counted by instance; K1 also at 1, 33 and
-    4,069 elements cut from the flagship (3D) or default.json's square
-    (2D): ragged tiles."""
+    entry), bit-identical twice, counted by instance; K1 and K6 also at 1,
+    33 and 4,069 elements cut from the flagship (3D) or default.json's
+    square (2D): ragged tiles."""
     obj, state, material, robust = _material_case(material_bodies, case)
     mid = element_kernels.kernel_material_id(material, robust)
     o, s = flagship if obj.dim == 3 else body_2d
@@ -1339,6 +1347,11 @@ def test_material_chain_kernels_match_plain_and_repeat(material_bodies,
                      element_kernels.hessian_and_force_plain, _cut(o, s, n),
                      (material, robust), dict(robust=robust,
                                               material=material), mid)
+        if not robust:
+            _check_tiled(element_kernels.explicit_grad_columns,
+                         element_kernels.explicit_grad_columns_plain,
+                         _cut(o, s, n), (material,),
+                         dict(material=material), mid)
     blk = obj.blocking
     args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
             obj.s_lambda)
@@ -1486,13 +1499,16 @@ def test_robust_frame_kernel_on_an_inverted_tet(variant):
 def test_k9_kernels_match_plain_and_repeat(body, body_2d, flagship, dim):
     """K9a and K9b (the halves of K1's Neo-Hookean chain) against their
     plain versions, block-relative 1e-5, twice bit-identical, one launch
-    each; K9b also at 1, 33 and 4,069 elements cut from the flagship (3D)
+    each; both also at 1, 33 and 4,069 elements cut from the flagship (3D)
     or default.json's square (2D): ragged tiles."""
     o, s = flagship if dim == 3 else body_2d
     for n in RAGGED:
-        _check_tiled(element_kernels.implicit_force_columns,
-                     element_kernels.implicit_force_columns_plain,
-                     _cut(o, s, n))
+        for kernel, plain in (
+                (element_kernels.implicit_force_columns,
+                 element_kernels.implicit_force_columns_plain),
+                (element_kernels.hessian_blocks,
+                 element_kernels.hessian_blocks_plain)):
+            _check_tiled(kernel, plain, _cut(o, s, n))
     obj, state = body if dim == 3 else body_2d
     args = (state.pos, obj.element_indices, obj.ref_inv, obj.volume,
             obj.mu, obj.s_lambda)

@@ -1,16 +1,19 @@
 # coding=utf-8
-"""K1's and K9b's launch in tiles (``element_kernels.element_plan``), the
-binding of their wrappers (``element_binding``), and their CPU path.
+"""The launch in tiles of the four element kernels K1, K6, K9a and K9b
+(``element_kernels.element_plan``), the binding of their wrappers
+(``element_binding``), and their CPU path.
 
 The plan is pure host code, so it is checked here at the shapes the card
 sees: the flagship's 4,068 tets, ``default.json``'s 200 triangles, and the
 ragged sizes 1, 31, 33 and 4,069, for every K1 instance (the seven base
-materials and robust Neo-Hookean) and K9b, 2D and 3D (each element
-covered by one thread once).  The binding is checked with a fake library:
-no launch.  On the CPU the wrappers return their plain versions, which are
-held to the JAX package's Pallas kernels in interpret mode at the
-tolerance of tests/test_torch_element_kernels.py (block-relative 1e-5,
-atol 1e-6)."""
+materials and robust Neo-Hookean), every K6 instance (the seven base
+materials), K9a and K9b, 2D and 3D (each element covered by one thread
+once).  The binding is checked with a fake library: no launch.  On the CPU
+the wrappers return their plain versions, which are held to the JAX
+package's Pallas kernels in interpret mode at the tolerance of
+tests/test_torch_element_kernels.py (block-relative 1e-5, atol 1e-6)."""
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +21,9 @@ import pytest
 import torch
 
 from fem_tpu.ops.pallas_kernels import (
+    explicit_grad_columns_pallas,
     hessian_and_force_pallas,
+    hessian_blocks_pallas,
     implicit_force_columns_pallas,
 )
 from fem_tpu_torch.models import mesh as pmesh
@@ -31,15 +36,14 @@ from fem_tpu_torch.utils.config import ObjectConfig
 torch.set_num_threads(1)
 
 SIZES = (4068, 200, 1, 31, 33, 4069)
-# K1's instances by material id, and K9b (the Neo-Hookean rhs alone).
+# K1's instances by material id, K9b (the Neo-Hookean rhs alone), K9a
+# (the Neo-Hookean blocks alone) and K6's instances (the base materials).
 INSTANCES = [("K1", m) for m in range(ROBUST_NEO_HOOKEAN_ID + 1)] + [
-    ("K9b", MATERIAL_IDS["neo_hookean"])]
+    ("K9b", MATERIAL_IDS["neo_hookean"]),
+    ("K9a", MATERIAL_IDS["neo_hookean"])] + [
+    ("K6", m) for m in sorted(MATERIAL_IDS.values())]
 INSTANCE_IDS = [f"{k}-m{m}" for k, m in INSTANCES]
 SM_COUNT = 132  # H100 SXM
-
-
-def _outputs(kernel):
-    return 2 if kernel == "K1" else 1
 
 
 def _check_plan(plan, e):
@@ -62,7 +66,7 @@ def _check_plan(plan, e):
 @pytest.mark.parametrize("e", SIZES)
 def test_element_plan_tiles_every_size(e, instance, dim):
     kernel, mid = instance
-    plan = ek.element_plan(e, dim, mid, outputs=_outputs(kernel))
+    plan = ek.element_plan(e, dim, mid, kernel)
     _check_plan(plan, e)
 
 
@@ -72,24 +76,33 @@ def test_element_plan_spreads_the_flagship_over_the_sms(dim):
     CTAs, one wave of the 132 SMs, where one thread an element in CTAs of
     256 filled 16."""
     for kernel, mid in INSTANCES:
-        plan = ek.element_plan(4068, dim, mid, outputs=_outputs(kernel))
+        plan = ek.element_plan(4068, dim, mid, kernel)
+        assert (plan.tile, plan.ctas, plan.last) == (32, 128, 4), plan
         assert 64 <= plan.ctas <= SM_COUNT, plan
-    empty = ek.element_plan(0, dim, 0)
+    empty = ek.element_plan(0, dim, 0, "K1")
     assert (empty.ctas, empty.last) == (0, 0)
 
 
 def test_element_plan_refuses_what_the_kernels_do_not_take():
     nh = MATERIAL_IDS["neo_hookean"]
-    with pytest.raises(ValueError):                  # K9b: Neo-Hookean only
-        ek.element_plan(100, 3, ROBUST_NEO_HOOKEAN_ID, outputs=1)
-    with pytest.raises(ValueError):
-        ek.element_plan(100, 3, MATERIAL_IDS["stvk"], outputs=1)
-    with pytest.raises(ValueError):
-        ek.element_plan(100, 3, nh, outputs=3)
-    with pytest.raises(ValueError):
-        ek.element_plan(100, 4, nh)
-    with pytest.raises(ValueError):
-        ek.element_plan(-1, 3, nh)
+    for kernel in ("K9a", "K9b"):                    # Neo-Hookean only
+        for mid in (ROBUST_NEO_HOOKEAN_ID, MATERIAL_IDS["stvk"],
+                    MATERIAL_IDS["corotated"]):
+            with pytest.raises(ValueError):
+                ek.element_plan(100, 3, mid, kernel)
+    with pytest.raises(ValueError):                  # K6: no robust chain
+        ek.element_plan(100, 3, ROBUST_NEO_HOOKEAN_ID, "K6")
+    for kernel in ("K1", "K6"):                      # no such instance
+        with pytest.raises(ValueError):
+            ek.element_plan(100, 3, ROBUST_NEO_HOOKEAN_ID + 1, kernel)
+    with pytest.raises(ValueError):                  # no such kernel
+        ek.element_plan(100, 3, nh, "K9")
+    for kernel in ("K1", "K6", "K9a", "K9b"):
+        for dim in (1, 4):
+            with pytest.raises(ValueError):
+                ek.element_plan(100, dim, nh, kernel)
+        with pytest.raises(ValueError):
+            ek.element_plan(-1, 3, nh, kernel)
 
 
 class _Entry:
@@ -145,6 +158,102 @@ def test_binding_is_built_once_and_again_on_a_change(monkeypatch):
     assert ek.element_binding("neo_hookean", False, 1e4, 4e4, 3) is b
 
 
+class _RecordingEntry(_Entry):
+    """A C entry's stand-in that records its arguments and returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.calls = []
+        self.rc = rc
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+def _meta_inputs(e, d):
+    """K6's operands on the meta device (shapes only; data pointers 0)."""
+    meta = torch.device("meta")
+    return (torch.empty((50, d), device=meta),
+            torch.empty((e, d + 1), dtype=torch.int32, device=meta),
+            torch.empty((e, d, d), device=meta),
+            torch.empty((e,), device=meta))
+
+
+def test_k6_binding_is_built_once_and_again_on_a_change(monkeypatch):
+    """K6's wrapper launches through ``element_binding``: one binding, one
+    ``MaterialParamsC`` and one library load for repeated (material, μ, λ,
+    d), the same argument reference on every launch; a new binding when μ,
+    λ, the material or d changes.  Its launches are counted in total and by
+    instance, its plan kept; a failed launch raises and counts nothing."""
+    loads, built = [], []
+
+    def fake_load(name, material=None):
+        loads.append((name, material))
+        lib = _FakeLibrary()
+        lib.fem_explicit_grad_columns = _RecordingEntry()
+        lib.fem_element_chain_error = lambda rc: b"fake error"
+        return lib
+
+    def counting_params(*args):
+        built.append(args)
+        return ek.MaterialParamsC(**ek.material_constants(*args))
+
+    monkeypatch.setattr(cuda_build, "load", fake_load)
+    monkeypatch.setattr(ek, "_BINDINGS", {})
+    monkeypatch.setattr(ek, "material_params", counting_params)
+    # The device checks and the stream need a card: stand-ins on the meta
+    # device.
+    monkeypatch.setattr(ek, "_check_elements", lambda pos, idx, r, v: (
+        idx.shape[0], pos.shape[1], pos.device))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
+                        types.SimpleNamespace(cuda_stream=0))
+    fn = ek.explicit_grad_columns
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "instance_launches", {})
+    monkeypatch.setattr(fn, "last_plan", None)
+
+    key = ("neo_hookean", 1e4, 4e4, 3)
+    args = _meta_inputs(33, 3)
+    for _ in range(3):
+        g = fn(*args, 1e4, 4e4)
+        assert g.shape == (33, 3, 3) and g.device.type == "meta"
+    b = ek.element_binding("neo_hookean", False, 1e4, 4e4, 3)
+    entry = b.lib.fem_explicit_grad_columns
+    assert loads == [("element_chain", 0)] and len(built) == 1
+    assert len(entry.calls) == 3
+    assert all(c[:2] == (3, 0) and c[6] == 33 and c[7] is b.ref
+               for c in entry.calls)
+    assert bytes(b.params) == bytes(ek.MaterialParamsC(
+        **ek.material_constants(*key)))
+    assert fn.launches == 3 and fn.instance_launches == {(3, 0): 3}
+    assert fn.last_plan == ek.element_plan(33, 3, 0, "K6")
+
+    changed = (("neo_hookean", 2e4, 4e4, 3), ("neo_hookean", 1e4, 5e4, 3),
+               ("fiber:1,0,0", 1e4, 4e4, 3), ("corotated", 1e4, 4e4, 3),
+               ("neo_hookean", 1e4, 4e4, 2))
+    for i, (material, mu, lam, d) in enumerate(changed, start=2):
+        e = 31 + i
+        for _ in range(2):
+            fn(*_meta_inputs(e, d), mu, lam, material)
+        other = ek.element_binding(material, False, mu, lam, d)
+        assert other is not b and len(loads) == i and len(built) == i
+        assert len(other.lib.fem_explicit_grad_columns.calls) == 2
+        assert fn.last_plan == ek.element_plan(e, d, other.mid, "K6")
+        assert bytes(other.params) == bytes(ek.MaterialParamsC(
+            **ek.material_constants(material, mu, lam, d)))
+    assert fn.launches == 3 + 2 * len(changed)
+    assert fn.instance_launches[(3, ek.MATERIAL_IDS["fiber"])] == 2
+    assert fn.instance_launches[(2, 0)] == 2
+
+    entry.rc = 1
+    with pytest.raises(RuntimeError,
+                       match="gradient-columns kernel launch failed: fake"):
+        fn(*args, 1e4, 4e4)
+    assert fn.launches == 3 + 2 * len(changed) and len(entry.calls) == 4
+    assert len(loads) == len(changed) + 1
+
+
 def _mesh(dim):
     """3D: the 3-subdivision grid cube (162 tets); 2D: default.json's
     square (200 triangles)."""
@@ -180,34 +289,44 @@ def _assert_blocks_close(got, ref, rtol=1e-5, atol=1e-6):
 
 
 CPU_CASES = [("K1", "neo_hookean", False), ("K1", "neo_hookean", True),
-             ("K1", "corotated", False), ("K9b", "neo_hookean", False)]
+             ("K1", "corotated", False), ("K9b", "neo_hookean", False),
+             ("K9a", "neo_hookean", False), ("K6", "neo_hookean", False),
+             ("K6", "corotated", False)]
+WRAPPERS = (ek.hessian_and_force, ek.implicit_force_columns,
+            ek.hessian_blocks, ek.explicit_grad_columns)
 
 
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("case", CPU_CASES,
-                         ids=["K1-nh", "K1-nh-robust", "K1-corotated", "K9b"])
+                         ids=["K1-nh", "K1-nh-robust", "K1-corotated", "K9b",
+                              "K9a", "K6-nh", "K6-corotated"])
 def test_cpu_wrappers_return_plain_and_match_pallas(case, dim):
-    """On CPU tensors K1 and K9b return their plain versions (no launch, no
-    plan) at a ragged 33 elements, and those match the Pallas kernels."""
+    """On CPU tensors K1, K9b, K9a and K6 return their plain versions (no
+    launch, no plan) at a ragged 33 elements, and those match the Pallas
+    kernels."""
     kernel, material, robust = case
     args = _cut_inputs(dim, 33, seed=dim)
     jargs = tuple(jnp.asarray(a.numpy()) for a in args[:4]) + args[4:]
-    launches = (ek.hessian_and_force.launches,
-                ek.implicit_force_columns.launches)
-    plans = (ek.hessian_and_force.last_plan,
-             ek.implicit_force_columns.last_plan)
+    launches = [fn.launches for fn in WRAPPERS]
+    plans = [fn.last_plan for fn in WRAPPERS]
     if kernel == "K1":
         got = ek.hessian_and_force(*args, robust, material)
         ref = ek.hessian_and_force_plain(*args, material, robust)
         jax_ref = hessian_and_force_pallas(*jargs, robust, material)
-    else:
+    elif kernel == "K9b":
         got = (ek.implicit_force_columns(*args),)
         ref = (ek.implicit_force_columns_plain(*args),)
         jax_ref = (implicit_force_columns_pallas(*jargs),)
-    assert (ek.hessian_and_force.launches,
-            ek.implicit_force_columns.launches) == launches
-    assert (ek.hessian_and_force.last_plan,
-            ek.implicit_force_columns.last_plan) == plans
+    elif kernel == "K9a":
+        got = (ek.hessian_blocks(*args),)
+        ref = (ek.hessian_blocks_plain(*args),)
+        jax_ref = (hessian_blocks_pallas(*jargs),)
+    else:
+        got = (ek.explicit_grad_columns(*args, material),)
+        ref = (ek.explicit_grad_columns_plain(*args, material),)
+        jax_ref = (explicit_grad_columns_pallas(*jargs, material),)
+    assert [fn.launches for fn in WRAPPERS] == launches
+    assert [fn.last_plan for fn in WRAPPERS] == plans
     for g, r, j in zip(got, ref, jax_ref):
         assert g.shape == (33, dim, dim)
         assert torch.equal(g, r)

@@ -2,9 +2,9 @@
 # coding=utf-8
 """Times P2, K11b, K5's frame, K4, K11a, K3, K2, K7b, K7a, K7b edges, K8,
 K1, K9b, K9a and K6 of one checkout on one GPU, hashes their outputs, and
-measures the host time of K3's, K2's, K7b's, K7a's, K1's and K9b's and of
-the explicit frames' wrappers, so that two checkouts can be compared on
-the same card.
+measures the host time of K3's, K2's, K7b's, K7a's, K1's, K9b's, K9a's and
+K6's and of the explicit frames' wrappers, so that two checkouts can be
+compared on the same card.
 
     python3 tools/torch_kernel_ab.py [--repo PATH] [--label NAME]
 
@@ -28,12 +28,12 @@ every checkout also the partials form followed by PyTorch's slot sum
 ("parent form") — K7a's assembly of the gradient's block-ordered columns
 (each variant) and K7b edges, each with the device ms of a call (every kernel it launches, profiler),
 the enqueue µs a call (1,000 calls before a sync) and its outputs'
-sha256; K1 (Neo-Hookean; in 3D also each material instance and robust
-Neo-Hookean), K9b, K9a and K6 at the scene's state, each with its device
-ms a launch, its outputs' sha256 and its plan, K1's and K9b's with the
-enqueue µs a call (1,000 calls before a sync), and K1 and K9b at
-200-4,068 elements cut from the flagship and from the 40-subdivision
-grid, each on the checkout's own CTAs;
+sha256; K1 and K6 (Neo-Hookean; in 3D also each material instance, and
+K1's robust Neo-Hookean), K9b and K9a at the scene's state, each with its
+device ms a launch, its outputs' sha256 and its plan, the Neo-Hookean
+ones with the enqueue µs a call (1,000 calls before a sync), and K1, K9b,
+K9a and K6 at 200-4,068 elements cut from the flagship and from the
+40-subdivision grid, each on the checkout's own CTAs;
 K5's frame with its outputs' sha256; K8's frame (``fused_explicit_frame``, the
 checkout's own plan) on the explicit flagship, ``default.json``, its
 40-subdivision grid and ``demo_plastic.json``'s plastic body, and on the
@@ -147,38 +147,43 @@ def time_explicit(torch, cs, dev, emit, digest):
              steps_per_s=frames * cfg.sim_count / (t2 - t0))
 
 
+# The profiler's names of the element kernels, matched as substrings so
+# that a checkout whose kernels carry no ``tiled_`` prefix (K6 and K9a
+# before they ran in tiles) is timed too.
+ELEMENT_KERNELS = dict(K1="hessian_and_force_kernel",
+                       K9b="implicit_force_kernel",
+                       K9a="hessian_blocks_kernel",
+                       K6="explicit_grad_columns_kernel")
+
+
 def time_elements(torch, cs, label, o, s, emit, digest):
     """K1, K9b, K9a and K6 on one scene (module docstring): device ms a
-    launch, outputs' sha256, the plan, and K1's and K9b's enqueue µs a
-    call; in 3D each of K1's material instances."""
+    launch, outputs' sha256, the plan, and the Neo-Hookean ones' enqueue
+    µs a call; in 3D each of K1's and K6's material instances."""
     from fem_tpu_torch.ops import element_kernels as ek
 
     d = s.pos.shape[1]
     args = (s.pos, o.element_indices, o.ref_inv, o.volume, o.mu, o.s_lambda)
-    k1 = ek.hessian_and_force
-    cases = [("K1", "neo_hookean", {}, k1, "hessian_and_force_kernel"),
-             ("K9b", "neo_hookean", {}, ek.implicit_force_columns,
-              "implicit_force_kernel"),
-             ("K9a", "neo_hookean", {}, ek.hessian_blocks,
-              "hessian_blocks_kernel"),
-             ("K6", "neo_hookean", {}, ek.explicit_grad_columns,
-              "explicit_grad_columns_kernel")]
+    k1, k6 = ek.hessian_and_force, ek.explicit_grad_columns
+    cases = [("K1", "neo_hookean", {}, k1),
+             ("K9b", "neo_hookean", {}, ek.implicit_force_columns),
+             ("K9a", "neo_hookean", {}, ek.hessian_blocks),
+             ("K6", "neo_hookean", {}, k6)]
     if d == 3:
-        cases += [("K1", m, dict(material=m), k1, "hessian_and_force_kernel")
-                  for m in cs.MATERIALS[3]]
-        cases.append(("K1", "neo_hookean robust", dict(robust=True), k1,
-                      "hessian_and_force_kernel"))
-    for kernel, material, opts, fn, name in cases:
+        cases += [(k, m, dict(material=m), fn) for m in cs.MATERIALS[3]
+                  for k, fn in (("K1", k1), ("K6", k6))]
+        cases.append(("K1", "neo_hookean robust", dict(robust=True), k1))
+    for kernel, material, opts, fn in cases:
         def call(fn=fn, opts=opts):
             return fn(*args, **opts)
 
         out = call()
         out = out if isinstance(out, tuple) else (out,)
         plan = getattr(fn, "last_plan", None)
-        ms = cs.kernel_ms(torch, call, 50, [name])
+        ms = cs.kernel_ms(torch, call, 50, [ELEMENT_KERNELS[kernel]])
         row = dict(kernel=kernel, scene=label, material=material, ms=ms,
                    plan=str(plan), sha256=digest(*out))
-        if not opts and kernel in ("K1", "K9b") and material == "neo_hookean":
+        if not opts:
             reps = 1000
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -191,9 +196,10 @@ def time_elements(torch, cs, label, o, s, emit, digest):
 
 
 def time_element_sizes(torch, cs, dev, emit):
-    """K1 (Neo-Hookean) and K9b at element counts cut from the flagship (3D)
-    and from ``default.json``'s square at 40 subdivisions (2D, 3,200
-    triangles), on the checkout's own CTAs: device ms a launch."""
+    """K1 (Neo-Hookean), K9b, K9a and K6 (Neo-Hookean) at element counts
+    cut from the flagship (3D) and from ``default.json``'s square at 40
+    subdivisions (2D, 3,200 triangles), on the checkout's own CTAs: device
+    ms a launch."""
     from fem_tpu_torch import entry, scene
     from fem_tpu_torch.ops import element_kernels as ek
     from fem_tpu_torch.utils.config import read_config
@@ -212,17 +218,18 @@ def time_element_sizes(torch, cs, dev, emit):
             args = (s.pos, o.element_indices[idx].contiguous(),
                     o.ref_inv[idx].contiguous(), o.volume[idx].contiguous(),
                     o.mu, o.s_lambda)
-            for kernel, fn, name in (
-                    ("K1", ek.hessian_and_force, "hessian_and_force_kernel"),
-                    ("K9b", ek.implicit_force_columns,
-                     "implicit_force_kernel")):
+            for kernel, fn in (("K1", ek.hessian_and_force),
+                               ("K9b", ek.implicit_force_columns),
+                               ("K9a", ek.hessian_blocks),
+                               ("K6", ek.explicit_grad_columns)):
                 def call(fn=fn):
                     return fn(*args)
 
                 call()
                 emit(kernel=kernel, sizes=True, dim=d, elements=n,
                      plan=str(getattr(fn, "last_plan", None)),
-                     ms=cs.kernel_ms(torch, call, 50, [name]))
+                     ms=cs.kernel_ms(torch, call, 50,
+                                     [ELEMENT_KERNELS[kernel]]))
 
 
 def time_path_c(torch, cs, dev, emit):
