@@ -168,6 +168,10 @@ the eight:
     squeezed (block-relative ≤ 1e-5), K10a and K10b (the fused advection)
     on the same bodies with three circles and random velocities (1e-6
     absolute), each twice bit-identical (K9a's and K9b's plans printed);
+    K10a and K10b also at 262,144 particles in 3D (1e-6 absolute, the
+    entries not bit-equal to the plain version counted; K10's plans
+    printed, ``advect_plan``, and the kernels line's K10 rows carry
+    ``tile`` and ``ctas``);
 35. path W, ``configs/demo_hanging.json`` as shipped (2D, a pin box, plain
     CG): 200 frames through ``make_frame_fn``, the op-composed frame, K2
     ten times a frame and K3 Σ(1 + iterations) (plain CG: one apply for the
@@ -194,7 +198,7 @@ the eight:
     frames never take, as in the JAX package): 10 implicit substeps (K1 +
     K4, then K10b) and 10 explicit ones (K7b, then K10a) on the flagship
     and on ``default.json``, each first substep equal to the CPU's plain
-    substep to 1e-5;
+    substep to 1e-5 (the K10 launch's plan printed);
 41. where each frame's device time goes and the device's busy share, from
     one profiled window per path (A, the op-composed K1 + K4 frame, D, H,
     I, K, both of L, M, N, O and P, path Q's explicit layered substep in
@@ -480,6 +484,19 @@ def element_plan_keys(fn):
     (``fn.last_plan``, element_kernels.element_plan)."""
     p = fn.last_plan
     return dict(tile=p.tile, ctas=p.ctas)
+
+
+def advect_plan_keys(fn):
+    """The kernels line's plan keys of K10a's or K10b's last launch
+    (``fn.last_plan``, advect_kernels.advect_plan)."""
+    p = fn.last_plan
+    return dict(tile=p.tile, ctas=p.ctas)
+
+
+def advect_plan_text(fn):
+    p = fn.last_plan
+    return (f"{p.tile} particles a CTA, one thread each, {p.ctas} CTAs, "
+            f"{p.last} in the last")
 
 
 def plan_text(fn):
@@ -2862,6 +2879,40 @@ def three_circles(torch, pos):
     return centers, radii
 
 
+K10_LARGE = 262144  # particles of section 34's large K10 check
+
+
+def advect_inputs(torch, dev, name, n, d):
+    """K10a's (``name`` "kinematic") or K10b's operands over ``n``
+    particles and their keywords, from a seeded generator on the card:
+    positions in and past the unit box, a third inside two of three circles
+    (one of radius 0); velocities, gravity channel and gradient normal, m⁻¹
+    uniform."""
+    from fem_tpu_torch.solvers import advect
+
+    gen = torch.Generator(device=dev).manual_seed(n + d)
+
+    def draw(*shape, low=None, high=1.0):
+        if low is None:
+            return high * torch.randn(shape, generator=gen, device=dev)
+        return low + (high - low) * torch.rand(shape, generator=gen,
+                                               device=dev)
+
+    centers = draw(3, d, low=0.3, high=0.7)
+    radii = torch.tensor([0.2, 0.15, 0.0], device=dev)
+    idx = torch.arange(n, device=dev)
+    near = centers[idx % 2] + draw(n, d, low=-0.12, high=0.12)
+    pos = torch.where((idx % 3 == 0)[:, None], near,
+                      draw(n, d, low=-0.1, high=1.1)).contiguous()
+    vel, aux = draw(n, d, high=0.5), draw(n, d, high=0.5)
+    kw = dict(dt=5e-4, decay=advect.damping_decay(5e-4, 10.0),
+              gravity=advect.gravity_vector((0.0, -1.0, 0.0)[:d], dev))
+    if name == "kinematic":
+        return (pos, vel, draw(n, d, high=10.0),
+                draw(n, low=0.5, high=2.0), centers, radii), kw
+    return (pos, vel, aux, centers, radii), kw
+
+
 def run_extensions(torch, dev, zero_counts, counts, only):
     """Sections 34-40: K9a, K9b, K10a and K10b against their plain versions
     and paths W-Z', AD.  Returns the launch counts and errors of the
@@ -2960,7 +3011,25 @@ def run_extensions(torch, dev, zero_counts, counts, only):
             require(errors[d][name] <= 1e-6, f"{name} {d}D error")
             require(all(torch.equal(x, y) for x, y in zip(got, again)),
                     f"{name} {d}D runs differ")
+            log(f"[{name} {d}D] plan {advect_plan_text(fn)}")
             timing[d][name] = (a, kw)
+    # K10a and K10b at a large mesh's size (3D, 3 circles).
+    for name, fn, plain in (
+            ("kinematic", ak.kinematic, ak.kinematic_plain),
+            ("advect_implicit", ak.advect_implicit, ak.advect_implicit_plain)):
+        a, kw = advect_inputs(torch, dev, name, K10_LARGE, 3)
+        got, again = fn(*a, **kw), fn(*a, **kw)
+        ref = plain(*a, **kw)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        differ = sum(int((x != y).sum()) for x, y in zip(got, ref))
+        log(f"[{name} 3D] N {K10_LARGE}, 3 circles: max abs error "
+            f"{err:.3e} against the plain version ({differ} entries not "
+            f"bit-equal); plan {advect_plan_text(fn)}")
+        require(err <= 1e-6, f"{name} 3D at {K10_LARGE} particles: {err}")
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"{name} 3D at {K10_LARGE} particles: runs differ")
+        errors[3][name] = max(errors[3][name], err)
     log("[K9a/K9b/K10a/K10b] two runs bit-identical in every case")
 
     # -- 35. path W: demo_hanging.json as shipped ---------------------------
@@ -3189,8 +3258,10 @@ def run_extensions(torch, dev, zero_counts, counts, only):
             ref, _ = sim.substep(cpu_o, cpu_state(s), cpu_ob, **skw)
             err = max_dpos(first, ref)
             log(f"[path AD] {d}D {SUBSTEPS_AD} {method} substeps through "
-                f"{name} (backend='pallas'); launches {got}; first substep "
-                f"vs the CPU's XLA advection: max |dpos| {err:.3e}")
+                f"{name} (backend='pallas', "
+                f"{advect_plan_text(getattr(ak, name))}); "
+                f"launches {got}; first substep vs the CPU's XLA advection: "
+                f"max |dpos| {err:.3e}")
             require(err <= 1e-5, f"path AD {name} {d}D off the CPU by {err}")
             require(bool(torch.isfinite(st.pos).all()),
                     f"path AD {name} {d}D non-finite")
@@ -3235,7 +3306,8 @@ def time_extension_kernels(torch, d, timing):
         out[name] = dict(
             ms=kernel_ms(torch, lambda: fn(*args, **kw), 200, [kernel]),
             plain_ms=cuda_ms(torch, lambda: plain(*args, **kw), 20),
-            bound_ms=bnd, bound_by=by, library_ms=None, circles=b)
+            bound_ms=bnd, bound_by=by, library_ms=None, circles=b,
+            **advect_plan_keys(fn))
     return out
 
 

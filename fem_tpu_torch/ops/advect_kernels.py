@@ -14,11 +14,19 @@ multiplied where the XLA step divides.  On CUDA each launches its kernel or
 raises; it never falls back.  ``solvers/advect`` reaches them with
 ``backend="pallas"``; the frames keep ``"xla"``, as the JAX package's do.
 Each wrapper counts its launches (``launches``).
+
+Both kernels run one thread a particle in CTAs of ``ADVECT_TILE``
+particles: :func:`advect_plan` gives the tile, the CTAs and the ragged last
+tile of a launch, and each wrapper leaves its launch's plan in
+``last_plan``.  The library and its entries' argument types are loaded
+once, at the first launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -77,9 +85,15 @@ def advect_implicit_plain(pos, vel, vel_g, centers, radii, *, dt, decay,
     return pos + v * dt, vel, vel_g
 
 
+# The advect library with its entries' argument types, loaded at the first
+# launch.
+_LIB = None
+
+
 def _library():
-    lib = cuda_build.load("advect")
-    if lib.fem_kinematic.argtypes is None:
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("advect")
         lib.fem_kinematic.argtypes = [
             ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P,
             ctypes.c_float, ctypes.c_float, ctypes.c_int, _P, _P, _P,
@@ -92,32 +106,72 @@ def _library():
         lib.fem_advect_implicit.restype = ctypes.c_int
         lib.fem_advect_error.argtypes = [ctypes.c_int]
         lib.fem_advect_error.restype = ctypes.c_char_p
-    return lib
+        _LIB = lib
+    return _LIB
+
+
+# Particles a CTA of csrc/advect.cu's kernels (its kTile).  On the H100
+# (121-1,048,576 particles, 2D and 3D; PERF.md, section 6) 64 was within
+# 6 % of the fastest of 32, 64, 128 and 256 at every size but K10b in 3D
+# from 262,144 particles on, where 32 was 9-13 % faster; 32 lost 26-41 %
+# in 2D from 262,144 particles on.
+ADVECT_TILE = 64
+
+
+class AdvectPlan(NamedTuple):
+    """A launch of K10a or K10b over N particles."""
+
+    tile: int  # particles a CTA, one thread each
+    ctas: int  # ⌈N / tile⌉
+    last: int  # particles of the last, ragged tile (0 when N = 0)
+
+
+@functools.lru_cache(maxsize=256)
+def advect_plan(n: int, d: int) -> AdvectPlan:
+    """The launch of K10a or K10b over ``n`` particles in ``d`` dimensions:
+    CTAs of ``ADVECT_TILE`` particles.  Raises ``ValueError`` for a launch
+    the kernels do not take.  Pure: no device is asked."""
+    if d not in (2, 3):
+        raise ValueError(f"the advection kernels take dim 2 or 3, not {d}")
+    if n < 0:
+        raise ValueError(f"{n} particles")
+    ctas = -(-n // ADVECT_TILE)
+    last = n - (ctas - 1) * ADVECT_TILE if ctas else 0
+    return AdvectPlan(ADVECT_TILE, ctas, last)
+
+
+def _launch(fn, what: str, dev: torch.device, entry: str, *args) -> None:
+    """``entry(*args, stream)`` on ``dev``'s current stream; raises on a
+    launch error, else counts the launch on ``fn``."""
+    lib = _library()
+    rc = cuda_build.launch_on_stream(dev, dev.index, getattr(lib, entry),
+                                     *args)
+    if rc != 0:
+        msg = lib.fem_advect_error(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")
+    fn.launches += 1
 
 
 def _check(pos, centers, radii, gravity, **per_particle):
     """(N, d, device) of a launch, after checking what the kernels take:
-    d 2 or 3, f32, contiguous, the shapes of the module's functions."""
+    d 2 or 3, f32, contiguous, the shapes of the module's functions.  One
+    pass over the operands; ``cuda_build.check_operand`` names the first
+    that fails."""
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     n, d = pos.shape
     if d not in (2, 3):
         raise ValueError(f"the advection kernels take dim 2 or 3, not {d}")
-    dev, f32 = pos.device, torch.float32
-    cuda_build.check_operand("pos", pos, (n, d), f32, dev)
-    for name, (t, shape) in per_particle.items():
-        cuda_build.check_operand(name, t, shape, f32, dev)
-    b = radii.shape[0]
-    cuda_build.check_operand("centers", centers, (b, d), f32, dev)
-    cuda_build.check_operand("radii", radii, (b,), f32, dev)
-    cuda_build.check_operand("gravity", gravity, (d,), f32, dev)
+    dev, f32, b = pos.device, torch.float32, radii.shape[0]
+    operands = (("pos", pos, (n, d)), *(
+        (name, t, shape) for name, (t, shape) in per_particle.items()),
+        ("centers", centers, (b, d)), ("radii", radii, (b,)),
+        ("gravity", gravity, (d,)))
+    for name, t, shape in operands:
+        if not (t.device == dev and t.dtype == f32 and t.shape == shape
+                and t.is_contiguous()):
+            cuda_build.check_operand(name, t, shape, f32, dev)
     return n, d, dev
-
-
-def _raise_on(lib, rc, what):
-    if rc != 0:
-        msg = lib.fem_advect_error(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg}")
 
 
 def kinematic(pos: torch.Tensor, vel: torch.Tensor, grad: torch.Tensor,
@@ -128,29 +182,29 @@ def kinematic(pos: torch.Tensor, vel: torch.Tensor, grad: torch.Tensor,
     and ``radii`` (B,), ``decay`` = exp(−dt·damping) and ``gravity`` =
     9.8·g_dir (d,).
 
-    CUDA tensors: one launch of K10a (2D or 3D).  CPU tensors:
+    CUDA tensors: one launch of K10a (2D or 3D) on :func:`advect_plan`'s
+    plan, left in ``kinematic.last_plan``.  CPU tensors:
     :func:`kinematic_plain`."""
     if pos.device.type == "cpu":
         return kinematic_plain(pos, vel, grad, minv, centers, radii, dt=dt,
                                decay=decay, gravity=gravity)
     n, d, dev = _check(pos, centers, radii, gravity, vel=(vel, pos.shape),
                        grad=(grad, pos.shape), minv=(minv, (pos.shape[0],)))
+    plan = advect_plan(n, d)
     pos_out = torch.empty_like(pos)
     vel_out = torch.empty_like(pos)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_kinematic(
-            d, pos.data_ptr(), vel.data_ptr(), grad.data_ptr(),
-            minv.data_ptr(), centers.data_ptr(), radii.data_ptr(),
-            radii.shape[0], gravity.data_ptr(), dt, decay, n,
-            pos_out.data_ptr(), vel_out.data_ptr(), stream)
-    _raise_on(lib, rc, "kinematic")
-    kinematic.launches += 1
+    _launch(
+        kinematic, "kinematic", dev, "fem_kinematic", d, pos.data_ptr(),
+        vel.data_ptr(), grad.data_ptr(), minv.data_ptr(),
+        centers.data_ptr(), radii.data_ptr(), radii.shape[0],
+        gravity.data_ptr(), dt, decay, n, pos_out.data_ptr(),
+        vel_out.data_ptr())
+    kinematic.last_plan = plan
     return pos_out, vel_out
 
 
 kinematic.launches = 0
+kinematic.last_plan = None
 
 
 def advect_implicit(pos: torch.Tensor, vel: torch.Tensor, vel_g: torch.Tensor,
@@ -159,25 +213,24 @@ def advect_implicit(pos: torch.Tensor, vel: torch.Tensor, vel_g: torch.Tensor,
     """(pos', vel', vel_g') of the implicit advection, the arguments as in
     :func:`kinematic`.
 
-    CUDA tensors: one launch of K10b (2D or 3D).  CPU tensors:
+    CUDA tensors: one launch of K10b (2D or 3D) on :func:`advect_plan`'s
+    plan, left in ``advect_implicit.last_plan``.  CPU tensors:
     :func:`advect_implicit_plain`."""
     if pos.device.type == "cpu":
         return advect_implicit_plain(pos, vel, vel_g, centers, radii, dt=dt,
                                      decay=decay, gravity=gravity)
     n, d, dev = _check(pos, centers, radii, gravity, vel=(vel, pos.shape),
                        vel_g=(vel_g, pos.shape))
+    plan = advect_plan(n, d)
     outs = [torch.empty_like(pos) for _ in range(3)]
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_advect_implicit(
-            d, pos.data_ptr(), vel.data_ptr(), vel_g.data_ptr(),
-            centers.data_ptr(), radii.data_ptr(), radii.shape[0],
-            gravity.data_ptr(), dt, decay, n, *(o.data_ptr() for o in outs),
-            stream)
-    _raise_on(lib, rc, "implicit advection")
-    advect_implicit.launches += 1
+    _launch(
+        advect_implicit, "implicit advection", dev, "fem_advect_implicit", d,
+        pos.data_ptr(), vel.data_ptr(), vel_g.data_ptr(),
+        centers.data_ptr(), radii.data_ptr(), radii.shape[0],
+        gravity.data_ptr(), dt, decay, n, *(o.data_ptr() for o in outs))
+    advect_implicit.last_plan = plan
     return tuple(outs)
 
 
 advect_implicit.launches = 0
+advect_implicit.last_plan = None

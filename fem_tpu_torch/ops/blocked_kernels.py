@@ -732,12 +732,7 @@ class BlockedBinding:
     def _run(self, fn, *instance) -> None:
         """Launch on the device's current stream and count the launch on
         ``fn`` (by instance when given), its plan and barriers."""
-        dev = self.dev
-        if torch.cuda.current_device() == self.index:
-            rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
-        else:
-            with torch.cuda.device(dev):
-                rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
+        rc = cuda_build.launch_on_stream(self.dev, self.index, self._launch)
         if rc != 0:
             raise RuntimeError(
                 f"blocked {self.source} kernel launch failed "

@@ -212,12 +212,8 @@ class ElementBinding:
                *args) -> None:
         """``entry(*args, stream)`` on ``dev``'s current stream; raises on a
         launch error, else counts the launch on ``fn``."""
-        call = getattr(self.lib, entry)
-        if torch.cuda.current_device() == dev.index:
-            rc = call(*args, torch.cuda.current_stream(dev).cuda_stream)
-        else:
-            with torch.cuda.device(dev):
-                rc = call(*args, torch.cuda.current_stream(dev).cuda_stream)
+        rc = cuda_build.launch_on_stream(dev, dev.index,
+                                         getattr(self.lib, entry), *args)
         if rc != 0:
             msg = self.lib.fem_element_chain_error(rc).decode()
             raise RuntimeError(f"{what} kernel launch failed: {msg}")

@@ -1203,11 +1203,7 @@ class ExplicitFrameBinding:
                     ins.append((None, None))
             a.plastic_in, a.plastic = ins[0]
             a.viscous_in, a.viscous = ins[1]
-        if torch.cuda.current_device() == self.index:
-            rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
-        else:
-            with torch.cuda.device(dev):
-                rc = self._launch(torch.cuda.current_stream(dev).cuda_stream)
+        rc = cuda_build.launch_on_stream(dev, self.index, self._launch)
         if rc != 0:
             msg = self.lib.fem_explicit_frame_error(rc).decode()
             raise RuntimeError(

@@ -1,5 +1,6 @@
 # coding=utf-8
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, load them with ctypes, and
+call their launch functions on the current stream.
 
 Each source ``fem_tpu_torch/csrc/<name>.cu`` exports plain C launch functions
 (pointers and the stream as ``void*``) and is compiled on first use into
@@ -33,6 +34,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Iterable, Optional, Tuple
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -200,3 +203,13 @@ def check_operand(name: str, t, shape, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launch_on_stream(dev, index, call, *args) -> int:
+    """``call(*args, stream)`` with ``dev``'s current stream as ``stream``,
+    entering ``torch.cuda.device(dev)`` only when the current device is not
+    ``index``; returns what ``call`` returns (a C entry's error code)."""
+    if torch.cuda.current_device() == index:
+        return call(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return call(*args, torch.cuda.current_stream(dev).cuda_stream)

@@ -1524,46 +1524,95 @@ def test_k9_kernels_match_plain_and_repeat(body, body_2d, flagship, dim):
         assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("dim", [2, 3])
-@pytest.mark.parametrize("kernel", ["K10a", "K10b"])
-def test_k10_kernels_match_plain_and_repeat(kernel, dim):
-    """K10a and K10b against their plain versions on particles past every
-    wall and inside three circles (one of radius 0): 1e-6 absolute, twice
-    bit-identical."""
-    _require_cuda()
-    from fem_tpu_torch.ops import advect_kernels
-    from fem_tpu_torch.solvers.advect import damping_decay, gravity_vector
+# Particle counts of the K10 cases: ragged tiles, the flagship's 1,007 and a
+# large mesh.
+K10_SIZES = (1, 33, 1007, 4097, 262144)
 
-    rng = np.random.default_rng(dim)
-    n = 1007
+
+def _k10_case(kernel, n, dim, num_circles, seed):
+    """(wrapper, plain version, operands on the card) of K10a or K10b: n
+    particles past every wall, 30 % of them inside the first two of
+    ``num_circles`` circles."""
+    from fem_tpu_torch.ops import advect_kernels
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
 
-    pos = rng.uniform(-0.1, 1.1, (n, dim))
-    centers = rng.uniform(0.3, 0.7, (3, dim))
-    pos[:300] = centers[rng.integers(0, 2, 300)] + rng.uniform(
-        -0.12, 0.12, (300, dim))
-    vel, vel_g, grad = (rng.normal(scale=s, size=(n, dim))
-                        for s in (0.5, 0.5, 10.0))
-    kw = dict(dt=5e-4, decay=damping_decay(5e-4, 10.0),
-              gravity=gravity_vector((0.0, -1.0, 0.0)[:dim],
-                                     torch.device("cuda")))
-    common = (t(centers), t([0.2, 0.15, 0.0]))
     if kernel == "K10a":
         fn, plain = advect_kernels.kinematic, advect_kernels.kinematic_plain
-        args = (t(pos), t(vel), t(grad), t(rng.uniform(0.5, 2.0, n))) + common
     else:
         fn = advect_kernels.advect_implicit
         plain = advect_kernels.advect_implicit_plain
-        args = (t(pos), t(vel), t(vel_g)) + common
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-0.1, 1.1, (n, dim))
+    centers = rng.uniform(0.3, 0.7, (max(num_circles, 2), dim))
+    inside = (n * 3) // 10
+    pos[:inside] = centers[rng.integers(0, 2, inside)] + rng.uniform(
+        -0.12, 0.12, (inside, dim))
+    vel, vel_g, grad = (rng.normal(scale=s, size=(n, dim))
+                        for s in (0.5, 0.5, 10.0))
+    rows = ((t(pos), t(vel), t(grad), t(rng.uniform(0.5, 2.0, n)))
+            if kernel == "K10a" else (t(pos), t(vel), t(vel_g)))
+    return fn, plain, rows, t(centers[:num_circles]), t
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("kernel", ["K10a", "K10b"])
+def test_k10_kernels_match_plain_and_repeat(kernel, dim):
+    """K10a and K10b against their plain versions on particles past every
+    wall and inside three circles (one of radius 0), and with no circle, at
+    K10_SIZES particles: 1e-6 absolute, twice bit-identical, the launch's
+    plan kept in ``last_plan``."""
+    _require_cuda()
+    from fem_tpu_torch.ops import advect_kernels
+    from fem_tpu_torch.solvers.advect import damping_decay, gravity_vector
+
+    kw = dict(dt=5e-4, decay=damping_decay(5e-4, 10.0),
+              gravity=gravity_vector((0.0, -1.0, 0.0)[:dim],
+                                     torch.device("cuda")))
+    for n in K10_SIZES:
+        fn, plain, rows, centers, t = _k10_case(kernel, n, dim, 3, n + dim)
+        for circles in ((centers, t([0.2, 0.15, 0.0])),
+                        (centers[:0], t(np.zeros(0)))):
+            args = rows + circles
+            ref = plain(*args, **kw)
+            before = fn.launches
+            got, again = fn(*args, **kw), fn(*args, **kw)
+            assert fn.launches == before + 2
+            assert fn.last_plan == advect_kernels.advect_plan(n, dim)
+            for a, b, c in zip(got, ref, again):
+                assert float((a - b).abs().max()) <= 1e-6, n
+                assert torch.equal(a, c), n
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("kernel", ["K10a", "K10b"])
+def test_k10_circle_tables_past_48_kb(kernel, dim):
+    """A circle table over the 48 KB a CTA takes without opting in (5,000
+    small circles: 60,000 B in 2D, 80,000 B in 3D) against the plain version at
+    1e-6 and twice bit-identical; one over a CTA's 227 KB (20,000 circles)
+    refused, its launch not counted."""
+    _require_cuda()
+    from fem_tpu_torch.solvers.advect import damping_decay, gravity_vector
+
+    kw = dict(dt=5e-4, decay=damping_decay(5e-4, 10.0),
+              gravity=gravity_vector((0.0, -1.0, 0.0)[:dim],
+                                     torch.device("cuda")))
+    fn, plain, rows, centers, t = _k10_case(kernel, 1007, dim, 5000,
+                                            17 + dim)
+    radii = t(np.linspace(0.03, 0.0, 5000))
+    ref = plain(*rows, centers, radii, **kw)
     before = fn.launches
-    got, again = fn(*args, **kw), fn(*args, **kw)
+    got, again = fn(*rows, centers, radii, **kw), fn(*rows, centers, radii,
+                                                     **kw)
     assert fn.launches == before + 2
-    ref = plain(*args, **kw)
     for a, b, c in zip(got, ref, again):
         assert float((a - b).abs().max()) <= 1e-6
         assert torch.equal(a, c)
+    big = t(np.full((20000, dim), 0.5)), t(np.zeros(20000))
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        fn(*rows, *big, **kw)
+    assert fn.launches == before + 2
 
 
 def _extension_counters():

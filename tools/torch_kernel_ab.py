@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 # coding=utf-8
 """Times P2, K11b, K5's frame, K4, K11a, K3, K2, K7b, K7a, K7b edges, K8,
-K1, K9b, K9a and K6 of one checkout on one GPU, hashes their outputs, and
-measures the host time of K3's, K2's, K7b's, K7a's, K1's, K9b's, K9a's and
-K6's and of the explicit frames' wrappers, so that two checkouts can be
-compared on the same card.
+K1, K9b, K9a, K6, K10a and K10b of one checkout on one GPU, hashes their
+outputs, and measures the host time of K3's, K2's, K7b's, K7a's, K1's,
+K9b's, K9a's, K6's, K10a's and K10b's and of the explicit frames'
+wrappers, so that two checkouts can be compared on the same card.
 
     python3 tools/torch_kernel_ab.py [--repo PATH] [--label NAME]
+                                     [--advect-only]
 
 ``--repo`` imports ``fem_tpu_torch`` (and its ``chip_smoke.py``'s profiler
 helpers) from another checkout, for instance the parent commit unpacked
@@ -38,9 +39,17 @@ K5's frame with its outputs' sha256; K8's frame (``fused_explicit_frame``, the
 checkout's own plan) on the explicit flagship, ``default.json``, its
 40-subdivision grid and ``demo_plastic.json``'s plastic body, and on the
 flagship with both inelastic branches; and P2's three variants at the
-probe's defaults (rows 6, n 1,024, cols 2,048, 200 reps).  Device ms a
+probe's defaults (rows 6, n 1,024, cols 2,048, 200 reps).  K10a and
+K10b (``kinematic``, ``advect_implicit``) on both scenes, on
+``chip_smoke.py``'s section-34 operands (three circles, one of radius 0):
+device ms a launch, the byte bound, the plan, the outputs' sha256 and the
+enqueue µs a call (1,000 calls before a sync, five batches); and at
+121-1,048,576 particles (``ADVECT_SIZES``), 2D and 3D, in the checkout's
+own plan, with operand sets rotated over 256 MB at the large sizes so that no launch
+finds them in L2: device ms a launch, the byte bound and the outputs'
+sha256.  ``--advect-only`` runs K11b, K10a and K10b alone.  Device ms a
 launch from the profiler (``chip_smoke.kernel_ms``, 20 launches a
-window).  Then the explicit paths D (the explicit flagship), H
+window; 50 for the element and advection kernels).  Then the explicit paths D (the explicit flagship), H
 (``default.json`` as shipped) and M (``demo_plastic.json``, both bodies)
 through ``sim.make_frame_fn``: wall ms a frame over 200 frames ending in a
 sync, the host's enqueue µs a frame (the same frames' calls, before that
@@ -63,6 +72,7 @@ Run two checkouts in turns (A, B, B, A) in one call to compare them.
 import argparse
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
 import subprocess
@@ -232,6 +242,141 @@ def time_element_sizes(torch, cs, dev, emit):
                                      [ELEMENT_KERNELS[kernel]]))
 
 
+# The profiler's names of K10a and K10b, matched as substrings so that a
+# checkout whose kernels carry no ``tiled_`` prefix is timed too.
+ADVECT_KERNELS = dict(K10a="kinematic_kernel", K10b="advect_implicit_kernel")
+
+
+def advect_calls(pos, vel, vel_g, grad, minv, circles, kw):
+    """{kernel: (wrapper, its positional operands, the launch's bytes)} of
+    K10a and K10b on one set of operands; the bytes each input read once
+    and each output written once."""
+    from fem_tpu_torch.ops import advect_kernels as ak
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    centers, radii = circles
+    table = nbytes(centers, radii, kw["gravity"])
+    return {
+        "K10a": (ak.kinematic, (pos, vel, grad, minv, centers, radii),
+                 nbytes(pos, vel, grad, minv) + table + 2 * nbytes(pos)),
+        "K10b": (ak.advect_implicit, (pos, vel, vel_g, centers, radii),
+                 nbytes(pos, vel, vel_g) + table + 3 * nbytes(pos))}
+
+
+# Batches of 1,000 calls of the K10 enqueue timing (the host's spread).
+ADVECT_ENQUEUE_BATCHES = 5
+
+
+def time_advect(torch, cs, label, o, s, c, emit, digest):
+    """K10a and K10b on one scene, on chip_smoke.py's section-34 operands
+    (three circles over the body, one of radius 0): device ms a launch,
+    outputs' sha256, the plan, and the enqueue µs a call (1,000 calls
+    before a sync; the median of ADVECT_ENQUEUE_BATCHES batches, each
+    batch's too)."""
+    from fem_tpu_torch.solvers import advect, explicit
+
+    d = s.pos.shape[1]
+    gen = torch.Generator().manual_seed(11 + d)
+    dev = s.pos.device
+    vel = s.vel + 0.3 * torch.randn(s.vel.shape, generator=gen).to(dev)
+    vel_g = 0.3 * torch.randn(s.vel.shape, generator=gen).to(dev)
+    grad = explicit.analytic_energy_gradient(o, s.pos)
+    kw = dict(dt=c.delta_time, decay=advect.damping_decay(c.delta_time,
+                                                          o.damping),
+              gravity=advect.gravity_vector(tuple(c.g_dir), dev))
+    calls = advect_calls(s.pos, vel, vel_g, grad, 1.0 / o.mass,
+                         cs.three_circles(torch, s.pos), kw)
+    for kernel, (fn, args, nbytes) in calls.items():
+        def call(fn=fn, args=args):
+            return fn(*args, **kw)
+
+        out = call()
+        ms = cs.kernel_ms(torch, call, 50, [ADVECT_KERNELS[kernel]])
+        reps, enqueue = 1000, []
+        for _ in range(ADVECT_ENQUEUE_BATCHES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            enqueue.append((time.perf_counter() - t0) * 1e6 / reps)
+        torch.cuda.synchronize()
+        emit(kernel=kernel, scene=label, particles=s.pos.shape[0], ms=ms,
+             bound_ms=nbytes / cs.PEAK_BYTES_PER_S * 1e3,
+             plan=str(getattr(fn, "last_plan", None)),
+             enqueue_us=sorted(enqueue)[len(enqueue) // 2],
+             enqueue_batches_us=enqueue, sha256=digest(*out))
+
+
+# Particle counts of the K10 sweep, and the bytes of one operand set from
+# which the sweep rotates sets, over ADVECT_ROTATED bytes, so that no
+# launch finds its inputs in the 50 MB L2.
+ADVECT_SIZES = (121, 1007, 16384, 262144, 1048576)
+ADVECT_ROTATE_FROM = 8 << 20
+ADVECT_ROTATED = 256 << 20
+
+
+def time_advect_sizes(torch, cs, dev, emit, digest):
+    """K10a and K10b at ADVECT_SIZES particles, 2D and 3D, each in the
+    checkout's own plan: device ms a launch,
+    the byte bound, the outputs' sha256 (of operand set 0).  Operands from
+    a seeded generator on the card: positions in and past the unit box, a
+    third of them inside two of three circles (one of radius 0);
+    velocities, gravity channel and gradient normal, m⁻¹ uniform.  Operand
+    sets (pos, vel, vel_g, grad, m⁻¹) of ADVECT_ROTATE_FROM bytes or more
+    are rotated over ADVECT_ROTATED bytes."""
+    from fem_tpu_torch.solvers import advect
+
+    for d in (3, 2):
+        kw = dict(dt=5e-4, decay=advect.damping_decay(5e-4, 10.0),
+                  gravity=advect.gravity_vector((0.0, -1.0, 0.0)[:d], dev))
+        for n in ADVECT_SIZES:
+            gen = torch.Generator(device=dev).manual_seed(n + d)
+
+            def draw(*shape, scale=1.0, low=None, gen=gen):
+                if low is None:
+                    return scale * torch.randn(shape, generator=gen,
+                                               device=dev)
+                return low + (scale - low) * torch.rand(
+                    shape, generator=gen, device=dev)
+
+            centers = draw(3, d, scale=0.7, low=0.3)
+            radii = torch.tensor([0.2, 0.15, 0.0], device=dev)
+
+            def operands():
+                pos = draw(n, d, scale=1.1, low=-0.1)
+                inside = torch.arange(n, device=dev) % 3 == 0
+                near = centers[torch.arange(n, device=dev) % 2] + draw(
+                    n, d, scale=0.12, low=-0.12)
+                pos = torch.where(inside[:, None], near, pos).contiguous()
+                return advect_calls(
+                    pos, draw(n, d, scale=0.5),
+                    draw(n, d, scale=0.5), draw(n, d, scale=10.0),
+                    draw(n, scale=2.0, low=0.5), (centers, radii), kw)
+
+            set_bytes = 4 * n * (4 * d + 1)
+            sets = [operands() for _ in range(
+                1 if set_bytes < ADVECT_ROTATE_FROM
+                else -(-ADVECT_ROTATED // set_bytes))]
+            for kernel, (fn, args, nbytes) in sets[0].items():
+                turn = itertools.count()
+
+                def call(kernel=kernel, turn=turn):
+                    f, a, _ = sets[next(turn) % len(sets)][kernel]
+                    return f(*a, **kw)
+
+                out = fn(*args, **kw)
+                emit(kernel=kernel, sizes=True, dim=d, particles=n,
+                     plan=str(getattr(fn, "last_plan", None)),
+                     sets=len(sets),
+                     ms=cs.kernel_ms(torch, call, 50,
+                                     [ADVECT_KERNELS[kernel]]),
+                     bound_ms=nbytes / cs.PEAK_BYTES_PER_S * 1e3,
+                     sha256=digest(*out))
+            del sets
+
+
 def time_path_c(torch, cs, dev, emit):
     """Path C's steps/s (module docstring), each run on its own line."""
     from fem_tpu_torch import entry
@@ -353,6 +498,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--repo", default=REPO)
     p.add_argument("--label", default="this checkout")
+    p.add_argument("--advect-only", action="store_true",
+                   help="K11b, K10a and K10b only (the scenes and the "
+                   "K10 sweep)")
     args = p.parse_args(argv)
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
@@ -367,11 +515,14 @@ def main(argv=None) -> int:
     from fem_tpu_torch.utils import cuda_build
 
     # Every library the run loads, built at once (one nvcc each, together).
-    cuda_build.build([(name, None) for name in ("fused_cg", "fused_frame",
-                                                "edge_cg", "probe_int8")]
-                     + [(name, 0) for name in ("blocked", "blocked_frame",
-                                               "explicit_frame")]
-                     + [("element_chain", m) for m in range(8)])
+    if args.advect_only:
+        cuda_build.build([("fused_frame", None), ("advect", None)])
+    else:
+        cuda_build.build([(name, None) for name in (
+            "fused_cg", "fused_frame", "edge_cg", "probe_int8", "advect")]
+            + [(name, 0) for name in ("blocked", "blocked_frame",
+                                      "explicit_frame")]
+            + [("element_chain", m) for m in range(8)])
     from fem_tpu_torch import entry
     from fem_tpu_torch.experiments import edge_cg, fused_frame as ff
     from fem_tpu_torch.ops import blocked_kernels as bk
@@ -418,6 +569,9 @@ def main(argv=None) -> int:
              plan=str(getattr(ff.fused_frame, "last_plan", None)),
              barriers=int(ff.fused_frame.last_barriers.item()),
              sha256=digest(*out))
+        time_advect(torch, cs, label, o, s, c, emit, digest)
+        if args.advect_only:
+            continue
         blk = o.blocking
         bargs = (blk, s.pos, s.vel, s.vel_g, o.mass, ob.centers, ob.radii)
         out5 = fk.fused_blocked_frame(*bargs, **kw)
@@ -481,6 +635,9 @@ def main(argv=None) -> int:
                      enqueue_us=(t1 - t0) * 1e6 / reps, sha256=digest(y))
         time_prep(torch, cs, label, o, s, emit, digest)
         time_elements(torch, cs, label, o, s, emit, digest)
+    time_advect_sizes(torch, cs, dev, emit, digest)
+    if args.advect_only:
+        return 0
     for name in p2.VARIANTS:
         a, w = p2.probe_inputs(6, 1024, 2048, name, dev)
         ms = cs.kernel_ms(torch, lambda: p2.chained_dot(a, w, 200, name), 20,
