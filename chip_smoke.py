@@ -257,8 +257,11 @@ the eight:
     first frame equal to the CPU's to 1e-5;
 45. P1, the paired-block probe, on the flagship blocking (17 blocks, padded
     to 18 and 20): pair 1, 2 and 4 against the plain version and K3's
-    per-block partials (1e-5 of the largest entry), twice bit-identical;
-    the probe's entry point with ``--config configs/demo_spot.json``;
+    per-block partials (1e-5 of the largest entry), twice bit-identical,
+    the padded blocks zero, each pair's launch (CTAs, threads, cluster
+    size, shared memory, as the library recorded it) logged and equal to
+    ``pair_plan``'s; the probe's entry point with ``--config
+    configs/demo_spot.json``;
 46. P2, the int8 table probe, at its defaults: the three variants against
     the plain version (int8 × int8 exactly, bf16 within 1e-4 of the
     largest entry), twice bit-identical, the MACs the kernel issued on the
@@ -3707,6 +3710,13 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
         ref = p1.paired_matvec_plain(bp, kpp, xb, 3, pair)
         again = p1.paired_matvec(bp, kpp, xb, 3, pair)
         torch.cuda.synchronize()
+        plan, launch = p1.paired_matvec.last_plan, p1.last_launch()
+        log(f"[P1] pair {pair}, {bp.num_blocks} blocks: {launch.ctas} CTAs "
+            f"of {launch.threads} threads in clusters of {launch.cluster}, "
+            f"{launch.smem} bytes of shared memory a CTA (the launch)")
+        require(launch == (plan.ctas * bp.num_blocks // pair, plan.threads,
+                           plan.ctas, plan.smem),
+                f"P1 pair {pair}: the launch {launch} is not {plan}")
         top = float(ref.abs().max())
         err = float((out - ref).abs().max())
         # K3's G(K)·x: P1's per-block products summed over each
@@ -3721,7 +3731,7 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
                 f"P1 pair {pair} error")
         require(torch.equal(out, again), f"P1 pair {pair} runs differ")
         require(not out[blk.num_blocks:].any(), "P1 padded blocks not zero")
-        p1_in[pair] = (bp, kpp, xb)
+        p1_in[pair] = (bp, kpp, xb, launch)
     log("[P1] two runs bit-identical for every pair")
     zero_counts()
     rc = p1.main(["--config", entry.FLAGSHIP_CONFIG, "--iters",
@@ -3839,7 +3849,7 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
     lib = library_device_ms(torch, lambda: torch.sparse.mm(gmat, xcol), 200)
     base_us = None
     for pair in p1.PAIRS:
-        bp, kpp, xb = p1_in[pair]
+        bp, kpp, xb, launch = p1_in[pair]
         out = p1.paired_matvec(bp, kpp, xb, 3, pair)
         ms = kernel_ms(torch, lambda: p1.paired_matvec(bp, kpp, xb, 3, pair),
                        200, ["paired_matvec_kernel"])
@@ -3850,7 +3860,8 @@ def run_last_kernels(torch, dev, zero_counts, counts, only, card):
             nbytes(kpp, xb, *tables, out),
             OPS[3]["apply"] * obj.element_cnt, library=lib, pair=pair,
             blocks=bp.num_blocks, us_per_apply=ms * 1e3,
-            ratio_to_pair_1=ms * 1e3 / base_us)
+            ratio_to_pair_1=ms * 1e3 / base_us, ctas=launch.ctas,
+            threads=launch.threads, cluster=launch.cluster)
     per_dot = {}
     for name in p2.VARIANTS:
         a, w, err, plan, issued = p2_in[name]

@@ -494,16 +494,6 @@ inline size_t cluster_words(int source, int eb, int pb, int dim, int groups,
          static_cast<size_t>(groups) * group_layout(source, eb, pb, dim).words;
 }
 
-// The hardware cluster barrier in two halves: every thread of the cluster
-// arrives (relaxed: it orders no memory, so it only says the CTA is
-// running) and later waits for all.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -607,7 +597,7 @@ __device__ __forceinline__ void cluster_blocked_body(const FemBlockedArgs& a) {
   const int me = static_cast<int>(cl.block_rank());
   // The barrier before any store into another CTA (none in a cluster of
   // one): arrive now.
-  if (nr > 1) cluster_arrive_relaxed();
+  if (nr > 1) fem::cluster_arrive_relaxed();
   int barriers = 0;
   const int groups = static_cast<int>(blockDim.x) / kThreads;
   const int grp = static_cast<int>(threadIdx.x) / kThreads;
@@ -739,7 +729,7 @@ __device__ __forceinline__ void cluster_blocked_body(const FemBlockedArgs& a) {
     }
     __syncthreads();
     if (round == 0 && nr > 1) {
-      cluster_wait();  // every CTA is running
+      fem::cluster_wait();  // every CTA is running
       ++barriers;
     }
     if (on) {

@@ -3,7 +3,9 @@
 // co-scheduled by the hardware (on neighbouring SMs of one GPC), read each
 // other's shared memory (distributed shared memory) and meet at a hardware
 // cluster barrier (cooperative_groups::this_cluster().sync()).  The whole
-// grid is one cluster.  A cluster the device cannot place is refused here,
+// grid is one cluster, but for P1 (probe_pairblock.cu), whose launch
+// widens cluster_config's grid to many clusters of the same size.  A
+// cluster the device cannot place is refused here,
 // before the launch (-4), and a launch that fails returns its error: the
 // caller raises, it never retries another way.
 
@@ -130,6 +132,16 @@ int cluster_fit(Kernel kernel, int threads, int cluster, size_t smem,
     return static_cast<int>(e);
   }
   return *max_active > 0 ? 0 : -4;
+}
+
+// The hardware cluster barrier in two halves: every thread of the cluster
+// arrives (relaxed: it orders no memory, so it only says the CTA is
+// running) and later waits for all.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // One launch of `kernel(*args)` as a single cluster of `cluster` CTAs;

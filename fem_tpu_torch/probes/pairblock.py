@@ -1,12 +1,15 @@
 # coding=utf-8
 """P1, the paired-block probe: the blocked operator's per-block product with
-``pair`` locality blocks per thread block.
+``pair`` locality blocks to a thread-block cluster.
 
 ``paired_matvec`` launches the hand-written CUDA kernel
 ``fem_tpu_torch/csrc/probe_pairblock.cu`` for tensors on a CUDA device; it
 replaces the Pallas kernel of the JAX package's
 ``tools/probe_pairblock.py`` (``paired_matvec``), which runs K3's kernel
-body for ``pair`` blocks per grid step.  For tensors on the CPU it runs
+body for ``pair`` blocks per grid step.  On the card a block's elements
+spread over a cluster of CTAs, one thread an element in tiles of 64, and
+``pair`` blocks share each cluster, each CTA holding a tile of each
+(:func:`pair_plan`).  For tensors on the CPU it runs
 ``paired_matvec_plain``: the block incidence matrices S_b built from the
 plus/minus indices as dense ±1 tables and two batched products, the
 definition the Pallas kernel computes.  On CUDA it launches the kernel or
@@ -23,8 +26,8 @@ Run on the card as ``python -m fem_tpu_torch.probes.pairblock [--spacing
 JAX probe does (68,508 tets and 270 blocks at 0.04), or with ``--config``
 builds the body of a single-body config file instead (the flagship
 ``configs/demo_spot.json``: 17 blocks), times the kernel with 1 (the
-baseline), 2 and 4 blocks per thread block — the device time a launch from
-the profiler, and the wall time a call of back-to-back calls from CUDA
+baseline), 2 and 4 blocks a thread-block cluster — the device time a launch
+from the profiler, and the wall time a call of back-to-back calls from CUDA
 events, which the host's wrapper bounds at these sizes — and prints each
 and the largest difference from the baseline.
 """
@@ -33,14 +36,16 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
-from fem_tpu_torch.ops.blocked_kernels import block_tables
+from fem_tpu_torch.ops.blocked_kernels import BlockTablesC, block_tables
 from fem_tpu_torch.ops.blocking import Blocking, pad_blocking
 from fem_tpu_torch.ops.element_kernels import count_launch
 from fem_tpu_torch.utils import cuda_build
@@ -86,54 +91,163 @@ def paired_matvec_plain(blk: Blocking, kplane, xbt, dim: int, pair: int):
     return torch.matmul(t, s)
 
 
-def _library():
-    lib = cuda_build.load("probe_pairblock")
-    if lib.fem_paired_matvec.argtypes is None:
-        from fem_tpu_torch.ops.blocked_kernels import BlockTablesC
+# Elements a thread group of the kernel, one thread each (its kTile), and
+# the most CTAs a block (its kMaxCtas): on the H100 the one setting of
+# tiles of 32-128 and 2-8 CTAs a block that was ahead of a CTA a block at
+# every pair at both 17 and 270 blocks (PERF.md, section 6).
+PAIR_TILE = 64
+PAIR_MAX_CTAS = 2
+# The H100's most dynamic shared memory a CTA (opt-in; the kernel has no
+# static shared memory).
+SMEM_OPTIN = 232448
 
+
+class PairPlan(NamedTuple):
+    """A launch of P1: each cluster holds ``pair`` blocks."""
+
+    tile: int  # elements a thread group, one thread each
+    ctas: int  # CTAs a block: a cluster's size
+    threads: int  # threads a CTA: ``pair`` groups of ``tile``
+    smem: int  # bytes of dynamic shared memory a CTA
+
+
+@functools.lru_cache(maxsize=64)
+def pair_plan(eb: int, pb: int, dim: int, pair: int) -> PairPlan:
+    """The kernel's launch for blocks of ``eb`` element and ``pb`` particle
+    slots in ``dim`` dimensions, ``pair`` blocks a cluster: ⌈eb / 64⌉ CTAs
+    a block, at most 2 (a larger ``eb`` takes rounds), each with a group of
+    64 threads for each of the ``pair`` blocks and, per group, x (dim·pb),
+    then its receive rows (eb·(dim+1) rows padded to 16 bytes, 8 in 2D)
+    and plan rows (eb·(dim+1)), each part rounded to 16 bytes.  Raises
+    ``ValueError`` for a launch the kernel does not take.  Pure: no device
+    is asked."""
+    if dim not in (2, 3):
+        raise ValueError(f"the probe takes dim 2 or 3, not {dim}")
+    if pair not in PAIRS:
+        raise ValueError(f"pair must be one of {PAIRS}, not {pair}")
+    if eb < 1 or pb < 1:
+        raise ValueError(f"blocks of {eb} elements and {pb} particles")
+    rows = eb * (dim + 1)
+    words = (-(-dim * pb // 4) * 4
+             + -(-(rows * (4 if dim == 3 else 2) + rows) // 4) * 4)
+    smem = 4 * pair * words
+    if smem > SMEM_OPTIN:
+        raise ValueError(
+            f"{smem} bytes of shared memory a CTA ({pair} blocks of {eb} "
+            f"elements and {pb} particles) exceed the device's {SMEM_OPTIN}")
+    return PairPlan(PAIR_TILE, min(PAIR_MAX_CTAS, -(-eb // PAIR_TILE)),
+                    PAIR_TILE * pair, smem)
+
+
+# The probe's library with its entries' argument types, loaded at the first
+# launch.
+_LIB = None
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = cuda_build.load("probe_pairblock")
         lib.fem_paired_matvec.argtypes = [
             ctypes.POINTER(BlockTablesC), ctypes.c_int, _P, _P, _P, _P,
         ]
         lib.fem_paired_matvec.restype = ctypes.c_int
+        lib.fem_paired_matvec_last_launch.argtypes = [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.fem_paired_matvec_last_launch.restype = None
         lib.fem_paired_matvec_error.argtypes = [ctypes.c_int]
         lib.fem_paired_matvec_error.restype = ctypes.c_char_p
-    return lib
+        _LIB = lib
+    return _LIB
+
+
+class Launch(NamedTuple):
+    """The kernel's last launch, as the library recorded it."""
+
+    ctas: int  # CTAs of the grid
+    threads: int  # threads a CTA
+    cluster: int  # CTAs a cluster
+    smem: int  # bytes of dynamic shared memory a CTA
+
+
+def last_launch() -> Launch:
+    """The grid of the kernel's last launch in this process, read from the
+    library (zeros before the first)."""
+    out = (ctypes.c_int * 4)()
+    _library().fem_paired_matvec_last_launch(out)
+    return Launch(*out)
+
+
+def _check_device(dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _versions(blk: Blocking) -> tuple:
+    """The version counters of the blocking's tensors that the kernel
+    reads: an in-place change to one of them rebuilds its tables."""
+    return (blk.plus._version, blk.minus._version,
+            blk.block_elements._version, blk.local_ptr._version,
+            blk.local_rows._version)
+
+
+# id(blocking) → (the blocking, its tensors' versions, its C tables, them
+# by reference, device, device index): built at a blocking's first launch
+# and again when it is replaced or changed in place.
+_TABLES: dict = {}
+
+
+def _bound_tables(blk: Blocking):
+    key = id(blk)
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not blk or hit[1] != _versions(blk):
+        dev = blk.volume.device
+        _check_device(dev)
+        tables = block_tables(blk)
+        index = dev.index if dev.index is not None else (
+            torch.cuda.current_device())
+        hit = (blk, _versions(blk), tables, ctypes.byref(tables), dev, index)
+        if key not in _TABLES and len(_TABLES) >= 64:
+            _TABLES.pop(next(iter(_TABLES)))
+        _TABLES[key] = hit
+    return hit
 
 
 def paired_matvec(blk: Blocking, kplane: torch.Tensor, xbt: torch.Tensor,
                   dim: int, pair: int) -> torch.Tensor:
     """(B, d, Pb) per-block products.  CUDA tensors: one launch of the probe
-    kernel with ``pair`` blocks per thread block.  CPU tensors:
+    kernel on :func:`pair_plan`'s plan (left in ``paired_matvec.last_plan``),
+    with the blocking's tables bound once.  CPU tensors:
     :func:`paired_matvec_plain`."""
     if xbt.device.type == "cpu":
         return paired_matvec_plain(blk, kplane, xbt, dim, pair)
-    if xbt.device.type != "cuda":
-        raise ValueError(f"unsupported device {xbt.device}")
+    _check_device(xbt.device)
     _check_pair(blk, pair)
-    tables = block_tables(blk)
+    _, _, tables, ref, dev, index = _bound_tables(blk)
     if tables.dim != dim:
         raise ValueError(f"dim {dim} but the blocking's is {tables.dim}")
     b, eb, pb = blk.num_blocks, blk.eb, blk.pb
-    dev, f32 = xbt.device, torch.float32
+    plan = pair_plan(eb, pb, dim, pair)
+    f32 = torch.float32
     cuda_build.check_operand("kplane", kplane, (b, dim * dim, eb * dim), f32,
                              dev)
     cuda_build.check_operand("xbt", xbt, (b, dim, pb), f32, dev)
     out = torch.empty((b, dim, pb), dtype=f32, device=dev)
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fem_paired_matvec(ctypes.byref(tables), pair,
-                                   kplane.data_ptr(), xbt.data_ptr(),
-                                   out.data_ptr(), stream)
+    rc = cuda_build.launch_on_stream(
+        dev, index, lib.fem_paired_matvec, ref, pair, kplane.data_ptr(),
+        xbt.data_ptr(), out.data_ptr())
     if rc != 0:
         msg = lib.fem_paired_matvec_error(rc).decode()
         raise RuntimeError(f"paired-block matvec kernel launch failed: {msg}")
     count_launch(paired_matvec, pair)
+    paired_matvec.last_plan = plan
     return out
 
 
 paired_matvec.launches = 0
 paired_matvec.instance_launches = {}  # {(pair,): launches}
+paired_matvec.last_plan = None
 
 
 def padded_inputs(blk: Blocking, kplane, pos, pair: int):

@@ -1779,14 +1779,18 @@ def test_fused_frame_kernel_matches_plain_and_repeats(body, body_2d, dim,
 
 
 @pytest.mark.parametrize("pair", [1, 2, 4])
-def test_paired_matvec_kernel_matches_plain_and_k3(body, pair):
+@pytest.mark.parametrize("case", ["body", "body_2d", "grid_2d"])
+def test_paired_matvec_kernel_matches_plain_and_k3(request, case, pair):
     """P1 against its plain version, and its per-block products summed over
     each particle's slots against K3's G(K)·x (1e-5 of the largest
     per-block entry), twice bit-identical, one launch a call counted under
-    its pair; the padded blocks' products are zero."""
+    its pair, on the launch of :func:`pair_plan` (read from the library);
+    the padded blocks' products are zero.  The 3D cube (3 blocks), the 2D
+    square of ``default.json``'s size (one block) and the 40-subdivision
+    grid (16 blocks)."""
     from fem_tpu_torch.probes import pairblock as pbk
 
-    obj, state = body
+    obj, state = request.getfixturevalue(case)
     blk = obj.blocking
     d = obj.dim
     K, _ = blocked_kernels.blocked_prep(blk, state.pos, obj.mu, obj.s_lambda)
@@ -1798,6 +1802,10 @@ def test_paired_matvec_kernel_matches_plain_and_k3(body, pair):
     again = pbk.paired_matvec(blk_p, kp_p, xbt_p, d, pair)
     assert pbk.paired_matvec.launches == before + 2
     assert pbk.paired_matvec.instance_launches[(pair,)] == mine + 2
+    plan = pbk.pair_plan(blk.eb, blk.pb, d, pair)
+    assert pbk.paired_matvec.last_plan == plan
+    assert pbk.last_launch() == (plan.ctas * blk_p.num_blocks // pair,
+                                 plan.threads, plan.ctas, plan.smem)
     ref = pbk.paired_matvec_plain(blk_p, kp_p, xbt_p, d, pair)
     top = float(ref.abs().max())
     assert top > 0 and float((out - ref).abs().max()) <= TOL * top

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 # coding=utf-8
-"""Times P2, K11b, K5's frame, K4, K11a, K3, K2, K7b, K7a, K7b edges, K8,
+"""Times P1, P2, K11b, K5's frame, K4, K11a, K3, K2, K7b, K7a, K7b edges, K8,
 K1, K9b, K9a, K6, K10a and K10b of one checkout on one GPU, hashes their
 outputs, and measures the host time of K3's, K2's, K7b's, K7a's, K1's,
 K9b's, K9a's, K6's, K10a's and K10b's and of the explicit frames'
 wrappers, so that two checkouts can be compared on the same card.
 
     python3 tools/torch_kernel_ab.py [--repo PATH] [--label NAME]
-                                     [--advect-only]
+                                     [--advect-only | --p1-only]
 
 ``--repo`` imports ``fem_tpu_torch`` (and its ``chip_smoke.py``'s profiler
 helpers) from another checkout, for instance the parent commit unpacked
@@ -47,7 +47,17 @@ enqueue µs a call (1,000 calls before a sync, five batches); and at
 121-1,048,576 particles (``ADVECT_SIZES``), 2D and 3D, in the checkout's
 own plan, with operand sets rotated over 256 MB at the large sizes so that no launch
 finds them in L2: device ms a launch, the byte bound and the outputs'
-sha256.  ``--advect-only`` runs K11b, K10a and K10b alone.  Device ms a
+sha256.  ``--advect-only`` runs K11b, K10a and K10b alone.  ``--p1-only``
+runs P1 alone (``paired_matvec``, pairs 1, 2 and 4) on the flagship
+deformed and on the probe's default body (``assets/spot.obj`` meshed at
+spacing 0.04: 68,508 tets, 270 blocks, at rest), K from the plain
+``hessian_blocks`` on the CPU and x the positions plus seeded noise:
+device ms a launch (operand sets — K planes, block vectors and the
+tables the kernel reads — rotated over 256 MB at 270 blocks), the byte
+bound, the plan and the launch as the checkout reports them, the enqueue
+µs a call (1,000 calls before a sync, five batches) and the output's
+sha256; per body the plain version's ms (CUDA events) and
+``torch.sparse.mm``'s device ms (``library_ms``).  Device ms a
 launch from the profiler (``chip_smoke.kernel_ms``, 20 launches a
 window; 50 for the element and advection kernels).  Then the explicit paths D (the explicit flagship), H
 (``default.json`` as shipped) and M (``demo_plastic.json``, both bodies)
@@ -494,13 +504,126 @@ def time_op_paths(torch, cs, dev, emit):
                  wall_ms=wall, steps_per_s=1e3 / wall)
 
 
+# P1's probe body: assets/spot.obj at the probe's default spacing, with
+# the object settings of probes/pairblock.py's main; its mesh is kept under
+# build/ for the other runs of a call.  Operand sets of P1_ROTATE_FROM bytes
+# or more are rotated over P1_ROTATED bytes.
+P1_SPACING = 0.04
+P1_OBJECT = dict(center=(2.0, 0.7, 2.0), rho=1000.0, E=4e4, nu=0.4,
+                 damping=10.0)
+P1_MESH = os.path.join(REPO, "build", f"p1_spot_{P1_SPACING}.npz")
+P1_ROTATE_FROM = 4 << 20
+P1_ROTATED = 256 << 20
+# The blocking's tensors the kernel reads, cloned into each rotated set.
+P1_TABLES = ("plus", "minus", "block_elements", "local_ptr", "local_rows")
+
+
+def p1_bodies(torch, dev):
+    """P1's bodies, each (label, object on the CPU, positions on the CPU,
+    object on ``dev``): the flagship deformed and the probe's default body
+    at rest."""
+    import numpy as np
+
+    from fem_tpu_torch import entry
+    from fem_tpu_torch.models.mesh import load_object_mesh
+    from fem_tpu_torch.models.state import build_object
+    from fem_tpu_torch.utils.config import ObjectConfig
+
+    _, fobj, fstate, _ = entry.flagship("cpu")
+    _, fobj_dev, _, _ = entry.flagship(dev)
+    ocfg = ObjectConfig(obj=os.path.join(REPO, "assets", "spot.obj"),
+                        **P1_OBJECT)
+    if os.path.exists(P1_MESH):
+        with np.load(P1_MESH) as z:
+            v, f, e = z["v"], z["f"], z["e"]
+    else:
+        v, f, e, _ = load_object_mesh(ocfg, P1_SPACING)
+        os.makedirs(os.path.dirname(P1_MESH), exist_ok=True)
+        np.savez(P1_MESH, v=v, f=f, e=e)
+    sobj, sstate = build_object(ocfg, v, f, e, device="cpu")
+    sobj_dev, _ = build_object(ocfg, v, f, e, device=dev)
+    return (("flagship", fobj, entry.deformed(fstate).pos, fobj_dev),
+            (f"spot {P1_SPACING}", sobj, sstate.pos, sobj_dev))
+
+
+def p1_sets(cs, blk, kp, xbt):
+    """[(blocking, K planes, block vectors)]: the operands, and clones of
+    them over P1_ROTATED bytes when one set holds P1_ROTATE_FROM bytes or
+    more."""
+    one = cs.nbytes(kp, xbt, *(getattr(blk, n) for n in P1_TABLES))
+    sets = [(blk, kp, xbt)]
+    for _ in range(1, 1 if one < P1_ROTATE_FROM else -(-P1_ROTATED // one)):
+        sets.append((dataclasses.replace(blk, **{
+            n: getattr(blk, n).clone() for n in P1_TABLES}),
+            kp.clone(), xbt.clone()))
+    return sets
+
+
+def time_p1(torch, cs, dev, emit, digest):
+    """P1 on p1_bodies at every pair (module docstring)."""
+    from fem_tpu_torch.ops import element_kernels as ek
+    from fem_tpu_torch.probes import pairblock as p1
+
+    for label, cobj, cpos, obj in p1_bodies(torch, dev):
+        cblk, blk, d = cobj.blocking, obj.blocking, obj.dim
+        K = ek.hessian_blocks(cpos, cblk.element_indices, cblk.ref_inv,
+                              cblk.volume, cobj.mu, cobj.s_lambda)
+        noise = torch.randn(cpos.shape, generator=torch.Generator()
+                            .manual_seed(17))
+        x = (cpos + 0.3 * noise).to(dev)
+        kp = p1.make_kplane(cblk, K).to(dev)
+        gmat = cs.graph_matrix(torch, obj.element_indices,
+                               K.to(dev)[blk.element_slot.long()],
+                               obj.particle_cnt)
+        xcol = x.reshape(-1, 1)
+        emit(kernel="P1 library", scene=label, blocks=blk.num_blocks,
+             ms=cs.library_device_ms(
+                 torch, lambda: torch.sparse.mm(gmat, xcol), 50))
+        for pair in p1.PAIRS:
+            bp, kpp, xb = p1.padded_inputs(blk, kp, x, pair)
+            sets = p1_sets(cs, bp, kpp, xb)
+            turn = itertools.count()
+
+            def call(sets=sets, turn=turn, pair=pair):
+                b, k, xs = sets[next(turn) % len(sets)]
+                return p1.paired_matvec(b, k, xs, d, pair)
+
+            out = p1.paired_matvec(bp, kpp, xb, d, pair)
+            ms = cs.kernel_ms(torch, call, 50, ["paired_matvec_kernel"])
+            reps, enqueue = 1000, []
+            for _ in range(ADVECT_ENQUEUE_BATCHES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    p1.paired_matvec(bp, kpp, xb, d, pair)
+                enqueue.append((time.perf_counter() - t0) * 1e6 / reps)
+            torch.cuda.synchronize()
+            launch = getattr(p1, "last_launch", None)
+            emit(kernel="P1", scene=label, pair=pair, blocks=bp.num_blocks,
+                 sets=len(sets), ms=ms,
+                 bound_ms=cs.nbytes(kpp, xb, *(getattr(bp, n) for n in
+                                                P1_TABLES), out)
+                 / cs.PEAK_BYTES_PER_S * 1e3,
+                 plain_ms=cs.cuda_ms(torch, lambda: p1.paired_matvec_plain(
+                     bp, kpp, xb, d, pair), 5),
+                 plan=str(getattr(p1.paired_matvec, "last_plan", None)),
+                 launch=None if launch is None else str(launch()),
+                 enqueue_us=sorted(enqueue)[len(enqueue) // 2],
+                 enqueue_batches_us=enqueue, sha256=digest(out))
+            del sets
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--repo", default=REPO)
     p.add_argument("--label", default="this checkout")
-    p.add_argument("--advect-only", action="store_true",
-                   help="K11b, K10a and K10b only (the scenes and the "
-                   "K10 sweep)")
+    only = p.add_mutually_exclusive_group()
+    only.add_argument("--advect-only", action="store_true",
+                      help="K11b, K10a and K10b only (the scenes and the "
+                      "K10 sweep)")
+    only.add_argument("--p1-only", action="store_true",
+                      help="P1 only (the flagship and the probe's 270 "
+                      "blocks)")
     args = p.parse_args(argv)
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
@@ -515,7 +638,9 @@ def main(argv=None) -> int:
     from fem_tpu_torch.utils import cuda_build
 
     # Every library the run loads, built at once (one nvcc each, together).
-    if args.advect_only:
+    if args.p1_only:
+        cuda_build.build([("probe_pairblock", None)])
+    elif args.advect_only:
         cuda_build.build([("fused_frame", None), ("advect", None)])
     else:
         cuda_build.build([(name, None) for name in (
@@ -547,6 +672,9 @@ def main(argv=None) -> int:
             h.update(t.detach().cpu().contiguous().numpy().tobytes())
         return h.hexdigest()[:16]
 
+    if args.p1_only:
+        time_p1(torch, cs, dev, emit, digest)
+        return 0
     cfg, obj, s0, obs = entry.flagship(dev)
     dcfg, dobj, ds0, dobs = entry.load_config(
         os.path.join(REPO, "configs", "default.json"), dev,
