@@ -319,7 +319,33 @@ the eight:
     bit-identical to the grid variant, a cluster of more CTAs than blocks
     refused before the launch, with its device ms a launch and the barriers
     the cluster kernel counted (equal to ``blocked_barriers``'); K7b edges,
-    twice bit-identical; printed as one ``prep_variants`` JSON line.
+    twice bit-identical; printed as one ``prep_variants`` JSON line;
+53. J1, the serial Jacobi solve (``ops/jacobi_kernels.py``), against its
+    plain version on the card: the sparse rows of
+    ``demo_passage_jacobi.json`` squashed and moving, and of the flagship
+    deformed (one implicit substep's system), and the 2D dense rows;
+    iterations equal (read from the kernel's output), x and the carried
+    anchor within 1e-5 of the largest entry, twice bit-identical;
+54. path AH, ``configs/demo_passage_jacobi.json`` as shipped through
+    ``make_frame_fn``: 200 frames, K1 and J1 once a substep and no other
+    kernel; the first frame and frame 101, restarted on the CPU from the
+    card's state, within 1e-5 of the CPU frame, iterations within 1 a
+    substep; steps/s; J1's device ms a solve and a sweep (profiler) and
+    the frame's device ms and busy share over 10 frames in contact;
+55. path AI, the flagship with ``implicit_method=0`` from the deformed
+    state: 3 frames, K1 and J1 once a substep; the first frame within 1e-5
+    of the CPU frame, iterations within 1; J1's device ms a solve and a
+    sweep on the flagship;
+56. path AJ, the flagship's snapshot sweep (``jacobi_sweep="snapshot"``,
+    the blocked operator): 3 frames, K1 twice a substep (the mesh and the
+    block order) and K3 1 + 2·iterations times a substep; the first frame
+    within 1e-5 of the CPU frame;
+57. path AK, ``default.json`` with ``solver_backend="dense"`` from the
+    squashed state: its CG (normal equations; K1 once a substep) and its
+    Jacobi solver (K1 and J1 over the dense rows once a substep), each 10
+    frames, the first frame within 1e-5 of the CPU frame;
+58. the ``implicit_jacobi`` golden of tests/test_golden.py through J1: 200
+    frames, K1 and J1 once a substep, held to its values.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -388,6 +414,9 @@ GOLDEN_2D = {
     "implicit_cg": dict(
         mean=0.55748934, std=0.09069931, p0=(0.4851717, 0.4765905),
         p24=(0.4952799, 0.6177244), p48=(0.5053155, 0.7599441)),
+    "implicit_jacobi": dict(
+        mean=0.55737782, std=0.09082112, p0=(0.4845500, 0.4766834),
+        p24=(0.4949913, 0.6178035), p48=(0.5053604, 0.7599947)),
 }
 # tests/test_torch_inelastic.py: demo_plastic.json's 200-frame goldens, per
 # body (recorded by the JAX package on the CPU; mean and std within 5e-3,
@@ -406,6 +435,8 @@ OVERRIDES_2D = {
     "autodiff": dict(auto_diff=True, use_explicit_method=True),
     "implicit_cg": dict(auto_diff=False, use_explicit_method=False,
                         implicit_method=1, preconditioned=1),
+    "implicit_jacobi": dict(auto_diff=False, use_explicit_method=False,
+                            implicit_method=0),
 }
 
 # (counter name, CUDA source, TPU kernel it replaces), in the order of the
@@ -443,6 +474,11 @@ KERNELS = (
      "fem_tpu/ops/pallas_advect.py:125"),
     ("advect_implicit", "fem_tpu_torch/csrc/advect.cu",
      "fem_tpu/ops/pallas_advect.py:151"),
+    # No pallas_call: the JAX package's solve is one XLA while_loop
+    # (_jacobi_outer_loop) around the row scan of
+    # jacobi_solve_serial_sparse (:888).
+    ("jacobi_serial", "fem_tpu_torch/csrc/jacobi_serial.cu",
+     "fem_tpu/solvers/implicit.py:737"),
 )
 
 
@@ -1173,6 +1209,8 @@ def kernel_rows(d, times, launches, errors, card):
     """The kernels line's rows of dimension ``d``, each logged."""
     rows = []
     for name, source, replaces in KERNELS:
+        if name == "jacobi_serial":  # its rows come from sections 53-58
+            continue
         t = times[name]
         extra = {k: v for k, v in t.items()
                  if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -4310,6 +4348,367 @@ def run_prep_variants(torch, card, cases):
     return rows
 
 
+# -- J1 and the Jacobi paths (sections 53-58) --------------------------------
+
+FRAMES_AH = 200  # path AH: demo_passage_jacobi.json as shipped
+FRAMES_PROFILED_AH = 10  # path AH's profiled window, in contact
+FRAMES_AI = 3  # paths AI and AJ: the flagship, serial and snapshot
+FRAMES_AK = 10  # path AK, each solver
+J1_REPS = 20  # J1's timed launches a system
+J1_KERNEL = "jacobi_serial_kernel"
+
+
+def j1_device_ms(torch, go, frames, expected, windows=3):
+    """(J1's device ms a launch, its launches, the window's device ms a
+    frame and busy share) over ``frames`` frames of ``go`` under the
+    profiler, whose count of J1's launches must be ``expected`` (one a
+    substep); a window that missed some is taken again, as in
+    kernel_ms."""
+    for _ in range(windows):
+        per_kernel, wall_ms = profile_kernels(torch, go, 1)
+        hits = [v for k, v in per_kernel.items() if J1_KERNEL in k]
+        launches = sum(c for _, c in hits)
+        if launches == expected:
+            break
+        log(f"[profiler] a window of {frames} frames saw {launches} "
+            f"launches of {J1_KERNEL}, not {expected}; taken again")
+    require(launches == expected, f"the profiler saw {launches} launches of "
+            f"{J1_KERNEL} in {frames} frames, not {expected}")
+    dev_ms = sum(t for t, _ in per_kernel.values())
+    return (sum(t for t, _ in hits) / launches, launches, dev_ms / frames,
+            100 * dev_ms / wall_ms)
+
+
+def run_jacobi(torch, dev, zero_counts, counts, only, card):
+    """Sections 53-58: J1 against its plain version, paths AH-AK and the
+    implicit_jacobi golden.  Returns (the kernels line's J1 rows, phase
+    seconds)."""
+    from fem_tpu_torch import convert, entry, scene, sim
+    from fem_tpu_torch.ops import element_kernels, jacobi_kernels as jk
+    from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
+    from fem_tpu_torch.solvers import dense, implicit
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    passage = os.path.join(REPO, "configs", "demo_passage_jacobi.json")
+    default = os.path.join(REPO, "configs", "default.json")
+
+    def on_cpu(obj, state, obs):
+        return (convert.object_from_arrays(*convert.object_to_arrays(obj),
+                                           "cpu"),
+                convert.state_from_arrays(convert.state_to_arrays(state),
+                                          "cpu"),
+                type(obs)(obs.centers.cpu(), obs.radii.cpu()))
+
+    def system(obj, state, dt, seed):
+        """(sparse args, dense args or None) of J1 for one implicit
+        substep at ``state``: K and the rhs from K1, a random anchor."""
+        K, H = element_kernels.hessian_and_force(
+            state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+            obj.s_lambda)
+        f = gather_assemble(element_contrib_full(H), obj.plan.idx)
+        b = (state.vel + dt * f / obj.mass[:, None]).contiguous()
+        rows = implicit.sparse_system_rows(obj, K, dt).contiguous()
+        rng = np.random.default_rng(seed)
+        past = torch.as_tensor(rng.normal(scale=0.01, size=tuple(b.shape))
+                               .astype(np.float32), device=dev)
+        sparse = (rows, b, past, obj.jacobi_nb)
+        if obj.dim == 3:
+            return sparse, None
+        a = dense.assemble_dense_system(obj, K, dt).contiguous()
+        return sparse, (a, b, past)
+
+    def squashed(state, seed):
+        """The body squashed to 110 % across and 80 % up about its
+        centroid, moving at random (numpy seed): the sweeps iterate."""
+        rng = np.random.default_rng(seed)
+        c = state.pos.mean(dim=0, keepdim=True)
+        pos = c + (state.pos - c) * torch.tensor([[1.1, 0.8]], device=dev)
+        vel = torch.as_tensor(rng.uniform(-0.3, 0.3, tuple(pos.shape))
+                              .astype(np.float32), device=dev)
+        return state.replace(pos=pos.contiguous(), vel=vel)
+
+    errors = {2: 0.0, 3: 0.0}
+    times = {}
+
+    # -- 53. J1 against its plain version -------------------------------------
+    def check_j1(label, d, args):
+        got = jk.jacobi_serial(*args)
+        again = jk.jacobi_serial(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = jk.jacobi_serial_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        it, itp = int(got.iterations), int(ref.iterations)
+        top = float(ref.x.abs().max())
+        err = max(float((got.x - ref.x).abs().max()),
+                  float((got.past_x - ref.past_x).abs().max()))
+        plan = jk.jacobi_serial.last_plan
+        log(f"[J1] {label}: iterations {it} (plain {itp}), error "
+            f"{float(got.error):.3e} (plain {float(ref.error):.3e}); max abs "
+            f"error {err:.3e} of max {top:.3e}; plan {plan._asdict()}")
+        require(it == itp and it > 1, f"J1 {label} iterations {it} vs {itp}")
+        require(err <= 1e-5 * top, f"J1 {label} off by {err} of {top}")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"J1 {label} runs differ")
+        errors[d] = max(errors[d], err)
+        return it, plain_ms
+
+    cfg_p, obj_p, state_p, obs_p = entry.load_config(passage, dev)
+    require((obj_p.particle_cnt, obj_p.element_cnt,
+             obj_p.jacobi_nb.shape[1]) == (121, 200, 7),
+            f"demo_passage_jacobi.json: {obj_p.particle_cnt} particles, "
+            f"max_nb {obj_p.jacobi_nb.shape[1]}")
+    cfg_f, obj_f, state_f, obs_f = entry.flagship(
+        dev, sim_overrides=dict(implicit_method=0))
+    require(obj_f.jacobi_nb.shape == (1007, 29),
+            f"flagship Jacobi plan {tuple(obj_f.jacobi_nb.shape)}")
+    deformed = entry.deformed(state_f)
+    sparse2, dense2 = system(obj_p, squashed(state_p, 3), cfg_p.delta_time, 5)
+    sparse3, _ = system(obj_f, deformed, cfg_f.delta_time, 6)
+    checked = {}
+    for label, d, args in (("2D sparse rows (demo_passage_jacobi.json "
+                            "squashed)", 2, sparse2),
+                           ("2D dense rows", 2, dense2),
+                           ("3D sparse rows (flagship deformed, one "
+                            "substep's system)", 3, sparse3)):
+        checked[label] = (d, args) + check_j1(label, d, args)
+    log("[J1] two runs bit-identical in every case")
+
+    def solve_row(d, args, it, plain_ms, extra):
+        """J1's kernels-line row of dimension ``d`` for the system
+        ``args`` (sparse), which takes ``it`` sweeps."""
+        rows_t, b, past, nb = args
+        n, dd = b.shape
+        max_nb = nb.shape[1]
+        ms = kernel_ms(torch, lambda: jk.jacobi_serial(*args), J1_REPS,
+                       [J1_KERNEL])
+        # Inputs read once and outputs written once; the products of a
+        # sweep and of its error (2 flops a block entry each) and ~10
+        # flops a component of the update.
+        bytes_ = nbytes(rows_t, b, past, nb) + 2 * nbytes(b) + 8
+        ops = it * (2 * 2 * n * max_nb * dd * dd + 10 * n * dd)
+        bound_ms, bound_by = bound(bytes_, ops)
+        sweep_bytes = nbytes(rows_t, nb, b) + nbytes(b)
+        t = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=None, iterations=it,
+                 ms_per_sweep=ms / it, us_per_row=1e3 * ms / (it * n),
+                 chain_rows=it * n,
+                 sweep_bytes_bound_ms=1e3 * sweep_bytes / PEAK_BYTES_PER_S,
+                 **extra)
+        log(f"[time] {d}D jacobi_serial {ms:.5f} ms a solve of {it} sweeps "
+            f"on the device (profiler): {t['ms_per_sweep']:.5f} ms a sweep, "
+            f"{t['us_per_row']:.4f} us a row; plain {plain_ms:.2f} ms; bound "
+            f"{bound_ms:.6f} ms ({bound_by}), a sweep's bytes "
+            f"{t['sweep_bytes_bound_ms']:.6f} ms; card {card}")
+        return t
+
+    # -- 54. path AH: demo_passage_jacobi.json as shipped ---------------------
+    cobj_p, cstate_p, cobs_p = on_cpu(obj_p, state_p, obs_p)
+    frame_p = sim.make_frame_fn(obj_p, cfg_p)
+    cframe_p = sim.make_frame_fn(cobj_p, cfg_p)
+    subs = FRAMES_AH * cfg_p.sim_count
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    s, states, iters = state_p, [], []
+    for _ in range(FRAMES_AH):
+        states.append(s)
+        s, aux = frame_p(s, obs_p)
+        iters.append(aux.solver_iterations)
+    states.append(s)
+    iters = torch.stack(iters).cpu()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_ah = counts()
+    per_frame = iters.sum(dim=1)
+    log(f"[path AH] {FRAMES_AH} frames x {cfg_p.sim_count} substeps in "
+        f"{wall:.4f} s: {subs / wall:.1f} steps/s; launches {launches_ah}; "
+        f"sweeps a frame: median {float(per_frame.median()):.0f}, max "
+        f"{int(per_frame.max())}, mean {float(per_frame.float().mean()):.1f};"
+        f" the first 60 frames' sweeps {per_frame[:60].tolist()}")
+    require(launches_ah == only(element_chain=subs, jacobi_serial=subs),
+            f"path AH launches {launches_ah}")
+    require(bool(torch.isfinite(s.pos).all()), "path AH non-finite")
+    require(int(per_frame.sum()) > 0, "path AH never iterated")
+    busiest = int(per_frame.argmax())
+    for label, i in (("first frame", 0), (f"frame {busiest + 1} (the most "
+                                          "sweeps)", busiest)):
+        _, cst, _ = on_cpu(obj_p, states[i], obs_p)
+        ref, ref_aux = cframe_p(cst, cobs_p)
+        err = float((states[i + 1].pos.cpu() - ref.pos).abs().max())
+        it, itp = iters[i].tolist(), ref_aux.solver_iterations.tolist()
+        log(f"[path AH] {label} from the card's state, on the CPU: max "
+            f"|dpos| {err:.3e}; sweeps {it} (CPU {itp})")
+        require(err <= 1e-5, f"path AH {label} off the CPU by {err}")
+        require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                f"path AH {label} sweeps differ")
+    contact = states[busiest]
+    j1_ms_ah, j1_n_ah, dev_ms_ah, busy_ah = j1_device_ms(
+        torch, frames_go(frame_p, contact, obs_p, FRAMES_PROFILED_AH),
+        FRAMES_PROFILED_AH, FRAMES_PROFILED_AH * cfg_p.sim_count)
+    sweeps_ah = float(iters[busiest:busiest + FRAMES_PROFILED_AH]
+                      .float().mean())
+    log(f"[path AH] {FRAMES_PROFILED_AH} frames from frame {busiest + 1} "
+        f"under the profiler: J1 {j1_ms_ah:.5f} ms a solve ({j1_n_ah} "
+        f"launches seen by the profiler, one a substep; ~{sweeps_ah:.1f} "
+        f"sweeps a solve: "
+        f"{j1_ms_ah / max(sweeps_ah, 1):.5f} ms a sweep); device "
+        f"{dev_ms_ah:.4f} ms a frame, busy {busy_ah:.1f}%; card {card}")
+    label2 = "2D sparse rows (demo_passage_jacobi.json squashed)"
+    d2, args2, it2, plain2 = checked[label2]
+    times[2] = solve_row(2, args2, it2, plain2, dict(
+        path_ms_per_solve=j1_ms_ah, path_sweeps_per_solve=sweeps_ah,
+        path_device_ms_per_frame=dev_ms_ah, path_busy_percent=busy_ah,
+        path_steps_per_s=subs / wall))
+    _, dense_args, it_dense, plain_dense = checked["2D dense rows"]
+    times[2]["dense_ms"] = kernel_ms(
+        torch, lambda: jk.jacobi_serial(*dense_args), J1_REPS, [J1_KERNEL])
+    times[2]["dense_plain_ms"] = plain_dense
+    log(f"[time] 2D jacobi_serial over the dense rows {times[2]['dense_ms']:.5f} "
+        f"ms a solve of {it_dense} sweeps (profiler); card {card}")
+
+    # -- 55. path AI: the flagship under the serial sweep ---------------------
+    cobj_f, cstate_f, cobs_f = on_cpu(obj_f, deformed, obs_f)
+
+    def flagship_path(label, c, expect):
+        frame = sim.make_frame_fn(obj_f, c)
+        ref, ref_aux = sim.make_frame_fn(cobj_f, c)(cstate_f, cobs_f)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        s, iters = deformed, []
+        for i in range(FRAMES_AI):
+            s, aux = frame(s, obs_f)
+            iters.append(aux.solver_iterations)
+            if i == 0:
+                first = s
+        iters = torch.stack(iters).cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        err = float((first.pos.cpu() - ref.pos).abs().max())
+        it, itp = iters[0].tolist(), ref_aux.solver_iterations.tolist()
+        log(f"[path {label}] {FRAMES_AI} frames x {c.sim_count} substeps in "
+            f"{wall:.4f} s: {FRAMES_AI * c.sim_count / wall:.1f} steps/s; "
+            f"launches {got}; sweeps {iters.tolist()}; first frame vs the "
+            f"CPU: max |dpos| {err:.3e}, sweeps {it} (CPU {itp})")
+        require(got == only(**expect(iters)), f"path {label} launches {got}")
+        require(bool(torch.isfinite(s.pos).all()), f"path {label} non-finite")
+        require(err <= 1e-5, f"path {label} off the CPU frame by {err}")
+        require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                f"path {label} sweeps differ")
+        require(int(iters.min()) > 1, f"path {label} did not iterate")
+        return frame, iters, wall
+
+    subs_f = FRAMES_AI * cfg_f.sim_count
+    frame_ai, iters_ai, wall_ai = flagship_path(
+        "AI (flagship, serial)", cfg_f,
+        lambda it: dict(element_chain=subs_f, jacobi_serial=subs_f))
+    j1_ms_ai, j1_n_ai, dev_ms_ai, busy_ai = j1_device_ms(
+        torch, frames_go(frame_ai, deformed, obs_f, FRAMES_AI), FRAMES_AI,
+        subs_f)
+    sweeps_ai = float(iters_ai.float().mean())
+    log(f"[path AI] {FRAMES_AI} frames under the profiler: J1 "
+        f"{j1_ms_ai:.5f} ms a solve ({j1_n_ai} launches seen by the "
+        f"profiler, one a substep; ~{sweeps_ai:.1f} sweeps: "
+        f"{j1_ms_ai / sweeps_ai:.5f} ms a sweep); device "
+        f"{dev_ms_ai:.4f} ms a frame, busy {busy_ai:.1f}%; card {card}")
+    label3 = "3D sparse rows (flagship deformed, one substep's system)"
+    _, args3, it3, plain3 = checked[label3]
+    times[3] = solve_row(3, args3, it3, plain3, dict(
+        path_ms_per_solve=j1_ms_ai, path_sweeps_per_solve=sweeps_ai,
+        path_device_ms_per_frame=dev_ms_ai, path_busy_percent=busy_ai,
+        path_steps_per_s=subs_f / wall_ai))
+
+    # -- 56. path AJ: the flagship's snapshot sweep over K3 -------------------
+    cfg_j = dataclasses.replace(cfg_f, jacobi_sweep="snapshot")
+    frame_aj, _, _ = flagship_path(
+        "AJ (flagship, snapshot over K3)", cfg_j,
+        lambda it: dict(element_chain=2 * subs_f,
+                        blocked_matvec=int((1 + 2 * it).sum())))
+    profile_window(torch, "AJ (flagship, snapshot over K3)",
+                   frames_go(frame_aj, deformed, obs_f, FRAMES_AI), FRAMES_AI)
+
+    # -- 57. path AK: default.json with the dense backend ---------------------
+    for label, over, expect in (
+        ("AK (default.json, dense CG)",
+         dict(OVERRIDES_2D["implicit_cg"], solver_backend="dense"),
+         lambda n: dict(element_chain=n)),
+        ("AK (default.json, dense Jacobi)",
+         dict(OVERRIDES_2D["implicit_jacobi"], solver_backend="dense"),
+         lambda n: dict(element_chain=n, jacobi_serial=n)),
+    ):
+        cfg_k, obj_k, state_k, obs_k = entry.load_config(
+            default, dev, sim_overrides=over)
+        start = squeezed_2d(torch, state_k, torch.Generator().manual_seed(7))
+        cobj_k, cstart, cobs_k = on_cpu(obj_k, start, obs_k)
+        frame = sim.make_frame_fn(obj_k, cfg_k)
+        ref, ref_aux = sim.make_frame_fn(cobj_k, cfg_k)(cstart, cobs_k)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        s, iters = start, []
+        for i in range(FRAMES_AK):
+            s, aux = frame(s, obs_k)
+            iters.append(aux.solver_iterations)
+            if i == 0:
+                first = s
+        iters = torch.stack(iters).cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        n = FRAMES_AK * cfg_k.sim_count
+        err = float((first.pos.cpu() - ref.pos).abs().max())
+        it, itp = iters[0].tolist(), ref_aux.solver_iterations.tolist()
+        log(f"[path {label}] {FRAMES_AK} frames in {wall:.4f} s: "
+            f"{n / wall:.1f} steps/s; launches {got}; iterations by frame "
+            f"{iters.sum(dim=1).tolist()}; first frame vs the CPU: max "
+            f"|dpos| {err:.3e}, iterations {it} (CPU {itp})")
+        require(got == only(**expect(n)), f"path {label} launches {got}")
+        if "Jacobi" in label:
+            require(jk.jacobi_serial.last_plan.dense,
+                    "path AK's J1 did not take the dense rows")
+        require(bool(torch.isfinite(s.pos).all()), f"path {label} non-finite")
+        require(err <= 1e-5, f"path {label} off the CPU frame by {err}")
+        require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
+                f"path {label} iterations differ")
+        require(int(iters[0].min()) > 0, f"path {label} did not iterate")
+
+    # -- 58. the implicit_jacobi golden through J1 ----------------------------
+    cfg_d, _, _, _ = entry.load_config(default, dev)
+    gcfg = dataclasses.replace(
+        cfg_d, objects=(dataclasses.replace(cfg_d.objects[0],
+                                            subdivisions=6),),
+        **OVERRIDES_2D["implicit_jacobi"])
+    (gbody,), gobs = scene.load_scene(gcfg, device=dev)
+    gframe = sim.make_frame_fn(gbody.obj, gcfg)
+    zero_counts()
+    t0 = time.perf_counter()
+    s = gbody.state
+    for _ in range(GOLDEN_FRAMES):
+        s, _ = gframe(s, gobs)
+    torch.cuda.synchronize()
+    got = counts()
+    n = GOLDEN_FRAMES * gcfg.sim_count
+    log(f"[golden implicit_jacobi] {GOLDEN_FRAMES} frames through J1 in "
+        f"{time.perf_counter() - t0:.2f} s; launches {got}")
+    require(got == only(element_chain=n, jacobi_serial=n),
+            f"golden implicit_jacobi launches {got}")
+    golden_check(torch, "implicit_jacobi", s.pos)
+
+    launches = {2: launches_ah["jacobi_serial"],
+                3: FRAMES_AI * cfg_f.sim_count}
+    source, replaces = next((src, rep) for name, src, rep in KERNELS
+                            if name == "jacobi_serial")
+    rows = [dict(name="jacobi_serial", route="cuda", source=source,
+                 replaces=replaces, dim=d, launches=launches[d],
+                 max_abs_err=errors[d], **times[d]) for d in (3, 2)]
+    return rows, time.perf_counter() - t_phase
+
+
 def main():
     import torch
 
@@ -4329,6 +4728,7 @@ def main():
         cg_kernels,
         element_kernels,
         frame_kernels,
+        jacobi_kernels,
     )
     from fem_tpu_torch.experiments import edge_cg, fused_frame
     from fem_tpu_torch.probes import int8, pairblock
@@ -4358,6 +4758,7 @@ def main():
         "fused_frame": fused_frame.fused_frame,
         "paired_matvec": pairblock.paired_matvec,
         "chained_dot": int8.chained_dot,
+        "jacobi_serial": jacobi_kernels.jacobi_serial,
     }
 
     def zero_counts():
@@ -5041,6 +5442,15 @@ def main():
             torch, lstate, torch.Generator().manual_seed(10)))))
     log(json.dumps({"prep_variants": prep_rows}))
     log(f"[prep variants] section 52 in {time.perf_counter() - t_var:.1f} s")
+
+    # -- 53.-58. J1 and the Jacobi paths AH-AK ---------------------------------
+    j1_rows, j1_s = run_jacobi(torch, dev, zero_counts, counts, only, card)
+    kernels.extend(j1_rows)
+    log(f"[jacobi] sections 53-58 in {j1_s:.1f} s")
+    for name, _, _ in KERNELS:
+        for d in (2, 3):
+            require(any(r["name"] == name and r.get("dim") == d
+                        for r in kernels), f"no {d}D row of {name}")
     log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -10,7 +10,10 @@ from ``element_indices`` (the same host algorithm as the JAX package's
 partition as the JAX package's ``build_blocking``).  The pins' and loads'
 arrays (``free_mask``, ``pin_vel``, ``static_load``) and the edge matrix of
 ``operator_mode="mxu"`` (``edge_matrix``) are optional, None when off, and
-so are the typed obstacles' arrays of :class:`Obstacles`.
+so are the typed obstacles' arrays of :class:`Obstacles`.  The serial
+Jacobi sweep's plan is rebuilt from ``element_indices`` too (the same host
+algorithm as the JAX package's ``build_jacobi_plan``), and the state's
+``jacobi_past_x`` crosses with the state, zero when absent.
 Only numpy crosses this boundary.
 """
 
@@ -22,7 +25,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from fem_tpu_torch.models.state import FemObject, Obstacles, SimState
+from fem_tpu_torch.models.state import (
+    FemObject,
+    Obstacles,
+    SimState,
+    jacobi_arrays,
+)
 from fem_tpu_torch.ops.assembly import make_gather_plan
 from fem_tpu_torch.ops.blocking import build_blocking
 from fem_tpu_torch.ops.element import check_material
@@ -38,7 +46,7 @@ OBJECT_STATICS = (
 # operator_mode="mxu": optional (absent or None when off).
 OPTIONAL_OBJECT_ARRAYS = ("free_mask", "pin_vel", "static_load",
                           "edge_matrix")
-STATE_ARRAYS = ("pos", "vel", "vel_g", "force")
+STATE_ARRAYS = ("pos", "vel", "vel_g", "force", "jacobi_past_x")
 # The inelastic internal inverses: optional (absent or None when off).
 INTERNAL_ARRAYS = ("plastic_inv", "viscous_inv")
 # Obstacles: the circles, the typed obstacles' arrays (optional) and their
@@ -78,6 +86,7 @@ def object_from_arrays(
                 np.asarray(arrays[name], np.float32), device=dev)
     return FemObject(
         **tensors, plan=plan, blocking=blocking,
+        **jacobi_arrays(idx, int(statics["particle_cnt"]), dev),
         **{k: statics[k] for k in OBJECT_STATICS if k in statics},
     )
 
@@ -124,8 +133,13 @@ def obstacles_to_arrays(obstacles: Obstacles):
 
 def state_from_arrays(arrays: Dict[str, np.ndarray], device="cuda") -> SimState:
     """A :class:`SimState` from the arrays of ``STATE_ARRAYS`` and those of
-    ``INTERNAL_ARRAYS`` that ``arrays`` holds and are not None."""
+    ``INTERNAL_ARRAYS`` that ``arrays`` holds and are not None; an absent
+    ``jacobi_past_x`` is zero, as at the start of a run."""
     dev = resolve_device(device)
+    arrays = dict(arrays)
+    if arrays.get("jacobi_past_x") is None:
+        arrays["jacobi_past_x"] = np.zeros_like(
+            np.asarray(arrays["pos"], np.float32))
     names = STATE_ARRAYS + tuple(
         n for n in INTERNAL_ARRAYS if arrays.get(n) is not None
     )

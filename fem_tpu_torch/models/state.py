@@ -19,7 +19,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from fem_tpu_torch.ops.assembly import GatherPlan, make_gather_plan
+from fem_tpu_torch.ops.assembly import (
+    GatherPlan,
+    TieredPlan,
+    build_jacobi_plan,
+    make_gather_plan,
+    make_jacobi_gather,
+)
 from fem_tpu_torch.ops.blocking import Blocking, build_blocking
 from fem_tpu_torch.ops.element import check_material
 from fem_tpu_torch.utils.config import BlockConfig, ObjectConfig
@@ -40,6 +46,10 @@ class SimState:
     # Maxwell branch, viscous_mu > 0).
     plastic_inv: Optional[torch.Tensor] = None
     viscous_inv: Optional[torch.Tensor] = None
+    # (N, d) weighted-Jacobi relaxation anchor, the reference's never-reset
+    # ``past_vec_x`` (object.py:85): zero at start (None reads as zero),
+    # carried across substeps and frames; only the Jacobi solve changes it.
+    jacobi_past_x: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "SimState":
         return dataclasses.replace(self, **changes)
@@ -86,6 +96,16 @@ class FemObject:
     # Stiffness-proportional Rayleigh damping β (ObjectConfig.damping_beta):
     # the damping force β·G(K)·v; 0 = off.
     damping_beta: float = 0.0
+    # Block-sparse rows of the serial Jacobi sweep
+    # (ops/assembly.build_jacobi_plan): the neighbour of each row slot (−1
+    # padded), each contribution's flat slot and sign, and their inverse,
+    # each slot's contributions (ops/assembly.make_jacobi_gather).  None on
+    # an object built without them: the serial sweep then assembles the
+    # dense system.
+    jacobi_nb: Optional[torch.Tensor] = None  # (N, max_nb) int32
+    jacobi_slots: Optional[torch.Tensor] = None  # (E, 4d) int32
+    jacobi_coeff: Optional[torch.Tensor] = None  # (E, 4d) float32 ±1
+    jacobi_gather: Optional[TieredPlan] = None
 
     @property
     def device(self) -> torch.device:
@@ -283,19 +303,34 @@ def build_object(
         pin_vel=tensor(pin_vel),
         static_load=tensor(static_load),
         damping_beta=cfg.damping_beta,
+        **jacobi_arrays(idx, n, dev),
     )
     return obj, initial_state(pos, dev, obj)
 
 
+def jacobi_arrays(element_indices: np.ndarray, n: int, device) -> dict:
+    """The Jacobi fields of :class:`FemObject` on ``device``, from
+    ``element_indices`` (JAX state.py:277-279, 316-318)."""
+    nb, slots, coeff = build_jacobi_plan(element_indices, n)
+    return dict(
+        jacobi_nb=torch.as_tensor(nb, device=device),
+        jacobi_slots=torch.as_tensor(slots, device=device),
+        jacobi_coeff=torch.as_tensor(coeff, device=device),
+        jacobi_gather=make_jacobi_gather(slots, nb.size, device),
+    )
+
+
 def initial_state(pos: np.ndarray, device, obj: FemObject = None) -> SimState:
-    """Rest state: positions given, every velocity channel zero, and the
-    internal inverses ``obj`` enables at the identity (JAX state.py:347-348)."""
+    """Rest state: positions given, every velocity channel and the Jacobi
+    anchor zero, and the internal inverses ``obj`` enables at the identity
+    (JAX state.py:347-348)."""
     p = torch.tensor(np.asarray(pos, np.float32), device=device)
     state = SimState(
         pos=p,
         vel=torch.zeros_like(p),
         vel_g=torch.zeros_like(p),
         force=torch.zeros_like(p),
+        jacobi_past_x=torch.zeros_like(p),
     )
     if obj is None:
         return state

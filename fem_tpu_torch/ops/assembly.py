@@ -16,11 +16,20 @@ on every device.  The plan exists in two forms built once on the host:
 ``element_contrib_full`` encodes the reference's per-element scatter pattern:
 local vertices ``1..d`` each receive one column of a d×d block, and local
 vertex ``0`` receives the negative sum of those columns.
+
+The serial Jacobi sweep's block-sparse rows (M10) have a plan of their own,
+:func:`build_jacobi_plan` (the JAX package's, copied), and its inverse,
+:func:`make_jacobi_gather`: for each of the N·max_nb neighbour slots its
+contribution ids in ascending order, as a :class:`TieredPlan` (the slot
+counts are skewed: a self slot sums every incident element, an off-diagonal
+slot the few elements on one edge), so that the rows are summed by a gather
+in a fixed order, as nodal assembly is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -98,3 +107,103 @@ def gather_edge_diffs(pos: torch.Tensor, element_indices: torch.Tensor) -> torch
     p = pos[element_indices]  # (E, d+1, d)
     diffs = p[:, 1:, :] - p[:, 0:1, :]  # row j = p_{j+1} - p_0
     return diffs.transpose(-1, -2)  # columns = edges
+
+
+def build_jacobi_plan(element_indices, num_particles: int):
+    """Block-sparse row structure of the implicit system for the serial
+    Jacobi sweep (the JAX package's ``build_jacobi_plan``, copied).
+
+    Element e (vertices v0, v1..vd) contributes its block K_e to 4·d (row,
+    col) pairs of the assembled graph Laplacian (reference scatter,
+    solver/implicit.py:151-181): (vi, vi, +), (vi, v0, −), (v0, vi, −),
+    (v0, v0, +) for each local i.  Unique pairs become per-row neighbour
+    slots in ascending column order.
+
+    Returns (nb_ids (N, max_nb) int32 — the neighbour particle of each
+    slot, −1 on padded slots; slot_ids (E, 4d) int32 — the flat index into
+    (N·max_nb) of each contribution; coeff (E, 4d) float32 — ±1 each).
+    Host-side numpy, once at load."""
+    idx = np.asarray(element_indices, np.int64)
+    e_cnt, dp1 = idx.shape
+    d = dp1 - 1
+    v0 = np.repeat(idx[:, 0:1], d, axis=1)  # (E, d)
+    vi = idx[:, 1:]  # (E, d)
+    rows = np.concatenate([vi, vi, v0, v0], axis=1)  # (E, 4d)
+    cols = np.concatenate([vi, v0, vi, v0], axis=1)
+    ones = np.ones((e_cnt, d), np.float32)
+    coeff = np.concatenate([ones, -ones, -ones, ones], axis=1)
+    pairs = rows * np.int64(num_particles) + cols
+    uniq = np.unique(pairs)
+    urows = uniq // num_particles
+    counts = np.bincount(urows, minlength=num_particles)
+    max_nb = int(counts.max()) if counts.size else 1
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(uniq.size) - starts[urows]
+    nb_ids = np.full((num_particles, max_nb), -1, np.int64)
+    nb_ids[urows, rank] = uniq % num_particles
+    pos = np.searchsorted(uniq, pairs.reshape(-1))
+    slot_ids = (urows[pos] * max_nb + rank[pos]).reshape(e_cnt, 4 * d)
+    return nb_ids.astype(np.int32), slot_ids.astype(np.int32), coeff
+
+
+def split_two_tier(plan, counts, min_saving: float = 0.25):
+    """Split a padded ``(S, maxdeg)`` gather plan in two tiers when its
+    degrees are skewed enough to pay for it (the JAX package's
+    ``split_two_tier``, copied): ``lo`` ``(S, cap)`` at the cap that
+    gathers the fewest rows, ``hi`` ``(S2, maxdeg − cap)`` the remaining
+    rows of the ``out`` outliers.  ``hi`` and ``out`` are None, and ``lo``
+    is ``plan``, when the split saves less than ``min_saving`` of the
+    gathered rows."""
+    plan = np.asarray(plan)
+    counts = np.asarray(counts)
+    n, maxdeg = plan.shape
+    if n == 0 or maxdeg <= 1:
+        return plan, None, None
+    caps = np.arange(1, maxdeg + 1)
+    n2_at = np.array([(counts > c).sum() for c in caps])
+    cost = n * caps + n2_at * (maxdeg - caps)
+    best = int(np.argmin(cost))
+    cap = int(caps[best])
+    if cap == maxdeg or cost[best] > (1.0 - min_saving) * n * maxdeg:
+        return plan, None, None
+    outliers = np.nonzero(counts > cap)[0].astype(np.int32)
+    return plan[:, :cap], plan[outliers, cap:], outliers
+
+
+@dataclasses.dataclass(frozen=True)
+class TieredPlan:
+    """A sentinel-padded gather plan in one or two tiers
+    (:func:`split_two_tier`); the sentinel is the row count of the
+    contributions it gathers."""
+
+    lo: torch.Tensor  # (S, cap) int32
+    hi: Optional[torch.Tensor] = None  # (S2, maxdeg − cap) int32
+    out: Optional[torch.Tensor] = None  # (S2,) int64 segments of ``hi``
+
+
+def make_jacobi_gather(slot_ids, num_slots: int, device) -> TieredPlan:
+    """The inverse of ``slot_ids`` (E, 4d): for each of the ``num_slots``
+    = N·max_nb slots, its contribution ids ``e·4d + l`` in ascending order,
+    split in two tiers.  Host-side numpy, once at load."""
+    slots = np.asarray(slot_ids)
+    plan = build_gather_plan(slots, num_slots)
+    counts = np.bincount(slots.reshape(-1), minlength=num_slots)
+    lo, hi, out = split_two_tier(plan, counts)
+    return TieredPlan(
+        lo=torch.as_tensor(np.ascontiguousarray(lo), device=device),
+        hi=None if hi is None else torch.as_tensor(hi, device=device),
+        out=None if out is None else torch.as_tensor(
+            out.astype(np.int64), device=device),
+    )
+
+
+def gather_tiered(contrib: torch.Tensor, plan: TieredPlan) -> torch.Tensor:
+    """``(R, k) -> (S, k)``: each segment's sum of its contribution rows
+    through ``plan``, in the plan's order (a zero row appended as the
+    sentinel; the outliers' high tier added on top, each segment once, by
+    a gather and a placement: no atomics)."""
+    flat = torch.cat([contrib, contrib.new_zeros((1, contrib.shape[-1]))])
+    out = flat[plan.lo].sum(dim=1)
+    if plan.hi is not None:
+        out[plan.out] = out[plan.out] + flat[plan.hi].sum(dim=1)
+    return out

@@ -1,8 +1,9 @@
 # coding=utf-8
 """Simulation stepping: the substep and the frame.
 
-The port of the JAX package's ``sim.py`` for the semi-implicit
-conjugate-gradient path and the explicit and autodiff paths.  A substep
+The port of the JAX package's ``sim.py`` for the semi-implicit path (the
+conjugate-gradient and the Jacobi solvers, matrix-free or dense) and the
+explicit and autodiff paths.  A substep
 is, as in the reference's main loop (main.py:101-112; ``auto_diff`` wins
 over everything):
 
@@ -45,7 +46,9 @@ paths).  ``make_frame_fn`` picks how, as the JAX package's does:
   only (:func:`supports_fused_frame`), never for ``"auto"``;
 * otherwise the op-composed frame: ``sim_count`` substeps back to back, in
   which nothing waits for the device unless the blocked operator's CG loop
-  reads ‖r‖² (``operator_mode="blocked"``).
+  reads ‖r‖² (``operator_mode="blocked"``) or the snapshot Jacobi sweep its
+  error; the serial Jacobi solve is one launch of J1 that reads nothing
+  back, and each substep carries ``jacobi_past_x`` to the next.
 
 Every configuration the port does not cover raises ``NotImplementedError``
 naming its ROADMAP item.
@@ -78,6 +81,7 @@ from fem_tpu_torch.solvers.advect import (
     gravity_vector,
     kinematic_step,
 )
+from fem_tpu_torch.solvers.dense import implicit_velocity_solve_dense
 from fem_tpu_torch.solvers.explicit import (
     analytic_energy_gradient,
     autodiff_energy_gradient,
@@ -110,12 +114,10 @@ def check_supported_config(cfg: SimConfig) -> None:
     ]
     if not _explicit(cfg):
         unsupported += [
-            (cfg.implicit_method == 0, "the Jacobi solver", "M10"),
             (cfg.integrator != "semi_implicit",
              f"integrator={cfg.integrator!r}", "M16"),
             (cfg.cg_precond.startswith("two_level"),
              f"cg_precond={cfg.cg_precond!r}", "M16"),
-            (cfg.solver_backend == "dense", "solver_backend='dense'", "M10"),
             (cfg.cg_fast_math,
              "cg_fast_math (the TPU kernels' 2-plane bf16 split-dots on the "
              "MXU; the port computes in plain f32 and has no counterpart)",
@@ -145,11 +147,17 @@ def substep(
     element_backend: str = "auto",
     hessian: str = "reference",
     wall_friction: float = 0.0,
+    jacobi_sweep: str = "serial",
+    solver_backend: str = "auto",
 ) -> Tuple[SimState, StepAux]:
     """One substep.  Explicit or autodiff: the energy gradient less the
     external force, then the kinematic step, with zero solver metrics.
-    Otherwise semi-implicit: the velocity solve from v + dt·M⁻¹·f_ext, then
-    advection.  An inelastic material then updates its internal inverses."""
+    Otherwise semi-implicit: the velocity solve from v + dt·M⁻¹·f_ext —
+    the dense backend (``solvers/dense.py``) for ``solver_backend="dense"``
+    under the JAX package's conditions (its sim.py:203-222: the reference
+    Hessian and CG preconditioner, no material layers, no pins), else the
+    matrix-free solve — then advection.  An inelastic material then updates
+    its internal inverses."""
     inelastic = is_inelastic(obj)
     layers = material_layers(obj, state) if inelastic else None
     external = obj.static_load
@@ -186,10 +194,19 @@ def substep(
         # branch unchanged.
         state = state.replace(
             vel=state.vel + dt * external / obj.mass[:, None])
-    state, aux = implicit_velocity_solve(
-        obj, state, dt, implicit_method, preconditioned, robust_inversion,
-        cg_precond, operator_mode, layers, hessian, element_backend,
-    )
+    use_dense = (solver_backend == "dense" and hessian == "reference"
+                 and cg_precond == "reference" and not inelastic
+                 and obj.free_mask is None)
+    if use_dense:
+        state, aux = implicit_velocity_solve_dense(
+            obj, state, dt, implicit_method, preconditioned, robust_inversion,
+            jacobi_sweep)
+    else:
+        state, aux = implicit_velocity_solve(
+            obj, state, dt, implicit_method, preconditioned, robust_inversion,
+            cg_precond, operator_mode, layers, hessian, element_backend,
+            jacobi_sweep,
+        )
     # The decay follows the state's dtype; gravity stays f32, as in the JAX
     # package's advect_implicit_step.
     state = advect_implicit_step(
@@ -215,6 +232,8 @@ def substep_kwargs(cfg: SimConfig) -> dict:
         element_backend=cfg.element_backend,
         hessian=cfg.hessian,
         wall_friction=cfg.wall_friction,
+        jacobi_sweep=cfg.jacobi_sweep,
+        solver_backend=cfg.solver_backend,
     )
 
 

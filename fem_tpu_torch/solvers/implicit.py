@@ -44,6 +44,21 @@ either; both loops read ‖r‖² on the host once an iteration.  On CUDA
 tensors the kernels are the hand-written CUDA ones; on CPU tensors their
 plain PyTorch versions.
 
+The Jacobi solver (``implicit_method=0``, the JAX package's
+implicit.py:1197-1245) takes the graph branch's K1 (one layer: inelastic
+materials, pins and ``hessian="exact_jvp"`` raise, as there), then
+
+* ``jacobi_sweep="serial"`` (the reference's execution): the block-sparse
+  rows (:func:`sparse_system_rows`, a deterministic gather) and the whole
+  serial solve J1 (``ops/jacobi_kernels.jacobi_serial``, one launch a
+  solve on a CUDA object); an object without the Jacobi plan runs J1 over
+  the dense system (``solvers/dense.assemble_dense_system``);
+* ``"snapshot"``: the weighted Jacobi of :func:`jacobi_solve`, op-composed
+  with a host read of the error a sweep, over the blocked operator K3 (its
+  K from K1 on the block-ordered element copies) when the object has
+  locality blocks and ``operator_mode`` is "auto" or "blocked", else over
+  the edge-matrix or the graph operator.
+
 Every material of ``ops/element.py`` runs, and ``robust`` (the
 ``robust_inversion`` extension) on every branch.  An inelastic material
 passes its material layers (ops/inelastic.py): the element chain (or the
@@ -62,8 +77,13 @@ import torch
 from fem_tpu_torch.models.state import FemObject, SimState
 from fem_tpu_torch.ops import element
 from fem_tpu_torch.ops import element_kernels as ek
-from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
+from fem_tpu_torch.ops.assembly import (
+    element_contrib_full,
+    gather_assemble,
+    gather_tiered,
+)
 from fem_tpu_torch.ops.blocked_kernels import (
+    blocked_graph_apply,
     blocked_prep_force,
     blocked_velocity_solve,
 )
@@ -84,6 +104,14 @@ from fem_tpu_torch.ops.inelastic import (
     normalize_layers,
     sum_layers,
 )
+from fem_tpu_torch.ops.jacobi_kernels import (
+    MAX_ITER,
+    OMEGA,
+    TOL,
+    JacobiResult,
+    jacobi_outer_loop,
+    jacobi_serial,
+)
 from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, JACOBI_METHOD
 
 __all__ = [
@@ -97,12 +125,17 @@ __all__ = [
     "graph_block_apply",
     "implicit_rhs",
     "implicit_velocity_solve",
+    "jacobi_solve",
+    "jacobi_solve_serial",
+    "jacobi_solve_serial_sparse",
+    "JacobiResult",
     "make_exact_hvp_apply",
     "make_mxu_system_apply",
     "make_system_apply",
     "make_system_apply_t",
     "preconditioned_conjugate_gradient",
     "rayleigh_damping_grad",
+    "sparse_system_rows",
     "system_coeff",
 ]
 
@@ -302,6 +335,83 @@ def implicit_rhs(obj: FemObject, state: SimState, dt: float,
     return state.vel + dt * f / obj.mass[:, None]
 
 
+def jacobi_solve(
+    operator: Callable[[torch.Tensor], torch.Tensor],
+    diag: torch.Tensor,
+    b: torch.Tensor,
+    past_x: torch.Tensor,
+    omega: float = OMEGA,
+    tol: float = TOL,
+    max_iter: int = MAX_ITER,
+) -> JacobiResult:
+    """Snapshot weighted-Jacobi sweeps over any ``operator`` (the JAX
+    package's ``jacobi_solve``, the ``jacobi_sweep="snapshot"`` extension):
+    every row reads the previous iterate, ``diag`` (N, d, d) gives the
+    scalar diagonal A_ii[k,k].  Op-composed, the error read on the host
+    once a sweep (:func:`jacobi_outer_loop`)."""
+    diag_kk = torch.diagonal(diag, dim1=-2, dim2=-1)
+    safe = diag_kk.abs() >= 1e-6
+    safe_diag = torch.where(safe, diag_kk, 1.0)
+
+    def once(x, past):
+        num = (b - operator(x)) + diag_kk * x
+        upd = omega * num / safe_diag + (1.0 - omega) * past
+        return torch.where(safe, upd, 0.0)
+
+    def error(x):
+        r = b - operator(x)
+        return torch.sqrt(torch.sum(r * r))
+
+    return jacobi_outer_loop(once, error, b, past_x, tol, max_iter)
+
+
+def jacobi_solve_serial(a_dense: torch.Tensor, b: torch.Tensor,
+                        past_x: torch.Tensor, omega: float = OMEGA,
+                        tol: float = TOL, max_iter: int = MAX_ITER
+                        ) -> JacobiResult:
+    """The serial sweep over the dense system ``a_dense`` (N·d, N·d) (the
+    JAX package's ``jacobi_solve_serial``): J1 over its dense rows on a
+    CUDA tensor, the plain row loop on a CPU one."""
+    return jacobi_serial(a_dense, b, past_x, None, omega, tol, max_iter)
+
+
+def jacobi_solve_serial_sparse(nb_ids: torch.Tensor, blocks: torch.Tensor,
+                               b: torch.Tensor, past_x: torch.Tensor,
+                               omega: float = OMEGA, tol: float = TOL,
+                               max_iter: int = MAX_ITER) -> JacobiResult:
+    """The serial sweep over the block-sparse rows ``blocks`` (N, max_nb,
+    d, d) of the neighbours ``nb_ids`` (the JAX package's
+    ``jacobi_solve_serial_sparse``): J1 on CUDA tensors, the plain row loop
+    on CPU ones."""
+    return jacobi_serial(blocks, b, past_x, nb_ids, omega, tol, max_iter)
+
+
+def sparse_system_rows(obj: FemObject, K: torch.Tensor, dt: float,
+                       beta: float = 0.0) -> torch.Tensor:
+    """Block-sparse rows (N, max_nb, d, d) of A = I − c·M⁻¹·G(K) over the
+    object's neighbour slots (the JAX package's ``sparse_system_rows``):
+    slot k of row i holds A[i, jacobi_nb[i, k]], zero on padded slots.
+    Each slot sums its ±K contributions through ``obj.jacobi_gather`` in
+    ascending order (a gather, no atomics); c = :func:`system_coeff`."""
+    d, n = obj.dim, obj.particle_cnt
+    max_nb = obj.jacobi_nb.shape[1]
+    vals = K[:, None, :, :] * obj.jacobi_coeff[..., None, None]
+    acc = gather_tiered(vals.reshape(-1, d * d), obj.jacobi_gather)
+    a = -system_coeff(dt, beta) * acc.reshape(n, max_nb, d, d) \
+        / obj.mass[:, None, None, None]
+    ids = torch.arange(n, dtype=obj.jacobi_nb.dtype, device=K.device)
+    self_slot = (obj.jacobi_nb == ids[:, None])[..., None, None]
+    eye = torch.eye(d, dtype=a.dtype, device=a.device)
+    return a + self_slot * eye
+
+
+def jacobi_anchor(state: SimState) -> torch.Tensor:
+    """The state's relaxation anchor ``jacobi_past_x`` (zero when None)."""
+    if state.jacobi_past_x is None:
+        return torch.zeros_like(state.vel)
+    return state.jacobi_past_x
+
+
 class ImplicitAux(NamedTuple):
     iterations: torch.Tensor
     residual: torch.Tensor
@@ -319,17 +429,18 @@ def implicit_velocity_solve(
     layers=None,
     hessian: str = "reference",
     element_backend: str = "auto",
+    jacobi_sweep: str = "serial",
 ) -> Tuple[SimState, ImplicitAux]:
     """Assemble (matrix-free) and solve for the new velocity; returns the
-    updated state (vel ← x, implicit.py:222-223) and the solver metrics, all
-    left on the object's device.  The branches as the module says;
-    ``layers``: the material layers (None: the one elastic layer);
-    ``element_backend`` applies to the exact-Hessian rhs."""
+    updated state (vel ← x, implicit.py:222-223; the Jacobi solver also
+    ``jacobi_past_x``) and the solver metrics (the Jacobi solver's
+    iterations and final error ‖b − A·x‖), all left on the object's device.
+    The branches as the module says; ``layers``: the material layers (None:
+    the one elastic layer); ``element_backend`` applies to the
+    exact-Hessian rhs."""
     if method == JACOBI_METHOD:
-        raise NotImplementedError(
-            "the Jacobi solver (implicit_method=0) is not ported yet "
-            "(ROADMAP M10)"
-        )
+        return _jacobi_velocity_solve(obj, state, dt, robust, operator_mode,
+                                      layers, hessian, jacobi_sweep)
     if method != CONJUGATE_GRADIENT_METHOD:
         raise ValueError(f"unknown implicit method {method}")
     if cg_precond.startswith("two_level"):
@@ -447,3 +558,74 @@ def _exact_solve(obj, state, dt, preconditioned, cg_precond, robust,
         lambda: _exact_apply_t(obj, state.pos, dt, robust, beta, layers),
         b, preconditioned, cg_precond, None, obj.mass, obj.free_mask,
         obj.pin_vel))
+
+
+def _jacobi_velocity_solve(obj, state, dt, robust, operator_mode, layers,
+                           hessian, jacobi_sweep
+                           ) -> Tuple[SimState, ImplicitAux]:
+    """The Jacobi solver (JAX implicit.py:979-1001 for its refusals,
+    :1157-1245 for the solve), as the module says."""
+    if layers is not None:
+        raise ValueError(
+            "inelastic materials support only the CG solver "
+            "(implicit_method=1); the Jacobi sweeps keep pure "
+            "reference semantics"
+        )
+    if hessian == "exact_jvp":
+        raise ValueError(
+            "hessian='exact_jvp' supports only the CG solver (Jacobi "
+            "needs explicit diagonal blocks)"
+        )
+    if hessian != "reference":
+        raise ValueError(f"unknown hessian {hessian!r}")
+    if operator_mode == "blocked" and obj.blocking is None:
+        raise ValueError("operator_mode='blocked' requires obj.blocking")
+    beta = obj.damping_beta
+    K, cols = ek.hessian_and_force(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda, robust, obj.material)
+    f = gather_assemble(element_contrib_full(cols), obj.plan.idx)
+    b = state.vel + dt * f / obj.mass[:, None]
+    if obj.free_mask is not None:
+        raise ValueError(
+            "pin_boxes (Dirichlet constraints) support only the CG "
+            "solver; the Jacobi sweeps keep pure reference semantics"
+        )
+    past = jacobi_anchor(state)
+    if jacobi_sweep == "serial":
+        if obj.jacobi_nb is not None:
+            res = jacobi_solve_serial_sparse(
+                obj.jacobi_nb, sparse_system_rows(obj, K, dt, beta), b, past)
+        else:
+            from fem_tpu_torch.solvers.dense import assemble_dense_system
+
+            res = jacobi_solve_serial(
+                assemble_dense_system(obj, K, dt, beta), b, past)
+    elif jacobi_sweep == "snapshot":
+        res = jacobi_solve(
+            _snapshot_operator(obj, state, dt, robust, operator_mode, K),
+            diagonal_blocks(obj, K, dt, beta), b, past)
+    else:
+        raise ValueError(f"unknown jacobi_sweep {jacobi_sweep!r}")
+    return (state.replace(vel=res.x, jacobi_past_x=res.past_x),
+            ImplicitAux(res.iterations, res.error))
+
+
+def _snapshot_operator(obj, state, dt, robust, operator_mode, K):
+    """A·x of the snapshot sweep (JAX implicit.py:1186-1196, 1219-1241):
+    on locality blocks under "auto" or "blocked", K3 over K from K1 on the
+    block-ordered element copies (the blocking keeps no element
+    permutation of the mesh-order K); else the edge-matrix operator when
+    the object carries S under "mxu" or "auto"; else the graph operator."""
+    beta = obj.damping_beta
+    if obj.blocking is not None and operator_mode in ("auto", "blocked"):
+        blk = obj.blocking
+        k_blk, _ = ek.hessian_and_force(
+            state.pos, blk.element_indices, blk.ref_inv, blk.volume, obj.mu,
+            obj.s_lambda, robust, obj.material)
+        c = system_coeff(dt, beta)
+        m = obj.mass[:, None]
+        return lambda x: x - c * blocked_graph_apply(blk, k_blk, x) / m
+    if obj.edge_matrix is not None and operator_mode in ("mxu", "auto"):
+        return make_mxu_system_apply(obj, K, obj.edge_matrix, dt, beta)[0]
+    return make_system_apply(obj, K, dt, beta)

@@ -59,7 +59,8 @@ Key = Tuple[str, Optional[int]]
 # Every library of the port, as (source name, material or None).
 LIBRARIES: Tuple[Key, ...] = tuple(
     (name, None) for name in ("fused_cg", "advect", "edge_cg", "fused_frame",
-                              "probe_pairblock", "probe_int8")) + tuple(
+                              "probe_pairblock", "probe_int8",
+                              "jacobi_serial")) + tuple(
     (name, m) for name, ms in MATERIAL_SOURCES.items() for m in ms)
 
 _LOADED: Dict[Key, ctypes.CDLL] = {}

@@ -12,7 +12,9 @@ not use).  Tolerances are those of chip_smoke.py: K1 and K2 block-relative
 velocity rtol 5e-4 / atol 1e-6 and iterations within 1; K5 positions 1e-5,
 iterations within 1, velocities √1e-5 (what its CG's stopping rule fixes)
 and vel_g 1e-5; K6 block-relative 1e-5, K7b's partials and K7a's
-sums 1e-5 of their largest entry, K8 positions 1e-5.  Iteration
+sums 1e-5 of their largest entry, K8 positions 1e-5; J1 (the serial
+Jacobi solve) equal iterations and x and its anchor within 1e-5 of the
+largest entry, its sparse and dense row sources.  Iteration
 counts are compared only where a solve takes a few tens of iterations at
 most: over ~140 iterations f32 round-off moves the count by more than one
 between two summation orders, so there the velocity is held to the f64
@@ -28,6 +30,7 @@ long (20-100 iterations): velocities against f64, positions to 1e-5,
 residuals under the tolerance, counts left out."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -2500,3 +2503,175 @@ def test_explicit_and_implicit_substeps_take_one_launch_a_layer(body):
         assert set(fn.variant_launches) == {("cluster", obj.blocking.num_blocks
                                              if obj.blocking.num_blocks <= 16
                                              else 16)}
+
+
+# -- J1: the serial Jacobi solve ---------------------------------------------
+
+def _jacobi_system(obj, state, seed):
+    """(K, b, the sparse rows, the dense system, a past anchor) of the
+    body's state: K and the rhs columns from K1, the anchor numpy noise."""
+    from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
+    from fem_tpu_torch.solvers import dense, implicit
+
+    K, H = element_kernels.hessian_and_force(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda)
+    f = gather_assemble(element_contrib_full(H), obj.plan.idx)
+    b = (state.vel + 5e-4 * f / obj.mass[:, None]).contiguous()
+    rows = implicit.sparse_system_rows(obj, K, 5e-4).contiguous()
+    a = dense.assemble_dense_system(obj, K, 5e-4).contiguous()
+    rng = np.random.default_rng(seed)
+    past = torch.as_tensor(
+        rng.normal(scale=0.01, size=tuple(b.shape)).astype(np.float32),
+        device="cuda")
+    return K, b, rows, a, past
+
+
+# The flagship's dense system (36 MB) is no path: the dense backend runs
+# the 2D scenes.
+@pytest.mark.parametrize("case,source", [
+    ("2d", "sparse"), ("2d", "dense"), ("3d", "sparse"), ("3d", "dense"),
+    ("flagship", "sparse")])
+def test_jacobi_serial_kernel_matches_plain_and_repeats(
+        request, case, source):
+    """J1 against its plain version on the card: iterations (read from the
+    kernel's output tensor) within 1 — the stop test ‖b − A·x‖ ≤ 1e-5
+    meets ties that two orders of summation break differently (the 3D
+    cube: J1's 20th sweep ends just above 1e-5, the plain one's at
+    9.6e-6) — and, capped at the smaller count, equal, with x and the
+    anchor within 1e-5 of the largest entry; two runs bit-identical, one
+    launch a solve."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+
+    obj, state = request.getfixturevalue(
+        {"2d": "body_2d", "3d": "body", "flagship": "flagship"}[case])
+    _, b, rows, a, past = _jacobi_system(obj, state, 3)
+    args = ((rows, b, past, obj.jacobi_nb) if source == "sparse"
+            else (a, b, past))
+    before = jk.jacobi_serial.launches
+    got = jk.jacobi_serial(*args)
+    again = jk.jacobi_serial(*args)
+    assert jk.jacobi_serial.launches == before + 2
+    assert jk.jacobi_serial.last_plan.dense == (source == "dense")
+    ref = jk.jacobi_serial_plain(*args)
+    torch.cuda.synchronize()
+    assert got.iterations.device.type == "cuda"
+    assert got.iterations.dtype == torch.int32
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    it, itp = int(got.iterations), int(ref.iterations)
+    assert abs(it - itp) <= 1 and min(it, itp) > 1, (it, itp)
+    if it != itp:
+        got = jk.jacobi_serial(*args, max_iter=min(it, itp))
+        ref = jk.jacobi_serial_plain(*args, max_iter=min(it, itp))
+        assert int(got.iterations) == int(ref.iterations) == min(it, itp)
+    top = float(ref.x.abs().max())
+    for g, r in ((got.x, ref.x), (got.past_x, ref.past_x)):
+        assert float((g - r).abs().max()) <= TOL * top
+    # The reported error is ‖b − A·x‖ of the returned x, up to the f32
+    # rounding of the residual (9e-7 on the cube's plain solve, |b| ≤ 5).
+    err64 = torch.linalg.norm(b.double().reshape(-1)
+                              - a.double() @ got.x.double().reshape(-1))
+    assert abs(float(got.error) - float(err64)) <= 2e-6
+
+
+def test_jacobi_serial_zero_diagonal_and_rollback():
+    """The JAX package's edge cases (tests/test_implicit.py:199, :270,
+    :375: two particles, one component) through J1's two sources, each
+    component of a 2D particle a copy of the case (J1 takes dim 2 or 3):
+    the zeroed row, the rollback."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+
+    _require_cuda()
+    eye = np.eye(2)
+    for a_np, past_np in ((np.diag([1.0, 1e-9]), [0.0, 0.0]),
+                          (np.array([[1.0, 4.0], [5.0, 1.0]]), [7.0, 9.0])):
+        a = torch.tensor(np.kron(a_np, eye), dtype=torch.float32,
+                         device="cuda")
+        blocks = torch.tensor(a_np[:, :, None, None] * eye,
+                              dtype=torch.float32, device="cuda")
+        b = torch.ones((2, 2), device="cuda")
+        past = torch.tensor(np.repeat(past_np, 2).reshape(2, 2),
+                            dtype=torch.float32, device="cuda")
+        nb = torch.tensor([[0, 1], [0, 1]], dtype=torch.int32, device="cuda")
+        for args in ((a, b, past), (blocks, b, past, nb)):
+            got = jk.jacobi_serial(*args)
+            ref = jk.jacobi_serial_plain(*args)
+            assert int(got.iterations) == int(ref.iterations) >= 1
+            top = float(ref.x.abs().max())
+            for g, r in ((got.x, ref.x), (got.past_x, ref.past_x)):
+                assert float((g - r).abs().max()) <= TOL * top
+            if past_np[0] == 0.0:  # the zero diagonal zeroes particle 1
+                assert bool((got.x[1] == 0.0).all())
+
+
+def test_jacobi_serial_raises_and_never_falls_back(body, monkeypatch):
+    """A failed library load raises; bad operands raise before a launch;
+    the plain version is never taken for CUDA tensors."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+    from fem_tpu_torch.utils import cuda_build
+
+    obj, state = body
+    _, b, rows, a, past = _jacobi_system(obj, state, 4)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(jk, "jacobi_serial_plain", no_plain)
+    with pytest.raises(TypeError):
+        jk.jacobi_serial(rows.double(), b, past, obj.jacobi_nb)
+    with pytest.raises(ValueError):
+        jk.jacobi_serial(rows, b, past, obj.jacobi_nb[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        jk.jacobi_serial(a[:, :-1], b, past)
+    with pytest.raises(ValueError):
+        jk.serial_plan(5000, 3, 29)
+    with pytest.raises(ValueError):
+        jk.serial_plan(100, 3, 129)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(jk, "_LIB", None)
+    monkeypatch.setattr(cuda_build, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        jk.jacobi_serial(rows, b, past, obj.jacobi_nb)
+
+
+@pytest.mark.parametrize("sweep", ["serial", "snapshot"])
+def test_jacobi_frame_on_cuda_matches_cpu_frame(sweep, monkeypatch):
+    """configs/demo_passage_jacobi.json from a squashed, moving start: one
+    frame on the card against the CPU frame, positions within 1e-5,
+    iterations within 1 a substep; serial: J1 once a substep and never its
+    plain version; snapshot: no J1."""
+    from fem_tpu_torch import entry
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+
+    _require_cuda()
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "demo_passage_jacobi.json")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg, obj, state, obs = entry.load_config(
+            path, dev, sim_overrides=dict(jacobi_sweep=sweep))
+        rng = np.random.default_rng(3)
+        pos = state.pos.cpu().numpy()
+        c = pos.mean(axis=0, keepdims=True)
+        pos = (c + (pos - c) * np.array([1.1, 0.8])).astype(np.float32)
+        vel = rng.uniform(-0.3, 0.3, pos.shape).astype(np.float32)
+        state = state.replace(pos=torch.as_tensor(pos, device=dev),
+                              vel=torch.as_tensor(vel, device=dev))
+        frame = sim.make_frame_fn(obj, cfg)
+        before = jk.jacobi_serial.launches
+        if dev == "cuda":
+            with monkeypatch.context() as m:
+                m.setattr(jk, "jacobi_serial_plain", None)
+                s, aux = frame(state, obs)
+                torch.cuda.synchronize()
+            launches = jk.jacobi_serial.launches - before
+            assert launches == (cfg.sim_count if sweep == "serial" else 0)
+        else:
+            s, aux = frame(state, obs)
+        out[dev] = (s.pos.cpu(), aux.solver_iterations.cpu())
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= TOL
+    assert int((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 1
+    assert int(out["cpu"][1].min()) > 1

@@ -134,7 +134,9 @@ def test_exact_jvp_rejects_jacobi_and_block_jacobi():
         implicit.implicit_velocity_solve(obj, state, DT, 1, 0,
                                          cg_precond="block_jacobi",
                                          hessian="exact_jvp")
-    with pytest.raises(NotImplementedError, match="M10"):
+    # The Jacobi solver (ported in M10) refuses the exact Hessian, as the
+    # JAX package does: it needs explicit diagonal blocks.
+    with pytest.raises(ValueError, match="exact_jvp.*Jacobi"):
         implicit.implicit_velocity_solve(obj, state, DT, 0, 0,
                                          hessian="exact_jvp")
     with pytest.raises(ValueError, match="unknown hessian"):

@@ -8,7 +8,10 @@ file's tolerances (mean and std 5e-3, particles 0, 24 and 48 atol 1e-2).
 Each method runs twice: through ``frame_backend="auto"``, which on a CPU
 object is the op-composed frame of plain versions, and through the plain
 version of the whole-frame kernel the card runs for it (K8 for the
-explicit and autodiff methods, K5 for the implicit CG)."""
+explicit and autodiff methods, K5 for the implicit CG).  The
+``implicit_jacobi`` golden (the serial sweep) runs through the op-composed
+frame only: on the card that frame runs J1 once a substep, and on the CPU
+J1's plain row loop (~30 s)."""
 
 import dataclasses
 
@@ -55,8 +58,15 @@ def _golden_run(name, frame_backend):
 @pytest.mark.parametrize("backend", ["auto", "whole frame"])
 @pytest.mark.parametrize("name", sorted(WHOLE_FRAME))
 def test_golden_trajectory_2d(name, backend):
-    p = _golden_run(name, WHOLE_FRAME[name] if backend == "whole frame"
-                    else "auto")
+    _check_golden(name, _golden_run(
+        name, WHOLE_FRAME[name] if backend == "whole frame" else "auto"))
+
+
+def test_golden_trajectory_2d_jacobi():
+    _check_golden("implicit_jacobi", _golden_run("implicit_jacobi", "auto"))
+
+
+def _check_golden(name, p):
     g = GOLDEN[name]
     assert np.isfinite(p).all()
     assert abs(p.mean() - g["mean"]) < 5e-3

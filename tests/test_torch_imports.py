@@ -127,16 +127,19 @@ def test_unported_features_raise():
     # friction, block-Jacobi PCG and the exact Hessian since M13.
     from fem_tpu_torch.utils.config import ObstacleConfig
 
+    # The Jacobi solver and the dense backend run since M10.
     for change in (
         dict(robust_inversion=True), dict(cg_precond="block_jacobi"),
         dict(hessian="exact_jvp"), dict(wall_friction=0.3),
+        dict(implicit_method=0), dict(solver_backend="dense"),
+        dict(implicit_method=0, jacobi_sweep="snapshot",
+             solver_backend="dense"),
         dict(obstacles=(ObstacleConfig(type="halfspace", point=(0, 0, 0),
                                        normal=(0, 1, 0)),)),
     ):
         check_supported_config(dataclasses.replace(base, **change))
     for change in (
-        dict(implicit_method=0), dict(integrator="newton"),
-        dict(cg_precond="two_level"), dict(solver_backend="dense"),
+        dict(integrator="newton"), dict(cg_precond="two_level"),
         dict(adaptive_dt=True), dict(contact="penalty"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP M"):
