@@ -11,8 +11,10 @@ and autodiff method at ``delta_time = 1e-4`` (D-G) — on the 2D scenes
 (H-L), the inelastic materials (M-Q), every base material and
 ``robust_inversion`` (R-V), the implicit extensions — pins, loads,
 Rayleigh β, SDF obstacles, block-Jacobi and the exact Hessian (W-Z′) and
-the fused advection (AD) — and the unblocked whole frame, the ``"mxu"``
-operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), and holds
+the fused advection (AD) — the unblocked whole frame, the ``"mxu"``
+operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), the
+Jacobi solver (AH-AK), and the CLI, ``Simulation`` and the adaptive-dt
+guard (AL-AN), and holds
 every CUDA kernel of those paths against its plain PyTorch version.  K5
 runs as its cluster variant on every path (each mesh there fits one
 thread-block cluster; ``counts()`` fails the run otherwise), as do K8, K4,
@@ -345,7 +347,28 @@ the eight:
     Jacobi solver (K1 and J1 over the dense rows once a substep), each 10
     frames, the first frame within 1e-5 of the CPU frame;
 58. the ``implicit_jacobi`` golden of tests/test_golden.py through J1: 200
-    frames, K1 and J1 once a substep, held to its values.
+    frames, K1 and J1 once a substep, held to its values;
+59. path AL, the entry points users call: the CLI (``fem_tpu_torch.main.run``) on
+    ``configs/demo_spot.json``, 30 frames, ``--no-render
+    --checkpoint-every 10``: K5 once a frame and no other kernel, the
+    resume from frame 10 bit-equal to the straight run, the OBJ files at
+    the reference's cadence (the last one equal), the first frame within
+    1e-5 of the CPU's plain K5 frame, and the same 30 frames with no OBJ
+    export or checkpoint (steps/s); ``configs/default.json`` likewise
+    through K8; ``Simulation`` on the flagship with ``nan_guard=True``, 30
+    frames, K5 once a frame; steps/s, device ms a frame and busy share;
+60. path AM, the guarded flagship (``adaptive_dt``) from the deformed
+    state: κ through K2 within 1e-5 relative of the CPU's plain κ, then
+    levels 0-3 forced through ``adaptive_dt_threshold``, 5 frames each:
+    K2 and K5 once a frame, one host read of the level a frame, K5's own
+    barrier count giving 10·n substeps a launch, the first frame within
+    1e-5 of the CPU guarded frame (iterations within n an outer substep);
+    device ms a frame against path A's;
+61. path AN, the stiff 2D reproducer of tests/test_torch_adaptive.py (7
+    subdivisions, E 4e5, dt 2e-3, velocity noise 1e-4): 8 frames unguarded
+    through K5 (non-finite within them) and guarded (K2 and K5 once a
+    frame, finite, split), the first guarded frame within 1e-5 of the
+    CPU's.  One ``entry_paths`` JSON line holds their numbers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -4709,19 +4732,421 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
     return rows, time.perf_counter() - t_phase
 
 
-def main():
-    import torch
+# -- The CLI, the API and the adaptive-dt guard (sections 59-61) -------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(REPO, "fem_tpu_torch")):
-        print("chip_smoke: fem_tpu_torch/ not beside this script",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
-    import fem_tpu_torch  # noqa: F401  (precision pins)
+FRAMES_AL = 30  # path AL: the CLI's and the API's flagship runs
+CHECKPOINT_AL = 10  # path AL: the CLI's checkpoint cadence
+FRAMES_AM = 5  # path AM: checked guarded frames a level
+FRAMES_PROFILED = 10  # paths AL and AM: frames a profiled window
+FRAMES_AN = 8  # path AN: the stiff reproducer, each way
+# Path AN: tests/test_adaptive_dt.py's stiff square (7 subdivisions, E 4e5)
+# at dt 2e-3 under default.json's two circles, its velocities noised by
+# 1e-4 (numpy seed 0) to seed the blow-up (tests/test_torch_adaptive.py).
+STIFF_AN = dict(
+    dim=2, delta_time=2e-3, sim_count=10, auto_diff=False,
+    use_explicit_method=False, implicit_method=1, preconditioned=1,
+    g_dir=[0, -1],
+    objects=[dict(center=[0.5, 0.8], side_length=0.2, subdivisions=7,
+                  E=4e5)],
+    blocks=[dict(id=0, block_center=[0.8, 0.5], block_radius=0.21),
+            dict(id=1, block_center=[0.2, 0.5], block_radius=0.21)])
+
+
+def cli_run(args):
+    """``fem_tpu_torch.main.run(args)`` with its standard output kept: (exit
+    code, the lines it printed)."""
+    import contextlib
+    import io
+
+    from fem_tpu_torch import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.run(args)
+    return rc, buf.getvalue().splitlines()
+
+
+def export_count(frames, dt_frame, fps, bodies=1):
+    """OBJ exports of a CLI run of ``frames`` frames: the reference's rule
+    (its main.py:113-122), the clock advanced ``bodies`` times a frame."""
+    vt, count = 0.0, 0
+    for _ in range(frames):
+        for _ in range(bodies):
+            vt += dt_frame
+        if vt / (1.0 / fps) > count:
+            count += 1
+    return count
+
+
+def k5_substeps(torch, iterations):
+    """Substeps of the last K5 launch, from the barriers its kernel counted
+    (``fused_blocked_frame.last_barriers``) less those of the CG iterations
+    it reported, over each substep's own (``frame_barriers`` of one
+    substep at 0 and at 1 iteration)."""
+    from fem_tpu_torch.ops import frame_kernels as fk
+
+    fn = fk.fused_blocked_frame
+    variant = fn.last_plan.variant
+    met = int(fn.last_barriers.item())
+    per_step = fk.frame_barriers(variant, True, [0]) - 1
+    per_it = fk.frame_barriers(variant, True, [1]) - per_step - 1
+    return (met - 1 - per_it * int(iterations.sum())) / per_step, met
+
+
+def counted_window(torch, label, go, frames, expected):
+    """(device ms a frame, busy share) of ``frames`` frames of ``go`` under
+    the profiler, for a window that launched ``expected`` ({kernel name:
+    launches}, the wrappers' counts): each expected kernel at its mean
+    time a launch over the launches the profiler saw (CUPTI drops some at
+    a window's edge, more than one at times), the other kernels as seen.
+    Fails if it saw none of one, or more than were launched."""
+    per_kernel, wall_ms = profile_kernels(torch, go, 1)
+    total, seen = 0.0, {}
+    for key, (t, c) in per_kernel.items():
+        name = next((n for n in expected if n in key), None)
+        if name is None:
+            total += t
+        else:
+            seen.setdefault(name, [0.0, 0])
+            seen[name][0] += t
+            seen[name][1] += c
+    for name, launched in expected.items():
+        t, c = seen.get(name, (0.0, 0))
+        require(0 < c <= launched, f"{label}: the profiler saw {c} of the "
+                f"{launched} launches of {name}")
+        total += t / c * launched
+    dev_ms = total / frames
+    busy = 100 * total / wall_ms
+    log(f"[profile] {label}: {frames} frames under the profiler: device "
+        f"time {dev_ms:.4f} ms/frame of {wall_ms / frames:.4f} ms/frame wall "
+        f"in the same window: device busy {busy:.1f}%; launches seen "
+        f"{ {n: v[1] for n, v in seen.items()} } of {expected}")
+    return dev_ms, busy
+
+
+def run_entry_points(torch, dev, zero_counts, counts, only, card):
+    """Sections 59-61: paths AL (the CLI and ``Simulation``), AM (the
+    guarded flagship) and AN (the stiff reproducer).  Returns (the
+    ``entry_paths`` line's dict, phase seconds)."""
+    import shutil
+
+    import numpy as np
+
+    import fem_tpu_torch
     from fem_tpu_torch import convert, entry, sim
+    from fem_tpu_torch.models import mesh as pmesh
+    from fem_tpu_torch.models.state import Obstacles, build_object
+    from fem_tpu_torch.solvers import adaptive
+    from fem_tpu_torch.utils.config import parse_config
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(REPO, "build", "chip_smoke_entry")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    spot = os.path.join(REPO, "configs", "demo_spot.json")
+    default = os.path.join(REPO, "configs", "default.json")
+    line = {}
+
+    def on_cpu(obj, state, obs):
+        return (convert.object_from_arrays(*convert.object_to_arrays(obj),
+                                           "cpu"),
+                convert.state_from_arrays(convert.state_to_arrays(state),
+                                          "cpu"),
+                type(obs)(obs.centers.cpu(), obs.radii.cpu()))
+
+    def ckpt(folder, frame):
+        return np.load(os.path.join(out_dir, folder, f"ckpt_{frame:06}.npz"))
+
+    def first_frame_check(label, path, backend):
+        """The CLI's first frame on the card within 1e-5 of the CPU frame
+        (``frame_backend=backend``, the kernel's plain version)."""
+        rc, _ = cli_run(["--config", path, "--frames", "1", "--no-render",
+                         "--checkpoint-every", "1", "--print-every", "0",
+                         "--output", os.path.join(out_dir, label + "_1")])
+        require(rc == 0, f"path AL {label}: one frame exit code {rc}")
+        cfg, cobj, cstate, cobs = entry.load_config(path, "cpu")
+        ref, _ = sim.make_frame_fn(
+            cobj, dataclasses.replace(cfg, frame_backend=backend))(cstate,
+                                                                   cobs)
+        err = float(np.abs(ckpt(label + "_1", 1)["b0_pos"]
+                           - ref.pos.numpy()).max())
+        log(f"[path AL] {label}: the CLI's first frame on the card vs the "
+            f"CPU {backend} frame: max |dpos| {err:.3e}")
+        require(err <= 1e-5, f"path AL {label}: first frame off by {err}")
+        return err
+
+    # -- 59. path AL: the CLI and Simulation ----------------------------------
+    cwd = os.getcwd()
+    os.chdir(REPO)  # the configs name their meshes relative to the repo
+    try:
+        scfg, _, _, _ = entry.load_config(spot, "cpu")
+        args = ["--config", spot, "--no-render", "--checkpoint-every",
+                str(CHECKPOINT_AL), "--print-every", str(CHECKPOINT_AL)]
+        zero_counts()
+        rc, printed = cli_run(args + ["--frames", str(FRAMES_AL), "--output",
+                                      os.path.join(out_dir, "straight")])
+        torch.cuda.synchronize()
+        launches = counts()
+        for text in printed:
+            log(f"[path AL] CLI: {text}")
+        require(rc == 0, f"path AL: the CLI's exit code {rc}")
+        require(launches == only(blocked_frame=FRAMES_AL),
+                f"path AL: the CLI's launches {launches}")
+        last = [t for t in printed if t.startswith(f"frame {FRAMES_AL}/")]
+        require(len(last) == 1, "path AL: no print at the last frame")
+        cli_steps = float(last[0].split(" steps/s")[0].split()[-1])
+        zero_counts()
+        rc, printed = cli_run(args + ["--frames", str(FRAMES_AL), "--output",
+                                      os.path.join(out_dir, "resumed"),
+                                      "--resume", os.path.join(
+                                          out_dir, "straight",
+                                          f"ckpt_{CHECKPOINT_AL:06}.npz")])
+        torch.cuda.synchronize()
+        launches = counts()
+        require(rc == 0 and launches == only(
+            blocked_frame=FRAMES_AL - CHECKPOINT_AL),
+            f"path AL resume: exit code {rc}, launches {launches}")
+        a, b = ckpt("straight", FRAMES_AL), ckpt("resumed", FRAMES_AL)
+        require(sorted(a.files) == sorted(b.files)
+                and all(np.array_equal(a[k], b[k]) for k in a.files),
+                "path AL: the resumed run differs from the straight run")
+        expected = export_count(FRAMES_AL,
+                                scfg.sim_count * scfg.delta_time,
+                                scfg.output_fps)
+        names = sorted(n for n in os.listdir(os.path.join(out_dir,
+                                                          "straight"))
+                       if n.endswith(".obj"))
+        require(names == [f"obj_{i:06}.obj" for i in range(expected)],
+                f"path AL: OBJ files {names}, {expected} expected")
+        with open(os.path.join(out_dir, "straight", names[-1])) as f:
+            straight_obj = f.read()
+        with open(os.path.join(out_dir, "resumed", names[-1])) as f:
+            require(f.read() == straight_obj,
+                    "path AL: the resumed run's last OBJ differs")
+        log(f"[path AL] CLI, configs/demo_spot.json: {FRAMES_AL} frames, K5 "
+            f"once a frame ({FRAMES_AL} launches and no other kernel); "
+            f"{cli_steps:.1f} steps/s as it printed (host clock, its first "
+            f"frame plans K5's cluster); resumed from frame {CHECKPOINT_AL} "
+            f"bit-equal to the straight run; {expected} OBJ files at the "
+            f"cadence, the last equal; card {card}")
+        err_spot = first_frame_check("demo_spot", spot, "blocked")
+        # The same run with no output in a frame: OBJ export off, no
+        # checkpoint, one print at the end.
+        with open(spot) as f:
+            quiet = json.load(f)
+        quiet["is_output_obj"] = False
+        quiet_path = os.path.join(out_dir, "demo_spot_no_obj.json")
+        with open(quiet_path, "w") as f:
+            json.dump(quiet, f)
+        zero_counts()
+        rc, printed = cli_run(["--config", quiet_path, "--frames",
+                               str(FRAMES_AL), "--no-render",
+                               "--print-every", str(FRAMES_AL), "--output",
+                               os.path.join(out_dir, "quiet")])
+        torch.cuda.synchronize()
+        launches = counts()
+        require(rc == 0 and launches == only(blocked_frame=FRAMES_AL),
+                f"path AL without output: exit code {rc}, launches "
+                f"{launches}")
+        quiet_steps = float(printed[-1].split(" steps/s")[0].split()[-1])
+        log(f"[path AL] CLI, configs/demo_spot.json without OBJ export or "
+            f"checkpoints: {FRAMES_AL} frames, K5 once a frame; "
+            f"{quiet_steps:.1f} steps/s as it printed")
+        zero_counts()
+        rc, printed = cli_run(["--config", default, "--frames",
+                               str(FRAMES_AL), "--no-render",
+                               "--print-every", str(FRAMES_AL), "--output",
+                               os.path.join(out_dir, "default")])
+        torch.cuda.synchronize()
+        launches = counts()
+        require(rc == 0 and launches == only(explicit_frame=FRAMES_AL),
+                f"path AL default.json: exit code {rc}, launches {launches}")
+        default_steps = float(printed[-1].split(" steps/s")[0].split()[-1])
+        log(f"[path AL] CLI, configs/default.json: {FRAMES_AL} frames, K8 "
+            f"once a frame; {default_steps:.1f} steps/s as it printed")
+        err_default = first_frame_check("default", default,
+                                        "blocked_explicit")
+
+        api = fem_tpu_torch.Simulation.from_config(spot, device=dev)
+        api.run(frames=1, nan_guard=True)  # warm-up: K5 plans its cluster
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        api.run(frames=FRAMES_AL, nan_guard=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        require(launches == only(blocked_frame=FRAMES_AL),
+                f"path AL Simulation: launches {launches}")
+        m = api.metrics()
+        require(not m.any_nan, f"path AL Simulation: {m}")
+        api_steps = FRAMES_AL * scfg.sim_count / wall
+        k5_frames = {k5_kernel_name(): FRAMES_PROFILED}
+        api_ms, api_busy = counted_window(
+            torch, "path AL (Simulation.run, nan_guard)",
+            lambda: api.run(frames=FRAMES_PROFILED, nan_guard=True),
+            FRAMES_PROFILED, k5_frames)
+        plain_frame = sim.make_frame_fn(api.scene[0].obj, scfg)
+        frame_ms, frame_busy = counted_window(
+            torch, "path AL (the same body's frame function, path A's "
+            "route)", frames_go(plain_frame, api.scene[0].state,
+                                api.obstacles, FRAMES_PROFILED),
+            FRAMES_PROFILED, k5_frames)
+        log(f"[path AL] Simulation on the flagship, nan_guard=True: "
+            f"{FRAMES_AL} frames, K5 once a frame, {api_steps:.1f} steps/s "
+            f"(a small read back a frame); {api_ms:.4f} device ms a frame, "
+            f"{api_busy:.1f}% busy (its frame function alone "
+            f"{frame_ms:.4f}, {frame_busy:.1f}%); metrics {m}; card {card}")
+        line["AL"] = dict(cli_steps_per_s=cli_steps,
+                          quiet_cli_steps_per_s=quiet_steps,
+                          default_cli_steps_per_s=default_steps,
+                          api_steps_per_s=api_steps,
+                          api_device_ms_per_frame=api_ms,
+                          api_busy_percent=api_busy,
+                          frame_device_ms_per_frame=frame_ms,
+                          frame_busy_percent=frame_busy,
+                          first_frame_err=max(err_spot, err_default))
+    finally:
+        os.chdir(cwd)
+
+    # -- 60. path AM: the guarded flagship -------------------------------------
+    cfg, obj, state0, obs = entry.flagship(dev)
+    state = entry.deformed(state0)
+    cobj, cstate, cobs = on_cpu(obj, state, obs)
+    dt = cfg.delta_time
+    kappa = float(adaptive.kappa_estimate(obj, state.pos, dt))
+    kappa_cpu = float(adaptive.kappa_estimate(cobj, cstate.pos, dt))
+    rel = abs(kappa - kappa_cpu) / kappa_cpu
+    log(f"[path AM] kappa of the deformed flagship {kappa:.6e} (K2), plain "
+        f"{kappa_cpu:.6e} on the CPU: relative error {rel:.3e}")
+    require(rel <= 1e-5, f"path AM: kappa off by {rel} relative")
+    line["AM"] = dict(kappa=kappa, kappa_rel_err=rel, levels={})
+    frame_a = sim.make_frame_fn(obj, cfg)
+    frame_a(state, obs)
+    a_ms, a_busy = counted_window(
+        torch, "path A (K5, unguarded)",
+        frames_go(frame_a, state, obs, FRAMES_PROFILED), FRAMES_PROFILED,
+        {k5_kernel_name(): FRAMES_PROFILED})
+    for level, n in enumerate(adaptive.LEVELS):
+        # κ/θ of 0.5, 2, 8 and 32: inside each level's (4^(l-1), 4^l].
+        gcfg = dataclasses.replace(cfg, adaptive_dt=True,
+                                   adaptive_dt_threshold=kappa / (
+                                       0.5 * 4.0 ** level))
+        frame = sim.make_frame_fn(obj, gcfg)
+        frame(state, obs)  # warm-up, not counted
+        torch.cuda.synchronize()
+        zero_counts()
+        reads = adaptive.read_level.reads
+        s, first, barriers = state, None, []
+        for i in range(FRAMES_AM):
+            s, aux = frame(s, obs)
+            subs, met = k5_substeps(torch, aux.solver_iterations)
+            barriers.append(met)
+            require(subs == cfg.sim_count * n,
+                    f"path AM level {level} frame {i}: K5 counted {subs} "
+                    f"substeps, not {cfg.sim_count * n}")
+            if i == 0:
+                first = (s, aux)
+        torch.cuda.synchronize()
+        launches = counts()
+        require(launches == only(blocked_prep=FRAMES_AM,
+                                 blocked_frame=FRAMES_AM),
+                f"path AM level {level}: launches {launches}")
+        require(adaptive.read_level.reads - reads == FRAMES_AM,
+                f"path AM level {level}: host reads of the level")
+        require(bool(torch.isfinite(s.pos).all()), f"path AM level {level} "
+                "non-finite")
+        ref, ref_aux = sim.make_frame_fn(
+            cobj, dataclasses.replace(gcfg, frame_backend="blocked"))(cstate,
+                                                                      cobs)
+        err = float((first[0].pos.cpu() - ref.pos).abs().max())
+        it, itp = (first[1].solver_iterations.cpu(),
+                   ref_aux.solver_iterations)
+        require(err <= 1e-5, f"path AM level {level}: off the CPU guarded "
+                f"frame by {err}")
+        require(int((it - itp).abs().max()) <= n,
+                f"path AM level {level}: iterations {it.tolist()} vs "
+                f"{itp.tolist()}")
+        zero_counts()
+        t0 = time.perf_counter()
+        frames_go(frame, state, obs, FRAMES_PROFILED)()
+        torch.cuda.synchronize()
+        steps = FRAMES_PROFILED * cfg.sim_count / (time.perf_counter() - t0)
+        ms, busy = counted_window(
+            torch, f"path AM level {level} (K2 + K5 at dt/{n}, "
+            f"{cfg.sim_count * n} substeps a launch)",
+            frames_go(frame, state, obs, FRAMES_PROFILED), FRAMES_PROFILED,
+            {k5_kernel_name(): FRAMES_PROFILED,
+             SOURCE_KERNELS["blocked_prep"][0]: FRAMES_PROFILED})
+        log(f"[path AM] level {level} (n {n}): {FRAMES_AM} frames, K2 and K5 "
+            f"once a frame, {cfg.sim_count * n} substeps a K5 launch by its "
+            f"barriers {barriers}; first frame vs the CPU guarded frame: "
+            f"max |dpos| {err:.3e}, iterations {it.tolist()} (CPU "
+            f"{itp.tolist()}); {ms:.4f} device ms a frame, {busy:.1f}% busy, "
+            f"against path A's {a_ms:.4f}, {a_busy:.1f}%; {steps:.1f} outer "
+            f"steps/s; card {card}")
+        line["AM"]["levels"][level] = dict(
+            device_ms_per_frame=ms, busy_percent=busy,
+            path_a_device_ms_per_frame=a_ms, path_a_busy_percent=a_busy,
+            steps_per_s=steps, first_frame_err=err, barriers=barriers)
+
+    # -- 61. path AN: the stiff reproducer -------------------------------------
+    pcfg = parse_config(STIFF_AN)
+    v, f, t = pmesh.construct_2d_mesh(pcfg.objects[0])
+    obj_n, st_n = build_object(pcfg.objects[0], v, f, t, device=dev)
+    noise = np.random.default_rng(0).normal(scale=1e-4,
+                                            size=tuple(st_n.vel.shape))
+    st_n = st_n.replace(vel=st_n.vel + torch.as_tensor(
+        noise.astype(np.float32), device=dev))
+    obs_n = Obstacles.from_configs(pcfg.blocks, 2, device=dev)
+    kappa_n = float(adaptive.kappa_estimate(obj_n, st_n.pos,
+                                            pcfg.delta_time))
+    runs = {}
+    for label, guard in (("unguarded", False), ("guarded", True)):
+        frame = sim.make_frame_fn(obj_n, dataclasses.replace(
+            pcfg, adaptive_dt=guard))
+        zero_counts()
+        s, starts = st_n, []
+        for i in range(FRAMES_AN):
+            starts.append(s)
+            s, aux = frame(s, obs_n)
+        starts.append(s)
+        torch.cuda.synchronize()
+        launches = counts()
+        finite = [bool(torch.isfinite(x.pos).all()) for x in starts[1:]]
+        # Each frame's level, from its start state, outside the count.
+        levels = [int(adaptive.split_level(adaptive.kappa_estimate(
+            obj_n, x.pos, pcfg.delta_time), pcfg.adaptive_dt_threshold))
+            for x in starts[:-1]] if guard else []
+        runs[label] = (launches, finite, levels, starts[1])
+        log(f"[path AN] {label}: {FRAMES_AN} frames at dt "
+            f"{pcfg.delta_time} (kappa {kappa_n:.3e}); finite by frame "
+            f"{finite}; levels {levels}; launches {runs[label][0]}")
+    launches_u, finite_u, _, _ = runs["unguarded"]
+    launches_g, finite_g, levels_g, first_g = runs["guarded"]
+    require(not all(finite_u), "path AN: the unguarded run stayed finite")
+    require(all(finite_g), "path AN: the guarded run went non-finite")
+    require(launches_u == only(blocked_frame=FRAMES_AN),
+            f"path AN unguarded launches {launches_u}")
+    require(launches_g == only(blocked_prep=FRAMES_AN,
+                               blocked_frame=FRAMES_AN),
+            f"path AN guarded launches {launches_g}")
+    require(levels_g[0] > 0, f"path AN: the guard did not split {levels_g}")
+    cobj_n, cst_n, cobs_n = on_cpu(obj_n, st_n, obs_n)
+    ref, _ = sim.make_frame_fn(cobj_n, dataclasses.replace(
+        pcfg, adaptive_dt=True, frame_backend="blocked"))(cst_n, cobs_n)
+    err = float((first_g.pos.cpu() - ref.pos).abs().max())
+    log(f"[path AN] the first guarded frame vs the CPU guarded frame: max "
+        f"|dpos| {err:.3e}")
+    require(err <= 1e-5, f"path AN: first guarded frame off by {err}")
+    line["AN"] = dict(kappa=kappa_n, unguarded_finite=finite_u,
+                      guarded_levels=levels_g, first_frame_err=err)
+    return line, time.perf_counter() - t_phase
+
+
+def launch_counters():
+    """(zero_counts, counts, instances, only) over every kernel wrapper's
+    launch count (the closures each path's checks use)."""
+    from fem_tpu_torch.experiments import edge_cg, fused_frame
     from fem_tpu_torch.ops import (
         advect_kernels,
         blocked_kernels,
@@ -4730,15 +5155,8 @@ def main():
         frame_kernels,
         jacobi_kernels,
     )
-    from fem_tpu_torch.experiments import edge_cg, fused_frame
     from fem_tpu_torch.probes import int8, pairblock
-    from fem_tpu_torch.solvers import explicit
-    from fem_tpu_torch.utils import cuda_build
 
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    card = card_line()
     counters = {
         "element_chain": element_kernels.hessian_and_force,
         "fused_cg": cg_kernels.fused_cg_solve,
@@ -4807,6 +5225,41 @@ def main():
         """The launch counts of a run that launched ``launched`` and no
         other kernel."""
         return {k: launched.get(k, 0) for k in counters}
+
+    return zero_counts, counts, instances, only
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "fem_tpu_torch")):
+        print("chip_smoke: fem_tpu_torch/ not beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    import fem_tpu_torch  # noqa: F401  (precision pins)
+    from fem_tpu_torch import convert, entry, sim
+    from fem_tpu_torch.ops import (
+        advect_kernels,
+        blocked_kernels,
+        cg_kernels,
+        element_kernels,
+        frame_kernels,
+        jacobi_kernels,
+    )
+    from fem_tpu_torch.experiments import edge_cg, fused_frame
+    from fem_tpu_torch.probes import int8, pairblock
+    from fem_tpu_torch.solvers import explicit
+    from fem_tpu_torch.utils import cuda_build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    zero_counts, counts, instances, only = launch_counters()
 
     # -- 1. environment -------------------------------------------------------
     nvcc = subprocess.run(
@@ -5447,6 +5900,12 @@ def main():
     j1_rows, j1_s = run_jacobi(torch, dev, zero_counts, counts, only, card)
     kernels.extend(j1_rows)
     log(f"[jacobi] sections 53-58 in {j1_s:.1f} s")
+
+    # -- 59.-61. the CLI, the API and the guard: paths AL-AN -----------------
+    entry_line, entry_s = run_entry_points(torch, dev, zero_counts, counts,
+                                           only, card)
+    log(json.dumps({"entry_paths": entry_line}))
+    log(f"[entry points] sections 59-61 in {entry_s:.1f} s")
     for name, _, _ in KERNELS:
         for d in (2, 3):
             require(any(r["name"] == name and r.get("dim") == d

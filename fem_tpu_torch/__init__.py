@@ -12,7 +12,10 @@ kernel, and the substep's gradient through the blocked prep, the blocked
 assembly or the per-tet gradient columns — for every material, inelastic
 and robust, and with the implicit extensions (pins, loads, Rayleigh β,
 typed SDF obstacles, block-Jacobi PCG, the exact Hessian) on the
-op-composed frame.  CUDA kernels run on a GPU,
+op-composed frame — and the adaptive-dt guard over K2 and K5, with the
+entry points users call: ``Simulation`` (``api.py``), the CLI
+(``python -m fem_tpu_torch.main``), checkpoints, metrics, the NaN guard,
+rendering and OBJ/VTU export.  CUDA kernels run on a GPU,
 their plain PyTorch versions on the CPU.  The package imports nothing of
 the JAX package.
 
@@ -29,6 +32,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
+from fem_tpu_torch.api import Simulation  # noqa: E402
 from fem_tpu_torch.models.state import (  # noqa: E402
     FemObject,
     Obstacles,
@@ -53,6 +57,7 @@ __all__ = [
     "Obstacles",
     "SimConfig",
     "SimState",
+    "Simulation",
     "StepAux",
     "build_object",
     "make_frame_fn",

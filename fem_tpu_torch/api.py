@@ -1,0 +1,210 @@
+# coding=utf-8
+"""The high-level user API: one object holding a scene, its frame
+functions and a virtual clock.
+
+The port of the JAX package's ``api.py``::
+
+    import fem_tpu_torch
+    sim = fem_tpu_torch.Simulation.from_config("configs/default.json")
+    sim.run(seconds=1.0)                   # advance the virtual clock
+    frame = sim.render()                   # RGB frame of the current state
+    sim.save_checkpoint("state.npz")
+    metrics = sim.metrics()                # energies, min det F, NaN flag
+
+It runs on the CUDA device unless ``device="cpu"`` is passed.  Everything
+stays reachable underneath (``sim.scene[i].obj`` / ``.state``,
+``fem_tpu_torch.sim.substep``).  What the port does not cover raises
+``NotImplementedError`` naming its ROADMAP item: the analysis solvers
+(M19), ``sharded=True`` (M20) and penalty contact (M17, through
+``sim.check_supported_config``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from fem_tpu_torch.ops.element import deformation_gradients, element_stresses
+from fem_tpu_torch.scene import SceneObject, load_scene, method_banner
+from fem_tpu_torch.sim import element_phi, element_von_mises, make_frame_fn
+from fem_tpu_torch.utils import io as fio
+from fem_tpu_torch.utils.config import SimConfig, parse_config, read_config
+from fem_tpu_torch.utils.io import to_numpy
+from fem_tpu_torch.utils.device import resolve_device
+from fem_tpu_torch.utils.profiling import (
+    FrameMetrics,
+    check_state,
+    frame_metrics,
+)
+
+
+class Simulation:
+    """A loaded scene, one frame function per body and a virtual clock."""
+
+    def __init__(self, cfg: SimConfig,
+                 interior_spacing: Optional[float] = None,
+                 sharded: bool = False, device="cuda"):
+        if sharded:
+            raise NotImplementedError(
+                "sharded=True (element-block sharding over several devices) "
+                "is not ported yet (ROADMAP M20)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.scene: List[SceneObject]
+        self.scene, self.obstacles = load_scene(cfg, interior_spacing,
+                                                device=self.device)
+        self._frame_fns = [make_frame_fn(s.obj, cfg) for s in self.scene]
+        self.virtual_time = 0.0
+        self.frame_count = 0
+        self.last_aux = None
+
+    # -- constructors -----------------------------------------------------
+    @classmethod
+    def from_config(cls, path: str, **kw) -> "Simulation":
+        return cls(read_config(path), **kw)
+
+    @classmethod
+    def from_dict(cls, data: dict, **kw) -> "Simulation":
+        return cls(parse_config(data), **kw)
+
+    # -- stepping ---------------------------------------------------------
+    def step_frame(self) -> None:
+        """Advance one rendered frame (``sim_count`` substeps) of every
+        body; nothing is read back."""
+        for s, fn in zip(self.scene, self._frame_fns):
+            s.state, self.last_aux = fn(s.state, self.obstacles)
+        self.virtual_time += self.cfg.sim_count * self.cfg.delta_time
+        self.frame_count += 1
+
+    def run(self, seconds: Optional[float] = None,
+            frames: Optional[int] = None, nan_guard: bool = False) -> None:
+        """Advance by virtual ``seconds`` or an explicit ``frames`` count;
+        ``nan_guard`` checks body 0 after every frame
+        (``utils/profiling.check_state``: one small read back a frame)."""
+        if frames is None:
+            if seconds is None:
+                raise ValueError("pass seconds= or frames=")
+            frames = int(seconds / (self.cfg.sim_count * self.cfg.delta_time))
+        for _ in range(frames):
+            self.step_frame()
+            if nan_guard:
+                check_state(self.scene[0].obj, self.scene[0].state,
+                            self.frame_count * self.cfg.sim_count)
+
+    # -- the analysis solvers (not ported) --------------------------------
+    def _analysis(self, name: str):
+        raise NotImplementedError(
+            f"Simulation.{name} (the analysis solvers) is not ported yet "
+            "(ROADMAP M19)")
+
+    def solve_static(self, *args, **kw):
+        self._analysis("solve_static")
+
+    def modes(self, *args, **kw):
+        self._analysis("modes")
+
+    def buckling(self, *args, **kw):
+        self._analysis("buckling")
+
+    def harmonic(self, *args, **kw):
+        self._analysis("harmonic")
+
+    def response_spectrum(self, *args, **kw):
+        self._analysis("response_spectrum")
+
+    def arc_length(self, *args, **kw):
+        self._analysis("arc_length")
+
+    # -- observation ------------------------------------------------------
+    def metrics(self, index: int = 0) -> FrameMetrics:
+        s = self.scene[index]
+        return frame_metrics(s.obj, s.state)
+
+    def positions(self, index: int = 0) -> np.ndarray:
+        return to_numpy(self.scene[index].state.pos)
+
+    def stress(self, index: int = 0) -> np.ndarray:
+        """Per-element Cauchy stress tensors (E, d, d) at the current state
+        (``ops/element.cauchy_stress``)."""
+        s = self.scene[index]
+        return to_numpy(element_stresses(
+            s.state.pos, s.obj.element_indices, s.obj.ref_inv, s.obj.mu,
+            s.obj.s_lambda, s.obj.material))
+
+    def von_mises(self, index: int = 0) -> np.ndarray:
+        """Per-element von Mises equivalent stress (E,)."""
+        s = self.scene[index]
+        return to_numpy(element_von_mises(s.obj, s.state))
+
+    def render(self, msgs: Sequence[str] = (),
+               color: str = "energy") -> np.ndarray:
+        """RGB frame (640×640 uint8) of the current state, all bodies.
+        ``color="energy"`` tints 2D triangles by V·φ (the reference's
+        look), ``"stress"`` by von Mises stress over the scene's maximum.
+        Needs matplotlib (``ImportError`` without it)."""
+        from fem_tpu_torch.render.raster import render_frame_2d, render_frame_3d
+
+        pos = [to_numpy(s.state.pos) for s in self.scene]
+        faces = [to_numpy(s.obj.faces) for s in self.scene]
+        if self.cfg.dim == 2:
+            if color == "stress":
+                vm = [self.von_mises(i) for i in range(len(self.scene))]
+                peak = max(float(v.max()) for v in vm) or 1.0
+                phi = [v / peak for v in vm]
+            else:
+                phi = [to_numpy(element_phi(s.obj, s.state))
+                       for s in self.scene]
+            return render_frame_2d(pos, faces, phi,
+                                   to_numpy(self.obstacles.centers),
+                                   to_numpy(self.obstacles.radii), msgs)
+        return render_frame_3d(pos, faces, msgs)
+
+    # -- persistence ------------------------------------------------------
+    def save_checkpoint(self, path: str, index: int = 0) -> None:
+        fio.save_checkpoint(path, self.scene[index].state, self.frame_count,
+                            self.virtual_time)
+
+    def load_checkpoint(self, path: str, index: int = 0) -> None:
+        state, frame, vt = fio.load_checkpoint(path, self.device)
+        self.scene[index].state = state
+        self.frame_count = frame
+        self.virtual_time = vt
+
+    def export_obj(self, path: str, index: int = 0) -> None:
+        s = self.scene[index]
+        if "map_index" not in s.aux:
+            raise ValueError("OBJ export requires a 3D mesh-file object")
+        fio.export_deformed_obj(path, s.state.pos, s.aux["obj_vertices"],
+                                s.aux["obj_faces"], s.aux["map_index"])
+
+    def export_vtu(self, path: str, index: int = 0) -> None:
+        """Write the body's volume mesh and fields as a VTK ``.vtu``
+        snapshot (``utils/vtu.py``): point velocity and mass, per-cell von
+        Mises stress and det F."""
+        from fem_tpu_torch.utils.vtu import write_vtu
+
+        s = self.scene[index]
+        f_def = to_numpy(deformation_gradients(
+            s.state.pos, s.obj.element_indices, s.obj.ref_inv))
+        write_vtu(
+            path,
+            to_numpy(s.state.pos),
+            to_numpy(s.obj.element_indices),
+            point_data={"velocity": to_numpy(s.state.vel),
+                        "mass": to_numpy(s.obj.mass)},
+            cell_data={
+                "von_mises": self.von_mises(index),
+                "det_F": np.linalg.det(f_def.astype(np.float64)).astype(
+                    np.float32),
+            },
+        )
+
+    def __repr__(self) -> str:
+        bodies = ", ".join(
+            f"{s.obj.particle_cnt}p/{s.obj.element_cnt}e" for s in self.scene
+        )
+        return (
+            f"<Simulation dim={self.cfg.dim} t={self.virtual_time:.4f}s "
+            f"bodies=[{bodies}] {method_banner(self.cfg)!r}>"
+        )

@@ -28,6 +28,7 @@ import torch
 
 from fem_tpu_torch.models.mesh import delaunay_tetrahedralize, load_object_mesh
 from fem_tpu_torch.models.state import Obstacles, SimState, build_object
+from fem_tpu_torch.scene import load_scene
 from fem_tpu_torch.sim import check_supported_config, substep, substep_kwargs
 from fem_tpu_torch.utils.config import (
     BlockConfig,
@@ -45,30 +46,35 @@ def load_config(path: str, device="cuda", sim_overrides=None,
                 **object_overrides):
     """(cfg, obj, state, obstacles) of a single-body config file on
     ``device``, with ``sim_overrides`` (a dict) of its simulation config and
-    ``object_overrides`` of the body's config; a mesh path in it is read
+    ``object_overrides`` of every body's config; a mesh path in it is read
     relative to the repository.  The body is built for the config's
-    ``operator_mode`` (``"mxu"`` attaches the edge matrix)."""
+    ``operator_mode`` (``"mxu"`` attaches the edge matrix).  A config of
+    several bodies is built by ``scene.load_scene`` and gives (cfg, [obj],
+    [state], obstacles), one entry a body."""
     dev = resolve_device(device)
     cfg = dataclasses.replace(read_config(path), **(sim_overrides or {}))
     check_supported_config(cfg)
-    if len(cfg.objects) != 1:
-        raise NotImplementedError(
-            f"{len(cfg.objects)} bodies: only single-body configs are ported "
-            "yet (ROADMAP M12)"
-        )
-    ocfg = dataclasses.replace(cfg.objects[0], **object_overrides)
-    cfg = dataclasses.replace(cfg, objects=(ocfg,))
-    if ocfg.obj is not None:
-        obj_path = os.path.join(REPO, ocfg.obj)
-        if not os.path.exists(obj_path):
-            subprocess.run(
-                [sys.executable, os.path.join(REPO, "assets", "make_assets.py")],
-                check=True,
-            )
-        ocfg = dataclasses.replace(ocfg, obj=obj_path)
-    vertices, faces, elements, _aux = load_object_mesh(ocfg)
-    obj, state = build_object(ocfg, vertices, faces, elements, device=dev,
-                              operator_mode=cfg.operator_mode)
+    objects = []
+    for ocfg in cfg.objects:
+        ocfg = dataclasses.replace(ocfg, **object_overrides)
+        if ocfg.obj is not None:
+            obj_path = os.path.join(REPO, ocfg.obj)
+            if not os.path.exists(obj_path):
+                subprocess.run(
+                    [sys.executable,
+                     os.path.join(REPO, "assets", "make_assets.py")],
+                    check=True,
+                )
+            ocfg = dataclasses.replace(ocfg, obj=obj_path)
+        objects.append(ocfg)
+    cfg = dataclasses.replace(cfg, objects=tuple(objects))
+    if len(objects) != 1:
+        bodies, obstacles = load_scene(cfg, device=dev)
+        return (cfg, [b.obj for b in bodies], [b.state for b in bodies],
+                obstacles)
+    vertices, faces, elements, _aux = load_object_mesh(objects[0])
+    obj, state = build_object(objects[0], vertices, faces, elements,
+                              device=dev, operator_mode=cfg.operator_mode)
     obstacles = Obstacles.from_configs(cfg.blocks, cfg.dim, cfg.obstacles,
                                        device=dev)
     return cfg, obj, state, obstacles

@@ -500,3 +500,36 @@ def total_energy(
     return element_energies(
         pos, element_indices, ref_inv, volume, mu, s_lambda, material
     ).sum()
+
+
+def cauchy_stress(f: torch.Tensor, mu: float, s_lambda: float,
+                  material: str = "neo_hookean") -> torch.Tensor:
+    """True (Cauchy) stress σ = P(F)·Fᵀ / det F per element, ``(…, d, d)``
+    (the JAX package's ``cauchy_stress``, a post-processing extension: the
+    reference exposes no stress field).  Symmetric and objective for every
+    isotropic hyperelastic material here; the small-strain ``linear``
+    model is not objective, by construction, and its σ is reported the
+    same way."""
+    p = first_piola(f, mu, s_lambda, material)
+    return sm.matmul(p, sm.mT(f)) / sm.det(f)[..., None, None]
+
+
+def von_mises(sigma: torch.Tensor) -> torch.Tensor:
+    """Von Mises equivalent stress √(3/2 · s:s) of the deviatoric part
+    s = σ − tr(σ)/d·I; for a uniaxial σ = diag(s, 0, 0) in 3D it is |s|."""
+    d = sigma.shape[-1]
+    dev = sigma - (sm.trace(sigma) / d)[..., None, None] * _eye_like(sigma)
+    return torch.sqrt(1.5 * (dev * dev).sum(dim=(-2, -1)))
+
+
+def element_stresses(
+    pos: torch.Tensor,
+    element_indices: torch.Tensor,
+    ref_inv: torch.Tensor,
+    mu: float,
+    s_lambda: float,
+    material: str = "neo_hookean",
+) -> torch.Tensor:
+    """Per-element Cauchy stress tensors at the current positions, (E, d, d)."""
+    f = deformation_gradients(pos, element_indices, ref_inv)
+    return cauchy_stress(f, mu, s_lambda, material)

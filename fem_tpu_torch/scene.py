@@ -51,3 +51,18 @@ def load_scene(
     obstacles = Obstacles.from_configs(cfg.blocks, cfg.dim, cfg.obstacles,
                                        device=dev)
     return scene, obstacles
+
+
+def method_banner(cfg: SimConfig) -> str:
+    """The reference's startup banner (its main.py:74-80)."""
+    if cfg.use_explicit_method:
+        return (
+            "Simulation method: explicit method. "
+            f"Auto-diff {bool(cfg.auto_diff)}"
+        )
+    if cfg.implicit_method == 0:
+        return "Simulation method: implicit method. System Solver: jacobian iteration."
+    return (
+        "Simulation method: implicit method. System Solver: conjugate "
+        f"gradient. Preconditioned: {bool(cfg.preconditioned)}"
+    )

@@ -44,6 +44,10 @@ paths).  ``make_frame_fn`` picks how, as the JAX package's does:
 * the unblocked whole-frame kernel K11b (``experiments/fused_frame.py``),
   one launch a frame over the mesh as it is, for ``frame_backend="fused"``
   only (:func:`supports_fused_frame`), never for ``"auto"``;
+* an ``adaptive_dt`` config: the guarded frame
+  (:func:`make_adaptive_frame_fn`): κ once a frame through K2, one host
+  read of its split level, then K5 at dt/n where eligible, else the
+  op-composed frame at dt/n;
 * otherwise the op-composed frame: ``sim_count`` substeps back to back, in
   which nothing waits for the device unless the blocked operator's CG loop
   reads ‖r‖² (``operator_mode="blocked"``) or the snapshot Jacobi sweep its
@@ -56,6 +60,7 @@ naming its ROADMAP item.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
@@ -70,10 +75,23 @@ from fem_tpu_torch.ops.frame_kernels import (
     fused_blocked_frame,
     fused_explicit_frame,
 )
+from fem_tpu_torch.ops.element import (
+    element_energies,
+    element_stresses,
+    von_mises,
+)
 from fem_tpu_torch.ops.inelastic import (
     advance_internal,
+    inelastic_element_energies,
     is_inelastic,
     material_layers,
+)
+from fem_tpu_torch.solvers.adaptive import (
+    LEVELS,
+    adaptive_substep,
+    inner_substeps,
+    kappa_estimate,
+    read_level,
 )
 from fem_tpu_torch.solvers.advect import (
     advect_implicit_step,
@@ -109,7 +127,6 @@ def check_supported_config(cfg: SimConfig) -> None:
     options apply to the implicit path only: an explicit or autodiff
     substep never reads them, as in the JAX package."""
     unsupported = [
-        (cfg.adaptive_dt, "adaptive_dt", "M15"),
         (cfg.contact != "none", f"contact={cfg.contact!r}", "M17"),
     ]
     if not _explicit(cfg):
@@ -379,6 +396,58 @@ def make_explicit_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
     return frame
 
 
+def make_adaptive_frame_fn(obj: FemObject, cfg: SimConfig):
+    """Guarded frame of an ``adaptive_dt`` config (the JAX package's
+    frame-level guard, its sim.py:489-577): κ is measured once a frame
+    (``solvers/adaptive.kappa_estimate``), its split level read on the host
+    (one read a frame), and all ``sim_count`` substeps run at that level's
+    dt/n, n ∈ (1, 2, 4, 8).
+
+    When the config without the guard is eligible for K5 and
+    ``frame_backend`` is ``"blocked"``, or ``"auto"`` on a CUDA object,
+    each level is a K5 frame function at dt/n over sim_count·n substeps
+    built here, so a guarded frame is K2 (for κ) and one K5 launch; its
+    metrics are folded back to (sim_count,): iterations summed over each
+    outer substep's n inner steps, the residual of the last.  Otherwise
+    the op-composed frame runs n substeps at dt/n per outer substep."""
+    kwargs = substep_kwargs(cfg)
+    dt = kwargs.pop("dt")
+    unguarded = dataclasses.replace(cfg, adaptive_dt=False)
+    frames = {}
+    if supports_blocked_frame(obj, unguarded) and (
+        cfg.frame_backend == "blocked"
+        or (cfg.frame_backend == "auto" and obj.device.type == "cuda")
+    ):
+        frames = {
+            n: make_blocked_frame_fn(obj, dataclasses.replace(
+                unguarded, delta_time=cfg.delta_time / n,
+                sim_count=cfg.sim_count * n))
+            for n in LEVELS
+        }
+
+    def frame(state: SimState, obstacles: Obstacles):
+        kappa = kappa_estimate(obj, state.pos, dt, cfg.robust_inversion)
+        n = LEVELS[read_level(kappa, cfg.adaptive_dt_threshold)]
+        if frames:
+            state, aux = frames[n](state, obstacles)
+            return state, StepAux(
+                aux.solver_iterations.reshape(cfg.sim_count, n).sum(dim=1)
+                .to(torch.int32),
+                aux.solver_residual.reshape(cfg.sim_count, n)[:, -1],
+            )
+        def sub_at(dt_eff, st):
+            return substep(obj, st, obstacles, dt=dt_eff, **kwargs)
+
+        iters, res = [], []
+        for _ in range(cfg.sim_count):
+            state, it, r = inner_substeps(sub_at, state, dt, n)
+            iters.append(it)
+            res.append(r)
+        return state, StepAux(torch.stack(iters), torch.stack(res))
+
+    return frame
+
+
 def make_frame_fn(obj: FemObject, cfg: SimConfig):
     """Function advancing one rendered frame (``sim_count`` substeps):
     ``frame(state, obstacles) -> (state, StepAux)`` with StepAux fields of
@@ -390,7 +459,11 @@ def make_frame_fn(obj: FemObject, cfg: SimConfig):
     ``"blocked_explicit"`` the explicit whole-frame kernel K8 (each its
     plain version on the CPU), and each of the three raises ``ValueError``
     when the config is not eligible; ``"auto"`` runs the eligible one of K5
-    and K8 on a CUDA object, and the op-composed frame otherwise."""
+    and K8 on a CUDA object, and the op-composed frame otherwise.  An
+    ``adaptive_dt`` config runs the guarded frame
+    (:func:`make_adaptive_frame_fn`), never the plain K5 route; there
+    ``"blocked"`` asks for K5 under the guard and raises ``ValueError``
+    when the config without the guard is not eligible for it."""
     if cfg.frame_backend == "fused":
         if not supports_fused_frame(obj, cfg):
             raise ValueError(
@@ -398,7 +471,8 @@ def make_frame_fn(obj: FemObject, cfg: SimConfig):
                 "eligible (see experiments/fused_frame.supports_fused_frame)"
             )
         return make_fused_frame_fn(obj, cfg)
-    if cfg.frame_backend == "blocked" and not supports_blocked_frame(obj, cfg):
+    if cfg.frame_backend == "blocked" and not supports_blocked_frame(
+            obj, dataclasses.replace(cfg, adaptive_dt=False)):
         raise ValueError(
             "frame_backend='blocked' requested but this config/mesh is not "
             "eligible (see sim.supports_blocked_frame)"
@@ -410,6 +484,8 @@ def make_frame_fn(obj: FemObject, cfg: SimConfig):
             "is not eligible (see sim.supports_explicit_blocked_frame)"
         )
     check_supported_config(cfg)
+    if cfg.adaptive_dt:
+        return make_adaptive_frame_fn(obj, cfg)
     auto_cuda = cfg.frame_backend == "auto" and obj.device.type == "cuda"
     if cfg.frame_backend == "blocked" or (
         auto_cuda and supports_blocked_frame(obj, cfg)
@@ -430,3 +506,48 @@ def make_frame_fn(obj: FemObject, cfg: SimConfig):
         return state, StepAux(torch.stack(iters), torch.stack(res))
 
     return frame
+
+
+def make_substep_fn(obj: FemObject, cfg: SimConfig):
+    """``step(state, obstacles) -> (state, StepAux)``: one substep (tests
+    and fine-grained stepping).  An ``adaptive_dt`` config runs the guard
+    per substep (``solvers/adaptive.adaptive_substep``: κ and one host read
+    of its split level each substep, iterations summed over the inner
+    steps, the last inner step's residual)."""
+    check_supported_config(cfg)
+    kwargs = substep_kwargs(cfg)
+    if not cfg.adaptive_dt:
+        def step(state: SimState, obstacles: Obstacles):
+            return substep(obj, state, obstacles, **kwargs)
+
+        return step
+    dt = kwargs.pop("dt")
+
+    def adaptive_step(state: SimState, obstacles: Obstacles):
+        def sub_at(dt_eff, st):
+            return substep(obj, st, obstacles, dt=dt_eff, **kwargs)
+
+        state, iters, res = adaptive_substep(
+            sub_at, obj, state, dt=dt, threshold=cfg.adaptive_dt_threshold,
+            robust=cfg.robust_inversion)
+        return state, StepAux(iters, res)
+
+    return adaptive_step
+
+
+def element_phi(obj: FemObject, state: SimState) -> torch.Tensor:
+    """Per-element energy V·φ, (E,), for render colouring (the reference's
+    ``obj.phi``, sized by elements); an inelastic material's through its
+    material layers."""
+    if is_inelastic(obj):
+        return inelastic_element_energies(obj, state, state.pos)
+    return element_energies(state.pos, obj.element_indices, obj.ref_inv,
+                            obj.volume, obj.mu, obj.s_lambda, obj.material)
+
+
+def element_von_mises(obj: FemObject, state: SimState) -> torch.Tensor:
+    """Per-element von Mises equivalent stress, (E,), of the base
+    material's Cauchy stress (``ops/element.cauchy_stress``)."""
+    return von_mises(element_stresses(
+        state.pos, obj.element_indices, obj.ref_inv, obj.mu, obj.s_lambda,
+        obj.material))

@@ -14,7 +14,9 @@ iterations within 1, velocities √1e-5 (what its CG's stopping rule fixes)
 and vel_g 1e-5; K6 block-relative 1e-5, K7b's partials and K7a's
 sums 1e-5 of their largest entry, K8 positions 1e-5; J1 (the serial
 Jacobi solve) equal iterations and x and its anchor within 1e-5 of the
-largest entry, its sparse and dense row sources.  Iteration
+largest entry, its sparse and dense row sources; the adaptive-dt guard's
+κ within 1e-5 relative and its guarded frames' positions 1e-5 with
+iterations within 1 an inner step; the CLI's resume bit-equal.  Iteration
 counts are compared only where a solve takes a few tens of iterations at
 most: over ~140 iterations f32 round-off moves the count by more than one
 between two summation orders, so there the velocity is held to the f64
@@ -2675,3 +2677,133 @@ def test_jacobi_frame_on_cuda_matches_cpu_frame(sweep, monkeypatch):
     assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= TOL
     assert int((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 1
     assert int(out["cpu"][1].min()) > 1
+
+
+# -- The adaptive-dt guard and the entry points -----------------------------
+
+def _cpu_copy(obj, state):
+    return (convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu"),
+            convert.state_from_arrays(convert.state_to_arrays(state), "cpu"))
+
+
+def test_kappa_on_the_card_matches_the_cpu(flagship):
+    """κ of the deformed flagship through K2 (one launch) within 1e-5
+    relative of the CPU's plain κ, twice bit-identical."""
+    from fem_tpu_torch.solvers import adaptive
+
+    obj, state = flagship
+    cobj, cstate = _cpu_copy(obj, state)
+    before = blocked_kernels.blocked_prep.launches
+    k = adaptive.kappa_estimate(obj, state.pos, 5e-4)
+    k2 = adaptive.kappa_estimate(obj, state.pos, 5e-4)
+    assert blocked_kernels.blocked_prep.launches == before + 2
+    assert torch.equal(k, k2)
+    ref = float(adaptive.kappa_estimate(cobj, cstate.pos, 5e-4))
+    assert abs(float(k) - ref) <= TOL * ref
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_guarded_frame_is_k2_and_one_k5_launch(flagship, level):
+    """The flagship's guarded frame (``adaptive_dt``, ``frame_backend``
+    "auto" on the card) with its level forced through
+    ``adaptive_dt_threshold``: K2 once and K5 once, the split level read
+    once on the host, K5's barriers as the kernel counted them equal to
+    ``frame_barriers`` over 10·n substeps; positions within 1e-5 of the CPU
+    guarded frame (K5's plain version), iterations within 1 an inner step;
+    twice bit-identical."""
+    from fem_tpu_torch import entry
+    from fem_tpu_torch.solvers import adaptive
+
+    obj, state = flagship
+    cfg, _, _, obs = entry.flagship("cuda")
+    kappa = float(adaptive.kappa_estimate(obj, state.pos, cfg.delta_time))
+    gcfg = dataclasses.replace(cfg, adaptive_dt=True,
+                               adaptive_dt_threshold=kappa / (
+                                   0.5 * 4.0 ** level))
+    n = adaptive.LEVELS[level]
+    frame = sim.make_frame_fn(obj, gcfg)
+    counts = (blocked_kernels.blocked_prep.launches,
+              frame_kernels.fused_blocked_frame.launches,
+              adaptive.read_level.reads)
+    s, aux = frame(state, obs)
+    s2, aux2 = frame(state, obs)
+    torch.cuda.synchronize()
+    assert (blocked_kernels.blocked_prep.launches - counts[0],
+            frame_kernels.fused_blocked_frame.launches - counts[1],
+            adaptive.read_level.reads - counts[2]) == (2, 2, 2)
+    assert torch.equal(s.pos, s2.pos) and torch.equal(s.vel, s2.vel)
+    assert torch.equal(aux.solver_iterations, aux2.solver_iterations)
+    plan = frame_kernels.fused_blocked_frame.last_plan
+    met = int(frame_kernels.fused_blocked_frame.last_barriers.item())
+    fb = frame_kernels.frame_barriers
+    per_step = fb(plan.variant, True, [0]) - 1
+    per_it = fb(plan.variant, True, [1]) - fb(plan.variant, True, [0])
+    inner = (met - 1 - per_it * int(aux.solver_iterations.sum())) / per_step
+    assert inner == cfg.sim_count * n, (met, inner)
+    assert aux.solver_iterations.shape == (cfg.sim_count,)
+    cobj, cstate = _cpu_copy(obj, state)
+    cobs = type(obs)(obs.centers.cpu(), obs.radii.cpu())
+    ref, raux = sim.make_frame_fn(
+        cobj, dataclasses.replace(gcfg, frame_backend="blocked"))(cstate, cobs)
+    assert float((s.pos.cpu() - ref.pos).abs().max()) <= TOL
+    assert int((aux.solver_iterations.cpu()
+                - raux.solver_iterations).abs().max()) <= n
+
+
+def test_cli_on_the_card(tmp_path):
+    """``python -m fem_tpu_torch.main`` on the card: configs/demo_spot.json,
+    4 frames with K5 once a frame and nothing else, a checkpoint at frame 2
+    resumed to frame 4 bit-equal to the straight run; configs/default.json
+    through K8 once a frame."""
+    from fem_tpu_torch import main as cli
+
+    _require_cuda()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spot = os.path.join(repo, "configs", "demo_spot.json")
+    cwd = os.getcwd()
+    os.chdir(repo)
+    try:
+        a, b = str(tmp_path / "a"), str(tmp_path / "b")
+        before = frame_kernels.fused_blocked_frame.launches
+        assert cli.run(["--config", spot, "--frames", "4", "--no-render",
+                        "--checkpoint-every", "2", "--output", a,
+                        "--print-every", "0"]) == 0
+        assert frame_kernels.fused_blocked_frame.launches == before + 4
+        assert cli.run(["--config", spot, "--frames", "4", "--no-render",
+                        "--checkpoint-every", "2", "--output", b,
+                        "--print-every", "0", "--resume",
+                        os.path.join(a, "ckpt_000002.npz")]) == 0
+        ref = np.load(os.path.join(a, "ckpt_000004.npz"))
+        got = np.load(os.path.join(b, "ckpt_000004.npz"))
+        for key in ref.files:
+            np.testing.assert_array_equal(ref[key], got[key], err_msg=key)
+        before = frame_kernels.fused_explicit_frame.launches
+        assert cli.run(["--config", os.path.join(repo, "configs",
+                                                 "default.json"),
+                        "--frames", "3", "--no-render", "--output",
+                        str(tmp_path / "c"), "--print-every", "0"]) == 0
+        assert frame_kernels.fused_explicit_frame.launches == before + 3
+    finally:
+        os.chdir(cwd)
+
+
+def test_simulation_on_the_card_matches_the_cpu():
+    """``Simulation`` of configs/default.json on the card (K8) and on the CPU:
+    5 guarded frames, positions within 1e-5, metrics' energies within 1e-5
+    relative."""
+    import fem_tpu_torch
+
+    _require_cuda()
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "default.json")
+    sims = {d: fem_tpu_torch.Simulation.from_config(path, device=d)
+            for d in ("cuda", "cpu")}
+    before = frame_kernels.fused_explicit_frame.launches
+    for s in sims.values():
+        s.run(frames=5, nan_guard=True)
+    assert frame_kernels.fused_explicit_frame.launches == before + 5
+    assert np.abs(sims["cuda"].positions()
+                  - sims["cpu"].positions()).max() <= TOL
+    m, r = sims["cuda"].metrics(), sims["cpu"].metrics()
+    assert abs(m.kinetic_energy - r.kinetic_energy) <= TOL * r.kinetic_energy
+    assert not m.any_nan

@@ -77,7 +77,8 @@ def test_precision_pinned_at_import():
 
 @pytest.mark.parametrize(
     "call",
-    ["flagship", "entry", "build_object", "obstacles", "object_from_arrays"],
+    ["flagship", "entry", "build_object", "obstacles", "object_from_arrays",
+     "simulation", "cli"],
 )
 def test_entry_points_default_to_cuda(call):
     """Without a GPU every entry point raises unless given device='cpu'."""
@@ -85,6 +86,7 @@ def test_entry_points_default_to_cuda(call):
         pytest.skip("a CUDA device is present; the default is usable")
     import numpy as np
 
+    import fem_tpu_torch.main
     from fem_tpu_torch import convert, entry
     from fem_tpu_torch.models.state import Obstacles, build_object
     from fem_tpu_torch.utils.config import BlockConfig, ObjectConfig
@@ -98,6 +100,11 @@ def test_entry_points_default_to_cuda(call):
         "build_object": lambda: build_object(cfg, verts, tets[:, :3], tets),
         "obstacles": lambda: Obstacles.from_configs((BlockConfig(),), 2),
         "object_from_arrays": lambda: convert.object_from_arrays({}, {}),
+        "simulation": lambda: fem_tpu_torch.Simulation.from_config(
+            os.path.join(REPO, "configs", "default.json")),
+        "cli": lambda: fem_tpu_torch.main.run(
+            ["--config", os.path.join(REPO, "configs", "default.json"),
+             "--frames", "1", "--no-render"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[call]()
@@ -127,7 +134,8 @@ def test_unported_features_raise():
     # friction, block-Jacobi PCG and the exact Hessian since M13.
     from fem_tpu_torch.utils.config import ObstacleConfig
 
-    # The Jacobi solver and the dense backend run since M10.
+    # The Jacobi solver and the dense backend run since M10, the adaptive-dt
+    # guard since M15.
     for change in (
         dict(robust_inversion=True), dict(cg_precond="block_jacobi"),
         dict(hessian="exact_jvp"), dict(wall_friction=0.3),
@@ -136,11 +144,12 @@ def test_unported_features_raise():
              solver_backend="dense"),
         dict(obstacles=(ObstacleConfig(type="halfspace", point=(0, 0, 0),
                                        normal=(0, 1, 0)),)),
+        dict(adaptive_dt=True),
     ):
         check_supported_config(dataclasses.replace(base, **change))
     for change in (
         dict(integrator="newton"), dict(cg_precond="two_level"),
-        dict(adaptive_dt=True), dict(contact="penalty"),
+        dict(contact="penalty"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP M"):
             check_supported_config(dataclasses.replace(base, **change))
