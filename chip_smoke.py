@@ -13,8 +13,8 @@ and autodiff method at ``delta_time = 1e-4`` (D-G) — on the 2D scenes
 Rayleigh β, SDF obstacles, block-Jacobi and the exact Hessian (W-Z′) and
 the fused advection (AD) — the unblocked whole frame, the ``"mxu"``
 operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), the
-Jacobi solver (AH-AK), and the CLI, ``Simulation`` and the adaptive-dt
-guard (AL-AN), and holds
+Jacobi solver (AH-AK), the CLI, ``Simulation`` and the adaptive-dt guard
+(AL-AN), and body-body contact and the batched frame (AO-AS), and holds
 every CUDA kernel of those paths against its plain PyTorch version.  K5
 runs as its cluster variant on every path (each mesh there fits one
 thread-block cluster; ``counts()`` fails the run otherwise), as do K8, K4,
@@ -368,7 +368,42 @@ the eight:
     subdivisions, E 4e5, dt 2e-3, velocity noise 1e-4): 8 frames unguarded
     through K5 (non-finite within them) and guarded (K2 and K5 once a
     frame, finite, split), the first guarded frame within 1e-5 of the
-    CPU's.  One ``entry_paths`` JSON line holds their numbers.
+    CPU's.  One ``entry_paths`` JSON line holds their numbers;
+62. path AO, ``configs/demo_two_bodies_contact.json`` as shipped, 100
+    frames through the CLI and through ``Simulation``: C1 once a substep
+    and K7a once a body a substep, the CLI's N×-per-body pacing, the end
+    states within 1e-5 of each other, the first frame within 1e-5 of the
+    CPU's, the bodies never nearer than half the radius; then C1 against
+    its plain version at the path's shapes with body 0 laid on body 1
+    (active pairs printed and above 0; the matmul form held, as its plain
+    version, to the float64 plain version: within twice the plain
+    version's error there plus 1e-5 of the largest force; the Coulomb
+    form within 1e-5; twice bit-identical; the forces' total within 1e-5
+    of Σ|f|), and the same bodies with ``contact_broadphase="grid"`` (C2
+    once a substep, 5 frames; C2 against its plain version within 1e-5 of
+    the largest force, with self-contact and Coulomb too);
+63. path AP, two flagship bodies stacked (``demo_spot.json``'s implicit
+    CG with ``contact: "penalty"``, the upper lifted until its surface is
+    half a radius from the lower's), 30 frames through ``Simulation``: C1
+    over 642 + 642 surface vertices once a substep, K1 + K4 once a body a
+    substep; the first frame within 1e-5 of the CPU's, iterations equal;
+64. path AQ, tools/self_contact_scale.py's blob built through the port
+    (12,037 particles, 2,780 surface vertices), slammed down and warmed
+    through the slam (1,400 substeps, C1 once a substep; the active
+    self-pairs sampled every 5 frames and printed), then C1 against its
+    plain version over the masked self-pairs with and without
+    ``contact_mu`` on the warmed state squashed to 15 % of its height (the
+    active pairs printed and above 0), ``grid_overflow_count`` of the
+    warmed state printed (ROADMAP F8) and device ms a substep with contact
+    and without;
+65. path AR, tools/probe_broadphase.py's two interpenetrating shells (ns
+    8,192 and 24,576) under C1 and C2, each against its plain version and
+    timed (``torch.cdist`` timed beside C1 as a yardstick the port never
+    calls), C1 and C2 agreeing where no cell overflows; two 3D grid cubes
+    stacked with ``contact_broadphase="grid"`` (C2 once a substep);
+66. path AS, ``batch.make_batched_frame_fn`` on ``default.json`` at B = 8,
+    perturbed: K7a once a member a substep, every member bit-equal to its
+    single run.  One ``contact_paths`` JSON line holds their numbers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -5143,6 +5178,714 @@ def run_entry_points(torch, dev, zero_counts, counts, only, card):
     return line, time.perf_counter() - t_phase
 
 
+# -- Contact: C1, C2 and paths AO-AS (sections 62-66) --------------------------
+
+FRAMES_AO = 100  # path AO: demo_two_bodies_contact.json as shipped
+FRAMES_GRID = 5  # the grid's paths (AO grid, AR grid), each
+FRAMES_AP = 30  # path AP: two flagship bodies stacked
+FRAMES_AS = 3  # path AS: the batched frame
+BATCH_AS = 8
+SHELLS_AR = (8192, 24576)  # tools/probe_broadphase.py's sizes
+CAP_AR = 8
+CONTACT_REPS = 20  # timed launches a kernel
+C1_KERNEL = "contact_pairs_kernel"
+C2_KERNEL = "contact_grid_kernel"
+# f32 operations a pair, counted from the kernels' formulas: C1's matmul
+# form (both squared norms, the cross term, the distance, the penalty and
+# the row sums), C2's direct differences (the rest test, the distance, the
+# penalty and the sum); each pair's force is due once.
+C1_OPS = {3: 27, 2: 21}
+C2_OPS = {3: 30, 2: 22}
+# tools/self_contact_scale.py's blob at its defaults: the spot mesh at
+# interior_spacing 0.04 (12,037 particles, 68,508 tets, 2,780 surface
+# vertices), E 1e4, dt 2.5e-4, slammed down at 1.5 and warmed through the
+# slam (0.35 virtual s).
+BLOB_AQ = dict(
+    dim=3, delta_time=2.5e-4, sim_count=10, auto_diff=False,
+    use_explicit_method=True, g_dir=[0.0, -1.0, 0.0], contact="penalty",
+    self_contact=True, contact_broadphase="dense", contact_stiffness=0.0,
+    objects=[dict(id=0, center=[2.0, 0.75, 2.0], rho=1000.0, E=1e4, nu=0.35,
+                  damping=6.0, obj="assets/spot.obj")],
+    blocks=[])
+SPACING_AQ = 0.04
+IMPACT_AQ = -1.5
+WARM_AQ = 0.35
+SAMPLE_AQ = 5  # path AQ: frames between samples of the active self-pairs
+SQUASH_AQ = 0.15  # path AQ: C1's check state, the warmed blob's height x this
+MU_CHECK = 0.3  # the Coulomb form's check (contact_mu of tests/test_contact)
+
+
+def sphere_shell(np, n, center, r, seed):
+    """tools/probe_broadphase.py's shell: n points on a sphere (numpy
+    seed)."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return (center + r * v).astype(np.float32)
+
+
+def active_pairs(torch, tables, pos, radius):
+    """Admitted pairs of the soup ``pos`` nearer than ``radius``: of
+    different bodies, or of one body where its mask admits them."""
+    body = tables.body_id
+    admit = body[:, None] != body[None, :]
+    first = 0
+    for n, mask in zip(tables.sizes, tables.masks):
+        if mask is not None:
+            admit[first:first + n, first:first + n] = mask != 0
+        first += n
+    return int(((torch.cdist(pos, pos) < radius) & admit).sum()) // 2
+
+
+def check_c1(torch, label, tables, pos, vel, radius, stiffness, friction_c,
+             mu, mu_slope):
+    """C1 against its plain version on the card at these inputs, twice
+    bit-identical.  The matmul form's x·S − T and its three-term distance
+    cancel, so the kernel and the plain version are each held to the plain
+    version in float64: the kernel's error there within twice the plain
+    version's own plus 1e-5 of the largest force.  The Coulomb form (direct
+    differences) within 1e-5 of the largest force of the f32 plain version.
+    Returns (max abs error against the f32 plain version, active pairs)."""
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    args = (radius, stiffness, friction_c, mu, mu_slope)
+    got = ck.pair_forces(tables, pos, vel, *args)
+    again = ck.pair_forces(tables, pos, vel, *args)
+    ref = ck.pair_forces_plain(tables, pos, vel, *args)
+    ref64 = ck.pair_forces_plain(tables, pos.double(), vel.double(), *args)
+    torch.cuda.synchronize()
+    top = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    err64 = float((got.double() - ref64).abs().max())
+    plain64 = float((ref.double() - ref64).abs().max())
+    active = active_pairs(torch, tables, pos, radius)
+    log(f"[C1] {label}: {pos.shape[0]} soup vertices, {active} active pairs; "
+        f"mu {mu}: max abs error {err:.3e} of max {top:.3e}; against the "
+        f"f64 plain version: kernel {err64:.3e}, plain {plain64:.3e}")
+    require(active > 0 and top > 0, f"C1 {label}: no pair in contact")
+    require(bool(torch.isfinite(got).all()), f"C1 {label}: non-finite")
+    if mu > 0.0:
+        require(err <= 1e-5 * top, f"C1 {label}: error {err} of {top}")
+    else:
+        require(err64 <= 2 * plain64 + 1e-5 * top,
+                f"C1 {label}: f64 error {err64} against the plain version's "
+                f"{plain64}")
+    require(torch.equal(got, again), f"C1 {label}: runs differ")
+    return err, active
+
+
+def grid_inputs(torch, pos, radius):
+    """(cell_s, order, start, m) of the grid pass at ``pos``
+    (broadphase.grid_contact_forces' sort and lookup)."""
+    from fem_tpu_torch import broadphase as bp
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    cell, m = bp.grid_cells(pos, radius)
+    order = torch.argsort(cell, stable=True)
+    cell_s = cell[order]
+    offs = torch.tensor(ck.forward_offsets_host(m, pos.shape[1]),
+                        dtype=torch.int32, device=pos.device)
+    start = torch.searchsorted(cell_s, cell_s[:, None] + offs[None, :],
+                               out_int32=True)
+    return cell_s, order, start, m, offs
+
+
+def grid_found(torch, cell_s, start, offs, cap):
+    """Pairs the forward stencil finds (fem_tpu/broadphase.py:171-181's
+    valid candidates)."""
+    n = cell_s.shape[0]
+    slot = torch.arange(cap, device=cell_s.device)
+    own = torch.arange(n, device=cell_s.device)[:, None] + 1 + slot
+    idx = torch.cat([own[:, None, :], start.long()[:, :, None] + slot],
+                    dim=1)
+    tgt = torch.cat([cell_s[:, None], cell_s[:, None] + offs[None, :]],
+                    dim=1)
+    valid = (idx < n) & (cell_s[idx.clamp(max=n - 1)] == tgt[:, :, None])
+    return int(valid.sum())
+
+
+def check_c2(torch, label, pos, vel, rest, body, radius, stiffness, cap,
+             friction_c=0.0, mu=0.0, mu_slope=0.0, self_contact=False):
+    """C2 against its plain version on the card (the same sort and lookup),
+    within 1e-5 of the largest force, twice bit-identical, the forces' total
+    within 1e-5 of Σ|f| (Newton's third law).  Returns (max abs error, the forces, pairs found)."""
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    cell_s, order, start, m, offs = grid_inputs(torch, pos, radius)
+    args = (pos, vel, rest if self_contact else None, body, cell_s, order,
+            start)
+    kw = dict(friction_c=friction_c, mu=mu, mu_slope=mu_slope,
+              self_contact=self_contact)
+    got = ck.grid_pair_forces(*args, m, radius, stiffness, cap, **kw)
+    again = ck.grid_pair_forces(*args, m, radius, stiffness, cap, **kw)
+    ref = ck.grid_pair_forces_plain(*args, offs, radius, stiffness, cap,
+                                    excl=2.5 * radius, **kw)
+    torch.cuda.synchronize()
+    top = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    total = float(got.sum(dim=0).abs().max())
+    spread = float(got.abs().sum())
+    found = grid_found(torch, cell_s, start, offs, cap)
+    log(f"[C2] {label}: {pos.shape[0]} vertices, cap {cap}, {found} pairs "
+        f"found: max abs error {err:.3e} of max {top:.3e}; |sum f| "
+        f"{total:.3e}")
+    require(top > 0, f"C2 {label}: no pair in contact")
+    require(err <= 1e-5 * top, f"C2 {label}: error {err} of {top}")
+    require(total <= 1e-5 * spread, f"C2 {label}: momentum {total} of sum "
+            f"|f| {spread}")
+    require(torch.equal(got, again), f"C2 {label}: runs differ")
+    return err, got, found
+
+
+def c1_row(torch, card, d, tables, pos, vel, radius, stiffness, launches,
+           err, label, extra=None):
+    """C1's kernels-line row at these inputs (the matmul form, no
+    friction: the configs' own)."""
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    ms = kernel_ms(torch, lambda: ck.pair_forces(
+        tables, pos, vel, radius, stiffness), CONTACT_REPS, [C1_KERNEL])
+    plain_ms = cuda_ms(torch, lambda: ck.pair_forces_plain(
+        tables, pos, vel, radius, stiffness), 5)
+    sizes = tables.sizes
+    pairs = sum(a * b for i, a in enumerate(sizes) for b in sizes[i + 1:])
+    pairs += sum(int(m.sum()) // 2 for m in tables.masks if m is not None)
+    masks = [m for m in tables.masks if m is not None]
+    bnd, by = bound(nbytes(pos, tables.body_id, tables.body_table, *masks)
+                    + nbytes(pos), pairs * C1_OPS[d])
+    cdist_ms = library_device_ms(torch, lambda: torch.cdist(pos, pos), 20)
+    row = dict(name="contact_pairs", route="cuda",
+               source="fem_tpu_torch/csrc/contact_pairs.cu",
+               replaces="fem_tpu/contact.py:92 (XLA, no pallas_call)", dim=d,
+               launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bnd, bound_by=by, library_ms=None,
+               cdist_yardstick_ms=cdist_ms, shapes=label, pairs=pairs,
+               **(extra or {}))
+    log(f"[time] {d}D contact_pairs ({label}): {ms:.5f} ms a launch on the "
+        f"device (profiler); plain {plain_ms:.4f} ms; bound {bnd:.6f} ms "
+        f"({by}, {pairs} pairs); torch.cdist yardstick {cdist_ms:.5f} ms; "
+        f"launches {launches}; card {card}")
+    return row
+
+
+def c2_row(torch, card, d, pos, body, radius, stiffness, cap, launches, err,
+           found, label, extra=None):
+    """C2's kernels-line row at these inputs (no friction, no
+    self-contact)."""
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    cell_s, order, start, m, offs = grid_inputs(torch, pos, radius)
+    args = (pos, None, None, body, cell_s, order, start)
+    ms = kernel_ms(torch, lambda: ck.grid_pair_forces(
+        *args, m, radius, stiffness, cap), CONTACT_REPS, [C2_KERNEL])
+    plain_ms = cuda_ms(torch, lambda: ck.grid_pair_forces_plain(
+        *args, offs, radius, stiffness, cap), 5)
+    bnd, by = bound(nbytes(pos, body, cell_s, order, start) + nbytes(pos),
+                    found * C2_OPS[d])
+    row = dict(name="contact_grid", route="cuda",
+               source="fem_tpu_torch/csrc/contact_grid.cu",
+               replaces="fem_tpu/broadphase.py:82 (XLA, no pallas_call)",
+               dim=d, launches=launches, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+               shapes=label, pairs_found=found, **(extra or {}))
+    log(f"[time] {d}D contact_grid ({label}): {ms:.5f} ms a launch on the "
+        f"device (profiler); plain {plain_ms:.4f} ms; bound {bnd:.6f} ms "
+        f"({by}, {found} pairs found); launches {launches}; card {card}")
+    return row
+
+
+def soup_of(torch, plan, states):
+    """(positions, velocities) of the plan's vertex soup."""
+    return (torch.cat([s.pos.index_select(0, sv)
+                       for s, sv in zip(states, plan.surf)]),
+            torch.cat([s.vel.index_select(0, sv)
+                       for s, sv in zip(states, plan.surf)]))
+
+
+def window_ms(torch, go, frames):
+    """(device ms a frame, busy share) of ``frames`` frames of ``go`` under
+    the profiler."""
+    per_kernel, wall_ms = profile_kernels(torch, go, 1)
+    dev_ms = sum(t for t, _ in per_kernel.values())
+    return dev_ms / frames, 100 * dev_ms / wall_ms
+
+
+def run_contact(torch, dev, zero_counts, counts, only, card):
+    """Sections 62-66: C1 and C2 against their plain versions and paths
+    AO-AS.  Returns (the kernels line's C1 and C2 rows, the
+    ``contact_paths`` line's dict, phase seconds)."""
+    import shutil
+
+    import numpy as np
+
+    import fem_tpu_torch
+    from fem_tpu_torch import batch, contact, entry, sim
+    from fem_tpu_torch import broadphase as bp
+    from fem_tpu_torch.models import mesh as pmesh
+    from fem_tpu_torch.models.state import Obstacles, build_object
+    from fem_tpu_torch.ops import blocked_kernels, element_kernels
+    from fem_tpu_torch.ops import contact_kernels as ck
+    from fem_tpu_torch.utils.config import ObjectConfig, parse_config
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(REPO, "build", "chip_smoke_contact")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ao_path = os.path.join(REPO, "configs", "demo_two_bodies_contact.json")
+    rows, line = [], {}
+    cwd = os.getcwd()
+    os.chdir(REPO)  # the configs name their meshes relative to the repo
+    try:
+        # -- 62. path AO: demo_two_bodies_contact.json as shipped -------------
+        with open(ao_path) as f:
+            ao = json.load(f)
+        subs = FRAMES_AO * ao["sim_count"]
+        zero_counts()
+        t0 = time.perf_counter()
+        rc, printed = cli_run(["--config", ao_path, "--frames",
+                               str(FRAMES_AO), "--no-render",
+                               "--checkpoint-every", str(FRAMES_AO),
+                               "--print-every", str(FRAMES_AO // 2),
+                               "--output", os.path.join(out_dir, "ao")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        for text in printed:
+            log(f"[path AO] CLI: {text}")
+        require(rc == 0, f"path AO: the CLI's exit code {rc}")
+        require(launches == only(contact_pairs=subs,
+                                 blocked_assemble=2 * subs),
+                f"path AO: the CLI's launches {launches}")
+        times = [float(t.split("t=")[1].split("s")[0]) for t in printed
+                 if " t=" in t]
+        require(times == [round(2 * n * ao["sim_count"] * ao["delta_time"],
+                                3) for n in (FRAMES_AO // 2, FRAMES_AO)],
+                f"path AO: the CLI's pacing {times} (N× per body)")
+        cli_steps = float(printed[-1].split(" steps/s")[0].split()[-1])
+        api = fem_tpu_torch.Simulation.from_config(ao_path, device=dev)
+        plan = api._contact_frame.plan
+        radius, stiffness, friction_c, mu_slope = api._contact_frame.constants
+        zero_counts()
+        t0 = time.perf_counter()
+        min_dist = np.inf
+        for i in range(FRAMES_AO):
+            api.step_frame()
+            if (i + 1) % 10 == 0:
+                min_dist = min(min_dist, float(torch.cdist(
+                    api.scene[0].state.pos, api.scene[1].state.pos).min()))
+        torch.cuda.synchronize()
+        api_wall = time.perf_counter() - t0
+        launches = counts()
+        require(launches == only(contact_pairs=subs,
+                                 blocked_assemble=2 * subs),
+                f"path AO: Simulation's launches {launches}")
+        require(abs(api.virtual_time - FRAMES_AO * ao["sim_count"]
+                    * ao["delta_time"]) < 1e-9,
+                f"path AO: Simulation's clock {api.virtual_time}")
+        end = np.load(os.path.join(out_dir, "ao",
+                                   f"ckpt_{FRAMES_AO:06}.npz"))
+        cli_api = max(float(np.abs(end[f"b{b}_pos"]
+                                   - api.positions(b)).max())
+                      for b in range(2))
+        require(cli_api <= 1e-5, f"path AO: the CLI's and Simulation's end "
+                f"states differ by {cli_api}")
+        require(all(np.isfinite(api.positions(b)).all() for b in range(2)),
+                "path AO: non-finite positions")
+        log(f"[path AO] configs/demo_two_bodies_contact.json: {FRAMES_AO} "
+            f"frames through the CLI ({cli_steps:.1f} steps/s as it "
+            f"printed, {wall:.2f} s) and Simulation ({subs / api_wall:.1f} "
+            f"steps/s), C1 once a substep and K7a once a body a substep; "
+            f"the CLI's clock {times[-1]} (N× per body), Simulation's "
+            f"{api.virtual_time:.4f}; end states within {cli_api:.3e}; radius "
+            f"{radius:.6f}, stiffness {stiffness:.3f}; smallest distance "
+            f"between the bodies {min_dist:.5f} (every 10th frame)")
+        require(min_dist > 0.5 * radius,
+                f"path AO: the bodies came within {min_dist}")
+        one = fem_tpu_torch.Simulation.from_config(ao_path, device=dev)
+        cpu = fem_tpu_torch.Simulation.from_config(ao_path, device="cpu")
+        one.step_frame()
+        cpu.step_frame()
+        err_ao = max(float(np.abs(one.positions(b) - cpu.positions(b)).max())
+                     for b in range(2))
+        log(f"[path AO] first frame vs the CPU: max |dpos| {err_ao:.3e}")
+        require(err_ao <= 1e-5, f"path AO: first frame off by {err_ao}")
+        dev_ms, busy = window_ms(torch, lambda: api.run(frames=10), 10)
+        log(f"[profile] path AO: {dev_ms:.4f} device ms a frame, busy "
+            f"{busy:.1f}% (Simulation, 10 frames)")
+        # C1 at the path's shapes on a state in contact: the shipped bodies
+        # stay apart (above), so body 0 is moved, rigidly, onto body 1's
+        # top, its lowest row half a radius into body 1's highest.
+        s0, s1 = (s.state for s in api.scene)
+        lo0 = s0.pos.min(dim=0).values
+        shift = torch.stack([s1.pos[:, 0].min() + 0.02 - lo0[0],
+                             s1.pos[:, 1].max() - 0.5 * radius - lo0[1]])
+        laid = (s0.replace(pos=s0.pos + shift), s1)
+        pos, vel = soup_of(torch, plan, laid)
+        err_c1_2d, active = check_c1(torch, "2D AO shapes, body 0 laid on "
+                                     "body 1", plan.tables, pos, vel, radius,
+                                     stiffness, 0.0, 0.0, mu_slope)
+        err_mu, _ = check_c1(torch, "2D AO shapes, Coulomb", plan.tables,
+                             pos, vel, radius, stiffness, 1.0, MU_CHECK,
+                             mu_slope)
+        f_ao = ck.pair_forces(plan.tables, pos, vel, radius, stiffness)
+        momentum = float(f_ao.sum(dim=0).abs().max())
+        scale = float(f_ao.abs().sum())
+        require(momentum < 1e-5 * scale,
+                f"path AO: contact momentum {momentum} of {scale}")
+        log(f"[path AO] contact forces' total {momentum:.3e} of sum |f| "
+            f"{scale:.3e} (tests/test_contact.py's 1e-5)")
+        rows.append(c1_row(torch, card, 2, plan.tables, pos, vel, radius,
+                           stiffness, subs, max(err_c1_2d, err_mu),
+                           f"AO soup {plan.sizes}, {active} active pairs",
+                           dict(path_device_ms_per_frame=dev_ms,
+                                path_busy_pct=busy)))
+        # The grid on the same bodies: C2 once a substep.
+        grid_cfg = dict(ao, contact_broadphase="grid")
+        gsim = fem_tpu_torch.Simulation.from_dict(grid_cfg, device=dev)
+        require(gsim._contact_frame.plan.mode == "grid", "AO grid: plan")
+        for s, st in zip(gsim.scene, laid):
+            s.state = st
+        zero_counts()
+        gsim.run(frames=FRAMES_GRID)
+        torch.cuda.synchronize()
+        launches = counts()
+        gsubs = FRAMES_GRID * ao["sim_count"]
+        require(launches == only(contact_grid=gsubs,
+                                 blocked_assemble=2 * gsubs),
+                f"path AO grid: launches {launches}")
+        body = gsim._contact_frame.plan.body_id
+        err_c2_2d, _, found = check_c2(torch, "2D AO shapes", pos, vel, pos,
+                                       body, radius, stiffness, 8)
+        check_c2(torch, "2D AO shapes, self-contact and Coulomb", pos, vel,
+                 gsim._contact_frame.plan.rest_cat, body, radius, stiffness,
+                 8, 0.5, MU_CHECK, mu_slope, True)
+        rows.append(c2_row(torch, card, 2, pos, body, radius, stiffness, 8,
+                           gsubs, err_c2_2d, found,
+                           f"AO soup {plan.sizes}"))
+        log(f"[path AO grid] {FRAMES_GRID} frames with contact_broadphase "
+            f"'grid' from body 0 laid on body 1: C2 once a substep; "
+            f"finite {all(np.isfinite(gsim.positions(b)).all() for b in range(2))}")
+        line["AO"] = dict(cli_steps_per_s=cli_steps, api_steps_per_s=subs /
+                          api_wall, device_ms_per_frame=dev_ms,
+                          busy_pct=busy, first_frame_err=err_ao,
+                          min_distance=min_dist, radius=radius)
+
+        # -- 63. path AP: two flagship bodies stacked -------------------------
+        with open(os.path.join(REPO, "configs", "demo_spot.json")) as f:
+            spot = json.load(f)
+        _, fobj, _, _ = entry.flagship("cpu")
+        rest = fobj.rest_pos.numpy()
+        surf = rest[np.unique(fobj.faces.numpy().reshape(-1))]
+        r_ap = contact.auto_contact_radius([fobj])
+        # The upper body's lift: its lowest surface vertex within half the
+        # radius of the lower body's surface.
+        lift = float(rest[:, 1].max() - rest[:, 1].min()) + r_ap
+        while True:
+            moved = surf + np.asarray([0.0, lift, 0.0], np.float32)
+            gap = float(np.sqrt(((surf[:, None] - moved[None]) ** 2).sum(-1))
+                        .min())
+            if gap <= 0.5 * r_ap:
+                break
+            lift -= 0.0025
+        ap = dict(spot, contact="penalty", objects=[
+            dict(spot["objects"][0], id=0),
+            dict(spot["objects"][0], id=1,
+                 center=[2.0, spot["objects"][0]["center"][1] + lift, 2.0])])
+        psim = fem_tpu_torch.Simulation.from_dict(ap, device=dev)
+        pplan = psim._contact_frame.plan
+        require(pplan.sizes == (642, 642) and pplan.mode == "dense",
+                f"path AP: plan {pplan.mode} {pplan.sizes}")
+        csim = fem_tpu_torch.Simulation.from_dict(ap, device="cpu")
+        states0 = tuple(s.state for s in psim.scene)
+        first, faux = psim._contact_frame(states0, psim.obstacles)
+        cfirst, caux = csim._contact_frame(
+            tuple(s.state for s in csim.scene), csim.obstacles)
+        err_ap = max(float((a.pos.cpu() - b.pos).abs().max())
+                     for a, b in zip(first, cfirst))
+        its = [a.solver_iterations.tolist() for a in faux]
+        cits = [a.solver_iterations.tolist() for a in caux]
+        log(f"[path AP] lift {lift:.4f} (gap {gap:.5f}, radius {r_ap:.5f}); "
+            f"first frame vs the CPU: max |dpos| {err_ap:.3e}; iterations "
+            f"{its}, CPU {cits}")
+        require(err_ap <= 1e-5, f"path AP: first frame off by {err_ap}")
+        require(its == cits, "path AP: iterations differ from the CPU's")
+        rad_p, k_p, _, slope_p = psim._contact_frame.constants
+        pos_p, vel_p = soup_of(torch, pplan, states0)
+        err_ap_c1, active_p = check_c1(torch, "3D two flagships",
+                                       pplan.tables, pos_p, vel_p, rad_p,
+                                       k_p, 0.0, 0.0, slope_p)
+        zero_counts()
+        t0 = time.perf_counter()
+        psim.run(frames=FRAMES_AP)
+        torch.cuda.synchronize()
+        ap_wall = time.perf_counter() - t0
+        launches = counts()
+        psubs = FRAMES_AP * ap["sim_count"]
+        require(launches == only(contact_pairs=psubs,
+                                 element_chain=2 * psubs,
+                                 fused_cg=2 * psubs),
+                f"path AP: launches {launches}")
+        require(all(np.isfinite(psim.positions(b)).all() for b in range(2)),
+                "path AP: non-finite positions")
+        ap_ms, ap_busy = window_ms(torch, lambda: psim.run(frames=3), 3)
+        log(f"[path AP] {FRAMES_AP} frames, C1 once a substep and K1 + K4 "
+            f"once a body a substep: {psubs / ap_wall:.1f} steps/s; "
+            f"{ap_ms:.4f} device ms a frame, busy {ap_busy:.1f}%")
+        rows.append(c1_row(torch, card, 3, pplan.tables, pos_p, vel_p, rad_p,
+                           k_p, psubs, err_ap_c1,
+                           f"AP soup {pplan.sizes}, {active_p} active pairs",
+                           dict(path_device_ms_per_frame=ap_ms,
+                                path_busy_pct=ap_busy)))
+        line["AP"] = dict(steps_per_s=psubs / ap_wall,
+                          device_ms_per_frame=ap_ms, busy_pct=ap_busy,
+                          first_frame_err=err_ap, active_pairs=active_p)
+
+        # -- 64. path AQ: the self-contact blob --------------------------------
+        blob = json.loads(json.dumps(BLOB_AQ))
+        blob["objects"][0]["obj"] = os.path.join(REPO, "assets", "spot.obj")
+        t0 = time.perf_counter()
+        bsim = fem_tpu_torch.Simulation.from_dict(
+            blob, interior_spacing=SPACING_AQ, device=dev)
+        bobj = bsim.scene[0].obj
+        bplan = bsim._contact_frame.plan
+        log(f"[path AQ] blob built in {time.perf_counter() - t0:.1f} s: "
+            f"{bobj.particle_cnt} particles, {bobj.element_cnt} tets, "
+            f"{bplan.sizes[0]} surface vertices ({bplan.mode})")
+        st = bsim.scene[0].state
+        vel0 = torch.zeros_like(st.vel)
+        vel0[:, 1] = IMPACT_AQ
+        bsim.scene[0].state = st.replace(vel=vel0)
+        warm = int(WARM_AQ / (blob["sim_count"] * blob["delta_time"]))
+        rad_b, k_b, fc_b, slope_b = bsim._contact_frame.constants
+        # The active self-pairs, sampled every SAMPLE_AQ frames through the
+        # slam.
+        series = []
+        zero_counts()
+        t0 = time.perf_counter()
+        for i in range(warm):
+            bsim.step_frame()
+            if (i + 1) % SAMPLE_AQ == 0:
+                series.append(active_pairs(torch, bplan.tables, soup_of(
+                    torch, bplan, [bsim.scene[0].state])[0], rad_b))
+        torch.cuda.synchronize()
+        aq_wall = time.perf_counter() - t0
+        # The blob's 270 blocks take K7b's grid variant (past 32 blocks),
+        # which counts() refuses on a path: the counts are read from the
+        # wrappers here.
+        c1_n = ck.pair_forces.launches
+        grads = {fn.__name__: fn.launches for fn in (
+            blocked_kernels.blocked_grad_prep,
+            blocked_kernels.blocked_assemble,
+            element_kernels.explicit_grad_columns)}
+        zero_counts()
+        bsubs = warm * blob["sim_count"]
+        require(c1_n == bsubs and sum(grads.values()) == bsubs,
+                f"path AQ: C1 {c1_n}, gradient kernels {grads} launches in "
+                f"{bsubs} substeps")
+        bst = bsim.scene[0].state
+        require(bool(torch.isfinite(bst.pos).all()),
+                "path AQ: non-finite after the slam")
+        height = float(bst.pos[:, 1].max() - bst.pos[:, 1].min())
+        log(f"[path AQ] active masked self-pairs every {SAMPLE_AQ} frames "
+            f"through the slam: {series}")
+        # C1 is held to its plain version where self-pairs are active: the
+        # warmed state squashed to 15 % of its height about its centroid,
+        # as tests/test_contact.py folds its square.
+        centroid = bst.pos.mean(dim=0, keepdim=True)
+        squash = torch.tensor([[1.0, SQUASH_AQ, 1.0]], device=dev)
+        pos_b, vel_b = soup_of(torch, bplan, [bst.replace(
+            pos=centroid + (bst.pos - centroid) * squash)])
+        err_b, active_b = check_c1(torch, "3D blob squashed, masked "
+                                   "self-pairs",
+                                   bplan.tables, pos_b, vel_b, rad_b, k_b,
+                                   fc_b, 0.0, slope_b)
+        err_b_mu, _ = check_c1(torch, "3D blob squashed, Coulomb",
+                               bplan.tables,
+                               pos_b, vel_b, rad_b, k_b, fc_b, MU_CHECK,
+                               slope_b)
+        overflow = bp.grid_overflow_count(
+            soup_of(torch, bplan, [bst])[0].cpu().numpy(), rad_b, 8)
+        m_b, _ = bp.grid_shape(rad_b, 3)
+        log(f"[path AQ] {warm} frames ({bsubs} substeps) through the slam in "
+            f"{aq_wall:.2f} s (with the samples), C1 once a substep, "
+            f"gradient kernels {grads}; height at the end "
+            f"{height:.4f}; squashed to {SQUASH_AQ}: {active_b} active masked "
+            f"self-pairs; F8: the warmed blob's grid_overflow_count "
+            f"{overflow} at cap 8 (grid {m_b}^3 over the unit domain, the "
+            f"blob at x, z ~ 2)")
+        kw_b = sim.substep_kwargs(bsim.cfg)
+        forces_b = contact.contact_forces_all(
+            [bst.pos], rad_b, k_b, [bst.vel], bplan, fc_b)
+
+        def with_contact():
+            s = bst
+            for _ in range(blob["sim_count"]):
+                f = contact.contact_forces_all([s.pos], rad_b, k_b, [s.vel],
+                                               bplan, fc_b)
+                s, _ = sim.substep(bobj, s, bsim.obstacles,
+                                   external_force=f[0], **kw_b)
+
+        def without():
+            s = bst
+            for _ in range(blob["sim_count"]):
+                s, _ = sim.substep(bobj, s, bsim.obstacles, **kw_b)
+
+        ms_with, busy_with = window_ms(torch, with_contact, blob["sim_count"])
+        ms_without, busy_without = window_ms(torch, without,
+                                             blob["sim_count"])
+        zero_counts()
+        log(f"[path AQ] device ms a substep: with contact {ms_with:.4f} "
+            f"(busy {busy_with:.1f}%), without {ms_without:.4f} (busy "
+            f"{busy_without:.1f}%); max |f| {float(forces_b[0].abs().max()):.3e}")
+        rows.append(c1_row(torch, card, 3, bplan.tables, pos_b, vel_b, rad_b,
+                           k_b, bsubs, max(err_b, err_b_mu),
+                           f"AQ blob {bplan.sizes[0]} masked, {active_b} "
+                           "active pairs",
+                           dict(substep_device_ms_with_contact=ms_with,
+                                substep_device_ms_without=ms_without)))
+        line["AQ"] = dict(steps_per_s=bsubs / aq_wall, height=height,
+                          active_pairs_squashed=active_b,
+                          active_series=series,
+                          grid_overflow_count=overflow,
+                          substep_ms_with=ms_with,
+                          substep_ms_without=ms_without)
+
+        # -- 65. path AR: the interpenetrating shells --------------------------
+        line["AR"] = {}
+        for ns in SHELLS_AR:
+            half = ns // 2
+            spacing = float(np.sqrt(4 * np.pi * 0.2 ** 2 / half))
+            a = sphere_shell(np, half, np.array([0.45, 0.5, 0.5]), 0.2, 0)
+            b = sphere_shell(np, half, np.array(
+                [0.45 + 2 * 0.2 - 2 * spacing, 0.5, 0.5]), 0.2, 1)
+            pos_s = torch.as_tensor(np.concatenate([a, b]), device=dev)
+            body_s = torch.as_tensor(np.concatenate(
+                [np.zeros(half, np.int32), np.ones(half, np.int32)]),
+                device=dev)
+            tables = ck.pair_tables((half, half), [None, None], dev)
+            zero_v = torch.zeros_like(pos_s)
+            err1, active_s = check_c1(torch, f"shells ns={ns}", tables,
+                                      pos_s, zero_v, spacing, 1e3, 0.0, 0.0,
+                                      0.0)
+            err2, f2, found = check_c2(torch, f"shells ns={ns}", pos_s,
+                                       zero_v, pos_s, body_s, spacing, 1e3,
+                                       CAP_AR)
+            overflow = bp.grid_overflow_count(pos_s.cpu().numpy(), spacing,
+                                              CAP_AR)
+            f1 = ck.pair_forces(tables, pos_s, None, spacing, 1e3)
+            f64 = ck.pair_forces_plain(tables, pos_s.double(), None, spacing,
+                                       1e3)
+            gap = float((f1 - f2).abs().max())
+            top = float(f64.abs().max())
+            e1 = float((f1.double() - f64).abs().max())
+            e2 = float((f2.double() - f64).abs().max())
+            log(f"[path AR] ns={ns}: radius {spacing:.5f}, grid overflow "
+                f"{overflow}; |C1 − C2| {gap:.3e} of {top:.3e}; against the "
+                f"f64 dense forces C1 {e1:.3e}, C2 {e2:.3e}")
+            if overflow == 0:
+                require(e2 <= 1e-5 * top and gap <= e1 + 1e-5 * top,
+                        f"path AR ns={ns}: C1 and C2 disagree by {gap}")
+            r1 = c1_row(torch, card, 3, tables, pos_s, zero_v, spacing, 1e3,
+                        0, err1, f"AR shells ns={ns}, {active_s} active "
+                        "pairs")
+            r2 = c2_row(torch, card, 3, pos_s, body_s, spacing, 1e3, CAP_AR,
+                        0, err2, found, f"AR shells ns={ns}")
+            line["AR"][ns] = dict(
+                c1={k: r1[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "cdist_yardstick_ms",
+                                       "pairs", "max_abs_err")},
+                c2={k: r2[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "pairs_found",
+                                       "max_abs_err")},
+                overflow=overflow, c1_c2_gap=gap, c1_f64_err=e1,
+                c2_f64_err=e2)
+        # C2 on a 3D path: two grid cubes (5 subdivisions, side 0.2) in the
+        # unit domain, the upper half a radius into the lower, through
+        # make_contact_frame_fn with contact_broadphase "grid".
+        cube_cfg = parse_config(dict(
+            dim=3, delta_time=5e-4, sim_count=10, auto_diff=False,
+            use_explicit_method=True, g_dir=[0.0, -1.0, 0.0],
+            contact="penalty", contact_broadphase="grid", blocks=[]))
+        cubes = []
+        for center in ([0.4, 0.1, 0.4], [0.42, 0.3, 0.4]):
+            ocfg = ObjectConfig(center=tuple(center), side_length=0.2,
+                                subdivisions=5)
+            cubes.append(build_object(
+                ocfg, *pmesh.construct_3d_grid_mesh(ocfg), device=dev))
+        crad = contact.auto_contact_radius([o for o, _ in cubes])
+        upper = cubes[1][1]
+        cstates = (cubes[0][1], upper.replace(pos=upper.pos - torch.tensor(
+            [0.0, 0.5 * crad, 0.0], device=dev)))
+        cframe = fem_tpu_torch.make_contact_frame_fn([o for o, _ in cubes],
+                                                     cube_cfg)
+        cobs = Obstacles.from_configs((), 3, device=dev)
+        zero_counts()
+        for _ in range(FRAMES_GRID):
+            cstates, _ = cframe(cstates, cobs)
+        torch.cuda.synchronize()
+        launches = counts()
+        require(launches == only(contact_grid=FRAMES_GRID * 10,
+                                 blocked_grad_prep=2 * FRAMES_GRID * 10),
+                f"path AR grid cubes: launches {launches}")
+        require(all(bool(torch.isfinite(s.pos).all()) for s in cstates),
+                "path AR grid cubes: non-finite positions")
+        cplan = cframe.plan
+        cpos, cvel = soup_of(torch, cplan, cstates)
+        crad, ck3, _, _ = cframe.constants
+        err_c2_3d, _, cfound = check_c2(torch, "3D grid cubes", cpos, cvel,
+                                        cplan.rest_cat, cplan.body_id, crad,
+                                        ck3, cplan.cap)
+        rows.append(c2_row(torch, card, 3, cpos, cplan.body_id, crad, ck3,
+                           cplan.cap, FRAMES_GRID * 10, err_c2_3d, cfound,
+                           f"two grid cubes {cplan.sizes}",
+                           dict(shells={ns: v["c2"] for ns, v in
+                                        line["AR"].items()})))
+        for r in rows:
+            if r["name"] == "contact_pairs" and r["shapes"].startswith("AP"):
+                r["shells"] = {ns: v["c1"] for ns, v in line["AR"].items()}
+        log(f"[path AR grid] two 3D cubes stacked, {FRAMES_GRID} frames "
+            f"with contact_broadphase 'grid' through make_contact_frame_fn: "
+            "C2 once a substep, K7b once a body a substep")
+
+        # -- 66. path AS: the batched frame ------------------------------------
+        dpath = os.path.join(REPO, "configs", "default.json")
+        dcfg, dobj, dstate, dobs = entry.load_config(dpath, dev)
+        ens = batch.perturb_states(dstate, BATCH_AS, scale=1e-4, seed=0)
+        bframe = batch.make_batched_frame_fn(dobj, dcfg)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = ens
+        for _ in range(FRAMES_AS):
+            out, baux = bframe(out, dobs)
+        torch.cuda.synchronize()
+        as_wall = time.perf_counter() - t0
+        launches = counts()
+        asubs = FRAMES_AS * dcfg.sim_count
+        require(launches == only(blocked_assemble=BATCH_AS * asubs),
+                f"path AS: launches {launches}")
+        require(tuple(baux.solver_iterations.shape) == (BATCH_AS,
+                                                         dcfg.sim_count),
+                "path AS: aux shape")
+        kw = sim.substep_kwargs(dcfg)
+        for b in range(BATCH_AS):
+            s = dstate.replace(pos=ens.pos[b])
+            for _ in range(asubs):
+                s, _ = sim.substep(dobj, s, dobs, **kw)
+            require(torch.equal(s.pos, out.pos[b]),
+                    f"path AS: member {b} differs from its single run")
+        spread = float((out.pos - out.pos[0]).abs().max())
+        log(f"[path AS] default.json at B={BATCH_AS}, perturbed (1e-4): "
+            f"{FRAMES_AS} frames, K7a once a member a substep "
+            f"({BATCH_AS * asubs}); {BATCH_AS * asubs / as_wall:.1f} member "
+            f"steps/s; every member bit-equal to its single run; spread "
+            f"{spread:.3e}")
+        line["AS"] = dict(member_steps_per_s=BATCH_AS * asubs / as_wall,
+                          spread=spread)
+    finally:
+        os.chdir(cwd)
+        zero_counts()
+    return rows, line, time.perf_counter() - t_phase
+
+
 def launch_counters():
     """(zero_counts, counts, instances, only) over every kernel wrapper's
     launch count (the closures each path's checks use)."""
@@ -5155,6 +5898,7 @@ def launch_counters():
         frame_kernels,
         jacobi_kernels,
     )
+    from fem_tpu_torch.ops import contact_kernels
     from fem_tpu_torch.probes import int8, pairblock
 
     counters = {
@@ -5177,6 +5921,8 @@ def launch_counters():
         "paired_matvec": pairblock.paired_matvec,
         "chained_dot": int8.chained_dot,
         "jacobi_serial": jacobi_kernels.jacobi_serial,
+        "contact_pairs": contact_kernels.pair_forces,
+        "contact_grid": contact_kernels.grid_pair_forces,
     }
 
     def zero_counts():
@@ -5906,10 +6652,21 @@ def main():
                                            only, card)
     log(json.dumps({"entry_paths": entry_line}))
     log(f"[entry points] sections 59-61 in {entry_s:.1f} s")
-    for name, _, _ in KERNELS:
+
+    # -- 62.-66. contact: C1, C2 and paths AO-AS -----------------------------
+    contact_rows, contact_line, contact_s = run_contact(
+        torch, dev, zero_counts, counts, only, card)
+    kernels.extend(contact_rows)
+    log(json.dumps({"contact_paths": contact_line}))
+    log(f"[contact] sections 62-66 in {contact_s:.1f} s")
+    for name in [k for k, _, _ in KERNELS] + ["contact_pairs",
+                                              "contact_grid"]:
         for d in (2, 3):
             require(any(r["name"] == name and r.get("dim") == d
                         for r in kernels), f"no {d}D row of {name}")
+    for r in contact_rows:
+        require(r["launches"] > 0, f"{r['name']} {r['shapes']}: no launch "
+                "on its path")
     log(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -15,7 +15,9 @@ typed SDF obstacles, block-Jacobi PCG, the exact Hessian) on the
 op-composed frame — and the adaptive-dt guard over K2 and K5, with the
 entry points users call: ``Simulation`` (``api.py``), the CLI
 (``python -m fem_tpu_torch.main``), checkpoints, metrics, the NaN guard,
-rendering and OBJ/VTU export.  CUDA kernels run on a GPU,
+rendering and OBJ/VTU export — and body-body penalty contact
+(``contact.py``, ``broadphase.py``: the pair forces and the grid's narrow
+phase as hand-written kernels) and batched ensembles (``batch.py``).  CUDA kernels run on a GPU,
 their plain PyTorch versions on the CPU.  The package imports nothing of
 the JAX package.
 
@@ -33,6 +35,8 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from fem_tpu_torch.api import Simulation  # noqa: E402
+from fem_tpu_torch.batch import make_batched_frame_fn  # noqa: E402
+from fem_tpu_torch.contact import make_contact_frame_fn  # noqa: E402
 from fem_tpu_torch.models.state import (  # noqa: E402
     FemObject,
     Obstacles,
@@ -60,6 +64,8 @@ __all__ = [
     "Simulation",
     "StepAux",
     "build_object",
+    "make_batched_frame_fn",
+    "make_contact_frame_fn",
     "make_frame_fn",
     "parse_config",
     "read_config",

@@ -15,8 +15,9 @@ It runs on the CUDA device unless ``device="cpu"`` is passed.  Everything
 stays reachable underneath (``sim.scene[i].obj`` / ``.state``,
 ``fem_tpu_torch.sim.substep``).  What the port does not cover raises
 ``NotImplementedError`` naming its ROADMAP item: the analysis solvers
-(M19), ``sharded=True`` (M20) and penalty contact (M17, through
-``sim.check_supported_config``).
+(M19) and ``sharded=True`` (M20).  ``contact="penalty"`` with more than
+one body, or with ``self_contact``, steps every body jointly through
+``contact.make_contact_frame_fn``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from fem_tpu_torch.contact import contact_scene, make_contact_frame_fn
 from fem_tpu_torch.ops.element import deformation_gradients, element_stresses
 from fem_tpu_torch.scene import SceneObject, load_scene, method_banner
 from fem_tpu_torch.sim import element_phi, element_von_mises, make_frame_fn
@@ -40,7 +42,8 @@ from fem_tpu_torch.utils.profiling import (
 
 
 class Simulation:
-    """A loaded scene, one frame function per body and a virtual clock."""
+    """A loaded scene, one frame function per body (or the coupled contact
+    frame of all of them) and a virtual clock."""
 
     def __init__(self, cfg: SimConfig,
                  interior_spacing: Optional[float] = None,
@@ -54,7 +57,12 @@ class Simulation:
         self.scene: List[SceneObject]
         self.scene, self.obstacles = load_scene(cfg, interior_spacing,
                                                 device=self.device)
-        self._frame_fns = [make_frame_fn(s.obj, cfg) for s in self.scene]
+        self._contact_frame, self._frame_fns = None, []
+        if contact_scene(cfg, len(self.scene)):
+            self._contact_frame = make_contact_frame_fn(
+                [s.obj for s in self.scene], cfg)
+        else:
+            self._frame_fns = [make_frame_fn(s.obj, cfg) for s in self.scene]
         self.virtual_time = 0.0
         self.frame_count = 0
         self.last_aux = None
@@ -71,9 +79,18 @@ class Simulation:
     # -- stepping ---------------------------------------------------------
     def step_frame(self) -> None:
         """Advance one rendered frame (``sim_count`` substeps) of every
-        body; nothing is read back."""
-        for s, fn in zip(self.scene, self._frame_fns):
-            s.state, self.last_aux = fn(s.state, self.obstacles)
+        body; nothing is read back.  Coupled by contact, the bodies advance
+        jointly and ``last_aux`` is the last body's, as in the JAX
+        package; the clock advances once either way."""
+        if self._contact_frame is not None:
+            states, auxes = self._contact_frame(
+                tuple(s.state for s in self.scene), self.obstacles)
+            for s, st in zip(self.scene, states):
+                s.state = st
+            self.last_aux = auxes[-1]
+        else:
+            for s, fn in zip(self.scene, self._frame_fns):
+                s.state, self.last_aux = fn(s.state, self.obstacles)
         self.virtual_time += self.cfg.sim_count * self.cfg.delta_time
         self.frame_count += 1
 

@@ -13,7 +13,11 @@ arrays (``free_mask``, ``pin_vel``, ``static_load``) and the edge matrix of
 so are the typed obstacles' arrays of :class:`Obstacles`.  The serial
 Jacobi sweep's plan is rebuilt from ``element_indices`` too (the same host
 algorithm as the JAX package's ``build_jacobi_plan``), and the state's
-``jacobi_past_x`` crosses with the state, zero when absent.
+``jacobi_past_x`` crosses with the state, zero when absent.  A batched
+state (the JAX package's ``batch.py``: every field with a leading B axis)
+crosses through the same two functions, its axis kept.  A contact plan
+(``contact.ContactPlan``) crosses as the JAX package's plan fields
+(``CONTACT_PLAN_FIELDS``), the self-contact masks as booleans.
 Only numpy crosses this boundary.
 """
 
@@ -25,6 +29,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from fem_tpu_torch.contact import ContactPlan
 from fem_tpu_torch.models.state import (
     FemObject,
     Obstacles,
@@ -33,6 +38,7 @@ from fem_tpu_torch.models.state import (
 )
 from fem_tpu_torch.ops.assembly import make_gather_plan
 from fem_tpu_torch.ops.blocking import build_blocking
+from fem_tpu_torch.ops.contact_kernels import pair_tables
 from fem_tpu_torch.ops.element import check_material
 from fem_tpu_torch.utils.device import resolve_device
 
@@ -155,6 +161,54 @@ def state_to_arrays(state: SimState) -> Dict[str, np.ndarray]:
     """The inverse of :func:`state_from_arrays`: internal inverses that are
     None are left out."""
     return _present(state, STATE_ARRAYS + INTERNAL_ARRAYS)
+
+
+# The JAX package's ContactPlan fields, by name: per-body ``surf`` and
+# ``self_mask`` sequences (masks (ns_i, ns_i) 0/1 or None), the grid's
+# ``body_id`` and ``rest_cat`` (None in dense mode) and the static routing
+# fields.
+CONTACT_PLAN_FIELDS = ("surf", "self_mask", "body_id", "rest_cat", "mode",
+                       "sizes", "self_contact", "cap")
+
+
+def contact_plan_from_arrays(fields: Dict[str, object],
+                             device="cuda") -> ContactPlan:
+    """A :class:`ContactPlan` from the fields ``CONTACT_PLAN_FIELDS`` of a
+    plan (array-likes; the masks are taken as given, nonzero admits)."""
+    dev = resolve_device(device)
+    surf = [np.asarray(s) for s in fields["surf"]]
+    sizes = tuple(int(n) for n in fields["sizes"])
+    plan = dict(
+        surf=tuple(torch.tensor(s, dtype=torch.int64, device=dev)
+                   for s in surf),
+        sizes=sizes, mode=str(fields["mode"]),
+        self_contact=bool(fields["self_contact"]), cap=int(fields["cap"]))
+    if plan["mode"] == "grid":
+        return ContactPlan(
+            **plan,
+            body_id=torch.tensor(np.asarray(fields["body_id"], np.int32),
+                                 device=dev),
+            rest_cat=torch.tensor(np.asarray(fields["rest_cat"], np.float32),
+                                  device=dev))
+    masks = [None if m is None else np.asarray(m) != 0
+             for m in fields["self_mask"]]
+    return ContactPlan(**plan, tables=pair_tables(sizes, masks, dev))
+
+
+def contact_plan_to_arrays(plan: ContactPlan) -> Dict[str, object]:
+    """The fields ``CONTACT_PLAN_FIELDS`` of ``plan`` as numpy arrays and
+    host values, the masks as booleans: the inverse of
+    :func:`contact_plan_from_arrays`."""
+    def host(t):
+        return None if t is None else t.cpu().numpy()
+
+    return dict(
+        surf=[host(s) for s in plan.surf],
+        self_mask=[None if m is None else host(m) != 0
+                   for m in plan.self_mask],
+        body_id=host(plan.body_id), rest_cat=host(plan.rest_cat),
+        mode=plan.mode, sizes=tuple(plan.sizes),
+        self_contact=plan.self_contact, cap=plan.cap)
 
 
 def to_dtype(x, dtype: torch.dtype):

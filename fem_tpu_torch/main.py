@@ -16,7 +16,10 @@ Nothing is read back from the device in a frame that neither renders,
 exports, checkpoints, guards (``--debug``) nor prints: the solver metrics
 are read at the print cadence only, so a whole-frame path stays one
 launch a frame.  Rendering imports matplotlib when it draws (``--no-render``
-needs none).  ``--sharded`` raises ``NotImplementedError`` (ROADMAP M20).
+needs none).  ``contact="penalty"`` with more than one body, or with
+``self_contact``, steps every body jointly through
+``contact.make_contact_frame_fn``.  ``--sharded`` raises
+``NotImplementedError`` (ROADMAP M20).
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ def run(argv=None) -> int:
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
 
+    from fem_tpu_torch.contact import contact_scene, make_contact_frame_fn
     from fem_tpu_torch.scene import load_scene, method_banner
     from fem_tpu_torch.sim import element_phi, element_von_mises, make_frame_fn
     from fem_tpu_torch.utils import io as fio
@@ -91,7 +95,11 @@ def run(argv=None) -> int:
 
     scene, obstacles = load_scene(cfg, args.interior_spacing, device=device)
     print(method_banner(cfg))
-    frame_fns = [make_frame_fn(s.obj, cfg) for s in scene]
+    contact_frame, frame_fns = None, []
+    if contact_scene(cfg, len(scene)):
+        contact_frame = make_contact_frame_fn([s.obj for s in scene], cfg)
+    else:
+        frame_fns = [make_frame_fn(s.obj, cfg) for s in scene]
 
     frame_time = cfg.frame_time
     n_frames = args.frames
@@ -142,13 +150,23 @@ def run(argv=None) -> int:
 
     for frame in range(start_frame, n_frames):
         per_body_aux = []
-        for s, frame_fn in zip(scene, frame_fns):
-            s.state, aux = frame_fn(s.state, obstacles)
-            per_body_aux.append(aux)
-            # The reference's quirk, kept: virtual_time advances inside the
-            # per-object loop (its main.py:113), so an N-body scene paces
-            # capture and export N× faster (PARITY.md).
-            virtual_time += cfg.sim_count * cfg.delta_time
+        if contact_frame is not None:
+            states, auxes = contact_frame(tuple(s.state for s in scene),
+                                          obstacles)
+            for s, state, aux in zip(scene, states, auxes):
+                s.state = state
+                per_body_aux.append(aux)
+            # The coupled frame keeps the reference's N×-per-body pacing
+            # (PARITY.md), as the JAX package's CLI does (main.py:179-181).
+            virtual_time += len(scene) * cfg.sim_count * cfg.delta_time
+        else:
+            for s, frame_fn in zip(scene, frame_fns):
+                s.state, aux = frame_fn(s.state, obstacles)
+                per_body_aux.append(aux)
+                # The reference's quirk, kept: virtual_time advances inside
+                # the per-object loop (its main.py:113), so an N-body scene
+                # paces capture and export N× faster (PARITY.md).
+                virtual_time += cfg.sim_count * cfg.delta_time
 
         if (
             (cfg.is_output_obj or args.export_vtu)

@@ -1,0 +1,439 @@
+# coding=utf-8
+"""C1 and C2: the penalty contact's pair forces, one launch a substep.
+
+``pair_forces`` (C1) is the dense pass: every pair of the participating
+vertices of different bodies, and the pairs of one body that its
+self-contact mask admits, over the concatenated vertex soup.
+``grid_pair_forces`` (C2) is the uniform grid's narrow phase, after the
+sort and the lookup of ``broadphase.grid_contact_forces``.  For tensors on
+a CUDA device each launches its hand-written kernel
+(``fem_tpu_torch/csrc/contact_pairs.cu``, ``csrc/contact_grid.cu``); for
+tensors on the CPU each runs its plain PyTorch version (``*_plain``),
+which is the JAX package's computation written in PyTorch.  On CUDA each
+launches its kernel or raises; it never falls back.  Each wrapper counts
+its launches (``launches``).
+
+Neither replaces a TPU kernel: the JAX package computes both in XLA
+(its ``contact.py:92-218`` and ``:370-402``, and its
+``broadphase.py:82-232``).  The plain functions of this module are
+that computation and keep its names (``contact.py`` re-exports them):
+
+* ``_pair_coefs``, ``pair_contact_forces``, ``self_contact_forces``: the
+  distance as ‖a‖² + ‖b‖² − 2a·bᵀ (TF32 off) and the force as
+  x·Σcoef − coef·x, a viscous dashpot on the overlap ramp;
+* ``_pair_mu_forces``: direct differences and the regularized Coulomb cone
+  (``contact_mu`` > 0).
+
+The kernels compute each pair's force term for term as the plain versions
+do and sum each vertex's row in a fixed order, with no float atomics, so
+two runs are bit-identical; against the plain versions they differ by the
+order of the sums (and C1 by the order of the three-term distance's sums):
+agreement to f32 rounding, stated in the tests relative to max |f|.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from fem_tpu_torch.utils import cuda_build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+# -- the plain pair forces (the JAX package's contact.py:92-218) --------------
+
+def _pair_coefs(pos_a, pos_b, radius, stiffness):
+    """Pairwise distances → (penalty coefficient, overlap ramp) matrices."""
+    sq_a = torch.sum(pos_a * pos_a, dim=1)
+    sq_b = torch.sum(pos_b * pos_b, dim=1)
+    cross = pos_a @ pos_b.T
+    d2 = torch.clamp(sq_a[:, None] + sq_b[None, :] - 2.0 * cross, min=1e-18)
+    dist = torch.sqrt(d2)
+    pen = torch.clamp(radius - dist, min=0.0)
+    # The normalization distance is floored at 0.1·radius: near-coincident
+    # particles get a large but bounded push.
+    coef = stiffness * pen / torch.clamp(dist, min=0.1 * radius)
+    return coef, pen / radius
+
+
+def _pair_mu_forces(pos_a, pos_b, vel_a, vel_b, radius, stiffness,
+                    friction_c, mu, mu_slope, mask=None):
+    """Dense pair forces with explicit (ns_a, ns_b, d) pair tensors, for the
+    Coulomb cone: direct differences, the penalty k·pen/max(dist, 0.1r),
+    the optional isotropic dashpot and min(mu_slope·|v_t|, μ·k·pen)·v̂_t.
+    ``mask`` (0/1, zero diagonal) admits same-body pairs.  Returns
+    (f_a, f_b); antisymmetric per pair."""
+    diff = pos_a[:, None, :] - pos_b[None, :, :]
+    d2 = torch.sum(diff * diff, dim=-1)
+    dist = torch.sqrt(torch.clamp(d2, min=1e-18))
+    pen = torch.clamp(radius - dist, min=0.0)
+    if mask is not None:
+        pen = pen * mask  # also zeroes the dist ≈ 0 diagonal
+    coef = stiffness * pen / torch.clamp(dist, min=0.1 * radius)
+    f_pair = coef[..., None] * diff
+    dv = vel_a[:, None, :] - vel_b[None, :, :]
+    if friction_c > 0.0:
+        f_pair = f_pair - friction_c * (pen / radius)[..., None] * dv
+    active = pen > 0.0
+    n_hat = diff / dist[..., None]
+    v_t = dv - torch.sum(dv * n_hat, dim=-1, keepdim=True) * n_hat
+    t_speed = torch.sqrt(torch.clamp(torch.sum(v_t * v_t, dim=-1),
+                                     min=1e-24))
+    f_t_mag = torch.minimum(mu_slope * t_speed, mu * stiffness * pen)
+    f_t_mag = torch.where(active, f_t_mag, 0.0)
+    f_pair = f_pair - (f_t_mag / t_speed)[..., None] * v_t
+    return torch.sum(f_pair, dim=1), -torch.sum(f_pair, dim=0)
+
+
+def pair_contact_forces(pos_a, pos_b, radius, stiffness, vel_a=None,
+                        vel_b=None, friction_c=0.0, mu=0.0, mu_slope=0.0):
+    """Penalty forces (f_a, f_b) between two particle sets; f_b is the exact
+    opposite scatter of the same pair forces.  With ``friction_c`` > 0 and
+    velocities, the viscous pair dashpot f_i −= c·Σ_j w_ij (v_i − v_j);
+    ``mu`` > 0 with velocities takes :func:`_pair_mu_forces`."""
+    if mu > 0.0 and vel_a is not None:
+        return _pair_mu_forces(pos_a, pos_b, vel_a, vel_b, radius, stiffness,
+                               friction_c, mu, mu_slope)
+    coef, w = _pair_coefs(pos_a, pos_b, radius, stiffness)
+    row = torch.sum(coef, dim=1)
+    col = torch.sum(coef, dim=0)
+    f_a = pos_a * row[:, None] - coef @ pos_b
+    f_b = pos_b * col[:, None] - coef.T @ pos_a
+    if friction_c > 0.0 and vel_a is not None:
+        cw = friction_c * w
+        rw = torch.sum(cw, dim=1)
+        cwc = torch.sum(cw, dim=0)
+        f_a = f_a - (vel_a * rw[:, None] - cw @ vel_b)
+        f_b = f_b - (vel_b * cwc[:, None] - cw.T @ vel_a)
+    return f_a, f_b
+
+
+def self_contact_forces(pos, mask, radius, stiffness, vel=None,
+                        friction_c=0.0, mu=0.0, mu_slope=0.0):
+    """Same-body penalty forces over the pairs the static ``mask`` admits
+    (0/1, symmetric, zero diagonal: the rest-distance exclusion of
+    ``contact.build_contact_plan``); ``mu`` > 0 with a velocity takes the
+    Coulomb variant, whose row sums give every particle its force."""
+    if mu > 0.0 and vel is not None:
+        f_a, _ = _pair_mu_forces(pos, pos, vel, vel, radius, stiffness,
+                                 friction_c, mu, mu_slope, mask=mask)
+        return f_a
+    coef, w = _pair_coefs(pos, pos, radius, stiffness)
+    coef = coef * mask
+    f = pos * torch.sum(coef, dim=1)[:, None] - coef @ pos
+    if friction_c > 0.0 and vel is not None:
+        cw = friction_c * (w * mask)
+        f = f - (vel * torch.sum(cw, dim=1)[:, None] - cw @ vel)
+    return f
+
+
+# -- C1: the dense pass over the vertex soup ----------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PairTables:
+    """C1's static tables over a soup of bodies' participating vertices
+    (body after body): the bodies' sizes on the host, each vertex's body
+    (int32), each body's self-contact mask (uint8, (ns_i, ns_i), None
+    when off: views of one flat ``mask_cat``), and ``body_table`` (B, 3)
+    int64 on the device: each body's first soup row, its size and its
+    mask's offset in ``mask_cat`` (−1 when off)."""
+
+    sizes: Tuple[int, ...]
+    body_id: torch.Tensor
+    masks: Tuple[Optional[torch.Tensor], ...]
+    mask_cat: Optional[torch.Tensor]
+    body_table: torch.Tensor
+
+
+def pair_tables(sizes: Sequence[int], masks: Sequence[Optional[np.ndarray]],
+                device) -> PairTables:
+    """:class:`PairTables` of bodies of ``sizes`` participating vertices and
+    self-contact ``masks`` (boolean or 0/1 (ns_i, ns_i) host arrays, or
+    None), on ``device``.  The masks are copied as they are, never
+    recomputed."""
+    sizes = tuple(int(s) for s in sizes)
+    body_id = torch.repeat_interleave(
+        torch.arange(len(sizes), dtype=torch.int32),
+        torch.tensor(sizes, dtype=torch.int64)).to(device)
+    flat, offsets, off = [], [], 0
+    for n, m in zip(sizes, masks):
+        if m is None:
+            offsets.append(-1)
+            continue
+        m = np.asarray(m)
+        if m.shape != (n, n):
+            raise ValueError(f"a self-contact mask of shape {m.shape} for a "
+                             f"body of {n} vertices")
+        flat.append((m != 0).astype(np.uint8).reshape(-1))
+        offsets.append(off)
+        off += n * n
+    mask_cat = (torch.tensor(np.concatenate(flat), device=device)
+                if flat else None)
+    views = tuple(None if o < 0 else mask_cat[o:o + n * n].view(n, n)
+                  for n, o in zip(sizes, offsets))
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    table = torch.tensor(np.stack([starts, np.asarray(sizes, np.int64),
+                                   np.asarray(offsets, np.int64)], axis=1),
+                         device=device)
+    return PairTables(sizes, body_id, views, mask_cat, table)
+
+
+def pair_forces_plain(tables: PairTables, pos, vel, radius, stiffness,
+                      friction_c=0.0, mu=0.0, mu_slope=0.0):
+    """Plain PyTorch version of :func:`pair_forces`: the JAX package's loop
+    over every unordered body pair, then each body's self-contact
+    (its contact.py:385-402), on the soup's slices."""
+    n = len(tables.sizes)
+    sub_pos = list(torch.split(pos, tables.sizes))
+    sub_vel = (list(torch.split(vel, tables.sizes)) if vel is not None
+               else [None] * n)
+    sub_f = [torch.zeros_like(p) for p in sub_pos]
+    for i in range(n):
+        for j in range(i + 1, n):
+            f_i, f_j = pair_contact_forces(
+                sub_pos[i], sub_pos[j], radius, stiffness, sub_vel[i],
+                sub_vel[j], friction_c, mu, mu_slope)
+            sub_f[i] = sub_f[i] + f_i
+            sub_f[j] = sub_f[j] + f_j
+    for i in range(n):
+        if tables.masks[i] is not None:
+            sub_f[i] = sub_f[i] + self_contact_forces(
+                sub_pos[i], tables.masks[i], radius, stiffness, sub_vel[i],
+                friction_c, mu, mu_slope)
+    return torch.cat(sub_f)
+
+
+# Threads a CTA of C1 and C2, and C1's threads a vertex row
+# (csrc/contact_pairs.cu: kThreads, kSplit; csrc/contact_grid.cu: kThreads).
+PAIR_THREADS = 128
+PAIR_SPLIT = 4
+GRID_THREADS = 128
+
+_LIBS = {}
+
+
+def _library(name: str):
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = cuda_build.load(name)
+        if name == "contact_pairs":
+            lib.fem_contact_pairs.argtypes = [
+                _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I,
+                _I, _P, _P]
+            lib.fem_contact_pairs.restype = _I
+            lib.fem_contact_pairs_error.argtypes = [_I]
+            lib.fem_contact_pairs_error.restype = ctypes.c_char_p
+        else:
+            lib.fem_contact_grid.argtypes = [
+                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F,
+                _F, _F, _F, _I, _I, _I, _P, _P]
+            lib.fem_contact_grid.restype = _I
+            lib.fem_contact_grid_error.argtypes = [_I]
+            lib.fem_contact_grid_error.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def _check_soup(pos, vel, d_ok=(2, 3)):
+    """(N, d, device) of a soup after checking what the kernels take."""
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if pos.dim() != 2 or pos.shape[1] not in d_ok:
+        raise ValueError(f"positions of shape {tuple(pos.shape)}: the "
+                         "contact kernels take (N, 2) or (N, 3)")
+    n, d = pos.shape
+    cuda_build.check_operand("pos", pos, (n, d), torch.float32, dev)
+    if vel is not None:
+        cuda_build.check_operand("vel", vel, (n, d), torch.float32, dev)
+    return n, d, dev
+
+
+def _pointer(t):
+    return None if t is None else t.data_ptr()
+
+
+def pair_forces(tables: PairTables, pos: torch.Tensor,
+                vel: Optional[torch.Tensor], radius: float, stiffness: float,
+                friction_c: float = 0.0, mu: float = 0.0,
+                mu_slope: float = 0.0) -> torch.Tensor:
+    """Penalty forces (N, d) on the soup ``pos`` (velocities ``vel`` or
+    None): every pair of vertices of different bodies, and the pairs of one
+    body that its mask admits, each pair's force as
+    :func:`pair_contact_forces` / :func:`self_contact_forces` compute it.
+
+    CUDA tensors: one launch of C1 (a row of ``PAIR_SPLIT`` threads a
+    vertex, partner tiles in shared memory).  CPU tensors:
+    :func:`pair_forces_plain`."""
+    if pos.device.type == "cpu":
+        return pair_forces_plain(tables, pos, vel, radius, stiffness,
+                                 friction_c, mu, mu_slope)
+    n, d, dev = _check_soup(pos, vel)
+    nb = len(tables.sizes)
+    if sum(tables.sizes) != n:
+        raise ValueError(f"a soup of {n} vertices for bodies of "
+                         f"{tables.sizes}")
+    cuda_build.check_operand("body_id", tables.body_id, (n,), torch.int32,
+                             dev)
+    cuda_build.check_operand("body_table", tables.body_table, (nb, 3),
+                             torch.int64, dev)
+    if tables.mask_cat is not None:
+        cuda_build.check_operand("mask_cat", tables.mask_cat,
+                                 tuple(tables.mask_cat.shape), torch.uint8,
+                                 dev)
+    out = torch.empty_like(pos)
+    with_vel = vel is not None
+    lib = _library("contact_pairs")
+    rc = cuda_build.launch_on_stream(
+        dev, dev.index, lib.fem_contact_pairs, d, n, nb, pos.data_ptr(),
+        _pointer(vel), tables.body_id.data_ptr(),
+        tables.body_table.data_ptr(), _pointer(tables.mask_cat),
+        radius, stiffness, 0.1 * radius, friction_c, mu * stiffness,
+        mu_slope, int(with_vel and friction_c > 0.0),
+        int(with_vel and mu > 0.0), out.data_ptr())
+    if rc != 0:
+        raise RuntimeError("C1 kernel launch failed: "
+                           f"{lib.fem_contact_pairs_error(rc).decode()}")
+    pair_forces.launches += 1
+    return out
+
+
+pair_forces.launches = 0
+
+
+# -- C2: the grid narrow phase -------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def forward_offsets_host(m: int, d: int) -> Tuple[int, ...]:
+    """The (3^d − 1)/2 neighbour offsets whose linearized id delta is
+    positive, in the JAX package's order (its broadphase.py:163-169):
+    (dx, …) over {−1, 0, 1}^d, the last axis fastest."""
+    all_offs = np.array(
+        np.meshgrid(*([[-1, 0, 1]] * d), indexing="ij")
+    ).reshape(d, -1).T @ np.array([int(m ** k) for k in range(d - 1, -1, -1)])
+    return tuple(int(o) for o in all_offs[all_offs > 0])
+
+
+def grid_pair_forces_plain(pos, vel, rest, body, cell_s, order, start, offs,
+                           radius, stiffness, cap, friction_c=0.0, mu=0.0,
+                           mu_slope=0.0, self_contact=False, excl=None):
+    """Plain PyTorch version of :func:`grid_pair_forces`: the JAX package's
+    candidate gather (its broadphase.py:171-232), +f summed on the
+    finder and −f scattered (``index_add``) onto each candidate."""
+    ns, d = pos.shape
+    excl = 2.5 * radius if excl is None else excl
+    pos_s = pos[order]
+    vel_s = vel[order] if vel is not None else None
+    body_s = body[order]
+    slot = torch.arange(cap, dtype=torch.int64, device=pos.device)
+    i_row = torch.arange(ns, dtype=torch.int64, device=pos.device)[:, None]
+    idx_own = i_row + 1 + slot[None, :]
+    idx_fwd = start.to(torch.int64)[:, :, None] + slot[None, None, :]
+    idx = torch.cat([idx_own[:, None, :], idx_fwd], dim=1)
+    tgt = torch.cat([cell_s[:, None], cell_s[:, None] + offs[None, :]], dim=1)
+    idx_c = torch.clamp(idx, max=ns - 1)
+    valid = (idx < ns) & (cell_s[idx_c] == tgt[:, :, None])
+    j = idx_c.reshape(ns, -1)
+    valid = valid.reshape(ns, -1)
+    same_body = body_s[j] == body_s[:, None]
+    if self_contact:
+        rest_s = rest[order]
+        rd = rest_s[j] - rest_s[:, None, :]
+        rest_ok = torch.sum(rd * rd, dim=-1) > excl * excl
+        admit = torch.where(same_body, rest_ok, True)
+    else:
+        admit = ~same_body
+    valid = valid & admit
+    diff = pos_s[:, None, :] - pos_s[j]
+    d2 = torch.sum(diff * diff, dim=-1)
+    dist = torch.sqrt(torch.clamp(d2, min=1e-18))
+    pen = torch.clamp(radius - dist, min=0.0)
+    coef = stiffness * pen / torch.clamp(dist, min=0.1 * radius)
+    coef = torch.where(valid, coef, 0.0)
+    f_pair = coef[..., None] * diff
+    if vel is not None and (friction_c > 0.0 or mu > 0.0):
+        dv = vel_s[:, None, :] - vel_s[j]
+    if friction_c > 0.0 and vel is not None:
+        w = torch.where(valid, pen / radius, 0.0)
+        f_pair = f_pair - friction_c * w[..., None] * dv
+    if mu > 0.0 and vel is not None:
+        active = valid & (pen > 0.0)
+        n_hat = diff / dist[..., None]
+        v_t = dv - torch.sum(dv * n_hat, dim=-1, keepdim=True) * n_hat
+        t_speed = torch.sqrt(torch.clamp(torch.sum(v_t * v_t, dim=-1),
+                                         min=1e-24))
+        f_n = stiffness * pen
+        f_t_mag = torch.minimum(mu_slope * t_speed, mu * f_n)
+        f_t_mag = torch.where(active, f_t_mag, 0.0)
+        f_pair = f_pair - (f_t_mag / t_speed)[..., None] * v_t
+    f_s = torch.sum(f_pair, dim=1)
+    f_s = f_s.index_add(0, j.reshape(-1), -f_pair.reshape(-1, d))
+    out = torch.zeros_like(pos)
+    out[order] = f_s
+    return out
+
+
+def grid_pair_forces(pos: torch.Tensor, vel: Optional[torch.Tensor],
+                     rest: Optional[torch.Tensor], body: torch.Tensor,
+                     cell_s: torch.Tensor, order: torch.Tensor,
+                     start: torch.Tensor, m: int, radius: float,
+                     stiffness: float, cap: int, friction_c: float = 0.0,
+                     mu: float = 0.0, mu_slope: float = 0.0,
+                     self_contact: bool = False,
+                     excl: Optional[float] = None) -> torch.Tensor:
+    """The grid narrow phase: penalty forces (ns, d) in the input order of
+    ``pos``, given the sorted cell ids ``cell_s`` (int32), the stable sort
+    ``order`` (int64) and each sorted vertex's ``start`` (ns, (3^d − 1)/2)
+    int32 in each forward neighbour cell (``torch.searchsorted``, left)
+    over a grid of ``m`` cells an axis.  Every pair the JAX package's
+    forward stencil finds, truncation at ``cap`` included, gets its force,
+    +f on the finder and −f on the candidate.
+
+    CUDA tensors: one launch of C2 (a thread a sorted vertex; it sums +f
+    over the candidates it finds and, for the −f half, over the vertices
+    whose stencil finds it, in a fixed order).  CPU tensors:
+    :func:`grid_pair_forces_plain`."""
+    d = pos.shape[1]
+    offs_host = forward_offsets_host(m, d)
+    excl = 2.5 * radius if excl is None else excl
+    if pos.device.type == "cpu":
+        offs = torch.tensor(offs_host, dtype=cell_s.dtype)
+        return grid_pair_forces_plain(
+            pos, vel, rest, body, cell_s, order, start, offs, radius,
+            stiffness, cap, friction_c, mu, mu_slope, self_contact, excl)
+    n, d, dev = _check_soup(pos, vel)
+    n_off = len(offs_host)
+    cuda_build.check_operand("body", body, (n,), torch.int32, dev)
+    cuda_build.check_operand("cell_s", cell_s, (n,), torch.int32, dev)
+    cuda_build.check_operand("order", order, (n,), torch.int64, dev)
+    cuda_build.check_operand("start", start, (n, n_off), torch.int32, dev)
+    if self_contact:
+        cuda_build.check_operand("rest", rest, (n, d), torch.float32, dev)
+    if cap < 1:
+        raise ValueError(f"C2 needs a cell cap of at least 1, not {cap}")
+    out = torch.empty_like(pos)
+    with_vel = vel is not None
+    lib = _library("contact_grid")
+    rc = cuda_build.launch_on_stream(
+        dev, dev.index, lib.fem_contact_grid, d, n, m, cap, pos.data_ptr(),
+        _pointer(vel), _pointer(rest) if self_contact else None,
+        body.data_ptr(), cell_s.data_ptr(), order.data_ptr(),
+        start.data_ptr(), radius, stiffness, 0.1 * radius, friction_c, mu,
+        mu_slope, excl * excl, int(with_vel and friction_c > 0.0),
+        int(with_vel and mu > 0.0), int(self_contact), out.data_ptr())
+    if rc != 0:
+        raise RuntimeError("C2 kernel launch failed: "
+                           f"{lib.fem_contact_grid_error(rc).decode()}")
+    grid_pair_forces.launches += 1
+    return out
+
+
+grid_pair_forces.launches = 0

@@ -3,9 +3,11 @@
 
 The port of the JAX package's ``scene.py`` (``SceneObject``,
 ``load_scene``; the reference builds this in main.py:51-61).  Each body is
-built on its own and steps with its own frame function
+built on its own.  It steps with its own frame function
 (``sim.make_frame_fn(body.obj, cfg)``, one per body, as the reference's
-main loop does); bodies do not interact (contact is ROADMAP M17).
+main loop does), unless ``contact="penalty"`` couples the bodies: then all
+step together through ``contact.make_contact_frame_fn`` (with more than
+one body, or with ``self_contact``).
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ over everything):
   (b = v + dt·M⁻¹(f_el + f_ext)), then implicit advection
   (``solvers/advect.advect_implicit_step``).
 
-The external force is the object's static load (``load_boxes``) and, on the
-explicit paths, Rayleigh damping β·G(K)·v
+The external force is the caller's (``external_force``: the contact
+forces of ``contact.py``), the object's static load (``load_boxes``) and, on
+the explicit paths, Rayleigh damping β·G(K)·v
 (``implicit.rayleigh_damping_grad``); on the implicit path β sits in the
 system coefficient.  Pins and wall friction go into both advection steps,
 which run their plain (``"xla"``) backend, as the JAX package's frames do.
@@ -61,7 +62,7 @@ naming its ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -126,9 +127,7 @@ def check_supported_config(cfg: SimConfig) -> None:
     """Raise for configurations the port does not cover.  The solver
     options apply to the implicit path only: an explicit or autodiff
     substep never reads them, as in the JAX package."""
-    unsupported = [
-        (cfg.contact != "none", f"contact={cfg.contact!r}", "M17"),
-    ]
+    unsupported = []
     if not _explicit(cfg):
         unsupported += [
             (cfg.integrator != "semi_implicit",
@@ -166,9 +165,13 @@ def substep(
     wall_friction: float = 0.0,
     jacobi_sweep: str = "serial",
     solver_backend: str = "auto",
+    external_force: Optional[torch.Tensor] = None,
 ) -> Tuple[SimState, StepAux]:
     """One substep.  Explicit or autodiff: the energy gradient less the
     external force, then the kinematic step, with zero solver metrics.
+    The external force is ``external_force`` (N, d) (the penalty contact
+    forces of ``contact.make_contact_frame_fn``) plus the object's static
+    load, in the JAX package's order (``external_force + static_load``).
     Otherwise semi-implicit: the velocity solve from v + dt·M⁻¹·f_ext —
     the dense backend (``solvers/dense.py``) for ``solver_backend="dense"``
     under the JAX package's conditions (its sim.py:203-222: the reference
@@ -178,6 +181,9 @@ def substep(
     inelastic = is_inelastic(obj)
     layers = material_layers(obj, state) if inelastic else None
     external = obj.static_load
+    if external_force is not None:
+        external = (external_force if external is None
+                    else external_force + external)
     advect_kw = dict(free_mask=obj.free_mask, pin_vel=obj.pin_vel,
                      wall_friction=wall_friction)
     if auto_diff or use_explicit_method:

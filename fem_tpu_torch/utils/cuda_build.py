@@ -60,7 +60,8 @@ Key = Tuple[str, Optional[int]]
 LIBRARIES: Tuple[Key, ...] = tuple(
     (name, None) for name in ("fused_cg", "advect", "edge_cg", "fused_frame",
                               "probe_pairblock", "probe_int8",
-                              "jacobi_serial")) + tuple(
+                              "jacobi_serial", "contact_pairs",
+                              "contact_grid")) + tuple(
     (name, m) for name, ms in MATERIAL_SOURCES.items() for m in ms)
 
 _LOADED: Dict[Key, ctypes.CDLL] = {}

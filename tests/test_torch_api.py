@@ -173,8 +173,8 @@ def test_check_state_raises_on_a_diverged_state():
 
 
 def test_unported_features_are_refused():
-    """The analysis solvers name ROADMAP M19, ``sharded=True`` M20 and
-    penalty contact M17; none runs in a degraded form."""
+    """The analysis solvers name ROADMAP M19 and ``sharded=True`` M20, with
+    penalty contact too; none runs in a degraded form."""
     sim = fem_tpu_torch.Simulation.from_dict(_cfg_dict(), device="cpu")
     for name in ("solve_static", "modes", "buckling", "harmonic",
                  "response_spectrum", "arc_length"):
@@ -186,8 +186,30 @@ def test_unported_features_are_refused():
     with open(os.path.join(REPO, "configs",
                            "demo_two_bodies_contact.json")) as f:
         contact = json.load(f)
-    with pytest.raises(NotImplementedError, match="ROADMAP M17"):
-        fem_tpu_torch.Simulation.from_dict(contact, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
+        fem_tpu_torch.Simulation.from_dict(contact, sharded=True,
+                                           device="cpu")
+
+
+def test_contact_config_matches_jax():
+    """configs/demo_two_bodies_contact.json through both ``Simulation``s for
+    3 frames: every body's positions within 1e-5, one clock advance a frame
+    (the API's pacing, not the CLI's), ``last_aux`` the last body's."""
+    path = os.path.join(REPO, "configs", "demo_two_bodies_contact.json")
+    jsim = fem_tpu.Simulation.from_config(path)
+    sim = fem_tpu_torch.Simulation.from_config(path, device="cpu")
+    assert sim._contact_frame is not None
+    jsim.run(frames=3)
+    sim.run(frames=3)
+    for i in range(2):
+        np.testing.assert_allclose(sim.positions(i), jsim.positions(i),
+                                   rtol=0, atol=TOL)
+    assert sim.virtual_time == jsim.virtual_time == pytest.approx(0.015)
+    assert sim.frame_count == jsim.frame_count == 3
+    assert tuple(sim.last_aux.solver_iterations.shape) == (10,)
+    moved = [np.abs(sim.positions(i) - np.asarray(s.obj.rest_pos)).max()
+             for i, s in enumerate(sim.scene)]
+    assert min(moved) > 0.0
 
 
 @pytest.mark.parametrize("color", ["energy", "stress"])

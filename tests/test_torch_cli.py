@@ -146,6 +146,32 @@ def test_multibody_virtual_time_pacing_quirk(tmp_path, capsys):
     assert "t=0.040s" in capsys.readouterr().out
 
 
+def test_contact_config_matches_the_jax_cli(tmp_path, capsys):
+    """configs/demo_two_bodies_contact.json, the coupled frame, through both
+    CLIs for 3 frames: the end states as stated above and the printed
+    pacing equal, virtual time advancing once per body per frame (3 × 2 ×
+    10 × 5e-4 = 0.030 s), as the JAX CLI's coupled frame does."""
+    cfg = os.path.join(REPO, "configs", "demo_two_bodies_contact.json")
+    args = ["--config", cfg, "--frames", "3", "--no-render",
+            "--checkpoint-every", "3", "--print-every", "1"]
+    a, b = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jax_cli.run(args + ["--output", a]) == 0
+    jax_out = capsys.readouterr().out
+    assert _port(args + ["--output", b]) == 0
+    port_out = capsys.readouterr().out
+    _assert_close(_ckpt(b, 3), _ckpt(a, 3))
+    times = re.findall(r"t=([0-9.]+)s", port_out)
+    assert times == re.findall(r"t=([0-9.]+)s", jax_out)
+    assert times == ["0.010", "0.020", "0.030"]
+
+
+def test_sharded_contact_is_refused(tmp_path):
+    cfg = os.path.join(REPO, "configs", "demo_two_bodies_contact.json")
+    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
+        _port(["--config", cfg, "--frames", "1", "--no-render", "--sharded",
+               "--output", str(tmp_path / "out")])
+
+
 def test_checkpoint_resume_bit_identical(tmp_path):
     """A 2-body implicit scene checkpointed at frame 2 and resumed to frame
     4 ends bit-equal, every key, to the straight run; --debug checks the

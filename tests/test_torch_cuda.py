@@ -2807,3 +2807,149 @@ def test_simulation_on_the_card_matches_the_cpu():
     m, r = sims["cuda"].metrics(), sims["cpu"].metrics()
     assert abs(m.kinetic_energy - r.kinetic_energy) <= TOL * r.kinetic_energy
     assert not m.any_nan
+
+
+# -- C1 and C2: the contact kernels -------------------------------------------
+
+def _soup(seed, sizes, d, center, span):
+    rng = np.random.default_rng(seed)
+    n = sum(sizes)
+    pos = (center - span / 2 + span * rng.random((n, d))).astype(np.float32)
+    vel = rng.standard_normal((n, d)).astype(np.float32)
+    return (torch.as_tensor(pos, device="cuda"),
+            torch.as_tensor(vel, device="cuda"))
+
+
+def _masks(seed, sizes):
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in sizes:
+        m = np.triu(rng.random((n, n)) < 0.5, 1)
+        out.append(m | m.T)
+    return out
+
+
+@pytest.mark.parametrize("d,sizes,center,radius", [
+    (2, (81, 121), 0.5, 0.0236),  # demo_two_bodies_contact.json's soup
+    (3, (642, 642), 2.0, 0.1018),  # two flagship surfaces, at x ~ 2
+    (3, (2780,), 2.0, 0.0399),  # the blob's masked self-pairs
+    (3, (4096, 4096), 0.5, 0.0078),  # tools/probe_broadphase.py, ns 8,192
+])
+@pytest.mark.parametrize("friction_c,mu", [(0.0, 0.0), (1.0, 0.3)])
+def test_contact_pairs_kernel_matches_plain_and_repeats(d, sizes, center,
+                                                        radius, friction_c,
+                                                        mu):
+    """C1 against its plain version, twice bit-identical.  The matmul form
+    (x·S − T over the three-term distance) cancels in f32 in both, so both
+    are held to the plain version in float64: the kernel within twice the
+    plain version's error there plus 1e-5 of the largest force; the
+    Coulomb form (direct differences) within 1e-5 of the largest force."""
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    _require_cuda()
+    span = 6 * radius * (sum(sizes) / 100) ** (1 / d)
+    pos, vel = _soup(len(sizes), sizes, d, center, span)
+    masks = _masks(5, sizes) if len(sizes) == 1 else [None] * len(sizes)
+    tables = ck.pair_tables(sizes, masks, "cuda")
+    args = (radius, 1e3, friction_c, mu, 20.0)
+    before = ck.pair_forces.launches
+    got = ck.pair_forces(tables, pos, vel, *args)
+    again = ck.pair_forces(tables, pos, vel, *args)
+    assert ck.pair_forces.launches == before + 2
+    ref = ck.pair_forces_plain(tables, pos, vel, *args)
+    ref64 = ck.pair_forces_plain(tables, pos.double(), vel.double(), *args)
+    torch.cuda.synchronize()
+    top = float(ref.abs().max())
+    assert top > 0.0
+    assert torch.equal(got, again)
+    if mu > 0.0:
+        assert float((got - ref).abs().max()) <= TOL * top
+    else:
+        plain64 = float((ref.double() - ref64).abs().max())
+        assert float((got.double() - ref64).abs().max()) <= (
+            2 * plain64 + TOL * top)
+
+
+@pytest.mark.parametrize("d,n,cap,self_contact", [
+    (2, 400, 2, False), (2, 400, 8, True), (3, 600, 1, False),
+    (3, 600, 16, True), (3, 24576, 8, False)])
+def test_contact_grid_kernel_matches_plain_and_repeats(d, n, cap,
+                                                       self_contact):
+    """C2 against its plain version (the same stable sort and lookup):
+    within 1e-5 of the largest force, truncating caps and self-contact with
+    the Coulomb cone included; twice bit-identical; the total force within
+    1e-5 of Σ|f|."""
+    from fem_tpu_torch import broadphase as bp
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    _require_cuda()
+    radius = 0.06 if n < 1000 else 0.0045
+    pos, vel = _soup(n, (n,), d, 0.5, 0.3 if n < 1000 else 0.6)
+    body = torch.as_tensor((np.arange(n) % 3).astype(np.int32),
+                           device="cuda")
+    rest = pos.flip(0).contiguous()
+    kw = dict(vel=vel, friction_c=0.5, cap=cap, self_contact=self_contact,
+              mu=0.3 if self_contact else 0.0, mu_slope=20.0)
+    before = ck.grid_pair_forces.launches
+    got = bp.grid_contact_forces(pos, body, rest, radius, 1e3, **kw)
+    again = bp.grid_contact_forces(pos, body, rest, radius, 1e3, **kw)
+    assert ck.grid_pair_forces.launches == before + 2
+    ref = bp.grid_contact_forces(pos.cpu(), body.cpu(), rest.cpu(), radius,
+                                 1e3, **dict(kw, vel=vel.cpu()))
+    torch.cuda.synchronize()
+    top = float(ref.abs().max())
+    assert top > 0.0
+    assert torch.equal(got, again)
+    assert float((got.cpu() - ref).abs().max()) <= TOL * top
+    assert float(got.sum(0).abs().max()) <= TOL * float(got.abs().sum())
+
+
+def test_contact_kernels_raise_and_never_fall_back():
+    from fem_tpu_torch import broadphase as bp
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    _require_cuda()
+    pos, vel = _soup(0, (10, 10), 3, 0.5, 0.2)
+    tables = ck.pair_tables((10, 10), [None, None], "cuda")
+    with pytest.raises(TypeError):
+        ck.pair_forces(tables, pos.double(), None, 0.05, 1e3)
+    with pytest.raises(ValueError):
+        ck.pair_forces(tables, pos[:15].contiguous(), None, 0.05, 1e3)
+    with pytest.raises(TypeError):
+        bp.grid_contact_forces(pos, tables.body_id.long(), pos, 0.05, 1e3)
+
+
+@pytest.mark.parametrize("over", [
+    dict(), dict(auto_diff=True),
+    dict(use_explicit_method=False, implicit_method=1, preconditioned=1),
+    dict(contact_broadphase="grid", contact_mu=0.3, self_contact=True)])
+def test_contact_frame_on_cuda_matches_cpu_frame(over):
+    """tests/test_contact.py's two squares in contact, one coupled frame
+    of 10 substeps on the card and on the CPU: C1 (or C2) once a substep,
+    positions within 1e-5, iterations equal."""
+    import fem_tpu_torch
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    _require_cuda()
+    data = dict(dim=2, delta_time=5e-4, sim_count=10, auto_diff=False,
+                use_explicit_method=True, g_dir=[0, -1], contact="penalty",
+                blocks=[], objects=[
+                    dict(id=0, center=[0.5, 0.35], side_length=0.18,
+                         subdivisions=5, rho=800, E=8e4, nu=0.25),
+                    dict(id=1, center=[0.5, 0.54], side_length=0.18,
+                         subdivisions=5, rho=500, E=4e4, nu=0.25)])
+    data.update(over)
+    sims = {d: fem_tpu_torch.Simulation.from_dict(data, device=d)
+            for d in ("cuda", "cpu")}
+    grid = over.get("contact_broadphase") == "grid"
+    fn = ck.grid_pair_forces if grid else ck.pair_forces
+    before = fn.launches
+    states, auxes = {}, {}
+    for d, s in sims.items():
+        states[d], auxes[d] = s._contact_frame(
+            tuple(b.state for b in s.scene), s.obstacles)
+    assert fn.launches == before + 10
+    for a, b in zip(states["cuda"], states["cpu"]):
+        assert float((a.pos.cpu() - b.pos).abs().max()) <= TOL
+    for a, b in zip(auxes["cuda"], auxes["cpu"]):
+        assert torch.equal(a.solver_iterations.cpu(), b.solver_iterations)

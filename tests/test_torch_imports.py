@@ -135,7 +135,7 @@ def test_unported_features_raise():
     from fem_tpu_torch.utils.config import ObstacleConfig
 
     # The Jacobi solver and the dense backend run since M10, the adaptive-dt
-    # guard since M15.
+    # guard since M15, penalty contact since M17.
     for change in (
         dict(robust_inversion=True), dict(cg_precond="block_jacobi"),
         dict(hessian="exact_jvp"), dict(wall_friction=0.3),
@@ -145,11 +145,11 @@ def test_unported_features_raise():
         dict(obstacles=(ObstacleConfig(type="halfspace", point=(0, 0, 0),
                                        normal=(0, 1, 0)),)),
         dict(adaptive_dt=True),
+        dict(contact="penalty"), dict(contact="penalty", self_contact=True),
     ):
         check_supported_config(dataclasses.replace(base, **change))
     for change in (
         dict(integrator="newton"), dict(cg_precond="two_level"),
-        dict(contact="penalty"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP M"):
             check_supported_config(dataclasses.replace(base, **change))
