@@ -4413,25 +4413,28 @@ FRAMES_PROFILED_AH = 10  # path AH's profiled window, in contact
 FRAMES_AI = 3  # paths AI and AJ: the flagship, serial and snapshot
 FRAMES_AK = 10  # path AK, each solver
 J1_REPS = 20  # J1's timed launches a system
-J1_KERNEL = "jacobi_serial_kernel"
+# The profiler's names of J1's two variants (csrc/jacobi_serial.cu).
+J1_KERNELS = {"levels": "jacobi_levels_kernel",
+              "serial": "jacobi_serial_kernel"}
 
 
-def j1_device_ms(torch, go, frames, expected, windows=3):
+def j1_device_ms(torch, go, frames, expected, windows=3, variant="levels"):
     """(J1's device ms a launch, its launches, the window's device ms a
     frame and busy share) over ``frames`` frames of ``go`` under the
-    profiler, whose count of J1's launches must be ``expected`` (one a
-    substep); a window that missed some is taken again, as in
-    kernel_ms."""
+    profiler, whose count of launches of J1's ``variant`` must be
+    ``expected`` (one a substep); a window that missed some is taken
+    again, as in kernel_ms."""
+    name = J1_KERNELS[variant]
     for _ in range(windows):
         per_kernel, wall_ms = profile_kernels(torch, go, 1)
-        hits = [v for k, v in per_kernel.items() if J1_KERNEL in k]
+        hits = [v for k, v in per_kernel.items() if name in k]
         launches = sum(c for _, c in hits)
         if launches == expected:
             break
         log(f"[profiler] a window of {frames} frames saw {launches} "
-            f"launches of {J1_KERNEL}, not {expected}; taken again")
+            f"launches of {name}, not {expected}; taken again")
     require(launches == expected, f"the profiler saw {launches} launches of "
-            f"{J1_KERNEL} in {frames} frames, not {expected}")
+            f"{name} in {frames} frames, not {expected}")
     dev_ms = sum(t for t, _ in per_kernel.values())
     return (sum(t for t, _ in hits) / launches, launches, dev_ms / frames,
             100 * dev_ms / wall_ms)
@@ -4492,7 +4495,12 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
 
     # -- 53. J1 against its plain version -------------------------------------
     def check_j1(label, d, args):
+        """J1 (its plan's variant: the level variant on the sparse rows)
+        against its plain version, twice bit-identical; on the sparse rows
+        also bit-identical to the serial variant, with the levels the
+        kernel counted equal to L x sweeps."""
         got = jk.jacobi_serial(*args)
+        plan, counted = jk.jacobi_serial.last_plan, jk.jacobi_serial.last_levels
         again = jk.jacobi_serial(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4503,7 +4511,6 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         top = float(ref.x.abs().max())
         err = max(float((got.x - ref.x).abs().max()),
                   float((got.past_x - ref.past_x).abs().max()))
-        plan = jk.jacobi_serial.last_plan
         log(f"[J1] {label}: iterations {it} (plain {itp}), error "
             f"{float(got.error):.3e} (plain {float(ref.error):.3e}); max abs "
             f"error {err:.3e} of max {top:.3e}; plan {plan._asdict()}")
@@ -4511,6 +4518,24 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         require(err <= 1e-5 * top, f"J1 {label} off by {err} of {top}")
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"J1 {label} runs differ")
+        if len(args) > 3:
+            levels = jk.level_plan(args[3]).levels
+            serial = jk.jacobi_serial(*args, variant="serial")
+            torch.cuda.synchronize()
+            require(plan.variant == "levels" and plan.levels == levels,
+                    f"J1 {label} plan {plan}")
+            require(all(torch.equal(a, b) for a, b in zip(got, serial)),
+                    f"J1 {label}: the level variant differs from the serial "
+                    "variant")
+            require(int(counted) == levels * it,
+                    f"J1 {label}: the kernel ran {int(counted)} levels, not "
+                    f"{levels} x {it}")
+            log(f"[J1] {label}: the level variant bit-identical to the "
+                f"serial variant (x, past, iterations, error); {levels} "
+                f"levels a sweep, {int(counted)} run (read from the kernel)")
+        else:
+            require(plan.variant == "serial" and counted is None,
+                    f"J1 {label} plan {plan}")
         errors[d] = max(errors[d], err)
         return it, plain_ms
 
@@ -4537,12 +4562,17 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
 
     def solve_row(d, args, it, plain_ms, extra):
         """J1's kernels-line row of dimension ``d`` for the system
-        ``args`` (sparse), which takes ``it`` sweeps."""
+        ``args`` (sparse), which takes ``it`` sweeps: the level variant's
+        time beside the serial variant's, from one run."""
         rows_t, b, past, nb = args
         n, dd = b.shape
         max_nb = nb.shape[1]
+        levels = jk.level_plan(nb).levels
         ms = kernel_ms(torch, lambda: jk.jacobi_serial(*args), J1_REPS,
-                       [J1_KERNEL])
+                       [J1_KERNELS["levels"]])
+        serial_ms = kernel_ms(
+            torch, lambda: jk.jacobi_serial(*args, variant="serial"),
+            J1_REPS, [J1_KERNELS["serial"]])
         # Inputs read once and outputs written once; the products of a
         # sweep and of its error (2 flops a block entry each) and ~10
         # flops a component of the update.
@@ -4551,15 +4581,21 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         bound_ms, bound_by = bound(bytes_, ops)
         sweep_bytes = nbytes(rows_t, nb, b) + nbytes(b)
         t = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=None, iterations=it,
-                 ms_per_sweep=ms / it, us_per_row=1e3 * ms / (it * n),
-                 chain_rows=it * n,
+                 bound_by=bound_by, library_ms=None, variant="levels",
+                 levels=levels, iterations=it, ms_per_sweep=ms / it,
+                 us_per_level=1e3 * ms / (it * levels),
+                 us_per_row=1e3 * ms / (it * n), chain_levels=it * levels,
+                 serial_ms=serial_ms, serial_ms_per_sweep=serial_ms / it,
+                 serial_us_per_row=1e3 * serial_ms / (it * n),
                  sweep_bytes_bound_ms=1e3 * sweep_bytes / PEAK_BYTES_PER_S,
                  **extra)
-        log(f"[time] {d}D jacobi_serial {ms:.5f} ms a solve of {it} sweeps "
-            f"on the device (profiler): {t['ms_per_sweep']:.5f} ms a sweep, "
-            f"{t['us_per_row']:.4f} us a row; plain {plain_ms:.2f} ms; bound "
-            f"{bound_ms:.6f} ms ({bound_by}), a sweep's bytes "
+        log(f"[time] {d}D jacobi_serial, level variant: {ms:.5f} ms a solve "
+            f"of {it} sweeps on the device (profiler): "
+            f"{t['ms_per_sweep']:.5f} ms a sweep of {levels} levels, "
+            f"{t['us_per_level']:.4f} us a level, {t['us_per_row']:.4f} us a "
+            f"row; serial variant {serial_ms:.5f} ms "
+            f"({t['serial_us_per_row']:.4f} us a row); plain {plain_ms:.2f} "
+            f"ms; bound {bound_ms:.6f} ms ({bound_by}), a sweep's bytes "
             f"{t['sweep_bytes_bound_ms']:.6f} ms; card {card}")
         return t
 
@@ -4589,6 +4625,8 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         f" the first 60 frames' sweeps {per_frame[:60].tolist()}")
     require(launches_ah == only(element_chain=subs, jacobi_serial=subs),
             f"path AH launches {launches_ah}")
+    require(jk.jacobi_serial.variant_launches == {"levels": subs},
+            f"path AH's J1 variants {jk.jacobi_serial.variant_launches}")
     require(bool(torch.isfinite(s.pos).all()), "path AH non-finite")
     require(int(per_frame.sum()) > 0, "path AH never iterated")
     busiest = int(per_frame.argmax())
@@ -4623,7 +4661,8 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         path_steps_per_s=subs / wall))
     _, dense_args, it_dense, plain_dense = checked["2D dense rows"]
     times[2]["dense_ms"] = kernel_ms(
-        torch, lambda: jk.jacobi_serial(*dense_args), J1_REPS, [J1_KERNEL])
+        torch, lambda: jk.jacobi_serial(*dense_args), J1_REPS,
+        [J1_KERNELS["serial"]])
     times[2]["dense_plain_ms"] = plain_dense
     log(f"[time] 2D jacobi_serial over the dense rows {times[2]['dense_ms']:.5f} "
         f"ms a solve of {it_dense} sweeps (profiler); card {card}")
@@ -4665,6 +4704,8 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
     frame_ai, iters_ai, wall_ai = flagship_path(
         "AI (flagship, serial)", cfg_f,
         lambda it: dict(element_chain=subs_f, jacobi_serial=subs_f))
+    require(jk.jacobi_serial.variant_launches == {"levels": subs_f},
+            f"path AI's J1 variants {jk.jacobi_serial.variant_launches}")
     j1_ms_ai, j1_n_ai, dev_ms_ai, busy_ai = j1_device_ms(
         torch, frames_go(frame_ai, deformed, obs_f, FRAMES_AI), FRAMES_AI,
         subs_f)
@@ -4729,6 +4770,9 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         if "Jacobi" in label:
             require(jk.jacobi_serial.last_plan.dense,
                     "path AK's J1 did not take the dense rows")
+            require(jk.jacobi_serial.variant_launches == {"serial": n},
+                    f"path AK's J1 variants "
+                    f"{jk.jacobi_serial.variant_launches}")
         require(bool(torch.isfinite(s.pos).all()), f"path {label} non-finite")
         require(err <= 1e-5, f"path {label} off the CPU frame by {err}")
         require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
@@ -5188,13 +5232,25 @@ BATCH_AS = 8
 SHELLS_AR = (8192, 24576)  # tools/probe_broadphase.py's sizes
 CAP_AR = 8
 CONTACT_REPS = 20  # timed launches a kernel
-C1_KERNEL = "contact_pairs_kernel"
+# The profiler's names of C1's two variants (csrc/contact_pairs.cu); the
+# rows variant's is a suffix of the cluster variant's.
+C1_KERNELS = {"cluster": "cluster_contact_pairs_kernel",
+              "rows": "contact_pairs_kernel"}
 C2_KERNEL = "contact_grid_kernel"
 # f32 operations a pair, counted from the kernels' formulas: C1's matmul
 # form (both squared norms, the cross term, the distance, the penalty and
 # the row sums), C2's direct differences (the rest test, the distance, the
-# penalty and the sum); each pair's force is due once.
+# penalty and the sum); each pair's force is due once.  C1_OPS charges
+# every pair the whole chain (kept beside the least work as
+# bound_ms_whole_chain); the least work charges every pair
+# its squared distance (the cross term and its three-term sum and floor,
+# C1_D2_OPS; each vertex's squared norm once, C1_NORM_OPS) and only the
+# pairs within the radius the root, the penalty and the row sums
+# (C1_CHAIN_OPS).
 C1_OPS = {3: 27, 2: 21}
+C1_D2_OPS = {3: 9, 2: 7}
+C1_NORM_OPS = {3: 5, 2: 3}
+C1_CHAIN_OPS = {3: 13, 2: 11}
 C2_OPS = {3: 30, 2: 22}
 # tools/self_contact_scale.py's blob at its defaults: the spot mesh at
 # interior_spacing 0.04 (12,037 particles, 68,508 tets, 2,780 surface
@@ -5249,19 +5305,34 @@ def check_c1(torch, label, tables, pos, vel, radius, stiffness, friction_c,
     from fem_tpu_torch.ops import contact_kernels as ck
 
     args = (radius, stiffness, friction_c, mu, mu_slope)
-    got = ck.pair_forces(tables, pos, vel, *args)
-    again = ck.pair_forces(tables, pos, vel, *args)
+    n = pos.shape[0]
+
+    def counts():
+        return torch.full((n,), -1, dtype=torch.int32, device=pos.device)
+
+    acc, acc_again, acc_rows = counts(), counts(), counts()
+    got = ck.pair_forces(tables, pos, vel, *args, accepted=acc)
+    plan = ck.pair_forces.last_plan
+    again = ck.pair_forces(tables, pos, vel, *args, accepted=acc_again)
+    rows = ck.pair_forces(tables, pos, vel, *args, variant="rows",
+                          accepted=acc_rows)
     ref = ck.pair_forces_plain(tables, pos, vel, *args)
     ref64 = ck.pair_forces_plain(tables, pos.double(), vel.double(), *args)
     torch.cuda.synchronize()
     top = float(ref.abs().max())
     err = float((got - ref).abs().max())
     err64 = float((got.double() - ref64).abs().max())
+    rows64 = float((rows.double() - ref64).abs().max())
     plain64 = float((ref.double() - ref64).abs().max())
     active = active_pairs(torch, tables, pos, radius)
-    log(f"[C1] {label}: {pos.shape[0]} soup vertices, {active} active pairs; "
-        f"mu {mu}: max abs error {err:.3e} of max {top:.3e}; against the "
-        f"f64 plain version: kernel {err64:.3e}, plain {plain64:.3e}")
+    taken = int(acc.sum())
+    log(f"[C1] {label}: {n} soup vertices, {active} active pairs; mu {mu}: "
+        f"max abs error {err:.3e} of max {top:.3e}; against the f64 plain "
+        f"version: kernel {err64:.3e} (rows variant {rows64:.3e}), plain "
+        f"{plain64:.3e}; plan {plan._asdict()}; accepted (ordered) pairs "
+        f"{taken} (rows variant {int(acc_rows.sum())}, read from the "
+        f"kernels)")
+    require(plan.variant == "cluster", f"C1 {label}: plan {plan}")
     require(active > 0 and top > 0, f"C1 {label}: no pair in contact")
     require(bool(torch.isfinite(got).all()), f"C1 {label}: non-finite")
     if mu > 0.0:
@@ -5270,7 +5341,14 @@ def check_c1(torch, label, tables, pos, vel, radius, stiffness, friction_c,
         require(err64 <= 2 * plain64 + 1e-5 * top,
                 f"C1 {label}: f64 error {err64} against the plain version's "
                 f"{plain64}")
-    require(torch.equal(got, again), f"C1 {label}: runs differ")
+    require(torch.equal(got, again) and torch.equal(acc, acc_again),
+            f"C1 {label}: runs differ")
+    require(taken > 0 and torch.equal(acc, acc_rows),
+            f"C1 {label}: the variants accepted other pairs ({taken} and "
+            f"{int(acc_rows.sum())})")
+    if plan.cluster == 1:
+        require(torch.equal(got, rows), f"C1 {label}: a cluster of one "
+                "differs from the rows variant")
     return err, active
 
 
@@ -5337,34 +5415,74 @@ def check_c2(torch, label, pos, vel, rest, body, radius, stiffness, cap,
     return err, got, found
 
 
+def c1_ms(torch, fn, variant, windows=3):
+    """Device ms a launch of C1's ``variant`` over CONTACT_REPS calls of
+    ``fn`` (the profiler, as kernel_ms; the rows variant's name is told
+    from the cluster variant's, of which it is a suffix)."""
+    cluster = C1_KERNELS["cluster"]
+    for _ in range(windows):
+        per_kernel, _ = profile_kernels(torch, fn, CONTACT_REPS)
+        hits = [v for k, v in per_kernel.items()
+                if C1_KERNELS[variant] in k
+                and (cluster in k) == (variant == "cluster")]
+        launches = sum(c for _, c in hits)
+        if 0 < launches <= CONTACT_REPS:
+            break
+    require(0 < launches <= CONTACT_REPS, f"the profiler saw {launches} "
+            f"launches of C1's {variant} variant in {CONTACT_REPS} calls")
+    return sum(t for t, _ in hits) / launches
+
+
 def c1_row(torch, card, d, tables, pos, vel, radius, stiffness, launches,
            err, label, extra=None):
     """C1's kernels-line row at these inputs (the matmul form, no
-    friction: the configs' own)."""
+    friction: the configs' own): the cluster variant's time beside the rows
+    variant's, from one run; its bound from the least work these inputs
+    need (every pair's squared distance, the rest of the chain for the
+    pairs the kernel accepted), and beside it the bound that charges every
+    pair the whole chain."""
     from fem_tpu_torch.ops import contact_kernels as ck
 
-    ms = kernel_ms(torch, lambda: ck.pair_forces(
-        tables, pos, vel, radius, stiffness), CONTACT_REPS, [C1_KERNEL])
+    ms = c1_ms(torch, lambda: ck.pair_forces(
+        tables, pos, vel, radius, stiffness), "cluster")
+    plan = ck.pair_forces.last_plan
+    rows_ms = c1_ms(torch, lambda: ck.pair_forces(
+        tables, pos, vel, radius, stiffness, variant="rows"), "rows")
     plain_ms = cuda_ms(torch, lambda: ck.pair_forces_plain(
         tables, pos, vel, radius, stiffness), 5)
+    acc = torch.zeros(pos.shape[0], dtype=torch.int32, device=pos.device)
+    ck.pair_forces(tables, pos, vel, radius, stiffness, accepted=acc)
+    accepted = int(acc.sum()) // 2  # each pair counted by both its rows
     sizes = tables.sizes
     pairs = sum(a * b for i, a in enumerate(sizes) for b in sizes[i + 1:])
     pairs += sum(int(m.sum()) // 2 for m in tables.masks if m is not None)
     masks = [m for m in tables.masks if m is not None]
-    bnd, by = bound(nbytes(pos, tables.body_id, tables.body_table, *masks)
-                    + nbytes(pos), pairs * C1_OPS[d])
+    bits = [] if tables.mask_bits is None else [tables.mask_bits]
+    bnd, by = bound(nbytes(pos, tables.body_id, tables.body_table,
+                           tables.bit_offsets, *bits) + nbytes(pos),
+                    pairs * C1_D2_OPS[d] + pos.shape[0] * C1_NORM_OPS[d]
+                    + accepted * C1_CHAIN_OPS[d])
+    bnd_pr20, by_pr20 = bound(nbytes(pos, tables.body_id, tables.body_table,
+                                     *masks) + nbytes(pos),
+                              pairs * C1_OPS[d])
     cdist_ms = library_device_ms(torch, lambda: torch.cdist(pos, pos), 20)
     row = dict(name="contact_pairs", route="cuda",
                source="fem_tpu_torch/csrc/contact_pairs.cu",
                replaces="fem_tpu/contact.py:92 (XLA, no pallas_call)", dim=d,
                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=bnd, bound_by=by, library_ms=None,
+               variant=plan.variant, cluster=plan.cluster, ctas=plan.ctas,
+               rows_ms=rows_ms, accepted_pairs=accepted,
+               bound_ms_whole_chain=bnd_pr20, bound_by_whole_chain=by_pr20,
                cdist_yardstick_ms=cdist_ms, shapes=label, pairs=pairs,
                **(extra or {}))
-    log(f"[time] {d}D contact_pairs ({label}): {ms:.5f} ms a launch on the "
-        f"device (profiler); plain {plain_ms:.4f} ms; bound {bnd:.6f} ms "
-        f"({by}, {pairs} pairs); torch.cdist yardstick {cdist_ms:.5f} ms; "
-        f"launches {launches}; card {card}")
+    log(f"[time] {d}D contact_pairs ({label}): cluster variant, P "
+        f"{plan.cluster} ({plan.ctas} CTAs): {ms:.5f} ms a launch on the "
+        f"device (profiler); rows variant {rows_ms:.5f} ms; plain "
+        f"{plain_ms:.4f} ms; bound {bnd:.6f} ms ({by}, {pairs} pairs, "
+        f"{accepted} accepted), whole chain a pair {bnd_pr20:.6f} ms "
+        f"({by_pr20}); torch.cdist yardstick {cdist_ms:.5f} ms; launches "
+        f"{launches}; card {card}")
     return row
 
 
@@ -5792,7 +5910,9 @@ def run_contact(torch, dev, zero_counts, counts, only, card):
             line["AR"][ns] = dict(
                 c1={k: r1[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "cdist_yardstick_ms",
-                                       "pairs", "max_abs_err")},
+                                       "pairs", "max_abs_err", "cluster",
+                                       "rows_ms", "accepted_pairs",
+                                       "bound_ms_whole_chain")},
                 c2={k: r2[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "pairs_found",
                                        "max_abs_err")},
@@ -5939,12 +6059,15 @@ def launch_counters():
         blocked_kernels.blocked_grad_prep.variant_launches = {}
         blocked_kernels.blocked_assemble.variant_launches = {}
         edge_cg.cg_solve_edge.variant_launches = {}
+        jacobi_kernels.jacobi_serial.variant_launches = {}
+        contact_kernels.pair_forces.variant_launches = {}
 
     def counts():
         """The launch counts since the last zero_counts(); K5's, K8's, K4's,
         K3's, K2's, K7b's, K7a's and K11a's launches on a path are all of
         their cluster variants (each mesh of the paths fits one cluster),
-        logged by (variant, CTAs)."""
+        logged by (variant, CTAs); so are C1's, and J1's launches are
+        logged by variant."""
         for name, fn, other in (
                 ("K5", frame_kernels.fused_blocked_frame, "grid"),
                 ("K8", frame_kernels.fused_explicit_frame, "grid"),
@@ -5959,6 +6082,14 @@ def launch_counters():
                 log(f"[{name} variant] launches by (variant, CTAs): {by}")
                 require(all(v == "cluster" for v, _ in by),
                         f"{name} ran the {other} variant on a path: {by}")
+        by = contact_kernels.pair_forces.variant_launches
+        if by:
+            log(f"[C1 variant] launches by (variant, CTAs): {by}")
+            require(all(v == "cluster" for v, _ in by),
+                    f"C1 ran the rows variant on a path: {by}")
+        if jacobi_kernels.jacobi_serial.variant_launches:
+            log(f"[J1 variant] launches by variant: "
+                f"{jacobi_kernels.jacobi_serial.variant_launches}")
         return {k: fn.launches for k, fn in counters.items()}
 
     def instances():

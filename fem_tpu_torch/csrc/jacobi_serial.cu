@@ -32,15 +32,18 @@
 // the error (each thread's rows, then the warps, then warp 0), so two runs
 // are bit-identical.
 //
-// Bound on the H100: the serial chain.  A sweep's bytes are the rows (the
-// flagship: 1,007 x 29 x 9 x 4 B = 1.05 MB) and b once and x written once,
-// ~0.3 us at 3.35 TB/s; but its N rows are N dependent steps, each a few
-// hundred cycles at least (a row's loads, its products, five shuffles a
-// component, the update, two warp barriers): ~0.3-1 us a row, 0.3-1 ms a
-// flagship sweep.
+// Bound on the H100: the chain of dependent steps.  A sweep's bytes are
+// the rows (the flagship: 1,007 x 29 x 9 x 4 B = 1.05 MB) and b once and x
+// written once, ~0.3 us at 3.35 TB/s; but the serial sweep's N rows are N
+// dependent steps, each a few hundred cycles (a row's loads, its products,
+// five shuffles a component, the update, two warp barriers), and the level
+// schedule's L levels are L such steps (the flagship: N 1,007, L 70).
 //
-// Design (a simple right one first): one CTA of kThreads.  x, b, past and
-// the diagonal A_ii[k,k] live in shared memory (4 N D floats: the
+// Two variants, one library (ops/jacobi_kernels.py: jacobi_plan picks).
+//
+// The serial variant (jacobi_serial_kernel, the dense rows and any sparse
+// rows whose level tables do not fit): one CTA of kThreads.  x, b, past
+// and the diagonal A_ii[k,k] live in shared memory (4 N D floats: the
 // flagship's 48 KB; opted in past 48 KB, up to a CTA's 227 KB).  Warp 0
 // runs the sweep: lane l holds the row's slots l, l + 32, ... (S of them,
 // S = ceil(max_nb / 32), a template parameter), and loads the next row's
@@ -48,8 +51,36 @@
 // loads (L2-resident after the first sweep) are in flight during a row's
 // arithmetic.  The dense source strides the row's N D columns over the
 // lanes.  The error takes the whole CTA: a thread a row (sparse) or a warp
-// a row (dense), then the fixed-order reduction.  A level schedule, where
-// rows whose lower neighbours are done run together, is later work.
+// a row (dense), then the fixed-order reduction.  Measured on the H100: the
+// chain of N dependent rows binds, ~0.3-0.4 us a row.
+//
+// The level variant (jacobi_levels_kernel, the sparse rows): the sweep
+// follows the host's level schedule (level_plan: level(i) = 1 + the
+// largest level of the j < i with j in nb[i] or i in nb[j]), so the rows of
+// one level share no entry, every lower neighbour of a row is done before
+// its level and every upper one is not yet touched: a level's rows run
+// together and read exactly the x values the serial sweep reads (the
+// flagship: 70 dependent levels a sweep instead of 1,007 rows).  One CTA of
+// kLevelThreads: within a level warp w takes the level's rows w, w + 32,
+// ..., each with the serial variant's row arithmetic (the same slots a
+// lane, the same butterfly's sums, taken in D + 4 shuffles instead of
+// 5 D, the same update), and one __syncthreads() ends the level.  Each
+// warp loads the blocks of the next row it will take — in this level or a
+// later one, from the host's next_row table — into registers before it
+// works on this row (and so before the level's barrier), and waits for
+// them only when that row starts: those loads do not depend on x.  The
+// rows and the table are staged in shared memory where they fit (the 2D
+// meshes), else read from L2.  The error pass spreads the rows'
+// residuals over the CTA into shared memory, then sums the squares in the
+// serial variant's order (kThreads partial sums, each over the rows
+// r = t mod kThreads, then the warps, then warp 0), so x,
+// past, the iterations and the error are bit-identical to the serial
+// variant's.  The kernel counts the levels it ran (L a sweep) into
+// `levels_run`.  Measured on the H100 (tools/torch_j1_probe.py, the
+// kernel's own clocks): the level barrier costs warp 0 ~8 ns; a level
+// costs ~0.8 us on the flagship, about twice a serial row, as ~14 warps
+// run their rows at once on the one SM; the error pass ~20 us, the
+// flagship's rows read through that SM.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +88,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kLevelThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kDefaultSmem = 48 * 1024;
 // A CTA's 227 KB less room for the static shared memory (the reduction).
@@ -76,12 +108,57 @@ struct JacobiArgs {
   float omega;
   float tol;
   int max_iter;
+  // The level variant only.
+  const int* order;        // (N,) the rows by level
+  const int* next_row;     // (N,) the next position of a position's warp
+  const int* first_row;    // (32,) each warp's first position
+  const int* level_start;  // (L + 1,)
+  int levels;              // L
+  int staged;              // rows and table staged in shared memory
+  int* levels_run;         // (1,) levels the kernel ran
+  long long* clocks;       // (5,) SM clocks of the phases, or null
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, m));
   return v;
+}
+
+// warp_sum of each of acc[0..D), bit for bit (the same pairs added at
+// every step of the same butterfly), in D + 4 shuffles instead of 5 D:
+// the first one or two steps exchange only the components a lane keeps,
+// after which lanes 8 k .. 8 k + 7 (3D; 16 k .. in 2D) hold component k's
+// partial and finish it alone.  Lane k < D returns component k's sum.
+template <int D>
+__device__ __forceinline__ float warp_sums_to_lane(const float (&acc)[D],
+                                                   int lane) {
+  const bool hi16 = lane & 16;
+  float c;
+  int stride;
+  if constexpr (D == 3) {
+    // Step 16: the lower half keeps components 0 and 1, the upper half 2
+    // and a zero pad.
+    const float r0 = __shfl_xor_sync(kFull, hi16 ? acc[0] : acc[2], 16);
+    const float r1 = __shfl_xor_sync(kFull, hi16 ? acc[1] : 0.0f, 16);
+    const float b0 = __fadd_rn(hi16 ? acc[2] : acc[0], r0);
+    const float b1 = __fadd_rn(hi16 ? 0.0f : acc[1], r1);
+    // Step 8: each lane keeps one of its two.
+    const bool hi8 = lane & 8;
+    c = __fadd_rn(hi8 ? b1 : b0, __shfl_xor_sync(kFull, hi8 ? b0 : b1, 8));
+#pragma unroll
+    for (int m = 4; m > 0; m >>= 1)
+      c = __fadd_rn(c, __shfl_xor_sync(kFull, c, m));
+    stride = 8;
+  } else {
+    c = __fadd_rn(hi16 ? acc[1] : acc[0],
+                  __shfl_xor_sync(kFull, hi16 ? acc[0] : acc[1], 16));
+#pragma unroll
+    for (int m = 8; m > 0; m >>= 1)
+      c = __fadd_rn(c, __shfl_xor_sync(kFull, c, m));
+    stride = 16;
+  }
+  return __shfl_sync(kFull, c, (stride * lane) & 31);
 }
 
 // Row i's component k of the update from its product ax and old x_ik.
@@ -122,20 +199,76 @@ struct Sparse {
     return v;
   }
 
-  static __device__ __forceinline__ void load(const JacobiArgs& a, int i,
-                                              int lane, float (&blk)[S][D * D],
+  // Lane `lane`'s slots of row i (none past row n - 1) into registers.
+  static __device__ __forceinline__ void load(const int* nbs,
+                                              const float* rows, int n,
+                                              int max_nb, int i, int lane,
+                                              float (&blk)[S][D * D],
                                               int (&nb)[S]) {
 #pragma unroll
     for (int q = 0; q < S; ++q) {
       const int s = lane + 32 * q;
       nb[q] = -1;
-      if (i < a.n && s < a.max_nb) {
-        const size_t slot = static_cast<size_t>(i) * a.max_nb + s;
-        nb[q] = a.nb[slot];
+      if (i < n && s < max_nb) {
+        const size_t slot = static_cast<size_t>(i) * max_nb + s;
+        nb[q] = nbs[slot];
 #pragma unroll
-        for (int e = 0; e < D * D; ++e) blk[q][e] = a.rows[slot * D * D + e];
+        for (int e = 0; e < D * D; ++e) blk[q][e] = rows[slot * D * D + e];
       }
     }
+  }
+
+  // The warp's product of row i's slots (in registers) with x, summed over
+  // the lanes: acc[k] = (A_i x)_k on every lane.
+  static __device__ __forceinline__ void product(const float (&blk)[S][D * D],
+                                                 const int (&nb)[S],
+                                                 const float* x,
+                                                 float (&acc)[D]) {
+    lane_product(blk, nb, x, acc);
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[k] = warp_sum(acc[k]);
+  }
+
+  // This lane's part of the product: its slots' terms, in slot order.
+  static __device__ __forceinline__ void lane_product(
+      const float (&blk)[S][D * D], const int (&nb)[S], const float* x,
+      float (&acc)[D]) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[k] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      if (nb[q] >= 0) {
+        const float* xj = x + D * nb[q];
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          const float v = xj[j];
+#pragma unroll
+          for (int k = 0; k < D; ++k)
+            acc[k] = __fmaf_rn(blk[q][D * k + j], v, acc[k]);
+        }
+      }
+    }
+  }
+
+  // b_r - (A x)_r of row component r = D i + k, the slots in order.
+  static __device__ __forceinline__ float residual_row(const int* nbs,
+                                                       const float* rows,
+                                                       int max_nb,
+                                                       const float* x,
+                                                       const float* bs,
+                                                       int r) {
+    const int i = r / D, k = r % D;
+    float acc = 0.0f;
+    for (int s = 0; s < max_nb; ++s) {
+      const size_t slot = static_cast<size_t>(i) * max_nb + s;
+      const int j = nbs[slot];
+      if (j < 0) continue;
+      const float* blk = rows + (slot * D + k) * D;
+#pragma unroll
+      for (int jj = 0; jj < D; ++jj)
+        acc = __fmaf_rn(blk[jj], x[D * j + jj], acc);
+    }
+    return __fsub_rn(bs[r], acc);
   }
 
   // Warp 0's sweep, in place on x.
@@ -144,27 +277,11 @@ struct Sparse {
     const int lane = threadIdx.x;
     float cur[S][D * D], nxt[S][D * D];
     int cur_nb[S], nxt_nb[S];
-    load(a, 0, lane, cur, cur_nb);
+    load(a.nb, a.rows, a.n, a.max_nb, 0, lane, cur, cur_nb);
     for (int i = 0; i < a.n; ++i) {
-      load(a, i + 1, lane, nxt, nxt_nb);
+      load(a.nb, a.rows, a.n, a.max_nb, i + 1, lane, nxt, nxt_nb);
       float acc[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc[k] = 0.0f;
-#pragma unroll
-      for (int q = 0; q < S; ++q) {
-        if (cur_nb[q] >= 0) {
-          const float* xj = x + D * cur_nb[q];
-#pragma unroll
-          for (int j = 0; j < D; ++j) {
-            const float v = xj[j];
-#pragma unroll
-            for (int k = 0; k < D; ++k)
-              acc[k] = __fmaf_rn(cur[q][D * k + j], v, acc[k]);
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < D; ++k) acc[k] = warp_sum(acc[k]);
+      product(cur, cur_nb, x, acc);
       write_row<D>(i, lane, acc, x, bs, past, dg, a.omega);
 #pragma unroll
       for (int q = 0; q < S; ++q) {
@@ -180,17 +297,7 @@ struct Sparse {
                                    const float* bs) {
     float part = 0.0f;
     for (int r = threadIdx.x; r < a.n * D; r += kThreads) {
-      const int i = r / D, k = r % D;
-      float acc = 0.0f;
-      for (int s = 0; s < a.max_nb; ++s) {
-        const size_t slot = static_cast<size_t>(i) * a.max_nb + s;
-        const int j = a.nb[slot];
-        if (j < 0) continue;
-        const float* blk = a.rows + (slot * D + k) * D;
-#pragma unroll
-        for (int jj = 0; jj < D; ++jj) acc = __fmaf_rn(blk[jj], x[D * j + jj], acc);
-      }
-      const float rr = __fsub_rn(bs[r], acc);
+      const float rr = residual_row(a.nb, a.rows, a.max_nb, x, bs, r);
       part = __fmaf_rn(rr, rr, part);
     }
     return part;
@@ -309,6 +416,197 @@ __global__ void __launch_bounds__(kThreads) jacobi_serial_kernel(
   }
 }
 
+// One level-scheduled sweep, in place on x; every thread of the CTA takes
+// part (one barrier a level).  Returns the levels it ran.  With
+// `a.clocks`, adds warp 0's clocks at its rows (`work`) and at the level
+// barriers (`wait`).
+template <int D, int S>
+__device__ int level_sweep(const JacobiArgs& a, const int* nbs,
+                           const float* rows, const int* order,
+                           const int* next_row, const int* first_row,
+                           const int* ls, float* x, const float* bs,
+                           const float* past, const float* dg,
+                           long long& work, long long& wait) {
+  using Src = Sparse<D, S>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float cur[S][D * D], nxt[S][D * D];
+  int cur_nb[S], nxt_nb[S];
+  // The warp's rows: positions first_row[warp], next_row[...], ... of the
+  // order (the level's rows warp, warp + 32, ..., then a later level's).
+  // Each row's slots are loaded into nxt a row ahead and moved into cur
+  // only when that row starts, so the loads of a warp's next row stay in
+  // flight across the level barriers between.
+  int p = first_row[warp];
+  if (p >= 0) Src::load(nbs, rows, a.n, a.max_nb, order[p], lane, nxt, nxt_nb);
+  int ran = 0;
+  for (int l = 0; l < a.levels; ++l, ++ran) {
+    const int end = ls[l + 1];
+    const long long t0 = a.clocks != nullptr ? clock64() : 0;
+    while (p >= 0 && p < end) {
+      const int i = order[p];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        cur_nb[s] = nxt_nb[s];
+#pragma unroll
+        for (int e = 0; e < D * D; ++e) cur[s][e] = nxt[s][e];
+      }
+      const int q = next_row[p];
+      if (q >= 0)
+        Src::load(nbs, rows, a.n, a.max_nb, order[q], lane, nxt, nxt_nb);
+      float acc[D];
+      Src::lane_product(cur, cur_nb, x, acc);
+      const float ax = warp_sums_to_lane<D>(acc, lane);
+      // Lane k < D writes x_ik.  Every lane's reads of x feed ax, so they
+      // are done; no row of this level reads x_i.
+      if (lane < D) {
+        const int r = D * i + lane;
+        x[r] = update(bs[r], ax, dg[r], x[r], past[r], a.omega);
+      }
+      p = q;
+    }
+    if (a.clocks != nullptr) {
+      const long long t1 = clock64();
+      __syncthreads();
+      work += t1 - t0;
+      wait += clock64() - t1;
+    } else {
+      __syncthreads();
+    }
+  }
+  return ran;
+}
+
+// |b - A x| in the serial variant's order, every thread of the CTA
+// computing rows' residuals into `res` first; every thread returns it.
+template <int D, int S>
+__device__ float level_error(const JacobiArgs& a, const int* nbs,
+                             const float* rows, const float* x,
+                             const float* bs, float* res, float* red,
+                             float* shared_err) {
+  using Src = Sparse<D, S>;
+  const int nd = a.n * D;
+  for (int r = threadIdx.x; r < nd; r += kLevelThreads)
+    res[r] = Src::residual_row(nbs, rows, a.max_nb, x, bs, r);
+  __syncthreads();
+  float part = 0.0f;
+  if (threadIdx.x < kThreads)
+    for (int r = threadIdx.x; r < nd; r += kThreads)
+      part = __fmaf_rn(res[r], res[r], part);
+  const float v = warp_sum(part);
+  if ((threadIdx.x & 31) == 0 && threadIdx.x < kThreads)
+    red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float w = threadIdx.x < kWarps ? red[threadIdx.x] : 0.0f;
+    w = warp_sum(w);
+    if (threadIdx.x == 0) *shared_err = __fsqrt_rn(w);
+  }
+  __syncthreads();
+  return *shared_err;
+}
+
+template <int D, int S>
+__global__ void __launch_bounds__(kLevelThreads) jacobi_levels_kernel(
+    const __grid_constant__ JacobiArgs a) {
+  extern __shared__ float smem[];
+  __shared__ float red[kWarps];
+  __shared__ float shared_err;
+  // SM clocks (thread 0's, with a.clocks): set-up, error passes, sweeps,
+  // warp 0's rows and its waits at the level barriers.
+  const bool timed = a.clocks != nullptr;
+  long long c_start = timed ? clock64() : 0;
+  long long c_init = 0, c_err = 0, c_sweep = 0, c_work = 0, c_wait = 0;
+  const int nd = a.n * D;
+  const size_t slots = static_cast<size_t>(a.n) * a.max_nb;
+  float* x = smem;
+  float* bs = x + nd;
+  float* past = bs + nd;
+  float* dg = past + nd;
+  float* res = dg + nd;
+  const float* rows = a.rows;
+  const int* nbs = a.nb;
+  int* tail = reinterpret_cast<int*>(res + nd);
+  if (a.staged) {
+    float* srows = res + nd;
+    for (size_t e = threadIdx.x; e < slots * D * D; e += kLevelThreads)
+      srows[e] = a.rows[e];
+    int* snb = reinterpret_cast<int*>(srows + slots * D * D);
+    for (size_t e = threadIdx.x; e < slots; e += kLevelThreads)
+      snb[e] = a.nb[e];
+    rows = srows;
+    nbs = snb;
+    tail = snb + slots;
+  }
+  int* order = tail;
+  int* next_row = order + a.n;
+  int* first_row = next_row + a.n;
+  int* ls = first_row + 32;
+  for (int r = threadIdx.x; r < a.n; r += kLevelThreads) {
+    order[r] = a.order[r];
+    next_row[r] = a.next_row[r];
+  }
+  if (threadIdx.x < 32) first_row[threadIdx.x] = a.first_row[threadIdx.x];
+  for (int r = threadIdx.x; r <= a.levels; r += kLevelThreads)
+    ls[r] = a.level_start[r];
+  for (int r = threadIdx.x; r < nd; r += kLevelThreads) {
+    const float bv = a.b[r];
+    bs[r] = bv;
+    x[r] = __fmul_rn(0.5f, bv);
+    past[r] = a.past_in[r];
+    dg[r] = Sparse<D, S>::diag(a, r);
+  }
+  __syncthreads();
+  if (timed) {
+    c_init = clock64() - c_start;
+    c_start = clock64();
+  }
+  float err = level_error<D, S>(a, nbs, rows, x, bs, res, red, &shared_err);
+  if (timed) c_err += clock64() - c_start;
+  float p_err = err;
+  int it = 0, levels = 0;
+  bool done = false;
+  while (!done && err > a.tol && it < a.max_iter) {
+    if (timed) c_start = clock64();
+    levels += level_sweep<D, S>(a, nbs, rows, order, next_row, first_row,
+                                ls, x, bs, past, dg, c_work, c_wait);
+    if (timed) {
+      c_sweep += clock64() - c_start;
+      c_start = clock64();
+    }
+    const float e1 =
+        level_error<D, S>(a, nbs, rows, x, bs, res, red, &shared_err);
+    if (timed) c_err += clock64() - c_start;
+    const bool rollback = e1 >= p_err;
+    for (int r = threadIdx.x; r < nd; r += kLevelThreads) {
+      if (rollback)
+        x[r] = past[r];
+      else
+        past[r] = x[r];
+    }
+    if (!rollback) p_err = e1;
+    err = e1;
+    ++it;
+    done = rollback;
+    __syncthreads();
+  }
+  for (int r = threadIdx.x; r < nd; r += kLevelThreads) {
+    a.x_out[r] = x[r];
+    a.past_out[r] = past[r];
+  }
+  if (threadIdx.x == 0) {
+    *a.iterations = it;
+    *a.error = err;
+    *a.levels_run = levels;
+    if (timed) {
+      a.clocks[0] = c_init;
+      a.clocks[1] = c_err;
+      a.clocks[2] = c_sweep;
+      a.clocks[3] = c_work;
+      a.clocks[4] = c_wait;
+    }
+  }
+}
+
 using Kernel = void (*)(const JacobiArgs);
 
 template <int D>
@@ -320,6 +618,23 @@ Kernel pick(int dense, int slots) {
     case 4: return jacobi_serial_kernel<D, Sparse<D, 4>>;
     default: return nullptr;
   }
+}
+
+template <int D>
+Kernel pick_levels(int slots) {
+  switch (slots) {
+    case 1: return jacobi_levels_kernel<D, 1>;
+    case 2: return jacobi_levels_kernel<D, 2>;
+    case 4: return jacobi_levels_kernel<D, 4>;
+    default: return nullptr;
+  }
+}
+
+// Sets `k`'s dynamic shared memory above the default where `smem` needs it.
+cudaError_t allow_smem(Kernel k, size_t smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -342,12 +657,8 @@ extern "C" int fem_jacobi_serial(int dim, int dense, int slots,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * 4 * static_cast<size_t>(n) * dim;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = allow_smem(k, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const JacobiArgs a{static_cast<const int*>(nb),
                      static_cast<const float*>(rows),
                      static_cast<const float*>(b),
@@ -358,6 +669,61 @@ extern "C" int fem_jacobi_serial(int dim, int dense, int slots,
                      static_cast<float*>(error),
                      n, max_nb, omega, tol, max_iter};
   k<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The level variant over the sparse rows: `order` (n,), `next_row` (n,),
+// `first_row` (32,) and `level_start` (levels + 1,) int32 the host's level
+// schedule; `staged` 1 to stage the rows and the table in shared memory.
+// One CTA of kLevelThreads with 5 n dim floats and 2 n + levels + 33 ints
+// of dynamic shared memory (and the staged rows and table).  `levels_run`
+// (1,) int32 receives the levels the sweeps ran.  `clocks` (5,) int64, or null, receives the SM clocks of
+// thread 0 in the set-up, the error passes and the sweeps, and of warp 0
+// at its rows and at the level barriers (tools/torch_j1_probe.py).
+// cudaErrorInvalidValue for an instance or a size the kernel does not
+// take.
+extern "C" int fem_jacobi_levels(int dim, int slots, int staged,
+                                 const void* nb, const void* rows,
+                                 const void* b, const void* past,
+                                 const void* order, const void* next_row,
+                                 const void* first_row,
+                                 const void* level_start, int n, int max_nb,
+                                 int levels, float omega,
+                                 float tol, int max_iter, void* x_out,
+                                 void* past_out, void* iterations,
+                                 void* error, void* levels_run,
+                                 void* clocks, void* stream) {
+  const Kernel k = dim == 3 ? pick_levels<3>(slots)
+                   : dim == 2 ? pick_levels<2>(slots)
+                              : nullptr;
+  if (k == nullptr || n < 1 || levels < 1 || max_nb < 1 ||
+      max_nb > 32 * slots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t slots_n = static_cast<size_t>(n) * max_nb;
+  size_t smem = sizeof(float) * 5 * static_cast<size_t>(n) * dim +
+                sizeof(int) * (2 * static_cast<size_t>(n) + levels + 33);
+  if (staged) smem += slots_n * (sizeof(float) * dim * dim + sizeof(int));
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_smem(k, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  JacobiArgs a{static_cast<const int*>(nb),
+               static_cast<const float*>(rows),
+               static_cast<const float*>(b),
+               static_cast<const float*>(past),
+               static_cast<float*>(x_out),
+               static_cast<float*>(past_out),
+               static_cast<int*>(iterations),
+               static_cast<float*>(error),
+               n, max_nb, omega, tol, max_iter};
+  a.order = static_cast<const int*>(order);
+  a.next_row = static_cast<const int*>(next_row);
+  a.first_row = static_cast<const int*>(first_row);
+  a.level_start = static_cast<const int*>(level_start);
+  a.levels = levels;
+  a.staged = staged;
+  a.levels_run = static_cast<int*>(levels_run);
+  a.clocks = static_cast<long long*>(clocks);
+  k<<<1, kLevelThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

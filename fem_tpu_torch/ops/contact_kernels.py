@@ -29,6 +29,15 @@ do and sum each vertex's row in a fixed order, with no float atomics, so
 two runs are bit-identical; against the plain versions they differ by the
 order of the sums (and C1 by the order of the three-term distance's sums):
 agreement to f32 rounding, stated in the tests relative to max |f|.
+
+C1 has two variants (:func:`contact_plan`): the cluster variant, on every
+path, spreads each row tile's partners over a thread-block cluster of P
+CTAs whose partials the leader adds in rank order, reads the self-contact
+masks as bits (:func:`pack_mask_bits`) and rejects a pair on its squared
+distance (:func:`d2_threshold`) before the root only where the exact test
+rejects it too; the rows variant, the first design, is kept for the checks
+that hold the cluster variant to it (the same accepted pairs, and with
+P = 1 the same bits).
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -144,13 +153,31 @@ class PairTables:
     (int32), each body's self-contact mask (uint8, (ns_i, ns_i), None
     when off: views of one flat ``mask_cat``), and ``body_table`` (B, 3)
     int64 on the device: each body's first soup row, its size and its
-    mask's offset in ``mask_cat`` (−1 when off)."""
+    mask's offset in ``mask_cat`` (−1 when off).  The cluster variant reads
+    the same masks packed a bit a pair: ``mask_bits`` (int32 words, each
+    row of a mask ⌈ns_i / 32⌉ words, partner j of the body at bit j % 32 of
+    word j // 32) and ``bit_offsets`` (B,) int64, each mask's first word
+    (−1 when off)."""
 
     sizes: Tuple[int, ...]
     body_id: torch.Tensor
     masks: Tuple[Optional[torch.Tensor], ...]
     mask_cat: Optional[torch.Tensor]
     body_table: torch.Tensor
+    mask_bits: Optional[torch.Tensor]
+    bit_offsets: torch.Tensor
+
+
+def pack_mask_bits(mask: np.ndarray) -> np.ndarray:
+    """A 0/1 (n, n) mask as (n, ⌈n / 32⌉) uint32 words, column j at bit
+    j % 32 of word j // 32."""
+    n = mask.shape[0]
+    words = (n + 31) // 32
+    padded = np.zeros((n, 32 * words), dtype=np.uint64)
+    padded[:, :n] = mask != 0
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    return (padded.reshape(n, words, 32) * weights).sum(
+        axis=2).astype(np.uint32)
 
 
 def pair_tables(sizes: Sequence[int], masks: Sequence[Optional[np.ndarray]],
@@ -158,15 +185,17 @@ def pair_tables(sizes: Sequence[int], masks: Sequence[Optional[np.ndarray]],
     """:class:`PairTables` of bodies of ``sizes`` participating vertices and
     self-contact ``masks`` (boolean or 0/1 (ns_i, ns_i) host arrays, or
     None), on ``device``.  The masks are copied as they are, never
-    recomputed."""
+    recomputed, and packed into bits once here."""
     sizes = tuple(int(s) for s in sizes)
     body_id = torch.repeat_interleave(
         torch.arange(len(sizes), dtype=torch.int32),
         torch.tensor(sizes, dtype=torch.int64)).to(device)
     flat, offsets, off = [], [], 0
+    packed, bit_offsets, word = [], [], 0
     for n, m in zip(sizes, masks):
         if m is None:
             offsets.append(-1)
+            bit_offsets.append(-1)
             continue
         m = np.asarray(m)
         if m.shape != (n, n):
@@ -175,15 +204,22 @@ def pair_tables(sizes: Sequence[int], masks: Sequence[Optional[np.ndarray]],
         flat.append((m != 0).astype(np.uint8).reshape(-1))
         offsets.append(off)
         off += n * n
+        packed.append(pack_mask_bits(m).reshape(-1))
+        bit_offsets.append(word)
+        word += packed[-1].size
     mask_cat = (torch.tensor(np.concatenate(flat), device=device)
                 if flat else None)
+    mask_bits = (torch.tensor(np.concatenate(packed).view(np.int32),
+                              device=device) if packed else None)
     views = tuple(None if o < 0 else mask_cat[o:o + n * n].view(n, n)
                   for n, o in zip(sizes, offsets))
     starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
     table = torch.tensor(np.stack([starts, np.asarray(sizes, np.int64),
                                    np.asarray(offsets, np.int64)], axis=1),
                          device=device)
-    return PairTables(sizes, body_id, views, mask_cat, table)
+    return PairTables(sizes, body_id, views, mask_cat, table, mask_bits,
+                      torch.tensor(bit_offsets, dtype=torch.int64,
+                                   device=device))
 
 
 def pair_forces_plain(tables: PairTables, pos, vel, radius, stiffness,
@@ -211,11 +247,74 @@ def pair_forces_plain(tables: PairTables, pos, vel, radius, stiffness,
     return torch.cat(sub_f)
 
 
-# Threads a CTA of C1 and C2, and C1's threads a vertex row
-# (csrc/contact_pairs.cu: kThreads, kSplit; csrc/contact_grid.cu: kThreads).
+# Threads a CTA of C1 and C2, C1's threads a vertex row and rows a CTA
+# (csrc/contact_pairs.cu: kThreads, kSplit, kRows; csrc/contact_grid.cu:
+# kThreads), and the cluster sizes of C1's cluster variant.
 PAIR_THREADS = 128
 PAIR_SPLIT = 4
+PAIR_ROWS = PAIR_THREADS // PAIR_SPLIT
+PAIR_CLUSTERS = (1, 2, 4, 8)
+PAIR_VARIANTS = ("cluster", "rows")
+H100_SMS = 132
 GRID_THREADS = 128
+
+
+class PairPlan(NamedTuple):
+    """A launch of C1: ``tiles`` row tiles of ``PAIR_ROWS`` rows, each over
+    a cluster of ``cluster`` CTAs (0: the rows variant, one CTA a tile)."""
+
+    variant: str
+    tiles: int
+    cluster: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=64)
+def contact_plan(n: int, variant: str = "cluster", cluster: int = 0,
+                 sms: int = H100_SMS) -> PairPlan:
+    """C1's launch over a soup of ``n`` vertices.  The cluster variant
+    splits each row tile's partners over P CTAs, the smallest P of
+    ``PAIR_CLUSTERS`` whose tiles × P reach 1.5 × ``sms`` (the SMs filled
+    about twice), 8 where none does: two flagship surfaces' 41 tiles take
+    8, the blob's 87 take 4, the shells' 768 take 1, AO's 7 take 8.
+    ``cluster`` forces P; ``variant="rows"`` is the first design, a CTA a
+    tile.  Raises ``ValueError`` for no vertex, an unknown variant or a P
+    outside ``PAIR_CLUSTERS``.  Pure: no device is asked."""
+    if n < 1:
+        raise ValueError(f"C1 needs a vertex, got {n}")
+    if variant not in PAIR_VARIANTS:
+        raise ValueError(f"unknown C1 variant {variant!r}; one of "
+                         f"{PAIR_VARIANTS}")
+    tiles = -(-n // PAIR_ROWS)
+    if variant == "rows":
+        if cluster:
+            raise ValueError("C1's rows variant takes no cluster")
+        return PairPlan("rows", tiles, 0, tiles)
+    if cluster:
+        if cluster not in PAIR_CLUSTERS:
+            raise ValueError(f"C1 takes clusters of {PAIR_CLUSTERS}, not "
+                             f"{cluster}")
+        p = cluster
+    else:
+        p = next((c for c in PAIR_CLUSTERS if 2 * tiles * c >= 3 * sms),
+                 PAIR_CLUSTERS[-1])
+    return PairPlan("cluster", tiles, p, tiles * p)
+
+
+@functools.lru_cache(maxsize=64)
+def d2_threshold(radius: float) -> float:
+    """The cluster variant's pre-test bound on the squared distance: the
+    float32 at or above (r·(1 + 2⁻²⁰))², r the float32 radius the kernel
+    reads.  A pair with d2 ≥ it has √d2 ≥ r·(1 + 2⁻²⁰) > r, so its rounded
+    distance is ≥ r and its exact test pen = max(r − dist, 0) > 0 fails:
+    the pre-test rejects no pair that the exact test accepts."""
+    r = float(np.float32(radius))
+    bound = (r * (1.0 + 2.0 ** -20)) ** 2
+    thr = np.float32(bound)
+    if float(thr) < bound:
+        thr = np.nextafter(thr, np.float32(np.inf))
+    return float(thr)
+
 
 _LIBS = {}
 
@@ -226,8 +325,8 @@ def _library(name: str):
         lib = cuda_build.load(name)
         if name == "contact_pairs":
             lib.fem_contact_pairs.argtypes = [
-                _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I,
-                _I, _P, _P]
+                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F,
+                _F, _F, _F, _I, _I, _P, _P, _P]
             lib.fem_contact_pairs.restype = _I
             lib.fem_contact_pairs_error.argtypes = [_I]
             lib.fem_contact_pairs_error.restype = ctypes.c_char_p
@@ -264,16 +363,25 @@ def _pointer(t):
 def pair_forces(tables: PairTables, pos: torch.Tensor,
                 vel: Optional[torch.Tensor], radius: float, stiffness: float,
                 friction_c: float = 0.0, mu: float = 0.0,
-                mu_slope: float = 0.0) -> torch.Tensor:
+                mu_slope: float = 0.0, variant: str = "cluster",
+                cluster: int = 0,
+                accepted: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Penalty forces (N, d) on the soup ``pos`` (velocities ``vel`` or
     None): every pair of vertices of different bodies, and the pairs of one
     body that its mask admits, each pair's force as
     :func:`pair_contact_forces` / :func:`self_contact_forces` compute it.
 
-    CUDA tensors: one launch of C1 (a row of ``PAIR_SPLIT`` threads a
-    vertex, partner tiles in shared memory).  CPU tensors:
+    CUDA tensors: one launch of C1 on :func:`contact_plan`'s plan, left in
+    ``pair_forces.last_plan``: the cluster variant (each row tile's
+    partners over a cluster of P CTAs, masks read as bits, a pre-test
+    before the root; ``cluster`` forces P) or, with ``variant="rows"``,
+    the first design (a row of ``PAIR_SPLIT`` threads a vertex over every
+    partner); ``pair_forces.variant_launches`` counts the launches by
+    (variant, CTAs).  ``accepted``, an (N,) int32 tensor, receives each row's
+    accepted partners as the kernel counted them.  CPU tensors:
     :func:`pair_forces_plain`."""
     if pos.device.type == "cpu":
+        contact_plan(pos.shape[0], variant, cluster)  # refuses as on CUDA
         return pair_forces_plain(tables, pos, vel, radius, stiffness,
                                  friction_c, mu, mu_slope)
     n, d, dev = _check_soup(pos, vel)
@@ -281,32 +389,45 @@ def pair_forces(tables: PairTables, pos: torch.Tensor,
     if sum(tables.sizes) != n:
         raise ValueError(f"a soup of {n} vertices for bodies of "
                          f"{tables.sizes}")
+    plan = contact_plan(n, variant, cluster)
     cuda_build.check_operand("body_id", tables.body_id, (n,), torch.int32,
                              dev)
     cuda_build.check_operand("body_table", tables.body_table, (nb, 3),
                              torch.int64, dev)
-    if tables.mask_cat is not None:
-        cuda_build.check_operand("mask_cat", tables.mask_cat,
-                                 tuple(tables.mask_cat.shape), torch.uint8,
+    cuda_build.check_operand("bit_offsets", tables.bit_offsets, (nb,),
+                             torch.int64, dev)
+    for name, t, dtype in (("mask_cat", tables.mask_cat, torch.uint8),
+                           ("mask_bits", tables.mask_bits, torch.int32)):
+        if t is not None:
+            cuda_build.check_operand(name, t, tuple(t.shape), dtype, dev)
+    if accepted is not None:
+        cuda_build.check_operand("accepted", accepted, (n,), torch.int32,
                                  dev)
     out = torch.empty_like(pos)
     with_vel = vel is not None
     lib = _library("contact_pairs")
     rc = cuda_build.launch_on_stream(
-        dev, dev.index, lib.fem_contact_pairs, d, n, nb, pos.data_ptr(),
-        _pointer(vel), tables.body_id.data_ptr(),
+        dev, dev.index, lib.fem_contact_pairs, d, n, nb, plan.cluster,
+        pos.data_ptr(), _pointer(vel), tables.body_id.data_ptr(),
         tables.body_table.data_ptr(), _pointer(tables.mask_cat),
-        radius, stiffness, 0.1 * radius, friction_c, mu * stiffness,
-        mu_slope, int(with_vel and friction_c > 0.0),
-        int(with_vel and mu > 0.0), out.data_ptr())
+        _pointer(tables.mask_bits), tables.bit_offsets.data_ptr(), radius,
+        stiffness, 0.1 * radius, d2_threshold(radius), friction_c,
+        mu * stiffness, mu_slope, int(with_vel and friction_c > 0.0),
+        int(with_vel and mu > 0.0), _pointer(accepted), out.data_ptr())
     if rc != 0:
         raise RuntimeError("C1 kernel launch failed: "
                            f"{lib.fem_contact_pairs_error(rc).decode()}")
     pair_forces.launches += 1
+    key = (plan.variant, plan.ctas)
+    pair_forces.variant_launches[key] = (
+        pair_forces.variant_launches.get(key, 0) + 1)
+    pair_forces.last_plan = plan
     return out
 
 
 pair_forces.launches = 0
+pair_forces.variant_launches = {}  # launches by (variant, CTAs)
+pair_forces.last_plan = None
 
 
 # -- C2: the grid narrow phase -------------------------------------------------

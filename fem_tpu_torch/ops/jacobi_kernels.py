@@ -1,20 +1,35 @@
 # coding=utf-8
 """J1: the serial weighted-Jacobi solve, one launch a solve.
 
-``jacobi_serial`` launches the hand-written CUDA kernel
-``fem_tpu_torch/csrc/jacobi_serial.cu`` for tensors on a CUDA device.  It
-replaces no TPU kernel: the JAX package runs the same solve as one XLA
+``jacobi_serial`` launches the hand-written CUDA kernels of
+``fem_tpu_torch/csrc/jacobi_serial.cu`` for tensors on a CUDA device.  They
+replace no TPU kernel: the JAX package runs the same solve as one XLA
 program (``_jacobi_outer_loop`` around the row ``lax.scan`` of
 ``jacobi_solve_serial_sparse`` or ``jacobi_solve_serial``, its
-solvers/implicit.py:737, :888 and :801), and the kernel keeps that solve on
+solvers/implicit.py:737, :888 and :801), and the kernels keep that solve on
 the device: the outer loop, every sweep, the error, the rollback and the
 stop test, with no host read before it ends.  Its two row sources are the
 block-sparse rows ``(nb_ids (N, max_nb), blocks (N, max_nb, d, d))`` of
 ``solvers/implicit.sparse_system_rows`` and the dense rows ``a_dense``
-(N·d, N·d) of ``solvers/dense.assemble_dense_system``.  For tensors on the
-CPU it runs its plain PyTorch version, ``jacobi_serial_plain``: the JAX
-scan's row loop inside the outer loop, which reads the error on the host
-once a sweep.  On CUDA it launches the kernel or raises; it never falls
+(N·d, N·d) of ``solvers/dense.assemble_dense_system``.  Two variants, the
+choice :func:`jacobi_plan`'s:
+
+* ``"levels"`` (the sparse rows): the sweep follows :func:`level_plan`'s
+  level schedule — the rows whose lower neighbours are all done run
+  together, a warp a row, one CTA barrier a level — and reads exactly the
+  x values the serial sweep reads, so its outputs are bit-identical to the
+  serial variant's (the flagship: 70 dependent levels a sweep, not 1,007
+  rows);
+* ``"serial"`` (the dense rows, and the sparse rows whose level tables
+  would not fit beside x in one CTA): the sweep on one warp, one row after
+  another.
+
+For tensors on the CPU it runs its plain PyTorch version,
+``jacobi_serial_plain``: the JAX scan's row loop inside the outer loop,
+which reads the error on the host once a sweep.  ``jacobi_levels_plain``
+is the level schedule in PyTorch, one batched update a level, which shows
+on the CPU that the schedule keeps the serial semantics; it is no path's.
+On CUDA ``jacobi_serial`` launches a kernel or raises; it never falls
 back.  ``jacobi_serial.launches`` counts the launches.
 
 The module also holds the outer loop the port's other Jacobi solves share
@@ -37,6 +52,7 @@ import ctypes
 import functools
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from fem_tpu_torch.utils import cuda_build
@@ -166,28 +182,138 @@ def jacobi_serial_plain(rows, b, past_x, nb_ids=None, omega: float = OMEGA,
     return jacobi_outer_loop(once, error, b, past_x, tol, max_iter)
 
 
-class SerialPlan(NamedTuple):
+class LevelPlan(NamedTuple):
+    """The level schedule of a neighbour table (:func:`level_plan`) and the
+    rows each of the kernel's 32 warps takes: within a level warp w takes
+    the level's rows w, w + 32, ...; positions index ``order``."""
+
+    order: np.ndarray  # (N,) int32: the rows by level, ascending in a level
+    level_start: np.ndarray  # (L + 1,) int32: level l's rows' positions
+    levels: int  # L
+    next_row: np.ndarray  # (N,) int32: the next position of p's warp, or -1
+    first_row: np.ndarray  # (32,) int32: each warp's first position, or -1
+
+
+LEVEL_WARPS = 32  # csrc/jacobi_serial.cu: kLevelThreads / 32
+
+
+def level_plan(nb_ids) -> LevelPlan:
+    """The level schedule of the serial sweep over the neighbour table
+    ``nb_ids`` (N, max_nb), padded with −1: level(i) = 1 + the largest
+    level of the j < i with j ∈ nb[i] or i ∈ nb[j], 0 when there is none.
+    Rows of one level share no entry, and each row's lower neighbours lie
+    in earlier levels and its upper ones in later levels, so running a
+    level's rows together reads the same x values as the serial sweep: the
+    new x_j for j < i, the old x_j for j > i.  Both directions are taken,
+    so an asymmetric table keeps that too.  Pure: a host numpy pass, no
+    device asked."""
+    nb = np.asarray(nb_ids.cpu() if isinstance(nb_ids, torch.Tensor)
+                    else nb_ids, dtype=np.int64)
+    n = nb.shape[0]
+    rows = np.repeat(np.arange(n, dtype=np.int64), nb.shape[1])
+    cols = nb.reshape(-1)
+    keep = (cols >= 0) & (cols != rows)
+    lo = np.minimum(rows[keep], cols[keep])
+    hi = np.maximum(rows[keep], cols[keep])
+    by_hi = np.lexsort((lo, hi))
+    lo, hi = lo[by_hi], hi[by_hi]
+    ptr = np.searchsorted(hi, np.arange(n + 1))
+    level = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        lower = lo[ptr[i]:ptr[i + 1]]
+        if lower.size:
+            level[i] = level[lower].max() + 1
+    order = np.argsort(level, kind="stable").astype(np.int32)
+    counts = np.bincount(level, minlength=1)
+    start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    # Position p of level l is warp (p − start[l]) % 32's; a warp takes its
+    # positions in ascending order.
+    pos = np.arange(n, dtype=np.int64)
+    warp = (pos - np.repeat(start[:-1], counts)) % LEVEL_WARPS
+    by_warp = np.lexsort((pos, warp))
+    same = warp[by_warp[1:]] == warp[by_warp[:-1]]
+    next_row = np.full(n, -1, dtype=np.int32)
+    next_row[by_warp[:-1][same]] = by_warp[1:][same]
+    first_row = np.full(LEVEL_WARPS, -1, dtype=np.int32)
+    firsts = by_warp[np.concatenate([[True], ~same])]
+    first_row[warp[firsts]] = firsts
+    return LevelPlan(order, start, int(counts.size), next_row, first_row)
+
+
+def jacobi_levels_plain(rows, b, past_x, nb_ids, omega: float = OMEGA,
+                        tol: float = TOL, max_iter: int = MAX_ITER,
+                        plan: Optional[LevelPlan] = None) -> JacobiResult:
+    """The serial sweep over the sparse rows run level by level
+    (:func:`level_plan`, or ``plan``), in plain PyTorch inside
+    :func:`jacobi_outer_loop`: one batched gather of x, one batched product
+    b − R·x, + A_ii[k,k]·x_i and one update a level.  It shows on the CPU
+    that the level schedule keeps the serial semantics; its sums are
+    batched, so it agrees with :func:`jacobi_serial_plain` to rounding."""
+    if nb_ids is None:
+        raise ValueError("the level schedule takes the sparse rows "
+                         "(nb_ids), not the dense rows")
+    n, d = b.shape
+    plan = level_plan(nb_ids) if plan is None else plan
+    r_mat, cols = _row_matrices(rows, nb_ids, n, d)
+    diag = _diagonal_of(rows, nb_ids, n, d)
+    safe = diag.abs() >= 1e-6
+    safe_diag = torch.where(safe, diag, 1.0)
+    order = torch.as_tensor(plan.order, dtype=torch.int64, device=b.device)
+    per_level = []
+    for lo, hi in zip(plan.level_start[:-1].tolist(),
+                      plan.level_start[1:].tolist()):
+        r = order[lo:hi]
+        per_level.append((r, r_mat[r], cols[r], b[r], diag[r],
+                          safe_diag[r], safe[r]))
+
+    def once(x, past):
+        x = x.clone()
+        xf = x.reshape(-1)
+        rest = (1.0 - omega) * past
+        for r, r_r, c_r, b_r, dg_r, sd_r, sf_r in per_level:
+            num = b_r - torch.bmm(r_r, xf[c_r].unsqueeze(-1)).squeeze(-1)
+            num = torch.addcmul(num, dg_r, x[r])
+            new = torch.addcdiv(rest[r], num, sd_r, value=omega)
+            x[r] = torch.where(sf_r, new, 0.0)
+        return x
+
+    nb = nb_ids.long().clamp(min=0)
+
+    def error(x):
+        res = b - torch.einsum("nkij,nkj->ni", rows, x[nb])
+        return torch.sqrt(torch.sum(res * res))
+
+    return jacobi_outer_loop(once, error, b, past_x, tol, max_iter)
+
+
+class JacobiPlan(NamedTuple):
     """A launch of J1: one CTA of ``threads``."""
 
     dense: bool
     slots: int  # a lane's slots of a sparse row (0 for the dense rows)
     threads: int
-    smem: int  # dynamic shared memory: x, b, past and the diagonal
+    smem: int  # dynamic shared memory: x, b, past, the diagonal and more
+    variant: str = "serial"  # "serial" or "levels"
+    levels: int = 0  # the level variant's L
+    staged: bool = False  # the level variant's rows staged in shared memory
 
 
-# csrc/jacobi_serial.cu's kThreads and its dynamic shared memory limit (a
-# CTA's 227 KB less 1 KB kept for the static reduction).
+# csrc/jacobi_serial.cu's kThreads and kLevelThreads, and the dynamic shared
+# memory limit (a CTA's 227 KB less 1 KB kept for the static reduction).
 SERIAL_THREADS = 512
+LEVEL_THREADS = 1024
 SERIAL_MAX_SMEM = 232448 - 1024
+VARIANTS = ("levels", "serial")
 
 
 @functools.lru_cache(maxsize=64)
-def serial_plan(n: int, d: int, max_nb: Optional[int]) -> SerialPlan:
-    """J1's launch for ``n`` particles in ``d`` dimensions over the sparse
-    rows of ``max_nb`` slots (None: the dense rows).  Raises ``ValueError``
-    for what the kernel does not take: d ∉ {2, 3}, no particle, more than
-    128 slots a row, or x, b, past and the diagonal past a CTA's shared
-    memory (4·N·d floats: N·d ≤ 14,464).  Pure: no device is asked."""
+def serial_plan(n: int, d: int, max_nb: Optional[int]) -> JacobiPlan:
+    """The serial variant's launch for ``n`` particles in ``d`` dimensions
+    over the sparse rows of ``max_nb`` slots (None: the dense rows).
+    Raises ``ValueError`` for what the kernel does not take: d ∉ {2, 3}, no
+    particle, more than 128 slots a row, or x, b, past and the diagonal
+    past a CTA's shared memory (4·N·d floats: N·d ≤ 14,464).  Pure: no
+    device is asked."""
     if d not in (2, 3):
         raise ValueError(f"J1 takes dim 2 or 3, not {d}")
     if n < 1:
@@ -199,11 +325,98 @@ def serial_plan(n: int, d: int, max_nb: Optional[int]) -> SerialPlan:
             f"memory: {smem} bytes for {n} particles in {d}D, past "
             f"{SERIAL_MAX_SMEM}")
     if max_nb is None:
-        return SerialPlan(True, 0, SERIAL_THREADS, smem)
+        return JacobiPlan(True, 0, SERIAL_THREADS, smem)
     slots = next((s for s in (1, 2, 4) if max_nb <= 32 * s), None)
     if slots is None or max_nb < 1:
         raise ValueError(f"J1 takes 1-128 slots a row, not {max_nb}")
-    return SerialPlan(False, slots, SERIAL_THREADS, smem)
+    return JacobiPlan(False, slots, SERIAL_THREADS, smem)
+
+
+@functools.lru_cache(maxsize=64)
+def jacobi_plan(n: int, d: int, max_nb: Optional[int],
+                levels: Optional[int] = None,
+                variant: Optional[str] = None) -> JacobiPlan:
+    """J1's launch for ``n`` particles in ``d`` dimensions over the sparse
+    rows of ``max_nb`` slots and ``levels`` levels (:func:`level_plan`), or
+    with ``max_nb`` None over the dense rows.
+
+    The level variant takes the sparse rows whenever x, b, past, the
+    diagonal, the residual (5·N·d floats) and the level tables (the order,
+    the next rows, the first rows and the level starts: 2·N + L + 33 ints)
+    fit one CTA's shared memory, its rows staged there too
+    where they also fit (``default.json``'s 13.5 KB; the flagship's 1.05 MB
+    are read from L2).  The dense rows stay serial: a dense row reads every
+    column, so a level schedule over it would be exact only through A's
+    structural zeros, which the kernel cannot see.  The serial variant also
+    takes the sparse rows whose level tables do not fit.  ``variant``
+    forces one ("serial" or "levels"); a variant that cannot run raises
+    ``ValueError``, as does anything :func:`serial_plan` refuses.  Pure: no
+    device is asked."""
+    if variant not in (None,) + VARIANTS:
+        raise ValueError(f"unknown J1 variant {variant!r}; one of "
+                         f"{VARIANTS}")
+    base = serial_plan(n, d, max_nb)
+    if variant == "serial":
+        return base
+    if max_nb is None:
+        if variant == "levels":
+            raise ValueError("J1's level variant takes the sparse rows; the "
+                             "dense rows run the serial variant")
+        return base
+    if levels is None or levels < 1:
+        raise ValueError(f"J1's level variant needs the level count, not "
+                         f"{levels}")
+    smem = 4 * (5 * n * d + 2 * n + levels + 1 + LEVEL_WARPS)
+    if smem > SERIAL_MAX_SMEM:
+        if variant == "levels":
+            raise ValueError(
+                f"J1's level variant keeps x, b, past, the diagonal, the "
+                f"residual and the level tables in one CTA's shared memory: "
+                f"{smem} bytes for {n} particles and {levels} levels, past "
+                f"{SERIAL_MAX_SMEM}")
+        return base
+    rows_bytes = 4 * n * max_nb * (d * d + 1)
+    staged = smem + rows_bytes <= SERIAL_MAX_SMEM
+    return JacobiPlan(False, base.slots, LEVEL_THREADS,
+                      smem + (rows_bytes if staged else 0), "levels", levels,
+                      staged)
+
+
+class LevelBinding:
+    """A neighbour table's :func:`level_plan` and its tables (the order, the
+    next and first rows, the level starts) as int32 tensors on the table's
+    device, built once a table and built again when the table is replaced
+    or changed in place."""
+
+    def __init__(self, nb_ids: torch.Tensor):
+        self.nb_ids = nb_ids
+        self.version = nb_ids._version
+        self.plan = level_plan(nb_ids)
+        dev = nb_ids.device
+        self.order = torch.as_tensor(self.plan.order, device=dev)
+        self.next_row = torch.as_tensor(self.plan.next_row, device=dev)
+        self.first_row = torch.as_tensor(self.plan.first_row, device=dev)
+        self.level_start = torch.as_tensor(self.plan.level_start,
+                                           device=dev)
+
+    def matches(self, nb_ids: torch.Tensor) -> bool:
+        return nb_ids is self.nb_ids and nb_ids._version == self.version
+
+
+# Level bindings by the id of their table (which each binding holds, so
+# that the id is not reused while it is kept).
+_LEVEL_BINDINGS: dict = {}
+
+
+def level_binding(nb_ids: torch.Tensor) -> LevelBinding:
+    """The :class:`LevelBinding` of ``nb_ids``, built once a table."""
+    hit = _LEVEL_BINDINGS.get(id(nb_ids))
+    if hit is None or not hit.matches(nb_ids):
+        hit = LevelBinding(nb_ids)
+        if id(nb_ids) not in _LEVEL_BINDINGS and len(_LEVEL_BINDINGS) >= 32:
+            _LEVEL_BINDINGS.pop(next(iter(_LEVEL_BINDINGS)))
+        _LEVEL_BINDINGS[id(nb_ids)] = hit
+    return hit
 
 
 # The jacobi_serial library with its entries' argument types, loaded at
@@ -220,6 +433,11 @@ def _library():
             _P,
         ]
         lib.fem_jacobi_serial.restype = _I
+        lib.fem_jacobi_levels.argtypes = [
+            _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+            _I, _P, _P, _P, _P, _P, _P, _P,
+        ]
+        lib.fem_jacobi_levels.restype = _I
         lib.fem_jacobi_error.argtypes = [_I]
         lib.fem_jacobi_error.restype = ctypes.c_char_p
         _LIB = lib
@@ -249,39 +467,79 @@ def _check(rows, b, past_x, nb_ids):
 def jacobi_serial(rows: torch.Tensor, b: torch.Tensor, past_x: torch.Tensor,
                   nb_ids: Optional[torch.Tensor] = None,
                   omega: float = OMEGA, tol: float = TOL,
-                  max_iter: int = MAX_ITER) -> JacobiResult:
+                  max_iter: int = MAX_ITER,
+                  variant: Optional[str] = None,
+                  clocks: Optional[torch.Tensor] = None) -> JacobiResult:
     """The serial weighted-Jacobi solve of A·x = b (module docstring) over
     the block-sparse rows ``rows`` (N, max_nb, d, d) of the neighbours
     ``nb_ids`` (N, max_nb) int32, or with ``nb_ids`` None over the dense
     rows ``rows`` (N·d, N·d); ``b`` and ``past_x`` (N, d).  Returns
     :class:`JacobiResult`, its iterations and error device tensors.
 
-    CUDA tensors: one launch of J1 on :func:`serial_plan`'s plan, left in
-    ``jacobi_serial.last_plan``; nothing is read back.  CPU tensors:
+    CUDA tensors: one launch of J1 on :func:`jacobi_plan`'s plan (the
+    level variant for the sparse rows, the table's :func:`level_plan`
+    bound once; ``variant`` forces one), left in
+    ``jacobi_serial.last_plan``; the levels the level variant ran (L a
+    sweep), counted by the kernel, in ``jacobi_serial.last_levels`` (an
+    int32 device tensor; None after a serial launch), the launches by
+    variant in ``jacobi_serial.variant_launches``; nothing is read
+    back.  ``clocks``, a (5,) int64 CUDA tensor, receives the level
+    variant's SM clocks: its set-up, its error passes, its sweeps, and
+    warp 0's clocks at its rows and at the level barriers
+    (``tools/torch_j1_probe.py``).  CPU tensors:
     :func:`jacobi_serial_plain`."""
+    if variant not in (None,) + VARIANTS:
+        raise ValueError(f"unknown J1 variant {variant!r}; one of "
+                         f"{VARIANTS}")
     if b.device.type == "cpu":
         return jacobi_serial_plain(rows, b, past_x, nb_ids, omega, tol,
                                    max_iter)
     n, d, max_nb, dev = _check(rows, b, past_x, nb_ids)
-    plan = serial_plan(n, d, max_nb)
+    binding = (level_binding(nb_ids)
+               if max_nb is not None and variant != "serial" else None)
+    plan = jacobi_plan(n, d, max_nb,
+                       None if binding is None else binding.plan.levels,
+                       variant)
     x = torch.empty_like(b)
     past = torch.empty_like(b)
     it = torch.empty((), dtype=torch.int32, device=dev)
     err = torch.empty((), dtype=torch.float32, device=dev)
     lib = _library()
-    rc = cuda_build.launch_on_stream(
-        dev, dev.index, lib.fem_jacobi_serial, d, int(plan.dense), plan.slots,
-        None if nb_ids is None else nb_ids.data_ptr(), rows.data_ptr(),
-        b.data_ptr(), past_x.data_ptr(), n, 0 if max_nb is None else max_nb,
-        omega, tol, max_iter, x.data_ptr(), past.data_ptr(), it.data_ptr(),
-        err.data_ptr())
+    if clocks is not None:
+        if plan.variant != "levels":
+            raise ValueError("J1 reads clocks in its level variant only")
+        cuda_build.check_operand("clocks", clocks, (5,), torch.int64, dev)
+        clocks = clocks.data_ptr()
+    if plan.variant == "levels":
+        levels_run = torch.empty((), dtype=torch.int32, device=dev)
+        rc = cuda_build.launch_on_stream(
+            dev, dev.index, lib.fem_jacobi_levels, d, plan.slots,
+            int(plan.staged), nb_ids.data_ptr(), rows.data_ptr(),
+            b.data_ptr(), past_x.data_ptr(), binding.order.data_ptr(),
+            binding.next_row.data_ptr(), binding.first_row.data_ptr(),
+            binding.level_start.data_ptr(), n, max_nb, plan.levels, omega,
+            tol, max_iter, x.data_ptr(), past.data_ptr(), it.data_ptr(),
+            err.data_ptr(), levels_run.data_ptr(), clocks)
+    else:
+        levels_run = None
+        rc = cuda_build.launch_on_stream(
+            dev, dev.index, lib.fem_jacobi_serial, d, int(plan.dense),
+            plan.slots, None if nb_ids is None else nb_ids.data_ptr(),
+            rows.data_ptr(), b.data_ptr(), past_x.data_ptr(), n,
+            0 if max_nb is None else max_nb, omega, tol, max_iter,
+            x.data_ptr(), past.data_ptr(), it.data_ptr(), err.data_ptr())
     if rc != 0:
         raise RuntimeError(
             f"J1 kernel launch failed: {lib.fem_jacobi_error(rc).decode()}")
     jacobi_serial.launches += 1
+    jacobi_serial.variant_launches[plan.variant] = (
+        jacobi_serial.variant_launches.get(plan.variant, 0) + 1)
     jacobi_serial.last_plan = plan
+    jacobi_serial.last_levels = levels_run
     return JacobiResult(x, past, it, err)
 
 
 jacobi_serial.launches = 0
+jacobi_serial.variant_launches = {}  # launches by variant
 jacobi_serial.last_plan = None
+jacobi_serial.last_levels = None

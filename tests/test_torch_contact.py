@@ -247,53 +247,82 @@ def test_self_contact_forces_match_jax(mu):
     assert float(pf.sum(0).abs().max()) < 1e-4 * float(pf.abs().sum())
 
 
-def _c1_row_emulation(tables, pos, vel, radius, k, friction_c, mu, slope):
+def _c1_row_emulation(tables, pos, vel, radius, k, friction_c, mu, slope,
+                      cluster=0):
     """C1's row formulation in float64 (the three-term distance in f32, as
     the plain version rounds it), as csrc/contact_pairs.cu reads its
     tables: vertex i's body from ``body_id``, its body's first row, size
     and mask offset from ``body_table``, a same-body partner admitted by
     ``mask_cat[offset + (i − first)·size + (j − first)]``; the matmul form
-    (x_i·S − T) − (v_i·W − V), or the Coulomb pair sum."""
+    (x_i·S − T) − (v_i·W − V), or the Coulomb pair sum.  ``cluster`` P > 0
+    reads as the cluster variant: the mask's bit j − first of row i's words
+    from ``mask_bits`` at ``bit_offsets``, the pre-test d2 < thr before the
+    exact test, and the partners in P contiguous chunks, each chunk's
+    partials summed and the P partials then added in rank order.  Returns
+    (forces, each row's accepted partners)."""
     sq = torch.sum(pos * pos, dim=1)
     d2_32 = (sq[:, None] + sq[None, :] - 2.0 * (pos @ pos.T)).numpy()
     pos, vel = pos.double().numpy(), vel.double().numpy()
     body = tables.body_id.numpy()
     table = tables.body_table.numpy()
     masks = None if tables.mask_cat is None else tables.mask_cat.numpy()
+    bits = (None if tables.mask_bits is None
+            else tables.mask_bits.numpy().view(np.uint32))
+    bit_off = tables.bit_offsets.numpy()
+    thr = ck.d2_threshold(radius)
+    n, d = pos.shape
+    chunk = -(-n // max(cluster, 1))
     out = np.zeros_like(pos)
-    for i in range(pos.shape[0]):
+    accepted = np.zeros(n, np.int64)
+    for i in range(n):
         first, size, moff = table[body[i]]
-        s = w = 0.0
-        t, v, f = (np.zeros(pos.shape[1]) for _ in range(3))
-        for j in range(pos.shape[0]):
-            if body[j] == body[i] and (
-                    moff < 0 or masks[moff + (i - first) * size + j - first]
-                    == 0):
-                continue
-            if mu == 0.0:  # the three-term distance, in f32 as the kernel
-                d2 = max(float(d2_32[i, j]), 1e-18)
-            else:
-                d2 = max(float(((pos[i] - pos[j]) ** 2).sum()), 1e-18)
-            dist = np.sqrt(d2)
-            pen = max(radius - dist, 0.0)
-            if pen <= 0.0:
-                continue
-            coef = k * pen / max(dist, 0.1 * radius)
-            if mu == 0.0:
-                s += coef
-                t += coef * pos[j]
-                w += friction_c * pen / radius
-                v += friction_c * pen / radius * vel[j]
-                continue
-            diff, dv = pos[i] - pos[j], vel[i] - vel[j]
-            fp = coef * diff - friction_c * pen / radius * dv
-            nh = diff / dist
-            vt = dv - (dv @ nh) * nh
-            speed = np.sqrt(max(vt @ vt, 1e-24))
-            fp -= min(slope * speed, mu * k * pen) / speed * vt
-            f += fp
+        boff = bit_off[body[i]]
+        parts = []
+        for lo in range(0, n, chunk):
+            s = w = 0.0
+            t, v, f = (np.zeros(d) for _ in range(3))
+            for j in range(lo, min(n, lo + chunk)):
+                if body[j] == body[i]:
+                    if cluster:
+                        words = (size + 31) // 32
+                        word = bits[boff + (i - first) * words
+                                    + (j - first) // 32] if boff >= 0 else 0
+                        if boff < 0 or not (word >> ((j - first) % 32)) & 1:
+                            continue
+                    elif moff < 0 or masks[moff + (i - first) * size + j
+                                           - first] == 0:
+                        continue
+                if mu == 0.0:  # the three-term distance, in f32 as the kernel
+                    d2 = max(float(d2_32[i, j]), 1e-18)
+                else:
+                    d2 = max(float(((pos[i] - pos[j]) ** 2).sum()), 1e-18)
+                if cluster and not d2 < thr:
+                    continue
+                dist = np.sqrt(d2)
+                pen = max(radius - dist, 0.0)
+                if pen <= 0.0:
+                    continue
+                accepted[i] += 1
+                coef = k * pen / max(dist, 0.1 * radius)
+                if mu == 0.0:
+                    s += coef
+                    t += coef * pos[j]
+                    w += friction_c * pen / radius
+                    v += friction_c * pen / radius * vel[j]
+                    continue
+                diff, dv = pos[i] - pos[j], vel[i] - vel[j]
+                fp = coef * diff - friction_c * pen / radius * dv
+                nh = diff / dist
+                vt = dv - (dv @ nh) * nh
+                speed = np.sqrt(max(vt @ vt, 1e-24))
+                fp -= min(slope * speed, mu * k * pen) / speed * vt
+                f += fp
+            parts.append((s, w, t, v, f))
+        s, w, t, v, f = parts[0]
+        for ps, pw, pt, pv, pf in parts[1:]:
+            s, w, t, v, f = s + ps, w + pw, t + pt, v + pv, f + pf
         out[i] = f if mu > 0.0 else (pos[i] * s - t) - (vel[i] * w - v)
-    return out
+    return out, accepted
 
 
 @pytest.mark.parametrize("mu", [0.0, 0.4])
@@ -312,10 +341,123 @@ def test_c1_row_formulation_matches_the_plain_version(mu):
     tables = ck.pair_tables(sizes, masks + [None], "cpu")
     args = (0.05, 1e3, 1.5, mu, 20.0)
     got = ck.pair_forces(tables, _t(pos), _t(vel), *args)
-    ref = _c1_row_emulation(tables, _t(pos), _t(vel), *args)
+    ref, _ = _c1_row_emulation(tables, _t(pos), _t(vel), *args)
     scale = float(np.abs(ref).max())
     assert scale > 0.0
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL * scale)
+
+
+def _c1_case(seed=11):
+    """Three bodies, two with self-contact masks, in 2D: the soup of
+    test_c1_row_formulation_matches_the_plain_version."""
+    rng = np.random.default_rng(seed)
+    sizes = (25, 18, 12)
+    pos = rng.uniform(0.4, 0.55, (sum(sizes), 2)).astype(np.float32)
+    vel = rng.standard_normal(pos.shape).astype(np.float32)
+    masks = []
+    for n in sizes[:2]:
+        m = np.triu(rng.random((n, n)) < 0.6, 1)
+        masks.append(m | m.T)
+    return ck.pair_tables(sizes, masks + [None], "cpu"), pos, vel
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8])
+@pytest.mark.parametrize("mu", [0.0, 0.4])
+def test_c1_cluster_formulation_matches_the_plain_version(mu, cluster):
+    """The cluster variant's reading (mask bits, the pre-test, P chunks'
+    partials added in rank order) against ``pair_forces`` within 1e-5 of
+    the largest force, with each row's accepted partners those of the rows
+    variant's reading."""
+    tables, pos, vel = _c1_case()
+    args = (0.05, 1e3, 1.5, mu, 20.0)
+    got = ck.pair_forces(tables, _t(pos), _t(vel), *args)
+    ref, taken = _c1_row_emulation(tables, _t(pos), _t(vel), *args,
+                                   cluster=cluster)
+    _, taken_rows = _c1_row_emulation(tables, _t(pos), _t(vel), *args)
+    scale = float(np.abs(ref).max())
+    assert scale > 0.0 and taken.sum() > 0
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TOL * scale)
+    np.testing.assert_array_equal(taken, taken_rows)
+
+
+@pytest.mark.parametrize("n,tiles,cluster", [
+    (1284, 41, 8),  # two flagship surfaces (AP)
+    (2780, 87, 4),  # the self-contact blob (AQ)
+    (24576, 768, 1),  # the shells (AR)
+    (8192, 256, 1),
+    (202, 7, 8),  # demo_two_bodies_contact.json (AO)
+    (1, 1, 8)])
+def test_contact_plan_picks_the_cluster(n, tiles, cluster):
+    plan = ck.contact_plan(n)
+    assert (plan.variant, plan.tiles, plan.cluster) == ("cluster", tiles,
+                                                        cluster)
+    assert plan.ctas == tiles * cluster
+    assert ck.contact_plan(n, cluster=2).cluster == 2
+    rows = ck.contact_plan(n, "rows")
+    assert (rows.cluster, rows.ctas) == (0, tiles)
+    assert ck.PAIR_ROWS == ck.PAIR_THREADS // ck.PAIR_SPLIT == 32
+
+
+@pytest.mark.parametrize("args,match", [
+    ((0,), "vertex"), ((10, "warp"), "unknown C1 variant"),
+    ((10, "cluster", 3), "clusters"), ((10, "rows", 2), "no cluster")])
+def test_contact_plan_refusals(args, match):
+    with pytest.raises(ValueError, match=match):
+        ck.contact_plan(*args)
+    if args[0] > 0:
+        tables, pos, vel = _c1_case()
+        with pytest.raises(ValueError, match=match):
+            ck.pair_forces(tables, _t(pos), _t(vel), 0.05, 1e3,
+                           variant=args[1], cluster=(args + (0,))[2])
+
+
+def test_packed_masks_hold_the_byte_masks_pairs():
+    """Each body's mask bits, unpacked, are its uint8 mask, at the word
+    offsets the table gives (a body without a mask: −1), for masks of 1, 31,
+    32, 33 and 70 vertices."""
+    rng = np.random.default_rng(2)
+    sizes = (1, 31, 7, 32, 33, 70)
+    masks = []
+    for n in sizes:
+        m = np.triu(rng.random((n, n)) < 0.5, 1)
+        masks.append(m | m.T)
+    masks[2] = None
+    tables = ck.pair_tables(sizes, masks, "cpu")
+    bits = tables.mask_bits.numpy().view(np.uint32)
+    assert tables.mask_bits.dtype == torch.int32
+    offs = tables.bit_offsets.tolist()
+    assert offs[2] == -1
+    words_total = 0
+    for n, m, off, view in zip(sizes, masks, offs, tables.masks):
+        if m is None:
+            assert view is None
+            continue
+        words = (n + 31) // 32
+        assert off == words_total
+        words_total += n * words
+        rows = bits[off:off + n * words].reshape(n, words)
+        unpacked = ((rows[:, :, None] >> np.arange(32, dtype=np.uint32))
+                    & 1).reshape(n, 32 * words)
+        assert not unpacked[:, n:].any()
+        np.testing.assert_array_equal(unpacked[:, :n], view.numpy())
+        np.testing.assert_array_equal(unpacked[:, :n], m.astype(np.uint8))
+    assert bits.size == words_total
+    none = ck.pair_tables((4, 5), [None, None], "cpu")
+    assert none.mask_bits is None and none.bit_offsets.tolist() == [-1, -1]
+
+
+@pytest.mark.parametrize("radius", [0.05, 0.0236, 0.1018, 0.0078, 1.0])
+def test_d2_threshold_rejects_only_pairs_out_of_the_radius(radius):
+    """Every float32 d2 at or above the threshold, up to a few hundred ulps
+    past it, gives a rounded root at or above the float32 radius, so the
+    exact test rejects it too; the threshold is within 1e-5 of r²."""
+    r = np.float32(radius)
+    thr = np.float32(ck.d2_threshold(radius))
+    assert abs(float(thr) / float(r) ** 2 - 1.0) < 1e-5
+    d2 = thr
+    for _ in range(400):
+        assert np.sqrt(d2) >= r
+        d2 = np.nextafter(d2, np.float32(np.inf))
 
 
 def _frames(jf, pf, js, ps, jobs, pobs, frames=1):

@@ -2679,6 +2679,137 @@ def test_jacobi_frame_on_cuda_matches_cpu_frame(sweep, monkeypatch):
     assert int(out["cpu"][1].min()) > 1
 
 
+@pytest.mark.parametrize("case", ["2d", "grid_2d", "3d", "flagship"])
+def test_jacobi_level_variant_is_bit_identical_to_serial(request, case):
+    """J1's level variant (the sparse rows' default) against its serial
+    variant: x, the anchor, the iterations and the error bit-identical (the
+    same x values read, the same sums in the same order); twice
+    bit-identical; the levels the kernel counted equal to L × sweeps; within
+    1e-5 of the plain version, iterations within 1 as in
+    test_jacobi_serial_kernel_matches_plain_and_repeats (the 40-subdivision
+    grid's long solve: both capped at 20 sweeps).  The 2D square's
+    rows are staged in shared memory, the 40-subdivision grid's and the
+    flagship's read from L2."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+
+    obj, state = request.getfixturevalue(
+        {"2d": "body_2d", "grid_2d": "grid_2d", "3d": "body",
+         "flagship": "flagship"}[case])
+    _, b, rows, _, past = _jacobi_system(obj, state, 3)
+    args = (rows, b, past, obj.jacobi_nb)
+    levels = jk.level_plan(obj.jacobi_nb).levels
+    before = jk.jacobi_serial.launches
+    got = jk.jacobi_serial(*args)
+    plan, counted = jk.jacobi_serial.last_plan, jk.jacobi_serial.last_levels
+    again = jk.jacobi_serial(*args, variant="levels")
+    counted_again = jk.jacobi_serial.last_levels
+    serial = jk.jacobi_serial(*args, variant="serial")
+    assert jk.jacobi_serial.last_plan.variant == "serial"
+    assert jk.jacobi_serial.last_levels is None
+    assert jk.jacobi_serial.launches == before + 3
+    ref = jk.jacobi_serial_plain(*args)
+    torch.cuda.synchronize()
+    assert (plan.variant, plan.levels, plan.threads) == ("levels", levels,
+                                                         1024)
+    assert plan.staged == (case == "2d" or case == "3d")
+    for x, y, z in zip(got, again, serial):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    it = int(got.iterations)
+    assert int(counted) == int(counted_again) == levels * it
+    itp = int(ref.iterations)
+    assert min(it, itp) > 1, (it, itp)
+    if case == "grid_2d":
+        # ~95 sweeps, where the two orders of summation move the stop by a
+        # few (measured 97 and 93): both held to the same 20 sweeps.
+        cap = 20
+    else:
+        assert abs(it - itp) <= 1, (it, itp)
+        cap = min(it, itp)
+    if it != cap or itp != cap:
+        got = jk.jacobi_serial(*args, max_iter=cap)
+        ref = jk.jacobi_serial_plain(*args, max_iter=cap)
+        assert int(got.iterations) == int(ref.iterations) == cap
+    top = float(ref.x.abs().max())
+    for g, r in ((got.x, ref.x), (got.past_x, ref.past_x)):
+        assert float((g - r).abs().max()) <= TOL * top
+
+
+def test_jacobi_level_variant_clocks_change_nothing(flagship):
+    """J1's SM clocks (tools/torch_j1_probe.py): with them on, the level
+    variant's outputs are bit-identical to those without; every phase's
+    count is positive, the sweeps' above warp 0's rows and barrier waits
+    together; the serial variant refuses them."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+
+    obj, state = flagship
+    _, b, rows, _, past = _jacobi_system(obj, state, 3)
+    args = (rows, b, past, obj.jacobi_nb)
+    clocks = torch.zeros(5, dtype=torch.int64, device="cuda")
+    timed = jk.jacobi_serial(*args, clocks=clocks)
+    plain = jk.jacobi_serial(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(timed, plain))
+    setup, err, sweeps, work, wait = clocks.tolist()
+    assert min(setup, err, sweeps, work, wait) > 0
+    assert sweeps > work + wait
+    with pytest.raises(ValueError, match="level variant"):
+        jk.jacobi_serial(*args, variant="serial", clocks=clocks)
+
+
+def test_jacobi_level_variant_edge_cases():
+    """The zero diagonal and the rollback (the JAX package's edge cases, as
+    test_jacobi_serial_zero_diagonal_and_rollback builds them) through the
+    level variant, bit-identical to the serial variant."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+
+    _require_cuda()
+    eye = np.eye(2)
+    for a_np, past_np in ((np.diag([1.0, 1e-9]), [0.0, 0.0]),
+                          (np.array([[1.0, 4.0], [5.0, 1.0]]), [7.0, 9.0])):
+        blocks = torch.tensor(a_np[:, :, None, None] * eye,
+                              dtype=torch.float32, device="cuda")
+        b = torch.ones((2, 2), device="cuda")
+        past = torch.tensor(np.repeat(past_np, 2).reshape(2, 2),
+                            dtype=torch.float32, device="cuda")
+        nb = torch.tensor([[0, 1], [0, 1]], dtype=torch.int32, device="cuda")
+        got = jk.jacobi_serial(blocks, b, past, nb, variant="levels")
+        counted = jk.jacobi_serial.last_levels
+        serial = jk.jacobi_serial(blocks, b, past, nb, variant="serial")
+        assert all(torch.equal(x, y) for x, y in zip(got, serial))
+        assert int(counted) == 2 * int(got.iterations)
+
+
+def test_jacobi_level_variant_raises_and_never_falls_back(body_2d,
+                                                          monkeypatch):
+    """The level variant refused on the dense rows and past a CTA; a failed
+    library load raises; neither plain version runs for CUDA tensors."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+    from fem_tpu_torch.utils import cuda_build
+
+    obj, state = body_2d
+    _, b, rows, a, past = _jacobi_system(obj, state, 4)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(jk, "jacobi_serial_plain", no_plain)
+    monkeypatch.setattr(jk, "jacobi_levels_plain", no_plain)
+    with pytest.raises(ValueError, match="sparse rows"):
+        jk.jacobi_serial(a, b, past, variant="levels")
+    with pytest.raises(ValueError, match="unknown J1 variant"):
+        jk.jacobi_serial(rows, b, past, obj.jacobi_nb, variant="warp")
+    with pytest.raises(ValueError):
+        jk.jacobi_plan(4000, 3, 29, 1, "levels")
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(jk, "_LIB", None)
+    monkeypatch.setattr(cuda_build, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        jk.jacobi_serial(rows, b, past, obj.jacobi_nb)
+
+
 # -- The adaptive-dt guard and the entry points -----------------------------
 
 def _cpu_copy(obj, state):
@@ -2917,6 +3048,88 @@ def test_contact_kernels_raise_and_never_fall_back():
         ck.pair_forces(tables, pos[:15].contiguous(), None, 0.05, 1e3)
     with pytest.raises(TypeError):
         bp.grid_contact_forces(pos, tables.body_id.long(), pos, 0.05, 1e3)
+
+
+@pytest.mark.parametrize("d,sizes,center,radius", [
+    (2, (81, 121), 0.5, 0.0236),  # demo_two_bodies_contact.json's soup
+    (2, (90,), 0.5, 0.05),  # one 2D body's masked self-pairs
+    (3, (642, 642), 2.0, 0.1018),  # two flagship surfaces, at x ~ 2
+    (3, (2780,), 2.0, 0.0399),  # the blob's masked self-pairs
+    (3, (4096, 4096), 0.5, 0.0078),  # tools/probe_broadphase.py, ns 8,192
+])
+@pytest.mark.parametrize("friction_c,mu", [(0.0, 0.0), (1.0, 0.3)])
+def test_contact_pairs_cluster_variant_matches_rows_variant(d, sizes, center,
+                                                            radius,
+                                                            friction_c, mu):
+    """C1's cluster variant (its own P, and every P forced) against the rows
+    variant: each row's accepted partners, counted by both kernels, equal;
+    with P = 1 the forces bit-identical; twice bit-identical; the
+    tolerances of test_contact_pairs_kernel_matches_plain_and_repeats
+    (only the order of the sums over j differs)."""
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    _require_cuda()
+    span = 6 * radius * (sum(sizes) / 100) ** (1 / d)
+    pos, vel = _soup(len(sizes), sizes, d, center, span)
+    masks = _masks(5, sizes) if len(sizes) == 1 else [None] * len(sizes)
+    tables = ck.pair_tables(sizes, masks, "cuda")
+    n = sum(sizes)
+    args = (radius, 1e3, friction_c, mu, 20.0)
+
+    def run(**kw):
+        acc = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+        return ck.pair_forces(tables, pos, vel, *args, accepted=acc,
+                              **kw), acc
+
+    rows_f, rows_acc = run(variant="rows")
+    assert ck.pair_forces.last_plan.variant == "rows"
+    got, acc = run()
+    plan = ck.pair_forces.last_plan
+    again, acc_again = run()
+    ref = ck.pair_forces_plain(tables, pos, vel, *args)
+    ref64 = ck.pair_forces_plain(tables, pos.double(), vel.double(), *args)
+    torch.cuda.synchronize()
+    assert plan == ck.contact_plan(n)
+    top = float(ref.abs().max())
+    plain64 = float((ref.double() - ref64).abs().max())
+    assert top > 0.0 and int(rows_acc.sum()) > 0
+    assert torch.equal(got, again) and torch.equal(acc, acc_again)
+    for p in ck.PAIR_CLUSTERS:
+        forced, forced_acc = run(cluster=p)
+        assert ck.pair_forces.last_plan.cluster == p
+        assert torch.equal(forced_acc, rows_acc), p
+        if p == 1:
+            assert torch.equal(forced, rows_f)
+        if p == plan.cluster:
+            assert torch.equal(forced, got)
+        if mu > 0.0:
+            assert float((forced - ref).abs().max()) <= TOL * top
+        else:
+            assert float((forced.double() - ref64).abs().max()) <= (
+                2 * plain64 + TOL * top)
+
+
+def test_contact_pairs_variants_raise_and_never_fall_back(monkeypatch):
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    _require_cuda()
+    pos, vel = _soup(0, (10, 10), 3, 0.5, 0.2)
+    tables = ck.pair_tables((10, 10), [None, None], "cuda")
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ck, "pair_forces_plain", no_plain)
+    with pytest.raises(ValueError, match="clusters"):
+        ck.pair_forces(tables, pos, vel, 0.05, 1e3, cluster=3)
+    with pytest.raises(ValueError, match="unknown C1 variant"):
+        ck.pair_forces(tables, pos, vel, 0.05, 1e3, variant="warp")
+    with pytest.raises(TypeError):
+        ck.pair_forces(tables, pos, vel, 0.05, 1e3,
+                       accepted=torch.zeros(20, device="cuda"))
+    for variant in ck.PAIR_VARIANTS:
+        out = ck.pair_forces(tables, pos, vel, 0.05, 1e3, variant=variant)
+        assert out.device.type == "cuda"
 
 
 @pytest.mark.parametrize("over", [
