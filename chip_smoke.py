@@ -4494,14 +4494,16 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
     times = {}
 
     # -- 53. J1 against its plain version -------------------------------------
-    def check_j1(label, d, args):
-        """J1 (its plan's variant: the level variant on the sparse rows)
-        against its plain version, twice bit-identical; on the sparse rows
-        also bit-identical to the serial variant, with the levels the
-        kernel counted equal to L x sweeps."""
-        got = jk.jacobi_serial(*args)
+    def check_j1(label, d, args, pattern=None):
+        """J1 (its plan's variant: the level variant on the sparse rows and
+        on the dense rows with their ``pattern``) against its plain version,
+        twice bit-identical; on the level variant also bit-identical to the
+        serial variant, with the levels the kernel counted equal to L x
+        sweeps."""
+        kw = {} if pattern is None else dict(pattern=pattern)
+        got = jk.jacobi_serial(*args, **kw)
         plan, counted = jk.jacobi_serial.last_plan, jk.jacobi_serial.last_levels
-        again = jk.jacobi_serial(*args)
+        again = jk.jacobi_serial(*args, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref = jk.jacobi_serial_plain(*args)
@@ -4518,24 +4520,22 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         require(err <= 1e-5 * top, f"J1 {label} off by {err} of {top}")
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"J1 {label} runs differ")
-        if len(args) > 3:
-            levels = jk.level_plan(args[3]).levels
-            serial = jk.jacobi_serial(*args, variant="serial")
-            torch.cuda.synchronize()
-            require(plan.variant == "levels" and plan.levels == levels,
-                    f"J1 {label} plan {plan}")
-            require(all(torch.equal(a, b) for a, b in zip(got, serial)),
-                    f"J1 {label}: the level variant differs from the serial "
-                    "variant")
-            require(int(counted) == levels * it,
-                    f"J1 {label}: the kernel ran {int(counted)} levels, not "
-                    f"{levels} x {it}")
-            log(f"[J1] {label}: the level variant bit-identical to the "
-                f"serial variant (x, past, iterations, error); {levels} "
-                f"levels a sweep, {int(counted)} run (read from the kernel)")
-        else:
-            require(plan.variant == "serial" and counted is None,
-                    f"J1 {label} plan {plan}")
+        table = args[3] if len(args) > 3 else pattern
+        levels = jk.level_plan(table).levels
+        serial = jk.jacobi_serial(*args, variant="serial", **kw)
+        torch.cuda.synchronize()
+        require(plan.variant == "levels" and plan.levels == levels
+                and plan.dense == (len(args) == 3),
+                f"J1 {label} plan {plan}")
+        require(all(torch.equal(a, b) for a, b in zip(got, serial)),
+                f"J1 {label}: the level variant differs from the serial "
+                "variant")
+        require(int(counted) == levels * it,
+                f"J1 {label}: the kernel ran {int(counted)} levels, not "
+                f"{levels} x {it}")
+        log(f"[J1] {label}: the level variant bit-identical to the "
+            f"serial variant (x, past, iterations, error); {levels} "
+            f"levels a sweep, {int(counted)} run (read from the kernel)")
         errors[d] = max(errors[d], err)
         return it, plain_ms
 
@@ -4552,12 +4552,13 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
     sparse2, dense2 = system(obj_p, squashed(state_p, 3), cfg_p.delta_time, 5)
     sparse3, _ = system(obj_f, deformed, cfg_f.delta_time, 6)
     checked = {}
-    for label, d, args in (("2D sparse rows (demo_passage_jacobi.json "
-                            "squashed)", 2, sparse2),
-                           ("2D dense rows", 2, dense2),
-                           ("3D sparse rows (flagship deformed, one "
-                            "substep's system)", 3, sparse3)):
-        checked[label] = (d, args) + check_j1(label, d, args)
+    for label, d, args, pattern in (
+            ("2D sparse rows (demo_passage_jacobi.json squashed)", 2,
+             sparse2, None),
+            ("2D dense rows", 2, dense2, obj_p.jacobi_nb),
+            ("3D sparse rows (flagship deformed, one substep's system)", 3,
+             sparse3, None)):
+        checked[label] = (d, args) + check_j1(label, d, args, pattern)
     log("[J1] two runs bit-identical in every case")
 
     def solve_row(d, args, it, plain_ms, extra):
@@ -4597,6 +4598,55 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
             f"({t['serial_us_per_row']:.4f} us a row); plain {plain_ms:.2f} "
             f"ms; bound {bound_ms:.6f} ms ({bound_by}), a sweep's bytes "
             f"{t['sweep_bytes_bound_ms']:.6f} ms; card {card}")
+        return t
+
+    def dense_row(args, pattern, it, plain_ms):
+        """The dense rows' fields of J1's 2D row: the level variant on the
+        pattern's schedule beside the serial variant, from one run; the
+        least-work bound of the same solve — A's nonzero blocks (the
+        pattern's, and a lone particle's diagonal block) and the pattern
+        read once, b, past in, x, past out; those blocks' products in the
+        sweeps and error passes and the updates — beside the whole
+        matrix's (every entry read, every product), and its chain of L x
+        sweeps levels."""
+        a, b, past = args
+        n, dd = b.shape
+        nd = n * dd
+        levels = jk.level_plan(pattern).levels
+        ids = torch.arange(n, dtype=pattern.dtype, device=pattern.device)
+        blocks = int((pattern >= 0).sum()) + int(
+            (~(pattern == ids[:, None]).any(dim=1)).sum())
+        ms = kernel_ms(torch, lambda: jk.jacobi_serial(*args,
+                                                       pattern=pattern),
+                       J1_REPS, [J1_KERNELS["levels"]])
+        ran = int(jk.jacobi_serial.last_levels)
+        serial_ms = kernel_ms(torch, lambda: jk.jacobi_serial(*args),
+                              J1_REPS, [J1_KERNELS["serial"]])
+        io = nbytes(b, past) + 2 * nbytes(b) + 8
+        bound_ms, bound_by = bound(
+            4 * blocks * dd * dd + nbytes(pattern) + io,
+            it * (2 * 2 * blocks * dd * dd + 10 * nd))
+        whole_ms, whole_by = bound(nbytes(a) + io,
+                                   it * (2 * 2 * nd * nd + 10 * nd))
+        t = dict(dense_ms=ms, dense_variant="levels", dense_levels=levels,
+                 dense_levels_run=ran, dense_iterations=it,
+                 dense_ms_per_sweep=ms / it,
+                 dense_us_per_level=1e3 * ms / (it * levels),
+                 dense_serial_ms=serial_ms, dense_plain_ms=plain_ms,
+                 dense_bound_ms=bound_ms, dense_bound_by=bound_by,
+                 dense_blocks=blocks, dense_bound_ms_whole_matrix=whole_ms,
+                 dense_bound_by_whole_matrix=whole_by,
+                 dense_chain_levels=it * levels,
+                 dense_sweep_bytes_bound_ms=1e3 * nbytes(a)
+                 / PEAK_BYTES_PER_S)
+        log(f"[time] 2D jacobi_serial over the dense rows, level variant "
+            f"({levels} levels, {ran} run, read from the kernel): {ms:.5f} ms "
+            f"a solve of {it} sweeps (profiler), {t['dense_ms_per_sweep']:.5f} "
+            f"ms a sweep, {t['dense_us_per_level']:.4f} us a level; serial "
+            f"variant {serial_ms:.5f} ms; plain {plain_ms:.2f} ms; bound "
+            f"{bound_ms:.6f} ms ({bound_by}; A's {blocks} nonzero blocks), "
+            f"the whole matrix's {whole_ms:.6f} ms ({whole_by}), a sweep's "
+            f"rows {t['dense_sweep_bytes_bound_ms']:.6f} ms; card {card}")
         return t
 
     # -- 54. path AH: demo_passage_jacobi.json as shipped ---------------------
@@ -4660,12 +4710,8 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         path_device_ms_per_frame=dev_ms_ah, path_busy_percent=busy_ah,
         path_steps_per_s=subs / wall))
     _, dense_args, it_dense, plain_dense = checked["2D dense rows"]
-    times[2]["dense_ms"] = kernel_ms(
-        torch, lambda: jk.jacobi_serial(*dense_args), J1_REPS,
-        [J1_KERNELS["serial"]])
-    times[2]["dense_plain_ms"] = plain_dense
-    log(f"[time] 2D jacobi_serial over the dense rows {times[2]['dense_ms']:.5f} "
-        f"ms a solve of {it_dense} sweeps (profiler); card {card}")
+    times[2].update(dense_row(dense_args, obj_p.jacobi_nb, it_dense,
+                              plain_dense))
 
     # -- 55. path AI: the flagship under the serial sweep ---------------------
     cobj_f, cstate_f, cobs_f = on_cpu(obj_f, deformed, obs_f)
@@ -4770,9 +4816,20 @@ def run_jacobi(torch, dev, zero_counts, counts, only, card):
         if "Jacobi" in label:
             require(jk.jacobi_serial.last_plan.dense,
                     "path AK's J1 did not take the dense rows")
-            require(jk.jacobi_serial.variant_launches == {"serial": n},
+            require(jk.jacobi_serial.variant_launches == {"levels": n},
                     f"path AK's J1 variants "
                     f"{jk.jacobi_serial.variant_launches}")
+            times[2]["dense_launches"] = n
+            dense_go = frames_go(frame, start, obs_k, FRAMES_AK)
+            ak_ms, ak_n, ak_dev, ak_busy = j1_device_ms(
+                torch, dense_go, FRAMES_AK, n)
+            zero_counts()
+            times[2].update(ak_j1_ms=ak_ms, ak_device_ms_per_frame=ak_dev,
+                            ak_busy_percent=ak_busy)
+            log(f"[path AK] dense Jacobi, {FRAMES_AK} frames under the "
+                f"profiler: J1 (level variant) {ak_ms:.5f} ms a solve "
+                f"({ak_n} launches seen); device {ak_dev:.4f} ms a frame, "
+                f"busy {ak_busy:.1f}%; card {card}")
         require(bool(torch.isfinite(s.pos).all()), f"path {label} non-finite")
         require(err <= 1e-5, f"path {label} off the CPU frame by {err}")
         require(all(abs(a - b) <= 1 for a, b in zip(it, itp)),
@@ -5236,7 +5293,10 @@ CONTACT_REPS = 20  # timed launches a kernel
 # rows variant's is a suffix of the cluster variant's.
 C1_KERNELS = {"cluster": "cluster_contact_pairs_kernel",
               "rows": "contact_pairs_kernel"}
-C2_KERNEL = "contact_grid_kernel"
+# The profiler's names of C2's kernels by variant (csrc/contact_grid.cu):
+# the warp variant's soup gather and warp kernel, the thread variant's one.
+C2_KERNELS = {"warp": ["grid_soup_kernel", "grid_warp_kernel"],
+              "thread": ["contact_grid_kernel"]}
 # f32 operations a pair, counted from the kernels' formulas: C1's matmul
 # form (both squared norms, the cross term, the distance, the penalty and
 # the row sums), C2's direct differences (the rest test, the distance, the
@@ -5353,8 +5413,9 @@ def check_c1(torch, label, tables, pos, vel, radius, stiffness, friction_c,
 
 
 def grid_inputs(torch, pos, radius):
-    """(cell_s, order, start, m) of the grid pass at ``pos``
-    (broadphase.grid_contact_forces' sort and lookup)."""
+    """(cell_s, order, runs, start, m, offs) of the grid pass at ``pos``
+    (broadphase.grid_contact_forces' sort and run table), with the JAX
+    package's forward starts from a lookup of their own."""
     from fem_tpu_torch import broadphase as bp
     from fem_tpu_torch.ops import contact_kernels as ck
 
@@ -5365,7 +5426,8 @@ def grid_inputs(torch, pos, radius):
                         dtype=torch.int32, device=pos.device)
     start = torch.searchsorted(cell_s, cell_s[:, None] + offs[None, :],
                                out_int32=True)
-    return cell_s, order, start, m, offs
+    runs = ck.grid_runs(cell_s, m, pos.shape[1])
+    return cell_s, order, runs, start, m, offs
 
 
 def grid_found(torch, cell_s, start, offs, cap):
@@ -5386,18 +5448,22 @@ def check_c2(torch, label, pos, vel, rest, body, radius, stiffness, cap,
              friction_c=0.0, mu=0.0, mu_slope=0.0, self_contact=False):
     """C2 against its plain version on the card (the same sort and lookup),
     within 1e-5 of the largest force, twice bit-identical, the forces' total
-    within 1e-5 of Σ|f| (Newton's third law).  Returns (max abs error, the forces, pairs found)."""
+    within 1e-5 of Σ|f| (Newton's third law); its warp variant (the plan's)
+    bit-identical to the thread variant.  Returns (max abs error, the
+    forces, pairs found)."""
     from fem_tpu_torch.ops import contact_kernels as ck
 
-    cell_s, order, start, m, offs = grid_inputs(torch, pos, radius)
-    args = (pos, vel, rest if self_contact else None, body, cell_s, order,
-            start)
+    cell_s, order, runs, start, m, offs = grid_inputs(torch, pos, radius)
+    args = (pos, vel, rest if self_contact else None, body, cell_s, order)
     kw = dict(friction_c=friction_c, mu=mu, mu_slope=mu_slope,
               self_contact=self_contact)
-    got = ck.grid_pair_forces(*args, m, radius, stiffness, cap, **kw)
-    again = ck.grid_pair_forces(*args, m, radius, stiffness, cap, **kw)
-    ref = ck.grid_pair_forces_plain(*args, offs, radius, stiffness, cap,
-                                    excl=2.5 * radius, **kw)
+    got = ck.grid_pair_forces(*args, runs, m, radius, stiffness, cap, **kw)
+    plan = ck.grid_pair_forces.last_plan
+    again = ck.grid_pair_forces(*args, runs, m, radius, stiffness, cap, **kw)
+    thread = ck.grid_pair_forces(*args, runs, m, radius, stiffness, cap,
+                                 variant="thread", **kw)
+    ref = ck.grid_pair_forces_plain(*args, start, offs, radius, stiffness,
+                                    cap, excl=2.5 * radius, **kw)
     torch.cuda.synchronize()
     top = float(ref.abs().max())
     err = float((got - ref).abs().max())
@@ -5406,12 +5472,16 @@ def check_c2(torch, label, pos, vel, rest, body, radius, stiffness, cap,
     found = grid_found(torch, cell_s, start, offs, cap)
     log(f"[C2] {label}: {pos.shape[0]} vertices, cap {cap}, {found} pairs "
         f"found: max abs error {err:.3e} of max {top:.3e}; |sum f| "
-        f"{total:.3e}")
+        f"{total:.3e}; plan {plan._asdict()}; the warp variant "
+        f"bit-identical to the thread variant: {torch.equal(got, thread)}")
+    require(plan.variant == "warp", f"C2 {label}: plan {plan}")
     require(top > 0, f"C2 {label}: no pair in contact")
     require(err <= 1e-5 * top, f"C2 {label}: error {err} of {top}")
     require(total <= 1e-5 * spread, f"C2 {label}: momentum {total} of sum "
             f"|f| {spread}")
     require(torch.equal(got, again), f"C2 {label}: runs differ")
+    require(torch.equal(got, thread), f"C2 {label}: the warp variant "
+            "differs from the thread variant")
     return err, got, found
 
 
@@ -5489,15 +5559,29 @@ def c1_row(torch, card, d, tables, pos, vel, radius, stiffness, launches,
 def c2_row(torch, card, d, pos, body, radius, stiffness, cap, launches, err,
            found, label, extra=None):
     """C2's kernels-line row at these inputs (no friction, no
-    self-contact)."""
+    self-contact): the warp variant's time (its soup gather and its warp
+    kernel) beside the thread variant's, from one run, and the whole grid
+    pass's device time (the cell ids, the sort, the run table and C2)."""
+    from fem_tpu_torch import broadphase as bp
     from fem_tpu_torch.ops import contact_kernels as ck
 
-    cell_s, order, start, m, offs = grid_inputs(torch, pos, radius)
-    args = (pos, None, None, body, cell_s, order, start)
-    ms = kernel_ms(torch, lambda: ck.grid_pair_forces(
-        *args, m, radius, stiffness, cap), CONTACT_REPS, [C2_KERNEL])
+    cell_s, order, runs, start, m, offs = grid_inputs(torch, pos, radius)
+    args = (pos, None, None, body, cell_s, order)
+
+    def warp():
+        return ck.grid_pair_forces(*args, runs, m, radius, stiffness, cap)
+
+    soup_ms = kernel_ms(torch, warp, CONTACT_REPS, C2_KERNELS["warp"][:1])
+    warp_ms = kernel_ms(torch, warp, CONTACT_REPS, C2_KERNELS["warp"][1:])
+    plan = ck.grid_pair_forces.last_plan
+    ms = soup_ms + warp_ms
+    thread_ms = kernel_ms(torch, lambda: ck.grid_pair_forces(
+        *args, runs, m, radius, stiffness, cap, variant="thread"),
+        CONTACT_REPS, C2_KERNELS["thread"])
     plain_ms = cuda_ms(torch, lambda: ck.grid_pair_forces_plain(
-        *args, offs, radius, stiffness, cap), 5)
+        *args, start, offs, radius, stiffness, cap), 5)
+    pass_ms = library_device_ms(torch, lambda: bp.grid_contact_forces(
+        pos, body, None, radius, stiffness, cap=cap), CONTACT_REPS)
     bnd, by = bound(nbytes(pos, body, cell_s, order, start) + nbytes(pos),
                     found * C2_OPS[d])
     row = dict(name="contact_grid", route="cuda",
@@ -5505,10 +5589,16 @@ def c2_row(torch, card, d, pos, body, radius, stiffness, cap, launches, err,
                replaces="fem_tpu/broadphase.py:82 (XLA, no pallas_call)",
                dim=d, launches=launches, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+               variant=plan.variant, ctas=plan.ctas, soup_ms=soup_ms,
+               warp_kernel_ms=warp_ms, thread_ms=thread_ms, pass_ms=pass_ms,
                shapes=label, pairs_found=found, **(extra or {}))
-    log(f"[time] {d}D contact_grid ({label}): {ms:.5f} ms a launch on the "
-        f"device (profiler); plain {plain_ms:.4f} ms; bound {bnd:.6f} ms "
-        f"({by}, {found} pairs found); launches {launches}; card {card}")
+    log(f"[time] {d}D contact_grid ({label}): warp variant {ms:.5f} ms a "
+        f"call on the device (profiler; soup gather {soup_ms:.5f}, warp "
+        f"kernel {warp_ms:.5f}, {plan.ctas} CTAs); thread variant "
+        f"{thread_ms:.5f} ms; the whole grid pass (cell ids, sort, run "
+        f"table, C2) {pass_ms:.5f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{bnd:.6f} ms ({by}, {found} pairs found); launches {launches}; "
+        f"card {card}")
     return row
 
 
@@ -5915,7 +6005,9 @@ def run_contact(torch, dev, zero_counts, counts, only, card):
                                        "bound_ms_whole_chain")},
                 c2={k: r2[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "pairs_found",
-                                       "max_abs_err")},
+                                       "max_abs_err", "ctas", "soup_ms",
+                                       "warp_kernel_ms", "thread_ms",
+                                       "pass_ms")},
                 overflow=overflow, c1_c2_gap=gap, c1_f64_err=e1,
                 c2_f64_err=e2)
         # C2 on a 3D path: two grid cubes (5 subdivisions, side 0.2) in the
@@ -5954,11 +6046,33 @@ def run_contact(torch, dev, zero_counts, counts, only, card):
         err_c2_3d, _, cfound = check_c2(torch, "3D grid cubes", cpos, cvel,
                                         cplan.rest_cat, cplan.body_id, crad,
                                         ck3, cplan.cap)
+        # The grid cubes' device ms a substep, with contact (the coupled
+        # frame: the soup, the grid pass, the scatter and each body's
+        # substep) and without (each body's substep alone).
+        kw_c = sim.substep_kwargs(cube_cfg)
+
+        def cubes_with():
+            cframe(cstates, cobs)
+
+        def cubes_without():
+            ss = cstates
+            for _ in range(cube_cfg.sim_count):
+                ss = tuple(sim.substep(o, st, cobs, **kw_c)[0]
+                           for (o, _), st in zip(cubes, ss))
+
+        cube_with, _ = window_ms(torch, cubes_with, cube_cfg.sim_count)
+        cube_without, _ = window_ms(torch, cubes_without, cube_cfg.sim_count)
+        zero_counts()
+        log(f"[path AR grid] the grid cubes' device ms a substep: with "
+            f"contact {cube_with:.4f}, without {cube_without:.4f}; contact "
+            f"{cube_with - cube_without:.4f}; card {card}")
         rows.append(c2_row(torch, card, 3, cpos, cplan.body_id, crad, ck3,
                            cplan.cap, FRAMES_GRID * 10, err_c2_3d, cfound,
                            f"two grid cubes {cplan.sizes}",
                            dict(shells={ns: v["c2"] for ns, v in
-                                        line["AR"].items()})))
+                                        line["AR"].items()},
+                                substep_device_ms_with_contact=cube_with,
+                                substep_device_ms_without=cube_without)))
         for r in rows:
             if r["name"] == "contact_pairs" and r["shapes"].startswith("AP"):
                 r["shells"] = {ns: v["c1"] for ns, v in line["AR"].items()}
@@ -6061,13 +6175,14 @@ def launch_counters():
         edge_cg.cg_solve_edge.variant_launches = {}
         jacobi_kernels.jacobi_serial.variant_launches = {}
         contact_kernels.pair_forces.variant_launches = {}
+        contact_kernels.grid_pair_forces.variant_launches = {}
 
     def counts():
         """The launch counts since the last zero_counts(); K5's, K8's, K4's,
         K3's, K2's, K7b's, K7a's and K11a's launches on a path are all of
         their cluster variants (each mesh of the paths fits one cluster),
-        logged by (variant, CTAs); so are C1's, and J1's launches are
-        logged by variant."""
+        logged by (variant, CTAs); so are C1's; C2's are all of its warp
+        variant, and J1's launches are logged by variant."""
         for name, fn, other in (
                 ("K5", frame_kernels.fused_blocked_frame, "grid"),
                 ("K8", frame_kernels.fused_explicit_frame, "grid"),
@@ -6087,6 +6202,11 @@ def launch_counters():
             log(f"[C1 variant] launches by (variant, CTAs): {by}")
             require(all(v == "cluster" for v, _ in by),
                     f"C1 ran the rows variant on a path: {by}")
+        by = contact_kernels.grid_pair_forces.variant_launches
+        if by:
+            log(f"[C2 variant] launches by variant: {by}")
+            require(set(by) == {"warp"},
+                    f"C2 ran the thread variant on a path: {by}")
         if jacobi_kernels.jacobi_serial.variant_launches:
             log(f"[J1 variant] launches by variant: "
                 f"{jacobi_kernels.jacobi_serial.variant_launches}")

@@ -10,10 +10,13 @@ margin cell each side, rebuilt every substep:
 2. a STABLE sort of the ids (``torch.argsort(stable=True)``, as
    ``jnp.argsort`` is stable: truncation at ``cap`` depends on the order
    within a cell);
-3. each sorted vertex's start in each of the (3^d − 1)/2 forward
-   neighbour cells (``torch.searchsorted``, side left, as
-   ``jnp.searchsorted``), the neighbours found by LINEARIZED id offsets,
-   wrap-around at the margin included, as in the JAX package;
+3. each sorted vertex's run table (``ops/contact_kernels.grid_runs``:
+   one ``torch.searchsorted``, side left, as ``jnp.searchsorted``): the
+   first rank of every cell of its 3^d neighbourhood and the rank past
+   each row of three, the neighbours found by LINEARIZED id offsets,
+   wrap-around at the margin included, as in the JAX package; its forward
+   cells' columns are the JAX package's starts in the (3^d − 1)/2 forward
+   neighbour cells;
 4. the narrow phase, C2 (``ops/contact_kernels.grid_pair_forces``): the
    forward stencil's pairs, +f on the finder and −f on the candidate.
 
@@ -33,10 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from fem_tpu_torch.ops.contact_kernels import (
-    forward_offsets_host,
-    grid_pair_forces,
-)
+from fem_tpu_torch.ops.contact_kernels import grid_pair_forces, grid_runs
 
 
 def grid_shape(radius: float, dim: int) -> Tuple[int, int]:
@@ -52,14 +52,11 @@ def grid_shape(radius: float, dim: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=16)
-def _grid_tables(m: int, d: int, device: torch.device):
-    """(strides (d,), forward offsets) as int32 tensors on ``device``, made
-    once a grid."""
-    strides = torch.tensor([m ** k for k in range(d - 1, -1, -1)],
-                           dtype=torch.int32, device=device)
-    offs = torch.tensor(forward_offsets_host(m, d), dtype=torch.int32,
-                        device=device)
-    return strides, offs
+def _grid_strides(m: int, d: int, device: torch.device) -> torch.Tensor:
+    """The linearized id's strides (d,) as an int32 tensor on ``device``,
+    made once a grid."""
+    return torch.tensor([m ** k for k in range(d - 1, -1, -1)],
+                        dtype=torch.int32, device=device)
 
 
 def grid_cells(pos: torch.Tensor, radius: float):
@@ -67,7 +64,7 @@ def grid_cells(pos: torch.Tensor, radius: float):
     cell, linearized."""
     d = pos.shape[1]
     m, _ = grid_shape(radius, d)
-    strides, _ = _grid_tables(m, d, pos.device)
+    strides = _grid_strides(m, d, pos.device)
     ic = torch.clamp(torch.floor(pos * (1.0 / radius)).to(torch.int32) + 1,
                      0, m - 1)
     return torch.sum(ic * strides, dim=1, dtype=torch.int32), m
@@ -98,13 +95,10 @@ def grid_contact_forces(
     cell, m = grid_cells(pos, radius)
     order = torch.argsort(cell, stable=True)
     cell_s = cell[order]
-    _, offs = _grid_tables(m, d, pos.device)
-    start = torch.searchsorted(cell_s, cell_s[:, None] + offs[None, :],
-                               out_int32=True)
     return grid_pair_forces(
         pos, vel, rest_pos if self_contact else None, body_id, cell_s,
-        order, start, m, radius, stiffness, cap, friction_c, mu, mu_slope,
-        self_contact, excl_radius)
+        order, grid_runs(cell_s, m, d), m, radius, stiffness, cap,
+        friction_c, mu, mu_slope, self_contact, excl_radius)
 
 
 def grid_overflow_count(pos: np.ndarray, radius: float, cap: int) -> int:

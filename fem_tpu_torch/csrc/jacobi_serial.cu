@@ -41,8 +41,8 @@
 //
 // Two variants, one library (ops/jacobi_kernels.py: jacobi_plan picks).
 //
-// The serial variant (jacobi_serial_kernel, the dense rows and any sparse
-// rows whose level tables do not fit): one CTA of kThreads.  x, b, past
+// The serial variant (jacobi_serial_kernel, the dense rows with no pattern
+// and any rows whose level tables do not fit): one CTA of kThreads.  x, b, past
 // and the diagonal A_ii[k,k] live in shared memory (4 N D floats: the
 // flagship's 48 KB; opted in past 48 KB, up to a CTA's 227 KB).  Warp 0
 // runs the sweep: lane l holds the row's slots l, l + 32, ... (S of them,
@@ -54,7 +54,8 @@
 // a row (dense), then the fixed-order reduction.  Measured on the H100: the
 // chain of N dependent rows binds, ~0.3-0.4 us a row.
 //
-// The level variant (jacobi_levels_kernel, the sparse rows): the sweep
+// The level variant (jacobi_levels_kernel: the sparse rows, and the dense
+// rows with the table of their structural pattern): the sweep
 // follows the host's level schedule (level_plan: level(i) = 1 + the
 // largest level of the j < i with j in nb[i] or i in nb[j]), so the rows of
 // one level share no entry, every lower neighbour of a row is done before
@@ -81,6 +82,18 @@
 // costs ~0.8 us on the flagship, about twice a serial row, as ~14 warps
 // run their rows at once on the one SM; the error pass ~20 us, the
 // flagship's rows read through that SM.
+//
+// The dense rows on the level schedule (DenseLevelRows): the dense
+// backend assembles A from the sparse rows (solvers/dense.py), so every
+// nonzero block lies in the Jacobi table (or is a lone particle's
+// identity block, on the diagonal).  A dense row reads every column, but
+// a level's rows differ from the serial sweep's reads only in columns
+// where A is a structural zero, and for a finite x a zero times either
+// value adds a zero: each lane keeps the serial variant's columns in its
+// order and the butterfly its sums, so x, past, the iterations and the
+// error are the serial variant's (a zero's sign aside, when a whole
+// product is zero).  The error pass is the serial variant's dense one, its
+// residuals spread over the CTA first.
 
 #include <cuda_runtime.h>
 
@@ -419,45 +432,41 @@ __global__ void __launch_bounds__(kThreads) jacobi_serial_kernel(
 // One level-scheduled sweep, in place on x; every thread of the CTA takes
 // part (one barrier a level).  Returns the levels it ran.  With
 // `a.clocks`, adds warp 0's clocks at its rows (`work`) and at the level
-// barriers (`wait`).
-template <int D, int S>
+// barriers (`wait`).  `Rows` is the row source (SparseLevelRows,
+// DenseLevelRows): a row's operands in registers and this lane's part of
+// its product.
+template <int D, class Rows>
 __device__ int level_sweep(const JacobiArgs& a, const int* nbs,
                            const float* rows, const int* order,
                            const int* next_row, const int* first_row,
                            const int* ls, float* x, const float* bs,
                            const float* past, const float* dg,
                            long long& work, long long& wait) {
-  using Src = Sparse<D, S>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float cur[S][D * D], nxt[S][D * D];
-  int cur_nb[S], nxt_nb[S];
+  typename Rows::Regs cur, nxt;
   // The warp's rows: positions first_row[warp], next_row[...], ... of the
   // order (the level's rows warp, warp + 32, ..., then a later level's).
-  // Each row's slots are loaded into nxt a row ahead and moved into cur
+  // Each row's operands are loaded into nxt a row ahead and moved into cur
   // only when that row starts, so the loads of a warp's next row stay in
   // flight across the level barriers between.
   int p = first_row[warp];
-  if (p >= 0) Src::load(nbs, rows, a.n, a.max_nb, order[p], lane, nxt, nxt_nb);
+  if (p >= 0) Rows::load(a, nbs, rows, order[p], lane, nxt);
   int ran = 0;
   for (int l = 0; l < a.levels; ++l, ++ran) {
     const int end = ls[l + 1];
     const long long t0 = a.clocks != nullptr ? clock64() : 0;
     while (p >= 0 && p < end) {
       const int i = order[p];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        cur_nb[s] = nxt_nb[s];
-#pragma unroll
-        for (int e = 0; e < D * D; ++e) cur[s][e] = nxt[s][e];
-      }
+      cur = nxt;
       const int q = next_row[p];
-      if (q >= 0)
-        Src::load(nbs, rows, a.n, a.max_nb, order[q], lane, nxt, nxt_nb);
+      if (q >= 0) Rows::load(a, nbs, rows, order[q], lane, nxt);
       float acc[D];
-      Src::lane_product(cur, cur_nb, x, acc);
+      Rows::lane_product(a, rows, i, lane, cur, x, acc);
       const float ax = warp_sums_to_lane<D>(acc, lane);
       // Lane k < D writes x_ik.  Every lane's reads of x feed ax, so they
-      // are done; no row of this level reads x_i.
+      // are done; no row of this level reads x_i (a dense row reads it
+      // through a structural zero of A, where either value gives the same
+      // product).
       if (lane < D) {
         const int r = D * i + lane;
         x[r] = update(bs[r], ax, dg[r], x[r], past[r], a.omega);
@@ -505,7 +514,139 @@ __device__ float level_error(const JacobiArgs& a, const int* nbs,
   return *shared_err;
 }
 
+// The level variant's sparse rows: a row's S slots a lane in registers
+// (the serial variant's Sparse<D, S> split) and the error pass above.
 template <int D, int S>
+struct SparseLevelRows {
+  struct Regs {
+    float blk[S][D * D];
+    int nb[S];
+  };
+
+  static __device__ __forceinline__ void load(const JacobiArgs& a,
+                                              const int* nbs,
+                                              const float* rows, int i,
+                                              int lane, Regs& r) {
+    Sparse<D, S>::load(nbs, rows, a.n, a.max_nb, i, lane, r.blk, r.nb);
+  }
+
+  static __device__ __forceinline__ void lane_product(const JacobiArgs&,
+                                                      const float*, int, int,
+                                                      const Regs& r,
+                                                      const float* x,
+                                                      float (&acc)[D]) {
+    Sparse<D, S>::lane_product(r.blk, r.nb, x, acc);
+  }
+
+  static __device__ float diag(const JacobiArgs& a, int r) {
+    return Sparse<D, S>::diag(a, r);
+  }
+
+  static __device__ float error(const JacobiArgs& a, const int* nbs,
+                                const float* rows, const float* x,
+                                const float* bs, float* res, float* red,
+                                float* shared_err) {
+    return level_error<D, S>(a, nbs, rows, x, bs, res, red, shared_err);
+  }
+};
+
+// The level variant's dense rows (a_dense, N D by N D): the serial
+// variant's Dense<D> split, lane l taking the columns l, l + 32, ... of
+// each of the row's D components in that order, the first kHeld of them
+// held in registers a row ahead (default.json's 242 columns: all 8) and
+// the rest read when the row runs.  Exact wherever A's nonzero blocks lie
+// in the level plan's table (the host's pattern): a row reads every
+// column, and the others are structural zeros, read while other warps of
+// the level may write their x.  For a finite x either value's product is
+// a zero and the sums keep their bits; an inf or a NaN in x makes that
+// product a NaN or a zero by the timing, so a diverging solve is not
+// reproducible here (ops/jacobi_kernels.jacobi_plan).  The rows stay in
+// L2 (a CTA's shared memory cannot hold default.json's 234 KB).
+template <int D>
+struct DenseLevelRows {
+  static constexpr int kHeld = D == 2 ? 8 : 4;
+  struct Regs {
+    float v[kHeld][D];
+  };
+
+  static __device__ __forceinline__ void load(const JacobiArgs& a,
+                                              const int*, const float* rows,
+                                              int i, int lane, Regs& r) {
+    const int nd = a.n * D;
+    const float* row = rows + static_cast<size_t>(D) * i * nd;
+#pragma unroll
+    for (int q = 0; q < kHeld; ++q) {
+      const int c = lane + 32 * q;
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        r.v[q][k] = c < nd ? row[static_cast<size_t>(k) * nd + c] : 0.0f;
+    }
+  }
+
+  static __device__ __forceinline__ void lane_product(const JacobiArgs& a,
+                                                      const float* rows,
+                                                      int i, int lane,
+                                                      const Regs& r,
+                                                      const float* x,
+                                                      float (&acc)[D]) {
+    const int nd = a.n * D;
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[k] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kHeld; ++q) {
+      const int c = lane + 32 * q;
+      if (c < nd) {
+        const float v = x[c];
+#pragma unroll
+        for (int k = 0; k < D; ++k) acc[k] = __fmaf_rn(r.v[q][k], v, acc[k]);
+      }
+    }
+    const float* row = rows + static_cast<size_t>(D) * i * nd;
+    for (int c = lane + 32 * kHeld; c < nd; c += 32) {
+      const float v = x[c];
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        acc[k] = __fmaf_rn(row[static_cast<size_t>(k) * nd + c], v, acc[k]);
+    }
+  }
+
+  static __device__ float diag(const JacobiArgs& a, int r) {
+    return Dense<D>::diag(a, r);
+  }
+
+  // |b - A x| in Dense<D>::residual's order: every warp of the CTA puts
+  // rows' residuals (a warp a row, its lanes' columns and the butterfly)
+  // into `res`, then warp 0's lane w < kWarps sums the squares of the rows
+  // r = w mod kWarps, as the serial variant's warp w does, and the
+  // butterfly adds the kWarps partials.
+  static __device__ float error(const JacobiArgs& a, const int*,
+                                const float* rows, const float* x,
+                                const float* bs, float* res, float*,
+                                float* shared_err) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nd = a.n * D;
+    for (int r = warp; r < nd; r += kLevelThreads / 32) {
+      const float* row = rows + static_cast<size_t>(r) * nd;
+      float acc = 0.0f;
+      for (int c = lane; c < nd; c += 32) acc = __fmaf_rn(row[c], x[c], acc);
+      acc = warp_sum(acc);
+      if (lane == 0) res[r] = __fsub_rn(bs[r], acc);
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      float part = 0.0f;
+      if (lane < kWarps)
+        for (int r = lane; r < nd; r += kWarps)
+          part = __fmaf_rn(res[r], res[r], part);
+      const float w = warp_sum(part);
+      if (lane == 0) *shared_err = __fsqrt_rn(w);
+    }
+    __syncthreads();
+    return *shared_err;
+  }
+};
+
+template <int D, class Rows>
 __global__ void __launch_bounds__(kLevelThreads) jacobi_levels_kernel(
     const __grid_constant__ JacobiArgs a) {
   extern __shared__ float smem[];
@@ -553,28 +694,28 @@ __global__ void __launch_bounds__(kLevelThreads) jacobi_levels_kernel(
     bs[r] = bv;
     x[r] = __fmul_rn(0.5f, bv);
     past[r] = a.past_in[r];
-    dg[r] = Sparse<D, S>::diag(a, r);
+    dg[r] = Rows::diag(a, r);
   }
   __syncthreads();
   if (timed) {
     c_init = clock64() - c_start;
     c_start = clock64();
   }
-  float err = level_error<D, S>(a, nbs, rows, x, bs, res, red, &shared_err);
+  float err = Rows::error(a, nbs, rows, x, bs, res, red, &shared_err);
   if (timed) c_err += clock64() - c_start;
   float p_err = err;
   int it = 0, levels = 0;
   bool done = false;
   while (!done && err > a.tol && it < a.max_iter) {
     if (timed) c_start = clock64();
-    levels += level_sweep<D, S>(a, nbs, rows, order, next_row, first_row,
+    levels += level_sweep<D, Rows>(a, nbs, rows, order, next_row, first_row,
                                 ls, x, bs, past, dg, c_work, c_wait);
     if (timed) {
       c_sweep += clock64() - c_start;
       c_start = clock64();
     }
     const float e1 =
-        level_error<D, S>(a, nbs, rows, x, bs, res, red, &shared_err);
+        Rows::error(a, nbs, rows, x, bs, res, red, &shared_err);
     if (timed) c_err += clock64() - c_start;
     const bool rollback = e1 >= p_err;
     for (int r = threadIdx.x; r < nd; r += kLevelThreads) {
@@ -621,11 +762,12 @@ Kernel pick(int dense, int slots) {
 }
 
 template <int D>
-Kernel pick_levels(int slots) {
+Kernel pick_levels(int dense, int slots) {
+  if (dense) return jacobi_levels_kernel<D, DenseLevelRows<D>>;
   switch (slots) {
-    case 1: return jacobi_levels_kernel<D, 1>;
-    case 2: return jacobi_levels_kernel<D, 2>;
-    case 4: return jacobi_levels_kernel<D, 4>;
+    case 1: return jacobi_levels_kernel<D, SparseLevelRows<D, 1>>;
+    case 2: return jacobi_levels_kernel<D, SparseLevelRows<D, 2>>;
+    case 4: return jacobi_levels_kernel<D, SparseLevelRows<D, 4>>;
     default: return nullptr;
   }
 }
@@ -672,17 +814,20 @@ extern "C" int fem_jacobi_serial(int dim, int dense, int slots,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The level variant over the sparse rows: `order` (n,), `next_row` (n,),
-// `first_row` (32,) and `level_start` (levels + 1,) int32 the host's level
-// schedule; `staged` 1 to stage the rows and the table in shared memory.
-// One CTA of kLevelThreads with 5 n dim floats and 2 n + levels + 33 ints
-// of dynamic shared memory (and the staged rows and table).  `levels_run`
-// (1,) int32 receives the levels the sweeps ran.  `clocks` (5,) int64, or null, receives the SM clocks of
-// thread 0 in the set-up, the error passes and the sweeps, and of warp 0
-// at its rows and at the level barriers (tools/torch_j1_probe.py).
-// cudaErrorInvalidValue for an instance or a size the kernel does not
-// take.
-extern "C" int fem_jacobi_levels(int dim, int slots, int staged,
+// The level variant: `dense` 0 for the block-sparse rows (`nb`, `rows`,
+// `slots` a lane as fem_jacobi_serial's), 1 for the dense rows (`rows`;
+// `nb`, `slots` and `max_nb` unused, nothing staged), whose nonzero blocks
+// must lie in the table the schedule was built from; `order` (n,),
+// `next_row` (n,), `first_row` (32,) and `level_start` (levels + 1,) int32
+// the host's level schedule; `staged` 1 to stage the sparse rows and the
+// table in shared memory.  One CTA of kLevelThreads with 5 n dim floats
+// and 2 n + levels + 33 ints of dynamic shared memory (and the staged rows
+// and table).  `levels_run` (1,) int32 receives the levels the sweeps ran.
+// `clocks` (5,) int64, or null, receives the SM clocks of thread 0 in the
+// set-up, the error passes and the sweeps, and of warp 0 at its rows and
+// at the level barriers (tools/torch_j1_probe.py).  cudaErrorInvalidValue
+// for an instance or a size the kernel does not take.
+extern "C" int fem_jacobi_levels(int dim, int dense, int slots, int staged,
                                  const void* nb, const void* rows,
                                  const void* b, const void* past,
                                  const void* order, const void* next_row,
@@ -693,11 +838,15 @@ extern "C" int fem_jacobi_levels(int dim, int slots, int staged,
                                  void* past_out, void* iterations,
                                  void* error, void* levels_run,
                                  void* clocks, void* stream) {
-  const Kernel k = dim == 3 ? pick_levels<3>(slots)
-                   : dim == 2 ? pick_levels<2>(slots)
+  const Kernel k = dim == 3 ? pick_levels<3>(dense, slots)
+                   : dim == 2 ? pick_levels<2>(dense, slots)
                               : nullptr;
-  if (k == nullptr || n < 1 || levels < 1 || max_nb < 1 ||
-      max_nb > 32 * slots)
+  if (dense) {
+    max_nb = 0;
+    if (staged) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k == nullptr || n < 1 || levels < 1 ||
+      (!dense && (max_nb < 1 || max_nb > 32 * slots)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t slots_n = static_cast<size_t>(n) * max_nb;
   size_t smem = sizeof(float) * 5 * static_cast<size_t>(n) * dim +

@@ -38,6 +38,15 @@ distance (:func:`d2_threshold`) before the root only where the exact test
 rejects it too; the rows variant, the first design, is kept for the checks
 that hold the cluster variant to it (the same accepted pairs, and with
 P = 1 the same bits).
+
+C2 has two variants (:func:`grid_plan`): the warp variant, on every path,
+gathers the soup into rank order and gives each sorted vertex a warp that
+hands its candidates (listed from the run table :func:`grid_runs`, no
+binary search) to the lanes 32 at a time, rejects a pair on d² as C1 does
+and adds the hits in candidate order; the thread variant, the first design,
+a thread a sorted vertex, is kept for the checks.  The two are
+bit-identical: every pair's terms are the same bits, summed in the same
+order.
 """
 
 from __future__ import annotations
@@ -335,6 +344,10 @@ def _library(name: str):
                 _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F,
                 _F, _F, _F, _I, _I, _I, _P, _P]
             lib.fem_contact_grid.restype = _I
+            lib.fem_contact_grid_warp.argtypes = [
+                _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F,
+                _F, _F, _F, _I, _I, _I, _P, _P]
+            lib.fem_contact_grid_warp.restype = _I
             lib.fem_contact_grid_error.argtypes = [_I]
             lib.fem_contact_grid_error.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -502,59 +515,168 @@ def grid_pair_forces_plain(pos, vel, rest, body, cell_s, order, start, offs,
     return out
 
 
+# csrc/contact_grid.cu's CTAs: the thread variant's kThreads, the warp
+# variant's kWarpThreads (a warp a sorted vertex).
+GRID_THREADS = 128
+GRID_WARP_THREADS = 64
+GRID_VARIANTS = ("warp", "thread")
+
+
+class GridPlan(NamedTuple):
+    """A launch of C2: ``ctas`` CTAs of ``threads`` (the warp variant's
+    after its soup gather)."""
+
+    variant: str
+    threads: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=64)
+def grid_plan(n: int, d: int, cap: int,
+              variant: Optional[str] = None) -> GridPlan:
+    """C2's launch for a soup of ``n`` vertices in ``d`` dimensions at cell
+    cap ``cap``: the warp variant (a warp a sorted vertex, CTAs of
+    ``GRID_WARP_THREADS``) unless ``variant="thread"`` asks for the first
+    design (a thread a sorted vertex, CTAs of ``GRID_THREADS``).  Raises
+    ``ValueError`` for no vertex, d ∉ {2, 3}, a cap below 1 or an unknown
+    variant.  Pure: no device is asked."""
+    if variant not in (None,) + GRID_VARIANTS:
+        raise ValueError(f"unknown C2 variant {variant!r}; one of "
+                         f"{GRID_VARIANTS}")
+    if n < 1:
+        raise ValueError(f"C2 needs a vertex, got {n}")
+    if d not in (2, 3):
+        raise ValueError(f"C2 takes dim 2 or 3, not {d}")
+    if cap < 1:
+        raise ValueError(f"C2 needs a cell cap of at least 1, not {cap}")
+    if variant == "thread":
+        return GridPlan("thread", GRID_THREADS, -(-n // GRID_THREADS))
+    per_cta = GRID_WARP_THREADS // 32
+    return GridPlan("warp", GRID_WARP_THREADS, -(-n // per_cta))
+
+
+@functools.lru_cache(maxsize=16)
+def run_deltas_host(m: int, d: int) -> Tuple[int, ...]:
+    """The run table's queries, as cell id deltas: for each row of the
+    3^d neighbourhood (the cells that differ in the last axis only, the
+    rows in the order of {−1, 0, 1}^(d−1), the last fastest) the deltas
+    of its three cells and of the cell past them, base − 1, base, base + 1
+    and base + 2.  So neighbourhood cell c (its index in {−1, 0, 1}^d)
+    starts at column ``c + c // 3`` and ends at the next."""
+    rows = np.array(np.meshgrid(*([[-1, 0, 1]] * (d - 1)), indexing="ij")
+                    ).reshape(d - 1, -1).T
+    bases = rows @ np.array([int(m ** k) for k in range(d - 1, 0, -1)])
+    return tuple(int(b) + k - 1 for b in bases for k in range(4))
+
+
+def run_column(cell: int) -> int:
+    """The run table's column of the first rank of neighbourhood cell
+    ``cell`` (csrc/contact_grid.cu's run_col); its end is the next."""
+    return cell + cell // 3
+
+
+def forward_columns(d: int) -> Tuple[int, ...]:
+    """The run table's columns of the forward cells' first ranks, in
+    :func:`forward_offsets_host`'s order (the neighbourhood's indices past
+    its centre)."""
+    centre = (3 ** d - 1) // 2
+    return tuple(run_column(centre + 1 + o) for o in range(centre))
+
+
+def grid_runs(cell_s: torch.Tensor, m: int, d: int) -> torch.Tensor:
+    """The run table (ns, 4·3^(d−1)) int32 of the sorted cell ids
+    ``cell_s``: each rank's first rank of every cell of its 3^d
+    neighbourhood and the rank past each row of three
+    (:func:`run_deltas_host`), by one ``torch.searchsorted`` (side left,
+    as the forward starts).  Its forward cells' columns are those starts
+    (:func:`forward_columns`)."""
+    deltas = torch.tensor(run_deltas_host(m, d), dtype=cell_s.dtype,
+                          device=cell_s.device)
+    return torch.searchsorted(cell_s, cell_s[:, None] + deltas[None, :],
+                              out_int32=True)
+
+
 def grid_pair_forces(pos: torch.Tensor, vel: Optional[torch.Tensor],
                      rest: Optional[torch.Tensor], body: torch.Tensor,
                      cell_s: torch.Tensor, order: torch.Tensor,
-                     start: torch.Tensor, m: int, radius: float,
+                     runs: torch.Tensor, m: int, radius: float,
                      stiffness: float, cap: int, friction_c: float = 0.0,
                      mu: float = 0.0, mu_slope: float = 0.0,
                      self_contact: bool = False,
-                     excl: Optional[float] = None) -> torch.Tensor:
+                     excl: Optional[float] = None,
+                     variant: Optional[str] = None) -> torch.Tensor:
     """The grid narrow phase: penalty forces (ns, d) in the input order of
     ``pos``, given the sorted cell ids ``cell_s`` (int32), the stable sort
-    ``order`` (int64) and each sorted vertex's ``start`` (ns, (3^d − 1)/2)
-    int32 in each forward neighbour cell (``torch.searchsorted``, left)
-    over a grid of ``m`` cells an axis.  Every pair the JAX package's
-    forward stencil finds, truncation at ``cap`` included, gets its force,
-    +f on the finder and −f on the candidate.
+    ``order`` (int64) and each sorted vertex's run table ``runs``
+    (:func:`grid_runs`, int32) over a grid of ``m`` cells an axis.  Every
+    pair the JAX package's forward stencil finds, truncation at ``cap``
+    included, gets its force, +f on the finder and −f on the candidate.
 
-    CUDA tensors: one launch of C2 (a thread a sorted vertex; it sums +f
-    over the candidates it finds and, for the −f half, over the vertices
-    whose stencil finds it, in a fixed order).  CPU tensors:
-    :func:`grid_pair_forces_plain`."""
+    CUDA tensors: one call of C2 on :func:`grid_plan`'s plan, left in
+    ``grid_pair_forces.last_plan``: the warp variant (the soup gathered in
+    rank order, a warp a sorted vertex over its candidates from ``runs``)
+    or, with ``variant="thread"``, the first design (a thread a sorted
+    vertex, its forward starts read from ``runs``, its backward runs found
+    by binary search over ``cell_s``); both sum each vertex's +f over the
+    candidates it finds and, for the −f half, over the vertices whose
+    stencil finds it, in the same fixed order, so their outputs are
+    bit-identical.  ``grid_pair_forces.variant_launches`` counts the calls
+    by variant.  CPU tensors: :func:`grid_pair_forces_plain` over the
+    forward starts, the table's :func:`forward_columns`."""
     d = pos.shape[1]
-    offs_host = forward_offsets_host(m, d)
     excl = 2.5 * radius if excl is None else excl
     if pos.device.type == "cpu":
-        offs = torch.tensor(offs_host, dtype=cell_s.dtype)
+        grid_plan(pos.shape[0], d, cap, variant)  # refuses as on CUDA
+        offs = torch.tensor(forward_offsets_host(m, d), dtype=cell_s.dtype)
         return grid_pair_forces_plain(
-            pos, vel, rest, body, cell_s, order, start, offs, radius,
-            stiffness, cap, friction_c, mu, mu_slope, self_contact, excl)
+            pos, vel, rest, body, cell_s, order,
+            runs[:, list(forward_columns(d))], offs, radius, stiffness, cap,
+            friction_c, mu, mu_slope, self_contact, excl)
     n, d, dev = _check_soup(pos, vel)
-    n_off = len(offs_host)
+    plan = grid_plan(n, d, cap, variant)
     cuda_build.check_operand("body", body, (n,), torch.int32, dev)
-    cuda_build.check_operand("cell_s", cell_s, (n,), torch.int32, dev)
     cuda_build.check_operand("order", order, (n,), torch.int64, dev)
-    cuda_build.check_operand("start", start, (n, n_off), torch.int32, dev)
+    cuda_build.check_operand("runs", runs, (n, 4 * 3 ** (d - 1)),
+                             torch.int32, dev)
     if self_contact:
         cuda_build.check_operand("rest", rest, (n, d), torch.float32, dev)
-    if cap < 1:
-        raise ValueError(f"C2 needs a cell cap of at least 1, not {cap}")
     out = torch.empty_like(pos)
     with_vel = vel is not None
+    friction = int(with_vel and friction_c > 0.0)
+    coulomb = int(with_vel and mu > 0.0)
     lib = _library("contact_grid")
-    rc = cuda_build.launch_on_stream(
-        dev, dev.index, lib.fem_contact_grid, d, n, m, cap, pos.data_ptr(),
-        _pointer(vel), _pointer(rest) if self_contact else None,
-        body.data_ptr(), cell_s.data_ptr(), order.data_ptr(),
-        start.data_ptr(), radius, stiffness, 0.1 * radius, friction_c, mu,
-        mu_slope, excl * excl, int(with_vel and friction_c > 0.0),
-        int(with_vel and mu > 0.0), int(self_contact), out.data_ptr())
+    if plan.variant == "warp":
+        # The soup's row blocks: positions, then velocities and rest
+        # positions where a term reads them (csrc/contact_grid.cu).
+        blocks = 1 + int(friction or coulomb) + int(self_contact)
+        soup = torch.empty((blocks * n, 4), dtype=torch.float32, device=dev)
+        rc = cuda_build.launch_on_stream(
+            dev, dev.index, lib.fem_contact_grid_warp, d, n, cap,
+            pos.data_ptr(), _pointer(vel),
+            _pointer(rest) if self_contact else None, body.data_ptr(),
+            order.data_ptr(), runs.data_ptr(), soup.data_ptr(), radius,
+            stiffness, 0.1 * radius, friction_c, mu, mu_slope, excl * excl,
+            d2_threshold(radius), friction, coulomb, int(self_contact),
+            out.data_ptr())
+    else:
+        cuda_build.check_operand("cell_s", cell_s, (n,), torch.int32, dev)
+        rc = cuda_build.launch_on_stream(
+            dev, dev.index, lib.fem_contact_grid, d, n, m, cap,
+            pos.data_ptr(), _pointer(vel),
+            _pointer(rest) if self_contact else None, body.data_ptr(),
+            cell_s.data_ptr(), order.data_ptr(), runs.data_ptr(), radius,
+            stiffness, 0.1 * radius, friction_c, mu, mu_slope, excl * excl,
+            friction, coulomb, int(self_contact), out.data_ptr())
     if rc != 0:
         raise RuntimeError("C2 kernel launch failed: "
                            f"{lib.fem_contact_grid_error(rc).decode()}")
     grid_pair_forces.launches += 1
+    grid_pair_forces.variant_launches[plan.variant] = (
+        grid_pair_forces.variant_launches.get(plan.variant, 0) + 1)
+    grid_pair_forces.last_plan = plan
     return out
 
 
 grid_pair_forces.launches = 0
+grid_pair_forces.variant_launches = {}  # calls by variant
+grid_pair_forces.last_plan = None

@@ -14,15 +14,23 @@ block-sparse rows ``(nb_ids (N, max_nb), blocks (N, max_nb, d, d))`` of
 (N·d, N·d) of ``solvers/dense.assemble_dense_system``.  Two variants, the
 choice :func:`jacobi_plan`'s:
 
-* ``"levels"`` (the sparse rows): the sweep follows :func:`level_plan`'s
-  level schedule — the rows whose lower neighbours are all done run
-  together, a warp a row, one CTA barrier a level — and reads exactly the
-  x values the serial sweep reads, so its outputs are bit-identical to the
-  serial variant's (the flagship: 70 dependent levels a sweep, not 1,007
-  rows);
-* ``"serial"`` (the dense rows, and the sparse rows whose level tables
-  would not fit beside x in one CTA): the sweep on one warp, one row after
-  another.
+* ``"levels"`` (the sparse rows, and the dense rows given their
+  structural pattern): the sweep follows :func:`level_plan`'s level
+  schedule — the rows whose lower neighbours are all done run together,
+  a warp a row, one CTA barrier a level — and reads the x values the
+  serial sweep reads, so its outputs are bit-identical to the serial
+  variant's (the flagship: 70 dependent levels a sweep, not 1,007 rows).
+  A dense row reads every column, so over the dense rows the schedule
+  relies on the pattern: every nonzero block of A lies in it (row i's
+  blocks in the columns ``pattern[i]``), besides the diagonal block of a
+  particle that belongs to no element, which the row reads as the serial
+  sweep does.  The other columns are structural zeros, where the old and
+  the new x_j give the same zero (x finite; a zero's sign aside).
+  ``solvers/dense`` builds A from exactly those rows and passes its
+  Jacobi table;
+* ``"serial"`` (the dense rows with no pattern, and the rows whose level
+  tables would not fit beside x in one CTA): the sweep on one warp, one
+  row after another.
 
 For tensors on the CPU it runs its plain PyTorch version,
 ``jacobi_serial_plain``: the JAX scan's row loop inside the outer loop,
@@ -242,18 +250,26 @@ def level_plan(nb_ids) -> LevelPlan:
 
 def jacobi_levels_plain(rows, b, past_x, nb_ids, omega: float = OMEGA,
                         tol: float = TOL, max_iter: int = MAX_ITER,
-                        plan: Optional[LevelPlan] = None) -> JacobiResult:
-    """The serial sweep over the sparse rows run level by level
-    (:func:`level_plan`, or ``plan``), in plain PyTorch inside
-    :func:`jacobi_outer_loop`: one batched gather of x, one batched product
-    b − R·x, + A_ii[k,k]·x_i and one update a level.  It shows on the CPU
-    that the level schedule keeps the serial semantics; its sums are
-    batched, so it agrees with :func:`jacobi_serial_plain` to rounding."""
-    if nb_ids is None:
+                        plan: Optional[LevelPlan] = None,
+                        pattern=None) -> JacobiResult:
+    """The serial sweep run level by level (:func:`level_plan`, or
+    ``plan``), in plain PyTorch inside :func:`jacobi_outer_loop`: over the
+    sparse rows of ``nb_ids``, or with ``nb_ids`` None over the dense rows
+    ``rows`` (N·d, N·d) on the schedule of their structural ``pattern``
+    (module docstring).  A level is one batched product b − R·x (over the
+    gathered x, or every column), + A_ii[k,k]·x_i and one update.  It shows
+    on the CPU that the level schedule keeps the serial semantics; its sums
+    are batched, so it agrees with :func:`jacobi_serial_plain` to
+    rounding."""
+    if nb_ids is None and pattern is None:
         raise ValueError("the level schedule takes the sparse rows "
-                         "(nb_ids), not the dense rows")
+                         "(nb_ids), or the dense rows with their pattern")
+    if nb_ids is not None and pattern is not None:
+        raise ValueError("a pattern goes with the dense rows, not with "
+                         "nb_ids")
     n, d = b.shape
-    plan = level_plan(nb_ids) if plan is None else plan
+    plan = level_plan(pattern if nb_ids is None else nb_ids) \
+        if plan is None else plan
     r_mat, cols = _row_matrices(rows, nb_ids, n, d)
     diag = _diagonal_of(rows, nb_ids, n, d)
     safe = diag.abs() >= 1e-6
@@ -263,25 +279,33 @@ def jacobi_levels_plain(rows, b, past_x, nb_ids, omega: float = OMEGA,
     for lo, hi in zip(plan.level_start[:-1].tolist(),
                       plan.level_start[1:].tolist()):
         r = order[lo:hi]
-        per_level.append((r, r_mat[r], cols[r], b[r], diag[r],
-                          safe_diag[r], safe[r]))
+        per_level.append((r, r_mat[r], None if cols is None else cols[r],
+                          b[r], diag[r], safe_diag[r], safe[r]))
 
     def once(x, past):
         x = x.clone()
         xf = x.reshape(-1)
         rest = (1.0 - omega) * past
         for r, r_r, c_r, b_r, dg_r, sd_r, sf_r in per_level:
-            num = b_r - torch.bmm(r_r, xf[c_r].unsqueeze(-1)).squeeze(-1)
-            num = torch.addcmul(num, dg_r, x[r])
+            if c_r is None:
+                prod = torch.matmul(r_r, xf)
+            else:
+                prod = torch.bmm(r_r, xf[c_r].unsqueeze(-1)).squeeze(-1)
+            num = torch.addcmul(b_r - prod, dg_r, x[r])
             new = torch.addcdiv(rest[r], num, sd_r, value=omega)
             x[r] = torch.where(sf_r, new, 0.0)
         return x
 
-    nb = nb_ids.long().clamp(min=0)
+    if nb_ids is None:
+        def error(x):
+            res = b.reshape(-1) - rows @ x.reshape(-1)
+            return torch.sqrt(torch.sum(res * res))
+    else:
+        nb = nb_ids.long().clamp(min=0)
 
-    def error(x):
-        res = b - torch.einsum("nkij,nkj->ni", rows, x[nb])
-        return torch.sqrt(torch.sum(res * res))
+        def error(x):
+            res = b - torch.einsum("nkij,nkj->ni", rows, x[nb])
+            return torch.sqrt(torch.sum(res * res))
 
     return jacobi_outer_loop(once, error, b, past_x, tol, max_iter)
 
@@ -338,30 +362,40 @@ def jacobi_plan(n: int, d: int, max_nb: Optional[int],
                 variant: Optional[str] = None) -> JacobiPlan:
     """J1's launch for ``n`` particles in ``d`` dimensions over the sparse
     rows of ``max_nb`` slots and ``levels`` levels (:func:`level_plan`), or
-    with ``max_nb`` None over the dense rows.
+    with ``max_nb`` None over the dense rows, on the schedule of their
+    pattern's ``levels`` levels where it is given.
 
-    The level variant takes the sparse rows whenever x, b, past, the
-    diagonal, the residual (5·N·d floats) and the level tables (the order,
-    the next rows, the first rows and the level starts: 2·N + L + 33 ints)
-    fit one CTA's shared memory, its rows staged there too
-    where they also fit (``default.json``'s 13.5 KB; the flagship's 1.05 MB
-    are read from L2).  The dense rows stay serial: a dense row reads every
-    column, so a level schedule over it would be exact only through A's
-    structural zeros, which the kernel cannot see.  The serial variant also
-    takes the sparse rows whose level tables do not fit.  ``variant``
-    forces one ("serial" or "levels"); a variant that cannot run raises
-    ``ValueError``, as does anything :func:`serial_plan` refuses.  Pure: no
-    device is asked."""
+    The level variant takes the rows whenever x, b, past, the diagonal,
+    the residual (5·N·d floats) and the level tables (the order, the next
+    rows, the first rows and the level starts: 2·N + L + 33 ints) fit one
+    CTA's shared memory, the sparse rows staged there too where they also
+    fit (``default.json``'s 13.5 KB; the flagship's 1.05 MB are read from
+    L2); the dense rows are read from L2 (``default.json``'s 234 KB pass a
+    CTA's 227 KB).  The dense rows with no level count (no pattern) stay
+    serial: a dense row reads every column, so its schedule is exact only
+    through A's structural zeros, which only the pattern shows.  Over the
+    dense rows a warp's product reads every x_j while other warps of its
+    level write theirs; that gives the serial bits only because those
+    columns are zeros and 0·x_j is a zero for a finite x_j.  Once x holds
+    an inf or a NaN, 0·x_j is a NaN or a zero depending on the timing, so
+    a solve that diverges runs nondeterministically there and may part
+    from the serial variant and the JAX package.  The serial variant also
+    takes the rows whose level tables do not fit.
+    ``variant`` forces one ("serial" or "levels"); a variant that cannot
+    run raises ``ValueError``, as does anything :func:`serial_plan`
+    refuses.  Pure: no device is asked."""
     if variant not in (None,) + VARIANTS:
         raise ValueError(f"unknown J1 variant {variant!r}; one of "
                          f"{VARIANTS}")
     base = serial_plan(n, d, max_nb)
     if variant == "serial":
         return base
-    if max_nb is None:
+    dense = max_nb is None
+    if dense and levels is None:
         if variant == "levels":
-            raise ValueError("J1's level variant takes the sparse rows; the "
-                             "dense rows run the serial variant")
+            raise ValueError("J1's level variant takes the sparse rows, or "
+                             "the dense rows with their pattern; the dense "
+                             "rows alone run the serial variant")
         return base
     if levels is None or levels < 1:
         raise ValueError(f"J1's level variant needs the level count, not "
@@ -375,6 +409,8 @@ def jacobi_plan(n: int, d: int, max_nb: Optional[int],
                 f"{smem} bytes for {n} particles and {levels} levels, past "
                 f"{SERIAL_MAX_SMEM}")
         return base
+    if dense:
+        return JacobiPlan(True, 0, LEVEL_THREADS, smem, "levels", levels)
     rows_bytes = 4 * n * max_nb * (d * d + 1)
     staged = smem + rows_bytes <= SERIAL_MAX_SMEM
     return JacobiPlan(False, base.slots, LEVEL_THREADS,
@@ -434,8 +470,8 @@ def _library():
         ]
         lib.fem_jacobi_serial.restype = _I
         lib.fem_jacobi_levels.argtypes = [
-            _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-            _I, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+            _F, _I, _P, _P, _P, _P, _P, _P, _P,
         ]
         lib.fem_jacobi_levels.restype = _I
         lib.fem_jacobi_error.argtypes = [_I]
@@ -469,34 +505,45 @@ def jacobi_serial(rows: torch.Tensor, b: torch.Tensor, past_x: torch.Tensor,
                   omega: float = OMEGA, tol: float = TOL,
                   max_iter: int = MAX_ITER,
                   variant: Optional[str] = None,
-                  clocks: Optional[torch.Tensor] = None) -> JacobiResult:
+                  clocks: Optional[torch.Tensor] = None,
+                  pattern: Optional[torch.Tensor] = None) -> JacobiResult:
     """The serial weighted-Jacobi solve of A·x = b (module docstring) over
     the block-sparse rows ``rows`` (N, max_nb, d, d) of the neighbours
     ``nb_ids`` (N, max_nb) int32, or with ``nb_ids`` None over the dense
-    rows ``rows`` (N·d, N·d); ``b`` and ``past_x`` (N, d).  Returns
+    rows ``rows`` (N·d, N·d), whose structural ``pattern`` (N, k) int32,
+    where given, is a neighbour table that holds every nonzero block of A
+    (module docstring); ``b`` and ``past_x`` (N, d).  Returns
     :class:`JacobiResult`, its iterations and error device tensors.
 
     CUDA tensors: one launch of J1 on :func:`jacobi_plan`'s plan (the
-    level variant for the sparse rows, the table's :func:`level_plan`
-    bound once; ``variant`` forces one), left in
-    ``jacobi_serial.last_plan``; the levels the level variant ran (L a
-    sweep), counted by the kernel, in ``jacobi_serial.last_levels`` (an
-    int32 device tensor; None after a serial launch), the launches by
-    variant in ``jacobi_serial.variant_launches``; nothing is read
-    back.  ``clocks``, a (5,) int64 CUDA tensor, receives the level
-    variant's SM clocks: its set-up, its error passes, its sweeps, and
-    warp 0's clocks at its rows and at the level barriers
-    (``tools/torch_j1_probe.py``).  CPU tensors:
-    :func:`jacobi_serial_plain`."""
+    level variant for the sparse rows and for the dense rows with a
+    pattern, the table's :func:`level_plan` bound once; ``variant`` forces
+    one), left in ``jacobi_serial.last_plan``; the levels the level
+    variant ran (L a sweep), counted by the kernel, in
+    ``jacobi_serial.last_levels`` (an int32 device tensor; None after a
+    serial launch), the launches by variant in
+    ``jacobi_serial.variant_launches``; nothing is read back.  ``clocks``,
+    a (5,) int64 CUDA tensor, receives the level variant's SM clocks: its
+    set-up, its error passes, its sweeps, and warp 0's clocks at its rows
+    and at the level barriers (``tools/torch_j1_probe.py``).  CPU tensors:
+    :func:`jacobi_serial_plain` (the serial row loop, with or without a
+    pattern)."""
     if variant not in (None,) + VARIANTS:
         raise ValueError(f"unknown J1 variant {variant!r}; one of "
                          f"{VARIANTS}")
+    if pattern is not None and nb_ids is not None:
+        raise ValueError("J1 takes a pattern with the dense rows only")
     if b.device.type == "cpu":
         return jacobi_serial_plain(rows, b, past_x, nb_ids, omega, tol,
                                    max_iter)
     n, d, max_nb, dev = _check(rows, b, past_x, nb_ids)
-    binding = (level_binding(nb_ids)
-               if max_nb is not None and variant != "serial" else None)
+    table = nb_ids if max_nb is not None else pattern
+    if max_nb is None and pattern is not None:
+        k = pattern.shape[1] if pattern.dim() == 2 else -1
+        cuda_build.check_operand("pattern", pattern, (n, k), torch.int32,
+                                 dev)
+    binding = (level_binding(table)
+               if table is not None and variant != "serial" else None)
     plan = jacobi_plan(n, d, max_nb,
                        None if binding is None else binding.plan.levels,
                        variant)
@@ -513,12 +560,14 @@ def jacobi_serial(rows: torch.Tensor, b: torch.Tensor, past_x: torch.Tensor,
     if plan.variant == "levels":
         levels_run = torch.empty((), dtype=torch.int32, device=dev)
         rc = cuda_build.launch_on_stream(
-            dev, dev.index, lib.fem_jacobi_levels, d, plan.slots,
-            int(plan.staged), nb_ids.data_ptr(), rows.data_ptr(),
+            dev, dev.index, lib.fem_jacobi_levels, d, int(plan.dense),
+            plan.slots, int(plan.staged),
+            None if nb_ids is None else nb_ids.data_ptr(), rows.data_ptr(),
             b.data_ptr(), past_x.data_ptr(), binding.order.data_ptr(),
             binding.next_row.data_ptr(), binding.first_row.data_ptr(),
-            binding.level_start.data_ptr(), n, max_nb, plan.levels, omega,
-            tol, max_iter, x.data_ptr(), past.data_ptr(), it.data_ptr(),
+            binding.level_start.data_ptr(), n,
+            0 if max_nb is None else max_nb, plan.levels, omega, tol,
+            max_iter, x.data_ptr(), past.data_ptr(), it.data_ptr(),
             err.data_ptr(), levels_run.data_ptr(), clocks)
     else:
         levels_run = None

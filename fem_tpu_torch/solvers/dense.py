@@ -7,7 +7,8 @@ materialised once a substep as an (N·d, N·d) matrix, c =
 (plain, or the normal equations as two products an iteration) with every
 product one ``torch.matmul`` (TF32 off; the JAX package leaves these
 products to XLA), or the Jacobi solver: the serial sweep J1 over its dense
-rows (``ops/jacobi_kernels.jacobi_serial``) or the snapshot sweep.  K and
+rows (``ops/jacobi_kernels.jacobi_serial``, on the level schedule of the
+Jacobi table that holds A's nonzero blocks) or the snapshot sweep.  K and
 the rhs force columns come from K1, as on the graph branch.
 
 The matrix is assembled from the block-sparse rows of the serial Jacobi
@@ -80,6 +81,7 @@ def implicit_velocity_solve_dense(
     (the JAX package's ``implicit_velocity_solve_dense``): the same solver
     semantics; the Jacobi solver's every ``jacobi_sweep`` but "serial" is
     the snapshot sweep, as there."""
+    obj = _with_jacobi_plan(obj)
     n, d = obj.particle_cnt, obj.dim
     K, cols = ek.hessian_and_force(
         state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
@@ -90,7 +92,9 @@ def implicit_velocity_solve_dense(
     if method == JACOBI_METHOD:
         past = jacobi_anchor(state)
         if jacobi_sweep == "serial":
-            res = jacobi_solve_serial(a, b, past)
+            # A's nonzero blocks lie in the Jacobi table (the assembly
+            # above places exactly its rows), so J1 sweeps its levels.
+            res = jacobi_solve_serial(a, b, past, pattern=obj.jacobi_nb)
         else:
             res = jacobi_solve(
                 lambda v: torch.matmul(a, v.reshape(-1)).reshape(n, d),

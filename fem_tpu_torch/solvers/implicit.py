@@ -69,7 +69,7 @@ force columns (partials).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -367,12 +367,16 @@ def jacobi_solve(
 
 def jacobi_solve_serial(a_dense: torch.Tensor, b: torch.Tensor,
                         past_x: torch.Tensor, omega: float = OMEGA,
-                        tol: float = TOL, max_iter: int = MAX_ITER
+                        tol: float = TOL, max_iter: int = MAX_ITER,
+                        pattern: Optional[torch.Tensor] = None
                         ) -> JacobiResult:
     """The serial sweep over the dense system ``a_dense`` (N·d, N·d) (the
     JAX package's ``jacobi_solve_serial``): J1 over its dense rows on a
-    CUDA tensor, the plain row loop on a CPU one."""
-    return jacobi_serial(a_dense, b, past_x, None, omega, tol, max_iter)
+    CUDA tensor — on the level schedule of ``pattern``, a neighbour table
+    (N, k) int32 that holds every nonzero block of A, where given — the
+    plain row loop on a CPU one."""
+    return jacobi_serial(a_dense, b, past_x, None, omega, tol, max_iter,
+                         pattern=pattern)
 
 
 def jacobi_solve_serial_sparse(nb_ids: torch.Tensor, blocks: torch.Tensor,

@@ -2810,6 +2810,113 @@ def test_jacobi_level_variant_raises_and_never_falls_back(body_2d,
         jk.jacobi_serial(rows, b, past, obj.jacobi_nb)
 
 
+@pytest.mark.parametrize("case", ["2d", "grid_2d", "3d"])
+def test_jacobi_dense_level_variant_is_bit_identical_to_serial(request,
+                                                               case):
+    """J1 over the dense rows on the level schedule of their pattern (the
+    Jacobi table, as solvers/dense passes it) against the serial variant
+    over the same rows: x, the anchor, the iterations and the error
+    bit-identical; twice bit-identical; the levels the kernel counted equal
+    to L × sweeps; within 1e-5 of the plain version (both capped at 20
+    sweeps on the 40-subdivision grid's long solve)."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+
+    obj, state = request.getfixturevalue(
+        {"2d": "body_2d", "grid_2d": "grid_2d", "3d": "body"}[case])
+    _, b, _, a, past = _jacobi_system(obj, state, 3)
+    args = (a, b, past)
+    pattern = obj.jacobi_nb
+    levels = jk.level_plan(pattern).levels
+    before = jk.jacobi_serial.launches
+    got = jk.jacobi_serial(*args, pattern=pattern)
+    plan, counted = jk.jacobi_serial.last_plan, jk.jacobi_serial.last_levels
+    again = jk.jacobi_serial(*args, pattern=pattern, variant="levels")
+    serial = jk.jacobi_serial(*args, pattern=pattern, variant="serial")
+    assert jk.jacobi_serial.last_plan.variant == "serial"
+    alone = jk.jacobi_serial(*args)
+    assert jk.jacobi_serial.last_plan.variant == "serial"
+    assert jk.jacobi_serial.launches == before + 4
+    torch.cuda.synchronize()
+    assert (plan.variant, plan.dense, plan.levels, plan.threads,
+            plan.staged) == ("levels", True, levels, 1024, False)
+    for x, y, z, w in zip(got, again, serial, alone):
+        assert torch.equal(x, y) and torch.equal(x, z) and torch.equal(x, w)
+    it = int(got.iterations)
+    assert int(counted) == levels * it and it > 1
+    cap = 20 if case == "grid_2d" else it
+    got = jk.jacobi_serial(*args, pattern=pattern, max_iter=cap)
+    ref = jk.jacobi_serial_plain(*args, max_iter=cap)
+    assert int(got.iterations) == int(ref.iterations) == cap
+    top = float(ref.x.abs().max())
+    for g, r in ((got.x, ref.x), (got.past_x, ref.past_x)):
+        assert float((g - r).abs().max()) <= TOL * top
+
+
+def test_jacobi_dense_level_variant_edge_cases():
+    """The zero diagonal and the rollback (the JAX package's edge cases, as
+    test_jacobi_serial_zero_diagonal_and_rollback builds them) over the
+    dense rows with the two particles' pattern, and a particle in no
+    element (its row the identity, its pattern row empty): bit-identical
+    to the serial variant, the kernel's level count L × sweeps."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+
+    _require_cuda()
+    eye = np.eye(2)
+    cases = [(np.diag([1.0, 1e-9]), [0.0, 0.0], [[0, 1], [0, 1]]),
+             (np.array([[1.0, 4.0], [5.0, 1.0]]), [7.0, 9.0],
+              [[0, 1], [0, 1]]),
+             (np.array([[2.0, 0.5, 0.0], [0.5, 2.0, 0.0], [0.0, 0.0, 1.0]]),
+              [0.1, 0.2, 0.3], [[0, 1], [0, 1], [-1, -1]])]
+    for a_np, past_np, nb in cases:
+        n = len(past_np)
+        a = torch.tensor(np.kron(a_np, eye), dtype=torch.float32,
+                         device="cuda")
+        b = torch.ones((n, 2), device="cuda")
+        past = torch.tensor(np.repeat(past_np, 2).reshape(n, 2),
+                            dtype=torch.float32, device="cuda")
+        pattern = torch.tensor(nb, dtype=torch.int32, device="cuda")
+        got = jk.jacobi_serial(a, b, past, pattern=pattern)
+        counted = jk.jacobi_serial.last_levels
+        assert jk.jacobi_serial.last_plan.variant == "levels"
+        serial = jk.jacobi_serial(a, b, past)
+        assert all(torch.equal(x, y) for x, y in zip(got, serial))
+        levels = jk.level_plan(pattern).levels
+        assert int(counted) == levels * int(got.iterations)
+
+
+def test_jacobi_dense_level_variant_raises_and_never_falls_back(
+        body_2d, monkeypatch):
+    """A bad pattern raises before a launch; a failed library load raises;
+    neither plain version runs for CUDA tensors."""
+    from fem_tpu_torch.ops import jacobi_kernels as jk
+    from fem_tpu_torch.utils import cuda_build
+
+    obj, state = body_2d
+    _, b, rows, a, past = _jacobi_system(obj, state, 4)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(jk, "jacobi_serial_plain", no_plain)
+    monkeypatch.setattr(jk, "jacobi_levels_plain", no_plain)
+    with pytest.raises(ValueError, match="dense rows only"):
+        jk.jacobi_serial(rows, b, past, obj.jacobi_nb, pattern=obj.jacobi_nb)
+    with pytest.raises(TypeError):
+        jk.jacobi_serial(a, b, past, pattern=obj.jacobi_nb.long())
+    with pytest.raises(ValueError):
+        jk.jacobi_serial(a, b, past, pattern=obj.jacobi_nb[:-1].contiguous())
+    with pytest.raises(ValueError, match="shared memory"):
+        jk.jacobi_plan(4000, 3, None, 1, "levels")
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(jk, "_LIB", None)
+    monkeypatch.setattr(cuda_build, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        jk.jacobi_serial(a, b, past, pattern=obj.jacobi_nb)
+
+
 # -- The adaptive-dt guard and the entry points -----------------------------
 
 def _cpu_copy(obj, state):
@@ -3033,6 +3140,92 @@ def test_contact_grid_kernel_matches_plain_and_repeats(d, n, cap,
     assert torch.equal(got, again)
     assert float((got.cpu() - ref).abs().max()) <= TOL * top
     assert float(got.sum(0).abs().max()) <= TOL * float(got.abs().sum())
+
+
+@pytest.mark.parametrize("d,n,cap,self_contact", [
+    (2, 400, 2, False), (2, 400, 8, True), (3, 600, 1, False),
+    (3, 600, 16, True), (3, 24576, 8, False)])
+@pytest.mark.parametrize("friction_c,mu", [(0.0, 0.0), (0.5, 0.0),
+                                           (0.5, 0.3)])
+def test_contact_grid_warp_variant_is_bit_identical_to_thread(
+        d, n, cap, self_contact, friction_c, mu):
+    """C2's warp variant (the soup in rank order, a warp a vertex over the
+    run table) against the thread variant at the inputs of
+    test_contact_grid_kernel_matches_plain_and_repeats, without friction,
+    with the dashpot and with the Coulomb cone: bit-identical, twice
+    bit-identical, one call each; the forces' total within 1e-5 of Σ|f|."""
+    from fem_tpu_torch import broadphase as bp
+    from fem_tpu_torch.ops import contact_kernels as ck
+
+    _require_cuda()
+    radius = 0.06 if n < 1000 else 0.0045
+    pos, vel = _soup(n, (n,), d, 0.5, 0.3 if n < 1000 else 0.6)
+    body = torch.as_tensor((np.arange(n) % 3).astype(np.int32),
+                           device="cuda")
+    rest = pos.flip(0).contiguous()
+    cell, m = bp.grid_cells(pos, radius)
+    order = torch.argsort(cell, stable=True)
+    cell_s = cell[order]
+    runs = ck.grid_runs(cell_s, m, d)
+    args = (pos, vel, rest if self_contact else None, body, cell_s, order,
+            runs)
+    kw = dict(friction_c=friction_c, mu=mu, mu_slope=20.0,
+              self_contact=self_contact)
+    before = ck.grid_pair_forces.launches
+    ck.grid_pair_forces.variant_launches = {}
+    warp = ck.grid_pair_forces(*args, m, radius, 1e3, cap, **kw)
+    assert ck.grid_pair_forces.last_plan == ck.grid_plan(n, d, cap)
+    again = ck.grid_pair_forces(*args, m, radius, 1e3, cap, **kw)
+    thread = ck.grid_pair_forces(*args, m, radius, 1e3, cap,
+                                 variant="thread", **kw)
+    assert ck.grid_pair_forces.last_plan.variant == "thread"
+    torch.cuda.synchronize()
+    assert ck.grid_pair_forces.launches == before + 3
+    assert ck.grid_pair_forces.variant_launches == {"warp": 2, "thread": 1}
+    assert float(warp.abs().max()) > 0.0
+    assert torch.equal(warp, again) and torch.equal(warp, thread)
+    assert float(warp.sum(0).abs().max()) <= TOL * float(warp.abs().sum())
+
+
+def test_contact_grid_variants_raise_and_never_fall_back(monkeypatch):
+    from fem_tpu_torch import broadphase as bp
+    from fem_tpu_torch.ops import contact_kernels as ck
+    from fem_tpu_torch.utils import cuda_build
+
+    _require_cuda()
+    pos, _ = _soup(0, (20,), 3, 0.5, 0.2)
+    body = torch.zeros(20, dtype=torch.int32, device="cuda")
+    body[10:] = 1
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ck, "grid_pair_forces_plain", no_plain)
+    cell, m = bp.grid_cells(pos, 0.05)
+    order = torch.argsort(cell, stable=True)
+    cell_s = cell[order]
+    runs = ck.grid_runs(cell_s, m, 3)
+    head = (pos, None, None, body, cell_s, order)
+    args = head + (runs, m, 0.05, 1e3, 8)
+    with pytest.raises(ValueError, match="unknown C2 variant"):
+        ck.grid_pair_forces(*args, variant="rows")
+    for variant in ck.GRID_VARIANTS:
+        with pytest.raises(TypeError):
+            ck.grid_pair_forces(*head, runs.long(), m, 0.05, 1e3, 8,
+                                variant=variant)
+    with pytest.raises(ValueError, match="cap"):
+        ck.grid_pair_forces(*args[:-1], 0)
+    for variant in ck.GRID_VARIANTS:
+        out = ck.grid_pair_forces(*args, variant=variant)
+        assert out.device.type == "cuda"
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(ck, "_LIBS", {})
+    monkeypatch.setattr(cuda_build, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ck.grid_pair_forces(*args)
 
 
 def test_contact_kernels_raise_and_never_fall_back():

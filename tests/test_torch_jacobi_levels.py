@@ -16,9 +16,18 @@
   ``jacobi_solve_serial_sparse`` on the passage mesh squashed and moving
   and on a 3D grid cube: equal iterations, x within 1e-5;
 * ``jacobi_plan``'s routing (the level variant for the sparse rows, staged
-  where they fit; the serial variant for the dense rows and where the
-  level tables overflow a CTA) and its ``ValueError``s, and the level
-  binding built once a table.
+  where they fit, and for the dense rows given their pattern's level
+  count; the serial variant for the dense rows alone and where the level
+  tables overflow a CTA) and its ``ValueError``s, and the level binding
+  built once a table;
+* the dense rows on the schedule of their pattern: on ``default.json`` and
+  the passage mesh every nonzero block of ``assemble_dense_system``'s A
+  lies in ``jacobi_nb``'s pattern or is a lone particle's identity block;
+  ``jacobi_levels_plain`` over the dense rows with that pattern against
+  ``jacobi_serial_plain`` over them (equal iterations, x and the anchor
+  within 1e-6 of their largest entry in float32, 1e-12 in float64) and
+  against the JAX package's dense ``jacobi_solve_serial`` on the passage
+  mesh squashed and moving (equal iterations, x within 1e-5).
 """
 
 import os
@@ -30,6 +39,7 @@ import torch
 
 from fem_tpu.models.mesh import construct_2d_mesh
 from fem_tpu.models.state import build_object as jax_build_object
+from fem_tpu.solvers import dense as jdense
 from fem_tpu.ops.element import hessian_blocks as jax_hessian_blocks
 from fem_tpu.solvers import implicit as jimplicit
 from fem_tpu.utils import config as jconfig
@@ -37,13 +47,14 @@ from fem_tpu_torch import convert, entry
 from fem_tpu_torch.ops import element_kernels
 from fem_tpu_torch.ops import jacobi_kernels as jk
 from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
-from fem_tpu_torch.solvers import implicit
+from fem_tpu_torch.solvers import dense, implicit
 from tests.utils import make_3d_object
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PASSAGE = os.path.join(REPO, "configs", "demo_passage_jacobi.json")
+DEFAULT = os.path.join(REPO, "configs", "default.json")
 DT = 5e-4
 
 
@@ -93,17 +104,28 @@ def flagship():
     return obj, entry.deformed(state)
 
 
-@pytest.fixture(scope="module")
-def passage():
-    """demo_passage_jacobi.json's body squashed and moving (numpy seed 3):
-    the solve iterates."""
-    cfg, obj, state, _ = entry.load_config(PASSAGE, "cpu")
-    rng = np.random.default_rng(3)
+def _squashed(path, seed):
+    """The config's body squashed to 110 % across and 80 % up and moving
+    at random (numpy seed): the solve iterates."""
+    cfg, obj, state, _ = entry.load_config(path, "cpu")
+    rng = np.random.default_rng(seed)
     pos = state.pos.numpy()
     c = pos.mean(axis=0, keepdims=True)
     pos = (c + (pos - c) * np.array([1.1, 0.8])).astype(np.float32)
     vel = rng.uniform(-0.3, 0.3, pos.shape).astype(np.float32)
     return obj, state.replace(pos=_t(pos), vel=_t(vel))
+
+
+@pytest.fixture(scope="module")
+def passage():
+    """demo_passage_jacobi.json's body squashed and moving (numpy seed 3)."""
+    return _squashed(PASSAGE, 3)
+
+
+@pytest.fixture(scope="module")
+def default_body():
+    """default.json's square squashed and moving (numpy seed 7)."""
+    return _squashed(DEFAULT, 7)
 
 
 def _system(obj, state, dtype):
@@ -115,6 +137,20 @@ def _system(obj, state, dtype):
     b = state.vel + DT * f / obj.mass[:, None]
     rows = implicit.sparse_system_rows(obj, K, DT)
     return rows.to(dtype), b.to(dtype), torch.zeros_like(b, dtype=dtype)
+
+
+def _dense_system(obj, state, dtype):
+    """The dense rows (N·d, N·d), b and a numpy-noise anchor of one substep
+    at ``state`` (the dense backend's assembly)."""
+    K, H = element_kernels.hessian_and_force(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda)
+    f = gather_assemble(element_contrib_full(H), obj.plan.idx)
+    b = state.vel + DT * f / obj.mass[:, None]
+    a = dense.assemble_dense_system(obj, K, DT)
+    rng = np.random.default_rng(11)
+    past = _t(rng.normal(scale=0.01, size=tuple(b.shape)).astype(np.float32))
+    return a.to(dtype), b.to(dtype), past.to(dtype)
 
 
 # -- the plan ----------------------------------------------------------------
@@ -224,6 +260,78 @@ def test_level_sweep_matches_jax(twin):
                                    atol=1e-5 * top)
 
 
+@pytest.mark.parametrize("path", [DEFAULT, PASSAGE])
+def test_dense_rows_lie_in_the_pattern(path):
+    """Every nonzero block of the dense backend's A sits at (i,
+    jacobi_nb[i, k]) or is the identity block of a particle in no element:
+    what the dense level schedule relies on."""
+    _, obj, state, _ = entry.load_config(path, "cpu")
+    a, _, _ = _dense_system(obj, state, torch.float64)
+    n, d = obj.particle_cnt, obj.dim
+    blocks = a.reshape(n, d, n, d).permute(0, 2, 1, 3)
+    nonzero = (blocks != 0).any(dim=-1).any(dim=-1)
+    nb = obj.jacobi_nb.long()
+    allowed = torch.zeros((n, n), dtype=torch.bool)
+    rows = torch.arange(n)[:, None].expand_as(nb)
+    allowed[rows[nb >= 0], nb[nb >= 0]] = True
+    lone = ~(nb == torch.arange(n)[:, None]).any(dim=1)
+    allowed[lone, lone] = True
+    assert bool(nonzero.any()) and not bool((nonzero & ~allowed).any())
+    eye = torch.eye(d, dtype=blocks.dtype)
+    assert all(torch.equal(blocks[i, i], eye) for i in
+               torch.nonzero(lone).flatten().tolist())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("mesh", ["default_body", "passage"])
+def test_dense_level_sweep_matches_the_serial_row_loop(request, mesh, dtype,
+                                                       tol):
+    obj, state = request.getfixturevalue(mesh)
+    a, b, past = _dense_system(obj, state, dtype)
+    ref = jk.jacobi_serial_plain(a, b, past)
+    got = jk.jacobi_levels_plain(a, b, past, None, pattern=obj.jacobi_nb)
+    assert int(got.iterations) == int(ref.iterations) > 1
+    for g, r in ((got.x, ref.x), (got.past_x, ref.past_x)):
+        top = float(r.abs().max())
+        assert float((g - r).abs().max()) <= tol * top
+    assert abs(float(got.error) - float(ref.error)) <= tol * float(
+        b.abs().max())
+    # On the CPU the wrapper is the serial row loop, pattern or not; a
+    # pattern beside the sparse table is refused.
+    cpu = implicit.jacobi_solve_serial(a, b, past, pattern=obj.jacobi_nb)
+    assert all(torch.equal(x, y) for x, y in zip(cpu, ref))
+    with pytest.raises(ValueError, match="dense rows only"):
+        jk.jacobi_serial(a, b, past, obj.jacobi_nb, pattern=obj.jacobi_nb)
+    with pytest.raises(ValueError, match="not with nb_ids"):
+        jk.jacobi_levels_plain(a, b, past, obj.jacobi_nb,
+                               pattern=obj.jacobi_nb)
+
+
+def test_dense_level_sweep_matches_jax():
+    """The passage mesh squashed and moving: the dense rows' level sweep
+    against the JAX package's dense serial sweep, equal iterations, x and
+    the anchor within 1e-5."""
+    jobj, jstate = _jax_twin_passage()
+    arrays = {n: np.asarray(getattr(jobj, n)) for n in convert.OBJECT_ARRAYS}
+    statics = {n: getattr(jobj, n) for n in convert.OBJECT_STATICS}
+    obj = convert.object_from_arrays(arrays, statics, "cpu")
+    K = jax_hessian_blocks(jstate.pos, jobj.element_indices, jobj.ref_inv,
+                           jobj.volume, jobj.mu, jobj.s_lambda)
+    b = jimplicit.implicit_rhs(jobj, jstate, DT)
+    a = jdense.assemble_dense_system(jobj, K, DT)
+    rng = np.random.default_rng(5)
+    past = rng.normal(scale=0.01, size=b.shape).astype(np.float32)
+    jres = jimplicit.jacobi_solve_serial(a, b, jnp.asarray(past))
+    res = jk.jacobi_levels_plain(_t(a), _t(b), _t(past), None,
+                                 pattern=obj.jacobi_nb)
+    assert int(res.iterations) == int(jres.iterations) > 1
+    top = max(float(np.abs(np.asarray(jres.x)).max()), 1.0)
+    for got, want in ((res.x, jres.x), (res.past_x, jres.past_x)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5 * top)
+
+
 def test_level_sweep_refuses_the_dense_rows():
     with pytest.raises(ValueError, match="sparse rows"):
         jk.jacobi_levels_plain(torch.eye(4), torch.ones(2, 2),
@@ -255,6 +363,26 @@ def test_jacobi_plan_routes_the_variants():
     # Slots a lane, as the serial variant's.
     assert jk.jacobi_plan(100, 3, 33, 5).slots == 2
     assert jk.jacobi_plan(100, 3, 128, 5).slots == 4
+
+
+def test_jacobi_plan_routes_the_dense_rows_with_a_pattern():
+    # default.json's dense rows with its table's 20 levels: the level
+    # variant, the rows read from L2 (234 KB pass a CTA).
+    plan = jk.jacobi_plan(121, 2, None, 20)
+    assert (plan.variant, plan.dense, plan.threads, plan.slots, plan.levels,
+            plan.staged) == ("levels", True, 1024, 0, 20, False)
+    assert plan.smem == 4 * (5 * 121 * 2 + 2 * 121 + 21 + 32)
+    # No pattern, or forced serial: the serial variant.
+    assert jk.jacobi_plan(121, 2, None) == jk.serial_plan(121, 2, None)
+    assert jk.jacobi_plan(121, 2, None, 20, "serial") == jk.serial_plan(
+        121, 2, None)
+    assert jk.jacobi_plan(121, 2, None, 20, "levels") == plan
+    # Past a CTA with the level tables: serial, or refused when forced.
+    assert jk.jacobi_plan(4000, 3, None, 1).variant == "serial"
+    with pytest.raises(ValueError, match="shared memory"):
+        jk.jacobi_plan(4000, 3, None, 1, "levels")
+    with pytest.raises(ValueError, match="level count"):
+        jk.jacobi_plan(121, 2, None, 0)
 
 
 @pytest.mark.parametrize("args,match", [
