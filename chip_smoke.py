@@ -14,7 +14,9 @@ Rayleigh β, SDF obstacles, block-Jacobi and the exact Hessian (W-Z′) and
 the fused advection (AD) — the unblocked whole frame, the ``"mxu"``
 operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), the
 Jacobi solver (AH-AK), the CLI, ``Simulation`` and the adaptive-dt guard
-(AL-AN), and body-body contact and the batched frame (AO-AS), and holds
+(AL-AN), body-body contact and the batched frame (AO-AS), and the Newton
+integrator, the two-level preconditioner and the static solve (AT-AX),
+and holds
 every CUDA kernel of those paths against its plain PyTorch version.  K5
 runs as its cluster variant on every path (each mesh there fits one
 thread-block cluster; ``counts()`` fails the run otherwise), as do K8, K4,
@@ -403,7 +405,30 @@ the eight:
     stacked with ``contact_broadphase="grid"`` (C2 once a substep);
 66. path AS, ``batch.make_batched_frame_fn`` on ``default.json`` at B = 8,
     perturbed: K7a once a member a substep, every member bit-equal to its
-    single run.  One ``contact_paths`` JSON line holds their numbers.
+    single run.  One ``contact_paths`` JSON line holds their numbers;
+67. path AT, the flagship (deformed) with ``integrator: "newton"``,
+    ``newton_hessian: "decoupled"`` at its dt: 3 frames, K2 once a residual
+    evaluation and K3 once a Newton step and once an inner CG iteration,
+    as ``solvers/newton.newton_velocity_solve.totals`` counts them; no
+    plain version called; the first frame within 1e-5 of the CPU's run of
+    the same route (K2's and K3's plain versions), its CG a substep within
+    3 (the Newton loop stops at the f32 floor of its 1e-5 tolerance); two
+    runs bit-identical; device ms a frame, busy share, steps/s;
+68. path AU, the same at dt 4e-3 with ``cg_precond: "two_level_cheb3"``:
+    2 frames, K3 16 a substep (λmax) + 7 a PCG step and iteration, two
+    runs bit-identical; plain-CG Newton's inner totals beside it and
+    whether the semi-implicit frame stays finite (printed only);
+69. path AV, the semi-implicit flagship with ``cg_precond: "two_level"``:
+    3 frames, K2 a substep, K3 19 + 3 a PCG iteration; the first frame
+    within 1e-5 of the CPU's, equal iterations; two runs bit-identical;
+70. path AW, examples/newton_large_dt.py's block (copied: κ ≈ 60) through
+    ``Simulation``, velocities noised by 1e-4, exact Newton at θ 1 and
+    0.5: 2 frames each, no kernel (plain PyTorch, as XLA in the JAX
+    package), finite, the first frame within 1e-3 of the CPU's;
+71. path AX, ``Simulation.solve_static(cg_precond="two_level_cheb3")`` on
+    ``assets/cube.stl`` at interior spacing 0.2, pinned on top: within
+    1e-5 of the CPU's solve, ``converged``/``stalled`` equal, at rest.
+    One ``newton_paths`` JSON line holds their numbers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -6120,6 +6145,361 @@ def run_contact(torch, dev, zero_counts, counts, only, card):
     return rows, line, time.perf_counter() - t_phase
 
 
+FRAMES_AT = 3  # path AT: the Newton flagship at its shipped dt
+FRAMES_AU = 2  # path AU: the flagship at 8x its dt, two-level inside Newton
+FRAMES_AV = 3  # path AV: the semi-implicit flagship under two_level
+FRAMES_AW = 2  # path AW, each theta
+DT_AU = 4e-3
+# Path AW: examples/newton_large_dt.py's block (copied: the example imports
+# the JAX package): 7 subdivisions, E 4e5, dt 2e-3, kappa ~60; its start
+# velocities noised by 1e-4 (numpy seed 0), as
+# tests/test_torch_newton_large_dt.py does, so that the solves iterate.
+BLOCK_AW = {
+    "dim": 2, "delta_time": 2e-3, "sim_count": 10,
+    "use_explicit_method": False, "implicit_method": 1, "preconditioned": 0,
+    "cg_precond": "none", "g_dir": [0.0, -1.0],
+    "objects": [{"center": [0.5, 0.8], "E": 4e5, "nu": 0.2, "damping": 14.5,
+                 "side_length": 0.2, "subdivisions": 7}],
+}
+# Path AX: the unit cube of assets/cube.stl meshed at interior spacing 0.2
+# (943 particles, 4,196 tets, 17 blocks), pinned along its top face, solved
+# to rest under gravity.
+CUBE_AX = dict(
+    dim=3, delta_time=5e-4, sim_count=10, use_explicit_method=False,
+    implicit_method=1, g_dir=[0, -1, 0], blocks=[],
+    objects=[dict(obj="assets/cube.stl", center=[0, 0, 0], E=4e5, nu=0.3,
+                  rho=1000,
+                  pin_boxes=[[[-0.01, 0.99, -0.01], [1.01, 1.01, 1.01]]])])
+SPACING_AX = 0.2
+
+
+class PlainGuard:
+    """Counts the calls of the plain versions of K1, K2, K3, K7a and K7b
+    (the module attributes their wrappers call on CPU tensors) while it is
+    entered: a path on the card must make none."""
+
+    NAMES = (("blocked_kernels", "blocked_graph_apply_plain"),
+             ("blocked_kernels", "blocked_prep_force_plain"),
+             ("blocked_kernels", "blocked_grad_force_plain"),
+             ("blocked_kernels", "blocked_assemble_plain"),
+             ("element_kernels", "hessian_and_force_plain"))
+
+    def __enter__(self):
+        from fem_tpu_torch.ops import blocked_kernels, element_kernels
+
+        mods = dict(blocked_kernels=blocked_kernels,
+                    element_kernels=element_kernels)
+        self.calls, self.saved = {}, []
+        for mod_name, name in self.NAMES:
+            mod = mods[mod_name]
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def counted_then_profiled(torch, zero_counts, counts, go, units):
+    """Runs ``go`` (which returns its result) twice: first with the launch
+    counts zeroed before it, read after it and the plain versions guarded
+    (``PlainGuard``), timed on the host; then under the profiler, whose
+    device time it sums from the kernel activity records themselves (these
+    paths launch hundreds of thousands of kernels a window, which
+    ``key_averages`` would take minutes to aggregate).  Returns (first
+    result, its wall s, its launches, the plain calls, second result,
+    device ms a unit, busy share) for ``units`` units (the frames or
+    solves ``go`` runs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with PlainGuard() as guard:
+        zero_counts()
+        t0 = time.perf_counter()
+        first = go()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(EMPTY_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            second = go()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = 1e-6 * sum(e.duration_ns() for e in
+                            prof.profiler.kineto_results.events()
+                            if e.device_type() == cuda)
+        if dev_ms > 0:
+            break
+        log(f"[profiler] a window recorded no device activity (window "
+            f"{attempt + 1}); taken again")
+        time.sleep(0.05 * (attempt + 1))
+    require(dev_ms > 0, "the profiler recorded no device activity in "
+            f"{EMPTY_WINDOWS} windows in a row")
+    return (first, wall, launches, dict(guard.calls), second, dev_ms / units,
+            100 * dev_ms / wall_ms)
+
+
+def run_newton(torch, dev, zero_counts, counts, only, card):
+    """Sections 67-71: the Newton integrator, the two-level preconditioner
+    and the static solve, paths AT-AX.  Each path runs twice, counted and
+    then profiled (``counted_then_profiled``), the two bit-identical.
+    Returns (the ``newton_paths`` line's
+    dict, phase seconds)."""
+    import numpy as np
+
+    import fem_tpu_torch
+    from fem_tpu_torch import convert, entry, sim
+    from fem_tpu_torch.solvers import newton
+
+    t_phase = time.perf_counter()
+    line = {}
+    totals = newton.newton_velocity_solve.totals
+    cfg, obj, state0, obs = entry.flagship(dev)
+    state = entry.deformed(state0)
+    cpu_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
+    cpu_state = convert.state_from_arrays(convert.state_to_arrays(state),
+                                          "cpu")
+    cpu_obs = type(obs)(obs.centers.cpu(), obs.radii.cpu())
+    require(obj.num_aggregates == 25 and cpu_obj.num_aggregates == 25,
+            f"the flagship's aggregates: {obj.num_aggregates}")
+
+    def zero_all():
+        zero_counts()
+        totals.update(solves=0, steps=0, trials=0, cg=0)
+
+    def run(frame_fn, frames, start=state, obstacles=obs):
+        """(end state, iterations (frames, sim_count) on the host, Newton
+        totals) of ``frames`` frames from ``start``."""
+        totals.update(solves=0, steps=0, trials=0, cg=0)
+        s, its = start, []
+        for _ in range(frames):
+            s, aux = frame_fn(s, obstacles)
+            its.append(aux.solver_iterations)
+        return s, torch.stack(its).cpu(), dict(totals)
+
+    def same(a, b):
+        return torch.equal(a.pos, b.pos) and torch.equal(a.vel, b.vel)
+
+    def drive(label, frame_fn, frames, **kw):
+        (s, its, t), wall, launches, plain, (s2, _, _), dev_ms, busy = \
+            counted_then_profiled(torch, zero_all, counts,
+                                  lambda: run(frame_fn, frames, **kw), frames)
+        require(not plain, f"{label} ran plain versions {plain}")
+        require(same(s, s2), f"{label}: two runs differ")
+        require(bool(torch.isfinite(s.pos).all()), f"{label} non-finite")
+        log(f"[profile] {label}: {dev_ms:.4f} device ms a frame, device busy "
+            f"{busy:.1f}%; card {card}")
+        return s, its, t, wall, launches, dev_ms, busy
+
+    # -- 67. path AT: the Newton flagship (decoupled) ------------------------
+    cfg_at = dataclasses.replace(cfg, integrator="newton",
+                                 newton_hessian="decoupled")
+    require(not sim.supports_blocked_frame(obj, cfg_at),
+            "path AT routed to K5")
+    frame_at = sim.make_frame_fn(obj, cfg_at)
+    first, first_its, _ = run(frame_at, 1)
+    # The CPU run of the same route (K2's and K3's plain versions).
+    ref, ref_aux = sim.make_frame_fn(cpu_obj, dataclasses.replace(
+        cfg_at, element_backend="pallas"))(cpu_state, cpu_obs)
+    err = float((first.pos.cpu() - ref.pos).abs().max())
+    log(f"[path AT] first frame vs the CPU (K2 and K3's plain versions): max "
+        f"|dpos| {err:.3e}; inner CG a substep {first_its[0].tolist()}, CPU "
+        f"{ref_aux.solver_iterations.tolist()}")
+    require(err <= 1e-5, f"path AT: first frame off the CPU by {err}")
+    # Within 3 a substep, as tests/test_torch_newton.py holds the CPU to the
+    # JAX package: the Newton loop's last step, or a trial's acceptance,
+    # rests on f32 rounding at its tolerance of 1e-5, and the kernels sum
+    # in another order than their plain versions.
+    require(all(abs(a - b) <= 3 for a, b in zip(
+        first_its[0].tolist(), ref_aux.solver_iterations.tolist())),
+        f"path AT: CG a substep {first_its[0].tolist()} vs the CPU's "
+        f"{ref_aux.solver_iterations.tolist()}")
+    s_at, _, t_at, wall, launches, dev_ms, busy = drive(
+        "path AT (K2 + K3, Newton decoupled)", frame_at, FRAMES_AT)
+    k3 = t_at["steps"] + t_at["cg"]
+    require(launches == only(blocked_prep=t_at["trials"],
+                             blocked_matvec=k3),
+            f"path AT: launches {launches} vs K2 {t_at['trials']} "
+            f"(residual evaluations), K3 {k3} (steps + CG iterations)")
+    require(t_at["solves"] == FRAMES_AT * cfg.sim_count,
+            f"path AT: {t_at['solves']} Newton solves")
+    subs = FRAMES_AT * cfg.sim_count
+    log(f"[path AT] {FRAMES_AT} frames of the Newton flagship (decoupled, "
+        f"dt {cfg.delta_time}): {subs / wall:.1f} steps/s; Newton steps "
+        f"{t_at['steps']}, residual evaluations {t_at['trials']}, inner CG "
+        f"{t_at['cg']}; launches {launches}; runs bit-identical")
+    line["AT"] = dict(frames=FRAMES_AT, steps_per_s=subs / wall,
+                      device_ms_per_frame=dev_ms, busy_pct=busy,
+                      newton=t_at, launches=dict(K2=t_at["trials"], K3=k3),
+                      first_frame_err=err, card=card)
+
+    # -- 68. path AU: two_level_cheb3 inside Newton at 8x the dt --------------
+    cfg_au = dataclasses.replace(cfg_at, cg_precond="two_level_cheb3",
+                                 delta_time=DT_AU)
+    s_au, _, t_au, wall, launches, dev_ms, busy = drive(
+        f"path AU (K2 + K3, Newton two_level_cheb3 at dt {DT_AU})",
+        sim.make_frame_fn(obj, cfg_au), FRAMES_AU)
+    k3 = 16 * t_au["solves"] + 7 * (t_au["steps"] + t_au["cg"])
+    require(launches == only(blocked_prep=t_au["trials"], blocked_matvec=k3),
+            f"path AU: launches {launches} vs K2 {t_au['trials']}, K3 {k3} "
+            "(16 power-iteration applies a substep, 7 a PCG step and "
+            "iteration)")
+    zero_all()
+    t0 = time.perf_counter()
+    s_plain, _, t_plain = run(sim.make_frame_fn(obj, dataclasses.replace(
+        cfg_at, delta_time=DT_AU)), FRAMES_AU)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    require(counts() == only(blocked_prep=t_plain["trials"],
+                             blocked_matvec=t_plain["steps"] + t_plain["cg"]),
+            "path AU plain-CG Newton launches")
+    s_semi, _, _ = run(sim.make_frame_fn(obj, dataclasses.replace(
+        cfg, delta_time=DT_AU)), FRAMES_AU)
+    semi_finite = bool(torch.isfinite(s_semi.pos).all())
+    subs = FRAMES_AU * cfg.sim_count
+    log(f"[path AU] {FRAMES_AU} frames at dt {DT_AU} (8x shipped): inner "
+        f"iterations two_level_cheb3 {t_au['cg']} in {t_au['steps']} Newton "
+        f"steps, plain CG {t_plain['cg']} in {t_plain['steps']} "
+        f"(finite: {bool(torch.isfinite(s_plain.pos).all())}); the "
+        f"semi-implicit frame finite: {semi_finite} (printed, not a gate); "
+        f"{subs / wall:.1f} steps/s (plain CG {subs / wall_plain:.1f}); "
+        "runs bit-identical")
+    line["AU"] = dict(frames=FRAMES_AU, dt=DT_AU, steps_per_s=subs / wall,
+                      device_ms_per_frame=dev_ms, busy_pct=busy,
+                      newton=t_au, plain_cg_newton=t_plain,
+                      plain_cg_steps_per_s=subs / wall_plain,
+                      semi_implicit_finite=semi_finite,
+                      launches=dict(K2=t_au["trials"], K3=k3), card=card)
+
+    # -- 69. path AV: the semi-implicit flagship under two_level ---------------
+    cfg_av = dataclasses.replace(cfg, cg_precond="two_level")
+    require(not sim.supports_blocked_frame(obj, cfg_av),
+            "path AV routed to K5")
+    frame_av = sim.make_frame_fn(obj, cfg_av)
+    first, first_its, _ = run(frame_av, 1)
+    ref, ref_aux = sim.make_frame_fn(cpu_obj, cfg_av)(cpu_state, cpu_obs)
+    err = float((first.pos.cpu() - ref.pos).abs().max())
+    log(f"[path AV] first frame vs the CPU: max |dpos| {err:.3e}; PCG "
+        f"iterations {first_its[0].tolist()}, CPU "
+        f"{ref_aux.solver_iterations.tolist()}")
+    require(err <= 1e-5, f"path AV: first frame off the CPU by {err}")
+    require(torch.equal(first_its[0], ref_aux.solver_iterations),
+            "path AV: iterations differ from the CPU's")
+    s_av, its_av, _, wall, launches, dev_ms, busy = drive(
+        "path AV (K2 + K3, two_level PCG)", frame_av, FRAMES_AV)
+    k3 = int((19 + 3 * its_av).sum())
+    subs = FRAMES_AV * cfg.sim_count
+    require(launches == only(blocked_prep=subs, blocked_matvec=k3),
+            f"path AV: launches {launches} vs K2 {subs}, K3 {k3} "
+            "(19 + 3 a PCG iteration, a substep)")
+    log(f"[path AV] {FRAMES_AV} frames of the semi-implicit flagship with "
+        f"cg_precond two_level: PCG iterations {its_av.tolist()}; "
+        f"{subs / wall:.1f} steps/s; launches {launches}; runs "
+        "bit-identical")
+    line["AV"] = dict(frames=FRAMES_AV, steps_per_s=subs / wall,
+                      device_ms_per_frame=dev_ms, busy_pct=busy,
+                      iterations=its_av.tolist(),
+                      launches=dict(K2=subs, K3=k3), first_frame_err=err,
+                      card=card)
+
+    # -- 70. path AW: examples/newton_large_dt.py's block, exact Newton -------
+    line["AW"] = {}
+    for theta in (1.0, 0.5):
+        data = json.loads(json.dumps(dict(BLOCK_AW, integrator="newton",
+                                          newton_theta=theta)))
+        sims = []
+        for device in (dev, "cpu"):
+            simulation = fem_tpu_torch.Simulation.from_dict(data,
+                                                            device=device)
+            st = simulation.scene[0].state
+            kick = np.random.default_rng(0).normal(
+                scale=1e-4, size=tuple(st.vel.shape)).astype(np.float32)
+            simulation.scene[0].state = st.replace(
+                vel=st.vel + torch.as_tensor(kick, device=st.vel.device))
+            sims.append(simulation)
+        gpu_sim, cpu_sim = sims
+        frame_w = sim.make_frame_fn(gpu_sim.scene[0].obj, gpu_sim.cfg)
+        start = gpu_sim.scene[0].state
+        label = f"path AW (exact Newton, theta {theta})"
+        s_w, its_w, _, wall, launches, dev_ms, busy = drive(
+            label, frame_w, FRAMES_AW, start=start,
+            obstacles=gpu_sim.obstacles)
+        require(launches == only(), f"{label}: launches {launches} (the "
+                "exact Hessian runs plain PyTorch, as XLA in the JAX package)")
+        gpu_sim.step_frame()
+        cpu_sim.step_frame()
+        err = float(np.abs(gpu_sim.positions() - cpu_sim.positions()).max())
+        require(err <= 1e-3, f"{label}: first frame off the CPU by {err}")
+        subs = FRAMES_AW * gpu_sim.cfg.sim_count
+        log(f"[path AW] examples/newton_large_dt.py's block (kappa ~60, dt "
+            f"{gpu_sim.cfg.delta_time}), exact Newton, theta {theta}: "
+            f"{FRAMES_AW} frames finite, inner CG {int(its_w.sum())}; first "
+            f"frame vs the CPU {err:.3e}; {subs / wall:.1f} steps/s")
+        line["AW"][str(theta)] = dict(
+            frames=FRAMES_AW, steps_per_s=subs / wall,
+            device_ms_per_frame=dev_ms, busy_pct=busy,
+            inner_cg=int(its_w.sum()), first_frame_err=err, card=card)
+
+    # -- 71. path AX: Simulation.solve_static on a pinned 3D cube -------------
+    def cube(device):
+        return fem_tpu_torch.Simulation.from_dict(
+            CUBE_AX, device=device, interior_spacing=SPACING_AX)
+
+    gpu_cube, cpu_cube = cube(dev), cube("cpu")
+    start_x = gpu_cube.scene[0].state
+
+    def solve():
+        gpu_cube.scene[0].state = start_x
+        (r,) = gpu_cube.solve_static(cg_precond="two_level_cheb3")
+        return r
+
+    res, wall, launches, plain, res2, dev_ms, busy = counted_then_profiled(
+        torch, zero_counts, counts, solve, 1)
+    (cres,) = cpu_cube.solve_static(cg_precond="two_level_cheb3")
+    state_x = gpu_cube.scene[0].state
+    size = (gpu_cube.scene[0].obj.particle_cnt,
+            gpu_cube.scene[0].obj.element_cnt)
+    err = float((res.pos.cpu() - cres.pos).abs().max())
+    sag = float((res.pos[:, 1] - start_x.pos[:, 1]).min())
+    log(f"[path AX] Simulation.solve_static(two_level_cheb3) on the pinned "
+        f"unit cube ({size[0]} particles, {size[1]} tets): "
+        f"{int(res.iterations)} Newton iterations, "
+        f"{int(res.cg_iterations)} PCG iterations, converged "
+        f"{bool(res.converged)}, stalled {bool(res.stalled)}, grad norm "
+        f"{float(res.grad_norm):.3e}; CPU {int(cres.iterations)}, "
+        f"{int(cres.cg_iterations)}, {bool(cres.converged)}; max |dpos| vs "
+        f"the CPU {err:.3e}; sag {sag:.4e}; {wall:.3f} s a solve, "
+        f"{dev_ms:.4f} device ms, busy {busy:.1f}%; card {card}")
+    require(launches == only() and not plain, f"path AX: launches "
+            f"{launches}, plain {plain} (the static solve runs plain "
+            "PyTorch, as XLA in the JAX package)")
+    require(torch.equal(res.pos, res2.pos), "path AX: two solves differ")
+    require(err <= 1e-5, f"path AX off the CPU by {err}")
+    require(bool(res.converged) == bool(cres.converged)
+            and bool(res.stalled) == bool(cres.stalled),
+            "path AX: converged/stalled differ from the CPU's")
+    require(bool(res.converged) or bool(res.stalled), "path AX unfinished")
+    require(sag < -1e-3, f"path AX: no sag ({sag})")
+    require(not state_x.vel.any() and torch.equal(state_x.pos, res2.pos),
+            "path AX: the state is not at rest at the equilibrium")
+    line["AX"] = dict(particles=size[0], tets=size[1],
+                      iterations=int(res.iterations),
+                      cg_iterations=int(res.cg_iterations),
+                      converged=bool(res.converged), wall_s=wall,
+                      device_ms_per_solve=dev_ms, busy_pct=busy,
+                      cpu_err=err, card=card)
+    zero_counts()
+    return line, time.perf_counter() - t_phase
+
+
 def launch_counters():
     """(zero_counts, counts, instances, only) over every kernel wrapper's
     launch count (the closures each path's checks use)."""
@@ -6910,6 +7290,12 @@ def main():
     kernels.extend(contact_rows)
     log(json.dumps({"contact_paths": contact_line}))
     log(f"[contact] sections 62-66 in {contact_s:.1f} s")
+
+    # -- 67.-71. Newton, the two-level PCG and the static solve: AT-AX -------
+    newton_line, newton_s = run_newton(torch, dev, zero_counts, counts, only,
+                                       card)
+    log(json.dumps({"newton_paths": newton_line}))
+    log(f"[newton] sections 67-71 in {newton_s:.1f} s")
     for name in [k for k, _, _ in KERNELS] + ["contact_pairs",
                                               "contact_grid"]:
         for d in (2, 3):

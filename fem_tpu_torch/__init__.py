@@ -17,7 +17,10 @@ entry points users call: ``Simulation`` (``api.py``), the CLI
 (``python -m fem_tpu_torch.main``), checkpoints, metrics, the NaN guard,
 rendering and OBJ/VTU export — and body-body penalty contact
 (``contact.py``, ``broadphase.py``: the pair forces and the grid's narrow
-phase as hand-written kernels) and batched ensembles (``batch.py``).  CUDA kernels run on a GPU,
+phase as hand-written kernels) and batched ensembles (``batch.py``) — and
+the Newton integrator, the two-level preconditioner and the quasi-static
+solve (``solvers/newton.py``, ``multilevel.py``, ``static.py``), over the
+blocked kernels.  CUDA kernels run on a GPU,
 their plain PyTorch versions on the CPU.  The package imports nothing of
 the JAX package.
 

@@ -15,9 +15,9 @@ It runs on the CUDA device unless ``device="cpu"`` is passed.  Everything
 stays reachable underneath (``sim.scene[i].obj`` / ``.state``,
 ``fem_tpu_torch.sim.substep``).  What the port does not cover raises
 ``NotImplementedError`` naming its ROADMAP item: the analysis solvers
-(M19) and ``sharded=True`` (M20).  ``contact="penalty"`` with more than
-one body, or with ``self_contact``, steps every body jointly through
-``contact.make_contact_frame_fn``.
+other than ``solve_static`` (M19) and ``sharded=True`` (M20).
+``contact="penalty"`` with more than one body, or with ``self_contact``,
+steps every body jointly through ``contact.make_contact_frame_fn``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from fem_tpu_torch.contact import contact_scene, make_contact_frame_fn
 from fem_tpu_torch.ops.element import deformation_gradients, element_stresses
@@ -109,14 +110,32 @@ class Simulation:
                 check_state(self.scene[0].obj, self.scene[0].state,
                             self.frame_count * self.cfg.sim_count)
 
-    # -- the analysis solvers (not ported) --------------------------------
+    # -- the analysis solvers -----------------------------------------------
+    def solve_static(self, gravity: bool = True, index: Optional[int] = None,
+                     **kw) -> list:
+        """Solve each body (or just ``index``) to quasi-static equilibrium
+        under gravity (``cfg.g_dir``; none with ``gravity=False``) and set
+        its state there with zero velocity (``solvers/static.py``: Newton
+        on the pinned body; ``kw`` its settings).  Returns the
+        ``StaticResult`` list."""
+        from fem_tpu_torch.solvers.static import solve_static as _solve
+
+        results = []
+        targets = self.scene if index is None else [self.scene[index]]
+        for s in targets:
+            res = _solve(s.obj, s.state.pos,
+                         g_dir=self.cfg.g_dir if gravity else None, **kw)
+            zeros = torch.zeros_like(s.state.pos)
+            s.state = s.state.replace(pos=res.pos, vel=zeros, vel_g=zeros,
+                                      force=zeros)
+            results.append(res)
+        return results
+
+    # The other analysis solvers are not ported.
     def _analysis(self, name: str):
         raise NotImplementedError(
             f"Simulation.{name} (the analysis solvers) is not ported yet "
             "(ROADMAP M19)")
-
-    def solve_static(self, *args, **kw):
-        self._analysis("solve_static")
 
     def modes(self, *args, **kw):
         self._analysis("modes")

@@ -13,7 +13,11 @@ arrays (``free_mask``, ``pin_vel``, ``static_load``) and the edge matrix of
 so are the typed obstacles' arrays of :class:`Obstacles`.  The serial
 Jacobi sweep's plan is rebuilt from ``element_indices`` too (the same host
 algorithm as the JAX package's ``build_jacobi_plan``), and the state's
-``jacobi_past_x`` crosses with the state, zero when absent.  A batched
+``jacobi_past_x`` crosses with the state, zero when absent.  The coarse
+space of the two-level preconditioner (``agg_ids``, ``agg_basis``) crosses
+when given and is built from ``rest_pos`` otherwise (the same host
+algorithm as the JAX package's ``build_aggregates``); ``num_aggregates``
+is its largest id + 1.  A batched
 state (the JAX package's ``batch.py``: every field with a leading B axis)
 crosses through the same two functions, its axis kept.  A contact plan
 (``contact.ContactPlan``) crosses as the JAX package's plan fields
@@ -34,6 +38,7 @@ from fem_tpu_torch.models.state import (
     FemObject,
     Obstacles,
     SimState,
+    coarse_arrays,
     jacobi_arrays,
 )
 from fem_tpu_torch.ops.assembly import make_gather_plan
@@ -46,12 +51,16 @@ OBJECT_ARRAYS = ("element_indices", "ref_inv", "volume", "mass", "rest_pos", "fa
 OBJECT_STATICS = (
     "dim", "particle_cnt", "element_cnt", "mesh_cnt", "mu", "s_lambda",
     "damping", "rho", "material", "plastic_yield", "viscous_mu",
-    "viscous_tau", "damping_beta",
+    "viscous_tau", "damping_beta", "num_aggregates",
 )
 # The pins' and loads' arrays and the dense edge matrix of
-# operator_mode="mxu": optional (absent or None when off).
+# operator_mode="mxu", and the coarse space (built at load when absent):
+# optional (absent or None when off).
 OPTIONAL_OBJECT_ARRAYS = ("free_mask", "pin_vel", "static_load",
-                          "edge_matrix")
+                          "edge_matrix", "agg_ids", "agg_basis")
+# The arrays of OPTIONAL_OBJECT_ARRAYS that object_from_arrays builds from
+# rest_pos when they are absent (coarse_arrays).
+_COARSE_ARRAYS = ("agg_ids", "agg_basis")
 STATE_ARRAYS = ("pos", "vel", "vel_g", "force", "jacobi_past_x")
 # The inelastic internal inverses: optional (absent or None when off).
 INTERNAL_ARRAYS = ("plastic_inv", "viscous_inv")
@@ -72,7 +81,8 @@ def object_from_arrays(
     """A :class:`FemObject` from ``arrays`` (the names of ``OBJECT_ARRAYS``
     and, when on, of ``OPTIONAL_OBJECT_ARRAYS``) and ``statics`` (the names
     of ``OBJECT_STATICS``; the inelastic ones and ``damping_beta`` optional,
-    at their defaults when absent)."""
+    at their defaults when absent; ``num_aggregates`` follows from
+    ``agg_ids``)."""
     dev = resolve_device(device)
     check_material(statics["material"])
     tensors = {}
@@ -87,13 +97,16 @@ def object_from_arrays(
         np.asarray(arrays["rest_pos"], np.float32), device=dev,
     )
     for name in OPTIONAL_OBJECT_ARRAYS:
-        if arrays.get(name) is not None:
+        if arrays.get(name) is not None and name not in _COARSE_ARRAYS:
             tensors[name] = torch.tensor(
                 np.asarray(arrays[name], np.float32), device=dev)
+    coarse = coarse_arrays(arrays["rest_pos"], dev, arrays.get("agg_ids"),
+                           arrays.get("agg_basis"))
     return FemObject(
         **tensors, plan=plan, blocking=blocking,
-        **jacobi_arrays(idx, int(statics["particle_cnt"]), dev),
-        **{k: statics[k] for k in OBJECT_STATICS if k in statics},
+        **jacobi_arrays(idx, int(statics["particle_cnt"]), dev), **coarse,
+        **{k: statics[k] for k in OBJECT_STATICS
+           if k in statics and k != "num_aggregates"},
     )
 
 

@@ -106,6 +106,12 @@ class FemObject:
     jacobi_slots: Optional[torch.Tensor] = None  # (E, 4d) int32
     jacobi_coeff: Optional[torch.Tensor] = None  # (E, 4d) float32 ±1
     jacobi_gather: Optional[TieredPlan] = None
+    # Coarse space of the two-level preconditioner (solvers/multilevel.py):
+    # Morton particle aggregates and each particle's rows of the rigid-body
+    # basis, built on the host at load (:func:`coarse_arrays`).
+    agg_ids: Optional[torch.Tensor] = None  # (N,) int32
+    agg_basis: Optional[torch.Tensor] = None  # (N, d, n_rb) float32
+    num_aggregates: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -304,6 +310,7 @@ def build_object(
         static_load=tensor(static_load),
         damping_beta=cfg.damping_beta,
         **jacobi_arrays(idx, n, dev),
+        **coarse_arrays(pos, dev),
     )
     return obj, initial_state(pos, dev, obj)
 
@@ -317,6 +324,31 @@ def jacobi_arrays(element_indices: np.ndarray, n: int, device) -> dict:
         jacobi_slots=torch.as_tensor(slots, device=device),
         jacobi_coeff=torch.as_tensor(coeff, device=device),
         jacobi_gather=make_jacobi_gather(slots, nb.size, device),
+    )
+
+
+def coarse_arrays(rest_pos: np.ndarray, device, agg_ids=None,
+                  agg_basis=None) -> dict:
+    """The coarse-space fields of :class:`FemObject` on ``device`` (JAX
+    state.py:288-295, 322-324): ``agg_ids`` and ``agg_basis`` as given, or
+    built from ``rest_pos`` at the default aggregate size
+    (``solvers/multilevel.build_aggregates``: 10 particles in 2D, 40 in
+    3D); ``num_aggregates`` = the largest id + 1."""
+    from fem_tpu_torch.solvers.multilevel import (
+        build_aggregates,
+        default_aggregate_size,
+    )
+
+    rest_pos = np.asarray(rest_pos, np.float32)
+    if agg_ids is None:
+        agg_ids, agg_basis = build_aggregates(
+            rest_pos, default_aggregate_size(rest_pos.shape[1]))
+    agg_ids = np.array(agg_ids, np.int32)
+    return dict(
+        agg_ids=torch.as_tensor(agg_ids, device=device),
+        agg_basis=torch.as_tensor(np.array(agg_basis, np.float32),
+                                  device=device),
+        num_aggregates=int(agg_ids.max()) + 1,
     )
 
 

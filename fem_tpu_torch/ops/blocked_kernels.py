@@ -943,24 +943,17 @@ blocked_prep.instance_launches = {}
 blocked_grad_prep.instance_launches = {}
 
 
-def blocked_velocity_solve(
-    blk: Blocking, prepped, vel, mass, dt: float, normal: bool, *,
-    apply=blocked_graph_apply, beta: float = 0.0,
-    cg_precond: str = "reference", diag_fn=None, free=None, pin_vel=None,
-    max_iter: int = 500, tol: float = 1e-5,
-) -> CGResult:
-    """One implicit velocity solve over the blocks (the JAX package's
-    blocked branch, solvers/implicit.py:1080-1101) from the prep's
-    ``prepped`` = (K, the assembled force f): b = v + dt·f/m, then ``cg_solve_dispatch`` over A·v = v − c·G(K)·v/m and
-    Aᵀ·v = v − c·G(Kᵀ)·(v/m), c = dt·(dt + ``beta``): the reference CG
-    (x₀ = b; normal equations when ``normal``), or with ``cg_precond``
-    ``"block_jacobi"`` the PCG on the blocks ``diag_fn()``, and the pin
-    projection by ``free``/``pin_vel``.  ``apply`` defaults to the kernel's
-    wrapper; the plain frame passes its plain version."""
-    K, f = prepped
+def blocked_system_applies(blk: Blocking, K, mass, dt: float,
+                           beta: float = 0.0, apply=None):
+    """(apply_a, apply_at) of the blocked operator A = I − c·M⁻¹·G(K),
+    c = dt·(dt + ``beta``): A·v = v − c·G(K)·v/m and Aᵀ·v = v −
+    c·G(Kᵀ)·(v/m), G through ``apply`` (the kernel's wrapper,
+    :func:`blocked_graph_apply`, when None; the plain frame passes its
+    plain version) on the block-ordered K (B·Eb, d, d)."""
+    if apply is None:
+        apply = blocked_graph_apply
     minv = (1.0 / mass)[:, None]
     c = system_coeff(dt, beta)
-    b = vel + dt * f * minv
 
     def apply_a(v):
         return v - c * apply(blk, K, v, False) * minv
@@ -968,6 +961,27 @@ def blocked_velocity_solve(
     def apply_at(v):
         return v - c * apply(blk, K, v * minv, True)
 
+    return apply_a, apply_at
+
+
+def blocked_velocity_solve(
+    blk: Blocking, prepped, vel, mass, dt: float, normal: bool, *,
+    apply=None, beta: float = 0.0,
+    cg_precond: str = "reference", diag_fn=None, free=None, pin_vel=None,
+    max_iter: int = 500, tol: float = 1e-5, two_level_fn=None,
+) -> CGResult:
+    """One implicit velocity solve over the blocks (the JAX package's
+    blocked branch, solvers/implicit.py:1080-1101) from the prep's
+    ``prepped`` = (K, the assembled force f): b = v + dt·f/m, then
+    ``cg_solve_dispatch`` over :func:`blocked_system_applies`: the
+    reference CG (x₀ = b; normal equations when ``normal``), or with
+    ``cg_precond`` ``"block_jacobi"`` the PCG on the blocks ``diag_fn()``,
+    or ``"two_level…"`` the two-level PCG on them and ``two_level_fn()``,
+    and the pin projection by ``free``/``pin_vel``.  ``apply`` as in
+    :func:`blocked_system_applies`."""
+    K, f = prepped
+    b = vel + dt * f * (1.0 / mass)[:, None]
+    apply_a, apply_at = blocked_system_applies(blk, K, mass, dt, beta, apply)
     return cg_solve_dispatch(
         apply_a, lambda: apply_at, b, int(bool(normal)), cg_precond, diag_fn,
-        mass, free, pin_vel, max_iter, tol)
+        mass, free, pin_vel, max_iter, tol, two_level_fn)

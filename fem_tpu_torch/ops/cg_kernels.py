@@ -26,8 +26,9 @@ Semantics (the reference CG, solver/implicit.py:289-341):
 The module also holds the port's one CG loop for the op-composed solves,
 :func:`conjugate_gradient`, and what routes a solve to it
 (:func:`cg_solve_dispatch`): the reference CG (plain or normal equations),
-the block-Jacobi PCG (:func:`preconditioned_conjugate_gradient`, the one
-preconditioned loop) and the pin projection around either; and the
+the block-Jacobi PCG (:func:`preconditioned_conjugate_gradient`), the
+two-level PCG (``solvers/multilevel.py``) and the pin projection around
+each; and the
 operator's pieces: Rayleigh β in the system coefficient
 (:func:`system_coeff`) and the per-particle diagonal blocks of A
 (:func:`diagonal_blocks_from`).
@@ -205,13 +206,17 @@ def cg_solve_dispatch(
     pin_vel: torch.Tensor | None = None,
     max_iter: int = 500,
     tol: float = 1e-5,
+    two_level_fn=None,
 ) -> CGResult:
     """One CG solve of A·x = b routed by ``cg_precond`` (the JAX package's
     ``_cg_solve_dispatch``): ``"reference"`` normal equations AᵀA·x = Aᵀb
     when ``preconditioned`` is 1, else plain CG; ``"none"`` plain CG;
     ``"block_jacobi"`` :func:`preconditioned_conjugate_gradient` on the
-    blocks of ``diag_fn()``.  x₀ = b in every mode.  ``apply_at_fn`` and
-    ``diag_fn`` are thunks, so Aᵀ and the blocks are built only when the
+    blocks of ``diag_fn()``; ``"two_level"`` and ``"two_level_cheb<k>"``
+    the two-level PCG (``solvers/multilevel.two_level_pcg``) on those
+    blocks and the coarse space and matrix ``two_level_fn()`` gives.  x₀ =
+    b in every mode.  ``apply_at_fn``, ``diag_fn`` and ``two_level_fn`` are
+    thunks, so Aᵀ, the blocks and the coarse matrix are built only when the
     mode needs them.
 
     ``free`` (N, 1), the pins' mask, solves the projected system
@@ -255,6 +260,23 @@ def cg_solve_dispatch(
             )
         return preconditioned_conjugate_gradient(
             apply_a, diag_fn(), mass, b, b, max_iter, tol)
+    from fem_tpu_torch.solvers.multilevel import (
+        parse_two_level_precond,
+        two_level_pcg,
+    )
+
+    tl, tl_smoother, tl_degree = parse_two_level_precond(cg_precond)
+    if tl:
+        if two_level_fn is None or diag_fn is None:
+            raise ValueError(
+                "cg_precond='two_level' requires explicit K blocks and the "
+                "attached coarse space; unavailable for "
+                "hessian='exact_jvp' (use cg_precond='none' there)"
+            )
+        coarse, c_mat = two_level_fn()
+        return two_level_pcg(
+            apply_a, diag_fn(), mass, coarse, c_mat, b, b, max_iter, tol,
+            free_mask=free, smoother=tl_smoother, cheb_degree=tl_degree)
     if cg_precond not in ("reference", "none"):
         raise ValueError(f"unknown cg_precond {cg_precond!r}")
     if cg_precond == "reference" and preconditioned == 1:

@@ -2,18 +2,20 @@
 """Simulation stepping: the substep and the frame.
 
 The port of the JAX package's ``sim.py`` for the semi-implicit path (the
-conjugate-gradient and the Jacobi solvers, matrix-free or dense) and the
-explicit and autodiff paths.  A substep
+conjugate-gradient and the Jacobi solvers, matrix-free or dense), the
+Newton integrator and the explicit and autodiff paths.  A substep
 is, as in the reference's main loop (main.py:101-112; ``auto_diff`` wins
 over everything):
 
 * explicit or autodiff: the assembled energy gradient
   (``solvers/explicit.py``) less the external force, then the kinematic
   step (``solvers/advect.kinematic_step``);
-* otherwise: the velocity solve (``solvers/implicit.py``), with the
-  external force folded into the velocity it starts from
-  (b = v + dt·M⁻¹(f_el + f_ext)), then implicit advection
-  (``solvers/advect.advect_implicit_step``).
+* otherwise: the velocity solve — semi-implicit (``solvers/implicit.py``)
+  or, with ``integrator="newton"``, the Newton solve
+  (``solvers/newton.py``) — with the external force folded into the
+  velocity it starts from (b = v + dt·M⁻¹(f_el + f_ext)), then implicit
+  advection (``solvers/advect.advect_implicit_step``, θ-weighted after a
+  Newton solve at ``newton_theta`` < 1).
 
 The external force is the caller's (``external_force``: the contact
 forces of ``contact.py``), the object's static load (``load_boxes``) and, on
@@ -109,6 +111,7 @@ from fem_tpu_torch.solvers.implicit import (
     implicit_velocity_solve,
     rayleigh_damping_grad,
 )
+from fem_tpu_torch.solvers.newton import newton_velocity_solve
 from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, SimConfig
 
 
@@ -130,10 +133,6 @@ def check_supported_config(cfg: SimConfig) -> None:
     unsupported = []
     if not _explicit(cfg):
         unsupported += [
-            (cfg.integrator != "semi_implicit",
-             f"integrator={cfg.integrator!r}", "M16"),
-            (cfg.cg_precond.startswith("two_level"),
-             f"cg_precond={cfg.cg_precond!r}", "M16"),
             (cfg.cg_fast_math,
              "cg_fast_math (the TPU kernels' 2-plane bf16 split-dots on the "
              "MXU; the port computes in plain f32 and has no counterpart)",
@@ -165,6 +164,12 @@ def substep(
     wall_friction: float = 0.0,
     jacobi_sweep: str = "serial",
     solver_backend: str = "auto",
+    integrator: str = "semi_implicit",
+    newton_iters: int = 10,
+    newton_cg_iters: int = 120,
+    newton_tol: float = 1e-5,
+    newton_hessian: str = "exact",
+    newton_theta: float = 1.0,
     external_force: Optional[torch.Tensor] = None,
 ) -> Tuple[SimState, StepAux]:
     """One substep.  Explicit or autodiff: the energy gradient less the
@@ -172,11 +177,15 @@ def substep(
     The external force is ``external_force`` (N, d) (the penalty contact
     forces of ``contact.make_contact_frame_fn``) plus the object's static
     load, in the JAX package's order (``external_force + static_load``).
-    Otherwise semi-implicit: the velocity solve from v + dt·M⁻¹·f_ext —
-    the dense backend (``solvers/dense.py``) for ``solver_backend="dense"``
-    under the JAX package's conditions (its sim.py:203-222: the reference
-    Hessian and CG preconditioner, no material layers, no pins), else the
-    matrix-free solve — then advection.  An inelastic material then updates
+    Otherwise implicit: the velocity solve from v + dt·M⁻¹·f_ext — with
+    ``integrator="newton"`` the Newton solve (``solvers/newton.py``; the
+    ``newton_*`` settings, ``cg_precond`` "reference" read as "none"), its
+    θ-scheme position weighting from the physical velocity before the
+    fold; else the dense backend (``solvers/dense.py``) for
+    ``solver_backend="dense"`` under the JAX package's conditions (its
+    sim.py:203-222: the reference Hessian and CG preconditioner, no
+    material layers, no pins), else the matrix-free solve — then advection
+    (θ-weighted after Newton at θ < 1).  An inelastic material then updates
     its internal inverses."""
     inelastic = is_inelastic(obj)
     layers = material_layers(obj, state) if inelastic else None
@@ -211,12 +220,40 @@ def substep(
             torch.zeros((), dtype=torch.int32, device=obj.device),
             torch.zeros((), dtype=torch.float32, device=obj.device),
         )
+    # The θ-scheme's position weighting takes the physical start velocity
+    # (vel + vel_g) and the Newton force position the unfolded vel, both
+    # from before the external-force fold below, which is algebra, not a
+    # velocity the body had (the JAX package's sim.py:139-151).
+    theta_newton = integrator == "newton" and newton_theta != 1.0
+    vel_pos_old = state.vel + state.vel_g if theta_newton else None
+    vel_unfolded = state.vel if theta_newton else None
     if external is not None:
         # b = v + dt·M⁻¹·f_el is linear in v: solving from
         # v' = v + dt·M⁻¹·f_ext gives b = v + dt·M⁻¹·(f_el + f_ext) on every
         # branch unchanged.
         state = state.replace(
             vel=state.vel + dt * external / obj.mass[:, None])
+    if integrator == "newton":
+        state, aux = newton_velocity_solve(
+            obj, state, dt, max_newton=newton_iters,
+            cg_iters=newton_cg_iters, tol=newton_tol,
+            hessian_mode=newton_hessian, element_backend=element_backend,
+            # "reference" and "none" are plain CG inside Newton (it has no
+            # normal-equations variant).
+            cg_precond=(cg_precond if cg_precond == "block_jacobi"
+                        or cg_precond.startswith("two_level") else "none"),
+            robust=robust_inversion, beta=obj.damping_beta,
+            theta=newton_theta, layers=layers, v_n_pos=vel_unfolded)
+        state = advect_implicit_step(
+            state, obstacles, dt,
+            damping_decay(dt, obj.damping, state.pos.dtype),
+            gravity_vector(tuple(g_dir), obj.device), **advect_kw,
+            theta=newton_theta, vel_pos_old=vel_pos_old)
+        if inelastic:
+            state = advance_internal(obj, state, dt)
+        return state, StepAux(aux.iterations, aux.residual)
+    if integrator != "semi_implicit":
+        raise ValueError(f"unknown integrator {integrator!r}")
     use_dense = (solver_backend == "dense" and hessian == "reference"
                  and cg_precond == "reference" and not inelastic
                  and obj.free_mask is None)
@@ -257,6 +294,12 @@ def substep_kwargs(cfg: SimConfig) -> dict:
         wall_friction=cfg.wall_friction,
         jacobi_sweep=cfg.jacobi_sweep,
         solver_backend=cfg.solver_backend,
+        integrator=cfg.integrator,
+        newton_iters=cfg.newton_iters,
+        newton_cg_iters=cfg.newton_cg_iters,
+        newton_tol=cfg.newton_tol,
+        newton_hessian=cfg.newton_hessian,
+        newton_theta=cfg.newton_theta,
     )
 
 

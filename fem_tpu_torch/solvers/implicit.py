@@ -23,7 +23,9 @@ implicit.py:995-1155):
   Aᵀ·y from its reverse derivative (``torch.func.vjp``), plain PyTorch as
   XLA is in the JAX package; the rhs through ``implicit_rhs`` (K9b for a
   Neo-Hookean layer on a CUDA object); plain or normal-equations CG only;
-* pins (``free_mask``), Rayleigh β or ``cg_precond="block_jacobi"``: no
+* pins (``free_mask``), Rayleigh β, ``cg_precond="block_jacobi"`` or the
+  two-level PCG (``"two_level"``, ``"two_level_cheb<k>"``,
+  ``solvers/multilevel.py``, its coarse matrix from the same K): no
   whole-solve kernel; on an object with locality blocks (``operator_mode``
   "auto", "fused" or "blocked") the blocked branch — the blocked prep K2
   per material layer, each launch ending in the assembled force, and the
@@ -39,8 +41,9 @@ implicit.py:995-1155):
   other mode the element chain K1 and the whole solve K4.
 
 The CG dispatch (``ops/cg_kernels.cg_solve_dispatch``) runs the reference
-CG or the block-Jacobi PCG, with the pin projection P·A·P + (I − P) around
-either; both loops read ‖r‖² on the host once an iteration.  On CUDA
+CG, the block-Jacobi PCG or the two-level PCG, with the pin projection
+P·A·P + (I − P) around each; every loop reads ‖r‖² on the host once an
+iteration.  On CUDA
 tensors the kernels are the hand-written CUDA ones; on CPU tensors their
 plain PyTorch versions.
 
@@ -112,6 +115,11 @@ from fem_tpu_torch.ops.jacobi_kernels import (
     jacobi_outer_loop,
     jacobi_serial,
 )
+from fem_tpu_torch.solvers.multilevel import (
+    coarse_matrix,
+    make_coarse_space,
+    parse_two_level_precond,
+)
 from fem_tpu_torch.utils.config import CONJUGATE_GRADIENT_METHOD, JACOBI_METHOD
 
 __all__ = [
@@ -129,6 +137,7 @@ __all__ = [
     "jacobi_solve_serial",
     "jacobi_solve_serial_sparse",
     "JacobiResult",
+    "element_linearization",
     "make_exact_hvp_apply",
     "make_mxu_system_apply",
     "make_system_apply",
@@ -236,21 +245,72 @@ def _one_layer_force_columns(pos, element_indices, ref_inv, volume, mu, lam,
                                            volume, mu, lam, material)
 
 
+def _force_columns(obj: FemObject, robust: bool, layers):
+    """(p, element_indices) ↦ the elastic force columns (E, d, d) at
+    positions p on that element table (the object's rest-edge inverses and
+    volumes, element for element), summed over material ``layers``, in
+    plain PyTorch with no in-place operation (so that ``torch.func``
+    differentiates it)."""
+    lys = normalize_layers(obj, layers)
+
+    def cols(p, element_indices):
+        return sum_layers(
+            _one_layer_force_columns(
+                p, element_indices, layer_ref_inv_local(obj.ref_inv, fi),
+                obj.volume, mu, lam, material, robust)
+            for fi, mu, lam, material in lys)
+
+    return cols
+
+
 def _assembled_force(obj: FemObject, robust: bool, layers):
     """p ↦ the assembled elastic force (N, d) at positions p, summed over
     material ``layers``, in plain PyTorch with no in-place operation (so
     that ``torch.func`` differentiates it)."""
-    lys = normalize_layers(obj, layers)
+    cols = _force_columns(obj, robust, layers)
 
     def force(p):
-        cols = sum_layers(
-            _one_layer_force_columns(
-                p, obj.element_indices, layer_ref_inv_local(obj.ref_inv, fi),
-                obj.volume, mu, lam, material, robust)
-            for fi, mu, lam, material in lys)
-        return gather_assemble(element_contrib_full(cols), obj.plan.idx)
+        return gather_assemble(
+            element_contrib_full(cols(p, obj.element_indices)), obj.plan.idx)
 
     return force
+
+
+def element_linearization(cols_fn, pos: torch.Tensor,
+                          element_indices: torch.Tensor,
+                          plan_idx: torch.Tensor):
+    """w ↦ the derivative at ``pos`` along w of the assembled element
+    columns ``cols_fn(p, element_indices)`` (the force's exact
+    Hessian-vector product), through each element's Jacobian of its
+    columns in its own (d+1)·d vertex coordinates, formed once here: one
+    ``torch.func.jvp`` over the (d+1)·d unit tangents at once
+    (``torch.func.vmap``), on a table of element-local positions.  Each
+    apply is then a gather, a (d², (d+1)·d) product per element and the
+    assembly through ``plan_idx`` — the JAX package's ``jax.jvp`` of the
+    assembled force, the same derivative summed in another order."""
+    e, dp1 = element_indices.shape
+    d = dp1 - 1
+    k = dp1 * d
+    dev, dtype = pos.device, pos.dtype
+    table = pos[element_indices.long()].reshape(e * dp1, d)
+    local = torch.arange(e * dp1, dtype=torch.int32,
+                         device=dev).reshape(e, dp1)
+    tangents = torch.eye(k, dtype=dtype, device=dev).reshape(
+        k, 1, dp1, d).expand(k, e, dp1, d).reshape(k, e * dp1, d)
+
+    def columns(x):
+        return cols_fn(x, local)
+
+    jac = torch.func.vmap(
+        lambda t: torch.func.jvp(columns, (table,), (t,))[1])(tangents)
+    jac = jac.reshape(k, e, d * d).permute(1, 2, 0)  # (E, d², k)
+
+    def apply(w):
+        we = w[element_indices.long()].reshape(e, k, 1)
+        dcols = torch.matmul(jac, we).reshape(e, d, d)
+        return gather_assemble(element_contrib_full(dcols), plan_idx)
+
+    return apply
 
 
 def make_exact_hvp_apply(
@@ -447,11 +507,9 @@ def implicit_velocity_solve(
                                       layers, hessian, jacobi_sweep)
     if method != CONJUGATE_GRADIENT_METHOD:
         raise ValueError(f"unknown implicit method {method}")
-    if cg_precond.startswith("two_level"):
-        raise NotImplementedError(
-            f"cg_precond={cg_precond!r} is not ported yet (ROADMAP M16)"
-        )
-    if cg_precond not in ("reference", "none", "block_jacobi"):
+    two_level = parse_two_level_precond(cg_precond)[0]
+    if cg_precond not in ("reference", "none", "block_jacobi") \
+            and not two_level:
         raise ValueError(f"unknown cg_precond {cg_precond!r}")
     if hessian == "exact_jvp":
         return _exact_solve(obj, state, dt, preconditioned, cg_precond,
@@ -460,7 +518,7 @@ def implicit_velocity_solve(
         raise ValueError(f"unknown hessian {hessian!r}")
     lys = normalize_layers(obj, layers)
     extended = (obj.free_mask is not None or obj.damping_beta != 0.0
-                or cg_precond == "block_jacobi")
+                or cg_precond == "block_jacobi" or two_level)
     if operator_mode == "blocked" or (
             extended and obj.blocking is not None
             and operator_mode in ("auto", "fused")):
@@ -514,7 +572,24 @@ def _graph_solve(obj, state, dt, preconditioned, cg_precond, K, cols,
     return _solved(state, cg_solve_dispatch(
         apply_a, lambda: apply_at, b, preconditioned, cg_precond,
         lambda: diagonal_blocks(obj, K, dt, beta), obj.mass, obj.free_mask,
-        obj.pin_vel))
+        obj.pin_vel, two_level_fn=_two_level_fn(obj, K, dt, beta)))
+
+
+def _two_level_fn(obj, K, dt, beta, element_indices=None):
+    """The thunk of the two-level PCG's (coarse space, coarse matrix) for K
+    on ``element_indices`` (the mesh's when None; the JAX package's
+    implicit.py:1125-1151 and :1252-1275)."""
+    def two_level_fn():
+        if obj.agg_ids is None:
+            raise ValueError(
+                "cg_precond='two_level' needs the coarse space attached at "
+                "build time (models/state.build_object)"
+            )
+        coarse = make_coarse_space(obj)
+        return coarse, coarse_matrix(coarse, obj, K, dt, beta, obj.free_mask,
+                                     element_indices)
+
+    return two_level_fn
 
 
 def _blocked_solve(obj, state, dt, preconditioned, cg_precond, robust,
@@ -546,7 +621,8 @@ def _blocked_solve(obj, state, dt, preconditioned, cg_precond, robust,
         cg_precond=cg_precond,
         diag_fn=lambda: diagonal_blocks(obj, K[blk.element_slot.long()], dt,
                                         beta),
-        free=obj.free_mask, pin_vel=obj.pin_vel))
+        free=obj.free_mask, pin_vel=obj.pin_vel,
+        two_level_fn=_two_level_fn(obj, K, dt, beta, blk.element_indices)))
 
 
 def _exact_solve(obj, state, dt, preconditioned, cg_precond, robust,

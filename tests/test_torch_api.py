@@ -173,13 +173,17 @@ def test_check_state_raises_on_a_diverged_state():
 
 
 def test_unported_features_are_refused():
-    """The analysis solvers name ROADMAP M19 and ``sharded=True`` M20, with
-    penalty contact too; none runs in a degraded form."""
+    """The analysis solvers but the static solve name ROADMAP M19 and
+    ``sharded=True`` M20, with penalty contact too; none runs in a degraded
+    form.  The static solve runs since M16, and refuses an unpinned body as
+    the JAX package does."""
     sim = fem_tpu_torch.Simulation.from_dict(_cfg_dict(), device="cpu")
-    for name in ("solve_static", "modes", "buckling", "harmonic",
-                 "response_spectrum", "arc_length"):
+    for name in ("modes", "buckling", "harmonic", "response_spectrum",
+                 "arc_length"):
         with pytest.raises(NotImplementedError, match="ROADMAP M19"):
             getattr(sim, name)()
+    with pytest.raises(ValueError, match="pin_boxes"):
+        sim.solve_static()
     with pytest.raises(NotImplementedError, match="ROADMAP M20"):
         fem_tpu_torch.Simulation.from_dict(_cfg_dict(), sharded=True,
                                            device="cpu")

@@ -135,7 +135,8 @@ def test_unported_features_raise():
     from fem_tpu_torch.utils.config import ObstacleConfig
 
     # The Jacobi solver and the dense backend run since M10, the adaptive-dt
-    # guard since M15, penalty contact since M17.
+    # guard since M15, penalty contact since M17, the Newton integrator and
+    # the two-level preconditioner since M16.
     for change in (
         dict(robust_inversion=True), dict(cg_precond="block_jacobi"),
         dict(hessian="exact_jvp"), dict(wall_friction=0.3),
@@ -146,13 +147,15 @@ def test_unported_features_raise():
                                        normal=(0, 1, 0)),)),
         dict(adaptive_dt=True),
         dict(contact="penalty"), dict(contact="penalty", self_contact=True),
-    ):
-        check_supported_config(dataclasses.replace(base, **change))
-    for change in (
         dict(integrator="newton"), dict(cg_precond="two_level"),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP M"):
-            check_supported_config(dataclasses.replace(base, **change))
+        check_supported_config(dataclasses.replace(base, **change))
+    # The analysis solvers but the static solve (M16) stay refused (M19).
+    from fem_tpu_torch import Simulation
+
+    simulation = Simulation(base, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP M19"):
+        simulation.modes()
     # Pins, loads and Rayleigh β run since M13.
     for change in (
         dict(load_boxes=(((0, 0, 0), (1, 1, 1), (0, -1, 0)),)),
