@@ -16,7 +16,7 @@ operator, the edge-matrix CG and the two probes (AE-AG, P1, P2), the
 Jacobi solver (AH-AK), the CLI, ``Simulation`` and the adaptive-dt guard
 (AL-AN), body-body contact and the batched frame (AO-AS), and the Newton
 integrator, the two-level preconditioner and the static solve (AT-AX),
-and holds
+and differentiable rollouts and their gradients (AY-BA), and holds
 every CUDA kernel of those paths against its plain PyTorch version.  K5
 runs as its cluster variant on every path (each mesh there fits one
 thread-block cluster; ``counts()`` fails the run otherwise), as do K8, K4,
@@ -428,7 +428,30 @@ the eight:
 71. path AX, ``Simulation.solve_static(cg_precond="two_level_cheb3")`` on
     ``assets/cube.stl`` at interior spacing 0.2, pinned on top: within
     1e-5 of the CPU's solve, ``converged``/``stalled`` equal, at rest.
-    One ``newton_paths`` JSON line holds their numbers.
+    One ``newton_paths`` JSON line holds their numbers;
+72. path AY, a gradient through a full flagship frame
+    (``diff.make_diff_rollout_fn``: 10 implicit substeps from the
+    deformed state, normal-equations CG of 32 iterations, ``remat``): the
+    trajectory loss against a target made on the card at 1.5× μ, its
+    gradient in μ, λ, the damping and the initial velocity.  K3 launches
+    (``variant_launches``) as many times as
+    ``diff.implicit_graph_products`` predicts and no other kernel runs; no
+    plain version called; two runs bit-identical; the gradient within
+    1e-3 of the CPU's and of the plain products' on the card, equal with
+    ``remat`` off; device ms a gradient, busy share, peak device memory
+    with and without ``remat``, the top device ops;
+73. path AZ, 5 steps of ``torch.optim.Adam`` on log E from a 2× wrong
+    guess against a target at the flagship's E (one frame each, as
+    examples/inverse_material.py): K3 as predicted every step, the loss
+    after step 5 below step 1's;
+74. paths BA, the explicit and autodiff rollouts of ``default.json`` (12
+    substeps, squashed), the explicit flagship at dt 1e-4 from the
+    deformed state (10) and
+    ``demo_plastic.json``'s plastic body with the yield strain traced (10,
+    squashed past yield): no kernel launched (the element chain and the
+    advection are plain PyTorch under autograd, as XLA in the JAX
+    package), finite, two runs bit-identical, the gradients within 1e-3
+    of the CPU's.  One ``diff_paths`` JSON line holds their numbers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -6500,6 +6523,295 @@ def run_newton(torch, dev, zero_counts, counts, only, card):
     return line, time.perf_counter() - t_phase
 
 
+DIFF_CG_ITERS = 32  # paths AY and AZ: the CG's fixed iterations
+ADAM_STEPS = 5  # path AZ
+SUBSTEPS_BA = 12  # path BA on default.json; 10 on the flagship and plastic
+DIFF_TOL = 1e-3  # gradients against the CPU's, relative (a parameter) or
+# of the largest entry (the initial velocity): tests/test_torch_diff*.py
+TOP_OPS = 12  # path AY: device ops listed from its profile
+
+
+def diff_gradient(torch, diff, cfg, obj, state, obs, target, substeps,
+                  remat=True, yield_strain=None):
+    """(loss, gradients) of one differentiable rollout of ``substeps``
+    from ``state``: with ``target`` the trajectory MSE and its gradient in
+    μ, λ, the damping and the initial velocity; without, tests/test_diff.py's
+    functional (mean of the positions² and the final velocities²) in μ, λ,
+    the damping (and the yield strain)."""
+    rollout = diff.make_diff_rollout_fn(obj, cfg, substeps, DIFF_CG_ITERS,
+                                        remat)
+    p = diff.params_from_object(obj)
+    leaves = [t.requires_grad_(True) for t in p[:3]]
+    y = None
+    if yield_strain is not None:
+        y = torch.tensor(yield_strain, device=obj.device, requires_grad=True)
+        leaves.append(y)
+    start = state
+    if target is not None:
+        v0 = state.vel.clone().requires_grad_(True)
+        leaves.append(v0)
+        start = state.replace(vel=v0)
+    final, traj = rollout(diff.DiffParams(*leaves[:3], plastic_yield=y),
+                          start, obs)
+    if target is not None:
+        loss = torch.mean((traj - target) ** 2)
+    else:
+        loss = torch.mean(traj ** 2) + torch.mean(final.vel ** 2)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def grads_close(torch, label, got, ref, rel=DIFF_TOL):
+    """Require ``got`` (loss, gradients) within ``rel`` of ``ref``: the loss
+    1e-5 relative, a scalar gradient ``rel`` relative, a field ``rel`` of
+    its largest entry; returns the largest relative error."""
+    (loss, g), (rloss, r) = got, ref
+    worst = abs(float(loss) - float(rloss)) / max(abs(float(rloss)), 1e-30)
+    require(worst <= 1e-5, f"{label}: loss {float(loss)} vs {float(rloss)}")
+    for i, (a, b) in enumerate(zip(g, r)):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        scale = float(b.abs().max())
+        require(scale > 0.0, f"{label}: gradient {i} is 0")
+        err = float((a - b).abs().max()) / scale
+        require(err <= rel, f"{label}: gradient {i} off by {err:.3e} "
+                f"relative ({a.flatten()[:3].tolist()} vs "
+                f"{b.flatten()[:3].tolist()})")
+        worst = max(worst, err)
+    return worst
+
+
+def same_grads(torch, a, b):
+    return torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def top_device_ops(torch, go):
+    """(device ms by kernel name, sorted, the window's device ms) of one
+    run of ``go`` under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(EMPTY_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            go()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cuda:
+                by[e.name()] = by.get(e.name(), 0.0) + 1e-6 * e.duration_ns()
+        if by:
+            break
+    require(by, "the profiler recorded no device activity")
+    return sorted(by.items(), key=lambda kv: -kv[1]), sum(by.values())
+
+
+def run_diff(torch, dev, zero_counts, counts, only, card):
+    """Sections 72-74: differentiable rollouts, paths AY-BA.  Returns (the
+    ``diff_paths`` line's dict, phase seconds)."""
+    import math
+
+    from fem_tpu_torch import convert, diff, entry
+    from fem_tpu_torch.ops import blocked_kernels
+
+    t_phase = time.perf_counter()
+    line = {}
+    k3 = blocked_kernels.blocked_graph_apply
+
+    def on_cpu(obj, state, obs):
+        return (convert.object_from_arrays(*convert.object_to_arrays(obj),
+                                           "cpu"),
+                convert.state_from_arrays(convert.state_to_arrays(state),
+                                          "cpu"),
+                type(obs)(obs.centers.cpu(), obs.radii.cpu()))
+
+    def counts_and_k3():
+        return counts(), sum(k3.variant_launches.values())
+
+    # -- 72. path AY: the gradient through a full flagship frame ---------------
+    cfg, obj, state0, obs = entry.flagship(dev)
+    state = entry.deformed(state0)
+    n_sub = cfg.sim_count
+    with torch.no_grad():
+        p = diff.params_from_object(obj)
+        target = diff.make_diff_rollout_fn(obj, cfg, n_sub, DIFF_CG_ITERS)(
+            p._replace(mu=1.5 * p.mu), state, obs)[1]
+    predicted = diff.implicit_graph_products(obj, n_sub, DIFF_CG_ITERS, True)
+
+    def go(remat=True):
+        return diff_gradient(torch, diff, cfg, obj, state, obs, target,
+                             n_sub, remat)
+
+    first, wall, (launches, k3_variant), plain, second, dev_ms, busy = \
+        counted_then_profiled(torch, zero_counts, counts_and_k3, go, 1)
+    log(f"[path AY] K3 launches by variant {dict(k3.variant_launches)}; "
+        f"{k3_variant} in the counted gradient, predicted {predicted} "
+        f"(diff.implicit_graph_products: 10 substeps x ((3 + 2x32) x 2 "
+        f"with remat + 5 + 2x32))")
+    require(not plain, f"path AY ran plain versions {plain}")
+    require(k3_variant == predicted and launches == only(
+        blocked_matvec=predicted), f"path AY: K3 {k3_variant} (launches "
+        f"{launches}) vs predicted {predicted}")
+    require(same_grads(torch, first, second), "path AY: two runs differ")
+    require(all(bool(torch.isfinite(g).all()) for g in first[1]),
+            "path AY: a gradient is not finite")
+    c_obj, c_state, c_obs = on_cpu(obj, state, obs)
+    t0 = time.perf_counter()
+    cpu = diff_gradient(torch, diff, cfg, c_obj, c_state, c_obs,
+                        target.cpu(), n_sub)
+    cpu_s = time.perf_counter() - t0
+    err_cpu = grads_close(torch, "path AY vs the CPU", first, cpu)
+    # The same gradient with K3's plain version in its place, on the card.
+    zero_counts()
+    blocked_kernels.blocked_graph_apply = (
+        lambda blk, K, x, t=False:
+        blocked_kernels.blocked_graph_apply_plain(blk, K, x, t))
+    try:
+        plain_run = go()
+    finally:
+        blocked_kernels.blocked_graph_apply = k3
+    require(counts() == only(), "path AY with plain products launched a "
+            "kernel")
+    err_plain = grads_close(torch, "path AY vs the plain products", first,
+                            plain_run)
+    memory = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run = go(remat)
+        torch.cuda.synchronize()
+        memory["remat" if remat else "stored"] = dict(
+            peak_mb=torch.cuda.max_memory_allocated() / 2 ** 20,
+            above_start_mb=(torch.cuda.max_memory_allocated() - base)
+            / 2 ** 20)
+        require(same_grads(torch, run, first),
+                f"path AY: remat={remat} differs from the counted run")
+    ops, prof_ms = top_device_ops(torch, go)
+    index_ms = sum(ms for name, ms in ops if "index" in name.lower())
+    log(f"[path AY] loss {float(first[0]):.6e}; dL/dmu "
+        f"{float(first[1][0]):.6e}, dL/dlambda {float(first[1][1]):.6e}, "
+        f"dL/ddamping {float(first[1][2]):.6e}, max |dL/dv0| "
+        f"{float(first[1][3].abs().max()):.6e}; vs the CPU {err_cpu:.3e} "
+        f"({cpu_s:.1f} s there), vs the plain products {err_plain:.3e}; "
+        f"runs bit-identical; {wall:.3f} s a gradient (counted run), "
+        f"{dev_ms:.4f} device ms a gradient, device busy {busy:.1f}%; peak "
+        f"memory remat {memory['remat']['above_start_mb']:.1f} MB above the "
+        f"start ({memory['remat']['peak_mb']:.1f} MB), stored "
+        f"{memory['stored']['above_start_mb']:.1f} MB "
+        f"({memory['stored']['peak_mb']:.1f} MB); card {card}")
+    for name, ms in ops[:TOP_OPS]:
+        log(f"[path AY top op] {ms:.4f} ms ({100 * ms / prof_ms:.1f}%) "
+            f"{name[:140]}")
+    log(f"[path AY] index kernels {index_ms:.4f} ms of {prof_ms:.4f} device "
+        f"ms ({100 * index_ms / prof_ms:.1f}%)")
+    line["AY"] = dict(
+        substeps=n_sub, cg_iters=DIFF_CG_ITERS, loss=float(first[0]),
+        grad=dict(mu=float(first[1][0]), s_lambda=float(first[1][1]),
+                  damping=float(first[1][2]),
+                  v0_max=float(first[1][3].abs().max())),
+        launches=dict(K3=k3_variant), predicted_k3=predicted,
+        wall_s=wall, device_ms_per_gradient=dev_ms, busy_pct=busy,
+        cpu_rel_err=err_cpu, plain_rel_err=err_plain, cpu_s=cpu_s,
+        memory=memory, index_share_pct=100 * index_ms / prof_ms,
+        top_ops=[[name[:100], ms] for name, ms in ops[:TOP_OPS]], card=card)
+
+    # -- 73. path AZ: 5 Adam steps on log E -------------------------------------
+    ocfg = cfg.objects[0]
+    rollout = diff.make_diff_rollout_fn(obj, cfg, n_sub, DIFF_CG_ITERS)
+    damping = torch.tensor(obj.damping, device=dev)
+
+    def trajectory(log_e):
+        mu, lam = diff.lame_from_young(torch.exp(log_e), ocfg.nu)
+        return rollout(diff.DiffParams(mu, lam, damping), state, obs)[1]
+
+    with torch.no_grad():
+        target_e = trajectory(torch.log(torch.tensor(ocfg.E, device=dev)))
+    log_e = torch.log(torch.tensor(2.0 * ocfg.E, device=dev))
+    log_e.requires_grad_(True)
+    opt = torch.optim.Adam([log_e], lr=0.1)
+    losses, youngs, walls = [], [], []
+    per_step = diff.implicit_graph_products(obj, n_sub, DIFF_CG_ITERS, True)
+    for step in range(ADAM_STEPS):
+        zero_counts()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = torch.mean((trajectory(log_e) - target_e) ** 2) * 1e6
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        youngs.append(float(torch.exp(log_e.detach())))
+        walls.append(time.perf_counter() - t0)
+        launches, k3_step = counts_and_k3()
+        require(k3_step == per_step and launches == only(
+            blocked_matvec=per_step), f"path AZ step {step + 1}: K3 "
+            f"{k3_step} vs {per_step}")
+        require(math.isfinite(losses[-1]), f"path AZ step {step + 1}: loss")
+    log(f"[path AZ] {ADAM_STEPS} Adam steps on log E (lr 0.1, true E "
+        f"{ocfg.E:.0f}, guess {2 * ocfg.E:.0f}): losses "
+        f"{[f'{v:.6e}' for v in losses]}; E after each step "
+        f"{[f'{v:.1f}' for v in youngs]}; {sum(walls) / len(walls):.3f} s "
+        f"a step; K3 {per_step} a step; card {card}")
+    require(losses[-1] < losses[0], f"path AZ: loss {losses[-1]} after step "
+            f"{ADAM_STEPS} not below step 1's {losses[0]}")
+    line["AZ"] = dict(steps=ADAM_STEPS, losses=losses, youngs=youngs,
+                      s_per_step=sum(walls) / len(walls),
+                      launches=dict(K3=per_step), card=card)
+
+    # -- 74. paths BA: explicit, autodiff and plastic rollouts -----------------
+    def squashed(state, scale):
+        c = state.pos.mean(dim=0, keepdim=True)
+        s = torch.tensor(scale[:state.pos.shape[1]], device=state.pos.device)
+        return state.replace(pos=c + (state.pos - c) * s)
+
+    default = os.path.join(REPO, "configs", "default.json")
+    plastic = os.path.join(REPO, "configs", "demo_plastic.json")
+    cases = []
+    for label, over in (("default.json explicit", dict(auto_diff=False)),
+                        ("default.json autodiff", {})):
+        c, o, s, ob = entry.load_config(default, dev, sim_overrides=over)
+        cases.append((label, c, o, squashed(s, (1.25, 1.1)), ob,
+                      SUBSTEPS_BA, None))
+    c, o, s, ob = entry.explicit_flagship(dev)
+    cases.append(("explicit flagship dt 1e-4, deformed", c, o,
+                  entry.deformed(s), ob, 10, None))
+    c, os_, ss, ob = entry.load_config(plastic, dev)
+    require(os_[0].plastic_yield > 0.0, "demo_plastic.json body 0 is elastic")
+    cases.append(("demo_plastic.json body 0, yield traced", c, os_[0],
+                  squashed(ss[0], (1.35, 0.75)), ob, 10,
+                  os_[0].plastic_yield))
+    line["BA"] = {}
+    for label, c, o, s, ob, n, y in cases:
+        def run_ba(c=c, o=o, s=s, ob=ob, n=n, y=y):
+            return diff_gradient(torch, diff, c, o, s, ob, None, n,
+                                 yield_strain=y)
+
+        with PlainGuard() as guard:
+            zero_counts()
+            t0 = time.perf_counter()
+            got = run_ba()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts()
+        require(not guard.calls, f"path BA {label}: plain {guard.calls}")
+        require(launches == only(), f"path BA {label}: launches {launches}")
+        require(all(bool(torch.isfinite(g).all()) for g in got[1])
+                and math.isfinite(float(got[0])),
+                f"path BA {label}: not finite")
+        require(same_grads(torch, got, run_ba()),
+                f"path BA {label}: two runs differ")
+        cpu = diff_gradient(torch, diff, c, *on_cpu(o, s, ob), None, n,
+                            yield_strain=y)
+        err = grads_close(torch, f"path BA {label} vs the CPU", got, cpu)
+        log(f"[path BA] {label}: {n} substeps, loss {float(got[0]):.6e}, "
+            f"gradients {[f'{float(g):.6e}' for g in got[1]]}; vs the CPU "
+            f"{err:.3e}; runs bit-identical; no kernel; {wall:.3f} s a "
+            f"gradient; card {card}")
+        line["BA"][label] = dict(substeps=n, loss=float(got[0]),
+                                 grads=[float(g) for g in got[1]],
+                                 cpu_rel_err=err, wall_s=wall, card=card)
+    zero_counts()
+    return line, time.perf_counter() - t_phase
+
+
 def launch_counters():
     """(zero_counts, counts, instances, only) over every kernel wrapper's
     launch count (the closures each path's checks use)."""
@@ -7296,6 +7608,14 @@ def main():
                                        card)
     log(json.dumps({"newton_paths": newton_line}))
     log(f"[newton] sections 67-71 in {newton_s:.1f} s")
+
+    # -- 72.-74. differentiable rollouts: AY-BA -------------------------------
+    diff_line, diff_s = run_diff(torch, dev, zero_counts, counts, only, card)
+    log(json.dumps({"diff_paths": diff_line}))
+    log(f"[diff] sections 72-74 in {diff_s:.1f} s")
+    for r in kernels:
+        if r["name"] == "blocked_matvec" and r.get("dim") == 3:
+            r["ay_launches"] = diff_line["AY"]["launches"]["K3"]
     for name in [k for k, _, _ in KERNELS] + ["contact_pairs",
                                               "contact_grid"]:
         for d in (2, 3):

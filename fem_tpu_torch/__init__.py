@@ -20,7 +20,10 @@ rendering and OBJ/VTU export — and body-body penalty contact
 phase as hand-written kernels) and batched ensembles (``batch.py``) — and
 the Newton integrator, the two-level preconditioner and the quasi-static
 solve (``solvers/newton.py``, ``multilevel.py``, ``static.py``), over the
-blocked kernels.  CUDA kernels run on a GPU,
+blocked kernels — and differentiable rollouts (``diff.py``: gradients
+through whole trajectories, the implicit solve's adjoint a
+``torch.autograd.Function`` over the blocked operator).  CUDA kernels run
+on a GPU,
 their plain PyTorch versions on the CPU.  The package imports nothing of
 the JAX package.
 
@@ -40,6 +43,14 @@ torch.set_float32_matmul_precision("highest")
 from fem_tpu_torch.api import Simulation  # noqa: E402
 from fem_tpu_torch.batch import make_batched_frame_fn  # noqa: E402
 from fem_tpu_torch.contact import make_contact_frame_fn  # noqa: E402
+from fem_tpu_torch.diff import (  # noqa: E402
+    DiffParams,
+    lame_from_young,
+    make_diff_rollout_fn,
+    make_diff_substep_fn,
+    params_from_object,
+    trajectory_loss_fn,
+)
 from fem_tpu_torch.models.state import (  # noqa: E402
     FemObject,
     Obstacles,
@@ -59,6 +70,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BlockConfig",
+    "DiffParams",
     "FemObject",
     "ObjectConfig",
     "Obstacles",
@@ -67,11 +79,16 @@ __all__ = [
     "Simulation",
     "StepAux",
     "build_object",
+    "lame_from_young",
     "make_batched_frame_fn",
     "make_contact_frame_fn",
+    "make_diff_rollout_fn",
+    "make_diff_substep_fn",
     "make_frame_fn",
+    "params_from_object",
     "parse_config",
     "read_config",
     "substep",
+    "trajectory_loss_fn",
     "__version__",
 ]

@@ -109,6 +109,61 @@ def gather_edge_diffs(pos: torch.Tensor, element_indices: torch.Tensor) -> torch
     return diffs.transpose(-1, -2)  # columns = edges
 
 
+class _GatherRows(torch.autograd.Function):
+    """x[element_indices] (E, d+1, k), whose backward sums each particle's
+    rows through the gather plan (:class:`_AssembleRows`) instead of the
+    index backward's accumulation."""
+
+    @staticmethod
+    def forward(ctx, x, element_indices, plan_idx):
+        ctx.element_indices, ctx.plan_idx = element_indices, plan_idx
+        return x[element_indices.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AssembleRows.apply(g, ctx.plan_idx, ctx.element_indices), \
+            None, None
+
+
+class _AssembleRows(torch.autograd.Function):
+    """:func:`gather_assemble` of (E, d+1, k) contributions, whose backward
+    is the gather of each row's particle (:class:`_GatherRows`)."""
+
+    @staticmethod
+    def forward(ctx, contrib, plan_idx, element_indices):
+        ctx.element_indices, ctx.plan_idx = element_indices, plan_idx
+        return gather_assemble(contrib, plan_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherRows.apply(g, ctx.element_indices, ctx.plan_idx), \
+            None, None
+
+
+def gather_rows(x: torch.Tensor, element_indices: torch.Tensor,
+                plan: GatherPlan) -> torch.Tensor:
+    """``x[element_indices]`` (E, d+1, k), differentiable to any order with
+    no float atomics: the transpose of this gather is the per-particle sum
+    through ``plan`` (the plan of ``element_indices``) and the transpose of
+    that sum is this gather, so that every gradient is summed in the plan's
+    fixed order and two runs are bit-identical on every device."""
+    return _GatherRows.apply(x, element_indices, plan.idx)
+
+
+def assemble_rows(contrib: torch.Tensor, element_indices: torch.Tensor,
+                  plan: GatherPlan) -> torch.Tensor:
+    """:func:`gather_assemble` of (E, d+1, k) contributions through
+    ``plan``, differentiable to any order as :func:`gather_rows` is."""
+    return _AssembleRows.apply(contrib, plan.idx, element_indices)
+
+
+def edge_diffs(x: torch.Tensor, element_indices: torch.Tensor,
+               plan: GatherPlan) -> torch.Tensor:
+    """:func:`gather_edge_diffs` through :func:`gather_rows`."""
+    p = gather_rows(x, element_indices, plan)
+    return (p[:, 1:, :] - p[:, 0:1, :]).transpose(-1, -2)
+
+
 def build_jacobi_plan(element_indices, num_particles: int):
     """Block-sparse row structure of the implicit system for the serial
     Jacobi sweep (the JAX package's ``build_jacobi_plan``, copied).

@@ -86,7 +86,10 @@ def mooney_params(mu: float, s_lambda: float, d: int, material: str) -> tuple:
     """(C1, C2, λ_log) of ``mooney_rivlin[:β]`` (β ∈ [0, 1), default 0.5):
     C2 = β·μ/2, C1 = μ/2 − (d − 2)·C2, λ_log = λ − 4·C2, so that DP(I) is
     linear elasticity with (μ, λ).  Raises ``ValueError`` for β out of range
-    or λ_log < 0 or C1 ≤ 0, as the JAX package's ``mooney_params`` does."""
+    or λ_log < 0 or C1 ≤ 0, as the JAX package's ``mooney_params`` does.
+    With a tensor μ or λ (a differentiable rollout's parameters) the
+    calibration is not checked here, which would read it back to the host:
+    the caller checks it once on the object's floats."""
     base, _, arg = material.partition(":")
     assert base == "mooney_rivlin"
     beta = float(arg) if arg else 0.5
@@ -95,6 +98,8 @@ def mooney_params(mu: float, s_lambda: float, d: int, material: str) -> tuple:
     c2 = beta * mu / 2.0
     c1 = mu / 2.0 - (d - 2) * c2
     lam_log = s_lambda - 4.0 * c2
+    if torch.is_tensor(lam_log) or torch.is_tensor(c1):
+        return c1, c2, lam_log
     if lam_log < 0.0 or c1 <= 0.0:
         raise ValueError(
             f"mooney_rivlin calibration infeasible for {material!r}: "

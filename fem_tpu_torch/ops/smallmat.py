@@ -150,6 +150,40 @@ def gram(f: torch.Tensor) -> torch.Tensor:
     return matmul(mT(f), f)
 
 
+def _jacobi_t_plain(app, aqq, apq, off, one, zero):
+    tau = (aqq - app) / (2.0 * torch.where(off, apq, one))
+    sgn = torch.where(tau >= 0.0, one, -one)
+    return torch.where(
+        off, sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau)), zero)
+
+
+class _JacobiT(torch.autograd.Function):
+    """The Jacobi rotation's t = tan θ, its forward :func:`_jacobi_t_plain`
+    unchanged, its backward the closed form dt = (1 + t²)·dθ with
+    dθ = (δ·da_pq − a_pq·dδ)/(δ² + 4a_pq²), δ = a_qq − a_pp (0 where
+    a_pq = 0, where t is 0): autograd of τ = δ/2a_pq meets 0·∞ once a_pq is
+    tiny and its square underflows."""
+
+    @staticmethod
+    def forward(ctx, app, aqq, apq):
+        off = torch.abs(apq) > 0.0
+        one = torch.ones_like(app)
+        t = _jacobi_t_plain(app, aqq, apq, off, one, torch.zeros_like(one))
+        ctx.save_for_backward(app, aqq, apq, t)
+        return t
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        app, aqq, apq, t = ctx.saved_tensors
+        delta = aqq - app
+        den = delta * delta + 4.0 * apq * apq
+        off = (torch.abs(apq) > 0.0) & (den > 0.0)
+        w = torch.where(off, g * (1.0 + t * t)
+                        / torch.where(off, den, torch.ones_like(den)), 0.0)
+        return w * apq, -w * apq, w * delta
+
+
 def sym_eigh_core(a: dict, d: int, sweeps: int = 6):
     """Cyclic-Jacobi eigendecomposition on component planes (the JAX
     package's ``sym_eigh_core``, its ops/smallmat.py:204-251, step for
@@ -158,7 +192,9 @@ def sym_eigh_core(a: dict, d: int, sweeps: int = 6):
     (i, i)) and the rotation dict v[(i, j)] with A = V·diag(w)·Vᵀ.  2D is
     one exact rotation; 3D ``sweeps`` sweeps over (0, 1), (0, 2), (1, 2).
     The guards stay as they are: a_pq = 0 is the identity rotation, τ = 0
-    with a_pq ≠ 0 a 45° one (a ±1 sign, not sign(τ))."""
+    with a_pq ≠ 0 a 45° one (a ±1 sign, not sign(τ)).  Under autograd the
+    rotation's t takes its closed-form derivative (:class:`_JacobiT`), so
+    that a tiny a_pq gives no NaN gradient."""
     pairs = [(0, 1)] if d == 2 else [(0, 1), (0, 2), (1, 2)]
     a = dict(a)
     one = torch.ones_like(a[(0, 0)])
@@ -171,12 +207,12 @@ def sym_eigh_core(a: dict, d: int, sweeps: int = 6):
     for _ in range(1 if d == 2 else sweeps):
         for p, q in pairs:
             app, aqq, apq = a[(p, p)], a[(q, q)], a[(p, q)]
-            off = torch.abs(apq) > 0.0
-            tau = (aqq - app) / (2.0 * torch.where(off, apq, one))
-            sgn = torch.where(tau >= 0.0, one, -one)
-            t = torch.where(
-                off, sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau)), zero
-            )
+            if torch.is_grad_enabled() and any(
+                    x.requires_grad for x in (app, aqq, apq)):
+                t = _JacobiT.apply(app, aqq, apq)
+            else:
+                t = _jacobi_t_plain(app, aqq, apq, torch.abs(apq) > 0.0,
+                                    one, zero)
             c = 1.0 / torch.sqrt(1.0 + t * t)
             s = t * c
             a[(p, p)] = c * c * app - 2.0 * s * c * apq + s * s * aqq

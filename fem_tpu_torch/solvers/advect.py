@@ -48,9 +48,13 @@ from fem_tpu_torch.obstacles import (
 from fem_tpu_torch.ops import advect_kernels
 
 
-def damping_decay(dt: float, damping: float, dtype=torch.float32) -> float:
+def damping_decay(dt: float, damping, dtype=torch.float32):
     """exp(−dt·damping) evaluated in float32, as the JAX package does, or in
-    float64 for a float64 state."""
+    float64 for a float64 state.  A tensor ``damping`` (a differentiable
+    rollout's parameter) gives the 0-d tensor ``torch.exp(−dt·damping)`` in
+    its own dtype, on its device, as the JAX package traces it."""
+    if torch.is_tensor(damping):
+        return torch.exp(-dt * damping)
     if dtype == torch.float64:
         return math.exp(-dt * damping)
     return float(np.exp(np.float32(-dt * damping)))
@@ -91,7 +95,12 @@ def _sticky_walls(pos, v, wall_friction: float = 0.0):
     return v_t
 
 
-def _check_pallas(obstacles: Obstacles, wall_friction: float) -> None:
+def _check_pallas(obstacles: Obstacles, wall_friction: float,
+                  decay) -> None:
+    if torch.is_tensor(decay):
+        raise ValueError(
+            "a tensor decay (a traced damping) requires the XLA advection "
+            "path (backend='xla'); the fused advection kernel takes a float")
     if has_extensions(obstacles) or wall_friction > 0.0:
         raise ValueError(
             "SDF obstacle extensions / wall friction require the XLA "
@@ -138,7 +147,7 @@ def kinematic_step(
     obstacles, wall friction and pins as the module says."""
     pos = state.pos
     if backend == "pallas":
-        _check_pallas(obstacles, wall_friction)
+        _check_pallas(obstacles, wall_friction, decay)
         new_pos, vel = advect_kernels.kinematic(
             pos, state.vel, grad, 1.0 / mass, obstacles.centers,
             obstacles.radii, dt=dt, decay=decay, gravity=gravity)
@@ -191,8 +200,9 @@ def advect_implicit_step(
 ) -> SimState:
     """One implicit-path advection.  ``gravity`` is the (d,) acceleration
     9.8·g_dir on the state's device and ``decay`` the f32 value of
-    exp(−dt·damping) (see :func:`damping_decay`).  ``backend="pallas"``
-    runs the step as K10b; the typed obstacles, wall friction and pins as
+    exp(−dt·damping), or its 0-d tensor for a traced damping (see
+    :func:`damping_decay`).  ``backend="pallas"`` runs the step as K10b
+    (a float decay only); the typed obstacles, wall friction and pins as
     the module says.
 
     ``theta`` < 1 (the θ-scheme) moves positions by
@@ -204,7 +214,7 @@ def advect_implicit_step(
             raise ValueError(
                 "the θ-scheme (newton_theta != 1) requires the XLA "
                 "advection path (backend='xla')")
-        _check_pallas(obstacles, wall_friction)
+        _check_pallas(obstacles, wall_friction, decay)
         pos, vel, vel_g = advect_kernels.advect_implicit(
             state.pos, state.vel, state.vel_g, obstacles.centers,
             obstacles.radii, dt=dt, decay=decay, gravity=gravity)

@@ -16,7 +16,9 @@ sums 1e-5 of their largest entry, K8 positions 1e-5; J1 (the serial
 Jacobi solve) equal iterations and x and its anchor within 1e-5 of the
 largest entry, its sparse and dense row sources; the adaptive-dt guard's
 κ within 1e-5 relative and its guarded frames' positions 1e-5 with
-iterations within 1 an inner step; the CLI's resume bit-equal.  Iteration
+iterations within 1 an inner step; the CLI's resume bit-equal; the
+differentiable rollout's loss 1e-5 and gradients 1e-3 (of the largest
+entry), as tests/test_torch_diff_implicit.py holds them.  Iteration
 counts are compared only where a solve takes a few tens of iterations at
 most: over ~140 iterations f32 round-off moves the count by more than one
 between two summation orders, so there the velocity is held to the f64
@@ -3359,3 +3361,95 @@ def test_contact_frame_on_cuda_matches_cpu_frame(over):
         assert float((a.pos.cpu() - b.pos).abs().max()) <= TOL
     for a, b in zip(auxes["cuda"], auxes["cpu"]):
         assert torch.equal(a.solver_iterations.cpu(), b.solver_iterations)
+
+
+# -- differentiable rollouts (fem_tpu_torch/diff.py) -------------------------
+
+DIFF_TOL = 1e-3  # gradients, as tests/test_torch_diff_implicit.py holds them
+
+
+@pytest.fixture(scope="module")
+def diff_flagship():
+    """(cfg, obj, deformed state, obstacles) of the flagship and the target
+    trajectory of one frame at 1.5× μ, made on the card."""
+    _require_cuda()
+    from fem_tpu_torch import diff, entry
+
+    cfg, obj, state, obs = entry.flagship("cuda")
+    state = entry.deformed(state)
+    p = diff.params_from_object(obj)
+    with torch.no_grad():
+        target = diff.make_diff_rollout_fn(obj, cfg, cfg.sim_count)(
+            p._replace(mu=1.5 * p.mu), state, obs)[1]
+    return cfg, obj, state, obs, target
+
+
+def _diff_grads(cfg, obj, state, obs, target, remat=True):
+    """(loss, gradients in μ, λ, the damping and the initial velocity) of
+    the flagship frame's trajectory MSE."""
+    from fem_tpu_torch import diff
+
+    p = diff.params_from_object(obj)
+    leaves = [t.requires_grad_(True) for t in p[:3]]
+    v0 = state.vel.clone().requires_grad_(True)
+    _, traj = diff.make_diff_rollout_fn(obj, cfg, cfg.sim_count,
+                                        remat=remat)(
+        diff.DiffParams(*leaves), state.replace(vel=v0), obs)
+    loss = torch.mean((traj - target) ** 2)
+    return loss.detach(), torch.autograd.grad(loss, leaves + [v0])
+
+
+def _grads_close(got, ref):
+    (loss, g), (rloss, r) = got, ref
+    assert float(loss) == pytest.approx(float(rloss), rel=1e-5)
+    for a, b in zip(g, r):
+        a, b = a.cpu(), b.cpu()
+        scale = float(b.abs().max())
+        assert scale > 0.0
+        assert float((a - b).abs().max()) <= DIFF_TOL * scale
+
+
+def test_diff_rollout_k3_matches_plain_products(diff_flagship, monkeypatch):
+    """The implicit diff rollout on the flagship with every G(K)·x on K3
+    against the same rollout with K3's plain version on the card: K3
+    launches as ``implicit_graph_products`` predicts, none with the plain
+    products; loss and gradients within DIFF_TOL."""
+    from fem_tpu_torch import diff
+
+    cfg, obj, state, obs, target = diff_flagship
+    k3 = blocked_kernels.blocked_graph_apply
+    before = sum(k3.variant_launches.values())
+    got = _diff_grads(cfg, obj, state, obs, target)
+    assert sum(k3.variant_launches.values()) - before == \
+        diff.implicit_graph_products(obj, cfg.sim_count)
+    before = sum(k3.variant_launches.values())
+    monkeypatch.setattr(blocked_kernels, "blocked_graph_apply",
+                        lambda blk, K, x, t=False:
+                        blocked_kernels.blocked_graph_apply_plain(blk, K, x,
+                                                                  t))
+    plain = _diff_grads(cfg, obj, state, obs, target)
+    assert sum(k3.variant_launches.values()) == before
+    _grads_close(got, plain)
+
+
+def test_diff_rollout_card_matches_cpu(diff_flagship):
+    cfg, obj, state, obs, target = diff_flagship
+    c_obj = convert.object_from_arrays(*convert.object_to_arrays(obj), "cpu")
+    c_state = convert.state_from_arrays(convert.state_to_arrays(state),
+                                        "cpu")
+    c_obs = Obstacles(obs.centers.cpu(), obs.radii.cpu())
+    _grads_close(_diff_grads(cfg, obj, state, obs, target),
+                 _diff_grads(cfg, c_obj, c_state, c_obs, target.cpu()))
+
+
+def test_diff_gradients_bit_identical(diff_flagship):
+    """Two gradients on the card bit-identical, and equal with ``remat``
+    off: no backward adds floats by atomics."""
+    cfg, obj, state, obs, target = diff_flagship
+    a = _diff_grads(cfg, obj, state, obs, target)
+    b = _diff_grads(cfg, obj, state, obs, target)
+    c = _diff_grads(cfg, obj, state, obs, target, remat=False)
+    for other in (b, c):
+        assert torch.equal(a[0], other[0])
+        for x, y in zip(a[1], other[1]):
+            assert torch.equal(x, y)
