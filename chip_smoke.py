@@ -423,11 +423,14 @@ the eight:
     within 1e-5 of the CPU's, equal iterations; two runs bit-identical;
 70. path AW, examples/newton_large_dt.py's block (copied: κ ≈ 60) through
     ``Simulation``, velocities noised by 1e-4, exact Newton at θ 1 and
-    0.5: 2 frames each, no kernel (plain PyTorch, as XLA in the JAX
-    package), finite, the first frame within 1e-3 of the CPU's;
+    0.5: 2 frames each, H1 (the exact stiffness apply) once a Newton step
+    and once an inner CG iteration and no other kernel, finite, the first
+    frame within 1e-3 of the CPU's;
 71. path AX, ``Simulation.solve_static(cg_precond="two_level_cheb3")`` on
-    ``assets/cube.stl`` at interior spacing 0.2, pinned on top: within
-    1e-5 of the CPU's solve, ``converged``/``stalled`` equal, at rest.
+    ``assets/cube.stl`` at interior spacing 0.2, pinned on top: H1 once a
+    product of the exact Hessian (as many launches as the products the
+    solve asked for) and no other kernel; within 1e-5 of the CPU's solve,
+    ``converged``/``stalled`` equal, at rest.
     One ``newton_paths`` JSON line holds their numbers;
 72. path AY, a gradient through a full flagship frame
     (``diff.make_diff_rollout_fn``: 10 implicit substeps from the
@@ -451,7 +454,37 @@ the eight:
     squashed past yield): no kernel launched (the element chain and the
     advection are plain PyTorch under autograd, as XLA in the JAX
     package), finite, two runs bit-identical, the gradients within 1e-3
-    of the CPU's.  One ``diff_paths`` JSON line holds their numbers.
+    of the CPU's.  One ``diff_paths`` JSON line holds their numbers;
+75. H1 (``csrc/stiffness_apply.cu``, the exact stiffness K·W through each
+    element's Jacobian in its edge vectors) against its plain version on
+    the flagship and ``demo_hanging.json``'s body, 1, 8 and 9 columns,
+    f32 and f64, twice bit-identical, timed beside ``torch.sparse.mm`` of
+    the assembled CSR; path BB, ``Simulation.modes(k=6)`` (Chebyshev) on
+    the flagship pinned over its top 1 % (path Z's box): H1 41 + 152·R
+    launches (R the rounds run), no plain version, two runs
+    bit-identical; ω² within 1e-4 of ω²₆ of ``method="sparse_f64"``
+    (ARPACK on f64 element Hessians made on the card), M-orthonormal
+    within 1e-3; the direct f64 residuals of the elastic modes and every
+    residual of ``refine_f64=True`` (on the card in f64, H1's double
+    instance) below 1e-3; 2 rounds on the card and on the CPU from the
+    same start within 1e-3 of ω²₆; the free flagship at k = 8: six rigid
+    modes below 1e-4·ω²₈, the seventh above 1e-2·ω²₈;
+76. path BC, ``method="shift_invert"`` on ``demo_hanging.json``'s body:
+    H1 32 + 400·(1 + 2·steps) launches, two runs bit-identical, within
+    1e-4 of ω²₆ of the sparse oracle;
+77. path BD, ``harmonic`` (200 frequencies) and ``response_spectrum`` (a
+    numpy-seeded record of 2,000 samples) on BB's modes: no kernel, two
+    runs bit-identical, within 1e-5 of the CPU from the same
+    ``ModalResult``, abssum ≥ SRSS;
+78. path BE, ``buckling(k=4, gravity=True)`` on the flagship's mesh at E
+    4e6 pinned over its lowest 5 %: H1 405 launches a round, two runs
+    bit-identical, λ_cr within 1e-3 of a dense f64 pencil oracle
+    (``scipy.linalg.eigh`` on the free DOFs), 2 rounds on the card and
+    on the CPU from the same start within 1e-3;
+79. path BF, ``arc_length`` on tests/test_riks.py's arch (its element
+    Hessians on the card) and ``system_diagnostics`` on the flagship: no
+    kernel, two runs bit-identical, within 1e-6 (λ) and 1e-5 of the CPU.
+    One ``analysis_paths`` JSON line holds their numbers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -585,6 +618,10 @@ KERNELS = (
     # jacobi_solve_serial_sparse (:888).
     ("jacobi_serial", "fem_tpu_torch/csrc/jacobi_serial.cu",
      "fem_tpu/solvers/implicit.py:737"),
+    # No pallas_call: the JAX package takes jax.jvp of the assembled force
+    # (make_stiffness_hvp), which XLA compiles.
+    ("stiffness_apply", "fem_tpu_torch/csrc/stiffness_apply.cu",
+     "fem_tpu/solvers/modal.py:68"),
 )
 
 
@@ -1315,8 +1352,8 @@ def kernel_rows(d, times, launches, errors, card):
     """The kernels line's rows of dimension ``d``, each logged."""
     rows = []
     for name, source, replaces in KERNELS:
-        if name == "jacobi_serial":  # its rows come from sections 53-58
-            continue
+        if name in ("jacobi_serial", "stiffness_apply"):
+            continue  # their rows come from sections 53-58 and 75-79
         t = times[name]
         extra = {k: v for k, v in t.items()
                  if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -6196,8 +6233,35 @@ CUBE_AX = dict(
 SPACING_AX = 0.2
 
 
+class ApplyCounter:
+    """Counts the calls of H1's wrapper (``stiffness_kernels.
+    stiffness_apply``, which ``element_linearization``'s products look up
+    at each call) while it is entered: on the card each must be one
+    launch.  The stand-in shares the wrapper's attributes (its launch
+    count among them), which the wrapper updates through the module's
+    name."""
+
+    def __enter__(self):
+        from fem_tpu_torch.ops import stiffness_kernels
+
+        self.calls = 0
+        self.mod = stiffness_kernels
+        self.fn = stiffness_kernels.stiffness_apply
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.fn(*a, **k)
+
+        counted.__dict__ = self.fn.__dict__
+        stiffness_kernels.stiffness_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.stiffness_apply = self.fn
+
+
 class PlainGuard:
-    """Counts the calls of the plain versions of K1, K2, K3, K7a and K7b
+    """Counts the calls of the plain versions of K1, K2, K3, K7a, K7b and H1
     (the module attributes their wrappers call on CPU tensors) while it is
     entered: a path on the card must make none."""
 
@@ -6205,13 +6269,19 @@ class PlainGuard:
              ("blocked_kernels", "blocked_prep_force_plain"),
              ("blocked_kernels", "blocked_grad_force_plain"),
              ("blocked_kernels", "blocked_assemble_plain"),
-             ("element_kernels", "hessian_and_force_plain"))
+             ("element_kernels", "hessian_and_force_plain"),
+             ("stiffness_kernels", "stiffness_apply_plain"))
 
     def __enter__(self):
-        from fem_tpu_torch.ops import blocked_kernels, element_kernels
+        from fem_tpu_torch.ops import (
+            blocked_kernels,
+            element_kernels,
+            stiffness_kernels,
+        )
 
         mods = dict(blocked_kernels=blocked_kernels,
-                    element_kernels=element_kernels)
+                    element_kernels=element_kernels,
+                    stiffness_kernels=stiffness_kernels)
         self.calls, self.saved = {}, []
         for mod_name, name in self.NAMES:
             mod = mods[mod_name]
@@ -6452,11 +6522,13 @@ def run_newton(torch, dev, zero_counts, counts, only, card):
         frame_w = sim.make_frame_fn(gpu_sim.scene[0].obj, gpu_sim.cfg)
         start = gpu_sim.scene[0].state
         label = f"path AW (exact Newton, theta {theta})"
-        s_w, its_w, _, wall, launches, dev_ms, busy = drive(
+        s_w, its_w, t_w, wall, launches, dev_ms, busy = drive(
             label, frame_w, FRAMES_AW, start=start,
             obstacles=gpu_sim.obstacles)
-        require(launches == only(), f"{label}: launches {launches} (the "
-                "exact Hessian runs plain PyTorch, as XLA in the JAX package)")
+        h1 = t_w["steps"] + t_w["cg"]
+        require(launches == only(stiffness_apply=h1), f"{label}: launches "
+                f"{launches} vs H1 {h1} (Newton steps + inner CG iterations:"
+                " one exact-Hessian product each)")
         gpu_sim.step_frame()
         cpu_sim.step_frame()
         err = float(np.abs(gpu_sim.positions() - cpu_sim.positions()).max())
@@ -6469,7 +6541,8 @@ def run_newton(torch, dev, zero_counts, counts, only, card):
         line["AW"][str(theta)] = dict(
             frames=FRAMES_AW, steps_per_s=subs / wall,
             device_ms_per_frame=dev_ms, busy_pct=busy,
-            inner_cg=int(its_w.sum()), first_frame_err=err, card=card)
+            inner_cg=int(its_w.sum()), h1_launches=h1, first_frame_err=err,
+            card=card)
 
     # -- 71. path AX: Simulation.solve_static on a pinned 3D cube -------------
     def cube(device):
@@ -6484,8 +6557,13 @@ def run_newton(torch, dev, zero_counts, counts, only, card):
         (r,) = gpu_cube.solve_static(cg_precond="two_level_cheb3")
         return r
 
-    res, wall, launches, plain, res2, dev_ms, busy = counted_then_profiled(
-        torch, zero_counts, counts, solve, 1)
+    with ApplyCounter() as applies:
+        res, wall, launches, plain, res2, dev_ms, busy = \
+            counted_then_profiled(torch, zero_counts, counts, solve, 1)
+    # Two solves ran inside: the counted one and the profiled one.
+    require(applies.calls % 2 == 0 and applies.calls > 0,
+            f"path AX: {applies.calls} products of the exact Hessian")
+    h1_ax = applies.calls // 2
     (cres,) = cpu_cube.solve_static(cg_precond="two_level_cheb3")
     state_x = gpu_cube.scene[0].state
     size = (gpu_cube.scene[0].obj.particle_cnt,
@@ -6501,9 +6579,9 @@ def run_newton(torch, dev, zero_counts, counts, only, card):
         f"{int(cres.cg_iterations)}, {bool(cres.converged)}; max |dpos| vs "
         f"the CPU {err:.3e}; sag {sag:.4e}; {wall:.3f} s a solve, "
         f"{dev_ms:.4f} device ms, busy {busy:.1f}%; card {card}")
-    require(launches == only() and not plain, f"path AX: launches "
-            f"{launches}, plain {plain} (the static solve runs plain "
-            "PyTorch, as XLA in the JAX package)")
+    require(launches == only(stiffness_apply=h1_ax) and not plain,
+            f"path AX: launches {launches}, plain {plain} (H1 once a "
+            f"product of the exact Hessian: {h1_ax})")
     require(torch.equal(res.pos, res2.pos), "path AX: two solves differ")
     require(err <= 1e-5, f"path AX off the CPU by {err}")
     require(bool(res.converged) == bool(cres.converged)
@@ -6518,7 +6596,7 @@ def run_newton(torch, dev, zero_counts, counts, only, card):
                       cg_iterations=int(res.cg_iterations),
                       converged=bool(res.converged), wall_s=wall,
                       device_ms_per_solve=dev_ms, busy_pct=busy,
-                      cpu_err=err, card=card)
+                      h1_launches=h1_ax, cpu_err=err, card=card)
     zero_counts()
     return line, time.perf_counter() - t_phase
 
@@ -6812,6 +6890,415 @@ def run_diff(torch, dev, zero_counts, counts, only, card):
     return line, time.perf_counter() - t_phase
 
 
+# -- The analysis solvers and H1 (sections 75-79) ---------------------------
+
+H1_COLUMNS = 9  # the Chebyshev block of modes(k=6): kq = 9
+H1_REPS = 200  # timed launches a shape
+HARMONIC_FREQS = 200  # path BD
+SPECTRUM_SAMPLES = 2000  # path BD: the record, numpy seed 0, at dt 1e-3
+BUCKLE_E = 4e6  # path BE: the flagship's mesh 100x stiffer than shipped,
+BUCKLE_PINS = 0.05  # pinned over its lowest 5 % (see run_analysis)
+ARC_STEPS = 12  # path BF
+
+
+def arch_object(np, torch, device, nx=48, ny=2, span=1.0, t=0.012,
+                rise=0.06):
+    """tests/test_riks.py's shallow sine arch (copied: that file imports the
+    JAX package), both ends clamped: (object, state, crown vertices)."""
+    from fem_tpu_torch.models.state import build_object
+    from fem_tpu_torch.utils.config import ObjectConfig
+
+    xs = np.linspace(0.0, span, nx + 1)
+    ys = np.linspace(0.0, t, ny + 1)
+    v = np.array(np.meshgrid(xs, ys)).T.reshape(-1, 2).astype(np.float32)
+    v[:, 1] += (rise * np.sin(np.pi * v[:, 0] / span)).astype(np.float32)
+    faces = []
+    for i in range(nx):
+        for j in range(ny):
+            p1 = i * (ny + 1) + j
+            p2, p3 = p1 + 1, p1 + ny + 1
+            faces += [[p1, p2, p3 + 1], [p1, p3 + 1, p3]]
+    faces = np.array(faces, np.int32)
+    eps = span / nx / 4.0
+    cfg = ObjectConfig(center=(0.0, 0.0),
+                       pin_boxes=(((-1.0, -1.0), (eps, 1.0)),
+                                  ((span - eps, -1.0), (span + 1.0, 1.0))))
+    obj, state = build_object(cfg, v, faces, faces.copy(), device=device)
+    pos = state.pos.cpu().numpy()
+    crown = np.where(np.abs(pos[:, 0] - span / 2.0) < span / nx * 0.6)[0]
+    return obj, state, crown
+
+
+def h1_work(obj, c, itemsize):
+    """(bytes, operations) of one K·W at c columns: J, W and the output,
+    the element table and the CSR plan once each; per element and column
+    the edge differences (d²), J's product (2 d⁴), vertex 0's −Σ (d²)
+    and the assembly of its (d+1)·d rows."""
+    e, dp1 = obj.element_indices.shape
+    d, n = dp1 - 1, obj.particle_cnt
+    nbytes_ = (itemsize * (e * d ** 4 + 2 * n * d * c)
+               + 4 * (e * dp1 + n + 1 + e * dp1))
+    ops = e * c * (d * d + 2 * d ** 4 + d * d + dp1 * d)
+    return nbytes_, ops
+
+
+def h1_row(torch, card, label, obj, pos, launches):
+    """H1 at ``obj``'s shapes and H1_COLUMNS columns: against its plain
+    version (f32 and f64, 1, 8 and 9 columns, within 1e-6 / 1e-13 of the
+    largest entry, twice bit-identical), its device ms (f32 and f64), the
+    plain version's ms, ``torch.sparse.mm`` of the assembled CSR (f32) and
+    the bound.  Returns the kernels line's row."""
+    from fem_tpu_torch.convert import to_dtype
+    from fem_tpu_torch.ops import stiffness_kernels as sk
+    from fem_tpu_torch.solvers import modal
+
+    n, d = obj.particle_cnt, obj.dim
+    err, times = 0.0, {}
+    for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+        kv = modal.make_stiffness_hvp(to_dtype(obj, dtype), pos.to(dtype))
+        b = kv.binding
+        for c in (1, 8, H1_COLUMNS):
+            w = torch.randn((n, d, c), generator=torch.Generator(
+                ).manual_seed(c), dtype=dtype).to(pos.device)
+            got, again = kv(w), kv(w)
+            ref = sk.stiffness_apply_plain(b.jac, w, b.element_indices,
+                                           b.plan_idx)
+            torch.cuda.synchronize()
+            e = float((got - ref).abs().max())
+            top = float(ref.abs().max())
+            log(f"[H1 {label}] {dtype} {c} columns: max abs error {e:.3e} "
+                f"of max {top:.3e}; plan {sk.stiffness_apply.last_plan}")
+            require(e <= tol * top, f"H1 {label} {dtype} {c}: error {e}")
+            require(torch.equal(got, again), f"H1 {label} runs differ")
+            if dtype == torch.float32:
+                err = max(err, e)
+        times[dtype] = kernel_ms(torch, lambda: kv(w), H1_REPS,
+                                 ["stiffness_apply_kernel"])
+        if dtype == torch.float32:
+            plain_ms = cuda_ms(torch, lambda: sk.stiffness_apply_plain(
+                b.jac, w, b.element_indices, b.plan_idx), 20)
+            nd = n * d
+            eye = torch.eye(nd, device=pos.device).reshape(n, d, nd)
+            k_csr = kv(eye).reshape(nd, nd).to_sparse_csr()
+            flat = w.reshape(nd, H1_COLUMNS)
+            lib_ms = library_device_ms(
+                torch, lambda: torch.sparse.mm(k_csr, flat), H1_REPS)
+            lib_err = float((torch.sparse.mm(k_csr, flat).reshape(w.shape)
+                             - kv(w)).abs().max())
+            require(lib_err <= 1e-5 * float(kv(w).abs().max()),
+                    f"H1 {label}: the assembled CSR's product off by "
+                    f"{lib_err}")
+    nb, ops = h1_work(obj, H1_COLUMNS, 4)
+    bound_ms, bound_by = bound(nb, ops)
+    nb64, _ = h1_work(obj, H1_COLUMNS, 8)
+    row = dict(name="stiffness_apply", route="cuda",
+               source="fem_tpu_torch/csrc/stiffness_apply.cu",
+               replaces="fem_tpu/solvers/modal.py:68", dim=d,
+               columns=H1_COLUMNS, launches=launches, max_abs_err=err,
+               ms=times[torch.float32], plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+               ms_f64=times[torch.float64],
+               bound_ms_f64=nb64 / PEAK_BYTES_PER_S * 1e3,
+               particles=n, elements=obj.element_cnt)
+    log(f"[time] {d}D H1 ({label}, {H1_COLUMNS} columns) "
+        f"{row['ms']:.5f} ms a launch on the device (profiler), f64 "
+        f"{row['ms_f64']:.5f}; torch.sparse.mm {lib_ms:.5f} ms; plain "
+        f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}); "
+        f"launches {launches}; card {card}")
+    return row
+
+
+def run_analysis(torch, dev, zero_counts, counts, only, card):
+    """Sections 75-79: H1 against its plain version and paths BB-BF.  Each
+    path runs twice, counted and then profiled (``counted_then_profiled``,
+    the plain versions guarded), the two bit-identical.  Returns (the
+    kernels line's H1 rows, the ``analysis_paths`` line's dict, phase
+    seconds)."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    import fem_tpu_torch
+    from fem_tpu_torch import convert
+    from fem_tpu_torch.ops import stiffness_kernels as sk
+    from fem_tpu_torch.solvers import buckling, diagnostics, modal, riks
+    from fem_tpu_torch.solvers.static import solve_static
+
+    t_phase = time.perf_counter()
+    line = {}
+    h1 = sk.stiffness_apply
+    with open(os.path.join(REPO, "configs", "demo_spot.json")) as f:
+        spot = json.load(f)
+
+    def simulation(device, **obj_over):
+        data = json.loads(json.dumps(spot))
+        data["objects"][0].update(obj_over)
+        return fem_tpu_torch.Simulation.from_dict(data, device=device)
+
+    free_sim = simulation(dev)
+    rest = free_sim.scene[0].state.pos
+    lo, hi = float(rest[:, 1].min()), float(rest[:, 1].max())
+    top_pins = [[[-1e3, hi - 0.01 * (hi - lo), -1e3], [1e3, 1e3, 1e3]]]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b)
+                   if isinstance(x, torch.Tensor))
+
+    def path(label, go):
+        """(result, wall s, launches, device ms, busy %) of ``go`` counted
+        and profiled, no plain version, the two runs bit-identical."""
+        first, wall, launches, plain, second, dev_ms, busy = \
+            counted_then_profiled(torch, zero_counts, counts, go, 1)
+        require(not plain, f"{label} ran plain versions {plain}")
+        require(same(first, second), f"{label}: two runs differ")
+        log(f"[path {label}] {wall:.3f} s wall, {dev_ms:.4f} device ms, "
+            f"busy {busy:.1f}%; launches {launches}; card {card}")
+        return first, wall, launches, dev_ms, busy
+
+    # -- 75. H1 against its plain version; path BB: modes on the flagship ---
+    bb_sim = simulation(dev, pin_boxes=top_pins)
+    bobj, bpos = bb_sim.scene[0].obj, bb_sim.scene[0].state.pos
+    res, wall, launches, dev_ms, busy = path(
+        "BB (Chebyshev, flagship pinned over its top 1 %)",
+        lambda: bb_sim.modes(k=6))
+    rounds = modal.modal_analysis_chebyshev.last_rounds
+    h1_bb = 41 + 152 * rounds
+    require(launches == only(stiffness_apply=h1_bb),
+            f"path BB: launches {launches} vs H1 41 + 152 x {rounds}")
+    oracle = bb_sim.modes(k=6, method="sparse_f64")
+    w, wo = res.omega_sq.double().cpu(), oracle.omega_sq.cpu()
+    scale = float(wo[-1])
+    rel = float((w - wo).abs().max()) / scale
+    phi = res.modes.double()
+    gram = torch.einsum("ind,n,jnd->ij", phi, bobj.mass.double(), phi)
+    orth = float((gram - torch.eye(6, dtype=gram.dtype,
+                                   device=dev)).abs().max())
+    direct = modal.modal_residuals_f64(bobj, bpos, res).residuals.cpu()
+    elastic = wo >= 0.1 * scale
+    zero_counts()
+    refined = bb_sim.modes(k=6, refine_f64=True)
+    torch.cuda.synchronize()
+    f64_launches = h1.variant_launches.get(("f64", 3), 0)
+    log(f"[path BB] {int((bobj.free_mask == 0).sum())} pinned; {rounds} "
+        f"rounds; ω² {w.tolist()}, sparse_f64 {wo.tolist()} (max diff "
+        f"{rel:.3e} of ω²₆); f32 residuals {res.residuals.tolist()}; direct "
+        f"f64 residuals {direct.tolist()}; refine_f64 residuals "
+        f"{refined.residuals.tolist()} ({f64_launches} f64 launches); "
+        f"M-orthonormal within {orth:.3e}")
+    require(rel <= 1e-4, f"path BB: ω² off the sparse oracle by {rel}")
+    require(orth <= 1e-3, f"path BB: M-orthonormal within {orth}")
+    require(bool((direct[elastic] < 1e-3).all()),
+            f"path BB: direct residuals {direct.tolist()}")
+    require(refined.omega_sq.dtype == torch.float64 and f64_launches > 0
+            and bool((refined.residuals < 1e-3).all()),
+            f"path BB refine_f64: {refined.residuals.tolist()}, "
+            f"{f64_launches} f64 launches")
+    cpu_sim = simulation("cpu", pin_boxes=top_pins)
+    two = modal.modal_analysis_chebyshev(bobj, bpos, k=6, rounds=2)
+    two_cpu = modal.modal_analysis_chebyshev(
+        cpu_sim.scene[0].obj, cpu_sim.scene[0].state.pos, k=6, rounds=2)
+    two_err = float((two.omega_sq.cpu() - two_cpu.omega_sq).abs().max()
+                    ) / float(two_cpu.omega_sq[-1])
+    log(f"[path BB] 2 rounds from the same start: card {two.omega_sq.tolist()}"
+        f", CPU {two_cpu.omega_sq.tolist()} (max diff {two_err:.3e} of ω²₆)")
+    # Unconverged after 2 rounds, the upper Ritz values still move by
+    # orders of magnitude a round, and the degree-150 filter carries the
+    # card's and the CPU's f32 rounding apart: 1e-3 (2.7e-4 measured on
+    # the H100).
+    require(two_err <= 1e-3, f"path BB: 2 rounds off the CPU by {two_err}")
+    free = free_sim.modes(k=8)
+    fw = free.omega_sq.cpu()
+    fscale = abs(float(fw[-1]))
+    log(f"[path BB] the free flagship, k = 8: ω² {fw.tolist()}")
+    require(bool((fw[:6].abs() < 1e-4 * fscale).all())
+            and float(fw[6]) > 1e-2 * fscale,
+            f"path BB: the free flagship's rigid modes {fw.tolist()}")
+    line["BB"] = dict(rounds=rounds, launches=dict(H1=h1_bb), wall_s=wall,
+                      device_ms=dev_ms, busy_pct=busy,
+                      omega_sq=w.tolist(), sparse_f64=wo.tolist(),
+                      rel_err=rel, residuals=res.residuals.tolist(),
+                      direct_f64_residuals=direct.tolist(),
+                      refine_f64_residuals=refined.residuals.tolist(),
+                      two_round_cpu_err=two_err, free_omega_sq=fw.tolist(),
+                      card=card)
+    rows = [h1_row(torch, card, "flagship", bobj, bpos, h1_bb)]
+
+    # -- 76. path BC: shift-invert on demo_hanging.json's body --------------
+    hang = fem_tpu_torch.Simulation.from_config(
+        os.path.join(REPO, "configs", "demo_hanging.json"), device=dev)
+    res_c, wall, launches, dev_ms, busy = path(
+        "BC (shift-invert, demo_hanging.json)",
+        lambda: hang.modes(k=6, method="shift_invert"))
+    steps = modal.modal_analysis.last_steps
+    h1_bc = 32 + 400 * (1 + 2 * steps)
+    require(launches == only(stiffness_apply=h1_bc),
+            f"path BC: launches {launches} vs H1 32 + 400 x (1 + 2 x "
+            f"{steps})")
+    oc = hang.modes(k=6, method="sparse_f64").omega_sq.cpu()
+    rel_c = float((res_c.omega_sq.double().cpu() - oc).abs().max()
+                  ) / float(oc[-1])
+    log(f"[path BC] {steps} LOBPCG steps; ω² {res_c.omega_sq.tolist()}, "
+        f"sparse_f64 {oc.tolist()} (max diff {rel_c:.3e} of ω²₆)")
+    require(rel_c <= 1e-4, f"path BC off the sparse oracle by {rel_c}")
+    line["BC"] = dict(steps=steps, launches=dict(H1=h1_bc), wall_s=wall,
+                      device_ms=dev_ms, busy_pct=busy, rel_err=rel_c,
+                      card=card)
+    hobj = hang.scene[0].obj
+    rows.append(h1_row(torch, card, "demo_hanging.json", hobj,
+                       hang.scene[0].state.pos, h1_bc))
+
+    # -- 77. path BD: harmonic and response spectrum on BB's modes ----------
+    cpu_modes = convert.modal_from_arrays(convert.modal_to_arrays(res),
+                                          "cpu")
+    rng = np.random.default_rng(0)
+    f_hat = rng.normal(size=tuple(bpos.shape)).astype(np.float32)
+    freqs = np.linspace(0.05, 2.0, HARMONIC_FREQS).astype(np.float32) * float(
+        res.frequencies[-1])
+    accel = rng.normal(size=SPECTRUM_SAMPLES).astype(np.float32)
+
+    def analyses(simulation_, modes):
+        hr = simulation_.harmonic(f_hat, freqs, modal=modes, zeta=0.02)
+        rs = {c: simulation_.response_spectrum(accel, 1e-3, (1.0, 0.0, 0.0),
+                                               modal=modes, combination=c)
+              for c in ("cqc", "srss", "abssum")}
+        return (hr.coeffs, hr.amplitude) + tuple(rs[c].peak for c in rs)
+
+    got, wall, launches, dev_ms, busy = path(
+        "BD (harmonic, response spectrum)", lambda: analyses(bb_sim, res))
+    require(launches == only(), f"path BD: launches {launches}")
+    ref = analyses(cpu_sim, cpu_modes)
+    bd_err = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                 for a, b in zip(got, ref))
+    cqc, srss, abssum = got[2:]
+    require(bd_err <= 1e-5, f"path BD off the CPU by {bd_err}")
+    require(bool((abssum >= srss * (1 - 1e-6)).all()), "path BD: abssum < "
+            "SRSS")
+    log(f"[path BD] {HARMONIC_FREQS} frequencies, {SPECTRUM_SAMPLES} "
+        f"samples: within {bd_err:.3e} of the CPU (of the largest entry); "
+        f"peak CQC {float(cqc.max()):.4e}, SRSS {float(srss.max()):.4e}, "
+        f"abssum {float(abssum.max()):.4e}")
+    line["BD"] = dict(wall_s=wall, device_ms=dev_ms, busy_pct=busy,
+                      cpu_rel_err=bd_err, card=card)
+
+    # -- 78. path BE: buckling under gravity -------------------------------
+    # As shipped (E 4e4) and pinned at its top or lowest 1 % (4 vertices),
+    # the flagship sags by about its height under unit gravity and the
+    # static base does not converge (a CPU rehearsal: 60 Newton
+    # iterations); at E 4e6 over its lowest 5 % (18 vertices) the base is a
+    # small deformation, reached in 2 iterations.
+    low_pins = [[[-1e3, -1e3, -1e3], [1e3, lo + BUCKLE_PINS * (hi - lo),
+                                      1e3]]]
+    be_sim = simulation(dev, pin_boxes=low_pins, E=BUCKLE_E)
+    eobj, epos = be_sim.scene[0].obj, be_sim.scene[0].state.pos
+    g = tuple(be_sim.cfg.g_dir)
+    zero_counts()
+    with PlainGuard() as guard:
+        base = solve_static(eobj, epos, g_dir=g)
+        torch.cuda.synchronize()
+    base_launches = counts()
+    require(not guard.calls and set(k for k, v in base_launches.items()
+                                    if v) <= {"stiffness_apply"},
+            f"path BE base: launches {base_launches}, plain {guard.calls}")
+    res_e, wall, launches, dev_ms, busy = path(
+        "BE (buckling, gravity)",
+        lambda: be_sim.buckling(k=4, gravity=True, base=base))
+    rounds_e = buckling.linear_buckling.last_rounds
+    require(launches == only(stiffness_apply=405 * rounds_e),
+            f"path BE: launches {launches} vs H1 405 x {rounds_e}")
+    hf = riks.make_element_hessian_fn(convert.to_dtype(eobj, torch.float64))
+    n, d = epos.shape
+    m = (d + 1) * d
+    elem = eobj.element_indices.cpu().numpy().astype(np.int64)
+    gdof = (elem[:, :, None] * d + np.arange(d)).reshape(-1, m)
+    rr, cc = np.repeat(gdof, m, 1).ravel(), np.tile(gdof, (1, m)).ravel()
+
+    def dense(p):
+        k = np.zeros((n * d, n * d))
+        np.add.at(k, (rr, cc), hf(p.double()).cpu().numpy().ravel())
+        return k
+
+    free = np.repeat(eobj.free_mask.cpu().numpy()[:, 0], d).astype(bool)
+    k0 = dense(epos)[np.ix_(free, free)]
+    kg = dense(base.pos)[np.ix_(free, free)] - k0
+    mu0 = sla.eigh(kg, k0, eigvals_only=True, subset_by_index=[0, 0])[0]
+    lam_cr, lam_oracle = float(res_e.load_factors[0]), -1.0 / mu0
+    rel_e = abs(lam_cr - lam_oracle) / lam_oracle
+    cpu_be = simulation("cpu", pin_boxes=low_pins, E=BUCKLE_E)
+    cbase = base._replace(pos=base.pos.cpu())
+    two_e = be_sim.buckling(k=4, gravity=True, base=base, rounds=2)
+    two_ce = cpu_be.buckling(k=4, gravity=True, base=cbase, rounds=2)
+    two_err_e = abs(float(two_e.load_factors[0])
+                    - float(two_ce.load_factors[0])) / abs(
+                        float(two_ce.load_factors[0]))
+    log(f"[path BE] {int((eobj.free_mask == 0).sum())} pinned, E "
+        f"{BUCKLE_E:g}; base: {int(base.iterations)} Newton iterations, "
+        f"converged {bool(base.converged)}, H1 {base_launches['stiffness_apply']}"
+        f"; {rounds_e} rounds; λ {res_e.load_factors.tolist()}, residuals "
+        f"{res_e.residuals.tolist()}; dense f64 oracle λ_cr {lam_oracle:.6f} "
+        f"({int(free.sum())} free DOFs; off by {rel_e:.3e}); 2 rounds card "
+        f"{float(two_e.load_factors[0]):.6f}, CPU "
+        f"{float(two_ce.load_factors[0]):.6f}")
+    require(bool(base.converged) or bool(base.stalled),
+            "path BE: the static base did not finish")
+    require(rel_e <= 1e-3, f"path BE: λ_cr off the f64 oracle by {rel_e}")
+    require(two_err_e <= 1e-3, f"path BE: 2 rounds off the CPU by "
+            f"{two_err_e}")
+    line["BE"] = dict(rounds=rounds_e, launches=dict(
+        H1=405 * rounds_e, H1_base=base_launches["stiffness_apply"]),
+        wall_s=wall, device_ms=dev_ms, busy_pct=busy, lam_cr=lam_cr,
+        lam_oracle=lam_oracle, rel_err=rel_e, two_round_cpu_err=two_err_e,
+        card=card)
+
+    # -- 79. path BF: arc length on the arch, diagnostics on the flagship ---
+    def arc(device):
+        aobj, astate, crown = arch_object(np, torch, device)
+        f = np.zeros(tuple(astate.pos.shape), np.float64)
+        f[crown, 1] = -1.0 / len(crown)
+        dx = riks._SparseTangent(convert.to_dtype(aobj, torch.float64)
+                                 ).factor(astate.pos.double())(f)
+        f = f * (0.10 * 0.06 / abs(float(np.mean(dx[crown, 1]))))
+        return riks.arc_length_path(
+            aobj, astate.pos, torch.as_tensor(f, device=astate.pos.device),
+            n_steps=ARC_STEPS, dlam0=0.3, tol=1e-6, record_path=False)
+
+    res_f, wall_f, launches, dev_ms_f, busy_f = path(
+        "BF (arc length, the arch)", lambda: arc(dev))
+    require(launches == only(), f"path BF arc: launches {launches}")
+    ref_f = arc("cpu")
+    lam_err = float((res_f.lam.cpu() - ref_f.lam).abs().max()) / float(
+        ref_f.lam.abs().max())
+    require(res_f.steps_taken == ref_f.steps_taken == ARC_STEPS
+            and lam_err <= 1e-6, f"path BF: {res_f.steps_taken} steps, λ "
+            f"off the CPU by {lam_err}")
+    dstate = free_sim.scene[0].state
+    got_d, wall_d, launches, dev_ms_d, busy_d = path(
+        "BF (system_diagnostics, flagship)",
+        lambda: tuple(torch.tensor(v) for v in diagnostics.system_diagnostics(
+            free_sim.scene[0].obj, dstate, free_sim.cfg.delta_time)))
+    require(launches == only(), f"path BF diagnostics: launches {launches}")
+    cpu_free = simulation("cpu")
+    ref_d = diagnostics.system_diagnostics(
+        cpu_free.scene[0].obj, cpu_free.scene[0].state,
+        cpu_free.cfg.delta_time)
+    sym_err = abs(float(got_d[0]) - ref_d.symmetry_error) / max(
+        ref_d.symmetry_error, 1e-30)
+    margin_err = abs(float(got_d[2]) - ref_d.diag_dominance_margin) / abs(
+        ref_d.diag_dominance_margin)
+    log(f"[path BF] arc: λ {res_f.lam.tolist()}; CPU within {lam_err:.3e}; "
+        f"diagnostics: symmetry {float(got_d[0]):.6e} (CPU "
+        f"{ref_d.symmetry_error:.6e}), dominant {bool(got_d[1])}, margin "
+        f"{float(got_d[2]):.6e} (CPU {ref_d.diag_dominance_margin:.6e})")
+    require(sym_err <= 1e-5 and margin_err <= 1e-5
+            and bool(got_d[1]) == ref_d.diagonally_dominant,
+            f"path BF diagnostics off the CPU: {sym_err}, {margin_err}")
+    line["BF"] = dict(arc_steps=res_f.steps_taken, arc_wall_s=wall_f,
+                      arc_device_ms=dev_ms_f, arc_busy_pct=busy_f,
+                      arc_cpu_err=lam_err, diag_wall_s=wall_d,
+                      diag_device_ms=dev_ms_d, diag_busy_pct=busy_d,
+                      card=card)
+    zero_counts()
+    return rows, line, time.perf_counter() - t_phase
+
+
 def launch_counters():
     """(zero_counts, counts, instances, only) over every kernel wrapper's
     launch count (the closures each path's checks use)."""
@@ -6823,6 +7310,7 @@ def launch_counters():
         element_kernels,
         frame_kernels,
         jacobi_kernels,
+        stiffness_kernels,
     )
     from fem_tpu_torch.ops import contact_kernels
     from fem_tpu_torch.probes import int8, pairblock
@@ -6849,6 +7337,7 @@ def launch_counters():
         "jacobi_serial": jacobi_kernels.jacobi_serial,
         "contact_pairs": contact_kernels.pair_forces,
         "contact_grid": contact_kernels.grid_pair_forces,
+        "stiffness_apply": stiffness_kernels.stiffness_apply,
     }
 
     def zero_counts():
@@ -6868,6 +7357,7 @@ def launch_counters():
         jacobi_kernels.jacobi_serial.variant_launches = {}
         contact_kernels.pair_forces.variant_launches = {}
         contact_kernels.grid_pair_forces.variant_launches = {}
+        stiffness_kernels.stiffness_apply.variant_launches = {}
 
     def counts():
         """The launch counts since the last zero_counts(); K5's, K8's, K4's,
@@ -6902,6 +7392,9 @@ def launch_counters():
         if jacobi_kernels.jacobi_serial.variant_launches:
             log(f"[J1 variant] launches by variant: "
                 f"{jacobi_kernels.jacobi_serial.variant_launches}")
+        if stiffness_kernels.stiffness_apply.variant_launches:
+            log(f"[H1 instance] launches by (dtype, d): "
+                f"{stiffness_kernels.stiffness_apply.variant_launches}")
         return {k: fn.launches for k, fn in counters.items()}
 
     def instances():
@@ -7616,6 +8109,13 @@ def main():
     for r in kernels:
         if r["name"] == "blocked_matvec" and r.get("dim") == 3:
             r["ay_launches"] = diff_line["AY"]["launches"]["K3"]
+
+    # -- 75.-79. the analysis solvers and H1: BB-BF ---------------------------
+    h1_rows, analysis_line, analysis_s = run_analysis(
+        torch, dev, zero_counts, counts, only, card)
+    kernels.extend(h1_rows)
+    log(json.dumps({"analysis_paths": analysis_line}))
+    log(f"[analysis] sections 75-79 in {analysis_s:.1f} s")
     for name in [k for k, _, _ in KERNELS] + ["contact_pairs",
                                               "contact_grid"]:
         for d in (2, 3):

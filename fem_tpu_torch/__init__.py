@@ -22,12 +22,15 @@ the Newton integrator, the two-level preconditioner and the quasi-static
 solve (``solvers/newton.py``, ``multilevel.py``, ``static.py``), over the
 blocked kernels — and differentiable rollouts (``diff.py``: gradients
 through whole trajectories, the implicit solve's adjoint a
-``torch.autograd.Function`` over the blocked operator).  CUDA kernels run
-on a GPU,
-their plain PyTorch versions on the CPU.  The package imports nothing of
+``torch.autograd.Function`` over the blocked operator) — and the analysis
+solvers (``solvers/modal.py``, ``buckling.py``, ``harmonic.py``,
+``spectrum.py``, ``riks.py``, ``diagnostics.py``), their exact stiffness
+products one hand-written kernel each (``ops/stiffness_kernels.py``).
+CUDA kernels run on a GPU, their plain PyTorch versions on the CPU.  The package imports nothing of
 the JAX package.
 
-Precision: all math is float32, as in the JAX package.  Importing the package
+Precision: all math is float32, as in the JAX package (the analyses'
+float64 paths aside).  Importing the package
 turns TF32 off for matmuls and cuDNN and sets
 ``torch.set_float32_matmul_precision("highest")`` — the counterpart of the JAX
 package's HIGHEST-precision pin — so that no float32 product in the process

@@ -13,9 +13,11 @@ The port of the JAX package's ``api.py``::
 
 It runs on the CUDA device unless ``device="cpu"`` is passed.  Everything
 stays reachable underneath (``sim.scene[i].obj`` / ``.state``,
-``fem_tpu_torch.sim.substep``).  What the port does not cover raises
-``NotImplementedError`` naming its ROADMAP item: the analysis solvers
-other than ``solve_static`` (M19) and ``sharded=True`` (M20).
+``fem_tpu_torch.sim.substep``).  The analyses — ``solve_static``,
+``modes``, ``buckling``, ``harmonic``, ``response_spectrum`` and
+``arc_length`` — run on the scene's device.  What the port does not cover
+raises ``NotImplementedError`` naming its ROADMAP item: ``sharded=True``
+(M20).
 ``contact="penalty"`` with more than one body, or with ``self_contact``,
 steps every body jointly through ``contact.make_contact_frame_fn``.
 """
@@ -131,26 +133,101 @@ class Simulation:
             results.append(res)
         return results
 
-    # The other analysis solvers are not ported.
-    def _analysis(self, name: str):
-        raise NotImplementedError(
-            f"Simulation.{name} (the analysis solvers) is not ported yet "
-            "(ROADMAP M19)")
+    def modes(self, k: int = 6, index: int = 0, at_equilibrium: bool = False,
+              method: str = "chebyshev", **kw):
+        """Smallest-``k`` natural frequencies and M-orthonormal mode shapes
+        of body ``index`` linearized at its current state (at the static
+        equilibrium first with ``at_equilibrium=True``, which needs
+        ``pin_boxes``): ``solvers/modal.py``.  Returns a ``ModalResult``;
+        an unpinned body reports its rigid motions as the leading ω ≈ 0
+        modes.  ``method``: "chebyshev" (filtered subspace iteration, the
+        default), "shift_invert" (LOBPCG with inner CG solves) or
+        "sparse_f64" (the direct f64 oracle: exact element Hessians and
+        scipy's ARPACK on the host).  ``refine_f64=True`` follows the f32
+        solve with a float64 Chebyshev pass on the body's device
+        (``modal_refine_f64``)."""
+        from fem_tpu_torch.solvers import modal
 
-    def modes(self, *args, **kw):
-        self._analysis("modes")
+        refine = bool(kw.pop("refine_f64", False))
+        if at_equilibrium:
+            self.solve_static(index=index)
+        s = self.scene[index]
+        if method == "sparse_f64":
+            return modal.modal_analysis_sparse_f64(s.obj, s.state.pos, k=k)
+        if method == "chebyshev":
+            res = modal.modal_analysis_chebyshev(s.obj, s.state.pos, k=k,
+                                                 **kw)
+        else:
+            res = modal.modal_analysis(s.obj, s.state.pos, k=k, **kw)
+        if refine:
+            res = modal.modal_refine_f64(s.obj, s.state.pos, result=res, k=k)
+        return res
 
-    def buckling(self, *args, **kw):
-        self._analysis("buckling")
+    def buckling(self, k: int = 4, index: int = 0,
+                 f_ext: Optional[np.ndarray] = None,
+                 gravity: bool = False, **kw):
+        """Linearized buckling of body ``index`` (``solvers/buckling.py``):
+        the critical multipliers λ of the applied load (``f_ext`` per
+        vertex, gravity with ``gravity``, and the body's ``load_boxes``) at
+        which K₀ + λ·K_g goes singular, and the buckling modes.  Requires
+        ``pin_boxes``.  Returns a ``BucklingResult``."""
+        from fem_tpu_torch.solvers.buckling import linear_buckling
 
-    def harmonic(self, *args, **kw):
-        self._analysis("harmonic")
+        s = self.scene[index]
+        return linear_buckling(
+            s.obj, s.state.pos,
+            f_ext=None if f_ext is None else torch.as_tensor(
+                f_ext, dtype=s.state.pos.dtype, device=self.device),
+            g_dir=self.cfg.g_dir if gravity else None, k=k, **kw)
 
-    def response_spectrum(self, *args, **kw):
-        self._analysis("response_spectrum")
+    def harmonic(self, f_hat: np.ndarray, freqs_hz: np.ndarray,
+                 k: int = 6, index: int = 0, modal=None, **kw):
+        """Steady-state frequency response of body ``index`` to the load
+        amplitude ``f_hat`` (N, d) over ``freqs_hz`` by modal superposition
+        on the smallest-``k`` modes (or a precomputed ``modal``):
+        ``solvers/harmonic.py``; ``alpha=``/``beta=`` or ``zeta=``.
+        Returns a ``HarmonicResult``."""
+        from fem_tpu_torch.solvers.harmonic import harmonic_response
 
-    def arc_length(self, *args, **kw):
-        self._analysis("arc_length")
+        if modal is None:
+            modal = self.modes(k=k, index=index)
+        return harmonic_response(modal, torch.as_tensor(f_hat),
+                                 torch.as_tensor(freqs_hz), **kw)
+
+    def response_spectrum(self, accel: np.ndarray, dt: float,
+                          direction, k: int = 6, index: int = 0,
+                          zeta: float = 0.05, combination: str = "cqc",
+                          modal=None):
+        """Response-spectrum analysis of body ``index`` under a rigid base
+        excitation along ``direction`` (``solvers/spectrum.py``): the
+        displacement spectrum of the ground-acceleration record ``accel``
+        (sampled at ``dt``) at the modal frequencies, the per-mode peaks
+        combined by ``combination`` ("cqc" | "srss" | "abssum").  Requires
+        ``pin_boxes``.  Returns an ``RSResult``."""
+        from fem_tpu_torch.solvers.spectrum import (
+            response_spectrum as _spectrum,
+            response_spectrum_analysis,
+        )
+
+        if modal is None:
+            modal = self.modes(k=k, index=index)
+        omegas = torch.sqrt(torch.clamp(modal.omega_sq, min=0.0))
+        sp = _spectrum(accel, dt, omegas, zeta=zeta)
+        return response_spectrum_analysis(
+            modal, self.scene[index].obj.mass, direction, spectrum=sp,
+            zeta=zeta, combination=combination)
+
+    def arc_length(self, f_pattern: np.ndarray, index: int = 0, **kw):
+        """Arc-length (Riks) continuation of body ``index`` under the load
+        λ·``f_pattern`` (``solvers/riks.py``): the equilibrium path through
+        limit points, in float64 with direct sparse tangent solves.
+        Requires ``pin_boxes``.  Returns an ``ArcLengthResult``; the
+        simulation state is not changed."""
+        from fem_tpu_torch.solvers.riks import arc_length_path
+
+        s = self.scene[index]
+        return arc_length_path(s.obj, s.state.pos,
+                               torch.as_tensor(f_pattern), **kw)
 
     # -- observation ------------------------------------------------------
     def metrics(self, index: int = 0) -> FrameMetrics:

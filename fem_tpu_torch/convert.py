@@ -21,8 +21,9 @@ is its largest id + 1.  A batched
 state (the JAX package's ``batch.py``: every field with a leading B axis)
 crosses through the same two functions, its axis kept.  A contact plan
 (``contact.ContactPlan``) crosses as the JAX package's plan fields
-(``CONTACT_PLAN_FIELDS``), the self-contact masks as booleans.
-Only numpy crosses this boundary.
+(``CONTACT_PLAN_FIELDS``), the self-contact masks as booleans.  A modal
+basis (``solvers/modal.ModalResult``) crosses as its four arrays
+(``MODAL_FIELDS``).  Only numpy crosses this boundary.
 """
 
 from __future__ import annotations
@@ -222,6 +223,27 @@ def contact_plan_to_arrays(plan: ContactPlan) -> Dict[str, object]:
         body_id=host(plan.body_id), rest_cat=host(plan.rest_cat),
         mode=plan.mode, sizes=tuple(plan.sizes),
         self_contact=plan.self_contact, cap=plan.cap)
+
+
+MODAL_FIELDS = ("omega_sq", "frequencies", "modes", "residuals")
+
+
+def modal_from_arrays(arrays: Dict[str, np.ndarray], device="cuda"):
+    """A ``solvers/modal.ModalResult`` from the numpy arrays of its fields
+    (``MODAL_FIELDS``; for example a JAX package's result through
+    ``np.asarray``), each keeping its dtype."""
+    from fem_tpu_torch.solvers.modal import ModalResult
+
+    dev = resolve_device(device)
+    return ModalResult(**{n: torch.as_tensor(np.asarray(arrays[n]),
+                                             device=dev)
+                          for n in MODAL_FIELDS})
+
+
+def modal_to_arrays(result) -> Dict[str, np.ndarray]:
+    """{field: numpy array} of a ``ModalResult`` (the inverse of
+    :func:`modal_from_arrays`)."""
+    return {n: getattr(result, n).cpu().numpy() for n in MODAL_FIELDS}
 
 
 def to_dtype(x, dtype: torch.dtype):

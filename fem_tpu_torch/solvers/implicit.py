@@ -80,6 +80,7 @@ import torch
 from fem_tpu_torch.models.state import FemObject, SimState
 from fem_tpu_torch.ops import element
 from fem_tpu_torch.ops import element_kernels as ek
+from fem_tpu_torch.ops import stiffness_kernels
 from fem_tpu_torch.ops.assembly import (
     element_contrib_full,
     gather_assemble,
@@ -277,25 +278,37 @@ def _assembled_force(obj: FemObject, robust: bool, layers):
 
 
 def element_linearization(cols_fn, pos: torch.Tensor,
-                          element_indices: torch.Tensor,
-                          plan_idx: torch.Tensor):
+                          element_indices: torch.Tensor, plan,
+                          negate: bool = False):
     """w ↦ the derivative at ``pos`` along w of the assembled element
     columns ``cols_fn(p, element_indices)`` (the force's exact
-    Hessian-vector product), through each element's Jacobian of its
-    columns in its own (d+1)·d vertex coordinates, formed once here: one
-    ``torch.func.jvp`` over the (d+1)·d unit tangents at once
-    (``torch.func.vmap``), on a table of element-local positions.  Each
-    apply is then a gather, a (d², (d+1)·d) product per element and the
-    assembly through ``plan_idx`` — the JAX package's ``jax.jvp`` of the
-    assembled force, the same derivative summed in another order."""
+    Hessian-vector product; with ``negate`` its negative, the stiffness
+    K·w = −(∂f/∂x)·w), through each element's Jacobian J_e (d², d²) of its
+    columns in its d edge vectors D_j = x_{j+1} − x_0, formed once here:
+    one ``torch.func.jvp`` over the d² unit tangents of vertices 1..d at
+    once (``torch.func.vmap``), on a table of element-local positions.
+    The columns depend on the positions only through the edge vectors (F =
+    D·R⁻¹), so an apply is J_e times the edge differences of w, as the JAX
+    package's ``jax.jvp`` of the assembled force differentiates through
+    them: the same derivative, summed in another order.  (Applied to the
+    (d+1)·d vertex values instead, a smooth w — a buckling or vibration
+    mode — would cancel its common translation inside each element's sum
+    and lose its small edge differences to f32 rounding.)
+
+    The apply takes w of shape (N, d) or a block of columns (N, d, c) and
+    returns the same shape: ``ops/stiffness_kernels.stiffness_apply`` over
+    the Jacobians and ``plan`` (the object's ``GatherPlan``) — one launch
+    of H1 on a CUDA ``pos``, the plain gather, product and assembly on the
+    CPU."""
     e, dp1 = element_indices.shape
     d = dp1 - 1
-    k = dp1 * d
+    k = d * d
     dev, dtype = pos.device, pos.dtype
     table = pos[element_indices.long()].reshape(e * dp1, d)
     local = torch.arange(e * dp1, dtype=torch.int32,
                          device=dev).reshape(e, dp1)
-    tangents = torch.eye(k, dtype=dtype, device=dev).reshape(
+    # Unit tangents on vertex j + 1, component a: tangent j·d + a.
+    tangents = torch.eye(dp1 * d, dtype=dtype, device=dev)[d:].reshape(
         k, 1, dp1, d).expand(k, e, dp1, d).reshape(k, e * dp1, d)
 
     def columns(x):
@@ -303,13 +316,15 @@ def element_linearization(cols_fn, pos: torch.Tensor,
 
     jac = torch.func.vmap(
         lambda t: torch.func.jvp(columns, (table,), (t,))[1])(tangents)
-    jac = jac.reshape(k, e, d * d).permute(1, 2, 0)  # (E, d², k)
+    jac = jac.reshape(k, e, d * d).permute(1, 2, 0)  # (E, d², d²)
+    if negate:
+        jac = -jac
+    binding = stiffness_kernels.StiffnessBinding(jac, element_indices, plan)
 
     def apply(w):
-        we = w[element_indices.long()].reshape(e, k, 1)
-        dcols = torch.matmul(jac, we).reshape(e, d, d)
-        return gather_assemble(element_contrib_full(dcols), plan_idx)
+        return stiffness_kernels.stiffness_apply(binding, w.contiguous())
 
+    apply.binding = binding
     return apply
 
 

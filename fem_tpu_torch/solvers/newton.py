@@ -15,11 +15,11 @@ Gravity, damping and collisions stay in the advection step
 (``sim.substep``).  Two Jacobians (``newton_hessian``):
 
 * ``"exact"``: J = I + dt²·M⁻¹·K(x), K·w the exact Hessian-vector product
-  of the plain assembled force (the JAX package's ``jax.jvp``; plain
-  PyTorch on either device, as XLA is there), through each element's
-  Jacobian formed once a Newton step by ``torch.func.jvp``
-  (``implicit.element_linearization``), so that an inner iteration costs a
-  gather, a small product per element and the assembly;
+  of the plain assembled force (the JAX package's ``jax.jvp``, which XLA
+  compiles), through each element's Jacobian formed once a Newton step by
+  ``torch.func.jvp`` (``implicit.element_linearization``), so that an
+  inner iteration's product is one launch of the stiffness kernel H1 on a
+  CUDA object (its plain gather, product and assembly on the CPU);
 * ``"decoupled"``: modified Newton on the reference's one-block-per-element
   linearization.  One element prep gives both the residual force and the
   operator's K: on an object with locality blocks and element backend
@@ -322,7 +322,7 @@ def newton_velocity_solve(
             base_op = _decoupled_apply(obj, K, dt, beta_eff)
         else:
             hvp = element_linearization(force_cols, position(v),
-                                        obj.element_indices, obj.plan.idx)
+                                        obj.element_indices, obj.plan)
             coeff = dt * (theta * theta * dt + beta)
 
             def base_op(w, hvp=hvp, coeff=coeff):

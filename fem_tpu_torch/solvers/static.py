@@ -8,10 +8,11 @@ The port of the JAX package's ``solvers/static.py``: the static problem
 by damped Newton on the Dirichlet-projected exact Hessian (its products
 through each element's Jacobian of the plain energy-gradient columns,
 formed once an iteration by ``torch.func.jvp``:
-``implicit.element_linearization``; the JAX package takes ``jax.jvp`` of
+``implicit.element_linearization``, each product one launch of the
+stiffness kernel H1 on a CUDA object; the JAX package takes ``jax.jvp`` of
 the assembled gradient), a Levenberg shift λ adapted ×8
 up and ×4 down, and a backtracking line search on the residual with the
-potential as a divergence guard.  Every function is plain PyTorch on
+potential as a divergence guard.  Everything else is plain PyTorch on
 either device, as the JAX package computes it in XLA; the JAX package's
 ``lax.while_loop`` becomes a Python loop that reads the residual norm and
 the line search's acceptance on the host once an iteration, and its
@@ -133,7 +134,7 @@ def solve_static(
 
     def hessian_at(p):
         return element_linearization(grad_cols, p, obj.element_indices,
-                                     obj.plan.idx)
+                                     obj.plan)
 
     def potential(p):
         u = total_energy(p, obj.element_indices, obj.ref_inv, obj.volume,

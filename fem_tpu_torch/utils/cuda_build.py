@@ -61,7 +61,7 @@ LIBRARIES: Tuple[Key, ...] = tuple(
     (name, None) for name in ("fused_cg", "advect", "edge_cg", "fused_frame",
                               "probe_pairblock", "probe_int8",
                               "jacobi_serial", "contact_pairs",
-                              "contact_grid")) + tuple(
+                              "contact_grid", "stiffness_apply")) + tuple(
     (name, m) for name, ms in MATERIAL_SOURCES.items() for m in ms)
 
 _LOADED: Dict[Key, ctypes.CDLL] = {}

@@ -173,15 +173,10 @@ def test_check_state_raises_on_a_diverged_state():
 
 
 def test_unported_features_are_refused():
-    """The analysis solvers but the static solve name ROADMAP M19 and
-    ``sharded=True`` M20, with penalty contact too; none runs in a degraded
-    form.  The static solve runs since M16, and refuses an unpinned body as
-    the JAX package does."""
+    """``sharded=True`` names ROADMAP M20, with penalty contact too; it
+    runs in no degraded form.  The static solve refuses an unpinned body
+    as the JAX package does."""
     sim = fem_tpu_torch.Simulation.from_dict(_cfg_dict(), device="cpu")
-    for name in ("modes", "buckling", "harmonic", "response_spectrum",
-                 "arc_length"):
-        with pytest.raises(NotImplementedError, match="ROADMAP M19"):
-            getattr(sim, name)()
     with pytest.raises(ValueError, match="pin_boxes"):
         sim.solve_static()
     with pytest.raises(NotImplementedError, match="ROADMAP M20"):
@@ -193,6 +188,72 @@ def test_unported_features_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP M20"):
         fem_tpu_torch.Simulation.from_dict(contact, sharded=True,
                                            device="cpu")
+
+
+def test_analyses_match_jax():
+    """The five analyses through both ``Simulation``s on a square pinned
+    along its top rows (3 subdivisions): ``modes`` (Chebyshev, converged
+    ω² within 1e-4 of the largest; ``sparse_f64`` 1e-8), ``buckling``
+    under an upward push on the bottom row (load factors 1e-3),
+    ``harmonic`` and ``response_spectrum`` on one modal basis carried
+    across (1e-5), ``arc_length`` for 3 steps (λ 1e-6)."""
+    import jax.numpy as jnp
+
+    from fem_tpu_torch import convert
+
+    data = _cfg_dict(use_explicit_method=False, auto_diff=False)
+    data["objects"][0].update(subdivisions=3, pin_boxes=[[[0.0, 0.895],
+                                                          [1.0, 1.0]]])
+    sim = fem_tpu_torch.Simulation.from_dict(data, device="cpu")
+    jsim = fem_tpu.Simulation.from_dict(data)
+    pos = sim.positions()
+    n, d = pos.shape
+
+    res = sim.modes(k=4, rounds=10, degree=60)
+    jres = jsim.modes(k=4, rounds=10, degree=60)
+    jw = np.asarray(jres.omega_sq)
+    np.testing.assert_allclose(res.omega_sq.numpy(), jw, rtol=0,
+                               atol=1e-4 * jw[-1])
+    sp = sim.modes(k=4, method="sparse_f64")
+    jsp = jsim.modes(k=4, method="sparse_f64")
+    np.testing.assert_allclose(sp.omega_sq.numpy(),
+                               np.asarray(jsp.omega_sq), rtol=1e-8)
+
+    f = np.zeros((n, d), np.float32)
+    bottom = pos[:, 1] < pos[:, 1].min() + 1e-6
+    f[bottom, 1] = 2.0 / bottom.sum()
+    bk = sim.buckling(k=2, f_ext=f, rounds=24)
+    jbk = jsim.buckling(k=2, f_ext=f, rounds=24)
+    lam, jlam = bk.load_factors.numpy(), np.asarray(jbk.load_factors)
+    assert np.array_equal(np.isfinite(lam), np.isfinite(jlam))
+    fin = np.isfinite(jlam)
+    np.testing.assert_allclose(lam[fin], jlam[fin], rtol=1e-3)
+
+    basis = convert.modal_from_arrays(
+        {k: np.asarray(getattr(jres, k)) for k in convert.MODAL_FIELDS},
+        "cpu")
+    rng = np.random.default_rng(0)
+    f_hat = rng.normal(size=(n, d)).astype(np.float32)
+    freqs = np.linspace(0.2, 2.0, 50).astype(np.float32) * float(
+        np.asarray(jres.frequencies)[0])
+    hr = sim.harmonic(f_hat, freqs, modal=basis, zeta=0.05)
+    jhr = jsim.harmonic(f_hat, freqs, modal=jres, zeta=jnp.asarray(0.05))
+    np.testing.assert_allclose(hr.amplitude.numpy(),
+                               np.asarray(jhr.amplitude), rtol=0,
+                               atol=TOL * np.abs(jhr.amplitude).max())
+    accel = np.sin(np.arange(400) * 0.05).astype(np.float32)
+    rs = sim.response_spectrum(accel, 1e-3, (1.0, 0.0), modal=basis)
+    jrs = jsim.response_spectrum(accel, 1e-3, (1.0, 0.0), modal=jres)
+    np.testing.assert_allclose(rs.peak.numpy(), np.asarray(jrs.peak),
+                               rtol=0, atol=1e-4 * np.abs(jrs.peak).max())
+
+    load = np.zeros((n, d), np.float32)
+    load[bottom, 1] = -1.0
+    arc = sim.arc_length(load, n_steps=3, dlam0=0.05, record_path=False)
+    jarc = jsim.arc_length(load, n_steps=3, dlam0=0.05, record_path=False)
+    assert arc.steps_taken == jarc.steps_taken == 3
+    np.testing.assert_allclose(arc.lam.numpy(), np.asarray(jarc.lam),
+                               rtol=0, atol=1e-6 * np.abs(jarc.lam).max())
 
 
 def test_contact_config_matches_jax():

@@ -34,6 +34,7 @@ long (20-100 iterations): velocities against f64, positions to 1e-5,
 residuals under the tolerance, counts left out."""
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -3453,3 +3454,78 @@ def test_diff_gradients_bit_identical(diff_flagship):
         assert torch.equal(a[0], other[0])
         for x, y in zip(a[1], other[1]):
             assert torch.equal(x, y)
+
+
+# -- H1, the exact stiffness apply ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def stiffness_bodies():
+    """{d: (object, positions)}: the deformed flagship and
+    ``configs/default.json``'s square with a numpy-seeded deformation."""
+    _require_cuda()
+    from fem_tpu_torch import entry, scene
+
+    _, obj, state, _ = entry.flagship("cuda")
+    bodies, _ = scene.load_scene(
+        parse_config(json.load(open(os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "configs", "default.json")))), device="cuda")
+    o2 = bodies[0].obj
+    rng = np.random.default_rng(0)
+    p2 = bodies[0].state.pos + torch.as_tensor(rng.uniform(
+        -0.005, 0.005, tuple(bodies[0].state.pos.shape)).astype(np.float32),
+        device="cuda")
+    return {3: (obj, entry.deformed(state).pos), 2: (o2, p2)}
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("c", [1, 8, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stiffness_apply_matches_plain_and_repeats(stiffness_bodies, d, c,
+                                                   dtype):
+    """H1 against its plain version on the card, within 1e-6 (f32) / 1e-13
+    (f64) of the largest entry, and twice bit-identical; (N, d) the same as
+    one column; one launch an apply."""
+    from fem_tpu_torch.ops import stiffness_kernels as sk
+    from fem_tpu_torch.solvers import modal
+
+    obj, pos = stiffness_bodies[d]
+    o = convert.to_dtype(obj, dtype)
+    kv = modal.make_stiffness_hvp(o, pos.to(dtype))
+    b = kv.binding
+    w = torch.randn((obj.particle_cnt, d, c), generator=torch.Generator(
+        ).manual_seed(c), dtype=dtype).cuda()
+    before = sk.stiffness_apply.launches
+    got, again = kv(w), kv(w)
+    assert sk.stiffness_apply.launches - before == 2
+    assert sk.stiffness_apply.last_plan == sk.stiffness_plan(
+        obj.particle_cnt, d, c, dtype)
+    ref = sk.stiffness_apply_plain(b.jac, w, b.element_indices, b.plan_idx)
+    torch.cuda.synchronize()
+    tol = 1e-6 if dtype == torch.float32 else 1e-13
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(got, again)
+    one = kv(w[..., 0].contiguous())
+    assert torch.equal(one, kv(w[..., :1].contiguous())[..., 0])
+
+
+def test_stiffness_apply_refusals(stiffness_bodies):
+    """The plan refuses what the kernel does not take; a mismatched w
+    raises before a launch; nothing falls back."""
+    from fem_tpu_torch.ops import stiffness_kernels as sk
+    from fem_tpu_torch.solvers import modal
+
+    obj, pos = stiffness_bodies[3]
+    kv = modal.make_stiffness_hvp(obj, pos)
+    before = sk.stiffness_apply.launches
+    with pytest.raises(TypeError):
+        kv(torch.zeros((obj.particle_cnt, 3), dtype=torch.float64,
+                       device="cuda"))
+    with pytest.raises(ValueError):
+        kv(torch.zeros((obj.particle_cnt + 1, 3), device="cuda"))
+    with pytest.raises(ValueError):
+        sk.stiffness_plan(obj.particle_cnt, 4, 1, torch.float32)
+    with pytest.raises(ValueError):
+        sk.stiffness_plan(obj.particle_cnt, 3, 0, torch.float32)
+    assert sk.stiffness_apply.launches == before

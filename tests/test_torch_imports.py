@@ -150,12 +150,11 @@ def test_unported_features_raise():
         dict(integrator="newton"), dict(cg_precond="two_level"),
     ):
         check_supported_config(dataclasses.replace(base, **change))
-    # The analysis solvers but the static solve (M16) stay refused (M19).
+    # The analysis solvers run since M19; sharded=True stays refused (M20).
     from fem_tpu_torch import Simulation
 
-    simulation = Simulation(base, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M19"):
-        simulation.modes()
+    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
+        Simulation(base, sharded=True, device="cpu")
     # Pins, loads and Rayleigh β run since M13.
     for change in (
         dict(load_boxes=(((0, 0, 0), (1, 1, 1), (0, -1, 0)),)),
