@@ -458,11 +458,16 @@ the eight:
 75. H1 (``csrc/stiffness_apply.cu``, the exact stiffness K·W through each
     element's Jacobian in its edge vectors) against its plain version on
     the flagship and ``demo_hanging.json``'s body, 1, 8 and 9 columns,
-    f32 and f64, twice bit-identical, timed beside ``torch.sparse.mm`` of
-    the assembled CSR; path BB, ``Simulation.modes(k=6)`` (Chebyshev) on
+    f32 and f64, twice bit-identical, its rows variant (the default: the
+    element rows once into slot order, then the per-particle sums) equal
+    bit for bit to its slots variant (the first design; the sha256 of
+    each instance logged), both timed beside ``torch.sparse.mm`` of the
+    assembled CSR; path BB, ``Simulation.modes(k=6)`` (Chebyshev) on
     the flagship pinned over its top 1 % (path Z's box): H1 41 + 152·R
     launches (R the rounds run), no plain version, two runs
-    bit-identical; ω² within 1e-4 of ω²₆ of ``method="sparse_f64"``
+    bit-identical, and once more on the slots variant with the same
+    launches and ω² and modes bit-identical; ω² within 1e-4 of ω²₆ of
+    ``method="sparse_f64"``
     (ARPACK on f64 element Hessians made on the card), M-orthonormal
     within 1e-3; the direct f64 residuals of the elastic modes and every
     residual of ``refine_f64=True`` (on the card in f64, H1's double
@@ -484,7 +489,8 @@ the eight:
 79. path BF, ``arc_length`` on tests/test_riks.py's arch (its element
     Hessians on the card) and ``system_diagnostics`` on the flagship: no
     kernel, two runs bit-identical, within 1e-6 (λ) and 1e-5 of the CPU.
-    One ``analysis_paths`` JSON line holds their numbers.
+    One ``analysis_paths`` JSON line holds their numbers, with AX's
+    (section 71) device ms and wall beside them.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failure ends the run with a non-zero exit and no result line; without a
@@ -492,6 +498,7 @@ CUDA device, or without the repository beside it, it exits non-zero at once.
 """
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -801,6 +808,14 @@ def kernel_ms(torch, fn, reps, names, windows=3):
     may miss a launch at the window's edge, so each mean is over those
     seen; it has also returned a window with none of a kernel's launches,
     once in ~130 windows, so a window that saw none is taken again.)"""
+    return kernels_ms(torch, fn, reps, [names], windows)[0]
+
+
+def kernels_ms(torch, fn, reps, groups, windows=3):
+    """``kernel_ms`` of each group of kernel names in ``groups``, from one
+    profiled window of ``fn``, which launches every kernel of every group
+    once a call."""
+    names = [name for group in groups for name in group]
     for _ in range(windows):
         per_kernel, _ = profile_kernels(torch, fn, reps)
         hits = {name: [v for k, v in per_kernel.items() if name in k]
@@ -811,14 +826,14 @@ def kernel_ms(torch, fn, reps, names, windows=3):
                 f"{sorted(k[:80] for k in per_kernel)}")
         if all(hits.values()):
             break
-    total = 0.0
+    mean = {}
     for name in names:
         launches = sum(c for _, c in hits[name])
         require(0 < launches <= reps,
                 f"the profiler saw {launches} launches of {name} in {reps} "
                 f"calls, in each of {windows} windows")
-        total += sum(t for t, _ in hits[name]) / launches
-    return total
+        mean[name] = sum(t for t, _ in hits[name]) / launches
+    return [sum(mean[name] for name in group) for group in groups]
 
 
 def library_device_ms(torch, fn, reps):
@@ -6260,6 +6275,29 @@ class ApplyCounter:
         self.mod.stiffness_apply = self.fn
 
 
+class SlotsVariant:
+    """Runs H1's slots variant (the first design) wherever the code calls
+    H1's wrapper (``stiffness_kernels.stiffness_apply``, looked up through
+    the module at each call) while it is entered.  The stand-in shares the
+    wrapper's attributes (its launch count among them)."""
+
+    def __enter__(self):
+        from fem_tpu_torch.ops import stiffness_kernels
+
+        self.mod = stiffness_kernels
+        self.fn = stiffness_kernels.stiffness_apply
+
+        def slots(binding, w):
+            return self.fn(binding, w, variant="slots")
+
+        slots.__dict__ = self.fn.__dict__
+        stiffness_kernels.stiffness_apply = slots
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.stiffness_apply = self.fn
+
+
 class PlainGuard:
     """Counts the calls of the plain versions of K1, K2, K3, K7a, K7b and H1
     (the module attributes their wrappers call on CPU tensors) while it is
@@ -6942,18 +6980,26 @@ def h1_work(obj, c, itemsize):
     return nbytes_, ops
 
 
+def tensor_sha256(t):
+    """The sha256 of a tensor's bytes, read back to the host."""
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
 def h1_row(torch, card, label, obj, pos, launches):
     """H1 at ``obj``'s shapes and H1_COLUMNS columns: against its plain
     version (f32 and f64, 1, 8 and 9 columns, within 1e-6 / 1e-13 of the
-    largest entry, twice bit-identical), its device ms (f32 and f64), the
-    plain version's ms, ``torch.sparse.mm`` of the assembled CSR (f32) and
-    the bound.  Returns the kernels line's row."""
+    largest entry, twice bit-identical), the rows variant (the default)
+    equal bit for bit to the slots variant (the first design) on each, its
+    device ms and the slots variant's (f32 and f64), the plain version's
+    ms, ``torch.sparse.mm`` of the assembled CSR (f32) and the bound.
+    Returns the kernels line's row."""
     from fem_tpu_torch.convert import to_dtype
     from fem_tpu_torch.ops import stiffness_kernels as sk
     from fem_tpu_torch.solvers import modal
 
     n, d = obj.particle_cnt, obj.dim
-    err, times = 0.0, {}
+    err, times, slot_times = 0.0, {}, {}
     for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
         kv = modal.make_stiffness_hvp(to_dtype(obj, dtype), pos.to(dtype))
         b = kv.binding
@@ -6961,19 +7007,29 @@ def h1_row(torch, card, label, obj, pos, launches):
             w = torch.randn((n, d, c), generator=torch.Generator(
                 ).manual_seed(c), dtype=dtype).to(pos.device)
             got, again = kv(w), kv(w)
+            plan = sk.stiffness_apply.last_plan
+            slots = sk.stiffness_apply(b, w, variant="slots")
             ref = sk.stiffness_apply_plain(b.jac, w, b.element_indices,
                                            b.plan_idx)
             torch.cuda.synchronize()
             e = float((got - ref).abs().max())
             top = float(ref.abs().max())
+            digest = tensor_sha256(got)
             log(f"[H1 {label}] {dtype} {c} columns: max abs error {e:.3e} "
-                f"of max {top:.3e}; plan {sk.stiffness_apply.last_plan}")
+                f"of max {top:.3e}; plan {plan}; rows variant sha256 "
+                f"{digest}, slots variant {tensor_sha256(slots)}")
             require(e <= tol * top, f"H1 {label} {dtype} {c}: error {e}")
             require(torch.equal(got, again), f"H1 {label} runs differ")
+            require(plan.variant == "rows" and torch.equal(got, slots),
+                    f"H1 {label} {dtype} {c}: the rows variant ({plan}) "
+                    "differs from the slots variant")
             if dtype == torch.float32:
                 err = max(err, e)
-        times[dtype] = kernel_ms(torch, lambda: kv(w), H1_REPS,
-                                 ["stiffness_apply_kernel"])
+        # Both variants in one profiled window, a call each a step.
+        times[dtype], slot_times[dtype] = kernels_ms(
+            torch, lambda: (kv(w), sk.stiffness_apply(b, w, variant="slots")),
+            H1_REPS, [["stiffness_rows_kernel", "stiffness_sum_kernel"],
+                      ["stiffness_apply_kernel"]])
         if dtype == torch.float32:
             plain_ms = cuda_ms(torch, lambda: sk.stiffness_apply_plain(
                 b.jac, w, b.element_indices, b.plan_idx), 20)
@@ -6994,17 +7050,23 @@ def h1_row(torch, card, label, obj, pos, launches):
     row = dict(name="stiffness_apply", route="cuda",
                source="fem_tpu_torch/csrc/stiffness_apply.cu",
                replaces="fem_tpu/solvers/modal.py:68", dim=d,
-               columns=H1_COLUMNS, launches=launches, max_abs_err=err,
-               ms=times[torch.float32], plain_ms=plain_ms,
+               columns=H1_COLUMNS, variant="rows", launches=launches,
+               # ``launches`` counts the wrapper's calls (an apply each);
+               # the rows variant launches phase A and phase B in each.
+               kernel_launches=2 * launches,
+               max_abs_err=err, ms=times[torch.float32], plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
                ms_f64=times[torch.float64],
                bound_ms_f64=nb64 / PEAK_BYTES_PER_S * 1e3,
+               ms_slots=slot_times[torch.float32],
+               ms_slots_f64=slot_times[torch.float64],
                particles=n, elements=obj.element_cnt)
     log(f"[time] {d}D H1 ({label}, {H1_COLUMNS} columns) "
-        f"{row['ms']:.5f} ms a launch on the device (profiler), f64 "
-        f"{row['ms_f64']:.5f}; torch.sparse.mm {lib_ms:.5f} ms; plain "
-        f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({bound_by}); "
-        f"launches {launches}; card {card}")
+        f"{row['ms']:.5f} ms a launch on the device (profiler: phase A + "
+        f"phase B), f64 {row['ms_f64']:.5f}; slots variant "
+        f"{row['ms_slots']:.5f}, f64 {row['ms_slots_f64']:.5f}; "
+        f"torch.sparse.mm {lib_ms:.5f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.6f} ms ({bound_by}); launches {launches}; card {card}")
     return row
 
 
@@ -7064,6 +7126,23 @@ def run_analysis(torch, dev, zero_counts, counts, only, card):
     h1_bb = 41 + 152 * rounds
     require(launches == only(stiffness_apply=h1_bb),
             f"path BB: launches {launches} vs H1 41 + 152 x {rounds}")
+    with SlotsVariant():
+        res_s, wall_s, launches_s, dev_ms_s, busy_s = path(
+            "BB on H1's slots variant", lambda: bb_sim.modes(k=6))
+        last = h1.last_plan
+    rounds_s = modal.modal_analysis_chebyshev.last_rounds
+    require(last.variant == "slots" and rounds_s == rounds
+            and launches_s == launches,
+            f"path BB slots: {rounds_s} rounds, launches {launches_s}, last "
+            f"plan {last}")
+    require(torch.equal(res_s.omega_sq, res.omega_sq)
+            and torch.equal(res_s.modes, res.modes),
+            "path BB: ω² or modes differ between H1's variants")
+    log(f"[path BB] the slots variant: ω² sha256 "
+        f"{tensor_sha256(res_s.omega_sq)} (rows {tensor_sha256(res.omega_sq)}"
+        f"), modes sha256 {tensor_sha256(res_s.modes)} (rows "
+        f"{tensor_sha256(res.modes)}); {dev_ms_s:.4f} device ms against the "
+        f"rows variant's {dev_ms:.4f}, wall {wall_s:.3f} s against {wall:.3f}")
     oracle = bb_sim.modes(k=6, method="sparse_f64")
     w, wo = res.omega_sq.double().cpu(), oracle.omega_sq.cpu()
     scale = float(wo[-1])
@@ -7114,6 +7193,8 @@ def run_analysis(torch, dev, zero_counts, counts, only, card):
             f"path BB: the free flagship's rigid modes {fw.tolist()}")
     line["BB"] = dict(rounds=rounds, launches=dict(H1=h1_bb), wall_s=wall,
                       device_ms=dev_ms, busy_pct=busy,
+                      slots_variant=dict(wall_s=wall_s, device_ms=dev_ms_s,
+                                         busy_pct=busy_s),
                       omega_sq=w.tolist(), sparse_f64=wo.tolist(),
                       rel_err=rel, residuals=res.residuals.tolist(),
                       direct_f64_residuals=direct.tolist(),
@@ -8114,6 +8195,9 @@ def main():
     h1_rows, analysis_line, analysis_s = run_analysis(
         torch, dev, zero_counts, counts, only, card)
     kernels.extend(h1_rows)
+    analysis_line["AX"] = dict(
+        device_ms=newton_line["AX"]["device_ms_per_solve"],
+        wall_s=newton_line["AX"]["wall_s"], card=card)
     log(json.dumps({"analysis_paths": analysis_line}))
     log(f"[analysis] sections 75-79 in {analysis_s:.1f} s")
     for name in [k for k, _, _ in KERNELS] + ["contact_pairs",

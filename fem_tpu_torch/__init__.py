@@ -60,7 +60,12 @@ from fem_tpu_torch.models.state import (  # noqa: E402
     SimState,
     build_object,
 )
-from fem_tpu_torch.sim import StepAux, make_frame_fn, substep  # noqa: E402
+from fem_tpu_torch.sim import (  # noqa: E402
+    StepAux,
+    make_frame_fn,
+    make_substep_fn,
+    substep,
+)
 from fem_tpu_torch.utils.config import (  # noqa: E402
     BlockConfig,
     ObjectConfig,
@@ -88,6 +93,7 @@ __all__ = [
     "make_diff_rollout_fn",
     "make_diff_substep_fn",
     "make_frame_fn",
+    "make_substep_fn",
     "params_from_object",
     "parse_config",
     "read_config",

@@ -1,6 +1,6 @@
 # coding=utf-8
-"""H1: the exact elastic stiffness applied to a block of columns, one launch
-an apply.
+"""H1: the exact elastic stiffness applied to a block of columns, one call
+of the kernel library an apply.
 
 ``stiffness_apply`` launches the hand-written CUDA kernel of
 ``fem_tpu_torch/csrc/stiffness_apply.cu`` for tensors on a CUDA device.  It
@@ -25,16 +25,22 @@ For tensors on the CPU it runs its plain PyTorch version,
 ``torch.matmul``, the vertex-0 sum and ``gather_assemble`` through the
 padded plan.  On CUDA
 ``stiffness_apply`` launches the kernel or raises; it never falls back.
-``stiffness_apply.launches`` counts the launches, ``variant_launches`` by
-(dtype, d), and ``last_plan`` holds the last launch's
-:class:`StiffnessPlan`.
+``stiffness_apply.launches`` counts the launched applies (one C call
+each: the rows variant's two kernels, the slots variant's one),
+``variant_launches`` by (dtype, d), and ``last_plan`` holds the last
+launch's :class:`StiffnessPlan`.
 
 The kernel takes float32 and float64 (the H100 has native f64: the f64
 modal refinement and residuals run it on the card), d ∈ {2, 3}, any column
-count.  One thread an output entry (particle, component, column) walks its
-particle's plan slots in order and recomputes each slot's element row from
-J_e and the element's edge differences of W, in the plain version's order
-within the row; no atomics, so two runs are bit-identical.
+count.  Two variants, bit-identical (:data:`VARIANTS`): ``"rows"``, the
+default, computes each element's rows once into a scratch buffer in the
+plan's slot order (through the binding's ``slot_of_row``, the inverse of
+the plan's rows), then sums each particle's contiguous slots in order;
+``"slots"``, the first design, runs one thread an output entry that walks
+its particle's plan slots in order and recomputes each slot's element row
+from J_e and the element's edge differences of W.  Both take each row in
+the plain version's order within the row; no atomics, so two runs are
+bit-identical.
 """
 
 from __future__ import annotations
@@ -54,6 +60,16 @@ _I = ctypes.c_int
 THREADS = 128  # csrc/stiffness_apply.cu: kThreads
 DTYPES = {torch.float32: 0, torch.float64: 1}
 _NAMES = {torch.float32: "f32", torch.float64: "f64"}
+# The element rows once into slot order, then the per-particle sums (the
+# default); the first design, each slot's row recomputed by its particle.
+VARIANTS = ("rows", "slots")
+_GRID = 2 ** 31 - 1
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown H1 variant {variant!r}; one of "
+                         f"{VARIANTS}")
 
 
 class StiffnessPlan(NamedTuple):
@@ -61,17 +77,26 @@ class StiffnessPlan(NamedTuple):
     columns: int
     dtype: str  # "f32" or "f64"
     threads: int  # a CTA
-    ctas: int
+    ctas: int  # one thread an output entry: phase B's, or the slots kernel's
+    variant: str
+    row_ctas: int  # phase A's, one thread an (element, component, column)
 
 
 @functools.lru_cache(maxsize=256)
-def stiffness_plan(n: int, d: int, columns: int,
-                   dtype: torch.dtype) -> StiffnessPlan:
-    """H1's launch for ``n`` particles in ``d`` dimensions and ``columns``
-    columns of ``dtype``: one thread an output entry, CTAs of
-    :data:`THREADS`.  Raises ``ValueError`` for what the kernel does not
-    take: d ∉ {2, 3}, no particle or column, a dtype other than float32 or
-    float64, or more CTAs than a grid holds.  Pure: no device is asked."""
+def stiffness_plan(n: int, d: int, columns: int, dtype: torch.dtype,
+                   elements: int, variant: str = "rows") -> StiffnessPlan:
+    """H1's launch for ``n`` particles and ``elements`` elements in ``d``
+    dimensions and ``columns`` columns of ``dtype``, CTAs of
+    :data:`THREADS`: the slots variant one thread an output entry; the
+    rows variant phase A's thread an (element, component, column), then
+    phase B's thread an output entry.  Raises ``ValueError`` for what the
+    kernels do not take: d ∉ {2, 3}, no particle, element or column, a
+    dtype other than float32 or float64, a variant not in
+    :data:`VARIANTS`, or more CTAs than a grid holds.  Pure: no device is
+    asked."""
+    _check_variant(variant)
+    if elements < 1:
+        raise ValueError(f"H1 needs an element, got {elements}")
     if d not in (2, 3):
         raise ValueError(f"H1 takes dim 2 or 3, not {d}")
     if n < 1:
@@ -81,9 +106,16 @@ def stiffness_plan(n: int, d: int, columns: int,
     if dtype not in DTYPES:
         raise ValueError(f"H1 takes float32 or float64, not {dtype}")
     ctas = -(-n * d * columns // THREADS)
-    if ctas > 2 ** 31 - 1:
+    if ctas > _GRID:
         raise ValueError(f"H1: {n} x {d} x {columns} entries pass a grid")
-    return StiffnessPlan(d, columns, _NAMES[dtype], THREADS, ctas)
+    row_ctas = 0
+    if variant == "rows":
+        row_ctas = -(-elements * d * columns // THREADS)
+        if row_ctas > _GRID:
+            raise ValueError(f"H1: {elements} x {d} x {columns} element "
+                             "rows pass a grid")
+    return StiffnessPlan(d, columns, _NAMES[dtype], THREADS, ctas, variant,
+                         row_ctas)
 
 
 def stiffness_apply_plain(jac: torch.Tensor, w: torch.Tensor,
@@ -110,20 +142,34 @@ def stiffness_apply_plain(jac: torch.Tensor, w: torch.Tensor,
                            plan_idx).reshape(-1, d, c)
 
 
+def slot_order(rows: torch.Tensor) -> torch.Tensor:
+    """The inverse of the gather plan's ``rows`` (E·(d+1),) int32, on its
+    device: ``slot_order(rows)[r]`` is the slot that holds row r, so that
+    ``rows[slot_order(rows)[r]] == r``.  One scatter of ``arange``."""
+    slot = torch.empty_like(rows)
+    slot[rows.long()] = torch.arange(rows.numel(), dtype=rows.dtype,
+                                     device=rows.device)
+    return slot
+
+
 class StiffnessBinding:
     """One linearization's operands, checked and laid out once: the element
     Jacobians ``jac`` (E, d², d²), the element table (int32) and the
     gather plan (its padded form for the plain version, its CSR form for
-    the kernel), all on ``jac``'s device."""
+    the kernels), all on ``jac``'s device, with the rows variant's slot
+    order (``slot_of_row``, the inverse of the plan's rows), built here
+    once."""
 
     def __init__(self, jac: torch.Tensor, element_indices: torch.Tensor,
                  plan):
         e, dp1 = element_indices.shape
         self.d = dp1 - 1
+        self.e = e
         self.n = plan.idx.shape[0]
         self.plan_idx = plan.idx
         self.element_indices = element_indices
         self.jac = jac
+        self.slot_of_row = slot_order(plan.rows)
         if jac.device.type == "cuda":
             dev = jac.device
             d, k = self.d, self.d * self.d
@@ -155,6 +201,9 @@ def _library():
         lib.fem_stiffness_apply.argtypes = [_I, _I, _P, _P, _P, _P, _P, _I,
                                             _I, _P, _P]
         lib.fem_stiffness_apply.restype = _I
+        lib.fem_stiffness_apply_two_phase.argtypes = [
+            _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]
+        lib.fem_stiffness_apply_two_phase.restype = _I
         lib.fem_stiffness_threads.argtypes = []
         lib.fem_stiffness_threads.restype = _I
         lib.fem_stiffness_error.argtypes = [_I]
@@ -166,12 +215,15 @@ def _library():
     return _LIB
 
 
-def stiffness_apply(binding: StiffnessBinding,
-                    w: torch.Tensor) -> torch.Tensor:
+def stiffness_apply(binding: StiffnessBinding, w: torch.Tensor,
+                    variant: str = "rows") -> torch.Tensor:
     """K·w for ``w`` (N, d) or (N, d, c) of the binding's dtype, the same
-    shape out.  CUDA tensors: one launch of H1 on :func:`stiffness_plan`'s
-    plan (left in ``stiffness_apply.last_plan``); nothing is read back.
-    CPU tensors: :func:`stiffness_apply_plain`."""
+    shape out.  CUDA tensors: one launch of H1 in ``variant`` (the rows
+    variant's two kernels from one call, the slots variant's one kernel)
+    on :func:`stiffness_plan`'s plan (left in
+    ``stiffness_apply.last_plan``); nothing is read back.  CPU tensors:
+    :func:`stiffness_apply_plain`."""
+    _check_variant(variant)
     if w.device.type == "cpu":
         return stiffness_apply_plain(binding.jac, w, binding.element_indices,
                                      binding.plan_idx)
@@ -179,18 +231,28 @@ def stiffness_apply(binding: StiffnessBinding,
     if dev.type != "cuda" or binding.jac.device != dev:
         raise ValueError(f"H1: w on {dev}, the linearization on "
                          f"{binding.jac.device}")
-    n, d = binding.n, binding.d
+    n, d, e = binding.n, binding.d, binding.e
     c = 1 if w.dim() == 2 else w.shape[-1]
     shape = (n, d) if w.dim() == 2 else (n, d, c)
-    cuda_build.check_operand("w", w, shape, binding.jac.dtype, dev)
-    plan = stiffness_plan(n, d, c, binding.jac.dtype)
+    dtype = binding.jac.dtype
+    cuda_build.check_operand("w", w, shape, dtype, dev)
+    plan = stiffness_plan(n, d, c, dtype, e, variant)
     out = torch.empty_like(w)
     lib = _library()
-    rc = cuda_build.launch_on_stream(
-        dev, dev.index, lib.fem_stiffness_apply, d, DTYPES[binding.jac.dtype],
-        binding.jac.data_ptr(), w.data_ptr(), binding.elem.data_ptr(),
-        binding.ptr.data_ptr(), binding.rows.data_ptr(), n, c,
-        out.data_ptr())
+    if variant == "rows":
+        scratch = torch.empty((e * (d + 1), d, c), dtype=dtype, device=dev)
+        rc = cuda_build.launch_on_stream(
+            dev, dev.index, lib.fem_stiffness_apply_two_phase, d,
+            DTYPES[dtype], binding.jac.data_ptr(), w.data_ptr(),
+            binding.elem.data_ptr(), binding.slot_of_row.data_ptr(),
+            binding.ptr.data_ptr(), e, n, c, scratch.data_ptr(),
+            out.data_ptr())
+    else:
+        rc = cuda_build.launch_on_stream(
+            dev, dev.index, lib.fem_stiffness_apply, d, DTYPES[dtype],
+            binding.jac.data_ptr(), w.data_ptr(), binding.elem.data_ptr(),
+            binding.ptr.data_ptr(), binding.rows.data_ptr(), n, c,
+            out.data_ptr())
     if rc != 0:
         raise RuntimeError(
             f"H1 kernel launch failed: {lib.fem_stiffness_error(rc).decode()}")

@@ -3485,8 +3485,9 @@ def stiffness_bodies():
 def test_stiffness_apply_matches_plain_and_repeats(stiffness_bodies, d, c,
                                                    dtype):
     """H1 against its plain version on the card, within 1e-6 (f32) / 1e-13
-    (f64) of the largest entry, and twice bit-identical; (N, d) the same as
-    one column; one launch an apply."""
+    (f64) of the largest entry, and twice bit-identical; the rows variant
+    (the default) equal bit for bit to the slots variant (the first
+    design); (N, d) the same as one column; one launch an apply."""
     from fem_tpu_torch.ops import stiffness_kernels as sk
     from fem_tpu_torch.solvers import modal
 
@@ -3494,20 +3495,27 @@ def test_stiffness_apply_matches_plain_and_repeats(stiffness_bodies, d, c,
     o = convert.to_dtype(obj, dtype)
     kv = modal.make_stiffness_hvp(o, pos.to(dtype))
     b = kv.binding
+    assert torch.equal(b.slot_of_row.cpu(), sk.slot_order(obj.plan.rows.cpu()))
     w = torch.randn((obj.particle_cnt, d, c), generator=torch.Generator(
         ).manual_seed(c), dtype=dtype).cuda()
     before = sk.stiffness_apply.launches
     got, again = kv(w), kv(w)
     assert sk.stiffness_apply.launches - before == 2
     assert sk.stiffness_apply.last_plan == sk.stiffness_plan(
-        obj.particle_cnt, d, c, dtype)
+        obj.particle_cnt, d, c, dtype, obj.element_cnt)
+    slots = sk.stiffness_apply(b, w, variant="slots")
+    assert sk.stiffness_apply.last_plan == sk.stiffness_plan(
+        obj.particle_cnt, d, c, dtype, obj.element_cnt, "slots")
     ref = sk.stiffness_apply_plain(b.jac, w, b.element_indices, b.plan_idx)
     torch.cuda.synchronize()
     tol = 1e-6 if dtype == torch.float32 else 1e-13
     assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
     assert torch.equal(got, again)
+    assert torch.equal(got, slots)
     one = kv(w[..., 0].contiguous())
     assert torch.equal(one, kv(w[..., :1].contiguous())[..., 0])
+    assert torch.equal(one, sk.stiffness_apply(b, w[..., 0].contiguous(),
+                                               variant="slots"))
 
 
 def test_stiffness_apply_refusals(stiffness_bodies):
@@ -3525,7 +3533,12 @@ def test_stiffness_apply_refusals(stiffness_bodies):
     with pytest.raises(ValueError):
         kv(torch.zeros((obj.particle_cnt + 1, 3), device="cuda"))
     with pytest.raises(ValueError):
-        sk.stiffness_plan(obj.particle_cnt, 4, 1, torch.float32)
+        sk.stiffness_plan(obj.particle_cnt, 4, 1, torch.float32,
+                          obj.element_cnt)
     with pytest.raises(ValueError):
-        sk.stiffness_plan(obj.particle_cnt, 3, 0, torch.float32)
+        sk.stiffness_plan(obj.particle_cnt, 3, 0, torch.float32,
+                          obj.element_cnt)
+    w = torch.zeros((obj.particle_cnt, 3), device="cuda")
+    with pytest.raises(ValueError, match="unknown H1 variant"):
+        sk.stiffness_apply(kv.binding, w, variant="tiles")
     assert sk.stiffness_apply.launches == before

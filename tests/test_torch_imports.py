@@ -169,3 +169,23 @@ def test_unported_features_raise():
         check_supported_object(ObjectConfig(material=material))
     with pytest.raises(ValueError, match="unknown material"):
         check_supported_object(ObjectConfig(material="rubber"))
+
+
+def test_public_names_match_the_jax_package():
+    """Every name that ``fem_tpu`` exports (its ``__all__``, read with
+    ``ast`` so that JAX is not imported) is in ``fem_tpu_torch.__all__``
+    and importable from it."""
+    import ast
+
+    with open(os.path.join(REPO, "fem_tpu", "__init__.py"),
+              encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = next(
+        ast.literal_eval(node.value) for node in tree.body
+        if isinstance(node, ast.Assign)
+        and any(getattr(t, "id", None) == "__all__" for t in node.targets))
+    assert "make_substep_fn" in names
+    missing = sorted(set(names) - set(fem_tpu_torch.__all__))
+    assert not missing, missing
+    for name in names:
+        assert hasattr(fem_tpu_torch, name), name

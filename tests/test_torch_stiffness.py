@@ -6,12 +6,20 @@ inputs: 2D and 3D, every base material, pinned and free, column blocks
 held column by column to the JAX product; the Jacobians in the edge
 vectors against the same product in the vertex coordinates on a smooth
 vector; a numpy emulation of H1's per-slot recomputation against the
-plain apply; the plan's refusals.
+plain apply; the slot order (``slot_of_row``) inverting the plan on the
+flagship and ``demo_hanging.json``'s body; a numpy emulation of H1's two
+phases (rows into slot order, then contiguous sums) against the per-slot
+emulation; the plan's and the binding's variants and refusals.
 
 Tolerances: the JAX product within 1e-5 of its largest entry (the two
 packages sum the same derivative in other orders); H1's emulation within
 1e-6 of the largest entry (the per-slot sums run in another order than
-the plain gather's sum)."""
+the plain gather's sum); the two phases equal to the per-slot emulation
+bit for bit (the same row values summed over the same slots in the same
+order)."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -27,10 +35,14 @@ from fem_tpu_torch.solvers.implicit import (
     _force_columns,
     element_linearization,
 )
+from fem_tpu_torch import scene
+from fem_tpu_torch.utils.config import read_config
 from tests.test_torch_multilevel import port_object
 from tests.utils import make_2d_object, make_3d_object
 
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MATERIALS = {
     2: ("neo_hookean", "stvk", "linear", "corotated", "stable_neo_hookean",
@@ -207,11 +219,167 @@ def test_block_apply_equals_columns_applied_one_by_one(dim):
 
 
 def test_stiffness_plan_and_refusals():
-    p = sk.stiffness_plan(1007, 3, 9, torch.float32)
+    p = sk.stiffness_plan(1007, 3, 9, torch.float32, 4068)
     assert (p.threads, p.ctas, p.dtype) == (128, -(-1007 * 27 // 128), "f32")
-    assert sk.stiffness_plan(121, 2, 1, torch.float64).dtype == "f64"
-    for args in ((10, 4, 1, torch.float32), (10, 1, 1, torch.float32),
-                 (0, 3, 1, torch.float32), (10, 3, 0, torch.float32),
-                 (10, 3, 1, torch.float16), (10, 3, 1, torch.int32)):
+    assert sk.stiffness_plan(121, 2, 1, torch.float64, 200).dtype == "f64"
+    for args in ((10, 4, 1, torch.float32, 4), (10, 1, 1, torch.float32, 4),
+                 (0, 3, 1, torch.float32, 4), (10, 3, 0, torch.float32, 4),
+                 (10, 3, 1, torch.float16, 4), (10, 3, 1, torch.int32, 4)):
         with pytest.raises(ValueError):
             sk.stiffness_plan(*args)
+
+
+def _config_object(name):
+    """The first body of ``configs/<name>`` on the CPU."""
+    (body,), _ = scene.load_scene(
+        read_config(os.path.join(REPO, "configs", name)), device="cpu")
+    return body.obj
+
+
+@pytest.mark.parametrize("name,dim,slots",
+                         [("demo_spot.json", 3, 56),
+                          ("demo_hanging.json", 2, 6)])
+def test_slot_of_row_inverts_the_plan(name, dim, slots):
+    """``slot_order`` (the binding's ``slot_of_row``) is a permutation of
+    the slots and inverts the plan's rows both ways; the busiest particle
+    holds the slots that set the first design's chain."""
+    obj = _config_object(name)
+    plan = obj.plan
+    e, dp1 = obj.element_indices.shape
+    assert dp1 == dim + 1
+    rows = plan.rows.numpy()
+    slot = sk.slot_order(plan.rows)
+    assert slot.dtype == torch.int32 and slot.shape == (e * dp1,)
+    slot = slot.numpy()
+    assert np.array_equal(np.sort(slot), np.arange(e * dp1))
+    assert np.array_equal(rows[slot], np.arange(e * dp1))
+    assert np.array_equal(slot[rows], np.arange(e * dp1))
+    assert int(np.diff(plan.ptr.numpy()).max()) == slots
+    jac = torch.zeros((e, dim * dim, dim * dim))
+    b = sk.StiffnessBinding(jac, obj.element_indices, plan)
+    assert torch.equal(b.slot_of_row, torch.as_tensor(slot))
+
+
+def _kernel_batch():
+    """Phase B's batch, ``kBatch`` in csrc/stiffness_apply.cu."""
+    with open(os.path.join(REPO, "fem_tpu_torch", "csrc",
+                           "stiffness_apply.cu"), encoding="utf-8") as f:
+        (batch,) = re.findall(r"constexpr int kBatch = (\d+);", f.read())
+    return int(batch)
+
+
+def _h1_two_phase_emulated(jac, w, element_indices, slot_of_row, ptr):
+    """H1's rows variant in numpy float32.  Phase A: each element's rows
+    once (its edge differences of w, the d columns of J_e's product, vertex
+    0's −(col₀ + col₁ + …)), each stored to its slot of a scratch R in the
+    plan's slot order.  Phase B: each particle's contiguous slots of R
+    summed in order, from zero, in batches of the kernel's ``kBatch``, the
+    last batch's surplus added as +0 as the kernel adds it."""
+    jac = jac.numpy()
+    w = w.numpy()
+    elem = element_indices.numpy()
+    slot, ptr = slot_of_row.numpy(), ptr.numpy()
+    n, d, c = w.shape
+    e_cnt = elem.shape[0]
+    k = d * d
+    r = np.full((e_cnt * (d + 1), d, c), np.nan, np.float32)
+    for e in range(e_cnt):
+        we = (w[elem[e, 1:]] - w[elem[e, :1]]).reshape(k, c)
+        cols = [np.stack([jac[e, i * d + j] @ we for i in range(d)])
+                for j in range(d)]
+        v0 = cols[0]
+        for j in range(d):
+            r[slot[e * (d + 1) + j + 1]] = cols[j]
+            if j > 0:
+                v0 = v0 + cols[j]
+        r[slot[e * (d + 1)]] = -v0
+    assert not np.isnan(r).any()  # every slot written once
+    batch = _kernel_batch()
+    zero = np.zeros((d, c), np.float32)
+    out = np.zeros_like(w)
+    for p in range(n):
+        acc = np.zeros((d, c), np.float32)
+        begin, end = ptr[p], ptr[p + 1]
+        for s in range(begin, begin + -(-(end - begin) // batch) * batch):
+            acc = acc + (r[s] if s < end else zero)
+        out[p] = acc
+    return out
+
+
+@pytest.mark.parametrize("body,c", [("2d", 1), ("2d", 9), ("3d", 1),
+                                    ("3d", 9), ("flagship", 9)])
+def test_h1_two_phases_equal_the_slot_recomputation(body, c):
+    """The rows variant's data flow, emulated, equals the first design's
+    emulation bit for bit (random Jacobians), and its linearization's own
+    Jacobians too; the flagship holds particles of up to 56 slots."""
+    if body == "flagship":
+        obj = _config_object("demo_spot.json")
+        pos = None
+    else:
+        obj, _, pos = _body(2 if body == "2d" else 3, "neo_hookean", False)
+    e, dp1 = obj.element_indices.shape
+    d = dp1 - 1
+    rng = np.random.default_rng(5)
+    jac = torch.as_tensor(rng.normal(size=(e, d * d, d * d)).astype(
+        np.float32))
+    w = torch.as_tensor(rng.normal(size=(obj.particle_cnt, d, c)).astype(
+        np.float32))
+    b = sk.StiffnessBinding(jac, obj.element_indices, obj.plan)
+    got = _h1_two_phase_emulated(jac, w, obj.element_indices, b.slot_of_row,
+                                 obj.plan.ptr)
+    ref = _h1_emulated(jac, w, obj.element_indices, obj.plan.ptr,
+                       obj.plan.rows)
+    assert np.array_equal(got, ref)
+    _close(got, sk.stiffness_apply_plain(jac, w, obj.element_indices,
+                                         obj.plan.idx), 1e-6)
+    if pos is None:
+        return
+    lin = element_linearization(_force_columns(obj, False, None),
+                                torch.as_tensor(pos), obj.element_indices,
+                                obj.plan)
+    assert np.array_equal(
+        _h1_two_phase_emulated(lin.binding.jac, w, obj.element_indices,
+                               lin.binding.slot_of_row, obj.plan.ptr),
+        _h1_emulated(lin.binding.jac, w, obj.element_indices, obj.plan.ptr,
+                     obj.plan.rows))
+
+
+def test_stiffness_plan_variants():
+    """The rows variant (the default): phase B's CTAs an output entry,
+    phase A's an (element, component, column); the slots variant: one
+    kernel's CTAs, no phase A.  Unknown variants and element counts below
+    one are refused."""
+    p = sk.stiffness_plan(1007, 3, 9, torch.float32, 4068)
+    assert (p.variant, p.threads, p.ctas, p.row_ctas) == (
+        "rows", 128, -(-1007 * 27 // 128), -(-4068 * 27 // 128))
+    q = sk.stiffness_plan(1007, 3, 9, torch.float32, 4068, "slots")
+    assert (q.variant, q.ctas, q.row_ctas) == ("slots", p.ctas, 0)
+    assert sk.stiffness_plan(121, 2, 1, torch.float64, 200).row_ctas == -(
+        -200 * 2 // 128)
+    assert sk.VARIANTS == ("rows", "slots")
+    for args in ((10, 3, 1, torch.float32, 4, "tiles"),
+                 (10, 3, 1, torch.float32, 0),
+                 (10, 3, 1, torch.float32, -1, "slots"),
+                 (10, 4, 1, torch.float32, 4, "slots"),
+                 (10, 3, 0, torch.float32, 4, "rows")):
+        with pytest.raises(ValueError):
+            sk.stiffness_plan(*args)
+
+
+def test_stiffness_binding_variants():
+    """The binding holds the slot order of its plan; on the CPU the apply
+    runs the plain version in either variant and refuses an unknown one."""
+    obj, _, pos = _body(3, "neo_hookean", True)
+    lin = element_linearization(_force_columns(obj, False, None),
+                                torch.as_tensor(pos), obj.element_indices,
+                                obj.plan)
+    b = lin.binding
+    assert torch.equal(b.slot_of_row, sk.slot_order(obj.plan.rows))
+    w = torch.as_tensor(np.random.default_rng(6).normal(
+        size=pos.shape + (3,)).astype(np.float32))
+    ref = sk.stiffness_apply_plain(b.jac, w, b.element_indices, b.plan_idx)
+    assert torch.equal(sk.stiffness_apply(b, w), ref)
+    assert torch.equal(sk.stiffness_apply(b, w, variant="slots"), ref)
+    with pytest.raises(ValueError, match="unknown H1 variant"):
+        sk.stiffness_apply(b, w, variant="tiles")
+
