@@ -7380,6 +7380,286 @@ def run_analysis(torch, dev, zero_counts, counts, only, card):
     return rows, line, time.perf_counter() - t_phase
 
 
+def shard_sums_close(torch, label, parts, ref, rel=1e-6):
+    """The ranks' partials ``parts`` summed in rank order against the
+    unsharded ``ref``: within ``rel`` of its largest entry."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    err = float((total - ref).abs().max())
+    top = float(ref.abs().max())
+    require(top > 0 and err <= rel * top,
+            f"{label}: the ranks' sum is off by {err} of {top}")
+    return err / top
+
+
+def run_sharding(torch, dev, zero_counts, counts, only, card):
+    """Sections 80-82, element sharding (ROADMAP M20; no new kernel): BG
+    the flagship through ``parallel/sharding.make_sharded_frame_fn`` on a
+    one-rank NCCL group on the card against the single-device op-composed
+    frame on the same blocked operator; BH the flagship's shards emulated
+    in this process at 2, 4 and 8 ranks (K3, K2 on each rank's blocks; K1,
+    K6 and H1 on each rank's element rows) against their plain versions
+    and, summed in rank order, against the unsharded products; BI two
+    ranks as two processes on the one card, gloo over CUDA tensors,
+    against BG's positions.  Returns (the ``sharding_paths`` line's dict,
+    phase seconds)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from fem_tpu_torch import entry, sim
+    from fem_tpu_torch.ops import assembly, blocked_kernels as bk
+    from fem_tpu_torch.ops import element_kernels as ek
+    from fem_tpu_torch.ops import stiffness_kernels as sk
+    from fem_tpu_torch.ops.blocking import shard_blocking
+    from fem_tpu_torch.parallel import sharding
+    from fem_tpu_torch.parallel.launch import start_ranks
+    from fem_tpu_torch.solvers import modal
+
+    t_phase = time.perf_counter()
+    frames = 3
+    line = {}
+    cfg, obj, state0, obstacles = entry.flagship(dev)
+    start = entry.deformed(state0)
+    sc = cfg.sim_count
+
+    # -- 80. path BG ----------------------------------------------------------
+    mesh = sharding.make_element_mesh(device=dev)
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            f"BG's group: {dist.get_backend()} x {dist.get_world_size()}")
+    sharded = sharding.make_sharded_frame_fn(obj, cfg, mesh)
+    single = sim.make_frame_fn(obj, dataclasses.replace(
+        cfg, operator_mode="blocked"))
+
+    def go(frame):
+        def run():
+            st, its = start, []
+            for _ in range(frames):
+                st, aux = frame(st, obstacles)
+                its.append(aux.solver_iterations)
+            return st, torch.cat(its)
+        return run
+
+    # One frame of each first: the first collective creates the NCCL
+    # communicator (most of a second), which is set-up, not a frame.
+    for frame in (sharded, single):
+        frame(start, obstacles)
+    torch.cuda.synchronize()
+    calls0 = assembly.all_reduce_sum.calls
+    (s_bg, it_bg), wall, launches, plain, (s_bg2, it_bg2), dev_ms, busy = \
+        counted_then_profiled(torch, zero_counts, counts, go(sharded), frames)
+    reduces = assembly.all_reduce_sum.calls - calls0
+    iters = it_bg.cpu().tolist()
+    k3_want = sum(3 + 2 * i for i in iters)
+    log(f"[BG] sharded flagship, 1 NCCL rank, {frames} frames: CG "
+        f"iterations {iters}; launches {launches}; all-reduces in the counted "
+        f"run {reduces // 2} (K2 {launches['blocked_prep']} + K3 "
+        f"{launches['blocked_matvec']}); plain calls {plain}")
+    require(launches == only(blocked_prep=sc * frames, blocked_matvec=k3_want),
+            f"BG launched {launches}, expected K2 {sc * frames} and K3 "
+            f"{k3_want}")
+    # counted_then_profiled runs the frames twice; each all-reduce once a
+    # K2 force and once a K3 product.
+    require(reduces == 2 * (sc * frames + k3_want),
+            f"BG made {reduces} all-reduces in two runs, expected "
+            f"{2 * (sc * frames + k3_want)}")
+    require(not plain, f"BG called plain versions: {plain}")
+    require(torch.equal(s_bg.pos, s_bg2.pos) and iters == it_bg2.cpu().tolist(),
+            "BG's two runs differ")
+    (s_one, it_one), wall_one, l_one, _, _, dev_one, busy_one = \
+        counted_then_profiled(torch, zero_counts, counts, go(single), frames)
+    err = float((s_bg.pos - s_one.pos).abs().max())
+    log(f"[BG] single-device op-composed blocked frame: iterations "
+        f"{it_one.cpu().tolist()}; positions within {err:.3e}")
+    require(err <= 1e-5, f"BG's positions off the single-device frame by {err}")
+    require(iters == it_one.cpu().tolist(), "BG's CG iterations differ from "
+            f"the single-device frame's: {iters} vs {it_one.cpu().tolist()}")
+    # One frame under the profiler with the host ops: the device's K2 and
+    # K3 launches and the c10d all-reduces (NCCL launches no kernel for an
+    # in-place all-reduce of one rank).  CUPTI drops some kernel records at
+    # times (counted_window), so a window that lost one is taken again, up
+    # to three; the all-reduces are host ops, recorded every one.
+    best = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, aux = sharded(start, obstacles)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        seen = dict(
+            k2=sum("cluster_blocked_prep_kernel" in n for n in names),
+            k3=sum("cluster_blocked_matvec_kernel" in n for n in names),
+            c10d_all_reduce=sum(n == "c10d::allreduce_" for n in names),
+            nccl_kernels=sum("nccl" in n.lower() and "kernel" in n.lower()
+                             for n in names))
+        it1 = aux.solver_iterations.cpu().tolist()
+        want = dict(k2=sc, k3=sum(3 + 2 * i for i in it1))
+        log(f"[BG] one frame under the profiler: {seen} (iterations {it1}, "
+            f"expected K2 {want['k2']}, K3 {want['k3']}, an all-reduce each)")
+        require(seen["c10d_all_reduce"] == want["k2"] + want["k3"],
+                f"BG's profiler saw {seen['c10d_all_reduce']} all-reduces, "
+                f"expected one a K2 and a K3 launch: "
+                f"{want['k2'] + want['k3']}")
+        for k in ("k2", "k3"):
+            require(0 < seen[k] <= want[k], f"BG's profiler saw {seen[k]} "
+                    f"{k} launches of {want[k]}")
+        if best is None or seen["k2"] + seen["k3"] > best["k2"] + best["k3"]:
+            best = seen
+        if all(seen[k] == want[k] for k in ("k2", "k3")):
+            break
+    seen = best
+    line["BG"] = dict(
+        frames=frames, iterations=iters, launches=launches,
+        all_reduces_per_frame=reduces / (2 * frames),
+        profiler_one_frame=seen, device_ms_per_frame=dev_ms,
+        busy_percent=busy, wall_ms_per_frame=1e3 * wall / frames,
+        single_device=dict(device_ms_per_frame=dev_one, busy_percent=busy_one,
+                           wall_ms_per_frame=1e3 * wall_one / frames,
+                           launches=l_one),
+        pos_err_vs_single=err, card=card)
+    log(f"[BG] device {dev_ms:.4f} ms/frame, busy {busy:.1f}%, wall "
+        f"{1e3 * wall / frames:.3f} ms/frame; single-device op-composed "
+        f"blocked frame {dev_one:.4f} ms/frame, busy {busy_one:.1f}%, wall "
+        f"{1e3 * wall_one / frames:.3f} ms/frame; card {card}")
+
+    # -- 81. path BH ------------------------------------------------------------
+    blk, pos = obj.blocking, start.pos
+    x = start.vel + 0.3 * torch.randn(start.vel.shape, generator=torch.Generator(
+        ).manual_seed(21)).to(dev)
+    K, f = bk.blocked_prep_force(blk, pos, obj.mu, obj.s_lambda)
+    y = bk.blocked_graph_apply(blk, K, x)
+    cols = ek.explicit_grad_columns(pos, obj.element_indices, obj.ref_inv,
+                                    obj.volume, obj.mu, obj.s_lambda)
+    _, H = ek.hessian_and_force(pos, obj.element_indices, obj.ref_inv,
+                                obj.volume, obj.mu, obj.s_lambda)
+    w9 = torch.randn((obj.particle_cnt, 3, 9), generator=torch.Generator(
+        ).manual_seed(9)).to(dev)
+    h1_ref = modal.make_stiffness_hvp(obj, pos)(w9)
+    f_ref = assembly.gather_assemble(assembly.element_contrib_full(H),
+                                     obj.plan.idx)
+    g_ref = assembly.gather_assemble(assembly.element_contrib_full(cols),
+                                     obj.plan.idx)
+    bh = {}
+    for world in (2, 4, 8):
+        ys, fs, hs, gs, h1s, ranks = [], [], [], [], [], []
+        for rank in range(world):
+            lb = shard_blocking(blk, rank, world)
+            k_r, f_r = bk.blocked_prep_force(lb, pos, obj.mu, obj.s_lambda)
+            k2_plan = bk.blocked_prep.last_plan
+            k_p, f_p = bk.blocked_prep_force_plain(lb, pos, obj.mu,
+                                                   obj.s_lambda)
+            k_r2, f_r2 = bk.blocked_prep_force(lb, pos, obj.mu, obj.s_lambda)
+            y_r = bk.blocked_graph_apply(lb, k_r, x)
+            k3_plan = bk.blocked_graph_apply.last_plan
+            y_p = bk.blocked_graph_apply_plain(lb, k_r, x)
+            y_r2 = bk.blocked_graph_apply(lb, k_r, x)
+            torch.cuda.synchronize()
+            for label, got, ref in (("K2 f", f_r, f_p), ("K3", y_r, y_p)):
+                e = float((got - ref).abs().max())
+                require(e <= 1e-5 * max(float(ref.abs().max()), 1e-30),
+                        f"BH {label} world {world} rank {rank}: error {e}")
+            require(block_rel_err(k_r, k_p) <= 1e-5,
+                    f"BH K2 K world {world} rank {rank}")
+            require(torch.equal(k_r, k_r2) and torch.equal(f_r, f_r2)
+                    and torch.equal(y_r, y_r2),
+                    f"BH world {world} rank {rank}: two runs differ")
+            k3_ms = kernel_ms(torch, lambda: bk.blocked_graph_apply(
+                lb, k_r, x), 50, k3_kernel_names())
+            ys.append(y_r)
+            fs.append(f_r)
+            local = sharding.shard_object(obj, rank, world, blocked=False)
+            args = (pos, local.element_indices, local.ref_inv, local.volume,
+                    obj.mu, obj.s_lambda)
+            K1, H1r = ek.hessian_and_force(*args)
+            K1p, H1p = ek.hessian_and_force_plain(*args)
+            K1b, H1b = ek.hessian_and_force(*args)
+            c6 = ek.explicit_grad_columns(*args)
+            c6p = ek.explicit_grad_columns_plain(*args)
+            c6b = ek.explicit_grad_columns(*args)
+            kv = modal.make_stiffness_hvp(local, pos)
+            h1 = kv(w9)
+            h1p = sk.stiffness_apply_plain(kv.binding.jac, w9,
+                                           kv.binding.element_indices,
+                                           kv.binding.plan_idx)
+            h1b = kv(w9)
+            torch.cuda.synchronize()
+            require(max(block_rel_err(K1, K1p), block_rel_err(H1r, H1p))
+                    <= 1e-5, f"BH K1 world {world} rank {rank}")
+            require(block_rel_err(c6, c6p) <= 1e-5,
+                    f"BH K6 world {world} rank {rank}")
+            e = float((h1 - h1p).abs().max())
+            require(e <= 1e-6 * float(h1p.abs().max()),
+                    f"BH H1 world {world} rank {rank}: error {e}")
+            require(torch.equal(K1, K1b) and torch.equal(H1r, H1b)
+                    and torch.equal(c6, c6b) and torch.equal(h1, h1b),
+                    f"BH world {world} rank {rank}: K1/K6/H1 runs differ")
+            hs.append(assembly.gather_assemble(
+                assembly.element_contrib_full(H1r), local.plan.idx))
+            gs.append(assembly.gather_assemble(
+                assembly.element_contrib_full(c6), local.plan.idx))
+            h1s.append(h1)
+            ranks.append(dict(
+                blocks=lb.num_blocks,
+                real_blocks=int((lb.block_elements > 0).sum()),
+                k3_variant=k3_plan.variant, k3_ctas=k3_plan.size,
+                k2_variant=k2_plan.variant, k2_ctas=k2_plan.size,
+                k3_ms=k3_ms, elements=local.element_cnt))
+        errs = dict(
+            k3=shard_sums_close(torch, f"BH K3 at {world}", ys, y),
+            k2=shard_sums_close(torch, f"BH K2 at {world}", fs, f),
+            k1=shard_sums_close(torch, f"BH K1 at {world}", hs, f_ref),
+            k6=shard_sums_close(torch, f"BH K6 at {world}", gs, g_ref),
+            h1=shard_sums_close(torch, f"BH H1 at {world}", h1s, h1_ref))
+        bh[world] = dict(ranks=ranks, sum_rel_err=errs)
+        log(f"[BH] {world} ranks: " + "; ".join(
+            f"rank {r}: {d['blocks']} blocks ({d['real_blocks']} real), K3 "
+            f"{d['k3_variant']} of {d['k3_ctas']} CTAs {d['k3_ms']:.5f} ms"
+            for r, d in enumerate(ranks))
+            + f"; the ranks' sums off the unsharded by {errs} (relative); "
+            f"card {card}")
+    bh["unsharded_k3_ms"] = kernel_ms(
+        torch, lambda: bk.blocked_graph_apply(blk, K, x), 50,
+        k3_kernel_names())
+    log(f"[BH] unsharded K3 {bh['unsharded_k3_ms']:.5f} ms; card {card}")
+    line["BH"] = bh
+
+    # -- 82. path BI ------------------------------------------------------------
+    t_bi = time.perf_counter()
+    results = start_ranks(entry.sharded_flagship_rank, 2, args=(frames,),
+                          backend="gloo", timeout=400).results()
+    for r, res in enumerate(results):
+        log(f"[BI] rank {r} ({res['backend']}): all-reduce of a CUDA tensor "
+            f"{res['probe'].tolist()}; iterations {res['iterations'].tolist()}"
+            f"; K2 {res['k2']}, K3 {res['k3']}")
+        require(res["probe"].tolist() == [3.0] * 4,
+                f"BI rank {r}: gloo's all-reduce of a CUDA tensor gave "
+                f"{res['probe'].tolist()}")
+        require(all(abs(a - b) <= 1 for a, b in zip(
+            res["iterations"].tolist(), iters)),
+            f"BI rank {r}: iterations {res['iterations'].tolist()} vs BG's "
+            f"{iters}")
+        require(res["k2"] > 0 and res["k3"] > 0, f"BI rank {r} launched no "
+                "K2 or K3")
+    bi_err = float(np.abs(results[0]["pos"] - s_bg.pos.cpu().numpy()).max())
+    require(np.array_equal(results[0]["pos"], results[1]["pos"]),
+            "BI's two ranks hold different positions")
+    require(bi_err <= 1e-5, f"BI's positions off BG's by {bi_err}")
+    line["BI"] = dict(ranks=2, backend=results[0]["backend"],
+                      pos_err_vs_bg=bi_err,
+                      k2=[r["k2"] for r in results],
+                      k3=[r["k3"] for r in results],
+                      iterations=results[0]["iterations"].tolist(),
+                      wall_s=time.perf_counter() - t_bi)
+    log(f"[BI] 2 gloo ranks on the card: positions within {bi_err:.3e} of "
+        f"BG's, the ranks bit-identical (a correctness check: no time is "
+        f"reported)")
+    dist.destroy_process_group()
+    return line, time.perf_counter() - t_phase
+
+
 def launch_counters():
     """(zero_counts, counts, instances, only) over every kernel wrapper's
     launch count (the closures each path's checks use)."""
@@ -8200,6 +8480,12 @@ def main():
         wall_s=newton_line["AX"]["wall_s"], card=card)
     log(json.dumps({"analysis_paths": analysis_line}))
     log(f"[analysis] sections 75-79 in {analysis_s:.1f} s")
+
+    # -- 80.-82. element sharding: BG-BI ----------------------------------
+    sharding_line, sharding_s = run_sharding(torch, dev, zero_counts, counts,
+                                             only, card)
+    log(json.dumps({"sharding_paths": sharding_line}))
+    log(f"[sharding] sections 80-82 in {sharding_s:.1f} s")
     for name in [k for k, _, _ in KERNELS] + ["contact_pairs",
                                               "contact_grid"]:
         for d in (2, 3):

@@ -15,11 +15,14 @@ It runs on the CUDA device unless ``device="cpu"`` is passed.  Everything
 stays reachable underneath (``sim.scene[i].obj`` / ``.state``,
 ``fem_tpu_torch.sim.substep``).  The analyses — ``solve_static``,
 ``modes``, ``buckling``, ``harmonic``, ``response_spectrum`` and
-``arc_length`` — run on the scene's device.  What the port does not cover
-raises ``NotImplementedError`` naming its ROADMAP item: ``sharded=True``
-(M20).
+``arc_length`` — run on the scene's device.  ``sharded=True`` runs every
+body's elements sharded over the ranks of ``torch.distributed``
+(``parallel/sharding.py``: one rank, set up on the scene's device, when no
+process group runs; one rank a GPU under ``torchrun``); every rank holds
+the same state.
 ``contact="penalty"`` with more than one body, or with ``self_contact``,
-steps every body jointly through ``contact.make_contact_frame_fn``.
+steps every body jointly through ``contact.make_contact_frame_fn`` (the
+sharded contact frame under ``sharded=True``).
 """
 
 from __future__ import annotations
@@ -51,21 +54,37 @@ class Simulation:
     def __init__(self, cfg: SimConfig,
                  interior_spacing: Optional[float] = None,
                  sharded: bool = False, device="cuda"):
-        if sharded:
-            raise NotImplementedError(
-                "sharded=True (element-block sharding over several devices) "
-                "is not ported yet (ROADMAP M20)")
+        """``sharded=True`` builds each body's frame function (or the
+        coupled contact frame) with its elements sharded over a 1-D mesh of
+        all ranks (``parallel/sharding.make_element_mesh``; the JAX
+        package's ``jax.devices()`` mesh): locality blocks shared out whole,
+        one all-reduce an assembly and an operator apply, the same state on
+        every rank as single-device up to the order of the sums."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        if sharded:  # before any tensor: under torchrun a rank's GPU
+            from fem_tpu_torch.parallel.sharding import init_ranks
+
+            init_ranks(self.device)
         self.scene: List[SceneObject]
         self.scene, self.obstacles = load_scene(cfg, interior_spacing,
                                                 device=self.device)
         self._contact_frame, self._frame_fns = None, []
-        if contact_scene(cfg, len(self.scene)):
-            self._contact_frame = make_contact_frame_fn(
-                [s.obj for s in self.scene], cfg)
+        objs = [s.obj for s in self.scene]
+        if sharded:
+            from fem_tpu_torch.parallel import sharding
+
+            mesh = sharding.make_element_mesh(device=self.device)
+            if contact_scene(cfg, len(self.scene)):
+                self._contact_frame = sharding.make_sharded_contact_frame_fn(
+                    objs, cfg, mesh)
+            else:
+                self._frame_fns = [sharding.make_sharded_frame_fn(o, cfg, mesh)
+                                   for o in objs]
+        elif contact_scene(cfg, len(self.scene)):
+            self._contact_frame = make_contact_frame_fn(objs, cfg)
         else:
-            self._frame_fns = [make_frame_fn(s.obj, cfg) for s in self.scene]
+            self._frame_fns = [make_frame_fn(o, cfg) for o in objs]
         self.virtual_time = 0.0
         self.frame_count = 0
         self.last_aux = None

@@ -8,6 +8,8 @@ advances every member ``sim_count`` substeps through ``sim.substep``, one
 member after another, as the JAX package's function scans ``substep`` under
 ``vmap``; obstacles are shared or per sample (``centers`` (B, nb, d)).  One
 launch over the whole batch is later work (ROADMAP M8 part 2).
+``make_sharded_batched_frame_fn`` shares the members out over the ranks of
+a ``torch.distributed`` mesh.
 """
 
 from __future__ import annotations
@@ -49,10 +51,31 @@ def perturb_states(state: SimState, batch: int, scale: float,
 
 
 def make_sharded_batched_frame_fn(obj: FemObject, cfg: SimConfig, mesh):
-    """The batch axis sharded over several devices: not ported."""
-    raise NotImplementedError(
-        "make_sharded_batched_frame_fn (the batch axis sharded over several "
-        "devices) is not ported yet (ROADMAP M20)")
+    """Data-parallel ensembles: the batch axis shared out over the ranks of
+    a 1-D ``DeviceMesh`` (``parallel/sharding.make_element_mesh``), the
+    JAX package's ``make_sharded_batched_frame_fn``.  Members are
+    independent, so they step with no collective: each rank advances its
+    contiguous members through :func:`make_batched_frame_fn` (the batch a
+    multiple of the ranks), and one all-gather a field at the end of the
+    frame gives every rank the full (B, ...) states and (B, sim_count)
+    metrics.  Obstacles are shared, or per sample (each rank takes its
+    members' rows)."""
+    import torch.distributed as dist
+
+    from fem_tpu_torch.parallel.sharding import gather_members, member_range
+
+    frame = make_batched_frame_fn(obj, cfg)
+    group = mesh.get_group()
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+
+    def sharded_frame(states: SimState, obstacles: Obstacles):
+        lo, hi = member_range(states.pos.shape[0], rank, world)
+        if obstacles.centers.dim() == 3:
+            obstacles = _map(obstacles, lambda t: t[lo:hi])
+        out, aux = frame(_map(states, lambda t: t[lo:hi]), obstacles)
+        return gather_members(out, group), gather_members(aux, group)
+
+    return sharded_frame
 
 
 def make_batched_frame_fn(obj: FemObject, cfg: SimConfig):

@@ -18,8 +18,15 @@ are read at the print cadence only, so a whole-frame path stays one
 launch a frame.  Rendering imports matplotlib when it draws (``--no-render``
 needs none).  ``contact="penalty"`` with more than one body, or with
 ``self_contact``, steps every body jointly through
-``contact.make_contact_frame_fn``.  ``--sharded`` raises
-``NotImplementedError`` (ROADMAP M20).
+``contact.make_contact_frame_fn``.
+
+``--sharded`` shards every body's elements over the ranks of
+``torch.distributed`` (``parallel/sharding.py``), as the root ``main.py``
+does over its devices: one rank when started alone, one rank a GPU under
+``torchrun --nproc-per-node <GPUs> -m fem_tpu_torch.main --sharded ...``.
+Every rank steps the same state and only rank 0 writes (frames, exports,
+checkpoints, prints).  With a contact scene it exits with code 3, as the
+root ``main.py`` does.
 """
 
 from __future__ import annotations
@@ -67,8 +74,8 @@ def run(argv=None) -> int:
                         help="also write VTK .vtu snapshots (+ a .pvd index) "
                              "at the OBJ export cadence (any dim)")
     parser.add_argument("--sharded", action="store_true",
-                        help="element-block sharding over several devices "
-                             "(not ported: ROADMAP M20)")
+                        help="shard every body's elements over the ranks of "
+                             "torch.distributed (torchrun: one a GPU)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
@@ -87,17 +94,35 @@ def run(argv=None) -> int:
         print(e)
         print("Parsing config file error")
         return 3
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded (element-block sharding over several devices) is not "
-            "ported yet (ROADMAP M20)")
     device = resolve_device(args.device)
+    writer = True
+    if args.sharded:  # before any tensor: under torchrun a rank's GPU
+        import torch.distributed as dist
+
+        from fem_tpu_torch.parallel import sharding
+
+        sharding.init_ranks(device)
+        writer = dist.get_rank() == 0
+        if not writer:
+            args.no_render, args.export_vtu = True, False
+            args.checkpoint_every = args.print_every = 0
+            args.trace = None
 
     scene, obstacles = load_scene(cfg, args.interior_spacing, device=device)
-    print(method_banner(cfg))
+    if writer:
+        print(method_banner(cfg))
     contact_frame, frame_fns = None, []
     if contact_scene(cfg, len(scene)):
+        if args.sharded:
+            print("contact='penalty' is not supported with --sharded")
+            return 3
         contact_frame = make_contact_frame_fn([s.obj for s in scene], cfg)
+    elif args.sharded:
+        mesh = sharding.make_element_mesh(device=device)
+        if writer:
+            print(f"sharded over {mesh.size()} ranks")
+        frame_fns = [sharding.make_sharded_frame_fn(s.obj, cfg, mesh)
+                     for s in scene]
     else:
         frame_fns = [make_frame_fn(s.obj, cfg) for s in scene]
 
@@ -138,7 +163,8 @@ def run(argv=None) -> int:
         )
         centers = to_numpy(obstacles.centers)
         radii = to_numpy(obstacles.radii)
-    os.makedirs(args.output, exist_ok=True)
+    if writer:
+        os.makedirs(args.output, exist_ok=True)
 
     t0 = time.perf_counter()
     trace_ctx = None
@@ -168,7 +194,7 @@ def run(argv=None) -> int:
                 # paces capture and export N× faster (PARITY.md).
                 virtual_time += cfg.sim_count * cfg.delta_time
 
-        if (
+        if writer and (
             (cfg.is_output_obj or args.export_vtu)
             and (virtual_time / frame_time) > ply_cnt
             and (cfg.dim == 3 or args.export_vtu)

@@ -112,6 +112,10 @@ class FemObject:
     agg_ids: Optional[torch.Tensor] = None  # (N,) int32
     agg_basis: Optional[torch.Tensor] = None  # (N, d, n_rb) float32
     num_aggregates: int = 0
+    # Under element sharding (parallel/sharding.shard_object): this rank's
+    # first row in the padded mesh element order, whose rows
+    # [element_start, element_start + element_cnt) it holds; 0 unsharded.
+    element_start: int = 0
 
     @property
     def device(self) -> torch.device:

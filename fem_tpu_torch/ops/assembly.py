@@ -1,7 +1,7 @@
 # coding=utf-8
 """Nodal assembly without atomics: per-particle gather plans.
 
-The port of the JAX package's ``ops/assembly.py`` single-chip subset.  Each
+The port of the JAX package's ``ops/assembly.py``.  Each
 particle sums its own incident contribution rows (row ``e·(d+1)+l`` is local
 vertex ``l`` of element ``e``) in a fixed order, so assembly is deterministic
 on every device.  The plan exists in two forms built once on the host:
@@ -24,6 +24,12 @@ contribution ids in ascending order, as a :class:`TieredPlan` (the slot
 counts are skewed: a self slot sums every incident element, an off-diagonal
 slot the few elements on one edge), so that the rows are summed by a gather
 in a fixed order, as nodal assembly is.
+
+Element sharding (``parallel/sharding.py``) sums each rank's share over the
+ranks of a ``torch.distributed`` process group: :func:`segment_assemble`
+(the JAX package's, with ``group`` for its ``axis_name``: a gather through
+a plan built once an element table, then :func:`all_reduce_sum`) and
+:func:`all_gather_rows` for the internal inverses.
 """
 
 from __future__ import annotations
@@ -262,3 +268,73 @@ def gather_tiered(contrib: torch.Tensor, plan: TieredPlan) -> torch.Tensor:
     if plan.hi is not None:
         out[plan.out] = out[plan.out] + flat[plan.hi].sum(dim=1)
     return out
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (a ``ProcessGroup``;
+    None: ``x`` unchanged, the single-device path): one
+    ``torch.distributed.all_reduce`` in place on a contiguous ``x``, on
+    ``x``'s own device, counted in ``all_reduce_sum.calls``.  Every rank
+    gets the same bits, so loops that stop on a value read from a reduced
+    tensor stop at the same iteration on every rank."""
+    if group is None:
+        return x
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    all_reduce_sum.calls += 1
+    return x
+
+
+all_reduce_sum.calls = 0
+
+
+def all_gather_rows(local: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``local`` row blocks (R, ...) concatenated in rank order
+    (world·R, ...) on every rank of ``group``: one all-gather into one
+    tensor (the JAX package's tiled ``jax.lax.all_gather``)."""
+    import torch.distributed as dist
+
+    local = local.contiguous()
+    world = dist.get_world_size(group)
+    out = local.new_empty((world * local.shape[0],) + tuple(local.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, local, group=group)
+    return out
+
+
+# id(element_indices) → (element_indices, N, its GatherPlan); the tensor is
+# held so that its id is not reused while the plan is kept.
+_PLANS: dict = {}
+
+
+def element_gather_plan(element_indices: torch.Tensor, num_particles: int
+                        ) -> GatherPlan:
+    """The :class:`GatherPlan` of ``element_indices`` over ``num_particles``
+    particles, built once a table (host numpy) and kept with it."""
+    hit = _PLANS.get(id(element_indices))
+    if hit is None or hit[0] is not element_indices or hit[1] != num_particles:
+        if len(_PLANS) >= 64:
+            _PLANS.pop(next(iter(_PLANS)))
+        plan = make_gather_plan(element_indices.cpu().numpy(), num_particles,
+                                element_indices.device)
+        hit = _PLANS[id(element_indices)] = (element_indices, num_particles,
+                                             plan)
+    return hit[2]
+
+
+def segment_assemble(contrib: torch.Tensor, element_indices: torch.Tensor,
+                     num_particles: int, group=None,
+                     plan: Optional[GatherPlan] = None) -> torch.Tensor:
+    """Per-element per-vertex rows ``(E, d+1, k)`` summed onto their
+    particles, ``(N, k)`` (the JAX package's ``segment_assemble``): a
+    gather through the plan of ``element_indices`` (``plan``, or the one
+    built once for the table, :func:`element_gather_plan`), each particle's
+    rows in ascending order, no atomics; then, with ``group``, the sum
+    over its ranks (:func:`all_reduce_sum`), whose element rows are each a
+    slice of the mesh, so that every rank holds the whole assembly."""
+    if plan is None:
+        plan = element_gather_plan(element_indices, num_particles)
+    return all_reduce_sum(gather_assemble(contrib, plan.idx), group)

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from fem_tpu_torch.ops import smallmat as sm
-from fem_tpu_torch.ops.assembly import element_contrib_full
+from fem_tpu_torch.ops.assembly import all_reduce_sum, element_contrib_full
 from fem_tpu_torch.ops.blocking import (
     Blocking,
     blocked_gather,
@@ -944,14 +944,23 @@ blocked_grad_prep.instance_launches = {}
 
 
 def blocked_system_applies(blk: Blocking, K, mass, dt: float,
-                           beta: float = 0.0, apply=None):
+                           beta: float = 0.0, apply=None, group=None):
     """(apply_a, apply_at) of the blocked operator A = I − c·M⁻¹·G(K),
     c = dt·(dt + ``beta``): A·v = v − c·G(K)·v/m and Aᵀ·v = v −
     c·G(Kᵀ)·(v/m), G through ``apply`` (the kernel's wrapper,
     :func:`blocked_graph_apply`, when None; the plain frame passes its
-    plain version) on the block-ordered K (B·Eb, d, d)."""
+    plain version) on the block-ordered K (B·Eb, d, d).  With ``group``
+    (element sharding: ``blk`` a rank's blocks, ``ops/blocking.
+    shard_blocking``) each G·v is summed over the ranks, one all-reduce an
+    apply."""
     if apply is None:
         apply = blocked_graph_apply
+    if group is not None:
+        local_apply = apply
+
+        def apply(b, k, v, transpose_k):
+            return all_reduce_sum(local_apply(b, k, v, transpose_k), group)
+
     minv = (1.0 / mass)[:, None]
     c = system_coeff(dt, beta)
 
@@ -968,7 +977,7 @@ def blocked_velocity_solve(
     blk: Blocking, prepped, vel, mass, dt: float, normal: bool, *,
     apply=None, beta: float = 0.0,
     cg_precond: str = "reference", diag_fn=None, free=None, pin_vel=None,
-    max_iter: int = 500, tol: float = 1e-5, two_level_fn=None,
+    max_iter: int = 500, tol: float = 1e-5, two_level_fn=None, group=None,
 ) -> CGResult:
     """One implicit velocity solve over the blocks (the JAX package's
     blocked branch, solvers/implicit.py:1080-1101) from the prep's
@@ -977,11 +986,13 @@ def blocked_velocity_solve(
     reference CG (x₀ = b; normal equations when ``normal``), or with
     ``cg_precond`` ``"block_jacobi"`` the PCG on the blocks ``diag_fn()``,
     or ``"two_level…"`` the two-level PCG on them and ``two_level_fn()``,
-    and the pin projection by ``free``/``pin_vel``.  ``apply`` as in
-    :func:`blocked_system_applies`."""
+    and the pin projection by ``free``/``pin_vel``.  ``apply`` and
+    ``group`` as in :func:`blocked_system_applies` (``f`` is already
+    summed over the ranks)."""
     K, f = prepped
     b = vel + dt * f * (1.0 / mass)[:, None]
-    apply_a, apply_at = blocked_system_applies(blk, K, mass, dt, beta, apply)
+    apply_a, apply_at = blocked_system_applies(blk, K, mass, dt, beta, apply,
+                                               group)
     return cg_solve_dispatch(
         apply_a, lambda: apply_at, b, int(bool(normal)), cg_precond, diag_fn,
         mass, free, pin_vel, max_iter, tol, two_level_fn)

@@ -27,7 +27,9 @@ What the JAX package adds for the TPU is left out: the one-hot tables
 a multiple of 4 (Pallas grid pairing), and the two-tier split of the slot
 plan.  Padded element slots (past a block's real elements) replicate mesh
 element 0 at volume 0, as in the JAX package; padded particle slots hold id
-0 and stay out of the slot plan.
+0 and stay out of the slot plan.  :func:`shard_blocking` gives one rank
+its blocks whole, with the plans re-based on them (element sharding,
+``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -277,3 +279,62 @@ def blocked_scatter_sum(partials: torch.Tensor, blocking: Blocking) -> torch.Ten
     ascending slot order (halo contributions add; padded slots are never
     read).  Deterministic: a gather and a sum, no atomics."""
     return gather_assemble(partials, blocking.slot_plan.idx)
+
+
+def shard_blocking(blocking: Blocking, rank: int, world: int) -> Blocking:
+    """Rank ``rank``'s share of ``blocking`` over ``world`` ranks: the
+    blocking padded to a multiple of ``world`` blocks (:func:`pad_blocking`)
+    and its block rows ``[rank·B/world, (rank+1)·B/world)`` — each rank's
+    blocks whole, as the JAX package shards them — with every block table
+    and element row of those blocks.  The plans are re-based on the local
+    blocks: ``row_slot`` counts from the first local block, and the slot
+    plan, still over all N particles, holds each particle's local slots
+    only, in ascending order; a particle that no local block holds has an
+    empty range and sums to 0, so that the ranks' slot sums add up to the
+    unsharded one.  ``element_slot`` is the local slot of each mesh element
+    whose real occurrence is local, −1 for the others.  A rank past the
+    real blocks holds only padded ones: no real element, an empty local
+    plan and an empty slot plan."""
+    if world < 1 or not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of {world}")
+    padded = pad_blocking(blocking, world)
+    lb = padded.num_blocks // world
+    b0 = rank * lb
+    eb, pb = padded.eb, padded.pb
+    rows = padded.local_rows.shape[1]
+    plan = padded.slot_plan
+    dev = plan.ptr.device
+    ptr = plan.ptr.cpu().numpy().astype(np.int64)
+    slots = plan.rows.cpu().numpy().astype(np.int64)
+    n = ptr.size - 1
+    keep = (slots >= b0 * pb) & (slots < (b0 + lb) * pb)
+    owner = np.repeat(np.arange(n), np.diff(ptr))[keep]
+    local_slots = slots[keep] - b0 * pb
+    counts = np.bincount(owner, minlength=n)
+    local_ptr = np.concatenate([[0], np.cumsum(counts)])
+    maxdeg = max(int(counts.max()) if counts.size else 0, 1)
+    sentinel = lb * pb
+    idx = np.full((n, maxdeg), sentinel, np.int64)
+    idx[owner, np.arange(owner.size) - local_ptr[owner]] = local_slots
+    slot = padded.element_slot.cpu().numpy().astype(np.int64) - b0 * eb
+    slot[(slot < 0) | (slot >= lb * eb)] = -1
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return dataclasses.replace(
+        padded,
+        block_particles=padded.block_particles[b0:b0 + lb].clone(),
+        plus=padded.plus[b0:b0 + lb].clone(),
+        minus=padded.minus[b0:b0 + lb].clone(),
+        element_indices=padded.element_indices[b0 * eb:(b0 + lb) * eb].clone(),
+        ref_inv=padded.ref_inv[b0 * eb:(b0 + lb) * eb].clone(),
+        volume=padded.volume[b0 * eb:(b0 + lb) * eb].clone(),
+        element_perm=padded.element_perm[b0 * eb:(b0 + lb) * eb].clone(),
+        element_slot=t(slot.astype(np.int32)),
+        block_elements=padded.block_elements[b0:b0 + lb].clone(),
+        local_ptr=padded.local_ptr[b0:b0 + lb].clone(),
+        local_rows=padded.local_rows[b0:b0 + lb].clone(),
+        row_slot=padded.row_slot[b0 * rows:(b0 + lb) * rows] - b0 * pb,
+        slot_plan=GatherPlan(idx=t(idx.astype(np.int32)),
+                             ptr=t(local_ptr.astype(np.int32)),
+                             rows=t(local_slots.astype(np.int32))),
+        num_blocks=lb,
+    )

@@ -45,6 +45,7 @@ import torch
 from fem_tpu_torch.ops import smallmat as sm
 from fem_tpu_torch.ops.assembly import (
     GatherPlan,
+    all_reduce_sum,
     element_contrib_full,
     gather_assemble,
     gather_edge_diffs,
@@ -64,12 +65,16 @@ class CGResult(NamedTuple):
 
 def graph_apply(
     K: torch.Tensor, x: torch.Tensor, element_indices: torch.Tensor,
-    plan_idx: torch.Tensor,
+    plan_idx: torch.Tensor, group=None,
 ) -> torch.Tensor:
     """G(K)·x with the element-Laplacian pattern: per element
-    t_j = K_e·(x_{v_{j+1}} − x_{v_0}) to vertex j+1, −Σ_j t_j to vertex 0."""
+    t_j = K_e·(x_{v_{j+1}} − x_{v_0}) to vertex j+1, −Σ_j t_j to vertex 0;
+    with ``group`` (element sharding: each rank's elements a slice of the
+    mesh) summed over its ranks, one all-reduce."""
     s = gather_edge_diffs(x, element_indices)  # columns = edge diffs
-    return gather_assemble(element_contrib_full(sm.matmul(K, s)), plan_idx)
+    return all_reduce_sum(
+        gather_assemble(element_contrib_full(sm.matmul(K, s)), plan_idx),
+        group)
 
 
 def system_coeff(dt: float, beta: float = 0.0) -> float:
@@ -82,19 +87,22 @@ def system_coeff(dt: float, beta: float = 0.0) -> float:
 
 def system_applies(
     K: torch.Tensor, element_indices: torch.Tensor, plan_idx: torch.Tensor,
-    minv: torch.Tensor, dt: float, beta: float = 0.0,
+    minv: torch.Tensor, dt: float, beta: float = 0.0, group=None,
 ):
     """(apply_a, apply_at) of A = I − c·M⁻¹·G(K), ``minv`` = 1/m (N,), c =
-    :func:`system_coeff` (dt² without β)."""
+    :func:`system_coeff` (dt² without β); ``group`` as in
+    :func:`graph_apply`."""
     c = system_coeff(dt, beta)
     minv = minv[:, None]
     k_t = sm.mT(K)
 
     def apply_a(v):
-        return v - c * graph_apply(K, v, element_indices, plan_idx) * minv
+        return v - c * graph_apply(K, v, element_indices, plan_idx,
+                                   group) * minv
 
     def apply_at(v):
-        return v - c * graph_apply(k_t, v * minv, element_indices, plan_idx)
+        return v - c * graph_apply(k_t, v * minv, element_indices, plan_idx,
+                                   group)
 
     return apply_a, apply_at
 
@@ -288,19 +296,21 @@ def cg_solve_dispatch(
 
 def diagonal_blocks_from(
     element_indices: torch.Tensor, K: torch.Tensor, mass: torch.Tensor,
-    dt: float, plan_idx: torch.Tensor, beta: float = 0.0,
+    dt: float, plan_idx: torch.Tensor, beta: float = 0.0, group=None,
 ) -> torch.Tensor:
     """Per-particle diagonal d×d blocks (N, d, d) of A = I − c·M⁻¹·G(K)
     (the JAX package's ``diagonal_blocks_from``): vertex 0 of element e
     receives d·K_e, vertices 1..d receive K_e each, assembled through the
     gather plan ``plan_idx`` of ``element_indices`` (deterministic: a gather
-    and a sum, no atomics); c = :func:`system_coeff`."""
+    and a sum, no atomics); c = :func:`system_coeff`.  With ``group`` the
+    assembled diagonal of K is summed over its ranks."""
     e, dp1 = element_indices.shape
     d = dp1 - 1
     w = torch.ones((1, dp1, 1), dtype=K.dtype, device=K.device)
     w[0, 0, 0] = float(d)
     contrib = w * K.reshape(e, 1, d * d)
-    diag_k = gather_assemble(contrib, plan_idx).reshape(-1, d, d)
+    diag_k = all_reduce_sum(gather_assemble(contrib, plan_idx),
+                            group).reshape(-1, d, d)
     eye = torch.eye(d, dtype=K.dtype, device=K.device)[None]
     return eye - system_coeff(dt, beta) * diag_k / mass[:, None, None]
 

@@ -89,11 +89,17 @@ def sum_layers(parts):
     return total
 
 
-def layer_ref_inv_local(ref_inv: torch.Tensor, fi_inv) -> torch.Tensor:
+def layer_ref_inv_local(ref_inv: torch.Tensor, fi_inv,
+                        start: int = 0) -> torch.Tensor:
     """A layer's effective rest-edge inverse R⁻¹·F_i⁻¹ in mesh element order
-    (``ref_inv`` when ``fi_inv`` is None)."""
+    (``ref_inv`` when ``fi_inv`` is None).  Under element sharding the
+    internal inverses span the whole padded element range while
+    ``ref_inv`` holds a rank's rows from ``start`` on
+    (``FemObject.element_start``): the rank takes its rows of ``fi_inv``."""
     if fi_inv is None:
         return ref_inv
+    if fi_inv.shape[0] != ref_inv.shape[0]:
+        fi_inv = fi_inv[start:start + ref_inv.shape[0]]
     return sm.matmul(ref_inv, fi_inv)
 
 
@@ -303,33 +309,56 @@ def advance_blocked(blk, pos, plastic_inv, viscous_inv, plastic_yield: float,
             None if new_v is None else _stack(new_v, d)[slot])
 
 
-def advance_internal(obj, state, dt: float):
+def advance_internal(obj, state, dt: float, group=None):
     """Update the internal inverses from the end-of-substep positions of
     ``state`` (the JAX package's ``advance_internal``): the blocked form
-    when ``obj`` has locality blocks, the row form otherwise."""
+    when ``obj`` has locality blocks, the row form otherwise.
+
+    With ``group`` (element sharding) the internal inverses span the whole
+    padded element range on every rank while ``obj`` holds the rank's rows
+    from ``obj.element_start`` on: each rank updates its rows in the row
+    form (per-element math, no collective in the chain) and one all-gather
+    gives every rank the whole updated arrays."""
     if not is_inelastic(obj):
         return state
-    if obj.blocking is not None:
+    if obj.blocking is not None and group is None:
         plastic, viscous = advance_blocked(
             obj.blocking, state.pos, state.plastic_inv, state.viscous_inv,
             obj.plastic_yield, relax_decay(dt, obj.viscous_tau))
         return state.replace(plastic_inv=plastic, viscous_inv=viscous)
+    e_local, start = obj.element_indices.shape[0], obj.element_start
+
+    def local_rows(full):
+        if group is None or full.shape[0] == e_local:
+            return full
+        return full[start:start + e_local]
+
+    def regather(local, full):
+        if group is None or full.shape[0] == e_local:
+            return local
+        from fem_tpu_torch.ops.assembly import all_gather_rows
+
+        return all_gather_rows(local, group)
+
     f = deformation_gradients(state.pos, obj.element_indices, obj.ref_inv)
     ok = (sm.det(f) > 1e-9)[..., None, None]
     eye = torch.eye(obj.dim, dtype=f.dtype, device=f.device).expand_as(f)
     f_inv = sm.inv(torch.where(ok, f, eye))
     new = {}
     if state.plastic_inv is not None:
-        fe_new, yielded = plastic_return_map(sm.matmul(f, state.plastic_inv),
+        fp = local_rows(state.plastic_inv)
+        fe_new, yielded = plastic_return_map(sm.matmul(f, fp),
                                              obj.plastic_yield)
         upd = ok & yielded[..., None, None]
-        new["plastic_inv"] = torch.where(upd, sm.matmul(f_inv, fe_new),
-                                         state.plastic_inv)
+        new["plastic_inv"] = regather(
+            torch.where(upd, sm.matmul(f_inv, fe_new), fp),
+            state.plastic_inv)
     if state.viscous_inv is not None:
-        fbe_new = viscous_relax(sm.matmul(f, state.viscous_inv), dt,
-                                obj.viscous_tau)
-        new["viscous_inv"] = torch.where(ok, sm.matmul(f_inv, fbe_new),
-                                         state.viscous_inv)
+        fv = local_rows(state.viscous_inv)
+        fbe_new = viscous_relax(sm.matmul(f, fv), dt, obj.viscous_tau)
+        new["viscous_inv"] = regather(
+            torch.where(ok, sm.matmul(f_inv, fbe_new), fv),
+            state.viscous_inv)
     return state.replace(**new)
 
 
@@ -338,7 +367,7 @@ def inelastic_grad_columns(obj, state, pos: torch.Tensor) -> torch.Tensor:
     base material on R⁻¹·F_p⁻¹ plus the Maxwell branch on R⁻¹·F_v⁻¹."""
     return sum_layers(
         explicit_grad_columns(
-            pos, obj.element_indices, layer_ref_inv_local(obj.ref_inv, fi_inv),
+            pos, obj.element_indices, layer_ref_inv_local(obj.ref_inv, fi_inv, obj.element_start),
             obj.volume, mu, lam, material)
         for fi_inv, mu, lam, material in material_layers(obj, state))
 
@@ -348,6 +377,6 @@ def inelastic_element_energies(obj, state, pos: torch.Tensor) -> torch.Tensor:
     return obj.volume * sum_layers(
         energy_density(
             deformation_gradients(pos, obj.element_indices,
-                                  layer_ref_inv_local(obj.ref_inv, fi_inv)),
+                                  layer_ref_inv_local(obj.ref_inv, fi_inv, obj.element_start)),
             mu, lam, material)
         for fi_inv, mu, lam, material in material_layers(obj, state))

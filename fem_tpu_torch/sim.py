@@ -171,6 +171,7 @@ def substep(
     newton_hessian: str = "exact",
     newton_theta: float = 1.0,
     external_force: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[SimState, StepAux]:
     """One substep.  Explicit or autodiff: the energy gradient less the
     external force, then the kinematic step, with zero solver metrics.
@@ -186,7 +187,16 @@ def substep(
     sim.py:203-222: the reference Hessian and CG preconditioner, no
     material layers, no pins), else the matrix-free solve — then advection
     (θ-weighted after Newton at θ < 1).  An inelastic material then updates
-    its internal inverses."""
+    its internal inverses.
+
+    ``group`` (a ``torch.distributed`` process group; the JAX package's
+    ``axis_name``) runs the substep element-sharded
+    (``parallel/sharding.py``): ``obj`` is a rank's share
+    (``sharding.shard_object``), every assembly and operator apply is
+    summed over the ranks and the particle-space work runs on every rank
+    alike, so that every rank returns the same state.  The dense backend
+    is single-device and is not taken then, as in the JAX package (its
+    sim.py:203-210)."""
     inelastic = is_inelastic(obj)
     layers = material_layers(obj, state) if inelastic else None
     external = obj.static_load
@@ -197,15 +207,17 @@ def substep(
                      wall_friction=wall_friction)
     if auto_diff or use_explicit_method:
         if obj.damping_beta != 0.0:
-            damp = rayleigh_damping_grad(obj, state.pos, state.vel, layers)
+            damp = rayleigh_damping_grad(obj, state.pos, state.vel, layers,
+                                         group)
             external = -damp if external is None else external - damp
         if inelastic:
             grad = analytic_energy_gradient(obj, state.pos, element_backend,
-                                            layers)
+                                            layers, group)
         elif auto_diff:
-            grad = autodiff_energy_gradient(obj, state.pos)
+            grad = autodiff_energy_gradient(obj, state.pos, group)
         else:
-            grad = analytic_energy_gradient(obj, state.pos, element_backend)
+            grad = analytic_energy_gradient(obj, state.pos, element_backend,
+                                            group=group)
         if external is not None:
             grad = grad - external
         dtype = state.pos.dtype
@@ -215,7 +227,7 @@ def substep(
             gravity_vector(tuple(g_dir), obj.device, dtype), **advect_kw,
         )
         if inelastic:
-            state = advance_internal(obj, state, dt)
+            state = advance_internal(obj, state, dt, group)
         return state, StepAux(
             torch.zeros((), dtype=torch.int32, device=obj.device),
             torch.zeros((), dtype=torch.float32, device=obj.device),
@@ -243,20 +255,21 @@ def substep(
             cg_precond=(cg_precond if cg_precond == "block_jacobi"
                         or cg_precond.startswith("two_level") else "none"),
             robust=robust_inversion, beta=obj.damping_beta,
-            theta=newton_theta, layers=layers, v_n_pos=vel_unfolded)
+            theta=newton_theta, layers=layers, v_n_pos=vel_unfolded,
+            group=group)
         state = advect_implicit_step(
             state, obstacles, dt,
             damping_decay(dt, obj.damping, state.pos.dtype),
             gravity_vector(tuple(g_dir), obj.device), **advect_kw,
             theta=newton_theta, vel_pos_old=vel_pos_old)
         if inelastic:
-            state = advance_internal(obj, state, dt)
+            state = advance_internal(obj, state, dt, group)
         return state, StepAux(aux.iterations, aux.residual)
     if integrator != "semi_implicit":
         raise ValueError(f"unknown integrator {integrator!r}")
     use_dense = (solver_backend == "dense" and hessian == "reference"
                  and cg_precond == "reference" and not inelastic
-                 and obj.free_mask is None)
+                 and obj.free_mask is None and group is None)
     if use_dense:
         state, aux = implicit_velocity_solve_dense(
             obj, state, dt, implicit_method, preconditioned, robust_inversion,
@@ -265,7 +278,7 @@ def substep(
         state, aux = implicit_velocity_solve(
             obj, state, dt, implicit_method, preconditioned, robust_inversion,
             cg_precond, operator_mode, layers, hessian, element_backend,
-            jacobi_sweep,
+            jacobi_sweep, group,
         )
     # The decay follows the state's dtype; gravity stays f32, as in the JAX
     # package's advect_implicit_step.
@@ -274,7 +287,7 @@ def substep(
         gravity_vector(tuple(g_dir), obj.device), **advect_kw,
     )
     if inelastic:
-        state = advance_internal(obj, state, dt)
+        state = advance_internal(obj, state, dt, group)
     return state, StepAux(aux.iterations, aux.residual)
 
 

@@ -32,7 +32,7 @@ LEVELS = (1, 2, 4, 8)
 
 
 def kappa_estimate(obj, pos: torch.Tensor, dt: float,
-                   robust: bool = False) -> torch.Tensor:
+                   robust: bool = False, group=None) -> torch.Tensor:
     """κ = max_i dt²·‖(diag K)_i‖_F / m_i as a 0-d tensor on ``pos``'s
     device: the Frobenius size of the largest assembled diagonal block of
     dt²·M⁻¹K, i.e. max_i ‖A_ii − I‖_F of the implicit system.
@@ -42,9 +42,11 @@ def kappa_estimate(obj, pos: torch.Tensor, dt: float,
     on the CPU), moved to mesh element order; without one, from
     ``ops/element.hessian_blocks``.  Then the diagonal blocks
     (``cg_kernels.diagonal_blocks_from``) and their largest Frobenius
-    norm."""
+    norm.  With ``group`` (element sharding) K comes from the element path
+    on the rank's rows, as in the JAX package, and the assembled diagonal
+    is summed over the ranks."""
     blk = obj.blocking
-    if blk is not None:
+    if blk is not None and group is None:
         k_slots, _ = blocked_prep_force(blk, pos, obj.mu, obj.s_lambda,
                                         material=obj.material, robust=robust)
         k = k_slots[blk.element_slot.long()]
@@ -52,7 +54,7 @@ def kappa_estimate(obj, pos: torch.Tensor, dt: float,
         k = hessian_blocks(pos, obj.element_indices, obj.ref_inv, obj.volume,
                            obj.mu, obj.s_lambda, robust, obj.material)
     diag = diagonal_blocks_from(obj.element_indices, k, obj.mass, dt,
-                                obj.plan.idx)
+                                obj.plan.idx, group=group)
     dev = diag - torch.eye(obj.dim, dtype=diag.dtype, device=diag.device)
     return torch.sqrt((dev * dev).sum(dim=(1, 2)).max())
 

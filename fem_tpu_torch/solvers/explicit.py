@@ -4,7 +4,7 @@ energy.
 
 The port of the JAX package's ``solvers/explicit.py`` (reference
 solver/explicit.py:8-49 and solver/explicit_auto_diff.py with the tape at
-main.py:107), without element sharding.  Both return the assembled +∂U/∂x,
+main.py:107).  Both return the assembled +∂U/∂x,
 (N, d), which the kinematic step subtracts, for every material of
 ``ops/element.py``.  The analytic gradient sums over material layers
 (ops/inelastic.py): each layer runs the kernel below on its own effective
@@ -26,6 +26,12 @@ Which kernels run, as in the JAX package's dispatch
 * autodiff without blocks: ``torch.autograd.grad`` of the total energy with
   respect to the positions.
 
+Under element sharding (``group``, ``parallel/sharding.py``) the object
+holds a rank's element rows and no blocks, as in the JAX package (its
+explicit.py:43): K6 (or the plain columns) on those rows and the gather
+assembly, or the autograd gradient of the rank's share of the energy, then
+one all-reduce over the ranks.
+
 On CPU tensors every kernel runs its plain PyTorch version.
 """
 
@@ -36,9 +42,10 @@ import torch
 from fem_tpu_torch.models.state import FemObject
 from fem_tpu_torch.ops import smallmat as sm
 from fem_tpu_torch.ops.assembly import (
+    all_reduce_sum,
     element_contrib_full,
-    gather_assemble,
     gather_edge_diffs,
+    segment_assemble,
 )
 from fem_tpu_torch.ops.blocked_kernels import (
     blocked_assemble,
@@ -69,15 +76,16 @@ def _resolve_backend(element_backend: str, device: torch.device) -> str:
 
 def analytic_energy_gradient(
     obj: FemObject, pos: torch.Tensor, element_backend: str = "auto",
-    layers=None,
+    layers=None, group=None,
 ) -> torch.Tensor:
     """Assembled ∂U/∂x (N, d) from the reference's analytic per-element
     formula (solver/explicit.py:23-49), summed over material ``layers``
-    (``ops/inelastic.material_layers``; None: the one elastic layer)."""
+    (``ops/inelastic.material_layers``; None: the one elastic layer), and
+    with ``group`` over its ranks (the element path)."""
     backend = _resolve_backend(element_backend, pos.device)
     lys = normalize_layers(obj, layers)
     blk = obj.blocking
-    if blk is not None:
+    if blk is not None and group is None:
         if backend == "pallas":
             # K7b per layer, each launch ending in its layer's assembled
             # gradient, summed in layer order.
@@ -98,22 +106,26 @@ def analytic_energy_gradient(
         else explicit_grad_columns_plain
     )
     cols = sum_layers(
-        columns(pos, obj.element_indices, layer_ref_inv_local(obj.ref_inv, fi),
+        columns(pos, obj.element_indices, layer_ref_inv_local(obj.ref_inv, fi, obj.element_start),
                 obj.volume, mu, lam, material)
         for fi, mu, lam, material in lys)
-    return gather_assemble(element_contrib_full(cols), obj.plan.idx)
+    return segment_assemble(element_contrib_full(cols), obj.element_indices,
+                            obj.particle_cnt, group, obj.plan)
 
 
-def autodiff_energy_gradient(obj: FemObject, pos: torch.Tensor) -> torch.Tensor:
+def autodiff_energy_gradient(obj: FemObject, pos: torch.Tensor,
+                             group=None) -> torch.Tensor:
     """∂U/∂x (N, d) by reverse-mode autograd — the contract of the
     reference's ``particles.pos.grad`` after its tape (main.py:107-110).
     Padded element slots hold mesh element 0 at volume 0, so their
     gradient is 0·φ'(F), finite, and the assembly drops them.  The
     material is the object's: for ``corotated`` autograd runs through the
-    12 Higham iterations of ``polar_rotation``, as ``jax.grad`` does."""
+    12 Higham iterations of ``polar_rotation``, as ``jax.grad`` does.  With
+    ``group`` the gradient of the rank's share of the energy is summed over
+    its ranks (the JAX package's psum of the energy, explicit.py:139-140)."""
     blk = obj.blocking
     with torch.enable_grad():
-        if blk is not None:
+        if blk is not None and group is None:
             x = gather_edge_diffs(pos.detach(), blk.element_indices)
             x.requires_grad_(True)
             f = sm.matmul(x, blk.ref_inv)
@@ -125,4 +137,4 @@ def autodiff_energy_gradient(obj: FemObject, pos: torch.Tensor) -> torch.Tensor:
         u = total_energy(p, obj.element_indices, obj.ref_inv, obj.volume,
                          obj.mu, obj.s_lambda, obj.material)
         (grad,) = torch.autograd.grad(u, p)
-        return grad
+        return all_reduce_sum(grad, group)

@@ -82,9 +82,12 @@ from fem_tpu_torch.ops import element
 from fem_tpu_torch.ops import element_kernels as ek
 from fem_tpu_torch.ops import stiffness_kernels
 from fem_tpu_torch.ops.assembly import (
+    all_reduce_sum,
     element_contrib_full,
+    element_gather_plan,
     gather_assemble,
     gather_tiered,
+    segment_assemble,
 )
 from fem_tpu_torch.ops.blocked_kernels import (
     blocked_graph_apply,
@@ -151,29 +154,33 @@ __all__ = [
 
 
 def graph_block_apply(
-    obj: FemObject, K: torch.Tensor, x: torch.Tensor
+    obj: FemObject, K: torch.Tensor, x: torch.Tensor, group=None
 ) -> torch.Tensor:
-    """K·x with the element-Laplacian scatter pattern; O(E)."""
-    return graph_apply(K, x, obj.element_indices, obj.plan.idx)
+    """K·x with the element-Laplacian scatter pattern; O(E).  With
+    ``group`` (element sharding: ``obj`` a rank's elements) summed over its
+    ranks, one all-reduce."""
+    return graph_apply(K, x, obj.element_indices, obj.plan.idx, group)
 
 
 def make_system_apply(
-    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0
+    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0,
+    group=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """A·x = x − dt·(dt+β)·M⁻¹·(K·x)."""
     return system_applies(
-        K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt, beta
+        K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt, beta, group
     )[0]
 
 
 def make_system_apply_t(
-    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0
+    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0,
+    group=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Aᵀ·y = y − dt·(dt+β)·G(K)ᵀ·M⁻¹·y: the same scatter pattern with each
     block transposed (replaces the reference's explicit Aᵀ,
     implicit.py:289-292)."""
     return system_applies(
-        K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt, beta
+        K, obj.element_indices, obj.plan.idx, 1.0 / obj.mass, dt, beta, group
     )[1]
 
 
@@ -225,12 +232,20 @@ def make_mxu_system_apply(
 
 
 def diagonal_blocks(
-    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0
+    obj: FemObject, K: torch.Tensor, dt: float, beta: float = 0.0,
+    group=None,
 ) -> torch.Tensor:
     """Per-particle diagonal d×d blocks (N, d, d) of A from the mesh-order
     K blocks (block-Jacobi PCG; the JAX package's ``diagonal_blocks``)."""
     return diagonal_blocks_from(obj.element_indices, K, obj.mass, dt,
-                                obj.plan.idx, beta)
+                                obj.plan.idx, beta, group)
+
+
+def _assemble(obj: FemObject, contrib: torch.Tensor, group=None):
+    """Element rows (E, d+1, k) of ``obj`` summed onto its particles
+    through its gather plan, then over the ranks of ``group``."""
+    return segment_assemble(contrib, obj.element_indices, obj.particle_cnt,
+                            group, obj.plan)
 
 
 def _one_layer_force_columns(pos, element_indices, ref_inv, volume, mu, lam,
@@ -257,7 +272,7 @@ def _force_columns(obj: FemObject, robust: bool, layers):
     def cols(p, element_indices):
         return sum_layers(
             _one_layer_force_columns(
-                p, element_indices, layer_ref_inv_local(obj.ref_inv, fi),
+                p, element_indices, layer_ref_inv_local(obj.ref_inv, fi, obj.element_start),
                 obj.volume, mu, lam, material, robust)
             for fi, mu, lam, material in lys)
 
@@ -330,42 +345,46 @@ def element_linearization(cols_fn, pos: torch.Tensor,
 
 def make_exact_hvp_apply(
     obj: FemObject, pos: torch.Tensor, dt: float, robust: bool = False,
-    beta: float = 0.0, layers=None,
+    beta: float = 0.0, layers=None, group=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The true Newton operator A·x = x − dt·(dt+β)·M⁻¹·(∂f/∂x)·x at
     ``pos``, the Hessian-vector product taken by ``torch.func.jvp`` of the
     plain assembled force (the JAX package's ``make_exact_hvp_apply``,
     ``jax.jvp``): every vertex pair of an element couples, where the
-    reference's block Hessian drops the cross terms.  O(E) an apply."""
+    reference's block Hessian drops the cross terms.  O(E) an apply.  With
+    ``group`` the derivative of each rank's share of the force is summed
+    over the ranks (the sum is linear, so its derivative is the sum of
+    theirs), one all-reduce an apply."""
     c = system_coeff(dt, beta)
     force = _assembled_force(obj, robust, layers)
     m = obj.mass[:, None]
 
     def apply_a(x):
         _, df_x = torch.func.jvp(force, (pos,), (x,))
-        return x - c * df_x / m
+        return x - c * all_reduce_sum(df_x, group) / m
 
     return apply_a
 
 
 def _exact_apply_t(obj: FemObject, pos: torch.Tensor, dt: float,
-                   robust: bool, beta: float, layers):
+                   robust: bool, beta: float, layers, group=None):
     """Aᵀ·y = y − c·Jᵀ·M⁻¹·y of the exact operator, Jᵀ from
     ``torch.func.vjp`` of the same force (the JAX package's implicit.py:
-    1012-1018)."""
+    1012-1018), summed over the ranks of ``group``."""
     c = system_coeff(dt, beta)
     _, vjp_fn = torch.func.vjp(_assembled_force(obj, robust, layers), pos)
     m = obj.mass[:, None]
 
     def apply_at(y):
         (jt,) = vjp_fn(y / m)
-        return y - c * jt
+        return y - c * all_reduce_sum(jt, group)
 
     return apply_at
 
 
 def rayleigh_damping_grad(obj: FemObject, pos: torch.Tensor,
-                          vel: torch.Tensor, layers=None) -> torch.Tensor:
+                          vel: torch.Tensor, layers=None,
+                          group=None) -> torch.Tensor:
     """The explicit paths' Rayleigh term in the gradient's sign: −β·G(K)·v
     with K the decoupled blocks summed over material ``layers`` (the JAX
     package's ``rayleigh_damping_grad``; β = ``obj.damping_beta``).  A
@@ -374,19 +393,19 @@ def rayleigh_damping_grad(obj: FemObject, pos: torch.Tensor,
     every other material's from the plain ``hessian_blocks``."""
     K = sum_layers(
         ek.hessian_blocks(pos, obj.element_indices,
-                          layer_ref_inv_local(obj.ref_inv, fi), obj.volume,
+                          layer_ref_inv_local(obj.ref_inv, fi, obj.element_start), obj.volume,
                           mu, lam)
         if material == "neo_hookean" else
         element.hessian_blocks(pos, obj.element_indices,
-                               layer_ref_inv_local(obj.ref_inv, fi),
+                               layer_ref_inv_local(obj.ref_inv, fi, obj.element_start),
                                obj.volume, mu, lam, False, material)
         for fi, mu, lam, material in normalize_layers(obj, layers))
-    return -obj.damping_beta * graph_block_apply(obj, K, vel)
+    return -obj.damping_beta * graph_block_apply(obj, K, vel, group)
 
 
 def implicit_rhs(obj: FemObject, state: SimState, dt: float,
                  robust: bool = False, element_backend: str = "auto",
-                 layers=None) -> torch.Tensor:
+                 layers=None, group=None) -> torch.Tensor:
     """b = v + dt·M⁻¹·f_elastic (N, d), f summed over material ``layers``
     (the JAX package's ``implicit_rhs``, its solvers/implicit.py:444-485).
     ``element_backend`` "pallas" ("auto" on a CUDA object) sends a
@@ -398,7 +417,7 @@ def implicit_rhs(obj: FemObject, state: SimState, dt: float,
         element_backend = "pallas" if state.pos.device.type == "cuda" else "xla"
     cols = []
     for fi, mu, lam, material in normalize_layers(obj, layers):
-        r_eff = layer_ref_inv_local(obj.ref_inv, fi)
+        r_eff = layer_ref_inv_local(obj.ref_inv, fi, obj.element_start)
         args = (state.pos, obj.element_indices, r_eff, obj.volume, mu, lam)
         if element_backend == "pallas" and material != "neo_hookean":
             cols.append(-ek.explicit_grad_columns(*args, material))
@@ -406,7 +425,7 @@ def implicit_rhs(obj: FemObject, state: SimState, dt: float,
             cols.append(ek.implicit_force_columns(*args))
         else:
             cols.append(_one_layer_force_columns(*args, material, robust))
-    f = gather_assemble(element_contrib_full(sum_layers(cols)), obj.plan.idx)
+    f = _assemble(obj, element_contrib_full(sum_layers(cols)), group)
     return state.vel + dt * f / obj.mass[:, None]
 
 
@@ -466,16 +485,20 @@ def jacobi_solve_serial_sparse(nb_ids: torch.Tensor, blocks: torch.Tensor,
 
 
 def sparse_system_rows(obj: FemObject, K: torch.Tensor, dt: float,
-                       beta: float = 0.0) -> torch.Tensor:
+                       beta: float = 0.0, group=None) -> torch.Tensor:
     """Block-sparse rows (N, max_nb, d, d) of A = I − c·M⁻¹·G(K) over the
     object's neighbour slots (the JAX package's ``sparse_system_rows``):
     slot k of row i holds A[i, jacobi_nb[i, k]], zero on padded slots.
     Each slot sums its ±K contributions through ``obj.jacobi_gather`` in
-    ascending order (a gather, no atomics); c = :func:`system_coeff`."""
+    ascending order (a gather, no atomics); c = :func:`system_coeff`.
+    With ``group`` (element sharding: each rank's K, Jacobi slots and
+    coefficients a slice of the mesh's) the slot sums are summed over its
+    ranks, one all-reduce."""
     d, n = obj.dim, obj.particle_cnt
     max_nb = obj.jacobi_nb.shape[1]
     vals = K[:, None, :, :] * obj.jacobi_coeff[..., None, None]
-    acc = gather_tiered(vals.reshape(-1, d * d), obj.jacobi_gather)
+    acc = all_reduce_sum(
+        gather_tiered(vals.reshape(-1, d * d), obj.jacobi_gather), group)
     a = -system_coeff(dt, beta) * acc.reshape(n, max_nb, d, d) \
         / obj.mass[:, None, None, None]
     ids = torch.arange(n, dtype=obj.jacobi_nb.dtype, device=K.device)
@@ -509,6 +532,7 @@ def implicit_velocity_solve(
     hessian: str = "reference",
     element_backend: str = "auto",
     jacobi_sweep: str = "serial",
+    group=None,
 ) -> Tuple[SimState, ImplicitAux]:
     """Assemble (matrix-free) and solve for the new velocity; returns the
     updated state (vel ← x, implicit.py:222-223; the Jacobi solver also
@@ -516,10 +540,18 @@ def implicit_velocity_solve(
     iterations and final error ‖b − A·x‖), all left on the object's device.
     The branches as the module says; ``layers``: the material layers (None:
     the one elastic layer); ``element_backend`` applies to the
-    exact-Hessian rhs."""
+    exact-Hessian rhs.
+
+    With ``group`` (element sharding, ``parallel/sharding.py``) ``obj``
+    holds a rank's elements and blocks: every assembly and operator apply
+    is summed over the ranks (one all-reduce each) and the solver's
+    iterations run on every rank alike.  The whole solve K4 and the
+    edge-matrix operator are single-device: CG takes the blocked branch on
+    the rank's blocks when it has them and ``operator_mode`` allows it,
+    else the graph branch, as the JAX package's sharded solve does."""
     if method == JACOBI_METHOD:
         return _jacobi_velocity_solve(obj, state, dt, robust, operator_mode,
-                                      layers, hessian, jacobi_sweep)
+                                      layers, hessian, jacobi_sweep, group)
     if method != CONJUGATE_GRADIENT_METHOD:
         raise ValueError(f"unknown implicit method {method}")
     two_level = parse_two_level_precond(cg_precond)[0]
@@ -528,33 +560,34 @@ def implicit_velocity_solve(
         raise ValueError(f"unknown cg_precond {cg_precond!r}")
     if hessian == "exact_jvp":
         return _exact_solve(obj, state, dt, preconditioned, cg_precond,
-                            robust, element_backend, layers)
+                            robust, element_backend, layers, group)
     if hessian != "reference":
         raise ValueError(f"unknown hessian {hessian!r}")
     lys = normalize_layers(obj, layers)
     extended = (obj.free_mask is not None or obj.damping_beta != 0.0
-                or cg_precond == "block_jacobi" or two_level)
+                or cg_precond == "block_jacobi" or two_level
+                or group is not None)
     if operator_mode == "blocked" or (
             extended and obj.blocking is not None
             and operator_mode in ("auto", "fused")):
         return _blocked_solve(obj, state, dt, preconditioned, cg_precond,
-                              robust, lys)
+                              robust, lys, group)
     K, cols = sum_layers(
         ek.hessian_and_force(
             state.pos, obj.element_indices,
-            layer_ref_inv_local(obj.ref_inv, fi), obj.volume, mu, lam, robust,
-            material,
+            layer_ref_inv_local(obj.ref_inv, fi, obj.element_start),
+            obj.volume, mu, lam, robust, material,
         )
         for fi, mu, lam, material in lys
     )
-    if obj.edge_matrix is not None and (
+    if group is None and obj.edge_matrix is not None and (
             operator_mode == "mxu"
             or (operator_mode == "auto" and obj.blocking is None)):
         return _graph_solve(obj, state, dt, preconditioned, cg_precond, K,
                             cols, mxu=True)
     if extended:
         return _graph_solve(obj, state, dt, preconditioned, cg_precond, K,
-                            cols)
+                            cols, group=group)
     normal = preconditioned == 1 and cg_precond == "reference"
     vel, iters, residual = fused_cg_solve(
         K, cols, obj.element_indices, obj.plan, state.vel, obj.mass, dt,
@@ -568,14 +601,15 @@ def _solved(state: SimState, res: CGResult) -> Tuple[SimState, ImplicitAux]:
 
 
 def _graph_solve(obj, state, dt, preconditioned, cg_precond, K, cols,
-                 mxu=False):
+                 mxu=False, group=None):
     """The graph branch (JAX implicit.py:1103-1155 with its CG dispatch at
     :1141-1155): b from K1's force columns, then the dispatch over the
     plain graph operator — or with ``mxu`` the edge-matrix operator
     (:func:`make_mxu_system_apply`, JAX :1186-1196) — with β, the pin
-    projection and the block-Jacobi blocks of K."""
+    projection and the block-Jacobi blocks of K; ``group`` sums every
+    assembly and apply over its ranks."""
     beta = obj.damping_beta
-    f = gather_assemble(element_contrib_full(cols), obj.plan.idx)
+    f = _assemble(obj, element_contrib_full(cols), group)
     b = state.vel + dt * f / obj.mass[:, None]
     if mxu:
         apply_a, apply_at = make_mxu_system_apply(obj, K, obj.edge_matrix, dt,
@@ -583,17 +617,19 @@ def _graph_solve(obj, state, dt, preconditioned, cg_precond, K, cols,
     else:
         apply_a, apply_at = system_applies(K, obj.element_indices,
                                            obj.plan.idx, 1.0 / obj.mass, dt,
-                                           beta)
+                                           beta, group)
     return _solved(state, cg_solve_dispatch(
         apply_a, lambda: apply_at, b, preconditioned, cg_precond,
-        lambda: diagonal_blocks(obj, K, dt, beta), obj.mass, obj.free_mask,
-        obj.pin_vel, two_level_fn=_two_level_fn(obj, K, dt, beta)))
+        lambda: diagonal_blocks(obj, K, dt, beta, group), obj.mass,
+        obj.free_mask, obj.pin_vel,
+        two_level_fn=_two_level_fn(obj, K, dt, beta, group=group)))
 
 
-def _two_level_fn(obj, K, dt, beta, element_indices=None):
+def _two_level_fn(obj, K, dt, beta, element_indices=None, group=None):
     """The thunk of the two-level PCG's (coarse space, coarse matrix) for K
     on ``element_indices`` (the mesh's when None; the JAX package's
-    implicit.py:1125-1151 and :1252-1275)."""
+    implicit.py:1125-1151 and :1252-1275), the coarse matrix's element sum
+    over the ranks of ``group``."""
     def two_level_fn():
         if obj.agg_ids is None:
             raise ValueError(
@@ -602,13 +638,30 @@ def _two_level_fn(obj, K, dt, beta, element_indices=None):
             )
         coarse = make_coarse_space(obj)
         return coarse, coarse_matrix(coarse, obj, K, dt, beta, obj.free_mask,
-                                     element_indices)
+                                     element_indices, group=group)
 
     return two_level_fn
 
 
+def blocked_diagonal_blocks(obj: FemObject, K: torch.Tensor, dt: float,
+                            beta: float = 0.0, group=None) -> torch.Tensor:
+    """The diagonal blocks (N, d, d) of A from the block-ordered K of
+    ``obj.blocking`` (B·Eb, d, d).  Single-device: K to mesh order through
+    ``Blocking.element_slot``, assembled there (:func:`diagonal_blocks`).
+    With ``group`` the rank's blocks hold a slice of the mesh, so K is
+    assembled in block order through the plan of the blocking's element
+    rows (padded slots carry K = 0) and summed over the ranks."""
+    blk = obj.blocking
+    if group is None:
+        return diagonal_blocks(obj, K[blk.element_slot.long()], dt, beta)
+    return diagonal_blocks_from(
+        blk.element_indices, K, obj.mass, dt,
+        element_gather_plan(blk.element_indices, obj.particle_cnt).idx, beta,
+        group)
+
+
 def _blocked_solve(obj, state, dt, preconditioned, cg_precond, robust,
-                   layers) -> Tuple[SimState, ImplicitAux]:
+                   layers, group=None) -> Tuple[SimState, ImplicitAux]:
     """The blocked branch (JAX implicit.py:1080-1101 and :1128-1139): K2
     per material layer, each launch ending in its layer's assembled force
     (``blocked_prep_force``; the layers' K and f summed in layer order,
@@ -617,49 +670,57 @@ def _blocked_solve(obj, state, dt, preconditioned, cg_precond, robust,
     summed K, with β, the pin projection and the block-Jacobi blocks.  The
     port's K2 emits K in the flat block order (B·Eb, d, d) that the JAX
     package gets from ``kplane_to_kflat``; the diagonal blocks take it to
-    mesh order through ``Blocking.element_slot`` and assemble it there."""
+    mesh order through ``Blocking.element_slot`` and assemble it there
+    (:func:`blocked_diagonal_blocks`).  With ``group`` the force and every
+    K3 product are summed over the ranks, one all-reduce each."""
     if obj.blocking is None:
         raise ValueError("operator_mode='blocked' requires obj.blocking")
     blk = obj.blocking
     beta = obj.damping_beta
-    prepped = sum_layers(
+    K, f = sum_layers(
         blocked_prep_force(
             blk, state.pos, mu, lam,
             None if fi is None else layer_ref_inv_blocked(blk, fi), material,
             robust)
         for fi, mu, lam, material in layers
     )
-    K = prepped[0]
+    f = all_reduce_sum(f, group)
     normal = preconditioned == 1 and cg_precond == "reference"
     return _solved(state, blocked_velocity_solve(
-        blk, prepped, state.vel, obj.mass, dt, normal, beta=beta,
+        blk, (K, f), state.vel, obj.mass, dt, normal, beta=beta,
         cg_precond=cg_precond,
-        diag_fn=lambda: diagonal_blocks(obj, K[blk.element_slot.long()], dt,
-                                        beta),
+        diag_fn=lambda: blocked_diagonal_blocks(obj, K, dt, beta, group),
         free=obj.free_mask, pin_vel=obj.pin_vel,
-        two_level_fn=_two_level_fn(obj, K, dt, beta, blk.element_indices)))
+        two_level_fn=_two_level_fn(obj, K, dt, beta, blk.element_indices,
+                                   group),
+        group=group))
 
 
 def _exact_solve(obj, state, dt, preconditioned, cg_precond, robust,
-                 element_backend, layers) -> Tuple[SimState, ImplicitAux]:
+                 element_backend, layers, group=None
+                 ) -> Tuple[SimState, ImplicitAux]:
     """``hessian="exact_jvp"`` (JAX implicit.py:995-1023): the exact
     operator, the rhs through ``implicit_rhs`` and the CG dispatch without
     diagonal blocks (block-Jacobi raises there)."""
     beta = obj.damping_beta
-    apply_a = make_exact_hvp_apply(obj, state.pos, dt, robust, beta, layers)
-    b = implicit_rhs(obj, state, dt, robust, element_backend, layers)
+    apply_a = make_exact_hvp_apply(obj, state.pos, dt, robust, beta, layers,
+                                   group)
+    b = implicit_rhs(obj, state, dt, robust, element_backend, layers, group)
     return _solved(state, cg_solve_dispatch(
         apply_a,
-        lambda: _exact_apply_t(obj, state.pos, dt, robust, beta, layers),
+        lambda: _exact_apply_t(obj, state.pos, dt, robust, beta, layers,
+                               group),
         b, preconditioned, cg_precond, None, obj.mass, obj.free_mask,
         obj.pin_vel))
 
 
 def _jacobi_velocity_solve(obj, state, dt, robust, operator_mode, layers,
-                           hessian, jacobi_sweep
+                           hessian, jacobi_sweep, group=None
                            ) -> Tuple[SimState, ImplicitAux]:
     """The Jacobi solver (JAX implicit.py:979-1001 for its refusals,
-    :1157-1245 for the solve), as the module says."""
+    :1157-1245 for the solve), as the module says; ``group`` sums the
+    force, the rows and the snapshot operator over its ranks, and J1 runs
+    on every rank alike."""
     if layers is not None:
         raise ValueError(
             "inelastic materials support only the CG solver "
@@ -679,7 +740,7 @@ def _jacobi_velocity_solve(obj, state, dt, robust, operator_mode, layers,
     K, cols = ek.hessian_and_force(
         state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
         obj.s_lambda, robust, obj.material)
-    f = gather_assemble(element_contrib_full(cols), obj.plan.idx)
+    f = _assemble(obj, element_contrib_full(cols), group)
     b = state.vel + dt * f / obj.mass[:, None]
     if obj.free_mask is not None:
         raise ValueError(
@@ -690,7 +751,8 @@ def _jacobi_velocity_solve(obj, state, dt, robust, operator_mode, layers,
     if jacobi_sweep == "serial":
         if obj.jacobi_nb is not None:
             res = jacobi_solve_serial_sparse(
-                obj.jacobi_nb, sparse_system_rows(obj, K, dt, beta), b, past)
+                obj.jacobi_nb, sparse_system_rows(obj, K, dt, beta, group),
+                b, past)
         else:
             from fem_tpu_torch.solvers.dense import assemble_dense_system
 
@@ -698,20 +760,22 @@ def _jacobi_velocity_solve(obj, state, dt, robust, operator_mode, layers,
                 assemble_dense_system(obj, K, dt, beta), b, past)
     elif jacobi_sweep == "snapshot":
         res = jacobi_solve(
-            _snapshot_operator(obj, state, dt, robust, operator_mode, K),
-            diagonal_blocks(obj, K, dt, beta), b, past)
+            _snapshot_operator(obj, state, dt, robust, operator_mode, K,
+                               group),
+            diagonal_blocks(obj, K, dt, beta, group), b, past)
     else:
         raise ValueError(f"unknown jacobi_sweep {jacobi_sweep!r}")
     return (state.replace(vel=res.x, jacobi_past_x=res.past_x),
             ImplicitAux(res.iterations, res.error))
 
 
-def _snapshot_operator(obj, state, dt, robust, operator_mode, K):
+def _snapshot_operator(obj, state, dt, robust, operator_mode, K, group=None):
     """A·x of the snapshot sweep (JAX implicit.py:1186-1196, 1219-1241):
     on locality blocks under "auto" or "blocked", K3 over K from K1 on the
     block-ordered element copies (the blocking keeps no element
     permutation of the mesh-order K); else the edge-matrix operator when
-    the object carries S under "mxu" or "auto"; else the graph operator."""
+    the object carries S under "mxu" or "auto" (single-device); else the
+    graph operator.  ``group`` sums each product over its ranks."""
     beta = obj.damping_beta
     if obj.blocking is not None and operator_mode in ("auto", "blocked"):
         blk = obj.blocking
@@ -720,7 +784,9 @@ def _snapshot_operator(obj, state, dt, robust, operator_mode, K):
             obj.s_lambda, robust, obj.material)
         c = system_coeff(dt, beta)
         m = obj.mass[:, None]
-        return lambda x: x - c * blocked_graph_apply(blk, k_blk, x) / m
-    if obj.edge_matrix is not None and operator_mode in ("mxu", "auto"):
+        return lambda x: x - c * all_reduce_sum(
+            blocked_graph_apply(blk, k_blk, x), group) / m
+    if group is None and obj.edge_matrix is not None and \
+            operator_mode in ("mxu", "auto"):
         return make_mxu_system_apply(obj, K, obj.edge_matrix, dt, beta)[0]
-    return make_system_apply(obj, K, dt, beta)
+    return make_system_apply(obj, K, dt, beta, group)

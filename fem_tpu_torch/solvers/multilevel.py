@@ -50,6 +50,7 @@ import torch
 from fem_tpu_torch.ops import smallmat as sm
 from fem_tpu_torch.ops.assembly import (
     TieredPlan,
+    all_reduce_sum,
     gather_assemble,
     gather_tiered,
     make_jacobi_gather,
@@ -253,9 +254,12 @@ def coarse_matrix(
     element_indices: Optional[torch.Tensor] = None,
     coeff=None,
     mass_vec: Optional[torch.Tensor] = None,
+    group=None,
 ) -> torch.Tensor:
     """C = R̃ᵀ·Ã·R̃ (G·n_rb, G·n_rb), assembled exactly in O(E) (the JAX
-    package's ``coarse_matrix``).
+    package's ``coarse_matrix``).  With ``group`` (element sharding: K and
+    ``element_indices`` a rank's slice) the aggregate-pair sum is summed
+    over its ranks, one all-reduce.
 
     The general form is C = Rᵀ·diag(``mass_vec``)·R − ``coeff``·Rᵀ·G(K)·R:
     the dynamic system takes the defaults (``obj.mass``, dt·(dt + β)); the
@@ -292,8 +296,8 @@ def coarse_matrix(
         p_00.reshape(e, 1, nrb * nrb).expand(e, d, nrb * nrb)
         .reshape(e * d, nrb * nrb),
     ])
-    gkr = gather_tiered(pair_blocks, pair_plan(coarse, idx)).reshape(
-        g_count, g_count, nrb, nrb)
+    gkr = all_reduce_sum(gather_tiered(pair_blocks, pair_plan(coarse, idx)),
+                         group).reshape(g_count, g_count, nrb, nrb)
     if coeff is None:
         coeff = dt * (dt + beta)
     if mass_vec is None:

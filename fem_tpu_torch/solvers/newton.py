@@ -60,7 +60,12 @@ import torch
 from fem_tpu_torch.models.state import FemObject, SimState
 from fem_tpu_torch.ops import element
 from fem_tpu_torch.ops import element_kernels as ek
-from fem_tpu_torch.ops.assembly import element_contrib_full, gather_assemble
+from fem_tpu_torch.ops.assembly import (
+    all_reduce_sum,
+    element_contrib_full,
+    element_gather_plan,
+    segment_assemble,
+)
 from fem_tpu_torch.ops.blocked_kernels import (
     blocked_assemble,
     blocked_graph_apply,
@@ -108,11 +113,12 @@ def _resolve_backend(element_backend: str, device: torch.device) -> str:
 
 
 def _decoupled_prep(obj: FemObject, pos: torch.Tensor, element_backend: str,
-                    robust: bool = False, layers=None):
+                    robust: bool = False, layers=None, group=None):
     """(assembled elastic force f (N, d), K) at ``pos``, summed over the
     material ``layers`` (the JAX package's ``_decoupled_prep``).  K is in
     block order (B·Eb, d, d) on an object with locality blocks, else in
-    mesh order: what :func:`_decoupled_apply` takes."""
+    mesh order: what :func:`_decoupled_apply` takes.  With ``group`` f is
+    summed over its ranks (K stays the rank's)."""
     blk = obj.blocking
     lys = normalize_layers(obj, layers)
     if blk is not None and element_backend == "pallas":
@@ -122,28 +128,29 @@ def _decoupled_prep(obj: FemObject, pos: torch.Tensor, element_backend: str,
                 None if fi is None else layer_ref_inv_blocked(blk, fi),
                 material, robust)
             for fi, mu, lam, material in lys)
-        return f, K
+        return all_reduce_sum(f, group), K
     if blk is not None:
         K, cols = sum_layers(
             _plain_k_and_cols(pos, blk.element_indices,
                               layer_ref_inv_blocked(blk, fi), blk.volume,
                               mu, lam, material, robust)
             for fi, mu, lam, material in lys)
-        return blocked_assemble(blk, cols), K
+        return all_reduce_sum(blocked_assemble(blk, cols), group), K
     if element_backend == "pallas":
         K, cols = sum_layers(
             ek.hessian_and_force(
                 pos, obj.element_indices,
-                layer_ref_inv_local(obj.ref_inv, fi), obj.volume, mu, lam,
+                layer_ref_inv_local(obj.ref_inv, fi, obj.element_start), obj.volume, mu, lam,
                 robust, material)
             for fi, mu, lam, material in lys)
     else:
         K, cols = sum_layers(
             _plain_k_and_cols(pos, obj.element_indices,
-                              layer_ref_inv_local(obj.ref_inv, fi),
+                              layer_ref_inv_local(obj.ref_inv, fi, obj.element_start),
                               obj.volume, mu, lam, material, robust)
             for fi, mu, lam, material in lys)
-    return gather_assemble(element_contrib_full(cols), obj.plan.idx), K
+    return segment_assemble(element_contrib_full(cols), obj.element_indices,
+                            obj.particle_cnt, group, obj.plan), K
 
 
 def _plain_k_and_cols(pos, element_indices, ref_inv, volume, mu, lam,
@@ -157,25 +164,27 @@ def _plain_k_and_cols(pos, element_indices, ref_inv, volume, mu, lam,
 
 
 def _decoupled_apply(obj: FemObject, K: torch.Tensor, dt: float,
-                     beta: float = 0.0):
+                     beta: float = 0.0, group=None):
     """w ↦ w − dt·(dt + β)·M⁻¹·G(K)·w from a stored K (the JAX package's
     ``_decoupled_apply``): the blocked operator (K3) on an object with
-    locality blocks, else the graph operator."""
+    locality blocks, else the graph operator; each product summed over the
+    ranks of ``group``."""
     if obj.blocking is not None:
-        return blocked_system_applies(obj.blocking, K, obj.mass, dt, beta)[0]
-    return make_system_apply(obj, K, dt, beta)
+        return blocked_system_applies(obj.blocking, K, obj.mass, dt, beta,
+                                      group=group)[0]
+    return make_system_apply(obj, K, dt, beta, group)
 
 
-def _decoupled_minv_gk(obj: FemObject, K: torch.Tensor):
+def _decoupled_minv_gk(obj: FemObject, K: torch.Tensor, group=None):
     """w ↦ M⁻¹·G(K)·w from a stored K (the JAX package's
     ``_decoupled_minv_gk``): the damping force's product."""
     blk = obj.blocking
 
     def apply_gk(w: torch.Tensor) -> torch.Tensor:
         if blk is not None:
-            gw = blocked_graph_apply(blk, K, w)
+            gw = all_reduce_sum(blocked_graph_apply(blk, K, w), group)
         else:
-            gw = graph_block_apply(obj, K, w)
+            gw = graph_block_apply(obj, K, w, group)
         return gw / obj.mass[:, None]
 
     return apply_gk
@@ -204,10 +213,15 @@ def newton_velocity_solve(
     theta: float = 1.0,
     layers=None,
     v_n_pos: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[SimState, ImplicitAux]:
     """Solve r(v) = 0 for the end-of-substep velocity; vel ← v (the JAX
-    package's ``newton_velocity_solve``, argument for argument but
-    ``axis_name``).
+    package's ``newton_velocity_solve``, argument for argument, its
+    ``axis_name`` the ``group`` of element sharding: every assembly, K3
+    product and exact-Hessian product (H1 on the rank's elements) summed
+    over the ranks, one all-reduce each, and the Newton, line-search and
+    inner CG loops run on every rank alike, their stop tests on summed
+    values).
 
     Converged when max |P·r| ≤ ``tol``, or after ``max_newton`` steps or 3
     line-search failures in a row.  Pins: the iterate starts at vₙ on free
@@ -246,7 +260,7 @@ def newton_velocity_solve(
     x_n = state.pos
     decoupled = hessian_mode == "decoupled"
     force_cols = _force_columns(obj, robust, layers)
-    force_exact = None if decoupled else _assembled_force(obj, robust, layers)
+    force_local = None if decoupled else _assembled_force(obj, robust, layers)
     totals = newton_velocity_solve.totals
     trials = 0
 
@@ -263,15 +277,15 @@ def newton_velocity_solve(
         element prep gives both."""
         pos = position(v)
         if decoupled:
-            f, K = _decoupled_prep(obj, pos, backend, robust, layers)
+            f, K = _decoupled_prep(obj, pos, backend, robust, layers, group)
             r = (v - v_n) - dt * inv_m * f
             if beta != 0.0:
-                r = r - dt * beta * _decoupled_minv_gk(obj, K)(v)
+                r = r - dt * beta * _decoupled_minv_gk(obj, K, group)(v)
         else:
-            f, K = force_exact(pos), None
+            f, K = all_reduce_sum(force_local(pos), group), None
             if beta != 0.0:
-                _, df_v = torch.func.jvp(force_exact, (pos,), (v,))
-                f = f + beta * df_v
+                _, df_v = torch.func.jvp(force_local, (pos,), (v,))
+                f = f + beta * all_reduce_sum(df_v, group)
             r = (v - v_n) - dt * inv_m * f
         return project(r), K
 
@@ -283,10 +297,18 @@ def newton_velocity_solve(
     def diag_of(K):
         """The decoupled Jacobian's diagonal blocks, pinned rows the
         identity."""
-        if obj.blocking is not None:  # block order → mesh order
-            K = K[obj.blocking.element_slot.long()]
-        diag = diagonal_blocks_from(obj.element_indices, K, obj.mass, dt,
-                                    obj.plan.idx, beta_eff)
+        if obj.blocking is not None and group is not None:
+            # A rank's blocks: assembled in block order, then summed.
+            idx = obj.blocking.element_indices
+            diag = diagonal_blocks_from(
+                idx, K, obj.mass, dt,
+                element_gather_plan(idx, obj.particle_cnt).idx, beta_eff,
+                group)
+        else:
+            if obj.blocking is not None:  # block order → mesh order
+                K = K[obj.blocking.element_slot.long()]
+            diag = diagonal_blocks_from(obj.element_indices, K, obj.mass,
+                                        dt, obj.plan.idx, beta_eff)
         if free is None:
             return diag
         eye = torch.eye(obj.dim, dtype=diag.dtype, device=diag.device)[None]
@@ -309,24 +331,26 @@ def newton_velocity_solve(
         coarse = make_coarse_space(obj)
         idx = (obj.blocking.element_indices if obj.blocking is not None
                else obj.element_indices)
-        c_mat = coarse_matrix(coarse, obj, K, dt, beta_eff, free, idx)
+        c_mat = coarse_matrix(coarse, obj, K, dt, beta_eff, free, idx,
+                              group=group)
         tl_setup = two_level_setup(
             diag_of(K), obj.mass, coarse, c_mat, free,
-            operator=projected(_decoupled_apply(obj, K, dt, beta_eff)))
+            operator=projected(_decoupled_apply(obj, K, dt, beta_eff,
+                                                group)))
     gn, gn_f = _res_norm(r)
     tol_f32 = float(torch.tensor(tol, dtype=torch.float32))
     steps = fails = 0
     cg_total = torch.zeros((), dtype=torch.int32, device=v.device)
     while steps < max_newton and gn_f > tol_f32 and fails < 3:
         if decoupled:
-            base_op = _decoupled_apply(obj, K, dt, beta_eff)
+            base_op = _decoupled_apply(obj, K, dt, beta_eff, group)
         else:
             hvp = element_linearization(force_cols, position(v),
                                         obj.element_indices, obj.plan)
             coeff = dt * (theta * theta * dt + beta)
 
             def base_op(w, hvp=hvp, coeff=coeff):
-                return w - coeff * inv_m * hvp(w)
+                return w - coeff * inv_m * all_reduce_sum(hvp(w), group)
 
         op = projected(base_op)
         rr = torch.sum(r * r)

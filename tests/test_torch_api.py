@@ -173,21 +173,29 @@ def test_check_state_raises_on_a_diverged_state():
 
 
 def test_unported_features_are_refused():
-    """``sharded=True`` names ROADMAP M20, with penalty contact too; it
-    runs in no degraded form.  The static solve refuses an unpinned body
-    as the JAX package does."""
+    """The static solve refuses an unpinned body as the JAX package does.
+    ``sharded=True`` runs (ROADMAP M20, ported): on a one-rank process
+    group here (gloo on the CPU), the sharded frames of the 2D scene and of
+    ``demo_two_bodies_contact.json`` (the sharded contact frame) agree with
+    the unsharded ones within 1e-5."""
     sim = fem_tpu_torch.Simulation.from_dict(_cfg_dict(), device="cpu")
     with pytest.raises(ValueError, match="pin_boxes"):
         sim.solve_static()
-    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
-        fem_tpu_torch.Simulation.from_dict(_cfg_dict(), sharded=True,
-                                           device="cpu")
     with open(os.path.join(REPO, "configs",
                            "demo_two_bodies_contact.json")) as f:
         contact = json.load(f)
-    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
-        fem_tpu_torch.Simulation.from_dict(contact, sharded=True,
-                                           device="cpu")
+    for data in (_cfg_dict(), contact, _cfg_dict(
+            auto_diff=False, use_explicit_method=False, implicit_method=1)):
+        sharded = fem_tpu_torch.Simulation.from_dict(data, sharded=True,
+                                                     device="cpu")
+        plain = fem_tpu_torch.Simulation.from_dict(data, device="cpu")
+        assert (sharded._contact_frame is None) == (plain._contact_frame
+                                                    is None)
+        sharded.run(frames=2)
+        plain.run(frames=2)
+        for i in range(len(plain.scene)):
+            np.testing.assert_allclose(sharded.positions(i),
+                                       plain.positions(i), rtol=0, atol=TOL)
 
 
 def test_analyses_match_jax():

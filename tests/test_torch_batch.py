@@ -130,6 +130,20 @@ def test_per_sample_obstacles_match_jax():
 
 
 def test_sharded_batch_is_refused():
-    pcfg, obj, *_ = _scene()
-    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
-        batch.make_sharded_batched_frame_fn(obj, pcfg, None)
+    """``make_sharded_batched_frame_fn`` runs (ROADMAP M20, ported): on a
+    one-rank mesh here (gloo on the CPU) its members are those of
+    ``make_batched_frame_fn``, bit for bit, and those of the JAX package's
+    batched frame within 1e-5 with equal iterations."""
+    from fem_tpu_torch.parallel.sharding import make_element_mesh
+
+    pcfg, obj, state, obs, jcfg, jobj, jstate, jobs = _scene()
+    jstates = jbatch.perturb_states(jstate, B, scale=1e-3, seed=1)
+    states = _to_port(jstates)
+    sharded = batch.make_sharded_batched_frame_fn(
+        obj, pcfg, make_element_mesh(device="cpu"))
+    out, aux = _run(sharded, states, obs)
+    ref, ref_aux = _run(batch.make_batched_frame_fn(obj, pcfg), states, obs)
+    assert torch.equal(out.pos, ref.pos) and torch.equal(out.vel, ref.vel)
+    assert torch.equal(aux.solver_iterations, ref_aux.solver_iterations)
+    jout, jaux = _run(jbatch.make_batched_frame_fn(jobj, jcfg), jstates, jobs)
+    _assert_batch_close(out, jout, aux, jaux)

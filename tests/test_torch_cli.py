@@ -165,11 +165,15 @@ def test_contact_config_matches_the_jax_cli(tmp_path, capsys):
     assert times == ["0.010", "0.020", "0.030"]
 
 
-def test_sharded_contact_is_refused(tmp_path):
+def test_sharded_contact_is_refused(tmp_path, capsys):
+    """``--sharded`` with a contact scene exits with code 3 and the root
+    ``main.py``'s message, as the root ``main.py`` does (the coupled frame
+    is sharded through ``Simulation(sharded=True)``)."""
     cfg = os.path.join(REPO, "configs", "demo_two_bodies_contact.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
-        _port(["--config", cfg, "--frames", "1", "--no-render", "--sharded",
-               "--output", str(tmp_path / "out")])
+    assert _port(["--config", cfg, "--frames", "1", "--no-render",
+                  "--sharded", "--output", str(tmp_path / "out")]) == 3
+    assert ("contact='penalty' is not supported with --sharded"
+            in capsys.readouterr().out)
 
 
 def test_checkpoint_resume_bit_identical(tmp_path):
@@ -308,11 +312,21 @@ def test_trace_writes_a_chrome_trace(tmp_path, capsys):
     assert json.loads((trace / "trace.json").read_text())["traceEvents"]
 
 
-def test_sharded_is_refused(tmp_path):
-    cfg = _write_cfg(tmp_path, is_output_gif=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
-        _port(["--config", cfg, "--frames", "1", "--no-render", "--sharded",
-               "--output", str(tmp_path / "out")])
+def test_sharded_is_refused(tmp_path, capsys):
+    """``--sharded`` runs (ROADMAP M20, ported): on a one-rank process
+    group here (gloo on the CPU), 3 frames of the explicit and the
+    implicit-CG config write the checkpoints of the unsharded run within
+    1e-5 and print the ranks."""
+    for name, over in (("explicit", {}), ("implicit", IMPLICIT)):
+        cfg = _write_cfg(tmp_path, name=f"{name}.json",
+                         **dict(over, is_output_gif=False))
+        a, b = str(tmp_path / f"{name}_a"), str(tmp_path / f"{name}_b")
+        args = ["--config", cfg, "--frames", "3", "--no-render",
+                "--checkpoint-every", "3"]
+        assert _port(args + ["--output", a]) == 0
+        assert _port(args + ["--sharded", "--output", b]) == 0
+        assert "sharded over 1 ranks" in capsys.readouterr().out
+        _assert_close(_ckpt(b, 3), _ckpt(a, 3))
 
 
 def test_no_render_imports_no_plotting_library(tmp_path):

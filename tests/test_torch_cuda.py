@@ -3542,3 +3542,128 @@ def test_stiffness_apply_refusals(stiffness_bodies):
     with pytest.raises(ValueError, match="unknown H1 variant"):
         sk.stiffness_apply(kv.binding, w, variant="tiles")
     assert sk.stiffness_apply.launches == before
+
+
+# -- element sharding: the kernels on a rank's tables --------------------------
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_sharded_blocks_match_plain_and_sum_to_unsharded(flagship, world):
+    """K3 and K2 on each rank's blocks of the flagship
+    (``blocking.shard_blocking``: 9, 5 and 3 blocks a rank at 2, 4 and 8
+    ranks, padded blocks empty) against their plain versions (1e-5 of the
+    largest entry, K block-relative 1e-5), twice bit-identical; the ranks'
+    products summed in rank order equal the unsharded ones within 1e-6 of
+    the largest entry."""
+    obj, state = flagship
+    blk, pos = obj.blocking, state.pos
+    x = state.vel + 0.3 * torch.randn(
+        state.vel.shape, generator=torch.Generator().manual_seed(21)).cuda()
+    K, f = blocked_kernels.blocked_prep_force(blk, pos, obj.mu, obj.s_lambda)
+    y = blocked_kernels.blocked_graph_apply(blk, K, x)
+    y_sum, f_sum = torch.zeros_like(y), torch.zeros_like(f)
+    for rank in range(world):
+        lb = blocking.shard_blocking(blk, rank, world)
+        assert lb.num_blocks == -(-17 // world)
+        k_r, f_r = blocked_kernels.blocked_prep_force(lb, pos, obj.mu,
+                                                      obj.s_lambda)
+        k_p, f_p = blocked_kernels.blocked_prep_force_plain(
+            lb, pos, obj.mu, obj.s_lambda)
+        y_r = blocked_kernels.blocked_graph_apply(lb, k_r, x)
+        assert blocked_kernels.blocked_graph_apply.last_plan.size == \
+            min(lb.num_blocks, 16)
+        y_p = blocked_kernels.blocked_graph_apply_plain(lb, k_r, x)
+        k_r2, f_r2 = blocked_kernels.blocked_prep_force(lb, pos, obj.mu,
+                                                        obj.s_lambda)
+        y_r2 = blocked_kernels.blocked_graph_apply(lb, k_r, x)
+        torch.cuda.synchronize()
+        scale = (k_p.abs().reshape(k_p.shape[0], -1).amax(dim=1)
+                 .clamp(min=1e-30)[:, None, None])
+        assert float(((k_r - k_p).abs() / scale).max()) <= TOL
+        for got, ref in ((f_r, f_p), (y_r, y_p)):
+            assert float((got - ref).abs().max()) <= TOL * max(
+                float(ref.abs().max()), 1e-30)
+        assert torch.equal(k_r, k_r2) and torch.equal(f_r, f_r2)
+        assert torch.equal(y_r, y_r2)
+        y_sum, f_sum = y_sum + y_r, f_sum + f_r
+    for got, ref in ((y_sum, y), (f_sum, f)):
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_sharded_elements_match_plain_and_sum_to_unsharded(flagship, world):
+    """K1, K6 and H1 (9 columns) on each rank's element rows of the
+    flagship (``parallel/sharding.shard_object``) against their plain
+    versions, twice bit-identical, and their assemblies summed over the
+    ranks equal to the unsharded ones within 1e-6 of the largest entry."""
+    from fem_tpu_torch.ops import assembly
+    from fem_tpu_torch.ops import stiffness_kernels as sk
+    from fem_tpu_torch.parallel import sharding
+    from fem_tpu_torch.solvers import modal
+
+    obj, state = flagship
+    pos = state.pos
+    w = torch.randn((obj.particle_cnt, 3, 9), generator=torch.Generator(
+        ).manual_seed(9)).cuda()
+
+    def assembled(cols, o):
+        return assembly.gather_assemble(assembly.element_contrib_full(cols),
+                                        o.plan.idx)
+
+    def chains(o):
+        args = (pos, o.element_indices, o.ref_inv, o.volume, obj.mu,
+                obj.s_lambda)
+        return (element_kernels.hessian_and_force(*args)[1],
+                element_kernels.explicit_grad_columns(*args), args)
+
+    h_ref, g_ref, _ = chains(obj)
+    sums = [0.0, 0.0, 0.0]
+    refs = (assembled(h_ref, obj), assembled(g_ref, obj),
+            modal.make_stiffness_hvp(obj, pos)(w))
+    for rank in range(world):
+        local = sharding.shard_object(obj, rank, world, blocked=False)
+        h, g, args = chains(local)
+        h2, g2, _ = chains(local)
+        _, h_p = element_kernels.hessian_and_force_plain(*args)
+        g_p = element_kernels.explicit_grad_columns_plain(*args)
+        kv = modal.make_stiffness_hvp(local, pos)
+        s, s2 = kv(w), kv(w)
+        s_p = sk.stiffness_apply_plain(kv.binding.jac, w,
+                                       kv.binding.element_indices,
+                                       kv.binding.plan_idx)
+        torch.cuda.synchronize()
+        for got, ref in ((h, h_p), (g, g_p)):
+            scale = (ref.abs().reshape(ref.shape[0], -1).amax(dim=1)
+                     .clamp(min=1e-30)[:, None, None])
+            assert float(((got - ref).abs() / scale).max()) <= TOL
+        assert float((s - s_p).abs().max()) <= 1e-6 * float(s_p.abs().max())
+        assert torch.equal(h, h2) and torch.equal(g, g2) and torch.equal(s, s2)
+        for i, part in enumerate((assembled(h, local), assembled(g, local),
+                                  s)):
+            sums[i] = sums[i] + part
+    for got, ref in zip(sums, refs):
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def test_sharded_frame_on_one_nccl_rank_matches_single_device(flagship):
+    """The flagship's sharded frame on a one-rank NCCL group against the
+    single-device op-composed frame on the same blocked operator: positions
+    within 1e-5, equal CG iterations, K2 once a substep and K3 3 + 2 an
+    iteration."""
+    from fem_tpu_torch import entry
+    from fem_tpu_torch.parallel import sharding
+
+    cfg, obj, state, obstacles = entry.flagship("cuda")
+    state = entry.deformed(state)
+    mesh = sharding.make_element_mesh(device="cuda")
+    frame = sharding.make_sharded_frame_fn(obj, cfg, mesh)
+    blocked_kernels.blocked_prep.launches = 0
+    blocked_kernels.blocked_graph_apply.launches = 0
+    out, aux = frame(state, obstacles)
+    iters = aux.solver_iterations.cpu().tolist()
+    assert blocked_kernels.blocked_prep.launches == cfg.sim_count
+    assert blocked_kernels.blocked_graph_apply.launches == sum(
+        3 + 2 * i for i in iters)
+    ref, ref_aux = sim.make_frame_fn(obj, dataclasses.replace(
+        cfg, operator_mode="blocked"))(state, obstacles)
+    assert iters == ref_aux.solver_iterations.cpu().tolist()
+    assert float((out.pos - ref.pos).abs().max()) <= TOL

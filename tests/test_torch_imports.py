@@ -150,11 +150,14 @@ def test_unported_features_raise():
         dict(integrator="newton"), dict(cg_precond="two_level"),
     ):
         check_supported_config(dataclasses.replace(base, **change))
-    # The analysis solvers run since M19; sharded=True stays refused (M20).
+    # The analysis solvers run since M19, sharded=True since M20 (a
+    # one-rank gloo group here); cg_fast_math stays refused.
     from fem_tpu_torch import Simulation
 
-    with pytest.raises(NotImplementedError, match="ROADMAP M20"):
-        Simulation(base, sharded=True, device="cpu")
+    sim = Simulation(base, sharded=True, device="cpu")
+    assert len(sim._frame_fns) == len(sim.scene) == 1
+    with pytest.raises(NotImplementedError, match="cg_fast_math"):
+        check_supported_config(dataclasses.replace(base, cg_fast_math=True))
     # Pins, loads and Rayleigh β run since M13.
     for change in (
         dict(load_boxes=(((0, 0, 0), (1, 1, 1), (0, -1, 0)),)),
