@@ -1,0 +1,5 @@
+"""K5's share of its roofline, in % (``harness.Context.roofline``)."""
+
+
+def read(ctx):
+    return ctx.roofline("K5")
